@@ -176,18 +176,6 @@ cudaError_t launch_time(const void* qkv, const void* sin_t, const void* cos_t,
   return cudaGetLastError();
 }
 
-template <int FT>
-cudaError_t time_by_dh(int dh, const void* qkv, const void* sin_t,
-                       const void* cos_t, void* out, int B, int F, int N,
-                       int H, float scale, cudaStream_t st) {
-  switch (dh) {  // keep in step with TIME_HEAD_DIMS in divided_attention.py
-    case 16: return launch_time<FT, 16>(qkv, sin_t, cos_t, out, B, F, N, H, scale, st);
-    case 32: return launch_time<FT, 32>(qkv, sin_t, cos_t, out, B, F, N, H, scale, st);
-    case 64: return launch_time<FT, 64>(qkv, sin_t, cos_t, out, B, F, N, H, scale, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace mdt
 
 extern "C" {
@@ -199,13 +187,9 @@ int divided_space_attention(const void* qkv, const void* sin_t,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const mdt::FlashArgs a =
       mdt::packed_args(qkv, sin_t, cos_t, out, N, H, dh, scale);
-  switch (dh) {
-    case 8: return mdt::launch_flash<8, true>(a, BF, H, st);
-    case 16: return mdt::launch_flash<16, true>(a, BF, H, st);
-    case 32: return mdt::launch_flash<32, true>(a, BF, H, st);
-    case 64: return mdt::launch_flash<64, true>(a, BF, H, st);
-    case 128: return mdt::launch_flash<128, true>(a, BF, H, st);
-  }
+  // built for the head dim the repository's configurations reach (AE
+  // dim_head 64); keep in step with SPACE_HEAD_DIMS in divided_attention.py
+  if (dh == 64) return mdt::launch_flash<64, true>(a, BF, H, st);
   return cudaErrorInvalidValue;
 }
 
@@ -214,9 +198,10 @@ int divided_time_attention(const void* qkv, const void* sin_t,
                            const void* cos_t, void* out, int B, int F, int N,
                            int H, int dh, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (F <= 8) return mdt::time_by_dh<8>(dh, qkv, sin_t, cos_t, out, B, F, N, H, scale, st);
-  if (F <= 16) return mdt::time_by_dh<16>(dh, qkv, sin_t, cos_t, out, B, F, N, H, scale, st);
-  if (F <= 32) return mdt::time_by_dh<32>(dh, qkv, sin_t, cos_t, out, B, F, N, H, scale, st);
+  // built for the shape the repository's configurations reach (16 frames,
+  // dim_head 64); keep in step with TIME_SHAPES in divided_attention.py
+  if (F == 16 && dh == 64)
+    return mdt::launch_time<16, 64>(qkv, sin_t, cos_t, out, B, F, N, H, scale, st);
   return cudaErrorInvalidValue;
 }
 

@@ -22,12 +22,12 @@ int onepass_attention(const void* q, const void* k, const void* v, void* out,
                          static_cast<const mdt::bf16*>(v),
                          nullptr, nullptr, static_cast<mdt::bf16*>(out),
                          seq, D, seq, D, 0, N, scale};
+  // built for the head dims the repository's configurations reach (UNet
+  // joint and plane attention at 128 and 256 model channels); keep in step
+  // with _HEAD_DIMS in flash_attention.py
   switch (D) {
-    case 8: return mdt::launch_flash<8, false>(a, B, 1, st);
-    case 16: return mdt::launch_flash<16, false>(a, B, 1, st);
     case 32: return mdt::launch_flash<32, false>(a, B, 1, st);
     case 64: return mdt::launch_flash<64, false>(a, B, 1, st);
-    case 128: return mdt::launch_flash<128, false>(a, B, 1, st);
   }
   return cudaErrorInvalidValue;
 }

@@ -31,9 +31,10 @@ from ..attention import plain_sdpa, sdpa
 from . import LAUNCHES, _build
 
 _LANES = 128
-# head dims the time kernel is built for (csrc/divided_attention.cu): one
-# warp holds F·dh/32 dims a lane, so dh = 128 at F = 32 spills registers
-TIME_HEAD_DIMS = (16, 32, 64)
+# what csrc/divided_attention.cu is built for: the shapes the repository's
+# configurations reach (AE dim_head 64, 16 frames); others raise on the card
+SPACE_HEAD_DIMS = (64,)
+TIME_SHAPES = ((16, 64),)   # (frames, head dim)
 
 
 def divided_attention_reference(qkv, sin, cos, axis: str, heads: int,
@@ -107,6 +108,9 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                          scale: float):
     """Kernel launch: qkv [BF, N, 3·H·dh] bf16 → [BF, N, H·dh]."""
     _check_operands(qkv, sin, cos)
+    if dim_head not in SPACE_HEAD_DIMS:
+        raise NotImplementedError(f"space kernel built for head dims "
+                                  f"{SPACE_HEAD_DIMS}, not {dim_head}")
     bf, n, c3 = qkv.shape
     if c3 != 3 * heads * dim_head or tuple(sin.shape) != (n, dim_head):
         raise ValueError(f"bad shapes qkv {tuple(qkv.shape)} sin "
@@ -126,10 +130,10 @@ def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                         scale: float):
     """Kernel launch: qkv [B, F, N, 3·H·dh] bf16 → [B, F, N, H·dh]."""
     _check_operands(qkv, sin, cos)
-    if dim_head not in TIME_HEAD_DIMS:
-        raise NotImplementedError(f"time kernel built for head dims "
-                                  f"{TIME_HEAD_DIMS}, not {dim_head}")
     b, f, n, c3 = qkv.shape
+    if (f, dim_head) not in TIME_SHAPES:
+        raise NotImplementedError(f"time kernel built for (frames, head dim) "
+                                  f"{TIME_SHAPES}, not {(f, dim_head)}")
     if c3 != 3 * heads * dim_head or tuple(sin.shape) != (f, dim_head):
         raise ValueError(f"bad shapes qkv {tuple(qkv.shape)} sin "
                          f"{tuple(sin.shape)} for {heads}x{dim_head}")

@@ -19,6 +19,7 @@ from moditalker_tpu.ops.pallas import divided_attention as jdiv
 from moditalker_tpu.ops.pallas import flash_attention as jflash
 from moditalker_tpu.ops.pallas import packed_attention as jpack
 from moditalker_tpu_torch.ops import attention, rotary
+from moditalker_tpu_torch.ops import kernels as tkernels
 from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
 from moditalker_tpu_torch.ops.kernels import packed_attention as tpack
@@ -139,3 +140,17 @@ def test_packed_gate_matches_jax(l, c, heads):
 def test_divided_gate_matches_jax(axis, f, n, heads, dh, rot):
     assert tdiv.divided_attention_viable(axis, f, n, heads, dh, rot) \
         == jdiv.divided_attention_viable(axis, f, n, heads, dh, rot)
+
+
+@pytest.mark.parametrize("name", sorted(tkernels.BF16_LIMITS))
+def test_bf16_limits_pass_rounding_and_catch_a_wrong_head(name):
+    """The card's kernel-vs-plain limits accept a bf16 rounding of the plain
+    output and reject an output with two heads swapped."""
+    rng = np.random.default_rng(0)
+    qkv = _t(rng.normal(size=(1, 1024, 384)))
+    plain = tpack.packed_attention_reference(qkv, 8, 0.25)
+    tkernels.check_bf16(name, plain.bfloat16(), plain)
+    swapped = torch.cat([plain[..., 16:32], plain[..., :16], plain[..., 32:]],
+                        dim=-1)
+    with pytest.raises(AssertionError, match=name):
+        tkernels.check_bf16(name, swapped, plain)
