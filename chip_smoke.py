@@ -8,26 +8,46 @@ Phases, each of which must pass (any failure exits nonzero, and the final
 
 1. build   — compile every kernel source (``moditalker_tpu_torch/csrc``),
              one nvcc per source, all started together;
-2. kernels — each hand-written kernel against its plain PyTorch version at
-             the main path's shapes in bf16 (max and rms error, relative to
-             the plain output's, within the kernel's ``BF16_LIMITS``),
-             timed with CUDA events beside the plain
+2. kernels — each of the six hand-written kernels against its plain PyTorch
+             version at the shapes the paths give it, in bf16 (max and rms
+             error, relative to the plain output's, within the kernel's
+             ``BF16_LIMITS``), timed with CUDA events beside the plain
              version, one PyTorch library call computing the same attention
              (``library_ms``, a yardstick the port never calls) and the
-             card's bound;
+             card's bound. The K-blocked fused kernel is driven here through
+             the public op ``sdpa_fused``: no model calls it;
 3. reference — one DDIM-2 window at a small depth but full spatial size (so
              every kernel gate passes) on the card in bf16 against the same
              weights and draws on the CPU in float32 through the plain path,
-             within REF_FACTOR times the error of a bf16 CPU run;
+             within REF_FACTOR times the error of a bf16 CPU run. Once on
+             the fused path, once on the modular-attention path (both gate
+             switches set: MODITALKER_NO_DIVIDED_FUSED and
+             MODITALKER_NO_PACKED_ATTN), there at B = 2 and 4 heads so that
+             the time attention passes the tiny-L gate;
 4. main path — at the full shipped width with weights drawn from ``--seed``:
              ``sample_independent`` over 2 windows at batch 2 (DDIM-100) and
              the fast-mode ``sample_long`` over 3 autoregressive windows at
-             B = 1 (renoise ratio 0.25 from the reference window), each
-             timed warm, after one untimed run of the same call. Every
-             kernel's launch counter is zeroed just before each path and must
-             be above zero just after; outputs must be uint8 frames of the
-             right shape that are not constant;
-5. profile — one UNet step, one extract and one decode at B = 2: host
+             B = 1 (renoise ratio 0.25 from the reference window), then
+             ``sample_independent`` again on the modular-attention path,
+             each timed warm, after one untimed run of the same call. The
+             launch counters are zeroed just before each path and read just
+             after: the fused paths must have launched the divided space and
+             time, packed and one-pass kernels and no other; the modular path
+             the tiny-L and one-pass kernels and no other. Outputs must be
+             uint8 frames of the right shape that are not constant;
+5. cli     — the port's ``sample`` command at full width: a real argument
+             list through the CLI's own parser (batch 2, independent
+             windows, DDIM-25, no checkpoints) and the command's function of
+             (arguments, windows) on synthetic uint8 windows (reading frames
+             from disk needs PIL, which a CUDA host may lack); the video file
+             it writes is checked;
+6. atom    — AToM inference at full width in float32: a DDIM-2 run on the
+             card against the CPU with the same weights and draws, and one
+             decoder forward likewise (within ATOM_LIMIT), then
+             ``run_directory`` over 4 synthetic identities at DDIM-50 with
+             CFG, timed warm; the landmark files are checked.
+             AToM's attentions are outside every kernel gate: no launch;
+7. profile — one UNet step, one extract and one decode at B = 2: host
              time, the device's busy time and top kernels (torch.profiler).
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
@@ -37,9 +57,12 @@ prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -47,6 +70,20 @@ import numpy as np
 # window on the card (bf16, kernels) vs the CPU in fp32 (plain path): the
 # card's error may be at most this many times that of the CPU's own bf16 run
 REF_FACTOR = 2.0
+
+# AToM on the card vs the CPU, both float32 with TF32 off, same weights,
+# inputs and draws, at full width: max abs difference over max |cpu| of one
+# decoder forward (unclipped) and of a DDIM-2 residual (clipped to [-1, 1],
+# which with random weights hides most of the difference: hence both). The
+# two differ by the order of float32 sums through the 8-layer decoder; the
+# limit is about ten times the readings (1.3e-6 and 3.0e-6 on an H100).
+ATOM_LIMIT = 2e-5
+
+# which kernels each kind of path launches; the others must stay at zero
+FUSED_PATH = {"divided_space_attention", "divided_time_attention",
+              "packed_attention", "onepass_attention"}
+MODULAR_PATH = {"tiny_attention", "onepass_attention"}
+SWITCHES = ("MODITALKER_NO_DIVIDED_FUSED", "MODITALKER_NO_PACKED_ATTN")
 
 H100_BF16_FLOPS = 989e12
 H100_BYTES_PER_S = 3.35e12
@@ -83,11 +120,40 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+@contextlib.contextmanager
+def modular_attention():
+    """Both gate switches set for the block, and put back after it."""
+    old = {name: os.environ.get(name) for name in SWITCHES}
+    os.environ.update({name: "1" for name in SWITCHES})
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            if value is None:
+                del os.environ[name]
+            else:
+                os.environ[name] = value
+
+
+def check_launches(what: str, expected: set) -> dict:
+    """The launch counts since the last reset; raises unless exactly the
+    ``expected`` kernels were launched."""
+    from moditalker_tpu_torch.ops.kernels import LAUNCHES
+
+    counts = dict(LAUNCHES)
+    missing = sorted(k for k in expected if not counts[k])
+    extra = sorted(k for k, n in counts.items() if n and k not in expected)
+    if missing or extra:
+        raise AssertionError(f"{what}: kernels not launched {missing}, "
+                             f"launched off their path {extra}: {counts}")
+    return counts
+
+
 # ------------------------------------------------------------------ kernels
 def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     import torch.nn.functional as F
 
-    from moditalker_tpu_torch.ops import rotary
+    from moditalker_tpu_torch.ops import attention, rotary
     from moditalker_tpu_torch.ops.kernels import BF16_LIMITS, check_bf16
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
@@ -104,6 +170,13 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         rel_max, rel_rms = check_bf16(name, out, want)
         return dict(max_abs_err=(out.float() - want.float()).abs().max().item(),
                     rel_max_err=rel_max, rel_rms_err=rel_rms)
+
+    def library_sdpa(q, k, v, sc):
+        """The yardstick on [B, N, D]: with a head axis of one, since the
+        library's fused kernels take 4-D tensors only (3-D ones fall to its
+        unfused math)."""
+        q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+        return lambda: F.scaled_dot_product_attention(q4, k4, v4, scale=sc)
 
     def tables(sin_cos):
         return [torch.from_numpy(t).to(dev) for t in sin_cos]
@@ -174,22 +247,53 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         nbytes=qkv.numel() * 2 + batch * l * c * 2,
         flops=4.0 * batch * heads * l * l * (c // heads)))
 
+    def sdpa_row(name, replaces, source, kern, plain, q, k, v, sc):
+        lib = library_sdpa(q, k, v, sc)
+        b_, nq_, d_ = q.shape
+        return dict(
+            name=name, route="cuda",
+            source=f"moditalker_tpu_torch/csrc/{source}.cu",
+            replaces=f"moditalker_tpu/ops/pallas/flash_attention.py:{replaces}",
+            shape=[list(q.shape), list(k.shape)], **errors(name, kern, plain),
+            ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, lib),
+            nbytes=2 * (2 * q.numel() + 2 * k.numel()),
+            flops=4.0 * b_ * nq_ * k.shape[1] * d_)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+
     # one-pass: the UNet joint attention right after the last upsample
-    # (C = 256, 8 heads → [B·8, 2048, 32])
-    d = 32
-    q, k, v = (torch.randn((batch * heads, l, d), generator=gen,
-                           device=dev).bfloat16() for _ in range(3))
-    kern = lambda: fa.onepass_attention(q, k, v, d**-0.5)
-    plain = lambda: fa.onepass_attention_reference(q, k, v, d**-0.5)
-    lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=d**-0.5)
-    rows.append(dict(
-        name="onepass_attention", route="cuda",
-        source="moditalker_tpu_torch/csrc/flash_attention.cu",
-        replaces="moditalker_tpu/ops/pallas/flash_attention.py:104",
-        shape=list(q.shape), **errors("onepass_attention", kern, plain),
-        ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
-        library_ms=time_ms(torch, lib), nbytes=4 * q.numel() * 2,
-        flops=4.0 * batch * heads * l * l * d))
+    # (C = 256, 8 heads → [B·8, 2048, 32]); then the modular path's shapes:
+    # TimeSformer space attention, the UNet's dh = 16 joint and xy-plane
+    # attentions
+    for b_, n_, d_ in ((batch * heads, l, 32), (batch * heads * f, n, dh),
+                       (batch * heads, l, 16), (batch * heads, 1024, 16)):
+        q, k, v = (randn(b_, n_, d_) for _ in range(3))
+        rows.append(sdpa_row(
+            "onepass_attention", 104, "flash_attention",
+            lambda: fa.onepass_attention(q, k, v, d_**-0.5),
+            lambda: fa.onepass_attention_reference(q, k, v, d_**-0.5),
+            q, k, v, d_**-0.5))
+
+    # tiny-L: the modular path's TimeSformer time attention
+    q, k, v = (randn(batch * heads * n, f, dh) for _ in range(3))
+    rows.append(sdpa_row(
+        "tiny_attention", 146, "tiny_attention",
+        lambda: fa.tiny_attention(q, k, v, scale),
+        lambda: fa.tiny_attention_reference(q, k, v, scale), q, k, v, scale))
+
+    # K-blocked fused, through the public op: self-attention at a UNet and
+    # an AE shape, and query rows against a longer key sequence
+    for (b_, nq_, nk_, d_) in ((batch * heads, l, l, 16),
+                               (batch * heads * f, n, n, dh),
+                               (2, 64, 512, 64)):
+        q, k, v = randn(b_, nq_, d_), randn(b_, nk_, d_), randn(b_, nk_, d_)
+        rows.append(sdpa_row(
+            "fused_attention", 33, "flash_attention",
+            lambda: attention.sdpa_fused(q, k, v, d_**-0.5),
+            lambda: fa.fused_attention_reference(q, k, v, d_**-0.5),
+            q, k, v, d_**-0.5))
 
     for row in rows:
         row["bound_ms"], row["bound_by"] = bound_ms(row.pop("nbytes"),
@@ -222,19 +326,21 @@ def make_windows(cfg, n: int, batch: int, seed: int):
              for k in ("x_l", "masked_x", "x_ref")} for _ in range(n)]
 
 
-def reference_phase(torch, seed: int) -> None:
+def reference_phase(torch, seed: int, what: str, expected: set,
+                    heads: int = 2, batch: int = 1) -> None:
     """A small-depth window on the card (bf16, kernels) against the CPU in
     float32 (plain path), with the same weights and the same draws. The
     same window on the CPU in bf16 (plain path) measures what bf16 alone
     costs; the card may differ from float32 by at most REF_FACTOR times
-    that, in mean and in max."""
+    that, in mean and in max. On the card exactly the ``expected`` kernels
+    must launch."""
     from moditalker_tpu_torch.config import (MtovAEConfig,
                                              MtovDiffusionConfig,
                                              MtovUNetConfig)
     from moditalker_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
     from moditalker_tpu_torch.pipelines.mtov_sample import MtovSamplePipeline
 
-    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=2, dim_head=64,
+    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=heads, dim_head=64,
                           quant_depth=1, quant_heads=2, quant_mlp_dim=64)
     # channel_mult (1, 2): the last upsample lands C = 256 at ds = 1, so the
     # joint attention there takes the one-pass kernel, as in the full UNet
@@ -242,7 +348,7 @@ def reference_phase(torch, seed: int) -> None:
                               attention_resolutions=(1,))
     diff_cfg = MtovDiffusionConfig(sampling_timesteps=2)
     states = random_states(torch, ae_cfg, unet_cfg, seed)
-    w = make_windows(ae_cfg, 1, 1, seed)[0]
+    w = make_windows(ae_cfg, 1, batch, seed)[0]
     outs = {}
     for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32),
                           ("cpu", torch.bfloat16)):
@@ -254,21 +360,22 @@ def reference_phase(torch, seed: int) -> None:
         t0 = time.perf_counter()
         out = pipe.window_step(w["x_l"], w["masked_x"], w["x_ref"], draws)
         outs[device, dtype] = out.float().cpu()
-        log(f"reference window on {device} ({dtype}): "
+        log(f"{what} reference window on {device} ({dtype}): "
             f"{time.perf_counter() - t0:.2f} s, launches {dict(LAUNCHES)}")
-        if device == "cuda" and not all(LAUNCHES.values()):
-            raise AssertionError(f"a kernel did not launch: {LAUNCHES}")
+        if device == "cuda":
+            check_launches(f"{what} reference window", expected)
     fp32 = outs["cpu", torch.float32]
     card = (outs["cuda", torch.bfloat16] - fp32).abs()
     bf16 = (outs["cpu", torch.bfloat16] - fp32).abs()
-    log(f"reference vs cpu fp32, decoded video: card bf16 mean abs "
+    log(f"{what} reference vs cpu fp32, decoded video: card bf16 mean abs "
         f"{card.mean().item():.3e} max {card.max().item():.3e}; cpu bf16 "
         f"mean abs {bf16.mean().item():.3e} max {bf16.max().item():.3e} "
         f"(card within {REF_FACTOR}x)")
     if not (torch.isfinite(outs["cuda", torch.bfloat16]).all()
             and card.mean() <= REF_FACTOR * bf16.mean()
             and card.max() <= REF_FACTOR * bf16.max()):
-        raise AssertionError("card window disagrees with the CPU reference")
+        raise AssertionError(f"{what}: the card's window disagrees with the "
+                             "CPU reference")
 
 
 def check_frames(video, frames: int, cfg, what: str) -> None:
@@ -285,7 +392,7 @@ def main_path_phase(torch, seed: int) -> dict:
     from moditalker_tpu_torch.config import (MtovAEConfig,
                                              MtovDiffusionConfig,
                                              MtovUNetConfig)
-    from moditalker_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
     from moditalker_tpu_torch.pipelines.mtov_sample import MtovSamplePipeline
 
     ae_cfg, unet_cfg = MtovAEConfig(), MtovUNetConfig()
@@ -297,18 +404,16 @@ def main_path_phase(torch, seed: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(seed)
     launches = {}
 
-    def drive(name, fn, frames):
+    def drive(name, fn, frames, expected=FUSED_PATH):
         reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
         video = fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
-        launches[name] = dict(LAUNCHES)
+        launches[name] = check_launches(name, expected)
         log(f"{name}: {frames} frames in {dt:.3f} s = {frames / dt:.3f} "
             f"frames/s; launches {launches[name]}")
-        if not all(LAUNCHES.values()):
-            raise AssertionError(f"{name}: a kernel did not launch: {LAUNCHES}")
         check_frames(video, frames, ae_cfg, name)
         return frames / dt
 
@@ -322,8 +427,123 @@ def main_path_phase(torch, seed: int) -> dict:
         fps_long = drive(label, lambda: pipe.sample_long(
             make_windows(ae_cfg, 3, 1, seed + 1), gen,
             noised_start_ratio=0.25, noised_start_source="ref"), 3 * t)
+    with modular_attention():
+        for label in ("modular sample_independent (warm-up)",
+                      "modular sample_independent"):
+            fps_mod = drive(label, lambda: pipe.sample_independent(
+                make_windows(ae_cfg, 2, 1, seed), gen, batch=2), 2 * t,
+                MODULAR_PATH)
     return {"launches": launches, "sample_independent_fps": fps_ind,
-            "sample_long_fps": fps_long, "pipe": pipe}
+            "sample_long_fps": fps_long,
+            "modular_sample_independent_fps": fps_mod, "pipe": pipe}
+
+
+def cli_phase(torch, seed: int) -> dict:
+    """The ``sample`` command at full width, from its own parser to the
+    video file, on synthetic uint8 windows."""
+    from moditalker_tpu_torch import cli
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+
+    windows, steps = 4, 25
+    with tempfile.TemporaryDirectory() as tmp:
+        args = cli.build_parser().parse_args([
+            "sample", "--frames-dir", "-", "--aligned-dir", "-", "--batch",
+            "2", "--no-last-as-reference", "--sampling-steps", str(steps),
+            "--seed", str(seed), "--out-dir", tmp])
+        ae_cfg = cli._sample_configs(args)[0]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        path = cli.sample_windows(args, make_windows(ae_cfg, windows, 1, seed))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = check_launches("cli sample", FUSED_PATH)
+        frames = windows * ae_cfg.timesteps
+        if not path.startswith(tmp) or os.path.getsize(path) == 0:
+            raise AssertionError(f"cli sample: no video at {path}")
+        if path.endswith(".npz"):   # no ffmpeg on this host: a frame dump
+            with np.load(path) as dump:
+                check_frames(dump["frames"][None], frames, ae_cfg, "cli sample")
+        elif not path.endswith(".mp4"):
+            raise AssertionError(f"cli sample: unexpected file {path}")
+    log(f"cli sample (pipeline built from the seed, {windows} windows at "
+        f"batch 2, DDIM-{steps}): {frames} frames in {dt:.2f} s incl. the "
+        f"build, wrote {os.path.basename(path)}; launches {counts}")
+    return {"launches": counts, "seconds_with_build": dt}
+
+
+def atom_phase(torch, seed: int) -> dict:
+    """AToM inference at full width (float32, TF32 off): the card against
+    the CPU on a DDIM-2 run, then ``run_directory`` timed warm."""
+    from moditalker_tpu_torch.config import (AtomDiffusionConfig,
+                                             AtomModelConfig)
+    from moditalker_tpu_torch.models.atom import MotionDecoder
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.pipelines.atom_infer import (
+        AtomInferencePipeline, prepare_condition)
+    from moditalker_tpu_torch.preprocess.bfm import Face3DHelper
+
+    mc = AtomModelConfig()
+    torch.manual_seed(seed)
+    state = MotionDecoder(mc).state_dict()
+    rng = np.random.default_rng(seed)
+    ids = {f"id{i}": (rng.normal(scale=0.3, size=(68, 3)),
+                      rng.normal(size=(2 * mc.horizon, mc.cond_feature_dim)))
+           for i in range(4)}
+    face, cond = (np.concatenate(parts) for parts in zip(
+        *(prepare_condition(*ids[n], mc.horizon) for n in sorted(ids)[:2])))
+    reset_launch_counts()
+
+    x = rng.normal(size=(2, mc.horizon, mc.repr_dim)).astype(np.float32)
+    outs = {}
+    for device in ("cuda", "cpu"):
+        pipe = AtomInferencePipeline(
+            state, mc, AtomDiffusionConfig(sampling_steps=2), device=device)
+        g = torch.Generator().manual_seed(seed)
+        draws = lambda shape, dt, g=g: torch.randn(shape, generator=g)
+        t0 = time.perf_counter()
+        on = lambda a: torch.as_tensor(a).to(pipe.device)
+        with torch.inference_mode():
+            forward = pipe.diff.model(
+                on(x), on(face), on(cond), on(np.array([999, 20])),
+                keep_mask=on(np.array([True, False])))
+        outs[device] = (forward.cpu(),
+                        pipe.generate_residual(draws, face, cond).cpu())
+        log(f"atom forward and DDIM-2 at B = 2 on {device}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    errs = {}
+    for what, card, cpu in zip(("forward", "DDIM-2"), *outs.values()):
+        errs[what] = ((card - cpu).abs().max() / cpu.abs().max()).item()
+        log(f"atom {what}, card vs cpu in float32: max abs err over max "
+            f"|cpu| {errs[what]:.3e} (limit {ATOM_LIMIT}), max |cpu| "
+            f"{cpu.abs().max().item():.3f}")
+        if not (torch.isfinite(card).all() and errs[what] <= ATOM_LIMIT):
+            raise AssertionError(f"atom {what}: the card disagrees with "
+                                 "the CPU")
+
+    pipe = AtomInferencePipeline(state, mc, AtomDiffusionConfig(),
+                                 face3d=Face3DHelper.synthetic(seed))
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in ("atom run_directory (warm-up)", "atom run_directory"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            paths = pipe.run_directory(ids, os.path.join(tmp, label),
+                                       seed=seed)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            log(f"{label}: {len(ids)} sequences of {mc.horizon} frames, "
+                f"DDIM-50 with CFG, in {dt:.3f} s = {len(ids) / dt:.3f} "
+                f"sequences/s")
+        for name in ids:
+            want = os.path.join(tmp, label, "frontalized_npy", name, "atom.npy")
+            lm = np.load(paths[name])
+            if (paths[name] != want or lm.shape != (mc.horizon, 68, 3)
+                    or not np.isfinite(lm).all() or lm.std() == 0):
+                raise AssertionError(f"atom: bad landmarks for {name}: "
+                                     f"{paths[name]} {lm.shape}")
+    counts = check_launches("atom", set())
+    log(f"atom: attentions outside every kernel gate, launches {counts}")
+    return {"launches": counts, "sequences_per_s": len(ids) / dt,
+            "card_vs_cpu_rel_max_err": errs}
 
 
 def profile_phase(torch, pipe, seed: int) -> dict:
@@ -411,21 +631,47 @@ def main() -> int:
             f"registers, {spills} bytes of spill stores")
 
     rows = kernel_phase(torch, batch=2, seed=args.seed)
-    reference_phase(torch, args.seed)
+    reference_phase(torch, args.seed, "fused", FUSED_PATH)
+    with modular_attention():
+        # 2·4·1024 = 8192 folded sequences: the time attention passes the
+        # tiny-L gate (at B = 1 and 2 heads it would not)
+        reference_phase(torch, args.seed, "modular", MODULAR_PATH, heads=4,
+                        batch=2)
     result = main_path_phase(torch, args.seed)
+    cli_result = cli_phase(torch, args.seed)
+    atom = atom_phase(torch, args.seed)
     prof = profile_phase(torch, result.pop("pipe"), args.seed)
 
     timed = {path: counts for path, counts in result["launches"].items()
              if "warm-up" not in path}
+    timed["cli sample"] = cli_result["launches"]
+    timed["atom run_directory"] = atom["launches"]
+    # one line entry per kernel: its first row, the shape its main path
+    # gives it; the rows at its other shapes go under "other_shapes"
+    kernels = {}
     for row in rows:
-        row.pop("shape")
+        if row["name"] in kernels:
+            kernels[row["name"]].setdefault("other_shapes", []).append(
+                {k: row[k] for k in ("shape", "max_abs_err", "rel_max_err",
+                                     "rel_rms_err", "ms", "plain_ms",
+                                     "library_ms", "bound_ms", "bound_by")})
+            continue
+        kernels[row["name"]] = row
         row["launches_by_path"] = {p: c[row["name"]] for p, c in timed.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+    kernels["fused_attention"]["note"] = (
+        "op-level only: reached through ops.attention.sdpa_fused, which no "
+        "model path calls; launched by the kernels phase")
     print(json.dumps({"frames_per_s": {
         "sample_independent": result["sample_independent_fps"],
-        "sample_long": result["sample_long_fps"]}, "card": card,
-        "profile": prof}))
-    print(json.dumps({"kernels": rows}))
+        "sample_long": result["sample_long_fps"],
+        "modular_sample_independent":
+            result["modular_sample_independent_fps"]},
+        "atom_sequences_per_s": atom["sequences_per_s"],
+        "atom_card_vs_cpu_rel_max_err": atom["card_vs_cpu_rel_max_err"],
+        "cli_sample_seconds_with_build": cli_result["seconds_with_build"],
+        "card": card, "profile": prof}))
+    print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

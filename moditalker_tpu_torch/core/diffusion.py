@@ -1,5 +1,6 @@
-"""Gaussian-diffusion math and the DDIM samplers (port of
-``moditalker_tpu/core/diffusion.py``, eps parameterization).
+"""Gaussian-diffusion math, the DDIM samplers and the ancestral loop (port
+of ``moditalker_tpu/core/diffusion.py``): the eps parameterization for MToV,
+the x0 parameterization for AToM.
 
 A Python loop stands in for the JAX ``scan``/``fori_loop``. Every draw comes
 from ``generator``: a ``torch.Generator``, or any callable
@@ -50,6 +51,22 @@ def predict_start_from_noise(sched: DiffusionSchedule, x_t, t, noise):
             - extract(sched.sqrt_recipm1_alphas_cumprod, t, nd) * noise)
 
 
+def predict_noise_from_start(sched: DiffusionSchedule, x_t, t, x0):
+    nd = x_t.ndim
+    return ((extract(sched.sqrt_recip_alphas_cumprod, t, nd) * x_t - x0)
+            / extract(sched.sqrt_recipm1_alphas_cumprod, t, nd))
+
+
+def q_posterior(sched: DiffusionSchedule, x_start, x_t, t):
+    """Posterior q(x_{t-1} | x_t, x_0): mean, variance, clipped log variance
+    (ref ddpm.py:289-296)."""
+    nd = x_t.ndim
+    mean = (extract(sched.posterior_mean_coef1, t, nd) * x_start
+            + extract(sched.posterior_mean_coef2, t, nd) * x_t)
+    return (mean, extract(sched.posterior_variance, t, nd),
+            extract(sched.posterior_log_variance_clipped, t, nd))
+
+
 def _ddim_step(sched: DiffusionSchedule, x, pred_noise, x_start, time: int,
                time_next: int, eta: float, noise):
     """One DDIM update (ddpm.py:386-398); ``time_next < 0`` returns x_start."""
@@ -66,27 +83,49 @@ def _ddim_step(sched: DiffusionSchedule, x, pred_noise, x_start, time: int,
 def ddim_sample(sched: DiffusionSchedule, model_fn: ModelFn,
                 shape: tuple[int, ...], sampling_steps: int, *,
                 generator=None, device=None, eta: float = 1.0,
+                parameterization: str = "eps",
                 clip_denoised: bool = True, x_init=None,
                 start_pair_index: int = 0,
-                step_noise: Sequence[torch.Tensor] | None = None):
+                step_noise: Sequence[torch.Tensor] | None = None,
+                post_step_fn: Callable | None = None,
+                guidance_weights: np.ndarray | None = None):
     """DDIM sampling (ddpm.py:362-404): plain from a fresh draw, or from a
     given ``x_init`` starting at pair ``start_pair_index`` (the
     partial-renoise tail). ``step_noise[j]`` is the draw of the j-th step
-    run."""
+    run.
+
+    AToM's long sampling (AToM diffusion.py:253-301) passes
+    ``post_step_fn(x, time)``, applied after a step only while ``time > 0``,
+    and ``guidance_weights`` [sampling_steps]: ``model_fn`` then takes the
+    step's weight as a third argument. ``parameterization="x0"`` reads the
+    model output as x0 (clipped when ``clip_denoised``) and derives the
+    noise from it."""
+    if parameterization not in ("eps", "x0"):
+        raise NotImplementedError(parameterization)
     times, times_next = ddim_time_pairs(sched.num_timesteps, sampling_steps)
     x = normal(generator, shape, torch.float32, device) if x_init is None else x_init
     batch = x.shape[0]
     for j, i in enumerate(range(start_pair_index, len(times))):
-        t_vec = torch.full((batch,), int(times[i]), dtype=torch.long,
-                           device=x.device)
-        pred_noise = model_fn(x, t_vec)
-        x_start = predict_start_from_noise(sched, x, t_vec, pred_noise)
-        if clip_denoised:
-            x_start = x_start.clamp(-1.0, 1.0)
+        time = int(times[i])
+        t_vec = torch.full((batch,), time, dtype=torch.long, device=x.device)
+        if guidance_weights is not None:
+            out = model_fn(x, t_vec, float(np.float32(guidance_weights[i])))
+        else:
+            out = model_fn(x, t_vec)
+        if parameterization == "eps":
+            pred_noise = out
+            x_start = predict_start_from_noise(sched, x, t_vec, pred_noise)
+            if clip_denoised:
+                x_start = x_start.clamp(-1.0, 1.0)
+        else:
+            x_start = out.clamp(-1.0, 1.0) if clip_denoised else out
+            pred_noise = predict_noise_from_start(sched, x, t_vec, x_start)
         noise = (step_noise[j] if step_noise is not None
                  else normal(generator, x.shape, x.dtype, x.device))
-        x = _ddim_step(sched, x, pred_noise, x_start, int(times[i]),
+        x = _ddim_step(sched, x, pred_noise, x_start, time,
                        int(times_next[i]), eta, noise)
+        if post_step_fn is not None and time > 0:
+            x = post_step_fn(x, time)
     return x
 
 
@@ -119,3 +158,32 @@ def ddim_sample_noised_start(sched: DiffusionSchedule, model_fn: ModelFn,
                        generator=generator, eta=eta,
                        clip_denoised=clip_denoised, x_init=x_noisy,
                        start_pair_index=start_idx, step_noise=step_noise)
+
+
+def p_sample_loop(sched: DiffusionSchedule, model_fn: ModelFn,
+                  shape: tuple[int, ...], *, generator=None, device=None,
+                  parameterization: str = "eps", clip_denoised: bool = True,
+                  start_point: int | None = None, x_init=None,
+                  post_step_fn: Callable | None = None):
+    """Ancestral sampling loop (ref ddpm.py:310-336) from ``start_point``
+    (default T) down to 0. Draws, in order: the initial x unless ``x_init``
+    is given, then one per step (the t = 0 step's draw is taken and not
+    used, as in the JAX package's per-step key split).
+    ``post_step_fn(x, t)`` is applied after a step only while ``t > 0``; it
+    may take draws of its own from the same generator."""
+    start_point = sched.num_timesteps if start_point is None else start_point
+    x = normal(generator, shape, torch.float32, device) if x_init is None else x_init
+    batch = x.shape[0]
+    for t in range(start_point - 1, -1, -1):
+        t_vec = torch.full((batch,), t, dtype=torch.long, device=x.device)
+        out = model_fn(x, t_vec)
+        x_recon = (predict_start_from_noise(sched, x, t_vec, out)
+                   if parameterization == "eps" else out)
+        if clip_denoised:
+            x_recon = x_recon.clamp(-1.0, 1.0)
+        mean, _, log_var = q_posterior(sched, x_recon, x, t_vec)
+        noise = normal(generator, x.shape, x.dtype, x.device)
+        x = mean + (torch.exp(0.5 * log_var) * noise if t > 0 else 0.0)
+        if post_step_fn is not None and t > 0:
+            x = post_step_fn(x, t)
+    return x

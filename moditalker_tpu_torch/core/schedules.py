@@ -1,9 +1,10 @@
-"""Diffusion noise schedule tables (port of
-``moditalker_tpu/core/schedules.py``, the part the MToV sampler uses).
+"""Diffusion noise schedules and their constant tables (port of
+``moditalker_tpu/core/schedules.py``), shared by MToV (linear β, eps) and
+AToM (cosine β, x0).
 
 Tables are computed in float64 numpy, as the reference does with
-``torch.float64`` (MToV/losses/ddpm.py:79-263), and stored as float32
-tensors.
+``torch.float64`` (MToV/losses/ddpm.py:79-263, AToM/model/utils.py:67-99),
+and stored as float32 tensors.
 """
 
 from __future__ import annotations
@@ -22,6 +23,45 @@ def linear_beta_schedule(
                         dtype=np.float64) ** 2)
 
 
+def cosine_beta_schedule(n_timesteps: int, cosine_s: float = 8e-3) -> np.ndarray:
+    """Nichol & Dhariwal cosine schedule (ref AToM/model/utils.py:78-86)."""
+    timesteps = np.arange(n_timesteps + 1, dtype=np.float64) / n_timesteps + cosine_s
+    alphas = np.cos(timesteps / (1 + cosine_s) * np.pi / 2) ** 2
+    alphas = alphas / alphas[0]
+    betas = 1 - alphas[1:] / alphas[:-1]
+    return np.clip(betas, 0, 0.999)
+
+
+def sqrt_linear_beta_schedule(
+    n_timesteps: int, linear_start: float = 1e-4, linear_end: float = 2e-2
+) -> np.ndarray:
+    return np.linspace(linear_start, linear_end, n_timesteps, dtype=np.float64)
+
+
+def sqrt_beta_schedule(
+    n_timesteps: int, linear_start: float = 1e-4, linear_end: float = 2e-2
+) -> np.ndarray:
+    return np.linspace(linear_start, linear_end, n_timesteps,
+                       dtype=np.float64) ** 0.5
+
+
+_SCHEDULES = {
+    "linear": linear_beta_schedule,
+    "sqrt_linear": sqrt_linear_beta_schedule,
+    "sqrt": sqrt_beta_schedule,
+}
+
+
+def make_beta_schedule(schedule: str, n_timesteps: int,
+                       linear_start: float = 1e-4, linear_end: float = 2e-2,
+                       cosine_s: float = 8e-3) -> np.ndarray:
+    if schedule == "cosine":
+        return cosine_beta_schedule(n_timesteps, cosine_s)
+    if schedule not in _SCHEDULES:
+        raise ValueError(f"schedule '{schedule}' unknown")
+    return _SCHEDULES[schedule](n_timesteps, linear_start, linear_end)
+
+
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
     """Per-timestep constant tables, float32 tensors of shape [T]."""
@@ -34,6 +74,10 @@ class DiffusionSchedule:
     sqrt_one_minus_alphas_cumprod: torch.Tensor
     sqrt_recip_alphas_cumprod: torch.Tensor
     sqrt_recipm1_alphas_cumprod: torch.Tensor
+    posterior_variance: torch.Tensor
+    posterior_log_variance_clipped: torch.Tensor
+    posterior_mean_coef1: torch.Tensor
+    posterior_mean_coef2: torch.Tensor
 
     def to(self, device) -> "DiffusionSchedule":
         return dataclasses.replace(self, **{
@@ -42,24 +86,39 @@ class DiffusionSchedule:
 
 
 def make_schedule(schedule: str = "linear", n_timesteps: int = 1000,
-                  linear_start: float = 1e-4,
-                  linear_end: float = 2e-2) -> DiffusionSchedule:
-    """The sampler's tables of ``DDPM.register_schedule``
-    (MToV/losses/ddpm.py:195-264). Only the linear schedule is ported."""
-    if schedule != "linear":
-        raise NotImplementedError(f"schedule {schedule!r} is not ported")
-    betas = linear_beta_schedule(n_timesteps, linear_start, linear_end)
-    alphas_cumprod = np.cumprod(1.0 - betas, axis=0)
+                  linear_start: float = 1e-4, linear_end: float = 2e-2,
+                  cosine_s: float = 8e-3,
+                  v_posterior: float = 0.0) -> DiffusionSchedule:
+    """The samplers' tables of ``DDPM.register_schedule``
+    (MToV/losses/ddpm.py:195-264) and of AToM's ``GaussianDiffusion``
+    buffers (AToM/model/diffusion.py:64-111). The loss-weight tables wait
+    for training."""
+    betas = make_beta_schedule(schedule, n_timesteps, linear_start,
+                               linear_end, cosine_s)
+    alphas = 1.0 - betas
+    alphas_cumprod = np.cumprod(alphas, axis=0)
+    alphas_cumprod_prev = np.append(1.0, alphas_cumprod[:-1])
+    posterior_variance = (
+        (1 - v_posterior) * betas * (1.0 - alphas_cumprod_prev)
+        / (1.0 - alphas_cumprod) + v_posterior * betas)
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)
     return DiffusionSchedule(
         num_timesteps=int(betas.shape[0]),
         betas=f32(betas),
         alphas_cumprod=f32(alphas_cumprod),
-        alphas_cumprod_prev=f32(np.append(1.0, alphas_cumprod[:-1])),
+        alphas_cumprod_prev=f32(alphas_cumprod_prev),
         sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
         sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
         sqrt_recip_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod)),
         sqrt_recipm1_alphas_cumprod=f32(np.sqrt(1.0 / alphas_cumprod - 1)),
+        posterior_variance=f32(posterior_variance),
+        posterior_log_variance_clipped=f32(
+            np.log(np.maximum(posterior_variance, 1e-20))),
+        posterior_mean_coef1=f32(
+            betas * np.sqrt(alphas_cumprod_prev) / (1.0 - alphas_cumprod)),
+        posterior_mean_coef2=f32(
+            (1.0 - alphas_cumprod_prev) * np.sqrt(alphas)
+            / (1.0 - alphas_cumprod)),
     )
 
 

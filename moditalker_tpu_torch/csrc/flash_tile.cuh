@@ -104,8 +104,9 @@ struct FlashShape {
       (kBQ * QS + kBK * QS + DH * VS) * (int)sizeof(bf16);
 };
 
-// Element strides of q/k/v (shared) and of the output; sin/cos: fp32
-// [L, DH] tables, read only when ROT.
+// Element strides of q, of k/v (which share theirs) and of the output;
+// L query rows attend to Lk keys (self-attention: Lk == L). sin/cos: fp32
+// [L, DH] tables, read only when ROT (which needs Lk == L).
 struct FlashArgs {
   const bf16* q;
   const bf16* k;
@@ -113,9 +114,9 @@ struct FlashArgs {
   const float* sin_t;
   const float* cos_t;
   bf16* out;
-  long in_batch, in_row, out_batch, out_row;
+  long q_batch, kv_batch, in_row, out_batch, out_row;
   int head;  // column offset of one head, inputs and output
-  int L;
+  int L, Lk;
   float scale;
 };
 
@@ -123,7 +124,7 @@ struct FlashArgs {
 template <int DH, bool ROT>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const FlashArgs a) {
-  const int L = a.L;
+  const int L = a.L, Lk = a.Lk;
   using S = FlashShape<DH>;
   constexpr int DK = S::DK, QS = S::QS, VS = S::VS;
   constexpr int CH = DH / 8;  // 8-wide chunks per row
@@ -133,8 +134,9 @@ flash_kernel(const FlashArgs a) {
   bf16* vt_s = k_s + kBK * QS;                    // [DH][VS]
 
   const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const long off = b * a.in_batch + (long)h * a.head;
-  const bf16 *qb = a.q + off, *kb = a.k + off, *vb = a.v + off;
+  const long kv_off = b * a.kv_batch + (long)h * a.head;
+  const bf16* qb = a.q + b * a.q_batch + (long)h * a.head;
+  const bf16 *kb = a.k + kv_off, *vb = a.v + kv_off;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
@@ -177,11 +179,11 @@ flash_kernel(const FlashArgs a) {
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.f, 0.f};  // per-thread partial row sums
 
-  for (int k0 = 0; k0 < L; k0 += kBK) {
+  for (int k0 = 0; k0 < Lk; k0 += kBK) {
     __syncthreads();  // previous tile fully consumed
     for (int i = tid; i < kBK * CH; i += kThreads) {
       int r = i / CH, c = (i % CH) * 8, row = k0 + r;
-      bool valid = row < L;
+      bool valid = row < Lk;
       long tab = (long)(valid ? row : 0) * DH + c;
       float x[8];
       load8<ROT>(kb + row * a.in_row + c, valid, a.sin_t + tab, a.cos_t + tab,
@@ -205,12 +207,12 @@ flash_kernel(const FlashArgs a) {
                   *reinterpret_cast<const uint32_t*>(kp + 8));
       }
     }
-    if (k0 + kBK > L) {  // ragged last tile: keys past L get no weight
+    if (k0 + kBK > Lk) {  // ragged last tile: keys past Lk get no weight
 #pragma unroll
       for (int nt = 0; nt < kBK / 8; ++nt) {
         int key = k0 + nt * 8 + 2 * t;
-        if (key >= L) s[nt][0] = s[nt][2] = -INFINITY;
-        if (key + 1 >= L) s[nt][1] = s[nt][3] = -INFINITY;
+        if (key >= Lk) s[nt][0] = s[nt][2] = -INFINITY;
+        if (key + 1 >= Lk) s[nt][1] = s[nt][3] = -INFINITY;
       }
     }
 
@@ -300,7 +302,8 @@ inline FlashArgs packed_args(const void* qkv, const void* sin_t,
   return FlashArgs{base, base + hd, base + 2 * hd,
                    static_cast<const float*>(sin_t),
                    static_cast<const float*>(cos_t), static_cast<bf16*>(out),
-                   L * 3 * hd, 3 * hd, L * hd, hd, DH, L, scale};
+                   L * 3 * hd, L * 3 * hd, 3 * hd, L * hd, hd, DH, L, L,
+                   scale};
 }
 
 }  // namespace mdt

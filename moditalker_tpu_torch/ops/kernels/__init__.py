@@ -14,6 +14,8 @@ LAUNCHES: dict[str, int] = {
     "divided_time_attention": 0,
     "packed_attention": 0,
     "onepass_attention": 0,
+    "tiny_attention": 0,
+    "fused_attention": 0,
 }
 
 SOURCES = {
@@ -21,6 +23,8 @@ SOURCES = {
     "divided_time_attention": "divided_attention",
     "packed_attention": "packed_attention",
     "onepass_attention": "flash_attention",
+    "tiny_attention": "tiny_attention",
+    "fused_attention": "flash_attention",
 }
 
 
@@ -37,6 +41,8 @@ BF16_LIMITS: dict[str, tuple[float, float]] = {
     "divided_time_attention": (1.7e-2, 1e-2),
     "packed_attention": (1.6e-2, 1.1e-2),
     "onepass_attention": (2.3e-2, 1.1e-2),
+    "tiny_attention": (1e-2, 7.5e-3),
+    "fused_attention": (2.3e-2, 1.1e-2),
 }
 
 

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 
@@ -68,8 +69,11 @@ def divided_attention_viable(axis: str, f: int, n: int, heads: int,
                              dim_head: int, rot_dim: int) -> bool:
     """Shape gate of the fused path (divided_attention.py:260-277): full
     head-dim rotary, head groups that tile 128 lanes, clean sequence
-    tiling."""
-    if (rot_dim != dim_head or dim_head > _LANES or _LANES % dim_head != 0
+    tiling. ``MODITALKER_NO_DIVIDED_FUSED``, read at call time as the JAX
+    gate reads it, closes the gate: the head-split attention then goes
+    through ``sdpa`` (space → one-pass kernel, time → tiny-L kernel)."""
+    if (os.environ.get("MODITALKER_NO_DIVIDED_FUSED")
+            or rot_dim != dim_head or dim_head > _LANES or _LANES % dim_head != 0
             or (heads * dim_head) % _LANES != 0):
         return False
     if axis == "space":

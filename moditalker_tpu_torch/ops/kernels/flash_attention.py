@@ -1,16 +1,29 @@
-"""One-pass attention over folded sequences (port of ``_onepass_kernel`` in
-``moditalker_tpu/ops/pallas/flash_attention.py``).
+"""One-pass, tiny-L and K-blocked fused attention over folded sequences
+(port of ``moditalker_tpu/ops/pallas/flash_attention.py``).
 
-Kernel (``csrc/flash_attention.cu``, sm_90a): mask-free attention on
-[B, N, D] (heads folded into B) as an online-softmax ``mma.sync`` flash
-kernel; the TPU kernel's full-row softmax over a VMEM-resident K/V does not
-fit a Hopper block. Bound by operations. ``ops.attention.sdpa`` dispatches
-here at the one-pass gate's shapes, as the JAX package's ``sdpa`` does on
-the TPU; on the main path that is the UNet's joint attention after the last
-upsample, [B·8, 2048, 32].
+Kernels (sm_90a), all on [B, N, D] bf16 with heads folded into B:
 
-For tensors on the CPU the wrapper runs the plain version (the plain
-``sdpa`` math); for CUDA tensors it launches the kernel or raises.
+* one-pass (``csrc/flash_attention.cu``) — replaces ``_onepass_kernel``:
+  mask-free self-attention as an online-softmax ``mma.sync`` flash kernel;
+  the TPU kernel's full-row softmax over a VMEM-resident K/V does not fit a
+  Hopper block. Bound by operations. ``ops.attention.sdpa`` dispatches here
+  at the one-pass gate's shapes, as the JAX package's ``sdpa`` does on the
+  TPU: the UNet's joint attention after the last upsample, [B·8, 2048, 32],
+  and, with the fused divided and packed kernels switched off, the
+  TimeSformer space attention [B·8·16, 1024, 64] and the UNet's dh = 16
+  attentions.
+* tiny-L (``csrc/tiny_attention.cu``) — replaces ``_tiny_kernel``: one warp
+  per sequence, both products as ``mma.sync`` around a full-row softmax in
+  registers, 16-byte coalesced loads and stores. Bound by bytes. ``sdpa``
+  dispatches here at the tiny gate's shapes: the TimeSformer time attention
+  [B·8·1024, 16, 64] when the fused divided kernels are switched off.
+* K-blocked fused (``csrc/flash_attention.cu``) — replaces ``_attn_kernel``:
+  the same flash kernel with Nq query rows against Nk keys. Bound by
+  operations. Reached through ``ops.attention.sdpa_fused`` only, as in the
+  JAX package; no model calls it.
+
+For tensors on the CPU a wrapper runs its plain version (the plain ``sdpa``
+math); for CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,9 +36,12 @@ import torch
 from ..attention import plain_sdpa
 from . import LAUNCHES, _build
 
-# instantiated in csrc/flash_attention.cu: the head dims the repository's
-# configurations reach (32 and 64); others raise on the card
-_HEAD_DIMS = (32, 64)
+# instantiated in csrc/: the shapes the repository's configurations reach
+# (UNet attention at 128 and 256 model channels, AE dim_head 64, 16 frames);
+# others raise on the card
+ONEPASS_HEAD_DIMS = (16, 32, 64)
+FUSED_HEAD_DIMS = (16, 64)
+TINY_SHAPES = ((16, 64),)   # (L, head dim)
 
 
 def onepass_attention_viable(nq: int, nk: int, d: int) -> bool:
@@ -34,7 +50,8 @@ def onepass_attention_viable(nq: int, nk: int, d: int) -> bool:
 
 
 def onepass_attention_reference(q, k, v, scale: float):
-    """The plain version (the JAX package's einsum path)."""
+    """The plain version of all three kernels (the JAX package's einsum
+    path): q [B, Nq, D] over k, v [B, Nk, D]."""
     return plain_sdpa(q * scale, k, v)
 
 
@@ -44,23 +61,31 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.onepass_attention.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
     lib.onepass_attention.restype = i
+    lib.fused_attention.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    lib.fused_attention.restype = i
     return lib
+
+
+def _check_bf16(what: str, q, k, v, kv_shape):
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the {what} kernel takes bf16, got {q.dtype}")
+    if tuple(k.shape) != kv_shape or tuple(v.shape) != kv_shape:
+        raise ValueError(f"the {what} kernel needs k and v of shape "
+                         f"{kv_shape}, got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    q, k, v = (t.contiguous() for t in (q, k, v))
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("kernel operands must be 16-byte aligned")
+    return q, k, v
 
 
 def onepass_attention_cuda(q, k, v, scale: float):
     """Kernel launch: q, k, v [B, N, D] bf16 → [B, N, D]."""
     b, n, d = q.shape
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the one-pass kernel takes bf16, got {q.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("the one-pass kernel is self-attention: q, k and v "
-                         "must share one shape")
-    if d not in _HEAD_DIMS:
+    q, k, v = _check_bf16("one-pass", q, k, v, (b, n, d))
+    if d not in ONEPASS_HEAD_DIMS:
         raise NotImplementedError(f"one-pass kernel built for head dims "
-                                  f"{_HEAD_DIMS}, not {d}")
-    q, k, v = (t.contiguous() for t in (q, k, v))
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("kernel operands must be 16-byte aligned")
+                                  f"{ONEPASS_HEAD_DIMS}, not {d}")
     out = torch.empty_like(q)
     lib = _lib()
     status = lib.onepass_attention(
@@ -77,3 +102,91 @@ def onepass_attention(q, k, v, scale: float):
     if not q.is_cuda:
         return onepass_attention_reference(q, k, v, scale)
     return onepass_attention_cuda(q, k, v, float(scale))
+
+
+# ------------------------------------------------------------------ tiny-L
+def tiny_attention_viable(b: int, nq: int, nk: int, d: int) -> bool:
+    """``tiny_attention_viable`` (flash_attention.py:180-186)."""
+    return (nq == nk and nq <= 32 and nq % 8 == 0 and b >= 4096
+            and b % 128 == 0 and d % 64 == 0 and d <= 128)
+
+
+tiny_attention_reference = onepass_attention_reference  # the same plain math
+
+
+@functools.cache
+def _tiny_lib() -> ctypes.CDLL:
+    lib = _build.load("tiny_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tiny_attention.argtypes = [p, p, p, p, ctypes.c_long, i, i,
+                                   ctypes.c_float, p]
+    lib.tiny_attention.restype = i
+    return lib
+
+
+def tiny_attention_cuda(q, k, v, scale: float):
+    """Kernel launch: q, k, v [B, L, D] bf16 → [B, L, D]."""
+    b, l, d = q.shape
+    q, k, v = _check_bf16("tiny-L", q, k, v, (b, l, d))
+    if (l, d) not in TINY_SHAPES:
+        raise NotImplementedError(f"tiny-L kernel built for (L, head dim) "
+                                  f"{TINY_SHAPES}, not {(l, d)}")
+    out = torch.empty_like(q)
+    lib = _tiny_lib()
+    status = lib.tiny_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, d,
+        scale, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, status, "tiny_attention")
+    LAUNCHES["tiny_attention"] += 1
+    return out
+
+
+def tiny_attention(q, k, v, scale: float):
+    """Attention on [B, L, D] at a shape ``tiny_attention_viable`` accepts."""
+    if not q.is_cuda:
+        return tiny_attention_reference(q, k, v, scale)
+    return tiny_attention_cuda(q, k, v, float(scale))
+
+
+# ------------------------------------------------------------------ K-blocked
+def fused_attention_tiles(nk: int, d: int) -> bool:
+    """Whether the K-blocked kernel takes a key length and head dim
+    (flash_attention.py:221-224): 8-aligned, and Nk a multiple of its
+    128-wide (or, below 128, whole-sequence) key block."""
+    return nk % 8 == 0 and d % 8 == 0 and nk % min(128, max(8, nk)) == 0
+
+
+fused_attention_reference = onepass_attention_reference  # the same plain math
+
+
+def fused_attention_cuda(q, k, v, scale: float):
+    """Kernel launch: q [B, Nq, D], k, v [B, Nk, D] bf16 → [B, Nq, D]."""
+    b, nq, d = q.shape
+    nk = k.shape[1]
+    q, k, v = _check_bf16("fused", q, k, v, (b, nk, d))
+    if d not in FUSED_HEAD_DIMS:
+        raise NotImplementedError(f"fused kernel built for head dims "
+                                  f"{FUSED_HEAD_DIMS}, not {d}")
+    out = torch.empty_like(q)
+    lib = _lib()
+    status = lib.fused_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
+        d, scale, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, status, "fused_attention")
+    LAUNCHES["fused_attention"] += 1
+    return out
+
+
+def fused_attention(q, k, v, scale: float | None = None):
+    """Attention of q [B, Nq, D] over k, v [B, Nk, D] (heads folded into B);
+    ``scale`` defaults to ``D**-0.5``.
+
+    Where Nk does not tile (``fused_attention_tiles``) the JAX package takes
+    its einsum path on the TPU as well, so such shapes take the plain math
+    here on any device: that is the JAX dispatch, not a way around a kernel.
+    At a shape that tiles, a CUDA tensor launches the kernel or raises."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if not fused_attention_tiles(k.shape[1], q.shape[-1]) or not q.is_cuda:
+        return fused_attention_reference(q, k, v, scale)
+    return fused_attention_cuda(q, k, v, float(scale))

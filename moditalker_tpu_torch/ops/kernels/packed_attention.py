@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import torch
 
@@ -51,7 +52,11 @@ def packed_attention_viable(l: int, c: int, heads: int) -> bool:
     """Shape gate (packed_attention.py:151-164): dh = 16, 1024 <= L <= 4096,
     and K+V of one sequence within 4 MB. (The JAX gate also asks for a query
     block of its TPU kernel; with dh = 16 and the 4 MB bound that exists
-    whenever L % 8 == 0.)"""
+    whenever L % 8 == 0.) ``MODITALKER_NO_PACKED_ATTN``, read at call time as
+    the JAX gate reads it, closes the gate: the head-split attention then
+    goes through ``sdpa`` (one-pass kernel at dh = 16)."""
+    if os.environ.get("MODITALKER_NO_PACKED_ATTN"):
+        return False
     return (c % _LANES == 0 and c % heads == 0 and c // heads == 16
             and 1024 <= l <= 4096 and l % 8 == 0
             and l * c * 2 * 2 <= 4 * 1024 * 1024)

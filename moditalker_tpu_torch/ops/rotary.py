@@ -1,10 +1,12 @@
-"""TimeSformer rotary embeddings (port of ``moditalker_tpu/ops/rotary.py``).
+"""Rotary embeddings (port of ``moditalker_tpu/ops/rotary.py``).
 
-1D rotary over frames and axial 2D rotary over the patch grid, applied per
-head with the interleaved rotate-every-two (ref
-MToV/models/autoencoder/vit_modules.py:8-63). The tables are built with numpy
-exactly as the JAX package builds them, so both packages rotate by the same
-float32 angles.
+TimeSformer: 1D rotary over frames and axial 2D rotary over the patch grid,
+applied per head with the interleaved rotate-every-two (ref
+MToV/models/autoencoder/vit_modules.py:8-63). AToM: the full-model-dim
+rotary applied before the attention projections (lucidrains semantics,
+AToM/model/rotary_embedding_torch.py:109-132). The tables are built with
+numpy exactly as the JAX package builds them, so both packages rotate by
+the same float32 angles.
 """
 
 from __future__ import annotations
@@ -76,3 +78,21 @@ def apply_rot_emb(
     q_rot = q_rot * cos + rotate_every_two(q_rot) * sin
     k_rot = k_rot * cos + rotate_every_two(k_rot) * sin
     return torch.cat([q_rot, q_pass], dim=-1), torch.cat([k_rot, k_pass], dim=-1)
+
+
+def rotary_full_dim_freqs(seq_len: int, dim: int) -> np.ndarray:
+    """freqs table [seq_len, dim]: outer(arange(n), 1/theta^(2i/d)), each
+    freq repeated twice interleaved (rotary_embedding_torch.py:126-127)."""
+    inv_freq = 1.0 / (10000 ** (np.arange(0, dim, 2, dtype=np.float64) / dim))
+    freqs = np.outer(np.arange(seq_len, dtype=np.float64), inv_freq)
+    freqs = np.repeat(freqs, 2, axis=-1)  # '... n -> ... (n r)', r=2
+    return freqs.astype(np.float32)
+
+
+def apply_rotary_full_dim(t: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
+    """Rotate the leading ``freqs.shape[-1]`` features of t along its
+    sequence axis (-2). t: [..., N, D], freqs: [N, rot_dim]."""
+    rot_dim = freqs.shape[-1]
+    t_rot, t_pass = t[..., :rot_dim], t[..., rot_dim:]
+    t_rot = t_rot * torch.cos(freqs) + rotate_every_two(t_rot) * torch.sin(freqs)
+    return torch.cat([t_rot, t_pass], dim=-1)

@@ -11,6 +11,9 @@ feeds the last generated frame back as the next window's reference
 from __future__ import annotations
 
 import itertools
+import os
+import shutil
+import subprocess
 
 import numpy as np
 import torch
@@ -223,3 +226,76 @@ class MtovSamplePipeline:
         if pending is not None:
             out_frames.append(pending.cpu().numpy())
         return np.concatenate(out_frames, axis=1)
+
+
+# ------------------------------------------------------------------ writers
+def has_ffmpeg() -> bool:
+    return shutil.which("ffmpeg") is not None
+
+
+def write_video(frames: np.ndarray, path: str, fps: int = 25,
+                audio_path: str | None = None,
+                preset: str | None = None) -> str:
+    """uint8 [T, H, W, 3] → mp4 via ffmpeg, optionally muxing audio
+    (ref sample.py:109-117 make_video); without ffmpeg on the host, an
+    ``.npz`` frame dump beside the asked path. Returns the path written.
+
+    ``preset`` is the libx264 speed/size knob (default ``veryfast``,
+    override via MODITALKER_X264_PRESET)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if not has_ffmpeg():
+        alt = path.rsplit(".", 1)[0] + ".npz"
+        np.savez_compressed(alt, frames=frames, fps=fps)
+        return alt
+    if preset is None:
+        preset = os.environ.get("MODITALKER_X264_PRESET", "veryfast")
+    t, h, w, _ = frames.shape
+    cmd = ["ffmpeg", "-y", "-f", "rawvideo", "-pix_fmt", "rgb24",
+           "-s", f"{w}x{h}", "-r", str(fps), "-i", "pipe:0"]
+    if audio_path:
+        cmd += ["-i", audio_path, "-c:a", "aac", "-shortest"]
+    cmd += ["-pix_fmt", "yuv420p", "-c:v", "libx264", "-preset", preset,
+            path]
+    proc = subprocess.run(cmd, input=frames.tobytes(), capture_output=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"ffmpeg failed: {proc.stderr.decode()[-500:]}")
+    return path
+
+
+def save_gif(frames: np.ndarray, path: str, fps: int = 25) -> str:
+    """uint8 [T, H, W, 3] → animated gif (ref sample.py gif dumps)."""
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    imgs = [Image.fromarray(f) for f in frames]
+    imgs[0].save(path, save_all=True, append_images=imgs[1:],
+                 duration=max(int(1000 / fps), 20), loop=0)
+    return path
+
+
+def save_image_grid(video: np.ndarray, path: str, cols: int = 8) -> str:
+    """uint8 [T, H, W, 3] → one grid png (ref sample.py:56-107)."""
+    from PIL import Image
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    t, h, w, c = video.shape
+    rows = (t + cols - 1) // cols
+    grid = np.zeros((rows * h, cols * w, c), np.uint8)
+    for i in range(t):
+        r, col = divmod(i, cols)
+        grid[r * h : (r + 1) * h, col * w : (col + 1) * w] = video[i]
+    Image.fromarray(grid).save(path)
+    return path
+
+
+def save_frames(video: np.ndarray, out_dir: str) -> list[str]:
+    """uint8 [T, H, W, 3] → per-frame jpgs in the reference layout."""
+    from PIL import Image
+
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i, f in enumerate(video):
+        p = os.path.join(out_dir, f"{i:05d}.jpg")
+        Image.fromarray(f).save(p, quality=95)
+        paths.append(p)
+    return paths

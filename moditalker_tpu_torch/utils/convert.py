@@ -1,7 +1,7 @@
 """JAX-package parameters → the port's ``state_dict``.
 
-Takes the parameter pytree of ``moditalker_tpu``'s ``ViTAutoencoder`` or
-``TriplaneUNet`` as nested dicts of numpy arrays (for example
+Takes the parameter pytree of ``moditalker_tpu``'s ``ViTAutoencoder``,
+``TriplaneUNet`` or AToM ``MotionDecoder`` as nested dicts of numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, params)``) and returns the
 ``state_dict`` of the port's module of the same name. No JAX is needed.
 
@@ -28,6 +28,10 @@ _LISTS = re.compile(r"^(in_res|in_attn2d|in_joint|out_res|out_attn2d|out_up"
                     r"|out_joint)_(\d+)$")
 _QUANT = re.compile(r"^(attn_norm|to_qkv|to_out|ff_norm|ff1|ff2)_(\d+)$")
 _BLOCK = re.compile(r"^block_(\d+)$")
+# AToM MotionDecoder: layer stacks, and the pooled-token projections whose
+# flax members are `name_ln`, `name_fc1`, `name_fc2`
+_ATOM_LISTS = re.compile(r"^(cond_encoder|face_encoder|decoder)_(\d+)$")
+_ATOM_PROJ = re.compile(r"^(non_attn_(?:cond|face)_projection)_(ln|fc1|fc2)$")
 
 
 def _module_path(names: list[str]) -> list[str]:
@@ -37,7 +41,8 @@ def _module_path(names: list[str]) -> list[str]:
             out += ["blocks", m[1]]
         elif m := _QUANT.match(n):
             out += ["layers", m[2], m[1]]
-        elif m := _LISTS.match(n):
+        elif m := (_LISTS.match(n) or _ATOM_LISTS.match(n)
+                   or _ATOM_PROJ.match(n)):
             out += [m[1], m[2]]
         else:
             out.append(n)
@@ -86,4 +91,11 @@ def convert_ae_params(flax_params: dict) -> dict[str, torch.Tensor]:
 def convert_unet_params(flax_params: dict) -> dict[str, torch.Tensor]:
     """``TriplaneUNet`` parameters → the port's ``TriplaneUNet``
     state_dict."""
+    return _convert(flax_params)
+
+
+def convert_atom_params(flax_params: dict) -> dict[str, torch.Tensor]:
+    """AToM ``MotionDecoder`` parameters → the port's ``MotionDecoder``
+    state_dict. The three null embeddings are top-level parameters and keep
+    their names and shapes."""
     return _convert(flax_params)

@@ -9,13 +9,14 @@ Inputs are bf16. Kernel and plain version round q, the scores or the
 probabilities to bf16 at different places, so each kernel is held to
 ``BF16_LIMITS``: its max and rms error relative to the plain output's max
 and rms. The shapes are those the kernels are built for, at the main
-path's sizes and smaller, with a ragged tile for the packed kernel.
+path's sizes and smaller, with a ragged tile for the packed and the fused
+kernel and a last block that is not full for the tiny-L kernel.
 """
 
 import pytest
 import torch
 
-from moditalker_tpu_torch.ops import rotary
+from moditalker_tpu_torch.ops import attention, rotary
 from moditalker_tpu_torch.ops.kernels import LAUNCHES, check_bf16
 from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
@@ -72,10 +73,59 @@ def test_packed_kernel_matches_plain(gen, b, l):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d", [(16, 2048, 32), (3, 1280, 64),
-                                   (2, 1024, 32)])
+                                   (2, 1024, 32), (16, 2048, 16),
+                                   (16, 1024, 16), (32, 1024, 64)])
 def test_onepass_kernel_matches_plain(gen, b, n, d):
     q, k, v = (_randn(gen, b, n, d) for _ in range(3))
     got = _launched("onepass_attention",
                     lambda: tflash.onepass_attention(q, k, v, d**-0.5))
     want = tflash.onepass_attention_reference(q, k, v, d**-0.5)
     check_bf16("onepass_attention", got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [16384, 4096, 130])
+def test_tiny_kernel_matches_plain(gen, b):
+    q, k, v = (_randn(gen, b, 16, 64) for _ in range(3))
+    got = _launched("tiny_attention",
+                    lambda: tflash.tiny_attention(q, k, v, 0.125))
+    want = tflash.tiny_attention_reference(q, k, v, 0.125)
+    check_bf16("tiny_attention", got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,nk,d", [
+    (16, 2048, 2048, 16), (4, 1024, 1024, 64), (2, 64, 512, 64),
+    (3, 100, 256, 64), (3, 1000, 384, 16)])
+def test_fused_kernel_matches_plain(gen, b, nq, nk, d):
+    q, k, v = _randn(gen, b, nq, d), _randn(gen, b, nk, d), _randn(gen, b, nk, d)
+    got = _launched("fused_attention",
+                    lambda: tflash.fused_attention(q, k, v))
+    want = tflash.fused_attention_reference(q, k, v, d**-0.5)
+    check_bf16("fused_attention", got, want)
+
+
+@pytest.mark.cuda
+def test_sdpa_routes_launch_their_kernels(gen):
+    """``sdpa`` and ``sdpa_fused`` on the card: head-split tensors reach the
+    tiny-L, one-pass and fused kernels; a key length that does not tile and a
+    mask take the plain math and launch nothing."""
+    q, k, v = (_randn(gen, 2, 8, 1024, 16, 64) for _ in range(3))
+    got = _launched("tiny_attention",
+                    lambda: attention.sdpa(q, k, v, scale=0.125))
+    check_bf16("tiny_attention", got, attention.plain_sdpa(q * 0.125, k, v))
+    q, k, v = (_randn(gen, 2, 8, 1024, 16) for _ in range(3))
+    got = _launched("onepass_attention",
+                    lambda: attention.sdpa(q, k, v, scale=0.25))
+    check_bf16("onepass_attention", got, attention.plain_sdpa(q * 0.25, k, v))
+    q, k, v = _randn(gen, 2, 2, 64, 64), _randn(gen, 2, 2, 512, 64), \
+        _randn(gen, 2, 2, 512, 64)
+    got = _launched("fused_attention",
+                    lambda: attention.sdpa_fused(q, k, v, 0.125))
+    check_bf16("fused_attention", got, attention.plain_sdpa(q * 0.125, k, v))
+    before = dict(LAUNCHES)
+    k2 = _randn(gen, 2, 2, 260, 64)
+    attention.sdpa_fused(q, k2, k2, 0.125)
+    mask = torch.ones(64, 512, dtype=torch.bool, device="cuda")
+    attention.sdpa(q, k, v, scale=0.125, mask=mask)
+    assert LAUNCHES == before
