@@ -14,8 +14,13 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              ``BF16_LIMITS``), timed with CUDA events beside the plain
              version, one PyTorch library call computing the same attention
              (``library_ms``, a yardstick the port never calls) and the
-             card's bound. The K-blocked fused kernel is driven here through
-             the public op ``sdpa_fused``: no model calls it;
+             card's bound. The divided space and time kernels are also
+             held at B = 1 (``sample_long``'s shape), the space kernel at the
+             edges of its gate (N = 256 and 2048) and with its K ring forced
+             where the wrapper keeps K resident; their rows carry the time
+             of the kernels they replaced (``prev_ms``) and the design kept.
+             The K-blocked fused kernel is driven here through the public op
+             ``sdpa_fused``: no model calls it;
 3. reference — one DDIM-2 window at a small depth but full spatial size (so
              every kernel gate passes) on the card in bf16 against the same
              weights and draws on the CPU in float32 through the plain path,
@@ -195,23 +200,41 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         return q.contiguous(), k.contiguous(), v.contiguous()
 
     rows = []
-    s_sin, s_cos = tables(rotary.axial_rotary_sincos(32, 32, dh))
     t_sin, t_cos = tables(rotary.time_rotary_sincos(f, dh))
-    for axis, sin, cos in (("space", s_sin, s_cos), ("time", t_sin, t_cos)):
-        qkv = torch.randn((batch, f, n, 3 * hd), generator=gen,
+
+    # the rows added beside the main-path shapes draw from a generator of
+    # their own, so the main-path rows see the inputs they always saw
+    gen_more = torch.Generator(device=dev).manual_seed(seed + 1)
+
+    def divided_row(axis, b_, f_, n_, design=None, g=gen_more):
+        """One divided-attention row; ``design`` forces the space kernel's
+        K placement where the wrapper would choose the other."""
+        if axis == "space":
+            sin, cos = tables(rotary.axial_rotary_sincos(32, n_ // 32, dh)
+                              if n_ >= 1024 else
+                              rotary.axial_rotary_sincos(16, n_ // 16, dh))
+        else:
+            sin, cos = t_sin, t_cos
+        qkv = torch.randn((b_, f_, n_, 3 * hd), generator=g,
                           device=dev).bfloat16()
-        kern = lambda: dv.divided_attention(qkv, sin, cos, axis, heads, dh, scale)
+        if design is None:
+            kern = lambda: dv.divided_attention(qkv, sin, cos, axis, heads,
+                                                dh, scale)
+        else:
+            kern = lambda: dv.space_attention_cuda(
+                qkv.reshape(b_ * f_, n_, 3 * hd), sin, cos, heads, dh, scale,
+                design=design).reshape(b_, f_, n_, hd)
         plain = lambda: dv.divided_attention_reference(
             qkv, sin, cos, axis, heads, dh, scale, use_flash=False)
         name = f"divided_{axis}_attention"
         err = errors(name, kern, plain)
         q, k, v = head_split_rotated(qkv, sin, cos, axis)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
-        seq = n if axis == "space" else f
-        nseq = batch * f * n // seq
-        nbytes = qkv.numel() * 2 + batch * f * n * hd * 2 + 2 * sin.numel() * 4
+        seq = n_ if axis == "space" else f_
+        nseq = b_ * f_ * n_ // seq
+        nbytes = qkv.numel() * 2 + b_ * f_ * n_ * hd * 2 + 2 * sin.numel() * 4
         flops = 4.0 * nseq * heads * seq * seq * dh
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda",
             source="moditalker_tpu_torch/csrc/divided_attention.cu",
             replaces=("moditalker_tpu/ops/pallas/divided_attention.py:121"
@@ -219,7 +242,29 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                       "moditalker_tpu/ops/pallas/divided_attention.py:177"),
             shape=list(qkv.shape), **err,
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
-            library_ms=time_ms(torch, lib), nbytes=nbytes, flops=flops))
+            library_ms=time_ms(torch, lib), nbytes=nbytes, flops=flops)
+        if axis == "space":
+            slots, consumers, _ = dv.space_plan(n_, design)
+            row["design"] = (
+                f"resident K ({slots} slots, one block per (frame, head), "
+                f"{consumers} consumer warpgroups)" if design != "streamed"
+                and slots == n_ // dv.SPACE_TILE else
+                f"K ring ({slots} slots, one query tile per block, "
+                f"{consumers} consumer warpgroups)")
+        return row
+
+    # the main path's shape first (its row of the kernels line), with the
+    # time the first port's kernel took there (H100 80GB HBM3, 700 W); then
+    # sample_long's B = 1, the space gate's edges, and the K ring where the
+    # wrapper keeps K resident
+    rows.append(dict(divided_row("space", batch, f, n, g=gen),
+                     prev_ms=0.8307))
+    rows.append(dict(divided_row("time", batch, f, n, g=gen), prev_ms=0.4438,
+                     design="one warp per (b, n, head), mma.sync"))
+    rows += [divided_row("space", 1, f, n), divided_row("time", 1, f, n),
+             divided_row("space", batch, 1, 256),
+             divided_row("space", batch, 1, 2048),
+             divided_row("space", batch, f, n, design="streamed")]
 
     c, l = 128, 2048                        # UNet joint attention at ds = 1
     for ll in (1024, l):                    # xy-plane attention, then joint
@@ -303,7 +348,10 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             f" and rms {row['rel_rms_err']:.3e} (limits "
             f"{BF16_LIMITS[row['name']]}), kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            + (f", {row['design']}" if "design" in row else "")
+            + (f", before the redesign {row['prev_ms']:.4f} ms"
+               if "prev_ms" in row else ""))
     return rows
 
 
@@ -621,6 +669,9 @@ def main() -> int:
     logs = _build.build(sorted(set(SOURCES.values())))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, (secs, out) in logs.items():
+        for line in out.splitlines():   # per kernel: registers, spills
+            if "Compiling entry" in line or "Used" in line or "spill" in line:
+                log(f"    {line.strip()}")
         regs = [int(w) for line in out.splitlines() if "Used" in line
                 for w, nxt in zip(line.split(), line.split()[1:])
                 if nxt == "registers,"]
@@ -654,7 +705,8 @@ def main() -> int:
             kernels[row["name"]].setdefault("other_shapes", []).append(
                 {k: row[k] for k in ("shape", "max_abs_err", "rel_max_err",
                                      "rel_rms_err", "ms", "plain_ms",
-                                     "library_ms", "bound_ms", "bound_by")})
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "design") if k in row})
             continue
         kernels[row["name"]] = row
         row["launches_by_path"] = {p: c[row["name"]] for p, c in timed.items()}

@@ -1,8 +1,10 @@
 // Flash attention, one (query tile, head, sequence) per block.
 //
-// Shared by the divided-attention space kernel (divided_attention.cu, with
-// the axial rotary), the packed-head attention kernel (packed_attention.cu)
-// and the one-pass attention kernel (flash_attention.cu). q, k and v of
+// Shared by the packed-head attention kernel (packed_attention.cu) and the
+// one-pass and K-blocked attention kernels (flash_attention.cu). The divided
+// space attention ran on it with ROT = true until it moved to
+// wgmma_tile.cuh; no source instantiates the rotary here any more, and
+// load8<true> serves the divided time kernel. q, k and v of
 // (sequence b, head h, row r) sit at ptr + b·batch + h·head + r·row, so the
 // kernel reads a head straight out of a packed [B, L, 3·H·DH] projection
 // (q at column h·DH, k at H·DH + h·DH, v at 2·H·DH + h·DH) or out of

@@ -16,20 +16,18 @@
 // accumulator pair, the softmax is a full-row one in registers (row max and
 // fp32 row sum over the quad), P is rounded to bf16 for the second product
 // and the output is divided by the row sum after it, the TPU kernel's
-// rounding points. The output goes back through the shared buffer so the
-// stores are 16-byte coalesced too.
-#include "flash_tile.cuh"
+// rounding points (tiny_tile.cuh, shared with the divided time kernel). The
+// output goes back through the shared buffer so the stores are 16-byte
+// coalesced too.
+#include "tiny_tile.cuh"
 
 namespace mdt {
 
 template <int L, int D>
 struct TinyShape {
-  static_assert(L == 16, "one m16 tile of query rows per warp");
-  static_assert(D % 16 == 0, "contraction in k16 steps");
-  static constexpr int RS = D + 8;  // padded smem row stride (bf16)
   static constexpr int warps = 4;
-  static constexpr int warp_elems = 3 * L * RS;  // q, k, v
-  static constexpr int smem_bytes = warps * warp_elems * (int)sizeof(bf16);
+  static constexpr int smem_bytes =
+      warps * TinyTile<L, D>::warp_elems * (int)sizeof(bf16);
 };
 
 // grid ceil(B / 4), block 128.
@@ -39,16 +37,16 @@ tiny_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ out,
                       long B, float scale) {
   using S = TinyShape<L, D>;
-  constexpr int RS = S::RS, CH = D / 8;  // 8-wide chunks per row
+  using T = TinyTile<L, D>;
+  constexpr int RS = T::RS, CH = T::CH;  // 8-wide chunks per row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long seq = (long)blockIdx.x * S::warps + warp;
   if (seq >= B) return;  // whole warp leaves; no block barrier below
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw) + warp * S::warp_elems;
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw) + warp * T::warp_elems;
   bf16* k_s = q_s + L * RS;
   bf16* v_s = k_s + L * RS;
   const long base = seq * L * D;
-  const int g = lane >> 2, t = lane & 3;
 
   for (int i = lane; i < L * CH; i += 32) {
     const int r = i / CH, c = (i % CH) * 8;
@@ -61,75 +59,7 @@ tiny_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         *reinterpret_cast<const uint4*>(v + base + i * 8);
   }
   __syncwarp();
-
-  // S = Q·Kᵀ: 16 rows x 16 keys, two n8 tiles
-  float s[L / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < L / 8; ++nt)
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t qa[4];
-    const bf16* p0 = q_s + g * RS + kk * 16 + 2 * t;
-    const bf16* p1 = p0 + 8 * RS;
-    qa[0] = *reinterpret_cast<const uint32_t*>(p0);
-    qa[1] = *reinterpret_cast<const uint32_t*>(p1);
-    qa[2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-    qa[3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-#pragma unroll
-    for (int nt = 0; nt < L / 8; ++nt) {
-      const bf16* kp = k_s + (nt * 8 + g) * RS + kk * 16 + 2 * t;
-      mma_16816(s[nt], qa, *reinterpret_cast<const uint32_t*>(kp),
-                *reinterpret_cast<const uint32_t*>(kp + 8));
-    }
-  }
-
-  // full-row softmax; rows g (r = 0) and g + 8 (r = 1), each over a quad
-  float l[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < L / 8; ++nt)
-      mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    float sum = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < L / 8; ++nt) {
-      s[nt][2 * r] = __expf(s[nt][2 * r] - mx);
-      s[nt][2 * r + 1] = __expf(s[nt][2 * r + 1] - mx);
-      sum += s[nt][2 * r] + s[nt][2 * r + 1];
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    l[r] = sum;
-  }
-
-  // O = P·V, P re-packed from the S accumulators as one bf16 A fragment
-  uint32_t pa[4];
-  pa[0] = pack_bf16(s[0][0], s[0][1]);
-  pa[1] = pack_bf16(s[0][2], s[0][3]);
-  pa[2] = pack_bf16(s[1][0], s[1][1]);
-  pa[3] = pack_bf16(s[1][2], s[1][3]);
-  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
-  const unsigned short* v_u = reinterpret_cast<const unsigned short*>(v_s);
-  __syncwarp();  // every lane has read its q fragments: q_s becomes the output
-#pragma unroll
-  for (int nd = 0; nd < D / 8; ++nd) {
-    // B fragment: V[2t][n], V[2t+1][n] and V[2t+8][n], V[2t+9][n], n = nd·8 + g
-    const int col = nd * 8 + g;
-    const uint32_t b0 = v_u[(2 * t) * RS + col] |
-                        ((uint32_t)v_u[(2 * t + 1) * RS + col] << 16);
-    const uint32_t b1 = v_u[(2 * t + 8) * RS + col] |
-                        ((uint32_t)v_u[(2 * t + 9) * RS + col] << 16);
-    float o[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_16816(o, pa, b0, b1);
-    *reinterpret_cast<uint32_t*>(q_s + g * RS + nd * 8 + 2 * t) =
-        pack_bf16(o[0] * inv0, o[1] * inv0);
-    *reinterpret_cast<uint32_t*>(q_s + (g + 8) * RS + nd * 8 + 2 * t) =
-        pack_bf16(o[2] * inv1, o[3] * inv1);
-  }
+  tiny_attend<L, D>(q_s, k_s, v_s, lane);
   __syncwarp();
   for (int i = lane; i < L * CH; i += 32) {
     const int r = i / CH, c = (i % CH) * 8;

@@ -9,8 +9,10 @@ Inputs are bf16. Kernel and plain version round q, the scores or the
 probabilities to bf16 at different places, so each kernel is held to
 ``BF16_LIMITS``: its max and rms error relative to the plain output's max
 and rms. The shapes are those the kernels are built for, at the main
-path's sizes and smaller, with a ragged tile for the packed and the fused
-kernel and a last block that is not full for the tiny-L kernel.
+path's sizes and smaller (the divided kernels also at B = 1 and the space
+kernel at the gate's edges and on both sides of the resident-K limit), with
+a ragged tile for the packed and the fused kernel and a last block that is
+not full for the tiny-L and the time kernel.
 """
 
 import pytest
@@ -42,16 +44,22 @@ def _launched(name, fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("axis,f,n,heads,dh", [
-    ("space", 2, 256, 2, 64), ("space", 2, 1024, 8, 64),
-    ("space", 1, 2048, 2, 64), ("time", 16, 128, 2, 64),
-    ("time", 16, 1024, 8, 64), ("time", 16, 64, 4, 64)])
-def test_divided_kernels_match_plain(gen, axis, f, n, heads, dh):
+@pytest.mark.parametrize("axis,b,f,n,heads,dh", [
+    ("space", 2, 2, 256, 2, 64), ("space", 2, 2, 1024, 8, 64),
+    ("space", 2, 1, 2048, 2, 64), ("space", 1, 16, 1024, 8, 64),
+    ("space", 1, 1, 256, 2, 64), ("space", 1, 1, 1152, 2, 64),
+    ("space", 1, 1, 1280, 2, 64),
+    ("time", 2, 16, 128, 2, 64), ("time", 2, 16, 1024, 8, 64),
+    ("time", 2, 16, 64, 4, 64), ("time", 1, 16, 1024, 8, 64),
+    ("time", 3, 16, 8, 2, 64)])
+def test_divided_kernels_match_plain(gen, axis, b, f, n, heads, dh):
     side = 1 << (n.bit_length() - 1) // 2   # n = side × (n / side)
+    while n % side:
+        side //= 2
     tables = (rotary.axial_rotary_sincos(side, n // side, dh)
               if axis == "space" else rotary.time_rotary_sincos(f, dh))
     sin, cos = (torch.from_numpy(t).cuda() for t in tables)
-    x = _randn(gen, 2, f, n, 3 * heads * dh)
+    x = _randn(gen, b, f, n, 3 * heads * dh)
     assert tdiv.divided_attention_viable(axis, f, n, heads, dh, dh)
     name = f"divided_{axis}_attention"
     got = _launched(name, lambda: tdiv.divided_attention(
@@ -59,6 +67,41 @@ def test_divided_kernels_match_plain(gen, axis, f, n, heads, dh):
     want = tdiv.divided_attention_reference(x, sin, cos, axis, heads, dh,
                                             dh**-0.5, use_flash=False)
     check_bf16(name, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,heads", [(1, 5, 3), (2, 9, 1)])
+def test_time_kernel_partial_last_block(gen, b, n, heads):
+    """The gate admits only N % 8 == 0, which fills every block of 8 warps;
+    the wrapper below the gate also takes a batch whose last block is not
+    full of warps."""
+    sin, cos = (torch.from_numpy(t).cuda()
+                for t in rotary.time_rotary_sincos(16, 64))
+    x = _randn(gen, b, 16, n, 3 * heads * 64)
+    got = _launched("divided_time_attention",
+                    lambda: tdiv.time_attention_cuda(x, sin, cos, heads, 64,
+                                                     0.125))
+    want = tdiv.divided_attention_reference(x, sin, cos, "time", heads, 64,
+                                            0.125, use_flash=False)
+    check_bf16("divided_time_attention", got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 1024])
+def test_space_designs_agree(gen, n):
+    """Resident K and the K ring are the same arithmetic in another order of
+    work: equal outputs, and the plan's shared memory is the kernel's."""
+    sin, cos = (torch.from_numpy(t).cuda()
+                for t in rotary.axial_rotary_sincos(n // 16, 16, 64))
+    x = _randn(gen, 3, n, 3 * 2 * 64)
+    outs = [_launched("divided_space_attention",
+                      lambda: tdiv.space_attention_cuda(x, sin, cos, 2, 64,
+                                                        0.125, design=d))
+            for d in ("resident", "streamed")]
+    assert torch.equal(*outs)
+    for k_slots, consumers in ((2, 3), (3, 2), (8, 3), (9, 3)):
+        assert tdiv._lib().divided_space_smem_bytes(k_slots, consumers) \
+            == tdiv.space_smem_bytes(k_slots, consumers)
 
 
 @pytest.mark.cuda

@@ -154,3 +154,77 @@ def test_bf16_limits_pass_rounding_and_catch_a_wrong_head(name):
                         dim=-1)
     with pytest.raises(AssertionError, match=name):
         tkernels.check_bf16(name, swapped, plain)
+
+
+# ---- host-side helpers of the space kernel: what the kernel will read
+
+@pytest.mark.parametrize("h,w,dim", [(32, 32, 64), (16, 16, 64), (32, 64, 64)])
+def test_rotary_pair_table_rebuilds_axial_tables(h, w, dim):
+    """The half-width (cos, sin) table holds every entry of the JAX
+    package's axial tables, and rotating 16-byte chunks with it, as the
+    kernel does, is ``apply_rot_emb``."""
+    sin, cos = jrot.axial_rotary_sincos(h, w, dim)
+    table = tdiv.rotary_pair_table(_t(sin), _t(cos))
+    assert table.shape == (h * w, dim // 2, 2) and table.is_contiguous()
+    for j in (0, 1):                      # both entries of each pair
+        np.testing.assert_array_equal(table[..., 0].numpy(), cos[:, j::2])
+        np.testing.assert_array_equal(table[..., 1].numpy(), sin[:, j::2])
+    rng = np.random.default_rng(2)
+    x = _t(rng.normal(size=(h * w, dim)))
+    # chunk c of row r: pairs 4c..4c+3, i.e. table[r, 4c:4c+4] (32 bytes)
+    a, b = x[:, 0::2], x[:, 1::2]
+    c, s = table[..., 0], table[..., 1]
+    got = torch.stack((a * c - b * s, b * c + a * s), dim=-1).flatten(-2)
+    want, _ = rotary.apply_rot_emb(x, x, _t(sin), _t(cos))
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-6)
+
+
+def test_rotary_pair_table_is_memoised_and_rejects_the_time_table():
+    sin, cos = (_t(t) for t in rotary.axial_rotary_sincos(16, 16, 64))
+    assert tdiv.rotary_pair_table(sin, cos) is tdiv.rotary_pair_table(sin, cos)
+    # the time table pairs two frequencies (duplicated by concatenation), so
+    # half the width would lose entries: the time kernel stages it whole
+    t_sin, t_cos = (_t(t) for t in jrot.time_rotary_sincos(16, 64))
+    assert not torch.equal(t_sin[:, 0::2], t_sin[:, 1::2])
+    with pytest.raises(ValueError, match="pair"):
+        tdiv.rotary_pair_table(t_sin, t_cos)
+
+
+@pytest.mark.parametrize("n", range(256, 2049, 128))
+def test_space_plan_by_n(n):
+    """Every N the space gate admits gets a plan that fits a block's shared
+    memory: K resident (rotated once per (frame, head), three consumer
+    warpgroups walking all rows) exactly where all of K fits beside the V
+    ring, else a K ring, two consumers and 128 query rows per block."""
+    assert tdiv.divided_attention_viable("space", 16, n, 8, 64, 64)
+    tiles = n // tdiv.SPACE_TILE
+    k_slots, consumers, rounds = tdiv.space_plan(n)
+    assert tdiv.space_smem_bytes(k_slots, consumers) <= tdiv.SPACE_SMEM_LIMIT
+    fits = tdiv.space_smem_bytes(tiles, 3) <= tdiv.SPACE_SMEM_LIMIT
+    assert fits == (tiles <= tdiv.SPACE_MAX_K_SLOTS)
+    if fits:
+        # one block covers every row: rounds of 3 x 64, the last may be short
+        assert (k_slots, consumers) == (tiles, 3)
+        assert (rounds - 1) * 192 < n <= rounds * 192
+        assert tdiv.space_plan(n, "resident") == (tiles, 3, rounds)
+    else:
+        assert (k_slots, consumers, rounds) == (tdiv.SPACE_STREAM_K_SLOTS, 2, 1)
+        with pytest.raises(ValueError, match="fit"):
+            tdiv.space_plan(n, "resident")
+    assert tdiv.space_plan(n, "streamed") == (min(3, tiles), 2, 1)
+    assert 2 <= k_slots <= tiles
+
+
+@pytest.mark.parametrize("n", [0, 128, 200, 1000])
+def test_space_plan_rejects_rows_that_do_not_tile(n):
+    with pytest.raises(ValueError, match="128"):
+        tdiv.space_plan(n)
+
+
+def test_space_smem_bytes_layout():
+    """1 KB of alignment slack, 16 KB tiles (128 rows of 128 bytes), a
+    padded 64-row Q/output buffer per consumer, 8 bytes per barrier."""
+    assert tdiv.space_smem_bytes(8, 3) \
+        == 1024 + 11 * 16384 + 3 * 64 * 144 + 8 * 24
+    assert tdiv.space_smem_bytes(9, 3) - tdiv.space_smem_bytes(8, 3) == 16384
+    assert tdiv.space_smem_bytes(3, 3) - tdiv.space_smem_bytes(3, 2) == 64 * 144
