@@ -16,9 +16,10 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              (``library_ms``, a yardstick the port never calls) and the
              card's bound. The divided space and time kernels are also
              held at B = 1 (``sample_long``'s shape), the space kernel at the
-             edges of its gate (N = 256 and 2048) and with its K ring forced
-             where the wrapper keeps K resident; their rows carry the time
-             of the kernels they replaced (``prev_ms``) and the design kept.
+             edges of its gate (N = 256, where K stays resident in shared
+             memory, and 2048, where it goes through a ring); their rows
+             name the design kept, and the log line sets the time of the
+             kernels they replaced beside this run's.
              The K-blocked fused kernel is driven here through the public op
              ``sdpa_fused``: no model calls it;
 3. reference — one DDIM-2 window at a small depth but full spatial size (so
@@ -89,6 +90,12 @@ FUSED_PATH = {"divided_space_attention", "divided_time_attention",
               "packed_attention", "onepass_attention"}
 MODULAR_PATH = {"tiny_attention", "onepass_attention"}
 SWITCHES = ("MODITALKER_NO_DIVIDED_FUSED", "MODITALKER_NO_PACKED_ATTN")
+
+# what the first port's kernels took at the main path's shape (qkv
+# [2, 16, 1024, 1536], H100 80GB HBM3 at 700 W), for the log line only: the
+# kernels line holds what this run measured
+BEFORE_REDESIGN_MS = {"divided_space_attention": 0.8307,
+                      "divided_time_attention": 0.4438}
 
 H100_BF16_FLOPS = 989e12
 H100_BYTES_PER_S = 3.35e12
@@ -206,9 +213,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # their own, so the main-path rows see the inputs they always saw
     gen_more = torch.Generator(device=dev).manual_seed(seed + 1)
 
-    def divided_row(axis, b_, f_, n_, design=None, g=gen_more):
-        """One divided-attention row; ``design`` forces the space kernel's
-        K placement where the wrapper would choose the other."""
+    def divided_row(axis, b_, f_, n_, g=gen_more):
         if axis == "space":
             sin, cos = tables(rotary.axial_rotary_sincos(32, n_ // 32, dh)
                               if n_ >= 1024 else
@@ -217,13 +222,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             sin, cos = t_sin, t_cos
         qkv = torch.randn((b_, f_, n_, 3 * hd), generator=g,
                           device=dev).bfloat16()
-        if design is None:
-            kern = lambda: dv.divided_attention(qkv, sin, cos, axis, heads,
-                                                dh, scale)
-        else:
-            kern = lambda: dv.space_attention_cuda(
-                qkv.reshape(b_ * f_, n_, 3 * hd), sin, cos, heads, dh, scale,
-                design=design).reshape(b_, f_, n_, hd)
+        kern = lambda: dv.divided_attention(qkv, sin, cos, axis, heads, dh,
+                                            scale)
         plain = lambda: dv.divided_attention_reference(
             qkv, sin, cos, axis, heads, dh, scale, use_flash=False)
         name = f"divided_{axis}_attention"
@@ -234,7 +234,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         nseq = b_ * f_ * n_ // seq
         nbytes = qkv.numel() * 2 + b_ * f_ * n_ * hd * 2 + 2 * sin.numel() * 4
         flops = 4.0 * nseq * heads * seq * seq * dh
-        row = dict(
+        return dict(
             name=name, route="cuda",
             source="moditalker_tpu_torch/csrc/divided_attention.cu",
             replaces=("moditalker_tpu/ops/pallas/divided_attention.py:121"
@@ -243,28 +243,18 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             shape=list(qkv.shape), **err,
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             library_ms=time_ms(torch, lib), nbytes=nbytes, flops=flops)
-        if axis == "space":
-            slots, consumers, _ = dv.space_plan(n_, design)
-            row["design"] = (
-                f"resident K ({slots} slots, one block per (frame, head), "
-                f"{consumers} consumer warpgroups)" if design != "streamed"
-                and slots == n_ // dv.SPACE_TILE else
-                f"K ring ({slots} slots, one query tile per block, "
-                f"{consumers} consumer warpgroups)")
-        return row
 
-    # the main path's shape first (its row of the kernels line), with the
-    # time the first port's kernel took there (H100 80GB HBM3, 700 W); then
-    # sample_long's B = 1, the space gate's edges, and the K ring where the
-    # wrapper keeps K resident
+    # the main path's shape first (its row of the kernels line); then
+    # sample_long's B = 1 and the space gate's edges
     rows.append(dict(divided_row("space", batch, f, n, g=gen),
-                     prev_ms=0.8307))
-    rows.append(dict(divided_row("time", batch, f, n, g=gen), prev_ms=0.4438,
+                     design="wgmma, K resident in shared memory (rotated "
+                            "once per (frame, head)) up to N = 1152, a K "
+                            "ring above"))
+    rows.append(dict(divided_row("time", batch, f, n, g=gen),
                      design="one warp per (b, n, head), mma.sync"))
     rows += [divided_row("space", 1, f, n), divided_row("time", 1, f, n),
              divided_row("space", batch, 1, 256),
-             divided_row("space", batch, 1, 2048),
-             divided_row("space", batch, f, n, design="streamed")]
+             divided_row("space", batch, 1, 2048)]
 
     c, l = 128, 2048                        # UNet joint attention at ds = 1
     for ll in (1024, l):                    # xy-plane attention, then joint
@@ -350,8 +340,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
             + (f", {row['design']}" if "design" in row else "")
-            + (f", before the redesign {row['prev_ms']:.4f} ms"
-               if "prev_ms" in row else ""))
+            + (f", before the redesign {BEFORE_REDESIGN_MS[row['name']]:.4f}"
+               f" ms" if "design" in row else ""))
     return rows
 
 
@@ -705,8 +695,7 @@ def main() -> int:
             kernels[row["name"]].setdefault("other_shapes", []).append(
                 {k: row[k] for k in ("shape", "max_abs_err", "rel_max_err",
                                      "rel_rms_err", "ms", "plain_ms",
-                                     "library_ms", "bound_ms", "bound_by",
-                                     "design") if k in row})
+                                     "library_ms", "bound_ms", "bound_by")})
             continue
         kernels[row["name"]] = row
         row["launches_by_path"] = {p: c[row["name"]] for p, c in timed.items()}

@@ -9,8 +9,8 @@
 //    (tensor cores). It runs on wgmma_tile.cuh: both products on wgmma, K
 //    rotated once per block into a 128-byte-swizzled tile, V read as the
 //    transposed operand from its row-major tile, copies in flight behind a
-//    ring while the tensor cores work. The wrapper picks resident K (one
-//    block per (frame, head), K rotated once) where N·128 bytes of K fit
+//    ring while the tensor cores work. The tile's launcher picks resident K
+//    (one block per (frame, head), K rotated once) where N·128 bytes of K fit
 //    beside the ring, and a K ring with one query tile per block above that.
 //
 //  * time (_time_kernel): per patch, self-attention over the F = 16 frames
@@ -131,13 +131,9 @@ cudaError_t launch_time(const void* qkv, const void* sin_t, const void* cos_t,
 extern "C" {
 
 // qkv [BF, N, 3·H·dh] bf16, rot [N, dh/2, 2] fp32 (cos, sin per rotated
-// pair) -> out [BF, N, H·dh] bf16. k_slots, consumers and rounds choose the
-// design (wgmma_tile.cuh): N / 128 slots keep K resident, one block per
-// (frame, head) walking all query rows in `rounds` steps of consumers x 64;
-// fewer slots stream K through a ring, with two consumers and one round.
+// pair) -> out [BF, N, H·dh] bf16; N % 128 == 0, N >= 256.
 int divided_space_attention(const void* qkv, const void* rot, void* out,
-                            int BF, int N, int H, int dh, int k_slots,
-                            int consumers, int rounds, float scale,
+                            int BF, int N, int H, int dh, float scale,
                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // built for the head dim the repository's configurations reach (AE
@@ -145,20 +141,11 @@ int divided_space_attention(const void* qkv, const void* rot, void* out,
   if (dh != mdt::kWgD) return cudaErrorInvalidValue;
   const mdt::bf16* base = static_cast<const mdt::bf16*>(qkv);
   const long hd = (long)H * dh;
-  const mdt::WgmmaArgs a{base, base + hd, base + 2 * hd,
-                         static_cast<const float*>(rot),
-                         static_cast<mdt::bf16*>(out),
-                         N * 3 * hd, 3 * hd, N * hd, hd,
-                         dh, N, k_slots, rounds, scale};
-  if (consumers == 2) return mdt::launch_wgmma<true, 2>(a, BF, H, st);
-  if (consumers == 3) return mdt::launch_wgmma<true, 3>(a, BF, H, st);
-  return cudaErrorInvalidValue;
-}
-
-// The dynamic shared memory the space kernel asks for; the wrapper's plan is
-// held to it.
-int divided_space_smem_bytes(int k_slots, int consumers) {
-  return mdt::wgmma_smem_bytes(k_slots, consumers);
+  mdt::WgmmaArgs a{base, base + hd, base + 2 * hd,
+                   static_cast<const float*>(rot),
+                   static_cast<mdt::bf16*>(out),
+                   N * 3 * hd, 3 * hd, N * hd, hd, dh, N, scale};
+  return mdt::launch_wgmma<true>(a, BF, H, st);
 }
 
 // qkv [B, F, N, 3·H·dh] bf16, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh] bf16.

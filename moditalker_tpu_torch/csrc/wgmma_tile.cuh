@@ -26,13 +26,14 @@
 //    could serve V alone, and the library keeps its plain C interface: it
 //    links nothing and encodes nothing per call. A ROT = false instantiation
 //    copies K the same way without rotating it.
-//  * K is rotated once per block. With `k_slots` = L / 128 every K tile gets
-//    a slot of its own (resident K): one block per (sequence, head) rotates
-//    all of K before the roles split, every warpgroup at it, then walks all
-//    query rows, so K is rotated once per head. With fewer slots K streams
-//    through a ring, rotated by the producer, and a block takes 128 query
-//    rows (K rotated L / 128 times per head, where the first port rotated
-//    it L / 64 times).
+//  * K is rotated once per block. Up to L = 1152 every K tile gets a slot of
+//    its own (resident K): one block per (sequence, head) rotates all of K
+//    before the roles split, every warpgroup at it, then walks all query
+//    rows, so K is rotated once per head. Above that K does not fit beside
+//    the V ring: it streams through a ring of three slots, rotated by the
+//    producer, and a block takes 128 query rows (K rotated L / 128 times per
+//    head, where the first port rotated it L / 64 times). launch_wgmma
+//    chooses between the two by L.
 //  * a warp that starts a product waits about as long as the tensor cores
 //    take for it, and the softmax of a 64 x 128 tile costs a warp about
 //    twice that (ex2 at 16 per clock per SM, max, sum, convert). So the
@@ -53,6 +54,13 @@
 //
 // L must be a multiple of 128 (the space gate admits only such), so no tile
 // is ragged.
+//
+// Build note: the resident-K instantiation keeps a 16-byte stack with 12
+// bytes of spill stores, all in the K prologue before the roles split (its
+// launch bound of 512 threads leaves 128 registers until setmaxnreg), none in
+// a loop. A prologue that copies raw K with cp.async and rotates it in place
+// builds without the spill; it was no faster at B = 2 and slower at B = 1,
+// so this one stays.
 #pragma once
 
 #include "flash_tile.cuh"
@@ -63,6 +71,8 @@ constexpr int kWgD = 64;             // head dim
 constexpr int kWgTile = 128;         // keys per K or V tile
 constexpr int kWgVStages = 3;        // V ring
 constexpr int kWgMaxKSlots = 9;      // resident K up to L = 1152
+constexpr int kWgRingKSlots = 3;     // K ring above that
+constexpr int kWgSmemLimit = 232448; // bytes a Hopper block may have
 constexpr int kWgTileBytes = kWgTile * kWgD * 2;  // 16 KB, rows of 128 bytes
 constexpr int kWgQStride = kWgD + 8;              // padded Q/output rows
 constexpr int kWgRows = 64;          // query rows per consumer warpgroup
@@ -75,6 +85,10 @@ constexpr int wgmma_smem_bytes(int k_slots, int consumers) {
          kWgBarBytes;
 }
 
+static_assert(wgmma_smem_bytes(kWgMaxKSlots, 3) <= kWgSmemLimit &&
+                  wgmma_smem_bytes(kWgMaxKSlots + 1, 3) > kWgSmemLimit,
+              "resident K exactly where it fits beside the V ring");
+
 struct WgmmaArgs {
   const bf16* q;
   const bf16* k;
@@ -84,9 +98,10 @@ struct WgmmaArgs {
   long batch, in_row, out_batch, out_row;  // element strides
   int head;          // column offset of one head, inputs and output
   int L;
+  float scale;
+  // set by launch_wgmma
   int k_slots;       // L / 128: resident K; fewer: a ring
   int rounds;        // steps of NC x 64 query rows a block walks
-  float scale;
 };
 
 // ---------------------------------------------------------------- PTX
@@ -565,13 +580,8 @@ wgmma_attention_kernel(const WgmmaArgs a) {
 }
 
 template <bool ROT, int NC>
-cudaError_t launch_wgmma(const WgmmaArgs& args, int B, int H,
-                         cudaStream_t stream) {
-  const int nkt = args.L / kWgTile;
-  if (args.L % kWgTile != 0 || args.k_slots < 2 || args.k_slots > nkt ||
-      args.k_slots > kWgMaxKSlots || args.rounds < 1 ||
-      (NC == 3 && args.k_slots < nkt))
-    return cudaErrorInvalidValue;
+cudaError_t launch_wgmma_plan(const WgmmaArgs& args, int B, int H,
+                              cudaStream_t stream) {
   const int smem = wgmma_smem_bytes(args.k_slots, NC);
   auto kern = wgmma_attention_kernel<ROT, NC>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -581,6 +591,23 @@ cudaError_t launch_wgmma(const WgmmaArgs& args, int B, int H,
   dim3 grid((args.L + rows - 1) / rows, H, B);
   kern<<<grid, (NC + 1) * 128, smem, stream>>>(args);
   return cudaGetLastError();
+}
+
+// B sequences of H heads. Resident K (three consumers, one block per
+// (sequence, head) walking all rows) wherever every K tile has a slot, the
+// K ring (two consumers, 128 query rows per block) above that.
+template <bool ROT>
+cudaError_t launch_wgmma(WgmmaArgs args, int B, int H, cudaStream_t stream) {
+  const int nkt = args.L / kWgTile;
+  if (args.L % kWgTile != 0 || nkt < 2) return cudaErrorInvalidValue;
+  if (nkt <= kWgMaxKSlots) {
+    args.k_slots = nkt;
+    args.rounds = (args.L + 3 * kWgRows - 1) / (3 * kWgRows);
+    return launch_wgmma_plan<ROT, 3>(args, B, H, stream);
+  }
+  args.k_slots = kWgRingKSlots;
+  args.rounds = 1;
+  return launch_wgmma_plan<ROT, 2>(args, B, H, stream);
 }
 
 }  // namespace mdt

@@ -10,10 +10,10 @@ Kernels (``csrc/divided_attention.cu``, sm_90a):
   full-row [N, N] score tile does not fit a Hopper block's shared memory),
   K rotated once per block into a swizzled tile, a producer warpgroup that
   keeps V copies in flight behind a ring, V read as the transposed operand.
-  ``space_plan`` picks resident K (one block per (frame, head), three
-  consumer warpgroups) where K fits in shared memory and a K ring (two
-  consumers, the producer rotating) above that; ``rotary_pair_table`` packs
-  the table to the half width the kernel reads.
+  The tile's launcher keeps K resident (one block per (frame, head), three
+  consumer warpgroups) where K fits in shared memory (N <= 1152) and runs a
+  K ring (two consumers, the producer rotating) above that;
+  ``rotary_pair_table`` packs the table to the half width the kernel reads.
 * time — replaces ``_time_kernel`` (``_time_fused``): per patch, attention
   over the F frames with the time rotary. Bound by bytes: one warp per
   (b, n, head), 16-byte coalesced loads and stores through a per-warp
@@ -46,56 +46,6 @@ _LANES = 128
 # configurations reach (AE dim_head 64, 16 frames); others raise on the card
 SPACE_HEAD_DIMS = (64,)
 TIME_SHAPES = ((16, 64),)   # (frames, head dim)
-
-# the space kernel's tiling (csrc/wgmma_tile.cuh): 64 query rows per consumer
-# warpgroup against 128-key tiles of 16 KB, a ring of 3 V tiles, a padded
-# Q/output buffer per consumer and the mbarriers, in the 227 KB a block may
-# have
-SPACE_TILE = 128
-SPACE_V_STAGES = 3
-SPACE_MAX_K_SLOTS = 9        # K barriers the kernel lays out
-SPACE_STREAM_K_SLOTS = 3
-SPACE_SMEM_LIMIT = 232448    # bytes of shared memory a Hopper block may use
-_TILE_BYTES = SPACE_TILE * 64 * 2
-
-
-def space_smem_bytes(k_slots: int, consumers: int) -> int:
-    """Dynamic shared memory of the space kernel with ``k_slots`` K tiles
-    and ``consumers`` consumer warpgroups (``wgmma_smem_bytes``): 1 KB of
-    alignment slack, the K slots and the V ring, a Q/output buffer of 64
-    rows (padded by 8) per consumer, the barriers."""
-    return (1024 + (k_slots + SPACE_V_STAGES) * _TILE_BYTES
-            + consumers * 64 * (64 + 8) * 2
-            + 8 * 2 * (SPACE_MAX_K_SLOTS + SPACE_V_STAGES))
-
-
-def space_plan(n: int, design: str | None = None) -> tuple[int, int, int]:
-    """(K slots, consumer warpgroups, rounds per block) of the space kernel
-    for N rows.
-
-    ``'resident'``: every K tile has a slot and one block per (frame, head)
-    walks all N rows, 3 consumers x 64 rows per round, so K is rotated once
-    per (frame, head). ``'streamed'``: K goes through a ring of 3 slots,
-    rotated by the producer, and a block takes one round of 2 x 64 query
-    rows (K rotated N / 128 times). The default is resident wherever K fits
-    beside the V ring (N <= 1152), streamed above.
-    """
-    if n % SPACE_TILE or n < 2 * SPACE_TILE:
-        raise ValueError(f"the space kernel takes N % 128 == 0, N >= 256, "
-                         f"not {n}")
-    tiles = n // SPACE_TILE
-    fits = (tiles <= SPACE_MAX_K_SLOTS
-            and space_smem_bytes(tiles, 3) <= SPACE_SMEM_LIMIT)
-    if design is None:
-        design = "resident" if fits else "streamed"
-    if design == "resident":
-        if not fits:
-            raise ValueError(f"K of {n} rows does not fit in shared memory")
-        return tiles, 3, -(-n // (3 * 64))
-    if design == "streamed":
-        return min(SPACE_STREAM_K_SLOTS, tiles), 2, 1
-    raise ValueError(f"unknown design {design!r}")
-
 
 _pair_tables: dict = {}
 
@@ -171,11 +121,8 @@ def divided_attention_viable(axis: str, f: int, n: int, heads: int,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("divided_attention")
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.divided_space_attention.argtypes = [p, p, p, i, i, i, i, i, i, i, fl,
-                                            p]
+    lib.divided_space_attention.argtypes = [p, p, p, i, i, i, i, fl, p]
     lib.divided_space_attention.restype = i
-    lib.divided_space_smem_bytes.argtypes = [i, i]
-    lib.divided_space_smem_bytes.restype = i
     lib.divided_time_attention.argtypes = [p, p, p, p, i, i, i, i, i, fl, p]
     lib.divided_time_attention.restype = i
     return lib
@@ -196,9 +143,9 @@ def _check_operands(qkv, sin, cos):
 
 
 def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
-                         scale: float, design: str | None = None):
-    """Kernel launch: qkv [BF, N, 3·H·dh] bf16 → [BF, N, H·dh]. ``design``
-    overrides ``space_plan``'s choice (to time one design beside the other)."""
+                         scale: float):
+    """Kernel launch: qkv [BF, N, 3·H·dh] bf16 → [BF, N, H·dh], N a
+    multiple of 128 and at least 256."""
     _check_operands(qkv, sin, cos)
     if dim_head not in SPACE_HEAD_DIMS:
         raise NotImplementedError(f"space kernel built for head dims "
@@ -207,14 +154,16 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     if c3 != 3 * heads * dim_head or tuple(sin.shape) != (n, dim_head):
         raise ValueError(f"bad shapes qkv {tuple(qkv.shape)} sin "
                          f"{tuple(sin.shape)} for {heads}x{dim_head}")
-    k_slots, consumers, rounds = space_plan(n, design)
+    if n % 128 or n < 256:
+        raise ValueError(f"the space kernel takes N % 128 == 0, N >= 256, "
+                         f"not {n}")
     table = rotary_pair_table(sin, cos)
     out = torch.empty(bf, n, heads * dim_head, dtype=qkv.dtype,
                       device=qkv.device)
     lib = _lib()
     status = lib.divided_space_attention(
         qkv.data_ptr(), table.data_ptr(), out.data_ptr(), bf, n, heads,
-        dim_head, k_slots, consumers, rounds, scale,
+        dim_head, scale,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(lib, status, "divided_space_attention")
     LAUNCHES["divided_space_attention"] += 1

@@ -191,40 +191,38 @@ def test_rotary_pair_table_is_memoised_and_rejects_the_time_table():
 
 
 @pytest.mark.parametrize("n", range(256, 2049, 128))
-def test_space_plan_by_n(n):
-    """Every N the space gate admits gets a plan that fits a block's shared
-    memory: K resident (rotated once per (frame, head), three consumer
-    warpgroups walking all rows) exactly where all of K fits beside the V
-    ring, else a K ring, two consumers and 128 query rows per block."""
-    assert tdiv.divided_attention_viable("space", 16, n, 8, 64, 64)
-    tiles = n // tdiv.SPACE_TILE
-    k_slots, consumers, rounds = tdiv.space_plan(n)
-    assert tdiv.space_smem_bytes(k_slots, consumers) <= tdiv.SPACE_SMEM_LIMIT
-    fits = tdiv.space_smem_bytes(tiles, 3) <= tdiv.SPACE_SMEM_LIMIT
-    assert fits == (tiles <= tdiv.SPACE_MAX_K_SLOTS)
-    if fits:
-        # one block covers every row: rounds of 3 x 64, the last may be short
-        assert (k_slots, consumers) == (tiles, 3)
-        assert (rounds - 1) * 192 < n <= rounds * 192
-        assert tdiv.space_plan(n, "resident") == (tiles, 3, rounds)
-    else:
-        assert (k_slots, consumers, rounds) == (tdiv.SPACE_STREAM_K_SLOTS, 2, 1)
-        with pytest.raises(ValueError, match="fit"):
-            tdiv.space_plan(n, "resident")
-    assert tdiv.space_plan(n, "streamed") == (min(3, tiles), 2, 1)
-    assert 2 <= k_slots <= tiles
+def test_space_gate_by_n(n):
+    """Every multiple of 128 from 256 to 2048 passes the space gate, as in
+    the JAX package (the kernel keeps K resident or rings it by N on its own
+    side); rows that do not tile by 128 on either side of it do not."""
+    for rows in (n - 64, n, n + 64):
+        want = jdiv.divided_attention_viable("space", 16, rows, 8, 64, 64)
+        assert tdiv.divided_attention_viable("space", 16, rows, 8, 64,
+                                             64) == want
+        assert want == (rows == n)
 
 
 @pytest.mark.parametrize("n", [0, 128, 200, 1000])
-def test_space_plan_rejects_rows_that_do_not_tile(n):
+def test_space_kernel_rejects_rows_that_do_not_tile(n):
+    """Below the gate, the kernel's wrapper refuses what the tile cannot
+    take before it builds or launches anything."""
+    assert not tdiv.divided_attention_viable("space", 1, n, 2, 64, 64)
+    qkv = torch.zeros(1, n, 3 * 2 * 64, dtype=torch.bfloat16)
+    tab = torch.zeros(n, 64)
     with pytest.raises(ValueError, match="128"):
-        tdiv.space_plan(n)
+        tdiv.space_attention_cuda(qkv, tab, tab, 2, 64, 0.125)
 
 
-def test_space_smem_bytes_layout():
-    """1 KB of alignment slack, 16 KB tiles (128 rows of 128 bytes), a
-    padded 64-row Q/output buffer per consumer, 8 bytes per barrier."""
-    assert tdiv.space_smem_bytes(8, 3) \
-        == 1024 + 11 * 16384 + 3 * 64 * 144 + 8 * 24
-    assert tdiv.space_smem_bytes(9, 3) - tdiv.space_smem_bytes(8, 3) == 16384
-    assert tdiv.space_smem_bytes(3, 3) - tdiv.space_smem_bytes(3, 2) == 64 * 144
+def test_divided_kernels_reject_unbuilt_shapes():
+    """Head dims and frame counts the library is not built for raise rather
+    than run another route."""
+    tab = torch.zeros(256, 32)
+    with pytest.raises(NotImplementedError, match="head dims"):
+        tdiv.space_attention_cuda(
+            torch.zeros(1, 256, 3 * 4 * 32, dtype=torch.bfloat16), tab, tab,
+            4, 32, 0.125)
+    tab = torch.zeros(8, 64)
+    with pytest.raises(NotImplementedError, match="frames"):
+        tdiv.time_attention_cuda(
+            torch.zeros(1, 8, 8, 3 * 2 * 64, dtype=torch.bfloat16), tab, tab,
+            2, 64, 0.125)
