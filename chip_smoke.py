@@ -11,15 +11,20 @@ Phases, each of which must pass (any failure exits nonzero, and the final
 2. kernels — each of the six hand-written kernels against its plain PyTorch
              version at the shapes the paths give it, in bf16 (max and rms
              error, relative to the plain output's, within the kernel's
-             ``BF16_LIMITS``), timed with CUDA events beside the plain
+             ``BF16_LIMITS``), timed on the device (20 calls replayed from
+             a CUDA graph between two events, the median of five replays:
+             no host time in it) beside the plain
              version, one PyTorch library call computing the same attention
              (``library_ms``, a yardstick the port never calls) and the
-             card's bound. The divided space and time kernels are also
-             held at B = 1 (``sample_long``'s shape), the space kernel at the
-             edges of its gate (N = 256, where K stays resident in shared
-             memory, and 2048, where it goes through a ring); their rows
-             name the design kept, and the log line sets the time of the
-             kernels they replaced beside this run's.
+             card's bound. The divided, packed and one-pass kernels are
+             also held at B = 1 (``sample_long``'s shapes), the space kernel
+             at the edges of its gate (N = 256, where K stays resident in
+             shared memory, and 2048, where it goes through a ring); the
+             rows of redesigned kernels name the design kept, and the log
+             line sets the time of the kernels they replaced beside this
+             run's. Beside each bound the log line gives the softmax floor:
+             the row's scores over the card's ex2 rate (16 per clock per SM)
+             at the SM clock ``nvidia-smi`` reads under load.
              The K-blocked fused kernel is driven here through the public op
              ``sdpa_fused``: no model calls it;
 3. reference — one DDIM-2 window at a small depth but full spatial size (so
@@ -39,7 +44,8 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              launch counters are zeroed just before each path and read just
              after: the fused paths must have launched the divided space and
              time, packed and one-pass kernels and no other; the modular path
-             the tiny-L and one-pass kernels and no other. Outputs must be
+             the tiny-L and one-pass kernels and no other; each count is also
+             split by the shape the kernel was given. Outputs must be
              uint8 frames of the right shape that are not constant;
 5. cli     — the port's ``sample`` command at full width: a real argument
              list through the CLI's own parser (batch 2, independent
@@ -91,14 +97,23 @@ FUSED_PATH = {"divided_space_attention", "divided_time_attention",
 MODULAR_PATH = {"tiny_attention", "onepass_attention"}
 SWITCHES = ("MODITALKER_NO_DIVIDED_FUSED", "MODITALKER_NO_PACKED_ATTN")
 
-# what the first port's kernels took at the main path's shape (qkv
-# [2, 16, 1024, 1536], H100 80GB HBM3 at 700 W), for the log line only: the
-# kernels line holds what this run measured
-BEFORE_REDESIGN_MS = {"divided_space_attention": 0.8307,
-                      "divided_time_attention": 0.4438}
+# what the kernels that were replaced took at the same shape (H100 80GB HBM3
+# at 700 W; 20 launches from Python between two events, which is how they
+# were timed then), by (kernel, shape of its first operand), for the log
+# line only: the kernels line holds what this run measured
+BEFORE_REDESIGN_MS = {
+    ("divided_space_attention", (2, 16, 1024, 1536)): 0.8307,
+    ("divided_time_attention", (2, 16, 1024, 1536)): 0.4438,
+    ("packed_attention", (2, 2048, 384)): 0.0570,
+    ("onepass_attention", (16, 2048, 32)): 0.0763,
+    ("onepass_attention", (256, 1024, 64)): 0.6035,
+    ("onepass_attention", (16, 2048, 16)): 0.0538,
+    ("onepass_attention", (16, 1024, 16)): 0.0224,
+}
 
 H100_BF16_FLOPS = 989e12
 H100_BYTES_PER_S = 3.35e12
+H100_EX2_PER_CLOCK_PER_SM = 16
 
 
 def log(msg: str) -> None:
@@ -112,18 +127,44 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
+def sm_clock_mhz_under_load(torch, fn, launches: int = 1500) -> float:
+    """The SM clock ``nvidia-smi`` reads while ``launches`` calls of ``fn``
+    keep the card busy (an idle card reads a lower clock)."""
+    probe = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, text=True)
+    for _ in range(launches):
+        fn()
+    out, _ = probe.communicate(timeout=60)
+    torch.cuda.synchronize()
+    if probe.returncode != 0:
+        raise RuntimeError("nvidia-smi could not read clocks.sm")
+    return float(out.strip().splitlines()[0])
+
+
+def time_ms(torch, fn, iters: int = 20, sets: int = 5, warmup: int = 3) -> float:
+    """Milliseconds of device time per call: ``iters`` calls captured into one
+    CUDA graph, CUDA events around a replay, the median of ``sets`` replays.
+    Launched call by call from Python, a kernel shorter than the host's
+    20–30 us per call would read as the host's time, not its own."""
     for _ in range(warmup):
         fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(sets):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return sorted(times)[sets // 2]
 
 
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
@@ -159,6 +200,15 @@ def check_launches(what: str, expected: set) -> dict:
         raise AssertionError(f"{what}: kernels not launched {missing}, "
                              f"launched off their path {extra}: {counts}")
     return counts
+
+
+def launches_by_shape() -> dict:
+    """The launch counts since the last reset, split by the shape each kernel
+    was given: {kernel: {"[shape]": launches}}, launched kernels only."""
+    from moditalker_tpu_torch.ops.kernels import LAUNCHES_BY_SHAPE
+
+    return {name: {str(list(shape)): n for shape, n in sorted(by.items())}
+            for name, by in LAUNCHES_BY_SHAPE.items() if by}
 
 
 # ------------------------------------------------------------------ kernels
@@ -242,7 +292,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                       "moditalker_tpu/ops/pallas/divided_attention.py:177"),
             shape=list(qkv.shape), **err,
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
-            library_ms=time_ms(torch, lib), nbytes=nbytes, flops=flops)
+            library_ms=time_ms(torch, lib), nbytes=nbytes, flops=flops,
+            scores=nseq * heads * seq * seq)
 
     # the main path's shape first (its row of the kernels line); then
     # sample_long's B = 1 and the space gate's edges
@@ -257,30 +308,35 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
              divided_row("space", batch, 1, 2048)]
 
     c, l = 128, 2048                        # UNet joint attention at ds = 1
-    for ll in (1024, l):                    # xy-plane attention, then joint
-        qkv = torch.randn((batch, ll, 3 * c), generator=gen,
-                          device=dev).bfloat16()
-        kern = lambda: pk.packed_attention(qkv, heads, (c // heads) ** -0.5)
-        plain = lambda: pk.packed_attention_reference(
-            qkv, heads, (c // heads) ** -0.5)
+
+    def packed_row(b_, l_, g=gen_more):
+        qkv = torch.randn((b_, l_, 3 * c), generator=g, device=dev).bfloat16()
+        sc = (c // heads) ** -0.5
+        kern = lambda: pk.packed_attention(qkv, heads, sc)
+        plain = lambda: pk.packed_attention_reference(qkv, heads, sc)
         err = errors("packed_attention", kern, plain)
-        if ll != l:
-            log(f"packed_attention at [{batch}, {ll}, {3 * c}]: max abs err "
-                f"{err['max_abs_err']:.3e}, relative max "
-                f"{err['rel_max_err']:.3e}, rms {err['rel_rms_err']:.3e}")
-    q, k, v = (t.reshape(batch, l, heads, c // heads).transpose(1, 2).contiguous()
-               for t in qkv.chunk(3, -1))
-    lib = lambda: F.scaled_dot_product_attention(q, k, v,
-                                                 scale=(c // heads) ** -0.5)
-    rows.append(dict(
-        name="packed_attention", route="cuda",
-        source="moditalker_tpu_torch/csrc/packed_attention.cu",
-        replaces="moditalker_tpu/ops/pallas/packed_attention.py:78",
-        shape=list(qkv.shape), **err,
-        ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
-        library_ms=time_ms(torch, lib),
-        nbytes=qkv.numel() * 2 + batch * l * c * 2,
-        flops=4.0 * batch * heads * l * l * (c // heads)))
+        q, k, v = (t.reshape(b_, l_, heads, c // heads).transpose(1, 2)
+                   .contiguous() for t in qkv.chunk(3, -1))
+        lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=sc)
+        return dict(
+            name="packed_attention", route="cuda",
+            source="moditalker_tpu_torch/csrc/packed_attention.cu",
+            replaces="moditalker_tpu/ops/pallas/packed_attention.py:78",
+            shape=list(qkv.shape), **err,
+            ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+            library_ms=time_ms(torch, lib),
+            nbytes=qkv.numel() * 2 + b_ * l_ * c * 2,
+            flops=4.0 * b_ * heads * l_ * l_ * (c // heads),
+            scores=b_ * heads * l_ * l_)
+
+    # the xy-plane attention, then the joint one (the row of the kernels
+    # line), drawn in the order they always were; then sample_long's B = 1
+    small_head = ("mma.sync on ldmatrix fragments, K and V behind a "
+                  "cp.async ring of 128-key tiles, 256, 128 or 64 query "
+                  "rows per block by the grid they give")
+    xy_plane = packed_row(batch, 1024, g=gen)
+    rows += [dict(packed_row(batch, l, g=gen), design=small_head), xy_plane,
+             packed_row(1, l), packed_row(1, 1024)]
 
     def sdpa_row(name, replaces, source, kern, plain, q, k, v, sc):
         lib = library_sdpa(q, k, v, sc)
@@ -293,23 +349,31 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             library_ms=time_ms(torch, lib),
             nbytes=2 * (2 * q.numel() + 2 * k.numel()),
-            flops=4.0 * b_ * nq_ * k.shape[1] * d_)
+            flops=4.0 * b_ * nq_ * k.shape[1] * d_,
+            scores=b_ * nq_ * k.shape[1])
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).bfloat16()
+    def randn(*shape, g=gen):
+        return torch.randn(shape, generator=g, device=dev).bfloat16()
 
     # one-pass: the UNet joint attention right after the last upsample
     # (C = 256, 8 heads → [B·8, 2048, 32]); then the modular path's shapes:
     # TimeSformer space attention, the UNet's dh = 16 joint and xy-plane
-    # attentions
-    for b_, n_, d_ in ((batch * heads, l, 32), (batch * heads * f, n, dh),
-                       (batch * heads, l, 16), (batch * heads, 1024, 16)):
-        q, k, v = (randn(b_, n_, d_) for _ in range(3))
-        rows.append(sdpa_row(
+    # attentions; then sample_long's B = 1
+    def onepass_row(b_, n_, d_, g=gen):
+        q, k, v = (randn(b_, n_, d_, g=g) for _ in range(3))
+        return sdpa_row(
             "onepass_attention", 104, "flash_attention",
             lambda: fa.onepass_attention(q, k, v, d_**-0.5),
             lambda: fa.onepass_attention_reference(q, k, v, d_**-0.5),
-            q, k, v, d_**-0.5))
+            q, k, v, d_**-0.5)
+
+    rows.append(dict(onepass_row(batch * heads, l, 32),
+                     design=small_head + "; at D = 64 the wgmma tile without "
+                                         "the rotary"))
+    rows += [onepass_row(batch * heads * f, n, dh),
+             onepass_row(batch * heads, l, 16),
+             onepass_row(batch * heads, 1024, 16),
+             onepass_row(heads, l, 32, g=gen_more)]
 
     # tiny-L: the modular path's TimeSformer time attention
     q, k, v = (randn(batch * heads * n, f, dh) for _ in range(3))
@@ -330,18 +394,33 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             lambda: fa.fused_attention_reference(q, k, v, d_**-0.5),
             q, k, v, d_**-0.5))
 
+    # the softmax floor: one ex2 per score at the clock the SMs hold under
+    # load (read while the space kernel keeps the card busy)
+    qkv = torch.randn((batch, f, n, 3 * hd), generator=gen_more,
+                      device=dev).bfloat16()
+    s_sin, s_cos = tables(rotary.axial_rotary_sincos(32, n // 32, dh))
+    mhz = sm_clock_mhz_under_load(torch, lambda: dv.divided_attention(
+        qkv, s_sin, s_cos, "space", heads, dh, scale))
+    ex2_per_ms = (torch.cuda.get_device_properties(0).multi_processor_count
+                  * H100_EX2_PER_CLOCK_PER_SM * mhz * 1e3)
+    log(f"SM clock under load: {mhz:.0f} MHz")
+
     for row in rows:
         row["bound_ms"], row["bound_by"] = bound_ms(row.pop("nbytes"),
                                                     row.pop("flops"))
+        row["softmax_floor_ms"] = row.pop("scores") / ex2_per_ms
+        first = row["shape"][0] if isinstance(row["shape"][0], list) \
+            else row["shape"]
+        before = BEFORE_REDESIGN_MS.get((row["name"], tuple(first)))
         log(f"{row['name']} at {row['shape']}: max abs err "
             f"{row['max_abs_err']:.3e}, relative max {row['rel_max_err']:.3e}"
             f" and rms {row['rel_rms_err']:.3e} (limits "
             f"{BF16_LIMITS[row['name']]}), kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), softmax "
+            f"floor {row['softmax_floor_ms']:.4f} ms"
             + (f", {row['design']}" if "design" in row else "")
-            + (f", before the redesign {BEFORE_REDESIGN_MS[row['name']]:.4f}"
-               f" ms" if "design" in row else ""))
+            + (f", before the redesign {before:.4f} ms" if before else ""))
     return rows
 
 
@@ -440,7 +519,7 @@ def main_path_phase(torch, seed: int) -> dict:
                               ae_cfg, unet_cfg, diff_cfg)
     log(f"full-width pipeline built in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    launches = {}
+    launches, by_shape = {}, {}
 
     def drive(name, fn, frames, expected=FUSED_PATH):
         reset_launch_counts()
@@ -450,8 +529,9 @@ def main_path_phase(torch, seed: int) -> dict:
         torch.cuda.synchronize()
         dt = time.perf_counter() - t
         launches[name] = check_launches(name, expected)
+        by_shape[name] = launches_by_shape()
         log(f"{name}: {frames} frames in {dt:.3f} s = {frames / dt:.3f} "
-            f"frames/s; launches {launches[name]}")
+            f"frames/s; launches {launches[name]}, by shape {by_shape[name]}")
         check_frames(video, frames, ae_cfg, name)
         return frames / dt
 
@@ -471,7 +551,8 @@ def main_path_phase(torch, seed: int) -> dict:
             fps_mod = drive(label, lambda: pipe.sample_independent(
                 make_windows(ae_cfg, 2, 1, seed), gen, batch=2), 2 * t,
                 MODULAR_PATH)
-    return {"launches": launches, "sample_independent_fps": fps_ind,
+    return {"launches": launches, "launches_by_shape": by_shape,
+            "sample_independent_fps": fps_ind,
             "sample_long_fps": fps_long,
             "modular_sample_independent_fps": fps_mod, "pipe": pipe}
 
@@ -638,6 +719,9 @@ def profile_phase(torch, pipe, seed: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the build and kernels phases (a short "
+                         "check of a kernel change; prints no result line)")
     args = ap.parse_args()
 
     import torch
@@ -672,6 +756,8 @@ def main() -> int:
             f"registers, {spills} bytes of spill stores")
 
     rows = kernel_phase(torch, batch=2, seed=args.seed)
+    if args.kernels_only:
+        return 0
     reference_phase(torch, args.seed, "fused", FUSED_PATH)
     with modular_attention():
         # 2·4·1024 = 8192 folded sequences: the time attention passes the
@@ -695,11 +781,15 @@ def main() -> int:
             kernels[row["name"]].setdefault("other_shapes", []).append(
                 {k: row[k] for k in ("shape", "max_abs_err", "rel_max_err",
                                      "rel_rms_err", "ms", "plain_ms",
-                                     "library_ms", "bound_ms", "bound_by")})
+                                     "library_ms", "bound_ms", "bound_by",
+                                     "softmax_floor_ms")})
             continue
         kernels[row["name"]] = row
         row["launches_by_path"] = {p: c[row["name"]] for p, c in timed.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        row["launches_by_shape"] = {
+            p: by[row["name"]] for p, by in result["launches_by_shape"].items()
+            if "warm-up" not in p and row["name"] in by}
     kernels["fused_attention"]["note"] = (
         "op-level only: reached through ops.attention.sdpa_fused, which no "
         "model path calls; launched by the kernels phase")

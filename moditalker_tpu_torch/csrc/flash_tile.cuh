@@ -1,59 +1,33 @@
-// Flash attention, one (query tile, head, sequence) per block.
+// Flash attention on mma.sync, one (query tile, sequence) per block.
 //
-// Shared by the packed-head attention kernel (packed_attention.cu) and the
-// one-pass and K-blocked attention kernels (flash_attention.cu). The divided
-// space attention ran on it with ROT = true until it moved to
-// wgmma_tile.cuh; no source instantiates the rotary here any more, and
-// load8<true> serves the divided time kernel. q, k and v of
-// (sequence b, head h, row r) sit at ptr + b·batch + h·head + r·row, so the
-// kernel reads a head straight out of a packed [B, L, 3·H·DH] projection
-// (q at column h·DH, k at H·DH + h·DH, v at 2·H·DH + h·DH) or out of
-// separate [B, L, DH] tensors, and writes the head-merged output the same
-// way.
+// The K-blocked fused attention kernel (flash_attention.cu) runs on it: Nq
+// query rows against Nk keys, both lengths ragged. It was the port's first
+// tile; the space attention has moved to wgmma_tile.cuh, the packed and the
+// one-pass kernel to smallhead_tile.cuh and wgmma_tile.cuh. load8 and store8
+// also serve the tiny-L kernel and, with the rotary, the divided time kernel.
+// q, k and v of (sequence b, row r) sit at ptr + b·batch + r·row.
 //
-// The TPU kernels keep the whole [L, L] fp32 score tile in VMEM for a
-// full-row softmax. At L = 1024 that tile is 4 MB, far over the 227 KB of
-// shared memory a Hopper block has, so here the softmax is an online one
-// over 64-key tiles (running max and sum, output rescaled per tile).
+// The TPU kernel walks 128-wide K blocks with an online softmax; so does this
+// one, over 64-key tiles (running max and sum, output rescaled per tile).
 //
 // Block: 4 warps, 16 query rows each (64 per block). Per key tile the block
-// stages K (rotated) row-major and V transposed in shared memory; each warp
-// runs S = Q·Kᵀ and O += P·V with mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), P staying in registers between the two products. Rows are
-// padded by 8 bf16 so the fragment loads hit 32 distinct banks.
+// stages K row-major and V transposed in shared memory; each warp runs
+// S = Q·Kᵀ and O += P·V with mma.sync m16n8k16 (bf16 in, fp32 accumulate),
+// P staying in registers between the two products. Rows are padded by 8 bf16
+// so the fragment loads hit 32 distinct banks.
 //
-// Arithmetic follows the TPU kernels: rotary and the attention scale are
-// applied to q in fp32 and rounded to bf16 once; scores, max and sum are
-// fp32; P is rounded to bf16 for the P·V product; the output divides by the
-// fp32 row sum.
+// Arithmetic follows the TPU kernels: the attention scale is applied to q in
+// fp32 and rounded to bf16 once; scores, max and sum are fp32; P is rounded
+// to bf16 for the P·V product; the output divides by the fp32 row sum.
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "ptx.cuh"
 
 namespace mdt {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kBQ = 64;      // query rows per block
 constexpr int kBK = 64;      // keys per tile
 constexpr int kThreads = 128;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Eight consecutive bf16 of one row, rotated (rotate-every-two: out[2i] =
 // x[2i]·cos - x[2i+1]·sin, out[2i+1] = x[2i+1]·cos + x[2i]·sin) when ROT,
@@ -107,23 +81,19 @@ struct FlashShape {
 };
 
 // Element strides of q, of k/v (which share theirs) and of the output;
-// L query rows attend to Lk keys (self-attention: Lk == L). sin/cos: fp32
-// [L, DH] tables, read only when ROT (which needs Lk == L).
+// L query rows attend to Lk keys.
 struct FlashArgs {
   const bf16* q;
   const bf16* k;
   const bf16* v;
-  const float* sin_t;
-  const float* cos_t;
   bf16* out;
   long q_batch, kv_batch, in_row, out_batch, out_row;
-  int head;  // column offset of one head, inputs and output
   int L, Lk;
   float scale;
 };
 
-// grid (ceil(L / 64), H, B), block 128, dynamic smem FlashShape<DH>::smem_bytes.
-template <int DH, bool ROT>
+// grid (ceil(L / 64), B), block 128, dynamic smem FlashShape<DH>::smem_bytes.
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const FlashArgs a) {
   const int L = a.L, Lk = a.Lk;
@@ -135,10 +105,9 @@ flash_kernel(const FlashArgs a) {
   bf16* k_s = q_s + kBQ * QS;                     // [kBK][QS]
   bf16* vt_s = k_s + kBK * QS;                    // [DH][VS]
 
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const long kv_off = b * a.kv_batch + (long)h * a.head;
-  const bf16* qb = a.q + b * a.q_batch + (long)h * a.head;
-  const bf16 *kb = a.k + kv_off, *vb = a.v + kv_off;
+  const int q0 = blockIdx.x * kBQ, b = blockIdx.y;
+  const bf16* qb = a.q + b * a.q_batch;
+  const bf16 *kb = a.k + b * a.kv_batch, *vb = a.v + b * a.kv_batch;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
 
@@ -148,14 +117,12 @@ flash_kernel(const FlashArgs a) {
       q_s[(i / PAD) * QS + DH + i % PAD] = __float2bfloat16(0.f);
   }
 
-  // ---- Q tile: rotary + scale, rounded to bf16 once
+  // ---- Q tile: scaled, rounded to bf16 once
   for (int i = tid; i < kBQ * CH; i += kThreads) {
     int r = i / CH, c = (i % CH) * 8, row = q0 + r;
-    bool valid = row < L;
-    long tab = (long)(valid ? row : 0) * DH + c;
     float x[8];
-    load8<ROT>(qb + row * a.in_row + c, valid, a.sin_t + tab, a.cos_t + tab,
-               a.scale, x);
+    load8<false>(qb + row * a.in_row + c, row < L, nullptr, nullptr, a.scale,
+                 x);
     store8(q_s + r * QS + c, x);
   }
   __syncthreads();
@@ -186,10 +153,8 @@ flash_kernel(const FlashArgs a) {
     for (int i = tid; i < kBK * CH; i += kThreads) {
       int r = i / CH, c = (i % CH) * 8, row = k0 + r;
       bool valid = row < Lk;
-      long tab = (long)(valid ? row : 0) * DH + c;
       float x[8];
-      load8<ROT>(kb + row * a.in_row + c, valid, a.sin_t + tab, a.cos_t + tab,
-                 1.f, x);
+      load8<false>(kb + row * a.in_row + c, valid, nullptr, nullptr, 1.f, x);
       store8(k_s + r * QS + c, x);
       load8<false>(vb + row * a.in_row + c, valid, nullptr, nullptr, 1.f, x);
 #pragma unroll
@@ -270,8 +235,7 @@ flash_kernel(const FlashArgs a) {
     int row = q0 + warp * 16 + g + 8 * r;
     if (row < L) {
       float inv = 1.f / l_run[r];
-      bf16* dst = a.out + b * a.out_batch + row * a.out_row +
-                  (long)h * a.head + 2 * t;
+      bf16* dst = a.out + b * a.out_batch + row * a.out_row + 2 * t;
 #pragma unroll
       for (int nd = 0; nd < DH / 8; ++nd)
         *reinterpret_cast<uint32_t*>(dst + nd * 8) =
@@ -280,32 +244,18 @@ flash_kernel(const FlashArgs a) {
   }
 }
 
-template <int DH, bool ROT>
-cudaError_t launch_flash(const FlashArgs& args, int B, int H,
-                         cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_flash(const FlashArgs& args, int B, cudaStream_t stream) {
   constexpr int smem = FlashShape<DH>::smem_bytes;
-  auto kern = flash_kernel<DH, ROT>;
+  auto kern = flash_kernel<DH>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  dim3 grid((args.L + kBQ - 1) / kBQ, H, B);
+  dim3 grid((args.L + kBQ - 1) / kBQ, B);
   kern<<<grid, kThreads, smem, stream>>>(args);
   return cudaGetLastError();
-}
-
-// A packed [B, L, 3·H·DH] projection → head-merged [B, L, H·DH].
-inline FlashArgs packed_args(const void* qkv, const void* sin_t,
-                             const void* cos_t, void* out, int L, int H,
-                             int DH, float scale) {
-  const bf16* base = static_cast<const bf16*>(qkv);
-  const long hd = (long)H * DH;
-  return FlashArgs{base, base + hd, base + 2 * hd,
-                   static_cast<const float*>(sin_t),
-                   static_cast<const float*>(cos_t), static_cast<bf16*>(out),
-                   L * 3 * hd, L * 3 * hd, 3 * hd, L * hd, hd, DH, L, L,
-                   scale};
 }
 
 }  // namespace mdt

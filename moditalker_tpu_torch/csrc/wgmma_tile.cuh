@@ -2,8 +2,10 @@
 // with the rotary applied to q and k on their way into shared memory.
 //
 // Used by the divided space-attention kernel (divided_attention.cu), which
-// replaces _space_kernel of moditalker_tpu/ops/pallas/divided_attention.py.
-// At the shipped shape (256 (frame, head) pairs of 1024 rows) the work is
+// replaces _space_kernel of moditalker_tpu/ops/pallas/divided_attention.py,
+// and, without the rotary (ROT = false), by the one-pass kernel at head dim
+// 64 (flash_attention.cu: contiguous [B, N, 64] tensors as B sequences of
+// one head). At the space attention's shipped shape (256 (frame, head) pairs of 1024 rows) the work is
 // 68.7 GFLOP on 134 MB: bound by operations. The first port ran it on
 // mma.sync with two shared loads per product step, re-rotated every K tile in
 // each of 16 query blocks and transposed V by hand; this tile is built from
@@ -24,8 +26,10 @@
 //    cp.async with a hand XOR swizzle is used rather than TMA because K has
 //    to pass through registers for the rotary in any case, so a tensor map
 //    could serve V alone, and the library keeps its plain C interface: it
-//    links nothing and encodes nothing per call. A ROT = false instantiation
-//    copies K the same way without rotating it.
+//    links nothing and encodes nothing per call. Without a rotary nothing
+//    has to touch K: it goes into its swizzled tiles by cp.async as V does
+//    (resident K: every warpgroup copies before the roles split; K ring: the
+//    K tile travels in the V tile's cp.async group).
 //  * K is rotated once per block. Up to L = 1152 every K tile gets a slot of
 //    its own (resident K): one block per (sequence, head) rotates all of K
 //    before the roles split, every warpgroup at it, then walks all query
@@ -63,7 +67,7 @@
 // so this one stays.
 #pragma once
 
-#include "flash_tile.cuh"
+#include "ptx.cuh"
 
 namespace mdt {
 
@@ -105,59 +109,6 @@ struct WgmmaArgs {
 };
 
 // ---------------------------------------------------------------- PTX
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Returns once the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Generic-proxy writes (st.shared, cp.async) before wgmma's async-proxy reads.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
-}
-
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -239,12 +190,6 @@ __device__ __forceinline__ void wgmma_m64n64k16_bt(float (&d)[32],
       : "memory");
 }
 
-__device__ __forceinline__ float exp2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // ---------------------------------------------------------------- rows
 // Eight bf16 of one row (a 16-byte chunk = four rotary pairs), rotated by
 // the chunk's (cos, sin) pairs when ROT, times `mul`, rounded to bf16 once.
@@ -276,6 +221,19 @@ __device__ __forceinline__ uint4 rotate_chunk(uint4 raw, float4 t0, float4 t1,
 // Byte offset of 16-byte chunk c of row r in a 128-byte-swizzled tile.
 __device__ __forceinline__ uint32_t swizzled(int r, int c) {
   return (uint32_t)(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// One 128-row K tile from `src` (row stride in_row) into the swizzled tile at
+// shared address `dst`, untouched: eight cp.async per thread of a warpgroup
+// (thread t takes chunk t & 7 of rows t / 8 + 16 u, whose swizzle is that of
+// row t / 8). The caller commits the group.
+__device__ __forceinline__ void copy_tile(uint32_t dst, const bf16* src,
+                                          long in_row, int t) {
+  dst += swizzled(t >> 3, t & 7);
+  src += (t >> 3) * in_row + (t & 7) * 8;
+#pragma unroll
+  for (int u = 0; u < 8; ++u)
+    cp_async16(dst + u * 16 * 128, src + u * 16 * in_row);
 }
 
 // `ROWS` rows of 64 dims starting at `src` (row stride in_row), rotated with
@@ -356,7 +314,7 @@ wgmma_attention_kernel(const WgmmaArgs a) {
       mbar_init(full_v(i), 128);
       mbar_init(empty_v(i), 4 * NC);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
 
   const int h = blockIdx.y, b = blockIdx.z;
@@ -370,14 +328,19 @@ wgmma_attention_kernel(const WgmmaArgs a) {
     // four chunks in flight per thread, the first pass over K waited on it
     // for a third of the block's time.)
     for (int j = wg; j < nkt; j += NC + 1) {
-      unsigned char* kdst = sm + j * kWgTileBytes;
-      stage_rows<ROT, kWgTile, 128, NC == 2 ? 8 : 4>(
-          a.k + in_off + (long)j * kWgTile * a.in_row, a.in_row,
-          a.rot + (long)j * kWgTile * kWgD, 1.f, tid & 127,
-          [&](int r, int c, uint4 v) {
-            *reinterpret_cast<uint4*>(kdst + swizzled(r, c)) = v;
-          });
+      const bf16* ksrc = a.k + in_off + (long)j * kWgTile * a.in_row;
+      if constexpr (ROT) {
+        unsigned char* kdst = sm + j * kWgTileBytes;
+        stage_rows<ROT, kWgTile, 128, NC == 2 ? 8 : 4>(
+            ksrc, a.in_row, a.rot + (long)j * kWgTile * kWgD, 1.f, tid & 127,
+            [&](int r, int c, uint4 v) {
+              *reinterpret_cast<uint4*>(kdst + swizzled(r, c)) = v;
+            });
+      } else {  // nothing to rotate: K goes straight into its swizzled tile
+        copy_tile(k_tiles + j * kWgTileBytes, ksrc, a.in_row, tid & 127);
+      }
     }
+    if constexpr (!ROT) cp_async_wait_all();
     fence_proxy_async();
   }
   __syncthreads();
@@ -389,10 +352,13 @@ wgmma_attention_kernel(const WgmmaArgs a) {
     else
       asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n");
     const int pt = tid - NC * 128;
-    // this thread's eight chunks of a V tile: row pt / 8 + 16 u, whose
+    // this thread's eight chunks of a tile: row pt / 8 + 16 u, whose
     // swizzle is that of row pt / 8
     const uint32_t v_sw = swizzled(pt >> 3, pt & 7);
     const bf16* vb = a.v + in_off + (pt >> 3) * a.in_row + (pt & 7) * 8;
+    // Without a rotary a K ring's tiles travel with the V tiles, in the same
+    // cp.async group; with one they pass through this warpgroup's registers.
+    constexpr bool kCopyK = NC == 2 && !ROT;
     int it = 0;
     for (int round = 0; round < a.rounds; ++round) {
       for (int j = 0; j < nkt; ++j, ++it) {
@@ -403,14 +369,20 @@ wgmma_attention_kernel(const WgmmaArgs a) {
 #pragma unroll
         for (int u = 0; u < 8; ++u)
           cp_async16(vdst + u * 16 * 128, vsrc + u * 16 * a.in_row);
+        if (kCopyK && streamed) {
+          mbar_wait(empty_k(it % KS), ((it / KS) & 1) ^ 1);
+          copy_tile(k_tiles + (it % KS) * kWgTileBytes,
+                    a.k + in_off + (long)j * kWgTile * a.in_row, a.in_row, pt);
+        }
         cp_async_commit();
-        if (it > 0) {  // the V tile started one step ago has landed
+        if (it > 0) {  // the tiles started one step ago have landed
           cp_async_wait<1>();
           fence_proxy_async();
           mbar_arrive(full_v((it - 1) % kWgVStages));
+          if (kCopyK && streamed) mbar_arrive(full_k((it - 1) % KS));
         }
 
-        if constexpr (NC == 2) {
+        if constexpr (NC == 2 && ROT) {
           if (streamed) {
             const int ks = it % KS;
             mbar_wait(empty_k(ks), ((it / KS) & 1) ^ 1);
@@ -430,6 +402,7 @@ wgmma_attention_kernel(const WgmmaArgs a) {
     cp_async_wait<0>();
     fence_proxy_async();
     mbar_arrive(full_v((it - 1) % kWgVStages));
+    if (kCopyK && streamed) mbar_arrive(full_k((it - 1) % KS));
   } else {
     // ------------------------------------------------------ consumers
     if constexpr (NC == 2)

@@ -1,13 +1,17 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: a wrapper
-adds one where it launches its kernel and nowhere else, so a run can show
-that the main path went through the kernels. ``SOURCES`` names the CUDA
+calls ``count_launch`` where it launches its kernel and nowhere else, so a
+run can show that the main path went through the kernels;
+``LAUNCHES_BY_SHAPE`` splits each count by the shape the kernel was given.
+``SOURCES`` names the CUDA
 source of each kernel (``csrc/<source>.cu``); ``BF16_LIMITS`` bounds each
 kernel's error against its plain version.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 LAUNCHES: dict[str, int] = {
     "divided_space_attention": 0,
@@ -17,6 +21,8 @@ LAUNCHES: dict[str, int] = {
     "tiny_attention": 0,
     "fused_attention": 0,
 }
+
+LAUNCHES_BY_SHAPE: dict[str, Counter] = {name: Counter() for name in LAUNCHES}
 
 SOURCES = {
     "divided_space_attention": "divided_attention",
@@ -67,6 +73,13 @@ def check_bf16(name: str, out, plain) -> tuple[float, float]:
     return rel_max, rel_rms
 
 
+def count_launch(name: str, shape) -> None:
+    """One launch of kernel ``name`` on an operand of ``shape``."""
+    LAUNCHES[name] += 1
+    LAUNCHES_BY_SHAPE[name][tuple(shape)] += 1
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        LAUNCHES_BY_SHAPE[name].clear()

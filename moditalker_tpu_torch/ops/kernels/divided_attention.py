@@ -39,7 +39,7 @@ import torch
 
 from .. import rotary
 from ..attention import plain_sdpa, sdpa
-from . import LAUNCHES, _build
+from . import _build, count_launch
 
 _LANES = 128
 # what csrc/divided_attention.cu is built for: the shapes the repository's
@@ -166,7 +166,7 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
         dim_head, scale,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(lib, status, "divided_space_attention")
-    LAUNCHES["divided_space_attention"] += 1
+    count_launch("divided_space_attention", qkv.shape)
     return out
 
 
@@ -188,7 +188,7 @@ def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
         qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(), out.data_ptr(), b, f,
         n, heads, dim_head, scale, torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(lib, status, "divided_time_attention")
-    LAUNCHES["divided_time_attention"] += 1
+    count_launch("divided_time_attention", qkv.shape)
     return out
 
 

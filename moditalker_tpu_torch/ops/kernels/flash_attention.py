@@ -4,9 +4,12 @@
 Kernels (sm_90a), all on [B, N, D] bf16 with heads folded into B:
 
 * one-pass (``csrc/flash_attention.cu``) — replaces ``_onepass_kernel``:
-  mask-free self-attention as an online-softmax ``mma.sync`` flash kernel;
-  the TPU kernel's full-row softmax over a VMEM-resident K/V does not fit a
-  Hopper block. Bound by operations. ``ops.attention.sdpa`` dispatches here
+  mask-free self-attention with an online softmax; the TPU kernel's full-row
+  softmax over a VMEM-resident K/V does not fit a Hopper block. At D = 16
+  and 32 it runs on ``csrc/smallhead_tile.cuh`` (``mma.sync`` with
+  ``ldmatrix`` fragments behind a ``cp.async`` ring, the packed kernel's
+  tile), at D = 64 on ``csrc/wgmma_tile.cuh`` without the rotary (the space
+  kernel's tile). Bound by operations. ``ops.attention.sdpa`` dispatches here
   at the one-pass gate's shapes, as the JAX package's ``sdpa`` does on the
   TPU: the UNet's joint attention after the last upsample, [B·8, 2048, 32],
   and, with the fused divided and packed kernels switched off, the
@@ -18,7 +21,8 @@ Kernels (sm_90a), all on [B, N, D] bf16 with heads folded into B:
   dispatches here at the tiny gate's shapes: the TimeSformer time attention
   [B·8·1024, 16, 64] when the fused divided kernels are switched off.
 * K-blocked fused (``csrc/flash_attention.cu``) — replaces ``_attn_kernel``:
-  the same flash kernel with Nq query rows against Nk keys. Bound by
+  ``csrc/flash_tile.cuh``'s ``mma.sync`` flash kernel, Nq query rows against
+  Nk keys. Bound by
   operations. Reached through ``ops.attention.sdpa_fused`` only, as in the
   JAX package; no model calls it.
 
@@ -34,7 +38,7 @@ import functools
 import torch
 
 from ..attention import plain_sdpa
-from . import LAUNCHES, _build
+from . import _build, count_launch
 
 # instantiated in csrc/: the shapes the repository's configurations reach
 # (UNet attention at 128 and 256 model channels, AE dim_head 64, 16 frames);
@@ -86,13 +90,16 @@ def onepass_attention_cuda(q, k, v, scale: float):
     if d not in ONEPASS_HEAD_DIMS:
         raise NotImplementedError(f"one-pass kernel built for head dims "
                                   f"{ONEPASS_HEAD_DIMS}, not {d}")
+    if d == 64 and (n % 128 or n < 256):
+        raise ValueError(f"at head dim 64 the one-pass kernel takes "
+                         f"N % 128 == 0, N >= 256, not {n}")
     out = torch.empty_like(q)
     lib = _lib()
     status = lib.onepass_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, d,
         scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "onepass_attention")
-    LAUNCHES["onepass_attention"] += 1
+    count_launch("onepass_attention", q.shape)
     return out
 
 
@@ -137,7 +144,7 @@ def tiny_attention_cuda(q, k, v, scale: float):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, d,
         scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "tiny_attention")
-    LAUNCHES["tiny_attention"] += 1
+    count_launch("tiny_attention", q.shape)
     return out
 
 
@@ -173,7 +180,7 @@ def fused_attention_cuda(q, k, v, scale: float):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
         d, scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, status, "fused_attention")
-    LAUNCHES["fused_attention"] += 1
+    count_launch("fused_attention", (b, nq, nk, d))
     return out
 
 

@@ -5,8 +5,11 @@ Kernel (``csrc/packed_attention.cu``, sm_90a) — replaces ``_packed_kernel``
 (``_packed_fused``): qkv [B, L, 3C] (q|k|v thirds, heads contiguous inside
 each third — what the UNet's qkv Dense produces) → [B, L, C], dh = 16. The
 TPU kernel isolates heads with lane masks; here a head is its 16-column
-slice, read with strided offsets by an online-softmax ``mma.sync`` flash
-kernel. Bound by operations at the main path's L = 1024 and 2048.
+slice, read with strided offsets by ``csrc/smallhead_tile.cuh``: K and V
+behind a ``cp.async`` ring, ``ldmatrix`` fragments for ``mma.sync``, an
+online softmax over 128-key tiles; the launcher there picks the query rows
+per block from the shape. Bound by operations at the main path's L = 1024
+and 2048 (and held back by the softmax's ``ex2`` before that).
 
 For a tensor on the CPU the wrapper runs the plain version
 (``packed_attention_reference``); for a CUDA tensor it launches the kernel
@@ -23,9 +26,11 @@ import os
 import torch
 
 from ..attention import plain_sdpa, sdpa
-from . import LAUNCHES, _build
+from . import _build, count_launch
 
 _LANES = 128
+# instantiated in csrc/packed_attention.cu: the gate's head dim
+PACKED_HEAD_DIMS = (16,)
 
 
 def packed_attention_reference(qkv, heads: int, scale: float,
@@ -80,13 +85,19 @@ def packed_attention_cuda(qkv, heads: int, scale: float):
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     b, l, c3 = qkv.shape
     c = c3 // 3
+    if c3 != 3 * c or c % heads:
+        raise ValueError(f"qkv {tuple(qkv.shape)} is not q|k|v thirds of "
+                         f"{heads} heads")
+    if c // heads not in PACKED_HEAD_DIMS:
+        raise NotImplementedError(f"packed kernel built for head dims "
+                                  f"{PACKED_HEAD_DIMS}, not {c // heads}")
     out = torch.empty(b, l, c, dtype=qkv.dtype, device=qkv.device)
     lib = _lib()
     status = lib.packed_attention(
         qkv.data_ptr(), out.data_ptr(), b, l, heads, c // heads, scale,
         torch.cuda.current_stream(qkv.device).cuda_stream)
     _build.check(lib, status, "packed_attention")
-    LAUNCHES["packed_attention"] += 1
+    count_launch("packed_attention", qkv.shape)
     return out
 
 

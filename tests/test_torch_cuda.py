@@ -12,7 +12,11 @@ and rms. The shapes are those the kernels are built for, at the main
 path's sizes and smaller (the divided kernels also at B = 1 and the space
 kernel at the gate's edges and on both sides of the resident-K limit), with
 a ragged tile for the packed and the fused kernel and a last block that is
-not full for the tiny-L and the time kernel.
+not full for the tiny-L and the time kernel. The packed and the one-pass
+kernel are held on both sides of every choice their launchers make: 256, 128
+and 64 query rows per block (B = 2 and B = 1 at L = 2048 and 1024, a large
+batch), whole and ragged last tiles, and at D = 64 resident K (N = 1024) and
+the K ring (N = 1280, 2048).
 """
 
 import pytest
@@ -87,7 +91,9 @@ def test_time_kernel_partial_last_block(gen, b, n, heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l", [(2, 1024), (1, 2048), (2, 1032)])
+@pytest.mark.parametrize("b,l", [(2, 1024), (1, 2048), (2, 1032), (2, 2048),
+                                 (1, 1024), (1, 1032), (1, 4096), (2, 4096),
+                                 (5, 1160)])
 def test_packed_kernel_matches_plain(gen, b, l):
     x = _randn(gen, b, l, 384)
     got = _launched("packed_attention",
@@ -99,7 +105,12 @@ def test_packed_kernel_matches_plain(gen, b, l):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d", [(16, 2048, 32), (3, 1280, 64),
                                    (2, 1024, 32), (16, 2048, 16),
-                                   (16, 1024, 16), (32, 1024, 64)])
+                                   (16, 1024, 16), (32, 1024, 64),
+                                   (8, 2048, 32), (16, 1024, 32),
+                                   (8, 2304, 32), (16, 2304, 16),
+                                   (8, 2048, 16), (8, 1024, 16),
+                                   (40, 1024, 16), (2, 2048, 64),
+                                   (1, 1024, 64)])
 def test_onepass_kernel_matches_plain(gen, b, n, d):
     q, k, v = (_randn(gen, b, n, d) for _ in range(3))
     got = _launched("onepass_attention",

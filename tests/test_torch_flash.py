@@ -230,3 +230,27 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="k and v of shape"):
         x = torch.zeros(2, 256, 64, dtype=torch.bfloat16)
         tflash.fused_attention_cuda(x, x, x[:1], 1.0)
+    # one-pass: bf16 only, built head dims only, and at head dim 64 (the
+    # wgmma tile) only rows that tile by 128
+    x = torch.zeros(2, 1024, 32)
+    with pytest.raises(TypeError, match="bf16"):
+        tflash.onepass_attention_cuda(x, x, x, 1.0)
+    with pytest.raises(NotImplementedError, match="one-pass kernel built for"):
+        x = torch.zeros(2, 1024, 48, dtype=torch.bfloat16)
+        tflash.onepass_attention_cuda(x, x, x, 1.0)
+    for n in (1000, 128):
+        with pytest.raises(ValueError, match="head dim 64"):
+            x = torch.zeros(2, n, 64, dtype=torch.bfloat16)
+            tflash.onepass_attention_cuda(x, x, x, 1.0)
+    # packed: bf16, contiguous q|k|v thirds of whole heads, dh = 16
+    with pytest.raises(TypeError, match="bf16"):
+        tpack.packed_attention_cuda(torch.zeros(1, 1024, 384), 8, 0.25)
+    qkv = torch.zeros(1, 1024, 384, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        tpack.packed_attention_cuda(qkv[:, ::2], 8, 0.25)
+    with pytest.raises(ValueError, match="thirds"):
+        tpack.packed_attention_cuda(qkv[..., :383].contiguous(), 8, 0.25)
+    with pytest.raises(ValueError, match="thirds"):
+        tpack.packed_attention_cuda(qkv, 5, 0.25)
+    with pytest.raises(NotImplementedError, match="packed kernel built for"):
+        tpack.packed_attention_cuda(qkv, 4, 0.25)

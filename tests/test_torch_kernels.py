@@ -8,6 +8,8 @@ plain versions on the card by tests/test_torch_cuda.py and by
 ``chip_smoke.py``.
 """
 
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -20,6 +22,7 @@ from moditalker_tpu.ops.pallas import flash_attention as jflash
 from moditalker_tpu.ops.pallas import packed_attention as jpack
 from moditalker_tpu_torch.ops import attention, rotary
 from moditalker_tpu_torch.ops import kernels as tkernels
+from moditalker_tpu_torch.ops.kernels import _build
 from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
 from moditalker_tpu_torch.ops.kernels import packed_attention as tpack
@@ -90,9 +93,14 @@ def test_divided_plain_matches_pallas_interpret(axis):
                                atol=1e-5)
 
 
-def test_packed_plain_matches_pallas_interpret():
-    b, l, c, heads = 1, 1024, 128, 8
+@pytest.mark.parametrize("l", [1024, 1032])
+def test_packed_plain_matches_pallas_interpret(l):
+    """The xy-plane attention's length, and a ragged one the gate admits
+    (L % 8 == 0: the TPU kernel then walks 8-row query blocks, the CUDA
+    kernel masks its last 128-key tile)."""
+    b, c, heads = 1, 128, 8
     assert tpack.packed_attention_viable(l, c, heads)
+    assert jpack.packed_attention_viable(l, c, heads)
     qkv = np.random.default_rng(5).normal(size=(b, l, 3 * c)).astype(np.float32)
     scale = (c // heads) ** -0.5
     want = jpack.packed_attention(jnp.asarray(qkv), heads, scale,
@@ -102,18 +110,56 @@ def test_packed_plain_matches_pallas_interpret():
                                atol=1e-5)
 
 
-def test_onepass_plain_matches_pallas_interpret():
-    """The UNet joint attention after the last upsample: C = 256, 8 heads,
-    dh = 32 (folded batch cut to 2)."""
+@pytest.mark.parametrize("d", [16, 32, 64])
+def test_onepass_plain_matches_pallas_interpret(d):
+    """The head dims the kernel is built for: the UNet's attentions at
+    dh = 16 and (after the last upsample: C = 256, 8 heads) dh = 32, the
+    AE's dim_head 64 (folded batch cut to 2)."""
     rng = np.random.default_rng(3)
-    q, k, v = (rng.normal(size=(2, 1024, 32)).astype(np.float32)
+    q, k, v = (rng.normal(size=(2, 1024, d)).astype(np.float32)
                for _ in range(3))
-    assert tflash.onepass_attention_viable(1024, 1024, 32)
+    assert d in tflash.ONEPASS_HEAD_DIMS
+    assert tflash.onepass_attention_viable(1024, 1024, d)
     want = jflash.onepass_attention(jnp.asarray(q), jnp.asarray(k),
-                                    jnp.asarray(v), 32**-0.5, interpret=True)
-    got = tflash.onepass_attention(_t(q), _t(k), _t(v), 32**-0.5)
+                                    jnp.asarray(v), d**-0.5, interpret=True)
+    got = tflash.onepass_attention(_t(q), _t(k), _t(v), d**-0.5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=1e-5)
+
+
+def _case_labels(source: str, function: str) -> tuple[int, ...]:
+    """The ``case N:`` labels inside ``function`` of a file under csrc/."""
+    text = (_build.CSRC / source).read_text()
+    body = text[text.index(f"int {function}("):]
+    body = body[:body.index("\n}\n")]
+    return tuple(int(n) for n in re.findall(r"case (\d+):", body))
+
+
+def test_built_head_dims_match_the_sources():
+    """The head dims a wrapper lets through are the instantiations its
+    source's ``switch`` holds, no more and no fewer."""
+    assert _case_labels("flash_attention.cu", "onepass_attention") \
+        == tflash.ONEPASS_HEAD_DIMS
+    assert _case_labels("flash_attention.cu", "fused_attention") \
+        == tflash.FUSED_HEAD_DIMS
+    assert _case_labels("packed_attention.cu", "packed_attention") \
+        == tpack.PACKED_HEAD_DIMS == (16,)
+
+
+def test_launch_counts_split_by_shape():
+    """``count_launch`` adds one to the kernel's count and to the count of
+    its shape; a reset clears both."""
+    tkernels.reset_launch_counts()
+    tkernels.count_launch("packed_attention", torch.Size((2, 2048, 384)))
+    tkernels.count_launch("packed_attention", (2, 1024, 384))
+    tkernels.count_launch("packed_attention", (2, 1024, 384))
+    assert tkernels.LAUNCHES["packed_attention"] == 3
+    assert tkernels.LAUNCHES_BY_SHAPE["packed_attention"] == {
+        (2, 2048, 384): 1, (2, 1024, 384): 2}
+    assert sum(tkernels.LAUNCHES.values()) == 3
+    tkernels.reset_launch_counts()
+    assert not any(tkernels.LAUNCHES.values())
+    assert not any(tkernels.LAUNCHES_BY_SHAPE.values())
 
 
 @pytest.mark.parametrize("nq,nk,d", [(2048, 2048, 32), (1024, 1024, 64),
