@@ -63,12 +63,6 @@
 // Rounding points are the TPU kernels': q·scale rounded to bf16 once, fp32
 // scores, max and sum, P rounded to bf16 for P·V, the output divided by the
 // fp32 row sum.
-//
-// Built with -DMDT_CLOCKS, warp 0 of every block adds the clocks it spent
-// waiting for a slot, in S = Q·Kᵀ, in the softmax and in P·V, and the number
-// of tiles it walked, to smallhead_clocks[], and every warp of the first
-// block its own (read by the package's tools/kernel_clocks.py). The build
-// that ships has none of it.
 #pragma once
 
 #include "ptx.cuh"
@@ -107,20 +101,6 @@ struct SmallHead {
     return (uint32_t)(r * row_bytes + ((c ^ ((r / (8 / CH)) & (CH - 1))) << 4));
   }
 };
-
-#ifdef MDT_CLOCKS
-// wait, S, softmax, P·V, tiles; then the first four for each consumer warp of
-// block (0, 0, 0)
-__device__ unsigned long long smallhead_clocks[5 + 4 * kShMaxWarps];
-#define MDT_TICK(i)                                   \
-  do {                                                \
-    const long long now_ = clock64();                 \
-    clk_[i] += now_ - last_;                          \
-    last_ = now_;                                     \
-  } while (0)
-#else
-#define MDT_TICK(i)
-#endif
 
 // grid (ceil(L / (16 x warps)), H, B), block warps x 32 (4, 8 or 16 warps).
 // Dynamic shared memory SmallHead<DH>::smem_bytes.
@@ -175,9 +155,6 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
 
   const int g = lane >> 2, t4 = lane & 3;
   const int q0 = (blockIdx.x * nw + warp) * 16;
-#ifdef MDT_CLOCKS
-  long long clk_[4] = {0, 0, 0, 0}, last_ = clock64();
-#endif
 
   // Q: this warp's 16 rows as A fragments, scaled and rounded to bf16 once
   uint32_t qa[DH / 16][4];
@@ -224,7 +201,6 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
       stage(t + kShAhead);
     const int slot = t % kShStages;
     mbar_wait(full(slot), (t / kShStages) & 1);
-    MDT_TICK(0);
     const uint32_t kt = base + slot * S::stage_bytes;
     const uint32_t vt = kt + S::tile_bytes;
 
@@ -251,7 +227,6 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
         if (key + 1 >= L) s[nt][1] = s[nt][3] = -INFINITY;
       }
     }
-    MDT_TICK(1);
 
     // online softmax; rows g (r = 0) and g + 8 (r = 1), each spread over a
     // quad
@@ -293,7 +268,6 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
       }
       l_run[r] += sum;
     }
-    MDT_TICK(2);
 
     // O += P·V, P re-packed from the S accumulators as bf16 A fragments
 #pragma unroll
@@ -313,7 +287,6 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty(slot));
-    MDT_TICK(3);
   }
 
   // finish the row sums across the quad and write the head-merged output
@@ -332,16 +305,6 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
             pack_bf16(o[nd][2 * r] * inv, o[nd][2 * r + 1] * inv);
     }
   }
-#ifdef MDT_CLOCKS
-  if (warp == 0 && lane == 0) {
-    for (int i = 0; i < 4; ++i)
-      atomicAdd(&smallhead_clocks[i], (unsigned long long)clk_[i]);
-    atomicAdd(&smallhead_clocks[4], (unsigned long long)tiles);
-  }
-  if (lane == 0 && blockIdx.x + blockIdx.y + blockIdx.z == 0)
-    for (int i = 0; i < 4; ++i)
-      smallhead_clocks[5 + 4 * warp + i] = (unsigned long long)clk_[i];
-#endif
 }
 
 // B sequences of H heads. The one copy of the plan: the most query rows per
@@ -374,18 +337,3 @@ cudaError_t launch_smallhead(const SmallHeadArgs& args, int B, int H,
 }
 
 }  // namespace mdt
-
-#ifdef MDT_CLOCKS
-// What was summed since the last call (clocks of wait, S, softmax, P·V;
-// tiles; the four clocks of each warp of the first block), then zeroed.
-extern "C" int smallhead_read_clocks(unsigned long long* host) {
-  cudaError_t err = cudaDeviceSynchronize();
-  if (err == cudaSuccess)
-    err = cudaMemcpyFromSymbol(host, mdt::smallhead_clocks,
-                               sizeof(mdt::smallhead_clocks));
-  const unsigned long long zeros[5 + 4 * mdt::kShMaxWarps] = {};
-  if (err == cudaSuccess)
-    err = cudaMemcpyToSymbol(mdt::smallhead_clocks, zeros, sizeof(zeros));
-  return err;
-}
-#endif

@@ -30,11 +30,6 @@ BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 
-# extra nvcc flags of this process, part of a library's hash: the
-# instrumented build (-DMDT_CLOCKS, tools/kernel_clocks.py) sets them before
-# anything is loaded
-EXTRA_FLAGS: list[str] = []
-
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -55,7 +50,7 @@ def _target(name: str) -> Path:
     h = hashlib.sha256()
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS + EXTRA_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -65,7 +60,7 @@ def _start(name: str) -> tuple[Path, Path, subprocess.Popen | None]:
     if out.exists():
         return out, tmp, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
