@@ -26,7 +26,10 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              the row's scores over the card's ex2 rate (16 per clock per SM)
              at the SM clock ``nvidia-smi`` reads under load.
              The K-blocked fused kernel is driven here through the public op
-             ``sdpa_fused``: no model calls it;
+             ``sdpa_fused`` (no model calls it), and with ragged query rows
+             against one whole and one short 128-key tile through its own
+             op ``fused_attention`` (``sdpa_fused`` sends fewer than 256 keys
+             to ``sdpa``);
 3. reference — one DDIM-2 window at a small depth but full spatial size (so
              every kernel gate passes) on the card in bf16 against the same
              weights and draws on the CPU in float32 through the plain path,
@@ -97,11 +100,16 @@ FUSED_PATH = {"divided_space_attention", "divided_time_attention",
 MODULAR_PATH = {"tiny_attention", "onepass_attention"}
 SWITCHES = ("MODITALKER_NO_DIVIDED_FUSED", "MODITALKER_NO_PACKED_ATTN")
 
-# what the kernels that were replaced took at the same shape (H100 80GB HBM3
-# at 700 W; 20 launches from Python between two events, which is how they
-# were timed then), by (kernel, shape of its first operand), for the log
-# line only: the kernels line holds what this run measured
+# what the kernels that were replaced took at the same shape on an H100 80GB
+# HBM3 at 700 W, by (kernel, shape of its first operand), for the log line
+# only: the kernels line holds what this run measured. The divided, packed
+# and one-pass kernels' first designs were timed as 20 launches from Python
+# between two events; the fused kernel's first tile as this script times
+# (device time from a CUDA graph)
 BEFORE_REDESIGN_MS = {
+    ("fused_attention", (16, 2048, 16)): 0.0501,
+    ("fused_attention", (256, 1024, 64)): 0.5882,
+    ("fused_attention", (2, 64, 64)): 0.0195,
     ("divided_space_attention", (2, 16, 1024, 1536)): 0.8307,
     ("divided_time_attention", (2, 16, 1024, 1536)): 0.4438,
     ("packed_attention", (2, 2048, 384)): 0.0570,
@@ -384,15 +392,30 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
 
     # K-blocked fused, through the public op: self-attention at a UNet and
     # an AE shape, and query rows against a longer key sequence
-    for (b_, nq_, nk_, d_) in ((batch * heads, l, l, 16),
-                               (batch * heads * f, n, n, dh),
-                               (2, 64, 512, 64)):
+    wgmma_fused = ("the one-pass kernel's wgmma tile at Nq query rows over "
+                   "Nk keys: K resident up to Nk = 1152, a K ring above; "
+                   "ragged query chunks and a short key tile masked")
+    for (b_, nq_, nk_, d_), design in (
+            ((batch * heads, l, l, 16), "the one-pass kernel's small-head "
+                                        "tile at Nq query rows over Nk keys"),
+            ((batch * heads * f, n, n, dh), wgmma_fused),
+            ((2, 64, 512, 64), wgmma_fused)):
         q, k, v = randn(b_, nq_, d_), randn(b_, nk_, d_), randn(b_, nk_, d_)
-        rows.append(sdpa_row(
+        rows.append(dict(sdpa_row(
             "fused_attention", 33, "flash_attention",
             lambda: attention.sdpa_fused(q, k, v, d_**-0.5),
             lambda: fa.fused_attention_reference(q, k, v, d_**-0.5),
-            q, k, v, d_**-0.5))
+            q, k, v, d_**-0.5), design=design))
+    # ragged query chunks against one whole 128-key tile and one short of
+    # it (zero-filled and masked), through the kernel's own op
+    for nk_ in (128, 120):
+        q = randn(2 * heads, 1000, dh, g=gen_more)
+        k, v = (randn(2 * heads, nk_, dh, g=gen_more) for _ in range(2))
+        rows.append(sdpa_row(
+            "fused_attention", 33, "flash_attention",
+            lambda: fa.fused_attention(q, k, v, scale),
+            lambda: fa.fused_attention_reference(q, k, v, scale),
+            q, k, v, scale))
 
     # the softmax floor: one ex2 per score at the clock the SMs hold under
     # load (read while the space kernel keeps the card busy)

@@ -144,7 +144,8 @@ int divided_space_attention(const void* qkv, const void* rot, void* out,
   mdt::WgmmaArgs a{base, base + hd, base + 2 * hd,
                    static_cast<const float*>(rot),
                    static_cast<mdt::bf16*>(out),
-                   N * 3 * hd, 3 * hd, N * hd, hd, dh, N, scale};
+                   N * 3 * hd, N * 3 * hd, 3 * hd, N * hd, hd, dh, N, N,
+                   scale};
   return mdt::launch_wgmma<true>(a, BF, H, st);
 }
 

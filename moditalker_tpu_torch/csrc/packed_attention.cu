@@ -24,7 +24,8 @@ int packed_attention(const void* qkv, void* out, int B, int L, int H, int dh,
   const long hd = (long)H * dh;
   const mdt::SmallHeadArgs a{base, base + hd, base + 2 * hd,
                              static_cast<mdt::bf16*>(out),
-                             L * 3 * hd, 3 * hd, L * hd, hd, dh, L, scale};
+                             L * 3 * hd, L * 3 * hd, 3 * hd, L * hd, hd, dh,
+                             L, L, scale};
   // built for the head dim the gate admits; keep in step with
   // PACKED_HEAD_DIMS in packed_attention.py
   switch (dh) {

@@ -1,10 +1,13 @@
-// Self-attention over L rows at head dims 16 and 32.
+// Attention of Lq query rows over Lk keys at head dims 16 and 32.
 //
 // Shared by the packed-head attention kernel (packed_attention.cu: a head is
-// a 16-column slice of each third of a packed [B, L, 3·H·16] row) and the
+// a 16-column slice of each third of a packed [B, L, 3·H·16] row), the
 // one-pass kernel at D = 16 and 32 (flash_attention.cu: contiguous
-// [B, N, D] tensors). q, k and v of (sequence b, head h, row r) sit at
-// ptr + b·batch + h·head + r·in_row, the output likewise.
+// [B, N, D] tensors; both with Lq = Lk) and the K-blocked fused kernel at
+// D = 16 and 32 (flash_attention.cu: q [B, Nq, D] over k, v [B, Nk, D]).
+// q of (sequence b, head h, row r) sits at q + b·q_batch + h·head +
+// r·in_row, k and v at ptr + b·kv_batch + h·head + r·in_row, the output at
+// out + b·out_batch + h·head + r·out_row.
 //
 // What bounds it: per score the tensor cores do 4·DH FLOPs (64 at DH = 16),
 // but the SM must also do one ex2 (16 per clock per SM) and an fp32
@@ -13,11 +16,11 @@
 // 0.016 ms at 1980 MHz, four times the card's operations bound. The whole
 // problem is some 2048 warps of work, four to a scheduler, so there is no
 // occupancy to hide a warp's latencies behind: what counts is instructions
-// and waits per score. The first port (flash_tile.cuh) ran 3.5 times over
-// that floor: 64 query rows per block, so every head's K and V were staged
-// L / 64 times, through fp32 registers, with V transposed by 2-byte stores,
-// nothing in flight behind the compute, and two 4-byte shared loads per
-// product step. This tile:
+// and waits per score. The port's first tile (since retired) ran 3.5 times
+// over that floor: 64 query rows per block, so every head's K and V were
+// staged L / 64 times, through fp32 registers, with V transposed by 2-byte
+// stores, nothing in flight behind the compute, and two 4-byte shared loads
+// per product step. This tile:
 //
 //  * K and V go from device memory to shared memory untouched, as 16-byte
 //    cp.async chunks, into a ring of kShStages slots of 128 keys, kShAhead
@@ -45,9 +48,10 @@
 //    keys), p = ex2(s·log2e − m·log2e) is one multiply-add and one ex2 with
 //    log2e applied to the fp32 scores, and the output and the row sum are
 //    rescaled only in tiles where some row of the warp found a new max.
-//  * a ragged last tile (any L; the packed gate admits L % 8 == 0) is filled
-//    with zeros by the copies and masked to -inf in the scores; query rows
-//    past L compute on zeros and are not stored.
+//  * a ragged last key tile (any Lk; the packed gate admits L % 8 == 0, the
+//    fused one Nk < 128) is filled with zeros by the copies and masked to
+//    -inf in the scores; query rows past Lq compute on zeros and are not
+//    stored. The grid and the rows per block follow Lq, the tiles Lk.
 //
 // Products stay on mma.sync. Both were also built on wgmma (S as
 // m64n128k16 on the K tile, whose hand swizzle is wgmma's 32- and 64-byte
@@ -79,9 +83,9 @@ struct SmallHeadArgs {
   const bf16* k;
   const bf16* v;
   bf16* out;
-  long batch, in_row, out_batch, out_row;  // element strides
+  long q_batch, kv_batch, in_row, out_batch, out_row;  // element strides
   int head;  // column offset of one head, inputs and output
-  int L;
+  int Lq, Lk;  // query rows, keys
   float scale;
 };
 
@@ -102,9 +106,12 @@ struct SmallHead {
   }
 };
 
-// grid (ceil(L / (16 x warps)), H, B), block warps x 32 (4, 8 or 16 warps).
-// Dynamic shared memory SmallHead<DH>::smem_bytes.
-template <int DH>
+// grid (ceil(Lq / (16 x warps)), H, B), block warps x 32 (4, 8 or 16 warps).
+// Dynamic shared memory SmallHead<DH>::smem_bytes. SELF: Lk = Lq and
+// kv_batch = q_batch (the packed and one-pass kernels), known when compiled:
+// with the two lengths and offsets kept apart, DH = 32 spills 8 bytes more
+// and its one-pass rows ran 3 % slower on an H100.
+template <int DH, bool SELF>
 __global__ void __launch_bounds__(kShMaxWarps * 32, 1)
 smallhead_attention_kernel(const SmallHeadArgs a) {
   using S = SmallHead<DH>;
@@ -127,8 +134,10 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
   __syncthreads();
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const long in_off = b * a.batch + (long)h * a.head;
-  const int L = a.L, tiles = (L + kShTile - 1) / kShTile;
+  const long q_off = b * a.q_batch + (long)h * a.head;
+  const long kv_off = b * (SELF ? a.q_batch : a.kv_batch) + (long)h * a.head;
+  const int Lq = a.Lq, Lk = SELF ? a.Lq : a.Lk;
+  const int tiles = (Lk + kShTile - 1) / kShTile;
 
   // Tile tt into its slot, by the whole calling warp: chunk i = lane + 32 u
   // is chunk i % CH of key i / CH. The copies arrive on the slot's `full`
@@ -136,14 +145,14 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
   auto stage = [&](int tt) {
     const int slot = tt % kShStages;
     mbar_wait(empty(slot), ((tt / kShStages) & 1) ^ 1);
-    const bf16* kb = a.k + in_off + (lane % CH) * 8;
-    const bf16* vb = a.v + in_off + (lane % CH) * 8;
+    const bf16* kb = a.k + kv_off + (lane % CH) * 8;
+    const bf16* vb = a.v + kv_off + (lane % CH) * 8;
     const uint32_t kdst = base + slot * S::stage_bytes;
     const uint32_t vdst = kdst + S::tile_bytes;
 #pragma unroll
     for (int u = 0; u < kShTile * CH / 32; ++u) {
       const int r = (lane + 32 * u) / CH, key = tt * kShTile + r;
-      const bool valid = key < L;
+      const bool valid = key < Lk;
       const long src = (long)(valid ? key : 0) * a.in_row;
       const uint32_t off = S::offset(r, lane % CH);
       cp_async16_or_zeros(kdst + off, kb + src, valid);
@@ -159,14 +168,14 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
   // Q: this warp's 16 rows as A fragments, scaled and rounded to bf16 once
   uint32_t qa[DH / 16][4];
   {
-    const bf16* qb = a.q + in_off + 2 * t4;
+    const bf16* qb = a.q + q_off + 2 * t4;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int row = q0 + g + 8 * (j & 1), col = kk * 16 + 8 * (j >> 1);
         uint32_t raw = 0;
-        if (row < L)
+        if (row < Lq)
           raw = *reinterpret_cast<const uint32_t*>(qb + row * a.in_row + col);
         const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&raw);
         qa[kk][j] = pack_bf16(__low2float(x) * a.scale,
@@ -219,12 +228,12 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
           mma_16816(acc, qa[kk], kf[n * CH + 2 * kk], kf[n * CH + 2 * kk + 1]);
       }
     }
-    if ((t + 1) * kShTile > L) {  // ragged last tile: keys past L weigh nothing
+    if ((t + 1) * kShTile > Lk) {  // ragged last tile: keys past Lk weigh nothing
 #pragma unroll
       for (int nt = 0; nt < kShTile / 8; ++nt) {
         const int key = t * kShTile + nt * 8 + 2 * t4;
-        if (key >= L) s[nt][0] = s[nt][2] = -INFINITY;
-        if (key + 1 >= L) s[nt][1] = s[nt][3] = -INFINITY;
+        if (key >= Lk) s[nt][0] = s[nt][2] = -INFINITY;
+        if (key + 1 >= Lk) s[nt][1] = s[nt][3] = -INFINITY;
       }
     }
 
@@ -295,7 +304,7 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     const int row = q0 + g + 8 * r;
-    if (row < L) {
+    if (row < Lq) {
       const float inv = 1.f / l_run[r];
       bf16* dst = a.out + b * a.out_batch + row * a.out_row +
                   (long)h * a.head + 2 * t4;
@@ -309,12 +318,16 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
 
 // B sequences of H heads. The one copy of the plan: the most query rows per
 // block (the fewest stagings of a head's K and V) whose grid still fills the
-// card, from 256 down to 64.
+// card, from 256 down to 64, counted from Lq; the SELF instantiation where
+// the query and key lengths and batch strides agree.
 template <int DH>
 cudaError_t launch_smallhead(const SmallHeadArgs& args, int B, int H,
                              cudaStream_t stream) {
-  if (args.L < 1 || B < 1 || H < 1) return cudaErrorInvalidValue;
-  auto kern = smallhead_attention_kernel<DH>;
+  if (args.Lq < 1 || args.Lk < 1 || B < 1 || H < 1)
+    return cudaErrorInvalidValue;
+  auto kern = args.Lq == args.Lk && args.q_batch == args.kv_batch
+                  ? smallhead_attention_kernel<DH, true>
+                  : smallhead_attention_kernel<DH, false>;
   constexpr int smem = SmallHead<DH>::smem_bytes;
   // asked on every launch: a function-local static of a template is one
   // object for all the libraries of a process that instantiate it
@@ -327,11 +340,11 @@ cudaError_t launch_smallhead(const SmallHeadArgs& args, int B, int H,
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   auto blocks = [&](int warps) {
-    return (long)B * H * ((args.L + 16 * warps - 1) / (16 * warps));
+    return (long)B * H * ((args.Lq + 16 * warps - 1) / (16 * warps));
   };
   int warps = kShMaxWarps;
   while (warps > 4 && blocks(warps) < sms - sms / 8) warps /= 2;
-  dim3 grid((args.L + 16 * warps - 1) / (16 * warps), H, B);
+  dim3 grid((args.Lq + 16 * warps - 1) / (16 * warps), H, B);
   kern<<<grid, warps * 32, smem, stream>>>(args);
   return cudaGetLastError();
 }

@@ -17,11 +17,56 @@
 // a 64-row warpgroup tile. The padded stride keeps the fragment loads on 32
 // distinct banks. The output overwrites q_s; the caller runs __syncwarp()
 // before it reads it.
+//
+// load8 and store8 move one 16-byte chunk of a row between device memory
+// and a warp's buffer, through fp32 where the caller scales or rotates it.
 #pragma once
 
-#include "flash_tile.cuh"
+#include "ptx.cuh"
 
 namespace mdt {
+
+// Eight consecutive bf16 of one row, rotated (rotate-every-two: out[2i] =
+// x[2i]·cos - x[2i+1]·sin, out[2i+1] = x[2i+1]·cos + x[2i]·sin) when ROT,
+// times `mul`, in fp32. Rows past the sequence end read as zeros.
+template <bool ROT>
+__device__ __forceinline__ void load8(const bf16* src, bool valid,
+                                      const float* sn, const float* cs,
+                                      float mul, float (&x)[8]) {
+  if (!valid) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = 0.f;
+    return;
+  }
+  uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] = __bfloat162float(e[i]);
+  if (ROT) {
+    float s[8], c[8];
+    *reinterpret_cast<float4*>(s) = reinterpret_cast<const float4*>(sn)[0];
+    *reinterpret_cast<float4*>(s + 4) = reinterpret_cast<const float4*>(sn)[1];
+    *reinterpret_cast<float4*>(c) = reinterpret_cast<const float4*>(cs)[0];
+    *reinterpret_cast<float4*>(c + 4) = reinterpret_cast<const float4*>(cs)[1];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      float a = x[2 * p], b = x[2 * p + 1];
+      x[2 * p] = a * c[2 * p] - b * s[2 * p];
+      x[2 * p + 1] = b * c[2 * p + 1] + a * s[2 * p + 1];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) x[i] *= mul;
+}
+
+__device__ __forceinline__ void store8(bf16* dst, const float (&x)[8]) {
+  uint4 v;
+  v.x = pack_bf16(x[0], x[1]);
+  v.y = pack_bf16(x[2], x[3]);
+  v.z = pack_bf16(x[4], x[5]);
+  v.w = pack_bf16(x[6], x[7]);
+  *reinterpret_cast<uint4*>(dst) = v;
+}
 
 template <int L, int D>
 struct TinyTile {

@@ -1,15 +1,17 @@
-// Self-attention over L rows of 64 dims on Hopper's warpgroup tensor cores,
-// with the rotary applied to q and k on their way into shared memory.
+// Attention of Lq query rows over Lk keys of 64 dims on Hopper's warpgroup
+// tensor cores, with the rotary applied to q and k on their way into shared
+// memory.
 //
 // Used by the divided space-attention kernel (divided_attention.cu), which
 // replaces _space_kernel of moditalker_tpu/ops/pallas/divided_attention.py,
-// and, without the rotary (ROT = false), by the one-pass kernel at head dim
-// 64 (flash_attention.cu: contiguous [B, N, 64] tensors as B sequences of
-// one head). At the space attention's shipped shape (256 (frame, head) pairs of 1024 rows) the work is
-// 68.7 GFLOP on 134 MB: bound by operations. The first port ran it on
-// mma.sync with two shared loads per product step, re-rotated every K tile in
-// each of 16 query blocks and transposed V by hand; this tile is built from
-// what the card offers instead:
+// and, without the rotary (ROT = false), by the one-pass kernel (Lq = Lk)
+// and the K-blocked fused kernel (Lq query rows over Lk keys) at head dim 64
+// (flash_attention.cu: contiguous [B, N, 64] tensors as B sequences of one
+// head). At the space attention's shipped shape (256 (frame, head) pairs of
+// 1024 rows) the work is 68.7 GFLOP on 134 MB: bound by operations. The
+// first port ran it on mma.sync with two shared loads per product step,
+// re-rotated every K tile in each of 16 query blocks and transposed V by
+// hand; this tile is built from what the card offers instead:
 //
 //  * both products are wgmma. S = Q·Kᵀ is m64n128k16 with Q as the register
 //    A operand and the K tile read from shared memory (K-major, 128-byte
@@ -33,11 +35,13 @@
 //  * K is rotated once per block. Up to L = 1152 every K tile gets a slot of
 //    its own (resident K): one block per (sequence, head) rotates all of K
 //    before the roles split, every warpgroup at it, then walks all query
-//    rows, so K is rotated once per head. Above that K does not fit beside
-//    the V ring: it streams through a ring of three slots, rotated by the
-//    producer, and a block takes 128 query rows (K rotated L / 128 times per
-//    head, where the first port rotated it L / 64 times). launch_wgmma
-//    chooses between the two by L.
+//    rows, so K is rotated once per head (with too few heads to fill the
+//    card, the rows are split over a few blocks per head). Above that K
+//    does not fit beside the V ring: it streams through a ring of three
+//    slots, rotated by the producer, and a block takes 128 query rows (K
+//    rotated L / 128 times per head, where the first port rotated it L / 64
+//    times). launch_wgmma chooses between the two by the key length Lk, and
+//    sizes the grid by the query length Lq.
 //  * a warp that starts a product waits about as long as the tensor cores
 //    take for it, and the softmax of a 64 x 128 tile costs a warp about
 //    twice that (ex2 at 16 per clock per SM, max, sum, convert). So the
@@ -56,8 +60,14 @@
 // rounded to bf16 once, k rotated and rounded once, fp32 scores, max and
 // sum, P rounded to bf16 for P·V, the output divided by the fp32 row sum.
 //
-// L must be a multiple of 128 (the space gate admits only such), so no tile
-// is ragged.
+// With the rotary, Lq = Lk and both are multiples of 128 (the space gate
+// admits only such), so no tile is ragged. Without it, two edges are
+// masked: a ragged last 64-row query chunk reads zeros past Lq and stores
+// only the rows below it, and a short last key tile (Lk % 128 != 0, which
+// the fused gate admits only below 128 keys) is zero-filled past Lk by the
+// copies, so that no stale slot contents reach P·V, and its scores there are
+// set to -inf before the max. Only resident K takes a short tile: the ring
+// streams whole ones.
 //
 // Build note: the resident-K instantiation keeps a 16-byte stack with 12
 // bytes of spill stores, all in the K prologue before the roles split (its
@@ -99,12 +109,12 @@ struct WgmmaArgs {
   const bf16* v;
   const float* rot;  // [L, 32, 2] (cos, sin) per pair; read only when ROT
   bf16* out;
-  long batch, in_row, out_batch, out_row;  // element strides
+  long q_batch, kv_batch, in_row, out_batch, out_row;  // element strides
   int head;          // column offset of one head, inputs and output
-  int L;
+  int Lq, Lk;        // query rows, keys
   float scale;
   // set by launch_wgmma
-  int k_slots;       // L / 128: resident K; fewer: a ring
+  int k_slots;       // ceil(Lk / 128): resident K; fewer: a ring
   int rounds;        // steps of NC x 64 query rows a block walks
 };
 
@@ -236,6 +246,20 @@ __device__ __forceinline__ void copy_tile(uint32_t dst, const bf16* src,
     cp_async16(dst + u * 16 * 128, src + u * 16 * in_row);
 }
 
+// The same for a short tile: rows at or past `rows` are zero-filled (their
+// source address is row 0's, which is not read).
+__device__ __forceinline__ void copy_tile_rows(uint32_t dst, const bf16* src,
+                                               long in_row, int t, int rows) {
+  dst += swizzled(t >> 3, t & 7);
+  src += (t & 7) * 8;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int r = (t >> 3) + 16 * u;
+    cp_async16_or_zeros(dst + u * 16 * 128, src + (r < rows ? r : 0) * in_row,
+                        r < rows);
+  }
+}
+
 // `ROWS` rows of 64 dims starting at `src` (row stride in_row), rotated with
 // the table rows starting at `tab` and scaled, through `put(r, c, chunk)`.
 // The `T` threads of the calling group take chunk i = tid + T·u: eight
@@ -274,7 +298,7 @@ __device__ __forceinline__ void stage_rows(const bf16* src, long in_row,
 
 // ---------------------------------------------------------------- kernel
 // NC consumer warpgroups and one producer: block (NC + 1) x 128, grid
-// (ceil(L / 64 / (NC x rounds)), H, B), dynamic shared memory
+// (ceil(Lq / 64 / (NC x rounds)), H, B), dynamic shared memory
 // wgmma_smem_bytes(k_slots, NC). Consumer warpgroup w takes the 64 query
 // rows of chunk (blockIdx.x x rounds + round) x NC + w in each round; a
 // chunk past the sequence end is idle but keeps the ring's handshakes.
@@ -290,8 +314,10 @@ wgmma_attention_kernel(const WgmmaArgs a) {
   unsigned char* sm = wg_smem + (base - raw_base);
 
   const int KS = a.k_slots;
-  const int nkt = a.L / kWgTile;
+  const int nkt = (a.Lk + kWgTile - 1) / kWgTile;
   const bool streamed = KS < nkt;
+  // keys in the last tile: fewer than 128 only without the rotary
+  const int last_rows = ROT ? kWgTile : a.Lk - (nkt - 1) * kWgTile;
   const uint32_t k_tiles = base;
   const uint32_t v_tiles = base + KS * kWgTileBytes;
   const int q_off = (KS + kWgVStages) * kWgTileBytes;
@@ -318,7 +344,9 @@ wgmma_attention_kernel(const WgmmaArgs a) {
   }
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const long in_off = b * a.batch + (long)h * a.head;
+  // element offsets of this (sequence, head) in q and in k, v
+  const long q_in = b * a.q_batch + (long)h * a.head;
+  const long kv_in = b * a.kv_batch + (long)h * a.head;
   const int wg = tid >> 7;
 
   if (!streamed) {
@@ -328,7 +356,7 @@ wgmma_attention_kernel(const WgmmaArgs a) {
     // four chunks in flight per thread, the first pass over K waited on it
     // for a third of the block's time.)
     for (int j = wg; j < nkt; j += NC + 1) {
-      const bf16* ksrc = a.k + in_off + (long)j * kWgTile * a.in_row;
+      const bf16* ksrc = a.k + kv_in + (long)j * kWgTile * a.in_row;
       if constexpr (ROT) {
         unsigned char* kdst = sm + j * kWgTileBytes;
         stage_rows<ROT, kWgTile, 128, NC == 2 ? 8 : 4>(
@@ -337,7 +365,11 @@ wgmma_attention_kernel(const WgmmaArgs a) {
               *reinterpret_cast<uint4*>(kdst + swizzled(r, c)) = v;
             });
       } else {  // nothing to rotate: K goes straight into its swizzled tile
-        copy_tile(k_tiles + j * kWgTileBytes, ksrc, a.in_row, tid & 127);
+        if (j < nkt - 1 || last_rows == kWgTile)
+          copy_tile(k_tiles + j * kWgTileBytes, ksrc, a.in_row, tid & 127);
+        else
+          copy_tile_rows(k_tiles + j * kWgTileBytes, ksrc, a.in_row, tid & 127,
+                         last_rows);
       }
     }
     if constexpr (!ROT) cp_async_wait_all();
@@ -355,7 +387,7 @@ wgmma_attention_kernel(const WgmmaArgs a) {
     // this thread's eight chunks of a tile: row pt / 8 + 16 u, whose
     // swizzle is that of row pt / 8
     const uint32_t v_sw = swizzled(pt >> 3, pt & 7);
-    const bf16* vb = a.v + in_off + (pt >> 3) * a.in_row + (pt & 7) * 8;
+    const bf16* vb = a.v + kv_in + (pt >> 3) * a.in_row + (pt & 7) * 8;
     // Without a rotary a K ring's tiles travel with the V tiles, in the same
     // cp.async group; with one they pass through this warpgroup's registers.
     constexpr bool kCopyK = NC == 2 && !ROT;
@@ -366,13 +398,19 @@ wgmma_attention_kernel(const WgmmaArgs a) {
         mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
         const uint32_t vdst = v_tiles + vs * kWgTileBytes + v_sw;
         const bf16* vsrc = vb + (long)j * kWgTile * a.in_row;
+        if (j == nkt - 1 && last_rows < kWgTile) {  // resident K only
+          copy_tile_rows(v_tiles + vs * kWgTileBytes,
+                         a.v + kv_in + (long)j * kWgTile * a.in_row, a.in_row,
+                         pt, last_rows);
+        } else {
 #pragma unroll
-        for (int u = 0; u < 8; ++u)
-          cp_async16(vdst + u * 16 * 128, vsrc + u * 16 * a.in_row);
+          for (int u = 0; u < 8; ++u)
+            cp_async16(vdst + u * 16 * 128, vsrc + u * 16 * a.in_row);
+        }
         if (kCopyK && streamed) {
           mbar_wait(empty_k(it % KS), ((it / KS) & 1) ^ 1);
           copy_tile(k_tiles + (it % KS) * kWgTileBytes,
-                    a.k + in_off + (long)j * kWgTile * a.in_row, a.in_row, pt);
+                    a.k + kv_in + (long)j * kWgTile * a.in_row, a.in_row, pt);
         }
         cp_async_commit();
         if (it > 0) {  // the tiles started one step ago have landed
@@ -388,7 +426,7 @@ wgmma_attention_kernel(const WgmmaArgs a) {
             mbar_wait(empty_k(ks), ((it / KS) & 1) ^ 1);
             unsigned char* kdst = sm + ks * kWgTileBytes;
             stage_rows<ROT, kWgTile, 128, 4>(
-                a.k + in_off + (long)j * kWgTile * a.in_row, a.in_row,
+                a.k + kv_in + (long)j * kWgTile * a.in_row, a.in_row,
                 a.rot + (long)j * kWgTile * kWgD, 1.f, pt,
                 [&](int r, int c, uint4 v) {
                   *reinterpret_cast<uint4*>(kdst + swizzled(r, c)) = v;
@@ -417,7 +455,7 @@ wgmma_attention_kernel(const WgmmaArgs a) {
 
     for (int round = 0; round < a.rounds; ++round) {
       const int q0 = ((blockIdx.x * a.rounds + round) * NC + wg) * kWgRows;
-      if (q0 >= a.L) {
+      if (q0 >= a.Lq) {
         // no rows left for this warpgroup: it only hands the tiles back
         for (int j = 0; j < nkt; ++j, ++it) {
           if (streamed) {
@@ -431,12 +469,26 @@ wgmma_attention_kernel(const WgmmaArgs a) {
         continue;
       }
       // Q: rotary + scale, rounded to bf16 once, then into A fragments
-      stage_rows<ROT, kWgRows, 128, 4>(
-          a.q + in_off + q0 * a.in_row, a.in_row, a.rot + (long)q0 * kWgD,
-          a.scale, ct,
-          [&](int r, int c, uint4 v) {
-            *reinterpret_cast<uint4*>(q_s + r * kWgQStride + c * 8) = v;
-          });
+      if (ROT || q0 + kWgRows <= a.Lq) {
+        stage_rows<ROT, kWgRows, 128, 4>(
+            a.q + q_in + q0 * a.in_row, a.in_row, a.rot + (long)q0 * kWgD,
+            a.scale, ct,
+            [&](int r, int c, uint4 v) {
+              *reinterpret_cast<uint4*>(q_s + r * kWgQStride + c * 8) = v;
+            });
+      } else {  // ragged last chunk: rows past Lq compute on zeros
+        const float4 none = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = ct + 128 * u, r = i >> 3, c = i & 7;
+          uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+          if (q0 + r < a.Lq)
+            raw = *reinterpret_cast<const uint4*>(a.q + q_in +
+                                                  (q0 + r) * a.in_row + c * 8);
+          *reinterpret_cast<uint4*>(q_s + r * kWgQStride + c * 8) =
+              rotate_chunk<false>(raw, none, none, a.scale);
+        }
+      }
       bar_sync(1 + wg, 128);
       uint32_t qa[kWgD / 16][4];
 #pragma unroll
@@ -469,6 +521,16 @@ wgmma_attention_kernel(const WgmmaArgs a) {
         wgmma_wait0();
         fence_regs(s);
         if (streamed && lane == 0) mbar_arrive(empty_k(ks));
+        if (j == nkt - 1 && last_rows < kWgTile) {
+          // short last tile: keys past Lk weigh nothing (s[4 nt + 2 r + c]
+          // is key 8 nt + 2 t + c of row g + 8 r)
+#pragma unroll
+          for (int nt = 0; nt < 16; ++nt) {
+            const int key = nt * 8 + 2 * t;
+            if (key >= last_rows) s[4 * nt] = s[4 * nt + 2] = -INFINITY;
+            if (key + 1 >= last_rows) s[4 * nt + 1] = s[4 * nt + 3] = -INFINITY;
+          }
+        }
 
         // online softmax; rows g (r = 0) and g + 8 (r = 1) of this warp's
         // 16, each spread over a quad
@@ -544,8 +606,9 @@ wgmma_attention_kernel(const WgmmaArgs a) {
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int i = ct + 128 * u, r = i >> 3, c = i & 7;
-        *reinterpret_cast<uint4*>(ob + (q0 + r) * a.out_row + c * 8) =
-            *reinterpret_cast<const uint4*>(q_s + r * kWgQStride + c * 8);
+        if (ROT || q0 + r < a.Lq)
+          *reinterpret_cast<uint4*>(ob + (q0 + r) * a.out_row + c * 8) =
+              *reinterpret_cast<const uint4*>(q_s + r * kWgQStride + c * 8);
       }
       bar_sync(1 + wg, 128);  // before the next Q tile overwrites the buffer
     }
@@ -561,23 +624,41 @@ cudaError_t launch_wgmma_plan(const WgmmaArgs& args, int B, int H,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int rows = NC * kWgRows * args.rounds;  // query rows per block
-  dim3 grid((args.L + rows - 1) / rows, H, B);
+  dim3 grid((args.Lq + rows - 1) / rows, H, B);
   kern<<<grid, (NC + 1) * 128, smem, stream>>>(args);
   return cudaGetLastError();
 }
 
-// B sequences of H heads. Resident K (three consumers, one block per
-// (sequence, head) walking all rows) wherever every K tile has a slot, the
-// K ring (two consumers, 128 query rows per block) above that.
+// B sequences of H heads. Resident K (three consumers) wherever every K
+// tile has a slot, the K ring (two consumers, 128 query rows per block)
+// above that: chosen by Lk. With resident K one block per (sequence, head)
+// walks all Lq rows in steps of 192, so that K is copied once per head;
+// where that leaves the card short of blocks (few sequences, Lq > 192), the
+// steps are split over more blocks: the most steps per block whose grid
+// still fills the card, as launch_smallhead counts rows. With the rotary,
+// Lq = Lk, a multiple of 128; the ring takes whole K tiles only.
 template <bool ROT>
 cudaError_t launch_wgmma(WgmmaArgs args, int B, int H, cudaStream_t stream) {
-  const int nkt = args.L / kWgTile;
-  if (args.L % kWgTile != 0 || nkt < 2) return cudaErrorInvalidValue;
+  const int nkt = (args.Lk + kWgTile - 1) / kWgTile;
+  if (args.Lq < 1 || args.Lk < 1) return cudaErrorInvalidValue;
+  if (ROT && (args.Lq != args.Lk || args.Lk % kWgTile != 0))
+    return cudaErrorInvalidValue;
   if (nkt <= kWgMaxKSlots) {
+    int dev = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    const int steps = (args.Lq + 3 * kWgRows - 1) / (3 * kWgRows);
     args.k_slots = nkt;
-    args.rounds = (args.L + 3 * kWgRows - 1) / (3 * kWgRows);
+    args.rounds = steps;
+    while (args.rounds > 1 &&
+           (long)B * H * ((steps + args.rounds - 1) / args.rounds) <
+               sms - sms / 8)
+      args.rounds = (args.rounds + 1) / 2;
     return launch_wgmma_plan<ROT, 3>(args, B, H, stream);
   }
+  if (args.Lk % kWgTile != 0) return cudaErrorInvalidValue;
   args.k_slots = kWgRingKSlots;
   args.rounds = 1;
   return launch_wgmma_plan<ROT, 2>(args, B, H, stream);

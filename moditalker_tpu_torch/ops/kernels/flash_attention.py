@@ -21,10 +21,11 @@ Kernels (sm_90a), all on [B, N, D] bf16 with heads folded into B:
   dispatches here at the tiny gate's shapes: the TimeSformer time attention
   [B·8·1024, 16, 64] when the fused divided kernels are switched off.
 * K-blocked fused (``csrc/flash_attention.cu``) — replaces ``_attn_kernel``:
-  ``csrc/flash_tile.cuh``'s ``mma.sync`` flash kernel, Nq query rows against
-  Nk keys. Bound by
-  operations. Reached through ``ops.attention.sdpa_fused`` only, as in the
-  JAX package; no model calls it.
+  Nq query rows against Nk keys on the one-pass kernel's two tiles (the
+  one-pass kernel is this one at Nq = Nk), with the ragged last query chunk
+  and a key tile short of 128 masked in the kernel. Bound by operations.
+  Reached through ``ops.attention.sdpa_fused`` only, as in the JAX package;
+  no model calls it.
 
 For tensors on the CPU a wrapper runs its plain version (the plain ``sdpa``
 math); for CUDA tensors it launches the kernel or raises.
@@ -42,9 +43,8 @@ from . import _build, count_launch
 
 # instantiated in csrc/: the shapes the repository's configurations reach
 # (UNet attention at 128 and 256 model channels, AE dim_head 64, 16 frames);
-# others raise on the card
-ONEPASS_HEAD_DIMS = (16, 32, 64)
-FUSED_HEAD_DIMS = (16, 64)
+# others raise on the card. HEAD_DIMS serves the one-pass and fused kernels.
+HEAD_DIMS = (16, 32, 64)
 TINY_SHAPES = ((16, 64),)   # (L, head dim)
 
 
@@ -63,8 +63,6 @@ def onepass_attention_reference(q, k, v, scale: float):
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.onepass_attention.argtypes = [p, p, p, p, i, i, i, ctypes.c_float, p]
-    lib.onepass_attention.restype = i
     lib.fused_attention.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
     lib.fused_attention.restype = i
     return lib
@@ -83,22 +81,32 @@ def _check_bf16(what: str, q, k, v, kv_shape):
     return q, k, v
 
 
-def onepass_attention_cuda(q, k, v, scale: float):
-    """Kernel launch: q, k, v [B, N, D] bf16 → [B, N, D]."""
-    b, n, d = q.shape
-    q, k, v = _check_bf16("one-pass", q, k, v, (b, n, d))
-    if d not in ONEPASS_HEAD_DIMS:
-        raise NotImplementedError(f"one-pass kernel built for head dims "
-                                  f"{ONEPASS_HEAD_DIMS}, not {d}")
-    if d == 64 and (n % 128 or n < 256):
-        raise ValueError(f"at head dim 64 the one-pass kernel takes "
-                         f"N % 128 == 0, N >= 256, not {n}")
+def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
+    """The one-pass and the fused wrapper's checks and launch (the one-pass
+    kernel is the fused one at Nq = Nk): q [B, Nq, D] over k, v [B, nk, D]
+    bf16 → [B, Nq, D]. Head dims as built; at 64, above 1152 keys (where K
+    streams through a ring instead of staying in shared memory) only whole
+    128-key tiles."""
+    b, nq, d = q.shape
+    q, k, v = _check_bf16(what, q, k, v, (b, nk, d))
+    if d not in HEAD_DIMS:
+        raise NotImplementedError(f"{what} kernel built for head dims "
+                                  f"{HEAD_DIMS}, not {d}")
+    if d == 64 and nk > 1152 and nk % 128:
+        raise ValueError(f"at head dim 64 the {what} kernel takes more than "
+                         f"1152 keys only in multiples of 128, not {nk}")
     out = torch.empty_like(q)
     lib = _lib()
-    status = lib.onepass_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, n, d,
-        scale, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, status, "onepass_attention")
+    status = lib.fused_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
+        d, scale, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, status, f"{what} attention")
+    return out
+
+
+def onepass_attention_cuda(q, k, v, scale: float):
+    """Kernel launch: q, k, v [B, N, D] bf16 → [B, N, D]."""
+    out = _attention_cuda("one-pass", q, k, v, scale, q.shape[1])
     count_launch("onepass_attention", q.shape)
     return out
 
@@ -170,16 +178,7 @@ def fused_attention_cuda(q, k, v, scale: float):
     """Kernel launch: q [B, Nq, D], k, v [B, Nk, D] bf16 → [B, Nq, D]."""
     b, nq, d = q.shape
     nk = k.shape[1]
-    q, k, v = _check_bf16("fused", q, k, v, (b, nk, d))
-    if d not in FUSED_HEAD_DIMS:
-        raise NotImplementedError(f"fused kernel built for head dims "
-                                  f"{FUSED_HEAD_DIMS}, not {d}")
-    out = torch.empty_like(q)
-    lib = _lib()
-    status = lib.fused_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
-        d, scale, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, status, "fused_attention")
+    out = _attention_cuda("fused", q, k, v, scale, nk)
     count_launch("fused_attention", (b, nq, nk, d))
     return out
 

@@ -16,7 +16,10 @@ not full for the tiny-L and the time kernel. The packed and the one-pass
 kernel are held on both sides of every choice their launchers make: 256, 128
 and 64 query rows per block (B = 2 and B = 1 at L = 2048 and 1024, a large
 batch), whole and ragged last tiles, and at D = 64 resident K (N = 1024) and
-the K ring (N = 1280, 2048).
+the K ring (N = 1280, 2048). The fused kernel is held at every edge its two
+tiles mask: ragged query chunks (Nq = 1, 100, 1100), key tiles short of 128
+(Nk = 8 … 120), one whole key tile (Nk = 128), Nq != Nk on both sides of the
+resident-K limit, and D = 16, 32 and 64.
 """
 
 import pytest
@@ -132,7 +135,18 @@ def test_tiny_kernel_matches_plain(gen, b):
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,nq,nk,d", [
     (16, 2048, 2048, 16), (4, 1024, 1024, 64), (2, 64, 512, 64),
-    (3, 100, 256, 64), (3, 1000, 384, 16)])
+    (3, 100, 256, 64), (3, 1000, 384, 16),
+    # D = 64: a key tile short of 128 (resident K, one tile) and a whole one
+    (3, 100, 64, 64), (2, 1100, 64, 64), (2, 200, 8, 64), (2, 70, 120, 64),
+    (2, 256, 128, 64),
+    # D = 64, Nq != Nk on the K ring, with ragged query chunks
+    (2, 1100, 1280, 64), (3, 100, 2048, 64), (2, 1, 2048, 64),
+    # D = 64, ragged query chunks against resident K
+    (4, 1, 512, 64), (2, 1100, 1152, 64),
+    # D = 16: eight keys, more query rows than keys
+    (3, 300, 8, 16), (2, 3000, 512, 16),
+    # D = 32: self- and cross-length
+    (8, 1024, 1024, 32), (3, 200, 640, 32)])
 def test_fused_kernel_matches_plain(gen, b, nq, nk, d):
     q, k, v = _randn(gen, b, nq, d), _randn(gen, b, nk, d), _randn(gen, b, nk, d)
     got = _launched("fused_attention",

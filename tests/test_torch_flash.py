@@ -51,7 +51,10 @@ def test_tiny_plain_matches_pallas_interpret(b, l, d):
     ((4, 128, 64), (4, 128, 64)), ((4, 256, 64), (4, 256, 64)),
     ((4, 2048, 64), (4, 2048, 64)),
     ((2, 100, 64), (2, 100, 64)),      # ragged: the plain math in both
-    ((2, 64, 64), (2, 512, 64))])      # cross-length
+    ((2, 64, 64), (2, 512, 64)),       # cross-length
+    ((2, 100, 64), (2, 64, 64)),       # one key block short of 128
+    ((4, 256, 16), (4, 256, 16)), ((2, 100, 16), (2, 384, 16)),
+    ((4, 256, 32), (4, 256, 32)), ((2, 100, 32), (2, 384, 32))])
 def test_fused_plain_matches_pallas_interpret(q_shape, kv_shape):
     q, k, v = _qkv(q_shape, kv_shape, seed=q_shape[1])
     want = jflash.fused_attention(jnp.asarray(q), jnp.asarray(k),
@@ -225,20 +228,24 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(NotImplementedError, match="tiny-L kernel built for"):
         tflash.tiny_attention_cuda(qb[:, :8], qb[:, :8], qb[:, :8], 1.0)
     with pytest.raises(NotImplementedError, match="fused kernel built for"):
-        x = torch.zeros(2, 256, 32, dtype=torch.bfloat16)
+        x = torch.zeros(2, 256, 48, dtype=torch.bfloat16)
         tflash.fused_attention_cuda(x, x, x, 1.0)
     with pytest.raises(ValueError, match="k and v of shape"):
         x = torch.zeros(2, 256, 64, dtype=torch.bfloat16)
         tflash.fused_attention_cuda(x, x, x[:1], 1.0)
+    # at head dim 64 above 1152 keys (the K ring) only whole 128-key tiles
+    with pytest.raises(ValueError, match="head dim 64"):
+        kv = torch.zeros(2, 1160, 64, dtype=torch.bfloat16)
+        tflash.fused_attention_cuda(x, kv, kv, 1.0)
     # one-pass: bf16 only, built head dims only, and at head dim 64 (the
-    # wgmma tile) only rows that tile by 128
+    # wgmma tile) above 1152 rows only rows that tile by 128
     x = torch.zeros(2, 1024, 32)
     with pytest.raises(TypeError, match="bf16"):
         tflash.onepass_attention_cuda(x, x, x, 1.0)
     with pytest.raises(NotImplementedError, match="one-pass kernel built for"):
         x = torch.zeros(2, 1024, 48, dtype=torch.bfloat16)
         tflash.onepass_attention_cuda(x, x, x, 1.0)
-    for n in (1000, 128):
+    for n in (1160, 2000):
         with pytest.raises(ValueError, match="head dim 64"):
             x = torch.zeros(2, n, 64, dtype=torch.bfloat16)
             tflash.onepass_attention_cuda(x, x, x, 1.0)

@@ -118,7 +118,7 @@ def test_onepass_plain_matches_pallas_interpret(d):
     rng = np.random.default_rng(3)
     q, k, v = (rng.normal(size=(2, 1024, d)).astype(np.float32)
                for _ in range(3))
-    assert d in tflash.ONEPASS_HEAD_DIMS
+    assert d in tflash.HEAD_DIMS
     assert tflash.onepass_attention_viable(1024, 1024, d)
     want = jflash.onepass_attention(jnp.asarray(q), jnp.asarray(k),
                                     jnp.asarray(v), d**-0.5, interpret=True)
@@ -137,13 +137,22 @@ def _case_labels(source: str, function: str) -> tuple[int, ...]:
 
 def test_built_head_dims_match_the_sources():
     """The head dims a wrapper lets through are the instantiations its
-    source's ``switch`` holds, no more and no fewer."""
-    assert _case_labels("flash_attention.cu", "onepass_attention") \
-        == tflash.ONEPASS_HEAD_DIMS
+    source's ``switch`` holds, no more and no fewer. The one-pass wrapper
+    launches the fused kernel at Nq = Nk, so both share its list."""
     assert _case_labels("flash_attention.cu", "fused_attention") \
-        == tflash.FUSED_HEAD_DIMS
+        == tflash.HEAD_DIMS == (16, 32, 64)
     assert _case_labels("packed_attention.cu", "packed_attention") \
         == tpack.PACKED_HEAD_DIMS == (16,)
+
+
+@pytest.mark.parametrize("source", sorted(
+    p.name for p in _build.CSRC.iterdir() if p.suffix in (".cu", ".cuh")))
+def test_csrc_includes_name_files_that_exist(source):
+    """Every ``#include "..."`` of a kernel source names a header beside it,
+    so a header taken out of csrc/ cannot leave a dangling include."""
+    text = (_build.CSRC / source).read_text()
+    for name in re.findall(r'^\s*#include\s+"([^"]+)"', text, re.M):
+        assert (_build.CSRC / name).is_file(), f"{source} includes {name}"
 
 
 def test_launch_counts_split_by_shape():
