@@ -62,7 +62,27 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              ``run_directory`` over 4 synthetic identities at DDIM-50 with
              CFG, timed warm; the landmark files are checked.
              AToM's attentions are outside every kernel gate: no launch;
-7. profile — one UNet step, one extract and one decode at B = 2: host
+7. audio   — HuBERT-large (``HubertConfig()``: 24 layers, width 1024) in
+             float32 with weights from ``--seed``: a 2 s clip on the card
+             against the CPU (within AUDIO_LIMIT), then the ``process-audio``
+             command on a 16-bit wav of one whole 20 s clip (320 080
+             samples) plus a 3 s tail, and the same chain
+             (``normalize_like_wav2vec2``, ``extract_hubert_features`` over
+             ``hubert_forward``) timed warm: seconds of audio per second,
+             features [expected T, 1024]; then those features through AToM
+             (``run_directory``, one identity) to a landmark file: wav →
+             landmarks on one card. Masked attention: no launch;
+8. align   — the ``align-motion`` stack as ``build_detectors`` makes it from
+             state_dicts (S3FD, FAN with 4 modules, ReconNet at full width,
+             float32, weights from ``--seed``, S3FD's face logit a filter
+             that finds the frames' "face"): the three nets and the
+             fused chunk on 2 frames on the card against the CPU (within
+             ALIGN_LIMIT), then ``MotionAligner.align_sequence`` over HORIZON
+             = 156 synthetic 512 × 512 driving frames (noise in the central
+             256² on black) and the landmarks of the audio phase, timed
+             warm: frames per second, aligned landmarks [156, 68, 2],
+             finite, inside the frame. No launch;
+9. profile — one UNet step, one extract and one decode at B = 2: host
              time, the device's busy time and top kernels (torch.profiler).
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
@@ -94,6 +114,25 @@ REF_FACTOR = 2.0
 # limit is about ten times the readings (1.3e-6 and 3.0e-6 on an H100).
 ATOM_LIMIT = 2e-5
 
+# HuBERT-large on the card vs the CPU, both float32 with TF32 off, same
+# weights and 2 s clip: max abs difference over max |cpu| of the features;
+# about twice the reading on an H100 (1.678e-6)
+AUDIO_LIMIT = 4e-6
+
+# the alignment nets on the card vs the CPU in float32 on the same 2 frames
+# (S3FD's 12 maps, FAN's last heatmaps on the same crops, ReconNet's 257
+# coefficients on the same crops), and the fused chunk's continuous rows:
+# max abs difference over max |cpu| of each; about twice the largest
+# reading on an H100 (S3FD's maps, 1.12e-5; the rest 1e-7 to 4e-6)
+ALIGN_LIMIT = 2.5e-5
+# of the fused chunk's 136 landmarks at least this share within 1e-2 px of
+# the CPU's: each is an argmax of a random-weight heatmap, which a 1e-6
+# difference can move by a cell (the POS params and the coefficients are
+# compared on the frames whose landmarks all agree)
+ALIGN_POINTS_SHARE = 0.95
+# gain of S3FD's synthetic face detector (``align_states``)
+FACE_GAIN = 1.0
+
 # which kernels each kind of path launches; the others must stay at zero
 FUSED_PATH = {"divided_space_attention", "divided_time_attention",
               "packed_attention", "onepass_attention"}
@@ -120,6 +159,7 @@ BEFORE_REDESIGN_MS = {
 }
 
 H100_BF16_FLOPS = 989e12
+H100_FP32_FLOPS = 67e12     # float32 outside the tensor cores (TF32 is off)
 H100_BYTES_PER_S = 3.35e12
 H100_EX2_PER_CLOCK_PER_SM = 16
 
@@ -690,13 +730,396 @@ def atom_phase(torch, seed: int) -> dict:
             "card_vs_cpu_rel_max_err": errs}
 
 
+def trace(torch, fn) -> dict:
+    """One synchronised call of ``fn`` under torch.profiler: its host time,
+    the device's busy time (the sum of its kernels' times), the device's
+    idle share of the call, the kernel count and the top kernels. The
+    profiler's own host cost falls in the host time, so the idle share
+    reads high for launch-bound code."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.key_averages() if e.device_type == cuda]
+    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+    return {"traced_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms,
+            "kernels": sum(e.count for e in kern),
+            "top": [(e.key[:60], e.self_device_time_total / 1e3)
+                    for e in top]}
+
+
+def log_trace(what: str, traced: dict) -> None:
+    log(f"profile {what}: traced {traced['traced_wall_ms']:.2f} ms, device "
+        f"busy {traced['device_busy_ms']:.2f} ms (idle share "
+        f"{traced['idle_share']:.3f}), {traced['kernels']} kernels; top "
+        f"{traced['top']}")
+
+
+def device_ms(torch, fn, reps: int = 3) -> float:
+    """Device milliseconds per call of ``fn``: CUDA events around ``reps``
+    calls after a warm-up one."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def layer_flops(torch, model, fn, attention=()) -> float:
+    """FLOPs of the convolutions and linear layers of ``model`` in one call
+    of ``fn`` (2 per multiply-add, from the shapes each layer meets), and
+    the two products of the self-attention in each module of a class in
+    ``attention`` (input [B, T, D]: 4·B·T²·D)."""
+    total = [0.0]
+
+    def hook(m, inputs, out):
+        if isinstance(m, attention):
+            b, t, d = inputs[0].shape
+            total[0] += 4.0 * b * t * t * d
+        elif isinstance(m, torch.nn.Linear):
+            total[0] += 2.0 * out.numel() * m.in_features
+        else:
+            total[0] += (2.0 * out.numel() * m.in_channels / m.groups
+                         * float(np.prod(m.kernel_size)))
+
+    kinds = (torch.nn.Linear, torch.nn.Conv1d, torch.nn.Conv2d, *attention)
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, kinds)]
+    try:
+        with torch.inference_mode():
+            fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def rel_err(card, cpu) -> float:
+    card, cpu = np.asarray(card, np.float64), np.asarray(cpu, np.float64)
+    if not np.isfinite(card).all():
+        raise AssertionError("non-finite values on the card")
+    return float(np.abs(card - cpu).max() / np.abs(cpu).max())
+
+
+def audio_phase(torch, seed: int) -> dict:
+    """HuBERT-large in float32: the card against the CPU on a 2 s clip, the
+    ``process-audio`` command, the same chain timed warm, and the features
+    through AToM to a landmark file."""
+    import wave
+
+    from moditalker_tpu_torch import cli
+    from moditalker_tpu_torch.config import (AtomDiffusionConfig,
+                                             AtomModelConfig)
+    from moditalker_tpu_torch.models.atom import MotionDecoder
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.pipelines.atom_infer import \
+        AtomInferencePipeline
+    from moditalker_tpu_torch.preprocess import audio, hubert
+    from moditalker_tpu_torch.preprocess.bfm import Face3DHelper
+
+    torch.manual_seed(seed)
+    model = hubert.HubertEncoder(hubert.HubertConfig()).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(seed)
+    clip = audio.normalize_like_wav2vec2(rng.normal(size=32000))
+    with torch.inference_mode():
+        cpu = model(torch.from_numpy(clip[None]))[0].numpy()
+    reset_launch_counts()
+    card_fn = audio.hubert_forward(model, "cuda")
+    err = rel_err(card_fn(clip[None]), cpu)
+    log(f"audio: HuBERT-large ({n_params / 1e6:.1f} M parameters) on a 2 s "
+        f"clip, card vs cpu in float32: max abs err over max |cpu| "
+        f"{err:.3e} (limit {AUDIO_LIMIT}), max |cpu| {np.abs(cpu).max():.3f}")
+    if err > AUDIO_LIMIT:
+        raise AssertionError("audio: the card disagrees with the CPU")
+
+    # one whole clip (20 s, T = 1000 frames) plus a 3 s tail, 16-bit mono
+    n = audio.CLIP_LENGTH - audio.STRIDE + audio.KERNEL + 48000
+    pcm = np.clip(rng.normal(scale=0.1, size=n) * 32767, -32767, 32767)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav_path, out = os.path.join(tmp, "a.wav"), os.path.join(tmp, "h.npy")
+        with wave.open(wav_path, "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes(pcm.astype(np.int16).tobytes())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(["process-audio", "--audio", wav_path, "--out", out,
+                  "--seed", str(seed)])
+        dt_cli = time.perf_counter() - t0
+        from_cli = np.load(out)
+        speech = audio.normalize_like_wav2vec2(cli._read_wav(wav_path))
+    want_t = audio.expected_num_frames(n)
+    for label in ("audio features (warm-up)", "audio features"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = audio.extract_hubert_features(speech, card_fn)
+        dt = time.perf_counter() - t0
+    rate = n / 16000 / dt
+    traced = trace(torch, lambda: audio.extract_hubert_features(speech,
+                                                                 card_fn))
+    log_trace("audio features", traced)
+    # the operations of the chain as it runs (the tail chunk bucketed)
+    cfg = model.cfg
+    flops = layer_flops(
+        torch, model, lambda: audio.extract_hubert_features(speech, card_fn),
+        attention=(hubert.EncoderLayerStableLN,))
+    audio_bound_ms = flops / H100_FP32_FLOPS * 1e3
+    x = torch.randn((1, 1000, cfg.hidden_size), device="cuda")
+    wave_clip = torch.randn((1, audio.CLIP_LENGTH - audio.STRIDE
+                             + audio.KERNEL), device="cuda")
+    with torch.inference_mode():
+        part_ms = {
+            "feature_extractor": device_ms(
+                torch, lambda: model.feature_extractor(wave_clip)),
+            "pos_conv": device_ms(torch, lambda: model.pos_conv(x)),
+            "24 layers": cfg.num_layers * device_ms(
+                torch, lambda: model.layer_0(x))}
+    log(f"audio: {flops / 1e12:.3f} TFLOP over {n / 16000:.2f} s of audio: "
+        f"{flops / dt / 1e12:.2f} TFLOP/s in the timed run, bound "
+        f"{audio_bound_ms:.2f} ms (operations, float32 at "
+        f"{H100_FP32_FLOPS / 1e12:.0f} TFLOP/s); device ms per 20 s clip by "
+        f"part: {part_ms}")
+    log(f"{label}: {n} samples ({n / 16000:.2f} s of audio, chunks "
+        f"{audio.chunk_bounds(n)}) → {list(feats.shape)} in {dt:.3f} s = "
+        f"{rate:.2f} s of audio per s; the process-audio command (weights "
+        f"drawn on the CPU, wav read, run) {dt_cli:.2f} s")
+    width = model.cfg.hidden_size
+    if feats.shape != (want_t, width) or not np.isfinite(feats).all():
+        raise AssertionError(f"audio: features {feats.shape}, want "
+                             f"[{want_t}, {width}]")
+    cli_err = rel_err(from_cli, feats)
+    if from_cli.shape != feats.shape or cli_err > AUDIO_LIMIT:
+        raise AssertionError(f"audio: process-audio wrote {from_cli.shape}, "
+                             f"{cli_err:.3e} from the chain's features")
+    counts = check_launches("audio", set())
+
+    mc = AtomModelConfig()
+    torch.manual_seed(seed)
+    pipe = AtomInferencePipeline(MotionDecoder(mc).state_dict(), mc,
+                                 AtomDiffusionConfig(),
+                                 face3d=Face3DHelper.synthetic(seed))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = pipe.run_directory(
+            {"id0": (rng.normal(scale=0.3, size=(68, 3)), feats)}, tmp,
+            seed=seed)
+        lm = np.load(paths["id0"])
+    if (lm.shape != (mc.horizon, 68, 3) or not np.isfinite(lm).all()
+            or lm.std() == 0):
+        raise AssertionError(f"audio → atom: bad landmarks {lm.shape}")
+    counts_atom = check_launches("audio → atom", set())
+    log(f"audio → atom: {want_t} HuBERT frames → landmarks {list(lm.shape)}; "
+        f"launches {counts} and {counts_atom}")
+    return {"launches": counts, "audio_s_per_s": rate,
+            "card_vs_cpu_rel_max_err": err, "lm68_atom": lm,
+            "trace": traced, "tflop": flops / 1e12,
+            "bound_ms": audio_bound_ms, "clip_device_ms": part_ms}
+
+
+def _he_init(torch, module, gen) -> None:
+    """Variance-keeping random weights (normal, std sqrt(2 / fan in)) for
+    every conv and linear layer, zero biases: deep ReLU stacks at torch's
+    default init shrink their activations layer by layer, and the argmaxes
+    this phase compares across devices need outputs that vary with the
+    input."""
+    for m in module.modules():
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+            fan_in = m.weight[0].numel()
+            with torch.no_grad():
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                               * (2.0 / fan_in) ** 0.5)
+                if m.bias is not None:
+                    m.bias.zero_()
+
+
+def align_states(torch, seed: int, frame: np.ndarray, face: tuple) -> tuple:
+    """S3FD, FAN and ReconNet state_dicts drawn from ``seed``, but for two
+    heads. S3FD's face score is a synthetic detector of ``frame``'s "face"
+    (the square ``face`` = (lo, hi) of the uint8 frame): its stride-4 face
+    logit is FACE_GAIN · û · (f − (μ_face + μ_rest) / 2), f the
+    L2-normalised conv3_3 feature at the anchor, μ the mean f over the face
+    and over the rest of the frame, û the unit vector along their
+    difference; every other conf weight is zero. So every frame detects, at
+    an anchor on its face, with a clear best anchor (a random head picks one
+    anywhere, often where the frame's zero padding meets a flat border).
+    ReconNet's zero-initialised heads get small weights, so that the
+    coefficients are not all zero."""
+    from moditalker_tpu_torch.preprocess.fan import FAN
+    from moditalker_tpu_torch.preprocess.recon_net import ReconNet
+    from moditalker_tpu_torch.preprocess.s3fd import S3FD, preprocess_frames
+
+    gen = torch.Generator().manual_seed(seed)
+    s3fd_net, fan_net, recon_net = S3FD(), FAN(num_modules=4), ReconNet()
+    for net in (s3fd_net, fan_net, recon_net):
+        _he_init(torch, net, gen)
+    with torch.inference_mode():
+        f3 = s3fd_net.features(preprocess_frames(
+            torch.from_numpy(frame[None])))["f3"][0]          # [256, h, w]
+    inside = torch.zeros(f3.shape[1:], dtype=torch.bool)
+    lo, hi = (v // 4 for v in face)                        # stride 4
+    inside[lo:hi, lo:hi] = True
+    mu_face, mu_rest = f3[:, inside].mean(dim=1), f3[:, ~inside].mean(dim=1)
+    u = (mu_face - mu_rest) / (mu_face - mu_rest).norm()
+    s3fd, fan, recon = (net.state_dict()
+                        for net in (s3fd_net, fan_net, recon_net))
+    for key in s3fd:
+        if "_mbox_conf" in key:
+            s3fd[key].zero_()
+    # [4, 256, 3, 3]: output 3 is the face logit (0-2 are maxed into the
+    # background), at the center tap
+    s3fd["conv3_3_norm_mbox_conf.weight"][3, :, 1, 1] = FACE_GAIN * u
+    s3fd["conv3_3_norm_mbox_conf.bias"][3] = -FACE_GAIN * float(
+        u @ (mu_face + mu_rest) / 2)
+    for key in recon:
+        if key.startswith("head_") and key.endswith("weight"):
+            recon[key].copy_(torch.randn(recon[key].shape, generator=gen)
+                             * 2e-3)
+    return s3fd, fan, recon
+
+
+def align_phase(torch, seed: int, lm68_atom: np.ndarray) -> dict:
+    """The alignment stack at full width in float32: nets and the fused
+    chunk on the card against the CPU, then ``align_sequence`` over 156
+    frames timed warm."""
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.preprocess import fused_align
+    from moditalker_tpu_torch.preprocess.drivers import build_detectors
+    from moditalker_tpu_torch.preprocess.motion_align import (HORIZON,
+                                                              MotionAligner)
+    from moditalker_tpu_torch.preprocess.s3fd import preprocess_frames
+
+    # driving frames: noise (the "face") in a central square on black,
+    # where a talking head sits
+    side, lo, hi = 512, 128, 384
+    rng = np.random.default_rng(seed)
+    frames = np.zeros((HORIZON, side, side, 3), np.uint8)
+    frames[:, lo:hi, lo:hi] = rng.integers(0, 256, (HORIZON, hi - lo,
+                                                    hi - lo, 3))
+    states = align_states(torch, seed, frames[0], (lo, hi))
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for name, state in zip(("s3fd", "fan", "recon"), states):
+            paths.append(os.path.join(tmp, f"{name}.pt"))
+            torch.save(state, paths[-1])
+        t0 = time.perf_counter()
+        landmark_fn, coeff_fn, lm3d_std, _, fused = build_detectors(
+            *paths, device="cuda")
+        log(f"align: build_detectors from state_dicts in "
+            f"{time.perf_counter() - t0:.2f} s")
+    cpu = fused_align.FusedAligner(*states, lm3d_std, device="cpu")
+
+    # the nets on the same inputs, then the fused chunk, card vs cpu
+    two = frames[:2]
+    errs = {}
+    with torch.inference_mode():
+        got_rows = fused.chunk_rows(two)
+        want_rows = cpu.chunk_rows(two)
+        maps = [m.cpu() for m in fused.s3fd(preprocess_frames(
+            torch.from_numpy(two).cuda()))]
+        errs["s3fd maps"] = max(rel_err(g, w) for g, w in zip(
+            maps, cpu.s3fd(preprocess_frames(torch.from_numpy(two)))))
+        got = fused_align.FusedAligner.unpack(got_rows.cpu().numpy())
+        want = fused_align.FusedAligner.unpack(want_rows.numpy())
+        crops = torch.round(fused_align._sample_bilinear(
+            torch.from_numpy(two).float(), *fused_align._crop256_coords(
+                torch.from_numpy(want["center"]).float(),
+                torch.from_numpy(want["scale"]).float(), side, side)))
+        crops = crops.clamp(0, 255) / 255.0
+        errs["fan heatmaps"] = rel_err(fused.fan(crops.cuda())[-1].cpu(),
+                                       cpu.fan(crops)[-1])
+        x224 = torch.from_numpy(rng.uniform(0, 1, (2, 224, 224, 3))).float()
+        errs["recon coefficients"] = rel_err(fused.recon(x224.cuda()).cpu(),
+                                             cpu.recon(x224))
+    if not (got["detected"].all() and want["detected"].all()):
+        raise AssertionError(f"align: not every frame detected: card "
+                             f"{got['detected']}, cpu {want['detected']}")
+    for k in ("boxes", "scores", "center", "scale"):
+        errs[k] = rel_err(got[k], want[k])
+    near = np.abs(got["lm68"] - want["lm68"]).max(axis=-1) < 1e-2
+    agree = near.all(axis=1)
+    for k in ("t", "s", "coeff"):
+        if agree.any():
+            errs[k] = rel_err(got[k][agree], want[k][agree])
+    log(f"align: card vs cpu in float32, max abs err over max |cpu|: "
+        f"{errs} (limit {ALIGN_LIMIT}); landmarks within 1e-2 px "
+        f"{int(near.sum())} of {near.size} (limit {ALIGN_POINTS_SHARE:.0%}),"
+        f" POS params and coefficients compared on {int(agree.sum())} of 2 "
+        f"frames")
+    if max(errs.values()) > ALIGN_LIMIT or near.mean() < ALIGN_POINTS_SHARE:
+        raise AssertionError("align: the card disagrees with the CPU")
+
+    aligner = MotionAligner(landmark_fn, coeff_fn, lm3d_std, fused=fused)
+    if not fused.process(frames)["detected"].all():
+        raise AssertionError("align: a frame missed its detection (the "
+                             "modular fallback needs PIL)")
+    for label in ("align_sequence (warm-up)", "align_sequence"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aligned = aligner.align_sequence(lm68_atom, frames)
+        dt = time.perf_counter() - t0
+    fps = HORIZON / dt
+    log(f"{label}: {HORIZON} frames of {side}×{side} in {dt:.3f} s = "
+        f"{fps:.2f} frames/s (chunks of {fused.chunk})")
+    traced = trace(torch, lambda: aligner.align_sequence(lm68_atom, frames))
+    log_trace("align_sequence", traced)
+    # one chunk's device time, whole and by net (the nets on inputs of the
+    # chunk's shapes)
+    chunk = frames[:fused.chunk]
+    dev = torch.from_numpy(chunk).cuda()
+    x256 = torch.rand((fused.chunk, 256, 256, 3), device="cuda")
+    x224 = torch.rand((fused.chunk, 224, 224, 3), device="cuda")
+    with torch.inference_mode():
+        net_ms = {
+            "chunk": device_ms(torch, lambda: fused.chunk_rows(chunk)),
+            "s3fd": device_ms(torch, lambda: fused.s3fd(
+                preprocess_frames(dev))),
+            "fan": device_ms(torch, lambda: fused.fan(x256)),
+            "recon": device_ms(torch, lambda: fused.recon(x224))}
+        net_flops = {
+            "s3fd": layer_flops(torch, fused.s3fd, lambda: fused.s3fd(
+                preprocess_frames(dev))),
+            "fan": layer_flops(torch, fused.fan, lambda: fused.fan(x256)),
+            "recon": layer_flops(torch, fused.recon,
+                                 lambda: fused.recon(x224))}
+    rates = {k: round(f / (net_ms[k] * 1e9), 2) for k, f in net_flops.items()}
+    chunk_bound_ms = sum(net_flops.values()) / H100_FP32_FLOPS * 1e3
+    log(f"align: device ms per chunk of {fused.chunk} frames: {net_ms}; "
+        f"TFLOP {({k: round(f / 1e12, 3) for k, f in net_flops.items()})}, "
+        f"TFLOP/s {rates}; the nets' bound {chunk_bound_ms:.1f} ms "
+        f"(operations, float32)")
+    if (aligned.shape != (HORIZON, 68, 2) or not np.isfinite(aligned).all()
+            or aligned.min() < 0 or aligned.max() > side - 1):
+        raise AssertionError(f"align: aligned landmarks {aligned.shape} "
+                             f"in [{aligned.min():.1f}, {aligned.max():.1f}]"
+                             f", want [{HORIZON}, 68, 2] inside the frame")
+    counts = check_launches("align", set())
+    log(f"align: aligned landmarks in [{aligned.min():.1f}, "
+        f"{aligned.max():.1f}] px; launches {counts}")
+    return {"launches": counts, "frames_per_s": fps,
+            "card_vs_cpu_rel_max_err": errs, "trace": traced,
+            "chunk_device_ms": net_ms, "chunk_tflop_per_s": rates,
+            "chunk_bound_ms": chunk_bound_ms}
+
+
 def profile_phase(torch, pipe, seed: int) -> dict:
     """Where a window's time goes: one UNet step at B = 2 and one AE extract
     and decode at B = 2, each timed on the host clock (after a warm-up, over
     3 runs, synchronised) and traced once with torch.profiler for the
     device's busy time, its kernel count and its top kernels."""
-    from torch.profiler import ProfilerActivity, profile
-
     g = torch.Generator(device="cuda").manual_seed(seed)
     cfg = pipe.ae_cfg
     b, L = 2, cfg.latent_len
@@ -712,7 +1135,6 @@ def profile_phase(torch, pipe, seed: int) -> dict:
         "extract": lambda: pipe.ae_rgb.extract(pipe._in(video)),
         "decode": lambda: pipe.ae_rgb.decode_from_sample(x),
     }
-    cuda = torch.autograd.DeviceType.CUDA
     result = {}
     with torch.inference_mode():
         for name, fn in parts.items():
@@ -723,18 +1145,10 @@ def profile_phase(torch, pipe, seed: int) -> dict:
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / 3 * 1e3
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                fn()
-                torch.cuda.synchronize()
-            kern = [e for e in prof.key_averages() if e.device_type == cuda]
-            busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
-            top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-            result[name] = {
-                "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-                "kernels": sum(e.count for e in kern),
-                "top": [(e.key[:60], e.self_device_time_total / 1e3)
-                        for e in top]}
+            traced = trace(torch, fn)
+            result[name] = {"wall_ms": wall_ms, **{
+                k: traced[k] for k in ("device_busy_ms", "kernels", "top")}}
+            busy_ms = traced["device_busy_ms"]
             log(f"profile {name} at B={b}: wall {wall_ms:.2f} ms, device "
                 f"busy {busy_ms:.2f} ms, {result[name]['kernels']} kernels; "
                 f"top {result[name]['top']}")
@@ -792,12 +1206,16 @@ def main() -> int:
     result = main_path_phase(torch, args.seed)
     cli_result = cli_phase(torch, args.seed)
     atom = atom_phase(torch, args.seed)
+    audio = audio_phase(torch, args.seed)
+    align = align_phase(torch, args.seed, audio.pop("lm68_atom"))
     prof = profile_phase(torch, result.pop("pipe"), args.seed)
 
     timed = {path: counts for path, counts in result["launches"].items()
              if "warm-up" not in path}
     timed["cli sample"] = cli_result["launches"]
     timed["atom run_directory"] = atom["launches"]
+    timed["audio"] = audio["launches"]
+    timed["align"] = align["launches"]
     # one line entry per kernel: its first row, the shape its main path
     # gives it; the rows at its other shapes go under "other_shapes"
     kernels = {}
@@ -825,6 +1243,16 @@ def main() -> int:
         "atom_sequences_per_s": atom["sequences_per_s"],
         "atom_card_vs_cpu_rel_max_err": atom["card_vs_cpu_rel_max_err"],
         "cli_sample_seconds_with_build": cli_result["seconds_with_build"],
+        "audio_seconds_per_s": audio["audio_s_per_s"],
+        "audio_card_vs_cpu_rel_max_err": audio["card_vs_cpu_rel_max_err"],
+        "align_frames_per_s": align["frames_per_s"],
+        "align_card_vs_cpu_rel_max_err": align["card_vs_cpu_rel_max_err"],
+        "align_chunk_device_ms": align["chunk_device_ms"],
+        "align_chunk_tflop_per_s": align["chunk_tflop_per_s"],
+        "align_chunk_bound_ms": align["chunk_bound_ms"],
+        "audio_tflop": audio["tflop"], "audio_bound_ms": audio["bound_ms"],
+        "audio_clip_device_ms": audio["clip_device_ms"],
+        "audio_trace": audio["trace"], "align_trace": align["trace"],
         "card": card, "profile": prof}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -1,20 +1,30 @@
-"""Command-line interface of the PyTorch port (port of the ``sample`` and
-``atom-infer`` commands of ``moditalker_tpu/cli.py``):
+"""Command-line interface of the PyTorch port (port of the inference and
+preprocessing commands of ``moditalker_tpu/cli.py``):
 
-  reference                | here
-  ---------------------------------------------------------
-  MToV/sample.py           | sample
-  MToV/sample_crossID.py   | sample --cross-id
-  AToM/inference.py        | atom-infer
+  reference                                   | here
+  --------------------------------------------------------------------
+  MToV/sample.py                              | sample
+  MToV/sample_crossID.py                      | sample --cross-id
+  AToM/inference.py                           | atom-infer
+  data_utils/preprocess/process_audio.py      | process-audio
+  data_utils/motion_align/align_face_recon.py | align-motion
+  preprocess/process_video_3dmm_rollback_     | extract-keypoints
+    hdtf_batchify.py                          |
 
-    python -m moditalker_tpu_torch.cli sample --frames-dir ... --aligned-dir ...
+    python -m moditalker_tpu_torch.cli process-audio --audio a.wav --out h.npy
     python -m moditalker_tpu_torch.cli atom-infer --keypoint-dir ... --hubert ...
+    python -m moditalker_tpu_torch.cli align-motion --frontalized-dir ... \
+        --frames-dir ... --out-dir ...
+    python -m moditalker_tpu_torch.cli sample --frames-dir ... --aligned-dir ...
 
-Both run on the card unless ``--device cpu`` is given. Checkpoints are
+Each runs on the card unless ``--device cpu`` is given. Checkpoints are
 ``state_dict``s of the port's modules saved with ``torch.save``
 (``utils/convert.py`` makes them from the JAX package's parameters); without
-a checkpoint the weights are drawn from ``--seed`` and a WARNING is printed.
-The flags are the JAX package's, minus ``--data-parallel`` (one card).
+a checkpoint ``sample``, ``atom-infer`` and ``process-audio`` draw the
+weights from ``--seed`` and print a WARNING (the JAX package's
+``process-audio`` downloads HuBERT instead). The flags are the JAX
+package's, minus ``--data-parallel`` (one card), plus ``--device`` (and
+``--seed`` for ``process-audio``).
 """
 
 from __future__ import annotations
@@ -36,12 +46,16 @@ def _cfg(args):
     return load_config(args.config) if args.config else Config()
 
 
-def _seeded_state(init_fn, seed: int):
-    """The ``state_dict`` of ``init_fn()`` with its weights drawn from
-    ``seed``; the caller's random state is left as it was."""
+def _seeded_module(init_fn, seed: int):
+    """``init_fn()`` with its weights drawn from ``seed``; the caller's
+    random state is left as it was."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        return init_fn().state_dict()
+        return init_fn()
+
+
+def _seeded_state(init_fn, seed: int):
+    return _seeded_module(init_fn, seed).state_dict()
 
 
 def _load_state(path: str | None, init_fn, what: str, seed: int):
@@ -84,6 +98,96 @@ def cmd_atom_infer(args):
                                batch=args.batch)
     for n, p in paths.items():
         print(f"{n}: {p}")
+
+
+# --------------------------------------------------------------- process-audio
+def _read_wav(path: str) -> np.ndarray:
+    """Mono float32 waveform from a wav file, channels averaged. soundfile
+    when present, stdlib ``wave`` otherwise."""
+    try:
+        import soundfile as sf  # type: ignore
+
+        speech, _ = sf.read(path)
+    except ImportError:
+        import wave
+
+        with wave.open(path, "rb") as w:
+            n, width = w.getnframes(), w.getsampwidth()
+            raw = w.readframes(n)
+            dt = {1: np.uint8, 2: np.int16, 4: np.int32}[width]
+            speech = np.frombuffer(raw, dt).astype(np.float32)
+            if width == 1:
+                speech = (speech - 128.0) / 128.0
+            else:
+                speech = speech / float(np.iinfo(dt).max)
+            if w.getnchannels() > 1:
+                speech = speech.reshape(-1, w.getnchannels())
+    if speech.ndim > 1:
+        speech = speech.mean(axis=1)
+    return speech.astype(np.float32)
+
+
+def cmd_process_audio(args):
+    from .preprocess import hubert
+    from .preprocess.audio import (extract_hubert_features,
+                                   ffmpeg_resample_to_16k, hubert_forward,
+                                   normalize_like_wav2vec2)
+
+    wav16 = args.audio
+    if args.resample:
+        wav16 = ffmpeg_resample_to_16k(args.audio, args.audio + ".16k.wav")
+    speech = _read_wav(wav16)
+    cfg = hubert.HubertConfig()
+    if args.hubert_ckpt:
+        model = hubert.HubertEncoder(cfg)
+        model.load_state_dict(torch.load(args.hubert_ckpt, map_location="cpu",
+                                         weights_only=True))
+    else:
+        print("WARNING: random weights (hubert)", file=sys.stderr)
+        model = _seeded_module(lambda: hubert.HubertEncoder(cfg), args.seed)
+    model_fn = hubert_forward(model, args.device)
+    feats = extract_hubert_features(normalize_like_wav2vec2(speech), model_fn)
+    np.save(args.out, feats)
+    print(f"saved {args.out} {feats.shape}")
+
+
+# ------------------------------------------------- align-motion, keypoints
+def _build_detectors(args):
+    from .preprocess.drivers import build_detectors
+
+    return build_detectors(args.s3fd_ckpt, args.fan_ckpt, args.recon_ckpt,
+                           args.bfm_dir, synthetic=args.synthetic_detectors,
+                           device=args.device)
+
+
+def cmd_align_motion(args):
+    """AToM→MToV glue (ref align_face_recon.py:240-348)."""
+    from .preprocess.drivers import align_motion_corpus
+
+    landmark_fn, coeff_fn, lm3d_std, _, fused = _build_detectors(args)
+    written = align_motion_corpus(
+        args.frontalized_dir, args.frames_dir, args.out_dir,
+        landmark_fn, coeff_fn, lm3d_std,
+        process_id=args.process_id, total_processes=args.total,
+        resume=not args.no_resume, fused=fused)
+    total = sum(written.values())
+    print(f"aligned {total} frames across {len(written)} identities "
+          f"→ {os.path.join(args.out_dir, 'aligned_npy')}")
+
+
+def cmd_extract_keypoints(args):
+    """Training-data keypoint trees (ref batchify.py:253-321)."""
+    from .preprocess.drivers import extract_keypoints_corpus
+
+    landmark_fn, coeff_fn, lm3d_std, helper, _ = _build_detectors(args)
+    written = extract_keypoints_corpus(
+        args.frames_dir, args.out_dir, landmark_fn, coeff_fn, helper,
+        lm3d_std, batch_size=args.batch_size or 16,
+        process_id=args.process_id, total_processes=args.total,
+        resume=not args.no_resume)
+    total = sum(written.values())
+    print(f"extracted keypoints for {total} frames across "
+          f"{len(written)} identities → {args.out_dir}")
 
 
 # ------------------------------------------------------------------ sample
@@ -207,6 +311,37 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--device", default="cuda",
                        help="'cuda' (default; fails without a card) or 'cpu'")
 
+    def detector_args(p):
+        p.add_argument("--s3fd-ckpt", default=None,
+                       help="the port's S3FD state_dict (torch.save)")
+        p.add_argument("--fan-ckpt", default=None,
+                       help="the port's FAN state_dict (torch.save)")
+        p.add_argument("--recon-ckpt", default=None,
+                       help="the port's ReconNet state_dict (torch.save)")
+        p.add_argument("--bfm-dir", default=None,
+                       help="BFM asset dir (similarity_Lm3D_all.mat etc.)")
+        p.add_argument("--synthetic-detectors", action="store_true",
+                       help="deterministic stand-in detectors (no "
+                            "checkpoints; plumbing smoke runs)")
+        p.add_argument("--process-id", type=int, default=0)
+        p.add_argument("--total", type=int, default=1,
+                       help="total processes striping the corpus "
+                            "(ref batchify.py:282-288)")
+        p.add_argument("--no-resume", action="store_true")
+        device_flag(p)
+
+    p = sub.add_parser("process-audio")
+    p.add_argument("--audio", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--resample", action="store_true",
+                   help="resample to 16 kHz with ffmpeg first")
+    p.add_argument("--hubert-ckpt", default=None,
+                   help="the port's HubertEncoder state_dict (torch.save); "
+                        "default: random weights from --seed")
+    p.add_argument("--seed", type=int, default=0)
+    device_flag(p)
+    p.set_defaults(fn=cmd_process_audio)
+
     p = sub.add_parser("atom-infer")
     p.add_argument("--config", type=str, default=None)
     p.add_argument("--checkpoint", default=None)
@@ -261,6 +396,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     device_flag(p)
     p.set_defaults(fn=cmd_sample)
+
+    p = sub.add_parser("align-motion",
+                       help="AToM frontalized landmarks → pose-matched "
+                            "aligned_npy for MToV")
+    p.add_argument("--frontalized-dir", required=True,
+                   help="frontalized_npy root (atom-infer output)")
+    p.add_argument("--frames-dir", required=True,
+                   help="pose-driving frames root ({id}/*.jpg)")
+    p.add_argument("--out-dir", required=True)
+    detector_args(p)
+    p.set_defaults(fn=cmd_align_motion)
+
+    p = sub.add_parser("extract-keypoints",
+                       help="training keypoint-set trees from a frame corpus")
+    p.add_argument("--frames-dir", required=True,
+                   help="frames root ({id}/*.jpg)")
+    p.add_argument("--out-dir", required=True)
+    p.add_argument("--batch-size", type=int, default=16)
+    detector_args(p)
+    p.set_defaults(fn=cmd_extract_keypoints)
     return ap
 
 

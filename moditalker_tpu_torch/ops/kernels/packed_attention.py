@@ -54,16 +54,20 @@ def packed_attention_reference(qkv, heads: int, scale: float,
 
 
 def packed_attention_viable(l: int, c: int, heads: int) -> bool:
-    """Shape gate (packed_attention.py:151-164): dh = 16, 1024 <= L <= 4096,
+    """Shape gate (packed_attention.py:151-164): dh = 16, MIN_L <= L <= 4096,
     and K+V of one sequence within 4 MB. (The JAX gate also asks for a query
     block of its TPU kernel; with dh = 16 and the 4 MB bound that exists
-    whenever L % 8 == 0.) ``MODITALKER_NO_PACKED_ATTN``, read at call time as
-    the JAX gate reads it, closes the gate: the head-split attention then
-    goes through ``sdpa`` (one-pass kernel at dh = 16)."""
+    whenever L % 8 == 0.) Both switches are read at call time, as the JAX
+    gate reads them: ``MODITALKER_PACKED_MIN_L`` (default 1024) moves the
+    floor of L (512 admits the ds = 1 ytxt attention [2B, 512, 128]; the
+    kernel takes any L), and ``MODITALKER_NO_PACKED_ATTN`` closes the gate:
+    the head-split attention then goes through ``sdpa`` (one-pass kernel at
+    dh = 16)."""
     if os.environ.get("MODITALKER_NO_PACKED_ATTN"):
         return False
+    min_l = int(os.environ.get("MODITALKER_PACKED_MIN_L", "1024"))
     return (c % _LANES == 0 and c % heads == 0 and c // heads == 16
-            and 1024 <= l <= 4096 and l % 8 == 0
+            and min_l <= l <= 4096 and l % 8 == 0
             and l * c * 2 * 2 <= 4 * 1024 * 1024)
 
 

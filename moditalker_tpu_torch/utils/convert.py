@@ -1,15 +1,26 @@
 """JAX-package parameters → the port's ``state_dict``.
 
-Takes the parameter pytree of ``moditalker_tpu``'s ``ViTAutoencoder``,
-``TriplaneUNet`` or AToM ``MotionDecoder`` as nested dicts of numpy arrays (for example
-``jax.tree_util.tree_map(np.asarray, params)``) and returns the
+Takes the variables of ``moditalker_tpu``'s ``ViTAutoencoder``,
+``TriplaneUNet``, AToM ``MotionDecoder``, ``HubertEncoder``, ``S3FD``,
+``FAN`` or ``ReconNet`` as nested dicts of numpy arrays (for example
+``jax.tree_util.tree_map(np.asarray, variables)``) and returns the
 ``state_dict`` of the port's module of the same name. No JAX is needed.
 
   * Dense kernel [in, out]       → Linear weight [out, in]
   * Conv kernel HWIO             → Conv2d weight OIHW
+  * Conv1D kernel [k, I/g, O]    → Conv1d weight [O, I/g, k]
   * PatchToPixel kernel [p,p,o,c] → ConvTranspose2d layout [c, o, p, p]
     (the same axis permutation as HWIO → OIHW)
-  * LayerNorm/GroupNorm ``scale`` → ``weight``
+  * LayerNorm/GroupNorm/BatchNorm ``scale`` → ``weight``
+  * BatchNorm ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` /
+    ``running_var``, beside a ``num_batches_tracked`` of 0 (eval mode
+    never reads it; torch's ``state_dict`` carries it)
+
+The reference networks' own torch checkpoints (transformers' HuBERT,
+face_alignment's S3FD and FAN, Deep3DFaceRecon's ResNet-50) reach the port
+in two steps: ``preprocess/<net>.py::convert_<net>`` turns such a
+``state_dict`` into the JAX package's tree, and the entry here turns that
+tree into the port's ``state_dict``.
 
 The packed qkv keeps the JAX layout, q|k|v-major with heads contiguous
 inside each third: it is the layout the kernels read.
@@ -53,6 +64,8 @@ def _leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     if name == "kernel":
         if value.ndim == 2:
             return "weight", value.T
+        if value.ndim == 3:
+            return "weight", value.transpose(2, 1, 0)
         if value.ndim == 4:
             return "weight", value.transpose(3, 2, 0, 1)
         raise ValueError(f"unexpected kernel rank {value.ndim}")
@@ -61,24 +74,32 @@ def _leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
     return name, value
 
 
-def _convert(params: dict) -> dict[str, torch.Tensor]:
-    params = params.get("params", params)
+_STATS = {"mean": "running_mean", "var": "running_var"}
+
+
+def _convert(variables: dict) -> dict[str, torch.Tensor]:
+    params = variables.get("params", variables)
     state: dict[str, torch.Tensor] = {}
 
-    def walk(tree, path):
+    def walk(tree, path, leaf_fn):
         for key, val in tree.items():
             if isinstance(val, dict):
-                walk(val, path + [key])
+                walk(val, path + [key], leaf_fn)
                 continue
             val = np.asarray(val, dtype=np.float32)
             if path:
-                leaf, val = _leaf(key, val)
+                leaf, val = leaf_fn(key, val)
                 name = ".".join(_module_path(path) + [leaf])
             else:  # top-level parameters (plane tokens, positional tables)
                 name = key
             state[name] = torch.tensor(val)
 
-    walk(params, [])
+    walk(params, [], _leaf)
+    walk(variables.get("batch_stats", {}), [],
+         lambda key, val: (_STATS[key], val))
+    for name in [n for n in state if n.endswith(".running_mean")]:
+        module = name[:-len(".running_mean")]
+        state[f"{module}.num_batches_tracked"] = torch.tensor(0)
     return state
 
 
@@ -99,3 +120,28 @@ def convert_atom_params(flax_params: dict) -> dict[str, torch.Tensor]:
     state_dict. The three null embeddings are top-level parameters and keep
     their names and shapes."""
     return _convert(flax_params)
+
+
+def convert_hubert_params(flax_params: dict) -> dict[str, torch.Tensor]:
+    """``HubertEncoder`` parameters → the port's ``HubertEncoder``
+    state_dict (the 1-D conv kernels of the feature extractor and the
+    grouped positional conv become Conv1d weights)."""
+    return _convert(flax_params)
+
+
+def convert_s3fd_params(flax_params: dict) -> dict[str, torch.Tensor]:
+    """``S3FD`` parameters → the port's ``S3FD`` state_dict; the L2Norm
+    scales keep the name ``weight``."""
+    return _convert(flax_params)
+
+
+def convert_fan_params(flax_variables: dict) -> dict[str, torch.Tensor]:
+    """``FAN`` variables (``params`` and ``batch_stats``) → the port's
+    ``FAN`` state_dict, running statistics included."""
+    return _convert(flax_variables)
+
+
+def convert_recon_params(flax_variables: dict) -> dict[str, torch.Tensor]:
+    """``ReconNet`` variables (``params`` and ``batch_stats``) → the port's
+    ``ReconNet`` state_dict, running statistics included."""
+    return _convert(flax_variables)

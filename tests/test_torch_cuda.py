@@ -12,7 +12,8 @@ and rms. The shapes are those the kernels are built for, at the main
 path's sizes and smaller (the divided kernels also at B = 1 and the space
 kernel at the gate's edges and on both sides of the resident-K limit), with
 a ragged tile for the packed and the fused kernel and a last block that is
-not full for the tiny-L and the time kernel. The packed and the one-pass
+not full for the tiny-L and the time kernel; the packed kernel also at
+L = 512, where ``MODITALKER_PACKED_MIN_L`` lowers its gate. The packed and the one-pass
 kernel are held on both sides of every choice their launchers make: 256, 128
 and 64 query rows per block (B = 2 and B = 1 at L = 2048 and 1024, a large
 batch), whole and ragged last tiles, and at D = 64 resident K (N = 1024) and
@@ -99,6 +100,19 @@ def test_time_kernel_partial_last_block(gen, b, n, heads):
                                  (5, 1160)])
 def test_packed_kernel_matches_plain(gen, b, l):
     x = _randn(gen, b, l, 384)
+    got = _launched("packed_attention",
+                    lambda: tpack.packed_attention(x, 8, 0.25))
+    want = tpack.packed_attention_reference(x, 8, 0.25)
+    check_bf16("packed_attention", got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4, 1])
+def test_packed_kernel_below_the_default_floor(gen, monkeypatch, b):
+    """``MODITALKER_PACKED_MIN_L=512`` admits the ds = 1 ytxt attention
+    [2B, 512, 128] × 8 heads; the small-head tile takes any L."""
+    monkeypatch.setenv("MODITALKER_PACKED_MIN_L", "512")
+    x = _randn(gen, b, 512, 384)
     got = _launched("packed_attention",
                     lambda: tpack.packed_attention(x, 8, 0.25))
     want = tpack.packed_attention_reference(x, 8, 0.25)

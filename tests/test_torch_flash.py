@@ -179,6 +179,33 @@ def test_switches_flip_the_gates_as_in_jax(monkeypatch, value):
         monkeypatch.delenv(switch, raising=False)
 
 
+@pytest.mark.parametrize("min_l", [None, "512", "2048"])
+def test_packed_min_l_routes_as_in_jax(monkeypatch, min_l):
+    """``MODITALKER_PACKED_MIN_L``, read at call time, moves the packed
+    gate's floor of L in both packages alike: at 512 the ds = 1 ytxt
+    attention [2B, 512, 128] × 8 heads goes to the packed kernel's path
+    (its plain version on the CPU), elsewhere head-split through ``sdpa``."""
+    for name in ("MODITALKER_NO_PACKED_ATTN", "MODITALKER_NO_FLASH_ATTN",
+                 "MODITALKER_PACKED_MIN_L"):
+        monkeypatch.delenv(name, raising=False)
+    if min_l is not None:
+        monkeypatch.setenv("MODITALKER_PACKED_MIN_L", min_l)
+    routes = []
+    plain = tpack.packed_attention_reference
+    monkeypatch.setattr(tpack, "packed_attention_reference",
+                        lambda *a, use_flash=False: routes.append(
+                            not use_flash) or plain(*a, use_flash=use_flash))
+    shapes = PACKED + [(512, 128, 8), (504, 128, 8), (256, 128, 8)]
+    want = [jpack.packed_attention_viable(*a) for a in shapes]
+    assert [tpack.packed_attention_viable(*a) for a in shapes] == want
+    for l, c, heads in shapes:
+        qkv = torch.zeros(2, l, 3 * c)
+        tpack.packed_attention(qkv, heads, 0.25)
+    assert routes == want
+    assert want[-3] == (min_l == "512")
+    assert want[0] == (min_l != "2048")
+
+
 @pytest.mark.parametrize("axis", ["space", "time"])
 def test_modular_divided_attention_matches_fused(monkeypatch, axis):
     """With the switch set, divided attention goes head-split through

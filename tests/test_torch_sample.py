@@ -230,8 +230,22 @@ def test_port_imports_no_jax():
     for p in _port_sources():
         parts = p.relative_to(REPO).with_suffix("").parts
         mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
-    code = ("import importlib, sys\n"
+    # and the commands: each one parses, and the preprocessing commands run
+    # on an empty corpus (their lazy imports included)
+    code = ("import importlib, sys, tempfile\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            "from moditalker_tpu_torch import cli\n"
+            "ap = cli.build_parser()\n"
+            "for argv in (['process-audio', '--audio', 'a.wav', '--out', "
+            "'h.npy'], ['atom-infer', '--keypoint-dir', 'k', '--hubert', "
+            "'h.npy'], ['sample', '--frames-dir', 'f', '--aligned-dir', "
+            "'a']):\n"
+            "    ap.parse_args(argv)\n"
+            "d = tempfile.mkdtemp()\n"
+            "cli.main(['align-motion', '--frontalized-dir', d, "
+            "'--frames-dir', d, '--out-dir', d, '--synthetic-detectors'])\n"
+            "cli.main(['extract-keypoints', '--frames-dir', d, '--out-dir', "
+            "d, '--synthetic-detectors'])\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{banned!r}]\n"
             "assert not bad, bad\n")
