@@ -11,7 +11,12 @@ Phases, each of which must pass (any failure exits nonzero, and the final
 2. kernels — each of the six hand-written kernels against its plain PyTorch
              version at the shapes the paths give it, in bf16 (max and rms
              error, relative to the plain output's, within the kernel's
-             ``BF16_LIMITS``), timed on the device (20 calls replayed from
+             ``BF16_LIMITS``, and the 0.999 quantile of the error over the
+             plain output's max within ``QUANTILE_LIMITS``; the space, time,
+             packed and one-pass kernels also in float32 at
+             train-diffusion's shapes, through the cast passes of
+             ``ops/kernels/convert.py``, whose share each such row gives; the
+             256-channel UNet's one-pass shapes), timed on the device (20 calls replayed from
              a CUDA graph between two events, the median of five replays:
              no host time in it) beside the plain
              version, one PyTorch library call computing the same attention
@@ -30,6 +35,10 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              against one whole and one short 128-key tile through its own
              op ``fused_attention`` (``sdpa_fused`` sends fewer than 256 keys
              to ``sdpa``);
+   gradients — each differentiable wrapper's input gradient (its
+             ``autograd.Function``) against autograd through the plain
+             version in float32 (within GRAD_LIMIT), its ``grad_fn``, and
+             the peak memory of the recomputing backward;
 3. reference — one DDIM-2 window at a small depth but full spatial size (so
              every kernel gate passes) on the card in bf16 against the same
              weights and draws on the CPU in float32 through the plain path,
@@ -82,7 +91,21 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              256² on black) and the landmarks of the audio phase, timed
              warm: frames per second, aligned landmarks [156, 68, 2],
              finite, inside the frame. No launch;
-9. profile — one UNet step, one extract and one decode at B = 2: host
+9. train-diffusion — ``LatentDiffusionLoop.fit`` at full width, B = 10,
+             float32 (TF32 off), synthetic videos, AE and UNet weights from
+             ``--seed``: one untimed step, 5 timed (steps/s, clips/s, peak
+             memory, launches by kernel and shape: the divided space and
+             time, packed and one-pass kernels and no other), finite losses,
+             one step traced; then a step at small depth but full spatial
+             size on the card against the CPU (same weights, batch and
+             draws) within TRAIN_LIMITS, and the same step with the gradient
+             cut at the attentions, which must fall outside them;
+10. train-atom — ``AtomTrainer.fit`` at full width, batch 64, float32:
+             one untimed step, 5 timed (sequences/s), one traced, no
+             launch; three steps at batch 8 on the card against the CPU
+             (losses within ATOM_LIMIT, parameters within ATOM_PARAM_LIMIT
+             but at ill-conditioned Adan elements, which are counted);
+11. profile — one UNet step, one extract and one decode at B = 2: host
              time, the device's busy time and top kernels (torch.profiler).
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
@@ -157,6 +180,39 @@ BEFORE_REDESIGN_MS = {
     ("onepass_attention", (16, 2048, 16)): 0.0538,
     ("onepass_attention", (16, 1024, 16)): 0.0224,
 }
+
+# train-diffusion's batch (MtovTrainConfig.diffusion_batch_size): the float32
+# rows of the kernels phase are at the shapes it gives the kernels
+TRAIN_BATCH = 10
+
+# a kernel wrapper's input gradient on the card (its autograd.Function: the
+# kernel forward, the plain version recomputed backward) against autograd
+# through the plain version, float32, TF32 off: max abs difference over max
+# |plain gradient|. The packed and divided backwards are the plain version's
+# own vjp (they read 0), the one-pass and tiny-L ones the JAX package's
+# adjoints, which sum in another order (one-pass at [80, 2048, 32] reads
+# 1.57e-6 to 2.12e-6 over --seed 0..3 on an H100)
+GRAD_LIMIT = 5e-6
+
+# one train-diffusion step at a small depth (float32, TF32 off) on the card
+# against the CPU: relative errors of the loss, and of the UNet's gradient
+# and update over all its parameters (L2 of the difference over L2 of the
+# CPU's). The card's attentions run bf16 operands with fp32 accumulators,
+# the CPU's float32 throughout. AdamW's first step moves each element by
+# about lr in the direction of its gradient's sign, so the update's error
+# counts the signs rounding flips. About twice the readings on an H100
+# (1.19e-5, 3.36e-4, 2.41e-2); the same step with the gradient cut at the
+# attentions reads 0.725 and 1.06 on the gradient and the update, and must
+# exceed these.
+TRAIN_LIMITS = {"loss": 3e-5, "grad": 1e-3, "update": 5e-2}
+
+# AToM training card vs CPU (float32, TF32 off): the largest relative error
+# of a step's loss terms is held to ATOM_LIMIT, every parameter to
+# ATOM_PARAM_LIMIT (DESIGN.md §6's AToM tolerance) but at ill-conditioned
+# Adan elements: sqrt(n̂) below ADAN_ILL, or a step above ADAN_BIG·lr
+ATOM_PARAM_LIMIT = 2e-4
+ADAN_ILL = 1e-4
+ADAN_BIG = 25
 
 H100_BF16_FLOPS = 989e12
 H100_FP32_FLOPS = 67e12     # float32 outside the tensor cores (TF32 is off)
@@ -264,7 +320,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     import torch.nn.functional as F
 
     from moditalker_tpu_torch.ops import attention, rotary
-    from moditalker_tpu_torch.ops.kernels import BF16_LIMITS, check_bf16
+    from moditalker_tpu_torch.ops.kernels import (BF16_LIMITS, QUANTILE,
+                                                  QUANTILE_LIMITS, check_bf16)
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
     from moditalker_tpu_torch.ops.kernels import packed_attention as pk
@@ -277,9 +334,13 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
 
     def errors(name, kern, plain):
         out, want = kern(), plain()
-        rel_max, rel_rms = check_bf16(name, out, want)
+        if out.dtype != want.dtype:
+            raise AssertionError(f"{name}: {out.dtype} out of a "
+                                 f"{want.dtype} input")
+        rel_max, rel_rms, rel_q = check_bf16(name, out, want)
         return dict(max_abs_err=(out.float() - want.float()).abs().max().item(),
-                    rel_max_err=rel_max, rel_rms_err=rel_rms)
+                    rel_max_err=rel_max, rel_rms_err=rel_rms, rel_q_err=rel_q,
+                    dtype=str(out.dtype).replace("torch.", ""))
 
     def library_sdpa(q, k, v, sc):
         """The yardstick on [B, N, D]: with a head axis of one, since the
@@ -301,7 +362,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         else:
             q, k, v = (t.permute(0, 2, 3, 1, 4).reshape(b_ * n_, heads, f_, dh)
                        for t in (q, k, v))
-        q, k = rotary.apply_rot_emb(q, k, sin.bfloat16(), cos.bfloat16())
+        q, k = rotary.apply_rot_emb(q, k, sin.to(qkv.dtype), cos.to(qkv.dtype))
         return q.contiguous(), k.contiguous(), v.contiguous()
 
     rows = []
@@ -311,7 +372,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # their own, so the main-path rows see the inputs they always saw
     gen_more = torch.Generator(device=dev).manual_seed(seed + 1)
 
-    def divided_row(axis, b_, f_, n_, g=gen_more):
+    def divided_row(axis, b_, f_, n_, g=gen_more, dtype=torch.bfloat16):
         if axis == "space":
             sin, cos = tables(rotary.axial_rotary_sincos(32, n_ // 32, dh)
                               if n_ >= 1024 else
@@ -319,7 +380,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         else:
             sin, cos = t_sin, t_cos
         qkv = torch.randn((b_, f_, n_, 3 * hd), generator=g,
-                          device=dev).bfloat16()
+                          device=dev).to(dtype)
+        size = qkv.element_size()
         kern = lambda: dv.divided_attention(qkv, sin, cos, axis, heads, dh,
                                             scale)
         plain = lambda: dv.divided_attention_reference(
@@ -330,7 +392,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
         seq = n_ if axis == "space" else f_
         nseq = b_ * f_ * n_ // seq
-        nbytes = qkv.numel() * 2 + b_ * f_ * n_ * hd * 2 + 2 * sin.numel() * 4
+        nbytes = (qkv.numel() + b_ * f_ * n_ * hd) * size + 2 * sin.numel() * 4
         flops = 4.0 * nseq * heads * seq * seq * dh
         return dict(
             name=name, route="cuda",
@@ -357,8 +419,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
 
     c, l = 128, 2048                        # UNet joint attention at ds = 1
 
-    def packed_row(b_, l_, g=gen_more):
-        qkv = torch.randn((b_, l_, 3 * c), generator=g, device=dev).bfloat16()
+    def packed_row(b_, l_, g=gen_more, dtype=torch.bfloat16):
+        qkv = torch.randn((b_, l_, 3 * c), generator=g, device=dev).to(dtype)
         sc = (c // heads) ** -0.5
         kern = lambda: pk.packed_attention(qkv, heads, sc)
         plain = lambda: pk.packed_attention_reference(qkv, heads, sc)
@@ -373,7 +435,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             shape=list(qkv.shape), **err,
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             library_ms=time_ms(torch, lib),
-            nbytes=qkv.numel() * 2 + b_ * l_ * c * 2,
+            nbytes=(qkv.numel() + b_ * l_ * c) * qkv.element_size(),
             flops=4.0 * b_ * heads * l_ * l_ * (c // heads),
             scores=b_ * heads * l_ * l_)
 
@@ -396,19 +458,19 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             shape=[list(q.shape), list(k.shape)], **errors(name, kern, plain),
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             library_ms=time_ms(torch, lib),
-            nbytes=2 * (2 * q.numel() + 2 * k.numel()),
+            nbytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
             flops=4.0 * b_ * nq_ * k.shape[1] * d_,
             scores=b_ * nq_ * k.shape[1])
 
-    def randn(*shape, g=gen):
-        return torch.randn(shape, generator=g, device=dev).bfloat16()
+    def randn(*shape, g=gen, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     # one-pass: the UNet joint attention right after the last upsample
     # (C = 256, 8 heads → [B·8, 2048, 32]); then the modular path's shapes:
     # TimeSformer space attention, the UNet's dh = 16 joint and xy-plane
     # attentions; then sample_long's B = 1
-    def onepass_row(b_, n_, d_, g=gen):
-        q, k, v = (randn(b_, n_, d_, g=g) for _ in range(3))
+    def onepass_row(b_, n_, d_, g=gen, dtype=torch.bfloat16):
+        q, k, v = (randn(b_, n_, d_, g=g, dtype=dtype) for _ in range(3))
         return sdpa_row(
             "onepass_attention", 104, "flash_attention",
             lambda: fa.onepass_attention(q, k, v, d_**-0.5),
@@ -457,6 +519,43 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             lambda: fa.fused_attention_reference(q, k, v, scale),
             q, k, v, scale))
 
+    # the 256-channel UNet's one-pass shapes at B = 2 (bf16, inference): the
+    # ds = 1 attentions at dh = 32 and the joint attention after the last
+    # upsample at C = 512 (the wgmma tile's K ring without the rotary)
+    gen_b2 = torch.Generator(device=dev).manual_seed(seed + 2)
+    rows += [onepass_row(16, 1024, 32, g=gen_b2),
+             onepass_row(16, 2048, 64, g=gen_b2)]
+    # float32 in and out, at the shapes train-diffusion gives the kernels at
+    # B = diffusion_batch_size: the frozen AEs' extract and the UNet's
+    # packed and one-pass attentions. bf16 operands through the cast passes
+    # of convert.py, whose time counts in the row; held to the same limits
+    # against the float32 plain version
+    gen_f32 = torch.Generator(device=dev).manual_seed(seed + 3)
+    tb = TRAIN_BATCH
+    rows += [divided_row("space", tb, f, n, g=gen_f32, dtype=torch.float32),
+             divided_row("time", tb, f, n, g=gen_f32, dtype=torch.float32),
+             packed_row(tb, l, g=gen_f32, dtype=torch.float32),
+             packed_row(tb, 1024, g=gen_f32, dtype=torch.float32),
+             onepass_row(tb * heads, l, 32, g=gen_f32, dtype=torch.float32)]
+
+    # the cast passes' share of each float32 row: the time of convert.py's
+    # two passes alone on tensors of the row's input and output sizes
+    from moditalker_tpu_torch.ops.kernels import convert
+
+    for row in rows:
+        if row["dtype"] != "float32":
+            continue
+        shapes = ([row["shape"][0], row["shape"][1], row["shape"][1]]
+                  if isinstance(row["shape"][0], list) else [row["shape"]])
+        ins = [torch.randn(sh, device=dev) for sh in shapes]
+        out_numel = (int(np.prod(shapes[0])) if len(shapes) == 3
+                     else int(np.prod(shapes[0])) // 3)
+        out = torch.empty(out_numel, dtype=torch.bfloat16, device=dev)
+        row["cast_ms"] = (
+            time_ms(torch, lambda: [convert.to_bf16(t) for t in ins])
+            + time_ms(torch, lambda: convert.to_float32(out)))
+        del ins, out
+
     # the softmax floor: one ex2 per score at the clock the SMs hold under
     # load (read while the space kernel keeps the card busy)
     qkv = torch.randn((batch, f, n, 3 * hd), generator=gen_more,
@@ -477,16 +576,401 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         first = row["shape"][0] if isinstance(row["shape"][0], list) \
             else row["shape"]
         before = BEFORE_REDESIGN_MS.get((row["name"], tuple(first)))
-        log(f"{row['name']} at {row['shape']}: max abs err "
+        log(f"{row['name']} at {row['shape']} {row['dtype']}: max abs err "
             f"{row['max_abs_err']:.3e}, relative max {row['rel_max_err']:.3e}"
-            f" and rms {row['rel_rms_err']:.3e} (limits "
-            f"{BF16_LIMITS[row['name']]}), kernel {row['ms']:.4f} ms, plain "
+            f", rms {row['rel_rms_err']:.3e} and {QUANTILE} quantile "
+            f"{row['rel_q_err']:.3e} (limits {BF16_LIMITS[row['name']]}, "
+            f"{QUANTILE_LIMITS[row['name']]}), kernel {row['ms']:.4f} ms, plain "
             f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), softmax "
             f"floor {floor_ms:.4f} ms"
             + (f", {row['design']}" if "design" in row else "")
+            + (f", of which the cast passes {row['cast_ms']:.4f} ms"
+               if "cast_ms" in row else "")
             + (f", before the redesign {before:.4f} ms" if before else ""))
     return rows
+
+
+def gradient_phase(torch, seed: int) -> list[dict]:
+    """Each differentiable kernel wrapper under a gradient, float32: its
+    output must carry the ``autograd.Function``'s ``grad_fn`` and the kernel
+    must have launched once; its input gradients must agree with autograd
+    through the plain version within GRAD_LIMIT. Packed and one-pass at the
+    shapes train-diffusion's UNet gives them, space and time at B = 1 (the
+    frozen AEs run them forward only)."""
+    from moditalker_tpu_torch.ops import rotary
+    from moditalker_tpu_torch.ops.kernels import LAUNCHES
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+    from moditalker_tpu_torch.ops.kernels import packed_attention as pk
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    heads, dh, f, n = 8, 64, 16, 1024
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def tables(sin_cos):
+        return [torch.from_numpy(t).to(dev) for t in sin_cos]
+
+    def divided(axis, sin, cos):
+        return ([randn(1, f, n, 3 * heads * dh)],
+                lambda x: dv.divided_attention(x, sin, cos, axis, heads, dh,
+                                               dh**-0.5),
+                lambda x: dv.divided_attention_reference(
+                    x, sin, cos, axis, heads, dh, dh**-0.5, use_flash=False))
+
+    cases = {
+        "divided_space_attention": divided(
+            "space", *tables(rotary.axial_rotary_sincos(32, n // 32, dh))),
+        "divided_time_attention": divided(
+            "time", *tables(rotary.time_rotary_sincos(f, dh))),
+        "packed_attention": (
+            [randn(TRAIN_BATCH, 2048, 384)],
+            lambda x: pk.packed_attention(x, heads, 0.25),
+            lambda x: pk.packed_attention_reference(x, heads, 0.25)),
+        "onepass_attention": (
+            [randn(TRAIN_BATCH * heads, 2048, 32) for _ in range(3)],
+            lambda *x: fa.onepass_attention(*x, 32**-0.5),
+            lambda *x: fa.onepass_attention_reference(*x, 32**-0.5)),
+    }
+    rows = []
+    for name, (inputs, kern, plain) in cases.items():
+        grads, peaks, cot, fn_name = {}, {}, None, None
+        for which, fn in (("kernel", kern), ("plain", plain)):
+            xs = [x.detach().requires_grad_() for x in inputs]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = LAUNCHES[name]
+            out = fn(*xs)
+            if which == "kernel":
+                fn_name = type(out.grad_fn).__name__
+                if (LAUNCHES[name] != before + 1
+                        or fn_name not in ("RecomputeThroughPlainBackward",
+                                           "FlashSdpaBackward")):
+                    raise AssertionError(
+                        f"{name}: launches {LAUNCHES[name] - before}, "
+                        f"grad_fn {fn_name}")
+            if cot is None:
+                cot = torch.randn(out.shape, generator=gen, device=dev)
+            grads[which] = torch.autograd.grad(out, xs, cot)
+            torch.cuda.synchronize()
+            peaks[which] = torch.cuda.max_memory_allocated() / 2**30
+        err = max(((a - b).abs().max() / b.abs().max()).item()
+                  for a, b in zip(grads["kernel"], grads["plain"]))
+        log(f"gradient {name} at {[list(x.shape) for x in inputs]} float32: "
+            f"grad_fn {fn_name}, input gradient vs autograd through the "
+            f"plain version {err:.3e} (limit {GRAD_LIMIT}); peak memory "
+            f"{peaks['kernel']:.2f} GiB through the kernel, "
+            f"{peaks['plain']:.2f} through the plain version")
+        if not err <= GRAD_LIMIT:
+            raise AssertionError(f"{name}: the gradient through the kernel "
+                                 f"disagrees with the plain version's")
+        rows.append({"name": name, "shape": [list(x.shape) for x in inputs],
+                     "grad_fn": fn_name, "rel_max_err": err,
+                     "peak_gib": peaks})
+    return rows
+
+
+# ------------------------------------------------------------------ training
+@contextlib.contextmanager
+def gradient_cut():
+    """The kernel wrappers with their ``autograd.Function``s taken out: the
+    kernel's output then carries no ``grad_fn`` (what the wrappers returned
+    before they had one), so the gradient stops at every attention."""
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+    from moditalker_tpu_torch.ops.kernels import packed_attention as pk
+
+    class Recompute:
+        @staticmethod
+        def apply(x, forward, plain):
+            return forward(x.detach())
+
+    class Flash:
+        @staticmethod
+        def apply(q, k, v, scale, forward):
+            return forward(q.detach(), k.detach(), v.detach(), scale)
+
+    kept = pk.RecomputeThroughPlain, dv.RecomputeThroughPlain, fa.FlashSdpa
+    pk.RecomputeThroughPlain = dv.RecomputeThroughPlain = Recompute
+    fa.FlashSdpa = Flash
+    try:
+        yield
+    finally:
+        pk.RecomputeThroughPlain, dv.RecomputeThroughPlain, fa.FlashSdpa = kept
+
+
+def seeded_state(torch, build, seed: int) -> dict:
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        return build().state_dict()
+
+
+def train_step_check(torch, seed: int) -> dict:
+    """One train-diffusion step at a small depth but the full spatial size
+    (so that every kernel gate passes; B = 2) on the card and on the CPU
+    from the same AE and UNet weights, batch and draws, float32: the loss,
+    the UNet's gradient and its update within TRAIN_LIMITS, and the same
+    step with the gradient cut at the attentions (``gradient_cut``) outside
+    them."""
+    from moditalker_tpu_torch.config import (MtovAEConfig,
+                                             MtovDiffusionConfig,
+                                             MtovTrainConfig, MtovUNetConfig)
+    from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
+    from moditalker_tpu_torch.models.mtov import TriplaneUNet, ViTAutoencoder
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.train.mtov import (LatentDiffusionLoop,
+                                                 MtovDiffusionTrainer)
+
+    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=2, dim_head=64,
+                          quant_depth=1, quant_heads=2, quant_mlp_dim=64)
+    # channel_mult (1, 2): the last upsample lands C = 256 at ds = 1, so the
+    # joint attention there takes the one-pass kernel, as in the full UNet
+    unet_cfg = MtovUNetConfig(num_res_blocks=1, channel_mult=(1, 2),
+                              attention_resolutions=(1,))
+    tc = MtovTrainConfig(seed=seed)
+    aes = [seeded_state(torch, lambda: ViTAutoencoder(ae_cfg), seed + i)
+           for i in (11, 12)]
+    unet = seeded_state(torch, lambda: TriplaneUNet(unet_cfg), seed)
+    batch = synthetic_mtov_batch(2, ae_cfg.timesteps, ae_cfg.resolution, seed)
+    diff_cfg = MtovDiffusionConfig()
+    g = torch.Generator().manual_seed(seed)
+    t = torch.randint(0, diff_cfg.timesteps, (2,), generator=g)
+    noise = torch.randn((2, 4, ae_cfg.latent_len), generator=g)
+
+    def step(device, cut=False):
+        trainer = MtovDiffusionTrainer(unet_cfg, diff_cfg, tc, device=device,
+                                       state_dict=unet)
+        models = []
+        for state in aes:
+            m = ViTAutoencoder(ae_cfg)
+            m.load_state_dict(state)
+            models.append(m)
+        loop = LatentDiffusionLoop(trainer, *models)
+        reset_launch_counts()
+        with gradient_cut() if cut else contextlib.nullcontext():
+            m = loop.train_step(batch, draws=(t.to(device),
+                                              noise.to(device)))
+        out = {"loss": m["loss"].item(), "launches": launches_by_shape()}
+        for name, p in trainer.model.named_parameters():
+            grad = torch.zeros_like(p) if p.grad is None else p.grad
+            out.setdefault("grad", {})[name] = grad.detach().cpu()
+            out.setdefault("update", {})[name] = (p.detach().cpu()
+                                                  - unet[name])
+        return out
+
+    def rel(a, b):
+        num = sum(float((a[k] - b[k]).square().sum()) for k in b)
+        den = sum(float(b[k].square().sum()) for k in b)
+        return (num / den) ** 0.5
+
+    cpu = step("cpu")
+    result = {}
+    for label, cut in (("card", False), ("card, gradient cut", True)):
+        card = step("cuda", cut)
+        errs = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
+                "grad": rel(card["grad"], cpu["grad"]),
+                "update": rel(card["update"], cpu["update"])}
+        within = all(errs[k] <= TRAIN_LIMITS[k] for k in errs)
+        log(f"train-diffusion step at small depth ({label}) vs cpu, float32:"
+            f" loss {card['loss']:.6f} vs {cpu['loss']:.6f}, relative "
+            f"errors {errs} (limits {TRAIN_LIMITS}); launches "
+            f"{card['launches']}")
+        if cut == within:
+            raise AssertionError(
+                f"train-diffusion ({label}): " + (
+                    "the step with the gradient cut at the attentions "
+                    "passes the card-vs-cpu limits" if cut else
+                    "the card's step disagrees with the cpu's"))
+        if not cut and set(card["launches"]) != FUSED_PATH:
+            raise AssertionError(f"train-diffusion step: launches "
+                                 f"{card['launches']}")
+        result[label] = errs
+    return result
+
+
+def train_diffusion_phase(torch, seed: int) -> dict:
+    """``LatentDiffusionLoop.fit`` at the full width (config.py: AE 384 wide,
+    depth 8, 256² × 16 frames; UNet 128 channels) at B =
+    diffusion_batch_size, float32, on a synthetic batch with AE and UNet
+    weights from ``seed``: one untimed step, then 5 timed (steps/s, video
+    clips/s, the peak memory, the launches by kernel and shape: the divided
+    space and time, packed and one-pass kernels and no other), every loss
+    finite; then ``train_step_check``."""
+    import itertools
+
+    from moditalker_tpu_torch.config import (MtovAEConfig,
+                                             MtovDiffusionConfig,
+                                             MtovTrainConfig, MtovUNetConfig)
+    from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
+    from moditalker_tpu_torch.models.mtov import ViTAutoencoder
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.train.mtov import (LatentDiffusionLoop,
+                                                 MtovDiffusionTrainer)
+
+    ae_cfg, unet_cfg = MtovAEConfig(), MtovUNetConfig()
+    tc = MtovTrainConfig(seed=seed)
+    b, steps = tc.diffusion_batch_size, 5
+    models = []
+    for i in (11, 12):
+        m = ViTAutoencoder(ae_cfg)
+        m.load_state_dict(seeded_state(torch, lambda: ViTAutoencoder(ae_cfg),
+                                       seed + i))
+        models.append(m)
+    trainer = MtovDiffusionTrainer(unet_cfg, MtovDiffusionConfig(), tc)
+    loop = LatentDiffusionLoop(trainer, *models)
+    batch = synthetic_mtov_batch(b, ae_cfg.timesteps, ae_cfg.resolution, seed)
+
+    class Losses:
+        def __init__(self):
+            self.seen = []
+
+        def log_scalars(self, step, scalars):
+            self.seen.append(scalars["loss"])
+
+    losses = Losses()
+    loop.fit(itertools.repeat(batch), max_steps=1, logger=losses,
+             log_every=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    loop.fit(itertools.repeat(batch), max_steps=steps, logger=losses,
+             log_every=1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = check_launches("train-diffusion", FUSED_PATH)
+    by_shape = launches_by_shape()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not (len(losses.seen) == steps + 1
+            and all(np.isfinite(losses.seen))):
+        raise AssertionError(f"train-diffusion: losses {losses.seen}")
+    per_step = {k: v / steps for k, v in counts.items() if v}
+    log(f"train-diffusion (full width, B = {b}, float32): {steps} steps in "
+        f"{dt:.3f} s = {steps / dt:.4f} steps/s = {steps * b / dt:.3f} clips/s"
+        f"; peak memory {peak:.2f} GiB; losses {losses.seen}; launches per "
+        f"step {per_step}, by shape over the {steps} steps {by_shape}")
+    dev = loop.to_device(batch)
+    traced = trace(torch, lambda: loop.train_step(dev))
+    log_trace("train-diffusion step (batch on the card)", traced)
+    del loop, trainer, models, dev
+    torch.cuda.empty_cache()
+    check = train_step_check(torch, seed)
+    return {"launches": counts, "launches_by_shape": by_shape,
+            "steps_per_s": steps / dt, "clips_per_s": steps * b / dt,
+            "peak_gib": peak, "losses": losses.seen, "card_vs_cpu": check,
+            "trace": traced}
+
+
+def train_atom_phase(torch, seed: int) -> dict:
+    """``AtomTrainer.fit`` at the full width (d = 512, 8 layers, horizon 156)
+    at batch 64, float32, on a synthetic batch: one untimed step, then 5
+    timed (sequences/s); no kernel launches. Then three steps on the card
+    against the CPU at batch 8 from the same weights, batch and draws,
+    dropout off: each step's losses within ATOM_LIMIT of the CPU's, and
+    every parameter within ATOM_PARAM_LIMIT but at ill-conditioned Adan
+    elements (``align_adan``)."""
+    from moditalker_tpu_torch.config import (AtomDiffusionConfig,
+                                             AtomModelConfig, AtomTrainConfig)
+    from moditalker_tpu_torch.data.atom_dataset import synthetic_batch
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.train.atom import AtomTrainer, host_batch
+
+    mc, dc = AtomModelConfig(), AtomDiffusionConfig()
+    tc = AtomTrainConfig(seed=seed)
+    steps = 5
+
+    class Repeat:
+        def __init__(self, batch):
+            self.batch = batch
+
+        def iter_epoch(self, batch_size, seed=0):
+            while True:
+                yield self.batch
+
+    trainer = AtomTrainer(mc, dc, tc)
+    data = Repeat(synthetic_batch(tc.batch_size, mc.horizon, seed))
+    trainer.fit(data, epochs=1, max_steps=1)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.fit(data, epochs=1, max_steps=steps)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = check_launches("train-atom", set())
+    log(f"train-atom (full width, batch {tc.batch_size}, float32): {steps} "
+        f"steps in {dt:.3f} s = {steps * tc.batch_size / dt:.3f} sequences/s"
+        f" ({steps / dt:.4f} steps/s); step {state['step']}; launches "
+        f"{counts}")
+    dev = trainer.to_device(host_batch(data.batch, mc.horizon))
+    traced = trace(torch, lambda: trainer.train_step(dev))
+    log_trace("train-atom step (batch on the card)", traced)
+    del trainer, state, dev
+
+    small = AtomTrainConfig(batch_size=8, seed=seed)
+    batch = synthetic_batch(small.batch_size, mc.horizon, seed + 1)
+    card, cpu = AtomTrainer(mc, dc, small), AtomTrainer(mc, dc, small,
+                                                        device="cpu")
+    g = torch.Generator().manual_seed(seed)
+    x = host_batch(batch, mc.horizon)["residual"]
+    errs, aligned = [], 0
+    for step in (1, 2, 3):
+        draws = card.diff.draw_loss_inputs(g, x)
+        before = {k: q.detach().clone()
+                  for k, q in cpu.model.named_parameters()}
+        a = card.step(batch, [d.cuda() for d in draws], deterministic=True)
+        b = cpu.step(batch, draws, deterministic=True)
+        errs.append(max(abs(a[k].item() - b[k].item()) / abs(b[k].item())
+                        for k in a))
+        aligned += align_adan(torch, card, cpu, step, before)
+    n = sum(p.numel() for p in cpu.model.parameters())
+    log(f"train-atom card vs cpu, three steps at batch 8 (dropout off, TF32 "
+        f"off): largest relative loss error per step {errs} (limit "
+        f"{ATOM_LIMIT}); parameters within {ATOM_PARAM_LIMIT} but "
+        f"{aligned} of {n} elements at ill-conditioned Adan steps, aligned")
+    if max(errs) > ATOM_LIMIT:
+        raise AssertionError("train-atom: the card's losses disagree with "
+                             "the cpu's")
+    return {"launches": counts, "sequences_per_s": steps * tc.batch_size / dt,
+            "card_vs_cpu_loss_rel_err": errs, "adan_aligned": aligned,
+            "parameters": n, "trace": traced}
+
+
+def align_adan(torch, card, cpu, step: int, before: dict) -> int:
+    """Holds every parameter of the card's AToM trainer within
+    ATOM_PARAM_LIMIT of the CPU's, except where the CPU's Adan step is
+    ill-conditioned: sqrt(n̂) below ADAN_ILL (a gradient at the noise floor,
+    stepped by about lr in the direction of its rounding) or a step larger
+    than ADAN_BIG·lr (on step 2, where n is one cancellation squared). Those
+    elements are set to the CPU's values, parameters, EMA and Adan state,
+    so the next step starts from one state. ``before``: the CPU's
+    parameters before this step. Returns their count."""
+    lr = cpu.train_cfg.learning_rate
+    aligned = 0
+    with torch.no_grad():
+        for (name, p), q in zip(card.model.named_parameters(),
+                                cpu.model.parameters()):
+            st_p, st_q = card.opt.state[p], cpu.opt.state[q]
+            nhat = st_q["n"] / (1.0 - 0.99**step)
+            moved = q - before[name]
+            off = (p.cpu() - q).abs() > ATOM_PARAM_LIMIT
+            ill = (nhat.sqrt() < ADAN_ILL) | (moved.abs() > ADAN_BIG * lr)
+            if (off & ~ill).any():
+                raise AssertionError(
+                    f"train-atom step {step} {name}: "
+                    f"{int((off & ~ill).sum())} well-conditioned elements "
+                    f"off by up to "
+                    f"{float((p.cpu() - q).abs()[~ill].max()):.3e}")
+            if off.any():
+                aligned += int(off.sum())
+                idx = off.to(p.device)
+                p[idx] = q.to(p.device)[idx]
+                card.ema[name][idx] = cpu.ema[name].to(p.device)[idx]
+                for k in ("m", "v", "n", "prev_grad"):
+                    st_p[k][idx] = st_q[k].to(p.device)[idx]
+    return aligned
 
 
 # ------------------------------------------------------------------ models
@@ -1159,8 +1643,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true",
-                    help="stop after the build and kernels phases (a short "
-                         "check of a kernel change; prints no result line)")
+                    help="stop after the build, kernels and gradient "
+                         "phases (a short check of a kernel change; prints "
+                         "no result line)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="the build, kernels and gradient phases, then only "
+                         "the train-diffusion and train-atom phases (prints "
+                         "no result line)")
     args = ap.parse_args()
 
     import torch
@@ -1169,7 +1658,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from moditalker_tpu_torch.ops.kernels import SOURCES, _build
+        from moditalker_tpu_torch.ops.kernels import (HELPER_SOURCES,
+                                                      SOURCES, _build)
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -1179,7 +1669,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    logs = _build.build(sorted(set(SOURCES.values())))
+    logs = _build.build(sorted({*SOURCES.values(), *HELPER_SOURCES}))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, (secs, out) in logs.items():
         for line in out.splitlines():   # per kernel: registers, spills
@@ -1194,8 +1684,17 @@ def main() -> int:
             f"{max(regs, default=0)} "
             f"registers, {spills} bytes of spill stores")
 
+    # every comparison on the card in float32 runs full float32 (the
+    # matmul default; cuDNN's convolutions would default to TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     rows = kernel_phase(torch, batch=2, seed=args.seed)
+    grads = gradient_phase(torch, args.seed)
     if args.kernels_only:
+        return 0
+    if args.train_only:
+        train_diffusion_phase(torch, args.seed)
+        train_atom_phase(torch, args.seed)
         return 0
     reference_phase(torch, args.seed, "fused", FUSED_PATH)
     with modular_attention():
@@ -1208,6 +1707,8 @@ def main() -> int:
     atom = atom_phase(torch, args.seed)
     audio = audio_phase(torch, args.seed)
     align = align_phase(torch, args.seed, audio.pop("lm68_atom"))
+    train_diff = train_diffusion_phase(torch, args.seed)
+    train_atom = train_atom_phase(torch, args.seed)
     prof = profile_phase(torch, result.pop("pipe"), args.seed)
 
     timed = {path: counts for path, counts in result["launches"].items()
@@ -1216,21 +1717,27 @@ def main() -> int:
     timed["atom run_directory"] = atom["launches"]
     timed["audio"] = audio["launches"]
     timed["align"] = align["launches"]
+    timed["train-diffusion"] = train_diff["launches"]
+    timed["train-atom"] = train_atom["launches"]
     # one line entry per kernel: its first row, the shape its main path
     # gives it; the rows at its other shapes go under "other_shapes"
     kernels = {}
     for row in rows:
         if row["name"] in kernels:
             kernels[row["name"]].setdefault("other_shapes", []).append(
-                {k: row[k] for k in ("shape", "max_abs_err", "rel_max_err",
-                                     "rel_rms_err", "ms", "plain_ms",
-                                     "library_ms", "bound_ms", "bound_by")})
+                {k: row[k] for k in ("shape", "dtype", "max_abs_err",
+                                     "rel_max_err", "rel_rms_err",
+                                     "rel_q_err", "ms", "cast_ms",
+                                     "plain_ms", "library_ms", "bound_ms",
+                                     "bound_by") if k in row})
             continue
         kernels[row["name"]] = row
         row["launches_by_path"] = {p: c[row["name"]] for p, c in timed.items()}
         row["launches"] = sum(row["launches_by_path"].values())
+        by_path = {**result["launches_by_shape"],
+                   "train-diffusion": train_diff["launches_by_shape"]}
         row["launches_by_shape"] = {
-            p: by[row["name"]] for p, by in result["launches_by_shape"].items()
+            p: by[row["name"]] for p, by in by_path.items()
             if "warm-up" not in p and row["name"] in by}
     kernels["fused_attention"]["note"] = (
         "op-level only: reached through ops.attention.sdpa_fused, which no "
@@ -1253,7 +1760,13 @@ def main() -> int:
         "audio_tflop": audio["tflop"], "audio_bound_ms": audio["bound_ms"],
         "audio_clip_device_ms": audio["clip_device_ms"],
         "audio_trace": audio["trace"], "align_trace": align["trace"],
-        "card": card, "profile": prof}))
+        "train_diffusion": {k: train_diff[k] for k in (
+            "steps_per_s", "clips_per_s", "peak_gib", "losses",
+            "card_vs_cpu", "trace")},
+        "train_atom": {k: train_atom[k] for k in (
+            "sequences_per_s", "card_vs_cpu_loss_rel_err", "adan_aligned",
+            "parameters", "trace")},
+        "gradients": grads, "card": card, "profile": prof}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,11 @@
-"""Command-line interface of the PyTorch port (port of the inference and
-preprocessing commands of ``moditalker_tpu/cli.py``):
+"""Command-line interface of the PyTorch port (port of the inference,
+preprocessing and second-stage training commands of
+``moditalker_tpu/cli.py``):
 
   reference                                   | here
   --------------------------------------------------------------------
+  AToM/train.py                               | train-atom
+  MToV/main.py --exp ddpm                     | train-diffusion
   MToV/sample.py                              | sample
   MToV/sample_crossID.py                      | sample --cross-id
   AToM/inference.py                           | atom-infer
@@ -17,14 +20,20 @@ preprocessing commands of ``moditalker_tpu/cli.py``):
         --frames-dir ... --out-dir ...
     python -m moditalker_tpu_torch.cli sample --frames-dir ... --aligned-dir ...
 
+    python -m moditalker_tpu_torch.cli train-atom --synthetic --steps 100
+    python -m moditalker_tpu_torch.cli train-diffusion --synthetic --steps 100
+
 Each runs on the card unless ``--device cpu`` is given. Checkpoints are
 ``state_dict``s of the port's modules saved with ``torch.save``
 (``utils/convert.py`` makes them from the JAX package's parameters); without
 a checkpoint ``sample``, ``atom-infer`` and ``process-audio`` draw the
 weights from ``--seed`` and print a WARNING (the JAX package's
 ``process-audio`` downloads HuBERT instead). The flags are the JAX
-package's, minus ``--data-parallel`` (one card), plus ``--device`` (and
-``--seed`` for ``process-audio``).
+package's, minus ``--data-parallel`` (one card) and the trainers' multi-host
+flags (``--coordinator``, ``--num-processes``, ``--process-id``), plus
+``--device`` (and ``--seed`` for ``process-audio``). The trainers write the
+port's checkpoints (``core/checkpoint.py``: ``torch.save`` trees, one
+directory per step) and, at the end, the final state as one file.
 """
 
 from __future__ import annotations
@@ -64,6 +73,142 @@ def _load_state(path: str | None, init_fn, what: str, seed: int):
         return torch.load(path, map_location="cpu", weights_only=True)
     print(f"WARNING: random weights ({what})", file=sys.stderr)
     return _seeded_state(init_fn, seed)
+
+
+# ------------------------------------------------------------------ train-atom
+def cmd_train_atom(args):
+    """AToM training (ref AToM/train.py → AToM.py:32-236) on LRS3's
+    GeneFace database under ``--data-root``, or on one synthetic batch
+    repeated (``--synthetic``, or no ``--data-root``)."""
+    from .core.checkpoint import CheckpointManager, save_single
+    from .core.logging import MetricLogger
+    from .core.preempt import GracefulStop
+    from .data.atom_dataset import AtomSequenceDataset, synthetic_batch
+    from .train.atom import AtomTrainer
+
+    cfg = _cfg(args)
+    tc = dataclasses.replace(
+        cfg.atom_train, batch_size=args.batch_size or cfg.atom_train.batch_size,
+        seed=args.seed)
+    trainer = AtomTrainer(cfg.atom_model, cfg.atom_diffusion, tc,
+                          device=args.device)
+    if args.synthetic or args.data_root is None:
+        batch = synthetic_batch(tc.batch_size, cfg.atom_model.horizon,
+                                seed=args.seed)
+
+        class _Synthetic:  # iter_epoch with the LRS3 batch layout
+            def iter_epoch(self, batch_size, seed=0):
+                for _ in range(args.steps):
+                    yield batch
+
+        ds = _Synthetic()
+    else:
+        ds = AtomSequenceDataset(args.data_root, "train")
+    logger = MetricLogger(os.path.join(args.out_dir, "logs"))
+    ckpt = CheckpointManager(os.path.join(args.out_dir, "atom_ckpt"))
+    # {params, ema_params, optimizer, step} every --ckpt-every steps (ref
+    # AToM.py:188-196 saves {ema, model, optimizer} per save_interval)
+    state = trainer.fit(ds, epochs=10**9 if args.steps else None,
+                        log_every=10, ckpt_manager=ckpt,
+                        ckpt_every=args.ckpt_every, logger=logger,
+                        stop=GracefulStop().install(), max_steps=args.steps)
+    logger.close()
+    path = os.path.join(args.out_dir, "atom.pt")
+    save_single(path, state)
+    print(f"step {state['step']}: checkpoint {path}")
+    return path
+
+
+# -------------------------------------------------------------- train-diffusion
+def _ae_state(path: str | None, ae_cfg, tag: str, seed: int) -> dict:
+    """An AE's state_dict: the port's (``torch.save``), or one held under
+    ``ae_params`` of a saved state; else drawn from ``seed`` (WARNING)."""
+    from .models.mtov import ViTAutoencoder
+
+    state = _load_state(path, lambda: ViTAutoencoder(ae_cfg), f"{tag} AE",
+                        seed)
+    return state.get("ae_params", state)
+
+
+def cmd_train_diffusion(args):
+    """Second stage: frozen AEs over HDTF frame batches through
+    ``LatentDiffusionLoop`` (ref scripts/train/second_stg.sh →
+    exps/diffusion.py:56-177 → trainer.py:23-131). ``--latents-only``
+    trains on one synthetic latent batch (no AEs in the program)."""
+    import itertools
+
+    from .core.checkpoint import CheckpointManager, save_single
+    from .core.logging import MetricLogger
+    from .core.preempt import GracefulStop
+    from .models.mtov import ViTAutoencoder
+    from .train.mtov import LatentDiffusionLoop, MtovDiffusionTrainer
+
+    cfg = _cfg(args)
+    tc = dataclasses.replace(cfg.mtov_train, seed=args.seed)
+    uc = cfg.mtov_unet
+    L = uc.latent_res**2 + 2 * uc.latent_t * uc.latent_res
+    trainer = MtovDiffusionTrainer(uc, cfg.mtov_diffusion, tc,
+                                   device=args.device)
+    b = args.batch_size or tc.diffusion_batch_size
+    final = os.path.join(args.out_dir, "diffusion.pt")
+    if args.latents_only:
+        rng = np.random.default_rng(args.seed)
+        batch = {
+            "z": np.tanh(rng.normal(size=(b, 4, L))).astype(np.float32),
+            "cond": rng.normal(size=(b, 8, L)).astype(np.float32),
+            "image_cond": rng.normal(size=(b, 4, L)).astype(np.float32),
+        }
+        for i in range(args.steps):
+            m = trainer.step(batch)
+            if i % 10 == 0:
+                print(f"step {i}: loss {float(m['loss']):.4f}")
+        save_single(final, trainer.state())
+        print(f"checkpoint: {final}")
+        return final
+
+    from .data.mtov_dataset import HDTFFramesDataset, synthetic_mtov_batch
+    from .evals.metrics import video_psnr
+
+    ae_cfg = cfg.mtov_ae
+    aes = []
+    for path, tag, seed in ((args.ae_rgb, "rgb", args.seed + 11),
+                            (args.ae_ldmk, "ldmk", args.seed + 12)):
+        ae = ViTAutoencoder(ae_cfg)
+        ae.load_state_dict(_ae_state(path, ae_cfg, tag, seed))
+        aes.append(ae)
+    loop = LatentDiffusionLoop(trainer, *aes)
+    if args.synthetic or args.data_root is None:
+        batch = synthetic_mtov_batch(b, resolution=ae_cfg.resolution,
+                                     timesteps=ae_cfg.timesteps,
+                                     seed=args.seed)
+        batches = itertools.repeat(batch)
+        probe_batch = batch
+    else:
+        ds = HDTFFramesDataset(args.data_root, args.kpt_root,
+                               resolution=ae_cfg.resolution,
+                               nframes=ae_cfg.timesteps)
+        batches = ds.batches(b, seed=args.seed)
+        probe_batch = next(ds.batches(b, seed=args.seed + 1))
+
+    logger = MetricLogger(os.path.join(args.out_dir, "logs"))
+    ckpt = CheckpointManager(os.path.join(args.out_dir, "diffusion_ema"))
+
+    def eval_fn(lp, it):
+        g = torch.Generator(device=trainer.device).manual_seed(args.seed + it)
+        gen = lp.sample(probe_batch, g)
+        out = {"sample_psnr": video_psnr(probe_batch["x"], gen)}
+        print(f"probe @{it}: " + " ".join(
+            f"{k}={v:.4f}" for k, v in out.items()))
+        return out
+
+    loop.fit(batches, max_steps=args.steps, logger=logger, ckpt_manager=ckpt,
+             ckpt_every=args.ckpt_every, eval_every=args.eval_every,
+             eval_fn=eval_fn, stop=GracefulStop().install())
+    logger.close()
+    save_single(final, trainer.state())
+    print(f"EMA checkpoints: {os.path.join(args.out_dir, 'diffusion_ema')}; "
+          f"final state: {final}")
+    return final
 
 
 # ------------------------------------------------------------------ atom-infer
@@ -329,6 +474,39 @@ def build_parser() -> argparse.ArgumentParser:
                             "(ref batchify.py:282-288)")
         p.add_argument("--no-resume", action="store_true")
         device_flag(p)
+
+    def train_args(p):
+        p.add_argument("--steps", type=int, default=100)
+        p.add_argument("--batch-size", type=int, default=None)
+        p.add_argument("--synthetic", action="store_true")
+        p.add_argument("--data-root", type=str, default=None)
+        p.add_argument("--out-dir", type=str, default="runs")
+        p.add_argument("--seed", type=int, default=42)
+        p.add_argument("--config", type=str, default=None,
+                       help="YAML config (native or reference MToV format)")
+        device_flag(p)
+
+    p = sub.add_parser("train-atom")
+    train_args(p)
+    p.add_argument("--ckpt-every", type=int, default=2000,
+                   help="{params, ema_params, optimizer, step} save cadence "
+                        "(ref AToM.py save_interval)")
+    p.set_defaults(fn=cmd_train_atom)
+
+    p = sub.add_parser("train-diffusion")
+    train_args(p)
+    p.add_argument("--kpt-root", type=str, default=None)
+    p.add_argument("--ae-rgb", default=None,
+                   help="the port's RGB AE state_dict (torch.save)")
+    p.add_argument("--ae-ldmk", default=None,
+                   help="the port's landmark AE state_dict (torch.save)")
+    p.add_argument("--latents-only", action="store_true",
+                   help="synthetic-latent smoke mode (no AEs)")
+    p.add_argument("--ckpt-every", type=int, default=1000,
+                   help="EMA-save cadence (ref trainer.py:122-124)")
+    p.add_argument("--eval-every", type=int, default=None,
+                   help="probe cadence (default: same as --ckpt-every)")
+    p.set_defaults(fn=cmd_train_diffusion)
 
     p = sub.add_parser("process-audio")
     p.add_argument("--audio", required=True)

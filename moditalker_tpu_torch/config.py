@@ -1,9 +1,10 @@
 """Configuration for the PyTorch port.
 
-A copy of the AToM and MToV sampling dataclasses of
-``moditalker_tpu/config.py`` with the same defaults (the published
-operating points) and of its YAML layer: the port imports nothing of the
-JAX package.
+A copy of the AToM and MToV dataclasses of ``moditalker_tpu/config.py``
+that the port's entry points read (sampling, and the AToM and
+latent-diffusion trainers) with the same defaults (the published operating
+points), and of its YAML layer: the port imports nothing of the JAX
+package.
 """
 
 from __future__ import annotations
@@ -45,6 +46,20 @@ class AtomDiffusionConfig:
     recon_loss_weight: float = 7.5
     velocity_loss_weight: float = 1.5
     use_p2: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class AtomTrainConfig:
+    """ref AToM/args.py, AToM/scripts/train.sh"""
+
+    batch_size: int = 64
+    epochs: int = 2000
+    learning_rate: float = 4e-4
+    weight_decay: float = 0.02
+    ema_decay: float = 0.9999
+    ema_interval: int = 1
+    save_interval: int = 100
+    seed: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,19 +137,34 @@ class MtovDiffusionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MtovTrainConfig:
+    batch_size: int = 1           # first stage (scripts/train/first_stg.sh)
+    diffusion_batch_size: int = 10
+    accum_iter: int = 3
+    lr: float = 1e-4
+    ae_betas: tuple[float, float] = (0.5, 0.9)
+    ema_interval: int = 25
+    warmup_steps: int = 10000
+    seed: int = 42
+    resume: bool = False          # ref configs/autoencoder/base_gan.yaml
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     """The sections the port's entry points read. A YAML file may also hold
-    the JAX package's training sections (``SKIPPED_SECTIONS``): they are
+    the JAX package's first-stage loss section (``SKIPPED_SECTIONS``): it is
     checked by name and skipped."""
 
     atom_model: AtomModelConfig = AtomModelConfig()
     atom_diffusion: AtomDiffusionConfig = AtomDiffusionConfig()
+    atom_train: AtomTrainConfig = AtomTrainConfig()
     mtov_ae: MtovAEConfig = MtovAEConfig()
     mtov_unet: MtovUNetConfig = MtovUNetConfig()
     mtov_diffusion: MtovDiffusionConfig = MtovDiffusionConfig()
+    mtov_train: MtovTrainConfig = MtovTrainConfig()
 
 
-SKIPPED_SECTIONS = ("atom_train", "mtov_loss", "mtov_train")
+SKIPPED_SECTIONS = ("mtov_loss",)
 
 
 # --------------------------------------------------------------- YAML layer

@@ -1,1 +1,2 @@
-"""Diffusion schedules and samplers."""
+"""Diffusion schedules and samplers; the trainers' optimizer, EMA,
+learning-rate schedules, checkpoints, preemption latch and metric log."""

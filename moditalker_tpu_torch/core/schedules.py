@@ -78,6 +78,8 @@ class DiffusionSchedule:
     posterior_log_variance_clipped: torch.Tensor
     posterior_mean_coef1: torch.Tensor
     posterior_mean_coef2: torch.Tensor
+    p2_loss_weight: torch.Tensor
+    lvlb_weights: torch.Tensor
 
     def to(self, device) -> "DiffusionSchedule":
         return dataclasses.replace(self, **{
@@ -87,12 +89,15 @@ class DiffusionSchedule:
 
 def make_schedule(schedule: str = "linear", n_timesteps: int = 1000,
                   linear_start: float = 1e-4, linear_end: float = 2e-2,
-                  cosine_s: float = 8e-3,
-                  v_posterior: float = 0.0) -> DiffusionSchedule:
-    """The samplers' tables of ``DDPM.register_schedule``
-    (MToV/losses/ddpm.py:195-264) and of AToM's ``GaussianDiffusion``
-    buffers (AToM/model/diffusion.py:64-111). The loss-weight tables wait
-    for training."""
+                  cosine_s: float = 8e-3, v_posterior: float = 0.0,
+                  p2_loss_weight_gamma: float = 0.0,
+                  p2_loss_weight_k: float = 1.0,
+                  parameterization: str = "eps") -> DiffusionSchedule:
+    """The tables of ``DDPM.register_schedule`` (MToV/losses/ddpm.py:195-264)
+    and of AToM's ``GaussianDiffusion`` buffers
+    (AToM/model/diffusion.py:64-111), the training losses' weights
+    included: ``lvlb_weights`` by the parameterization (its entry at t = 0
+    copies t = 1's) and ``p2_loss_weight`` = (k + ᾱ/(1 − ᾱ))^−γ."""
     betas = make_beta_schedule(schedule, n_timesteps, linear_start,
                                linear_end, cosine_s)
     alphas = 1.0 - betas
@@ -101,6 +106,23 @@ def make_schedule(schedule: str = "linear", n_timesteps: int = 1000,
     posterior_variance = (
         (1 - v_posterior) * betas * (1.0 - alphas_cumprod_prev)
         / (1.0 - alphas_cumprod) + v_posterior * betas)
+    if parameterization == "eps":
+        with np.errstate(divide="ignore"):
+            # posterior_variance[0] == 0: inf at t = 0, overwritten below
+            # (as the reference does, ddpm.py:256-262)
+            lvlb_weights = betas**2 / (
+                2 * posterior_variance * alphas * (1 - alphas_cumprod))
+    elif parameterization == "x0":
+        # the reference's formula with its (2.0 * 1 - a) kept (ddpm.py:258);
+        # no active path weights by it (original_elbo_weight = 0)
+        lvlb_weights = 0.5 * np.sqrt(alphas_cumprod) / (2.0 * 1 - alphas_cumprod)
+    else:
+        raise NotImplementedError(parameterization)
+    lvlb_weights = np.asarray(lvlb_weights)
+    lvlb_weights[0] = lvlb_weights[1]
+    p2_loss_weight = (p2_loss_weight_k
+                      + alphas_cumprod / (1 - alphas_cumprod)) \
+        ** -p2_loss_weight_gamma
     f32 = lambda a: torch.tensor(a, dtype=torch.float32)
     return DiffusionSchedule(
         num_timesteps=int(betas.shape[0]),
@@ -119,6 +141,8 @@ def make_schedule(schedule: str = "linear", n_timesteps: int = 1000,
         posterior_mean_coef2=f32(
             (1.0 - alphas_cumprod_prev) * np.sqrt(alphas)
             / (1.0 - alphas_cumprod)),
+        p2_loss_weight=f32(p2_loss_weight),
+        lvlb_weights=f32(lvlb_weights),
     )
 
 

@@ -1,22 +1,27 @@
-"""Sampling-time MToV data (port of the sampling part of
-``moditalker_tpu/data/mtov_dataset.py``, ref MToV/tools/dataloader_sample.py
-and data_utils.py): numpy/PIL host-side preprocessing that yields
-channels-last [T, H, W, 3] windows.
+"""MToV data (port of ``moditalker_tpu/data/mtov_dataset.py``, ref
+MToV/tools/dataloader.py, dataloader_sample.py and data_utils.py): numpy/PIL
+host-side preprocessing that yields channels-last [T, H, W, 3] videos.
 
 Reference semantics kept:
-  * reference frame = first frame of the identity repeated ×T;
+  * a random 16-frame window per training item; clips shorter than 16 use
+    an 8-frame window left-padded with zeros (dataloader.py:196-203,
+    247-252);
+  * reference frame = first frame of the clip (training) or of the identity
+    (sampling) repeated ×T;
   * landmark maps = white radius-3 dots on black 256² (dataloader.py:166-189);
   * the pose-masked video zeroes everything below landmark 33's y
-    (dataloader.py:135-144).
+    (dataloader.py:135-144);
+  * identity split by a held-out id list (dataloader.py:81-83); the
+    InfiniteSampler's rank-strided shuffled stream (data_utils.py:390-421).
 
-The training dataset (random windows, the infinite sampler) is not ported
-yet.
+Reading frames needs PIL; without it the datasets raise.
 """
 
 from __future__ import annotations
 
 import os
 import re
+import sys
 
 import numpy as np
 
@@ -109,6 +114,174 @@ def to_model_range(video_u8: np.ndarray) -> np.ndarray:
     return video_u8.astype(np.float32) / 127.5 - 1.0
 
 
+def _pil_image():
+    """PIL's ``Image``; raises ImportError on a host without PIL (the frame
+    datasets read jpg/png through it, and nothing stands in for it)."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("reading frame directories needs PIL (Pillow), "
+                          "which this host lacks; use --synthetic or a host "
+                          "with Pillow") from e
+    return Image
+
+
+class InfiniteSampler:
+    """Rank-strided infinite shuffled stream (ref data_utils.py:390-421)."""
+
+    def __init__(self, n: int, rank: int = 0, num_replicas: int = 1,
+                 shuffle: bool = True, seed: int = 0,
+                 window_size: float = 0.5):
+        self.n = n
+        self.rank = rank
+        self.num_replicas = num_replicas
+        self.shuffle = shuffle
+        self.seed = seed
+        self.window_size = window_size
+
+    def __iter__(self):
+        order = np.arange(self.n)
+        rnd = None
+        window = 0
+        if self.shuffle:
+            rnd = np.random.RandomState(self.seed)
+            rnd.shuffle(order)
+            window = int(np.rint(order.size * self.window_size))
+        idx = 0
+        while True:
+            i = idx % order.size
+            if idx % self.num_replicas == self.rank:
+                yield int(order[i])
+            if window >= 2:
+                j = (i - rnd.randint(window)) % order.size
+                order[i], order[j] = order[j], order[i]
+            idx += 1
+
+
+class HDTFFramesDataset:
+    """Per-identity frame directories + per-frame landmark .npy files: the
+    second-stage training data.
+
+    Layout: ``{data_root}/{identity}/{frame:05d}.jpg`` and
+    ``{kpt_root}/{identity}/{frame:05d}.npy`` ([68, 2] image-space ints) —
+    the reference's on-disk format (dataloader.py:38-39, 214-223). Needs
+    PIL: on a host without it the constructor raises.
+    """
+
+    def __init__(self, data_root: str, kpt_root: str, nframes: int = 16,
+                 resolution: int = 256, train: bool = True,
+                 holdout_ids: set[str] | None = None, seed: int = 0):
+        self._image = _pil_image()
+        self.data_root = data_root
+        self.kpt_root = kpt_root
+        self.nframes = nframes
+        self.resolution = resolution
+        self.rng = np.random.default_rng(seed)
+        holdout_ids = holdout_ids or set()
+        ids = sorted(
+            d for d in os.listdir(data_root)
+            if os.path.isdir(os.path.join(data_root, d)))
+        # reference: train = identities NOT in the holdout list (:81-83)
+        self.identities = [
+            i for i in ids if (i not in holdout_ids) == train]
+        self.dirs = [os.path.join(data_root, i) for i in self.identities]
+
+    def __len__(self):
+        return len(self.dirs)
+
+    def _load_frame(self, folder: str, fname: str) -> np.ndarray:
+        img = self._image.open(os.path.join(folder, fname))
+        return np.asarray(img.convert("RGB"), np.float32)  # H W 3, 0..255
+
+    def _load_kpt(self, identity: str, fname: str) -> np.ndarray:
+        p = os.path.join(self.kpt_root, identity,
+                         fname.rsplit(".", 1)[0] + ".npy")
+        return np.load(p)
+
+    def __getitem__(self, index: int) -> dict:
+        folder = self.dirs[index]
+        identity = self.identities[index]
+        frames = sorted(
+            (f for f in os.listdir(folder)
+             if f.lower().endswith((".jpg", ".png"))), key=natsort_key)
+        n = self.nframes
+        if len(frames) < n:
+            prefix = int(self.rng.integers(0, len(frames) - n // 2 + 1))
+            clip = frames[prefix : prefix + n // 2]
+        else:
+            prefix = int(self.rng.integers(0, len(frames) - n + 1))
+            clip = frames[prefix : prefix + n]
+
+        vid = np.stack([self._load_frame(folder, f) for f in clip])
+        ref = np.stack([self._load_frame(folder, clip[0])] * len(clip))
+        kpts = np.stack([self._load_kpt(identity, f) for f in clip])
+        masked = np.stack([
+            crop_lower_half(v.astype(np.uint8), k).astype(np.float32)
+            for v, k in zip(vid, kpts)])
+        ldmk = rasterize_landmarks(kpts, size=256,
+                                   src_wh=vid.shape[2]).astype(np.float32)
+
+        res = self.resolution
+        out = {
+            "x_ref": resize_crop(ref, res),
+            "x": resize_crop(vid, res),
+            "x_l": ldmk if ldmk.shape[1] == res else resize_crop(ldmk, res),
+            "masked_x": resize_crop(masked, res),
+            "index": index,
+        }
+        # short clips: zero-pad the FIRST half (ref dataloader.py:247-252)
+        if len(clip) == n // 2:
+            for k in ("x", "x_l", "masked_x"):
+                out[k] = np.concatenate(
+                    [np.zeros_like(out[k]), out[k]], axis=0)
+            out["x_ref"] = np.concatenate([out["x_ref"], out["x_ref"]], axis=0)
+        return out
+
+    def batches(self, batch_size: int, rank: int = 0, num_replicas: int = 1,
+                seed: int = 0, skip_bad_items: bool = True):
+        """Infinite stream of collated training batches, float [-1, 1].
+
+        ``skip_bad_items`` keeps the reference's fault tolerance (corrupt
+        frames and missing landmark files are skipped, as the blanket
+        except-continue of its preprocessing loops does,
+        process_video_3dmm...py:319-321)."""
+        sampler = iter(InfiniteSampler(len(self), rank, num_replicas,
+                                       seed=seed))
+        while True:
+            items = []
+            while len(items) < batch_size:
+                idx = next(sampler)
+                try:
+                    items.append(self[idx])
+                except (OSError, ValueError, IndexError, KeyError) as e:
+                    if not skip_bad_items:
+                        raise
+                    print(f"skipping bad item {idx}: {e}", file=sys.stderr)
+            yield {
+                k: to_model_range(np.stack([it[k] for it in items]))
+                for k in ("x_ref", "x", "x_l", "masked_x")
+            }
+
+
+def load_holdout_ids(path: str) -> set[str]:
+    """Held-out identity list (ref text_folders/train_id.txt semantics,
+    dataloader.py:81-83: train = identities NOT in this list)."""
+    with open(path) as f:
+        return {line.strip() for line in f if line.strip()}
+
+
+def synthetic_mtov_batch(batch_size: int = 2, timesteps: int = 16,
+                         resolution: int = 256, seed: int = 0) -> dict:
+    """Random batch with the training layout, float [-1, 1]."""
+    rng = np.random.default_rng(seed)
+
+    def v():
+        return rng.uniform(-1, 1, size=(batch_size, timesteps, resolution,
+                                        resolution, 3)).astype(np.float32)
+
+    return {"x_ref": v(), "x": v(), "x_l": v(), "masked_x": v()}
+
+
 class SequentialWindowDataset:
     """Sequential 16-frame windows over one identity's frames + ALIGNED
     landmarks (AToM output) — the sampling-time dataset
@@ -160,9 +333,7 @@ class SequentialWindowDataset:
         return self.n // self.nframes
 
     def _frame(self, fname):
-        from PIL import Image
-
-        img = Image.open(os.path.join(self.frames_dir, fname))
+        img = _pil_image().open(os.path.join(self.frames_dir, fname))
         return np.asarray(img.convert("RGB"), np.float32)
 
     def __getitem__(self, index: int) -> dict:

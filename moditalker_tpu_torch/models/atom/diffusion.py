@@ -2,8 +2,9 @@
 ``moditalker_tpu/models/atom/diffusion.py``, ref AToM/model/diffusion.py):
 cosine schedule, x0 prediction, DDIM-50 with classifier-free guidance as one
 doubled batch, the long-form chunked sampling with the temporal-overlap
-constraint ``x[1:, :half] = x[:-1, half:]`` and the ancestral loops. The
-training loss waits for the trainer.
+constraint ``x[1:, :half] = x[:-1, half:]`` and the ancestral loops, and
+the training loss (``p_losses``): 7.5·recon + 1.5·velocity, both
+p2-weighted (gamma 0 in the shipped config: the weight is one).
 
 Every draw comes from ``generator`` (``core/diffusion.py``): a
 ``torch.Generator`` or a callable that supplies the draws in the order the
@@ -45,13 +46,54 @@ class AtomDiffusion:
                device=None) -> "AtomDiffusion":
         """``model``: a built ``MotionDecoder``, weights loaded, in
         ``eval()`` and on ``device``."""
-        sched = schedules.make_schedule(diff_cfg.schedule,
-                                        diff_cfg.n_timesteps)
+        sched = schedules.make_schedule(
+            diff_cfg.schedule, diff_cfg.n_timesteps,
+            p2_loss_weight_gamma=0.5 if diff_cfg.use_p2 else 0.0,
+            parameterization="eps" if diff_cfg.predict_epsilon else "x0")
         return cls(model=model, sched=sched.to(device), cfg=diff_cfg)
 
     @property
     def _param_kind(self) -> str:
         return "eps" if self.cfg.predict_epsilon else "x0"
+
+    # ------------------------------------------------------------ training
+    def draw_loss_inputs(self, generator: torch.Generator, x_start):
+        """The draws ``p_losses`` takes, from ``generator`` (a CPU
+        generator, so that the card and the CPU get the same numbers): t
+        uniform in [0, T), the noise, and keep_mask = U[0, 1) ≥
+        cond_drop_prob (the JAX package's k_t, k_noise, k_drop)."""
+        b = x_start.shape[0]
+        t = torch.randint(0, self.sched.num_timesteps, (b,),
+                          generator=generator)
+        noise = torch.randn(tuple(x_start.shape), generator=generator)
+        keep = torch.rand(b, generator=generator) >= self.cfg.cond_drop_prob
+        dev = x_start.device
+        return t.to(dev), noise.to(dev, x_start.dtype), keep.to(dev)
+
+    def p_losses(self, x_start, face, cond, t, noise, keep_mask):
+        """(total, (recon, velocity)), ref diffusion.py:412-440.
+
+        ``x_start`` [B, T, 204] is the landmark residual, ``face`` the
+        identity keypoint broadcast over T, ``cond`` [B, 2T, 1024] HuBERT
+        features; ``t`` [B], ``noise`` like ``x_start`` and ``keep_mask``
+        bool [B] are the caller's draws (``draw_loss_inputs``). Dropout runs
+        as the model's mode says (``train()`` or ``eval()``)."""
+        cfg = self.cfg
+        b = x_start.shape[0]
+        x_noisy = dcore.q_sample(self.sched, x_start, t, noise)
+        model_out = self.model(x_noisy, face, cond, t, keep_mask=keep_mask)
+        target = noise if cfg.predict_epsilon else x_start
+        weight = self.sched.p2_loss_weight[t]
+
+        def weighted_mse(pred, tgt):
+            per = (pred - tgt).square().reshape(b, -1).mean(dim=-1)
+            return (per * weight).mean()
+
+        recon = weighted_mse(model_out, target)
+        v_loss = weighted_mse(model_out[:, 1:] - model_out[:, :-1],
+                              target[:, 1:] - target[:, :-1])
+        total = cfg.recon_loss_weight * recon + cfg.velocity_loss_weight * v_loss
+        return total, (recon, v_loss)
 
     # ------------------------------------------------------------ sampling
     def _guided_model_fn(self, face, cond, weight: float):

@@ -10,6 +10,11 @@ with planes xy | yt | xt, byte-compatible with the reference.
 
 Attention blocks project a packed q|k|v (heads contiguous inside each third)
 and call ``packed_attention``, the hand-written kernel on the card.
+
+``remat=True`` recomputes every residual and attention block in the backward
+instead of keeping its activations (``torch.utils.checkpoint``), as the JAX
+package's ``remat`` does with ``nn.remat`` (unet.py:198-215); off by
+default, as there.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ...config import MtovUNetConfig
 from ...ops.kernels.packed_attention import packed_attention
@@ -86,9 +92,23 @@ def _nearest_up2(x):
     return x.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
 
 
-class ResBlock(nn.Module):
+class _Remat(nn.Module):
+    """A block that, with ``remat`` set and a gradient being taken, runs
+    under ``torch.utils.checkpoint``: its activations are recomputed in the
+    backward."""
+
+    remat = False
+
+    def __call__(self, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(super().__call__, *args, use_reentrant=False)
+        return super().__call__(*args)
+
+
+class ResBlock(_Remat):
     """Scale-shift GroupNorm residual block, optionally resampling
-    (ref unet.py:93-207). Inference only: dropout is not applied."""
+    (ref unet.py:93-207). Dropout is not applied: the config's is 0, and the
+    JAX trainer runs the UNet deterministic."""
 
     def __init__(self, channels: int, out_channels: int, emb_channels: int,
                  use_scale_shift_norm: bool = True, up: bool = False,
@@ -124,7 +144,7 @@ class ResBlock(nn.Module):
         return (x if self.skip is None else self.skip(x)) + h
 
 
-class SelfAttentionBlock(nn.Module):
+class SelfAttentionBlock(_Remat):
     """Token self-attention over [B, C, L] — per-plane spatial attention
     (ref AttentionBlock, unet.py:210-254) and the joint triplane attention
     (AttentionBlock1D, :257-300)."""
@@ -146,7 +166,7 @@ class SelfAttentionBlock(nn.Module):
 
 class TriplaneUNet(nn.Module):
     def __init__(self, cfg: MtovUNetConfig = MtovUNetConfig(),
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: bool = False):
         super().__init__()
         self.cfg = cfg
         mc = cfg.model_channels
@@ -210,6 +230,13 @@ class TriplaneUNet(nn.Module):
 
         self.out_norm = GroupNorm32(ch)
         self.out_conv = Conv2d(ch, cfg.out_channels, 3, dtype)
+        self.set_remat(remat)
+
+    def set_remat(self, on: bool) -> None:
+        """Recompute every residual and attention block in the backward."""
+        for m in self.modules():
+            if isinstance(m, _Remat):
+                m.remat = on
 
     # ---------------------------------------------------------------- helpers
     @staticmethod

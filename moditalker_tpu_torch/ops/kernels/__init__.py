@@ -5,8 +5,14 @@ calls ``count_launch`` where it launches its kernel and nowhere else, so a
 run can show that the main path went through the kernels;
 ``LAUNCHES_BY_SHAPE`` splits each count by the shape the kernel was given.
 ``SOURCES`` names the CUDA
-source of each kernel (``csrc/<source>.cu``); ``BF16_LIMITS`` bounds each
-kernel's error against its plain version.
+source of each kernel (``csrc/<source>.cu``) and ``HELPER_SOURCES`` the
+sources the kernels' wrappers launch beside them (the float32 casts);
+``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound each kernel's error against
+its plain version.
+
+``on_card`` and ``cuda_stream`` are the two questions every wrapper asks
+the tensor it is given: whether to launch (a CUDA tensor) or run the plain
+version (a CPU tensor), and on which stream to launch.
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ SOURCES = {
     "fused_attention": "flash_attention",
 }
 
+# launched by the wrappers' float32 paths (``convert.py``), not a kernel of
+# its own: its launches and time count in the row of the kernel it serves
+HELPER_SOURCES = ("convert",)
+
 
 # Limits of a kernel's bf16 output against its plain version on the same
 # bf16 inputs, relative to the plain output: (max |err| / max |plain|,
@@ -51,26 +61,67 @@ BF16_LIMITS: dict[str, tuple[float, float]] = {
     "fused_attention": (2.3e-2, 1.1e-2),
 }
 
+# A third measure that one element cannot decide: the QUANTILE-th quantile
+# of |out - plain| over max |plain|. The first measure above is set by the
+# single largest error, which on some inputs sits near its limit for a right
+# kernel (packed reads up to 1.515e-2 of its 1.6e-2); this one moves only
+# when a thousandth of the output moves, and a wrong head, row or rotary
+# entry moves far more than that (ratios near 0.5). All three measures are
+# gates. Each limit here is about twice the largest reading of
+# chip_smoke.py --kernels-only --seed 0..3 over the kernel's rows, bf16 and
+# float32 (H100): space 5.10e-3, time 2.63e-3, packed 4.31e-3, one-pass
+# 4.12e-3, tiny-L 2.55e-3, fused 6.71e-3.
+QUANTILE = 0.999
+QUANTILE_LIMITS: dict[str, float] = {
+    "divided_space_attention": 1e-2,
+    "divided_time_attention": 5.5e-3,
+    "packed_attention": 9e-3,
+    "onepass_attention": 8.5e-3,
+    "tiny_attention": 5.5e-3,
+    "fused_attention": 1.4e-2,
+}
 
-def relative_errors(out, plain) -> tuple[float, float]:
-    """(max |out - plain| / max |plain|, rms(out - plain) / rms(plain))."""
+
+def relative_errors(out, plain) -> tuple[float, float, float]:
+    """(max |out - plain| / max |plain|, rms(out - plain) / rms(plain),
+    QUANTILE-th quantile of |out - plain| / max |plain|)."""
     out, plain = out.float(), plain.float()
-    err = out - plain
-    rel_max = err.abs().max() / plain.abs().max()
+    err = (out - plain).abs().flatten()
+    peak = plain.abs().max()
+    rel_max = err.max() / peak
     rel_rms = err.square().mean().sqrt() / plain.square().mean().sqrt()
-    return rel_max.item(), rel_rms.item()
+    k = max(1, min(err.numel(), round(QUANTILE * err.numel())))
+    rel_q = err.kthvalue(k).values / peak
+    return rel_max.item(), rel_rms.item(), rel_q.item()
 
 
-def check_bf16(name: str, out, plain) -> tuple[float, float]:
+def check_bf16(name: str, out, plain) -> tuple[float, float, float]:
     """``relative_errors(out, plain)``; raises AssertionError where one is
-    past ``BF16_LIMITS[name]``."""
-    (rel_max, rel_rms), (lim_max, lim_rms) = (relative_errors(out, plain),
-                                              BF16_LIMITS[name])
-    if not (rel_max <= lim_max and rel_rms <= lim_rms):
+    past its limit (``BF16_LIMITS[name]``, ``QUANTILE_LIMITS[name]``)."""
+    rel_max, rel_rms, rel_q = relative_errors(out, plain)
+    lim_max, lim_rms = BF16_LIMITS[name]
+    lim_q = QUANTILE_LIMITS[name]
+    if not (rel_max <= lim_max and rel_rms <= lim_rms and rel_q <= lim_q):
         raise AssertionError(
             f"{name}: max err / max |plain| {rel_max:.3e} (limit {lim_max}), "
-            f"rms err / rms plain {rel_rms:.3e} (limit {lim_rms})")
-    return rel_max, rel_rms
+            f"rms err / rms plain {rel_rms:.3e} (limit {lim_rms}), "
+            f"{QUANTILE} quantile of err / max |plain| {rel_q:.3e} "
+            f"(limit {lim_q})")
+    return rel_max, rel_rms, rel_q
+
+
+def on_card(t) -> bool:
+    """Whether a wrapper launches its kernel for ``t`` (a CUDA tensor) or
+    runs its plain version (a tensor on the CPU)."""
+    return t.is_cuda
+
+
+def cuda_stream(t) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device, where a
+    wrapper launches."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def count_launch(name: str, shape) -> None:

@@ -26,7 +26,10 @@ write the head-merged ``[.., H·dh]`` layout, with no transposes. For a
 tensor on the CPU the wrapper runs the plain version
 (``divided_attention_reference``); for a CUDA tensor it launches the kernel
 or raises. At shapes the gate rejects it runs the plain head-split math, as
-the JAX package runs XLA's there.
+the JAX package runs XLA's there. A float32 qkv takes the float32 route of
+``convert.py`` (bf16 operands, fp32 accumulators, a float32 result). The
+gradient with respect to qkv recomputes through the plain version
+(``autograd.py``), as the JAX package's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
@@ -37,9 +40,10 @@ import os
 
 import torch
 
-from .. import rotary
+from .. import kernels, rotary
 from ..attention import plain_sdpa, sdpa
-from . import _build, count_launch
+from . import _build, convert, count_launch
+from .autograd import RecomputeThroughPlain
 
 _LANES = 128
 # what csrc/divided_attention.cu is built for: the shapes the repository's
@@ -128,10 +132,15 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_operands(qkv, sin, cos):
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the divided-attention kernels take bf16 qkv, got "
-                        f"{qkv.dtype}")
+def _operands(qkv, sin, cos):
+    """qkv as the kernels read it (bf16, a float32 qkv cast by
+    ``convert.to_bf16``) and whether the result goes back to float32."""
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the divided-attention kernels take bf16 or float32 "
+                        f"qkv, got {qkv.dtype}")
+    f32 = qkv.dtype == torch.float32
+    if f32:
+        qkv = convert.to_bf16(qkv)
     for t in (qkv, sin, cos):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel operands must be contiguous and "
@@ -140,13 +149,15 @@ def _check_operands(qkv, sin, cos):
         raise TypeError("rotary tables must be float32")
     if sin.device != qkv.device or cos.device != qkv.device:
         raise ValueError("rotary tables must be on the device of qkv")
+    return qkv, f32
 
 
 def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                          scale: float):
-    """Kernel launch: qkv [BF, N, 3·H·dh] bf16 → [BF, N, H·dh], N a
-    multiple of 128 and at least 256."""
-    _check_operands(qkv, sin, cos)
+    """Kernel launch: qkv [BF, N, 3·H·dh] bf16 → [BF, N, H·dh] bf16 (float32
+    through the cast passes → float32), N a multiple of 128 and at least
+    256."""
+    qkv, f32 = _operands(qkv, sin, cos)
     if dim_head not in SPACE_HEAD_DIMS:
         raise NotImplementedError(f"space kernel built for head dims "
                                   f"{SPACE_HEAD_DIMS}, not {dim_head}")
@@ -163,17 +174,17 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     lib = _lib()
     status = lib.divided_space_attention(
         qkv.data_ptr(), table.data_ptr(), out.data_ptr(), bf, n, heads,
-        dim_head, scale,
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+        dim_head, scale, kernels.cuda_stream(qkv))
     _build.check(lib, status, "divided_space_attention")
     count_launch("divided_space_attention", qkv.shape)
-    return out
+    return convert.to_float32(out) if f32 else out
 
 
 def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                         scale: float):
-    """Kernel launch: qkv [B, F, N, 3·H·dh] bf16 → [B, F, N, H·dh]."""
-    _check_operands(qkv, sin, cos)
+    """Kernel launch: qkv [B, F, N, 3·H·dh] bf16 → [B, F, N, H·dh] bf16
+    (float32 through the cast passes → float32)."""
+    qkv, f32 = _operands(qkv, sin, cos)
     b, f, n, c3 = qkv.shape
     if (f, dim_head) not in TIME_SHAPES:
         raise NotImplementedError(f"time kernel built for (frames, head dim) "
@@ -186,10 +197,10 @@ def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     lib = _lib()
     status = lib.divided_time_attention(
         qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(), out.data_ptr(), b, f,
-        n, heads, dim_head, scale, torch.cuda.current_stream(qkv.device).cuda_stream)
+        n, heads, dim_head, scale, kernels.cuda_stream(qkv))
     _build.check(lib, status, "divided_time_attention")
     count_launch("divided_time_attention", qkv.shape)
-    return out
+    return convert.to_float32(out) if f32 else out
 
 
 def divided_attention(qkv, sin, cos, axis: str, heads: int, dim_head: int,
@@ -197,19 +208,26 @@ def divided_attention(qkv, sin, cos, axis: str, heads: int, dim_head: int,
     """Divided attention on packed qkv [B, F, N, 3·H·dh] → [B, F, N, H·dh].
 
     sin/cos: float32 [seq, dh] rotary tables on qkv's device (seq = N for
-    ``axis='space'``, F for ``'time'``).
+    ``axis='space'``, F for ``'time'``). Differentiable in qkv.
     """
     b, f, n, _ = qkv.shape
     if not divided_attention_viable(axis, f, n, heads, dim_head,
                                     sin.shape[-1]):
         return divided_attention_reference(qkv, sin, cos, axis, heads,
                                            dim_head, scale)
-    if not qkv.is_cuda:
-        return divided_attention_reference(qkv, sin, cos, axis, heads,
-                                           dim_head, scale, use_flash=False)
     scale = float(scale)
-    if axis == "space":
-        out = space_attention_cuda(qkv.reshape(b * f, n, qkv.shape[-1]), sin,
-                                   cos, heads, dim_head, scale)
-        return out.reshape(b, f, n, heads * dim_head)
-    return time_attention_cuda(qkv, sin, cos, heads, dim_head, scale)
+
+    def plain(t):
+        return divided_attention_reference(t, sin, cos, axis, heads,
+                                           dim_head, scale, use_flash=False)
+
+    def forward(t):
+        if not kernels.on_card(t):
+            return plain(t)
+        if axis == "space":
+            out = space_attention_cuda(t.reshape(b * f, n, t.shape[-1]), sin,
+                                       cos, heads, dim_head, scale)
+            return out.reshape(b, f, n, heads * dim_head)
+        return time_attention_cuda(t, sin, cos, heads, dim_head, scale)
+
+    return RecomputeThroughPlain.apply(qkv, forward, plain)

@@ -28,7 +28,13 @@ Kernels (sm_90a), all on [B, N, D] bf16 with heads folded into B:
   no model calls it.
 
 For tensors on the CPU a wrapper runs its plain version (the plain ``sdpa``
-math); for CUDA tensors it launches the kernel or raises.
+math); for CUDA tensors it launches the kernel or raises. The one-pass and
+fused kernels also take float32 through the cast passes of ``convert.py``
+(bf16 operands, fp32 accumulators, a float32 result); tiny-L takes bf16
+only. The one-pass and tiny-L wrappers are differentiable, with the JAX
+package's ``_flash_sdpa`` adjoints on recomputed float32 probabilities
+(``autograd.FlashSdpa``); the fused kernel has no gradient, as in the JAX
+package, and on the card raises where one is asked of it.
 """
 
 from __future__ import annotations
@@ -38,8 +44,10 @@ import functools
 
 import torch
 
+from .. import kernels
 from ..attention import plain_sdpa
-from . import _build, count_launch
+from . import _build, convert, count_launch
+from .autograd import FlashSdpa
 
 # instantiated in csrc/: the shapes the repository's configurations reach
 # (UNet attention at 128 and 256 model channels, AE dim_head 64, 16 frames);
@@ -68,27 +76,36 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_bf16(what: str, q, k, v, kv_shape):
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the {what} kernel takes bf16, got {q.dtype}")
+def _operands(what: str, q, k, v, kv_shape, float32_ok: bool):
+    """q, k, v as the kernel reads them (bf16, contiguous, 16-byte aligned;
+    float32 cast by ``convert.to_bf16`` where ``float32_ok``) and whether
+    the result goes back to float32."""
+    dtypes = (torch.bfloat16, torch.float32) if float32_ok else (torch.bfloat16,)
+    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the {what} kernel takes "
+                        f"{'bf16 or float32' if float32_ok else 'bf16'}, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if tuple(k.shape) != kv_shape or tuple(v.shape) != kv_shape:
         raise ValueError(f"the {what} kernel needs k and v of shape "
                          f"{kv_shape}, got {tuple(k.shape)} and "
                          f"{tuple(v.shape)}")
+    f32 = q.dtype == torch.float32
+    if f32:
+        q, k, v = (convert.to_bf16(t) for t in (q, k, v))
     q, k, v = (t.contiguous() for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("kernel operands must be 16-byte aligned")
-    return q, k, v
+    return q, k, v, f32
 
 
 def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     """The one-pass and the fused wrapper's checks and launch (the one-pass
     kernel is the fused one at Nq = Nk): q [B, Nq, D] over k, v [B, nk, D]
-    bf16 → [B, Nq, D]. Head dims as built; at 64, above 1152 keys (where K
-    streams through a ring instead of staying in shared memory) only whole
-    128-key tiles."""
+    bf16 → [B, Nq, D] bf16, or float32 → float32. Head dims as built; at
+    64, above 1152 keys (where K streams through a ring instead of staying
+    in shared memory) only whole 128-key tiles."""
     b, nq, d = q.shape
-    q, k, v = _check_bf16(what, q, k, v, (b, nk, d))
+    q, k, v, f32 = _operands(what, q, k, v, (b, nk, d), float32_ok=True)
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"{what} kernel built for head dims "
                                   f"{HEAD_DIMS}, not {d}")
@@ -99,24 +116,29 @@ def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     lib = _lib()
     status = lib.fused_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
-        d, scale, torch.cuda.current_stream(q.device).cuda_stream)
+        d, scale, kernels.cuda_stream(q))
     _build.check(lib, status, f"{what} attention")
-    return out
+    return convert.to_float32(out) if f32 else out
 
 
 def onepass_attention_cuda(q, k, v, scale: float):
-    """Kernel launch: q, k, v [B, N, D] bf16 → [B, N, D]."""
+    """Kernel launch: q, k, v [B, N, D] bf16 or float32 → [B, N, D] of the
+    same dtype."""
     out = _attention_cuda("one-pass", q, k, v, scale, q.shape[1])
     count_launch("onepass_attention", q.shape)
     return out
 
 
+def _onepass_forward(q, k, v, scale: float):
+    if not kernels.on_card(q):
+        return onepass_attention_reference(q, k, v, scale)
+    return onepass_attention_cuda(q, k, v, scale)
+
+
 def onepass_attention(q, k, v, scale: float):
     """Attention on [B, N, D] at a shape ``onepass_attention_viable``
-    accepts."""
-    if not q.is_cuda:
-        return onepass_attention_reference(q, k, v, scale)
-    return onepass_attention_cuda(q, k, v, float(scale))
+    accepts; differentiable in q, k and v."""
+    return FlashSdpa.apply(q, k, v, float(scale), _onepass_forward)
 
 
 # ------------------------------------------------------------------ tiny-L
@@ -142,7 +164,7 @@ def _tiny_lib() -> ctypes.CDLL:
 def tiny_attention_cuda(q, k, v, scale: float):
     """Kernel launch: q, k, v [B, L, D] bf16 → [B, L, D]."""
     b, l, d = q.shape
-    q, k, v = _check_bf16("tiny-L", q, k, v, (b, l, d))
+    q, k, v, _ = _operands("tiny-L", q, k, v, (b, l, d), float32_ok=False)
     if (l, d) not in TINY_SHAPES:
         raise NotImplementedError(f"tiny-L kernel built for (L, head dim) "
                                   f"{TINY_SHAPES}, not {(l, d)}")
@@ -150,17 +172,22 @@ def tiny_attention_cuda(q, k, v, scale: float):
     lib = _tiny_lib()
     status = lib.tiny_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, d,
-        scale, torch.cuda.current_stream(q.device).cuda_stream)
+        scale, kernels.cuda_stream(q))
     _build.check(lib, status, "tiny_attention")
     count_launch("tiny_attention", q.shape)
     return out
 
 
-def tiny_attention(q, k, v, scale: float):
-    """Attention on [B, L, D] at a shape ``tiny_attention_viable`` accepts."""
-    if not q.is_cuda:
+def _tiny_forward(q, k, v, scale: float):
+    if not kernels.on_card(q):
         return tiny_attention_reference(q, k, v, scale)
-    return tiny_attention_cuda(q, k, v, float(scale))
+    return tiny_attention_cuda(q, k, v, scale)
+
+
+def tiny_attention(q, k, v, scale: float):
+    """Attention on [B, L, D] at a shape ``tiny_attention_viable`` accepts;
+    differentiable in q, k and v."""
+    return FlashSdpa.apply(q, k, v, float(scale), _tiny_forward)
 
 
 # ------------------------------------------------------------------ K-blocked
@@ -175,7 +202,12 @@ fused_attention_reference = onepass_attention_reference  # the same plain math
 
 
 def fused_attention_cuda(q, k, v, scale: float):
-    """Kernel launch: q [B, Nq, D], k, v [B, Nk, D] bf16 → [B, Nq, D]."""
+    """Kernel launch: q [B, Nq, D], k, v [B, Nk, D] bf16 or float32 →
+    [B, Nq, D] of the same dtype. No gradient: raises where one is asked."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("the fused kernel has no gradient (the JAX "
+                           "package's sdpa_fused has no custom_vjp): call it "
+                           "under torch.no_grad(), or use sdpa")
     b, nq, d = q.shape
     nk = k.shape[1]
     out = _attention_cuda("fused", q, k, v, scale, nk)
@@ -193,6 +225,7 @@ def fused_attention(q, k, v, scale: float | None = None):
     At a shape that tiles, a CUDA tensor launches the kernel or raises."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if not fused_attention_tiles(k.shape[1], q.shape[-1]) or not q.is_cuda:
+    if (not fused_attention_tiles(k.shape[1], q.shape[-1])
+            or not kernels.on_card(q)):
         return fused_attention_reference(q, k, v, scale)
     return fused_attention_cuda(q, k, v, float(scale))

@@ -14,7 +14,10 @@ and 2048 (and held back by the softmax's ``ex2`` before that).
 For a tensor on the CPU the wrapper runs the plain version
 (``packed_attention_reference``); for a CUDA tensor it launches the kernel
 or raises. At shapes the gate rejects it runs the plain head-split math, as
-the JAX package runs XLA's there.
+the JAX package runs XLA's there. A float32 qkv takes the float32 route of
+``convert.py`` (bf16 operands, fp32 accumulators, a float32 result). The
+gradient recomputes through the plain version (``autograd.py``), as the
+JAX package's ``custom_vjp`` does.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ import os
 
 import torch
 
+from .. import kernels
 from ..attention import plain_sdpa, sdpa
-from . import _build, count_launch
+from . import _build, convert, count_launch
+from .autograd import RecomputeThroughPlain
 
 _LANES = 128
 # instantiated in csrc/packed_attention.cu: the gate's head dim
@@ -81,10 +86,14 @@ def _lib() -> ctypes.CDLL:
 
 
 def packed_attention_cuda(qkv, heads: int, scale: float):
-    """Kernel launch: qkv [B, L, 3C] bf16 → [B, L, C]."""
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the packed-attention kernel takes bf16 qkv, got "
-                        f"{qkv.dtype}")
+    """Kernel launch: qkv [B, L, 3C] bf16 → [B, L, C] bf16; float32 qkv
+    through the cast passes of ``convert.py`` → float32."""
+    dtype = qkv.dtype
+    if dtype == torch.float32:
+        qkv = convert.to_bf16(qkv)
+    elif dtype != torch.bfloat16:
+        raise TypeError(f"the packed-attention kernel takes bf16 or float32 "
+                        f"qkv, got {dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     b, l, c3 = qkv.shape
@@ -99,10 +108,10 @@ def packed_attention_cuda(qkv, heads: int, scale: float):
     lib = _lib()
     status = lib.packed_attention(
         qkv.data_ptr(), out.data_ptr(), b, l, heads, c // heads, scale,
-        torch.cuda.current_stream(qkv.device).cuda_stream)
+        kernels.cuda_stream(qkv))
     _build.check(lib, status, "packed_attention")
     count_launch("packed_attention", qkv.shape)
-    return out
+    return convert.to_float32(out) if dtype == torch.float32 else out
 
 
 def packed_attention(qkv, heads: int, scale: float):
@@ -111,6 +120,14 @@ def packed_attention(qkv, heads: int, scale: float):
     c = c3 // 3
     if not packed_attention_viable(l, c, heads):
         return packed_attention_reference(qkv, heads, scale, use_flash=True)
-    if not qkv.is_cuda:
-        return packed_attention_reference(qkv, heads, scale)
-    return packed_attention_cuda(qkv, heads, float(scale))
+    scale = float(scale)
+
+    def plain(t):
+        return packed_attention_reference(t, heads, scale)
+
+    def forward(t):
+        if not kernels.on_card(t):
+            return plain(t)
+        return packed_attention_cuda(t, heads, scale)
+
+    return RecomputeThroughPlain.apply(qkv, forward, plain)

@@ -21,6 +21,13 @@ the K ring (N = 1280, 2048). The fused kernel is held at every edge its two
 tiles mask: ragged query chunks (Nq = 1, 100, 1100), key tiles short of 128
 (Nk = 8 … 120), one whole key tile (Nk = 128), Nq != Nk on both sides of the
 resident-K limit, and D = 16, 32 and 64.
+
+The space, time, packed and one-pass kernels also take float32 (cast passes
+in front and behind, ``ops/kernels/convert.py``), held to the same limits
+against the float32 plain version at the training shapes and smaller; and
+each differentiable wrapper's gradient (its ``autograd.Function``: kernel
+forward, plain recompute backward) is held against autograd through the
+plain version.
 """
 
 import pytest
@@ -193,3 +200,154 @@ def test_sdpa_routes_launch_their_kernels(gen):
     mask = torch.ones(64, 512, dtype=torch.bool, device="cuda")
     attention.sdpa(q, k, v, scale=0.125, mask=mask)
     assert LAUNCHES == before
+
+
+# ------------------------------------------------------------ float32
+def _randn32(gen, *shape):
+    return torch.randn(shape, generator=gen, device="cuda")
+
+
+@pytest.mark.cuda
+def test_float32_casts_are_exact(gen):
+    """``convert.to_bf16`` rounds as PyTorch does (to nearest even),
+    ``to_float32`` is exact; an unaligned view is copied first; a size that
+    is not a multiple of 8 raises."""
+    from moditalker_tpu_torch.ops.kernels import convert
+
+    x = _randn32(gen, 3, 1000, 40) * 100
+    assert torch.equal(convert.to_bf16(x), x.bfloat16())
+    y = x.bfloat16()
+    assert torch.equal(convert.to_float32(y), y.float())
+    view = x.flatten()[1:8001]          # 4 bytes off a 16-byte boundary
+    assert torch.equal(convert.to_bf16(view), view.bfloat16())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        convert.to_bf16(x.flatten()[:12])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis,b,f,n,heads", [
+    ("space", 2, 2, 1024, 8), ("space", 1, 1, 2048, 2),
+    ("time", 2, 16, 128, 2), ("time", 1, 16, 1024, 8)])
+def test_divided_kernels_take_float32(gen, axis, b, f, n, heads):
+    """A float32 qkv goes through the kernel (bf16 operands, fp32
+    accumulators) to a float32 result, held to the limits against the
+    float32 plain version."""
+    dh = 64
+    tables = (rotary.axial_rotary_sincos(32, n // 32, dh) if axis == "space"
+              else rotary.time_rotary_sincos(f, dh))
+    sin, cos = (torch.from_numpy(t).cuda() for t in tables)
+    x = _randn32(gen, b, f, n, 3 * heads * dh)
+    name = f"divided_{axis}_attention"
+    got = _launched(name, lambda: tdiv.divided_attention(
+        x, sin, cos, axis, heads, dh, dh**-0.5))
+    assert got.dtype == torch.float32
+    want = tdiv.divided_attention_reference(x, sin, cos, axis, heads, dh,
+                                            dh**-0.5, use_flash=False)
+    check_bf16(name, got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,l", [(10, 2048), (10, 1024), (1, 1032)])
+def test_packed_kernel_takes_float32(gen, b, l):
+    x = _randn32(gen, b, l, 384)
+    got = _launched("packed_attention",
+                    lambda: tpack.packed_attention(x, 8, 0.25))
+    assert got.dtype == torch.float32
+    check_bf16("packed_attention", got,
+               tpack.packed_attention_reference(x, 8, 0.25))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d", [(80, 2048, 32), (4, 1024, 16),
+                                   (2, 1280, 64)])
+def test_onepass_kernel_takes_float32(gen, b, n, d):
+    q, k, v = (_randn32(gen, b, n, d) for _ in range(3))
+    got = _launched("onepass_attention",
+                    lambda: tflash.onepass_attention(q, k, v, d**-0.5))
+    assert got.dtype == torch.float32
+    check_bf16("onepass_attention", got,
+               tflash.onepass_attention_reference(q, k, v, d**-0.5))
+
+
+@pytest.mark.cuda
+def test_tiny_kernel_refuses_float32_and_fused_refuses_a_gradient(gen):
+    """Tiny-L takes bf16 only (no float32 row on any path); the fused kernel
+    has no gradient and raises where one is asked, never falling back."""
+    q = _randn32(gen, 4096, 16, 64)
+    with pytest.raises(TypeError, match="bf16"):
+        tflash.tiny_attention(q, q, q, 0.125)
+    x = _randn32(gen, 2, 256, 64).requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tflash.fused_attention(x, x, x)
+
+
+# ------------------------------------------------------------ gradients
+# the Function's input gradient against autograd through the plain version
+# (float32, TF32 off): the packed and divided backwards are the plain
+# version's own vjp, the one-pass and tiny-L ones the JAX package's adjoints
+GRAD_LIMIT = 1e-4
+
+
+def _check_gradient(gen, name, kern, plain, inputs, function):
+    """``kern`` launches its kernel once and returns the Function's
+    ``grad_fn``; its input gradients agree with autograd through the plain
+    version in float32 (matmul TF32 is off by default): within GRAD_LIMIT
+    for float32 inputs, within bf16's 2e-2 for bf16 ones."""
+    xs = [x.detach().requires_grad_() for x in inputs]
+    before = LAUNCHES[name]
+    out = kern(*xs)
+    assert LAUNCHES[name] == before + 1
+    assert type(out.grad_fn).__name__ == function
+    cot = torch.randn(out.shape, generator=gen, device="cuda").to(out.dtype)
+    got = torch.autograd.grad(out, xs, cot)
+    ref = [x.detach().float().requires_grad_() for x in inputs]
+    want = torch.autograd.grad(plain(*ref), ref, cot.float())
+    limit = GRAD_LIMIT if out.dtype == torch.float32 else 2e-2
+    for a, b in zip(got, want):
+        assert a.dtype == out.dtype
+        err = ((a.float() - b).abs().max() / b.abs().max()).item()
+        assert err <= limit, (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["space", "time"])
+def test_divided_gradient_on_the_card(gen, axis):
+    dh, heads, f, n = 64, 8, 16, 1024
+    tables = (rotary.axial_rotary_sincos(32, 32, dh) if axis == "space"
+              else rotary.time_rotary_sincos(f, dh))
+    sin, cos = (torch.from_numpy(t).cuda() for t in tables)
+    _check_gradient(
+        gen, f"divided_{axis}_attention",
+        lambda x: tdiv.divided_attention(x, sin, cos, axis, heads, dh,
+                                         dh**-0.5),
+        lambda x: tdiv.divided_attention_reference(
+            x, sin, cos, axis, heads, dh, dh**-0.5, use_flash=False),
+        [_randn32(gen, 1, f, n, 3 * heads * dh)],
+        "RecomputeThroughPlainBackward")
+
+
+@pytest.mark.cuda
+def test_packed_gradient_on_the_card(gen):
+    _check_gradient(
+        gen, "packed_attention",
+        lambda x: tpack.packed_attention(x, 8, 0.25),
+        lambda x: tpack.packed_attention_reference(x, 8, 0.25),
+        [_randn32(gen, 2, 2048, 384)], "RecomputeThroughPlainBackward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape,dtype", [
+    ("onepass_attention", (16, 2048, 32), torch.float32),
+    ("onepass_attention", (8, 1024, 64), torch.float32),
+    ("tiny_attention", (4096, 16, 64), torch.bfloat16)])
+def test_flash_gradient_on_the_card(gen, name, shape, dtype):
+    """One-pass in float32; tiny-L (bf16 only) against the float32 plain
+    gradient within bf16's reach."""
+    fn = {"onepass_attention": tflash.onepass_attention,
+          "tiny_attention": tflash.tiny_attention}[name]
+    sc = shape[-1] ** -0.5
+    _check_gradient(
+        gen, name, lambda *x: fn(*x, sc),
+        lambda *x: tflash.onepass_attention_reference(*x, sc),
+        [_randn32(gen, *shape).to(dtype) for _ in range(3)],
+        "FlashSdpaBackward")

@@ -264,11 +264,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="head dim 64"):
         kv = torch.zeros(2, 1160, 64, dtype=torch.bfloat16)
         tflash.fused_attention_cuda(x, kv, kv, 1.0)
-    # one-pass: bf16 only, built head dims only, and at head dim 64 (the
-    # wgmma tile) above 1152 rows only rows that tile by 128
-    x = torch.zeros(2, 1024, 32)
-    with pytest.raises(TypeError, match="bf16"):
+    # one-pass: bf16 or float32 (cast on the card), built head dims only,
+    # and at head dim 64 (the wgmma tile) above 1152 rows only rows that
+    # tile by 128
+    x = torch.zeros(2, 1024, 32, dtype=torch.float16)
+    with pytest.raises(TypeError, match="bf16 or float32"):
         tflash.onepass_attention_cuda(x, x, x, 1.0)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        tflash.onepass_attention_cuda(x.float(), x.float(), x, 1.0)
     with pytest.raises(NotImplementedError, match="one-pass kernel built for"):
         x = torch.zeros(2, 1024, 48, dtype=torch.bfloat16)
         tflash.onepass_attention_cuda(x, x, x, 1.0)
@@ -276,9 +279,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match="head dim 64"):
             x = torch.zeros(2, n, 64, dtype=torch.bfloat16)
             tflash.onepass_attention_cuda(x, x, x, 1.0)
-    # packed: bf16, contiguous q|k|v thirds of whole heads, dh = 16
-    with pytest.raises(TypeError, match="bf16"):
-        tpack.packed_attention_cuda(torch.zeros(1, 1024, 384), 8, 0.25)
+    # packed: bf16 or float32, contiguous q|k|v thirds of whole heads,
+    # dh = 16
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        tpack.packed_attention_cuda(
+            torch.zeros(1, 1024, 384, dtype=torch.float16), 8, 0.25)
     qkv = torch.zeros(1, 1024, 384, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="contiguous"):
         tpack.packed_attention_cuda(qkv[:, ::2], 8, 0.25)

@@ -211,6 +211,26 @@ def test_bf16_limits_pass_rounding_and_catch_a_wrong_head(name):
         tkernels.check_bf16(name, swapped, plain)
 
 
+@pytest.mark.parametrize("name", sorted(tkernels.QUANTILE_LIMITS))
+def test_quantile_measure_alone_catches_a_wrong_head(name):
+    """The 0.999 quantile of |err| / max |plain| is below its limit for a
+    bf16 rounding of the plain output and far above it for two heads
+    swapped, and one wrong element does not move it: the measure no single
+    element decides still fails a wrong kernel on its own."""
+    rng = np.random.default_rng(0)
+    qkv = _t(rng.normal(size=(1, 1024, 384)))
+    plain = tpack.packed_attention_reference(qkv, 8, 0.25)
+    limit = tkernels.QUANTILE_LIMITS[name]
+    assert tkernels.relative_errors(plain.bfloat16(), plain)[2] < limit / 2
+    swapped = torch.cat([plain[..., 16:32], plain[..., :16], plain[..., 32:]],
+                        dim=-1)
+    assert tkernels.relative_errors(swapped, plain)[2] > 10 * limit
+    one_off = plain.clone()
+    one_off[0, 5, 7] += plain.abs().max()
+    rel_max, _, rel_q = tkernels.relative_errors(one_off, plain)
+    assert rel_max >= 1.0 and rel_q == 0.0
+
+
 # ---- host-side helpers of the space kernel: what the kernel will read
 
 @pytest.mark.parametrize("h,w,dim", [(32, 32, 64), (16, 16, 64), (32, 64, 64)])
