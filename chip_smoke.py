@@ -597,7 +597,10 @@ def gradient_phase(torch, seed: int) -> list[dict]:
     must have launched once; its input gradients must agree with autograd
     through the plain version within GRAD_LIMIT. Packed and one-pass at the
     shapes train-diffusion's UNet gives them, space and time at B = 1 (the
-    frozen AEs run them forward only)."""
+    frozen AEs run them forward only). The packed, space and time backwards
+    are the plain version's vjp, so for them this checks the wiring only;
+    one-pass's backward is ``sdpa_adjoints``, written out, an independent
+    computation."""
     from moditalker_tpu_torch.ops import rotary
     from moditalker_tpu_torch.ops.kernels import LAUNCHES
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
@@ -1646,10 +1649,6 @@ def main() -> int:
                     help="stop after the build, kernels and gradient "
                          "phases (a short check of a kernel change; prints "
                          "no result line)")
-    ap.add_argument("--train-only", action="store_true",
-                    help="the build, kernels and gradient phases, then only "
-                         "the train-diffusion and train-atom phases (prints "
-                         "no result line)")
     args = ap.parse_args()
 
     import torch
@@ -1691,10 +1690,6 @@ def main() -> int:
     rows = kernel_phase(torch, batch=2, seed=args.seed)
     grads = gradient_phase(torch, args.seed)
     if args.kernels_only:
-        return 0
-    if args.train_only:
-        train_diffusion_phase(torch, args.seed)
-        train_atom_phase(torch, args.seed)
         return 0
     reference_phase(torch, args.seed, "fused", FUSED_PATH)
     with modular_attention():
