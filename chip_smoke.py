@@ -105,7 +105,25 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              launch; three steps at batch 8 on the card against the CPU
              (losses within ATOM_LIMIT, parameters within ATOM_PARAM_LIMIT
              but at ill-conditioned Adan elements, which are counted);
-11. profile — one UNet step, one extract and one decode at B = 2: host
+11. train-first-stage — ``FirstStageTrainer.fit`` at base_gan.yaml's
+             operating point (AE 384 wide, depth 8, 256² × 16 frames;
+             LPIPS-VGG16, 2D and 3D PatchGANs ndf 64, 3 layers; disc_start
+             −1, so G and D alternate every cycle; B = 1, accumulation 3,
+             float32, a synthetic clip, weights from ``--seed``): one G and
+             one D cycle untimed, two of each timed (iterations/s, clips/s,
+             peak memory, launches by shape: the divided space and time
+             kernels and no other), G and D micro-steps timed apart, one G
+             step traced with the device time of the space and time
+             backwards (the plain version's vjp, recomputed) in it; then a
+             G and a D cycle at small depth but full spatial size on the
+             card against the CPU (same weights, clips and frame draws)
+             within FIRST_STAGE_LIMITS, and the G cycle with the gradient
+             cut at the attentions, which must fall outside them;
+12. i3d    — InceptionI3d (random He-scaled weights) on [2, 16, 224, 224, 3]
+             on the card against the CPU within I3D_LIMIT, and the FVD
+             between two sets of 8 synthetic clips through the card's I3D
+             against the CPU's within FVD_LIMIT;
+13. profile — one UNet step, one extract and one decode at B = 2: host
              time, the device's busy time and top kernels (torch.profiler).
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
@@ -213,6 +231,34 @@ TRAIN_LIMITS = {"loss": 3e-5, "grad": 1e-3, "update": 5e-2}
 ATOM_PARAM_LIMIT = 2e-4
 ADAN_ILL = 1e-4
 ADAN_BIG = 25
+
+# which kernels the first-stage trainer launches: its AE's divided space and
+# time attention (the AE's pooling transformer, LPIPS and the
+# discriminators reach none)
+FIRST_STAGE_PATH = {"divided_space_attention", "divided_time_attention"}
+
+# one first-stage G cycle and D cycle at a small depth (float32, TF32 off)
+# on the card against the CPU: relative errors of the loss terms (largest
+# over the micro-steps), and of the AE's and the discriminators' mean
+# gradients (the discriminators' clipped per micro-step) and updates over
+# all their parameters (L2 of the difference over L2 of the CPU's). The
+# card's attentions run bf16 operands with fp32 accumulators; LPIPS's max
+# pools route a gradient to whichever element of a near-tied window the
+# rounding favours; AdamW's first step moves each element by about lr in
+# the direction of its gradient's sign, so the updates count the signs
+# rounding flips. About twice the readings on an H100 (2.01e-4, 8.65e-3,
+# 0.199, 1.64e-2, 0.111); the G cycle with the gradient cut at the
+# attentions reads 0.549 and 0.755 on the AE's gradient and update, and
+# must exceed these.
+FIRST_STAGE_LIMITS = {"loss": 4e-4, "ae_grad": 1.7e-2, "ae_update": 0.4,
+                      "disc_grad": 3.3e-2, "disc_update": 0.22}
+
+# InceptionI3d on the card vs the CPU, float32, TF32 off: max abs difference
+# of the logits over max |cpu|; and the relative difference of the FVD of
+# two synthetic sets through each. About twice the readings on an H100
+# (2.49e-6, 2.09e-6)
+I3D_LIMIT = 5e-6
+FVD_LIMIT = 5e-6
 
 H100_BF16_FLOPS = 989e12
 H100_FP32_FLOPS = 67e12     # float32 outside the tensor cores (TF32 is off)
@@ -537,6 +583,25 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
              packed_row(tb, l, g=gen_f32, dtype=torch.float32),
              packed_row(tb, 1024, g=gen_f32, dtype=torch.float32),
              onepass_row(tb * heads, l, 32, g=gen_f32, dtype=torch.float32)]
+    # float32 at B = 1, the shape train-first-stage gives them: its AE
+    # trains through them, so beside each row the backward of one call as
+    # RecomputeThroughPlain runs it (the plain version recomputed, then its
+    # vjp), which a backward kernel would replace
+    gen_fs = torch.Generator(device=dev).manual_seed(seed + 5)
+    for axis in ("space", "time"):
+        row = divided_row(axis, 1, f, n, g=gen_fs, dtype=torch.float32)
+        sin, cos = (tables(rotary.axial_rotary_sincos(32, n // 32, dh))
+                    if axis == "space" else (t_sin, t_cos))
+        x = torch.randn((1, f, n, 3 * hd), generator=gen_fs,
+                        device=dev).requires_grad_()
+        cot = torch.randn((1, f, n, hd), generator=gen_fs, device=dev)
+        plain = lambda t, sin=sin, cos=cos, axis=axis: \
+            dv.divided_attention_reference(t, sin, cos, axis, heads, dh,
+                                           scale, use_flash=False)
+        row["plain_backward_ms"] = device_ms(
+            torch, lambda: torch.autograd.grad(plain(x), x, cot))
+        rows.append(row)
+        del x, cot
 
     # the cast passes' share of each float32 row: the time of convert.py's
     # two passes alone on tensors of the row's input and output sizes
@@ -587,6 +652,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             + (f", {row['design']}" if "design" in row else "")
             + (f", of which the cast passes {row['cast_ms']:.4f} ms"
                if "cast_ms" in row else "")
+            + (f"; the plain version's backward of one call "
+               f"{row['plain_backward_ms']:.4f} ms"
+               if "plain_backward_ms" in row else "")
             + (f", before the redesign {before:.4f} ms" if before else ""))
     return rows
 
@@ -974,6 +1042,245 @@ def align_adan(torch, card, cpu, step: int, before: dict) -> int:
                 for k in ("m", "v", "n", "prev_grad"):
                     st_p[k][idx] = st_q[k].to(p.device)[idx]
     return aligned
+
+
+@contextlib.contextmanager
+def plain_backward_events(torch):
+    """Every ``RecomputeThroughPlain`` backward in the block between two CUDA
+    events: yields the list of (start, end) pairs."""
+    from moditalker_tpu_torch.ops.kernels.autograd import \
+        RecomputeThroughPlain as fn
+
+    events, kept = [], vars(fn)["backward"]
+
+    def backward(ctx, g):
+        pair = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        pair[0].record()
+        out = kept.__func__(ctx, g)
+        pair[1].record()
+        events.append(pair)
+        return out
+
+    fn.backward = staticmethod(backward)
+    try:
+        yield events
+    finally:
+        fn.backward = kept
+
+
+def first_stage_check(torch, seed: int) -> dict:
+    """One G cycle and one D cycle of ``FirstStageTrainer`` at a small depth
+    but the full spatial size (AE 64 wide, depth 1, 2 heads of 64, so that
+    the space and time gates pass; the published discriminators and full
+    LPIPS-VGG16; B = 1, accumulation 3, disc_start −1) on the card and on
+    the CPU from the same weights, clips and frame draws, float32: every
+    loss term, the mean gradients and the updates within
+    FIRST_STAGE_LIMITS; the same G cycle with the gradient cut at the
+    attentions (``gradient_cut``) outside them. The card launches the space
+    and time kernels and no other."""
+    from moditalker_tpu_torch.config import (MtovAEConfig, MtovLossConfig,
+                                             MtovTrainConfig)
+    from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.train.mtov_first_stage import FirstStageTrainer
+
+    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=2, dim_head=64,
+                          quant_depth=1, quant_heads=2, quant_mlp_dim=64)
+    loss_cfg, tc = MtovLossConfig(disc_start=-1), MtovTrainConfig(seed=seed)
+    k = tc.accum_iter
+    videos = [synthetic_mtov_batch(1, ae_cfg.timesteps, ae_cfg.resolution,
+                                   seed + i)["x"] for i in range(k)]
+    g = torch.Generator().manual_seed(seed)
+    draws = [torch.randint(0, ae_cfg.timesteps, (1,), generator=g)
+             for _ in range(2 * k)]
+
+    def params(tr, what):
+        nets = {"ae": [tr.ae], "disc": [tr.disc2d, tr.disc3d]}[what]
+        return {f"{i}.{n}": p for i, m in enumerate(nets)
+                for n, p in m.named_parameters()}
+
+    def cycles(device, cut=False):
+        tr = FirstStageTrainer(ae_cfg, loss_cfg, tc, device=device)
+        before = {w: {n: p.detach().cpu().clone()
+                      for n, p in params(tr, w).items()}
+                  for w in ("ae", "disc")}
+        out = {"losses": []}
+        reset_launch_counts()
+        with gradient_cut() if cut else contextlib.nullcontext():
+            for i in range(k if cut else 2 * k):
+                m = tr.step(videos[i % k], draws[i])
+                out["losses"].append({n: v.item() for n, v in m.items()})
+        out["launches"] = launches_by_shape()
+        for w in ("ae",) if cut else ("ae", "disc"):
+            now = params(tr, w)
+            out[f"{w}_grad"] = {n: p.grad.cpu() for n, p in now.items()}
+            out[f"{w}_update"] = {n: p.detach().cpu() - before[w][n]
+                                  for n, p in now.items()}
+        return out
+
+    def rel(a, b):
+        num = sum(float((a[n] - b[n]).square().sum()) for n in b)
+        den = sum(float(b[n].square().sum()) for n in b)
+        return (num / den) ** 0.5
+
+    cpu = cycles("cpu")
+    result = {}
+    for label, cut in (("card", False), ("card, gradient cut", True)):
+        card = cycles("cuda", cut)
+        errs = {"loss": max(abs(a[n] - b[n]) / abs(b[n])
+                            for a, b in zip(card["losses"], cpu["losses"])
+                            for n in b)}
+        for w in ("ae",) if cut else ("ae", "disc"):
+            for q in ("grad", "update"):
+                errs[f"{w}_{q}"] = rel(card[f"{w}_{q}"], cpu[f"{w}_{q}"])
+        within = all(errs[n] <= FIRST_STAGE_LIMITS[n] for n in errs)
+        log(f"train-first-stage G{'' if cut else ' and D'} cycle at small "
+            f"depth ({label}) vs cpu, float32: relative errors {errs} "
+            f"(limits {FIRST_STAGE_LIMITS}); launches {card['launches']}")
+        if cut == within:
+            raise AssertionError(
+                f"train-first-stage ({label}): " + (
+                    "the G cycle with the gradient cut at the attentions "
+                    "passes the card-vs-cpu limits" if cut else
+                    "the card's cycles disagree with the cpu's"))
+        if not cut and set(card["launches"]) != FIRST_STAGE_PATH:
+            raise AssertionError(f"train-first-stage cycles: launches "
+                                 f"{card['launches']}")
+        result[label] = errs
+    return result
+
+
+def train_first_stage_phase(torch, seed: int) -> dict:
+    """``FirstStageTrainer.fit`` at configs/autoencoder/base_gan.yaml's
+    operating point (config.py's AE: 384 wide, depth 8, 256² × 16 frames;
+    disc_start −1; B = batch_size = 1, accum_iter = 3; float32), weights
+    from ``seed``, on a synthetic clip: one G and one D cycle untimed, then
+    two of each timed (iterations/s, clips/s, peak memory, launches by
+    shape: the divided space and time kernels and no other), every loss
+    finite; each micro-step of one more G and D cycle timed apart; one G
+    step traced, with the device time of the space and time backwards in
+    it (``plain_backward_events``); then ``first_stage_check``."""
+    import itertools
+
+    from moditalker_tpu_torch.config import (MtovAEConfig, MtovLossConfig,
+                                             MtovTrainConfig)
+    from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.train.mtov_first_stage import FirstStageTrainer
+
+    ae_cfg, tc = MtovAEConfig(), MtovTrainConfig(seed=seed)
+    trainer = FirstStageTrainer(ae_cfg, MtovLossConfig(disc_start=-1), tc)
+    b, k, cycles = tc.batch_size, tc.accum_iter, 2
+    batch = synthetic_mtov_batch(b, ae_cfg.timesteps, ae_cfg.resolution, seed)
+
+    class Losses:
+        def __init__(self):
+            self.seen = []
+
+        def log_scalars(self, step, scalars):
+            self.seen.append(scalars)
+
+    losses = Losses()
+    trainer.fit(itertools.repeat(batch), max_steps=2 * k, logger=losses,
+                log_every=1, eval_every=10**9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    iters = 2 * k * cycles
+    t0 = time.perf_counter()
+    trainer.fit(itertools.repeat(batch), max_steps=2 * k + iters,
+                logger=losses, log_every=1, eval_every=10**9)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = check_launches("train-first-stage", FIRST_STAGE_PATH)
+    by_shape = launches_by_shape()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    values = [v for row in losses.seen for v in row.values()]
+    if len(losses.seen) != 2 * k + iters or not np.isfinite(values).all():
+        raise AssertionError(f"train-first-stage: losses {losses.seen}")
+    video = trainer.to_device(batch["x"])
+    step_ms = {"g": [], "d": []}
+    for _ in range(2 * k):
+        kind = "d" if trainer._disc_phase else "g"
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.step(video)
+        torch.cuda.synchronize()
+        step_ms[kind].append((time.perf_counter() - t) * 1e3)
+    with plain_backward_events(torch) as events:
+        traced = trace(torch, lambda: trainer.step(video))
+    backward_ms = sum(s.elapsed_time(e) for s, e in events)
+    share = backward_ms / traced["device_busy_ms"]
+    per_iter = {n: c / iters for n, c in counts.items() if c}
+    g_ms, d_ms = (float(np.mean(step_ms[n])) for n in ("g", "d"))
+    log(f"train-first-stage (full width, B = {b}, accumulation {k}, "
+        f"float32): {iters} iterations ({cycles} G and {cycles} D cycles) "
+        f"in {dt:.3f} s = {iters / dt:.4f} iterations/s = "
+        f"{iters * b / dt:.4f} clips/s; G micro-step {g_ms:.2f} ms, D "
+        f"micro-step {d_ms:.2f} ms (each {step_ms}); peak memory "
+        f"{peak:.2f} GiB; launches per iteration {per_iter}, by shape over "
+        f"the {iters} iterations {by_shape}; last losses {losses.seen[-2:]}")
+    log_trace("train-first-stage G step (clip on the card)", traced)
+    log(f"train-first-stage G step: {len(events)} space and time backwards "
+        f"(the plain version's vjp, recomputed) take {backward_ms:.2f} ms of "
+        f"its {traced['device_busy_ms']:.2f} ms device time ({share:.3f})")
+    del trainer, video
+    torch.cuda.empty_cache()
+    check = first_stage_check(torch, seed)
+    return {"launches": counts, "launches_by_shape": by_shape,
+            "iterations_per_s": iters / dt, "clips_per_s": iters * b / dt,
+            "g_step_ms": g_ms, "d_step_ms": d_ms, "peak_gib": peak,
+            "plain_backward_ms": backward_ms,
+            "plain_backward_share": share, "card_vs_cpu": check,
+            "trace": traced}
+
+
+def i3d_phase(torch, seed: int) -> dict:
+    """InceptionI3d in float32 with random He-scaled weights: logits of
+    [2, 16, 224, 224, 3] clips on the card against the CPU (within
+    I3D_LIMIT), and the FVD of two sets of 8 synthetic clips through each
+    (within FVD_LIMIT of each other); no kernel launch."""
+    from moditalker_tpu_torch.evals.fvd import frechet_distance
+    from moditalker_tpu_torch.evals.i3d import InceptionI3d, i3d_apply
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+
+    model = InceptionI3d()
+    _he_init(torch, model, torch.Generator().manual_seed(seed))
+    cpu = model.eval()
+    card = InceptionI3d().cuda().eval()
+    card.load_state_dict(cpu.state_dict())
+    on_card, on_cpu = i3d_apply(card), i3d_apply(cpu)
+    rng = np.random.default_rng(seed)
+    reset_launch_counts()
+    x = rng.uniform(-1, 1, (2, 16, 224, 224, 3)).astype(np.float32)
+    want = on_cpu(x)
+    err = rel_err(on_card(x), want)
+    real = rng.uniform(-1, 1, (8, 16, 224, 224, 3)).astype(np.float32)
+    fake = np.clip(0.8 * real + rng.normal(scale=0.2, size=real.shape),
+                   -1, 1).astype(np.float32)
+
+    def embed(apply, videos):
+        return np.concatenate([apply(videos[i:i + 4])
+                               for i in range(0, len(videos), 4)])
+
+    fvds = {name: frechet_distance(embed(apply, real), embed(apply, fake))
+            for name, apply in (("card", on_card), ("cpu", on_cpu))}
+    fvd_err = abs(fvds["card"] - fvds["cpu"]) / abs(fvds["cpu"])
+    xt = torch.from_numpy(x).cuda()
+    with torch.inference_mode():
+        ms = device_ms(torch, lambda: card(xt))
+    counts = check_launches("i3d", set())
+    log(f"i3d: logits of [2, 16, 224, 224, 3] card vs cpu in float32, max "
+        f"abs err over max |cpu| {err:.3e} (limit {I3D_LIMIT}), max |cpu| "
+        f"{np.abs(want).max():.3f}; FVD of two sets of 8 clips: card "
+        f"{fvds['card']:.6f}, cpu {fvds['cpu']:.6f}, relative difference "
+        f"{fvd_err:.3e} (limit {FVD_LIMIT}); {ms:.2f} ms per call of 2 clips "
+        f"on the card; launches {counts}")
+    if not (err <= I3D_LIMIT and fvd_err <= FVD_LIMIT and fvds["cpu"] > 0):
+        raise AssertionError("i3d: the card disagrees with the CPU")
+    return {"card_vs_cpu_rel_max_err": err, "fvd": fvds,
+            "fvd_rel_err": fvd_err, "ms_per_2_clips": ms}
 
 
 # ------------------------------------------------------------------ models
@@ -1423,7 +1730,7 @@ def _he_init(torch, module, gen) -> None:
     this phase compares across devices need outputs that vary with the
     input."""
     for m in module.modules():
-        if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)):
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.Linear)):
             fan_in = m.weight[0].numel()
             with torch.no_grad():
                 m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
@@ -1704,6 +2011,8 @@ def main() -> int:
     align = align_phase(torch, args.seed, audio.pop("lm68_atom"))
     train_diff = train_diffusion_phase(torch, args.seed)
     train_atom = train_atom_phase(torch, args.seed)
+    first_stage = train_first_stage_phase(torch, args.seed)
+    i3d = i3d_phase(torch, args.seed)
     prof = profile_phase(torch, result.pop("pipe"), args.seed)
 
     timed = {path: counts for path, counts in result["launches"].items()
@@ -1714,6 +2023,7 @@ def main() -> int:
     timed["align"] = align["launches"]
     timed["train-diffusion"] = train_diff["launches"]
     timed["train-atom"] = train_atom["launches"]
+    timed["train-first-stage"] = first_stage["launches"]
     # one line entry per kernel: its first row, the shape its main path
     # gives it; the rows at its other shapes go under "other_shapes"
     kernels = {}
@@ -1723,14 +2033,16 @@ def main() -> int:
                 {k: row[k] for k in ("shape", "dtype", "max_abs_err",
                                      "rel_max_err", "rel_rms_err",
                                      "rel_q_err", "ms", "cast_ms",
-                                     "plain_ms", "library_ms", "bound_ms",
+                                     "plain_ms", "plain_backward_ms",
+                                     "library_ms", "bound_ms",
                                      "bound_by") if k in row})
             continue
         kernels[row["name"]] = row
         row["launches_by_path"] = {p: c[row["name"]] for p, c in timed.items()}
         row["launches"] = sum(row["launches_by_path"].values())
         by_path = {**result["launches_by_shape"],
-                   "train-diffusion": train_diff["launches_by_shape"]}
+                   "train-diffusion": train_diff["launches_by_shape"],
+                   "train-first-stage": first_stage["launches_by_shape"]}
         row["launches_by_shape"] = {
             p: by[row["name"]] for p, by in by_path.items()
             if "warm-up" not in p and row["name"] in by}
@@ -1761,6 +2073,11 @@ def main() -> int:
         "train_atom": {k: train_atom[k] for k in (
             "sequences_per_s", "card_vs_cpu_loss_rel_err", "adan_aligned",
             "parameters", "trace")},
+        "train_first_stage": {k: first_stage[k] for k in (
+            "iterations_per_s", "clips_per_s", "g_step_ms", "d_step_ms",
+            "peak_gib", "plain_backward_ms", "plain_backward_share",
+            "card_vs_cpu", "trace")},
+        "i3d": i3d,
         "gradients": grads, "card": card, "profile": prof}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

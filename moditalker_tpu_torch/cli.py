@@ -1,10 +1,11 @@
 """Command-line interface of the PyTorch port (port of the inference,
-preprocessing and second-stage training commands of
-``moditalker_tpu/cli.py``):
+preprocessing and training commands of ``moditalker_tpu/cli.py``):
 
   reference                                   | here
   --------------------------------------------------------------------
   AToM/train.py                               | train-atom
+  MToV/main.py --exp first_stage              | train-first-stage
+  MToV/main.py --exp first_stage_ldmk         | train-first-stage --landmark
   MToV/main.py --exp ddpm                     | train-diffusion
   MToV/sample.py                              | sample
   MToV/sample_crossID.py                      | sample --cross-id
@@ -13,6 +14,8 @@ preprocessing and second-stage training commands of
   data_utils/motion_align/align_face_recon.py | align-motion
   preprocess/process_video_3dmm_rollback_     | extract-keypoints
     hdtf_batchify.py                          |
+  data_utils/preprocess/unify_fps.py          | unify-fps
+  data_utils/preprocess/video2frame_hdtf.py   | video2frame
 
     python -m moditalker_tpu_torch.cli process-audio --audio a.wav --out h.npy
     python -m moditalker_tpu_torch.cli atom-infer --keypoint-dir ... --hubert ...
@@ -21,10 +24,13 @@ preprocessing and second-stage training commands of
     python -m moditalker_tpu_torch.cli sample --frames-dir ... --aligned-dir ...
 
     python -m moditalker_tpu_torch.cli train-atom --synthetic --steps 100
+    python -m moditalker_tpu_torch.cli train-first-stage --synthetic --steps 100
     python -m moditalker_tpu_torch.cli train-diffusion --synthetic --steps 100
+    python -m moditalker_tpu_torch.cli video2frame --src-root ... --out-dir ...
 
-Each runs on the card unless ``--device cpu`` is given. Checkpoints are
-``state_dict``s of the port's modules saved with ``torch.save``
+Each runs on the card unless ``--device cpu`` is given; ``unify-fps`` and
+``video2frame`` only run ffmpeg on the host and take no ``--device``.
+Checkpoints are ``state_dict``s of the port's modules saved with ``torch.save``
 (``utils/convert.py`` makes them from the JAX package's parameters); without
 a checkpoint ``sample``, ``atom-infer`` and ``process-audio`` draw the
 weights from ``--seed`` and print a WARNING (the JAX package's
@@ -33,7 +39,11 @@ package's, minus ``--data-parallel`` (one card) and the trainers' multi-host
 flags (``--coordinator``, ``--num-processes``, ``--process-id``), plus
 ``--device`` (and ``--seed`` for ``process-audio``). The trainers write the
 port's checkpoints (``core/checkpoint.py``: ``torch.save`` trees, one
-directory per step) and, at the end, the final state as one file.
+directory per step) and, at the end, the final state as one file; the
+first stage's (``ae_rgb.pt``, ``ae_ldmk.pt``) is what ``train-diffusion
+--ae-rgb / --ae-ldmk`` read. ``--i3d`` takes an I3D
+``state_dict`` (the port's, or the reference's ``i3d_pretrained_400.pt``:
+they share their keys).
 """
 
 from __future__ import annotations
@@ -119,6 +129,74 @@ def cmd_train_atom(args):
     return path
 
 
+# ----------------------------------------------------------- train-first-stage
+def _load_i3d(path: str, device):
+    """The ``i3d_apply`` of an I3D ``state_dict`` file on ``device``."""
+    from .evals.i3d import i3d_apply, load_i3d
+
+    return i3d_apply(load_i3d(path, device))
+
+
+def cmd_train_first_stage(args):
+    """First stage: the RGB autoencoder, or with ``--landmark`` the landmark
+    AE with its decoder frozen, against LPIPS and the 2D/3D PatchGANs (ref
+    MToV/main.py --exp first_stage[_ldmk] → tools/trainer.py:134-...), on
+    HDTF frames under ``--data-root`` or one synthetic batch repeated. The
+    PSNR probe (and with ``--i3d`` the reconstruction FVD) and a full-state
+    checkpoint every ``--eval-every`` iterations (ref trainer.py:232-257)."""
+    import itertools
+
+    from .core.checkpoint import CheckpointManager, save_single
+    from .core.logging import MetricLogger
+    from .core.preempt import GracefulStop
+    from .data.mtov_dataset import HDTFFramesDataset, synthetic_mtov_batch
+    from .evals.loops import eval_ae_psnr, eval_ae_rfvd
+    from .train.mtov_first_stage import FirstStageTrainer
+
+    cfg = _cfg(args)
+    tc = dataclasses.replace(
+        cfg.mtov_train, batch_size=args.batch_size or cfg.mtov_train.batch_size,
+        seed=args.seed)
+    ae_cfg = cfg.mtov_ae
+    trainer = FirstStageTrainer(ae_cfg, cfg.mtov_loss, tc, device=args.device,
+                                freeze_decoder=args.landmark)
+    vkey = "x_l" if args.landmark else "x"
+    if args.synthetic or args.data_root is None:
+        batch = synthetic_mtov_batch(tc.batch_size, ae_cfg.timesteps,
+                                     ae_cfg.resolution, args.seed)
+        src = itertools.repeat(batch)
+        eval_videos = [batch[vkey]]
+    else:
+        ds = HDTFFramesDataset(args.data_root, args.kpt_root,
+                               resolution=ae_cfg.resolution,
+                               nframes=ae_cfg.timesteps)
+        src = ds.batches(tc.batch_size, seed=args.seed)
+        probe = ds.batches(tc.batch_size, seed=args.seed + 1)
+        eval_videos = [next(probe)[vkey] for _ in range(2)]
+    i3d = _load_i3d(args.i3d, trainer.device) if args.i3d else None
+
+    def eval_fn(tr):
+        out = {"eval_psnr": eval_ae_psnr(tr.reconstruct, iter(eval_videos))}
+        if i3d is not None:
+            out["eval_rfvd"] = eval_ae_rfvd(tr.reconstruct, iter(eval_videos),
+                                            i3d)
+        print("probe: " + " ".join(f"{k}={v:.4f}" for k, v in out.items()))
+        return out
+
+    name = "ae_ldmk" if args.landmark else "ae_rgb"
+    logger = MetricLogger(os.path.join(args.out_dir, "logs"))
+    ckpt = CheckpointManager(os.path.join(args.out_dir, name + "_ckpt"))
+    state = trainer.fit(({vkey: b[vkey]} for b in src), max_steps=args.steps,
+                        logger=logger, ckpt_manager=ckpt,
+                        eval_every=args.eval_every, eval_fn=eval_fn,
+                        log_every=10, stop=GracefulStop().install())
+    logger.close()
+    path = os.path.join(args.out_dir, name + ".pt")
+    save_single(path, state)
+    print(f"step {state['step']}: checkpoint {path}")
+    return path
+
+
 # -------------------------------------------------------------- train-diffusion
 def _ae_state(path: str | None, ae_cfg, tag: str, seed: int) -> dict:
     """An AE's state_dict: the port's (``torch.save``), or one held under
@@ -192,11 +270,19 @@ def cmd_train_diffusion(args):
 
     logger = MetricLogger(os.path.join(args.out_dir, "logs"))
     ckpt = CheckpointManager(os.path.join(args.out_dir, "diffusion_ema"))
+    i3d = _load_i3d(args.i3d, trainer.device) if args.i3d else None
 
     def eval_fn(lp, it):
         g = torch.Generator(device=trainer.device).manual_seed(args.seed + it)
         gen = lp.sample(probe_batch, g)
         out = {"sample_psnr": video_psnr(probe_batch["x"], gen)}
+        if i3d is not None:
+            from .evals.fvd import compute_fvd
+            from .evals.loops import _to_u8
+
+            out["sample_fvd"] = compute_fvd(
+                i3d, _to_u8(probe_batch["x"]), _to_u8(gen),
+                batch=min(8, gen.shape[0]))
         print(f"probe @{it}: " + " ".join(
             f"{k}={v:.4f}" for k, v in out.items()))
         return out
@@ -333,6 +419,32 @@ def cmd_extract_keypoints(args):
     total = sum(written.values())
     print(f"extracted keypoints for {total} frames across "
           f"{len(written)} identities → {args.out_dir}")
+
+
+# ---------------------------------------------------------- video corpus tools
+def cmd_unify_fps(args):
+    """Corpus fps normalisation (ref unify_fps.py:19)."""
+    from .preprocess.video import unify_fps_corpus
+
+    written = unify_fps_corpus(
+        args.src_root, args.out_dir, fps=args.fps, processes=args.processes,
+        process_id=args.process_id, total_processes=args.total,
+        skip_existing=not args.no_resume)
+    print(f"re-encoded {len(written)} videos at {args.fps} fps "
+          f"→ {args.out_dir}")
+    return written
+
+
+def cmd_video2frame(args):
+    """Corpus frame extraction (ref video2frame_hdtf.py, Pool fan-out)."""
+    from .preprocess.video import video_to_frames_corpus
+
+    written = video_to_frames_corpus(
+        args.src_root, args.out_dir, quality=args.quality,
+        processes=args.processes, process_id=args.process_id,
+        total_processes=args.total, skip_existing=not args.no_resume)
+    print(f"extracted frames for {len(written)} videos → {args.out_dir}")
+    return written
 
 
 # ------------------------------------------------------------------ sample
@@ -493,6 +605,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "(ref AToM.py save_interval)")
     p.set_defaults(fn=cmd_train_atom)
 
+    p = sub.add_parser("train-first-stage")
+    train_args(p)
+    p.add_argument("--landmark", action="store_true",
+                   help="landmark-AE variant (first_stage_ldmk)")
+    p.add_argument("--kpt-root", type=str, default=None)
+    p.add_argument("--i3d", default=None,
+                   help="I3D state_dict → rFVD probe (ref test_ifvd)")
+    p.add_argument("--eval-every", type=int, default=2000,
+                   help="PSNR/rFVD probe + checkpoint cadence "
+                        "(ref trainer.py:232-257)")
+    p.set_defaults(fn=cmd_train_first_stage)
+
     p = sub.add_parser("train-diffusion")
     train_args(p)
     p.add_argument("--kpt-root", type=str, default=None)
@@ -502,6 +626,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the port's landmark AE state_dict (torch.save)")
     p.add_argument("--latents-only", action="store_true",
                    help="synthetic-latent smoke mode (no AEs)")
+    p.add_argument("--i3d", default=None,
+                   help="I3D state_dict → sample-FVD probe")
     p.add_argument("--ckpt-every", type=int, default=1000,
                    help="EMA-save cadence (ref trainer.py:122-124)")
     p.add_argument("--eval-every", type=int, default=None,
@@ -574,6 +700,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=42)
     device_flag(p)
     p.set_defaults(fn=cmd_sample)
+
+    def corpus_args(p):
+        p.add_argument("--src-root", required=True,
+                       help="corpus root: {id}.mp4 or {id}/video.mp4")
+        p.add_argument("--out-dir", required=True)
+
+    def stripe_args(p):
+        p.add_argument("--processes", type=int, default=4)
+        p.add_argument("--process-id", type=int, default=0)
+        p.add_argument("--total", type=int, default=1)
+        p.add_argument("--no-resume", action="store_true")
+
+    p = sub.add_parser("unify-fps",
+                       help="re-encode a video corpus at a fixed fps "
+                            "(ref unify_fps.py)")
+    corpus_args(p)
+    p.add_argument("--fps", type=int, default=25)
+    stripe_args(p)
+    p.set_defaults(fn=cmd_unify_fps)
+
+    p = sub.add_parser("video2frame",
+                       help="dump a video corpus to {id}/{i:05d}.jpg frames "
+                            "(ref video2frame_hdtf.py)")
+    corpus_args(p)
+    p.add_argument("--quality", type=int, default=2,
+                   help="jpeg qscale (2 = high quality)")
+    stripe_args(p)
+    p.set_defaults(fn=cmd_video2frame)
 
     p = sub.add_parser("align-motion",
                        help="AToM frontalized landmarks → pose-matched "

@@ -1,10 +1,9 @@
 """Configuration for the PyTorch port.
 
 A copy of the AToM and MToV dataclasses of ``moditalker_tpu/config.py``
-that the port's entry points read (sampling, and the AToM and
-latent-diffusion trainers) with the same defaults (the published operating
-points), and of its YAML layer: the port imports nothing of the JAX
-package.
+(sampling, the AToM, first-stage and latent-diffusion trainers) with the
+same defaults (the published operating points), and of its YAML layer: the
+port imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -137,6 +136,20 @@ class MtovDiffusionConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MtovLossConfig:
+    """AE loss weights (ref losses/perceptual.py:65-98)."""
+
+    disc_start: int = 100000000
+    pixelloss_weight: float = 4.0
+    perceptual_weight: float = 4.0
+    disc_weight: float = 1.0
+    gan_feat_weight: float = 4.0
+    disc_in_channels: int = 3
+    disc_layers: int = 3
+    disc_ndf: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
 class MtovTrainConfig:
     batch_size: int = 1           # first stage (scripts/train/first_stg.sh)
     diffusion_batch_size: int = 10
@@ -151,9 +164,7 @@ class MtovTrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """The sections the port's entry points read. A YAML file may also hold
-    the JAX package's first-stage loss section (``SKIPPED_SECTIONS``): it is
-    checked by name and skipped."""
+    """The sections the port's entry points read."""
 
     atom_model: AtomModelConfig = AtomModelConfig()
     atom_diffusion: AtomDiffusionConfig = AtomDiffusionConfig()
@@ -161,10 +172,8 @@ class Config:
     mtov_ae: MtovAEConfig = MtovAEConfig()
     mtov_unet: MtovUNetConfig = MtovUNetConfig()
     mtov_diffusion: MtovDiffusionConfig = MtovDiffusionConfig()
+    mtov_loss: MtovLossConfig = MtovLossConfig()
     mtov_train: MtovTrainConfig = MtovTrainConfig()
-
-
-SKIPPED_SECTIONS = ("mtov_loss",)
 
 
 # --------------------------------------------------------------- YAML layer
@@ -193,11 +202,9 @@ def config_from_dict(data: dict, base: Config | None = None) -> Config:
     sections = {f.name for f in dataclasses.fields(Config)}
     kw = {}
     for key, updates in data.items():
-        if key in SKIPPED_SECTIONS:
-            continue
         if key not in sections:
             raise KeyError(f"unknown config section {key!r}; expected one of "
-                           f"{sorted(sections | set(SKIPPED_SECTIONS))}")
+                           f"{sorted(sections)}")
         kw[key] = _overlay(getattr(cfg, key), dict(updates or {}))
     return dataclasses.replace(cfg, **kw)
 
@@ -205,19 +212,28 @@ def config_from_dict(data: dict, base: Config | None = None) -> Config:
 def config_from_reference_dict(data: dict,
                                base: Config | None = None) -> Config:
     """Upstream MToV YAML layout → Config: autoencoder files
-    (``model.params.ddconfig``) map onto ``mtov_ae``, latent-diffusion files
-    (``model.params.unet_config``) onto ``mtov_unet`` / ``mtov_diffusion``.
-    ``loss_type`` in the LDM yaml is ignored, as the reference never plumbs
-    it into the DDPM constructor; the loss and training keys are skipped."""
+    (``model.params.ddconfig``) map onto ``mtov_ae`` / ``mtov_loss``,
+    latent-diffusion files (``model.params.unet_config``) onto ``mtov_unet``
+    / ``mtov_diffusion``, the learning rate, ``resume`` and the warm-up onto
+    ``mtov_train``. ``loss_type`` in the LDM yaml is ignored, as the
+    reference never plumbs it into the DDPM constructor."""
     cfg = base or Config()
-    params = data.get("model", {}).get("params", {})
+    model = data.get("model", {})
+    params = model.get("params", {})
+    train_kw = {}
+    if "base_learning_rate" in model:
+        train_kw["lr"] = float(model["base_learning_rate"])
+    if "resume" in model:
+        train_kw["resume"] = bool(model["resume"])
     if "ddconfig" in params:
         dd = params["ddconfig"]
         ae_kw = {k: dd[k] for k in
                  ("channels", "resolution", "timesteps", "splits") if k in dd}
         if "embed_dim" in params:
             ae_kw["embed_dim"] = params["embed_dim"]
-        cfg = dataclasses.replace(cfg, mtov_ae=_overlay(cfg.mtov_ae, ae_kw))
+        loss_kw = dict(params.get("lossconfig", {}).get("params", {}))
+        cfg = dataclasses.replace(cfg, mtov_ae=_overlay(cfg.mtov_ae, ae_kw),
+                                  mtov_loss=_overlay(cfg.mtov_loss, loss_kw))
     if "unet_config" in params:
         uc = params["unet_config"]
         unet_kw = {k: uc[k] for k in
@@ -228,9 +244,15 @@ def config_from_reference_dict(data: dict,
         diff_kw = {k: params[k] for k in
                    ("linear_start", "linear_end", "timesteps", "w")
                    if k in params}
+        sched = params.get("scheduler_config", {})
+        if sched.get("warm_up_steps"):
+            train_kw["warmup_steps"] = int(sched["warm_up_steps"][0])
         cfg = dataclasses.replace(
             cfg, mtov_unet=_overlay(cfg.mtov_unet, unet_kw),
             mtov_diffusion=_overlay(cfg.mtov_diffusion, diff_kw))
+    if train_kw:
+        cfg = dataclasses.replace(
+            cfg, mtov_train=_overlay(cfg.mtov_train, train_kw))
     return cfg
 
 

@@ -1,1 +1,2 @@
-"""Quality metrics (the part the trainers probe with)."""
+"""Quality metrics, FVD with its I3D network, and the in-training eval
+loops."""

@@ -149,6 +149,15 @@ class ViTAutoencoder(nn.Module):
         return z_xy + z_yt + z_xt
 
     # ------------------------------------------------------------ API
+    def encode(self, x):
+        """video → decoder-ready volume [B,s,r,r,C] (ref :150-199)."""
+        return self._broadcast_sum(*self._pool_planes(x))
+
+    def forward(self, x):
+        """video → its reconstruction, both [B,T,H,W,3] in [-1,1] (the JAX
+        module's ``__call__`` without its constant second output)."""
+        return self.decode(self.encode(x))
+
     def decode(self, z):
         """volume [B,s,r,r,C] → video [B,T,H,W,3] in [-1,1] (ref :201-204)."""
         c = self.cfg

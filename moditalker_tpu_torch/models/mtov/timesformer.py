@@ -22,10 +22,15 @@ from ..layers import Dense, LayerNorm
 
 @functools.lru_cache(maxsize=None)
 def _tables(kind: str, shape: tuple, device: torch.device):
-    """float32 (sin, cos) rotary tables on ``device``, built once."""
+    """float32 (sin, cos) rotary tables on ``device``, built once. Built as
+    normal tensors even where the first call runs under
+    ``torch.inference_mode`` (sampling): a later training step in the same
+    process saves them for its backward, which inference tensors refuse."""
     fn = rotary.time_rotary_sincos if kind == "time" else rotary.axial_rotary_sincos
     sin, cos = fn(*shape)
-    return torch.from_numpy(sin).to(device), torch.from_numpy(cos).to(device)
+    with torch.inference_mode(False):
+        return (torch.from_numpy(sin).to(device),
+                torch.from_numpy(cos).to(device))
 
 
 class GEGLUFeedForward(nn.Module):

@@ -33,13 +33,13 @@ VIDEO_KEYS = ("x", "x_l", "masked_x", "x_ref")
 
 
 def make_optimizer(params, train_cfg: MtovTrainConfig,
-                   use_warmup: bool = False):
+                   use_warmup: bool = False, betas=(0.9, 0.999)):
     """(AdamW, LambdaLR or None) with optax.adamw's defaults, not torch's:
-    betas (0.9, 0.999), eps 1e-8 and weight decay 1e-4 (torch's AdamW
-    defaults to 1e-2). ``use_warmup``: LambdaLinearScheduler's warm-up
-    (tools/scheduler.py:81-97) as optax.linear_schedule, a linear ramp from
-    lr·1e-6 to lr over ``warmup_steps``, then constant."""
-    opt = torch.optim.AdamW(params, lr=train_cfg.lr, betas=(0.9, 0.999),
+    eps 1e-8 and weight decay 1e-4 (torch's AdamW defaults to 1e-2); betas
+    (0.9, 0.999) unless given. ``use_warmup``: LambdaLinearScheduler's
+    warm-up (tools/scheduler.py:81-97) as optax.linear_schedule, a linear
+    ramp from lr·1e-6 to lr over ``warmup_steps``, then constant."""
+    opt = torch.optim.AdamW(params, lr=train_cfg.lr, betas=tuple(betas),
                             eps=1e-8, weight_decay=1e-4)
     if not use_warmup:
         return opt, None

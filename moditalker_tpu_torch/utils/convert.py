@@ -2,12 +2,16 @@
 
 Takes the variables of ``moditalker_tpu``'s ``ViTAutoencoder``,
 ``TriplaneUNet``, AToM ``MotionDecoder``, ``HubertEncoder``, ``S3FD``,
-``FAN`` or ``ReconNet`` as nested dicts of numpy arrays (for example
+``FAN``, ``ReconNet``, ``LPIPS``, the two PatchGAN discriminators or
+``InceptionI3d`` as nested dicts of numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, variables)``) and returns the
-``state_dict`` of the port's module of the same name. No JAX is needed.
+``state_dict`` of the port's module of the same name; and the JAX
+first-stage trainer's state as a tree of such ``state_dict``s. No JAX is
+needed.
 
   * Dense kernel [in, out]       → Linear weight [out, in]
   * Conv kernel HWIO             → Conv2d weight OIHW
+  * Conv3D kernel DHWIO          → Conv3d weight OIDHW
   * Conv1D kernel [k, I/g, O]    → Conv1d weight [O, I/g, k]
   * PatchToPixel kernel [p,p,o,c] → ConvTranspose2d layout [c, o, p, p]
     (the same axis permutation as HWIO → OIHW)
@@ -68,6 +72,8 @@ def _leaf(name: str, value: np.ndarray) -> tuple[str, np.ndarray]:
             return "weight", value.transpose(2, 1, 0)
         if value.ndim == 4:
             return "weight", value.transpose(3, 2, 0, 1)
+        if value.ndim == 5:
+            return "weight", value.transpose(4, 3, 0, 1, 2)
         raise ValueError(f"unexpected kernel rank {value.ndim}")
     if name == "scale":
         return "weight", value
@@ -145,3 +151,36 @@ def convert_recon_params(flax_variables: dict) -> dict[str, torch.Tensor]:
     """``ReconNet`` variables (``params`` and ``batch_stats``) → the port's
     ``ReconNet`` state_dict, running statistics included."""
     return _convert(flax_variables)
+
+
+def convert_lpips_params(flax_params: dict) -> dict[str, torch.Tensor]:
+    """``LPIPS`` parameters → the port's ``LPIPS`` state_dict (the VGG16
+    trunk under ``net.conv_i``; the ``lin_k`` heads keep their [C, 1]
+    layout)."""
+    return _convert(flax_params)
+
+
+def convert_disc_params(flax_variables: dict) -> dict[str, torch.Tensor]:
+    """``PatchDiscriminator2D`` / ``3D`` variables → the port's state_dict.
+    Their ``batch_stats`` are dropped: the discriminators always normalise
+    with the batch's statistics, and the port's keep none."""
+    return _convert({"params": flax_variables.get("params", flax_variables)})
+
+
+def convert_i3d_params(flax_variables: dict) -> dict[str, torch.Tensor]:
+    """``InceptionI3d`` variables (``params`` and ``batch_stats``) → the
+    port's ``InceptionI3d`` state_dict, running statistics included."""
+    return _convert(flax_variables)
+
+
+def convert_first_stage_state(state: dict) -> dict:
+    """The JAX ``FirstStageState`` (as a dict: ``state._asdict()``) → the
+    port's ``FirstStageTrainer`` state: {ae_params, disc2d, disc3d,
+    lpips_params, step}. The optimizer states are not carried across (optax
+    and torch keep different trees): a trainer loaded from it starts its
+    AdamW moments and accumulation afresh."""
+    return {"ae_params": convert_ae_params(state["ae_params"]),
+            "disc2d": convert_disc_params(state["disc2d"]),
+            "disc3d": convert_disc_params(state["disc3d"]),
+            "lpips_params": convert_lpips_params(state["lpips_params"]),
+            "step": int(np.asarray(state["step"]))}

@@ -86,7 +86,7 @@ def test_config_loader_reads_the_native_yaml_like_jax():
     want = jcfg.load_config("configs/tiny.yaml")
     got = tcfg.load_config("configs/tiny.yaml")
     for section in ("atom_model", "atom_diffusion", "mtov_ae", "mtov_unet",
-                    "mtov_diffusion"):
+                    "mtov_diffusion", "mtov_loss", "mtov_train"):
         assert vars(getattr(got, section)) == vars(getattr(want, section))
     with pytest.raises(KeyError, match="unknown config section"):
         tcfg.config_from_dict({"mtov_aee": {}})
@@ -100,7 +100,8 @@ def test_config_loader_reads_the_reference_yaml_like_jax(path):
     if not os.path.exists(path):
         pytest.skip(f"{path} is not in this checkout")
     want, got = jcfg.load_config(path), tcfg.load_config(path)
-    for section in ("mtov_ae", "mtov_unet", "mtov_diffusion"):
+    for section in ("mtov_ae", "mtov_unet", "mtov_diffusion", "mtov_loss",
+                    "mtov_train"):
         assert vars(getattr(got, section)) == vars(getattr(want, section))
 
 

@@ -74,7 +74,8 @@ def port_unet(params):
 
 
 def test_configs_match_jax_defaults():
-    for name in ("MtovAEConfig", "MtovUNetConfig", "MtovDiffusionConfig"):
+    for name in ("MtovAEConfig", "MtovUNetConfig", "MtovDiffusionConfig",
+                 "MtovLossConfig"):
         assert (vars(getattr(tcfg, name)()) == vars(getattr(jcfg, name)())), name
     assert tcfg.MtovAEConfig().latent_len == jcfg.MtovAEConfig().latent_len
     assert tcfg.MtovAEConfig(**TINY_AE).latent_len == 48

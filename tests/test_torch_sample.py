@@ -239,13 +239,17 @@ def test_port_imports_no_jax():
             "for argv in (['process-audio', '--audio', 'a.wav', '--out', "
             "'h.npy'], ['atom-infer', '--keypoint-dir', 'k', '--hubert', "
             "'h.npy'], ['sample', '--frames-dir', 'f', '--aligned-dir', "
-            "'a']):\n"
+            "'a'], ['train-first-stage', '--landmark', '--i3d', 'i.pt'], "
+            "['train-diffusion', '--i3d', 'i.pt']):\n"
             "    ap.parse_args(argv)\n"
             "d = tempfile.mkdtemp()\n"
             "cli.main(['align-motion', '--frontalized-dir', d, "
             "'--frames-dir', d, '--out-dir', d, '--synthetic-detectors'])\n"
             "cli.main(['extract-keypoints', '--frames-dir', d, '--out-dir', "
             "d, '--synthetic-detectors'])\n"
+            "for c in ('unify-fps', 'video2frame'):\n"
+            "    cli.main([c, '--src-root', d, '--out-dir', d, "
+            "'--processes', '1'])\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{banned!r}]\n"
             "assert not bad, bad\n")
