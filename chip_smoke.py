@@ -14,7 +14,8 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              ``BF16_LIMITS``, and the 0.999 quantile of the error over the
              plain output's max within ``QUANTILE_LIMITS``; the space, time,
              packed and one-pass kernels also in float32 at
-             train-diffusion's shapes, through the cast passes of
+             train-diffusion's shapes and at B = 1 (train-first-stage's and
+             the golden record's), through the cast passes of
              ``ops/kernels/convert.py``, whose share each such row gives; the
              256-channel UNet's one-pass shapes), timed on the device (20 calls replayed from
              a CUDA graph between two events, the median of five replays:
@@ -123,8 +124,26 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              on the card against the CPU within I3D_LIMIT, and the FVD
              between two sets of 8 synthetic clips through the card's I3D
              against the CPU's within FVD_LIMIT;
-13. profile — one UNet step, one extract and one decode at B = 2: host
-             time, the device's busy time and top kernels (torch.profiler).
+13. golden  — reference-layout files at full width (the reference's key
+             names and shapes, made from seeded weights) through ``golden
+             --mode convert``, each converted file the weights it came
+             from, the converted LPIPS card vs CPU; ``golden --mode record``
+             at full width on the card (float32; launches of the space,
+             time, packed and one-pass kernels) and ``--mode check`` at the
+             JAX harness's 1e-4, a perturbed golden failing; a small-depth
+             record on the CPU checked on the card against the reference
+             phase's limit (``golden_phase``);
+14. distributed — NCCL at world size 1 (tcp:// on localhost): a
+             small-depth train-diffusion step through the gradient
+             all-reduce equal to the same step without a group, exactly;
+             ``tp.py`` on a 1×1 mesh (head-parallel attention through the
+             one-pass kernel); ``sample --data-parallel 1`` writing what
+             ``sample`` writes;
+15. profile — one UNet step, one extract and one decode at B = 2: host
+             time, the device's busy time and top kernels (torch.profiler);
+16. profiling — ``core/profiling.py``: ``trace`` around one UNet step
+             writes a Chrome trace holding the ``annotate`` span and the
+             card's kernels; ``step_timer`` logs the step.
 
 Without a CUDA device, or run outside the repository, it exits nonzero and
 prints no result.
@@ -259,6 +278,12 @@ FIRST_STAGE_LIMITS = {"loss": 4e-4, "ae_grad": 1.7e-2, "ae_update": 0.4,
 # (2.49e-6, 2.09e-6)
 I3D_LIMIT = 5e-6
 FVD_LIMIT = 5e-6
+
+# the golden harness on the card: a full-width record must check at the JAX
+# harness's defaults (max |err| ≤ atol + rtol·max |golden|, both 1e-4), and
+# fail with one probe moved by GOLDEN_PERTURB
+GOLDEN_TOL = 1e-4
+GOLDEN_PERTURB = 1e-2
 
 H100_BF16_FLOPS = 989e12
 H100_FP32_FLOPS = 67e12     # float32 outside the tensor cores (TF32 is off)
@@ -602,6 +627,11 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             torch, lambda: torch.autograd.grad(plain(x), x, cot))
         rows.append(row)
         del x, cot
+    # float32 at B = 1, the shapes a full-width golden record gives the
+    # UNet's packed and one-pass kernels
+    rows += [packed_row(1, l, g=gen_fs, dtype=torch.float32),
+             packed_row(1, 1024, g=gen_fs, dtype=torch.float32),
+             onepass_row(heads, l, 32, g=gen_fs, dtype=torch.float32)]
 
     # the cast passes' share of each float32 row: the time of convert.py's
     # two passes alone on tensors of the row's input and output sizes
@@ -1949,6 +1979,351 @@ def profile_phase(torch, pipe, seed: int) -> dict:
     return result
 
 
+# ------------------------------------------------------------------ golden
+def golden_phase(torch, seed: int) -> dict:
+    """The reference-checkpoint loaders and the golden harness on the card.
+
+    1. Reference-layout files at full width (the reference's key names and
+       shapes, made by ``tests/torch_reference_layout.py`` from the port's
+       seeded weights: AToM, both AEs, the UNet with head-major qkv rows,
+       LPIPS's vgg.pth and torchvision trunk) → ``golden --mode convert``
+       (``convert_all``), each result equal to the weights it came from; the
+       converted LPIPS on the card against the CPU.
+    2. ``golden --mode record`` at full width on the card from the
+       converted weights (float32; the launches of space, time, packed and
+       one-pass counted), ``golden --mode check`` against it at GOLDEN_TOL,
+       and a golden with one probe perturbed, which must fail.
+    3. A small-depth record on the CPU (float32), checked on the card in
+       bf16 against the window's card-vs-CPU limit (the reference phase's:
+       the card within REF_FACTOR times the CPU's own bf16 error), AToM and
+       ReconNet within ATOM_LIMIT and ALIGN_LIMIT."""
+    from pathlib import Path
+
+    from moditalker_tpu_torch import cli, golden
+    from moditalker_tpu_torch.config import (AtomModelConfig, MtovAEConfig,
+                                             MtovUNetConfig)
+    from moditalker_tpu_torch.models.atom import MotionDecoder
+    from moditalker_tpu_torch.models.mtov import TriplaneUNet, ViTAutoencoder
+    from moditalker_tpu_torch.models.mtov.losses import LPIPS
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from tests.torch_reference_layout import (ae_reference_sd,
+                                              atom_reference_sd, flax_tree,
+                                              unet_reference_sd,
+                                              write_vgg_files)
+
+    mc, ae_cfg, unet_cfg = AtomModelConfig(), MtovAEConfig(), MtovUNetConfig()
+    ae_ref = lambda t: ae_reference_sd(t, ae_cfg.depth, ae_cfg.quant_depth)
+    sources = {   # file name: (the port's module, its reference layout)
+        "atom.pt": (lambda: MotionDecoder(mc),
+                    lambda t: atom_reference_sd(t, mc.num_layers)),
+        "autoencoder_rgb.pth": (lambda: ViTAutoencoder(ae_cfg), ae_ref),
+        "autoencoder_motion.pth": (lambda: ViTAutoencoder(ae_cfg), ae_ref),
+        "diffusion_model.pth": (lambda: TriplaneUNet(unet_cfg),
+                                lambda t: unet_reference_sd(t, unet_cfg)),
+    }
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref, conv = Path(tmp) / "ckpts", Path(tmp) / "converted"
+        ref.mkdir()
+        t0 = time.perf_counter()
+        states = {}
+        for i, (name, (build, to_ref)) in enumerate(sources.items()):
+            states[name] = seeded_state(torch, build, seed + i)
+            torch.save({k: torch.from_numpy(np.ascontiguousarray(v))
+                        for k, v in to_ref(flax_tree(states[name])).items()},
+                       ref / name)
+        write_vgg_files(ref, seed=seed)
+        cli.main(["golden", "--mode", "convert", "--ckpt-dir", str(ref),
+                  "--out-dir", str(conv)])
+        for name, state in states.items():
+            got = torch.load(conv / (name.split(".")[0] + ".pt"),
+                             weights_only=True)
+            if set(got) != set(state) or not all(
+                    torch.equal(got[k], v) for k, v in state.items()):
+                raise AssertionError(f"golden convert: {name} does not give "
+                                     "back the weights it was made from")
+        out["convert_s"] = time.perf_counter() - t0
+        rng = np.random.default_rng(seed)
+        x, y = (torch.from_numpy(rng.uniform(-1, 1, (2, 256, 256, 3)).astype(
+            np.float32)) for _ in range(2))
+        dist = {}
+        for dev in ("cpu", "cuda"):
+            lp = LPIPS()
+            lp.load_state_dict(torch.load(conv / "vgg.pt", weights_only=True))
+            with torch.no_grad():
+                dist[dev] = lp.to(dev).eval()(x.to(dev), y.to(dev)).cpu()
+        out["lpips_card_vs_cpu_rel_err"] = rel_err(dist["cuda"], dist["cpu"])
+        log(f"golden convert: 4 kinds from reference-layout files at full "
+            f"width in {out['convert_s']:.1f} s, each the weights it was made "
+            f"from; LPIPS card vs cpu {out['lpips_card_vs_cpu_rel_err']:.3e}"
+            f" (limit {FIRST_STAGE_LIMITS['loss']})")
+        if out["lpips_card_vs_cpu_rel_err"] > FIRST_STAGE_LIMITS["loss"]:
+            raise AssertionError("golden: the converted LPIPS disagrees "
+                                 "between the card and the CPU")
+
+        gold = Path(tmp) / "goldens.npz"
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cli.main(["golden", "--mode", "record", "--params-dir", str(conv),
+                  "--golden", str(gold)])
+        torch.cuda.synchronize()
+        out["record_s"] = time.perf_counter() - t0
+        out["launches"] = check_launches("golden record", FUSED_PATH)
+        out["launches_by_shape"] = launches_by_shape()
+        t0 = time.perf_counter()
+        cli.main(["golden", "--mode", "check", "--params-dir", str(conv),
+                  "--golden", str(gold), "--rtol", str(GOLDEN_TOL),
+                  "--atol", str(GOLDEN_TOL)])   # exits 1 on a mismatch
+        out["check_s"] = time.perf_counter() - t0
+        with np.load(gold) as g:
+            bad = {k: g[k] for k in g.files}
+        bad["mtov_window"] = bad["mtov_window"] + GOLDEN_PERTURB
+        np.savez_compressed(Path(tmp) / "bad.npz", **bad)
+        if golden.check(str(Path(tmp) / "bad.npz"), str(conv)):
+            raise AssertionError("golden: a perturbed golden passes the check")
+        log(f"golden record at full width on the card: {out['record_s']:.1f}"
+            f" s, check {out['check_s']:.1f} s (passes at {GOLDEN_TOL}), a "
+            f"probe moved by {GOLDEN_PERTURB} fails; launches "
+            f"{out['launches']}, by shape {out['launches_by_shape']}")
+
+        # the small probes' UNet and ReconNet from a params dir in which
+        # every tensor the seeded init leaves at zero (the UNet's output
+        # layers, ReconNet's heads) is drawn, so that every layer reaches
+        # the probes
+        small_dir = Path(tmp) / "small"
+        small_dir.mkdir()
+        _, _, unet_small = golden.probe_configs("small")
+        from moditalker_tpu_torch.preprocess.recon_net import ReconNet
+        gen = torch.Generator().manual_seed(seed)
+        for stem, build in (("diffusion_model",
+                             lambda: TriplaneUNet(unet_small)),
+                            ("epoch_20", ReconNet)):
+            state = seeded_state(torch, build, seed)
+            torch.save({k: 0.02 * torch.randn(v.shape, generator=gen)
+                        if v.is_floating_point() and not v.any() else v
+                        for k, v in state.items()},
+                       small_dir / f"{stem}.pt")
+        small = Path(tmp) / "small.npz"
+        t0 = time.perf_counter()
+        cpu = golden.record(str(small), str(small_dir), size="small",
+                            device="cpu")
+        cpu16 = golden.run_probes(str(small_dir), size="small", device="cpu",
+                                  dtype=torch.bfloat16)
+        card = golden.run_probes(str(small_dir), size="small",
+                                 dtype=torch.bfloat16)
+        out["small_s"] = time.perf_counter() - t0
+    if not all(np.abs(v).max() > 0 for v in cpu.values()):
+        raise AssertionError("golden: a small-depth probe reads zero")
+    errs = {}
+    for name in ("mtov_window", "mtov_extract"):
+        c = np.abs(card[name] - cpu[name])
+        b = np.abs(cpu16[name] - cpu[name])
+        errs[name] = {"card_mean": float(c.mean()), "card_max": float(c.max()),
+                      "cpu_bf16_mean": float(b.mean()),
+                      "cpu_bf16_max": float(b.max())}
+        if not (np.isfinite(card[name]).all()
+                and c.mean() <= REF_FACTOR * b.mean()
+                and c.max() <= REF_FACTOR * b.max()):
+            raise AssertionError(f"golden {name}: the card's small-depth "
+                                 f"probe disagrees with the CPU's: {errs}")
+    for name, limit in (("atom_sequence", ATOM_LIMIT),
+                        ("recon_coeff", ALIGN_LIMIT)):
+        errs[name] = rel_err(card[name], cpu[name])
+        if errs[name] > limit:
+            raise AssertionError(f"golden {name}: card vs cpu {errs[name]:.3e}"
+                                 f" (limit {limit})")
+    out["small_card_vs_cpu"] = errs
+    log(f"golden small-depth record on the cpu, checked on the card (bf16 "
+        f"MToV): {errs} in {out['small_s']:.1f} s")
+    return out
+
+
+# ------------------------------------------------------------- distributed
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def distributed_phase(torch, seed: int) -> dict:
+    """The distribution wiring at world size 1 on the card.
+
+    1. A small-depth train-diffusion step (the train-diffusion phase's
+       configs) with no process group, then ``init_distributed`` with NCCL
+       (a ``tcp://`` rendezvous on localhost, no torchrun) and the same step
+       from the same weights through the gradient all-reduce: loss, gradient
+       and update exactly equal (cuDNN deterministic for the two steps).
+    2. ``tp.py`` over a 1×1 mesh: column → row dense against the dense ops
+       (float32), and head-parallel attention at the UNet's one-pass shape
+       through the one-pass kernel (its launch counted) against the plain
+       version within the kernel's bf16 limits.
+    3. ``sample --data-parallel 1`` against ``sample`` with the default
+       (every visible card: one here), the same frames."""
+    from moditalker_tpu_torch import cli
+    from moditalker_tpu_torch.config import (MtovAEConfig,
+                                             MtovDiffusionConfig,
+                                             MtovTrainConfig, MtovUNetConfig)
+    from moditalker_tpu_torch.core import sharding
+    from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
+    from moditalker_tpu_torch.models.mtov import TriplaneUNet, ViTAutoencoder
+    from moditalker_tpu_torch.ops.attention import plain_sdpa
+    from moditalker_tpu_torch.ops.kernels import (LAUNCHES, check_bf16,
+                                                  reset_launch_counts)
+    from moditalker_tpu_torch.parallel import tp
+    from moditalker_tpu_torch.train.mtov import (LatentDiffusionLoop,
+                                                 MtovDiffusionTrainer)
+
+    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=2, dim_head=64,
+                          quant_depth=1, quant_heads=2, quant_mlp_dim=64)
+    unet_cfg = MtovUNetConfig(num_res_blocks=1, channel_mult=(1, 2),
+                              attention_resolutions=(1,))
+    tc = MtovTrainConfig(seed=seed)
+    aes = [seeded_state(torch, lambda: ViTAutoencoder(ae_cfg), seed + i)
+           for i in (11, 12)]
+    unet = seeded_state(torch, lambda: TriplaneUNet(unet_cfg), seed)
+    batch = synthetic_mtov_batch(2, ae_cfg.timesteps, ae_cfg.resolution, seed)
+    out = {}
+
+    def step():
+        trainer = MtovDiffusionTrainer(unet_cfg, MtovDiffusionConfig(), tc,
+                                       state_dict=unet)
+        models = []
+        for state in aes:
+            m = ViTAutoencoder(ae_cfg)
+            m.load_state_dict(state)
+            models.append(m)
+        m = LatentDiffusionLoop(trainer, *models).train_step(batch)
+        return {"loss": m["loss"].cpu(), **{
+            f"{what}.{k}": (p.grad if what == "grad" else p).detach().cpu()
+            for k, p in trainer.model.named_parameters()
+            for what in ("grad", "param")}}
+
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    # one host: the rendezvous and NCCL's bootstrap stay on the loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    try:
+        alone = step()
+        t0 = time.perf_counter()
+        if not sharding.init_distributed(f"localhost:{free_port()}", 1, 0):
+            raise AssertionError("init_distributed started no group")
+        out["init_s"] = time.perf_counter() - t0
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("the card's group is not NCCL")
+        wired = step()
+        diff = [k for k in alone if not torch.equal(alone[k], wired[k])]
+        out["step_exact"] = not diff
+        log(f"distributed: NCCL group of 1 in {out['init_s']:.2f} s; a "
+            f"train-diffusion step through the all-reduce equals the step "
+            f"without it exactly: {not diff} (loss {float(alone['loss']):.6f})")
+        if diff:
+            raise AssertionError(f"distributed: {len(diff)} tensors differ "
+                                 f"through the all-reduce, e.g. {diff[:3]}")
+
+        mesh = tp.make_2d_mesh(1, 1)
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        rnd = lambda *s, dt=torch.float32: torch.randn(
+            s, generator=g, device="cuda").to(dt)
+        x, w1, b1, w2, b2 = rnd(8, 32), rnd(32, 64), rnd(64), rnd(64, 16), \
+            rnd(16)
+        y = tp.row_parallel_dense(mesh)(
+            tp.column_parallel_dense(mesh)(x, w1, b1), w2, b2)
+        dense_err = float(((y - ((x @ w1 + b1) @ w2 + b2)).abs().max()))
+        q, k, v = (rnd(2, 2048, 8, 32, dt=torch.bfloat16) for _ in range(3))
+        reset_launch_counts()
+        attn = tp.head_parallel_attention(mesh, 8)(q, k, v)
+        torch.cuda.synchronize()
+        out["tp_launches"] = check_launches("head_parallel_attention",
+                                            {"onepass_attention"})
+        heads = lambda t: t.transpose(1, 2).reshape(16, 2048, 32)
+        plain = plain_sdpa(heads(q) * 32**-0.5, heads(k), heads(v))
+        errs = check_bf16("onepass_attention", heads(attn), plain)
+        out["tp"] = {"dense_max_abs_err": dense_err, "attention_rel": errs}
+        log(f"tp over a 1x1 mesh: column→row dense vs dense max abs "
+            f"{dense_err:.3e}; head-parallel attention [2, 2048, 8, 32] bf16 "
+            f"vs plain {errs}; launches {dict(LAUNCHES)}")
+        if dense_err > 1e-4:
+            raise AssertionError("tp: column→row dense disagrees with dense")
+    finally:
+        sharding.shutdown()
+        torch.backends.cudnn.deterministic = old
+
+    frames = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for flag in ([], ["--data-parallel", "1"]):
+            args = cli.build_parser().parse_args([
+                "sample", "--frames-dir", "-", "--aligned-dir", "-",
+                "--batch", "2", "--no-last-as-reference", "--sampling-steps",
+                "2", "--seed", str(seed), "--out-dir",
+                os.path.join(tmp, str(len(flag))), *flag])
+            reset_launch_counts()
+            path = cli.sample_windows(args, make_windows(
+                cli._sample_configs(args)[0], 2, 1, seed))
+            out["sample_launches"] = check_launches(
+                "sample --data-parallel 1", FUSED_PATH)
+            if path.endswith(".npz"):   # no ffmpeg on this host
+                with np.load(path) as dump:
+                    frames[len(flag)] = dump["frames"]
+            else:
+                with open(path, "rb") as f:
+                    frames[len(flag)] = np.frombuffer(f.read(), np.uint8)
+    cli._SAMPLE_PIPE_CACHE.clear()
+    if not np.array_equal(frames[0], frames[2]):
+        raise AssertionError("sample --data-parallel 1 differs from sample")
+    log(f"sample --data-parallel 1 (2 windows, DDIM-2) writes the same file "
+        f"as sample; launches {out['sample_launches']}")
+    return out
+
+
+# ------------------------------------------------------------------ profiling
+def profiling_phase(torch, pipe, seed: int) -> dict:
+    """``core/profiling.py`` on the card: ``trace`` around one UNet step at
+    B = 2 under ``annotate`` writes a non-empty Chrome trace holding the
+    annotation and the card's kernels; ``step_timer`` (synchronising the
+    card) logs the step's seconds."""
+    from moditalker_tpu_torch.core import profiling
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    L = pipe.ae_cfg.latent_len
+    x = torch.randn((2, 4, L), generator=g, device="cuda")
+    cond = torch.randn((2, 8, L), generator=g, device="cuda").bfloat16()
+    ic = torch.randn((2, 4, L), generator=g, device="cuda").bfloat16()
+    t = torch.full((2,), 500, dtype=torch.long, device="cuda")
+
+    class Rows:
+        rows = []
+
+        def log_scalars(self, step, scalars):
+            self.rows.append(scalars)
+
+    rows = Rows()
+    with tempfile.TemporaryDirectory() as tmp, torch.inference_mode():
+        pipe.ddpm.model(x, cond, ic, t)
+        with profiling.step_timer(rows, name="unet_step", device="cuda"):
+            with profiling.trace(tmp, name="unet_step"):
+                with profiling.annotate("unet_step"):
+                    pipe.ddpm.model(x, cond, ic, t)
+        path = os.path.join(tmp, "unet_step.pt.trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    annotated = any(e.get("name") == "unet_step" for e in events)
+    out = {"trace_bytes": size, "events": len(events), "kernel_events": kernels,
+           "annotation_found": annotated,
+           "unet_step_seconds": rows.rows[0]["unet_step_seconds"]}
+    log(f"profiling: trace of one UNet step {size} bytes, {len(events)} "
+        f"events, {kernels} kernel events, annotation found {annotated}; "
+        f"step_timer {out['unet_step_seconds']:.3f} s (with the profiler)")
+    if not (size and kernels and annotated):
+        raise AssertionError(f"profiling: the trace lacks what it must hold: "
+                             f"{out}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2013,7 +2388,11 @@ def main() -> int:
     train_atom = train_atom_phase(torch, args.seed)
     first_stage = train_first_stage_phase(torch, args.seed)
     i3d = i3d_phase(torch, args.seed)
-    prof = profile_phase(torch, result.pop("pipe"), args.seed)
+    gold = golden_phase(torch, args.seed)
+    distributed = distributed_phase(torch, args.seed)
+    pipe = result.pop("pipe")
+    prof = profile_phase(torch, pipe, args.seed)
+    profiling = profiling_phase(torch, pipe, args.seed)
 
     timed = {path: counts for path, counts in result["launches"].items()
              if "warm-up" not in path}
@@ -2024,6 +2403,9 @@ def main() -> int:
     timed["train-diffusion"] = train_diff["launches"]
     timed["train-atom"] = train_atom["launches"]
     timed["train-first-stage"] = first_stage["launches"]
+    timed["golden record"] = gold["launches"]
+    timed["head_parallel_attention"] = distributed["tp_launches"]
+    timed["sample --data-parallel 1"] = distributed["sample_launches"]
     # one line entry per kernel: its first row, the shape its main path
     # gives it; the rows at its other shapes go under "other_shapes"
     kernels = {}
@@ -2042,7 +2424,8 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_path"].values())
         by_path = {**result["launches_by_shape"],
                    "train-diffusion": train_diff["launches_by_shape"],
-                   "train-first-stage": first_stage["launches_by_shape"]}
+                   "train-first-stage": first_stage["launches_by_shape"],
+                   "golden record": gold["launches_by_shape"]}
         row["launches_by_shape"] = {
             p: by[row["name"]] for p, by in by_path.items()
             if "warm-up" not in p and row["name"] in by}
@@ -2078,6 +2461,12 @@ def main() -> int:
             "peak_gib", "plain_backward_ms", "plain_backward_share",
             "card_vs_cpu", "trace")},
         "i3d": i3d,
+        "golden": {k: gold[k] for k in (
+            "convert_s", "lpips_card_vs_cpu_rel_err", "record_s", "check_s",
+            "small_s", "small_card_vs_cpu")},
+        "distributed": {k: distributed[k] for k in ("init_s", "step_exact",
+                                                    "tp")},
+        "profiling": profiling,
         "gradients": grads, "card": card, "profile": prof}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -16,6 +16,7 @@ preprocessing and training commands of ``moditalker_tpu/cli.py``):
     hdtf_batchify.py                          |
   data_utils/preprocess/unify_fps.py          | unify-fps
   data_utils/preprocess/video2frame_hdtf.py   | video2frame
+  (reference checkpoints → the port)          | golden, convert-checkpoint
 
     python -m moditalker_tpu_torch.cli process-audio --audio a.wav --out h.npy
     python -m moditalker_tpu_torch.cli atom-infer --keypoint-dir ... --hubert ...
@@ -27,6 +28,9 @@ preprocessing and training commands of ``moditalker_tpu/cli.py``):
     python -m moditalker_tpu_torch.cli train-first-stage --synthetic --steps 100
     python -m moditalker_tpu_torch.cli train-diffusion --synthetic --steps 100
     python -m moditalker_tpu_torch.cli video2frame --src-root ... --out-dir ...
+    python -m moditalker_tpu_torch.cli convert-checkpoint --torch-ckpt \
+        diffusion_model.pth --kind triplane-unet --out unet.pt
+    python -m moditalker_tpu_torch.cli golden --mode record --golden g.npz
 
 Each runs on the card unless ``--device cpu`` is given; ``unify-fps`` and
 ``video2frame`` only run ffmpeg on the host and take no ``--device``.
@@ -35,9 +39,13 @@ Checkpoints are ``state_dict``s of the port's modules saved with ``torch.save``
 a checkpoint ``sample``, ``atom-infer`` and ``process-audio`` draw the
 weights from ``--seed`` and print a WARNING (the JAX package's
 ``process-audio`` downloads HuBERT instead). The flags are the JAX
-package's, minus ``--data-parallel`` (one card) and the trainers' multi-host
-flags (``--coordinator``, ``--num-processes``, ``--process-id``), plus
-``--device`` (and ``--seed`` for ``process-audio``). The trainers write the
+package's, plus ``--device`` (and ``--seed`` for ``process-audio``).
+``--data-parallel N`` on ``sample`` and ``atom-infer`` runs a replica on each
+of N cards of the host (default: every visible card; one on the CPU). The
+trainers train over several processes, one per card (``core/sharding.py``):
+with ``--coordinator host:port --num-processes N --process-id i`` on each,
+or under ``torchrun --nproc-per-node N`` (its environment); ``--batch-size``
+is the global batch, of which each process trains on its rows. The trainers write the
 port's checkpoints (``core/checkpoint.py``: ``torch.save`` trees, one
 directory per step) and, at the end, the final state as one file; the
 first stage's (``ae_rgb.pt``, ``ae_ldmk.pt``) is what ``train-diffusion
@@ -85,17 +93,46 @@ def _load_state(path: str | None, init_fn, what: str, seed: int):
     return _seeded_state(init_fn, seed)
 
 
+def _init_distributed(args) -> None:
+    """Join the trainers' process group (explicit flags, or torchrun's
+    environment; a single process otherwise)."""
+    from .core.sharding import init_distributed
+
+    init_distributed(args.coordinator, args.num_processes, args.process_id,
+                     device=args.device)
+
+
+def _logger(args):
+    """The metric logger of rank 0; None on the other ranks."""
+    from .core.logging import MetricLogger
+    from .core.sharding import is_main
+
+    return MetricLogger(os.path.join(args.out_dir, "logs")) if is_main() \
+        else None
+
+
+def _save_final(path: str, state) -> str:
+    """Rank 0 writes the final state, the others wait for it."""
+    from .core.checkpoint import save_single
+    from .core.sharding import barrier, is_main
+
+    if is_main():
+        save_single(path, state)
+    barrier()
+    return path
+
+
 # ------------------------------------------------------------------ train-atom
 def cmd_train_atom(args):
     """AToM training (ref AToM/train.py → AToM.py:32-236) on LRS3's
     GeneFace database under ``--data-root``, or on one synthetic batch
     repeated (``--synthetic``, or no ``--data-root``)."""
-    from .core.checkpoint import CheckpointManager, save_single
-    from .core.logging import MetricLogger
+    from .core.checkpoint import CheckpointManager
     from .core.preempt import GracefulStop
     from .data.atom_dataset import AtomSequenceDataset, synthetic_batch
     from .train.atom import AtomTrainer
 
+    _init_distributed(args)
     cfg = _cfg(args)
     tc = dataclasses.replace(
         cfg.atom_train, batch_size=args.batch_size or cfg.atom_train.batch_size,
@@ -114,7 +151,7 @@ def cmd_train_atom(args):
         ds = _Synthetic()
     else:
         ds = AtomSequenceDataset(args.data_root, "train")
-    logger = MetricLogger(os.path.join(args.out_dir, "logs"))
+    logger = _logger(args)
     ckpt = CheckpointManager(os.path.join(args.out_dir, "atom_ckpt"))
     # {params, ema_params, optimizer, step} every --ckpt-every steps (ref
     # AToM.py:188-196 saves {ema, model, optimizer} per save_interval)
@@ -122,9 +159,9 @@ def cmd_train_atom(args):
                         log_every=10, ckpt_manager=ckpt,
                         ckpt_every=args.ckpt_every, logger=logger,
                         stop=GracefulStop().install(), max_steps=args.steps)
-    logger.close()
-    path = os.path.join(args.out_dir, "atom.pt")
-    save_single(path, state)
+    if logger is not None:
+        logger.close()
+    path = _save_final(os.path.join(args.out_dir, "atom.pt"), state)
     print(f"step {state['step']}: checkpoint {path}")
     return path
 
@@ -146,13 +183,13 @@ def cmd_train_first_stage(args):
     checkpoint every ``--eval-every`` iterations (ref trainer.py:232-257)."""
     import itertools
 
-    from .core.checkpoint import CheckpointManager, save_single
-    from .core.logging import MetricLogger
+    from .core.checkpoint import CheckpointManager
     from .core.preempt import GracefulStop
     from .data.mtov_dataset import HDTFFramesDataset, synthetic_mtov_batch
     from .evals.loops import eval_ae_psnr, eval_ae_rfvd
     from .train.mtov_first_stage import FirstStageTrainer
 
+    _init_distributed(args)
     cfg = _cfg(args)
     tc = dataclasses.replace(
         cfg.mtov_train, batch_size=args.batch_size or cfg.mtov_train.batch_size,
@@ -184,15 +221,15 @@ def cmd_train_first_stage(args):
         return out
 
     name = "ae_ldmk" if args.landmark else "ae_rgb"
-    logger = MetricLogger(os.path.join(args.out_dir, "logs"))
+    logger = _logger(args)
     ckpt = CheckpointManager(os.path.join(args.out_dir, name + "_ckpt"))
     state = trainer.fit(({vkey: b[vkey]} for b in src), max_steps=args.steps,
                         logger=logger, ckpt_manager=ckpt,
                         eval_every=args.eval_every, eval_fn=eval_fn,
                         log_every=10, stop=GracefulStop().install())
-    logger.close()
-    path = os.path.join(args.out_dir, name + ".pt")
-    save_single(path, state)
+    if logger is not None:
+        logger.close()
+    path = _save_final(os.path.join(args.out_dir, name + ".pt"), state)
     print(f"step {state['step']}: checkpoint {path}")
     return path
 
@@ -215,12 +252,12 @@ def cmd_train_diffusion(args):
     trains on one synthetic latent batch (no AEs in the program)."""
     import itertools
 
-    from .core.checkpoint import CheckpointManager, save_single
-    from .core.logging import MetricLogger
+    from .core.checkpoint import CheckpointManager
     from .core.preempt import GracefulStop
     from .models.mtov import ViTAutoencoder
     from .train.mtov import LatentDiffusionLoop, MtovDiffusionTrainer
 
+    _init_distributed(args)
     cfg = _cfg(args)
     tc = dataclasses.replace(cfg.mtov_train, seed=args.seed)
     uc = cfg.mtov_unet
@@ -236,11 +273,13 @@ def cmd_train_diffusion(args):
             "cond": rng.normal(size=(b, 8, L)).astype(np.float32),
             "image_cond": rng.normal(size=(b, 4, L)).astype(np.float32),
         }
+        from .core.sharding import mean_over_ranks
+
         for i in range(args.steps):
             m = trainer.step(batch)
             if i % 10 == 0:
-                print(f"step {i}: loss {float(m['loss']):.4f}")
-        save_single(final, trainer.state())
+                print(f"step {i}: loss {mean_over_ranks(m)['loss']:.4f}")
+        _save_final(final, trainer.state())
         print(f"checkpoint: {final}")
         return final
 
@@ -268,7 +307,7 @@ def cmd_train_diffusion(args):
         batches = ds.batches(b, seed=args.seed)
         probe_batch = next(ds.batches(b, seed=args.seed + 1))
 
-    logger = MetricLogger(os.path.join(args.out_dir, "logs"))
+    logger = _logger(args)
     ckpt = CheckpointManager(os.path.join(args.out_dir, "diffusion_ema"))
     i3d = _load_i3d(args.i3d, trainer.device) if args.i3d else None
 
@@ -290,8 +329,9 @@ def cmd_train_diffusion(args):
     loop.fit(batches, max_steps=args.steps, logger=logger, ckpt_manager=ckpt,
              ckpt_every=args.ckpt_every, eval_every=args.eval_every,
              eval_fn=eval_fn, stop=GracefulStop().install())
-    logger.close()
-    save_single(final, trainer.state())
+    if logger is not None:
+        logger.close()
+    _save_final(final, trainer.state())
     print(f"EMA checkpoints: {os.path.join(args.out_dir, 'diffusion_ema')}; "
           f"final state: {final}")
     return final
@@ -320,7 +360,8 @@ def cmd_atom_infer(args):
     face3d = (Face3DHelper.from_bfm(args.bfm_dir) if args.bfm_dir
               else Face3DHelper.synthetic())
     pipe = AtomInferencePipeline(state, mc, cfg.atom_diffusion, face3d=face3d,
-                                 device=args.device)
+                                 device=args.device,
+                                 data_parallel=args.data_parallel)
     hub = np.load(args.hubert)
     identities = {
         name: (np.load(os.path.join(args.keypoint_dir, name, "00000.npy")), hub)
@@ -479,7 +520,7 @@ def _build_sample_pipeline(args, ae_cfg, unet_cfg, diff_cfg):
 
     cache_key = (repr(ae_cfg), repr(unet_cfg), repr(diff_cfg),
                  src(args.ae_rgb), src(args.ae_ldmk),
-                 src(args.diffusion_model), args.device)
+                 src(args.diffusion_model), args.device, args.data_parallel)
     if cache_key in _SAMPLE_PIPE_CACHE:
         return _SAMPLE_PIPE_CACHE[cache_key]
 
@@ -492,7 +533,7 @@ def _build_sample_pipeline(args, ae_cfg, unet_cfg, diff_cfg):
                     "unet", args.seed),
         ae_cfg, unet_cfg, diff_cfg,
         dtype=torch.float32 if args.device == "cpu" else torch.bfloat16,
-        device=args.device)
+        device=args.device, data_parallel=args.data_parallel)
     _SAMPLE_PIPE_CACHE.clear()
     _SAMPLE_PIPE_CACHE[cache_key] = pipe
     return pipe
@@ -526,7 +567,7 @@ def sample_windows(args, windows) -> str:
     dt = time.perf_counter() - t0
     nf = frames.shape[0] * frames.shape[1]
     print(f"sampled {nf} frames in {dt:.2f}s ({nf / dt:.2f} frames/s on "
-          f"{pipe.device})", file=sys.stderr)
+          f"{len(pipe.replicas)} x {pipe.device.type})", file=sys.stderr)
     out = write_video(frames[0], os.path.join(args.out_dir, "sample.mp4"),
                       fps=25, audio_path=args.audio)
     print(f"video: {out}")
@@ -556,6 +597,40 @@ def cmd_sample(args):
     # image decode and dot rasterization for window k+1 run in a host
     # thread while the device samples window k
     return sample_windows(args, background_iter(ds.windows(uint8=True)))
+
+
+# ------------------------------------------------------- golden, conversion
+def cmd_golden(args):
+    """Reference checkpoints → the port (``convert``), or the fixed-seed
+    probes recorded (``record``) or checked against a file (``check``:
+    exit 1 on a mismatch)."""
+    from . import golden
+
+    if args.mode == "convert":
+        if not args.ckpt_dir:
+            sys.exit("--ckpt-dir required for convert")
+        return golden.convert_all(args.ckpt_dir, args.out_dir)
+    if args.mode == "record":
+        return golden.record(args.golden, args.params_dir, tiny=args.tiny,
+                             device=args.device)
+    if not golden.check(args.golden, args.params_dir, tiny=args.tiny,
+                        rtol=args.rtol, atol=args.atol, device=args.device):
+        sys.exit(1)
+    return True
+
+
+def cmd_convert(args):
+    """One reference checkpoint → the port's state_dict (``torch.save``),
+    through the golden harness's converter registry."""
+    from . import golden
+    from .core.checkpoint import save_single
+
+    sd = golden.load_torch_state_dict(args.torch_ckpt, ema=args.ema)
+    ctx = {"ckpt_dir": os.path.dirname(args.torch_ckpt) or ".",
+           "vgg16_path": args.vgg16}
+    save_single(args.out, golden._converter(args.kind)(sd, ctx))
+    print(f"converted {args.kind}: {args.out}")
+    return args.out
 
 
 # ------------------------------------------------------------------ parser
@@ -596,7 +671,20 @@ def build_parser() -> argparse.ArgumentParser:
         p.add_argument("--seed", type=int, default=42)
         p.add_argument("--config", type=str, default=None,
                        help="YAML config (native or reference MToV format)")
+        # several processes, one per card (core/sharding.py): the same
+        # --coordinator and --num-processes on each, a unique --process-id;
+        # none of them → torchrun's environment, else one process
+        p.add_argument("--coordinator", default=None,
+                       help="host:port of process 0's rendezvous")
+        p.add_argument("--num-processes", type=int, default=None)
+        p.add_argument("--process-id", type=int, default=None)
         device_flag(p)
+
+    def data_parallel_flag(p, what):
+        p.add_argument("--data-parallel", type=int, default=None,
+                       help=f"split the {what} batch over N cards, one "
+                            "replica and host thread each (default: all "
+                            "visible cards; 1 on the CPU)")
 
     p = sub.add_parser("train-atom")
     train_args(p)
@@ -657,6 +745,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=None,
                    help="identities per device dispatch (default: all)")
+    data_parallel_flag(p, "identity")
     device_flag(p)
     p.set_defaults(fn=cmd_atom_infer)
 
@@ -698,6 +787,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-last-as-reference", action="store_true")
     p.add_argument("--out-dir", default="runs/sample")
     p.add_argument("--seed", type=int, default=42)
+    data_parallel_flag(p, "window")
     device_flag(p)
     p.set_defaults(fn=cmd_sample)
 
@@ -748,6 +838,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=16)
     detector_args(p)
     p.set_defaults(fn=cmd_extract_keypoints)
+
+    p = sub.add_parser("golden",
+                       help="reference-checkpoint golden harness "
+                            "(convert / record / check)")
+    p.add_argument("--mode", required=True,
+                   choices=["convert", "record", "check"])
+    p.add_argument("--ckpt-dir", default=None,
+                   help="directory of reference .pth/.pt files (convert)")
+    p.add_argument("--params-dir", default=None,
+                   help="directory of converted state_dicts (record/check)")
+    p.add_argument("--golden", default="goldens.npz")
+    p.add_argument("--out-dir", default="runs/converted")
+    p.add_argument("--tiny", action="store_true",
+                   help="tiny configs (harness self-test)")
+    p.add_argument("--rtol", type=float, default=1e-4)
+    p.add_argument("--atol", type=float, default=1e-4)
+    device_flag(p)
+    p.set_defaults(fn=cmd_golden)
+
+    p = sub.add_parser("convert-checkpoint",
+                       help="one reference checkpoint → the port's "
+                            "state_dict")
+    p.add_argument("--torch-ckpt", required=True)
+    p.add_argument("--kind", required=True,
+                   choices=["atom", "vit-autoencoder", "triplane-unet",
+                            "recon-resnet50", "i3d", "hubert", "fan",
+                            "s3fd", "lpips"])
+    p.add_argument("--out", required=True)
+    p.add_argument("--ema", action="store_true",
+                   help="for atom ckpts: take ema_state_dict")
+    p.add_argument("--vgg16", default=None,
+                   help="lpips: torchvision vgg16 weights file (the trunk; "
+                        "--torch-ckpt is the richzhang lin-head vgg.pth)")
+    p.set_defaults(fn=cmd_convert)
     return ap
 
 

@@ -17,6 +17,7 @@ version (a CPU tensor), and on which stream to launch.
 
 from __future__ import annotations
 
+import threading
 from collections import Counter
 
 LAUNCHES: dict[str, int] = {
@@ -124,10 +125,15 @@ def cuda_stream(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def count_launch(name: str, shape) -> None:
-    """One launch of kernel ``name`` on an operand of ``shape``."""
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_SHAPE[name][tuple(shape)] += 1
+    """One launch of kernel ``name`` on an operand of ``shape`` (from any
+    thread: data-parallel inference drives each card from its own)."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        LAUNCHES_BY_SHAPE[name][tuple(shape)] += 1
 
 
 def reset_launch_counts() -> None:

@@ -8,9 +8,11 @@ Each ``moditalker_tpu_torch/csrc/<name>.cu`` compiles, on its own, into
          -Xcompiler -fPIC
 
 The sources expose a plain C interface (no PyTorch headers), so a build
-takes seconds. The file name carries a hash of the sources, so an edited
-kernel is rebuilt and an unchanged one is loaded as it is. A failed build
-raises; nothing falls back.
+takes seconds. The file name carries a hash of the sources, the flags, the
+toolkit (``nvcc --version``) and the torch version, so an edited kernel, or
+one whose toolkit or torch changed, is rebuilt, and an unchanged one is
+loaded as it is: a build directory carried to another host never hands it
+a stale library. A failed build raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -46,11 +48,27 @@ def _nvcc() -> str:
                        "from source at first use and need the CUDA toolkit")
 
 
+_toolkit: list[str] = []
+
+
+def toolkit_fingerprint() -> str:
+    """``nvcc --version`` and the torch version, read once per process."""
+    if not _toolkit:
+        import torch
+
+        out = subprocess.run([_nvcc(), "--version"], check=True,
+                             capture_output=True, text=True,
+                             timeout=60).stdout
+        _toolkit.append(f"{out.strip()}\ntorch {torch.__version__}")
+    return _toolkit[0]
+
+
 def _target(name: str) -> Path:
     h = hashlib.sha256()
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(toolkit_fingerprint().encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -8,7 +8,9 @@ CFG, add back the keypoint, un-scale (÷10 + key_mean_shape) and write
 ``frontalized_npy/{id}/{tag}.npy`` as [T, 68, 3] float arrays, the layout
 the motion-alignment stage reads. ``run_directory`` stacks identities along
 the batch axis and samples each chunk in one doubled-batch CFG DDIM run.
-Float32 on one card, TF32 off (``device.py``).
+Float32, TF32 off (``device.py``); with ``data_parallel`` N > 1 the
+identity batch is padded to a multiple of N and split over N replicas, each
+driven from its own host thread (``data_parallel.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from ..config import AtomDiffusionConfig, AtomModelConfig
 from ..device import resolve_device
 from ..models.atom import AtomDiffusion, MotionDecoder
 from ..preprocess.bfm import Face3DHelper
+from .data_parallel import ReplicaRunner, inference_devices, round_up
 
 HORIZON = 156  # 6.24 s at 25 fps (ref AToM/inference.py:26)
 
@@ -44,23 +47,40 @@ def prepare_condition(keypoint_npy: np.ndarray, hubert_npy: np.ndarray,
 class AtomInferencePipeline:
     """``state``: the ``state_dict`` of the port's ``MotionDecoder``
     (``utils/convert.py`` makes one from the JAX package's parameters).
-    ``device`` defaults to the card; without one the constructor raises."""
+    ``device`` defaults to the card; without one the constructor raises.
+    ``data_parallel``: the number of replicas
+    (``data_parallel.inference_devices``); ``device`` is the first's."""
 
     def __init__(self, state,
                  model_cfg: AtomModelConfig = AtomModelConfig(),
                  diff_cfg: AtomDiffusionConfig = AtomDiffusionConfig(),
                  face3d: Face3DHelper | None = None,
-                 dtype=torch.float32, device=None):
-        self.device = resolve_device(device)
+                 dtype=torch.float32, device=None,
+                 data_parallel: int | None = None):
+        devices = inference_devices(device, data_parallel)
+        self.device = resolve_device(devices[0])
         model = MotionDecoder(model_cfg, dtype)
         model.load_state_dict(state)
         model = model.to(self.device).eval().requires_grad_(False)
         self.diff = AtomDiffusion.create(model, diff_cfg, self.device)
         self.model_cfg = model_cfg
         self.face3d = face3d
+        self.replicas = [self] + [
+            AtomInferencePipeline(state, model_cfg, diff_cfg, face3d, dtype,
+                                  d, 1) for d in devices[1:]]
+        self._runner = ReplicaRunner(devices)
 
     def generate_residual(self, generator, face: np.ndarray, cond: np.ndarray):
-        """[B, horizon, 204] landmark residuals, on the device."""
+        """[B, horizon, 204] landmark residuals, on the (first) device; over
+        N replicas the batch is padded to a multiple of N, split and the
+        output trimmed."""
+        if len(self.replicas) > 1:
+            return self._runner.split_run(
+                lambda r, v, draws: self.replicas[r]._residual(draws, *v),
+                [face, cond], generator, int(face.shape[0]))
+        return self._residual(generator, face, cond)
+
+    def _residual(self, generator, face, cond):
         face = torch.as_tensor(face).to(self.device)
         cond = torch.as_tensor(cond).to(self.device)
         shape = (face.shape[0], self.model_cfg.horizon, self.model_cfg.repr_dim)
@@ -93,14 +113,15 @@ class AtomInferencePipeline:
         ref inference.py:164-177), returns the paths.
 
         Identities are stacked along the batch axis in sorted order and
-        sampled in chunks of ``batch`` (default: all at once); the last
-        chunk is padded by repetition to the same shape and trimmed. Draws
-        come from ``generator``, or from a ``torch.Generator`` on the
-        device seeded with ``seed``."""
+        sampled in chunks of ``batch`` (default: all at once; rounded up to a
+        multiple of the replicas); the last chunk is padded by repetition to
+        the same shape and trimmed. Draws come from ``generator``, or from a
+        ``torch.Generator`` on the device seeded with ``seed``."""
         names = sorted(identities)
         if not names:
             return {}
         batch = len(names) if batch is None else max(1, batch)
+        batch = round_up(batch, len(self.replicas))
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(seed)
         paths: dict[str, str] = {}

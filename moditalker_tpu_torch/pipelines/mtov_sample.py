@@ -5,7 +5,13 @@ Per 16-frame window: AE-extract the landmark video, the pose-masked video and
 the reference (and, in the noised-start fast mode, the renoise source);
 DDIM-sample the triplane latent; decode; quantise to uint8. ``sample_long``
 feeds the last generated frame back as the next window's reference
-(``use_last_as_reference``, sample.py:342-362). One card, no mesh.
+(``use_last_as_reference``, sample.py:342-362).
+
+``data_parallel`` (default: every visible card on CUDA, one on the CPU)
+holds a replica of the models on each of N devices; a window batch is then
+padded by repetition to a multiple of N, split, sampled by each card from
+a host thread of its own with its rows of the padded batch's draws, and
+trimmed (``data_parallel.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from ..config import MtovAEConfig, MtovDiffusionConfig, MtovUNetConfig
 from ..device import resolve_device
 from ..models.mtov import MtovDDPM, TriplaneUNet, ViTAutoencoder
+from .data_parallel import ReplicaRunner, inference_devices, round_up
 
 
 def to_uint8(video) -> np.ndarray:
@@ -36,15 +43,18 @@ class MtovSamplePipeline:
     """Weights are ``state_dict``s of the port's ``ViTAutoencoder`` (rgb and
     landmark) and ``TriplaneUNet`` (``utils/convert.py`` makes them from the
     JAX package's parameters). ``device`` defaults to the card; without one
-    the constructor raises."""
+    the constructor raises. ``data_parallel``: the number of replicas
+    (``data_parallel.inference_devices``); ``device`` is the first's."""
 
     def __init__(self, ae_rgb_state, ae_ldmk_state, unet_state,
                  ae_cfg: MtovAEConfig = MtovAEConfig(),
                  unet_cfg: MtovUNetConfig = MtovUNetConfig(),
                  diff_cfg: MtovDiffusionConfig = MtovDiffusionConfig(
                      sampling_timesteps=100, w=0.0),
-                 dtype=torch.bfloat16, device=None):
-        self.device = resolve_device(device)
+                 dtype=torch.bfloat16, device=None,
+                 data_parallel: int | None = None):
+        devices = inference_devices(device, data_parallel)
+        self.device = resolve_device(devices[0])
         self.ae_cfg, self.unet_cfg = ae_cfg, unet_cfg
 
         def build(module, state):
@@ -57,6 +67,11 @@ class MtovSamplePipeline:
             build(TriplaneUNet(unet_cfg, dtype), unet_state), diff_cfg,
             self.device)
         self.L = ae_cfg.latent_len
+        self.replicas = [self] + [
+            MtovSamplePipeline(ae_rgb_state, ae_ldmk_state, unet_state,
+                               ae_cfg, unet_cfg, diff_cfg, dtype, d, 1)
+            for d in devices[1:]]
+        self._runner = ReplicaRunner(devices)
 
     # ------------------------------------------------------------ window
     def _in(self, v):
@@ -113,7 +128,22 @@ class MtovSamplePipeline:
                       gt_video=None, noised_start_ratio: float | None = None,
                       out_uint8: bool = False):
         """All videos [B, 16, H, W, 3], uint8 frames or [-1, 1] float →
-        generated video on the device, float model range or uint8 frames."""
+        generated video on the (first) device, float model range or uint8
+        frames. Over N replicas: B padded to a multiple of N, split, and
+        the output trimmed back to B rows."""
+        if len(self.replicas) > 1:
+            return self._runner.split_run(
+                lambda r, v, draws: self.replicas[r]._sample_window(
+                    v[0], v[1], v[2], draws, v[3], noised_start_ratio,
+                    out_uint8),
+                [ldmk_video, masked_video, ref_video, gt_video], generator,
+                int(ldmk_video.shape[0]))
+        return self._sample_window(ldmk_video, masked_video, ref_video,
+                                   generator, gt_video, noised_start_ratio,
+                                   out_uint8)
+
+    def _sample_window(self, ldmk_video, masked_video, ref_video, generator,
+                       gt_video, noised_start_ratio, out_uint8):
         if noised_start_ratio is not None:
             if gt_video is None:
                 raise ValueError("the noised start needs gt_video")
@@ -127,8 +157,10 @@ class MtovSamplePipeline:
     def sample_independent(self, windows, generator, batch: int = 8,
                            noised_start_ratio: float | None = None,
                            noised_start_source: str = "ref") -> np.ndarray:
-        """Independent windows, ``batch`` per dispatch (the tail chunk padded
-        by repetition and trimmed). Returns [1, n*T, H, W, 3] uint8."""
+        """Independent windows, ``batch`` per dispatch (rounded up to a
+        multiple of the replicas; the tail chunk padded by repetition and
+        trimmed). Returns [1, n*T, H, W, 3] uint8."""
+        batch = round_up(batch, len(self.replicas))
         it = iter(windows)
         outs = []
         pending = None  # (device uint8 still computing, n_real)

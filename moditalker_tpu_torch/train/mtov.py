@@ -13,6 +13,13 @@ flows through them (``ops/kernels/autograd.py``). The loss's draws (t,
 noise) come from a CPU ``torch.Generator`` seeded from the config, so a run
 on the card and one on the CPU see the same numbers. A background thread
 prepares the host batches, as the JAX package's ``background_iter`` does.
+
+Under a process group (``core/sharding.py``, one process per card) every
+process builds the global batch and draws for it, keeps its own rows,
+extracts its own latents and averages the UNet's gradient over the group
+before AdamW steps; the logged losses are averaged over the ranks, the
+preemption latch is agreed once per step, and rank 0 alone writes
+checkpoints, behind a barrier.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import MtovDiffusionConfig, MtovTrainConfig, MtovUNetConfig
+from ..core import sharding
 from ..core.ema import ema_copy, ema_update_every
 from ..data.prefetch import background_iter
 from ..device import resolve_device
@@ -83,17 +91,33 @@ class MtovDiffusionTrainer:
         return {"params": self.model.state_dict(), "ema_params": self.ema,
                 "optimizer": self.opt.state_dict(), "step": self.step_count}
 
+    def load_state(self, tree: dict) -> None:
+        """A state of ``state()``, or one converted from the JAX trainer's
+        (``utils.convert.convert_mtov_state``: AdamW's moments by name)."""
+        from ..utils.convert import load_optimizer_state
+
+        self.model.load_state_dict(tree["params"])
+        for k, v in tree["ema_params"].items():
+            self.ema[k].copy_(v)
+        load_optimizer_state(self.opt, self.model.named_parameters(),
+                             tree["optimizer"])
+        self.step_count = int(tree["step"])
+
     def train_step(self, latents: dict, draws=None) -> dict:
-        """One step on device latents {z [B,4,L], cond [B,8,L], image_cond
-        [B,4,L]}; ``draws``: (t, noise), else from the trainer's generator.
-        Returns the loss terms as device tensors (no sync)."""
+        """One step on this rank's device latents {z [B,4,L], cond [B,8,L],
+        image_cond [B,4,L]}; ``draws``: (t, noise) for the GLOBAL batch,
+        else from the trainer's generator. Returns the loss terms of this
+        rank's rows as device tensors (no sync)."""
         z = latents["z"]
         if draws is None:
-            draws = self.ddpm.draw_loss_inputs(self.generator, z)
+            draws = self.ddpm.draw_loss_inputs(self.generator,
+                                               sharding.global_proxy(z))
+        draws = sharding.local_draws(draws, z.device)
         loss, aux = self.ddpm.p_losses(z, latents["cond"],
                                        latents["image_cond"], *draws)
         self.opt.zero_grad(set_to_none=True)
         loss.backward()
+        sharding.all_reduce_grads(p.grad for p in self.model.parameters())
         self.opt.step()
         self.step_count += 1
         ema_update_every(self.ema, self.model.named_parameters(), EMA_DECAY,
@@ -102,9 +126,10 @@ class MtovDiffusionTrainer:
                 **{k: v.detach() for k, v in aux.items()}}
 
     def step(self, batch: dict, draws=None) -> dict:
-        """One step on host latents (numpy or tensors)."""
-        return self.train_step({k: torch.as_tensor(v).to(self.device)
-                                for k, v in batch.items()}, draws)
+        """One step on the global batch of host latents (numpy or
+        tensors)."""
+        return self.train_step(sharding.shard_batch(batch, self.device),
+                               draws)
 
     @contextlib.contextmanager
     def ema_weights(self):
@@ -151,12 +176,12 @@ class LatentDiffusionLoop:
         self.ae_rgb, self.ae_ldmk = freeze(ae_rgb), freeze(ae_ldmk)
 
     def to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(batch[k]).to(self.trainer.device,
-                                                non_blocking=True)
-                for k in VIDEO_KEYS}
+        """A global video batch → this rank's rows on the device."""
+        return sharding.shard_batch({k: batch[k] for k in VIDEO_KEYS},
+                                    self.trainer.device)
 
     def train_step(self, batch: dict, draws=None) -> dict:
-        """One step on a video batch (host or device)."""
+        """One step on a global video batch (host or device)."""
         dev = self.to_device(batch)
         return self.trainer.train_step(
             extract_latents(self.ae_rgb, self.ae_ldmk, dev), draws)
@@ -166,9 +191,11 @@ class LatentDiffusionLoop:
         """The in-training sample probe: a DDIM sample of the EMA UNet
         conditioned on the batch, decoded to video [B, T, H, W, 3]; the
         draws come from ``generator`` (a generator on the trainer's device,
-        or a callable, as the samplers take)."""
-        lat = extract_latents(self.ae_rgb, self.ae_ldmk,
-                              self.to_device(batch))
+        or a callable, as the samplers take). Each rank samples the whole
+        batch."""
+        lat = extract_latents(self.ae_rgb, self.ae_ldmk, {
+            k: torch.as_tensor(batch[k]).to(self.trainer.device)
+            for k in VIDEO_KEYS})
         with self.trainer.ema_weights():
             z = self.trainer.ddpm.ddim_sample(
                 tuple(lat["z"].shape), lat["cond"], lat["image_cond"],
@@ -181,24 +208,29 @@ class LatentDiffusionLoop:
         """``eval_fn(loop, it) -> dict`` runs every ``eval_every`` steps
         (default ``ckpt_every``: the reference probes and checkpoints at one
         cadence, trainer.py:122-130). ``stop``: a ``GracefulStop`` polled
-        each step; on preemption a final checkpoint is saved and written
-        before returning. Checkpoints hold the EMA weights and the step."""
+        each step (agreed over the ranks); on preemption a final checkpoint
+        is saved and written before returning. Checkpoints hold the EMA
+        weights and the step; rank 0 alone writes them."""
         eval_every = ckpt_every if eval_every is None else eval_every
         pin = self.trainer.device.type == "cuda"
         host = (_host_tensors(b, VIDEO_KEYS, pin) for b in batches)
         it = 0
         last_saved = None
+        stopped = False
 
         def save():
-            ckpt_manager.save(it, {"ema_params": self.trainer.ema,
-                                   "step": self.trainer.step_count})
+            if sharding.is_main():
+                ckpt_manager.save(it, {"ema_params": self.trainer.ema,
+                                       "step": self.trainer.step_count})
+            sharding.barrier()
 
         for batch in background_iter(host):
             metrics = self.train_step(batch)
             it += 1
-            if logger is not None and it % log_every == 0:
-                logger.log_scalars(it, {k: float(v)
-                                        for k, v in metrics.items()})
+            if it % log_every == 0:
+                scalars = sharding.mean_over_ranks(metrics)
+                if logger is not None:
+                    logger.log_scalars(it, scalars)
             if eval_fn is not None and it % eval_every == 0:
                 probe = eval_fn(self, it)
                 if logger is not None and probe:
@@ -206,10 +238,11 @@ class LatentDiffusionLoop:
             if ckpt_manager is not None and it % ckpt_every == 0:
                 save()
                 last_saved = it
-            if it >= max_steps or (stop is not None and stop.requested):
+            stopped = stop is not None and sharding.agree(stop.requested)
+            if it >= max_steps or stopped:
                 break
         if ckpt_manager is not None:
-            if stop is not None and stop.requested and it != last_saved:
+            if stopped and it != last_saved:
                 save()
             ckpt_manager.wait()
         return self.trainer.state()

@@ -28,6 +28,16 @@ its gradient flows through them (``ops/kernels/autograd.py``). The
 per-item frame index comes from a CPU ``torch.Generator`` seeded with
 ``seed + 1`` (the JAX trainer's ``PRNGKey(seed + 1)``), one draw per step;
 ``step`` also takes it as an input.
+
+Under a process group (``core/sharding.py``, one process per card) every
+process builds the global batch and draws its frame indices, keeps its own
+rows, and averages each micro-step's gradients over the group before the
+discriminators' clip and the accumulation, so every rank accumulates, steps
+and alternates G and D alike. The discriminators' BatchNorms normalise with
+the statistics of the GLOBAL batch, as the JAX trainer's do under its mesh
+(``sharding.GlobalBatchNorm``). The logged losses are averaged over the
+ranks, the preemption latch is agreed once per step, and rank 0 alone
+writes checkpoints, behind a barrier.
 """
 
 from __future__ import annotations
@@ -36,6 +46,7 @@ import numpy as np
 import torch
 
 from ..config import MtovAEConfig, MtovLossConfig, MtovTrainConfig
+from ..core import sharding
 from ..data.prefetch import background_iter
 from ..device import resolve_device
 from ..models.mtov import ViTAutoencoder
@@ -56,11 +67,13 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def _grads(loss, params):
-    """d loss / d params; zeros for a parameter the loss does not reach (as
-    ``jax.grad`` gives)."""
+    """d loss / d params, averaged over the process group; zeros for a
+    parameter the loss does not reach (as ``jax.grad`` gives)."""
     grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return [torch.zeros_like(p) if g is None else g
-            for g, p in zip(grads, params)]
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, params)]
+    sharding.all_reduce_grads(grads)
+    return grads
 
 
 class MultiSteps:
@@ -95,13 +108,35 @@ class MultiSteps:
         return {"optimizer": self.optimizer.state_dict(),
                 "mini_step": self.mini_step, "acc_grads": acc}
 
+    @torch.no_grad()
+    def load_state_dict(self, state: dict, names) -> None:
+        """``state_dict()``'s form, or a converted optax ``MultiSteps`` state
+        (``utils.convert.convert_first_stage_state``: AdamW's step and
+        moments and the running mean, each by parameter name). ``names``:
+        the names of ``self.params``, in order."""
+        from ..utils.convert import load_optimizer_state
+
+        self.mini_step = int(state["mini_step"])
+        if "optimizer" in state:    # the port's own
+            load_optimizer_state(self.optimizer, (), state["optimizer"])
+            acc = list(state["acc_grads"])
+        else:
+            load_optimizer_state(self.optimizer, zip(names, self.params), {
+                k: state[k] for k in ("step", "exp_avg", "exp_avg_sq")})
+            acc = [state["acc_grads"][n] for n in names]
+        for p, g in zip(self.params, acc if self.mini_step else []):
+            p.grad = g.to(p.device, p.dtype).clone()
+
 
 class FirstStageTrainer:
     """AE + LPIPS (frozen) + 2D/3D PatchGANs on one device. ``state``: a
     saved or converted state ({ae_params, disc2d, disc3d, lpips_params,
-    step}, ``utils.convert.convert_first_stage_state``) to start from, else
-    every network is drawn from ``train_cfg.seed`` (LPIPS's heads at one,
-    as the JAX package initialises them)."""
+    g_opt, d_opt, step}, ``utils.convert.convert_first_stage_state``; the
+    optimizers may be left out) to start from, else every network is drawn
+    from ``train_cfg.seed`` (LPIPS's heads at one, as the JAX package
+    initialises them). A state's step also sets the phase: the iteration
+    count is the step, as in the JAX loop, where G and D steps both advance
+    it."""
 
     def __init__(self, ae_cfg: MtovAEConfig = MtovAEConfig(),
                  loss_cfg: MtovLossConfig = MtovLossConfig(),
@@ -127,7 +162,8 @@ class FirstStageTrainer:
         dev = self.device
         self.ae = ae.to(dev).train()
         self.lpips = lpips.to(dev).eval().requires_grad_(False)
-        self.disc2d, self.disc3d = d2.to(dev).train(), d3.to(dev).train()
+        self.disc2d = sharding.globalise_batch_norms(d2.to(dev).train())
+        self.disc3d = sharding.globalise_batch_norms(d3.to(dev).train())
 
         g_params = []
         for name, p in self.ae.named_parameters():
@@ -147,6 +183,24 @@ class FirstStageTrainer:
         self.generator = torch.Generator().manual_seed(train_cfg.seed + 1)
         self._it = 0
         self._disc_phase = False
+        if state is not None:
+            if "g_opt" in state:
+                self.g_opt.load_state_dict(state["g_opt"], [
+                    n for n, p in self.ae.named_parameters()
+                    if p.requires_grad])
+                self.d_opt.load_state_dict(state["d_opt"], [
+                    f"disc{t}d.{n}" for t, m in (("2", d2), ("3", d3))
+                    for n, _ in m.named_parameters()])
+            for _ in range(self.step_count):
+                self._advance_phase()
+
+    def _advance_phase(self) -> None:
+        accum, it = self.train_cfg.accum_iter, self._it
+        # the phase flip reads it // accum (trainer.py:226-230): NOT the
+        # unit adopt_weight reads in the steps
+        if it % accum == accum - 1 and it // accum >= self.loss_cfg.disc_start:
+            self._disc_phase = not self._disc_phase
+        self._it += 1
 
     # ------------------------------------------------------------ G step
     def g_step(self, video, frame_idx) -> dict:
@@ -206,25 +260,21 @@ class FirstStageTrainer:
         return video.to(self.device, torch.float32, non_blocking=True)
 
     def step(self, video, draws=None) -> dict:
-        """One iteration with the reference's G/D phase alternation; video
-        [B, T, H, W, 3] (host or device). ``draws``: the frame index per
-        item, else drawn from the trainer's generator. Returns the step's
-        loss terms as device tensors (no sync)."""
-        video = self.to_device(video)
+        """One iteration with the reference's G/D phase alternation; video:
+        the GLOBAL batch [B, T, H, W, 3] (host or device), of which this
+        rank trains on its rows. ``draws``: the frame index per item of the
+        global batch, else drawn from the trainer's generator. Returns the
+        step's loss terms (this rank's rows) as device tensors (no sync)."""
         if draws is None:
             draws = torch.randint(0, self.ae_cfg.timesteps, (video.shape[0],),
                                   generator=self.generator)
-        frame_idx = draws.to(self.device)
+        video = self.to_device(sharding.rank_rows(video))
+        (frame_idx,) = sharding.local_draws((draws,), self.device)
         if self._disc_phase:
             metrics = self.d_step(video, frame_idx)
         else:
             metrics = self.g_step(video, frame_idx)
-        accum, it = self.train_cfg.accum_iter, self._it
-        # the phase flip reads it // accum (trainer.py:226-230): NOT the
-        # unit adopt_weight reads above
-        if it % accum == accum - 1 and it // accum >= self.loss_cfg.disc_start:
-            self._disc_phase = not self._disc_phase
-        self._it += 1
+        self._advance_phase()
         return metrics
 
     @torch.no_grad()
@@ -248,8 +298,9 @@ class FirstStageTrainer:
         (``eval_fn(trainer) -> dict``, logged) and a full-state save.
         ``batches`` yields dicts with 'x' (or 'x_l' with
         ``freeze_decoder``), prepared on a host thread. ``stop``: a
-        ``GracefulStop`` polled each step; on preemption a final checkpoint
-        is saved and written before returning."""
+        ``GracefulStop`` polled each step (agreed over the ranks); on
+        preemption a final checkpoint is saved and written before
+        returning. Checkpoints are written by rank 0 alone."""
         key = "x_l" if self.freeze_decoder else "x"
         pin = self.device.type == "cuda"
 
@@ -258,25 +309,34 @@ class FirstStageTrainer:
             return t.pin_memory() if pin else t
 
         last_saved = None
+        stopped = False
         it = self._it
+
+        def save():
+            if sharding.is_main():
+                ckpt_manager.save(it, self.state())
+            sharding.barrier()
+
         for video in background_iter(host(b) for b in batches):
             metrics = self.step(video)
             it = self._it
-            if logger is not None and it % log_every == 0:
-                logger.log_scalars(it, {k: float(v)
-                                        for k, v in metrics.items()})
+            if it % log_every == 0:
+                scalars = sharding.mean_over_ranks(metrics)
+                if logger is not None:
+                    logger.log_scalars(it, scalars)
             if it % eval_every == 0 and it > 0:
                 if eval_fn is not None:
                     probe = eval_fn(self)
                     if logger is not None and probe:
                         logger.log_scalars(it, probe)
                 if ckpt_manager is not None:
-                    ckpt_manager.save(it, self.state())
+                    save()
                     last_saved = it
-            if it >= max_steps or (stop is not None and stop.requested):
+            stopped = stop is not None and sharding.agree(stop.requested)
+            if it >= max_steps or stopped:
                 break
         if ckpt_manager is not None:
-            if stop is not None and stop.requested and it != last_saved:
-                ckpt_manager.save(it, self.state())
+            if stopped and it != last_saved:
+                save()
             ckpt_manager.wait()
         return self.state()

@@ -5,9 +5,16 @@ Takes the variables of ``moditalker_tpu``'s ``ViTAutoencoder``,
 ``FAN``, ``ReconNet``, ``LPIPS``, the two PatchGAN discriminators or
 ``InceptionI3d`` as nested dicts of numpy arrays (for example
 ``jax.tree_util.tree_map(np.asarray, variables)``) and returns the
-``state_dict`` of the port's module of the same name; and the JAX
-first-stage trainer's state as a tree of such ``state_dict``s. No JAX is
-needed.
+``state_dict`` of the port's module of the same name; and the JAX trainers'
+states (``FirstStageState``, AToM's and the latent-diffusion
+``TrainState``), optimizer states included, as trees the port's trainers
+load (``load_optimizer_state``). No JAX is needed.
+
+A JAX train state reaches the port on a host that has JAX: there
+``moditalker_tpu.core.checkpoint.load_single`` reads the orbax directory
+(it restores NamedTuples as dicts and tuples as lists; both forms are
+taken here), ``convert_*_state`` converts it and the port's
+``core.checkpoint.save_single`` writes it. The port reads no orbax files.
 
   * Dense kernel [in, out]       → Linear weight [out, in]
   * Conv kernel HWIO             → Conv2d weight OIHW
@@ -32,6 +39,7 @@ inside each third: it is the layout the kernels read.
 
 from __future__ import annotations
 
+import copy
 import re
 
 import numpy as np
@@ -92,6 +100,8 @@ def _convert(variables: dict) -> dict[str, torch.Tensor]:
             if isinstance(val, dict):
                 walk(val, path + [key], leaf_fn)
                 continue
+            if val is None or isinstance(val, (tuple, list)):
+                continue    # optax's masked-out leaves (MaskedNode)
             val = np.asarray(val, dtype=np.float32)
             if path:
                 leaf, val = leaf_fn(key, val)
@@ -173,14 +183,114 @@ def convert_i3d_params(flax_variables: dict) -> dict[str, torch.Tensor]:
     return _convert(flax_variables)
 
 
-def convert_first_stage_state(state: dict) -> dict:
-    """The JAX ``FirstStageState`` (as a dict: ``state._asdict()``) → the
-    port's ``FirstStageTrainer`` state: {ae_params, disc2d, disc3d,
-    lpips_params, step}. The optimizer states are not carried across (optax
-    and torch keep different trees): a trainer loaded from it starts its
-    AdamW moments and accumulation afresh."""
+def _plain(tree):
+    """NamedTuples → dicts and tuples → lists, recursively: the form orbax
+    restores a JAX state in."""
+    if hasattr(tree, "_asdict"):
+        return {k: _plain(v) for k, v in tree._asdict().items()}
+    if isinstance(tree, dict):
+        return {k: _plain(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_plain(v) for v in tree]
+    return tree
+
+
+def _adam(opt_state) -> dict:
+    """The ``ScaleByAdamState`` (count, mu, nu) inside an ``optax.adamw``
+    chain's state; under ``optax.multi_transform`` (the landmark AE's frozen
+    decoder) the trained branch's."""
+    if isinstance(opt_state, dict) and "inner_states" in opt_state:
+        opt_state = opt_state["inner_states"]["train"]
+        opt_state = opt_state.get("inner_state", opt_state)
+    return opt_state[0]
+
+
+def _adamw_state(opt_state, convert_fn) -> dict:
+    adam = _adam(opt_state)
+    return {"step": int(np.asarray(adam["count"])),
+            "exp_avg": convert_fn(adam["mu"]),
+            "exp_avg_sq": convert_fn(adam["nu"])}
+
+
+def _disc_pair(tree: dict) -> dict[str, torch.Tensor]:
+    """{"d2": variables, "d3": variables} → one dict keyed ``disc2d.<name>``
+    and ``disc3d.<name>`` (the first-stage D optimizer's parameters)."""
+    return {f"disc{tag[1]}d.{k}": v for tag in ("d2", "d3")
+            for k, v in convert_disc_params(tree[tag]).items()}
+
+
+def convert_first_stage_state(state) -> dict:
+    """The JAX ``FirstStageState`` (the NamedTuple, its ``_asdict()`` or
+    orbax's restored dict) → the port's ``FirstStageTrainer`` state:
+    {ae_params, disc2d, disc3d, lpips_params, g_opt, d_opt, step}. Each
+    optimizer is AdamW's step and moments (``exp_avg``/``exp_avg_sq`` by
+    parameter name) and ``optax.MultiSteps``' ``mini_step`` and running
+    mean ``acc_grads``; the D optimizer's names are ``disc2d.*`` and
+    ``disc3d.*``."""
+    state = _plain(state)
+
+    def multi_steps(ms, convert_fn):
+        return {**_adamw_state(ms["inner_opt_state"], convert_fn),
+                "mini_step": int(np.asarray(ms["mini_step"])),
+                "acc_grads": convert_fn(ms["acc_grads"])}
+
     return {"ae_params": convert_ae_params(state["ae_params"]),
             "disc2d": convert_disc_params(state["disc2d"]),
             "disc3d": convert_disc_params(state["disc3d"]),
             "lpips_params": convert_lpips_params(state["lpips_params"]),
+            "g_opt": multi_steps(state["g_opt"], convert_ae_params),
+            "d_opt": multi_steps(state["d_opt"], _disc_pair),
             "step": int(np.asarray(state["step"]))}
+
+
+def convert_atom_state(state) -> dict:
+    """The JAX AToM ``TrainState`` (params, ema_params, Adan's
+    ``AdanState``, step) → the port's ``AtomTrainer`` state: {params,
+    ema_params, optimizer: {step, m, v, n, prev_grad}, step}."""
+    state = _plain(state)
+    adan = state["opt_state"]
+    return {"params": convert_atom_params(state["params"]),
+            "ema_params": convert_atom_params(state["ema_params"]),
+            "optimizer": {"step": int(np.asarray(adan["count"])),
+                          **{k: convert_atom_params(adan[k])
+                             for k in ("m", "v", "n", "prev_grad")}},
+            "step": int(np.asarray(state["step"]))}
+
+
+def convert_mtov_state(state) -> dict:
+    """The JAX latent-diffusion ``TrainState`` (params, ema_params,
+    ``optax.adamw``'s state, step) → the port's ``MtovDiffusionTrainer``
+    state: {params, ema_params, optimizer: {step, exp_avg, exp_avg_sq},
+    step}."""
+    state = _plain(state)
+    return {"params": convert_unet_params(state["params"]),
+            "ema_params": convert_unet_params(state["ema_params"]),
+            "optimizer": _adamw_state(state["opt_state"],
+                                      convert_unet_params),
+            "step": int(np.asarray(state["step"]))}
+
+
+def load_optimizer_state(opt: torch.optim.Optimizer, named_params,
+                         state: dict) -> None:
+    """Set ``opt``'s state from ``state``: a torch ``state_dict`` (it has
+    ``param_groups``: what the port's trainers save), or a converted one
+    ({step, <moment>: {parameter name: tensor}}, ``convert_*_state``), which
+    is matched to ``named_params`` by name; a parameter it names no moment
+    for (a frozen one) keeps none. The optimizer gets copies: a state taken
+    from a live trainer stays that trainer's."""
+    if "param_groups" in state:
+        # torch's load_state_dict keeps the tensors it is given
+        opt.load_state_dict(copy.deepcopy(state))
+        return
+    step = int(state["step"])
+    moments = {k: v for k, v in state.items() if isinstance(v, dict)}
+    for name, p in named_params:
+        if not all(name in m for m in moments.values()):
+            continue
+        st = {k: m[name].to(p.device, p.dtype).clone()
+              for k, m in moments.items()}
+        # torch's Adam family keeps the step as a float32 tensor
+        st["step"] = (torch.tensor(float(step), dtype=torch.float32)
+                      if isinstance(opt, torch.optim.Adam | torch.optim.AdamW)
+                      else step)
+        opt.state[p] = st

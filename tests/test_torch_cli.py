@@ -235,9 +235,11 @@ def test_sample_pipeline_memo(identity, tmp_path):
 
 
 def test_parsers_have_the_jax_flags_minus_the_mesh(monkeypatch):
-    """Both commands take the JAX CLI's flags, less ``--data-parallel``, plus
-    ``--device``. The JAX CLI builds its parser inside ``main``: it is caught
-    where ``main`` hands it the arguments."""
+    """Both commands take the JAX CLI's flags, ``--data-parallel`` among
+    them (the port's mesh is a replica per card), plus ``--device``; the
+    trainers take the JAX CLI's multi-process flags. The JAX CLI builds its
+    parser inside ``main``: it is caught where ``main`` hands it the
+    arguments."""
     import argparse
 
     from moditalker_tpu import cli as jcli
@@ -261,9 +263,13 @@ def test_parsers_have_the_jax_flags_minus_the_mesh(monkeypatch):
             jcli.main([])
     jparser = caught.value.args[0]
     for command in ("sample", "atom-infer"):
-        want = flags(jparser, command) - {"--data-parallel"}
-        assert "--seed" in want
+        want = flags(jparser, command)
+        assert {"--seed", "--data-parallel"} <= want
         assert flags(cli.build_parser(), command) == want | {"--device"}
+    for command in ("train-atom", "train-first-stage", "train-diffusion"):
+        multi = {"--coordinator", "--num-processes", "--process-id"}
+        assert multi <= flags(jparser, command)
+        assert multi <= flags(cli.build_parser(), command)
 
 
 # ------------------------------------------------------------------ atom-infer

@@ -351,3 +351,50 @@ def test_flash_gradient_on_the_card(gen, name, shape, dtype):
         lambda *x: tflash.onepass_attention_reference(*x, sc),
         [_randn32(gen, *shape).to(dtype) for _ in range(3)],
         "FlashSdpaBackward")
+
+
+# ------------------------------------------------- distribution on the card
+@pytest.mark.cuda
+def test_device_prefetch_and_shared_draws_on_the_card(gen):
+    """``device_prefetch`` hands over batches copied on its side stream,
+    in order and whole; ``SharedDraws`` over a CUDA generator gives each
+    replica its rows of one padded-batch draw."""
+    from moditalker_tpu_torch.core.sharding import device_prefetch
+    from moditalker_tpu_torch.pipelines.data_parallel import SharedDraws
+
+    host = [{"x": torch.full((64, 1024), float(i)).pin_memory()}
+            for i in range(5)]
+    got = [b["x"] for b in device_prefetch(iter(host), "cuda")]
+    assert [float(x.mean()) for x in got] == [0, 1, 2, 3, 4]
+    assert all(x.is_cuda for x in got)
+    full = torch.randn((4, 8), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    shared = SharedDraws(torch.Generator(device="cuda").manual_seed(1), 2)
+    assert torch.equal(shared.draw(1)((2, 8), torch.float32), full[2:])
+    assert torch.equal(shared.draw(0)((2, 8), torch.float32), full[:2])
+
+
+@pytest.mark.cuda
+def test_head_parallel_attention_launches_the_onepass_kernel(gen):
+    """``tp.head_parallel_attention``'s per-rank heads go through ``sdpa``:
+    at the UNet's one-pass shape, one one-pass launch, within its limits
+    of the plain version (a group of one process over NCCL)."""
+    import socket
+
+    from moditalker_tpu_torch.core import sharding
+    from moditalker_tpu_torch.parallel import tp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    sharding.init_distributed(f"localhost:{port}", 1, 0)
+    try:
+        mesh = tp.make_2d_mesh(1, 1)
+        q, k, v = (_randn(gen, 2, 2048, 8, 32) for _ in range(3))
+        out = _launched("onepass_attention", lambda: tp.head_parallel_attention(
+            mesh, 8)(q, k, v))
+    finally:
+        sharding.shutdown()
+    heads = lambda t: t.transpose(1, 2).reshape(16, 2048, 32)
+    plain = attention.plain_sdpa(heads(q) * 32**-0.5, heads(k), heads(v))
+    check_bf16("onepass_attention", heads(out), plain)
