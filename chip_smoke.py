@@ -15,9 +15,14 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              plain output's max within ``QUANTILE_LIMITS``; the space, time,
              packed and one-pass kernels also in float32 at
              train-diffusion's shapes and at B = 1 (train-first-stage's and
-             the golden record's), through the cast passes of
-             ``ops/kernels/convert.py``, whose share each such row gives; the
-             256-channel UNet's one-pass shapes), timed on the device (20 calls replayed from
+             the golden record's): space and time read and write float32
+             themselves, and each such row is also held to its float32
+             route's function (``divided_attention_float32_route``, within
+             ``FLOAT32_ROUTE_LIMITS``) with under 1 % of its result equal to
+             its own bf16 rounding; packed and one-pass go through the cast
+             passes of ``ops/kernels/convert.py``, whose share each such row
+             gives; the 256-channel UNet's one-pass shapes), timed on the
+             device (20 calls replayed from
              a CUDA graph between two events, the median of five replays:
              no host time in it) beside the plain
              version, one PyTorch library call computing the same attention
@@ -218,6 +223,16 @@ BEFORE_REDESIGN_MS = {
     ("onepass_attention", (16, 1024, 16)): 0.0224,
 }
 
+# the float32 rows of the space and time kernels through the cast route: a
+# bf16 kernel between convert.py's two cast passes (chip_smoke.py on an H100
+# 80GB HBM3 at 700.00 W, PERF.md §6)
+BEFORE_F32_ROUTE_MS = {
+    ("divided_space_attention", (10, 16, 1024, 1536)): 1.6749,
+    ("divided_time_attention", (10, 16, 1024, 1536)): 0.9773,
+    ("divided_space_attention", (1, 16, 1024, 1536)): 0.1737,
+    ("divided_time_attention", (1, 16, 1024, 1536)): 0.1067,
+}
+
 # train-diffusion's batch (MtovTrainConfig.diffusion_batch_size): the float32
 # rows of the kernels phase are at the shapes it gives the kernels
 TRAIN_BATCH = 10
@@ -391,8 +406,12 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     import torch.nn.functional as F
 
     from moditalker_tpu_torch.ops import attention, rotary
-    from moditalker_tpu_torch.ops.kernels import (BF16_LIMITS, QUANTILE,
-                                                  QUANTILE_LIMITS, check_bf16)
+    from moditalker_tpu_torch.ops.kernels import (BF16_LIMITS,
+                                                  FLOAT32_ROUTE_LIMITS,
+                                                  QUANTILE, QUANTILE_LIMITS,
+                                                  bf16_rounded_share,
+                                                  check_bf16,
+                                                  check_float32_route)
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
     from moditalker_tpu_torch.ops.kernels import packed_attention as pk
@@ -459,6 +478,19 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             qkv, sin, cos, axis, heads, dh, scale, use_flash=False)
         name = f"divided_{axis}_attention"
         err = errors(name, kern, plain)
+        if dtype == torch.float32:
+            # the float32 route: against the function it computes, and
+            # whether its result was ever rounded to bf16
+            out = kern()
+            oracle = dv.divided_attention_float32_route(
+                qkv, sin, cos, axis, heads, dh, scale)
+            err["route_rel_err"] = check_float32_route(name, out, oracle)
+            err["bf16_rounded_share"] = bf16_rounded_share(out)
+            if err["bf16_rounded_share"] >= 0.01:
+                raise AssertionError(
+                    f"{name}: {err['bf16_rounded_share']:.4f} of the float32 "
+                    f"result equals its bf16 rounding")
+            del out, oracle
         q, k, v = head_split_rotated(qkv, sin, cos, axis)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
         seq = n_ if axis == "space" else f_
@@ -598,9 +630,12 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
              onepass_row(16, 2048, 64, g=gen_b2)]
     # float32 in and out, at the shapes train-diffusion gives the kernels at
     # B = diffusion_batch_size: the frozen AEs' extract and the UNet's
-    # packed and one-pass attentions. bf16 operands through the cast passes
-    # of convert.py, whose time counts in the row; held to the same limits
-    # against the float32 plain version
+    # packed and one-pass attentions, each held to the same limits against
+    # the float32 plain version. Space and time read and write float32
+    # themselves (also held to their float32 route's function within
+    # FLOAT32_ROUTE_LIMITS, with the share of their result that equals its
+    # bf16 rounding); packed and one-pass take bf16 operands through the
+    # cast passes of convert.py, whose time counts in the row
     gen_f32 = torch.Generator(device=dev).manual_seed(seed + 3)
     tb = TRAIN_BATCH
     rows += [divided_row("space", tb, f, n, g=gen_f32, dtype=torch.float32),
@@ -633,12 +668,13 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
              packed_row(1, 1024, g=gen_fs, dtype=torch.float32),
              onepass_row(heads, l, 32, g=gen_fs, dtype=torch.float32)]
 
-    # the cast passes' share of each float32 row: the time of convert.py's
-    # two passes alone on tensors of the row's input and output sizes
+    # the cast passes' share of each float32 row that still runs them
+    # (packed and one-pass): the time of convert.py's two passes alone on
+    # tensors of the row's input and output sizes
     from moditalker_tpu_torch.ops.kernels import convert
 
     for row in rows:
-        if row["dtype"] != "float32":
+        if row["dtype"] != "float32" or row["name"].startswith("divided_"):
             continue
         shapes = ([row["shape"][0], row["shape"][1], row["shape"][1]]
                   if isinstance(row["shape"][0], list) else [row["shape"]])
@@ -670,7 +706,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         floor_ms = row.pop("scores") / ex2_per_ms
         first = row["shape"][0] if isinstance(row["shape"][0], list) \
             else row["shape"]
-        before = BEFORE_REDESIGN_MS.get((row["name"], tuple(first)))
+        before = (BEFORE_F32_ROUTE_MS if row["dtype"] == "float32"
+                  else BEFORE_REDESIGN_MS).get((row["name"], tuple(first)))
         log(f"{row['name']} at {row['shape']} {row['dtype']}: max abs err "
             f"{row['max_abs_err']:.3e}, relative max {row['rel_max_err']:.3e}"
             f", rms {row['rel_rms_err']:.3e} and {QUANTILE} quantile "
@@ -682,10 +719,17 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             + (f", {row['design']}" if "design" in row else "")
             + (f", of which the cast passes {row['cast_ms']:.4f} ms"
                if "cast_ms" in row else "")
+            + (f"; against its float32 route's function max / rms / "
+               f"quantile {'/'.join(f'{e:.3e}' for e in row['route_rel_err'])}"
+               f" (limits {FLOAT32_ROUTE_LIMITS[row['name']]}), "
+               f"bf16-rounded share {row['bf16_rounded_share']:.2e}"
+               if "route_rel_err" in row else "")
             + (f"; the plain version's backward of one call "
                f"{row['plain_backward_ms']:.4f} ms"
                if "plain_backward_ms" in row else "")
-            + (f", before the redesign {before:.4f} ms" if before else ""))
+            + ((f", through the cast passes {before:.4f} ms"
+                if row["dtype"] == "float32" else
+                f", before the redesign {before:.4f} ms") if before else ""))
     return rows
 
 
@@ -2339,7 +2383,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from moditalker_tpu_torch.ops.kernels import (HELPER_SOURCES,
+        from moditalker_tpu_torch.ops.kernels import (FLOAT32_SOURCES,
+                                                      HELPER_SOURCES,
                                                       SOURCES, _build)
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -2350,7 +2395,8 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    logs = _build.build(sorted({*SOURCES.values(), *HELPER_SOURCES}))
+    logs = _build.build(sorted({*SOURCES.values(), *FLOAT32_SOURCES.values(),
+                                *HELPER_SOURCES}))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, (secs, out) in logs.items():
         for line in out.splitlines():   # per kernel: registers, spills
@@ -2414,7 +2460,8 @@ def main() -> int:
             kernels[row["name"]].setdefault("other_shapes", []).append(
                 {k: row[k] for k in ("shape", "dtype", "max_abs_err",
                                      "rel_max_err", "rel_rms_err",
-                                     "rel_q_err", "ms", "cast_ms",
+                                     "rel_q_err", "route_rel_err",
+                                     "bf16_rounded_share", "ms", "cast_ms",
                                      "plain_ms", "plain_backward_ms",
                                      "library_ms", "bound_ms",
                                      "bound_by") if k in row})

@@ -1,0 +1,36 @@
+// The C entry points of the divided space and time kernels for float32 qkv
+// (the kernels and their float32 route: divided_attention.cuh). A library
+// of their own, so that the bf16 kernels' translation unit
+// (divided_attention.cu) holds no float32 instantiation.
+#include "divided_attention.cuh"
+
+extern "C" {
+
+// qkv [BF, N, 3·H·dh] float32, rot [N, dh/2, 2] fp32 -> out [BF, N, H·dh]
+// float32; built for resident K only (N <= 1152:
+// the repository's configurations reach N = 1024), larger N is refused.
+int divided_space_attention_f32(const void* qkv, const void* rot, void* out,
+                                int BF, int N, int H, int dh, float scale,
+                                void* stream) {
+  return mdt::launch_space<float>(qkv, rot, out, BF, N, H, dh, scale,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// qkv [B, F, N, 3·H·dh] float32, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh]
+// float32; built for 16 frames of dim_head 64.
+int divided_time_attention_f32(const void* qkv, const void* sin_t,
+                               const void* cos_t, void* out, int B, int F,
+                               int N, int H, int dh, float scale,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (F == 16 && dh == 64)
+    return mdt::launch_time<16, 64, float>(qkv, sin_t, cos_t, out, B, N, H,
+                                           scale, st);
+  return cudaErrorInvalidValue;
+}
+
+const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,6 +1,7 @@
 // Thin wrappers over the PTX the port's kernels are built from: bf16
-// packing, mma.sync and ldmatrix, cp.async, mbarriers, the proxy fence and
-// ex2. Shared by every tile header; nothing here launches or allocates.
+// packing, row chunks of bf16 or float32, mma.sync and ldmatrix, cp.async,
+// mbarriers, the proxy fence and ex2. Shared by every tile header; nothing
+// here launches or allocates.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -15,6 +16,49 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Eight consecutive elements of a row as one load brings them in: a 16-byte
+// chunk of bf16, or two 16-byte chunks of float32 (the float32 routes of the
+// divided kernels read their operand in its own type and round it once,
+// after the rotary, where the bf16 routes round nothing on the way in).
+template <typename T>
+struct Chunk8;
+
+template <>
+struct Chunk8<bf16> {
+  uint4 raw;
+  __device__ __forceinline__ void load(const bf16* p) {
+    raw = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void to_float(float (&x)[8]) const {
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = __bfloat162float(e[i]);
+  }
+};
+
+template <>
+struct Chunk8<float> {
+  float4 lo, hi;
+  __device__ __forceinline__ void load(const float* p) {
+    lo = reinterpret_cast<const float4*>(p)[0];
+    hi = reinterpret_cast<const float4*>(p)[1];
+  }
+  __device__ __forceinline__ void to_float(float (&x)[8]) const {
+    x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+    x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+  }
+};
+
+// Eight fp32 values as one 16-byte chunk of bf16, each rounded once.
+__device__ __forceinline__ uint4 pack8_bf16(const float (&x)[8]) {
+  uint4 v;
+  v.x = pack_bf16(x[0], x[1]);
+  v.y = pack_bf16(x[2], x[3]);
+  v.z = pack_bf16(x[4], x[5]);
+  v.w = pack_bf16(x[6], x[7]);
+  return v;
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {

@@ -15,22 +15,28 @@
 // product and the output is divided by the row sum after it: the TPU
 // kernels' rounding points. wgmma is not used: a 16-row problem cannot fill
 // a 64-row warpgroup tile. The padded stride keeps the fragment loads on 32
-// distinct banks. The output overwrites q_s; the caller runs __syncwarp()
-// before it reads it.
+// distinct banks. The output overwrites q_s: bf16 [16, D] at stride D + 8,
+// or, for a float32 output (O = float: the time kernel's float32 route),
+// fp32 [16, D] at stride D + 8 floats over q_s and k_s, never rounded to
+// bf16; the caller runs __syncwarp() before it reads it.
 //
-// load8 and store8 move one 16-byte chunk of a row between device memory
-// and a warp's buffer, through fp32 where the caller scales or rotates it.
+// load8 and store8 move eight elements of a row between device memory (bf16
+// or float32) and a warp's bf16 buffer, through fp32 where the caller scales
+// or rotates them, rounded to bf16 once.
 #pragma once
+
+#include <type_traits>
 
 #include "ptx.cuh"
 
 namespace mdt {
 
-// Eight consecutive bf16 of one row, rotated (rotate-every-two: out[2i] =
-// x[2i]·cos - x[2i+1]·sin, out[2i+1] = x[2i+1]·cos + x[2i]·sin) when ROT,
-// times `mul`, in fp32. Rows past the sequence end read as zeros.
-template <bool ROT>
-__device__ __forceinline__ void load8(const bf16* src, bool valid,
+// Eight consecutive elements of one row (bf16 or float32), rotated
+// (rotate-every-two: out[2i] = x[2i]·cos - x[2i+1]·sin, out[2i+1] =
+// x[2i+1]·cos + x[2i]·sin) when ROT, times `mul`, in fp32. Rows past the
+// sequence end read as zeros.
+template <bool ROT, typename T>
+__device__ __forceinline__ void load8(const T* src, bool valid,
                                       const float* sn, const float* cs,
                                       float mul, float (&x)[8]) {
   if (!valid) {
@@ -38,10 +44,9 @@ __device__ __forceinline__ void load8(const bf16* src, bool valid,
     for (int i = 0; i < 8; ++i) x[i] = 0.f;
     return;
   }
-  uint4 raw = *reinterpret_cast<const uint4*>(src);
-  const bf16* e = reinterpret_cast<const bf16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = __bfloat162float(e[i]);
+  Chunk8<T> in;
+  in.load(src);
+  in.to_float(x);
   if (ROT) {
     float s[8], c[8];
     *reinterpret_cast<float4*>(s) = reinterpret_cast<const float4*>(sn)[0];
@@ -60,12 +65,7 @@ __device__ __forceinline__ void load8(const bf16* src, bool valid,
 }
 
 __device__ __forceinline__ void store8(bf16* dst, const float (&x)[8]) {
-  uint4 v;
-  v.x = pack_bf16(x[0], x[1]);
-  v.y = pack_bf16(x[2], x[3]);
-  v.z = pack_bf16(x[4], x[5]);
-  v.w = pack_bf16(x[6], x[7]);
-  *reinterpret_cast<uint4*>(dst) = v;
+  *reinterpret_cast<uint4*>(dst) = pack8_bf16(x);
 }
 
 template <int L, int D>
@@ -75,12 +75,17 @@ struct TinyTile {
   static constexpr int RS = D + 8;            // padded smem row stride (bf16)
   static constexpr int CH = D / 8;            // 16-byte chunks per row
   static constexpr int warp_elems = 3 * L * RS;  // q, k, v
+  // a float32 output's row stride (floats): [L, OS] fp32 fills q_s and k_s
+  // exactly, and a half-warp's 8-byte stores land on 32 distinct banks
+  static constexpr int OS = D + 8;
+  static_assert(L * OS * 4 == 2 * L * RS * 2, "fp32 output over q_s, k_s");
 };
 
-template <int L, int D>
+template <int L, int D, typename O = bf16>
 __device__ __forceinline__ void tiny_attend(bf16* q_s, const bf16* k_s,
                                             const bf16* v_s, int lane) {
   constexpr int RS = TinyTile<L, D>::RS;
+  constexpr int OS = TinyTile<L, D>::OS;
   const int g = lane >> 2, t = lane & 3;
 
   // S = Q·Kᵀ: 16 rows x 16 keys, two n8 tiles
@@ -135,7 +140,9 @@ __device__ __forceinline__ void tiny_attend(bf16* q_s, const bf16* k_s,
   pa[3] = pack_bf16(s[1][2], s[1][3]);
   const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
   const unsigned short* v_u = reinterpret_cast<const unsigned short*>(v_s);
-  __syncwarp();  // every lane has read its q fragments: q_s becomes the output
+  // every lane has read its q and k fragments: q_s (and, for a float32
+  // output, k_s after it) becomes the output
+  __syncwarp();
 #pragma unroll
   for (int nd = 0; nd < D / 8; ++nd) {
     // B fragment: V[2t][n], V[2t+1][n] and V[2t+8][n], V[2t+9][n], n = nd·8 + g
@@ -146,10 +153,18 @@ __device__ __forceinline__ void tiny_attend(bf16* q_s, const bf16* k_s,
                         ((uint32_t)v_u[(2 * t + 9) * RS + col] << 16);
     float o[4] = {0.f, 0.f, 0.f, 0.f};
     mma_16816(o, pa, b0, b1);
-    *reinterpret_cast<uint32_t*>(q_s + g * RS + nd * 8 + 2 * t) =
-        pack_bf16(o[0] * inv0, o[1] * inv0);
-    *reinterpret_cast<uint32_t*>(q_s + (g + 8) * RS + nd * 8 + 2 * t) =
-        pack_bf16(o[2] * inv1, o[3] * inv1);
+    if constexpr (std::is_same<O, float>::value) {
+      float* o_s = reinterpret_cast<float*>(q_s);
+      *reinterpret_cast<float2*>(o_s + g * OS + nd * 8 + 2 * t) =
+          make_float2(o[0] * inv0, o[1] * inv0);
+      *reinterpret_cast<float2*>(o_s + (g + 8) * OS + nd * 8 + 2 * t) =
+          make_float2(o[2] * inv1, o[3] * inv1);
+    } else {
+      *reinterpret_cast<uint32_t*>(q_s + g * RS + nd * 8 + 2 * t) =
+          pack_bf16(o[0] * inv0, o[1] * inv0);
+      *reinterpret_cast<uint32_t*>(q_s + (g + 8) * RS + nd * 8 + 2 * t) =
+          pack_bf16(o[2] * inv1, o[3] * inv1);
+    }
   }
 }
 

@@ -60,6 +60,16 @@
 // rounded to bf16 once, k rotated and rounded once, fp32 scores, max and
 // sum, P rounded to bf16 for P·V, the output divided by the fp32 row sum.
 //
+// The float32 route (TI = TO = float: the divided space kernel's, with the
+// rotary and resident K only) keeps those points and the bf16 tiles: q and
+// k are read as two 16-byte float32 chunks per bf16 chunk and rounded once
+// after the rotary; V, which cp.async can only copy, passes through the
+// producer's registers and is rounded on its way into its slot (no float32
+// slot of 32 KB fits beside resident K: at N = 1024, 209 KB of the 227 KB
+// are taken); the output is stored as float32 straight from the
+// accumulators. The producer gets 56 registers for it and the consumers 152
+// (56 + 3 x 152 = 4 x 128: the block's registers, as 32 + 3 x 160 for bf16).
+//
 // With the rotary, Lq = Lk and both are multiples of 128 (the space gate
 // admits only such), so no tile is ragged. Without it, two edges are
 // masked: a ragged last 64-row query chunk reads zeros past Lq and stores
@@ -70,12 +80,14 @@
 // streams whole ones.
 //
 // Build note: the resident-K instantiation keeps a 16-byte stack with 12
-// bytes of spill stores, all in the K prologue before the roles split (its
-// launch bound of 512 threads leaves 128 registers until setmaxnreg), none in
-// a loop. A prologue that copies raw K with cp.async and rotates it in place
+// bytes of spill stores (the float32 one 8 bytes with 16), all in the K
+// prologue before the roles split (its launch bound of 512 threads leaves 128
+// registers until setmaxnreg), none in a loop. A prologue that copies raw K with cp.async and rotates it in place
 // builds without the spill; it was no faster at B = 2 and slower at B = 1,
 // so this one stays.
 #pragma once
+
+#include <type_traits>
 
 #include "ptx.cuh"
 
@@ -103,12 +115,15 @@ static_assert(wgmma_smem_bytes(kWgMaxKSlots, 3) <= kWgSmemLimit &&
                   wgmma_smem_bytes(kWgMaxKSlots + 1, 3) > kWgSmemLimit,
               "resident K exactly where it fits beside the V ring");
 
-struct WgmmaArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
+// TI: the element type of q, k and v in memory; TO: the output's. bf16 and
+// bf16, or (the divided space kernel's float32 route) float32 and float32.
+template <typename TI, typename TO>
+struct WgmmaArgsT {
+  const TI* q;
+  const TI* k;
+  const TI* v;
   const float* rot;  // [L, 32, 2] (cos, sin) per pair; read only when ROT
-  bf16* out;
+  TO* out;
   long q_batch, kv_batch, in_row, out_batch, out_row;  // element strides
   int head;          // column offset of one head, inputs and output
   int Lq, Lk;        // query rows, keys
@@ -117,6 +132,8 @@ struct WgmmaArgs {
   int k_slots;       // ceil(Lk / 128): resident K; fewer: a ring
   int rounds;        // steps of NC x 64 query rows a block walks
 };
+
+using WgmmaArgs = WgmmaArgsT<bf16, bf16>;
 
 // ---------------------------------------------------------------- PTX
 __device__ __forceinline__ void wgmma_fence() {
@@ -201,15 +218,14 @@ __device__ __forceinline__ void wgmma_m64n64k16_bt(float (&d)[32],
 }
 
 // ---------------------------------------------------------------- rows
-// Eight bf16 of one row (a 16-byte chunk = four rotary pairs), rotated by
-// the chunk's (cos, sin) pairs when ROT, times `mul`, rounded to bf16 once.
-template <bool ROT>
-__device__ __forceinline__ uint4 rotate_chunk(uint4 raw, float4 t0, float4 t1,
-                                              float mul) {
-  const bf16* e = reinterpret_cast<const bf16*>(&raw);
+// Eight elements of one row (bf16 or float32; four rotary pairs, one
+// 16-byte chunk of the bf16 tile), rotated by the chunk's (cos, sin) pairs
+// when ROT, times `mul`, rounded to bf16 once.
+template <bool ROT, typename T>
+__device__ __forceinline__ uint4 rotate_chunk(const Chunk8<T>& in, float4 t0,
+                                              float4 t1, float mul) {
   float x[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) x[i] = __bfloat162float(e[i]);
+  in.to_float(x);
   if (ROT) {
     const float c[4] = {t0.x, t0.z, t1.x, t1.z};
     const float s[4] = {t0.y, t0.w, t1.y, t1.w};
@@ -260,25 +276,26 @@ __device__ __forceinline__ void copy_tile_rows(uint32_t dst, const bf16* src,
   }
 }
 
-// `ROWS` rows of 64 dims starting at `src` (row stride in_row), rotated with
-// the table rows starting at `tab` and scaled, through `put(r, c, chunk)`.
-// The `T` threads of the calling group take chunk i = tid + T·u: eight
-// neighbouring lanes cover one row's 128 bytes. The loads of BATCH chunks
-// (and of their table entries) are in flight together.
-template <bool ROT, int ROWS, int T, int BATCH, typename Put>
-__device__ __forceinline__ void stage_rows(const bf16* src, long in_row,
+// `ROWS` rows of 64 dims (bf16 or float32) starting at `src` (row stride
+// in_row), rotated with the table rows starting at `tab` and scaled, as bf16
+// chunks through `put(r, c, chunk)`. The `T` threads of the calling group
+// take chunk i = tid + T·u: eight neighbouring lanes cover one row (128 bytes
+// of bf16, 256 of float32). The loads of BATCH chunks (and of their table
+// entries) are in flight together.
+template <bool ROT, int ROWS, int T, int BATCH, typename TI, typename Put>
+__device__ __forceinline__ void stage_rows(const TI* src, long in_row,
                                            const float* tab, float mul,
                                            int tid, Put put) {
   constexpr int PER = ROWS * 8 / T;  // chunks per thread
   static_assert(PER % BATCH == 0, "whole batches of chunks");
 #pragma unroll
   for (int u0 = 0; u0 < PER; u0 += BATCH) {
-    uint4 raw[BATCH];
+    Chunk8<TI> raw[BATCH];
     float4 t0[BATCH], t1[BATCH];
 #pragma unroll
     for (int u = 0; u < BATCH; ++u) {
       const int i = tid + T * (u0 + u), r = i >> 3, c = i & 7;
-      raw[u] = *reinterpret_cast<const uint4*>(src + r * in_row + c * 8);
+      raw[u].load(src + r * in_row + c * 8);
       if (ROT) {
         const float4* tp =
             reinterpret_cast<const float4*>(tab + (long)r * kWgD + c * 8);
@@ -303,11 +320,16 @@ __device__ __forceinline__ void stage_rows(const bf16* src, long in_row,
 // rows of chunk (blockIdx.x x rounds + round) x NC + w in each round; a
 // chunk past the sequence end is idle but keeps the ring's handshakes.
 // NC = 3 is for resident K only: its producer gives up all but 32 registers
-// and cannot rotate.
-template <bool ROT, int NC>
+// and cannot rotate (56 for a float32 V, which it rounds to bf16 on its way
+// into the ring; the float32 route is built for resident K only).
+template <bool ROT, int NC, typename TI, typename TO>
 __global__ void __launch_bounds__((NC + 1) * 128, 1)
-wgmma_attention_kernel(const WgmmaArgs a) {
+wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
   static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
+  constexpr bool kF32 = std::is_same<TI, float>::value;
+  static_assert(std::is_same<TI, TO>::value, "output in the inputs' type");
+  static_assert(!kF32 || (ROT && NC == 3),
+                "float32 route: rotary, resident K");
   extern __shared__ unsigned char wg_smem[];
   const uint32_t raw_base = smem_u32(wg_smem);
   const uint32_t base = (raw_base + 1023u) & ~1023u;
@@ -356,10 +378,11 @@ wgmma_attention_kernel(const WgmmaArgs a) {
     // four chunks in flight per thread, the first pass over K waited on it
     // for a third of the block's time.)
     for (int j = wg; j < nkt; j += NC + 1) {
-      const bf16* ksrc = a.k + kv_in + (long)j * kWgTile * a.in_row;
+      const TI* ksrc = a.k + kv_in + (long)j * kWgTile * a.in_row;
       if constexpr (ROT) {
         unsigned char* kdst = sm + j * kWgTileBytes;
-        stage_rows<ROT, kWgTile, 128, NC == 2 ? 8 : 4>(
+        // float32: half the chunks per batch, the same bytes in flight
+        stage_rows<ROT, kWgTile, 128, NC == 2 ? 8 : (kF32 ? 2 : 4)>(
             ksrc, a.in_row, a.rot + (long)j * kWgTile * kWgD, 1.f, tid & 127,
             [&](int r, int c, uint4 v) {
               *reinterpret_cast<uint4*>(kdst + swizzled(r, c)) = v;
@@ -378,73 +401,113 @@ wgmma_attention_kernel(const WgmmaArgs a) {
   __syncthreads();
 
   if (wg == NC) {
-    // ------------------------------------------------------ producer
-    if constexpr (NC == 2)
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n");
-    else
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n");
-    const int pt = tid - NC * 128;
-    // this thread's eight chunks of a tile: row pt / 8 + 16 u, whose
-    // swizzle is that of row pt / 8
-    const uint32_t v_sw = swizzled(pt >> 3, pt & 7);
-    const bf16* vb = a.v + kv_in + (pt >> 3) * a.in_row + (pt & 7) * 8;
-    // Without a rotary a K ring's tiles travel with the V tiles, in the same
-    // cp.async group; with one they pass through this warpgroup's registers.
-    constexpr bool kCopyK = NC == 2 && !ROT;
-    int it = 0;
-    for (int round = 0; round < a.rounds; ++round) {
-      for (int j = 0; j < nkt; ++j, ++it) {
-        const int vs = it % kWgVStages;
-        mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
-        const uint32_t vdst = v_tiles + vs * kWgTileBytes + v_sw;
-        const bf16* vsrc = vb + (long)j * kWgTile * a.in_row;
-        if (j == nkt - 1 && last_rows < kWgTile) {  // resident K only
-          copy_tile_rows(v_tiles + vs * kWgTileBytes,
-                         a.v + kv_in + (long)j * kWgTile * a.in_row, a.in_row,
-                         pt, last_rows);
-        } else {
+    if constexpr (kF32) {
+      // ---------------------------------------- producer, float32 V
+      // Each V tile passes through this warpgroup's registers and is rounded
+      // to bf16 on its way into its slot: cp.async copies bytes and cannot
+      // convert, and no float32 staging slot fits beside resident K. The
+      // first half of a tile's loads is issued before the wait for its slot.
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+      constexpr int kVBatch = 4;  // of the thread's eight chunks a tile
+      const int pt = tid - NC * 128;
+      const TI* vb = a.v + kv_in + (pt >> 3) * a.in_row + (pt & 7) * 8;
+      unsigned char* vsm = sm + KS * kWgTileBytes + swizzled(pt >> 3, pt & 7);
+      int it = 0;
+      for (int round = 0; round < a.rounds; ++round) {
+        for (int j = 0; j < nkt; ++j, ++it) {
+          const int vs = it % kWgVStages;
+          const TI* vsrc = vb + (long)j * kWgTile * a.in_row;
+          unsigned char* vdst = vsm + vs * kWgTileBytes;
 #pragma unroll
-          for (int u = 0; u < 8; ++u)
-            cp_async16(vdst + u * 16 * 128, vsrc + u * 16 * a.in_row);
-        }
-        if (kCopyK && streamed) {
-          mbar_wait(empty_k(it % KS), ((it / KS) & 1) ^ 1);
-          copy_tile(k_tiles + (it % KS) * kWgTileBytes,
-                    a.k + kv_in + (long)j * kWgTile * a.in_row, a.in_row, pt);
-        }
-        cp_async_commit();
-        if (it > 0) {  // the tiles started one step ago have landed
-          cp_async_wait<1>();
+          for (int u0 = 0; u0 < 8; u0 += kVBatch) {
+            Chunk8<TI> c[kVBatch];
+#pragma unroll
+            for (int u = 0; u < kVBatch; ++u)
+              c[u].load(vsrc + (u0 + u) * 16 * a.in_row);
+            if (u0 == 0) mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
+#pragma unroll
+            for (int u = 0; u < kVBatch; ++u) {
+              float x[8];
+              c[u].to_float(x);
+              *reinterpret_cast<uint4*>(vdst + (u0 + u) * 16 * 128) =
+                  pack8_bf16(x);
+            }
+          }
           fence_proxy_async();
-          mbar_arrive(full_v((it - 1) % kWgVStages));
-          if (kCopyK && streamed) mbar_arrive(full_k((it - 1) % KS));
+          mbar_arrive(full_v(vs));
         }
-
-        if constexpr (NC == 2 && ROT) {
-          if (streamed) {
-            const int ks = it % KS;
-            mbar_wait(empty_k(ks), ((it / KS) & 1) ^ 1);
-            unsigned char* kdst = sm + ks * kWgTileBytes;
-            stage_rows<ROT, kWgTile, 128, 4>(
-                a.k + kv_in + (long)j * kWgTile * a.in_row, a.in_row,
-                a.rot + (long)j * kWgTile * kWgD, 1.f, pt,
-                [&](int r, int c, uint4 v) {
-                  *reinterpret_cast<uint4*>(kdst + swizzled(r, c)) = v;
-                });
+      }
+    } else {
+      // ------------------------------------------------------ producer
+      if constexpr (NC == 2)
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n");
+      else
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n");
+      const int pt = tid - NC * 128;
+      // this thread's eight chunks of a tile: row pt / 8 + 16 u, whose
+      // swizzle is that of row pt / 8
+      const uint32_t v_sw = swizzled(pt >> 3, pt & 7);
+      const TI* vb = a.v + kv_in + (pt >> 3) * a.in_row + (pt & 7) * 8;
+      // Without a rotary a K ring's tiles travel with the V tiles, in the same
+      // cp.async group; with one they pass through this warpgroup's registers.
+      constexpr bool kCopyK = NC == 2 && !ROT;
+      int it = 0;
+      for (int round = 0; round < a.rounds; ++round) {
+        for (int j = 0; j < nkt; ++j, ++it) {
+          const int vs = it % kWgVStages;
+          mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
+          const uint32_t vdst = v_tiles + vs * kWgTileBytes + v_sw;
+          const TI* vsrc = vb + (long)j * kWgTile * a.in_row;
+          if (j == nkt - 1 && last_rows < kWgTile) {  // resident K only
+            copy_tile_rows(v_tiles + vs * kWgTileBytes,
+                           a.v + kv_in + (long)j * kWgTile * a.in_row, a.in_row,
+                           pt, last_rows);
+          } else {
+#pragma unroll
+            for (int u = 0; u < 8; ++u)
+              cp_async16(vdst + u * 16 * 128, vsrc + u * 16 * a.in_row);
+          }
+          if (kCopyK && streamed) {
+            mbar_wait(empty_k(it % KS), ((it / KS) & 1) ^ 1);
+            copy_tile(k_tiles + (it % KS) * kWgTileBytes,
+                      a.k + kv_in + (long)j * kWgTile * a.in_row, a.in_row, pt);
+          }
+          cp_async_commit();
+          if (it > 0) {  // the tiles started one step ago have landed
+            cp_async_wait<1>();
             fence_proxy_async();
-            mbar_arrive(full_k(ks));
+            mbar_arrive(full_v((it - 1) % kWgVStages));
+            if (kCopyK && streamed) mbar_arrive(full_k((it - 1) % KS));
+          }
+
+          if constexpr (NC == 2 && ROT) {
+            if (streamed) {
+              const int ks = it % KS;
+              mbar_wait(empty_k(ks), ((it / KS) & 1) ^ 1);
+              unsigned char* kdst = sm + ks * kWgTileBytes;
+              stage_rows<ROT, kWgTile, 128, 4>(
+                  a.k + kv_in + (long)j * kWgTile * a.in_row, a.in_row,
+                  a.rot + (long)j * kWgTile * kWgD, 1.f, pt,
+                  [&](int r, int c, uint4 v) {
+                    *reinterpret_cast<uint4*>(kdst + swizzled(r, c)) = v;
+                  });
+              fence_proxy_async();
+              mbar_arrive(full_k(ks));
+            }
           }
         }
       }
+      cp_async_wait<0>();
+      fence_proxy_async();
+      mbar_arrive(full_v((it - 1) % kWgVStages));
+      if (kCopyK && streamed) mbar_arrive(full_k((it - 1) % KS));
     }
-    cp_async_wait<0>();
-    fence_proxy_async();
-    mbar_arrive(full_v((it - 1) % kWgVStages));
-    if (kCopyK && streamed) mbar_arrive(full_k((it - 1) % KS));
   } else {
     // ------------------------------------------------------ consumers
     if constexpr (NC == 2)
       asm volatile("setmaxnreg.inc.sync.aligned.u32 200;\n");
+    else if constexpr (kF32)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n");
     else
       asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
     const int ct = tid & 127, warp = ct >> 5, lane = ct & 31;
@@ -476,15 +539,14 @@ wgmma_attention_kernel(const WgmmaArgs a) {
             [&](int r, int c, uint4 v) {
               *reinterpret_cast<uint4*>(q_s + r * kWgQStride + c * 8) = v;
             });
-      } else {  // ragged last chunk: rows past Lq compute on zeros
+      } else if constexpr (!ROT) {
+        // ragged last chunk: rows past Lq compute on zeros
         const float4 none = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int i = ct + 128 * u, r = i >> 3, c = i & 7;
-          uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-          if (q0 + r < a.Lq)
-            raw = *reinterpret_cast<const uint4*>(a.q + q_in +
-                                                  (q0 + r) * a.in_row + c * 8);
+          Chunk8<TI> raw{};
+          if (q0 + r < a.Lq) raw.load(a.q + q_in + (q0 + r) * a.in_row + c * 8);
           *reinterpret_cast<uint4*>(q_s + r * kWgQStride + c * 8) =
               rotate_chunk<false>(raw, none, none, a.scale);
         }
@@ -587,39 +649,57 @@ wgmma_attention_kernel(const WgmmaArgs a) {
         if (lane == 0) mbar_arrive(empty_v(vs));
       }
 
-      // finish the row sums across the quad; the output leaves through the
-      // Q buffer as 16-byte stores (every warp of the group has read its Q
-      // fragments: the products above needed all four)
+      // finish the row sums across the quad
+      if constexpr (kF32) {
+        // float32 straight from the fragments: a quad's four 8-byte stores
+        // fill one 32-byte sector of a row (rows are whole: Lq % 128 == 0)
+        TO* ob = a.out + b * a.out_batch + (long)h * a.head;
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-        l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-        const float inv = 1.f / l_run[r];
-        bf16* dst = q_s + (warp * 16 + g + 8 * r) * kWgQStride + 2 * t;
+        for (int r = 0; r < 2; ++r) {
+          l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+          l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+          const float inv = 1.f / l_run[r];
+          TO* dst = ob + (long)(q0 + warp * 16 + g + 8 * r) * a.out_row + 2 * t;
 #pragma unroll
-        for (int nd = 0; nd < 8; ++nd)
-          *reinterpret_cast<uint32_t*>(dst + nd * 8) =
-              pack_bf16(o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);
-      }
-      bar_sync(1 + wg, 128);
-      bf16* ob = a.out + b * a.out_batch + (long)h * a.head;
+          for (int nd = 0; nd < 8; ++nd)
+            *reinterpret_cast<float2*>(dst + nd * 8) = make_float2(
+                o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);
+        }
+      } else {
+        // the output leaves through the Q buffer as 16-byte stores (every
+        // warp of the group has read its Q fragments: the products above
+        // needed all four)
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = ct + 128 * u, r = i >> 3, c = i & 7;
-        if (ROT || q0 + r < a.Lq)
-          *reinterpret_cast<uint4*>(ob + (q0 + r) * a.out_row + c * 8) =
-              *reinterpret_cast<const uint4*>(q_s + r * kWgQStride + c * 8);
+        for (int r = 0; r < 2; ++r) {
+          l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+          l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+          const float inv = 1.f / l_run[r];
+          bf16* dst = q_s + (warp * 16 + g + 8 * r) * kWgQStride + 2 * t;
+#pragma unroll
+          for (int nd = 0; nd < 8; ++nd)
+            *reinterpret_cast<uint32_t*>(dst + nd * 8) = pack_bf16(
+                o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);
+        }
+        bar_sync(1 + wg, 128);
+        TO* ob = a.out + b * a.out_batch + (long)h * a.head;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = ct + 128 * u, r = i >> 3, c = i & 7;
+          if (ROT || q0 + r < a.Lq)
+            *reinterpret_cast<uint4*>(ob + (q0 + r) * a.out_row + c * 8) =
+                *reinterpret_cast<const uint4*>(q_s + r * kWgQStride + c * 8);
+        }
       }
       bar_sync(1 + wg, 128);  // before the next Q tile overwrites the buffer
     }
   }
 }
 
-template <bool ROT, int NC>
-cudaError_t launch_wgmma_plan(const WgmmaArgs& args, int B, int H,
+template <bool ROT, int NC, typename TI, typename TO>
+cudaError_t launch_wgmma_plan(const WgmmaArgsT<TI, TO>& args, int B, int H,
                               cudaStream_t stream) {
   const int smem = wgmma_smem_bytes(args.k_slots, NC);
-  auto kern = wgmma_attention_kernel<ROT, NC>;
+  auto kern = wgmma_attention_kernel<ROT, NC, TI, TO>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -636,13 +716,17 @@ cudaError_t launch_wgmma_plan(const WgmmaArgs& args, int B, int H,
 // where that leaves the card short of blocks (few sequences, Lq > 192), the
 // steps are split over more blocks: the most steps per block whose grid
 // still fills the card, as launch_smallhead counts rows. With the rotary,
-// Lq = Lk, a multiple of 128; the ring takes whole K tiles only.
-template <bool ROT>
-cudaError_t launch_wgmma(WgmmaArgs args, int B, int H, cudaStream_t stream) {
+// Lq = Lk, a multiple of 128; the ring takes whole K tiles only. The float32
+// route (TI = float) has no ring: above resident K it is refused.
+template <bool ROT, typename TI = bf16, typename TO = bf16>
+cudaError_t launch_wgmma(WgmmaArgsT<TI, TO> args, int B, int H,
+                         cudaStream_t stream) {
+  constexpr bool kF32 = std::is_same<TI, float>::value;
   const int nkt = (args.Lk + kWgTile - 1) / kWgTile;
   if (args.Lq < 1 || args.Lk < 1) return cudaErrorInvalidValue;
   if (ROT && (args.Lq != args.Lk || args.Lk % kWgTile != 0))
     return cudaErrorInvalidValue;
+  if (kF32 && nkt > kWgMaxKSlots) return cudaErrorInvalidValue;
   if (nkt <= kWgMaxKSlots) {
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -658,10 +742,13 @@ cudaError_t launch_wgmma(WgmmaArgs args, int B, int H, cudaStream_t stream) {
       args.rounds = (args.rounds + 1) / 2;
     return launch_wgmma_plan<ROT, 3>(args, B, H, stream);
   }
-  if (args.Lk % kWgTile != 0) return cudaErrorInvalidValue;
-  args.k_slots = kWgRingKSlots;
-  args.rounds = 1;
-  return launch_wgmma_plan<ROT, 2>(args, B, H, stream);
+  if constexpr (!kF32) {
+    if (args.Lk % kWgTile != 0) return cudaErrorInvalidValue;
+    args.k_slots = kWgRingKSlots;
+    args.rounds = 1;
+    return launch_wgmma_plan<ROT, 2>(args, B, H, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace mdt

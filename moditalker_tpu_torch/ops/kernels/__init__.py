@@ -4,11 +4,14 @@
 calls ``count_launch`` where it launches its kernel and nowhere else, so a
 run can show that the main path went through the kernels;
 ``LAUNCHES_BY_SHAPE`` splits each count by the shape the kernel was given.
-``SOURCES`` names the CUDA
-source of each kernel (``csrc/<source>.cu``) and ``HELPER_SOURCES`` the
-sources the kernels' wrappers launch beside them (the float32 casts);
-``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound each kernel's error against
-its plain version.
+``SOURCES`` names the CUDA source of each kernel (``csrc/<source>.cu``),
+``FLOAT32_SOURCES`` the source of the divided kernels' float32 entry points
+(a library of their own), and ``HELPER_SOURCES`` the sources the kernels'
+wrappers launch beside them (the float32 casts of the packed and one-pass
+wrappers); ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound each kernel's error
+against its plain version, ``FLOAT32_ROUTE_LIMITS`` the divided kernels'
+float32 results against the function their float32 route computes, and
+``bf16_rounded_share`` tells a float32 result from a bf16 one widened.
 
 ``on_card`` and ``cuda_stream`` are the two questions every wrapper asks
 the tensor it is given: whether to launch (a CUDA tensor) or run the plain
@@ -40,8 +43,17 @@ SOURCES = {
     "fused_attention": "flash_attention",
 }
 
-# launched by the wrappers' float32 paths (``convert.py``), not a kernel of
-# its own: its launches and time count in the row of the kernel it serves
+# the divided kernels' float32 route: the same kernels (csrc/
+# divided_attention.cuh) instantiated for float32 in a translation unit of
+# their own, so that the bf16 instantiations compile as they do alone
+FLOAT32_SOURCES = {
+    "divided_space_attention": "divided_attention_f32",
+    "divided_time_attention": "divided_attention_f32",
+}
+
+# launched by the packed and one-pass wrappers' float32 paths
+# (``convert.py``), not a kernel of its own: its launches and time count in
+# the row of the kernel it serves
 HELPER_SOURCES = ("convert",)
 
 
@@ -109,6 +121,49 @@ def check_bf16(name: str, out, plain) -> tuple[float, float, float]:
             f"{QUANTILE} quantile of err / max |plain| {rel_q:.3e} "
             f"(limit {lim_q})")
     return rel_max, rel_rms, rel_q
+
+
+# Limits of the divided kernels' float32 results against
+# ``divided_attention.divided_attention_float32_route`` on the same float32
+# qkv, in the three measures of ``relative_errors``: (max, rms, quantile).
+# The two round q, k, v and p at the same points (p against the running max
+# of each 128-key tile, as the kernels' online softmax does) and differ by
+# the order of fp32 sums and the kernels' ex2, which now and then moves a p
+# or a q across a bf16 rounding boundary: rare elements, so the max measure
+# reads far above the other two. A result rounded to bf16 on its way out
+# (the float32 route through a bf16 kernel and two cast passes) reads
+# 2.3e-3 / 1.7e-3 / 1.1e-3 on the CPU tests' inputs and fails them by 10-44x
+# on the rms and quantile measures. Each limit is about twice the largest
+# reading of chip_smoke.py --kernels-only --seed 0..3 over the float32 rows
+# (H100): space 8.473e-4 / 4.860e-5 / 5.427e-5, time 1.531e-3 / 3.620e-5 /
+# 1.287e-5.
+FLOAT32_ROUTE_LIMITS: dict[str, tuple[float, float, float]] = {
+    "divided_space_attention": (1.7e-3, 1e-4, 1.1e-4),
+    "divided_time_attention": (3.1e-3, 7.5e-5, 2.6e-5),
+}
+
+
+def check_float32_route(name: str, out, oracle) -> tuple[float, float, float]:
+    """``relative_errors(out, oracle)`` for a divided kernel's float32
+    result; raises AssertionError where one is past its
+    ``FLOAT32_ROUTE_LIMITS[name]``."""
+    errs = relative_errors(out, oracle)
+    limits = FLOAT32_ROUTE_LIMITS[name]
+    if not all(e <= lim for e, lim in zip(errs, limits)):
+        raise AssertionError(
+            f"{name} float32 route: (max, rms, {QUANTILE} quantile) "
+            f"{tuple(f'{e:.3e}' for e in errs)}, limits {limits}")
+    return errs
+
+
+def bf16_rounded_share(t) -> float:
+    """The share of ``t``'s elements that equal their own bf16 rounding:
+    1.0 for a bf16 result widened to float32, about 2^-16 (and the share of
+    exact zeros) for a result computed and stored in float32."""
+    import torch
+
+    t = t.detach().float()
+    return (t == t.to(torch.bfloat16).float()).float().mean().item()
 
 
 def on_card(t) -> bool:

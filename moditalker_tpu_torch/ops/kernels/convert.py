@@ -1,14 +1,18 @@
-"""The float32 route of the attention kernels: cast passes in front of and
-behind a bf16 kernel (``csrc/convert.cu``, sm_90a).
+"""The float32 route of the packed and one-pass (and fused) attention
+kernels: cast passes in front of and behind a bf16 kernel
+(``csrc/convert.cu``, sm_90a).
 
 The JAX trainers build their models in float32, and the Pallas kernels run
 their products in the input dtype. The port's kernels keep bf16 operands
 with fp32 accumulators, which is what a float32 dot costs at JAX's default
 precision on a TPU, so a float32 operand is cast to bf16 on its way in and
-the result back to float32 on its way out. The tiles copy raw bytes with
-``cp.async`` and cannot convert in flight; hence one hand-written pass on
-each side, bound by bytes. Their launches are not counted apart: they serve
-the kernel whose wrapper calls them, and their time counts in its row.
+the result back to float32 on its way out. The small-head tile and the
+fused kernel's wgmma tile copy raw bytes with ``cp.async`` and cannot
+convert in flight; hence one hand-written pass on each side, bound by
+bytes. Their launches are not counted apart: they serve the kernel whose
+wrapper calls them, and their time counts in its row. The divided space and
+time kernels do not come here: they read float32 and write float32
+themselves (``divided_attention.py``).
 
 These run only on CUDA tensors; a wrapper given a CPU tensor runs its plain
 version in the tensor's own dtype and never gets here.

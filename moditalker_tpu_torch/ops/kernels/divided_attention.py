@@ -1,7 +1,8 @@
 """Divided space/time attention on packed qkv (port of
 ``moditalker_tpu/ops/pallas/divided_attention.py``).
 
-Kernels (``csrc/divided_attention.cu``, sm_90a):
+Kernels (``csrc/divided_attention.cuh``, sm_90a; the bf16 entry points in
+``divided_attention.cu``, the float32 ones in ``divided_attention_f32.cu``):
 
 * space — replaces ``_space_kernel`` (``_space_fused``): per frame,
   attention over the N patch tokens with the axial rotary. Bound by
@@ -26,9 +27,14 @@ write the head-merged ``[.., H·dh]`` layout, with no transposes. For a
 tensor on the CPU the wrapper runs the plain version
 (``divided_attention_reference``); for a CUDA tensor it launches the kernel
 or raises. At shapes the gate rejects it runs the plain head-split math, as
-the JAX package runs XLA's there. A float32 qkv takes the float32 route of
-``convert.py`` (bf16 operands, fp32 accumulators, a float32 result). The
-gradient with respect to qkv recomputes through the plain version
+the JAX package runs XLA's there. A float32 qkv (the trainers' and the
+golden record's) takes each kernel's float32 route, which reads float32 and
+writes float32 itself, with no cast pass around it: q rotated and scaled in
+fp32 and rounded to bf16 once, k rotated and rounded once, v rounded once,
+bf16 operands with fp32 accumulators, the result divided by the fp32 row
+sum and stored as float32 (``divided_attention_float32_route`` writes it
+out; the space kernel's float32 route is built for resident K, N <= 1152).
+The gradient with respect to qkv recomputes through the plain version
 (``autograd.py``), as the JAX package's ``custom_vjp`` does.
 """
 
@@ -42,7 +48,7 @@ import torch
 
 from .. import kernels, rotary
 from ..attention import plain_sdpa, sdpa
-from . import _build, convert, count_launch
+from . import _build, count_launch
 from .autograd import RecomputeThroughPlain
 
 _LANES = 128
@@ -50,6 +56,10 @@ _LANES = 128
 # configurations reach (AE dim_head 64, 16 frames); others raise on the card
 SPACE_HEAD_DIMS = (64,)
 TIME_SHAPES = ((16, 64),)   # (frames, head dim)
+# the float32 space kernel keeps K resident in shared memory only: 9 tiles of
+# 128 keys (the configurations' AE reaches N = 1024)
+SPACE_F32_MAX_N = 1152
+_KEY_TILE = 128             # keys per tile of the kernels' online softmax
 
 _pair_tables: dict = {}
 
@@ -103,6 +113,56 @@ def divided_attention_reference(qkv, sin, cos, axis: str, heads: int,
     return out.permute(0, 2, 3, 1, 4).reshape(b, f, n, heads * dim_head)
 
 
+def divided_attention_float32_route(qkv, sin, cos, axis: str, heads: int,
+                                    dim_head: int, scale: float):
+    """What the kernels' float32 route computes, in plain PyTorch: the
+    function their float32 results are held to (by the tests and
+    ``chip_smoke.py``; never on the card's main path).
+
+    qkv [B, F, N, 3·H·dh] float32 → [B, F, N, H·dh] float32. Rounding points:
+    q read as float32, rotated and multiplied by ``scale`` in fp32, rounded
+    to bf16 once; k rotated in fp32 and rounded once; v rounded once; the
+    scores, their max and the row sums in fp32; p rounded to bf16 for P·V;
+    the result divided by the row sum in fp32 and kept float32. The softmax
+    is the kernels' online one: the keys are taken in tiles of
+    ``_KEY_TILE`` in order, each tile's p is taken against the running max
+    and rounded to bf16 there, and what the earlier tiles summed is
+    rescaled in fp32 (one tile at F = 16, the time axis: a full-row
+    softmax). It differs from the float32 plain version by those roundings
+    (bf16 operands with fp32 accumulators), and from the kernels by the
+    order of fp32 sums and the kernels' ``ex2``.
+    """
+    b, f, n, _ = qkv.shape
+    q, k, v = qkv.float().chunk(3, dim=-1)
+
+    def heads_split(t):  # [B,F,N,H*dh] -> [B,H,F,N,dh]
+        return t.reshape(b, f, n, heads, dim_head).permute(0, 3, 1, 2, 4)
+
+    q, k, v = heads_split(q), heads_split(k), heads_split(v)
+    if axis == "time":
+        q, k, v = (t.transpose(2, 3) for t in (q, k, v))
+    q, k = rotary.apply_rot_emb(q, k, sin.float(), cos.float())
+    q = (q * scale).bfloat16().float()
+    k, v = k.bfloat16().float(), v.bfloat16().float()
+    s = torch.matmul(q, k.transpose(-1, -2))
+    m = torch.full(s.shape[:-1] + (1,), -torch.inf, device=s.device)
+    row_sum = torch.zeros_like(m)
+    out = torch.zeros(q.shape, device=q.device)
+    for j in range(0, s.shape[-1], _KEY_TILE):
+        s_j = s[..., j:j + _KEY_TILE]
+        m_new = torch.maximum(m, s_j.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s_j - m_new)
+        row_sum = row_sum * alpha + p.sum(dim=-1, keepdim=True)
+        out = out * alpha + torch.matmul(p.bfloat16().float(),
+                                         v[..., j:j + _KEY_TILE, :])
+        m = m_new
+    out = out / row_sum
+    if axis == "time":
+        out = out.transpose(2, 3)
+    return out.permute(0, 2, 3, 1, 4).reshape(b, f, n, heads * dim_head)
+
+
 def divided_attention_viable(axis: str, f: int, n: int, heads: int,
                              dim_head: int, rot_dim: int) -> bool:
     """Shape gate of the fused path (divided_attention.py:260-277): full
@@ -132,15 +192,28 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _operands(qkv, sin, cos):
-    """qkv as the kernels read it (bf16, a float32 qkv cast by
-    ``convert.to_bf16``) and whether the result goes back to float32."""
+@functools.cache
+def _lib_f32() -> ctypes.CDLL:
+    """The float32 entry points, built apart
+    (``csrc/divided_attention_f32.cu``) so that the bf16 kernels'
+    translation unit holds no float32 instantiation."""
+    lib = _build.load("divided_attention_f32")
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.divided_space_attention_f32.argtypes = [p, p, p, i, i, i, i, fl, p]
+    lib.divided_space_attention_f32.restype = i
+    lib.divided_time_attention_f32.argtypes = [p, p, p, p, i, i, i, i, i, fl,
+                                               p]
+    lib.divided_time_attention_f32.restype = i
+    return lib
+
+
+def _operands(qkv, sin, cos) -> bool:
+    """Checks what the kernels read (qkv bf16 or float32, each read in its
+    own type; float32 tables on qkv's device; all contiguous and 16-byte
+    aligned); returns whether qkv is float32."""
     if qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the divided-attention kernels take bf16 or float32 "
                         f"qkv, got {qkv.dtype}")
-    f32 = qkv.dtype == torch.float32
-    if f32:
-        qkv = convert.to_bf16(qkv)
     for t in (qkv, sin, cos):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("kernel operands must be contiguous and "
@@ -149,15 +222,15 @@ def _operands(qkv, sin, cos):
         raise TypeError("rotary tables must be float32")
     if sin.device != qkv.device or cos.device != qkv.device:
         raise ValueError("rotary tables must be on the device of qkv")
-    return qkv, f32
+    return qkv.dtype == torch.float32
 
 
 def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                          scale: float):
-    """Kernel launch: qkv [BF, N, 3·H·dh] bf16 → [BF, N, H·dh] bf16 (float32
-    through the cast passes → float32), N a multiple of 128 and at least
-    256."""
-    qkv, f32 = _operands(qkv, sin, cos)
+    """Kernel launch: qkv [BF, N, 3·H·dh] → [BF, N, H·dh] in qkv's type
+    (bf16, or float32 at N <= ``SPACE_F32_MAX_N``), N a multiple of 128 and
+    at least 256."""
+    f32 = _operands(qkv, sin, cos)
     if dim_head not in SPACE_HEAD_DIMS:
         raise NotImplementedError(f"space kernel built for head dims "
                                   f"{SPACE_HEAD_DIMS}, not {dim_head}")
@@ -168,23 +241,29 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     if n % 128 or n < 256:
         raise ValueError(f"the space kernel takes N % 128 == 0, N >= 256, "
                          f"not {n}")
+    if f32 and n > SPACE_F32_MAX_N:
+        raise NotImplementedError(
+            f"float32 space kernel built for K resident in shared memory "
+            f"(N <= {SPACE_F32_MAX_N}), not N = {n}")
     table = rotary_pair_table(sin, cos)
     out = torch.empty(bf, n, heads * dim_head, dtype=qkv.dtype,
                       device=qkv.device)
-    lib = _lib()
-    status = lib.divided_space_attention(
+    lib = _lib_f32() if f32 else _lib()
+    entry = ("divided_space_attention_f32" if f32
+             else "divided_space_attention")
+    status = getattr(lib, entry)(
         qkv.data_ptr(), table.data_ptr(), out.data_ptr(), bf, n, heads,
         dim_head, scale, kernels.cuda_stream(qkv))
-    _build.check(lib, status, "divided_space_attention")
+    _build.check(lib, status, entry)
     count_launch("divided_space_attention", qkv.shape)
-    return convert.to_float32(out) if f32 else out
+    return out
 
 
 def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                         scale: float):
-    """Kernel launch: qkv [B, F, N, 3·H·dh] bf16 → [B, F, N, H·dh] bf16
-    (float32 through the cast passes → float32)."""
-    qkv, f32 = _operands(qkv, sin, cos)
+    """Kernel launch: qkv [B, F, N, 3·H·dh] → [B, F, N, H·dh] in qkv's type
+    (bf16 or float32)."""
+    f32 = _operands(qkv, sin, cos)
     b, f, n, c3 = qkv.shape
     if (f, dim_head) not in TIME_SHAPES:
         raise NotImplementedError(f"time kernel built for (frames, head dim) "
@@ -194,13 +273,14 @@ def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                          f"{tuple(sin.shape)} for {heads}x{dim_head}")
     out = torch.empty(b, f, n, heads * dim_head, dtype=qkv.dtype,
                       device=qkv.device)
-    lib = _lib()
-    status = lib.divided_time_attention(
+    lib = _lib_f32() if f32 else _lib()
+    entry = "divided_time_attention_f32" if f32 else "divided_time_attention"
+    status = getattr(lib, entry)(
         qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(), out.data_ptr(), b, f,
         n, heads, dim_head, scale, kernels.cuda_stream(qkv))
-    _build.check(lib, status, "divided_time_attention")
+    _build.check(lib, status, entry)
     count_launch("divided_time_attention", qkv.shape)
-    return convert.to_float32(out) if f32 else out
+    return out
 
 
 def divided_attention(qkv, sin, cos, axis: str, heads: int, dim_head: int,

@@ -22,9 +22,12 @@ tiles mask: ragged query chunks (Nq = 1, 100, 1100), key tiles short of 128
 (Nk = 8 … 120), one whole key tile (Nk = 128), Nq != Nk on both sides of the
 resident-K limit, and D = 16, 32 and 64.
 
-The space, time, packed and one-pass kernels also take float32 (cast passes
-in front and behind, ``ops/kernels/convert.py``), held to the same limits
-against the float32 plain version at the training shapes and smaller; and
+The space, time, packed and one-pass kernels also take float32, held to the
+same limits against the float32 plain version at the training shapes and
+smaller: space and time read and write float32 themselves (also held to
+their float32 route's function within ``FLOAT32_ROUTE_LIMITS``, with no cast
+pass and a result that was never rounded to bf16), packed and one-pass
+through cast passes (``ops/kernels/convert.py``); and
 each differentiable wrapper's gradient (its ``autograd.Function``: kernel
 forward, plain recompute backward) is held against autograd through the
 plain version.
@@ -34,7 +37,8 @@ import pytest
 import torch
 
 from moditalker_tpu_torch.ops import attention, rotary
-from moditalker_tpu_torch.ops.kernels import LAUNCHES, check_bf16
+from moditalker_tpu_torch.ops.kernels import (LAUNCHES, bf16_rounded_share,
+                                              check_bf16, check_float32_route)
 from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
 from moditalker_tpu_torch.ops.kernels import packed_attention as tpack
@@ -58,6 +62,15 @@ def _launched(name, fn):
     return out
 
 
+def _divided_tables(axis, f, n, dh=64):
+    side = 1 << (n.bit_length() - 1) // 2   # n = side × (n / side)
+    while n % side:
+        side //= 2
+    tables = (rotary.axial_rotary_sincos(side, n // side, dh)
+              if axis == "space" else rotary.time_rotary_sincos(f, dh))
+    return [torch.from_numpy(t).cuda() for t in tables]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("axis,b,f,n,heads,dh", [
     ("space", 2, 2, 256, 2, 64), ("space", 2, 2, 1024, 8, 64),
@@ -68,12 +81,7 @@ def _launched(name, fn):
     ("time", 2, 16, 64, 4, 64), ("time", 1, 16, 1024, 8, 64),
     ("time", 3, 16, 8, 2, 64)])
 def test_divided_kernels_match_plain(gen, axis, b, f, n, heads, dh):
-    side = 1 << (n.bit_length() - 1) // 2   # n = side × (n / side)
-    while n % side:
-        side //= 2
-    tables = (rotary.axial_rotary_sincos(side, n // side, dh)
-              if axis == "space" else rotary.time_rotary_sincos(f, dh))
-    sin, cos = (torch.from_numpy(t).cuda() for t in tables)
+    sin, cos = _divided_tables(axis, f, n, dh)
     x = _randn(gen, b, f, n, 3 * heads * dh)
     assert tdiv.divided_attention_viable(axis, f, n, heads, dh, dh)
     name = f"divided_{axis}_attention"
@@ -224,26 +232,65 @@ def test_float32_casts_are_exact(gen):
         convert.to_bf16(x.flatten()[:12])
 
 
+def _no_cast(*args):
+    raise AssertionError("a cast pass ran for the divided kernels")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("axis,b,f,n,heads", [
-    ("space", 2, 2, 1024, 8), ("space", 1, 1, 2048, 2),
-    ("time", 2, 16, 128, 2), ("time", 1, 16, 1024, 8)])
-def test_divided_kernels_take_float32(gen, axis, b, f, n, heads):
-    """A float32 qkv goes through the kernel (bf16 operands, fp32
-    accumulators) to a float32 result, held to the limits against the
-    float32 plain version."""
+    ("space", 2, 2, 1024, 8), ("space", 1, 1, 1152, 2),
+    ("space", 2, 16, 1024, 8), ("space", 1, 16, 1024, 8),
+    ("space", 1, 1, 256, 2),
+    ("time", 2, 16, 128, 2), ("time", 1, 16, 1024, 8),
+    ("time", 10, 16, 1024, 8)])
+def test_divided_kernels_take_float32(gen, monkeypatch, axis, b, f, n,
+                                      heads):
+    """A float32 qkv goes through the kernel's float32 route (float32 read
+    and written in the kernel, bf16 operands, fp32 accumulators) to a
+    float32 result, with no cast pass (both raise here): held to the limits
+    against the float32 plain version and to ``FLOAT32_ROUTE_LIMITS``
+    against the function the route computes, with under 1 % of the result
+    equal to its own bf16 rounding. The result rounded to bf16, what a bf16
+    kernel between two cast passes returned, fails the route's limits."""
+    from moditalker_tpu_torch.ops.kernels import convert
+
+    monkeypatch.setattr(convert, "to_bf16", _no_cast)
+    monkeypatch.setattr(convert, "to_float32", _no_cast)
     dh = 64
-    tables = (rotary.axial_rotary_sincos(32, n // 32, dh) if axis == "space"
-              else rotary.time_rotary_sincos(f, dh))
-    sin, cos = (torch.from_numpy(t).cuda() for t in tables)
+    sin, cos = _divided_tables(axis, f, n)
     x = _randn32(gen, b, f, n, 3 * heads * dh)
     name = f"divided_{axis}_attention"
     got = _launched(name, lambda: tdiv.divided_attention(
         x, sin, cos, axis, heads, dh, dh**-0.5))
     assert got.dtype == torch.float32
+    assert bf16_rounded_share(got) < 0.01
     want = tdiv.divided_attention_reference(x, sin, cos, axis, heads, dh,
                                             dh**-0.5, use_flash=False)
     check_bf16(name, got, want)
+    route = tdiv.divided_attention_float32_route(x, sin, cos, axis, heads, dh,
+                                                 dh**-0.5)
+    check_float32_route(name, got, route)
+    with pytest.raises(AssertionError, match="float32 route"):
+        check_float32_route(name, route.bfloat16().float(), route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["space", "time"])
+def test_bf16_kernels_round_where_the_float32_route_does(gen, axis):
+    """At a bf16 qkv the bf16 kernel and the float32 route round q, k, v and
+    p at the same points: the kernel's result is the route's rounded to
+    bf16, to one bf16 ulp at the 0.999 quantile (the ulp taken at no less
+    than 2^-8 of the output's max, where the fp32 sums' order decides)."""
+    heads, dh, f, n = 8, 64, 16, 1024
+    sin, cos = _divided_tables(axis, f, n)
+    x = _randn(gen, 2, f, n, 3 * heads * dh)
+    got = tdiv.divided_attention(x, sin, cos, axis, heads, dh, dh**-0.5)
+    want = tdiv.divided_attention_float32_route(
+        x.float(), sin, cos, axis, heads, dh, dh**-0.5).bfloat16().float()
+    mag = want.abs().clamp_min(want.abs().max() * 2.0**-8)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    ulps = ((got.float() - want).abs() / ulp).flatten()
+    assert ulps.kthvalue(round(0.999 * ulps.numel())).values.item() <= 1.0
 
 
 @pytest.mark.cuda

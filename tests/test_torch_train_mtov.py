@@ -170,15 +170,17 @@ def stub_launches(monkeypatch):
     for mod in (convert, tdiv, tpack, tflash):
         monkeypatch.setattr(mod, "_lib", lambda: _StubLib(calls))
     monkeypatch.setattr(tflash, "_tiny_lib", lambda: _StubLib(calls))
+    monkeypatch.setattr(tdiv, "_lib_f32", lambda: _StubLib(calls))
     tkernels.reset_launch_counts()
     yield calls
     tkernels.reset_launch_counts()
 
 
 def test_float32_reaches_each_kernel_branch(stub_launches):
-    """A float32 operand at a gated shape goes to the kernel through the
-    cast passes (never to the plain version), is counted once, comes back
-    float32, and keeps its gradient function."""
+    """A float32 operand at a gated shape goes to the kernel (never to the
+    plain version), is counted once, comes back float32, and keeps its
+    gradient function: the divided kernels through their float32 entry
+    points with no cast pass, packed and one-pass through the cast passes."""
     calls = stub_launches
     f32 = lambda *s: torch.randn(*s, requires_grad=True)
     space_sc = [_t(a) for a in jrot.axial_rotary_sincos(16, 16, 64)]
@@ -186,12 +188,10 @@ def test_float32_reaches_each_kernel_branch(stub_launches):
     cases = [
         ("divided_space_attention", lambda: tdiv.divided_attention(
             f32(1, 2, 256, 384), *space_sc, "space", 2, 64, 0.125),
-         ["convert_f32_to_bf16", "divided_space_attention",
-          "convert_bf16_to_f32"]),
+         ["divided_space_attention_f32"]),
         ("divided_time_attention", lambda: tdiv.divided_attention(
             f32(1, 16, 8, 384), *time_sc, "time", 2, 64, 0.125),
-         ["convert_f32_to_bf16", "divided_time_attention",
-          "convert_bf16_to_f32"]),
+         ["divided_time_attention_f32"]),
         ("packed_attention", lambda: tpack.packed_attention(
             f32(2, 1024, 384), 8, 0.25),
          ["convert_f32_to_bf16", "packed_attention", "convert_bf16_to_f32"]),
