@@ -12,17 +12,18 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              version at the shapes the paths give it, in bf16 (max and rms
              error, relative to the plain output's, within the kernel's
              ``BF16_LIMITS``, and the 0.999 quantile of the error over the
-             plain output's max within ``QUANTILE_LIMITS``; the space, time,
-             packed and one-pass kernels also in float32 at
-             train-diffusion's shapes and at B = 1 (train-first-stage's and
-             the golden record's): space and time read and write float32
-             themselves, and each such row is also held to its float32
-             route's function (``divided_attention_float32_route``, within
-             ``FLOAT32_ROUTE_LIMITS``) with under 1 % of its result equal to
-             its own bf16 rounding; packed and one-pass go through the cast
-             passes of ``ops/kernels/convert.py``, whose share each such row
-             gives; the 256-channel UNet's one-pass shapes), timed on the
-             device (20 calls replayed from
+             plain output's max within ``QUANTILE_LIMITS``; the 256-channel
+             UNet's one-pass shapes) and in float32 at the shapes the
+             float32 paths give them (train-diffusion's at B = 10, on both
+             attention paths; train-first-stage's and the golden record's
+             at B = 1; the fused kernel at one cross-length shape). Every
+             kernel reads and writes float32 itself, with no cast pass, and
+             each float32 row is also held to its float32 route's function
+             (``divided_attention_float32_route``,
+             ``packed_attention_float32_route``,
+             ``attention_float32_route``; within ``FLOAT32_ROUTE_LIMITS``)
+             with under 1 % of its result equal to its own bf16 rounding.
+             Each row is timed on the device (20 calls replayed from
              a CUDA graph between two events, the median of five replays:
              no host time in it) beside the plain
              version, one PyTorch library call computing the same attention
@@ -105,7 +106,13 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              one step traced; then a step at small depth but full spatial
              size on the card against the CPU (same weights, batch and
              draws) within TRAIN_LIMITS, and the same step with the gradient
-             cut at the attentions, which must fall outside them;
+             cut at the attentions, which must fall outside them. Then the
+             same on the modular-attention path (both gate switches set
+             inside the phase and put back after it; 3 timed steps): the
+             tiny-L and one-pass kernels and no other, each launch on
+             float32 operands, tiny-L and one-pass at head dims 16, 32 and
+             64 among them, and the small-depth step against the CPU within
+             TRAIN_LIMITS;
 10. train-atom — ``AtomTrainer.fit`` at full width, batch 64, float32:
              one untimed step, 5 timed (sequences/s), one traced, no
              launch; three steps at batch 8 on the card against the CPU
@@ -223,14 +230,20 @@ BEFORE_REDESIGN_MS = {
     ("onepass_attention", (16, 1024, 16)): 0.0224,
 }
 
-# the float32 rows of the space and time kernels through the cast route: a
-# bf16 kernel between convert.py's two cast passes (chip_smoke.py on an H100
-# 80GB HBM3 at 700.00 W, PERF.md §6)
+# the float32 rows through the retired cast route: a bf16 kernel between two
+# cast passes (chip_smoke.py on an H100 80GB HBM3 at 700.00 W, PERF.md §6),
+# for the log line only
 BEFORE_F32_ROUTE_MS = {
     ("divided_space_attention", (10, 16, 1024, 1536)): 1.6749,
     ("divided_time_attention", (10, 16, 1024, 1536)): 0.9773,
     ("divided_space_attention", (1, 16, 1024, 1536)): 0.1737,
     ("divided_time_attention", (1, 16, 1024, 1536)): 0.1067,
+    ("packed_attention", (10, 2048, 384)): 0.1629,
+    ("packed_attention", (10, 1024, 384)): 0.0554,
+    ("packed_attention", (1, 2048, 384)): 0.0249,
+    ("packed_attention", (1, 1024, 384)): 0.0124,
+    ("onepass_attention", (80, 2048, 32)): 0.2379,
+    ("onepass_attention", (8, 2048, 32)): 0.0317,
 }
 
 # train-diffusion's batch (MtovTrainConfig.diffusion_batch_size): the float32
@@ -406,12 +419,12 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     import torch.nn.functional as F
 
     from moditalker_tpu_torch.ops import attention, rotary
-    from moditalker_tpu_torch.ops.kernels import (BF16_LIMITS,
-                                                  FLOAT32_ROUTE_LIMITS,
-                                                  QUANTILE, QUANTILE_LIMITS,
+    from moditalker_tpu_torch.ops.kernels import (BF16_LIMITS, QUANTILE,
+                                                  QUANTILE_LIMITS,
                                                   bf16_rounded_share,
                                                   check_bf16,
-                                                  check_float32_route)
+                                                  check_float32_route,
+                                                  float32_route_limits)
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
     from moditalker_tpu_torch.ops.kernels import packed_attention as pk
@@ -422,15 +435,27 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     hd = heads * dh
     scale = dh**-0.5
 
-    def errors(name, kern, plain):
+    def errors(name, kern, plain, route):
+        """The row's errors against its plain version; a float32 result is
+        also held to ``route()``, its float32 route's function, and to a
+        bf16-rounded share under 1 %."""
         out, want = kern(), plain()
         if out.dtype != want.dtype:
             raise AssertionError(f"{name}: {out.dtype} out of a "
                                  f"{want.dtype} input")
         rel_max, rel_rms, rel_q = check_bf16(name, out, want)
-        return dict(max_abs_err=(out.float() - want.float()).abs().max().item(),
-                    rel_max_err=rel_max, rel_rms_err=rel_rms, rel_q_err=rel_q,
-                    dtype=str(out.dtype).replace("torch.", ""))
+        err = dict(max_abs_err=(out.float() - want.float()).abs().max().item(),
+                   rel_max_err=rel_max, rel_rms_err=rel_rms, rel_q_err=rel_q,
+                   dtype=str(out.dtype).replace("torch.", ""))
+        del want
+        if out.dtype == torch.float32:
+            err["route_rel_err"] = check_float32_route(name, out, route())
+            err["bf16_rounded_share"] = bf16_rounded_share(out)
+            if err["bf16_rounded_share"] >= 0.01:
+                raise AssertionError(
+                    f"{name}: {err['bf16_rounded_share']:.4f} of the float32 "
+                    f"result equals its bf16 rounding")
+        return err
 
     def library_sdpa(q, k, v, sc):
         """The yardstick on [B, N, D]: with a head axis of one, since the
@@ -477,20 +502,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         plain = lambda: dv.divided_attention_reference(
             qkv, sin, cos, axis, heads, dh, scale, use_flash=False)
         name = f"divided_{axis}_attention"
-        err = errors(name, kern, plain)
-        if dtype == torch.float32:
-            # the float32 route: against the function it computes, and
-            # whether its result was ever rounded to bf16
-            out = kern()
-            oracle = dv.divided_attention_float32_route(
-                qkv, sin, cos, axis, heads, dh, scale)
-            err["route_rel_err"] = check_float32_route(name, out, oracle)
-            err["bf16_rounded_share"] = bf16_rounded_share(out)
-            if err["bf16_rounded_share"] >= 0.01:
-                raise AssertionError(
-                    f"{name}: {err['bf16_rounded_share']:.4f} of the float32 "
-                    f"result equals its bf16 rounding")
-            del out, oracle
+        err = errors(name, kern, plain, lambda: dv.divided_attention_float32_route(
+            qkv, sin, cos, axis, heads, dh, scale))
         q, k, v = head_split_rotated(qkv, sin, cos, axis)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
         seq = n_ if axis == "space" else f_
@@ -527,7 +540,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         sc = (c // heads) ** -0.5
         kern = lambda: pk.packed_attention(qkv, heads, sc)
         plain = lambda: pk.packed_attention_reference(qkv, heads, sc)
-        err = errors("packed_attention", kern, plain)
+        err = errors("packed_attention", kern, plain,
+                     lambda: pk.packed_attention_float32_route(qkv, heads, sc))
         q, k, v = (t.reshape(b_, l_, heads, c // heads).transpose(1, 2)
                    .contiguous() for t in qkv.chunk(3, -1))
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=sc)
@@ -558,7 +572,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             name=name, route="cuda",
             source=f"moditalker_tpu_torch/csrc/{source}.cu",
             replaces=f"moditalker_tpu/ops/pallas/flash_attention.py:{replaces}",
-            shape=[list(q.shape), list(k.shape)], **errors(name, kern, plain),
+            shape=[list(q.shape), list(k.shape)],
+            **errors(name, kern, plain,
+                     lambda: fa.attention_float32_route(q, k, v, sc)),
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             library_ms=time_ms(torch, lib),
             nbytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
@@ -589,11 +605,15 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
              onepass_row(heads, l, 32, g=gen_more)]
 
     # tiny-L: the modular path's TimeSformer time attention
-    q, k, v = (randn(batch * heads * n, f, dh) for _ in range(3))
-    rows.append(sdpa_row(
-        "tiny_attention", 146, "tiny_attention",
-        lambda: fa.tiny_attention(q, k, v, scale),
-        lambda: fa.tiny_attention_reference(q, k, v, scale), q, k, v, scale))
+    def tiny_row(b_, g=gen, dtype=torch.bfloat16):
+        q, k, v = (randn(b_, f, dh, g=g, dtype=dtype) for _ in range(3))
+        return sdpa_row(
+            "tiny_attention", 146, "tiny_attention",
+            lambda: fa.tiny_attention(q, k, v, scale),
+            lambda: fa.tiny_attention_reference(q, k, v, scale),
+            q, k, v, scale)
+
+    rows.append(tiny_row(batch * heads * n))
 
     # K-blocked fused, through the public op: self-attention at a UNet and
     # an AE shape, and query rows against a longer key sequence
@@ -631,18 +651,39 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # float32 in and out, at the shapes train-diffusion gives the kernels at
     # B = diffusion_batch_size: the frozen AEs' extract and the UNet's
     # packed and one-pass attentions, each held to the same limits against
-    # the float32 plain version. Space and time read and write float32
-    # themselves (also held to their float32 route's function within
-    # FLOAT32_ROUTE_LIMITS, with the share of their result that equals its
-    # bf16 rounding); packed and one-pass take bf16 operands through the
-    # cast passes of convert.py, whose time counts in the row
+    # the float32 plain version, to its float32 route's function within
+    # FLOAT32_ROUTE_LIMITS and to the share of its result that equals its
+    # bf16 rounding (``errors``). Every kernel reads and writes float32
+    # itself: no cast pass anywhere
+    f32 = torch.float32
     gen_f32 = torch.Generator(device=dev).manual_seed(seed + 3)
     tb = TRAIN_BATCH
-    rows += [divided_row("space", tb, f, n, g=gen_f32, dtype=torch.float32),
-             divided_row("time", tb, f, n, g=gen_f32, dtype=torch.float32),
-             packed_row(tb, l, g=gen_f32, dtype=torch.float32),
-             packed_row(tb, 1024, g=gen_f32, dtype=torch.float32),
-             onepass_row(tb * heads, l, 32, g=gen_f32, dtype=torch.float32)]
+    rows += [divided_row("space", tb, f, n, g=gen_f32, dtype=f32),
+             divided_row("time", tb, f, n, g=gen_f32, dtype=f32),
+             packed_row(tb, l, g=gen_f32, dtype=f32),
+             packed_row(tb, 1024, g=gen_f32, dtype=f32),
+             onepass_row(tb * heads, l, 32, g=gen_f32, dtype=f32)]
+    # float32 on the modular path (both gate switches set): train-diffusion's
+    # frozen extracts send the time attention to tiny-L and the space
+    # attention to one-pass at D = 64, its UNet the dh = 16 attentions to
+    # one-pass; B = 10, then B = 1 (the golden record's and
+    # train-first-stage's batch)
+    gen_mod = torch.Generator(device=dev).manual_seed(seed + 6)
+    rows += [tiny_row(tb * heads * n, g=gen_mod, dtype=f32),
+             tiny_row(heads * n, g=gen_mod, dtype=f32),
+             onepass_row(tb * heads, l, 16, g=gen_mod, dtype=f32),
+             onepass_row(tb * heads, 1024, 16, g=gen_mod, dtype=f32),
+             onepass_row(tb * heads * f, n, dh, g=gen_mod, dtype=f32),
+             onepass_row(heads * f, n, dh, g=gen_mod, dtype=f32)]
+    # the fused kernel in float32 at the kernels phase's cross-length shape
+    q, k, v = (randn(2, 64, dh, g=gen_mod, dtype=f32),
+               randn(2, 512, dh, g=gen_mod, dtype=f32),
+               randn(2, 512, dh, g=gen_mod, dtype=f32))
+    rows.append(sdpa_row(
+        "fused_attention", 33, "flash_attention",
+        lambda: attention.sdpa_fused(q, k, v, scale),
+        lambda: fa.fused_attention_reference(q, k, v, scale),
+        q, k, v, scale))
     # float32 at B = 1, the shape train-first-stage gives them: its AE
     # trains through them, so beside each row the backward of one call as
     # RecomputeThroughPlain runs it (the plain version recomputed, then its
@@ -664,28 +705,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         del x, cot
     # float32 at B = 1, the shapes a full-width golden record gives the
     # UNet's packed and one-pass kernels
-    rows += [packed_row(1, l, g=gen_fs, dtype=torch.float32),
-             packed_row(1, 1024, g=gen_fs, dtype=torch.float32),
-             onepass_row(heads, l, 32, g=gen_fs, dtype=torch.float32)]
-
-    # the cast passes' share of each float32 row that still runs them
-    # (packed and one-pass): the time of convert.py's two passes alone on
-    # tensors of the row's input and output sizes
-    from moditalker_tpu_torch.ops.kernels import convert
-
-    for row in rows:
-        if row["dtype"] != "float32" or row["name"].startswith("divided_"):
-            continue
-        shapes = ([row["shape"][0], row["shape"][1], row["shape"][1]]
-                  if isinstance(row["shape"][0], list) else [row["shape"]])
-        ins = [torch.randn(sh, device=dev) for sh in shapes]
-        out_numel = (int(np.prod(shapes[0])) if len(shapes) == 3
-                     else int(np.prod(shapes[0])) // 3)
-        out = torch.empty(out_numel, dtype=torch.bfloat16, device=dev)
-        row["cast_ms"] = (
-            time_ms(torch, lambda: [convert.to_bf16(t) for t in ins])
-            + time_ms(torch, lambda: convert.to_float32(out)))
-        del ins, out
+    rows += [packed_row(1, l, g=gen_fs, dtype=f32),
+             packed_row(1, 1024, g=gen_fs, dtype=f32),
+             onepass_row(heads, l, 32, g=gen_fs, dtype=f32)]
 
     # the softmax floor: one ex2 per score at the clock the SMs hold under
     # load (read while the space kernel keeps the card busy)
@@ -717,11 +739,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), softmax "
             f"floor {floor_ms:.4f} ms"
             + (f", {row['design']}" if "design" in row else "")
-            + (f", of which the cast passes {row['cast_ms']:.4f} ms"
-               if "cast_ms" in row else "")
             + (f"; against its float32 route's function max / rms / "
                f"quantile {'/'.join(f'{e:.3e}' for e in row['route_rel_err'])}"
-               f" (limits {FLOAT32_ROUTE_LIMITS[row['name']]}), "
+               f" (limits {float32_route_limits(row['name'])}), "
                f"bf16-rounded share {row['bf16_rounded_share']:.2e}"
                if "route_rel_err" in row else "")
             + (f"; the plain version's backward of one call "
@@ -738,11 +758,11 @@ def gradient_phase(torch, seed: int) -> list[dict]:
     output must carry the ``autograd.Function``'s ``grad_fn`` and the kernel
     must have launched once; its input gradients must agree with autograd
     through the plain version within GRAD_LIMIT. Packed and one-pass at the
-    shapes train-diffusion's UNet gives them, space and time at B = 1 (the
-    frozen AEs run them forward only). The packed, space and time backwards
-    are the plain version's vjp, so for them this checks the wiring only;
-    one-pass's backward is ``sdpa_adjoints``, written out, an independent
-    computation."""
+    shapes train-diffusion's UNet gives them, space, time and tiny-L at
+    B = 1 (the frozen AEs run them forward only). The packed, space and
+    time backwards are the plain version's vjp, so for them this checks the
+    wiring only; the one-pass and tiny-L backward is ``sdpa_adjoints``,
+    written out, an independent computation."""
     from moditalker_tpu_torch.ops import rotary
     from moditalker_tpu_torch.ops.kernels import LAUNCHES
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
@@ -779,6 +799,10 @@ def gradient_phase(torch, seed: int) -> list[dict]:
             [randn(TRAIN_BATCH * heads, 2048, 32) for _ in range(3)],
             lambda *x: fa.onepass_attention(*x, 32**-0.5),
             lambda *x: fa.onepass_attention_reference(*x, 32**-0.5)),
+        "tiny_attention": (
+            [randn(heads * n, f, dh) for _ in range(3)],
+            lambda *x: fa.tiny_attention(*x, dh**-0.5),
+            lambda *x: fa.tiny_attention_reference(*x, dh**-0.5)),
     }
     rows = []
     for name, (inputs, kern, plain) in cases.items():
@@ -853,13 +877,14 @@ def seeded_state(torch, build, seed: int) -> dict:
         return build().state_dict()
 
 
-def train_step_check(torch, seed: int) -> dict:
+def train_step_check(torch, seed: int, modular: bool = False) -> dict:
     """One train-diffusion step at a small depth but the full spatial size
     (so that every kernel gate passes; B = 2) on the card and on the CPU
     from the same AE and UNet weights, batch and draws, float32: the loss,
     the UNet's gradient and its update within TRAIN_LIMITS, and the same
     step with the gradient cut at the attentions (``gradient_cut``) outside
-    them."""
+    them. ``modular``: with both gate switches set around the card's steps
+    (the AEs' 2 heads × B = 2 × 1024 patches pass the tiny-L gate)."""
     from moditalker_tpu_torch.config import (MtovAEConfig,
                                              MtovDiffusionConfig,
                                              MtovTrainConfig, MtovUNetConfig)
@@ -895,7 +920,8 @@ def train_step_check(torch, seed: int) -> dict:
             models.append(m)
         loop = LatentDiffusionLoop(trainer, *models)
         reset_launch_counts()
-        with gradient_cut() if cut else contextlib.nullcontext():
+        with (gradient_cut() if cut else contextlib.nullcontext(),
+              modular_attention() if modular else contextlib.nullcontext()):
             m = loop.train_step(batch, draws=(t.to(device),
                                               noise.to(device)))
         out = {"loss": m["loss"].item(), "launches": launches_by_shape()}
@@ -913,7 +939,9 @@ def train_step_check(torch, seed: int) -> dict:
 
     cpu = step("cpu")
     result = {}
-    for label, cut in (("card", False), ("card, gradient cut", True)):
+    path = "modular" if modular else "fused"
+    for label, cut in ((f"card, {path} path", False),
+                       (f"card, {path} path, gradient cut", True)):
         card = step("cuda", cut)
         errs = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
                 "grad": rel(card["grad"], cpu["grad"]),
@@ -929,21 +957,32 @@ def train_step_check(torch, seed: int) -> dict:
                     "the step with the gradient cut at the attentions "
                     "passes the card-vs-cpu limits" if cut else
                     "the card's step disagrees with the cpu's"))
-        if not cut and set(card["launches"]) != FUSED_PATH:
-            raise AssertionError(f"train-diffusion step: launches "
-                                 f"{card['launches']}")
+        if not cut and set(card["launches"]) != (MODULAR_PATH if modular
+                                                 else FUSED_PATH):
+            raise AssertionError(f"train-diffusion step ({path} path): "
+                                 f"launches {card['launches']}")
         result[label] = errs
     return result
 
 
-def train_diffusion_phase(torch, seed: int) -> dict:
+def train_diffusion_phase(torch, seed: int, modular: bool = False) -> dict:
     """``LatentDiffusionLoop.fit`` at the full width (config.py: AE 384 wide,
     depth 8, 256² × 16 frames; UNet 128 channels) at B =
     diffusion_batch_size, float32, on a synthetic batch with AE and UNet
     weights from ``seed``: one untimed step, then 5 timed (steps/s, video
     clips/s, the peak memory, the launches by kernel and shape: the divided
     space and time, packed and one-pass kernels and no other), every loss
-    finite; then ``train_step_check``."""
+    finite, one step traced; then ``train_step_check``.
+
+    ``modular``: the same with both gate switches set for the phase and put
+    back after it, 3 timed steps: the tiny-L and one-pass kernels and no
+    other, every launch on float32 operands, tiny-L and one-pass at head
+    dims 16, 32 and 64 among them."""
+    with modular_attention() if modular else contextlib.nullcontext():
+        return _train_diffusion(torch, seed, modular)
+
+
+def _train_diffusion(torch, seed: int, modular: bool) -> dict:
     import itertools
 
     from moditalker_tpu_torch.config import (MtovAEConfig,
@@ -951,13 +990,17 @@ def train_diffusion_phase(torch, seed: int) -> dict:
                                              MtovTrainConfig, MtovUNetConfig)
     from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
     from moditalker_tpu_torch.models.mtov import ViTAutoencoder
-    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.ops.kernels import (FLOAT32_LAUNCHES_BY_SHAPE,
+                                                  reset_launch_counts)
     from moditalker_tpu_torch.train.mtov import (LatentDiffusionLoop,
                                                  MtovDiffusionTrainer)
 
     ae_cfg, unet_cfg = MtovAEConfig(), MtovUNetConfig()
     tc = MtovTrainConfig(seed=seed)
-    b, steps = tc.diffusion_batch_size, 5
+    b, steps = tc.diffusion_batch_size, 3 if modular else 5
+    path, expected = (("modular", MODULAR_PATH) if modular
+                      else ("fused", FUSED_PATH))
+    what = f"train-diffusion ({path} path)"
     models = []
     for i in (11, 12):
         m = ViTAutoencoder(ae_cfg)
@@ -986,23 +1029,38 @@ def train_diffusion_phase(torch, seed: int) -> dict:
              log_every=1)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = check_launches("train-diffusion", FUSED_PATH)
+    counts = check_launches(what, expected)
     by_shape = launches_by_shape()
+    # every launch of the path on float32 operands (the float32 entry
+    # points: no cast pass exists to take them)
+    f32_by_shape = {name: {str(list(sh)): n for sh, n in sorted(by.items())}
+                    for name, by in FLOAT32_LAUNCHES_BY_SHAPE.items() if by}
+    if f32_by_shape != by_shape:
+        raise AssertionError(f"{what}: launches not on float32 operands: "
+                             f"{by_shape} against float32 {f32_by_shape}")
+    if modular:
+        dims = {sh[-1] for sh in FLOAT32_LAUNCHES_BY_SHAPE["onepass_attention"]}
+        if not ({16, 32, 64} <= dims
+                and FLOAT32_LAUNCHES_BY_SHAPE["tiny_attention"]):
+            raise AssertionError(f"{what}: float32 launches of tiny-L and of "
+                                 f"one-pass at head dims 16, 32 and 64 "
+                                 f"expected, got {f32_by_shape}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not (len(losses.seen) == steps + 1
             and all(np.isfinite(losses.seen))):
-        raise AssertionError(f"train-diffusion: losses {losses.seen}")
+        raise AssertionError(f"{what}: losses {losses.seen}")
     per_step = {k: v / steps for k, v in counts.items() if v}
-    log(f"train-diffusion (full width, B = {b}, float32): {steps} steps in "
+    log(f"{what} (full width, B = {b}, float32): {steps} steps in "
         f"{dt:.3f} s = {steps / dt:.4f} steps/s = {steps * b / dt:.3f} clips/s"
         f"; peak memory {peak:.2f} GiB; losses {losses.seen}; launches per "
-        f"step {per_step}, by shape over the {steps} steps {by_shape}")
+        f"step {per_step}, by shape over the {steps} steps (all on float32 "
+        f"operands) {by_shape}")
     dev = loop.to_device(batch)
     traced = trace(torch, lambda: loop.train_step(dev))
-    log_trace("train-diffusion step (batch on the card)", traced)
+    log_trace(f"{what} step (batch on the card)", traced)
     del loop, trainer, models, dev
     torch.cuda.empty_cache()
-    check = train_step_check(torch, seed)
+    check = train_step_check(torch, seed, modular)
     return {"launches": counts, "launches_by_shape": by_shape,
             "steps_per_s": steps / dt, "clips_per_s": steps * b / dt,
             "peak_gib": peak, "losses": losses.seen, "card_vs_cpu": check,
@@ -2384,7 +2442,6 @@ def main() -> int:
         return 2
     try:
         from moditalker_tpu_torch.ops.kernels import (FLOAT32_SOURCES,
-                                                      HELPER_SOURCES,
                                                       SOURCES, _build)
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -2395,8 +2452,8 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    logs = _build.build(sorted({*SOURCES.values(), *FLOAT32_SOURCES.values(),
-                                *HELPER_SOURCES}))
+    logs = _build.build(sorted({*SOURCES.values(),
+                                *FLOAT32_SOURCES.values()}))
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, (secs, out) in logs.items():
         for line in out.splitlines():   # per kernel: registers, spills
@@ -2431,6 +2488,7 @@ def main() -> int:
     audio = audio_phase(torch, args.seed)
     align = align_phase(torch, args.seed, audio.pop("lm68_atom"))
     train_diff = train_diffusion_phase(torch, args.seed)
+    train_diff_modular = train_diffusion_phase(torch, args.seed, modular=True)
     train_atom = train_atom_phase(torch, args.seed)
     first_stage = train_first_stage_phase(torch, args.seed)
     i3d = i3d_phase(torch, args.seed)
@@ -2447,6 +2505,7 @@ def main() -> int:
     timed["audio"] = audio["launches"]
     timed["align"] = align["launches"]
     timed["train-diffusion"] = train_diff["launches"]
+    timed["train-diffusion modular"] = train_diff_modular["launches"]
     timed["train-atom"] = train_atom["launches"]
     timed["train-first-stage"] = first_stage["launches"]
     timed["golden record"] = gold["launches"]
@@ -2461,7 +2520,7 @@ def main() -> int:
                 {k: row[k] for k in ("shape", "dtype", "max_abs_err",
                                      "rel_max_err", "rel_rms_err",
                                      "rel_q_err", "route_rel_err",
-                                     "bf16_rounded_share", "ms", "cast_ms",
+                                     "bf16_rounded_share", "ms",
                                      "plain_ms", "plain_backward_ms",
                                      "library_ms", "bound_ms",
                                      "bound_by") if k in row})
@@ -2471,6 +2530,8 @@ def main() -> int:
         row["launches"] = sum(row["launches_by_path"].values())
         by_path = {**result["launches_by_shape"],
                    "train-diffusion": train_diff["launches_by_shape"],
+                   "train-diffusion modular":
+                       train_diff_modular["launches_by_shape"],
                    "train-first-stage": first_stage["launches_by_shape"],
                    "golden record": gold["launches_by_shape"]}
         row["launches_by_shape"] = {
@@ -2498,6 +2559,9 @@ def main() -> int:
         "audio_clip_device_ms": audio["clip_device_ms"],
         "audio_trace": audio["trace"], "align_trace": align["trace"],
         "train_diffusion": {k: train_diff[k] for k in (
+            "steps_per_s", "clips_per_s", "peak_gib", "losses",
+            "card_vs_cpu", "trace")},
+        "train_diffusion_modular": {k: train_diff_modular[k] for k in (
             "steps_per_s", "clips_per_s", "peak_gib", "losses",
             "card_vs_cpu", "trace")},
         "train_atom": {k: train_atom[k] for k in (

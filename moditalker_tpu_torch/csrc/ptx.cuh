@@ -1,7 +1,7 @@
 // Thin wrappers over the PTX the port's kernels are built from: bf16
-// packing, row chunks of bf16 or float32, mma.sync and ldmatrix, cp.async,
-// mbarriers, the proxy fence and ex2. Shared by every tile header; nothing
-// here launches or allocates.
+// packing, row chunks of bf16 or float32, mma.sync and ldmatrix, shared
+// stores, cp.async, mbarriers, the proxy fence and ex2. Shared by every tile
+// header; nothing here launches or allocates.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -19,9 +19,10 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Eight consecutive elements of a row as one load brings them in: a 16-byte
-// chunk of bf16, or two 16-byte chunks of float32 (the float32 routes of the
-// divided kernels read their operand in its own type and round it once,
-// after the rotary, where the bf16 routes round nothing on the way in).
+// chunk of bf16, or two 16-byte chunks of float32 (the kernels' float32
+// routes read their operands in their own type and round them once, after
+// the rotary where there is one, where the bf16 routes round nothing on the
+// way in).
 template <typename T>
 struct Chunk8;
 
@@ -137,6 +138,14 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
 // Generic-proxy writes (st.shared, cp.async) before wgmma's async-proxy reads.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// One 16-byte store to shared memory (a float32 route's bf16 chunk, rounded
+// in registers where the bf16 route copies it with cp.async).
+__device__ __forceinline__ void st_shared16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {

@@ -67,7 +67,22 @@
 // Rounding points are the TPU kernels': q·scale rounded to bf16 once, fp32
 // scores, max and sum, P rounded to bf16 for P·V, the output divided by the
 // fp32 row sum.
+//
+// The float32 route (T = float: the trainers' and the golden record's UNet)
+// keeps those points and the bf16 ring. cp.async copies bytes and cannot
+// round, so the warp on duty stages a float32 tile through its registers:
+// ld.global of two 16-byte float32 chunks per bf16 chunk, rounded to bf16
+// once, st.shared into the same swizzled slot, and each lane's arrive on
+// `full` after its stores (the same 32 arrivals the cp.async route makes).
+// Its first loads are issued before it waits for the slot. Q is read as
+// float32 pairs into the A fragments (scaled in fp32, rounded once), and the
+// output is stored as float32 pairs, never rounded to bf16. (Also built and
+// not kept: cp.async of the float32 tile into staging slots three tiles
+// ahead, rounded into the ring one tile ahead by the same warp; 3-8 % slower
+// at DH = 16, equal at DH = 32: PERF.md.)
 #pragma once
+
+#include <type_traits>
 
 #include "ptx.cuh"
 
@@ -78,16 +93,25 @@ constexpr int kShStages = 4;    // ring slots, each one K and one V tile
 constexpr int kShAhead = 2;     // tiles in flight ahead of the one in use
 constexpr int kShMaxWarps = 16; // warps per block: 256 query rows
 
-struct SmallHeadArgs {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  bf16* out;
+// T: the element type of q, k, v and the output in memory, bf16 or (the
+// float32 route) float32.
+template <typename T>
+struct SmallHeadArgsT {
+  const T* q;
+  const T* k;
+  const T* v;
+  T* out;
   long q_batch, kv_batch, in_row, out_batch, out_row;  // element strides
   int head;  // column offset of one head, inputs and output
   int Lq, Lk;  // query rows, keys
   float scale;
 };
+
+using SmallHeadArgs = SmallHeadArgsT<bf16>;
+
+// float32 route: chunks of K and of V a lane of the warp on duty has in
+// flight at once (two 16-byte loads each)
+constexpr int kShF32Batch = 4;
 
 template <int DH>
 struct SmallHead {
@@ -111,11 +135,12 @@ struct SmallHead {
 // kv_batch = q_batch (the packed and one-pass kernels), known when compiled:
 // with the two lengths and offsets kept apart, DH = 32 spills 8 bytes more
 // and its one-pass rows ran 3 % slower on an H100.
-template <int DH, bool SELF>
+template <int DH, bool SELF, typename T>
 __global__ void __launch_bounds__(kShMaxWarps * 32, 1)
-smallhead_attention_kernel(const SmallHeadArgs a) {
+smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
   using S = SmallHead<DH>;
   constexpr int CH = S::CH;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(128) unsigned char sh_smem[];
   const uint32_t base = smem_u32(sh_smem);
   const uint32_t bars = base + kShStages * S::stage_bytes;
@@ -144,21 +169,52 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
   // barrier when they have landed.
   auto stage = [&](int tt) {
     const int slot = tt % kShStages;
-    mbar_wait(empty(slot), ((tt / kShStages) & 1) ^ 1);
-    const bf16* kb = a.k + kv_off + (lane % CH) * 8;
-    const bf16* vb = a.v + kv_off + (lane % CH) * 8;
+    // (the float32 route waits for the slot after its first loads)
+    if constexpr (!kF32) mbar_wait(empty(slot), ((tt / kShStages) & 1) ^ 1);
+    const T* kb = a.k + kv_off + (lane % CH) * 8;
+    const T* vb = a.v + kv_off + (lane % CH) * 8;
     const uint32_t kdst = base + slot * S::stage_bytes;
     const uint32_t vdst = kdst + S::tile_bytes;
+    if constexpr (kF32) {
+      // through this warp's registers: float32 in, bf16 into the slot; keys
+      // past Lk as zeros
 #pragma unroll
-    for (int u = 0; u < kShTile * CH / 32; ++u) {
-      const int r = (lane + 32 * u) / CH, key = tt * kShTile + r;
-      const bool valid = key < Lk;
-      const long src = (long)(valid ? key : 0) * a.in_row;
-      const uint32_t off = S::offset(r, lane % CH);
-      cp_async16_or_zeros(kdst + off, kb + src, valid);
-      cp_async16_or_zeros(vdst + off, vb + src, valid);
+      for (int u0 = 0; u0 < kShTile * CH / 32; u0 += kShF32Batch) {
+        Chunk8<float> kc[kShF32Batch], vc[kShF32Batch];
+#pragma unroll
+        for (int u = 0; u < kShF32Batch; ++u) {
+          const int key = tt * kShTile + (lane + 32 * (u0 + u)) / CH;
+          kc[u] = vc[u] = Chunk8<float>{};
+          if (key < Lk) {
+            kc[u].load(kb + (long)key * a.in_row);
+            vc[u].load(vb + (long)key * a.in_row);
+          }
+        }
+        if (u0 == 0) mbar_wait(empty(slot), ((tt / kShStages) & 1) ^ 1);
+#pragma unroll
+        for (int u = 0; u < kShF32Batch; ++u) {
+          const uint32_t off =
+              S::offset((lane + 32 * (u0 + u)) / CH, lane % CH);
+          float x[8];
+          kc[u].to_float(x);
+          st_shared16(kdst + off, pack8_bf16(x));
+          vc[u].to_float(x);
+          st_shared16(vdst + off, pack8_bf16(x));
+        }
+      }
+      mbar_arrive(full(slot));
+    } else {
+#pragma unroll
+      for (int u = 0; u < kShTile * CH / 32; ++u) {
+        const int r = (lane + 32 * u) / CH, key = tt * kShTile + r;
+        const bool valid = key < Lk;
+        const long src = (long)(valid ? key : 0) * a.in_row;
+        const uint32_t off = S::offset(r, lane % CH);
+        cp_async16_or_zeros(kdst + off, kb + src, valid);
+        cp_async16_or_zeros(vdst + off, vb + src, valid);
+      }
+      cp_async_arrive(full(slot));
     }
-    cp_async_arrive(full(slot));
   };
   if (warp < kShAhead && warp < tiles) stage(warp);  // the first tiles
 
@@ -168,18 +224,26 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
   // Q: this warp's 16 rows as A fragments, scaled and rounded to bf16 once
   uint32_t qa[DH / 16][4];
   {
-    const bf16* qb = a.q + q_off + 2 * t4;
+    const T* qb = a.q + q_off + 2 * t4;
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int row = q0 + g + 8 * (j & 1), col = kk * 16 + 8 * (j >> 1);
-        uint32_t raw = 0;
-        if (row < Lq)
-          raw = *reinterpret_cast<const uint32_t*>(qb + row * a.in_row + col);
-        const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(&raw);
-        qa[kk][j] = pack_bf16(__low2float(x) * a.scale,
-                              __high2float(x) * a.scale);
+        if constexpr (kF32) {
+          float2 x = make_float2(0.f, 0.f);
+          if (row < Lq)
+            x = *reinterpret_cast<const float2*>(qb + row * a.in_row + col);
+          qa[kk][j] = pack_bf16(x.x * a.scale, x.y * a.scale);
+        } else {
+          uint32_t raw = 0;
+          if (row < Lq)
+            raw = *reinterpret_cast<const uint32_t*>(qb + row * a.in_row + col);
+          const __nv_bfloat162 x =
+              *reinterpret_cast<const __nv_bfloat162*>(&raw);
+          qa[kk][j] = pack_bf16(__low2float(x) * a.scale,
+                                __high2float(x) * a.scale);
+        }
       }
   }
 
@@ -306,12 +370,17 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
     const int row = q0 + g + 8 * r;
     if (row < Lq) {
       const float inv = 1.f / l_run[r];
-      bf16* dst = a.out + b * a.out_batch + row * a.out_row +
-                  (long)h * a.head + 2 * t4;
+      T* dst = a.out + b * a.out_batch + row * a.out_row + (long)h * a.head +
+               2 * t4;
 #pragma unroll
-      for (int nd = 0; nd < DH / 8; ++nd)
-        *reinterpret_cast<uint32_t*>(dst + nd * 8) =
-            pack_bf16(o[nd][2 * r] * inv, o[nd][2 * r + 1] * inv);
+      for (int nd = 0; nd < DH / 8; ++nd) {
+        if constexpr (kF32)
+          *reinterpret_cast<float2*>(dst + nd * 8) =
+              make_float2(o[nd][2 * r] * inv, o[nd][2 * r + 1] * inv);
+        else
+          *reinterpret_cast<uint32_t*>(dst + nd * 8) =
+              pack_bf16(o[nd][2 * r] * inv, o[nd][2 * r + 1] * inv);
+      }
     }
   }
 }
@@ -320,14 +389,14 @@ smallhead_attention_kernel(const SmallHeadArgs a) {
 // block (the fewest stagings of a head's K and V) whose grid still fills the
 // card, from 256 down to 64, counted from Lq; the SELF instantiation where
 // the query and key lengths and batch strides agree.
-template <int DH>
-cudaError_t launch_smallhead(const SmallHeadArgs& args, int B, int H,
+template <int DH, typename T>
+cudaError_t launch_smallhead(const SmallHeadArgsT<T>& args, int B, int H,
                              cudaStream_t stream) {
   if (args.Lq < 1 || args.Lk < 1 || B < 1 || H < 1)
     return cudaErrorInvalidValue;
   auto kern = args.Lq == args.Lk && args.q_batch == args.kv_batch
-                  ? smallhead_attention_kernel<DH, true>
-                  : smallhead_attention_kernel<DH, false>;
+                  ? smallhead_attention_kernel<DH, true, T>
+                  : smallhead_attention_kernel<DH, false, T>;
   constexpr int smem = SmallHead<DH>::smem_bytes;
   // asked on every launch: a function-local static of a template is one
   // object for all the libraries of a process that instantiate it

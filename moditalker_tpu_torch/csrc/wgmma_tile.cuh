@@ -60,15 +60,18 @@
 // rounded to bf16 once, k rotated and rounded once, fp32 scores, max and
 // sum, P rounded to bf16 for P·V, the output divided by the fp32 row sum.
 //
-// The float32 route (TI = TO = float: the divided space kernel's, with the
-// rotary and resident K only) keeps those points and the bf16 tiles: q and
-// k are read as two 16-byte float32 chunks per bf16 chunk and rounded once
-// after the rotary; V, which cp.async can only copy, passes through the
-// producer's registers and is rounded on its way into its slot (no float32
-// slot of 32 KB fits beside resident K: at N = 1024, 209 KB of the 227 KB
-// are taken); the output is stored as float32 straight from the
-// accumulators. The producer gets 56 registers for it and the consumers 152
-// (56 + 3 x 152 = 4 x 128: the block's registers, as 32 + 3 x 160 for bf16).
+// The float32 route (TI = TO = float: the divided space kernel's with the
+// rotary, the one-pass and fused kernels' at head dim 64 without it; resident
+// K only, Lk <= 1152) keeps those points and the bf16 tiles: q and k are
+// read as two 16-byte float32 chunks per bf16 chunk and rounded once (after
+// the rotary, where there is one; without it K passes through the same
+// registers that would rotate it, since cp.async cannot round); V, which
+// cp.async can only copy, passes through the producer's registers and is
+// rounded on its way into its slot (no float32 slot of 32 KB fits beside
+// resident K: at N = 1024, 209 KB of the 227 KB are taken); the output is
+// stored as float32 straight from the accumulators. The producer gets 56
+// registers for it and the consumers 152 (56 + 3 x 152 = 4 x 128: the
+// block's registers, as 32 + 3 x 160 for bf16).
 //
 // With the rotary, Lq = Lk and both are multiples of 128 (the space gate
 // admits only such), so no tile is ragged. Without it, two edges are
@@ -276,6 +279,35 @@ __device__ __forceinline__ void copy_tile_rows(uint32_t dst, const bf16* src,
   }
 }
 
+// `ROWS` rows of 64 float32 starting at `src` (row stride in_row), rows at
+// or past `rows` as zeros, each rounded to bf16 once, as bf16 chunks through
+// `put(r, c, chunk)`: what stage_rows does without a rotary, for a last tile
+// that may be short. Thread `tid` of the `T` takes chunk i = tid + T·u; the
+// loads of BATCH chunks are in flight together.
+template <int ROWS, int T, int BATCH, typename Put>
+__device__ __forceinline__ void round_rows(const float* src, long in_row,
+                                           int rows, int tid, Put put) {
+  constexpr int PER = ROWS * 8 / T;  // chunks per thread
+  static_assert(PER % BATCH == 0, "whole batches of chunks");
+#pragma unroll
+  for (int u0 = 0; u0 < PER; u0 += BATCH) {
+    Chunk8<float> raw[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = tid + T * (u0 + u);
+      raw[u] = Chunk8<float>{};
+      if ((i >> 3) < rows) raw[u].load(src + (i >> 3) * in_row + (i & 7) * 8);
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int i = tid + T * (u0 + u);
+      float x[8];
+      raw[u].to_float(x);
+      put(i >> 3, i & 7, pack8_bf16(x));
+    }
+  }
+}
+
 // `ROWS` rows of 64 dims (bf16 or float32) starting at `src` (row stride
 // in_row), rotated with the table rows starting at `tab` and scaled, as bf16
 // chunks through `put(r, c, chunk)`. The `T` threads of the calling group
@@ -321,15 +353,15 @@ __device__ __forceinline__ void stage_rows(const TI* src, long in_row,
 // chunk past the sequence end is idle but keeps the ring's handshakes.
 // NC = 3 is for resident K only: its producer gives up all but 32 registers
 // and cannot rotate (56 for a float32 V, which it rounds to bf16 on its way
-// into the ring; the float32 route is built for resident K only).
+// into the ring; the float32 route is built for resident K only, with or
+// without the rotary).
 template <bool ROT, int NC, typename TI, typename TO>
 __global__ void __launch_bounds__((NC + 1) * 128, 1)
 wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
   static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
   constexpr bool kF32 = std::is_same<TI, float>::value;
   static_assert(std::is_same<TI, TO>::value, "output in the inputs' type");
-  static_assert(!kF32 || (ROT && NC == 3),
-                "float32 route: rotary, resident K");
+  static_assert(!kF32 || NC == 3, "float32 route: resident K");
   extern __shared__ unsigned char wg_smem[];
   const uint32_t raw_base = smem_u32(wg_smem);
   const uint32_t base = (raw_base + 1023u) & ~1023u;
@@ -387,6 +419,15 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
             [&](int r, int c, uint4 v) {
               *reinterpret_cast<uint4*>(kdst + swizzled(r, c)) = v;
             });
+      } else if constexpr (kF32) {
+        // nothing to rotate, but float32 K is rounded to bf16 on its way
+        // into its slot; keys past Lk as zeros
+        unsigned char* kdst = sm + j * kWgTileBytes;
+        round_rows<kWgTile, 128, 2>(
+            ksrc, a.in_row, j < nkt - 1 ? kWgTile : last_rows, tid & 127,
+            [&](int r, int c, uint4 v) {
+              *reinterpret_cast<uint4*>(kdst + swizzled(r, c)) = v;
+            });
       } else {  // nothing to rotate: K goes straight into its swizzled tile
         if (j < nkt - 1 || last_rows == kWgTile)
           copy_tile(k_tiles + j * kWgTileBytes, ksrc, a.in_row, tid & 127);
@@ -395,7 +436,7 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
                          last_rows);
       }
     }
-    if constexpr (!ROT) cp_async_wait_all();
+    if constexpr (!ROT && !kF32) cp_async_wait_all();
     fence_proxy_async();
   }
   __syncthreads();
@@ -421,9 +462,18 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
 #pragma unroll
           for (int u0 = 0; u0 < 8; u0 += kVBatch) {
             Chunk8<TI> c[kVBatch];
+            if (ROT || j < nkt - 1 || last_rows == kWgTile) {
 #pragma unroll
-            for (int u = 0; u < kVBatch; ++u)
-              c[u].load(vsrc + (u0 + u) * 16 * a.in_row);
+              for (int u = 0; u < kVBatch; ++u)
+                c[u].load(vsrc + (u0 + u) * 16 * a.in_row);
+            } else {  // a short last tile (no rotary): keys past Lk as zeros
+#pragma unroll
+              for (int u = 0; u < kVBatch; ++u) {
+                const int du = (u0 + u) * 16;  // rows past this thread's first
+                c[u] = Chunk8<TI>{};
+                if ((pt >> 3) + du < last_rows) c[u].load(vsrc + du * a.in_row);
+              }
+            }
             if (u0 == 0) mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
 #pragma unroll
             for (int u = 0; u < kVBatch; ++u) {
@@ -652,18 +702,22 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
       // finish the row sums across the quad
       if constexpr (kF32) {
         // float32 straight from the fragments: a quad's four 8-byte stores
-        // fill one 32-byte sector of a row (rows are whole: Lq % 128 == 0)
+        // fill one 32-byte sector of a row (with the rotary rows are whole,
+        // Lq % 128 == 0; without it rows past Lq are not stored)
         TO* ob = a.out + b * a.out_batch + (long)h * a.head;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
           l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
           const float inv = 1.f / l_run[r];
-          TO* dst = ob + (long)(q0 + warp * 16 + g + 8 * r) * a.out_row + 2 * t;
+          const int row = q0 + warp * 16 + g + 8 * r;
+          TO* dst = ob + (long)row * a.out_row + 2 * t;
+          if (ROT || row < a.Lq) {
 #pragma unroll
-          for (int nd = 0; nd < 8; ++nd)
-            *reinterpret_cast<float2*>(dst + nd * 8) = make_float2(
-                o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);
+            for (int nd = 0; nd < 8; ++nd)
+              *reinterpret_cast<float2*>(dst + nd * 8) = make_float2(
+                  o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);
+          }
         }
       } else {
         // the output leaves through the Q buffer as 16-byte stores (every

@@ -3,15 +3,14 @@
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made: a wrapper
 calls ``count_launch`` where it launches its kernel and nowhere else, so a
 run can show that the main path went through the kernels;
-``LAUNCHES_BY_SHAPE`` splits each count by the shape the kernel was given.
-``SOURCES`` names the CUDA source of each kernel (``csrc/<source>.cu``),
-``FLOAT32_SOURCES`` the source of the divided kernels' float32 entry points
-(a library of their own), and ``HELPER_SOURCES`` the sources the kernels'
-wrappers launch beside them (the float32 casts of the packed and one-pass
-wrappers); ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound each kernel's error
-against its plain version, ``FLOAT32_ROUTE_LIMITS`` the divided kernels'
-float32 results against the function their float32 route computes, and
-``bf16_rounded_share`` tells a float32 result from a bf16 one widened.
+``LAUNCHES_BY_SHAPE`` splits each count by the shape the kernel was given,
+and ``FLOAT32_LAUNCHES_BY_SHAPE`` counts the launches on float32 operands
+alone. ``SOURCES`` names the CUDA source of each kernel's bf16 entry points
+(``csrc/<source>.cu``) and ``FLOAT32_SOURCES`` the source of its float32
+ones (a library of its own); ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound
+each kernel's error against its plain version, ``FLOAT32_ROUTE_LIMITS`` a
+kernel's float32 result against the function its float32 route computes,
+and ``bf16_rounded_share`` tells a float32 result from a bf16 one widened.
 
 ``on_card`` and ``cuda_stream`` are the two questions every wrapper asks
 the tensor it is given: whether to launch (a CUDA tensor) or run the plain
@@ -33,6 +32,8 @@ LAUNCHES: dict[str, int] = {
 }
 
 LAUNCHES_BY_SHAPE: dict[str, Counter] = {name: Counter() for name in LAUNCHES}
+FLOAT32_LAUNCHES_BY_SHAPE: dict[str, Counter] = {
+    name: Counter() for name in LAUNCHES}
 
 SOURCES = {
     "divided_space_attention": "divided_attention",
@@ -43,18 +44,18 @@ SOURCES = {
     "fused_attention": "flash_attention",
 }
 
-# the divided kernels' float32 route: the same kernels (csrc/
-# divided_attention.cuh) instantiated for float32 in a translation unit of
-# their own, so that the bf16 instantiations compile as they do alone
+# every kernel's float32 route: the same tiles instantiated for float32 in
+# translation units of their own, so that the bf16 instantiations compile as
+# they do alone (built beside them, a float32 instantiation changed the
+# compiler's choices for the bf16 space kernel)
 FLOAT32_SOURCES = {
     "divided_space_attention": "divided_attention_f32",
     "divided_time_attention": "divided_attention_f32",
+    "packed_attention": "packed_attention_f32",
+    "onepass_attention": "flash_attention_f32",
+    "tiny_attention": "tiny_attention_f32",
+    "fused_attention": "flash_attention_f32",
 }
-
-# launched by the packed and one-pass wrappers' float32 paths
-# (``convert.py``), not a kernel of its own: its launches and time count in
-# the row of the kernel it serves
-HELPER_SOURCES = ("convert",)
 
 
 # Limits of a kernel's bf16 output against its plain version on the same
@@ -123,32 +124,47 @@ def check_bf16(name: str, out, plain) -> tuple[float, float, float]:
     return rel_max, rel_rms, rel_q
 
 
-# Limits of the divided kernels' float32 results against
-# ``divided_attention.divided_attention_float32_route`` on the same float32
-# qkv, in the three measures of ``relative_errors``: (max, rms, quantile).
-# The two round q, k, v and p at the same points (p against the running max
-# of each 128-key tile, as the kernels' online softmax does) and differ by
-# the order of fp32 sums and the kernels' ex2, which now and then moves a p
-# or a q across a bf16 rounding boundary: rare elements, so the max measure
-# reads far above the other two. A result rounded to bf16 on its way out
-# (the float32 route through a bf16 kernel and two cast passes) reads
-# 2.3e-3 / 1.7e-3 / 1.1e-3 on the CPU tests' inputs and fails them by 10-44x
-# on the rms and quantile measures. Each limit is about twice the largest
-# reading of chip_smoke.py --kernels-only --seed 0..3 over the float32 rows
-# (H100): space 8.473e-4 / 4.860e-5 / 5.427e-5, time 1.531e-3 / 3.620e-5 /
-# 1.287e-5.
+# Limits of a kernel's float32 result against the function its float32
+# route computes on the same float32 inputs
+# (``divided_attention.divided_attention_float32_route``,
+# ``packed_attention.packed_attention_float32_route``,
+# ``flash_attention.attention_float32_route``), in the three measures of
+# ``relative_errors``: (max, rms, quantile). The two round q, k, v and p at
+# the same points (p against the running max of each 128-key tile, as the
+# kernels' online softmax does) and differ by the order of fp32 sums and the
+# kernels' ex2, which now and then moves a p or a q across a bf16 rounding
+# boundary: rare elements, so the max measure reads far above the other two.
+# A result rounded to bf16 on its way out (what a bf16 kernel between two
+# cast passes returned) reads 1.1e-3 to 2.3e-3 on the rms and quantile
+# measures on the CPU tests' inputs and fails them many times over. Each
+# limit is about twice the largest reading of chip_smoke.py --kernels-only
+# --seed 0..3 over the kernel's float32 rows (H100): space 8.473e-4 /
+# 4.860e-5 / 5.427e-5, time 1.531e-3 / 3.620e-5 / 1.287e-5, packed 3.763e-4 /
+# 3.096e-5 / 4.062e-5, one-pass and fused 9.782e-4 / 3.372e-5 / 7.665e-5,
+# tiny-L 1.157e-3 / 1.918e-5 / 1.186e-7 (at L = 16 the kernel's softmax is
+# the route's full-row one: all but a few elements agree to fp32 rounding).
+# The fused kernel is the one-pass kernel at Nq != Nk and is held to its row.
 FLOAT32_ROUTE_LIMITS: dict[str, tuple[float, float, float]] = {
     "divided_space_attention": (1.7e-3, 1e-4, 1.1e-4),
     "divided_time_attention": (3.1e-3, 7.5e-5, 2.6e-5),
+    "packed_attention": (7.5e-4, 6.2e-5, 8.1e-5),
+    "onepass_attention": (2e-3, 6.8e-5, 1.55e-4),
+    "tiny_attention": (2.3e-3, 3.9e-5, 2.4e-7),
 }
 
 
+def float32_route_limits(name: str) -> tuple[float, float, float]:
+    """Kernel ``name``'s ``FLOAT32_ROUTE_LIMITS`` row (the one-pass row for
+    the fused kernel)."""
+    return FLOAT32_ROUTE_LIMITS[
+        "onepass_attention" if name == "fused_attention" else name]
+
+
 def check_float32_route(name: str, out, oracle) -> tuple[float, float, float]:
-    """``relative_errors(out, oracle)`` for a divided kernel's float32
-    result; raises AssertionError where one is past its
-    ``FLOAT32_ROUTE_LIMITS[name]``."""
+    """``relative_errors(out, oracle)`` for a kernel's float32 result;
+    raises AssertionError where one is past ``float32_route_limits(name)``."""
     errs = relative_errors(out, oracle)
-    limits = FLOAT32_ROUTE_LIMITS[name]
+    limits = float32_route_limits(name)
     if not all(e <= lim for e, lim in zip(errs, limits)):
         raise AssertionError(
             f"{name} float32 route: (max, rms, {QUANTILE} quantile) "
@@ -183,15 +199,19 @@ def cuda_stream(t) -> int:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(name: str, shape) -> None:
-    """One launch of kernel ``name`` on an operand of ``shape`` (from any
-    thread: data-parallel inference drives each card from its own)."""
+def count_launch(name: str, shape, float32: bool = False) -> None:
+    """One launch of kernel ``name`` on an operand of ``shape``, float32 or
+    not (from any thread: data-parallel inference drives each card from its
+    own)."""
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
         LAUNCHES_BY_SHAPE[name][tuple(shape)] += 1
+        if float32:
+            FLOAT32_LAUNCHES_BY_SHAPE[name][tuple(shape)] += 1
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
         LAUNCHES_BY_SHAPE[name].clear()
+        FLOAT32_LAUNCHES_BY_SHAPE[name].clear()

@@ -50,6 +50,7 @@ from .. import kernels, rotary
 from ..attention import plain_sdpa, sdpa
 from . import _build, count_launch
 from .autograd import RecomputeThroughPlain
+from .flash_attention import attention_float32_route
 
 _LANES = 128
 # what csrc/divided_attention.cu is built for: the shapes the repository's
@@ -59,7 +60,6 @@ TIME_SHAPES = ((16, 64),)   # (frames, head dim)
 # the float32 space kernel keeps K resident in shared memory only: 9 tiles of
 # 128 keys (the configurations' AE reaches N = 1024)
 SPACE_F32_MAX_N = 1152
-_KEY_TILE = 128             # keys per tile of the kernels' online softmax
 
 _pair_tables: dict = {}
 
@@ -124,13 +124,12 @@ def divided_attention_float32_route(qkv, sin, cos, axis: str, heads: int,
     to bf16 once; k rotated in fp32 and rounded once; v rounded once; the
     scores, their max and the row sums in fp32; p rounded to bf16 for P·V;
     the result divided by the row sum in fp32 and kept float32. The softmax
-    is the kernels' online one: the keys are taken in tiles of
-    ``_KEY_TILE`` in order, each tile's p is taken against the running max
-    and rounded to bf16 there, and what the earlier tiles summed is
-    rescaled in fp32 (one tile at F = 16, the time axis: a full-row
-    softmax). It differs from the float32 plain version by those roundings
-    (bf16 operands with fp32 accumulators), and from the kernels by the
-    order of fp32 sums and the kernels' ``ex2``.
+    is the kernels' online one over 128-key tiles
+    (``flash_attention.attention_float32_route``, from the rotated q and k
+    on: one tile at F = 16, the time axis, a full-row softmax). It differs
+    from the float32 plain version by those roundings (bf16 operands with
+    fp32 accumulators), and from the kernels by the order of fp32 sums and
+    the kernels' ``ex2``.
     """
     b, f, n, _ = qkv.shape
     q, k, v = qkv.float().chunk(3, dim=-1)
@@ -142,22 +141,7 @@ def divided_attention_float32_route(qkv, sin, cos, axis: str, heads: int,
     if axis == "time":
         q, k, v = (t.transpose(2, 3) for t in (q, k, v))
     q, k = rotary.apply_rot_emb(q, k, sin.float(), cos.float())
-    q = (q * scale).bfloat16().float()
-    k, v = k.bfloat16().float(), v.bfloat16().float()
-    s = torch.matmul(q, k.transpose(-1, -2))
-    m = torch.full(s.shape[:-1] + (1,), -torch.inf, device=s.device)
-    row_sum = torch.zeros_like(m)
-    out = torch.zeros(q.shape, device=q.device)
-    for j in range(0, s.shape[-1], _KEY_TILE):
-        s_j = s[..., j:j + _KEY_TILE]
-        m_new = torch.maximum(m, s_j.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s_j - m_new)
-        row_sum = row_sum * alpha + p.sum(dim=-1, keepdim=True)
-        out = out * alpha + torch.matmul(p.bfloat16().float(),
-                                         v[..., j:j + _KEY_TILE, :])
-        m = m_new
-    out = out / row_sum
+    out = attention_float32_route(q, k, v, scale)
     if axis == "time":
         out = out.transpose(2, 3)
     return out.permute(0, 2, 3, 1, 4).reshape(b, f, n, heads * dim_head)
@@ -255,7 +239,7 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
         qkv.data_ptr(), table.data_ptr(), out.data_ptr(), bf, n, heads,
         dim_head, scale, kernels.cuda_stream(qkv))
     _build.check(lib, status, entry)
-    count_launch("divided_space_attention", qkv.shape)
+    count_launch("divided_space_attention", qkv.shape, float32=f32)
     return out
 
 
@@ -279,7 +263,7 @@ def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
         qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(), out.data_ptr(), b, f,
         n, heads, dim_head, scale, kernels.cuda_stream(qkv))
     _build.check(lib, status, entry)
-    count_launch("divided_time_attention", qkv.shape)
+    count_launch("divided_time_attention", qkv.shape, float32=f32)
     return out
 
 

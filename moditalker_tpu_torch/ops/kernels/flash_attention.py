@@ -1,7 +1,8 @@
 """One-pass, tiny-L and K-blocked fused attention over folded sequences
 (port of ``moditalker_tpu/ops/pallas/flash_attention.py``).
 
-Kernels (sm_90a), all on [B, N, D] bf16 with heads folded into B:
+Kernels (sm_90a), all on [B, N, D] bf16 or float32 with heads folded into
+B:
 
 * one-pass (``csrc/flash_attention.cu``) — replaces ``_onepass_kernel``:
   mask-free self-attention with an online softmax; the TPU kernel's full-row
@@ -28,13 +29,19 @@ Kernels (sm_90a), all on [B, N, D] bf16 with heads folded into B:
   no model calls it.
 
 For tensors on the CPU a wrapper runs its plain version (the plain ``sdpa``
-math); for CUDA tensors it launches the kernel or raises. The one-pass and
-fused kernels also take float32 through the cast passes of ``convert.py``
-(bf16 operands, fp32 accumulators, a float32 result); tiny-L takes bf16
-only. The one-pass and tiny-L wrappers are differentiable, with the JAX
-package's ``_flash_sdpa`` adjoints on recomputed float32 probabilities
-(``autograd.FlashSdpa``); the fused kernel has no gradient, as in the JAX
-package, and on the card raises where one is asked of it.
+math); for CUDA tensors it launches the kernel or raises. All three also
+take float32 (the trainers' and the golden record's), which their float32
+entry points (``csrc/flash_attention_f32.cu``, ``csrc/tiny_attention_f32.cu``)
+read and write themselves, with no cast pass around them: q multiplied by
+the scale in fp32 and rounded to bf16 once, k and v rounded once, fp32
+scores, max and sums, p rounded to bf16 for P·V, the result divided by the
+fp32 row sum and stored as float32 (``attention_float32_route`` writes that
+function out). At head dim 64 the float32 route keeps K resident in shared
+memory: more than 1152 keys are refused. The one-pass and tiny-L wrappers
+are differentiable, with the JAX package's ``_flash_sdpa`` adjoints on
+recomputed float32 probabilities (``autograd.FlashSdpa``); the fused kernel
+has no gradient, as in the JAX package, and on the card raises where one is
+asked of it.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import torch
 
 from .. import kernels
 from ..attention import plain_sdpa
-from . import _build, convert, count_launch
+from . import _build, count_launch
 from .autograd import FlashSdpa
 
 # instantiated in csrc/: the shapes the repository's configurations reach
@@ -54,6 +61,10 @@ from .autograd import FlashSdpa
 # others raise on the card. HEAD_DIMS serves the one-pass and fused kernels.
 HEAD_DIMS = (16, 32, 64)
 TINY_SHAPES = ((16, 64),)   # (L, head dim)
+# the float32 route at head dim 64 keeps K resident in shared memory: 9
+# tiles of 128 keys (the configurations' AE reaches 1024)
+F32_MAX_KEYS_D64 = 1152
+_KEY_TILE = 128             # keys per tile of the kernels' online softmax
 
 
 def onepass_attention_viable(nq: int, nk: int, d: int) -> bool:
@@ -67,6 +78,40 @@ def onepass_attention_reference(q, k, v, scale: float):
     return plain_sdpa(q * scale, k, v)
 
 
+def attention_float32_route(q, k, v, scale: float):
+    """What the kernels' float32 route computes, in plain PyTorch: the
+    function their float32 results are held to (by the tests and
+    ``chip_smoke.py``; never on the card's main path).
+
+    q [..., Nq, D], k, v [..., Nk, D] float32 → [..., Nq, D] float32.
+    Rounding points: q multiplied by ``scale`` in fp32 and rounded to bf16
+    once; k and v rounded once; the scores, their max and the row sums in
+    fp32; p rounded to bf16 for P·V; the result divided by the row sum in
+    fp32 and kept float32. The softmax is the kernels' online one: the keys
+    are taken in tiles of ``_KEY_TILE`` in order, each tile's p is taken
+    against the running max and rounded to bf16 there, and what the earlier
+    tiles summed is rescaled in fp32 (one tile up to 128 keys: tiny-L's
+    full-row softmax). It differs from the float32 plain version by those
+    roundings (bf16 operands with fp32 accumulators), and from the kernels
+    by the order of fp32 sums and the kernels' ``ex2``."""
+    q = (q.float() * scale).bfloat16().float()
+    k, v = k.float().bfloat16().float(), v.float().bfloat16().float()
+    s = torch.matmul(q, k.transpose(-1, -2))
+    m = torch.full(s.shape[:-1] + (1,), -torch.inf, device=s.device)
+    row_sum = torch.zeros_like(m)
+    out = torch.zeros(s.shape[:-1] + v.shape[-1:], device=q.device)
+    for j in range(0, s.shape[-1], _KEY_TILE):
+        s_j = s[..., j:j + _KEY_TILE]
+        m_new = torch.maximum(m, s_j.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s_j - m_new)
+        row_sum = row_sum * alpha + p.sum(dim=-1, keepdim=True)
+        out = out * alpha + torch.matmul(p.bfloat16().float(),
+                                         v[..., j:j + _KEY_TILE, :])
+        m = m_new
+    return out / row_sum
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
@@ -76,56 +121,72 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _operands(what: str, q, k, v, kv_shape, float32_ok: bool):
-    """q, k, v as the kernel reads them (bf16, contiguous, 16-byte aligned;
-    float32 cast by ``convert.to_bf16`` where ``float32_ok``) and whether
-    the result goes back to float32."""
-    dtypes = (torch.bfloat16, torch.float32) if float32_ok else (torch.bfloat16,)
-    if q.dtype not in dtypes or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"the {what} kernel takes "
-                        f"{'bf16 or float32' if float32_ok else 'bf16'}, got "
+@functools.cache
+def _lib_f32() -> ctypes.CDLL:
+    """The float32 entry point, built apart (``csrc/flash_attention_f32.cu``)
+    so that the bf16 kernels' translation unit holds no float32
+    instantiation."""
+    lib = _build.load("flash_attention_f32")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_attention_f32.argtypes = [p, p, p, p, i, i, i, i,
+                                        ctypes.c_float, p]
+    lib.fused_attention_f32.restype = i
+    return lib
+
+
+def _operands(what: str, q, k, v, kv_shape):
+    """q, k, v as the kernel reads them (bf16 or float32, each read in its
+    own type; contiguous, 16-byte aligned) and whether they are float32."""
+    if (q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype
+            or v.dtype != q.dtype):
+        raise TypeError(f"the {what} kernel takes bf16 or float32, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if tuple(k.shape) != kv_shape or tuple(v.shape) != kv_shape:
         raise ValueError(f"the {what} kernel needs k and v of shape "
                          f"{kv_shape}, got {tuple(k.shape)} and "
                          f"{tuple(v.shape)}")
-    f32 = q.dtype == torch.float32
-    if f32:
-        q, k, v = (convert.to_bf16(t) for t in (q, k, v))
     q, k, v = (t.contiguous() for t in (q, k, v))
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("kernel operands must be 16-byte aligned")
-    return q, k, v, f32
+    return q, k, v, q.dtype == torch.float32
 
 
 def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     """The one-pass and the fused wrapper's checks and launch (the one-pass
     kernel is the fused one at Nq = Nk): q [B, Nq, D] over k, v [B, nk, D]
-    bf16 → [B, Nq, D] bf16, or float32 → float32. Head dims as built; at
-    64, above 1152 keys (where K streams through a ring instead of staying
-    in shared memory) only whole 128-key tiles."""
+    bf16 → [B, Nq, D] bf16, or float32 → float32 (the float32 entry point).
+    Head dims as built; at 64, above 1152 keys (where K streams through a
+    ring instead of staying in shared memory) only whole 128-key tiles, and
+    only in bf16. Returns the output and whether it is float32."""
     b, nq, d = q.shape
-    q, k, v, f32 = _operands(what, q, k, v, (b, nk, d), float32_ok=True)
+    q, k, v, f32 = _operands(what, q, k, v, (b, nk, d))
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"{what} kernel built for head dims "
                                   f"{HEAD_DIMS}, not {d}")
-    if d == 64 and nk > 1152 and nk % 128:
-        raise ValueError(f"at head dim 64 the {what} kernel takes more than "
-                         f"1152 keys only in multiples of 128, not {nk}")
+    if d == 64 and nk > F32_MAX_KEYS_D64:
+        if f32:
+            raise NotImplementedError(
+                f"float32 {what} kernel at head dim 64 built for K resident "
+                f"in shared memory (Nk <= {F32_MAX_KEYS_D64}), not Nk = {nk}")
+        if nk % 128:
+            raise ValueError(f"at head dim 64 the {what} kernel takes more "
+                             f"than 1152 keys only in multiples of 128, not "
+                             f"{nk}")
     out = torch.empty_like(q)
-    lib = _lib()
-    status = lib.fused_attention(
+    lib = _lib_f32() if f32 else _lib()
+    entry = "fused_attention_f32" if f32 else "fused_attention"
+    status = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
         d, scale, kernels.cuda_stream(q))
-    _build.check(lib, status, f"{what} attention")
-    return convert.to_float32(out) if f32 else out
+    _build.check(lib, status, f"{what} attention ({entry})")
+    return out, f32
 
 
 def onepass_attention_cuda(q, k, v, scale: float):
     """Kernel launch: q, k, v [B, N, D] bf16 or float32 → [B, N, D] of the
     same dtype."""
-    out = _attention_cuda("one-pass", q, k, v, scale, q.shape[1])
-    count_launch("onepass_attention", q.shape)
+    out, f32 = _attention_cuda("one-pass", q, k, v, scale, q.shape[1])
+    count_launch("onepass_attention", q.shape, float32=f32)
     return out
 
 
@@ -161,20 +222,33 @@ def _tiny_lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _tiny_lib_f32() -> ctypes.CDLL:
+    """The float32 entry point, built apart (``csrc/tiny_attention_f32.cu``)."""
+    lib = _build.load("tiny_attention_f32")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.tiny_attention_f32.argtypes = [p, p, p, p, ctypes.c_long, i, i,
+                                       ctypes.c_float, p]
+    lib.tiny_attention_f32.restype = i
+    return lib
+
+
 def tiny_attention_cuda(q, k, v, scale: float):
-    """Kernel launch: q, k, v [B, L, D] bf16 → [B, L, D]."""
+    """Kernel launch: q, k, v [B, L, D] bf16 or float32 → [B, L, D] of the
+    same dtype."""
     b, l, d = q.shape
-    q, k, v, _ = _operands("tiny-L", q, k, v, (b, l, d), float32_ok=False)
+    q, k, v, f32 = _operands("tiny-L", q, k, v, (b, l, d))
     if (l, d) not in TINY_SHAPES:
         raise NotImplementedError(f"tiny-L kernel built for (L, head dim) "
                                   f"{TINY_SHAPES}, not {(l, d)}")
     out = torch.empty_like(q)
-    lib = _tiny_lib()
-    status = lib.tiny_attention(
+    lib = _tiny_lib_f32() if f32 else _tiny_lib()
+    entry = "tiny_attention_f32" if f32 else "tiny_attention"
+    status = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, d,
         scale, kernels.cuda_stream(q))
-    _build.check(lib, status, "tiny_attention")
-    count_launch("tiny_attention", q.shape)
+    _build.check(lib, status, entry)
+    count_launch("tiny_attention", q.shape, float32=f32)
     return out
 
 
@@ -210,8 +284,8 @@ def fused_attention_cuda(q, k, v, scale: float):
                            "under torch.no_grad(), or use sdpa")
     b, nq, d = q.shape
     nk = k.shape[1]
-    out = _attention_cuda("fused", q, k, v, scale, nk)
-    count_launch("fused_attention", (b, nq, nk, d))
+    out, f32 = _attention_cuda("fused", q, k, v, scale, nk)
+    count_launch("fused_attention", (b, nq, nk, d), float32=f32)
     return out
 
 

@@ -14,8 +14,13 @@ and 2048 (and held back by the softmax's ``ex2`` before that).
 For a tensor on the CPU the wrapper runs the plain version
 (``packed_attention_reference``); for a CUDA tensor it launches the kernel
 or raises. At shapes the gate rejects it runs the plain head-split math, as
-the JAX package runs XLA's there. A float32 qkv takes the float32 route of
-``convert.py`` (bf16 operands, fp32 accumulators, a float32 result). The
+the JAX package runs XLA's there. A float32 qkv (the trainers' and the
+golden record's) goes to the float32 entry point
+(``csrc/packed_attention_f32.cu``), which reads and writes float32 itself,
+with no cast pass around it: q times the scale in fp32 and k, v rounded to
+bf16 once, fp32 accumulators, p rounded to bf16 for P·V, the result divided
+by the fp32 row sum and stored as float32
+(``packed_attention_float32_route`` writes that function out). The
 gradient recomputes through the plain version (``autograd.py``), as the
 JAX package's ``custom_vjp`` does.
 """
@@ -30,8 +35,9 @@ import torch
 
 from .. import kernels
 from ..attention import plain_sdpa, sdpa
-from . import _build, convert, count_launch
+from . import _build, count_launch
 from .autograd import RecomputeThroughPlain
+from .flash_attention import attention_float32_route
 
 _LANES = 128
 # instantiated in csrc/packed_attention.cu: the gate's head dim
@@ -55,6 +61,19 @@ def packed_attention_reference(qkv, heads: int, scale: float,
         out = sdpa(split(q), split(k), split(v), scale=scale)
     else:
         out = plain_sdpa(split(q) * scale, split(k), split(v))
+    return out.transpose(1, 2).reshape(b, l, c)
+
+
+def packed_attention_float32_route(qkv, heads: int, scale: float):
+    """What the kernel's float32 route computes, in plain PyTorch (for the
+    tests and ``chip_smoke.py``; never on the card's main path): qkv
+    [B, L, 3C] float32 → [B, L, C] float32, each head through
+    ``flash_attention.attention_float32_route``."""
+    b, l, c3 = qkv.shape
+    c = c3 // 3
+    q, k, v = (t.reshape(b, l, heads, c // heads).transpose(1, 2)
+               for t in qkv.float().chunk(3, dim=-1))
+    out = attention_float32_route(q, k, v, scale)
     return out.transpose(1, 2).reshape(b, l, c)
 
 
@@ -85,15 +104,24 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _lib_f32() -> ctypes.CDLL:
+    """The float32 entry point, built apart
+    (``csrc/packed_attention_f32.cu``) so that the bf16 kernel's translation
+    unit holds no float32 instantiation."""
+    lib = _build.load("packed_attention_f32")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.packed_attention_f32.argtypes = [p, p, i, i, i, i, ctypes.c_float, p]
+    lib.packed_attention_f32.restype = i
+    return lib
+
+
 def packed_attention_cuda(qkv, heads: int, scale: float):
-    """Kernel launch: qkv [B, L, 3C] bf16 → [B, L, C] bf16; float32 qkv
-    through the cast passes of ``convert.py`` → float32."""
-    dtype = qkv.dtype
-    if dtype == torch.float32:
-        qkv = convert.to_bf16(qkv)
-    elif dtype != torch.bfloat16:
+    """Kernel launch: qkv [B, L, 3C] bf16 or float32 → [B, L, C] of the same
+    dtype."""
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the packed-attention kernel takes bf16 or float32 "
-                        f"qkv, got {dtype}")
+                        f"qkv, got {qkv.dtype}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     b, l, c3 = qkv.shape
@@ -105,13 +133,15 @@ def packed_attention_cuda(qkv, heads: int, scale: float):
         raise NotImplementedError(f"packed kernel built for head dims "
                                   f"{PACKED_HEAD_DIMS}, not {c // heads}")
     out = torch.empty(b, l, c, dtype=qkv.dtype, device=qkv.device)
-    lib = _lib()
-    status = lib.packed_attention(
+    f32 = qkv.dtype == torch.float32
+    lib = _lib_f32() if f32 else _lib()
+    entry = "packed_attention_f32" if f32 else "packed_attention"
+    status = getattr(lib, entry)(
         qkv.data_ptr(), out.data_ptr(), b, l, heads, c // heads, scale,
         kernels.cuda_stream(qkv))
-    _build.check(lib, status, "packed_attention")
-    count_launch("packed_attention", qkv.shape)
-    return convert.to_float32(out) if dtype == torch.float32 else out
+    _build.check(lib, status, entry)
+    count_launch("packed_attention", qkv.shape, float32=f32)
+    return out
 
 
 def packed_attention(qkv, heads: int, scale: float):

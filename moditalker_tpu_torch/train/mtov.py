@@ -7,8 +7,10 @@ every 25 steps, EMA-only checkpoints.
 One device, chosen explicitly (``cuda`` unless the caller asks for the
 CPU); models in float32, as the JAX trainer builds them. On the card the
 frozen AEs' divided space and time attention and the UNet's packed and
-one-pass attention run the hand-written kernels in float32 (bf16 operands,
-fp32 accumulators, ``ops/kernels/convert.py``), and the UNet's gradient
+one-pass attention (with the fused divided and packed kernels switched
+off: the tiny-L and one-pass kernels) run the hand-written kernels' float32
+routes (float32 read and written in the kernel, bf16 operands, fp32
+accumulators), and the UNet's gradient
 flows through them (``ops/kernels/autograd.py``). The loss's draws (t,
 noise) come from a CPU ``torch.Generator`` seeded from the config, so a run
 on the card and one on the CPU see the same numbers. A background thread

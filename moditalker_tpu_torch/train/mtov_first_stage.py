@@ -23,7 +23,8 @@ Kept as the JAX package has them, on purpose:
 
 One device (``cuda`` unless the caller asks for the CPU), float32 as the JAX
 trainer builds it. On the card the AE's divided space and time attention
-runs the hand-written kernels in float32 (``ops/kernels/convert.py``) and
+runs the hand-written kernels' float32 routes (float32 read and written in
+the kernel) and
 its gradient flows through them (``ops/kernels/autograd.py``). The
 per-item frame index comes from a CPU ``torch.Generator`` seeded with
 ``seed + 1`` (the JAX trainer's ``PRNGKey(seed + 1)``), one draw per step;

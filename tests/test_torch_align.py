@@ -10,6 +10,11 @@ held to atol 1e-4 relative to each output's max; the discrete decoders take
 the same float arrays in both packages and must agree exactly (two network
 runs differ at 1e-6, which can move an argmax of near-flat random-weight
 maps).
+
+Each network comparison computes the JAX package's result to the end (a
+numpy array) before the port's forward starts, so the two never run at
+once, and the module runs with one torch thread (``torch_threads.py``), as
+the port's other heavy test modules do under the suite's parallel workers.
 """
 
 import jax
@@ -34,6 +39,8 @@ from moditalker_tpu_torch.preprocess import s3fd as ts3fd
 from moditalker_tpu_torch.utils.convert import (convert_fan_params,
                                                 convert_recon_params,
                                                 convert_s3fd_params)
+
+from .torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 H = W = 96
 T = 5
@@ -106,7 +113,7 @@ def _close(got, want, rel=1e-4):
 def test_s3fd_maps_match_jax(nets, frames):
     s3_p = nets[0]
     x = frames[..., ::-1].astype(np.float32) - js3fd._BGR_MEANS
-    want = js3fd.S3FD().apply(s3_p, jnp.asarray(x))
+    want = [np.asarray(w) for w in js3fd.S3FD().apply(s3_p, jnp.asarray(x))]
     model = _port(ts3fd.S3FD(), convert_s3fd_params(s3_p))
     with torch.no_grad():
         got = model(ts3fd.preprocess_frames(torch.from_numpy(frames)))
@@ -119,7 +126,7 @@ def test_fan_heatmaps_match_jax(nets):
     fan_p = nets[1]
     x = np.random.default_rng(1).uniform(0, 1, (2, 256, 256, 3))
     x = x.astype(np.float32)
-    want = jfan.FAN(num_modules=1).apply(fan_p, jnp.asarray(x))[-1]
+    want = np.asarray(jfan.FAN(num_modules=1).apply(fan_p, jnp.asarray(x))[-1])
     model = _port(tfan.FAN(num_modules=1), convert_fan_params(fan_p))
     with torch.no_grad():
         got = model(torch.from_numpy(x))[-1]
@@ -130,7 +137,7 @@ def test_recon_net_matches_jax(nets):
     recon_p = nets[2]
     x = np.random.default_rng(2).uniform(0, 1, (2, 224, 224, 3))
     x = x.astype(np.float32)
-    want = jrecon.ReconNet().apply(recon_p, jnp.asarray(x))
+    want = np.asarray(jrecon.ReconNet().apply(recon_p, jnp.asarray(x)))
     model = _port(trecon.ReconNet(), convert_recon_params(recon_p))
     with torch.no_grad():
         got = model(torch.from_numpy(x))

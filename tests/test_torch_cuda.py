@@ -22,22 +22,21 @@ tiles mask: ragged query chunks (Nq = 1, 100, 1100), key tiles short of 128
 (Nk = 8 … 120), one whole key tile (Nk = 128), Nq != Nk on both sides of the
 resident-K limit, and D = 16, 32 and 64.
 
-The space, time, packed and one-pass kernels also take float32, held to the
-same limits against the float32 plain version at the training shapes and
-smaller: space and time read and write float32 themselves (also held to
-their float32 route's function within ``FLOAT32_ROUTE_LIMITS``, with no cast
-pass and a result that was never rounded to bf16), packed and one-pass
-through cast passes (``ops/kernels/convert.py``); and
-each differentiable wrapper's gradient (its ``autograd.Function``: kernel
-forward, plain recompute backward) is held against autograd through the
-plain version.
+Every kernel also takes float32, which it reads and writes itself (no cast
+pass exists), held to the same limits against the float32 plain version at
+the training shapes and smaller, to its float32 route's function within
+``FLOAT32_ROUTE_LIMITS``, and to a result that was never rounded to bf16
+(under 1 % of it equal to its bf16 rounding); and each differentiable
+wrapper's gradient (its ``autograd.Function``: kernel forward, plain
+recompute backward) is held against autograd through the plain version.
 """
 
 import pytest
 import torch
 
 from moditalker_tpu_torch.ops import attention, rotary
-from moditalker_tpu_torch.ops.kernels import (LAUNCHES, bf16_rounded_share,
+from moditalker_tpu_torch.ops.kernels import (FLOAT32_LAUNCHES_BY_SHAPE,
+                                              LAUNCHES, bf16_rounded_share,
                                               check_bf16, check_float32_route)
 from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
@@ -215,25 +214,18 @@ def _randn32(gen, *shape):
     return torch.randn(shape, generator=gen, device="cuda")
 
 
-@pytest.mark.cuda
-def test_float32_casts_are_exact(gen):
-    """``convert.to_bf16`` rounds as PyTorch does (to nearest even),
-    ``to_float32`` is exact; an unaligned view is copied first; a size that
-    is not a multiple of 8 raises."""
-    from moditalker_tpu_torch.ops.kernels import convert
-
-    x = _randn32(gen, 3, 1000, 40) * 100
-    assert torch.equal(convert.to_bf16(x), x.bfloat16())
-    y = x.bfloat16()
-    assert torch.equal(convert.to_float32(y), y.float())
-    view = x.flatten()[1:8001]          # 4 bytes off a 16-byte boundary
-    assert torch.equal(convert.to_bf16(view), view.bfloat16())
-    with pytest.raises(ValueError, match="multiple of 8"):
-        convert.to_bf16(x.flatten()[:12])
-
-
-def _no_cast(*args):
-    raise AssertionError("a cast pass ran for the divided kernels")
+def _check_float32(name, got, plain, route):
+    """A kernel's float32 result: float32, under 1 % of it equal to its bf16
+    rounding, within the limits of the float32 plain version and of its
+    float32 route's function; the route's result rounded to bf16 (what a
+    bf16 kernel between two cast passes returned) fails the route's
+    limits."""
+    assert got.dtype == torch.float32
+    assert bf16_rounded_share(got) < 0.01
+    check_bf16(name, got, plain)
+    check_float32_route(name, got, route)
+    with pytest.raises(AssertionError, match="float32 route"):
+        check_float32_route(name, route.bfloat16().float(), route)
 
 
 @pytest.mark.cuda
@@ -243,35 +235,22 @@ def _no_cast(*args):
     ("space", 1, 1, 256, 2),
     ("time", 2, 16, 128, 2), ("time", 1, 16, 1024, 8),
     ("time", 10, 16, 1024, 8)])
-def test_divided_kernels_take_float32(gen, monkeypatch, axis, b, f, n,
-                                      heads):
+def test_divided_kernels_take_float32(gen, axis, b, f, n, heads):
     """A float32 qkv goes through the kernel's float32 route (float32 read
     and written in the kernel, bf16 operands, fp32 accumulators) to a
-    float32 result, with no cast pass (both raise here): held to the limits
-    against the float32 plain version and to ``FLOAT32_ROUTE_LIMITS``
-    against the function the route computes, with under 1 % of the result
-    equal to its own bf16 rounding. The result rounded to bf16, what a bf16
-    kernel between two cast passes returned, fails the route's limits."""
-    from moditalker_tpu_torch.ops.kernels import convert
-
-    monkeypatch.setattr(convert, "to_bf16", _no_cast)
-    monkeypatch.setattr(convert, "to_float32", _no_cast)
+    float32 result (``_check_float32``)."""
     dh = 64
     sin, cos = _divided_tables(axis, f, n)
     x = _randn32(gen, b, f, n, 3 * heads * dh)
     name = f"divided_{axis}_attention"
     got = _launched(name, lambda: tdiv.divided_attention(
         x, sin, cos, axis, heads, dh, dh**-0.5))
-    assert got.dtype == torch.float32
-    assert bf16_rounded_share(got) < 0.01
-    want = tdiv.divided_attention_reference(x, sin, cos, axis, heads, dh,
-                                            dh**-0.5, use_flash=False)
-    check_bf16(name, got, want)
-    route = tdiv.divided_attention_float32_route(x, sin, cos, axis, heads, dh,
-                                                 dh**-0.5)
-    check_float32_route(name, got, route)
-    with pytest.raises(AssertionError, match="float32 route"):
-        check_float32_route(name, route.bfloat16().float(), route)
+    _check_float32(
+        name, got,
+        tdiv.divided_attention_reference(x, sin, cos, axis, heads, dh,
+                                         dh**-0.5, use_flash=False),
+        tdiv.divided_attention_float32_route(x, sin, cos, axis, heads, dh,
+                                             dh**-0.5))
 
 
 @pytest.mark.cuda
@@ -294,35 +273,68 @@ def test_bf16_kernels_round_where_the_float32_route_does(gen, axis):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,l", [(10, 2048), (10, 1024), (1, 1032)])
+@pytest.mark.parametrize("b,l", [(10, 2048), (10, 1024), (1, 1032),
+                                 (1, 2048), (2, 8)])
 def test_packed_kernel_takes_float32(gen, b, l):
     x = _randn32(gen, b, l, 384)
     got = _launched("packed_attention",
-                    lambda: tpack.packed_attention(x, 8, 0.25))
-    assert got.dtype == torch.float32
-    check_bf16("packed_attention", got,
-               tpack.packed_attention_reference(x, 8, 0.25))
+                    lambda: tpack.packed_attention_cuda(x, 8, 0.25))
+    _check_float32("packed_attention", got,
+                   tpack.packed_attention_reference(x, 8, 0.25),
+                   tpack.packed_attention_float32_route(x, 8, 0.25))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,n,d", [(80, 2048, 32), (4, 1024, 16),
-                                   (2, 1280, 64)])
+                                   (80, 2048, 16), (8, 1024, 32),
+                                   (128, 1024, 64), (2, 1152, 64),
+                                   (3, 1000, 64), (2, 1032, 16)])
 def test_onepass_kernel_takes_float32(gen, b, n, d):
+    """The float32 entry point at the head dims 16 and 32 (small-head tile)
+    and 64 (wgmma tile, resident K up to 1152 keys), at whole and ragged
+    lengths; above 1152 keys at head dim 64 float32 is refused."""
     q, k, v = (_randn32(gen, b, n, d) for _ in range(3))
     got = _launched("onepass_attention",
                     lambda: tflash.onepass_attention(q, k, v, d**-0.5))
-    assert got.dtype == torch.float32
-    check_bf16("onepass_attention", got,
-               tflash.onepass_attention_reference(q, k, v, d**-0.5))
+    assert FLOAT32_LAUNCHES_BY_SHAPE["onepass_attention"][(b, n, d)] >= 1
+    _check_float32("onepass_attention", got,
+                   tflash.onepass_attention_reference(q, k, v, d**-0.5),
+                   tflash.attention_float32_route(q, k, v, d**-0.5))
+    if d == 64:
+        kv = _randn32(gen, 2, 1280, 64)
+        with pytest.raises(NotImplementedError, match="resident"):
+            tflash.onepass_attention(kv, kv, kv, 0.125)
 
 
 @pytest.mark.cuda
-def test_tiny_kernel_refuses_float32_and_fused_refuses_a_gradient(gen):
-    """Tiny-L takes bf16 only (no float32 row on any path); the fused kernel
-    has no gradient and raises where one is asked, never falling back."""
-    q = _randn32(gen, 4096, 16, 64)
-    with pytest.raises(TypeError, match="bf16"):
-        tflash.tiny_attention(q, q, q, 0.125)
+@pytest.mark.parametrize("b,nq,nk,d", [
+    (2, 64, 512, 64), (3, 1000, 120, 64), (2, 200, 8, 64), (2, 1100, 1152, 64),
+    (3, 300, 8, 16), (2, 3000, 512, 16), (3, 200, 640, 32)])
+def test_fused_kernel_takes_float32(gen, b, nq, nk, d):
+    """Nq != Nk on both tiles, ragged query chunks and key tiles short of
+    128, in float32."""
+    q, k, v = _randn32(gen, b, nq, d), _randn32(gen, b, nk, d), \
+        _randn32(gen, b, nk, d)
+    got = _launched("fused_attention", lambda: tflash.fused_attention(q, k, v))
+    _check_float32("fused_attention", got,
+                   tflash.fused_attention_reference(q, k, v, d**-0.5),
+                   tflash.attention_float32_route(q, k, v, d**-0.5))
+
+
+@pytest.mark.cuda
+def test_tiny_kernel_takes_float32_and_fused_refuses_a_gradient(gen):
+    """Tiny-L takes float32 (the modular path's time attention at B = 1:
+    [8192, 16, 64]; a last block short of warps at 130), through its
+    float32 entry point; the fused kernel has no gradient and raises where
+    one is asked, never falling back."""
+    for b in (8192, 130):
+        q, k, v = (_randn32(gen, b, 16, 64) for _ in range(3))
+        got = _launched("tiny_attention",
+                        lambda: tflash.tiny_attention(q, k, v, 0.125))
+        _check_float32("tiny_attention", got,
+                       tflash.tiny_attention_reference(q, k, v, 0.125),
+                       tflash.attention_float32_route(q, k, v, 0.125))
+    assert FLOAT32_LAUNCHES_BY_SHAPE["tiny_attention"][(8192, 16, 64)] >= 1
     x = _randn32(gen, 2, 256, 64).requires_grad_()
     with pytest.raises(RuntimeError, match="no gradient"):
         tflash.fused_attention(x, x, x)
@@ -386,10 +398,11 @@ def test_packed_gradient_on_the_card(gen):
 @pytest.mark.parametrize("name,shape,dtype", [
     ("onepass_attention", (16, 2048, 32), torch.float32),
     ("onepass_attention", (8, 1024, 64), torch.float32),
-    ("tiny_attention", (4096, 16, 64), torch.bfloat16)])
+    ("tiny_attention", (4096, 16, 64), torch.bfloat16),
+    ("tiny_attention", (4096, 16, 64), torch.float32)])
 def test_flash_gradient_on_the_card(gen, name, shape, dtype):
-    """One-pass in float32; tiny-L (bf16 only) against the float32 plain
-    gradient within bf16's reach."""
+    """One-pass in float32; tiny-L in float32 and in bf16 (against the
+    float32 plain gradient within bf16's reach)."""
     fn = {"onepass_attention": tflash.onepass_attention,
           "tiny_attention": tflash.tiny_attention}[name]
     sc = shape[-1] ** -0.5

@@ -247,8 +247,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     """The checks ahead of a launch need no card: dtype and shape errors
     come before the library is built."""
     q = torch.zeros(4096, 16, 64)
-    with pytest.raises(TypeError, match="bf16"):
-        tflash.tiny_attention_cuda(q, q, q, 1.0)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        tflash.tiny_attention_cuda(q.half(), q.half(), q.half(), 1.0)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        tflash.tiny_attention_cuda(q, q, q.bfloat16(), 1.0)
     qb = q.bfloat16()
     with pytest.raises(ValueError, match="k and v of shape"):
         tflash.tiny_attention_cuda(qb, qb[:, :8], qb, 1.0)
@@ -264,7 +266,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="head dim 64"):
         kv = torch.zeros(2, 1160, 64, dtype=torch.bfloat16)
         tflash.fused_attention_cuda(x, kv, kv, 1.0)
-    # one-pass: bf16 or float32 (cast on the card), built head dims only,
+    # one-pass: bf16 or float32, built head dims only,
     # and at head dim 64 (the wgmma tile) above 1152 rows only rows that
     # tile by 128
     x = torch.zeros(2, 1024, 32, dtype=torch.float16)

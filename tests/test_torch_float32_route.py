@@ -1,16 +1,23 @@
-"""The divided kernels' float32 route on the CPU.
+"""The kernels' float32 route on the CPU.
 
-For a float32 qkv the space and time kernels read float32 and write float32
-themselves. ``divided_attention_float32_route`` writes out the function
-they compute (q rotated and scaled in fp32 and rounded to bf16 once, k
-rotated and rounded once, v rounded once, fp32 scores and sums, p rounded
-to bf16 for P·V, the result divided in fp32 and kept float32). Here it is
-held to the JAX package's Pallas kernels in interpret mode on float32 qkv
-and to the bf16 route at bf16-exact inputs; ``FLOAT32_ROUTE_LIMITS`` are
-shown to pass a change of summation order and to fail a result rounded to
-bf16 (the cast route's); and the wrappers are driven with stub libraries to
-show that a float32 qkv reaches the float32 entry points with no cast pass.
-The kernels themselves are held to this function on the card
+For float32 operands every kernel reads float32 and writes float32 itself.
+``divided_attention_float32_route`` (space, time),
+``packed_attention_float32_route`` (packed) and ``attention_float32_route``
+(one-pass, fused, tiny-L) write out the function they compute (q rotated
+where there is a rotary, multiplied by the scale in fp32 and rounded to bf16
+once, k and v rounded once, fp32 scores and sums, p rounded to bf16 for P·V
+against each 128-key tile's running max, the result divided in fp32 and
+kept float32). Here each is held to the JAX package's Pallas kernel in
+interpret mode on the same float32 inputs (the Pallas kernels keep float32
+operands, so the gap is the route's bf16 rounding: within ``BF16_LIMITS``
+and ``QUANTILE_LIMITS``) and to the bf16 route at bf16-exact inputs;
+``FLOAT32_ROUTE_LIMITS`` are shown to pass a change of summation order and
+to fail a result rounded to bf16 (what a bf16 kernel between two cast
+passes returned) and a fully bf16 result widened to float32; and the
+wrappers are driven with stub libraries to show that float32 operands reach
+the float32 entry points (there is no cast pass left to reach), that the
+modular path's float32 time attention reaches tiny-L, and what is refused.
+The kernels themselves are held to these functions on the card
 (tests/test_torch_cuda.py, ``chip_smoke.py``).
 """
 
@@ -23,9 +30,14 @@ import torch
 
 from moditalker_tpu.ops import rotary as jrot
 from moditalker_tpu.ops.pallas import divided_attention as jdiv
+from moditalker_tpu.ops.pallas import flash_attention as jflash
+from moditalker_tpu.ops.pallas import packed_attention as jpack
+from moditalker_tpu_torch.ops import attention as tattn
 from moditalker_tpu_torch.ops import kernels as tkernels
-from moditalker_tpu_torch.ops.kernels import _build, convert
+from moditalker_tpu_torch.ops.kernels import _build
 from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
+from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
+from moditalker_tpu_torch.ops.kernels import packed_attention as tpack
 
 from .torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -128,19 +140,19 @@ class _StubLib:
         return entry
 
 
-def _no_cast(*args):
-    raise AssertionError("a cast pass ran for the divided kernels")
-
-
 @pytest.fixture
 def stub_launches(monkeypatch):
+    """Every wrapper takes its launch branch for CPU tensors, and every
+    library, bf16 and float32, is a stub that records its calls."""
     calls = []
     monkeypatch.setattr(tkernels, "on_card", lambda t: True)
     monkeypatch.setattr(tkernels, "cuda_stream", lambda t: 0)
-    monkeypatch.setattr(tdiv, "_lib", lambda: _StubLib(calls))
-    monkeypatch.setattr(tdiv, "_lib_f32", lambda: _StubLib(calls))
-    monkeypatch.setattr(convert, "to_bf16", _no_cast)
-    monkeypatch.setattr(convert, "to_float32", _no_cast)
+    for mod, names in ((tdiv, ("_lib", "_lib_f32")),
+                       (tpack, ("_lib", "_lib_f32")),
+                       (tflash, ("_lib", "_lib_f32", "_tiny_lib",
+                                 "_tiny_lib_f32"))):
+        for lib in names:
+            monkeypatch.setattr(mod, lib, lambda: _StubLib(calls))
     tkernels.reset_launch_counts()
     yield calls
     tkernels.reset_launch_counts()
@@ -148,10 +160,10 @@ def stub_launches(monkeypatch):
 
 @pytest.mark.parametrize("axis", AXES)
 def test_float32_qkv_launches_the_float32_entry_point(stub_launches, axis):
-    """A float32 qkv goes to the kernel's float32 entry point once, with no
-    cast pass on either side (both raise here), and the result the wrapper
-    returns is the float32 buffer the kernel writes; a bf16 qkv still takes
-    the bf16 entry point."""
+    """A float32 qkv goes to the kernel's float32 entry point once (no cast
+    pass exists to call), and the result the wrapper returns is the float32
+    buffer the kernel writes; a bf16 qkv still takes the bf16 entry
+    point."""
     qkv, sin, cos, heads, dh = _inputs(axis)
     name = f"divided_{axis}_attention"
     for dtype, entry in ((torch.float32, name + "_f32"),
@@ -180,15 +192,219 @@ def test_float32_space_kernel_is_built_for_resident_k():
 
 
 def test_float32_entry_points_are_in_their_own_source():
-    """The C symbols ``_lib`` and ``_lib_f32`` bind are defined in
-    csrc/divided_attention.cu (bf16) and csrc/divided_attention_f32.cu
-    (float32), each library's own, and the float32 source is built with the
-    kernels (``FLOAT32_SOURCES``)."""
-    for source, suffix in (("divided_attention.cu", ""),
-                           ("divided_attention_f32.cu", "_f32")):
-        text = (_build.CSRC / source).read_text()
-        c_api = text[text.index('extern "C" {'):]
-        names = set(re.findall(r"\bint (divided_\w+)\(", c_api))
-        assert names == {"divided_space_attention" + suffix,
-                         "divided_time_attention" + suffix}, source
-    assert set(tkernels.FLOAT32_SOURCES.values()) == {"divided_attention_f32"}
+    """The C symbols the wrappers bind are defined in each kernel's bf16
+    source and in a float32 source of its own (``FLOAT32_SOURCES``, built
+    with the kernels); no source is left that casts (the cast passes are
+    gone) and every source under csrc/ is a kernel's."""
+    symbols = {"divided_attention": {"divided_space_attention",
+                                     "divided_time_attention"},
+               "packed_attention": {"packed_attention"},
+               "flash_attention": {"fused_attention"},
+               "tiny_attention": {"tiny_attention"}}
+    for source, names in symbols.items():
+        for src, suffix in ((source, ""), (source + "_f32", "_f32")):
+            text = (_build.CSRC / f"{src}.cu").read_text()
+            c_api = text[text.index('extern "C" {'):]
+            found = set(re.findall(r"\bint (\w+)\(", c_api))
+            assert found == {n + suffix for n in names}, src
+    for name, source in tkernels.SOURCES.items():
+        assert tkernels.FLOAT32_SOURCES[name] == source + "_f32"
+    built = {*tkernels.SOURCES.values(), *tkernels.FLOAT32_SOURCES.values()}
+    assert {p.stem for p in _build.CSRC.glob("*.cu")} == built
+
+
+# ------------------------------------------- packed, one-pass, fused, tiny-L
+# (name, shape of q, shape of k and v): the kernels' float32 rows at small
+# sizes, each a shape the Pallas kernel of the same name takes
+FLASH_CASES = {
+    "tiny": ("tiny_attention", (256, 16, 64), (256, 16, 64)),
+    "onepass16": ("onepass_attention", (2, 1024, 16), (2, 1024, 16)),
+    "onepass32": ("onepass_attention", (2, 1024, 32), (2, 1024, 32)),
+    "onepass64": ("onepass_attention", (2, 1024, 64), (2, 1024, 64)),
+    "fused": ("fused_attention", (2, 64, 64), (2, 512, 64)),
+}
+PACKED = (1, 128, 8)   # B, C, heads: dh = 16
+
+
+def _flash_inputs(case, seed=9):
+    name, qs, ks = FLASH_CASES[case]
+    rng = np.random.default_rng(seed)
+    return (name, rng.normal(size=qs).astype(np.float32),
+            rng.normal(size=ks).astype(np.float32),
+            rng.normal(size=ks).astype(np.float32))
+
+
+def _packed_inputs(l, seed=9):
+    b, c, heads = PACKED
+    qkv = np.random.default_rng(seed).normal(
+        size=(b, l, 3 * c)).astype(np.float32)
+    return qkv, heads, (c // heads) ** -0.5
+
+
+def _jax_flash(name, q, k, v, scale):
+    fn = {"tiny_attention": jflash.tiny_attention,
+          "onepass_attention": jflash.onepass_attention,
+          "fused_attention": jflash.fused_attention}[name]
+    return fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale,
+              interpret=True)
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_attention_float32_route_matches_jax_interpret(case):
+    """``attention_float32_route`` is the TPU kernel's function on float32
+    q, k, v but for its bf16 operands: within the bf16 limits the card holds
+    every kernel to."""
+    name, q, k, v = _flash_inputs(case)
+    sc = q.shape[-1] ** -0.5
+    got = tflash.attention_float32_route(_t(q), _t(k), _t(v), sc)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    tkernels.check_bf16(name, got, _t(_jax_flash(name, q, k, v, sc)))
+
+
+@pytest.mark.parametrize("l", [1024, 1032])
+def test_packed_float32_route_matches_jax_interpret(l):
+    """``packed_attention_float32_route`` against the packed Pallas kernel on
+    float32 qkv, at the xy plane's length and a ragged one."""
+    qkv, heads, sc = _packed_inputs(l)
+    want = jpack.packed_attention(jnp.asarray(qkv), heads, sc, interpret=True)
+    got = tpack.packed_attention_float32_route(_t(qkv), heads, sc)
+    assert got.dtype == torch.float32
+    tkernels.check_bf16("packed_attention", got, _t(want))
+
+
+def _route_and_plain(case, x):
+    """(the float32 route on ``x`` [float32 tensors], the plain version on
+    the same tensors): for a flash case x = (q, k, v), for "packed" x =
+    (qkv,)."""
+    if case == "packed":
+        _, heads, sc = _packed_inputs(8)
+        return (tpack.packed_attention_float32_route(x[0], heads, sc),
+                lambda *t: tpack.packed_attention_reference(t[0], heads, sc))
+    sc = x[0].shape[-1] ** -0.5
+    return (tflash.attention_float32_route(*x, sc),
+            lambda *t: tflash.onepass_attention_reference(*t, sc))
+
+
+def _case_inputs(case, seed=9):
+    if case == "packed":
+        return "packed_attention", (_t(_packed_inputs(1024, seed)[0]),)
+    name, q, k, v = _flash_inputs(case, seed)
+    return name, (_t(q), _t(k), _t(v))
+
+
+ROUTE_CASES = [*sorted(FLASH_CASES), "packed"]
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_float32_routes_at_bf16_inputs_sit_within_the_bf16_route(case):
+    """At inputs bf16 represents exactly, the float32 route's result rounded
+    to bf16 lies within the limits that hold the bf16 kernel to its plain
+    bf16 version."""
+    name, x = _case_inputs(case, seed=10)
+    x = tuple(t.bfloat16() for t in x)
+    route, plain = _route_and_plain(case, tuple(t.float() for t in x))
+    tkernels.check_bf16(name, route.bfloat16(), plain(*x))
+
+
+@pytest.mark.parametrize("case", ROUTE_CASES)
+def test_float32_route_limits_pass_sum_order_and_fail_bf16_results(case):
+    """The keys permuted inside each 128-key tile (k and v alike; for packed
+    the sequence, queries included) give the same function with every fp32
+    sum over the keys in another order: within ``FLOAT32_ROUTE_LIMITS``.
+    The route's result rounded to bf16 (a bf16 kernel between two cast
+    passes) fails them, and so does the fully bf16 plain version widened to
+    float32 (a bf16 kernel whose result is widened); the float32 result
+    keeps under 1 % of its elements equal to their bf16 rounding."""
+    name, x = _case_inputs(case)
+    want, plain = _route_and_plain(case, x)
+    rng = np.random.default_rng(4)
+    length = x[-1].shape[-2]
+    perm = torch.from_numpy(np.concatenate(
+        [j + rng.permutation(min(128, length - j))
+         for j in range(0, length, 128)]))
+    if case == "packed":
+        moved, _ = _route_and_plain(case, (x[0][:, perm],))
+        back = torch.empty_like(moved).index_copy_(1, perm, moved)
+    else:
+        back, _ = _route_and_plain(case, (x[0], x[1][:, perm], x[2][:, perm]))
+    assert not torch.equal(back, want)
+    tkernels.check_float32_route(name, back, want)
+    assert tkernels.bf16_rounded_share(want) < 0.01
+    for widened in (want.bfloat16().float(),
+                    plain(*(t.bfloat16() for t in x)).float()):
+        with pytest.raises(AssertionError, match="float32 route"):
+            tkernels.check_float32_route(name, widened, want)
+
+
+def test_float32_route_limits_cover_every_kernel():
+    """Every kernel has a row (fused: the one-pass row), each measure's
+    limit ordered as the measures read: max above rms and quantile."""
+    for name in tkernels.LAUNCHES:
+        lim = tkernels.float32_route_limits(name)
+        assert lim[0] > lim[1] > 0 and lim[0] > lim[2] > 0, name
+    assert (tkernels.float32_route_limits("fused_attention")
+            == tkernels.FLOAT32_ROUTE_LIMITS["onepass_attention"])
+
+
+@pytest.mark.parametrize("name", ["packed_attention", "onepass_attention",
+                                  "tiny_attention", "fused_attention"])
+def test_float32_operands_launch_the_float32_entry_points(stub_launches,
+                                                          name):
+    """Float32 operands go to the kernel's float32 entry point once, counted
+    as a float32 launch, and come back float32; bf16 operands take the bf16
+    entry point."""
+    entry = {"packed_attention": "packed_attention",
+             "onepass_attention": "fused_attention",
+             "tiny_attention": "tiny_attention",
+             "fused_attention": "fused_attention"}[name]
+    shapes = {"packed_attention": [(2, 1024, 384)],
+              "onepass_attention": [(4, 1024, 32)] * 3,
+              "tiny_attention": [(4096, 16, 64)] * 3,
+              "fused_attention": [(2, 64, 64), (2, 512, 64), (2, 512, 64)]}
+    run = {"packed_attention": lambda x: tpack.packed_attention(x[0], 8, 0.25),
+           "onepass_attention": lambda x: tflash.onepass_attention(*x, 0.2),
+           "tiny_attention": lambda x: tflash.tiny_attention(*x, 0.125),
+           "fused_attention": lambda x: tflash.fused_attention(*x)}[name]
+    for dtype, suffix in ((torch.float32, "_f32"), (torch.bfloat16, "")):
+        stub_launches.clear()
+        out = run([torch.randn(s).to(dtype) for s in shapes[name]])
+        assert stub_launches == [entry + suffix], name
+        assert out.dtype == dtype
+    assert tkernels.LAUNCHES[name] == 2
+    assert sum(tkernels.FLOAT32_LAUNCHES_BY_SHAPE[name].values()) == 1
+
+
+def test_modular_float32_time_attention_reaches_tiny_l(stub_launches):
+    """With the fused divided kernels switched off the AE's time attention
+    is ``sdpa`` over [B·H·N, 16, 64]: at B = 1 and 8 heads of the shipped AE
+    (8192 sequences) ``sdpa_route`` sends it to tiny-L, and on the card a
+    float32 one launches tiny-L's float32 entry point (before, it raised
+    TypeError); the space attention [B·F·H, 1024, 64] launches the one-pass
+    kernel's."""
+    assert tattn.sdpa_route(8192, 16, 16, 64, masked=False) == "tiny"
+    q = torch.randn(1, 8, 1024, 16, 64)
+    out = tattn.sdpa(q, q, q, scale=0.125)
+    assert out.dtype == torch.float32 and out.shape == q.shape
+    assert stub_launches == ["tiny_attention_f32"]
+    assert dict(tkernels.FLOAT32_LAUNCHES_BY_SHAPE["tiny_attention"]) == {
+        (8192, 16, 64): 1}
+    stub_launches.clear()
+    q = torch.randn(1, 16, 8, 1024, 64)
+    tattn.sdpa(q, q, q, scale=0.125)
+    assert stub_launches == ["fused_attention_f32"]
+
+
+def test_float32_at_head_dim_64_is_built_for_resident_k():
+    """At head dim 64 the float32 route keeps K resident in shared memory:
+    the wrappers refuse more keys before they build or launch anything, and
+    the limit is the tile's (``kWgMaxKSlots`` tiles of 128 keys); bf16 past
+    it still goes to the K ring."""
+    tile = (_build.CSRC / "wgmma_tile.cuh").read_text()
+    slots = int(re.search(r"kWgMaxKSlots = (\d+);", tile).group(1))
+    assert tflash.F32_MAX_KEYS_D64 == 128 * slots
+    q = torch.zeros(2, 64, 64)
+    kv = torch.zeros(2, tflash.F32_MAX_KEYS_D64 + 128, 64)
+    with pytest.raises(NotImplementedError, match="resident"):
+        tflash.fused_attention_cuda(q, kv, kv, 0.125)
+    with pytest.raises(NotImplementedError, match="resident"):
+        tflash.onepass_attention_cuda(kv, kv, kv, 0.125)

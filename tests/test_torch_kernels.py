@@ -137,12 +137,16 @@ def _case_labels(source: str, function: str) -> tuple[int, ...]:
 
 def test_built_head_dims_match_the_sources():
     """The head dims a wrapper lets through are the instantiations its
-    source's ``switch`` holds, no more and no fewer. The one-pass wrapper
-    launches the fused kernel at Nq = Nk, so both share its list."""
-    assert _case_labels("flash_attention.cu", "fused_attention") \
-        == tflash.HEAD_DIMS == (16, 32, 64)
-    assert _case_labels("packed_attention.cu", "packed_attention") \
-        == tpack.PACKED_HEAD_DIMS == (16,)
+    sources' ``switch`` holds, bf16 and float32 alike, no more and no
+    fewer. The one-pass wrapper launches the fused kernel at Nq = Nk, so
+    both share its list."""
+    for suffix in ("", "_f32"):
+        assert _case_labels(f"flash_attention{suffix}.cu",
+                            f"fused_attention{suffix}") \
+            == tflash.HEAD_DIMS == (16, 32, 64)
+        assert _case_labels(f"packed_attention{suffix}.cu",
+                            f"packed_attention{suffix}") \
+            == tpack.PACKED_HEAD_DIMS == (16,)
 
 
 @pytest.mark.parametrize("source", sorted(

@@ -47,7 +47,6 @@ from moditalker_tpu_torch.evals import metrics as tmetrics
 from moditalker_tpu_torch.models.mtov import (MtovDDPM, TriplaneUNet,
                                               ViTAutoencoder)
 from moditalker_tpu_torch.ops import kernels as tkernels
-from moditalker_tpu_torch.ops.kernels import convert
 from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
 from moditalker_tpu_torch.ops.kernels import packed_attention as tpack
@@ -167,10 +166,11 @@ def stub_launches(monkeypatch):
     calls = []
     monkeypatch.setattr(tkernels, "on_card", lambda t: True)
     monkeypatch.setattr(tkernels, "cuda_stream", lambda t: 0)
-    for mod in (convert, tdiv, tpack, tflash):
+    for mod in (tdiv, tpack, tflash):
         monkeypatch.setattr(mod, "_lib", lambda: _StubLib(calls))
+        monkeypatch.setattr(mod, "_lib_f32", lambda: _StubLib(calls))
     monkeypatch.setattr(tflash, "_tiny_lib", lambda: _StubLib(calls))
-    monkeypatch.setattr(tdiv, "_lib_f32", lambda: _StubLib(calls))
+    monkeypatch.setattr(tflash, "_tiny_lib_f32", lambda: _StubLib(calls))
     tkernels.reset_launch_counts()
     yield calls
     tkernels.reset_launch_counts()
@@ -179,8 +179,8 @@ def stub_launches(monkeypatch):
 def test_float32_reaches_each_kernel_branch(stub_launches):
     """A float32 operand at a gated shape goes to the kernel (never to the
     plain version), is counted once, comes back float32, and keeps its
-    gradient function: the divided kernels through their float32 entry
-    points with no cast pass, packed and one-pass through the cast passes."""
+    gradient function: every kernel through its float32 entry point, with
+    no cast pass (tiny-L too: the modular path's time attention)."""
     calls = stub_launches
     f32 = lambda *s: torch.randn(*s, requires_grad=True)
     space_sc = [_t(a) for a in jrot.axial_rotary_sincos(16, 16, 64)]
@@ -194,11 +194,13 @@ def test_float32_reaches_each_kernel_branch(stub_launches):
          ["divided_time_attention_f32"]),
         ("packed_attention", lambda: tpack.packed_attention(
             f32(2, 1024, 384), 8, 0.25),
-         ["convert_f32_to_bf16", "packed_attention", "convert_bf16_to_f32"]),
+         ["packed_attention_f32"]),
         ("onepass_attention", lambda: tflash.onepass_attention(
             f32(4, 1024, 32), f32(4, 1024, 32), f32(4, 1024, 32), 0.2),
-         ["convert_f32_to_bf16"] * 3 + ["fused_attention",
-                                        "convert_bf16_to_f32"]),
+         ["fused_attention_f32"]),
+        ("tiny_attention", lambda: tflash.tiny_attention(
+            f32(4096, 16, 64), f32(4096, 16, 64), f32(4096, 16, 64), 0.125),
+         ["tiny_attention_f32"]),
     ]
     for name, run, want_calls in cases:
         calls.clear()
@@ -207,21 +209,22 @@ def test_float32_reaches_each_kernel_branch(stub_launches):
         assert calls == want_calls, name
         assert tkernels.LAUNCHES[name] == before + 1, name
         assert out.dtype == torch.float32 and out.grad_fn is not None, name
-    assert sum(tkernels.LAUNCHES.values()) == 4
+    assert sum(tkernels.LAUNCHES.values()) == 5
 
 
 def test_wrappers_raise_rather_than_fall_back(stub_launches):
-    """Tiny-L takes bf16 only; the fused kernel has no gradient and raises
-    where one is asked of it; neither gives way to the plain version."""
-    x = torch.randn(4096, 16, 64)
-    with pytest.raises(TypeError, match="bf16"):
+    """Tiny-L takes bf16 or float32 and refuses any other type; the fused
+    kernel has no gradient and raises where one is asked of it; neither
+    gives way to the plain version."""
+    x = torch.randn(4096, 16, 64).half()
+    with pytest.raises(TypeError, match="bf16 or float32"):
         tflash.tiny_attention(x, x, x, 0.125)
     y = torch.randn(2, 256, 64, requires_grad=True)
     with pytest.raises(RuntimeError, match="no gradient"):
         tflash.fused_attention(y, y, y)
     with torch.no_grad():
         tflash.fused_attention(y, y, y)
-    assert stub_launches[-2:] == ["fused_attention", "convert_bf16_to_f32"]
+    assert stub_launches == ["fused_attention_f32"]
     assert tkernels.LAUNCHES["fused_attention"] == 1
     assert tkernels.LAUNCHES["tiny_attention"] == 0
 

@@ -31,10 +31,10 @@ TILE = "moditalker_tpu_torch/csrc/wgmma_tile.cuh"
 BATCH = "      constexpr int kVBatch = 4;"
 PRODUCER = 'asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\\n");'
 CONSUMER = 'asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\\n");'
-LOAD = "              c[u].load(vsrc + (u0 + u) * 16 * a.in_row);"
+LOAD = "                c[u].load(vsrc + (u0 + u) * 16 * a.in_row);"
 VARIANTS = {
     "as-built": [],
-    "no-V": [(LOAD, "              c[u].lo = c[u].hi = make_float4("
+    "no-V": [(LOAD, "                c[u].lo = c[u].hi = make_float4("
                     "0.f, 0.f, 0.f, (float)u0);")],
     "p80-c144": [(BATCH, BATCH.replace("4", "8")),
                  (PRODUCER, PRODUCER.replace("56", "80")),

@@ -9,10 +9,11 @@ checks, on a CUDA host, against a copy unpacked from the parent commit
    both copies, compared after register numbers and labels are normalised;
    prints the count of differing lines per function (template arguments
    matched by the kernels' int and bool parameters).
-2. Outputs: the bf16 space (resident K, K ring, N = 256), time, one-pass and
-   fused (D = 64, a ragged Nq over a short key tile) and tiny-L kernels on
-   the same seeded inputs in both copies, each in a process of its own;
-   prints whether each output is equal bit for bit.
+2. Outputs: the bf16 space (resident K, K ring, N = 256), time, packed,
+   one-pass (D = 16, 32 and 64), fused (D = 16 and 32 across lengths, D = 64
+   with a ragged Nq over a short key tile) and tiny-L kernels on the same
+   seeded inputs in both copies, each in a process of its own; prints
+   whether each output is equal bit for bit.
 
     python3 tools/compare_builds.py build/parent      # from the repo root
 """
@@ -39,6 +40,7 @@ sys.path.insert(0, ".")
 from moditalker_tpu_torch.ops import rotary
 from moditalker_tpu_torch.ops.kernels import divided_attention as dv
 from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+from moditalker_tpu_torch.ops.kernels import packed_attention as pk
 g = torch.Generator(device="cuda").manual_seed(11)
 rnd = lambda *s: torch.randn(s, generator=g, device="cuda").bfloat16()
 out = {}
@@ -61,6 +63,15 @@ out["fused q [16, 1000, 64] k [16, 120, 64]"] = fa.fused_attention(
     rnd(16, 1000, 64), rnd(16, 120, 64), rnd(16, 120, 64), 0.125)
 out["tiny-L [16384, 16, 64]"] = fa.tiny_attention(
     rnd(16384, 16, 64), rnd(16384, 16, 64), rnd(16384, 16, 64), 0.125)
+for b, l in ((2, 2048), (2, 1024), (1, 1032)):
+    out[f"packed [{b}, {l}, 384]"] = pk.packed_attention(rnd(b, l, 384), 8,
+                                                         0.25)
+for b, n, d in ((16, 2048, 32), (16, 2048, 16), (8, 1024, 16)):
+    out[f"one-pass [{b}, {n}, {d}]"] = fa.onepass_attention(
+        rnd(b, n, d), rnd(b, n, d), rnd(b, n, d), d**-0.5)
+for b, nq, nk, d in ((3, 300, 8, 16), (3, 200, 640, 32)):
+    out[f"fused q [{b}, {nq}, {d}] k [{b}, {nk}, {d}]"] = fa.fused_attention(
+        rnd(b, nq, d), rnd(b, nk, d), rnd(b, nk, d))
 torch.save({k: t.cpu() for k, t in out.items()}, sys.argv[1])
 """
 
