@@ -15,8 +15,10 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              plain output's max within ``QUANTILE_LIMITS``; the 256-channel
              UNet's one-pass shapes) and in float32 at the shapes the
              float32 paths give them (train-diffusion's at B = 10, on both
-             attention paths; train-first-stage's and the golden record's
-             at B = 1; the fused kernel at one cross-length shape). Every
+             attention paths, and the 256-channel UNet's joint attention,
+             2048 keys at head dim 64, through the wgmma tile's K ring;
+             train-first-stage's and the golden record's at B = 1; the
+             fused kernel at one cross-length shape). Every
              kernel reads and writes float32 itself, with no cast pass, and
              each float32 row is also held to its float32 route's function
              (``divided_attention_float32_route``,
@@ -230,22 +232,6 @@ BEFORE_REDESIGN_MS = {
     ("onepass_attention", (16, 1024, 16)): 0.0224,
 }
 
-# the float32 rows through the retired cast route: a bf16 kernel between two
-# cast passes (chip_smoke.py on an H100 80GB HBM3 at 700.00 W, PERF.md §6),
-# for the log line only
-BEFORE_F32_ROUTE_MS = {
-    ("divided_space_attention", (10, 16, 1024, 1536)): 1.6749,
-    ("divided_time_attention", (10, 16, 1024, 1536)): 0.9773,
-    ("divided_space_attention", (1, 16, 1024, 1536)): 0.1737,
-    ("divided_time_attention", (1, 16, 1024, 1536)): 0.1067,
-    ("packed_attention", (10, 2048, 384)): 0.1629,
-    ("packed_attention", (10, 1024, 384)): 0.0554,
-    ("packed_attention", (1, 2048, 384)): 0.0249,
-    ("packed_attention", (1, 1024, 384)): 0.0124,
-    ("onepass_attention", (80, 2048, 32)): 0.2379,
-    ("onepass_attention", (8, 2048, 32)): 0.0317,
-}
-
 # train-diffusion's batch (MtovTrainConfig.diffusion_batch_size): the float32
 # rows of the kernels phase are at the shapes it gives the kernels
 TRAIN_BATCH = 10
@@ -423,8 +409,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                                                   QUANTILE_LIMITS,
                                                   bf16_rounded_share,
                                                   check_bf16,
-                                                  check_float32_route,
-                                                  float32_route_limits)
+                                                  FLOAT32_ROUTE_LIMITS,
+                                                  check_float32_route)
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
     from moditalker_tpu_torch.ops.kernels import packed_attention as pk
@@ -663,6 +649,12 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
              packed_row(tb, l, g=gen_f32, dtype=f32),
              packed_row(tb, 1024, g=gen_f32, dtype=f32),
              onepass_row(tb * heads, l, 32, g=gen_f32, dtype=f32)]
+    # the 256-channel UNet's joint attention after the last upsample
+    # (configs/latent-diffusion/base_longvid.yaml), which train-diffusion
+    # runs in float32: 2048 keys at D = 64, the wgmma tile's float32 K ring
+    rows.append(dict(onepass_row(tb * heads, l, dh, g=gen_f32, dtype=f32),
+                     design="the wgmma tile's K ring, K and V rounded to "
+                            "bf16 in the producer's registers"))
     # float32 on the modular path (both gate switches set): train-diffusion's
     # frozen extracts send the time attention to tiny-L and the space
     # attention to one-pass at D = 64, its UNet the dh = 16 attentions to
@@ -728,8 +720,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         floor_ms = row.pop("scores") / ex2_per_ms
         first = row["shape"][0] if isinstance(row["shape"][0], list) \
             else row["shape"]
-        before = (BEFORE_F32_ROUTE_MS if row["dtype"] == "float32"
-                  else BEFORE_REDESIGN_MS).get((row["name"], tuple(first)))
+        before = (None if row["dtype"] == "float32"
+                  else BEFORE_REDESIGN_MS.get((row["name"], tuple(first))))
         log(f"{row['name']} at {row['shape']} {row['dtype']}: max abs err "
             f"{row['max_abs_err']:.3e}, relative max {row['rel_max_err']:.3e}"
             f", rms {row['rel_rms_err']:.3e} and {QUANTILE} quantile "
@@ -741,15 +733,13 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             + (f", {row['design']}" if "design" in row else "")
             + (f"; against its float32 route's function max / rms / "
                f"quantile {'/'.join(f'{e:.3e}' for e in row['route_rel_err'])}"
-               f" (limits {float32_route_limits(row['name'])}), "
+               f" (limits {FLOAT32_ROUTE_LIMITS[row['name']]}), "
                f"bf16-rounded share {row['bf16_rounded_share']:.2e}"
                if "route_rel_err" in row else "")
             + (f"; the plain version's backward of one call "
                f"{row['plain_backward_ms']:.4f} ms"
                if "plain_backward_ms" in row else "")
-            + ((f", through the cast passes {before:.4f} ms"
-                if row["dtype"] == "float32" else
-                f", before the redesign {before:.4f} ms") if before else ""))
+            + (f", before the redesign {before:.4f} ms" if before else ""))
     return rows
 
 

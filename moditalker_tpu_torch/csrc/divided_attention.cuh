@@ -32,8 +32,7 @@
 //    block barrier follows the table staging.
 //
 //  * float32 qkv (the trainers' and the golden record's extracts): each
-//    kernel reads float32 and writes float32 itself, with no cast pass in
-//    front or behind. q is rotated and scaled in fp32 and rounded to bf16
+//    kernel reads float32 and writes float32 itself. q is rotated and scaled in fp32 and rounded to bf16
 //    once, k rotated and rounded once, v rounded once; the products take
 //    bf16 operands with fp32 accumulators (what a float32 dot costs at
 //    JAX's default precision on a TPU), p is rounded to bf16 for P·V, and

@@ -2,24 +2,25 @@
 // route of flash_attention.cu: the UNet's joint attention [B·8, 2048, 32]
 // in the trainers and the golden record, and with the fused divided and
 // packed kernels switched off the AE's space attention [B·8·16, 1024, 64]
-// and the UNet's dh = 16 attentions). A library of its own, so that the
-// bf16 kernels' translation unit holds no float32 instantiation.
+// and the UNet's dh = 16 attentions; at 256 model channels the UNet's joint
+// attention [B·8, 2048, 64]). A library of its own, so that the bf16
+// kernels' translation unit holds no float32 instantiation.
 //
 // The same two tiles with float32 in and out: at D = 16 and 32 the
 // small-head tile (K and V rounded to bf16 in the registers of the warp on
 // duty on their way into the ring), at D = 64 the wgmma tile without the
-// rotary (K rounded in the prologue's registers, V in the producer's). Both
-// round q·scale, k and v to bf16 once, accumulate in fp32, round p to bf16
-// for P·V and store the output, divided by the fp32 row sum, as float32.
-// The wgmma tile's float32 route keeps K resident in shared memory only: at
-// D = 64 more than 1152 keys are refused.
+// rotary (K rounded in the prologue's registers where it stays resident, up
+// to 1152 keys, or in the producer's on its way into the K ring above that;
+// V in the producer's). Both round q·scale, k and v to bf16 once, accumulate
+// in fp32, round p to bf16 for P·V and store the output, divided by the fp32
+// row sum, as float32.
 #include "smallhead_tile.cuh"
 #include "wgmma_tile.cuh"
 
 extern "C" {
 
 // q, out: contiguous [B, Nq, D]; k, v: contiguous [B, Nk, D]; float32. At
-// D = 64, Nk <= 1152.
+// D = 64, Nk above 1152 must be a multiple of 128, as for bf16.
 int fused_attention_f32(const void* q, const void* k, const void* v,
                         void* out, int B, int Nq, int Nk, int D, float scale,
                         void* stream) {

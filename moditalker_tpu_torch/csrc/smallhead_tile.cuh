@@ -76,10 +76,9 @@
 // `full` after its stores (the same 32 arrivals the cp.async route makes).
 // Its first loads are issued before it waits for the slot. Q is read as
 // float32 pairs into the A fragments (scaled in fp32, rounded once), and the
-// output is stored as float32 pairs, never rounded to bf16. (Also built and
-// not kept: cp.async of the float32 tile into staging slots three tiles
-// ahead, rounded into the ring one tile ahead by the same warp; 3-8 % slower
-// at DH = 16, equal at DH = 32: PERF.md.)
+// output is stored as float32 pairs, never rounded to bf16. (Through the
+// registers rather than float32 staging slots, which the consumers would
+// round: that was slower at DH = 16, PERF.md.)
 #pragma once
 
 #include <type_traits>

@@ -1,91 +1,8 @@
-// The tiny-L kernel for float32 q, k, v (the float32 route of
-// tiny_attention.cu: the TimeSformer time attention [B·8·1024, 16, 64] when
-// the fused divided kernels are switched off and the model runs in float32,
-// as the trainers and the golden record do). A library of its own, so that
-// the bf16 kernel's translation unit holds no float32 instantiation.
-//
-// One warp per sequence, as the bf16 kernel: its lanes read q, k and v as
-// float32 (two 16-byte loads per eight elements, the 24 loads of a lane
-// in flight together), q times the scale in fp32, and round each to
-// bf16 once on its way into the warp's buffer. tiny_attend<16, 64, float>
-// then runs both products with fp32 accumulators around the full-row softmax
-// (L = 16 is one key tile), p rounded to bf16 for P·V, and writes the output
-// divided by the fp32 row sum as float32 over the warp's q and k buffers,
-// never rounded to bf16; it leaves as 16-byte stores. Bound by bytes: 16 KB
-// a sequence read and written once (1.34 GB at [81920, 16, 64]).
-#include "tiny_tile.cuh"
-
-namespace mdt {
-
-template <int L, int D>
-struct TinyF32Shape {
-  static constexpr int warps = 4;
-  static constexpr int smem_bytes =
-      warps * TinyTile<L, D>::warp_elems * (int)sizeof(bf16);
-};
-
-// grid ceil(B / 4), block 128.
-template <int L, int D>
-__global__ void __launch_bounds__(128)
-tiny_attention_f32_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          float* __restrict__ out, long B, float scale) {
-  using S = TinyF32Shape<L, D>;
-  using T = TinyTile<L, D>;
-  constexpr int RS = T::RS, CH = T::CH;  // 8-wide chunks per row
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long seq = (long)blockIdx.x * S::warps + warp;
-  if (seq >= B) return;  // whole warp leaves; no block barrier below
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw) + warp * T::warp_elems;
-  bf16* k_s = q_s + L * RS;
-  bf16* v_s = k_s + L * RS;
-  const long base = seq * L * D;
-
-#pragma unroll
-  for (int i = lane; i < L * CH; i += 32) {
-    const int r = i / CH, c = (i % CH) * 8;
-    float x[8];
-    load8<false>(q + base + i * 8, true, nullptr, nullptr, scale, x);
-    store8(q_s + r * RS + c, x);
-    load8<false>(k + base + i * 8, true, nullptr, nullptr, 1.f, x);
-    store8(k_s + r * RS + c, x);
-    load8<false>(v + base + i * 8, true, nullptr, nullptr, 1.f, x);
-    store8(v_s + r * RS + c, x);
-  }
-  __syncwarp();
-  tiny_attend<L, D, float>(q_s, k_s, v_s, lane);
-  __syncwarp();
-  // fp32 [L, D] at stride OS over q_s and k_s; the sequence's output is
-  // contiguous, so chunk i of it is row i / (D / 4)
-  const float* o_s = reinterpret_cast<const float*>(q_s);
-  for (int i = lane; i < L * D / 4; i += 32) {
-    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
-    *reinterpret_cast<float4*>(out + base + i * 4) =
-        *reinterpret_cast<const float4*>(o_s + r * T::OS + c);
-  }
-}
-
-template <int L, int D>
-cudaError_t launch_tiny_f32(const void* q, const void* k, const void* v,
-                            void* out, long B, float scale,
-                            cudaStream_t stream) {
-  using S = TinyF32Shape<L, D>;
-  auto kern = tiny_attention_f32_kernel<L, D>;
-  if (S::smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::smem_bytes);
-    if (err != cudaSuccess) return err;
-  }
-  unsigned blocks = (unsigned)((B + S::warps - 1) / S::warps);
-  kern<<<blocks, 32 * S::warps, S::smem_bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), B, scale);
-  return cudaGetLastError();
-}
-
-}  // namespace mdt
+// The C entry point of the tiny-L kernel for float32 q, k, v (the kernel and
+// its float32 route: tiny_attention.cuh). A library of its own, so that the
+// bf16 kernel's translation unit (tiny_attention.cu) holds no float32
+// instantiation.
+#include "tiny_attention.cuh"
 
 extern "C" {
 
@@ -95,7 +12,7 @@ int tiny_attention_f32(const void* q, const void* k, const void* v, void* out,
                        long B, int L, int D, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (L == 16 && D == 64)
-    return mdt::launch_tiny_f32<16, 64>(q, k, v, out, B, scale, st);
+    return mdt::launch_tiny<16, 64, float>(q, k, v, out, B, scale, st);
   return cudaErrorInvalidValue;
 }
 

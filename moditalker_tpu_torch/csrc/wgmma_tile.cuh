@@ -61,17 +61,19 @@
 // sum, P rounded to bf16 for P·V, the output divided by the fp32 row sum.
 //
 // The float32 route (TI = TO = float: the divided space kernel's with the
-// rotary, the one-pass and fused kernels' at head dim 64 without it; resident
-// K only, Lk <= 1152) keeps those points and the bf16 tiles: q and k are
-// read as two 16-byte float32 chunks per bf16 chunk and rounded once (after
-// the rotary, where there is one; without it K passes through the same
-// registers that would rotate it, since cp.async cannot round); V, which
-// cp.async can only copy, passes through the producer's registers and is
-// rounded on its way into its slot (no float32 slot of 32 KB fits beside
-// resident K: at N = 1024, 209 KB of the 227 KB are taken); the output is
-// stored as float32 straight from the accumulators. The producer gets 56
-// registers for it and the consumers 152 (56 + 3 x 152 = 4 x 128: the
-// block's registers, as 32 + 3 x 160 for bf16).
+// rotary, resident K only, Lk <= 1152; the one-pass and fused kernels' at
+// head dim 64 without it, resident K or the K ring) keeps those points and
+// the bf16 tiles: q and k are read as two 16-byte float32 chunks per bf16
+// chunk and rounded once (after the rotary, where there is one; without it
+// K passes through the same registers that would rotate it, since cp.async
+// copies bytes and cannot round: in the resident-K prologue, or in the
+// producer's registers on its way into a ring slot); V passes through the
+// producer's registers too and is rounded on its way into its slot (no
+// float32 slot of 32 KB fits beside resident K: at N = 1024, 209 KB of the
+// 227 KB are taken); the output is stored as float32 straight from the
+// accumulators. With resident K the producer gets 56 registers for it and
+// the consumers 152 (56 + 3 x 152 = 4 x 128: the block's registers, as
+// 32 + 3 x 160 for bf16); with the ring the bf16 ring's 104 and 200.
 //
 // With the rotary, Lq = Lk and both are multiples of 128 (the space gate
 // admits only such), so no tile is ragged. Without it, two edges are
@@ -353,15 +355,16 @@ __device__ __forceinline__ void stage_rows(const TI* src, long in_row,
 // chunk past the sequence end is idle but keeps the ring's handshakes.
 // NC = 3 is for resident K only: its producer gives up all but 32 registers
 // and cannot rotate (56 for a float32 V, which it rounds to bf16 on its way
-// into the ring; the float32 route is built for resident K only, with or
-// without the rotary).
+// into the ring). The float32 route takes the K ring (NC = 2) only without
+// the rotary.
 template <bool ROT, int NC, typename TI, typename TO>
 __global__ void __launch_bounds__((NC + 1) * 128, 1)
 wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
   static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
   constexpr bool kF32 = std::is_same<TI, float>::value;
   static_assert(std::is_same<TI, TO>::value, "output in the inputs' type");
-  static_assert(!kF32 || NC == 3, "float32 route: resident K");
+  static_assert(!kF32 || NC == 3 || !ROT,
+                "float32 route with the rotary: resident K");
   extern __shared__ unsigned char wg_smem[];
   const uint32_t raw_base = smem_u32(wg_smem);
   const uint32_t base = (raw_base + 1023u) & ~1023u;
@@ -443,12 +446,16 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
 
   if (wg == NC) {
     if constexpr (kF32) {
-      // ---------------------------------------- producer, float32 V
-      // Each V tile passes through this warpgroup's registers and is rounded
-      // to bf16 on its way into its slot: cp.async copies bytes and cannot
-      // convert, and no float32 staging slot fits beside resident K. The
-      // first half of a tile's loads is issued before the wait for its slot.
-      asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
+      // ---------------------------------------- producer, float32 K, V
+      // Each V tile, and with a K ring each K tile ahead of it, passes
+      // through this warpgroup's registers and is rounded to bf16 on its way
+      // into its slot: cp.async copies bytes and cannot convert, and no
+      // float32 staging slot fits beside resident K. The first half of a V
+      // tile's loads is issued before the wait for its slot.
+      if constexpr (NC == 2)
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 104;\n");
+      else
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
       constexpr int kVBatch = 4;  // of the thread's eight chunks a tile
       const int pt = tid - NC * 128;
       const TI* vb = a.v + kv_in + (pt >> 3) * a.in_row + (pt & 7) * 8;
@@ -456,6 +463,20 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
       int it = 0;
       for (int round = 0; round < a.rounds; ++round) {
         for (int j = 0; j < nkt; ++j, ++it) {
+          if constexpr (NC == 2) {
+            if (streamed) {  // the ring takes whole tiles only
+              const int ks = it % KS;
+              mbar_wait(empty_k(ks), ((it / KS) & 1) ^ 1);
+              unsigned char* kdst = sm + ks * kWgTileBytes;
+              round_rows<kWgTile, 128, 4>(
+                  a.k + kv_in + (long)j * kWgTile * a.in_row, a.in_row,
+                  kWgTile, pt, [&](int r, int c, uint4 v) {
+                    *reinterpret_cast<uint4*>(kdst + swizzled(r, c)) = v;
+                  });
+              fence_proxy_async();
+              mbar_arrive(full_k(ks));
+            }
+          }
           const int vs = it % kWgVStages;
           const TI* vsrc = vb + (long)j * kWgTile * a.in_row;
           unsigned char* vdst = vsm + vs * kWgTileBytes;
@@ -771,7 +792,8 @@ cudaError_t launch_wgmma_plan(const WgmmaArgsT<TI, TO>& args, int B, int H,
 // steps are split over more blocks: the most steps per block whose grid
 // still fills the card, as launch_smallhead counts rows. With the rotary,
 // Lq = Lk, a multiple of 128; the ring takes whole K tiles only. The float32
-// route (TI = float) has no ring: above resident K it is refused.
+// route (TI = float) has the ring only without the rotary: with it, above
+// resident K it is refused.
 template <bool ROT, typename TI = bf16, typename TO = bf16>
 cudaError_t launch_wgmma(WgmmaArgsT<TI, TO> args, int B, int H,
                          cudaStream_t stream) {
@@ -780,7 +802,6 @@ cudaError_t launch_wgmma(WgmmaArgsT<TI, TO> args, int B, int H,
   if (args.Lq < 1 || args.Lk < 1) return cudaErrorInvalidValue;
   if (ROT && (args.Lq != args.Lk || args.Lk % kWgTile != 0))
     return cudaErrorInvalidValue;
-  if (kF32 && nkt > kWgMaxKSlots) return cudaErrorInvalidValue;
   if (nkt <= kWgMaxKSlots) {
     int dev = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -796,13 +817,14 @@ cudaError_t launch_wgmma(WgmmaArgsT<TI, TO> args, int B, int H,
       args.rounds = (args.rounds + 1) / 2;
     return launch_wgmma_plan<ROT, 3>(args, B, H, stream);
   }
-  if constexpr (!kF32) {
+  if constexpr (kF32 && ROT) {
+    return cudaErrorInvalidValue;
+  } else {
     if (args.Lk % kWgTile != 0) return cudaErrorInvalidValue;
     args.k_slots = kWgRingKSlots;
     args.rounds = 1;
     return launch_wgmma_plan<ROT, 2>(args, B, H, stream);
   }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace mdt

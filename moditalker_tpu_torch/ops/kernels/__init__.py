@@ -134,37 +134,31 @@ def check_bf16(name: str, out, plain) -> tuple[float, float, float]:
 # kernels' online softmax does) and differ by the order of fp32 sums and the
 # kernels' ex2, which now and then moves a p or a q across a bf16 rounding
 # boundary: rare elements, so the max measure reads far above the other two.
-# A result rounded to bf16 on its way out (what a bf16 kernel between two
-# cast passes returned) reads 1.1e-3 to 2.3e-3 on the rms and quantile
-# measures on the CPU tests' inputs and fails them many times over. Each
+# A result rounded to bf16 on its way out reads 1.1e-3 to 2.3e-3 on the rms
+# and quantile measures on the CPU tests' inputs and fails them many times
+# over. Each
 # limit is about twice the largest reading of chip_smoke.py --kernels-only
 # --seed 0..3 over the kernel's float32 rows (H100): space 8.473e-4 /
 # 4.860e-5 / 5.427e-5, time 1.531e-3 / 3.620e-5 / 1.287e-5, packed 3.763e-4 /
 # 3.096e-5 / 4.062e-5, one-pass and fused 9.782e-4 / 3.372e-5 / 7.665e-5,
 # tiny-L 1.157e-3 / 1.918e-5 / 1.186e-7 (at L = 16 the kernel's softmax is
 # the route's full-row one: all but a few elements agree to fp32 rounding).
-# The fused kernel is the one-pass kernel at Nq != Nk and is held to its row.
 FLOAT32_ROUTE_LIMITS: dict[str, tuple[float, float, float]] = {
     "divided_space_attention": (1.7e-3, 1e-4, 1.1e-4),
     "divided_time_attention": (3.1e-3, 7.5e-5, 2.6e-5),
     "packed_attention": (7.5e-4, 6.2e-5, 8.1e-5),
     "onepass_attention": (2e-3, 6.8e-5, 1.55e-4),
+    # the one-pass row: the fused kernel is the one-pass kernel at Nq != Nk
+    "fused_attention": (2e-3, 6.8e-5, 1.55e-4),
     "tiny_attention": (2.3e-3, 3.9e-5, 2.4e-7),
 }
 
 
-def float32_route_limits(name: str) -> tuple[float, float, float]:
-    """Kernel ``name``'s ``FLOAT32_ROUTE_LIMITS`` row (the one-pass row for
-    the fused kernel)."""
-    return FLOAT32_ROUTE_LIMITS[
-        "onepass_attention" if name == "fused_attention" else name]
-
-
 def check_float32_route(name: str, out, oracle) -> tuple[float, float, float]:
     """``relative_errors(out, oracle)`` for a kernel's float32 result;
-    raises AssertionError where one is past ``float32_route_limits(name)``."""
+    raises AssertionError where one is past ``FLOAT32_ROUTE_LIMITS[name]``."""
     errs = relative_errors(out, oracle)
-    limits = float32_route_limits(name)
+    limits = FLOAT32_ROUTE_LIMITS[name]
     if not all(e <= lim for e, lim in zip(errs, limits)):
         raise AssertionError(
             f"{name} float32 route: (max, rms, {QUANTILE} quantile) "

@@ -36,12 +36,10 @@ read and write themselves, with no cast pass around them: q multiplied by
 the scale in fp32 and rounded to bf16 once, k and v rounded once, fp32
 scores, max and sums, p rounded to bf16 for P·V, the result divided by the
 fp32 row sum and stored as float32 (``attention_float32_route`` writes that
-function out). At head dim 64 the float32 route keeps K resident in shared
-memory: more than 1152 keys are refused. The one-pass and tiny-L wrappers
-are differentiable, with the JAX package's ``_flash_sdpa`` adjoints on
-recomputed float32 probabilities (``autograd.FlashSdpa``); the fused kernel
-has no gradient, as in the JAX package, and on the card raises where one is
-asked of it.
+function out). The one-pass and tiny-L wrappers are differentiable, with
+the JAX package's ``_flash_sdpa`` adjoints on recomputed float32
+probabilities (``autograd.FlashSdpa``); the fused kernel has no gradient,
+as in the JAX package, and on the card raises where one is asked of it.
 """
 
 from __future__ import annotations
@@ -61,9 +59,9 @@ from .autograd import FlashSdpa
 # others raise on the card. HEAD_DIMS serves the one-pass and fused kernels.
 HEAD_DIMS = (16, 32, 64)
 TINY_SHAPES = ((16, 64),)   # (L, head dim)
-# the float32 route at head dim 64 keeps K resident in shared memory: 9
-# tiles of 128 keys (the configurations' AE reaches 1024)
-F32_MAX_KEYS_D64 = 1152
+# at head dim 64, K stays resident in shared memory up to 9 tiles of 128
+# keys; above that it streams through a ring that takes whole tiles only
+RESIDENT_KEYS_D64 = 1152
 _KEY_TILE = 128             # keys per tile of the kernels' online softmax
 
 
@@ -156,22 +154,17 @@ def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     kernel is the fused one at Nq = Nk): q [B, Nq, D] over k, v [B, nk, D]
     bf16 → [B, Nq, D] bf16, or float32 → float32 (the float32 entry point).
     Head dims as built; at 64, above 1152 keys (where K streams through a
-    ring instead of staying in shared memory) only whole 128-key tiles, and
-    only in bf16. Returns the output and whether it is float32."""
+    ring instead of staying in shared memory) only whole 128-key tiles.
+    Returns the output and whether it is float32."""
     b, nq, d = q.shape
     q, k, v, f32 = _operands(what, q, k, v, (b, nk, d))
     if d not in HEAD_DIMS:
         raise NotImplementedError(f"{what} kernel built for head dims "
                                   f"{HEAD_DIMS}, not {d}")
-    if d == 64 and nk > F32_MAX_KEYS_D64:
-        if f32:
-            raise NotImplementedError(
-                f"float32 {what} kernel at head dim 64 built for K resident "
-                f"in shared memory (Nk <= {F32_MAX_KEYS_D64}), not Nk = {nk}")
-        if nk % 128:
-            raise ValueError(f"at head dim 64 the {what} kernel takes more "
-                             f"than 1152 keys only in multiples of 128, not "
-                             f"{nk}")
+    if d == 64 and nk > RESIDENT_KEYS_D64 and nk % _KEY_TILE:
+        raise ValueError(f"at head dim 64 the {what} kernel takes more than "
+                         f"{RESIDENT_KEYS_D64} keys only in multiples of "
+                         f"{_KEY_TILE}, not {nk}")
     out = torch.empty_like(q)
     lib = _lib_f32() if f32 else _lib()
     entry = "fused_attention_f32" if f32 else "fused_attention"

@@ -217,9 +217,8 @@ def _randn32(gen, *shape):
 def _check_float32(name, got, plain, route):
     """A kernel's float32 result: float32, under 1 % of it equal to its bf16
     rounding, within the limits of the float32 plain version and of its
-    float32 route's function; the route's result rounded to bf16 (what a
-    bf16 kernel between two cast passes returned) fails the route's
-    limits."""
+    float32 route's function; the route's result rounded to bf16 fails the
+    route's limits."""
     assert got.dtype == torch.float32
     assert bf16_rounded_share(got) < 0.01
     check_bf16(name, got, plain)
@@ -288,11 +287,13 @@ def test_packed_kernel_takes_float32(gen, b, l):
 @pytest.mark.parametrize("b,n,d", [(80, 2048, 32), (4, 1024, 16),
                                    (80, 2048, 16), (8, 1024, 32),
                                    (128, 1024, 64), (2, 1152, 64),
-                                   (3, 1000, 64), (2, 1032, 16)])
+                                   (3, 1000, 64), (2, 1032, 16),
+                                   (80, 2048, 64), (2, 1280, 64)])
 def test_onepass_kernel_takes_float32(gen, b, n, d):
     """The float32 entry point at the head dims 16 and 32 (small-head tile)
-    and 64 (wgmma tile, resident K up to 1152 keys), at whole and ragged
-    lengths; above 1152 keys at head dim 64 float32 is refused."""
+    and 64 (wgmma tile: resident K up to 1152 keys, the K ring above, as the
+    256-channel UNet's joint attention [B·8, 2048, 64] takes it), at whole
+    and ragged lengths."""
     q, k, v = (_randn32(gen, b, n, d) for _ in range(3))
     got = _launched("onepass_attention",
                     lambda: tflash.onepass_attention(q, k, v, d**-0.5))
@@ -300,19 +301,16 @@ def test_onepass_kernel_takes_float32(gen, b, n, d):
     _check_float32("onepass_attention", got,
                    tflash.onepass_attention_reference(q, k, v, d**-0.5),
                    tflash.attention_float32_route(q, k, v, d**-0.5))
-    if d == 64:
-        kv = _randn32(gen, 2, 1280, 64)
-        with pytest.raises(NotImplementedError, match="resident"):
-            tflash.onepass_attention(kv, kv, kv, 0.125)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,nq,nk,d", [
     (2, 64, 512, 64), (3, 1000, 120, 64), (2, 200, 8, 64), (2, 1100, 1152, 64),
-    (3, 300, 8, 16), (2, 3000, 512, 16), (3, 200, 640, 32)])
+    (2, 300, 1280, 64), (3, 300, 8, 16), (2, 3000, 512, 16),
+    (3, 200, 640, 32)])
 def test_fused_kernel_takes_float32(gen, b, nq, nk, d):
-    """Nq != Nk on both tiles, ragged query chunks and key tiles short of
-    128, in float32."""
+    """Nq != Nk on both tiles, ragged query chunks, key tiles short of 128
+    and, at head dim 64, the K ring past 1152 keys, in float32."""
     q, k, v = _randn32(gen, b, nq, d), _randn32(gen, b, nk, d), \
         _randn32(gen, b, nk, d)
     got = _launched("fused_attention", lambda: tflash.fused_attention(q, k, v))

@@ -12,10 +12,10 @@ interpret mode on the same float32 inputs (the Pallas kernels keep float32
 operands, so the gap is the route's bf16 rounding: within ``BF16_LIMITS``
 and ``QUANTILE_LIMITS``) and to the bf16 route at bf16-exact inputs;
 ``FLOAT32_ROUTE_LIMITS`` are shown to pass a change of summation order and
-to fail a result rounded to bf16 (what a bf16 kernel between two cast
-passes returned) and a fully bf16 result widened to float32; and the
+to fail a result rounded to bf16 and a fully bf16 result widened to
+float32; and the
 wrappers are driven with stub libraries to show that float32 operands reach
-the float32 entry points (there is no cast pass left to reach), that the
+the float32 entry points, that the
 modular path's float32 time attention reaches tiny-L, and what is refused.
 The kernels themselves are held to these functions on the card
 (tests/test_torch_cuda.py, ``chip_smoke.py``).
@@ -108,8 +108,7 @@ def test_float32_route_limits_pass_sum_order_and_fail_a_bf16_result(axis):
     """The sequence axis permuted inside each 128-key tile (queries, keys
     and the tables' rows alike) gives the same function, each tile's keys
     the same, with every fp32 sum over the keys in another order: within
-    ``FLOAT32_ROUTE_LIMITS``. The result rounded to bf16 (what a bf16 kernel
-    between two cast passes returns) fails them."""
+    ``FLOAT32_ROUTE_LIMITS``. The result rounded to bf16 fails them."""
     qkv, sin, cos, heads, dh = _inputs(axis)
     name = f"divided_{axis}_attention"
     want = _route(qkv, sin, cos, axis, heads, dh)
@@ -194,8 +193,7 @@ def test_float32_space_kernel_is_built_for_resident_k():
 def test_float32_entry_points_are_in_their_own_source():
     """The C symbols the wrappers bind are defined in each kernel's bf16
     source and in a float32 source of its own (``FLOAT32_SOURCES``, built
-    with the kernels); no source is left that casts (the cast passes are
-    gone) and every source under csrc/ is a kernel's."""
+    with the kernels), and every source under csrc/ is a kernel's."""
     symbols = {"divided_attention": {"divided_space_attention",
                                      "divided_time_attention"},
                "packed_attention": {"packed_attention"},
@@ -340,9 +338,9 @@ def test_float32_route_limits_cover_every_kernel():
     """Every kernel has a row (fused: the one-pass row), each measure's
     limit ordered as the measures read: max above rms and quantile."""
     for name in tkernels.LAUNCHES:
-        lim = tkernels.float32_route_limits(name)
+        lim = tkernels.FLOAT32_ROUTE_LIMITS[name]
         assert lim[0] > lim[1] > 0 and lim[0] > lim[2] > 0, name
-    assert (tkernels.float32_route_limits("fused_attention")
+    assert (tkernels.FLOAT32_ROUTE_LIMITS["fused_attention"]
             == tkernels.FLOAT32_ROUTE_LIMITS["onepass_attention"])
 
 
@@ -394,17 +392,25 @@ def test_modular_float32_time_attention_reaches_tiny_l(stub_launches):
     assert stub_launches == ["fused_attention_f32"]
 
 
-def test_float32_at_head_dim_64_is_built_for_resident_k():
-    """At head dim 64 the float32 route keeps K resident in shared memory:
-    the wrappers refuse more keys before they build or launch anything, and
-    the limit is the tile's (``kWgMaxKSlots`` tiles of 128 keys); bf16 past
-    it still goes to the K ring."""
+def test_float32_at_head_dim_64_is_built_for_resident_k(stub_launches):
+    """At head dim 64 the float32 route keeps K resident in shared memory up
+    to the tile's ``kWgMaxKSlots`` tiles of 128 keys, and above that takes
+    the K ring as bf16 does: the UNet's joint attention at 256 model
+    channels, [B·8, 2048, 64], launches the float32 entry point (one-pass,
+    and fused at a cross length); past resident K only whole 128-key tiles,
+    in either type, refused before anything is built or launched."""
     tile = (_build.CSRC / "wgmma_tile.cuh").read_text()
     slots = int(re.search(r"kWgMaxKSlots = (\d+);", tile).group(1))
-    assert tflash.F32_MAX_KEYS_D64 == 128 * slots
-    q = torch.zeros(2, 64, 64)
-    kv = torch.zeros(2, tflash.F32_MAX_KEYS_D64 + 128, 64)
-    with pytest.raises(NotImplementedError, match="resident"):
-        tflash.fused_attention_cuda(q, kv, kv, 0.125)
-    with pytest.raises(NotImplementedError, match="resident"):
-        tflash.onepass_attention_cuda(kv, kv, kv, 0.125)
+    assert tflash.RESIDENT_KEYS_D64 == 128 * slots
+    x = torch.randn(2, 2048, 64)
+    out = tflash.onepass_attention(x, x, x, 0.125)
+    assert out.dtype == torch.float32 and out.shape == x.shape
+    out = tflash.fused_attention(x[:, :300], x, x)
+    assert out.dtype == torch.float32 and out.shape == (2, 300, 64)
+    assert stub_launches == ["fused_attention_f32"] * 2
+    kv = torch.zeros(2, tflash.RESIDENT_KEYS_D64 + 8, 64)
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="only in multiples of 128"):
+            tflash.fused_attention_cuda(x[:, :64].to(dtype), kv.to(dtype),
+                                        kv.to(dtype), 0.125)
+    assert stub_launches == ["fused_attention_f32"] * 2
