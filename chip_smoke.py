@@ -18,7 +18,8 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              attention paths, and the 256-channel UNet's joint attention,
              2048 keys at head dim 64, through the wgmma tile's K ring;
              train-first-stage's and the golden record's at B = 1; the
-             fused kernel at one cross-length shape). Every
+             fused kernel at one cross-length shape; the 256-channel
+             train-diffusion's xy-plane attention, [80, 1024, 32]). Every
              kernel reads and writes float32 itself, with no cast pass, and
              each float32 row is also held to its float32 route's function
              (``divided_attention_float32_route``,
@@ -55,7 +56,14 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              the fused path, once on the modular-attention path (both gate
              switches set: MODITALKER_NO_DIVIDED_FUSED and
              MODITALKER_NO_PACKED_ATTN), there at B = 2 and 4 heads so that
-             the time attention passes the tiny-L gate;
+             the time attention passes the tiny-L gate. Both again with
+             the 256-channel UNet (base_longvid.yaml's width, one res block,
+             channel_mult (1, 2): head dim 32 at ds = 1, 64 after the
+             upsample), whose attentions never reach the packed kernel;
+             then base_longvid.yaml's UNet at full width alone: a DDIM-2
+             run on seeded latents at B = 1, card bf16 against the CPU in
+             float32 within REF_FACTOR of the CPU's own bf16 error
+             (``longvid_unet_check``);
 4. main path — at the full shipped width with weights drawn from ``--seed``:
              ``sample_independent`` over 2 windows at batch 2 (DDIM-100) and
              the fast-mode ``sample_long`` over 3 autoregressive windows at
@@ -67,13 +75,19 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              time, packed and one-pass kernels and no other; the modular path
              the tiny-L and one-pass kernels and no other; each count is also
              split by the shape the kernel was given. Outputs must be
-             uint8 frames of the right shape that are not constant;
+             uint8 frames of the right shape that are not constant. Then
+             ``sample_independent`` and ``sample_long`` as above with the
+             UNet of configs/latent-diffusion/base_longvid.yaml (256
+             channels; the divided space and time and one-pass kernels and
+             no other, each count by shape exactly as predicted) and one of
+             its UNet steps profiled;
 5. cli     — the port's ``sample`` command at full width: a real argument
              list through the CLI's own parser (batch 2, independent
              windows, DDIM-25, no checkpoints) and the command's function of
              (arguments, windows) on synthetic uint8 windows (reading frames
              from disk needs PIL, which a CUDA host may lack); the video file
-             it writes is checked;
+             it writes is checked; before it, the same with ``--config
+             configs/latent-diffusion/base_longvid.yaml``;
 6. atom    — AToM inference at full width in float32: a DDIM-2 run on the
              card against the CPU with the same weights and draws, and one
              decoder forward likewise (within ATOM_LIMIT), then
@@ -114,6 +128,14 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              tiny-L and one-pass kernels and no other, each launch on
              float32 operands, tiny-L and one-pass at head dims 16, 32 and
              64 among them, and the small-depth step against the CPU within
+             TRAIN_LIMITS. Then with base_longvid.yaml's UNet (256
+             channels, full width, B = 10, float32): 3 timed steps with
+             ``remat`` off and 3 with it on (steps/s, peak memory, launches
+             by shape and dtype as predicted; with ``remat`` the recompute
+             launches the UNet's kernels again and the counts show it), one
+             step traced, the gradient of one step with ``remat`` on
+             against the same step with it off within REMAT_LIMIT, and a
+             small-depth 256-channel step against the CPU within
              TRAIN_LIMITS;
 10. train-atom — ``AtomTrainer.fit`` at full width, batch 64, float32:
              one untimed step, 5 timed (sequences/s), one traced, no
@@ -133,7 +155,18 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              G and a D cycle at small depth but full spatial size on the
              card against the CPU (same weights, clips and frame draws)
              within FIRST_STAGE_LIMITS, and the G cycle with the gradient
-             cut at the attentions, which must fall outside them;
+             cut at the attentions, which must fall outside them. Then the
+             two operating points run before it, each loaded from its file:
+             configs/autoencoder/base.yaml (discriminators off,
+             disc_start 1e8: every micro-step a G step) and
+             base_ldmk.yaml with ``freeze_decoder`` (``train-first-stage
+             --landmark``: the landmark AE, decoder frozen), at full width:
+             one cycle untimed, two timed (iterations/s, peak memory,
+             launches by shape), every loss finite, the discriminators
+             unmoved, for the landmark AE its decoder and ``to_pixel``
+             unmoved; a micro-step traced; and a small-depth copy of each
+             against the CPU within FIRST_STAGE_LIMITS (the gradient-cut
+             copy outside them);
 12. i3d    — InceptionI3d (random He-scaled weights) on [2, 16, 224, 224, 3]
              on the card against the CPU within I3D_LIMIT, and the FVD
              between two sets of 8 synthetic clips through the card's I3D
@@ -211,6 +244,18 @@ FACE_GAIN = 1.0
 FUSED_PATH = {"divided_space_attention", "divided_time_attention",
               "packed_attention", "onepass_attention"}
 MODULAR_PATH = {"tiny_attention", "onepass_attention"}
+# the 256-channel UNet (configs/latent-diffusion/base_longvid.yaml): 8 heads
+# of 32, 64 and 128, never 16, so the packed gate never passes and every
+# gated attention goes head-split to the one-pass kernel
+LONGVID_PATH = {"divided_space_attention", "divided_time_attention",
+                "onepass_attention"}
+LONGVID_YAML = "configs/latent-diffusion/base_longvid.yaml"
+# its one-pass launches per UNet call at batch B, by (sequence, head dim)
+# of [B·8, sequence, head dim]: the joint attention and the xy plane's at
+# ds = 1 (C = 256; 2 each on the way down, 3 each on the way up), and the
+# joint attention after the last upsample (C = 512); the yt and xt planes'
+# 512 tokens and everything at ds ≥ 2 pass no gate
+LONGVID_ONEPASS_PER_CALL = {(2048, 32): 5, (1024, 32): 5, (2048, 64): 1}
 SWITCHES = ("MODITALKER_NO_DIVIDED_FUSED", "MODITALKER_NO_PACKED_ATTN")
 
 # what the kernels that were replaced took at the same shape on an H100 80GB
@@ -256,6 +301,14 @@ GRAD_LIMIT = 5e-6
 # attentions reads 0.725 and 1.06 on the gradient and the update, and must
 # exceed these.
 TRAIN_LIMITS = {"loss": 3e-5, "grad": 1e-3, "update": 5e-2}
+
+# the 256-channel UNet's train-diffusion step with ``remat`` against the
+# same step without it, on the card (same weights, batch and draws; cuDNN
+# deterministic): the relative error of the loss and of each parameter's
+# gradient (L2 of the difference over L2 of the step without remat; a
+# gradient that is zero must stay zero). The recompute runs the same
+# kernels on the same inputs, so anything above float32 rounding is a fault
+REMAT_LIMIT = 1e-6
 
 # AToM training card vs CPU (float32, TF32 off): the largest relative error
 # of a step's loss terms is held to ATOM_LIMIT, every parameter to
@@ -655,6 +708,11 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     rows.append(dict(onepass_row(tb * heads, l, dh, g=gen_f32, dtype=f32),
                      design="the wgmma tile's K ring, K and V rounded to "
                             "bf16 in the producer's registers"))
+    # the 256-channel UNet's xy-plane attention at ds = 1 (C = 256, 1024
+    # tokens, dh = 32), which train-diffusion runs in float32 at B = 10
+    # (configs/latent-diffusion/base_longvid.yaml): the small-head tile
+    gen_lv = torch.Generator(device=dev).manual_seed(seed + 7)
+    rows.append(onepass_row(tb * heads, 1024, 32, g=gen_lv, dtype=f32))
     # float32 on the modular path (both gate switches set): train-diffusion's
     # frozen extracts send the time attention to tiny-L and the space
     # attention to one-pass at D = 64, its UNet the dh = 16 attentions to
@@ -833,6 +891,17 @@ def gradient_phase(torch, seed: int) -> list[dict]:
 
 
 # ------------------------------------------------------------------ training
+class LossLog:
+    """The logger a trainer's ``fit`` is given: keeps each row of scalars
+    it logs, or the row's ``key`` entry."""
+
+    def __init__(self, key: str | None = None):
+        self.key, self.seen = key, []
+
+    def log_scalars(self, step, scalars):
+        self.seen.append(scalars[self.key] if self.key else scalars)
+
+
 @contextlib.contextmanager
 def gradient_cut():
     """The kernel wrappers with their ``autograd.Function``s taken out: the
@@ -867,14 +936,17 @@ def seeded_state(torch, build, seed: int) -> dict:
         return build().state_dict()
 
 
-def train_step_check(torch, seed: int, modular: bool = False) -> dict:
+def train_step_check(torch, seed: int, modular: bool = False,
+                     model_channels: int = 128) -> dict:
     """One train-diffusion step at a small depth but the full spatial size
     (so that every kernel gate passes; B = 2) on the card and on the CPU
     from the same AE and UNet weights, batch and draws, float32: the loss,
     the UNet's gradient and its update within TRAIN_LIMITS, and the same
     step with the gradient cut at the attentions (``gradient_cut``) outside
     them. ``modular``: with both gate switches set around the card's steps
-    (the AEs' 2 heads × B = 2 × 1024 patches pass the tiny-L gate)."""
+    (the AEs' 2 heads × B = 2 × 1024 patches pass the tiny-L gate).
+    ``model_channels`` 256: base_longvid.yaml's UNet at the same small
+    depth (head dims 32 and 64, no packed launch)."""
     from moditalker_tpu_torch.config import (MtovAEConfig,
                                              MtovDiffusionConfig,
                                              MtovTrainConfig, MtovUNetConfig)
@@ -886,9 +958,11 @@ def train_step_check(torch, seed: int, modular: bool = False) -> dict:
 
     ae_cfg = MtovAEConfig(channels=64, depth=1, heads=2, dim_head=64,
                           quant_depth=1, quant_heads=2, quant_mlp_dim=64)
-    # channel_mult (1, 2): the last upsample lands C = 256 at ds = 1, so the
-    # joint attention there takes the one-pass kernel, as in the full UNet
-    unet_cfg = MtovUNetConfig(num_res_blocks=1, channel_mult=(1, 2),
+    # channel_mult (1, 2): the last upsample lands 2·model_channels at
+    # ds = 1, so the joint attention there takes the one-pass kernel, as in
+    # the full UNet
+    unet_cfg = MtovUNetConfig(model_channels=model_channels,
+                              num_res_blocks=1, channel_mult=(1, 2),
                               attention_resolutions=(1,))
     tc = MtovTrainConfig(seed=seed)
     aes = [seeded_state(torch, lambda: ViTAutoencoder(ae_cfg), seed + i)
@@ -930,6 +1004,8 @@ def train_step_check(torch, seed: int, modular: bool = False) -> dict:
     cpu = step("cpu")
     result = {}
     path = "modular" if modular else "fused"
+    if model_channels != 128:
+        path += f", {model_channels} channels"
     for label, cut in ((f"card, {path} path", False),
                        (f"card, {path} path, gradient cut", True)):
         card = step("cuda", cut)
@@ -947,8 +1023,9 @@ def train_step_check(torch, seed: int, modular: bool = False) -> dict:
                     "the step with the gradient cut at the attentions "
                     "passes the card-vs-cpu limits" if cut else
                     "the card's step disagrees with the cpu's"))
-        if not cut and set(card["launches"]) != (MODULAR_PATH if modular
-                                                 else FUSED_PATH):
+        if not cut and set(card["launches"]) != (
+                MODULAR_PATH if modular else
+                LONGVID_PATH if model_channels == 256 else FUSED_PATH):
             raise AssertionError(f"train-diffusion step ({path} path): "
                                  f"launches {card['launches']}")
         result[label] = errs
@@ -1001,14 +1078,7 @@ def _train_diffusion(torch, seed: int, modular: bool) -> dict:
     loop = LatentDiffusionLoop(trainer, *models)
     batch = synthetic_mtov_batch(b, ae_cfg.timesteps, ae_cfg.resolution, seed)
 
-    class Losses:
-        def __init__(self):
-            self.seen = []
-
-        def log_scalars(self, step, scalars):
-            self.seen.append(scalars["loss"])
-
-    losses = Losses()
+    losses = LossLog("loss")
     loop.fit(itertools.repeat(batch), max_steps=1, logger=losses,
              log_every=1)
     torch.cuda.synchronize()
@@ -1055,6 +1125,160 @@ def _train_diffusion(torch, seed: int, modular: bool) -> dict:
             "steps_per_s": steps / dt, "clips_per_s": steps * b / dt,
             "peak_gib": peak, "losses": losses.seen, "card_vs_cpu": check,
             "trace": traced}
+
+
+def train_diffusion_longvid_phase(torch, seed: int) -> dict:
+    """``LatentDiffusionLoop.fit`` with base_longvid.yaml's UNet (256
+    channels) at full width (the shipped AEs), B = diffusion_batch_size,
+    float32, on a synthetic batch with AE and UNet weights from ``seed``:
+    one untimed step, then 3 timed steps with ``remat`` off and 3 with it
+    on (``model.set_remat``, as the CPU tests set it; steps/s, clips/s and
+    the peak memory of each; launches by shape, every one on float32
+    operands, exactly as predicted: a step's four frozen extracts launch
+    space and time 32 times each, its UNet the one-pass kernel at
+    LONGVID_ONEPASS_PER_CALL, and with ``remat`` the recompute launches
+    each of those again), every loss finite; one step traced; then
+    ``remat_check`` and a small-depth 256-channel step against the CPU
+    (``train_step_check``)."""
+    import dataclasses
+    import itertools
+
+    from moditalker_tpu_torch.config import load_config
+    from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
+    from moditalker_tpu_torch.models.mtov import ViTAutoencoder
+    from moditalker_tpu_torch.ops.kernels import (FLOAT32_LAUNCHES_BY_SHAPE,
+                                                  reset_launch_counts)
+    from moditalker_tpu_torch.train.mtov import (LatentDiffusionLoop,
+                                                 MtovDiffusionTrainer)
+
+    cfg = load_config(LONGVID_YAML)
+    ae_cfg, unet_cfg = cfg.mtov_ae, longvid_unet_config()
+    tc = dataclasses.replace(cfg.mtov_train, seed=seed)
+    b, steps = tc.diffusion_batch_size, 3
+    models = []
+    for i in (11, 12):
+        m = ViTAutoencoder(ae_cfg)
+        m.load_state_dict(seeded_state(torch, lambda: ViTAutoencoder(ae_cfg),
+                                       seed + i))
+        models.append(m)
+    trainer = MtovDiffusionTrainer(unet_cfg, cfg.mtov_diffusion, tc)
+    loop = LatentDiffusionLoop(trainer, *models)
+    batch = synthetic_mtov_batch(b, ae_cfg.timesteps, ae_cfg.resolution, seed)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+
+    losses = LossLog("loss")
+    loop.fit(itertools.repeat(batch), max_steps=1, logger=losses,
+             log_every=1)
+    # the divided kernels' qkv: [B·F, N, 3·H·dh] for space, [B, F, N, 3·H·dh]
+    # for time
+    n, hd3 = ((ae_cfg.resolution // ae_cfg.patch_size) ** 2,
+              3 * ae_cfg.heads * ae_cfg.dim_head)
+    space_qkv = str([b * ae_cfg.timesteps, n, hd3])
+    time_qkv = str([b, ae_cfg.timesteps, n, hd3])
+    runs = {}
+    for remat in (False, True):
+        what = f"longvid train-diffusion, remat {'on' if remat else 'off'}"
+        trainer.model.set_remat(remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loop.fit(itertools.repeat(batch), max_steps=steps, logger=losses,
+                 log_every=1)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = check_launches(what, LONGVID_PATH)
+        by_shape = launches_by_shape()
+        f32_by_shape = {n: {str(list(sh)): k for sh, k in sorted(by.items())}
+                        for n, by in FLOAT32_LAUNCHES_BY_SHAPE.items() if by}
+        extracts = 4 * ae_cfg.depth * steps
+        predicted = {"divided_space_attention": {space_qkv: extracts},
+                     "divided_time_attention": {time_qkv: extracts},
+                     "onepass_attention": longvid_onepass(
+                         b, steps * (2 if remat else 1))}
+        if not by_shape == f32_by_shape == predicted:
+            raise AssertionError(f"{what}: launches {by_shape}, on float32 "
+                                 f"operands {f32_by_shape}, predicted "
+                                 f"{predicted}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        runs[what] = {"steps_per_s": steps / dt, "clips_per_s": steps * b / dt,
+                      "peak_gib": peak, "launches": counts,
+                      "launches_by_shape": by_shape}
+        log(f"{what} (full width, {n_params / 1e6:.2f} M parameters, B = "
+            f"{b}, float32): {steps} steps in {dt:.3f} s = {steps / dt:.4f} "
+            f"steps/s = {steps * b / dt:.3f} clips/s; peak memory "
+            f"{peak:.2f} GiB; launches by shape over the {steps} steps, all "
+            f"on float32 operands, as predicted {by_shape}"
+            + ("; with remat each UNet launch is counted twice, once in the "
+               "forward and once in the recompute" if remat else ""))
+    if not (len(losses.seen) == 2 * steps + 1
+            and all(np.isfinite(losses.seen))):
+        raise AssertionError(f"longvid train-diffusion: losses {losses.seen}")
+    trainer.model.set_remat(False)
+    dev = loop.to_device(batch)
+    traced = trace(torch, lambda: loop.train_step(dev))
+    log_trace("longvid train-diffusion step, remat off (batch on the card)",
+              traced)
+    remat = remat_check(torch, loop, dev, seed)
+    del loop, trainer, models, dev
+    torch.cuda.empty_cache()
+    check = train_step_check(torch, seed, model_channels=256)
+    return {"parameters": n_params, "runs": runs, "losses": losses.seen,
+            "trace": traced, "remat_vs_no_remat": remat,
+            "card_vs_cpu": check}
+
+
+def remat_check(torch, loop, dev_batch: dict, seed: int) -> dict:
+    """One train-diffusion step's loss and UNet gradient with ``remat`` on
+    against the same step with it off: the same weights, latents and draws
+    (t, noise), cuDNN deterministic; the loss and each parameter's gradient
+    within REMAT_LIMIT (relative; a zero gradient must stay zero), and
+    whether they are equal bit for bit. The optimizer's update is a
+    function of these, so neither step is applied."""
+    from moditalker_tpu_torch.train.mtov import extract_latents
+
+    trainer = loop.trainer
+    lat = extract_latents(loop.ae_rgb, loop.ae_ldmk, dev_batch)
+    draws = [d.to(trainer.device) for d in trainer.ddpm.draw_loss_inputs(
+        torch.Generator().manual_seed(seed), lat["z"])]
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {}
+    try:
+        for remat in (False, True):
+            trainer.model.set_remat(remat)
+            trainer.model.zero_grad(set_to_none=True)
+            loss, _ = trainer.ddpm.p_losses(lat["z"], lat["cond"],
+                                            lat["image_cond"], *draws)
+            loss.backward()
+            out[remat] = (loss.detach(), {
+                n: p.grad for n, p in trainer.model.named_parameters()})
+    finally:
+        torch.backends.cudnn.deterministic = old
+        trainer.model.set_remat(False)
+        trainer.model.zero_grad(set_to_none=True)
+    (l0, g0), (l1, g1) = out[False], out[True]
+    errs = {"loss": abs(l1 - l0).item() / abs(l0).item()}
+    grad_err, equal = 0.0, int(torch.equal(l0, l1))
+    for name, a in g0.items():
+        diff, den = (g1[name] - a).norm().item(), a.norm().item()
+        if den == 0 and diff != 0:
+            raise AssertionError(f"remat: {name}'s gradient is zero without "
+                                 f"remat and not with it")
+        grad_err = max(grad_err, diff / den if den else 0.0)
+        equal += torch.equal(a, g1[name])
+    errs["grad"] = grad_err
+    bitwise = equal == len(g0) + 1
+    log(f"longvid train-diffusion step with remat vs without (same weights, "
+        f"latents and draws; cuDNN deterministic): loss {l1.item():.8f} vs "
+        f"{l0.item():.8f}, relative errors {errs} (limit {REMAT_LIMIT}); "
+        f"{equal} of {len(g0) + 1} tensors (the loss and {len(g0)} "
+        f"gradients) equal bit for bit")
+    if max(errs.values()) > REMAT_LIMIT:
+        raise AssertionError("remat: the step with remat disagrees with the "
+                             "step without it")
+    return {**errs, "bitwise_equal": bitwise, "equal_tensors": equal,
+            "tensors": len(g0) + 1}
 
 
 def train_atom_phase(torch, seed: int) -> dict:
@@ -1191,16 +1415,20 @@ def plain_backward_events(torch):
         fn.backward = kept
 
 
-def first_stage_check(torch, seed: int) -> dict:
-    """One G cycle and one D cycle of ``FirstStageTrainer`` at a small depth
-    but the full spatial size (AE 64 wide, depth 1, 2 heads of 64, so that
-    the space and time gates pass; the published discriminators and full
-    LPIPS-VGG16; B = 1, accumulation 3, disc_start −1) on the card and on
-    the CPU from the same weights, clips and frame draws, float32: every
-    loss term, the mean gradients and the updates within
-    FIRST_STAGE_LIMITS; the same G cycle with the gradient cut at the
-    attentions (``gradient_cut``) outside them. The card launches the space
-    and time kernels and no other."""
+def first_stage_check(torch, seed: int, loss_cfg=None,
+                      freeze_decoder: bool = False) -> dict:
+    """Two cycles of ``FirstStageTrainer`` at a small depth but the full
+    spatial size (AE 64 wide, depth 1, 2 heads of 64, so that the space and
+    time gates pass; the published discriminators and full LPIPS-VGG16;
+    B = 1, accumulation 3) on the card and on the CPU from the same
+    weights, clips and frame draws, float32: every loss term, the mean
+    gradients and the updates within FIRST_STAGE_LIMITS; the first G cycle
+    with the gradient cut at the attentions (``gradient_cut``) outside
+    them. The card launches the space and time kernels and no other.
+    ``loss_cfg`` defaults to disc_start −1 (base_gan.yaml: a G and a D
+    cycle); at a later disc_start both cycles are G cycles and the
+    discriminators are not compared. ``freeze_decoder``: the landmark AE
+    (its trainable parameters compared, on landmark clips)."""
     from moditalker_tpu_torch.config import (MtovAEConfig, MtovLossConfig,
                                              MtovTrainConfig)
     from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
@@ -1209,10 +1437,14 @@ def first_stage_check(torch, seed: int) -> dict:
 
     ae_cfg = MtovAEConfig(channels=64, depth=1, heads=2, dim_head=64,
                           quant_depth=1, quant_heads=2, quant_mlp_dim=64)
-    loss_cfg, tc = MtovLossConfig(disc_start=-1), MtovTrainConfig(seed=seed)
+    loss_cfg = loss_cfg or MtovLossConfig(disc_start=-1)
+    tc = MtovTrainConfig(seed=seed)
     k = tc.accum_iter
+    # the phase flips after the first cycle where disc_start allows it
+    compared = ("ae", "disc") if loss_cfg.disc_start <= 0 else ("ae",)
+    key = "x_l" if freeze_decoder else "x"
     videos = [synthetic_mtov_batch(1, ae_cfg.timesteps, ae_cfg.resolution,
-                                   seed + i)["x"] for i in range(k)]
+                                   seed + i)[key] for i in range(k)]
     g = torch.Generator().manual_seed(seed)
     draws = [torch.randint(0, ae_cfg.timesteps, (1,), generator=g)
              for _ in range(2 * k)]
@@ -1220,10 +1452,11 @@ def first_stage_check(torch, seed: int) -> dict:
     def params(tr, what):
         nets = {"ae": [tr.ae], "disc": [tr.disc2d, tr.disc3d]}[what]
         return {f"{i}.{n}": p for i, m in enumerate(nets)
-                for n, p in m.named_parameters()}
+                for n, p in m.named_parameters() if p.requires_grad}
 
     def cycles(device, cut=False):
-        tr = FirstStageTrainer(ae_cfg, loss_cfg, tc, device=device)
+        tr = FirstStageTrainer(ae_cfg, loss_cfg, tc, device=device,
+                               freeze_decoder=freeze_decoder)
         before = {w: {n: p.detach().cpu().clone()
                       for n, p in params(tr, w).items()}
                   for w in ("ae", "disc")}
@@ -1234,7 +1467,7 @@ def first_stage_check(torch, seed: int) -> dict:
                 m = tr.step(videos[i % k], draws[i])
                 out["losses"].append({n: v.item() for n, v in m.items()})
         out["launches"] = launches_by_shape()
-        for w in ("ae",) if cut else ("ae", "disc"):
+        for w in ("ae",) if cut else compared:
             now = params(tr, w)
             out[f"{w}_grad"] = {n: p.grad.cpu() for n, p in now.items()}
             out[f"{w}_update"] = {n: p.detach().cpu() - before[w][n]
@@ -1250,16 +1483,21 @@ def first_stage_check(torch, seed: int) -> dict:
     result = {}
     for label, cut in (("card", False), ("card, gradient cut", True)):
         card = cycles("cuda", cut)
-        errs = {"loss": max(abs(a[n] - b[n]) / abs(b[n])
+        # a term the discriminators' factor holds at 0 reads 0 on both
+        errs = {"loss": max(abs(a[n] - b[n]) / abs(b[n]) if b[n] else
+                            abs(a[n])
                             for a, b in zip(card["losses"], cpu["losses"])
                             for n in b)}
-        for w in ("ae",) if cut else ("ae", "disc"):
+        for w in ("ae",) if cut else compared:
             for q in ("grad", "update"):
                 errs[f"{w}_{q}"] = rel(card[f"{w}_{q}"], cpu[f"{w}_{q}"])
         within = all(errs[n] <= FIRST_STAGE_LIMITS[n] for n in errs)
-        log(f"train-first-stage G{'' if cut else ' and D'} cycle at small "
-            f"depth ({label}) vs cpu, float32: relative errors {errs} "
-            f"(limits {FIRST_STAGE_LIMITS}); launches {card['launches']}")
+        cycle = ("G cycle" if cut else "G and D cycle"
+                 if "disc" in compared else "two G cycles")
+        log(f"train-first-stage {cycle} at small depth ({label}; disc_start "
+            f"{loss_cfg.disc_start}, freeze_decoder {freeze_decoder}) vs cpu,"
+            f" float32: relative errors {errs} (limits {FIRST_STAGE_LIMITS})"
+            f"; launches {card['launches']}")
         if cut == within:
             raise AssertionError(
                 f"train-first-stage ({label}): " + (
@@ -1296,14 +1534,7 @@ def train_first_stage_phase(torch, seed: int) -> dict:
     b, k, cycles = tc.batch_size, tc.accum_iter, 2
     batch = synthetic_mtov_batch(b, ae_cfg.timesteps, ae_cfg.resolution, seed)
 
-    class Losses:
-        def __init__(self):
-            self.seen = []
-
-        def log_scalars(self, step, scalars):
-            self.seen.append(scalars)
-
-    losses = Losses()
+    losses = LossLog()
     trainer.fit(itertools.repeat(batch), max_steps=2 * k, logger=losses,
                 log_every=1, eval_every=10**9)
     torch.cuda.synchronize()
@@ -1355,6 +1586,102 @@ def train_first_stage_phase(torch, seed: int) -> dict:
             "g_step_ms": g_ms, "d_step_ms": d_ms, "peak_gib": peak,
             "plain_backward_ms": backward_ms,
             "plain_backward_share": share, "card_vs_cpu": check,
+            "trace": traced}
+
+
+def first_stage_variant_phase(torch, seed: int, config: str,
+                              landmark: bool = False) -> dict:
+    """``FirstStageTrainer.fit`` at the operating point of ``config``
+    (configs/autoencoder/base.yaml, or base_ldmk.yaml with ``landmark``:
+    the landmark AE on landmark clips, decoder and ``to_pixel`` frozen, as
+    ``train-first-stage --landmark`` builds it), both with the
+    discriminators off (disc_start 1e8: every micro-step is a G step), at
+    full width, B = 1, accumulation 3, float32, weights from ``seed``: one
+    cycle untimed, two timed (iterations/s, clips/s, peak memory, launches
+    by shape: the divided space and time kernels, 2·depth of each a
+    micro-step, and no other), every loss finite, the discriminators and
+    (``landmark``) the frozen parameters unmoved and every other AE
+    parameter moved; one micro-step traced; then ``first_stage_check`` at
+    the same loss configuration and ``freeze_decoder``."""
+    import dataclasses
+    import itertools
+
+    from moditalker_tpu_torch.config import load_config
+    from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.train.mtov_first_stage import (
+        FROZEN_WITH_DECODER, FirstStageTrainer)
+
+    cfg = load_config(config)
+    ae_cfg, loss_cfg = cfg.mtov_ae, cfg.mtov_loss
+    tc = dataclasses.replace(cfg.mtov_train, seed=seed)
+    what = (f"train-first-stage {'--landmark ' if landmark else ''}"
+            f"{os.path.basename(config)}")
+    trainer = FirstStageTrainer(ae_cfg, loss_cfg, tc, freeze_decoder=landmark)
+    b, k, cycles = tc.batch_size, tc.accum_iter, 2
+    batch = synthetic_mtov_batch(b, ae_cfg.timesteps, ae_cfg.resolution, seed)
+
+    losses = LossLog()
+    trainer.fit(itertools.repeat(batch), max_steps=k, logger=losses,
+                log_every=1, eval_every=10**9)
+    nets = {"ae": trainer.ae, "disc2d": trainer.disc2d,
+            "disc3d": trainer.disc3d}
+    before = {f"{m}.{n}": p.detach().clone() for m, net in nets.items()
+              for n, p in net.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    iters = k * cycles
+    t0 = time.perf_counter()
+    trainer.fit(itertools.repeat(batch), max_steps=k + iters, logger=losses,
+                log_every=1, eval_every=10**9)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = check_launches(what, FIRST_STAGE_PATH)
+    by_shape = launches_by_shape()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    values = [v for row in losses.seen for v in row.values()]
+    if (len(losses.seen) != k + iters or not np.isfinite(values).all()
+            or any("d_loss" in row for row in losses.seen)):
+        raise AssertionError(f"{what}: losses {losses.seen}")
+    per_step = 2 * ae_cfg.depth        # the encoder's blocks and the decoder's
+    if {n: c for n, c in counts.items() if c} != {
+            n: per_step * iters for n in FIRST_STAGE_PATH}:
+        raise AssertionError(f"{what}: launches {counts}")
+    moved = {f"{m}.{n}": not torch.equal(p, before[f"{m}.{n}"])
+             for m, net in nets.items() for n, p in net.named_parameters()}
+    frozen = {key for key in moved if key.startswith("ae.") and landmark
+              and set(key.split(".")) & set(FROZEN_WITH_DECODER)}
+    trained = {key for key in moved
+               if key.startswith("ae.") and key not in frozen}
+    still = frozen | {key for key in moved if key.startswith("disc")}
+    wrong = sorted([key for key in still if moved[key]]
+                   + [key for key in trained if not moved[key]])
+    if wrong:
+        raise AssertionError(f"{what}: parameters moved that must stay or "
+                             f"stayed that must move: {wrong[:5]} of "
+                             f"{len(wrong)}")
+    video = trainer.to_device(batch["x_l" if landmark else "x"])
+    traced = trace(torch, lambda: trainer.step(video))
+    step_ms = dt / iters * 1e3
+    log(f"{what} (full width, B = {b}, accumulation {k}, float32, "
+        f"disc_start {loss_cfg.disc_start}): {iters} iterations ({cycles} G "
+        f"cycles) in {dt:.3f} s = {iters / dt:.4f} iterations/s = "
+        f"{iters * b / dt:.4f} clips/s, {step_ms:.2f} ms a micro-step; peak "
+        f"memory {peak:.2f} GiB; launches by shape over the {iters} "
+        f"iterations {by_shape}; the discriminators unmoved"
+        + (f", {len(frozen)} frozen decoder and to_pixel tensors unmoved"
+           if landmark else "")
+        + f", {len(trained)} trained AE tensors moved; last losses "
+        f"{losses.seen[-1]}")
+    log_trace(f"{what} G micro-step (clip on the card)", traced)
+    del trainer, video
+    torch.cuda.empty_cache()
+    check = first_stage_check(torch, seed, loss_cfg, freeze_decoder=landmark)
+    return {"iterations_per_s": iters / dt, "clips_per_s": iters * b / dt,
+            "micro_step_ms": step_ms, "peak_gib": peak, "launches": counts,
+            "launches_by_shape": by_shape, "frozen_unmoved": len(frozen),
+            "trained_moved": len(trained), "card_vs_cpu": check,
             "trace": traced}
 
 
@@ -1425,13 +1752,16 @@ def make_windows(cfg, n: int, batch: int, seed: int):
 
 
 def reference_phase(torch, seed: int, what: str, expected: set,
-                    heads: int = 2, batch: int = 1) -> None:
+                    heads: int = 2, batch: int = 1,
+                    model_channels: int = 128) -> dict:
     """A small-depth window on the card (bf16, kernels) against the CPU in
     float32 (plain path), with the same weights and the same draws. The
     same window on the CPU in bf16 (plain path) measures what bf16 alone
     costs; the card may differ from float32 by at most REF_FACTOR times
     that, in mean and in max. On the card exactly the ``expected`` kernels
-    must launch."""
+    must launch. ``model_channels`` 256: the UNet of base_longvid.yaml at
+    the same small depth. Returns the errors and the card's launches by
+    shape."""
     from moditalker_tpu_torch.config import (MtovAEConfig,
                                              MtovDiffusionConfig,
                                              MtovUNetConfig)
@@ -1440,9 +1770,11 @@ def reference_phase(torch, seed: int, what: str, expected: set,
 
     ae_cfg = MtovAEConfig(channels=64, depth=1, heads=heads, dim_head=64,
                           quant_depth=1, quant_heads=2, quant_mlp_dim=64)
-    # channel_mult (1, 2): the last upsample lands C = 256 at ds = 1, so the
-    # joint attention there takes the one-pass kernel, as in the full UNet
-    unet_cfg = MtovUNetConfig(num_res_blocks=1, channel_mult=(1, 2),
+    # channel_mult (1, 2): the last upsample lands 2·model_channels at
+    # ds = 1, so the joint attention there takes the one-pass kernel, as in
+    # the full UNet (at 256 channels every gated attention does)
+    unet_cfg = MtovUNetConfig(model_channels=model_channels,
+                              num_res_blocks=1, channel_mult=(1, 2),
                               attention_resolutions=(1,))
     diff_cfg = MtovDiffusionConfig(sampling_timesteps=2)
     states = random_states(torch, ae_cfg, unet_cfg, seed)
@@ -1462,6 +1794,9 @@ def reference_phase(torch, seed: int, what: str, expected: set,
             f"{time.perf_counter() - t0:.2f} s, launches {dict(LAUNCHES)}")
         if device == "cuda":
             check_launches(f"{what} reference window", expected)
+            by_shape = launches_by_shape()
+            log(f"{what} reference window on the card: launches by shape "
+                f"{by_shape}")
     fp32 = outs["cpu", torch.float32]
     card = (outs["cuda", torch.bfloat16] - fp32).abs()
     bf16 = (outs["cpu", torch.bfloat16] - fp32).abs()
@@ -1474,6 +1809,93 @@ def reference_phase(torch, seed: int, what: str, expected: set,
             and card.max() <= REF_FACTOR * bf16.max()):
         raise AssertionError(f"{what}: the card's window disagrees with the "
                              "CPU reference")
+    return {"card_mean_abs": card.mean().item(), "card_max_abs":
+            card.max().item(), "cpu_bf16_mean_abs": bf16.mean().item(),
+            "cpu_bf16_max_abs": bf16.max().item(),
+            "launches_by_shape": by_shape}
+
+
+def longvid_unet_config():
+    """The UNet of configs/latent-diffusion/base_longvid.yaml at the shipped
+    AE's latent size (as ``sample`` builds it)."""
+    import dataclasses
+
+    from moditalker_tpu_torch.config import load_config
+
+    cfg = load_config(LONGVID_YAML)
+    ae = cfg.mtov_ae
+    return dataclasses.replace(cfg.mtov_unet, latent_res=ae.latent_res,
+                               latent_t=ae.timesteps // ae.splits)
+
+
+def longvid_onepass(batch: int, calls: int) -> dict:
+    """The one-pass launches, by shape, of ``calls`` 256-channel UNet calls
+    at ``batch`` (LONGVID_ONEPASS_PER_CALL)."""
+    return {str([batch * 8, n, d]): k * calls
+            for (n, d), k in sorted(LONGVID_ONEPASS_PER_CALL.items())}
+
+
+def longvid_unet_check(torch, seed: int) -> dict:
+    """base_longvid.yaml's UNet at full width alone (528 M parameters): a
+    DDIM-2 run at B = 1 on seeded conditioning latents, on the card in bf16
+    (the one-pass kernel at every gated attention) and on the CPU in float32
+    and in bf16 (plain path), from the same weights and draws; the card may
+    differ from float32 by at most REF_FACTOR times what bf16 costs the
+    CPU, in mean and in max."""
+    from moditalker_tpu_torch.config import MtovDiffusionConfig
+    from moditalker_tpu_torch.models.mtov import MtovDDPM, TriplaneUNet
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+
+    unet_cfg = longvid_unet_config()
+    state = seeded_state(torch, lambda: TriplaneUNet(unet_cfg), seed)
+    n_params = sum(v.numel() for v in state.values())
+    L = unet_cfg.latent_res**2 + 2 * unet_cfg.latent_t * unet_cfg.latent_res
+    rng = np.random.default_rng(seed)
+    cond = torch.from_numpy(rng.normal(size=(1, 8, L)).astype(np.float32))
+    ic = torch.from_numpy(rng.normal(size=(1, 4, L)).astype(np.float32))
+    outs = {}
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32),
+                          ("cpu", torch.bfloat16)):
+        unet = TriplaneUNet(unet_cfg, dtype)
+        unet.load_state_dict(state)
+        unet = unet.to(device).eval().requires_grad_(False)
+        ddpm = MtovDDPM.create(unet, MtovDiffusionConfig(
+            sampling_timesteps=2, w=0.0), device)
+        g = torch.Generator().manual_seed(seed)
+        draws = lambda shape, dt, g=g: torch.randn(shape, generator=g)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            z = ddpm.ddim_sample((1, 4, L), cond.to(device, dtype),
+                                 ic.to(device, dtype), generator=draws)
+        outs[device, dtype] = z.float().cpu()
+        log(f"longvid UNet DDIM-2 at B = 1 on {device} ({dtype}): "
+            f"{time.perf_counter() - t0:.2f} s")
+        if device == "cuda":
+            check_launches("longvid UNet DDIM-2", {"onepass_attention"})
+            by_shape = launches_by_shape()
+            if by_shape != {"onepass_attention": longvid_onepass(1, 2)}:
+                raise AssertionError(f"longvid UNet DDIM-2: launches "
+                                     f"{by_shape}")
+        del unet, ddpm
+    fp32 = outs["cpu", torch.float32]
+    card = (outs["cuda", torch.bfloat16] - fp32).abs()
+    bf16 = (outs["cpu", torch.bfloat16] - fp32).abs()
+    log(f"longvid UNet ({n_params / 1e6:.2f} M parameters) DDIM-2 vs cpu "
+        f"fp32, latent [1, 4, {L}]: card bf16 mean abs {card.mean().item():.3e}"
+        f" max {card.max().item():.3e}; cpu bf16 mean abs "
+        f"{bf16.mean().item():.3e} max {bf16.max().item():.3e} (card within "
+        f"{REF_FACTOR}x); launches by shape {by_shape}")
+    if not (torch.isfinite(outs["cuda", torch.bfloat16]).all()
+            and card.mean() <= REF_FACTOR * bf16.mean()
+            and card.max() <= REF_FACTOR * bf16.max()):
+        raise AssertionError("longvid UNet: the card's DDIM-2 disagrees with "
+                             "the CPU reference")
+    return {"parameters": n_params, "card_mean_abs": card.mean().item(),
+            "card_max_abs": card.max().item(),
+            "cpu_bf16_mean_abs": bf16.mean().item(),
+            "cpu_bf16_max_abs": bf16.max().item(),
+            "launches_by_shape": by_shape}
 
 
 def check_frames(video, frames: int, cfg, what: str) -> None:
@@ -1486,23 +1908,37 @@ def check_frames(video, frames: int, cfg, what: str) -> None:
         raise AssertionError(f"{what}: a window is constant")
 
 
-def main_path_phase(torch, seed: int) -> dict:
+def main_path_phase(torch, seed: int, longvid: bool = False) -> dict:
+    """``sample_independent`` (2 windows at batch 2, DDIM-100) and the
+    fast-mode ``sample_long`` (3 windows at B = 1) at full width, each
+    timed after an untimed run of the same call, then ``sample_independent``
+    on the modular-attention path. ``longvid``: the UNet of
+    base_longvid.yaml (256 channels) and the fused path only, the untimed
+    runs at DDIM-2, each one-pass count by shape as
+    LONGVID_ONEPASS_PER_CALL predicts."""
+    import dataclasses
+
     from moditalker_tpu_torch.config import (MtovAEConfig,
                                              MtovDiffusionConfig,
                                              MtovUNetConfig)
     from moditalker_tpu_torch.ops.kernels import reset_launch_counts
     from moditalker_tpu_torch.pipelines.mtov_sample import MtovSamplePipeline
 
-    ae_cfg, unet_cfg = MtovAEConfig(), MtovUNetConfig()
+    ae_cfg = MtovAEConfig()
+    unet_cfg = longvid_unet_config() if longvid else MtovUNetConfig()
+    prefix = "longvid " if longvid else ""
     diff_cfg = MtovDiffusionConfig(sampling_timesteps=100, w=0.0)
     t0 = time.perf_counter()
     pipe = MtovSamplePipeline(*random_states(torch, ae_cfg, unet_cfg, seed),
                               ae_cfg, unet_cfg, diff_cfg)
-    log(f"full-width pipeline built in {time.perf_counter() - t0:.1f} s")
+    log(f"full-width {prefix}pipeline built in {time.perf_counter() - t0:.1f}"
+        f" s")
     gen = torch.Generator(device="cuda").manual_seed(seed)
     launches, by_shape = {}, {}
 
-    def drive(name, fn, frames, expected=FUSED_PATH):
+    def drive(name, fn, frames, expected=LONGVID_PATH if longvid
+              else FUSED_PATH):
+        name = prefix + name
         reset_launch_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -1516,16 +1952,46 @@ def main_path_phase(torch, seed: int) -> dict:
         check_frames(video, frames, ae_cfg, name)
         return frames / dt
 
+    @contextlib.contextmanager
+    def warm_up():
+        """The untimed pass; the longvid paths' at DDIM-2, which meets the
+        shapes of DDIM-100 in a fiftieth of its time."""
+        if not longvid:
+            yield
+            return
+        full = pipe.ddpm
+        pipe.ddpm = dataclasses.replace(full, cfg=dataclasses.replace(
+            full.cfg, sampling_timesteps=2))
+        try:
+            yield
+        finally:
+            pipe.ddpm = full
+
     t = ae_cfg.timesteps
     # each path runs twice: the first pass meets its shapes for the first
     # time (cuBLAS/cuDNN plans, the allocator) and is not timed
     for label in ("sample_independent (warm-up)", "sample_independent"):
-        fps_ind = drive(label, lambda: pipe.sample_independent(
-            make_windows(ae_cfg, 2, 1, seed), gen, batch=2), 2 * t)
+        with warm_up() if "warm-up" in label else contextlib.nullcontext():
+            fps_ind = drive(label, lambda: pipe.sample_independent(
+                make_windows(ae_cfg, 2, 1, seed), gen, batch=2), 2 * t)
     for label in ("sample_long (warm-up)", "sample_long"):
-        fps_long = drive(label, lambda: pipe.sample_long(
-            make_windows(ae_cfg, 3, 1, seed + 1), gen,
-            noised_start_ratio=0.25, noised_start_source="ref"), 3 * t)
+        with warm_up() if "warm-up" in label else contextlib.nullcontext():
+            fps_long = drive(label, lambda: pipe.sample_long(
+                make_windows(ae_cfg, 3, 1, seed + 1), gen,
+                noised_start_ratio=0.25, noised_start_source="ref"), 3 * t)
+    if longvid:
+        # one UNet call per DDIM step: 100 at B = 2 for the two windows of
+        # sample_independent, 25 at B = 1 for each of sample_long's three
+        for name, b, calls in (("sample_independent", 2, 100),
+                               ("sample_long", 1, 75)):
+            got = by_shape[prefix + name]
+            if got.get("onepass_attention") != longvid_onepass(b, calls):
+                raise AssertionError(f"{prefix}{name}: one-pass launches "
+                                     f"{got.get('onepass_attention')}, "
+                                     f"predicted {longvid_onepass(b, calls)}")
+        return {"launches": launches, "launches_by_shape": by_shape,
+                "sample_independent_fps": fps_ind,
+                "sample_long_fps": fps_long, "pipe": pipe}
     with modular_attention():
         for label in ("modular sample_independent (warm-up)",
                       "modular sample_independent"):
@@ -1538,37 +2004,50 @@ def main_path_phase(torch, seed: int) -> dict:
             "modular_sample_independent_fps": fps_mod, "pipe": pipe}
 
 
-def cli_phase(torch, seed: int) -> dict:
+def cli_phase(torch, seed: int, config: str | None = None) -> dict:
     """The ``sample`` command at full width, from its own parser to the
-    video file, on synthetic uint8 windows."""
+    video file, on synthetic uint8 windows. ``config``: a ``--config``
+    file; base_longvid.yaml's launches are held to LONGVID_PATH and the
+    one-pass counts by shape to LONGVID_ONEPASS_PER_CALL."""
     from moditalker_tpu_torch import cli
     from moditalker_tpu_torch.ops.kernels import reset_launch_counts
 
     windows, steps = 4, 25
+    longvid = config == LONGVID_YAML
+    what = "longvid cli sample" if longvid else "cli sample"
     with tempfile.TemporaryDirectory() as tmp:
         args = cli.build_parser().parse_args([
             "sample", "--frames-dir", "-", "--aligned-dir", "-", "--batch",
             "2", "--no-last-as-reference", "--sampling-steps", str(steps),
-            "--seed", str(seed), "--out-dir", tmp])
+            "--seed", str(seed), "--out-dir", tmp,
+            *(["--config", config] if config else [])])
         ae_cfg = cli._sample_configs(args)[0]
         reset_launch_counts()
         t0 = time.perf_counter()
         path = cli.sample_windows(args, make_windows(ae_cfg, windows, 1, seed))
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counts = check_launches("cli sample", FUSED_PATH)
+        counts = check_launches(what, LONGVID_PATH if longvid else FUSED_PATH)
+        by_shape = launches_by_shape()
+        # one UNet call at batch 2 per DDIM step of each of the 2 batches
+        if longvid and by_shape["onepass_attention"] != longvid_onepass(
+                2, steps * windows // 2):
+            raise AssertionError(f"{what}: one-pass launches "
+                                 f"{by_shape['onepass_attention']}")
         frames = windows * ae_cfg.timesteps
         if not path.startswith(tmp) or os.path.getsize(path) == 0:
-            raise AssertionError(f"cli sample: no video at {path}")
+            raise AssertionError(f"{what}: no video at {path}")
         if path.endswith(".npz"):   # no ffmpeg on this host: a frame dump
             with np.load(path) as dump:
-                check_frames(dump["frames"][None], frames, ae_cfg, "cli sample")
+                check_frames(dump["frames"][None], frames, ae_cfg, what)
         elif not path.endswith(".mp4"):
-            raise AssertionError(f"cli sample: unexpected file {path}")
-    log(f"cli sample (pipeline built from the seed, {windows} windows at "
+            raise AssertionError(f"{what}: unexpected file {path}")
+    log(f"{what} (pipeline built from the seed, {windows} windows at "
         f"batch 2, DDIM-{steps}): {frames} frames in {dt:.2f} s incl. the "
-        f"build, wrote {os.path.basename(path)}; launches {counts}")
-    return {"launches": counts, "seconds_with_build": dt}
+        f"build, wrote {os.path.basename(path)}; launches {counts}, by "
+        f"shape {by_shape}")
+    return {"launches": counts, "launches_by_shape": by_shape,
+            "seconds_with_build": dt}
 
 
 def atom_phase(torch, seed: int) -> dict:
@@ -2031,11 +2510,14 @@ def align_phase(torch, seed: int, lm68_atom: np.ndarray) -> dict:
             "chunk_bound_ms": chunk_bound_ms}
 
 
-def profile_phase(torch, pipe, seed: int) -> dict:
+def profile_phase(torch, pipe, seed: int,
+                  parts=("unet_step", "extract", "decode"),
+                  label: str = "") -> dict:
     """Where a window's time goes: one UNet step at B = 2 and one AE extract
-    and decode at B = 2, each timed on the host clock (after a warm-up, over
-    3 runs, synchronised) and traced once with torch.profiler for the
-    device's busy time, its kernel count and its top kernels."""
+    and decode at B = 2 (those of ``parts``), each timed on the host clock
+    (after a warm-up, over 3 runs, synchronised) and traced once with
+    torch.profiler for the device's busy time, its kernel count and its
+    top kernels."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     cfg = pipe.ae_cfg
     b, L = 2, cfg.latent_len
@@ -2046,14 +2528,15 @@ def profile_phase(torch, pipe, seed: int) -> dict:
     video = torch.randint(0, 256, (b, cfg.timesteps, cfg.resolution,
                                    cfg.resolution, 3), generator=g,
                           device="cuda", dtype=torch.uint8)
-    parts = {
+    fns = {
         "unet_step": lambda: pipe.ddpm.model(x, cond, ic, t),
         "extract": lambda: pipe.ae_rgb.extract(pipe._in(video)),
         "decode": lambda: pipe.ae_rgb.decode_from_sample(x),
     }
     result = {}
     with torch.inference_mode():
-        for name, fn in parts.items():
+        for name in parts:
+            fn = fns[name]
             fn()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2065,9 +2548,9 @@ def profile_phase(torch, pipe, seed: int) -> dict:
             result[name] = {"wall_ms": wall_ms, **{
                 k: traced[k] for k in ("device_busy_ms", "kernels", "top")}}
             busy_ms = traced["device_busy_ms"]
-            log(f"profile {name} at B={b}: wall {wall_ms:.2f} ms, device "
-                f"busy {busy_ms:.2f} ms, {result[name]['kernels']} kernels; "
-                f"top {result[name]['top']}")
+            log(f"profile {label}{name} at B={b}: wall {wall_ms:.2f} ms, "
+                f"device busy {busy_ms:.2f} ms, {result[name]['kernels']} "
+                f"kernels; top {result[name]['top']}")
     return result
 
 
@@ -2441,7 +2924,7 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     logs = _build.build(sorted({*SOURCES.values(),
                                 *FLOAT32_SOURCES.values()}))
     log(f"build: {time.perf_counter() - t0:.1f} s")
@@ -2472,15 +2955,44 @@ def main() -> int:
         # tiny-L gate (at B = 1 and 2 heads it would not)
         reference_phase(torch, args.seed, "modular", MODULAR_PATH, heads=4,
                         batch=2)
+    longvid = {"reference": {
+        "fused": reference_phase(torch, args.seed, "longvid fused",
+                                 LONGVID_PATH, model_channels=256)}}
+    with modular_attention():
+        longvid["reference"]["modular"] = reference_phase(
+            torch, args.seed, "longvid modular", MODULAR_PATH, heads=4,
+            batch=2, model_channels=256)
+    longvid["unet_ddim2"] = longvid_unet_check(torch, args.seed)
     result = main_path_phase(torch, args.seed)
+    longvid_result = main_path_phase(torch, args.seed, longvid=True)
+    # the AEs' launches are those of the 128-channel path
+    for path in ("sample_independent", "sample_long"):
+        for name in ("divided_space_attention", "divided_time_attention"):
+            if (longvid_result["launches_by_shape"][f"longvid {path}"][name]
+                    != result["launches_by_shape"][path][name]):
+                raise AssertionError(f"longvid {path}: {name}'s launches "
+                                     f"differ from the 128-channel path's")
+    longvid["profile"] = profile_phase(torch, longvid_result.pop("pipe"),
+                                       args.seed, ("unet_step",), "longvid ")
+    torch.cuda.empty_cache()
+    # the command keeps its last pipeline: the 128-channel one stays, as
+    # it stayed before the 256-channel paths, under the later phases' peaks
+    longvid_cli = cli_phase(torch, args.seed, LONGVID_YAML)
     cli_result = cli_phase(torch, args.seed)
     atom = atom_phase(torch, args.seed)
     audio = audio_phase(torch, args.seed)
     align = align_phase(torch, args.seed, audio.pop("lm68_atom"))
     train_diff = train_diffusion_phase(torch, args.seed)
     train_diff_modular = train_diffusion_phase(torch, args.seed, modular=True)
+    train_longvid = train_diffusion_longvid_phase(torch, args.seed)
     train_atom = train_atom_phase(torch, args.seed)
     first_stage = train_first_stage_phase(torch, args.seed)
+    variants = {
+        "base.yaml": first_stage_variant_phase(
+            torch, args.seed, "configs/autoencoder/base.yaml"),
+        "base_ldmk.yaml --landmark": first_stage_variant_phase(
+            torch, args.seed, "configs/autoencoder/base_ldmk.yaml",
+            landmark=True)}
     i3d = i3d_phase(torch, args.seed)
     gold = golden_phase(torch, args.seed)
     distributed = distributed_phase(torch, args.seed)
@@ -2488,16 +3000,22 @@ def main() -> int:
     prof = profile_phase(torch, pipe, args.seed)
     profiling = profiling_phase(torch, pipe, args.seed)
 
-    timed = {path: counts for path, counts in result["launches"].items()
-             if "warm-up" not in path}
+    timed = {path: counts for path, counts in {
+        **result["launches"], **longvid_result["launches"]}.items()
+        if "warm-up" not in path}
     timed["cli sample"] = cli_result["launches"]
+    timed["longvid cli sample"] = longvid_cli["launches"]
     timed["atom run_directory"] = atom["launches"]
     timed["audio"] = audio["launches"]
     timed["align"] = align["launches"]
     timed["train-diffusion"] = train_diff["launches"]
     timed["train-diffusion modular"] = train_diff_modular["launches"]
+    for what, run in train_longvid["runs"].items():
+        timed[what] = run["launches"]
     timed["train-atom"] = train_atom["launches"]
     timed["train-first-stage"] = first_stage["launches"]
+    for what, run in variants.items():
+        timed[f"train-first-stage {what}"] = run["launches"]
     timed["golden record"] = gold["launches"]
     timed["head_parallel_attention"] = distributed["tp_launches"]
     timed["sample --data-parallel 1"] = distributed["sample_launches"]
@@ -2519,10 +3037,16 @@ def main() -> int:
         row["launches_by_path"] = {p: c[row["name"]] for p, c in timed.items()}
         row["launches"] = sum(row["launches_by_path"].values())
         by_path = {**result["launches_by_shape"],
+                   **longvid_result["launches_by_shape"],
+                   "longvid cli sample": longvid_cli["launches_by_shape"],
                    "train-diffusion": train_diff["launches_by_shape"],
                    "train-diffusion modular":
                        train_diff_modular["launches_by_shape"],
+                   **{what: run["launches_by_shape"]
+                      for what, run in train_longvid["runs"].items()},
                    "train-first-stage": first_stage["launches_by_shape"],
+                   **{f"train-first-stage {what}": run["launches_by_shape"]
+                      for what, run in variants.items()},
                    "golden record": gold["launches_by_shape"]}
         row["launches_by_shape"] = {
             p: by[row["name"]] for p, by in by_path.items()
@@ -2530,6 +3054,8 @@ def main() -> int:
     kernels["fused_attention"]["note"] = (
         "op-level only: reached through ops.attention.sdpa_fused, which no "
         "model path calls; launched by the kernels phase")
+    seconds = time.perf_counter() - t_start
+    log(f"every phase passed in {seconds:.1f} s, the build included")
     print(json.dumps({"frames_per_s": {
         "sample_independent": result["sample_independent_fps"],
         "sample_long": result["sample_long_fps"],
@@ -2561,6 +3087,15 @@ def main() -> int:
             "iterations_per_s", "clips_per_s", "g_step_ms", "d_step_ms",
             "peak_gib", "plain_backward_ms", "plain_backward_share",
             "card_vs_cpu", "trace")},
+        "longvid": {
+            **longvid,
+            "frames_per_s": {
+                "sample_independent": longvid_result["sample_independent_fps"],
+                "sample_long": longvid_result["sample_long_fps"]},
+            "launches_by_shape": longvid_result["launches_by_shape"],
+            "cli_sample": longvid_cli,
+            "train_diffusion": train_longvid},
+        "first_stage_variants": variants,
         "i3d": i3d,
         "golden": {k: gold[k] for k in (
             "convert_s", "lpips_card_vs_cpu_rel_err", "record_s", "check_s",
@@ -2568,7 +3103,8 @@ def main() -> int:
         "distributed": {k: distributed[k] for k in ("init_s", "step_exact",
                                                     "tp")},
         "profiling": profiling,
-        "gradients": grads, "card": card, "profile": prof}))
+        "gradients": grads, "card": card, "profile": prof,
+        "seconds": seconds}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -176,6 +176,14 @@ class Config:
     mtov_train: MtovTrainConfig = MtovTrainConfig()
 
 
+def longvid_config() -> Config:
+    """base_longvid.yaml variant: model_channels 256."""
+    cfg = Config()
+    return dataclasses.replace(
+        cfg, mtov_unet=dataclasses.replace(cfg.mtov_unet, model_channels=256)
+    )
+
+
 # --------------------------------------------------------------- YAML layer
 #
 # Two accepted file formats, as in the JAX package:

@@ -39,6 +39,7 @@ from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
 from moditalker_tpu_torch.ops.kernels import packed_attention as tpack
 
+from .torch_stubs import stub_launches  # noqa: F401 (fixture)
 from .torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 AXES = ["space", "time"]
@@ -124,37 +125,6 @@ def test_float32_route_limits_pass_sum_order_and_fail_a_bf16_result(axis):
     tkernels.check_float32_route(name, back, want)
     with pytest.raises(AssertionError, match="float32 route"):
         tkernels.check_float32_route(name, want.bfloat16().float(), want)
-
-
-class _StubLib:
-    """Records each entry point's call and returns success."""
-
-    def __init__(self, calls):
-        self.calls = calls
-
-    def __getattr__(self, name):
-        def entry(*args):
-            self.calls.append(name)
-            return 0
-        return entry
-
-
-@pytest.fixture
-def stub_launches(monkeypatch):
-    """Every wrapper takes its launch branch for CPU tensors, and every
-    library, bf16 and float32, is a stub that records its calls."""
-    calls = []
-    monkeypatch.setattr(tkernels, "on_card", lambda t: True)
-    monkeypatch.setattr(tkernels, "cuda_stream", lambda t: 0)
-    for mod, names in ((tdiv, ("_lib", "_lib_f32")),
-                       (tpack, ("_lib", "_lib_f32")),
-                       (tflash, ("_lib", "_lib_f32", "_tiny_lib",
-                                 "_tiny_lib_f32"))):
-        for lib in names:
-            monkeypatch.setattr(mod, lib, lambda: _StubLib(calls))
-    tkernels.reset_launch_counts()
-    yield calls
-    tkernels.reset_launch_counts()
 
 
 @pytest.mark.parametrize("axis", AXES)

@@ -55,6 +55,7 @@ from moditalker_tpu_torch.utils.convert import (convert_ae_params,
                                                 convert_unet_params)
 
 from .test_torch_mtov_models import TINY_AE, TINY_DIFF, TINY_UNET, jax_params
+from .torch_stubs import stub_launches  # noqa: F401 (fixture)
 
 L = 48          # tiny latent length: 4·4 + 2·4·4
 GRAD_TOL = dict(rtol=0, atol=1e-5)
@@ -145,37 +146,6 @@ def test_sdpa_and_unet_attention_carry_the_gradient():
 
 
 # ------------------------------------------------------------ routing
-class _StubLib:
-    """Stands in for a kernel library: records each entry point's call and
-    returns success, writing nothing."""
-
-    def __init__(self, calls):
-        self.calls = calls
-
-    def __getattr__(self, name):
-        def entry(*args):
-            self.calls.append(name)
-            return 0
-        return entry
-
-
-@pytest.fixture
-def stub_launches(monkeypatch):
-    """Every wrapper takes its launch branch for CPU tensors, and the
-    launches go to stub libraries."""
-    calls = []
-    monkeypatch.setattr(tkernels, "on_card", lambda t: True)
-    monkeypatch.setattr(tkernels, "cuda_stream", lambda t: 0)
-    for mod in (tdiv, tpack, tflash):
-        monkeypatch.setattr(mod, "_lib", lambda: _StubLib(calls))
-        monkeypatch.setattr(mod, "_lib_f32", lambda: _StubLib(calls))
-    monkeypatch.setattr(tflash, "_tiny_lib", lambda: _StubLib(calls))
-    monkeypatch.setattr(tflash, "_tiny_lib_f32", lambda: _StubLib(calls))
-    tkernels.reset_launch_counts()
-    yield calls
-    tkernels.reset_launch_counts()
-
-
 def test_float32_reaches_each_kernel_branch(stub_launches):
     """A float32 operand at a gated shape goes to the kernel (never to the
     plain version), is counted once, comes back float32, and keeps its
