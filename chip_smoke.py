@@ -44,11 +44,23 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              ``sdpa_fused`` (no model calls it), and with ragged query rows
              against one whole and one short 128-key tile through its own
              op ``fused_attention`` (``sdpa_fused`` sends fewer than 256 keys
-             to ``sdpa``);
+             to ``sdpa``). The divided space and time backward kernels at
+             train-first-stage's qkv [1, 16, 1024, 1536], float32 and bf16:
+             dqkv against the float32 plain backward (the written-out
+             adjoints) within the same three limits, in float32 also
+             against ``divided_attention_backward_float32_route`` within
+             ``FLOAT32_ROUTE_LIMITS``, two calls equal bit for bit; each
+             timed beside the plain backward, the recompute that ran
+             before (``recompute_ms``) and the library's attention backward
+             alone;
    gradients — each differentiable wrapper's input gradient (its
              ``autograd.Function``) against autograd through the plain
-             version in float32 (within GRAD_LIMIT), its ``grad_fn``, and
-             the peak memory of the recomputing backward;
+             version in float32, its ``grad_fn``, and the peak memory of
+             the backward: the packed, one-pass and tiny-L ones within
+             GRAD_LIMIT; the space and time ones, which launch their
+             backward kernels once a gradient, within their rows' limits
+             and those of their float32 route, two gradients equal bit for
+             bit;
 3. reference — one DDIM-2 window at a small depth but full spatial size (so
              every kernel gate passes) on the card in bf16 against the same
              weights and draws on the CPU in float32 through the plain path,
@@ -149,9 +161,12 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              float32, a synthetic clip, weights from ``--seed``): one G and
              one D cycle untimed, two of each timed (iterations/s, clips/s,
              peak memory, launches by shape: the divided space and time
-             kernels and no other), G and D micro-steps timed apart, one G
-             step traced with the device time of the space and time
-             backwards (the plain version's vjp, recomputed) in it; then a
+             kernels and their backward kernels, 16 + 16 of those per G
+             micro-step and none per D micro-step, and no other, every one
+             on float32 operands; no
+             ``RecomputeThroughPlain`` backward), G and D micro-steps timed
+             apart, one G step traced with the device time of the space
+             and time backward kernels in it; then a
              G and a D cycle at small depth but full spatial size on the
              card against the CPU (same weights, clips and frame draws)
              within FIRST_STAGE_LIMITS, and the G cycle with the gradient
@@ -284,10 +299,12 @@ TRAIN_BATCH = 10
 # a kernel wrapper's input gradient on the card (its autograd.Function: the
 # kernel forward, the plain version recomputed backward) against autograd
 # through the plain version, float32, TF32 off: max abs difference over max
-# |plain gradient|. The packed and divided backwards are the plain version's
-# own vjp (they read 0), the one-pass and tiny-L ones the JAX package's
-# adjoints, which sum in another order (one-pass at [80, 2048, 32] reads
-# 1.57e-6 to 2.12e-6 over --seed 0..3 on an H100)
+# |plain gradient|. The packed backward is the plain version's own vjp (it
+# reads 0), the one-pass and tiny-L ones the JAX package's adjoints, which
+# sum in another order (one-pass at [80, 2048, 32] reads 1.57e-6 to 2.12e-6
+# over --seed 0..3 on an H100). The divided space and time backwards are
+# kernels of their own, held to their rows' limits instead (``BF16_LIMITS``,
+# ``QUANTILE_LIMITS`` and ``FLOAT32_ROUTE_LIMITS``)
 GRAD_LIMIT = 5e-6
 
 # one train-diffusion step at a small depth (float32, TF32 off) on the card
@@ -319,9 +336,14 @@ ADAN_ILL = 1e-4
 ADAN_BIG = 25
 
 # which kernels the first-stage trainer launches: its AE's divided space and
-# time attention (the AE's pooling transformer, LPIPS and the
-# discriminators reach none)
-FIRST_STAGE_PATH = {"divided_space_attention", "divided_time_attention"}
+# time attention, forward and backward (the AE's pooling transformer, LPIPS
+# and the discriminators reach none); the backwards once per attention of a
+# G micro-step, never in a D micro-step (the AE runs there without a graph)
+FIRST_STAGE_PATH = {"divided_space_attention", "divided_time_attention",
+                    "divided_space_attention_backward",
+                    "divided_time_attention_backward"}
+FIRST_STAGE_BACKWARDS = ("divided_space_attention_backward",
+                         "divided_time_attention_backward")
 
 # one first-stage G cycle and D cycle at a small depth (float32, TF32 off)
 # on the card against the CPU: relative errors of the loss terms (largest
@@ -453,6 +475,19 @@ def launches_by_shape() -> dict:
             for name, by in LAUNCHES_BY_SHAPE.items() if by}
 
 
+def check_float32_launches(what: str, by_shape: dict) -> None:
+    """Raises unless every launch since the last reset was on float32
+    operands (the float32 entry points: no cast pass exists to take them);
+    ``by_shape`` is ``launches_by_shape()``."""
+    from moditalker_tpu_torch.ops.kernels import FLOAT32_LAUNCHES_BY_SHAPE
+
+    f32_by_shape = {name: {str(list(sh)): n for sh, n in sorted(by.items())}
+                    for name, by in FLOAT32_LAUNCHES_BY_SHAPE.items() if by}
+    if f32_by_shape != by_shape:
+        raise AssertionError(f"{what}: launches not on float32 operands: "
+                             f"{by_shape} against float32 {f32_by_shape}")
+
+
 # ------------------------------------------------------------------ kernels
 def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     import torch.nn.functional as F
@@ -465,6 +500,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                                                   FLOAT32_ROUTE_LIMITS,
                                                   check_float32_route)
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    from moditalker_tpu_torch.ops.kernels import divided_backward as db
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
     from moditalker_tpu_torch.ops.kernels import packed_attention as pk
 
@@ -735,24 +771,99 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         lambda: fa.fused_attention_reference(q, k, v, scale),
         q, k, v, scale))
     # float32 at B = 1, the shape train-first-stage gives them: its AE
-    # trains through them, so beside each row the backward of one call as
-    # RecomputeThroughPlain runs it (the plain version recomputed, then its
-    # vjp), which a backward kernel would replace
+    # trains through them
     gen_fs = torch.Generator(device=dev).manual_seed(seed + 5)
-    for axis in ("space", "time"):
-        row = divided_row(axis, 1, f, n, g=gen_fs, dtype=torch.float32)
+    rows += [divided_row(axis, 1, f, n, g=gen_fs, dtype=f32)
+             for axis in ("space", "time")]
+
+    def backward_row(axis, g, dtype):
+        """The backward kernel at train-first-stage's qkv [1, 16, 1024,
+        1536]: dqkv against the float32 plain backward (the written-out
+        adjoints) and, in float32, against its float32 route's function;
+        two calls equal bit for bit. Timed beside the plain backward, the
+        recompute it replaced (``RecomputeThroughPlain``: the plain forward
+        again, then its vjp) and the library's attention backward alone
+        (``torch.autograd.grad`` through ``scaled_dot_product_attention``
+        on the rotated, head-split float32 q, k, v)."""
         sin, cos = (tables(rotary.axial_rotary_sincos(32, n // 32, dh))
                     if axis == "space" else (t_sin, t_cos))
-        x = torch.randn((1, f, n, 3 * hd), generator=gen_fs,
-                        device=dev).requires_grad_()
-        cot = torch.randn((1, f, n, hd), generator=gen_fs, device=dev)
-        plain = lambda t, sin=sin, cos=cos, axis=axis: \
-            dv.divided_attention_reference(t, sin, cos, axis, heads, dh,
-                                           scale, use_flash=False)
-        row["plain_backward_ms"] = device_ms(
-            torch, lambda: torch.autograd.grad(plain(x), x, cot))
-        rows.append(row)
-        del x, cot
+        qkv = torch.randn((1, f, n, 3 * hd), generator=g,
+                          device=dev).to(dtype)
+        cot = torch.randn((1, f, n, hd), generator=g, device=dev).to(dtype)
+        out = dv.divided_attention(qkv, sin, cos, axis, heads, dh, scale)
+        flat = (f, n, -1)
+        if axis == "space":
+            kern = lambda: dv.space_attention_backward_cuda(
+                qkv.reshape(flat), out.reshape(flat), cot.reshape(flat), sin,
+                cos, heads, dh, scale).reshape(qkv.shape)
+        else:
+            kern = lambda: dv.time_attention_backward_cuda(
+                qkv, cot, sin, cos, heads, dh, scale)
+        args = (qkv, out, cot, sin, cos, axis, heads, dh, scale)
+        plain = lambda: db.divided_attention_backward_reference(*args)
+        name = f"divided_{axis}_attention_backward"
+        got, again, want = kern(), kern(), plain()
+        if got.dtype != dtype or got.shape != qkv.shape:
+            raise AssertionError(f"{name}: {got.dtype} {list(got.shape)}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two calls on the same inputs "
+                                 f"differ")
+        rel_max, rel_rms, rel_q = check_bf16(name, got, want)
+        err = dict(max_abs_err=(got.float() - want).abs().max().item(),
+                   rel_max_err=rel_max, rel_rms_err=rel_rms, rel_q_err=rel_q,
+                   dtype=str(dtype).replace("torch.", ""),
+                   deterministic=True)
+        if dtype == f32:
+            err["route_rel_err"] = check_float32_route(
+                name, got, db.divided_attention_backward_float32_route(*args))
+            err["bf16_rounded_share"] = bf16_rounded_share(got)
+            if err["bf16_rounded_share"] >= 0.01:
+                raise AssertionError(f"{name}: a float32 dqkv rounded to "
+                                     f"bf16")
+        del got, again, want
+        x = qkv.detach().float().requires_grad_()
+        recompute = lambda: torch.autograd.grad(
+            dv.divided_attention_reference(x, sin, cos, axis, heads, dh,
+                                           scale, use_flash=False),
+            x, cot.float())
+        q, k, v = (t.requires_grad_() for t in
+                   head_split_rotated(qkv.float(), sin, cos, axis))
+        lib_out = F.scaled_dot_product_attention(q, k, v, scale=scale)
+        lib_cot = torch.randn(lib_out.shape, generator=g, device=dev)
+        library = lambda: torch.autograd.grad(lib_out, (q, k, v), lib_cot,
+                                              retain_graph=True)
+        seq = n if axis == "space" else f
+        nseq = f * n // seq
+        size = qkv.element_size()
+        nbytes = (2 * qkv.numel() + cot.numel()
+                  + (out.numel() if axis == "space" else 0)) * size
+        return dict(
+            name=name, route="cuda",
+            source="moditalker_tpu_torch/csrc/divided_backward.cu",
+            replaces="moditalker_tpu/ops/pallas/divided_attention.py:317",
+            shape=list(qkv.shape), **err,
+            ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
+            recompute_ms=device_ms(torch, recompute),
+            library_ms=device_ms(torch, library),
+            # the space kernels read the pair table, half of sin and cos
+            nbytes=nbytes + (1 if axis == "space" else 2) * sin.numel() * 4,
+            # dV, dP, S, dQ, dK: five products of 2·seq²·dh
+            flops=10.0 * nseq * heads * seq * seq * dh,
+            # one ex2 per score in each sweep: space recomputes S three
+            # times (row statistics, dq, dk and dv), time once
+            scores=(3 if axis == "space" else 1) * nseq * heads * seq * seq)
+
+    # the backward kernels: float32 (the trainers') first, the main path's
+    # rows of the kernels line; then bf16 at the same shape
+    gen_bw = torch.Generator(device=dev).manual_seed(seed + 8)
+    rows.append(dict(backward_row("space", gen_bw, f32),
+                     design="mma.sync; a dq kernel (row statistics, then "
+                            "dq) and a dk/dv kernel, 128-row blocks over "
+                            "128-row tiles, the next tile's loads in flight"))
+    rows.append(dict(backward_row("time", gen_bw, f32),
+                     design="one warp per (b, n, head), mma.sync"))
+    rows += [backward_row(axis, gen_bw, torch.bfloat16)
+             for axis in ("space", "time")]
     # float32 at B = 1, the shapes a full-width golden record gives the
     # UNet's packed and one-pass kernels
     rows += [packed_row(1, l, g=gen_fs, dtype=f32),
@@ -794,9 +905,10 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                f" (limits {FLOAT32_ROUTE_LIMITS[row['name']]}), "
                f"bf16-rounded share {row['bf16_rounded_share']:.2e}"
                if "route_rel_err" in row else "")
-            + (f"; the plain version's backward of one call "
-               f"{row['plain_backward_ms']:.4f} ms"
-               if "plain_backward_ms" in row else "")
+            + (f"; two calls equal bit for bit, the plain forward "
+               f"recomputed and its vjp (what ran before) "
+               f"{row['recompute_ms']:.4f} ms" if "recompute_ms" in row
+               else "")
             + (f", before the redesign {before:.4f} ms" if before else ""))
     return rows
 
@@ -805,15 +917,23 @@ def gradient_phase(torch, seed: int) -> list[dict]:
     """Each differentiable kernel wrapper under a gradient, float32: its
     output must carry the ``autograd.Function``'s ``grad_fn`` and the kernel
     must have launched once; its input gradients must agree with autograd
-    through the plain version within GRAD_LIMIT. Packed and one-pass at the
-    shapes train-diffusion's UNet gives them, space, time and tiny-L at
-    B = 1 (the frozen AEs run them forward only). The packed, space and
-    time backwards are the plain version's vjp, so for them this checks the
-    wiring only; the one-pass and tiny-L backward is ``sdpa_adjoints``,
-    written out, an independent computation."""
+    through the plain version. Packed and one-pass at the shapes
+    train-diffusion's UNet gives them, space, time and tiny-L at B = 1 (the
+    shape train-first-stage gives space and time). The space and time
+    backwards are kernels (``DividedAttention``: each launched once per
+    gradient), held to their rows' limits against autograd through the
+    plain version (``BF16_LIMITS``, ``QUANTILE_LIMITS``) and against their
+    float32 route's function (``FLOAT32_ROUTE_LIMITS``), and a second
+    gradient of the same output must equal the first bit for bit. The
+    packed backward is the plain version's vjp, so for it this checks the
+    wiring only (within GRAD_LIMIT); the one-pass and tiny-L backward is
+    ``sdpa_adjoints``, written out, an independent computation (within
+    GRAD_LIMIT)."""
     from moditalker_tpu_torch.ops import rotary
-    from moditalker_tpu_torch.ops.kernels import LAUNCHES
+    from moditalker_tpu_torch.ops.kernels import (LAUNCHES, check_bf16,
+                                                  check_float32_route)
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    from moditalker_tpu_torch.ops.kernels import divided_backward as db
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
     from moditalker_tpu_torch.ops.kernels import packed_attention as pk
 
@@ -828,11 +948,15 @@ def gradient_phase(torch, seed: int) -> list[dict]:
         return [torch.from_numpy(t).to(dev) for t in sin_cos]
 
     def divided(axis, sin, cos):
+        def route(x, out, g):
+            return db.divided_attention_backward_float32_route(
+                x, out, g, sin, cos, axis, heads, dh, dh**-0.5)
         return ([randn(1, f, n, 3 * heads * dh)],
                 lambda x: dv.divided_attention(x, sin, cos, axis, heads, dh,
                                                dh**-0.5),
                 lambda x: dv.divided_attention_reference(
-                    x, sin, cos, axis, heads, dh, dh**-0.5, use_flash=False))
+                    x, sin, cos, axis, heads, dh, dh**-0.5, use_flash=False),
+                route)
 
     cases = {
         "divided_space_attention": divided(
@@ -853,8 +977,9 @@ def gradient_phase(torch, seed: int) -> list[dict]:
             lambda *x: fa.tiny_attention_reference(*x, dh**-0.5)),
     }
     rows = []
-    for name, (inputs, kern, plain) in cases.items():
+    for name, (inputs, kern, plain, *route) in cases.items():
         grads, peaks, cot, fn_name = {}, {}, None, None
+        backward = f"{name}_backward" if route else None
         for which, fn in (("kernel", kern), ("plain", plain)):
             xs = [x.detach().requires_grad_() for x in inputs]
             torch.cuda.synchronize()
@@ -863,30 +988,62 @@ def gradient_phase(torch, seed: int) -> list[dict]:
             out = fn(*xs)
             if which == "kernel":
                 fn_name = type(out.grad_fn).__name__
+                want_fn = ("DividedAttentionBackward" if route else
+                           ("RecomputeThroughPlainBackward",
+                            "FlashSdpaBackward"))
                 if (LAUNCHES[name] != before + 1
-                        or fn_name not in ("RecomputeThroughPlainBackward",
-                                           "FlashSdpaBackward")):
+                        or fn_name not in want_fn):
                     raise AssertionError(
                         f"{name}: launches {LAUNCHES[name] - before}, "
                         f"grad_fn {fn_name}")
             if cot is None:
                 cot = torch.randn(out.shape, generator=gen, device=dev)
+            if which == "kernel" and route:
+                launched = LAUNCHES[backward]
+                grads["again"] = torch.autograd.grad(out, xs, cot,
+                                                     retain_graph=True)
+                saved = out.detach()
             grads[which] = torch.autograd.grad(out, xs, cot)
             torch.cuda.synchronize()
             peaks[which] = torch.cuda.max_memory_allocated() / 2**30
-        err = max(((a - b).abs().max() / b.abs().max()).item()
-                  for a, b in zip(grads["kernel"], grads["plain"]))
-        log(f"gradient {name} at {[list(x.shape) for x in inputs]} float32: "
-            f"grad_fn {fn_name}, input gradient vs autograd through the "
-            f"plain version {err:.3e} (limit {GRAD_LIMIT}); peak memory "
-            f"{peaks['kernel']:.2f} GiB through the kernel, "
-            f"{peaks['plain']:.2f} through the plain version")
-        if not err <= GRAD_LIMIT:
-            raise AssertionError(f"{name}: the gradient through the kernel "
-                                 f"disagrees with the plain version's")
-        rows.append({"name": name, "shape": [list(x.shape) for x in inputs],
-                     "grad_fn": fn_name, "rel_max_err": err,
-                     "peak_gib": peaks})
+        row = {"name": name, "shape": [list(x.shape) for x in inputs],
+               "grad_fn": fn_name, "peak_gib": peaks}
+        if route:
+            if LAUNCHES[backward] != launched + 2:
+                raise AssertionError(f"{backward}: launched "
+                                     f"{LAUNCHES[backward] - launched} "
+                                     f"times for two gradients")
+            (got,), (want,) = grads["kernel"], grads["plain"]
+            if not torch.equal(got, grads["again"][0]):
+                raise AssertionError(f"{backward}: two gradients of the "
+                                     f"same output differ")
+            row["rel_err"] = check_bf16(backward, got, want)
+            row["route_rel_err"] = check_float32_route(
+                backward, got, route[0](inputs[0], saved, cot))
+            log(f"gradient {name} at {row['shape']} float32: grad_fn "
+                f"{fn_name}, the backward kernel launched once a gradient; "
+                f"input gradient vs autograd through the plain version "
+                f"max / rms / quantile "
+                f"{'/'.join(f'{e:.3e}' for e in row['rel_err'])}, vs its "
+                f"float32 route's function "
+                f"{'/'.join(f'{e:.3e}' for e in row['route_rel_err'])}; two "
+                f"gradients equal bit for bit; peak memory "
+                f"{peaks['kernel']:.2f} GiB through the kernels, "
+                f"{peaks['plain']:.2f} through the plain version")
+        else:
+            err = max(((a - b).abs().max() / b.abs().max()).item()
+                      for a, b in zip(grads["kernel"], grads["plain"]))
+            log(f"gradient {name} at {row['shape']} float32: "
+                f"grad_fn {fn_name}, input gradient vs autograd through the "
+                f"plain version {err:.3e} (limit {GRAD_LIMIT}); peak memory "
+                f"{peaks['kernel']:.2f} GiB through the kernel, "
+                f"{peaks['plain']:.2f} through the plain version")
+            if not err <= GRAD_LIMIT:
+                raise AssertionError(f"{name}: the gradient through the "
+                                     f"kernel disagrees with the plain "
+                                     f"version's")
+            row["rel_max_err"] = err
+        rows.append(row)
     return rows
 
 
@@ -916,18 +1073,23 @@ def gradient_cut():
         def apply(x, forward, plain):
             return forward(x.detach())
 
+    class Divided:
+        @staticmethod
+        def apply(x, forward, backward):
+            return forward(x.detach())
+
     class Flash:
         @staticmethod
         def apply(q, k, v, scale, forward):
             return forward(q.detach(), k.detach(), v.detach(), scale)
 
-    kept = pk.RecomputeThroughPlain, dv.RecomputeThroughPlain, fa.FlashSdpa
-    pk.RecomputeThroughPlain = dv.RecomputeThroughPlain = Recompute
+    kept = pk.RecomputeThroughPlain, dv.DividedAttention, fa.FlashSdpa
+    pk.RecomputeThroughPlain, dv.DividedAttention = Recompute, Divided
     fa.FlashSdpa = Flash
     try:
         yield
     finally:
-        pk.RecomputeThroughPlain, dv.RecomputeThroughPlain, fa.FlashSdpa = kept
+        pk.RecomputeThroughPlain, dv.DividedAttention, fa.FlashSdpa = kept
 
 
 def seeded_state(torch, build, seed: int) -> dict:
@@ -1091,13 +1253,7 @@ def _train_diffusion(torch, seed: int, modular: bool) -> dict:
     dt = time.perf_counter() - t0
     counts = check_launches(what, expected)
     by_shape = launches_by_shape()
-    # every launch of the path on float32 operands (the float32 entry
-    # points: no cast pass exists to take them)
-    f32_by_shape = {name: {str(list(sh)): n for sh, n in sorted(by.items())}
-                    for name, by in FLOAT32_LAUNCHES_BY_SHAPE.items() if by}
-    if f32_by_shape != by_shape:
-        raise AssertionError(f"{what}: launches not on float32 operands: "
-                             f"{by_shape} against float32 {f32_by_shape}")
+    check_float32_launches(what, by_shape)
     if modular:
         dims = {sh[-1] for sh in FLOAT32_LAUNCHES_BY_SHAPE["onepass_attention"]}
         if not ({16, 32, 64} <= dims
@@ -1391,12 +1547,9 @@ def align_adan(torch, card, cpu, step: int, before: dict) -> int:
 
 
 @contextlib.contextmanager
-def plain_backward_events(torch):
-    """Every ``RecomputeThroughPlain`` backward in the block between two CUDA
-    events: yields the list of (start, end) pairs."""
-    from moditalker_tpu_torch.ops.kernels.autograd import \
-        RecomputeThroughPlain as fn
-
+def backward_events(torch, fn):
+    """Every backward of the ``autograd.Function`` ``fn`` in the block
+    between two CUDA events: yields the list of (start, end) pairs."""
     events, kept = [], vars(fn)["backward"]
 
     def backward(ctx, g):
@@ -1517,16 +1670,21 @@ def train_first_stage_phase(torch, seed: int) -> dict:
     disc_start −1; B = batch_size = 1, accum_iter = 3; float32), weights
     from ``seed``, on a synthetic clip: one G and one D cycle untimed, then
     two of each timed (iterations/s, clips/s, peak memory, launches by
-    shape: the divided space and time kernels and no other), every loss
-    finite; each micro-step of one more G and D cycle timed apart; one G
-    step traced, with the device time of the space and time backwards in
-    it (``plain_backward_events``); then ``first_stage_check``."""
+    shape: the divided space and time kernels and their backward kernels,
+    one of each per attention of a micro-step, the backwards in G
+    micro-steps only, and no other), every loss finite, no
+    ``RecomputeThroughPlain`` backward run; each micro-step of one more G
+    and D cycle timed apart; one G step traced, with the device time of the
+    space and time backwards in it (``backward_events`` around
+    ``DividedAttention``); then ``first_stage_check``."""
     import itertools
 
     from moditalker_tpu_torch.config import (MtovAEConfig, MtovLossConfig,
                                              MtovTrainConfig)
     from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
     from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.ops.kernels.autograd import (
+        DividedAttention, RecomputeThroughPlain)
     from moditalker_tpu_torch.train.mtov_first_stage import FirstStageTrainer
 
     ae_cfg, tc = MtovAEConfig(), MtovTrainConfig(seed=seed)
@@ -1542,11 +1700,20 @@ def train_first_stage_phase(torch, seed: int) -> dict:
     reset_launch_counts()
     iters = 2 * k * cycles
     t0 = time.perf_counter()
-    trainer.fit(itertools.repeat(batch), max_steps=2 * k + iters,
-                logger=losses, log_every=1, eval_every=10**9)
+    with backward_events(torch, RecomputeThroughPlain) as recomputed:
+        trainer.fit(itertools.repeat(batch), max_steps=2 * k + iters,
+                    logger=losses, log_every=1, eval_every=10**9)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = check_launches("train-first-stage", FIRST_STAGE_PATH)
+    check_float32_launches("train-first-stage", launches_by_shape())
+    per_step = 2 * ae_cfg.depth    # the encoder's blocks and the decoder's
+    want = {n: per_step * (iters // 2 if n in FIRST_STAGE_BACKWARDS
+                           else iters) for n in FIRST_STAGE_PATH}
+    if {n: c for n, c in counts.items() if c} != want or recomputed:
+        raise AssertionError(f"train-first-stage: launches {counts} "
+                             f"(want {want}), {len(recomputed)} "
+                             f"RecomputeThroughPlain backwards")
     by_shape = launches_by_shape()
     peak = torch.cuda.max_memory_allocated() / 2**30
     values = [v for row in losses.seen for v in row.values()]
@@ -1561,8 +1728,13 @@ def train_first_stage_phase(torch, seed: int) -> dict:
         trainer.step(video)
         torch.cuda.synchronize()
         step_ms[kind].append((time.perf_counter() - t) * 1e3)
-    with plain_backward_events(torch) as events:
+    with backward_events(torch, DividedAttention) as events, \
+            backward_events(torch, RecomputeThroughPlain) as recomputed:
         traced = trace(torch, lambda: trainer.step(video))
+    if len(events) != 2 * per_step or recomputed:   # space and time
+        raise AssertionError(f"train-first-stage G step: {len(events)} "
+                             f"divided backwards, {len(recomputed)} "
+                             f"RecomputeThroughPlain backwards")
     backward_ms = sum(s.elapsed_time(e) for s, e in events)
     share = backward_ms / traced["device_busy_ms"]
     per_iter = {n: c / iters for n, c in counts.items() if c}
@@ -1576,16 +1748,17 @@ def train_first_stage_phase(torch, seed: int) -> dict:
         f"the {iters} iterations {by_shape}; last losses {losses.seen[-2:]}")
     log_trace("train-first-stage G step (clip on the card)", traced)
     log(f"train-first-stage G step: {len(events)} space and time backwards "
-        f"(the plain version's vjp, recomputed) take {backward_ms:.2f} ms of "
-        f"its {traced['device_busy_ms']:.2f} ms device time ({share:.3f})")
+        f"(the backward kernels; no RecomputeThroughPlain backward) take "
+        f"{backward_ms:.2f} ms of its {traced['device_busy_ms']:.2f} ms "
+        f"device time ({share:.3f})")
     del trainer, video
     torch.cuda.empty_cache()
     check = first_stage_check(torch, seed)
     return {"launches": counts, "launches_by_shape": by_shape,
             "iterations_per_s": iters / dt, "clips_per_s": iters * b / dt,
             "g_step_ms": g_ms, "d_step_ms": d_ms, "peak_gib": peak,
-            "plain_backward_ms": backward_ms,
-            "plain_backward_share": share, "card_vs_cpu": check,
+            "backward_ms": backward_ms,
+            "backward_share": share, "card_vs_cpu": check,
             "trace": traced}
 
 
@@ -1598,8 +1771,10 @@ def first_stage_variant_phase(torch, seed: int, config: str,
     discriminators off (disc_start 1e8: every micro-step is a G step), at
     full width, B = 1, accumulation 3, float32, weights from ``seed``: one
     cycle untimed, two timed (iterations/s, clips/s, peak memory, launches
-    by shape: the divided space and time kernels, 2·depth of each a
-    micro-step, and no other), every loss finite, the discriminators and
+    by shape: the divided space and time kernels and their backward
+    kernels, 2·depth of each a micro-step, and no other; no
+    ``RecomputeThroughPlain`` backward), every loss finite, the
+    discriminators and
     (``landmark``) the frozen parameters unmoved and every other AE
     parameter moved; one micro-step traced; then ``first_stage_check`` at
     the same loss configuration and ``freeze_decoder``."""
@@ -1609,6 +1784,8 @@ def first_stage_variant_phase(torch, seed: int, config: str,
     from moditalker_tpu_torch.config import load_config
     from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
     from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.ops.kernels.autograd import \
+        RecomputeThroughPlain
     from moditalker_tpu_torch.train.mtov_first_stage import (
         FROZEN_WITH_DECODER, FirstStageTrainer)
 
@@ -1633,12 +1810,17 @@ def first_stage_variant_phase(torch, seed: int, config: str,
     reset_launch_counts()
     iters = k * cycles
     t0 = time.perf_counter()
-    trainer.fit(itertools.repeat(batch), max_steps=k + iters, logger=losses,
-                log_every=1, eval_every=10**9)
+    with backward_events(torch, RecomputeThroughPlain) as recomputed:
+        trainer.fit(itertools.repeat(batch), max_steps=k + iters,
+                    logger=losses, log_every=1, eval_every=10**9)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    if recomputed:
+        raise AssertionError(f"{what}: {len(recomputed)} "
+                             f"RecomputeThroughPlain backwards")
     counts = check_launches(what, FIRST_STAGE_PATH)
     by_shape = launches_by_shape()
+    check_float32_launches(what, by_shape)
     peak = torch.cuda.max_memory_allocated() / 2**30
     values = [v for row in losses.seen for v in row.values()]
     if (len(losses.seen) != k + iters or not np.isfinite(values).all()
@@ -3029,7 +3211,7 @@ def main() -> int:
                                      "rel_max_err", "rel_rms_err",
                                      "rel_q_err", "route_rel_err",
                                      "bf16_rounded_share", "ms",
-                                     "plain_ms", "plain_backward_ms",
+                                     "plain_ms", "recompute_ms",
                                      "library_ms", "bound_ms",
                                      "bound_by") if k in row})
             continue
@@ -3085,7 +3267,7 @@ def main() -> int:
             "parameters", "trace")},
         "train_first_stage": {k: first_stage[k] for k in (
             "iterations_per_s", "clips_per_s", "g_step_ms", "d_step_ms",
-            "peak_gib", "plain_backward_ms", "plain_backward_share",
+            "peak_gib", "backward_ms", "backward_share",
             "card_vs_cpu", "trace")},
         "longvid": {
             **longvid,

@@ -1,0 +1,49 @@
+// The C entry points of the divided space and time backward kernels for
+// float32 qkv (the kernels and their rounding points: divided_backward.cuh).
+// A library of its own, so that the bf16 backward's translation unit
+// (divided_backward.cu) holds no float32 instantiation.
+#include "divided_backward.cuh"
+
+extern "C" {
+
+// qkv [BF, N, 3·H·dh] float32, rot [N, dh/2, 2] fp32, out and g
+// [BF, N, H·dh] float32 -> dqkv [BF, N, 3·H·dh] float32; stats a float32
+// scratch [BF, H, N, 2].
+int divided_space_attention_backward_f32(const void* qkv, const void* rot,
+                                         const void* out, const void* g,
+                                         void* dqkv, void* stats, int BF,
+                                         int N, int H, int dh, float scale,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 64:
+      return mdt::launch_space_backward<float>(qkv, rot, out, g, dqkv, stats,
+                                               BF, N, H, scale, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// qkv [B, F, N, 3·H·dh] float32, sin/cos [F, dh] fp32, g [B, F, N, H·dh]
+// float32 -> dqkv [B, F, N, 3·H·dh] float32.
+int divided_time_attention_backward_f32(const void* qkv, const void* sin_t,
+                                        const void* cos_t, const void* g,
+                                        void* dqkv, int B, int F, int N,
+                                        int H, int dh, float scale,
+                                        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 16:
+      switch (dh) {
+        case 64:
+          return mdt::launch_time_backward<16, 64, float>(
+              qkv, sin_t, cos_t, g, dqkv, B, N, H, scale, st);
+      }
+  }
+  return cudaErrorInvalidValue;
+}
+
+const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -10,7 +10,9 @@ alone. ``SOURCES`` names the CUDA source of each kernel's bf16 entry points
 ones (a library of its own); ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound
 each kernel's error against its plain version, ``FLOAT32_ROUTE_LIMITS`` a
 kernel's float32 result against the function its float32 route computes,
-and ``bf16_rounded_share`` tells a float32 result from a bf16 one widened.
+and ``bf16_rounded_share`` tells a float32 result from a bf16 one widened. The
+backward kernels' rows hold their dqkv to the same three tables, against
+the plain backward and their float32 route's function.
 
 ``on_card`` and ``cuda_stream`` are the two questions every wrapper asks
 the tensor it is given: whether to launch (a CUDA tensor) or run the plain
@@ -29,6 +31,8 @@ LAUNCHES: dict[str, int] = {
     "onepass_attention": 0,
     "tiny_attention": 0,
     "fused_attention": 0,
+    "divided_space_attention_backward": 0,
+    "divided_time_attention_backward": 0,
 }
 
 LAUNCHES_BY_SHAPE: dict[str, Counter] = {name: Counter() for name in LAUNCHES}
@@ -42,6 +46,8 @@ SOURCES = {
     "onepass_attention": "flash_attention",
     "tiny_attention": "tiny_attention",
     "fused_attention": "flash_attention",
+    "divided_space_attention_backward": "divided_backward",
+    "divided_time_attention_backward": "divided_backward",
 }
 
 # every kernel's float32 route: the same tiles instantiated for float32 in
@@ -55,6 +61,8 @@ FLOAT32_SOURCES = {
     "onepass_attention": "flash_attention_f32",
     "tiny_attention": "tiny_attention_f32",
     "fused_attention": "flash_attention_f32",
+    "divided_space_attention_backward": "divided_backward_f32",
+    "divided_time_attention_backward": "divided_backward_f32",
 }
 
 
@@ -73,6 +81,13 @@ BF16_LIMITS: dict[str, tuple[float, float]] = {
     "onepass_attention": (2.3e-2, 1.1e-2),
     "tiny_attention": (1e-2, 7.5e-3),
     "fused_attention": (2.3e-2, 1.1e-2),
+    # dqkv against the float32 plain backward: the kernels also round g, P
+    # and dS to bf16 as product operands (float32 and bf16 inputs alike).
+    # Largest readings of --seed 0..3 (the kernels rows and the gradient
+    # phase at [1, 16, 1024, 1536]): space 8.423e-3 / 4.024e-3, time
+    # 7.187e-3 / 3.761e-3
+    "divided_space_attention_backward": (1.7e-2, 8e-3),
+    "divided_time_attention_backward": (1.5e-2, 7.5e-3),
 }
 
 # A third measure that one element cannot decide: the QUANTILE-th quantile
@@ -93,6 +108,11 @@ QUANTILE_LIMITS: dict[str, float] = {
     "onepass_attention": 8.5e-3,
     "tiny_attention": 5.5e-3,
     "fused_attention": 1.4e-2,
+    # the backwards read up to 1.487e-3 at [1, 16, 1024, 1536] but 1.8e-3 to
+    # 2.5e-3 at the card tests' small shapes, where fewer elements make the
+    # quantile near the max: twice those
+    "divided_space_attention_backward": 5e-3,
+    "divided_time_attention_backward": 5e-3,
 }
 
 
@@ -151,6 +171,13 @@ FLOAT32_ROUTE_LIMITS: dict[str, tuple[float, float, float]] = {
     # the one-pass row: the fused kernel is the one-pass kernel at Nq != Nk
     "fused_attention": (2e-3, 6.8e-5, 1.55e-4),
     "tiny_attention": (2.3e-3, 3.9e-5, 2.4e-7),
+    # divided_backward.divided_attention_backward_float32_route: P and dS
+    # against their bf16 rounding boundaries as above; readings (the
+    # kernels rows and the gradient phase, --seed 0..3): space 9.400e-4 /
+    # 5.803e-5 / 3.779e-5 (6.3e-5 / 5.6e-5 on the rms and quantile at
+    # [1, 2, 256, 1536]), time 2.725e-3 / 5.131e-5 / 3.776e-6
+    "divided_space_attention_backward": (2e-3, 1.3e-4, 1.2e-4),
+    "divided_time_attention_backward": (5.5e-3, 1.1e-4, 1e-5),
 }
 
 

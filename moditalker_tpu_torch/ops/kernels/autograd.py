@@ -3,28 +3,50 @@
 
 The kernels fill buffers through ``ctypes``, so their outputs carry no
 ``grad_fn``; without these functions a model trained through them on the
-card would get no gradient upstream of any attention. As in the JAX
-package, the forward is the kernel (on a CUDA tensor; the plain version on
-a CPU tensor) and the backward recomputes through the plain version. Only
-the inputs are saved.
+card would get no gradient upstream of any attention. The forward is the
+kernel (on a CUDA tensor; the plain version on a CPU tensor).
 
-* ``RecomputeThroughPlain`` — one packed input, backward = the vjp of the
-  plain version recomputed (``ops/pallas/packed_attention.py:184-196``,
-  ``ops/pallas/divided_attention.py:310-322``: ``jax.vjp`` of the
-  reference).
+* ``DividedAttention`` — packed qkv of the divided space and time kernels;
+  saves qkv and the output, and its backward is the wrapper's: the backward
+  kernels on a CUDA tensor (``csrc/divided_backward.cuh``), the written-out
+  adjoints (``divided_backward.divided_attention_backward_reference``) on a
+  CPU tensor. The JAX package's ``custom_vjp``
+  (``ops/pallas/divided_attention.py:310-322``) runs ``jax.vjp`` of the
+  reference there.
+* ``RecomputeThroughPlain`` — one packed input (the packed kernel), backward
+  = the vjp of the plain version recomputed
+  (``ops/pallas/packed_attention.py:184-196``: ``jax.vjp`` of the
+  reference). Only the input is saved.
 * ``FlashSdpa`` — q, k, v of the one-pass and tiny-L kernels, backward = the
   standard softmax-attention adjoints on recomputed float32 probabilities
   with a float32 ``dp`` (``ops/attention.py:62-82``, ``_flash_sdpa_bwd``).
 
-Neither has a backward kernel: the JAX package's backwards are XLA over the
-reference, and ``torch.matmul`` stands there. The recomputed [B, N, N]
-probabilities are float32, several alive at once: at the UNet's
+The last two have no backward kernel: the JAX package's backwards are XLA
+over the reference, and ``torch.matmul`` stands there. Their recomputed
+[B, N, N] probabilities are float32, several alive at once: at the UNet's
 [80, 2048, 2048] that is 1.34 GB a tensor, per attention, in the backward.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+class DividedAttention(torch.autograd.Function):
+    """``apply(qkv, forward, backward)``: ``out = forward(qkv)`` now,
+    ``backward(qkv, out, g)`` → dqkv for the cotangent ``g``."""
+
+    @staticmethod
+    def forward(ctx, qkv, forward, backward):
+        out = forward(qkv)
+        ctx.save_for_backward(qkv, out)
+        ctx.backward_fn = backward
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, out = ctx.saved_tensors
+        return ctx.backward_fn(qkv, out, g.contiguous()), None, None
 
 
 class RecomputeThroughPlain(torch.autograd.Function):

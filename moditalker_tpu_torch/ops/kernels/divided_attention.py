@@ -34,8 +34,17 @@ fp32 and rounded to bf16 once, k rotated and rounded once, v rounded once,
 bf16 operands with fp32 accumulators, the result divided by the fp32 row
 sum and stored as float32 (``divided_attention_float32_route`` writes it
 out; the space kernel's float32 route is built for resident K, N <= 1152).
-The gradient with respect to qkv recomputes through the plain version
-(``autograd.py``), as the JAX package's ``custom_vjp`` does.
+
+The gradient with respect to qkv (``autograd.DividedAttention``) runs the
+backward kernels on a CUDA tensor (``csrc/divided_backward.cuh``; bf16
+entry points in ``divided_backward.cu``, float32 ones in
+``divided_backward_f32.cu``), which read qkv, the forward's output and its
+cotangent and write the packed dqkv: space as a dq kernel and a dk/dv
+kernel (head dim 64, N a multiple of 128 up to 1152), time as one warp per
+(b, n, head) (16 frames of head dim 64). Other shapes raise; nothing falls
+back to the plain version on the card. On a CPU tensor the backward is
+``divided_backward.divided_attention_backward_reference``, the written-out
+adjoints of the JAX package's ``jax.vjp`` of its reference.
 """
 
 from __future__ import annotations
@@ -49,7 +58,8 @@ import torch
 from .. import kernels, rotary
 from ..attention import plain_sdpa, sdpa
 from . import _build, count_launch
-from .autograd import RecomputeThroughPlain
+from .autograd import DividedAttention
+from .divided_backward import divided_attention_backward_reference
 from .flash_attention import attention_float32_route
 
 _LANES = 128
@@ -60,6 +70,12 @@ TIME_SHAPES = ((16, 64),)   # (frames, head dim)
 # the float32 space kernel keeps K resident in shared memory only: 9 tiles of
 # 128 keys (the configurations' AE reaches N = 1024)
 SPACE_F32_MAX_N = 1152
+# what csrc/divided_backward.cu and divided_backward_f32.cu are built for:
+# the space backward at head dim 64 and N a multiple of 128 in
+# [256, SPACE_BACKWARD_MAX_N] (the float32 forward's gate; the AE reaches
+# N = 1024), the time backward at TIME_SHAPES
+SPACE_BACKWARD_HEAD_DIMS = (64,)
+SPACE_BACKWARD_MAX_N = 1152
 
 _pair_tables: dict = {}
 
@@ -191,6 +207,30 @@ def _lib_f32() -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    """The backward kernels' bf16 entry points (``csrc/divided_backward.cu``)."""
+    return _bind_backward(_build.load("divided_backward"), "")
+
+
+@functools.cache
+def _bwd_lib_f32() -> ctypes.CDLL:
+    """The backward kernels' float32 entry points, built apart
+    (``csrc/divided_backward_f32.cu``)."""
+    return _bind_backward(_build.load("divided_backward_f32"), "_f32")
+
+
+def _bind_backward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    space = getattr(lib, "divided_space_attention_backward" + suffix)
+    space.argtypes = [p, p, p, p, p, p, i, i, i, i, fl, p]
+    space.restype = i
+    time = getattr(lib, "divided_time_attention_backward" + suffix)
+    time.argtypes = [p, p, p, p, p, i, i, i, i, i, fl, p]
+    time.restype = i
+    return lib
+
+
 def _operands(qkv, sin, cos) -> bool:
     """Checks what the kernels read (qkv bf16 or float32, each read in its
     own type; float32 tables on qkv's device; all contiguous and 16-byte
@@ -267,6 +307,84 @@ def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     return out
 
 
+def _cotangents(qkv, *ts) -> None:
+    """The forward's output and its cotangent, as the backward kernels read
+    them: qkv's type, contiguous, 16-byte aligned, one third of qkv wide."""
+    want = (*qkv.shape[:-1], qkv.shape[-1] // 3)
+    for t in ts:
+        if (t.dtype != qkv.dtype or tuple(t.shape) != want
+                or t.device != qkv.device):
+            raise ValueError(f"the backward kernels take the output and its "
+                             f"cotangent as {qkv.dtype} {list(want)}, got "
+                             f"{t.dtype} {list(t.shape)}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("kernel operands must be contiguous and "
+                             "16-byte aligned")
+
+
+def space_attention_backward_cuda(qkv, out, g, sin, cos, heads: int,
+                                  dim_head: int, scale: float):
+    """Kernel launch: dqkv [BF, N, 3·H·dh] in qkv's type (bf16 or float32)
+    from qkv [BF, N, 3·H·dh], the forward's output and its cotangent g
+    [BF, N, H·dh]; N a multiple of 128 in [256, ``SPACE_BACKWARD_MAX_N``].
+    Two kernels (dq, then dk and dv through a float32 scratch of row
+    statistics), one launch of the backward in the count."""
+    f32 = _operands(qkv, sin, cos)
+    _cotangents(qkv, out, g)
+    if dim_head not in SPACE_BACKWARD_HEAD_DIMS:
+        raise NotImplementedError(f"space backward built for head dims "
+                                  f"{SPACE_BACKWARD_HEAD_DIMS}, not "
+                                  f"{dim_head}")
+    bf, n, c3 = qkv.shape
+    if c3 != 3 * heads * dim_head or tuple(sin.shape) != (n, dim_head):
+        raise ValueError(f"bad shapes qkv {tuple(qkv.shape)} sin "
+                         f"{tuple(sin.shape)} for {heads}x{dim_head}")
+    if n % 128 or not 256 <= n <= SPACE_BACKWARD_MAX_N:
+        raise NotImplementedError(
+            f"space backward built for N % 128 == 0, 256 <= N <= "
+            f"{SPACE_BACKWARD_MAX_N}, not {n}")
+    table = rotary_pair_table(sin, cos)
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty(bf, heads, n, 2, dtype=torch.float32,
+                        device=qkv.device)
+    lib = _bwd_lib_f32() if f32 else _bwd_lib()
+    entry = "divided_space_attention_backward" + ("_f32" if f32 else "")
+    status = getattr(lib, entry)(
+        qkv.data_ptr(), table.data_ptr(), out.data_ptr(), g.data_ptr(),
+        dqkv.data_ptr(), stats.data_ptr(), bf, n, heads, dim_head, scale,
+        kernels.cuda_stream(qkv))
+    _build.check(lib, status, entry)
+    count_launch("divided_space_attention_backward", qkv.shape, float32=f32)
+    return dqkv
+
+
+def time_attention_backward_cuda(qkv, g, sin, cos, heads: int,
+                                 dim_head: int, scale: float):
+    """Kernel launch: dqkv [B, F, N, 3·H·dh] in qkv's type (bf16 or float32)
+    from qkv and the output's cotangent g [B, F, N, H·dh] (the softmax's D
+    comes from P and dP: no output read)."""
+    f32 = _operands(qkv, sin, cos)
+    _cotangents(qkv, g)
+    b, f, n, c3 = qkv.shape
+    if (f, dim_head) not in TIME_SHAPES:
+        raise NotImplementedError(f"time backward built for (frames, head "
+                                  f"dim) {TIME_SHAPES}, not "
+                                  f"{(f, dim_head)}")
+    if c3 != 3 * heads * dim_head or tuple(sin.shape) != (f, dim_head):
+        raise ValueError(f"bad shapes qkv {tuple(qkv.shape)} sin "
+                         f"{tuple(sin.shape)} for {heads}x{dim_head}")
+    dqkv = torch.empty_like(qkv)
+    lib = _bwd_lib_f32() if f32 else _bwd_lib()
+    entry = "divided_time_attention_backward" + ("_f32" if f32 else "")
+    status = getattr(lib, entry)(
+        qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(), g.data_ptr(),
+        dqkv.data_ptr(), b, f, n, heads, dim_head, scale,
+        kernels.cuda_stream(qkv))
+    _build.check(lib, status, entry)
+    count_launch("divided_time_attention_backward", qkv.shape, float32=f32)
+    return dqkv
+
+
 def divided_attention(qkv, sin, cos, axis: str, heads: int, dim_head: int,
                       scale: float):
     """Divided attention on packed qkv [B, F, N, 3·H·dh] → [B, F, N, H·dh].
@@ -281,17 +399,28 @@ def divided_attention(qkv, sin, cos, axis: str, heads: int, dim_head: int,
                                            dim_head, scale)
     scale = float(scale)
 
-    def plain(t):
-        return divided_attention_reference(t, sin, cos, axis, heads,
-                                           dim_head, scale, use_flash=False)
-
     def forward(t):
         if not kernels.on_card(t):
-            return plain(t)
+            return divided_attention_reference(t, sin, cos, axis, heads,
+                                               dim_head, scale,
+                                               use_flash=False)
         if axis == "space":
             out = space_attention_cuda(t.reshape(b * f, n, t.shape[-1]), sin,
                                        cos, heads, dim_head, scale)
             return out.reshape(b, f, n, heads * dim_head)
         return time_attention_cuda(t, sin, cos, heads, dim_head, scale)
 
-    return RecomputeThroughPlain.apply(qkv, forward, plain)
+    def backward(t, out, g):
+        if not kernels.on_card(t):
+            return divided_attention_backward_reference(
+                t, out, g, sin, cos, axis, heads, dim_head, scale).to(t.dtype)
+        if axis == "space":
+            flat = (b * f, n)
+            dqkv = space_attention_backward_cuda(
+                t.reshape(*flat, t.shape[-1]), out.reshape(*flat, -1),
+                g.reshape(*flat, -1), sin, cos, heads, dim_head, scale)
+            return dqkv.reshape(t.shape)
+        return time_attention_backward_cuda(t, g, sin, cos, heads, dim_head,
+                                            scale)
+
+    return DividedAttention.apply(qkv, forward, backward)

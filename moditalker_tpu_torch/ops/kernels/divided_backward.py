@@ -1,0 +1,103 @@
+"""The gradient of the divided space/time attention, in plain PyTorch: the
+functions the backward kernels (``csrc/divided_backward.cuh``) are held to.
+
+The JAX package takes this gradient as ``jax.vjp`` of its reference
+(``moditalker_tpu/ops/pallas/divided_attention.py:310-322``). Here the
+adjoints are written out, per (sequence, head), with q~ = scale·rot(q),
+k~ = rot(k):
+
+    S = q~·k~ᵀ, P = softmax(S), dV = Pᵀ·g, dP = g·Vᵀ, D = rowsum(g ∘ out),
+    dS = P ∘ (dP − D), dq = rotᵀ(scale·dS·k~), dk = rotᵀ(dSᵀ·q~),
+
+``rotᵀ`` being the transpose of the rotary (``rotary_transpose``).
+``divided_attention_backward_reference`` computes them in float32 with no
+rounding: the CPU path's backward and the tests' oracle.
+``divided_attention_backward_float32_route`` writes out the kernels'
+rounding points on top (the forward float32 route's, and g, P and dS
+rounded to bf16 as product operands), the function their float32 results
+are held to.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import rotary
+
+
+def rotary_transpose(g, sin, cos):
+    """The adjoint of the rotation in ``rotary.apply_rot_emb`` (x ↦ x∘cos +
+    rotate_every_two(x)∘sin): dx = g∘cos − rotate_every_two(g∘sin), i.e.
+    dx[2i] = g[2i]·cos[2i] + g[2i+1]·sin[2i+1] and dx[2i+1] =
+    g[2i+1]·cos[2i+1] − g[2i]·sin[2i]. The time table's pair entries
+    differ (its frequencies are concatenated, not repeated), so the sin of
+    the other element of the pair is the one that enters."""
+    return g * cos - rotary.rotate_every_two(g * sin)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _backward(qkv, out, g, sin, cos, axis: str, heads: int, dim_head: int,
+              scale: float, rounded: bool):
+    b, f, n, _ = qkv.shape
+
+    def split(t):  # [B,F,N,H*dh] -> [B,H,F,N,dh], time: [B,H,N,F,dh]
+        t = t.float().reshape(b, f, n, heads, dim_head).permute(0, 3, 1, 2, 4)
+        return t.transpose(2, 3) if axis == "time" else t
+
+    def merge(t):  # inverse of split
+        if axis == "time":
+            t = t.transpose(2, 3)
+        return t.permute(0, 2, 3, 1, 4).reshape(b, f, n, heads * dim_head)
+
+    q, k, v = (split(t) for t in qkv.chunk(3, dim=-1))
+    dout = split(g)
+    sin, cos = sin.float(), cos.float()
+    qr, kr = rotary.apply_rot_emb(q, k, sin, cos)
+    qs = qr * scale
+    gv = dout
+    if rounded:
+        qs, kr, v, gv = _bf16(qs), _bf16(kr), _bf16(v), _bf16(dout)
+    p = torch.softmax(torch.matmul(qs, kr.transpose(-1, -2)), dim=-1)
+    dp = torch.matmul(gv, v.transpose(-1, -2))
+    if rounded and axis == "time":
+        # the time kernel holds whole rows: D from P and dP, not the output
+        d = (p * dp).sum(-1, keepdim=True)
+    else:
+        d = (dout * split(out)).sum(-1, keepdim=True)
+    ds = p * (dp - d)
+    if rounded:
+        p, ds = _bf16(p), _bf16(ds)
+    dv = torch.matmul(p.transpose(-1, -2), gv)
+    dq = rotary_transpose(torch.matmul(ds, kr) * scale, sin, cos)
+    dk = rotary_transpose(torch.matmul(ds.transpose(-1, -2), qs), sin, cos)
+    return torch.cat([merge(dq), merge(dk), merge(dv)], dim=-1)
+
+
+def divided_attention_backward_reference(qkv, out, g, sin, cos, axis: str,
+                                         heads: int, dim_head: int,
+                                         scale: float):
+    """dqkv [B, F, N, 3·H·dh] float32 of ``divided_attention`` for the
+    cotangent g [B, F, N, H·dh], from qkv, the forward's output ``out`` and
+    the float32 rotary tables [seq, dh]; every step in float32."""
+    return _backward(qkv, out, g, sin, cos, axis, heads, dim_head, scale,
+                     rounded=False)
+
+
+def divided_attention_backward_float32_route(qkv, out, g, sin, cos,
+                                             axis: str, heads: int,
+                                             dim_head: int, scale: float):
+    """What the backward kernels compute, in plain PyTorch (the tests' and
+    ``chip_smoke.py``'s oracle of their float32 route; never on the card's
+    main path). Rounding points: q rotated and multiplied by ``scale`` in
+    fp32 and rounded to bf16 once, k rotated and rounded once, v rounded
+    once (the forward float32 route's); g rounded to bf16 as an operand of
+    dP and dV; P and dS rounded to bf16 as product operands; the softmax, D
+    and every product's sum in fp32. D is rowsum(g ∘ out) in fp32 for the
+    space axis and Σ P ∘ dP for the time axis, whose kernel holds whole
+    rows. Differs from the kernels by the order of fp32 sums and their
+    ex2."""
+    return _backward(qkv, out, g, sin, cos, axis, heads, dim_head, scale,
+                     rounded=True)

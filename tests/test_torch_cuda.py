@@ -27,8 +27,12 @@ pass exists), held to the same limits against the float32 plain version at
 the training shapes and smaller, to its float32 route's function within
 ``FLOAT32_ROUTE_LIMITS``, and to a result that was never rounded to bf16
 (under 1 % of it equal to its bf16 rounding); and each differentiable
-wrapper's gradient (its ``autograd.Function``: kernel forward, plain
-recompute backward) is held against autograd through the plain version.
+wrapper's gradient (its ``autograd.Function``) is held against autograd
+through the plain version. The divided space and time backwards are
+kernels of their own (``csrc/divided_backward.cuh``): held against the
+float32 plain backward and their float32 route within their rows' limits,
+bit for bit equal from call to call, and refusing the shapes they are not
+built for.
 """
 
 import pytest
@@ -39,6 +43,7 @@ from moditalker_tpu_torch.ops.kernels import (FLOAT32_LAUNCHES_BY_SHAPE,
                                               LAUNCHES, bf16_rounded_share,
                                               check_bf16, check_float32_route)
 from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
+from moditalker_tpu_torch.ops.kernels import divided_backward as tbwd
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
 from moditalker_tpu_torch.ops.kernels import packed_attention as tpack
 
@@ -340,8 +345,9 @@ def test_tiny_kernel_takes_float32_and_fused_refuses_a_gradient(gen):
 
 # ------------------------------------------------------------ gradients
 # the Function's input gradient against autograd through the plain version
-# (float32, TF32 off): the packed and divided backwards are the plain
-# version's own vjp, the one-pass and tiny-L ones the JAX package's adjoints
+# (float32, TF32 off): the packed backward is the plain version's own vjp,
+# the one-pass and tiny-L ones the JAX package's adjoints (the divided
+# backwards are kernels, held to their rows' limits instead)
 GRAD_LIMIT = 1e-4
 
 
@@ -369,18 +375,95 @@ def _check_gradient(gen, name, kern, plain, inputs, function):
 @pytest.mark.cuda
 @pytest.mark.parametrize("axis", ["space", "time"])
 def test_divided_gradient_on_the_card(gen, axis):
+    """The forward and backward kernels under autograd, float32 at
+    train-first-stage's shape: ``DividedAttentionBackward``, one backward
+    launch a gradient, two gradients equal bit for bit, within the backward
+    row's limits of autograd through the plain version and of the float32
+    route."""
     dh, heads, f, n = 64, 8, 16, 1024
     tables = (rotary.axial_rotary_sincos(32, 32, dh) if axis == "space"
               else rotary.time_rotary_sincos(f, dh))
     sin, cos = (torch.from_numpy(t).cuda() for t in tables)
-    _check_gradient(
-        gen, f"divided_{axis}_attention",
-        lambda x: tdiv.divided_attention(x, sin, cos, axis, heads, dh,
-                                         dh**-0.5),
-        lambda x: tdiv.divided_attention_reference(
-            x, sin, cos, axis, heads, dh, dh**-0.5, use_flash=False),
-        [_randn32(gen, 1, f, n, 3 * heads * dh)],
-        "RecomputeThroughPlainBackward")
+    name = f"divided_{axis}_attention_backward"
+    x = _randn32(gen, 1, f, n, 3 * heads * dh).requires_grad_()
+    out = tdiv.divided_attention(x, sin, cos, axis, heads, dh, dh**-0.5)
+    assert type(out.grad_fn).__name__ == "DividedAttentionBackward"
+    cot = _randn32(gen, *out.shape)
+    before = LAUNCHES[name]
+    (got,) = torch.autograd.grad(out, x, cot, retain_graph=True)
+    (again,) = torch.autograd.grad(out, x, cot)
+    assert LAUNCHES[name] == before + 2
+    assert torch.equal(got, again)
+    ref = x.detach().requires_grad_()
+    (want,) = torch.autograd.grad(tdiv.divided_attention_reference(
+        ref, sin, cos, axis, heads, dh, dh**-0.5, use_flash=False), ref, cot)
+    route = tbwd.divided_attention_backward_float32_route(
+        x.detach(), out.detach(), cot, sin, cos, axis, heads, dh, dh**-0.5)
+    _check_float32(name, got, want, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis,b,f,n,heads,dtype", [
+    ("space", 1, 16, 1024, 8, torch.float32),
+    ("space", 2, 2, 256, 2, torch.float32),
+    ("space", 1, 1, 1152, 2, torch.float32),
+    ("space", 1, 2, 512, 4, torch.bfloat16),
+    ("space", 1, 16, 1024, 8, torch.bfloat16),
+    ("time", 1, 16, 1024, 8, torch.float32),
+    ("time", 2, 16, 64, 4, torch.float32),
+    ("time", 1, 16, 5, 3, torch.float32),
+    ("time", 1, 16, 1024, 8, torch.bfloat16)])
+def test_divided_backward_kernels_match_plain(gen, axis, b, f, n, heads,
+                                              dtype):
+    """Each backward kernel's dqkv (qkv's type) against the float32 plain
+    backward within its row's limits, a float32 one also against its
+    float32 route; two calls equal bit for bit. Space at the gate's edges
+    of the float32 forward (N = 256 and 1152), time with a last block of
+    warps that is not full (5 × 3 sequences)."""
+    dh = 64
+    sin, cos = _divided_tables(axis, f, n)
+    qkv = _randn32(gen, b, f, n, 3 * heads * dh).to(dtype)
+    g = _randn32(gen, b, f, n, heads * dh).to(dtype)
+    out = tdiv.divided_attention_reference(qkv, sin, cos, axis, heads, dh,
+                                           dh**-0.5, use_flash=False)
+    name = f"divided_{axis}_attention_backward"
+    if axis == "space":
+        flat = (b * f, n, -1)
+        run = lambda: tdiv.space_attention_backward_cuda(
+            qkv.reshape(flat), out.reshape(flat), g.reshape(flat), sin, cos,
+            heads, dh, dh**-0.5).reshape(qkv.shape)
+    else:
+        run = lambda: tdiv.time_attention_backward_cuda(
+            qkv, g, sin, cos, heads, dh, dh**-0.5)
+    got = _launched(name, run)
+    assert got.dtype == dtype and torch.equal(got, run())
+    args = (qkv, out, g, sin, cos, axis, heads, dh, dh**-0.5)
+    plain = tbwd.divided_attention_backward_reference(*args)
+    if dtype == torch.float32:
+        _check_float32(name, got, plain,
+                       tbwd.divided_attention_backward_float32_route(*args))
+    else:
+        check_bf16(name, got, plain)
+
+
+@pytest.mark.cuda
+def test_divided_backward_kernels_refuse_unbuilt_shapes(gen):
+    """N past the float32 forward's gate or below 256, another head dim,
+    another frame count: each raises before anything launches."""
+    before = dict(LAUNCHES)
+    for n, heads, dh in ((1280, 2, 64), (128, 2, 64), (256, 4, 32)):
+        sin, cos = _divided_tables("space", 1, n, dh)
+        qkv = _randn32(gen, 1, n, 3 * heads * dh)
+        g = _randn32(gen, 1, n, heads * dh)
+        with pytest.raises(NotImplementedError, match="built for"):
+            tdiv.space_attention_backward_cuda(qkv, g, g, sin, cos, heads,
+                                               dh, dh**-0.5)
+    sin, cos = _divided_tables("time", 8, 16)
+    with pytest.raises(NotImplementedError, match="built for"):
+        tdiv.time_attention_backward_cuda(
+            _randn32(gen, 1, 8, 16, 384), _randn32(gen, 1, 8, 16, 128), sin,
+            cos, 2, 64, 0.125)
+    assert LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -1,0 +1,362 @@
+"""The gradient of the divided space/time attention: the port's written-out
+adjoints against the JAX package, and the wiring of its backward kernels.
+
+* ``rotary_transpose`` is the adjoint of the rotary, with tables whose pair
+  entries differ (the time table's) and with the axial table.
+* ``divided_attention_backward_reference`` against ``jax.vjp`` of the JAX
+  package's ``divided_attention_reference(..., use_flash=False)``, float32,
+  within 1e-5 of the largest gradient, for both axes and a space table of
+  random angles; the float32 route (the kernels' rounding points) against
+  the same within ``ROUTE_VS_EXACT``, and not equal to it.
+* The gradient of ``divided_attention`` on the CPU (the plain path) against
+  ``jax.vjp`` of the JAX wrapper (its Pallas kernels in interpret mode).
+* ``DividedAttention``'s wiring with stub libraries (``torch_stubs.py``): a
+  CUDA-like call reaches the backward entry points with the tensors'
+  pointers and shapes, is counted, and shapes the kernels are not built for
+  raise rather than fall back to the plain backward.
+* The ``case`` labels and C symbols of ``csrc/divided_backward{,_f32}.cu``
+  against the wrappers' shape lists.
+
+The kernels themselves run on the card: tests/test_torch_cuda.py and
+``chip_smoke.py``.
+"""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moditalker_tpu.ops import rotary as jrot
+from moditalker_tpu.ops.pallas import divided_attention as jdiv
+from moditalker_tpu_torch.ops import kernels as tkernels
+from moditalker_tpu_torch.ops import rotary
+from moditalker_tpu_torch.ops.kernels import _build
+from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
+from moditalker_tpu_torch.ops.kernels import divided_backward as tbwd
+
+from .torch_stubs import StubLib, stub_launches  # noqa: F401 (fixture)
+from .torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+HEADS, DH = 2, 64
+EXACT = 1e-5      # float32 adjoints vs jax.vjp, over the largest gradient
+# the float32 route against the exact gradient, (max, rms, quantile) of
+# ``relative_errors``: the bf16 rounding of q~, k~, v, g, P and dS. About
+# 2.5 times what these inputs read (space 6.1e-3 / 4.0e-3 / 2.4e-3, time
+# 3.9e-3 / 3.5e-3 / 1.9e-3); a route that rounds nothing reads ~1e-7
+ROUTE_VS_EXACT = (1.5e-2, 1e-2, 6e-3)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _tables(case, f, n):
+    if case == "space":
+        return jrot.axial_rotary_sincos(16, n // 16, DH)
+    if case == "time":
+        return jrot.time_rotary_sincos(f, DH)
+    # random angles: every entry of a pair its own
+    ang = np.random.default_rng(5).uniform(-3, 3, (n, DH)).astype(np.float32)
+    return np.sin(ang), np.cos(ang)
+
+
+def _inputs(case, seed=0):
+    """(axis, qkv, g, sin, cos) at a small shape of the axis."""
+    axis = "time" if case == "time" else "space"
+    b, f, n = (1, 2, 256) if axis == "space" else (2, 16, 8)
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(b, f, n, 3 * HEADS * DH)).astype(np.float32)
+    g = rng.normal(size=(b, f, n, HEADS * DH)).astype(np.float32)
+    sin, cos = _tables(case, f, n)
+    return axis, qkv, g, sin, cos
+
+
+def _jax_vjp(axis, qkv, g, sin, cos):
+    out, vjp = jax.vjp(lambda t: jdiv.divided_attention_reference(
+        t, sin, cos, axis, HEADS, DH, DH**-0.5, use_flash=False),
+        jnp.asarray(qkv))
+    return np.asarray(out), np.asarray(vjp(jnp.asarray(g))[0])
+
+
+def _assert_close(got, want, rel):
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=rel * np.abs(want).max())
+
+
+# ------------------------------------------------------------ the rotary
+@pytest.mark.parametrize("case", ["time", "space"])
+def test_rotary_transpose_is_the_adjoint(case):
+    """<rot(x), y> = <x, rotᵀ(y)>, and rotᵀ is the per-element formula
+    dx[2i] = y[2i]·c[2i] + y[2i+1]·s[2i+1], dx[2i+1] = y[2i+1]·c[2i+1] −
+    y[2i]·s[2i]. The time table's pairs differ, so a transpose that reads
+    one sin per pair fails it."""
+    sin, cos = (_t(a) for a in _tables(case, 16, 256))
+    if case == "time":
+        assert not torch.equal(sin[:, 0::2], sin[:, 1::2])
+    gen = torch.Generator().manual_seed(1)
+    x, y = (torch.randn(3, *sin.shape, generator=gen, dtype=torch.float64)
+            for _ in range(2))
+    s64, c64 = sin.double(), cos.double()
+    rot_x, _ = rotary.apply_rot_emb(x, x, s64, c64)
+    dx = tbwd.rotary_transpose(y, s64, c64)
+    assert torch.allclose((rot_x * y).sum(), (x * dx).sum(), rtol=1e-12)
+    want = torch.empty_like(y)
+    want[..., 0::2] = y[..., 0::2] * c64[:, 0::2] + y[..., 1::2] * s64[:, 1::2]
+    want[..., 1::2] = y[..., 1::2] * c64[:, 1::2] - y[..., 0::2] * s64[:, 0::2]
+    torch.testing.assert_close(dx, want, rtol=0, atol=1e-12)
+
+
+# ------------------------------------------------------------ the adjoints
+@pytest.mark.parametrize("case", ["space", "time", "space_random_table"])
+def test_backward_reference_matches_jax_vjp(case):
+    axis, qkv, g, sin, cos = _inputs(case)
+    out, want = _jax_vjp(axis, qkv, g, sin, cos)
+    got = tbwd.divided_attention_backward_reference(
+        _t(qkv), _t(out), _t(g), _t(sin), _t(cos), axis, HEADS, DH,
+        DH**-0.5)
+    assert got.dtype == torch.float32 and got.shape == qkv.shape
+    _assert_close(got, want, EXACT)
+
+
+@pytest.mark.parametrize("case", ["space", "time"])
+def test_float32_route_matches_jax_vjp_within_its_rounding(case):
+    """The route rounds where the kernels do: within ``ROUTE_VS_EXACT`` of
+    the exact gradient, and visibly not equal to it."""
+    axis, qkv, g, sin, cos = _inputs(case, seed=1)
+    out, want = _jax_vjp(axis, qkv, g, sin, cos)
+    got = tbwd.divided_attention_backward_float32_route(
+        _t(qkv), _t(out), _t(g), _t(sin), _t(cos), axis, HEADS, DH,
+        DH**-0.5)
+    errs = tkernels.relative_errors(got, _t(want))
+    assert all(e <= lim for e, lim in zip(errs, ROUTE_VS_EXACT)), errs
+    assert errs[1] > 1e-4, errs
+
+
+@pytest.mark.parametrize("case", ["space", "time"])
+def test_divided_gradient_on_cpu_matches_jax_vjp(case):
+    """``divided_attention`` on CPU tensors: the plain forward, the
+    written-out adjoints backward (``DividedAttentionBackward``), against
+    ``jax.vjp`` of the JAX wrapper with its kernels in interpret mode."""
+    axis, qkv, g, sin, cos = _inputs(case, seed=2)
+    b, f, n, _ = qkv.shape
+    assert tdiv.divided_attention_viable(axis, f, n, HEADS, DH, DH)
+    want_out, vjp = jax.vjp(lambda t: jdiv.divided_attention(
+        t, sin, cos, axis, HEADS, DH, DH**-0.5, interpret=True),
+        jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(g))
+    tkernels.reset_launch_counts()
+    x = _t(qkv).requires_grad_()
+    out = tdiv.divided_attention(x, _t(sin), _t(cos), axis, HEADS, DH,
+                                 DH**-0.5)
+    assert type(out.grad_fn).__name__ == "DividedAttentionBackward"
+    (got,) = torch.autograd.grad(out, x, _t(g))
+    _assert_close(out.detach(), np.asarray(want_out), EXACT)
+    _assert_close(got, np.asarray(want), EXACT)
+    assert not any(tkernels.LAUNCHES.values())
+
+
+# ------------------------------------------------------------ the wiring
+@pytest.mark.parametrize("axis,dtype", [("space", torch.float32),
+                                        ("time", torch.float32),
+                                        ("space", torch.bfloat16),
+                                        ("time", torch.bfloat16)])
+def test_backward_reaches_its_entry_point(stub_launches, monkeypatch, axis,
+                                          dtype):
+    """A CUDA-like qkv (stub libraries) launches the forward kernel, then
+    the backward kernel once, through the entry point of qkv's type, with
+    the pointers of qkv, the saved output, the cotangent and the returned
+    gradient, and the problem's shape; nothing else is launched."""
+    args = []
+    for lib in ("_bwd_lib", "_bwd_lib_f32"):
+        monkeypatch.setattr(tdiv, lib,
+                            lambda: StubLib(stub_launches, args))
+    f, n = (2, 256) if axis == "space" else (16, 8)
+    sin, cos = (_t(a) for a in _tables(axis, f, n))
+    x = torch.randn(1, f, n, 3 * HEADS * DH).to(dtype).requires_grad_()
+    out = tdiv.divided_attention(x, sin, cos, axis, HEADS, DH, 0.125)
+    assert type(out.grad_fn).__name__ == "DividedAttentionBackward"
+    g = torch.randn(out.shape).to(dtype)
+    (dx,) = torch.autograd.grad(out, x, g)
+    suffix = "_f32" if dtype == torch.float32 else ""
+    fwd, bwd = f"divided_{axis}_attention", f"divided_{axis}_attention_backward"
+    assert stub_launches == [fwd + suffix, bwd + suffix]
+    ((name, a),) = args
+    assert name == bwd + suffix
+    assert dx.dtype == dtype and dx.shape == x.shape
+    if axis == "space":
+        qkv_p, rot_p, out_p, g_p, dqkv_p, stats_p, *ints, scale, _ = a
+        assert (out_p, stats_p) != (0, 0) and rot_p
+        assert out_p == out.data_ptr()
+        assert ints == [f, n, HEADS, DH]
+        shape = (f, n, 3 * HEADS * DH)
+    else:
+        qkv_p, sin_p, cos_p, g_p, dqkv_p, *ints, scale, _ = a
+        assert (sin_p, cos_p) == (sin.data_ptr(), cos.data_ptr())
+        assert ints == [1, f, n, HEADS, DH]
+        shape = tuple(x.shape)
+    assert (qkv_p, g_p, dqkv_p) == (x.data_ptr(), g.data_ptr(),
+                                    dx.data_ptr())
+    assert scale == 0.125
+    assert tkernels.LAUNCHES[bwd] == 1
+    assert dict(tkernels.LAUNCHES_BY_SHAPE[bwd]) == {shape: 1}
+    f32 = dict(tkernels.FLOAT32_LAUNCHES_BY_SHAPE[bwd])
+    assert f32 == ({shape: 1} if dtype == torch.float32 else {})
+    assert sum(tkernels.LAUNCHES.values()) == 2
+
+
+@pytest.mark.parametrize("axis,f,n,dh,dtype,error", [
+    ("space", 1, 1280, 64, torch.bfloat16, NotImplementedError),
+    ("space", 1, 256, 32, torch.float32, NotImplementedError),
+    ("time", 8, 8, 64, torch.float32, NotImplementedError)])
+def test_backward_refuses_unbuilt_shapes(stub_launches, axis, f, n, dh,
+                                         dtype, error):
+    """A shape the backward kernels are not built for raises on the card,
+    even where the forward kernel ran (bf16 space at N = 1280, through the
+    forward's K ring); the plain backward is never run in its place."""
+    heads = 256 // dh if axis == "space" else HEADS
+    if axis == "space":
+        side = 32 if n % 32 == 0 and n >= 1024 else 16
+        sin, cos = (_t(a) for a in rotary.axial_rotary_sincos(side, n // side,
+                                                              dh))
+    else:
+        sin, cos = (_t(a) for a in rotary.time_rotary_sincos(f, dh))
+    qkv = torch.randn(1, f, n, 3 * heads * dh).to(dtype)
+    g = torch.randn(1, f, n, heads * dh).to(dtype)
+    if n == 1280:   # through the autograd function: the forward launches
+        x = qkv.requires_grad_()
+        out = tdiv.divided_attention(x, sin, cos, axis, heads, dh, 0.125)
+        with pytest.raises(error, match="built for"):
+            torch.autograd.grad(out, x, g)
+        assert stub_launches == ["divided_space_attention"]
+    elif axis == "space":
+        with pytest.raises(error, match="head dims"):
+            tdiv.space_attention_backward_cuda(
+                qkv.reshape(f, n, -1), g.reshape(f, n, -1),
+                g.reshape(f, n, -1), sin, cos, heads, dh, 0.125)
+    else:
+        with pytest.raises(error, match="frames"):
+            tdiv.time_attention_backward_cuda(qkv, g, sin, cos, heads, dh,
+                                              0.125)
+    assert not tkernels.LAUNCHES["divided_space_attention_backward"]
+    assert not tkernels.LAUNCHES["divided_time_attention_backward"]
+
+
+def test_backward_refuses_a_cotangent_of_another_type(stub_launches):
+    """The output and cotangent are read in qkv's type and shape."""
+    sin, cos = (_t(a) for a in rotary.time_rotary_sincos(16, DH))
+    qkv = torch.randn(1, 16, 8, 3 * HEADS * DH)
+    g = torch.randn(1, 16, 8, HEADS * DH)
+    with pytest.raises(ValueError, match="cotangent"):
+        tdiv.time_attention_backward_cuda(qkv, g.bfloat16(), sin, cos, HEADS,
+                                          DH, 0.125)
+    with pytest.raises(ValueError, match="cotangent"):
+        tdiv.time_attention_backward_cuda(qkv, g[..., :64], sin, cos, HEADS,
+                                          DH, 0.125)
+    assert stub_launches == []
+
+
+def test_first_stage_g_step_launches_the_backward_kernels(stub_launches):
+    """A first-stage G micro-step (AE 64 wide, depth 1, full spatial size,
+    so that both gates pass; stub libraries) launches each backward kernel
+    once per attention, float32, and a D micro-step, whose AE runs without
+    a graph, none; no ``RecomputeThroughPlain`` backward runs."""
+    from moditalker_tpu_torch.config import (MtovAEConfig, MtovLossConfig,
+                                             MtovTrainConfig)
+    from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
+    from moditalker_tpu_torch.ops.kernels import autograd
+    from moditalker_tpu_torch.train.mtov_first_stage import FirstStageTrainer
+
+    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=2, dim_head=64,
+                          quant_depth=1, quant_heads=2, quant_mlp_dim=64)
+    trainer = FirstStageTrainer(ae_cfg, MtovLossConfig(disc_start=-1),
+                                MtovTrainConfig(seed=0, accum_iter=1),
+                                device="cpu")
+    video = synthetic_mtov_batch(1, ae_cfg.timesteps, ae_cfg.resolution,
+                                 0)["x"]
+    recomputed = []
+    kept = vars(autograd.RecomputeThroughPlain)["backward"]
+
+    def counted(ctx, g):
+        recomputed.append(1)
+        return kept.__func__(ctx, g)
+
+    per_step = 2 * ae_cfg.depth   # the encoder's blocks and the decoder's
+    shapes = {"divided_space_attention_backward": (16, 1024, 384),
+              "divided_time_attention_backward": (1, 16, 1024, 384)}
+    try:
+        autograd.RecomputeThroughPlain.backward = staticmethod(counted)
+        for kind in ("G", "D"):
+            assert trainer._disc_phase == (kind == "D")
+            tkernels.reset_launch_counts()
+            trainer.step(video)
+            for name, shape in shapes.items():
+                want = per_step if kind == "G" else 0
+                assert tkernels.LAUNCHES[name] == want, (kind, name)
+                assert dict(tkernels.FLOAT32_LAUNCHES_BY_SHAPE[name]) == (
+                    {shape: want} if want else {}), (kind, name)
+            assert tkernels.LAUNCHES["divided_space_attention"] == per_step
+    finally:
+        autograd.RecomputeThroughPlain.backward = kept
+    assert not recomputed
+
+
+# ------------------------------------------------------------ the sources
+def _entry_body(source: str, function: str) -> str:
+    text = (_build.CSRC / source).read_text()
+    body = text[text.index(f"int {function}("):]
+    return body[:body.index("\n}\n")]
+
+
+@pytest.mark.parametrize("suffix", ["", "_f32"])
+def test_backward_sources_match_the_wrappers(suffix):
+    """Each backward source defines exactly its two entry points, and their
+    ``case`` labels are the shapes the wrappers let through: head dims for
+    the space backward, (frames, head dim) for the time backward."""
+    src = f"divided_backward{suffix}.cu"
+    text = (_build.CSRC / src).read_text()
+    c_api = text[text.index('extern "C" {'):]
+    names = {"divided_space_attention_backward",
+             "divided_time_attention_backward"}
+    assert set(re.findall(r"\bint (\w+)\(", c_api)) == {
+        n + suffix for n in names}
+    labels = lambda fn: tuple(int(x) for x in re.findall(
+        r"case (\d+):", _entry_body(src, fn + suffix)))
+    assert labels("divided_space_attention_backward") \
+        == tdiv.SPACE_BACKWARD_HEAD_DIMS == (64,)
+    assert labels("divided_time_attention_backward") == tuple(
+        x for shape in tdiv.TIME_SHAPES for x in shape) == (16, 64)
+    for name in names:
+        assert tkernels.SOURCES[name] == "divided_backward"
+        assert tkernels.FLOAT32_SOURCES[name] == "divided_backward_f32"
+        assert name in tkernels.LAUNCHES
+
+
+@pytest.mark.parametrize("name", ["divided_space_attention_backward",
+                                  "divided_time_attention_backward"])
+def test_backward_limits_pass_the_route_and_catch_a_wrong_head(name):
+    """The card's limits against the plain backward (``BF16_LIMITS``,
+    ``QUANTILE_LIMITS``) take the float32 route's rounding, what a right
+    kernel differs by, and refuse a dqkv with two heads of dk swapped; the
+    limits against the route (``FLOAT32_ROUTE_LIMITS``) refuse the exact
+    gradient rounded to bf16."""
+    axis, qkv, g, sin, cos = _inputs(name.split("_")[1], seed=3)
+    args = (_t(qkv), None, _t(g), _t(sin), _t(cos), axis, HEADS, DH,
+            DH**-0.5)
+    out = tdiv.divided_attention_reference(
+        _t(qkv), _t(sin), _t(cos), axis, HEADS, DH, DH**-0.5,
+        use_flash=False)
+    args = (args[0], out, *args[2:])
+    exact = tbwd.divided_attention_backward_reference(*args)
+    route = tbwd.divided_attention_backward_float32_route(*args)
+    tkernels.check_bf16(name, route, exact)
+    tkernels.check_float32_route(name, route, route)
+    hd = HEADS * DH
+    swapped = torch.cat([exact[..., :hd], exact[..., hd + DH:2 * hd],
+                         exact[..., hd:hd + DH], exact[..., 2 * hd:]], -1)
+    with pytest.raises(AssertionError, match=name):
+        tkernels.check_bf16(name, swapped, exact)
+    with pytest.raises(AssertionError, match="float32 route"):
+        tkernels.check_float32_route(name, exact.bfloat16().float(), route)

@@ -17,14 +17,17 @@ from moditalker_tpu_torch.ops.kernels import packed_attention as tpack
 
 class StubLib:
     """Stands in for a kernel library: records each entry point's call and
-    returns success, writing nothing."""
+    returns success, writing nothing. ``args``, where given, also gets each
+    call's (name, arguments)."""
 
-    def __init__(self, calls):
-        self.calls = calls
+    def __init__(self, calls, args=None):
+        self.calls, self.args = calls, args
 
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append(name)
+            if self.args is not None:
+                self.args.append((name, args))
             return 0
         return entry
 
@@ -34,7 +37,8 @@ def stub_launches(monkeypatch):
     calls = []
     monkeypatch.setattr(tkernels, "on_card", lambda t: True)
     monkeypatch.setattr(tkernels, "cuda_stream", lambda t: 0)
-    for mod, names in ((tdiv, ("_lib", "_lib_f32")),
+    for mod, names in ((tdiv, ("_lib", "_lib_f32", "_bwd_lib",
+                               "_bwd_lib_f32")),
                        (tpack, ("_lib", "_lib_f32")),
                        (tflash, ("_lib", "_lib_f32", "_tiny_lib",
                                  "_tiny_lib_f32"))):

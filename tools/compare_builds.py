@@ -5,8 +5,9 @@ and time kernels, for one) must leave the bf16 kernels as they were. Two
 checks, on a CUDA host, against a copy unpacked from the parent commit
 (``git archive <parent> | tar -x -C build/parent``):
 
-1. PTX: every kernel function of each source, compiled with ``nvcc -ptx`` in
-   both copies, compared after register numbers and labels are normalised;
+1. PTX: every kernel function of each source, bf16 and float32 (the
+   ``_f32`` translation units), compiled with ``nvcc -ptx`` in both copies,
+   compared after register numbers and labels are normalised;
    prints the count of differing lines per function (template arguments
    matched by the kernels' int and bool parameters).
 2. Outputs: the bf16 space (resident K, K ring, N = 256), time, packed,
@@ -28,8 +29,9 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-SOURCES = ("divided_attention", "flash_attention", "tiny_attention",
-           "packed_attention")
+SOURCES = tuple(f"{name}{suffix}" for suffix in ("", "_f32")
+                for name in ("divided_attention", "flash_attention",
+                             "tiny_attention", "packed_attention"))
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-ptx"]
 
