@@ -52,7 +52,15 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              ``FLOAT32_ROUTE_LIMITS``, two calls equal bit for bit; each
              timed beside the plain backward, the recompute that ran
              before (``recompute_ms``) and the library's attention backward
-             alone;
+             alone. The classes beyond the configurations' shapes (every
+             shape the JAX gates admit runs a kernel) at the shapes the
+             variants phase gives them, bf16 and float32 each: time at
+             clips of 32 and 8 frames, tiny-L at 32 rows, one-pass at head
+             dims 24 and 48, the time backward at 8 frames; packed and
+             one-pass at the 3072 tokens of 32-frame clips;
+   masked padding — the time kernels at clips of 8 and 24 frames (padded
+             to the 16- and 32-frame tiles) with every real score large and
+             negative, forward and backward against their float32 route;
    gradients — each differentiable wrapper's input gradient (its
              ``autograd.Function``) against autograd through the plain
              version in float32, its ``grad_fn``, and the peak memory of
@@ -182,11 +190,25 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              unmoved; a micro-step traced; and a small-depth copy of each
              against the CPU within FIRST_STAGE_LIMITS (the gradient-cut
              copy outside them);
-12. i3d    — InceptionI3d (random He-scaled weights) on [2, 16, 224, 224, 3]
+12. variants — shipped configurations changed by one key each, read from
+             temporary YAMLs by ``load_config`` (VARIANTS): the ``sample``
+             command at clips of 32 frames on the fused and the modular path
+             (2 windows at batch 2, DDIM-2 warm-up, DDIM-25 timed; the time
+             kernel on its 32-frame tile, tiny-L at 32 rows, the UNet's
+             launches by shape as VARIANT_UNET_PER_CALL predicts, every
+             launch at a shape its gate admits) and a small-depth window of
+             such clips on each path against the CPU within REF_FACTOR;
+             train-first-stage at clips of 8 frames (base_gan.yaml's
+             operating point: one G and one D cycle timed, the time kernels
+             and their backwards at [1, 8, 1024, 1536], a small-depth G and
+             D cycle against the CPU within FIRST_STAGE_LIMITS); a
+             small-depth window of the 192-channel UNet against the CPU
+             (one-pass at head dims 24 and 48);
+13. i3d    — InceptionI3d (random He-scaled weights) on [2, 16, 224, 224, 3]
              on the card against the CPU within I3D_LIMIT, and the FVD
              between two sets of 8 synthetic clips through the card's I3D
              against the CPU's within FVD_LIMIT;
-13. golden  — reference-layout files at full width (the reference's key
+14. golden  — reference-layout files at full width (the reference's key
              names and shapes, made from seeded weights) through ``golden
              --mode convert``, each converted file the weights it came
              from, the converted LPIPS card vs CPU; ``golden --mode record``
@@ -195,15 +217,15 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              JAX harness's 1e-4, a perturbed golden failing; a small-depth
              record on the CPU checked on the card against the reference
              phase's limit (``golden_phase``);
-14. distributed — NCCL at world size 1 (tcp:// on localhost): a
+15. distributed — NCCL at world size 1 (tcp:// on localhost): a
              small-depth train-diffusion step through the gradient
              all-reduce equal to the same step without a group, exactly;
              ``tp.py`` on a 1×1 mesh (head-parallel attention through the
              one-pass kernel); ``sample --data-parallel 1`` writing what
              ``sample`` writes;
-15. profile — one UNet step, one extract and one decode at B = 2: host
+16. profile — one UNet step, one extract and one decode at B = 2: host
              time, the device's busy time and top kernels (torch.profiler);
-16. profiling — ``core/profiling.py``: ``trace`` around one UNet step
+17. profiling — ``core/profiling.py``: ``trace`` around one UNet step
              writes a Chrome trace holding the ``annotate`` span and the
              card's kernels; ``step_timer`` logs the step.
 
@@ -272,6 +294,41 @@ LONGVID_YAML = "configs/latent-diffusion/base_longvid.yaml"
 # 512 tokens and everything at ds ≥ 2 pass no gate
 LONGVID_ONEPASS_PER_CALL = {(2048, 32): 5, (1024, 32): 5, (2048, 64): 1}
 SWITCHES = ("MODITALKER_NO_DIVIDED_FUSED", "MODITALKER_NO_PACKED_ATTN")
+# the variants phase: shipped configurations each changed by one key,
+# written to a temporary YAML that load_config reads (nothing is added
+# under configs/): (shipped file, section, key, value). Clips of 32 frames
+# for ``sample``, of 8 for train-first-stage, a 192-channel UNet
+VARIANT_CLIP_FRAMES = 32
+VARIANT_TRAIN_FRAMES = 8
+VARIANT_CHANNELS = 192
+VARIANTS = {
+    "clip32": ("configs/latent-diffusion/base.yaml", "mtov_ae", "timesteps",
+               VARIANT_CLIP_FRAMES),
+    "clip8": ("configs/autoencoder/base_gan.yaml", "mtov_ae", "timesteps",
+              VARIANT_TRAIN_FRAMES),
+    "channels192": ("configs/latent-diffusion/base.yaml", "mtov_unet",
+                    "model_channels", VARIANT_CHANNELS),
+}
+# the UNet's launches per call at batch 2, by kernel and shape, on each
+# path (held on the CPU against the JAX gates:
+# tests/test_torch_kernel_classes.py). At clips of 32 frames latent_t is
+# 32: the joint attention has 32² + 2·32·32 = 3072 tokens, the yt and xt
+# planes 1024 each (batched as [4, 1024, 384]); at 192 channels no head is
+# 16 wide, the packed gate never opens and the head-split attentions go to
+# the one-pass kernel at head dims 24 (ds = 1) and 48 (after the last
+# upsample)
+VARIANT_UNET_PER_CALL = {
+    ("clip32", "fused"): {
+        "packed_attention": {(2, 1024, 384): 5, (4, 1024, 384): 5,
+                             (2, 3072, 384): 5},
+        "onepass_attention": {(16, 3072, 32): 1}},
+    ("clip32", "modular"): {
+        "onepass_attention": {(16, 1024, 16): 5, (32, 1024, 16): 5,
+                              (16, 3072, 16): 5, (16, 3072, 32): 1}},
+    ("channels192", "fused"): {
+        "onepass_attention": {(16, 1024, 24): 5, (16, 2048, 24): 5,
+                              (16, 2048, 48): 1}},
+}
 
 # what the kernels that were replaced took at the same shape on an H100 80GB
 # HBM3 at 700 W, by (kernel, shape of its first operand), for the log line
@@ -510,18 +567,23 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     hd = heads * dh
     scale = dh**-0.5
 
-    def errors(name, kern, plain, route):
+    def errors(name, kern, plain, route, dtype=None):
         """The row's errors against its plain version; a float32 result is
         also held to ``route()``, its float32 route's function, and to a
-        bf16-rounded share under 1 %."""
+        bf16-rounded share under 1 %. ``dtype``: the inputs' type where
+        ``plain`` computes in float32 on them widened (the oracle of the
+        rows added with the classes: at their lengths and head dims the bf16
+        plain version's own roundings, its rotary in bf16 and its bf16
+        scores, are the larger error)."""
         out, want = kern(), plain()
-        if out.dtype != want.dtype:
+        if out.dtype != (dtype or want.dtype):
             raise AssertionError(f"{name}: {out.dtype} out of a "
-                                 f"{want.dtype} input")
+                                 f"{dtype or want.dtype} input")
         rel_max, rel_rms, rel_q = check_bf16(name, out, want)
         err = dict(max_abs_err=(out.float() - want.float()).abs().max().item(),
                    rel_max_err=rel_max, rel_rms_err=rel_rms, rel_q_err=rel_q,
-                   dtype=str(out.dtype).replace("torch.", ""))
+                   dtype=str(out.dtype).replace("torch.", ""),
+                   oracle="float32 plain" if dtype else "plain")
         del want
         if out.dtype == torch.float32:
             err["route_rel_err"] = check_float32_route(name, out, route())
@@ -562,13 +624,15 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # their own, so the main-path rows see the inputs they always saw
     gen_more = torch.Generator(device=dev).manual_seed(seed + 1)
 
-    def divided_row(axis, b_, f_, n_, g=gen_more, dtype=torch.bfloat16):
+    def divided_row(axis, b_, f_, n_, g=gen_more, dtype=torch.bfloat16,
+                    source="divided_attention", plain32=False):
         if axis == "space":
             sin, cos = tables(rotary.axial_rotary_sincos(32, n_ // 32, dh)
                               if n_ >= 1024 else
                               rotary.axial_rotary_sincos(16, n_ // 16, dh))
         else:
-            sin, cos = t_sin, t_cos
+            sin, cos = ((t_sin, t_cos) if f_ == f else
+                        tables(rotary.time_rotary_sincos(f_, dh)))
         qkv = torch.randn((b_, f_, n_, 3 * hd), generator=g,
                           device=dev).to(dtype)
         size = qkv.element_size()
@@ -577,8 +641,13 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         plain = lambda: dv.divided_attention_reference(
             qkv, sin, cos, axis, heads, dh, scale, use_flash=False)
         name = f"divided_{axis}_attention"
-        err = errors(name, kern, plain, lambda: dv.divided_attention_float32_route(
-            qkv, sin, cos, axis, heads, dh, scale))
+        oracle = (lambda: dv.divided_attention_reference(
+            qkv.float(), sin, cos, axis, heads, dh, scale, use_flash=False)
+        ) if plain32 else plain
+        err = errors(name, kern, oracle,
+                     lambda: dv.divided_attention_float32_route(
+                         qkv, sin, cos, axis, heads, dh, scale),
+                     dtype=qkv.dtype if plain32 else None)
         q, k, v = head_split_rotated(qkv, sin, cos, axis)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
         seq = n_ if axis == "space" else f_
@@ -587,7 +656,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         flops = 4.0 * nseq * heads * seq * seq * dh
         return dict(
             name=name, route="cuda",
-            source="moditalker_tpu_torch/csrc/divided_attention.cu",
+            source=f"moditalker_tpu_torch/csrc/{source}.cu",
             replaces=("moditalker_tpu/ops/pallas/divided_attention.py:121"
                       if axis == "space" else
                       "moditalker_tpu/ops/pallas/divided_attention.py:177"),
@@ -610,13 +679,17 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
 
     c, l = 128, 2048                        # UNet joint attention at ds = 1
 
-    def packed_row(b_, l_, g=gen_more, dtype=torch.bfloat16):
+    def packed_row(b_, l_, g=gen_more, dtype=torch.bfloat16, plain32=False):
         qkv = torch.randn((b_, l_, 3 * c), generator=g, device=dev).to(dtype)
         sc = (c // heads) ** -0.5
         kern = lambda: pk.packed_attention(qkv, heads, sc)
         plain = lambda: pk.packed_attention_reference(qkv, heads, sc)
-        err = errors("packed_attention", kern, plain,
-                     lambda: pk.packed_attention_float32_route(qkv, heads, sc))
+        oracle = (lambda: pk.packed_attention_reference(qkv.float(), heads,
+                                                        sc)
+                  ) if plain32 else plain
+        err = errors("packed_attention", kern, oracle,
+                     lambda: pk.packed_attention_float32_route(qkv, heads, sc),
+                     dtype=qkv.dtype if plain32 else None)
         q, k, v = (t.reshape(b_, l_, heads, c // heads).transpose(1, 2)
                    .contiguous() for t in qkv.chunk(3, -1))
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=sc)
@@ -640,7 +713,15 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     rows += [dict(packed_row(batch, l, g=gen), design=small_head), xy_plane,
              packed_row(1, l), packed_row(1, 1024)]
 
-    def sdpa_row(name, replaces, source, kern, plain, q, k, v, sc):
+    def sdpa_row(name, replaces, source, kern, plain, q, k, v, sc,
+                 plain32=False):
+        # a shape beyond the configurations' runs the kernel's class
+        if q.shape[-1] not in fa.HEAD_DIMS or (
+                name == "tiny_attention"
+                and (q.shape[1], q.shape[-1]) not in fa.TINY_SHAPES):
+            source = "flash_classes"
+        oracle = (lambda: fa.onepass_attention_reference(
+            q.float(), k.float(), v.float(), sc)) if plain32 else plain
         lib = library_sdpa(q, k, v, sc)
         b_, nq_, d_ = q.shape
         return dict(
@@ -648,8 +729,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             source=f"moditalker_tpu_torch/csrc/{source}.cu",
             replaces=f"moditalker_tpu/ops/pallas/flash_attention.py:{replaces}",
             shape=[list(q.shape), list(k.shape)],
-            **errors(name, kern, plain,
-                     lambda: fa.attention_float32_route(q, k, v, sc)),
+            **errors(name, kern, oracle,
+                     lambda: fa.attention_float32_route(q, k, v, sc),
+                     dtype=q.dtype if plain32 else None),
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             library_ms=time_ms(torch, lib),
             nbytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
@@ -663,13 +745,13 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # (C = 256, 8 heads → [B·8, 2048, 32]); then the modular path's shapes:
     # TimeSformer space attention, the UNet's dh = 16 joint and xy-plane
     # attentions; then sample_long's B = 1
-    def onepass_row(b_, n_, d_, g=gen, dtype=torch.bfloat16):
+    def onepass_row(b_, n_, d_, g=gen, dtype=torch.bfloat16, plain32=False):
         q, k, v = (randn(b_, n_, d_, g=g, dtype=dtype) for _ in range(3))
         return sdpa_row(
             "onepass_attention", 104, "flash_attention",
             lambda: fa.onepass_attention(q, k, v, d_**-0.5),
             lambda: fa.onepass_attention_reference(q, k, v, d_**-0.5),
-            q, k, v, d_**-0.5)
+            q, k, v, d_**-0.5, plain32)
 
     rows.append(dict(onepass_row(batch * heads, l, 32),
                      design=small_head + "; at D = 64 the wgmma tile without "
@@ -680,13 +762,13 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
              onepass_row(heads, l, 32, g=gen_more)]
 
     # tiny-L: the modular path's TimeSformer time attention
-    def tiny_row(b_, g=gen, dtype=torch.bfloat16):
-        q, k, v = (randn(b_, f, dh, g=g, dtype=dtype) for _ in range(3))
+    def tiny_row(b_, g=gen, dtype=torch.bfloat16, l_=f, plain32=False):
+        q, k, v = (randn(b_, l_, dh, g=g, dtype=dtype) for _ in range(3))
         return sdpa_row(
             "tiny_attention", 146, "tiny_attention",
             lambda: fa.tiny_attention(q, k, v, scale),
             lambda: fa.tiny_attention_reference(q, k, v, scale),
-            q, k, v, scale)
+            q, k, v, scale, plain32)
 
     rows.append(tiny_row(batch * heads * n))
 
@@ -722,7 +804,10 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # upsample at C = 512 (the wgmma tile's K ring without the rotary)
     gen_b2 = torch.Generator(device=dev).manual_seed(seed + 2)
     rows += [onepass_row(16, 1024, 32, g=gen_b2),
-             onepass_row(16, 2048, 64, g=gen_b2)]
+             onepass_row(16, 2048, 64, g=gen_b2),
+             # and at sample_long's B = 1
+             onepass_row(heads, 1024, 32, g=gen_b2),
+             onepass_row(heads, 2048, 64, g=gen_b2)]
     # float32 in and out, at the shapes train-diffusion gives the kernels at
     # B = diffusion_batch_size: the frozen AEs' extract and the UNet's
     # packed and one-pass attentions, each held to the same limits against
@@ -776,17 +861,19 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     rows += [divided_row(axis, 1, f, n, g=gen_fs, dtype=f32)
              for axis in ("space", "time")]
 
-    def backward_row(axis, g, dtype):
+    def backward_row(axis, g, dtype, f=f, source="divided_backward"):
         """The backward kernel at train-first-stage's qkv [1, 16, 1024,
-        1536]: dqkv against the float32 plain backward (the written-out
-        adjoints) and, in float32, against its float32 route's function;
-        two calls equal bit for bit. Timed beside the plain backward, the
-        recompute it replaced (``RecomputeThroughPlain``: the plain forward
-        again, then its vjp) and the library's attention backward alone
-        (``torch.autograd.grad`` through ``scaled_dot_product_attention``
-        on the rotated, head-split float32 q, k, v)."""
+        1536] (``f``: its clips of another length): dqkv against the float32
+        plain backward (the written-out adjoints) and, in float32, against
+        its float32 route's function; two calls equal bit for bit. Timed
+        beside the plain backward, the recompute it replaced
+        (``RecomputeThroughPlain``: the plain forward again, then its vjp)
+        and the library's attention backward alone (``torch.autograd.grad``
+        through ``scaled_dot_product_attention`` on the rotated, head-split
+        float32 q, k, v)."""
         sin, cos = (tables(rotary.axial_rotary_sincos(32, n // 32, dh))
-                    if axis == "space" else (t_sin, t_cos))
+                    if axis == "space" else
+                    tables(rotary.time_rotary_sincos(f, dh)))
         qkv = torch.randn((1, f, n, 3 * hd), generator=g,
                           device=dev).to(dtype)
         cot = torch.randn((1, f, n, hd), generator=g, device=dev).to(dtype)
@@ -839,7 +926,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                   + (out.numel() if axis == "space" else 0)) * size
         return dict(
             name=name, route="cuda",
-            source="moditalker_tpu_torch/csrc/divided_backward.cu",
+            source=f"moditalker_tpu_torch/csrc/{source}.cu",
             replaces="moditalker_tpu/ops/pallas/divided_attention.py:317",
             shape=list(qkv.shape), **err,
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
@@ -869,6 +956,35 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     rows += [packed_row(1, l, g=gen_fs, dtype=f32),
              packed_row(1, 1024, g=gen_fs, dtype=f32),
              onepass_row(heads, l, 32, g=gen_fs, dtype=f32)]
+    # the classes beyond the configurations' shapes, at the shapes the
+    # variants phase gives them (bf16 and float32 each): clips of 32 frames
+    # (time on the 32-frame tile, tiny-L at 32 rows on the modular path,
+    # the UNet's packed and one-pass kernels at L = 3072), clips of 8 frames
+    # (time forward and backward on the 16-frame tile, padded and masked:
+    # train-first-stage's), and the 192-channel UNet's one-pass attentions
+    # (head dims 24 and 48 on the small-head tile's classes 32 and 64). A
+    # bf16 result is held to the plain version in float32 on its inputs
+    # (``errors``' dtype): at 3072 keys the bf16 plain version's bf16
+    # scores alone put the packed kernel's max measure at its limit
+    gen_cl = torch.Generator(device=dev).manual_seed(seed + 9)
+    for dtype in (torch.bfloat16, f32):
+        rows += [
+            divided_row("time", batch, VARIANT_CLIP_FRAMES, n, g=gen_cl,
+                        dtype=dtype, source="divided_classes", plain32=True),
+            divided_row("time", 1, VARIANT_TRAIN_FRAMES, n, g=gen_cl,
+                        dtype=dtype, source="divided_classes", plain32=True),
+            tiny_row(batch * heads * n, g=gen_cl, dtype=dtype,
+                     l_=VARIANT_CLIP_FRAMES, plain32=True),
+            onepass_row(batch * heads, 2048, 24, g=gen_cl, dtype=dtype,
+                        plain32=True),
+            onepass_row(batch * heads, 1024, 24, g=gen_cl, dtype=dtype,
+                        plain32=True),
+            onepass_row(batch * heads, 2048, 48, g=gen_cl, dtype=dtype,
+                        plain32=True),
+            backward_row("time", gen_cl, dtype, f=VARIANT_TRAIN_FRAMES,
+                         source="divided_backward_classes")]
+    rows += [packed_row(batch, 3072, g=gen_cl, plain32=True),
+             onepass_row(batch * heads, 3072, 32, g=gen_cl, plain32=True)]
 
     # the softmax floor: one ex2 per score at the clock the SMs hold under
     # load (read while the space kernel keeps the card busy)
@@ -891,7 +1007,10 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             else row["shape"]
         before = (None if row["dtype"] == "float32"
                   else BEFORE_REDESIGN_MS.get((row["name"], tuple(first))))
-        log(f"{row['name']} at {row['shape']} {row['dtype']}: max abs err "
+        log(f"{row['name']} at {row['shape']} {row['dtype']}"
+            + (" (against the float32 plain version)"
+               if row.get("oracle") == "float32 plain" else "")
+            + f": max abs err "
             f"{row['max_abs_err']:.3e}, relative max {row['rel_max_err']:.3e}"
             f", rms {row['rel_rms_err']:.3e} and {QUANTILE} quantile "
             f"{row['rel_q_err']:.3e} (limits {BF16_LIMITS[row['name']]}, "
@@ -911,6 +1030,64 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                else "")
             + (f", before the redesign {before:.4f} ms" if before else ""))
     return rows
+
+
+def masked_padding_check(torch, seed: int) -> dict:
+    """Clips of 8 and 24 frames run on the 16- and 32-frame time tiles with
+    the frames past F loaded as zeros; a zero key scores 0, not -inf, so
+    the padded keys must be masked before the max. q and k are built about
+    one direction of opposite signs (every real score negative, about -7
+    on average): an unmasked padded key would take nearly all the weight,
+    and a mask applied after the max would leave every weight at 0. The
+    forward and the backward kernels at [1, F, 64, 256] (2 heads of 64),
+    bf16 and float32, against their float32 route's functions on the same
+    inputs (scores this large move by whole units when q is rounded to
+    bf16, so the route, which rounds where the kernels do, is the oracle):
+    float32 within FLOAT32_ROUTE_LIMITS, bf16 within BF16_LIMITS and
+    QUANTILE_LIMITS."""
+    from moditalker_tpu_torch.ops import rotary
+    from moditalker_tpu_torch.ops.kernels import (check_bf16,
+                                                  check_float32_route)
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    from moditalker_tpu_torch.ops.kernels import divided_backward as db
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    heads, dh, n = 2, 64, 64
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    out = {}
+    for f_ in (8, 24):
+        sin, cos = (torch.from_numpy(t).to(dev)
+                    for t in rotary.time_rotary_sincos(f_, dh))
+        c = randn(1, 1, n, heads * dh)
+        qkv = torch.cat([c + 0.5 * randn(1, f_, n, heads * dh),
+                         -c + 0.5 * randn(1, f_, n, heads * dh),
+                         randn(1, f_, n, heads * dh)], dim=-1)
+        cot = randn(1, f_, n, heads * dh)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, g = qkv.to(dtype), cot.to(dtype)
+            route = dv.divided_attention_float32_route(
+                x.float(), sin, cos, "time", heads, dh, dh**-0.5)
+            droute = db.divided_attention_backward_float32_route(
+                x.float(), route, g.float(), sin, cos, "time", heads, dh,
+                dh**-0.5)
+            got = dv.time_attention_cuda(x, sin, cos, heads, dh, dh**-0.5)
+            dgot = dv.time_attention_backward_cuda(x, g, sin, cos, heads, dh,
+                                                   dh**-0.5)
+            check = (check_float32_route if dtype == torch.float32
+                     else check_bf16)
+            key = f"F = {f_}, {str(dtype).replace('torch.', '')}"
+            out[key] = {
+                "forward": check("divided_time_attention", got, route),
+                "backward": check("divided_time_attention_backward", dgot,
+                                  droute),
+                "output_peak": route.abs().max().item()}
+            if not out[key]["output_peak"] > 0.5:
+                raise AssertionError(f"masked padding {key}: the output "
+                                     f"collapsed")
+    log(f"masked padding (time classes at 8 and 24 frames, scores about "
+        f"-7, against the float32 route): {out}")
+    return out
 
 
 def gradient_phase(torch, seed: int) -> list[dict]:
@@ -1569,7 +1746,8 @@ def backward_events(torch, fn):
 
 
 def first_stage_check(torch, seed: int, loss_cfg=None,
-                      freeze_decoder: bool = False) -> dict:
+                      freeze_decoder: bool = False,
+                      frames: int | None = None) -> dict:
     """Two cycles of ``FirstStageTrainer`` at a small depth but the full
     spatial size (AE 64 wide, depth 1, 2 heads of 64, so that the space and
     time gates pass; the published discriminators and full LPIPS-VGG16;
@@ -1581,7 +1759,8 @@ def first_stage_check(torch, seed: int, loss_cfg=None,
     ``loss_cfg`` defaults to disc_start −1 (base_gan.yaml: a G and a D
     cycle); at a later disc_start both cycles are G cycles and the
     discriminators are not compared. ``freeze_decoder``: the landmark AE
-    (its trainable parameters compared, on landmark clips)."""
+    (its trainable parameters compared, on landmark clips). ``frames``:
+    clips of another length than the configuration's 16."""
     from moditalker_tpu_torch.config import (MtovAEConfig, MtovLossConfig,
                                              MtovTrainConfig)
     from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
@@ -1589,7 +1768,8 @@ def first_stage_check(torch, seed: int, loss_cfg=None,
     from moditalker_tpu_torch.train.mtov_first_stage import FirstStageTrainer
 
     ae_cfg = MtovAEConfig(channels=64, depth=1, heads=2, dim_head=64,
-                          quant_depth=1, quant_heads=2, quant_mlp_dim=64)
+                          quant_depth=1, quant_heads=2, quant_mlp_dim=64,
+                          **({"timesteps": frames} if frames else {}))
     loss_cfg = loss_cfg or MtovLossConfig(disc_start=-1)
     tc = MtovTrainConfig(seed=seed)
     k = tc.accum_iter
@@ -1935,15 +2115,16 @@ def make_windows(cfg, n: int, batch: int, seed: int):
 
 def reference_phase(torch, seed: int, what: str, expected: set,
                     heads: int = 2, batch: int = 1,
-                    model_channels: int = 128) -> dict:
+                    model_channels: int = 128, frames: int = 16) -> dict:
     """A small-depth window on the card (bf16, kernels) against the CPU in
     float32 (plain path), with the same weights and the same draws. The
     same window on the CPU in bf16 (plain path) measures what bf16 alone
     costs; the card may differ from float32 by at most REF_FACTOR times
     that, in mean and in max. On the card exactly the ``expected`` kernels
     must launch. ``model_channels`` 256: the UNet of base_longvid.yaml at
-    the same small depth. Returns the errors and the card's launches by
-    shape."""
+    the same small depth (192: the variants phase's). ``frames``: clips of
+    another length (the UNet's latent_t follows). Returns the errors and
+    the card's launches by shape."""
     from moditalker_tpu_torch.config import (MtovAEConfig,
                                              MtovDiffusionConfig,
                                              MtovUNetConfig)
@@ -1951,13 +2132,14 @@ def reference_phase(torch, seed: int, what: str, expected: set,
     from moditalker_tpu_torch.pipelines.mtov_sample import MtovSamplePipeline
 
     ae_cfg = MtovAEConfig(channels=64, depth=1, heads=heads, dim_head=64,
-                          quant_depth=1, quant_heads=2, quant_mlp_dim=64)
+                          quant_depth=1, quant_heads=2, quant_mlp_dim=64,
+                          timesteps=frames)
     # channel_mult (1, 2): the last upsample lands 2·model_channels at
     # ds = 1, so the joint attention there takes the one-pass kernel, as in
     # the full UNet (at 256 channels every gated attention does)
     unet_cfg = MtovUNetConfig(model_channels=model_channels,
                               num_res_blocks=1, channel_mult=(1, 2),
-                              attention_resolutions=(1,))
+                              attention_resolutions=(1,), latent_t=frames)
     diff_cfg = MtovDiffusionConfig(sampling_timesteps=2)
     states = random_states(torch, ae_cfg, unet_cfg, seed)
     w = make_windows(ae_cfg, 1, batch, seed)[0]
@@ -3081,6 +3263,235 @@ def profiling_phase(torch, pipe, seed: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ variants
+def variant_yaml(name: str, directory: str) -> str:
+    """The shipped YAML of ``VARIANTS[name]`` with its one key changed,
+    written into ``directory``; returns the file's path."""
+    import yaml
+
+    src, section, key, value = VARIANTS[name]
+    with open(src) as fh:
+        data = yaml.safe_load(fh) or {}
+    data.setdefault(section, {})[key] = value
+    path = os.path.join(directory, f"{name}.yaml")
+    with open(path, "w") as fh:
+        yaml.safe_dump(data, fh)
+    return path
+
+
+def check_gated(what: str, by_shape: dict, frames: int) -> None:
+    """Every launch at a shape its kernel's gate admits (the port's gates,
+    held equal to the JAX gates on the CPU), the time and tiny-L launches on
+    sequences of ``frames``."""
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+    from moditalker_tpu_torch.ops.kernels import packed_attention as pk
+
+    gate = {
+        "divided_space_attention": lambda s: dv.divided_attention_viable(
+            "space", 1, s[-2], 8, 64, 64),
+        "divided_time_attention": lambda s: s[1] == frames and
+        dv.divided_attention_viable("time", s[1], s[2], 8, 64, 64),
+        "divided_space_attention_backward": lambda s:
+        dv.divided_attention_viable("space", 1, s[-2], 8, 64, 64),
+        "divided_time_attention_backward": lambda s: s[1] == frames and
+        dv.divided_attention_viable("time", s[1], s[2], 8, 64, 64),
+        "tiny_attention": lambda s: s[1] == frames and
+        fa.tiny_attention_viable(s[0], s[1], s[1], s[2]),
+        "onepass_attention": lambda s: fa.onepass_attention_viable(
+            s[1], s[1], s[2]),
+        "packed_attention": lambda s: pk.packed_attention_viable(
+            s[1], s[2] // 3, 8)}
+    off = {name: key for name, shapes in by_shape.items() for key in shapes
+           if not gate[name](json.loads(key))}
+    if off:
+        raise AssertionError(f"{what}: launches at shapes their gates do not "
+                             f"admit: {off}")
+
+
+def check_unet_launches(what: str, by_shape: dict, per_call: dict,
+                        calls: int, other_onepass=None) -> None:
+    """The UNet's launches by shape, ``per_call`` of them a call
+    (VARIANT_UNET_PER_CALL) over ``calls`` calls; the one-pass kernel's
+    other shapes must be the AE's (``other_onepass(shape)``)."""
+    for name, want in per_call.items():
+        got = dict(by_shape.get(name, {}))
+        for shape, k in want.items():
+            if got.pop(str(list(shape)), None) != k * calls:
+                raise AssertionError(f"{what}: {name} launches "
+                                     f"{by_shape.get(name)}, predicted "
+                                     f"{k * calls} at {list(shape)}")
+        if got and not (name == "onepass_attention" and other_onepass and all(
+                other_onepass(json.loads(key)) for key in got)):
+            raise AssertionError(f"{what}: {name} launched at {got} too")
+
+
+def variant_sample(torch, seed: int, config: str, path: str) -> dict:
+    """The ``sample`` command with ``config`` (clips of 32 frames) through
+    the CLI's own parser, two windows at batch 2, on the fused or the
+    modular ``path``: a DDIM-2 warm-up, then DDIM-25 timed; the path's
+    kernels and no other, every launch at a shape its gate admits, the
+    time kernel at [2, 32, 1024, 1536] (fused) or tiny-L at [16384, 32, 64]
+    (modular), the UNet's launches by shape as VARIANT_UNET_PER_CALL
+    predicts for 25 calls, the frames written."""
+    from moditalker_tpu_torch import cli
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+
+    windows, steps = 2, 25
+    what = f"variants clip32 sample ({path})"
+    switches = modular_attention() if path == "modular" else \
+        contextlib.nullcontext()
+    with switches, tempfile.TemporaryDirectory() as tmp:
+        def args(n):
+            return cli.build_parser().parse_args([
+                "sample", "--frames-dir", "-", "--aligned-dir", "-",
+                "--batch", "2", "--no-last-as-reference", "--sampling-steps",
+                str(n), "--seed", str(seed), "--out-dir", tmp, "--config",
+                config])
+
+        ae_cfg = cli._sample_configs(args(2))[0]
+        f_ = ae_cfg.timesteps
+        cli.sample_windows(args(2), make_windows(ae_cfg, windows, 1, seed))
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = cli.sample_windows(args(steps),
+                                 make_windows(ae_cfg, windows, 1, seed))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = check_launches(what, MODULAR_PATH if path == "modular"
+                                else FUSED_PATH)
+        by_shape = launches_by_shape()
+        frames = windows * f_
+        if out.endswith(".npz"):
+            with np.load(out) as dump:
+                check_frames(dump["frames"][None], frames, ae_cfg, what)
+        elif not out.endswith(".mp4") or os.path.getsize(out) == 0:
+            raise AssertionError(f"{what}: no video at {out}")
+    check_gated(what, by_shape, f_)
+    new_class = (("tiny_attention", [2 * 8 * 1024, f_, 64]) if path ==
+                 "modular" else ("divided_time_attention",
+                                 [2, f_, 1024, 1536]))
+    if str(new_class[1]) not in by_shape.get(new_class[0], {}):
+        raise AssertionError(f"{what}: no {new_class[0]} launch at "
+                             f"{new_class[1]}: {by_shape}")
+    check_unet_launches(what, by_shape, VARIANT_UNET_PER_CALL[
+        "clip32", path], steps,
+        other_onepass=lambda s: s[1:] == [1024, 64])
+    log(f"{what} (DDIM-{steps}, {windows} windows at batch 2, built from "
+        f"the seed): {frames} frames of {f_}-frame clips in {dt:.2f} s incl. "
+        f"the build = {frames / dt:.3f} frames/s; launches {counts}, by "
+        f"shape {by_shape}")
+    return {"frames_per_s_with_build": frames / dt, "launches": counts,
+            "launches_by_shape": by_shape}
+
+
+def first_stage_frames_phase(torch, seed: int, config: str) -> dict:
+    """``FirstStageTrainer`` at ``config`` (base_gan.yaml's operating point
+    with clips of 8 frames), full width, B = 1, accumulation 3, float32:
+    one G and one D cycle untimed, then one of each timed (iterations/s,
+    peak memory), every loss finite; launches by shape: the space and time
+    kernels 2·depth a micro-step, their backward kernels 2·depth a G
+    micro-step, all on float32 operands, the time kernels at [1, 8, 1024,
+    1536] (the 16-frame tile, padded and masked), and no other kernel; then
+    a G and a D cycle at small depth on 8-frame clips against the CPU
+    within FIRST_STAGE_LIMITS (``first_stage_check``)."""
+    import dataclasses
+    import itertools
+
+    from moditalker_tpu_torch.config import load_config
+    from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.train.mtov_first_stage import FirstStageTrainer
+
+    cfg = load_config(config)
+    ae_cfg, loss_cfg = cfg.mtov_ae, cfg.mtov_loss
+    tc = dataclasses.replace(cfg.mtov_train, seed=seed)
+    what = f"variants clip8 train-first-stage ({ae_cfg.timesteps} frames)"
+    trainer = FirstStageTrainer(ae_cfg, loss_cfg, tc)
+    b, k = tc.batch_size, tc.accum_iter
+    batch = synthetic_mtov_batch(b, ae_cfg.timesteps, ae_cfg.resolution, seed)
+    losses = LossLog()
+    trainer.fit(itertools.repeat(batch), max_steps=2 * k, logger=losses,
+                log_every=1, eval_every=10**9)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.fit(itertools.repeat(batch), max_steps=4 * k, logger=losses,
+                log_every=1, eval_every=10**9)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = check_launches(what, FIRST_STAGE_PATH)
+    by_shape = launches_by_shape()
+    check_float32_launches(what, by_shape)
+    check_gated(what, by_shape, ae_cfg.timesteps)
+    per_step = 2 * ae_cfg.depth
+    want = {n: per_step * (k if n in FIRST_STAGE_BACKWARDS else 2 * k)
+            for n in FIRST_STAGE_PATH}
+    qkv = str([b, ae_cfg.timesteps, 1024, 1536])
+    values = [v for row in losses.seen for v in row.values()]
+    if ({n: c for n, c in counts.items() if c} != want
+            or by_shape["divided_time_attention"] != {qkv: want[
+                "divided_time_attention"]}
+            or by_shape["divided_time_attention_backward"] != {qkv: want[
+                "divided_time_attention_backward"]}
+            or len(losses.seen) != 4 * k or not np.isfinite(values).all()):
+        raise AssertionError(f"{what}: launches {by_shape} (want {want}), "
+                             f"losses {losses.seen}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{what} (full width, B = {b}, accumulation {k}, float32): one G and "
+        f"one D cycle in {dt:.3f} s = {2 * k / dt:.4f} iterations/s; peak "
+        f"memory {peak:.2f} GiB; launches by shape {by_shape}; last losses "
+        f"{losses.seen[-2:]}")
+    del trainer
+    torch.cuda.empty_cache()
+    check = first_stage_check(torch, seed, loss_cfg,
+                              frames=ae_cfg.timesteps)
+    return {"iterations_per_s": 2 * k / dt, "peak_gib": peak,
+            "launches": counts, "launches_by_shape": by_shape,
+            "card_vs_cpu": check}
+
+
+def variants_phase(torch, seed: int) -> dict:
+    """Shipped configurations changed by one key each (VARIANTS), read by
+    ``load_config`` from temporary YAMLs: ``sample`` at clips of 32 frames
+    on the fused and the modular path (``variant_sample``) and a
+    small-depth window of such clips against the CPU; train-first-stage at
+    clips of 8 frames (``first_stage_frames_phase``); a small-depth window
+    of the 192-channel UNet against the CPU, its one-pass launches at head
+    dims 24 and 48. The counts are zeroed before each path and read after
+    it."""
+    from moditalker_tpu_torch.config import load_config
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {name: variant_yaml(name, tmp) for name in VARIANTS}
+        frames = load_config(paths["clip32"]).mtov_ae.timesteps
+        out["clip32"] = {p: variant_sample(torch, seed, paths["clip32"], p)
+                         for p in ("fused", "modular")}
+        torch.cuda.empty_cache()
+        out["clip32"]["reference"] = reference_phase(
+            torch, seed, "variants clip32 fused", FUSED_PATH, frames=frames)
+        with modular_attention():
+            out["clip32"]["reference modular"] = reference_phase(
+                torch, seed, "variants clip32 modular", MODULAR_PATH,
+                heads=4, batch=2, frames=frames)
+        torch.cuda.empty_cache()
+        out["clip8"] = first_stage_frames_phase(torch, seed, paths["clip8"])
+        torch.cuda.empty_cache()
+        channels = load_config(paths["channels192"]).mtov_unet.model_channels
+        ref = reference_phase(torch, seed, "variants channels192",
+                              LONGVID_PATH, model_channels=channels)
+        heads = {json.loads(key)[2] for key in
+                 ref["launches_by_shape"]["onepass_attention"]}
+        if heads != {channels // 8, 2 * channels // 8}:
+            raise AssertionError(f"variants channels192: one-pass at head "
+                                 f"dims {heads}")
+        out["channels192"] = {"reference": ref}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3096,8 +3507,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from moditalker_tpu_torch.ops.kernels import (FLOAT32_SOURCES,
-                                                      SOURCES, _build)
+        from moditalker_tpu_torch.ops.kernels import _build, all_sources
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -3107,8 +3517,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t_start = t0 = time.perf_counter()
-    logs = _build.build(sorted({*SOURCES.values(),
-                                *FLOAT32_SOURCES.values()}))
+    logs = _build.build(all_sources())
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, (secs, out) in logs.items():
         for line in out.splitlines():   # per kernel: registers, spills
@@ -3128,6 +3537,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     rows = kernel_phase(torch, batch=2, seed=args.seed)
+    masked = masked_padding_check(torch, args.seed)
     grads = gradient_phase(torch, args.seed)
     if args.kernels_only:
         return 0
@@ -3175,6 +3585,7 @@ def main() -> int:
         "base_ldmk.yaml --landmark": first_stage_variant_phase(
             torch, args.seed, "configs/autoencoder/base_ldmk.yaml",
             landmark=True)}
+    variant_runs = variants_phase(torch, args.seed)
     i3d = i3d_phase(torch, args.seed)
     gold = golden_phase(torch, args.seed)
     distributed = distributed_phase(torch, args.seed)
@@ -3199,6 +3610,11 @@ def main() -> int:
     for what, run in variants.items():
         timed[f"train-first-stage {what}"] = run["launches"]
     timed["golden record"] = gold["launches"]
+    for p in ("fused", "modular"):
+        timed[f"variants clip32 sample {p}"] = \
+            variant_runs["clip32"][p]["launches"]
+    timed["variants clip8 train-first-stage"] = \
+        variant_runs["clip8"]["launches"]
     timed["head_parallel_attention"] = distributed["tp_launches"]
     timed["sample --data-parallel 1"] = distributed["sample_launches"]
     # one line entry per kernel: its first row, the shape its main path
@@ -3207,7 +3623,8 @@ def main() -> int:
     for row in rows:
         if row["name"] in kernels:
             kernels[row["name"]].setdefault("other_shapes", []).append(
-                {k: row[k] for k in ("shape", "dtype", "max_abs_err",
+                {k: row[k] for k in ("shape", "dtype", "oracle",
+                                     "max_abs_err",
                                      "rel_max_err", "rel_rms_err",
                                      "rel_q_err", "route_rel_err",
                                      "bf16_rounded_share", "ms",
@@ -3229,7 +3646,12 @@ def main() -> int:
                    "train-first-stage": first_stage["launches_by_shape"],
                    **{f"train-first-stage {what}": run["launches_by_shape"]
                       for what, run in variants.items()},
-                   "golden record": gold["launches_by_shape"]}
+                   "golden record": gold["launches_by_shape"],
+                   **{f"variants clip32 sample {p}":
+                      variant_runs["clip32"][p]["launches_by_shape"]
+                      for p in ("fused", "modular")},
+                   "variants clip8 train-first-stage":
+                       variant_runs["clip8"]["launches_by_shape"]}
         row["launches_by_shape"] = {
             p: by[row["name"]] for p, by in by_path.items()
             if "warm-up" not in p and row["name"] in by}
@@ -3278,6 +3700,7 @@ def main() -> int:
             "cli_sample": longvid_cli,
             "train_diffusion": train_longvid},
         "first_stage_variants": variants,
+        "variants": variant_runs,
         "i3d": i3d,
         "golden": {k: gold[k] for k in (
             "convert_s", "lpips_card_vs_cpu_rel_err", "record_s", "check_s",
@@ -3285,7 +3708,8 @@ def main() -> int:
         "distributed": {k: distributed[k] for k in ("init_s", "step_exact",
                                                     "tp")},
         "profiling": profiling,
-        "gradients": grads, "card": card, "profile": prof,
+        "gradients": grads, "masked_padding": masked, "card": card,
+        "profile": prof,
         "seconds": seconds}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

@@ -143,10 +143,12 @@ def noised_start_indices(num_timesteps: int, sampling_steps: int,
 def ddim_sample_noised_start(sched: DiffusionSchedule, model_fn: ModelFn,
                              x_start, sampling_steps: int, ratio: float, *,
                              generator=None, eta: float = 1.0,
+                             parameterization: str = "eps",
                              clip_denoised: bool = True, renoise=None,
                              step_noise: Sequence[torch.Tensor] | None = None):
     """Partial-renoise DDIM: q_sample a known latent to t = T·ratio, denoise
-    the tail of the schedule (ref ddpm.py:407-454, the fast AR mode)."""
+    the tail of the schedule (ref ddpm.py:407-454, the fast AR mode), the
+    model output read as ``ddim_sample`` reads it."""
     t0, start_idx = noised_start_indices(sched.num_timesteps, sampling_steps,
                                          ratio)
     t_vec = torch.full((x_start.shape[0],), t0, dtype=torch.long,
@@ -156,6 +158,7 @@ def ddim_sample_noised_start(sched: DiffusionSchedule, model_fn: ModelFn,
     x_noisy = q_sample(sched, x_start, t_vec, renoise)
     return ddim_sample(sched, model_fn, tuple(x_start.shape), sampling_steps,
                        generator=generator, eta=eta,
+                       parameterization=parameterization,
                        clip_denoised=clip_denoised, x_init=x_noisy,
                        start_pair_index=start_idx, step_noise=step_noise)
 

@@ -26,8 +26,8 @@ int divided_time_attention(const void* qkv, const void* sin_t,
   // built for the shape the repository's configurations reach (16 frames,
   // dim_head 64); keep in step with TIME_SHAPES in divided_attention.py
   if (F == 16 && dh == 64)
-    return mdt::launch_time<16, 64, mdt::bf16>(qkv, sin_t, cos_t, out, B, N,
-                                               H, scale, st);
+    return mdt::launch_time<16, 64, mdt::bf16>(qkv, sin_t, cos_t, out, B, F,
+                                               N, H, dh, scale, st);
   return cudaErrorInvalidValue;
 }
 

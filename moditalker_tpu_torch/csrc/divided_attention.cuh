@@ -53,6 +53,7 @@
 // divided_attention.cu (bf16) and divided_attention_f32.cu (float32).
 #pragma once
 
+#include "smallhead_tile.cuh"
 #include "tiny_tile.cuh"
 #include "wgmma_tile.cuh"
 
@@ -60,11 +61,18 @@ namespace mdt {
 
 template <int FT, int DH>
 struct TimeShape {
-  static constexpr int warps = 8;
   static constexpr int table_floats = 2 * FT * DH;  // sin, cos
+  static constexpr int warp_bytes =
+      TinyTile<FT, DH>::warp_elems * (int)sizeof(bf16);
+  // blocks of eight warps unless four keep more warps on an SM (32 frames:
+  // one block of eight fits an SM's shared memory, three of four do)
+  static constexpr int warps =
+      resident_warps(4, table_floats * 4, warp_bytes) >
+              resident_warps(8, table_floats * 4, warp_bytes)
+          ? 4
+          : 8;
   static constexpr int smem_bytes =
-      table_floats * (int)sizeof(float) +
-      warps * TinyTile<FT, DH>::warp_elems * (int)sizeof(bf16);
+      table_floats * (int)sizeof(float) + warps * warp_bytes;
 };
 
 // grid ceil(B·N·H / 8), block 256; exactly FT frames. TI is qkv's element
@@ -147,24 +155,152 @@ time_attention_kernel(const TI* __restrict__ qkv,
   }
 }
 
-template <int FT, int DH, typename TI>
-cudaError_t launch_time(const void* qkv, const void* sin_t, const void* cos_t,
-                        void* out, int B, int N, int H, float scale,
-                        cudaStream_t stream) {
+
+// The classes' time kernel (grid ceil(B·N·H / warps), block 32·warps), the
+// kernel above at F <= FT frames (F % 8 == 0) of head dim dh <= DH (dh
+// dividing 128): frames past F and columns past dh are loaded as zeros
+// (frames masked in the softmax) and never stored, and the rotary and the
+// exp are rounded as the plain versions round them (load8_part,
+// tiny_attend's MASK). A kernel of its own, so that the configurations'
+// instantiation above compiles as it did before the classes.
+template <int FT, int DH, typename TI, typename TO>
+__global__ void __launch_bounds__(32 * TimeShape<FT, DH>::warps)
+time_attention_class_kernel(const TI* __restrict__ qkv,
+                            const float* __restrict__ sin_t,
+                            const float* __restrict__ cos_t,
+                            TO* __restrict__ out, int B, int N, int H,
+                            float scale, int F, int dh) {
   using S = TimeShape<FT, DH>;
-  auto kern = time_attention_kernel<FT, DH, TI, TI>;
-  if (S::smem_bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::smem_bytes);
-    if (err != cudaSuccess) return err;
+  using T = TinyTile<FT, DH>;
+  constexpr int RS = T::RS, CH = T::CH;
+  constexpr bool kF32 = std::is_same<TI, float>::value;
+  static_assert(std::is_same<TI, TO>::value, "output in qkv's type");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* sin_s = reinterpret_cast<float*>(smem_raw);  // [FT][DH]
+  float* cos_s = sin_s + FT * DH;
+  stage_table<FT, DH>(sin_s, sin_t, F, dh, 32 * S::warps);
+  stage_table<FT, DH>(cos_s, cos_t, F, dh, 32 * S::warps);
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long wid = (long)blockIdx.x * S::warps + warp;
+  if (wid >= (long)B * N * H) return;  // whole warp leaves; no barrier below
+  bf16* q_s = reinterpret_cast<bf16*>(sin_s + S::table_floats) +
+              warp * T::warp_elems;
+  bf16* k_s = q_s + FT * RS;
+  bf16* v_s = k_s + FT * RS;
+
+  const int h = (int)(wid % H);
+  const int n = (int)((wid / H) % N);
+  const int b = (int)(wid / ((long)H * N));
+  const int HD = H * dh;
+  const long in_frame = (long)N * 3 * HD, out_frame = (long)N * HD;
+  const TI* src = qkv + ((long)b * F * N + n) * 3L * HD + h * dh;
+
+  // unrolled: all of a lane's loads are in flight together (twelve 16-byte
+  // loads in bf16, twenty-four in float32, at 16 frames of head dim 64)
+#pragma unroll
+  for (int i = lane; i < FT * CH; i += 32) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const TI* row = src + r * in_frame + c;
+    const float* sn = sin_s + r * DH + c;
+    const float* cs = cos_s + r * DH + c;
+    float x[8];
+    // the elements of this chunk inside the sequence and the head
+    const int part = r < F ? dh - c : 0;
+    load8_part<true>(row, part, sn, cs, scale, x);
+    store8(q_s + r * RS + c, x);
+    load8_part<true>(row + HD, part, sn, cs, 1.f, x);
+    store8(k_s + r * RS + c, x);
+    load8_part<false>(row + 2 * HD, part, nullptr, nullptr, 1.f, x);
+    store8(v_s + r * RS + c, x);
   }
+  __syncwarp();
+  tiny_attend<FT, DH, TO, true>(q_s, k_s, v_s, lane, F);
+  __syncwarp();
+  TO* dst = out + ((long)b * F * N + n) * HD + h * dh;
+  if constexpr (kF32) {  // fp32 [FT, DH] at stride OS over q_s and k_s
+    const float* o_s = reinterpret_cast<const float*>(q_s);
+    for (int i = lane; i < FT * DH / 4; i += 32) {
+      const int r = i / (DH / 4), c = (i % (DH / 4)) * 4;
+      const float* o = o_s + r * T::OS + c;
+      if (r < F && c + 4 <= dh) {
+        *reinterpret_cast<float4*>(dst + r * out_frame + c) =
+            *reinterpret_cast<const float4*>(o);
+      } else if (r < F) {  // head dim 2: half a chunk
+        for (int e = 0; c + e < dh; ++e) dst[r * out_frame + c + e] = o[e];
+      }
+    }
+  } else {
+    for (int i = lane; i < FT * CH; i += 32) {
+      const int r = i / CH, c = (i % CH) * 8;
+      if (r < F && c + 8 <= dh) {
+        *reinterpret_cast<uint4*>(dst + r * out_frame + c) =
+            *reinterpret_cast<const uint4*>(q_s + r * RS + c);
+      } else if (r < F && c < dh) {  // head dims 2 and 4
+        store_part(dst + r * out_frame + c, q_s + r * RS + c, dh - c);
+      }
+    }
+  }
+}
+
+template <int FT, int DH, typename TI, bool PAD = false>
+cudaError_t launch_time(const void* qkv, const void* sin_t, const void* cos_t,
+                        void* out, int B, int F, int N, int H, int dh,
+                        float scale, cudaStream_t stream) {
+  using S = TimeShape<FT, DH>;
   long warps = (long)B * N * H;
   unsigned blocks = (unsigned)((warps + S::warps - 1) / S::warps);
-  kern<<<blocks, 32 * S::warps, S::smem_bytes, stream>>>(
-      static_cast<const TI*>(qkv), static_cast<const float*>(sin_t),
-      static_cast<const float*>(cos_t), static_cast<TI*>(out), B, N, H,
-      scale);
+  const TI* x = static_cast<const TI*>(qkv);
+  const float *sn = static_cast<const float*>(sin_t),
+              *cs = static_cast<const float*>(cos_t);
+  TI* o = static_cast<TI*>(out);
+  if constexpr (PAD) {
+    auto kern = time_attention_class_kernel<FT, DH, TI, TI>;
+    if (S::smem_bytes > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::smem_bytes);
+      if (err != cudaSuccess) return err;
+    }
+    kern<<<blocks, 32 * S::warps, S::smem_bytes, stream>>>(
+        x, sn, cs, o, B, N, H, scale, F, dh);
+  } else {
+    auto kern = time_attention_kernel<FT, DH, TI, TI>;
+    if (S::smem_bytes > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, S::smem_bytes);
+      if (err != cudaSuccess) return err;
+    }
+    kern<<<blocks, 32 * S::warps, S::smem_bytes, stream>>>(x, sn, cs, o, B, N,
+                                                           H, scale);
+  }
   return cudaGetLastError();
+}
+
+// Frames F % 8 == 0 up to 32, head dims dh dividing 128 from 2 up (what the
+// gate admits): the frame class 16 or 32 and the head-dim class 16, 32, 64
+// or 128 that hold them, with the classes' padding, masking and rounding
+// (PAD), also where the shape is its class.
+template <typename TI>
+int launch_time_classes(const void* qkv, const void* sin_t, const void* cos_t,
+                        void* out, int B, int F, int N, int H, int dh,
+                        float scale, cudaStream_t stream) {
+  if (F < 8 || F > 32 || F % 8 || dh < 2 || dh > 128 || 128 % dh)
+    return cudaErrorInvalidValue;
+  const bool tall = F > 16;
+#define MDT_TIME(DH)                                                      \
+  return tall ? launch_time<32, DH, TI, true>(qkv, sin_t, cos_t, out, B, F, \
+                                              N, H, dh, scale, stream)    \
+              : launch_time<16, DH, TI, true>(qkv, sin_t, cos_t, out, B, F, \
+                                              N, H, dh, scale, stream)
+  switch (dh < 16 ? 16 : dh) {
+    case 16: MDT_TIME(16);
+    case 32: MDT_TIME(32);
+    case 64: MDT_TIME(64);
+    case 128: MDT_TIME(128);
+  }
+#undef MDT_TIME
+  return cudaErrorInvalidValue;
 }
 
 // qkv [BF, N, 3·H·dh] -> out [BF, N, H·dh], both of element type T.
@@ -181,6 +317,35 @@ int launch_space(const void* qkv, const void* rot, void* out, int BF, int N,
                      N * 3 * hd, N * 3 * hd, 3 * hd, N * hd, hd, dh, N, N,
                      scale};
   return launch_wgmma<true, T, T>(a, BF, H, stream);
+}
+
+// The space kernel at the head dims its gate admits beyond the wgmma
+// tile's 64 (dh dividing 128 from 2 up), and at 64 in float32 past resident
+// K (N > 1152: the wgmma tile's float32 route has no K ring with the
+// rotary): the small-head tile with the rotary (smallhead_tile.cuh), per
+// head-dim class, heads of 2, 4 and 8 dims padded to 16 (divided_classes.cu).
+template <typename T>
+int launch_space_classes(const void* qkv, const void* rot, void* out, int BF,
+                         int N, int H, int dh, float scale,
+                         cudaStream_t stream) {
+  if (dh < 2 || dh > 128 || 128 % dh || N < 256 || N % 128)
+    return cudaErrorInvalidValue;
+  const T* base = static_cast<const T*>(qkv);
+  const long hd = (long)H * dh;
+  const SmallHeadArgsT<T> a{base, base + hd, base + 2 * hd,
+                            static_cast<T*>(out), N * 3 * hd, N * 3 * hd,
+                            3 * hd, N * hd, hd, dh, N, N, scale,
+                            static_cast<const float*>(rot), dh};
+  switch (dh < 16 ? 16 : dh) {
+    case 16: return launch_smallhead<16, T, true, true>(a, BF, H, stream);
+    case 32: return launch_smallhead<32, T, true, true>(a, BF, H, stream);
+    case 64:
+      if constexpr (std::is_same<T, float>::value)
+        return launch_smallhead<64, T, true, true>(a, BF, H, stream);
+      break;   // bf16 at 64 is the wgmma tile's (divided_attention.cu)
+    case 128: return launch_smallhead<128, T, true, true>(a, BF, H, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace mdt

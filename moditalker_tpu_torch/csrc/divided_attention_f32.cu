@@ -24,8 +24,8 @@ int divided_time_attention_f32(const void* qkv, const void* sin_t,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (F == 16 && dh == 64)
-    return mdt::launch_time<16, 64, float>(qkv, sin_t, cos_t, out, B, N, H,
-                                           scale, st);
+    return mdt::launch_time<16, 64, float>(qkv, sin_t, cos_t, out, B, F, N,
+                                           H, dh, scale, st);
   return cudaErrorInvalidValue;
 }
 

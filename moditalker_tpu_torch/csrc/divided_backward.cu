@@ -19,8 +19,8 @@ int divided_space_attention_backward(const void* qkv, const void* rot,
   switch (dh) {
     case 64:
       return mdt::launch_space_backward<mdt::bf16>(qkv, rot, out, g, dqkv,
-                                                   stats, BF, N, H, scale,
-                                                   st);
+                                                   stats, BF, N, H, dh,
+                                                   scale, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -39,7 +39,7 @@ int divided_time_attention_backward(const void* qkv, const void* sin_t,
       switch (dh) {
         case 64:
           return mdt::launch_time_backward<16, 64, mdt::bf16>(
-              qkv, sin_t, cos_t, g, dqkv, B, N, H, scale, st);
+              qkv, sin_t, cos_t, g, dqkv, B, F, N, H, dh, scale, st);
       }
   }
   return cudaErrorInvalidValue;

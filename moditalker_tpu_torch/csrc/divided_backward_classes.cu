@@ -1,0 +1,38 @@
+// The C entry points of the divided space and time backward kernels for
+// bf16 qkv at the shapes the forward's gate admits beyond the
+// configurations' (divided_backward.cu holds those: space at head dim
+// 64, time at 16 frames of head dim 64), in a library of their own: space at
+// head dims 2 to 128 but 64, time at every frame and head-dim class (the
+// kernels: divided_backward.cuh).
+#include "divided_backward.cuh"
+
+extern "C" {
+
+// qkv [BF, N, 3·H·dh] bf16, rot [N, dh/2, 2] fp32, out and g
+// [BF, N, H·dh] bf16 -> dqkv [BF, N, 3·H·dh] bf16; stats a float32
+// scratch [BF, H, N, 2]; dh dividing 128, dh != 64.
+int divided_space_attention_backward_classes(
+    const void* qkv, const void* rot, const void* out, const void* g,
+    void* dqkv, void* stats, int BF, int N, int H, int dh, float scale,
+    void* stream) {
+  return mdt::launch_space_backward_classes<mdt::bf16>(
+      qkv, rot, out, g, dqkv, stats, BF, N, H, dh, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+// qkv [B, F, N, 3·H·dh] bf16, sin/cos [F, dh] fp32, g [B, F, N, H·dh]
+// bf16 -> dqkv [B, F, N, 3·H·dh] bf16; F % 8 == 0, F <= 32, dh dividing 128.
+int divided_time_attention_backward_classes(
+    const void* qkv, const void* sin_t, const void* cos_t, const void* g,
+    void* dqkv, int B, int F, int N, int H, int dh, float scale,
+    void* stream) {
+  return mdt::launch_time_backward_classes<mdt::bf16>(
+      qkv, sin_t, cos_t, g, dqkv, B, F, N, H, dh, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -18,7 +18,7 @@ int divided_space_attention_backward_f32(const void* qkv, const void* rot,
   switch (dh) {
     case 64:
       return mdt::launch_space_backward<float>(qkv, rot, out, g, dqkv, stats,
-                                               BF, N, H, scale, st);
+                                               BF, N, H, dh, scale, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -36,7 +36,7 @@ int divided_time_attention_backward_f32(const void* qkv, const void* sin_t,
       switch (dh) {
         case 64:
           return mdt::launch_time_backward<16, 64, float>(
-              qkv, sin_t, cos_t, g, dqkv, B, N, H, scale, st);
+              qkv, sin_t, cos_t, g, dqkv, B, F, N, H, dh, scale, st);
       }
   }
   return cudaErrorInvalidValue;

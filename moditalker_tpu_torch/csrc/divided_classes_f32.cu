@@ -1,0 +1,36 @@
+// The C entry points of the divided space and time kernels for float32 qkv
+// at the shapes their gate admits beyond the configurations' (the kernels
+// and their float32 route: divided_attention.cuh; the configurations'
+// shapes: divided_attention_f32.cu). A library of its own, as
+// divided_classes.cu is for bf16: space at head dims 2 to 128 on the
+// small-head tile with the rotary (at 64 past resident K, N > 1152), time at
+// every frame and head-dim class.
+#include "divided_attention.cuh"
+
+extern "C" {
+
+// qkv [BF, N, 3·H·dh] float32, rot [N, dh/2, 2] fp32 -> out [BF, N, H·dh]
+// float32; N % 128 == 0, 256 <= N, dh dividing 128.
+int divided_space_attention_classes_f32(const void* qkv, const void* rot,
+                                        void* out, int BF, int N, int H,
+                                        int dh, float scale, void* stream) {
+  return mdt::launch_space_classes<float>(
+      qkv, rot, out, BF, N, H, dh, scale, static_cast<cudaStream_t>(stream));
+}
+
+// qkv [B, F, N, 3·H·dh] float32, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh]
+// float32; F % 8 == 0, F <= 32, dh dividing 128 from 2 up.
+int divided_time_attention_classes_f32(const void* qkv, const void* sin_t,
+                                       const void* cos_t, void* out, int B,
+                                       int F, int N, int H, int dh,
+                                       float scale, void* stream) {
+  return mdt::launch_time_classes<float>(qkv, sin_t, cos_t, out, B, F, N, H,
+                                         dh, scale,
+                                         static_cast<cudaStream_t>(stream));
+}
+
+const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

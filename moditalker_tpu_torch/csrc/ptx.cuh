@@ -32,6 +32,14 @@ struct Chunk8<bf16> {
   __device__ __forceinline__ void load(const bf16* p) {
     raw = *reinterpret_cast<const uint4*>(p);
   }
+  // the first n (< 8) elements one by one, the rest zeros
+  __device__ __forceinline__ void load_n(const bf16* p, int n) {
+    raw = make_uint4(0u, 0u, 0u, 0u);
+    bf16* e = reinterpret_cast<bf16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      if (i < n) e[i] = p[i];
+  }
   __device__ __forceinline__ void to_float(float (&x)[8]) const {
     const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
@@ -46,11 +54,31 @@ struct Chunk8<float> {
     lo = reinterpret_cast<const float4*>(p)[0];
     hi = reinterpret_cast<const float4*>(p)[1];
   }
+  __device__ __forceinline__ void load_n(const float* p, int n) {
+    float x[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) x[i] = i < n ? p[i] : 0.f;
+    lo = make_float4(x[0], x[1], x[2], x[3]);
+    hi = make_float4(x[4], x[5], x[6], x[7]);
+  }
   __device__ __forceinline__ void to_float(float (&x)[8]) const {
     x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
     x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
   }
 };
+
+// The eight elements of a row at p of which the first n lie inside it (a
+// head narrower than its class): all eight with one load where n >= 8, the
+// first n one by one (a head of 2 or 4 dims), zeros where n <= 0.
+template <typename T>
+__device__ __forceinline__ void load_chunk(Chunk8<T>& c, const T* p, int n) {
+  if (n >= 8) {
+    c.load(p);
+  } else {
+    c = Chunk8<T>{};
+    if (n > 0) c.load_n(p, n);
+  }
+}
 
 // Eight fp32 values as one 16-byte chunk of bf16, each rounded once.
 __device__ __forceinline__ uint4 pack8_bf16(const float (&x)[8]) {
@@ -60,6 +88,32 @@ __device__ __forceinline__ uint4 pack8_bf16(const float (&x)[8]) {
   v.z = pack_bf16(x[4], x[5]);
   v.w = pack_bf16(x[6], x[7]);
   return v;
+}
+
+// The rotary's rotate-every-two on one pair, (a, b) -> (a·c0 − b·s0,
+// b·c1 + a·s1), each product and the sum rounded on its own: what the plain
+// PyTorch rotary (x∘cos + rotate_every_two(x)∘sin: two multiplies and an
+// add) computes, where the compiler would fuse a product into the add. The
+// classes' kernels rotate so, which keeps their float32 results as close to
+// the route's function at wider heads as the configurations' kernels (which
+// keep the fused form they were measured with) are at theirs.
+__device__ __forceinline__ void rotate_pair_rn(float& a, float& b, float c0,
+                                               float s0, float c1, float s1) {
+  const float x0 = __fadd_rn(__fmul_rn(a, c0), -__fmul_rn(b, s0));
+  const float x1 = __fadd_rn(__fmul_rn(b, c1), __fmul_rn(a, s1));
+  a = x0;
+  b = x1;
+}
+
+// Its transpose, (y0, y1) -> (y0·c0 + y1·s1, y1·c1 − y0·s0), rounded as the
+// plain backward's y∘cos − rotate_every_two(y∘sin).
+__device__ __forceinline__ void rotate_pair_t_rn(float& y0, float& y1,
+                                                 float c0, float s0, float c1,
+                                                 float s1) {
+  const float x0 = __fadd_rn(__fmul_rn(y0, c0), __fmul_rn(y1, s1));
+  const float x1 = __fsub_rn(__fmul_rn(y1, c1), __fmul_rn(y0, s0));
+  y0 = x0;
+  y1 = x1;
 }
 
 __device__ __forceinline__ float exp2_approx(float x) {

@@ -1,10 +1,22 @@
-// Attention of Lq query rows over Lk keys at head dims 16 and 32.
+// Attention of Lq query rows over Lk keys at head dims 16 and 32, and at the
+// head-dim classes the configurations do not reach.
 //
 // Shared by the packed-head attention kernel (packed_attention.cu: a head is
 // a 16-column slice of each third of a packed [B, L, 3·H·16] row), the
 // one-pass kernel at D = 16 and 32 (flash_attention.cu: contiguous
 // [B, N, D] tensors; both with Lq = Lk) and the K-blocked fused kernel at
 // D = 16 and 32 (flash_attention.cu: q [B, Nq, D] over k, v [B, Nk, D]).
+// flash_classes.cu runs the one-pass and fused kernels on it at every other
+// head dim their gates admit (d % 8 == 0 up to 128, but 64, which is the
+// wgmma tile's), and divided_classes.cu the divided space attention at head
+// dims other than 64 (and at 64 in float32 past resident K) with the
+// rotary (ROT). The tile is built per head-dim class DH (16, 32, 64, 128);
+// a head of d < DH dims (PAD) has its columns past d read as zeros and
+// never stored (d % 8 == 0 keeps every row's chunks whole, but for the
+// divided space attention's heads of 2 and 4 dims, which are read element
+// by element). At DH = 64 and 128 a warp's accumulators need more than the
+// 128 registers of a 512-thread block: such blocks have at most 8 warps,
+// and at DH = 128 the ring has three slots (four would not fit).
 // q of (sequence b, head h, row r) sits at q + b·q_batch + h·head +
 // r·in_row, k and v at ptr + b·kv_batch + h·head + r·in_row, the output at
 // out + b·out_batch + h·head + r·out_row.
@@ -68,6 +80,12 @@
 // scores, max and sum, P rounded to bf16 for P·V, the output divided by the
 // fp32 row sum.
 //
+// With the rotary (ROT: the divided space attention, whose pair table holds
+// (cos, sin) per rotated pair, [L, d/2, 2]), q is rotated in fp32 as its
+// fragment pairs are read (a fragment's pair is a rotated pair), and K
+// passes through the registers of the warp on duty, as the float32 route
+// stages it, to be rotated and rounded once on its way into its slot.
+//
 // The float32 route (T = float: the trainers' and the golden record's UNet)
 // keeps those points and the bf16 ring. cp.async copies bytes and cannot
 // round, so the warp on duty stages a float32 tile through its registers:
@@ -104,6 +122,8 @@ struct SmallHeadArgsT {
   int head;  // column offset of one head, inputs and output
   int Lq, Lk;  // query rows, keys
   float scale;
+  const float* rot;  // ROT: the pair table, [Lk, d/2, 2] (cos, sin)
+  int d;             // PAD: the head's true width (d <= DH)
 };
 
 using SmallHeadArgs = SmallHeadArgsT<bf16>;
@@ -114,42 +134,78 @@ constexpr int kShF32Batch = 4;
 
 template <int DH>
 struct SmallHead {
-  static_assert(DH == 16 || DH == 32, "rows of two or four 16-byte chunks");
+  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128,
+                "head-dim classes of 2, 4, 8 or 16 chunks a row");
   static constexpr int CH = DH / 8;                    // chunks per row
   static constexpr int row_bytes = DH * 2;
   static constexpr int tile_bytes = kShTile * row_bytes;  // one K or V tile
   static constexpr int stage_bytes = 2 * tile_bytes;
+  static constexpr int stages = DH == 128 ? 3 : kShStages;
+  static constexpr int max_warps = DH <= 32 ? kShMaxWarps : 8;
   // tiles, then the mbarriers: full and empty per slot
-  static constexpr int smem_bytes =
-      kShStages * stage_bytes + 2 * kShStages * 8;
+  static constexpr int smem_bytes = stages * stage_bytes + 2 * stages * 8;
 
-  // Byte offset of 16-byte chunk c of row r in a swizzled tile.
+  // Byte offset of 16-byte chunk c of row r in a swizzled tile (rows of
+  // eight or sixteen chunks: chunk c ^ (r mod 8), the 128-byte swizzle).
   static __device__ __forceinline__ uint32_t offset(int r, int c) {
-    return (uint32_t)(r * row_bytes + ((c ^ ((r / (8 / CH)) & (CH - 1))) << 4));
+    if constexpr (CH <= 4)
+      return (uint32_t)(r * row_bytes +
+                        ((c ^ ((r / (8 / CH)) & (CH - 1))) << 4));
+    else
+      return (uint32_t)(r * row_bytes + ((c ^ (r & 7)) << 4));
   }
 };
+
+// x, eight elements of a row (four rotary pairs), rotated by the pair
+// table entries at tr ((cos, sin) of each pair), of which the first n
+// elements exist (n < 8: a head of 2 or 4 dims; the rest are zeros),
+// rounded as the plain rotary rounds it (rotate_pair_rn).
+__device__ __forceinline__ void rotate8(float (&x)[8], const float* tr,
+                                        int n) {
+  float cs[4], sn[4];
+  if (n >= 8) {
+    const float4 t0 = reinterpret_cast<const float4*>(tr)[0];
+    const float4 t1 = reinterpret_cast<const float4*>(tr)[1];
+    cs[0] = t0.x; cs[1] = t0.z; cs[2] = t1.x; cs[3] = t1.z;
+    sn[0] = t0.y; sn[1] = t0.w; sn[2] = t1.y; sn[3] = t1.w;
+  } else {
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      cs[p] = 2 * p < n ? tr[2 * p] : 0.f;
+      sn[p] = 2 * p < n ? tr[2 * p + 1] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    rotate_pair_rn(x[2 * p], x[2 * p + 1], cs[p], sn[p], cs[p], sn[p]);
+}
 
 // grid (ceil(Lq / (16 x warps)), H, B), block warps x 32 (4, 8 or 16 warps).
 // Dynamic shared memory SmallHead<DH>::smem_bytes. SELF: Lk = Lq and
 // kv_batch = q_batch (the packed and one-pass kernels), known when compiled:
 // with the two lengths and offsets kept apart, DH = 32 spills 8 bytes more
 // and its one-pass rows ran 3 % slower on an H100.
-template <int DH, bool SELF, typename T>
-__global__ void __launch_bounds__(kShMaxWarps * 32, 1)
+template <int DH, bool SELF, typename T, bool ROT = false, bool PAD = false>
+__global__ void __launch_bounds__(SmallHead<DH>::max_warps * 32, 1)
 smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
   using S = SmallHead<DH>;
   constexpr int CH = S::CH;
+  constexpr int kStages = S::stages;
   constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(!ROT || PAD, "the rotary runs in the classes, which pad");
+  // K and V through the registers of the warp on duty: float32 (rounded to
+  // bf16 there), or K rotated there
+  constexpr bool kReg = kF32 || ROT;
   extern __shared__ __align__(128) unsigned char sh_smem[];
   const uint32_t base = smem_u32(sh_smem);
-  const uint32_t bars = base + kShStages * S::stage_bytes;
+  const uint32_t bars = base + kStages * S::stage_bytes;
   auto full = [&](int i) { return bars + 8 * i; };
-  auto empty = [&](int i) { return bars + 8 * (kShStages + i); };
+  auto empty = [&](int i) { return bars + 8 * (kStages + i); };
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nw = blockDim.x >> 5;  // warps
   if (tid == 0) {
-    for (int i = 0; i < kShStages; ++i) {
+    for (int i = 0; i < kStages; ++i) {
       mbar_init(full(i), 32);   // the copies of every lane of the warp on duty
       mbar_init(empty(i), nw);  // lane 0 of every warp
     }
@@ -163,39 +219,51 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
   const int Lq = a.Lq, Lk = SELF ? a.Lq : a.Lk;
   const int tiles = (Lk + kShTile - 1) / kShTile;
 
+  // the elements of chunk c of a row that lie inside the head
+  const int dw = PAD ? a.d : DH;
+  auto part = [&](int c) { return PAD ? dw - c * 8 : 8; };
+
   // Tile tt into its slot, by the whole calling warp: chunk i = lane + 32 u
   // is chunk i % CH of key i / CH. The copies arrive on the slot's `full`
   // barrier when they have landed.
   auto stage = [&](int tt) {
-    const int slot = tt % kShStages;
-    // (the float32 route waits for the slot after its first loads)
-    if constexpr (!kF32) mbar_wait(empty(slot), ((tt / kShStages) & 1) ^ 1);
+    const int slot = tt % kStages;
+    // (the register route waits for the slot after its first loads)
+    if constexpr (!kReg) mbar_wait(empty(slot), ((tt / kStages) & 1) ^ 1);
     const T* kb = a.k + kv_off + (lane % CH) * 8;
     const T* vb = a.v + kv_off + (lane % CH) * 8;
     const uint32_t kdst = base + slot * S::stage_bytes;
     const uint32_t vdst = kdst + S::tile_bytes;
-    if constexpr (kF32) {
-      // through this warp's registers: float32 in, bf16 into the slot; keys
-      // past Lk as zeros
+    const int n = part(lane % CH);   // this lane's chunk: elements in the head
+    if constexpr (kReg) {
+      // through this warp's registers: float32 or bf16 in, K rotated (ROT),
+      // bf16 into the slot; keys past Lk and columns past d as zeros
 #pragma unroll
       for (int u0 = 0; u0 < kShTile * CH / 32; u0 += kShF32Batch) {
-        Chunk8<float> kc[kShF32Batch], vc[kShF32Batch];
+        Chunk8<T> kc[kShF32Batch], vc[kShF32Batch];
 #pragma unroll
         for (int u = 0; u < kShF32Batch; ++u) {
           const int key = tt * kShTile + (lane + 32 * (u0 + u)) / CH;
-          kc[u] = vc[u] = Chunk8<float>{};
+          kc[u] = vc[u] = Chunk8<T>{};
           if (key < Lk) {
-            kc[u].load(kb + (long)key * a.in_row);
-            vc[u].load(vb + (long)key * a.in_row);
+            if (PAD) {
+              load_chunk(kc[u], kb + (long)key * a.in_row, n);
+              load_chunk(vc[u], vb + (long)key * a.in_row, n);
+            } else {
+              kc[u].load(kb + (long)key * a.in_row);
+              vc[u].load(vb + (long)key * a.in_row);
+            }
           }
         }
-        if (u0 == 0) mbar_wait(empty(slot), ((tt / kShStages) & 1) ^ 1);
+        if (u0 == 0) mbar_wait(empty(slot), ((tt / kStages) & 1) ^ 1);
 #pragma unroll
         for (int u = 0; u < kShF32Batch; ++u) {
-          const uint32_t off =
-              S::offset((lane + 32 * (u0 + u)) / CH, lane % CH);
+          const int r = (lane + 32 * (u0 + u)) / CH, key = tt * kShTile + r;
+          const uint32_t off = S::offset(r, lane % CH);
           float x[8];
           kc[u].to_float(x);
+          if (ROT && key < Lk && n > 0)
+            rotate8(x, a.rot + (long)key * dw + (lane % CH) * 8, n);
           st_shared16(kdst + off, pack8_bf16(x));
           vc[u].to_float(x);
           st_shared16(vdst + off, pack8_bf16(x));
@@ -206,8 +274,10 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
 #pragma unroll
       for (int u = 0; u < kShTile * CH / 32; ++u) {
         const int r = (lane + 32 * u) / CH, key = tt * kShTile + r;
-        const bool valid = key < Lk;
-        const long src = (long)(valid ? key : 0) * a.in_row;
+        const bool valid = key < Lk && (!PAD || n > 0);
+        // (not read where not valid: row 0's first chunk)
+        const long src = (long)(valid ? key : 0) * a.in_row -
+                         (PAD && !valid ? (lane % CH) * 8 : 0);
         const uint32_t off = S::offset(r, lane % CH);
         cp_async16_or_zeros(kdst + off, kb + src, valid);
         cp_async16_or_zeros(vdst + off, vb + src, valid);
@@ -229,7 +299,26 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int row = q0 + g + 8 * (j & 1), col = kk * 16 + 8 * (j >> 1);
-        if constexpr (kF32) {
+        if constexpr (PAD) {
+          // a pair of the head (col + 2 t4 < d), rotated by its table entry
+          float2 x = make_float2(0.f, 0.f);
+          if (row < Lq && col + 2 * t4 < dw) {
+            const T* qp = qb + row * a.in_row + col;
+            if constexpr (kF32) {
+              x = *reinterpret_cast<const float2*>(qp);
+            } else {
+              const __nv_bfloat162 y =
+                  *reinterpret_cast<const __nv_bfloat162*>(qp);
+              x = make_float2(__low2float(y), __high2float(y));
+            }
+            if (ROT) {
+              const float2 cs = *reinterpret_cast<const float2*>(
+                  a.rot + (long)row * dw + col + 2 * t4);
+              rotate_pair_rn(x.x, x.y, cs.x, cs.y, cs.x, cs.y);
+            }
+          }
+          qa[kk][j] = pack_bf16(x.x * a.scale, x.y * a.scale);
+        } else if constexpr (kF32) {
           float2 x = make_float2(0.f, 0.f);
           if (row < Lq)
             x = *reinterpret_cast<const float2*>(qb + row * a.in_row + col);
@@ -249,9 +338,11 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
   // per-lane row addresses of the ldmatrix loads inside a tile: lane 8i + r
   // gives row r of matrix i
   const int mi = lane >> 3, mr = lane & 7;
-  // K: 4 / CH score tiles of 8 keys per load, all CH chunks of each
-  constexpr int KPL = 8 * (4 / CH);
-  const uint32_t k_lane = S::offset((mi / CH) * 8 + mr, mi % CH);
+  // K: at CH <= 4, 4 / CH score tiles of 8 keys per load, all CH chunks of
+  // each; at CH >= 8, one load per 8 keys and 4 chunks (two k16 steps)
+  constexpr int KPL = CH <= 4 ? 8 * (4 / CH) : 8;
+  const uint32_t k_lane = CH <= 4 ? S::offset((mi / CH) * 8 + mr, mi % CH)
+                                  : S::offset(mr, mi);
   // V (transposed on the way): 16 keys x 16 dims per load
   uint32_t v_lane[CH / 2];
 #pragma unroll
@@ -271,24 +362,43 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
     // when its number says so
     if (t + kShAhead < tiles && (t + kShAhead) % nw == warp)
       stage(t + kShAhead);
-    const int slot = t % kShStages;
-    mbar_wait(full(slot), (t / kShStages) & 1);
+    const int slot = t % kStages;
+    mbar_wait(full(slot), (t / kStages) & 1);
     const uint32_t kt = base + slot * S::stage_bytes;
     const uint32_t vt = kt + S::tile_bytes;
 
     // S = Q·Kᵀ: this warp's 16 rows x 128 keys, 16 score tiles of 8 keys
     float s[kShTile / 8][4];
+    if constexpr (CH <= 4) {
 #pragma unroll
-    for (int u = 0; u < kShTile / KPL; ++u) {
-      uint32_t kf[4];
-      ldmatrix_x4(kf, kt + u * KPL * S::row_bytes + k_lane);
+      for (int u = 0; u < kShTile / KPL; ++u) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kt + u * KPL * S::row_bytes + k_lane);
 #pragma unroll
-      for (int n = 0; n < 4 / CH; ++n) {
-        float(&acc)[4] = s[u * (4 / CH) + n];
+        for (int n = 0; n < 4 / CH; ++n) {
+          float(&acc)[4] = s[u * (4 / CH) + n];
+          acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
+#pragma unroll
+          for (int kk = 0; kk < DH / 16; ++kk)
+            mma_16816(acc, qa[kk], kf[n * CH + 2 * kk],
+                      kf[n * CH + 2 * kk + 1]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < kShTile / 8; ++nt) {
+        float(&acc)[4] = s[nt];
         acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk)
-          mma_16816(acc, qa[kk], kf[n * CH + 2 * kk], kf[n * CH + 2 * kk + 1]);
+        for (int cg = 0; cg < CH / 4; ++cg) {
+          // chunks 4 cg .. 4 cg + 3 of keys 8 nt ..: row mr's swizzle flips
+          // the low three bits of the chunk, so the group stays together
+          uint32_t kf[4];
+          ldmatrix_x4(kf, kt + nt * 8 * S::row_bytes +
+                              (k_lane ^ ((uint32_t)(cg * 4) << 4)));
+          mma_16816(acc, qa[2 * cg], kf[0], kf[1]);
+          mma_16816(acc, qa[2 * cg + 1], kf[2], kf[3]);
+        }
       }
     }
     if ((t + 1) * kShTile > Lk) {  // ragged last tile: keys past Lk weigh nothing
@@ -373,6 +483,7 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
                2 * t4;
 #pragma unroll
       for (int nd = 0; nd < DH / 8; ++nd) {
+        if (PAD && nd * 8 + 2 * t4 >= dw) continue;  // past the head
         if constexpr (kF32)
           *reinterpret_cast<float2*>(dst + nd * 8) =
               make_float2(o[nd][2 * r] * inv, o[nd][2 * r + 1] * inv);
@@ -386,16 +497,23 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
 
 // B sequences of H heads. The one copy of the plan: the most query rows per
 // block (the fewest stagings of a head's K and V) whose grid still fills the
-// card, from 256 down to 64, counted from Lq; the SELF instantiation where
-// the query and key lengths and batch strides agree.
-template <int DH, typename T>
+// card, from 256 (128 at DH = 64 and 128) down to 64, counted from Lq; the
+// SELF instantiation where the query and key lengths and batch strides
+// agree. ROT and PAD as the kernel's (args.rot, args.d).
+template <int DH, typename T, bool ROT = false, bool PAD = false>
 cudaError_t launch_smallhead(const SmallHeadArgsT<T>& args, int B, int H,
                              cudaStream_t stream) {
   if (args.Lq < 1 || args.Lk < 1 || B < 1 || H < 1)
     return cudaErrorInvalidValue;
-  auto kern = args.Lq == args.Lk && args.q_batch == args.kv_batch
-                  ? smallhead_attention_kernel<DH, true, T>
-                  : smallhead_attention_kernel<DH, false, T>;
+  if (PAD && (args.d < 1 || args.d > DH || args.d % 2))
+    return cudaErrorInvalidValue;
+  const bool self = args.Lq == args.Lk && args.q_batch == args.kv_batch;
+  // the rotary's attention (divided space) is self-attention only
+  if (ROT && (!args.rot || !self)) return cudaErrorInvalidValue;
+  void (*kern)(const SmallHeadArgsT<T>) =
+      smallhead_attention_kernel<DH, true, T, ROT, PAD>;
+  if constexpr (!ROT)
+    if (!self) kern = smallhead_attention_kernel<DH, false, T, ROT, PAD>;
   constexpr int smem = SmallHead<DH>::smem_bytes;
   // asked on every launch: a function-local static of a template is one
   // object for all the libraries of a process that instantiate it
@@ -410,11 +528,35 @@ cudaError_t launch_smallhead(const SmallHeadArgsT<T>& args, int B, int H,
   auto blocks = [&](int warps) {
     return (long)B * H * ((args.Lq + 16 * warps - 1) / (16 * warps));
   };
-  int warps = kShMaxWarps;
+  int warps = SmallHead<DH>::max_warps;
   while (warps > 4 && blocks(warps) < sms - sms / 8) warps /= 2;
   dim3 grid((args.Lq + 16 * warps - 1) / (16 * warps), H, B);
   kern<<<grid, warps * 32, smem, stream>>>(args);
   return cudaGetLastError();
+}
+
+// The one-pass and K-blocked fused kernels (q [B, Nq, D] over k, v
+// [B, Nk, D], contiguous) at every head dim their gates admit, d % 8 == 0 up
+// to 128, on this tile: the class 16, 32, 64 or 128 that holds D, as PAD
+// (columns past D zeros) also where D is its class (flash_classes.cu; D =
+// 16, 32 and 64 exactly are flash_attention.cu's).
+template <typename T>
+cudaError_t launch_fused_classes(const void* q, const void* k, const void* v,
+                                 void* out, int B, int Nq, int Nk, int D,
+                                 float scale, cudaStream_t stream) {
+  if (D < 8 || D > 128 || D % 8) return cudaErrorInvalidValue;
+  const long q_seq = (long)Nq * D, kv_seq = (long)Nk * D;
+  const SmallHeadArgsT<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                            static_cast<const T*>(v), static_cast<T*>(out),
+                            q_seq, kv_seq, D, q_seq, D, 0, Nq, Nk, scale,
+                            nullptr, D};
+  switch (D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128) {
+    case 16: return launch_smallhead<16, T, false, true>(a, B, 1, stream);
+    case 32: return launch_smallhead<32, T, false, true>(a, B, 1, stream);
+    case 64: return launch_smallhead<64, T, false, true>(a, B, 1, stream);
+    case 128: return launch_smallhead<128, T, false, true>(a, B, 1, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace mdt

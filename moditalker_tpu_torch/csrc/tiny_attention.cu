@@ -11,7 +11,8 @@ int tiny_attention(const void* q, const void* k, const void* v, void* out,
   // built for the (L, D) the repository's configurations reach (16 frames,
   // AE dim_head 64); keep in step with TINY_SHAPES in flash_attention.py
   if (L == 16 && D == 64)
-    return mdt::launch_tiny<16, 64, mdt::bf16>(q, k, v, out, B, scale, st);
+    return mdt::launch_tiny<16, 64, mdt::bf16>(q, k, v, out, B, L, scale,
+                                               st);
   return cudaErrorInvalidValue;
 }
 

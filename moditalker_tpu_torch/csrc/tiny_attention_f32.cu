@@ -12,7 +12,7 @@ int tiny_attention_f32(const void* q, const void* k, const void* v, void* out,
                        long B, int L, int D, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (L == 16 && D == 64)
-    return mdt::launch_tiny<16, 64, float>(q, k, v, out, B, scale, st);
+    return mdt::launch_tiny<16, 64, float>(q, k, v, out, B, L, scale, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,11 @@
 """MToV latent DDPM (port of ``moditalker_tpu/models/mtov/ddpm.py``, ref
 MToV/losses/ddpm.py:119-561): linear β 0.0015→0.0195, T = 1000, the
 training loss (``p_losses``: l1 or l2, eps or x0 target, ``loss_simple`` and
-``loss_vlb``), and eps-parameterized DDIM-100 with eta 1 and the
-partial-renoise fast-AR path. The plain conditional model runs when w == 0,
-a doubled-batch classifier-free guidance when w > 0 (ddpm.py:72-89 of the
-JAX package).
+``loss_vlb``), and sampling under either parameterization: DDIM-100 with
+eta 1, the partial-renoise fast-AR path, the ancestral loop
+(``p_sample_loop``) and the reference's ``sample`` dispatcher. The plain
+conditional model runs when w == 0, a doubled-batch classifier-free
+guidance when w > 0 (ddpm.py:72-89 of the JAX package).
 """
 
 from __future__ import annotations
@@ -79,18 +80,13 @@ class MtovDDPM:
 
         return fn
 
-    def _eps_only(self):
-        if self.cfg.parameterization != "eps":
-            raise NotImplementedError("the port samples the eps "
-                                      "parameterization only")
-
     def ddim_sample(self, shape, cond, image_cond, *, generator=None,
                     x_init=None, step_noise=None):
-        self._eps_only()
         return dcore.ddim_sample(
             self.sched, self._model_fn(cond, image_cond), shape,
             self.cfg.sampling_timesteps, generator=generator,
             device=cond.device, eta=self.cfg.ddim_eta,
+            parameterization=self.cfg.parameterization,
             clip_denoised=self.cfg.clip_denoised, x_init=x_init,
             step_noise=step_noise)
 
@@ -99,9 +95,34 @@ class MtovDDPM:
                                  renoise=None, step_noise=None):
         """Fast AR windows: renoise a reference latent to t = T·ratio and
         denoise the schedule tail (ref ddpm.py:407-454)."""
-        self._eps_only()
         return dcore.ddim_sample_noised_start(
             self.sched, self._model_fn(cond, image_cond), x_start,
             self.cfg.sampling_timesteps, ratio, generator=generator,
-            eta=self.cfg.ddim_eta, clip_denoised=self.cfg.clip_denoised,
-            renoise=renoise, step_noise=step_noise)
+            eta=self.cfg.ddim_eta, parameterization=self.cfg.parameterization,
+            clip_denoised=self.cfg.clip_denoised, renoise=renoise,
+            step_noise=step_noise)
+
+    def p_sample_loop(self, shape, cond, image_cond, *, generator=None,
+                      x_init=None):
+        """Full ancestral sampling, T steps: the reference's non-DDIM branch
+        (ddpm.py:319-336, taken when sampling_timesteps >= timesteps)."""
+        return dcore.p_sample_loop(
+            self.sched, self._model_fn(cond, image_cond), shape,
+            generator=generator, device=cond.device,
+            parameterization=self.cfg.parameterization,
+            clip_denoised=self.cfg.clip_denoised, x_init=x_init)
+
+    def sample(self, batch_size: int, cond, image_cond, *, generator=None,
+               noised_start=None, ratio: float | None = None,
+               latent_len: int = 2048, channels: int = 4):
+        """The reference's ``sample`` dispatcher (ddpm.py:456-484): the
+        ancestral loop when sampling_timesteps >= timesteps, else DDIM,
+        from a partial renoise of ``noised_start`` where one is given."""
+        shape = (batch_size, channels, latent_len)
+        if self.cfg.sampling_timesteps >= self.cfg.timesteps:
+            return self.p_sample_loop(shape, cond, image_cond,
+                                      generator=generator)
+        if noised_start is not None:
+            return self.ddim_sample_noised_start(
+                noised_start, cond, image_cond, ratio, generator=generator)
+        return self.ddim_sample(shape, cond, image_cond, generator=generator)

@@ -7,7 +7,10 @@ run can show that the main path went through the kernels;
 and ``FLOAT32_LAUNCHES_BY_SHAPE`` counts the launches on float32 operands
 alone. ``SOURCES`` names the CUDA source of each kernel's bf16 entry points
 (``csrc/<source>.cu``) and ``FLOAT32_SOURCES`` the source of its float32
-ones (a library of its own); ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound
+ones (a library of its own), both for the shapes the configurations reach;
+``CLASS_SOURCES`` and ``CLASS_FLOAT32_SOURCES`` name the sources of the
+same kernels built per head-dim and row class for every other shape their
+gates admit (libraries of their own); ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound
 each kernel's error against its plain version, ``FLOAT32_ROUTE_LIMITS`` a
 kernel's float32 result against the function its float32 route computes,
 and ``bf16_rounded_share`` tells a float32 result from a bf16 one widened. The
@@ -64,6 +67,30 @@ FLOAT32_SOURCES = {
     "divided_space_attention_backward": "divided_backward_f32",
     "divided_time_attention_backward": "divided_backward_f32",
 }
+
+# the classes beyond the configurations' shapes: the same kernels
+# instantiated per head-dim class (and, for time and tiny-L, row class),
+# padded where a shape is not its class, bf16 and float32, in sources of
+# their own so that the configurations' libraries hold only their
+# instantiations (the packed kernel's gate admits dh = 16 only: no class)
+CLASS_SOURCES = {
+    "divided_space_attention": "divided_classes",
+    "divided_time_attention": "divided_classes",
+    "onepass_attention": "flash_classes",
+    "tiny_attention": "flash_classes",
+    "fused_attention": "flash_classes",
+    "divided_space_attention_backward": "divided_backward_classes",
+    "divided_time_attention_backward": "divided_backward_classes",
+}
+CLASS_FLOAT32_SOURCES = {name: source + "_f32"
+                         for name, source in CLASS_SOURCES.items()}
+
+
+def all_sources() -> list[str]:
+    """Every kernel source under csrc/, each built into a library of its
+    own (what a build of all the kernels compiles)."""
+    return sorted({*SOURCES.values(), *FLOAT32_SOURCES.values(),
+                   *CLASS_SOURCES.values(), *CLASS_FLOAT32_SOURCES.values()})
 
 
 # Limits of a kernel's bf16 output against its plain version on the same
@@ -151,9 +178,11 @@ def check_bf16(name: str, out, plain) -> tuple[float, float, float]:
 # ``flash_attention.attention_float32_route``), in the three measures of
 # ``relative_errors``: (max, rms, quantile). The two round q, k, v and p at
 # the same points (p against the running max of each 128-key tile, as the
-# kernels' online softmax does) and differ by the order of fp32 sums and the
-# kernels' ex2, which now and then moves a p or a q across a bf16 rounding
-# boundary: rare elements, so the max measure reads far above the other two.
+# kernels' online softmax does) and sum the scores alike (the route as the
+# tensor cores do, ``flash_attention.mma_products``); they differ by the
+# order of the other fp32 sums and the kernels' ex2, which now and then
+# moves a p across a bf16 rounding boundary and its output row with it:
+# rare rows, so the max measure reads far above the other two.
 # A result rounded to bf16 on its way out reads 1.1e-3 to 2.3e-3 on the rms
 # and quantile measures on the CPU tests' inputs and fails them many times
 # over. Each

@@ -33,16 +33,29 @@ writes float32 itself, with no cast pass around it: q rotated and scaled in
 fp32 and rounded to bf16 once, k rotated and rounded once, v rounded once,
 bf16 operands with fp32 accumulators, the result divided by the fp32 row
 sum and stored as float32 (``divided_attention_float32_route`` writes it
-out; the space kernel's float32 route is built for resident K, N <= 1152).
+out).
+
+Every shape the gate admits launches a kernel. The configurations' shapes
+(space at head dim 64, time at 16 frames of head dim 64) are the
+instantiations of ``divided_attention.cu`` and ``divided_attention_f32.cu``;
+the rest of the gate runs the same kernels built per class in
+``divided_classes.cu`` and ``divided_classes_f32.cu``: time per frame class
+(16, 32) and head-dim class (16, 32, 64, 128), clips of 8 and 24 frames and
+heads narrower than their class padded with zeros (padded frames masked in
+the softmax, neither stored); space at head dims other than 64, and in
+float32 at 64 past resident K (N > 1152), on the small-head tile with the
+rotary (``csrc/smallhead_tile.cuh``). A head dim of 1 has no rotary pair:
+the JAX package's rotary raises there too.
 
 The gradient with respect to qkv (``autograd.DividedAttention``) runs the
 backward kernels on a CUDA tensor (``csrc/divided_backward.cuh``; bf16
 entry points in ``divided_backward.cu``, float32 ones in
-``divided_backward_f32.cu``), which read qkv, the forward's output and its
-cotangent and write the packed dqkv: space as a dq kernel and a dk/dv
-kernel (head dim 64, N a multiple of 128 up to 1152), time as one warp per
-(b, n, head) (16 frames of head dim 64). Other shapes raise; nothing falls
-back to the plain version on the card. On a CPU tensor the backward is
+``divided_backward_f32.cu``, the classes beyond the configurations' in
+``divided_backward_classes{,_f32}.cu``), which read qkv, the forward's
+output and its cotangent and write the packed dqkv: space as a dq kernel
+and a dk/dv kernel (N a multiple of 128 from 256), time as one warp per
+(b, n, head), at every shape the forward's gate admits. Nothing falls back
+to the plain version on the card. On a CPU tensor the backward is
 ``divided_backward.divided_attention_backward_reference``, the written-out
 adjoints of the JAX package's ``jax.vjp`` of its reference.
 """
@@ -63,19 +76,20 @@ from .divided_backward import divided_attention_backward_reference
 from .flash_attention import attention_float32_route
 
 _LANES = 128
-# what csrc/divided_attention.cu is built for: the shapes the repository's
-# configurations reach (AE dim_head 64, 16 frames); others raise on the card
+# the instantiations of csrc/divided_attention.cu (and _f32, and of the
+# backward's divided_backward.cu): the shapes the repository's
+# configurations reach (AE dim_head 64, 16 frames). Every other shape the
+# gate admits runs the classes of csrc/divided_classes.cu (and
+# divided_backward_classes.cu): time per frame class and head-dim class,
+# space per head-dim class on the small-head tile.
 SPACE_HEAD_DIMS = (64,)
 TIME_SHAPES = ((16, 64),)   # (frames, head dim)
-# the float32 space kernel keeps K resident in shared memory only: 9 tiles of
-# 128 keys (the configurations' AE reaches N = 1024)
+# the float32 space kernel on the wgmma tile keeps K resident in shared
+# memory: 9 tiles of 128 keys (the configurations' AE reaches N = 1024);
+# above that the float32 space attention at head dim 64 is the small-head
+# tile's (divided_classes_f32.cu)
 SPACE_F32_MAX_N = 1152
-# what csrc/divided_backward.cu and divided_backward_f32.cu are built for:
-# the space backward at head dim 64 and N a multiple of 128 in
-# [256, SPACE_BACKWARD_MAX_N] (the float32 forward's gate; the AE reaches
-# N = 1024), the time backward at TIME_SHAPES
 SPACE_BACKWARD_HEAD_DIMS = (64,)
-SPACE_BACKWARD_MAX_N = 1152
 
 _pair_tables: dict = {}
 
@@ -142,10 +156,11 @@ def divided_attention_float32_route(qkv, sin, cos, axis: str, heads: int,
     the result divided by the row sum in fp32 and kept float32. The softmax
     is the kernels' online one over 128-key tiles
     (``flash_attention.attention_float32_route``, from the rotated q and k
-    on: one tile at F = 16, the time axis, a full-row softmax). It differs
-    from the float32 plain version by those roundings (bf16 operands with
-    fp32 accumulators), and from the kernels by the order of fp32 sums and
-    the kernels' ``ex2``.
+    on: one tile at F = 16, the time axis, a full-row softmax; the scores
+    summed as the tensor cores sum them). It differs from the float32 plain
+    version by those roundings (bf16 operands with fp32 accumulators), and
+    from the kernels by the order of the other fp32 sums and the kernels'
+    ``ex2``.
     """
     b, f, n, _ = qkv.shape
     q, k, v = qkv.float().chunk(3, dim=-1)
@@ -181,15 +196,20 @@ def divided_attention_viable(axis: str, f: int, n: int, heads: int,
     return False
 
 
+def _bind_forward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    space = getattr(lib, "divided_space_attention" + suffix)
+    space.argtypes = [p, p, p, i, i, i, i, fl, p]
+    space.restype = i
+    time = getattr(lib, "divided_time_attention" + suffix)
+    time.argtypes = [p, p, p, p, i, i, i, i, i, fl, p]
+    time.restype = i
+    return lib
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("divided_attention")
-    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.divided_space_attention.argtypes = [p, p, p, i, i, i, i, fl, p]
-    lib.divided_space_attention.restype = i
-    lib.divided_time_attention.argtypes = [p, p, p, p, i, i, i, i, i, fl, p]
-    lib.divided_time_attention.restype = i
-    return lib
+    return _bind_forward(_build.load("divided_attention"), "")
 
 
 @functools.cache
@@ -197,14 +217,20 @@ def _lib_f32() -> ctypes.CDLL:
     """The float32 entry points, built apart
     (``csrc/divided_attention_f32.cu``) so that the bf16 kernels'
     translation unit holds no float32 instantiation."""
-    lib = _build.load("divided_attention_f32")
-    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.divided_space_attention_f32.argtypes = [p, p, p, i, i, i, i, fl, p]
-    lib.divided_space_attention_f32.restype = i
-    lib.divided_time_attention_f32.argtypes = [p, p, p, p, i, i, i, i, i, fl,
-                                               p]
-    lib.divided_time_attention_f32.restype = i
-    return lib
+    return _bind_forward(_build.load("divided_attention_f32"), "_f32")
+
+
+@functools.cache
+def _classes_lib() -> ctypes.CDLL:
+    """The bf16 classes beyond the configurations' shapes
+    (``csrc/divided_classes.cu``), a library of their own."""
+    return _bind_forward(_build.load("divided_classes"), "_classes")
+
+
+@functools.cache
+def _classes_lib_f32() -> ctypes.CDLL:
+    """The float32 classes (``csrc/divided_classes_f32.cu``)."""
+    return _bind_forward(_build.load("divided_classes_f32"), "_classes_f32")
 
 
 @functools.cache
@@ -220,6 +246,20 @@ def _bwd_lib_f32() -> ctypes.CDLL:
     return _bind_backward(_build.load("divided_backward_f32"), "_f32")
 
 
+@functools.cache
+def _bwd_classes_lib() -> ctypes.CDLL:
+    """The backward's bf16 classes (``csrc/divided_backward_classes.cu``)."""
+    return _bind_backward(_build.load("divided_backward_classes"), "_classes")
+
+
+@functools.cache
+def _bwd_classes_lib_f32() -> ctypes.CDLL:
+    """The backward's float32 classes
+    (``csrc/divided_backward_classes_f32.cu``)."""
+    return _bind_backward(_build.load("divided_backward_classes_f32"),
+                          "_classes_f32")
+
+
 def _bind_backward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     space = getattr(lib, "divided_space_attention_backward" + suffix)
@@ -229,6 +269,28 @@ def _bind_backward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
     time.argtypes = [p, p, p, p, p, i, i, i, i, i, fl, p]
     time.restype = i
     return lib
+
+
+def _library(f32: bool, classes: bool, backward: bool = False):
+    """The library and entry-point suffix of a launch: the configurations'
+    instantiations or the classes beyond them, bf16 or float32."""
+    suffix = ("_classes" if classes else "") + ("_f32" if f32 else "")
+    if backward:
+        libs = {"": _bwd_lib, "_f32": _bwd_lib_f32,
+                "_classes": _bwd_classes_lib,
+                "_classes_f32": _bwd_classes_lib_f32}
+    else:
+        libs = {"": _lib, "_f32": _lib_f32, "_classes": _classes_lib,
+                "_classes_f32": _classes_lib_f32}
+    return libs[suffix](), suffix
+
+
+def _check_head_dim(dim_head: int) -> None:
+    """The gate's head dims, 2 to 128 dividing 128 (a head dim of 1 has no
+    rotary pair: the JAX package's rotary raises there as well)."""
+    if dim_head < 2 or _LANES % dim_head:
+        raise ValueError(f"the divided kernels take head dims dividing "
+                         f"{_LANES} from 2 up (rotary pairs), not {dim_head}")
 
 
 def _operands(qkv, sin, cos) -> bool:
@@ -252,12 +314,10 @@ def _operands(qkv, sin, cos) -> bool:
 def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                          scale: float):
     """Kernel launch: qkv [BF, N, 3·H·dh] → [BF, N, H·dh] in qkv's type
-    (bf16, or float32 at N <= ``SPACE_F32_MAX_N``), N a multiple of 128 and
-    at least 256."""
+    (bf16 or float32), N a multiple of 128 and at least 256, dh dividing 128
+    from 2 up."""
     f32 = _operands(qkv, sin, cos)
-    if dim_head not in SPACE_HEAD_DIMS:
-        raise NotImplementedError(f"space kernel built for head dims "
-                                  f"{SPACE_HEAD_DIMS}, not {dim_head}")
+    _check_head_dim(dim_head)
     bf, n, c3 = qkv.shape
     if c3 != 3 * heads * dim_head or tuple(sin.shape) != (n, dim_head):
         raise ValueError(f"bad shapes qkv {tuple(qkv.shape)} sin "
@@ -265,16 +325,13 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     if n % 128 or n < 256:
         raise ValueError(f"the space kernel takes N % 128 == 0, N >= 256, "
                          f"not {n}")
-    if f32 and n > SPACE_F32_MAX_N:
-        raise NotImplementedError(
-            f"float32 space kernel built for K resident in shared memory "
-            f"(N <= {SPACE_F32_MAX_N}), not N = {n}")
     table = rotary_pair_table(sin, cos)
     out = torch.empty(bf, n, heads * dim_head, dtype=qkv.dtype,
                       device=qkv.device)
-    lib = _lib_f32() if f32 else _lib()
-    entry = ("divided_space_attention_f32" if f32
-             else "divided_space_attention")
+    classes = (dim_head not in SPACE_HEAD_DIMS
+               or (f32 and n > SPACE_F32_MAX_N))
+    lib, suffix = _library(f32, classes)
+    entry = "divided_space_attention" + suffix
     status = getattr(lib, entry)(
         qkv.data_ptr(), table.data_ptr(), out.data_ptr(), bf, n, heads,
         dim_head, scale, kernels.cuda_stream(qkv))
@@ -283,22 +340,27 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     return out
 
 
+def _check_frames(f: int) -> None:
+    if f % 8 or not 8 <= f <= 32:
+        raise ValueError(f"the time kernels take F % 8 == 0, 8 <= F <= 32 "
+                         f"frames, not {f}")
+
+
 def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                         scale: float):
     """Kernel launch: qkv [B, F, N, 3·H·dh] → [B, F, N, H·dh] in qkv's type
-    (bf16 or float32)."""
+    (bf16 or float32), F % 8 == 0 up to 32, dh dividing 128 from 2 up."""
     f32 = _operands(qkv, sin, cos)
     b, f, n, c3 = qkv.shape
-    if (f, dim_head) not in TIME_SHAPES:
-        raise NotImplementedError(f"time kernel built for (frames, head dim) "
-                                  f"{TIME_SHAPES}, not {(f, dim_head)}")
+    _check_frames(f)
+    _check_head_dim(dim_head)
     if c3 != 3 * heads * dim_head or tuple(sin.shape) != (f, dim_head):
         raise ValueError(f"bad shapes qkv {tuple(qkv.shape)} sin "
                          f"{tuple(sin.shape)} for {heads}x{dim_head}")
     out = torch.empty(b, f, n, heads * dim_head, dtype=qkv.dtype,
                       device=qkv.device)
-    lib = _lib_f32() if f32 else _lib()
-    entry = "divided_time_attention_f32" if f32 else "divided_time_attention"
+    lib, suffix = _library(f32, (f, dim_head) not in TIME_SHAPES)
+    entry = "divided_time_attention" + suffix
     status = getattr(lib, entry)(
         qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(), out.data_ptr(), b, f,
         n, heads, dim_head, scale, kernels.cuda_stream(qkv))
@@ -326,29 +388,26 @@ def space_attention_backward_cuda(qkv, out, g, sin, cos, heads: int,
                                   dim_head: int, scale: float):
     """Kernel launch: dqkv [BF, N, 3·H·dh] in qkv's type (bf16 or float32)
     from qkv [BF, N, 3·H·dh], the forward's output and its cotangent g
-    [BF, N, H·dh]; N a multiple of 128 in [256, ``SPACE_BACKWARD_MAX_N``].
+    [BF, N, H·dh]; N a multiple of 128 from 256, dh dividing 128 from 2 up.
     Two kernels (dq, then dk and dv through a float32 scratch of row
     statistics), one launch of the backward in the count."""
     f32 = _operands(qkv, sin, cos)
     _cotangents(qkv, out, g)
-    if dim_head not in SPACE_BACKWARD_HEAD_DIMS:
-        raise NotImplementedError(f"space backward built for head dims "
-                                  f"{SPACE_BACKWARD_HEAD_DIMS}, not "
-                                  f"{dim_head}")
+    _check_head_dim(dim_head)
     bf, n, c3 = qkv.shape
     if c3 != 3 * heads * dim_head or tuple(sin.shape) != (n, dim_head):
         raise ValueError(f"bad shapes qkv {tuple(qkv.shape)} sin "
                          f"{tuple(sin.shape)} for {heads}x{dim_head}")
-    if n % 128 or not 256 <= n <= SPACE_BACKWARD_MAX_N:
-        raise NotImplementedError(
-            f"space backward built for N % 128 == 0, 256 <= N <= "
-            f"{SPACE_BACKWARD_MAX_N}, not {n}")
+    if n % 128 or n < 256:
+        raise ValueError(f"the space backward takes N % 128 == 0, N >= 256, "
+                         f"not {n}")
     table = rotary_pair_table(sin, cos)
     dqkv = torch.empty_like(qkv)
     stats = torch.empty(bf, heads, n, 2, dtype=torch.float32,
                         device=qkv.device)
-    lib = _bwd_lib_f32() if f32 else _bwd_lib()
-    entry = "divided_space_attention_backward" + ("_f32" if f32 else "")
+    lib, suffix = _library(f32, dim_head not in SPACE_BACKWARD_HEAD_DIMS,
+                           backward=True)
+    entry = "divided_space_attention_backward" + suffix
     status = getattr(lib, entry)(
         qkv.data_ptr(), table.data_ptr(), out.data_ptr(), g.data_ptr(),
         dqkv.data_ptr(), stats.data_ptr(), bf, n, heads, dim_head, scale,
@@ -362,20 +421,19 @@ def time_attention_backward_cuda(qkv, g, sin, cos, heads: int,
                                  dim_head: int, scale: float):
     """Kernel launch: dqkv [B, F, N, 3·H·dh] in qkv's type (bf16 or float32)
     from qkv and the output's cotangent g [B, F, N, H·dh] (the softmax's D
-    comes from P and dP: no output read)."""
+    comes from P and dP: no output read); F and dh as the forward's."""
     f32 = _operands(qkv, sin, cos)
     _cotangents(qkv, g)
     b, f, n, c3 = qkv.shape
-    if (f, dim_head) not in TIME_SHAPES:
-        raise NotImplementedError(f"time backward built for (frames, head "
-                                  f"dim) {TIME_SHAPES}, not "
-                                  f"{(f, dim_head)}")
+    _check_frames(f)
+    _check_head_dim(dim_head)
     if c3 != 3 * heads * dim_head or tuple(sin.shape) != (f, dim_head):
         raise ValueError(f"bad shapes qkv {tuple(qkv.shape)} sin "
                          f"{tuple(sin.shape)} for {heads}x{dim_head}")
     dqkv = torch.empty_like(qkv)
-    lib = _bwd_lib_f32() if f32 else _bwd_lib()
-    entry = "divided_time_attention_backward" + ("_f32" if f32 else "")
+    lib, suffix = _library(f32, (f, dim_head) not in TIME_SHAPES,
+                           backward=True)
+    entry = "divided_time_attention_backward" + suffix
     status = getattr(lib, entry)(
         qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(), g.data_ptr(),
         dqkv.data_ptr(), b, f, n, heads, dim_head, scale,

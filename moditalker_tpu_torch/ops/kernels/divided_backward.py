@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import rotary
+from .flash_attention import mma_products
 
 
 def rotary_transpose(g, sin, cos):
@@ -58,10 +59,23 @@ def _backward(qkv, out, g, sin, cos, axis: str, heads: int, dim_head: int,
     qr, kr = rotary.apply_rot_emb(q, k, sin, cos)
     qs = qr * scale
     gv = dout
+    q_full, k_full = qs, kr
     if rounded:
         qs, kr, v, gv = _bf16(qs), _bf16(kr), _bf16(v), _bf16(dout)
-    p = torch.softmax(torch.matmul(qs, kr.transpose(-1, -2)), dim=-1)
-    dp = torch.matmul(gv, v.transpose(-1, -2))
+    if not rounded:
+        s = torch.matmul(qs, kr.transpose(-1, -2))
+        dp = torch.matmul(gv, v.transpose(-1, -2))
+    elif axis == "space" and dim_head <= 4:
+        # heads of 2 and 4 dims: q~ and k~ each split into its bf16
+        # rounding and the bf16 rounding of the rest for the scores, one
+        # k16 step (the space kernels' SPLIT); the products below take the
+        # rounding alone
+        s = mma_products(torch.cat([qs, _bf16(q_full - qs), qs], dim=-1),
+                         torch.cat([kr, kr, _bf16(k_full - kr)], dim=-1))
+        dp = mma_products(gv, v)
+    else:
+        s, dp = mma_products(qs, kr), mma_products(gv, v)
+    p = torch.softmax(s, dim=-1)
     if rounded and axis == "time":
         # the time kernel holds whole rows: D from P and dP, not the output
         d = (p * dp).sum(-1, keepdim=True)
@@ -97,7 +111,10 @@ def divided_attention_backward_float32_route(qkv, out, g, sin, cos,
     dP and dV; P and dS rounded to bf16 as product operands; the softmax, D
     and every product's sum in fp32. D is rowsum(g ∘ out) in fp32 for the
     space axis and Σ P ∘ dP for the time axis, whose kernel holds whole
-    rows. Differs from the kernels by the order of fp32 sums and their
-    ex2."""
+    rows. S and dP are summed as the tensor cores sum them
+    (``flash_attention.mma_products``); at space head dims 2 and 4 the
+    scores add the products of each operand's rounding with the other's
+    bf16-rounded remainder (q~ and k~ split into hi + lo). Differs from the
+    kernels by the order of the other fp32 sums and their ex2."""
     return _backward(qkv, out, g, sin, cos, axis, heads, dim_head, scale,
                      rounded=True)

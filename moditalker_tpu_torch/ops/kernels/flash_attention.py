@@ -36,7 +36,18 @@ read and write themselves, with no cast pass around them: q multiplied by
 the scale in fp32 and rounded to bf16 once, k and v rounded once, fp32
 scores, max and sums, p rounded to bf16 for P·V, the result divided by the
 fp32 row sum and stored as float32 (``attention_float32_route`` writes that
-function out). The one-pass and tiny-L wrappers are differentiable, with
+function out).
+
+Every shape a gate admits launches a kernel. The configurations' head dims
+(16, 32, 64; tiny-L at 16 rows of 64) are the instantiations of
+``flash_attention{,_f32}.cu`` and ``tiny_attention{,_f32}.cu``; the rest of
+the gates runs the same kernels built per class in
+``flash_classes{,_f32}.cu``: the one-pass and fused kernels at every other
+d % 8 == 0 up to 128 on the small-head tile's head-dim classes (16, 32, 64,
+128; the columns past d read as zeros, never stored), tiny-L at 8, 24 and
+32 rows (the row classes 16 and 32, padded rows masked) and at head dim
+128. The fused gate has no upper bound on d; heads wider than 128 are not
+built and raise. The one-pass and tiny-L wrappers are differentiable, with
 the JAX package's ``_flash_sdpa`` adjoints on recomputed float32
 probabilities (``autograd.FlashSdpa``); the fused kernel has no gradient,
 as in the JAX package, and on the card raises where one is asked of it.
@@ -54,15 +65,71 @@ from ..attention import plain_sdpa
 from . import _build, count_launch
 from .autograd import FlashSdpa
 
-# instantiated in csrc/: the shapes the repository's configurations reach
-# (UNet attention at 128 and 256 model channels, AE dim_head 64, 16 frames);
-# others raise on the card. HEAD_DIMS serves the one-pass and fused kernels.
+# instantiated in flash_attention{,_f32}.cu and tiny_attention{,_f32}.cu:
+# the shapes the repository's configurations reach (UNet attention at 128
+# and 256 model channels, AE dim_head 64, 16 frames); every other shape the
+# gates admit runs the classes of flash_classes{,_f32}.cu. HEAD_DIMS serves
+# the one-pass and fused kernels.
 HEAD_DIMS = (16, 32, 64)
 TINY_SHAPES = ((16, 64),)   # (L, head dim)
+# the small-head tile's head-dim classes (flash_classes.cu)
+HEAD_DIM_CLASSES = (16, 32, 64, 128)
+MAX_HEAD_DIM = 128
+TINY_ROWS = (8, 16, 24, 32)
+TINY_HEAD_DIMS = (64, 128)
 # at head dim 64, K stays resident in shared memory up to 9 tiles of 128
 # keys; above that it streams through a ring that takes whole tiles only
 RESIDENT_KEYS_D64 = 1152
 _KEY_TILE = 128             # keys per tile of the kernels' online softmax
+# how the tensor cores sum bf16 products into an fp32 accumulator (mma.sync
+# m16n8k16 and wgmma k16 alike): per step of 16 products, those products,
+# exact, and the accumulator aligned to the largest of them and cut to
+# _MMA_BITS bits below its leading one, summed, the sum rounded to fp32
+# toward zero (read off an H100's kernels: this sum reproduces their
+# scores where a plain fp32 or exact sum does not, tools/mma_sum.py)
+_MMA_K = 16
+_MMA_BITS = 26
+_MMA_CHUNK = 1 << 22        # elements of a [.., M, N, 17] step at a time
+
+
+def _round_to_zero32(x):
+    """float64 ``x`` rounded to float32 toward zero (as float64)."""
+    r = x.float()
+    over = r.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(r, torch.zeros_like(r)),
+                       r).double()
+
+
+def mma_products(a, b):
+    """a [..., M, K] · b [..., N, K]ᵀ → [..., M, N] float32, each entry summed
+    as the tensor cores sum bf16 operands (``_MMA_K``, ``_MMA_BITS``): the
+    score sums of the kernels' float32 route, which a float32 ``matmul``
+    (another order, rounded to nearest) misses by an ulp often enough to
+    move a p across its bf16 rounding boundary. a and b hold bf16 values."""
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    m, n, kd = a.shape[-2], b.shape[-2], a.shape[-1]
+    a = a.expand(*lead, m, kd).reshape(-1, m, kd).double()
+    b = b.expand(*lead, n, kd).reshape(-1, n, kd).double()
+    out = torch.empty(a.shape[0], m, n, dtype=torch.float32, device=a.device)
+    step = n * (_MMA_K + 1)       # elements a row of a adds to a step
+    rows = max(1, min(m, _MMA_CHUNK // step))
+    seqs = max(1, _MMA_CHUNK // (m * step)) if rows == m else 1
+    for i in range(0, a.shape[0], seqs):
+        for r in range(0, m, rows):
+            x, y = a[i:i + seqs, r:r + rows], b[i:i + seqs]
+            acc = torch.zeros(x.shape[0], x.shape[1], n, dtype=torch.float64,
+                              device=a.device)
+            for c in range(0, kd, _MMA_K):
+                terms = torch.cat(
+                    [acc[..., None],
+                     x[:, :, None, c:c + _MMA_K] * y[:, None, :, c:c + _MMA_K]],
+                    dim=-1)
+                _, e = torch.frexp(terms.abs().amax(dim=-1, keepdim=True))
+                ulp = torch.ldexp(torch.ones_like(terms[..., :1]),
+                                  e - _MMA_BITS)
+                acc = _round_to_zero32((torch.trunc(terms / ulp) * ulp).sum(-1))
+            out[i:i + seqs, r:r + rows] = acc.float()
+    return out.reshape(*lead, m, n)
 
 
 def onepass_attention_viable(nq: int, nk: int, d: int) -> bool:
@@ -89,12 +156,13 @@ def attention_float32_route(q, k, v, scale: float):
     are taken in tiles of ``_KEY_TILE`` in order, each tile's p is taken
     against the running max and rounded to bf16 there, and what the earlier
     tiles summed is rescaled in fp32 (one tile up to 128 keys: tiny-L's
-    full-row softmax). It differs from the float32 plain version by those
+    full-row softmax). The scores are summed as the tensor cores sum them
+    (``mma_products``). It differs from the float32 plain version by those
     roundings (bf16 operands with fp32 accumulators), and from the kernels
-    by the order of fp32 sums and the kernels' ``ex2``."""
+    by the order of the other fp32 sums and the kernels' ``ex2``."""
     q = (q.float() * scale).bfloat16().float()
     k, v = k.float().bfloat16().float(), v.float().bfloat16().float()
-    s = torch.matmul(q, k.transpose(-1, -2))
+    s = mma_products(q, k)
     m = torch.full(s.shape[:-1] + (1,), -torch.inf, device=s.device)
     row_sum = torch.zeros_like(m)
     out = torch.zeros(s.shape[:-1] + v.shape[-1:], device=q.device)
@@ -110,13 +178,21 @@ def attention_float32_route(q, k, v, scale: float):
     return out / row_sum
 
 
+def _bind(lib: ctypes.CDLL, suffix: str, tiny: bool = False) -> ctypes.CDLL:
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if tiny:
+        entry = getattr(lib, "tiny_attention" + suffix)
+        entry.argtypes = [p, p, p, p, ctypes.c_long, i, i, fl, p]
+    else:
+        entry = getattr(lib, "fused_attention" + suffix)
+        entry.argtypes = [p, p, p, p, i, i, i, i, fl, p]
+    entry.restype = i
+    return lib
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_attention.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
-    lib.fused_attention.restype = i
-    return lib
+    return _bind(_build.load("flash_attention"), "")
 
 
 @functools.cache
@@ -124,12 +200,22 @@ def _lib_f32() -> ctypes.CDLL:
     """The float32 entry point, built apart (``csrc/flash_attention_f32.cu``)
     so that the bf16 kernels' translation unit holds no float32
     instantiation."""
-    lib = _build.load("flash_attention_f32")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_attention_f32.argtypes = [p, p, p, p, i, i, i, i,
-                                        ctypes.c_float, p]
-    lib.fused_attention_f32.restype = i
-    return lib
+    return _bind(_build.load("flash_attention_f32"), "_f32")
+
+
+@functools.cache
+def _classes_lib() -> ctypes.CDLL:
+    """The bf16 classes beyond the configurations' shapes, one-pass / fused
+    and tiny-L (``csrc/flash_classes.cu``), a library of their own."""
+    return _bind(_bind(_build.load("flash_classes"), "_classes"), "_classes",
+                 tiny=True)
+
+
+@functools.cache
+def _classes_lib_f32() -> ctypes.CDLL:
+    """The float32 classes (``csrc/flash_classes_f32.cu``)."""
+    return _bind(_bind(_build.load("flash_classes_f32"), "_classes_f32"),
+                 "_classes_f32", tiny=True)
 
 
 def _operands(what: str, q, k, v, kv_shape):
@@ -153,21 +239,26 @@ def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     """The one-pass and the fused wrapper's checks and launch (the one-pass
     kernel is the fused one at Nq = Nk): q [B, Nq, D] over k, v [B, nk, D]
     bf16 → [B, Nq, D] bf16, or float32 → float32 (the float32 entry point).
-    Head dims as built; at 64, above 1152 keys (where K streams through a
+    D % 8 == 0 up to 128; at 64, above 1152 keys (where K streams through a
     ring instead of staying in shared memory) only whole 128-key tiles.
     Returns the output and whether it is float32."""
     b, nq, d = q.shape
     q, k, v, f32 = _operands(what, q, k, v, (b, nk, d))
-    if d not in HEAD_DIMS:
-        raise NotImplementedError(f"{what} kernel built for head dims "
-                                  f"{HEAD_DIMS}, not {d}")
+    if d % 8 or d < 8:
+        raise ValueError(f"the {what} kernel takes head dims d % 8 == 0, not "
+                         f"{d}")
+    if d > MAX_HEAD_DIM:
+        raise NotImplementedError(f"{what} kernel built for head dims up to "
+                                  f"{MAX_HEAD_DIM}, not {d}")
     if d == 64 and nk > RESIDENT_KEYS_D64 and nk % _KEY_TILE:
         raise ValueError(f"at head dim 64 the {what} kernel takes more than "
                          f"{RESIDENT_KEYS_D64} keys only in multiples of "
                          f"{_KEY_TILE}, not {nk}")
     out = torch.empty_like(q)
-    lib = _lib_f32() if f32 else _lib()
-    entry = "fused_attention_f32" if f32 else "fused_attention"
+    suffix = ("" if d in HEAD_DIMS else "_classes") + ("_f32" if f32 else "")
+    lib = {"": _lib, "_f32": _lib_f32, "_classes": _classes_lib,
+           "_classes_f32": _classes_lib_f32}[suffix]()
+    entry = "fused_attention" + suffix
     status = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
         d, scale, kernels.cuda_stream(q))
@@ -207,36 +298,30 @@ tiny_attention_reference = onepass_attention_reference  # the same plain math
 
 @functools.cache
 def _tiny_lib() -> ctypes.CDLL:
-    lib = _build.load("tiny_attention")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tiny_attention.argtypes = [p, p, p, p, ctypes.c_long, i, i,
-                                   ctypes.c_float, p]
-    lib.tiny_attention.restype = i
-    return lib
+    return _bind(_build.load("tiny_attention"), "", tiny=True)
 
 
 @functools.cache
 def _tiny_lib_f32() -> ctypes.CDLL:
     """The float32 entry point, built apart (``csrc/tiny_attention_f32.cu``)."""
-    lib = _build.load("tiny_attention_f32")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.tiny_attention_f32.argtypes = [p, p, p, p, ctypes.c_long, i, i,
-                                       ctypes.c_float, p]
-    lib.tiny_attention_f32.restype = i
-    return lib
+    return _bind(_build.load("tiny_attention_f32"), "_f32", tiny=True)
 
 
 def tiny_attention_cuda(q, k, v, scale: float):
     """Kernel launch: q, k, v [B, L, D] bf16 or float32 → [B, L, D] of the
-    same dtype."""
+    same dtype; L in ``TINY_ROWS``, D in ``TINY_HEAD_DIMS``."""
     b, l, d = q.shape
     q, k, v, f32 = _operands("tiny-L", q, k, v, (b, l, d))
-    if (l, d) not in TINY_SHAPES:
-        raise NotImplementedError(f"tiny-L kernel built for (L, head dim) "
-                                  f"{TINY_SHAPES}, not {(l, d)}")
+    if l not in TINY_ROWS or d not in TINY_HEAD_DIMS:
+        raise ValueError(f"the tiny-L kernel takes L in {TINY_ROWS} and head "
+                         f"dims {TINY_HEAD_DIMS}, not {(l, d)}")
     out = torch.empty_like(q)
-    lib = _tiny_lib_f32() if f32 else _tiny_lib()
-    entry = "tiny_attention_f32" if f32 else "tiny_attention"
+    if (l, d) in TINY_SHAPES:
+        lib = _tiny_lib_f32() if f32 else _tiny_lib()
+        entry = "tiny_attention" + ("_f32" if f32 else "")
+    else:
+        lib = _classes_lib_f32() if f32 else _classes_lib()
+        entry = "tiny_attention_classes" + ("_f32" if f32 else "")
     status = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, d,
         scale, kernels.cuda_stream(q))

@@ -448,21 +448,26 @@ def test_divided_backward_kernels_match_plain(gen, axis, b, f, n, heads,
 
 @pytest.mark.cuda
 def test_divided_backward_kernels_refuse_unbuilt_shapes(gen):
-    """N past the float32 forward's gate or below 256, another head dim,
-    another frame count: each raises before anything launches."""
+    """What lies outside the forward's gate, and so has no kernel: N below
+    256 or off the 128-row tiling, a head dim that does not divide 128 (or
+    of 1: no rotary pair), 40 frames or a frame count off the 8-frame
+    classes: each raises before anything launches."""
     before = dict(LAUNCHES)
-    for n, heads, dh in ((1280, 2, 64), (128, 2, 64), (256, 4, 32)):
-        sin, cos = _divided_tables("space", 1, n, dh)
+    for n, heads, dh in ((128, 2, 64), (1000, 2, 64), (256, 4, 48)):
+        sin, cos = (torch.zeros(n, dh, device="cuda") for _ in range(2))
         qkv = _randn32(gen, 1, n, 3 * heads * dh)
         g = _randn32(gen, 1, n, heads * dh)
-        with pytest.raises(NotImplementedError, match="built for"):
+        with pytest.raises(ValueError):
             tdiv.space_attention_backward_cuda(qkv, g, g, sin, cos, heads,
                                                dh, dh**-0.5)
-    sin, cos = _divided_tables("time", 8, 16)
-    with pytest.raises(NotImplementedError, match="built for"):
-        tdiv.time_attention_backward_cuda(
-            _randn32(gen, 1, 8, 16, 384), _randn32(gen, 1, 8, 16, 128), sin,
-            cos, 2, 64, 0.125)
+    for f, dh in ((40, 64), (12, 64), (16, 1)):
+        heads = 128 // dh
+        sin, cos = (torch.zeros(f, dh, device="cuda") for _ in range(2))
+        with pytest.raises(ValueError):
+            tdiv.time_attention_backward_cuda(
+                _randn32(gen, 1, f, 16, 3 * heads * dh),
+                _randn32(gen, 1, f, 16, heads * dh), sin, cos, heads, dh,
+                0.125)
     assert LAUNCHES == before
 
 
@@ -539,3 +544,231 @@ def test_head_parallel_attention_launches_the_onepass_kernel(gen):
     heads = lambda t: t.transpose(1, 2).reshape(16, 2048, 32)
     plain = attention.plain_sdpa(heads(q) * 32**-0.5, heads(k), heads(v))
     check_bf16("onepass_attention", heads(out), plain)
+
+
+# ------------------------------------------------- the classes beyond the
+# configurations' shapes: every shape the JAX gates admit runs a kernel
+def _pair_tables(n, dh, seed=3):
+    """A space table at any even head dim: angles drawn per rotated pair and
+    repeated over it, as the axial table repeats them (which has no entry
+    below head dim 4)."""
+    g = torch.Generator().manual_seed(seed)
+    ang = (torch.rand(n, dh // 2, generator=g) * 6.0 - 3.0)
+    ang = ang.repeat_interleave(2, dim=-1)
+    return ang.sin().cuda(), ang.cos().cuda()
+
+
+def _class_tables(axis, f, n, dh):
+    if axis == "time":
+        return [torch.from_numpy(t).cuda()
+                for t in rotary.time_rotary_sincos(f, dh)]
+    return _pair_tables(n, dh)
+
+
+def _divided_class_case(gen, axis, b, f, n, heads, dh, dtype, scale=None):
+    sin, cos = _class_tables(axis, f, n, dh)
+    x = _randn32(gen, b, f, n, 3 * heads * dh)
+    if scale is not None:
+        x = x * scale
+    return x.to(dtype), sin, cos
+
+
+DIVIDED_CLASSES = [
+    # time: clips of 8, 24 and 32 frames at the AE's head dim, on both
+    # frame classes; head dims 2 to 128 (2, 4 and 8 padded to 16)
+    ("time", 2, 8, 64, 8, 64), ("time", 1, 24, 128, 8, 64),
+    ("time", 2, 32, 64, 8, 64), ("time", 1, 32, 16, 2, 64),
+    ("time", 1, 16, 64, 1, 128), ("time", 1, 8, 32, 1, 128),
+    ("time", 1, 24, 32, 4, 32), ("time", 1, 16, 32, 8, 16),
+    ("time", 1, 8, 16, 16, 8), ("time", 1, 32, 8, 32, 4),
+    ("time", 1, 16, 8, 64, 2), ("time", 3, 24, 5, 3, 64),
+    # space: head dims 2 to 128 but 64, on the small-head tile with the
+    # rotary; 64 past the float32 wgmma tile's resident K in float32
+    ("space", 1, 2, 256, 1, 128), ("space", 1, 1, 1024, 4, 32),
+    ("space", 2, 1, 512, 8, 16), ("space", 1, 1, 256, 16, 8),
+    ("space", 1, 1, 384, 32, 4), ("space", 1, 1, 256, 64, 2),
+    ("space", 1, 1, 2048, 1, 128)]
+
+
+def _check_class(name, got, plain, route):
+    """A class kernel's result against the plain version in float32 on the
+    same inputs (bf16 ones widened): bf16 within the kernel's
+    ``BF16_LIMITS``, float32 also within its route's limits
+    (``_check_float32``). At the classes' narrow heads the bf16 plain
+    version's own roundings (the rotary in bf16 with bf16 tables, bf16
+    scores) are the larger error, so the float32 plain version is the
+    oracle of both types."""
+    if got.dtype == torch.float32:
+        _check_float32(name, got, plain, route)
+    else:
+        check_bf16(name, got, plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("axis,b,f,n,heads,dh", DIVIDED_CLASSES)
+def test_divided_classes_match_plain(gen, axis, b, f, n, heads, dh, dtype):
+    """Each frame and head-dim class of the time kernel and each head-dim
+    class of the space kernel, bf16 and float32, against the plain version
+    within the kernel's unchanged limits (``_check_class``)."""
+    x, sin, cos = _divided_class_case(gen, axis, b, f, n, heads, dh, dtype)
+    name = f"divided_{axis}_attention"
+    assert tdiv.divided_attention_viable(axis, f, n, heads, dh, dh) \
+        or n % 8   # (a last block short of warps: below the gate)
+    run = ((lambda: tdiv.space_attention_cuda(
+        x.reshape(b * f, n, -1), sin, cos, heads, dh, dh**-0.5).reshape(
+            b, f, n, -1)) if axis == "space" else
+        (lambda: tdiv.time_attention_cuda(x, sin, cos, heads, dh, dh**-0.5)))
+    got = _launched(name, run)
+    x32 = x.float()
+    _check_class(name, got,
+                 tdiv.divided_attention_reference(x32, sin, cos, axis, heads,
+                                                  dh, dh**-0.5,
+                                                  use_flash=False),
+                 tdiv.divided_attention_float32_route(x32, sin, cos, axis,
+                                                      heads, dh, dh**-0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("f", [8, 24])
+def test_time_classes_mask_padded_frames(gen, f, dtype):
+    """Clips of 8 and 24 frames run on the 16- and 32-frame tiles with the
+    frames past F loaded as zeros. A zero key scores 0, not -inf: with q
+    and k built about one direction of opposite signs (every real score
+    negative, about -7 on average) an unmasked padded key would take nearly
+    all the weight, and a mask applied after the max would leave every
+    weight at 0. The
+    forward and the backward against the functions of their float32 route
+    on the same inputs (scores this large move by whole units when q is
+    rounded to bf16, so the route, which rounds where the kernels do, is the
+    oracle): within its limits in float32, within ``BF16_LIMITS`` in bf16
+    (whose result is rounded once more)."""
+    heads, dh, n = 2, 64, 64
+    sin, cos = _class_tables("time", f, n, dh)
+    c = _randn32(gen, 1, 1, n, heads * dh)
+    q = c + 0.5 * _randn32(gen, 1, f, n, heads * dh)
+    k = -c + 0.5 * _randn32(gen, 1, f, n, heads * dh)
+    v = _randn32(gen, 1, f, n, heads * dh)
+    x = torch.cat([q, k, v], dim=-1).to(dtype)
+    x32 = x.float()
+    route = tdiv.divided_attention_float32_route(x32, sin, cos, "time", heads,
+                                                 dh, dh**-0.5)
+    got = _launched("divided_time_attention", lambda: tdiv.time_attention_cuda(
+        x, sin, cos, heads, dh, dh**-0.5))
+    assert route.abs().max() > 0.5   # the output did not collapse
+    g = _randn32(gen, 1, f, n, heads * dh).to(dtype)
+    dqkv = _launched("divided_time_attention_backward",
+                     lambda: tdiv.time_attention_backward_cuda(
+                         x, g, sin, cos, heads, dh, dh**-0.5))
+    droute = tbwd.divided_attention_backward_float32_route(
+        x32, route, g.float(), sin, cos, "time", heads, dh, dh**-0.5)
+    if dtype == torch.float32:
+        check_float32_route("divided_time_attention", got, route)
+        check_float32_route("divided_time_attention_backward", dqkv, droute)
+    else:
+        check_bf16("divided_time_attention", got, route)
+        check_bf16("divided_time_attention_backward", dqkv, droute)
+
+
+FLASH_CLASSES = [(2, 1024, 8), (2, 1024, 24), (2, 1024, 40), (1, 1280, 48),
+                 (2, 1024, 56), (1, 1024, 72), (1, 1536, 96), (1, 1024, 120),
+                 (2, 1024, 128), (40, 1024, 24), (16, 2048, 48)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,d", FLASH_CLASSES)
+def test_onepass_classes_match_plain(gen, b, n, d, dtype):
+    """The one-pass kernel at head dims the configurations do not reach:
+    every class of the small-head tile (8 in 16, 24 in 32, 40 to 56 in 64,
+    72 to 128 in 128), bf16 and float32."""
+    assert tflash.onepass_attention_viable(n, n, d)
+    q, k, v = (_randn32(gen, b, n, d).to(dtype) for _ in range(3))
+    got = _launched("onepass_attention",
+                    lambda: tflash.onepass_attention(q, k, v, d**-0.5))
+    q, k, v = q.float(), k.float(), v.float()
+    _check_class("onepass_attention", got,
+                 tflash.onepass_attention_reference(q, k, v, d**-0.5),
+                 tflash.attention_float32_route(q, k, v, d**-0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nk,d", [
+    (3, 100, 256, 8), (2, 1100, 384, 24), (2, 70, 120, 40), (3, 1, 8, 48),
+    (2, 300, 640, 72), (2, 200, 2048, 128), (2, 1000, 128, 96),
+    (3, 64, 64, 120)])
+def test_fused_classes_match_plain(gen, b, nq, nk, d, dtype):
+    """The fused kernel at the same classes: ragged query chunks, key tiles
+    short of 128 and whole ones, Nq != Nk."""
+    q = _randn32(gen, b, nq, d).to(dtype)
+    k, v = (_randn32(gen, b, nk, d).to(dtype) for _ in range(2))
+    got = _launched("fused_attention", lambda: tflash.fused_attention(q, k, v))
+    q, k, v = q.float(), k.float(), v.float()
+    _check_class("fused_attention", got,
+                 tflash.fused_attention_reference(q, k, v, d**-0.5),
+                 tflash.attention_float32_route(q, k, v, d**-0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,l,d", [(4096, 8, 64), (4096, 24, 64),
+                                   (4096, 32, 64), (4096, 16, 128),
+                                   (4096, 8, 128), (4224, 24, 128),
+                                   (130, 32, 128), (130, 8, 64)])
+def test_tiny_classes_match_plain(gen, b, l, d, dtype):
+    """Tiny-L at every row class (8 and 24 padded) and at head dim 128,
+    with a last block short of warps at 130 sequences."""
+    q, k, v = (_randn32(gen, b, l, d).to(dtype) for _ in range(3))
+    got = _launched("tiny_attention",
+                    lambda: tflash.tiny_attention(q, k, v, d**-0.5))
+    q, k, v = q.float(), k.float(), v.float()
+    _check_class("tiny_attention", got,
+                 tflash.tiny_attention_reference(q, k, v, d**-0.5),
+                 tflash.attention_float32_route(q, k, v, d**-0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis,b,f,n,heads,dh", [
+    ("time", 1, 8, 64, 8, 64), ("time", 1, 24, 32, 8, 64),
+    ("time", 1, 32, 32, 8, 64), ("time", 1, 16, 32, 1, 128),
+    ("time", 1, 24, 16, 4, 32), ("time", 1, 8, 16, 8, 16),
+    ("time", 1, 32, 8, 16, 8), ("time", 1, 16, 8, 64, 2),
+    ("time", 1, 24, 5, 3, 64),
+    ("space", 1, 1, 256, 1, 128), ("space", 1, 1, 512, 4, 32),
+    ("space", 1, 1, 256, 8, 16), ("space", 1, 1, 256, 16, 8),
+    ("space", 1, 1, 384, 32, 4), ("space", 1, 1, 256, 64, 2),
+    ("space", 1, 1, 2048, 2, 64),
+    ("space", 1, 1, 1280, 2, 64)])
+def test_divided_backward_classes_match_plain(gen, axis, b, f, n, heads, dh,
+                                              dtype):
+    """The backward kernels at every class the forward has: time at clips
+    of 8, 24 and 32 frames and head dims 2 to 128, space at head dims 2 to
+    128 but 64 (2 and 4 with the scores' operands split into hi + lo) and,
+    at 64, past the float32 forward's resident K (N = 1280, 2048); against
+    the float32 plain backward, float32 also against its route, two calls
+    equal bit for bit."""
+    x, sin, cos = _divided_class_case(gen, axis, b, f, n, heads, dh, dtype)
+    g = _randn32(gen, b, f, n, heads * dh).to(dtype)
+    out = tdiv.divided_attention_reference(x, sin, cos, axis, heads, dh,
+                                           dh**-0.5, use_flash=False)
+    name = f"divided_{axis}_attention_backward"
+    if axis == "space":
+        flat = (b * f, n, -1)
+        run = lambda: tdiv.space_attention_backward_cuda(
+            x.reshape(flat), out.reshape(flat), g.reshape(flat), sin, cos,
+            heads, dh, dh**-0.5).reshape(x.shape)
+    else:
+        run = lambda: tdiv.time_attention_backward_cuda(
+            x, g, sin, cos, heads, dh, dh**-0.5)
+    got = _launched(name, run)
+    assert got.dtype == dtype and torch.equal(got, run())
+    args = (x, out, g, sin, cos, axis, heads, dh, dh**-0.5)
+    plain = tbwd.divided_attention_backward_reference(*args)
+    if dtype == torch.float32:
+        _check_float32(name, got, plain,
+                       tbwd.divided_attention_backward_float32_route(*args))
+    else:
+        check_bf16(name, got, plain)

@@ -208,14 +208,52 @@ def test_backward_reaches_its_entry_point(stub_launches, monkeypatch, axis,
 
 
 @pytest.mark.parametrize("axis,f,n,dh,dtype,error", [
-    ("space", 1, 1280, 64, torch.bfloat16, NotImplementedError),
-    ("space", 1, 256, 32, torch.float32, NotImplementedError),
-    ("time", 8, 8, 64, torch.float32, NotImplementedError)])
+    ("space", 1, 1000, 64, torch.bfloat16, ValueError),
+    ("space", 1, 256, 48, torch.float32, ValueError),
+    ("time", 40, 8, 64, torch.float32, ValueError)])
 def test_backward_refuses_unbuilt_shapes(stub_launches, axis, f, n, dh,
                                          dtype, error):
-    """A shape the backward kernels are not built for raises on the card,
-    even where the forward kernel ran (bf16 space at N = 1280, through the
-    forward's K ring); the plain backward is never run in its place."""
+    """A shape outside the forward's gate (N off the 128-row tiling, a head
+    dim that does not divide 128, 40 frames) has no backward kernel: it
+    raises on the card before anything launches, and the plain backward is
+    never run in its place. (Inside the gate every shape has one: the
+    shapes this test once refused launch in
+    ``test_backward_reaches_the_classes_entry_points``.)"""
+    heads = 2
+    sin = cos = torch.zeros(n if axis == "space" else f, dh)
+    qkv = torch.randn(1, f, n, 3 * heads * dh).to(dtype)
+    g = torch.randn(1, f, n, heads * dh).to(dtype)
+    with pytest.raises(error):
+        if axis == "space":
+            tdiv.space_attention_backward_cuda(
+                qkv.reshape(f, n, -1), g.reshape(f, n, -1),
+                g.reshape(f, n, -1), sin, cos, heads, dh, 0.125)
+        else:
+            tdiv.time_attention_backward_cuda(qkv, g, sin, cos, heads, dh,
+                                              0.125)
+    assert stub_launches == []
+    assert not tkernels.LAUNCHES["divided_space_attention_backward"]
+    assert not tkernels.LAUNCHES["divided_time_attention_backward"]
+
+
+@pytest.mark.parametrize("axis,f,n,dh,dtype,entry", [
+    ("space", 1, 1280, 64, torch.bfloat16,
+     "divided_space_attention_backward"),
+    ("space", 1, 2048, 64, torch.float32,
+     "divided_space_attention_backward_f32"),
+    ("space", 1, 256, 32, torch.float32,
+     "divided_space_attention_backward_classes_f32"),
+    ("time", 8, 8, 64, torch.float32,
+     "divided_time_attention_backward_classes_f32"),
+    ("time", 32, 8, 128, torch.bfloat16,
+     "divided_time_attention_backward_classes")])
+def test_backward_reaches_the_classes_entry_points(stub_launches, axis, f,
+                                                   n, dh, dtype, entry):
+    """Through the autograd function: the forward launches, then the
+    backward once, at shapes the configurations do not reach: space at
+    head dim 64 past 1152 keys (the configurations' library, which takes
+    any N % 128 == 0), space at head dim 32 and time at 8 and 32 frames
+    (the classes' library)."""
     heads = 256 // dh if axis == "space" else HEADS
     if axis == "space":
         side = 32 if n % 32 == 0 and n >= 1024 else 16
@@ -223,25 +261,13 @@ def test_backward_refuses_unbuilt_shapes(stub_launches, axis, f, n, dh,
                                                               dh))
     else:
         sin, cos = (_t(a) for a in rotary.time_rotary_sincos(f, dh))
-    qkv = torch.randn(1, f, n, 3 * heads * dh).to(dtype)
-    g = torch.randn(1, f, n, heads * dh).to(dtype)
-    if n == 1280:   # through the autograd function: the forward launches
-        x = qkv.requires_grad_()
-        out = tdiv.divided_attention(x, sin, cos, axis, heads, dh, 0.125)
-        with pytest.raises(error, match="built for"):
-            torch.autograd.grad(out, x, g)
-        assert stub_launches == ["divided_space_attention"]
-    elif axis == "space":
-        with pytest.raises(error, match="head dims"):
-            tdiv.space_attention_backward_cuda(
-                qkv.reshape(f, n, -1), g.reshape(f, n, -1),
-                g.reshape(f, n, -1), sin, cos, heads, dh, 0.125)
-    else:
-        with pytest.raises(error, match="frames"):
-            tdiv.time_attention_backward_cuda(qkv, g, sin, cos, heads, dh,
-                                              0.125)
-    assert not tkernels.LAUNCHES["divided_space_attention_backward"]
-    assert not tkernels.LAUNCHES["divided_time_attention_backward"]
+    assert tdiv.divided_attention_viable(axis, f, n, heads, dh, dh)
+    x = torch.randn(1, f, n, 3 * heads * dh).to(dtype).requires_grad_()
+    out = tdiv.divided_attention(x, sin, cos, axis, heads, dh, 0.125)
+    (dx,) = torch.autograd.grad(out, x, torch.randn(out.shape).to(dtype))
+    assert dx.shape == x.shape and dx.dtype == dtype
+    assert stub_launches[-1] == entry and len(stub_launches) == 2
+    assert tkernels.LAUNCHES[f"divided_{axis}_attention_backward"] == 1
 
 
 def test_backward_refuses_a_cotangent_of_another_type(stub_launches):
@@ -360,3 +386,32 @@ def test_backward_limits_pass_the_route_and_catch_a_wrong_head(name):
         tkernels.check_bf16(name, swapped, exact)
     with pytest.raises(AssertionError, match="float32 route"):
         tkernels.check_float32_route(name, exact.bfloat16().float(), route)
+
+
+@pytest.mark.parametrize("dim_head", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_space_route_at_two_and_four_dim_heads_splits_the_scores(dim_head,
+                                                                 dtype):
+    """At space head dims 2 and 4 the kernels' scores take q~ and k~ each
+    as its bf16 rounding plus the bf16 rounding of the rest (one k16 step
+    holds all three products): the float32 route that writes this out is
+    within the backward's ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` of the
+    plain backward on five seeds, bf16 and float32 inputs alike. With the
+    scores of bf16-rounded operands alone the rms measure reads past its
+    8e-3 at head dim 2 on most draws."""
+    n, heads = 256, 128 // dim_head
+    for seed in range(5):
+        gen = torch.Generator().manual_seed(seed)
+        ang = (torch.rand(n, dim_head // 2, generator=gen) * 6 - 3
+               ).repeat_interleave(2, dim=-1)
+        sin, cos = ang.sin(), ang.cos()
+        x = torch.randn(1, 1, n, 3 * heads * dim_head, generator=gen).to(dtype)
+        g = torch.randn(1, 1, n, heads * dim_head, generator=gen).to(dtype)
+        out = tdiv.divided_attention_reference(x, sin, cos, "space", heads,
+                                               dim_head, dim_head**-0.5,
+                                               use_flash=False)
+        args = (x, out, g, sin, cos, "space", heads, dim_head, dim_head**-0.5)
+        tkernels.check_bf16(
+            "divided_space_attention_backward",
+            tbwd.divided_attention_backward_float32_route(*args),
+            tbwd.divided_attention_backward_reference(*args))

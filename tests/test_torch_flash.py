@@ -254,10 +254,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     qb = q.bfloat16()
     with pytest.raises(ValueError, match="k and v of shape"):
         tflash.tiny_attention_cuda(qb, qb[:, :8], qb, 1.0)
-    with pytest.raises(NotImplementedError, match="tiny-L kernel built for"):
-        tflash.tiny_attention_cuda(qb[:, :8], qb[:, :8], qb[:, :8], 1.0)
+    # outside the tiny gate (L % 8 != 0, another head dim): the tiny-L gate
+    # admits L in {8, 16, 24, 32} and head dims 64 and 128, all built
+    with pytest.raises(ValueError, match="tiny-L kernel takes"):
+        tflash.tiny_attention_cuda(qb[:, :12], qb[:, :12], qb[:, :12], 1.0)
+    with pytest.raises(ValueError, match="tiny-L kernel takes"):
+        x = qb[..., :32].contiguous()
+        tflash.tiny_attention_cuda(x, x, x, 1.0)
+    # fused: head dims d % 8 == 0; past 128 (which the fused gate admits)
+    # no kernel is built
+    with pytest.raises(ValueError, match="d % 8 == 0"):
+        x = torch.zeros(2, 256, 44, dtype=torch.bfloat16)
+        tflash.fused_attention_cuda(x, x, x, 1.0)
     with pytest.raises(NotImplementedError, match="fused kernel built for"):
-        x = torch.zeros(2, 256, 48, dtype=torch.bfloat16)
+        x = torch.zeros(2, 256, 136, dtype=torch.bfloat16)
         tflash.fused_attention_cuda(x, x, x, 1.0)
     with pytest.raises(ValueError, match="k and v of shape"):
         x = torch.zeros(2, 256, 64, dtype=torch.bfloat16)
@@ -266,7 +276,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="head dim 64"):
         kv = torch.zeros(2, 1160, 64, dtype=torch.bfloat16)
         tflash.fused_attention_cuda(x, kv, kv, 1.0)
-    # one-pass: bf16 or float32, built head dims only,
+    # one-pass: bf16 or float32, head dims d % 8 == 0 up to 128 (its gate),
     # and at head dim 64 (the wgmma tile) above 1152 rows only rows that
     # tile by 128
     x = torch.zeros(2, 1024, 32, dtype=torch.float16)
@@ -275,7 +285,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="bf16 or float32"):
         tflash.onepass_attention_cuda(x.float(), x.float(), x, 1.0)
     with pytest.raises(NotImplementedError, match="one-pass kernel built for"):
-        x = torch.zeros(2, 1024, 48, dtype=torch.bfloat16)
+        x = torch.zeros(2, 1024, 136, dtype=torch.bfloat16)
         tflash.onepass_attention_cuda(x, x, x, 1.0)
     for n in (1160, 2000):
         with pytest.raises(ValueError, match="head dim 64"):

@@ -146,29 +146,44 @@ def test_float32_qkv_launches_the_float32_entry_point(stub_launches, axis):
     assert tkernels.LAUNCHES[name] == 2
 
 
-def test_float32_space_kernel_is_built_for_resident_k():
-    """The float32 space route is instantiated for resident K only: the
-    wrapper refuses a longer N before it builds or launches anything, and
-    its limit is the tile's (``kWgMaxKSlots`` tiles of 128 keys)."""
+def test_float32_space_kernel_is_built_for_resident_k(stub_launches):
+    """The float32 space route on the wgmma tile is instantiated for
+    resident K only (``kWgMaxKSlots`` tiles of 128 keys): up to that limit a
+    float32 qkv launches its entry point; past it (1152 < N <= 2048, which
+    the gate admits) the wrapper launches the small-head tile's float32
+    class with the rotary (``divided_classes_f32.cu``), never raising."""
     tile = (_build.CSRC / "wgmma_tile.cuh").read_text()
     slots = int(re.search(r"kWgMaxKSlots = (\d+);", tile).group(1))
     assert tdiv.SPACE_F32_MAX_N == 128 * slots
-    n = tdiv.SPACE_F32_MAX_N + 128
-    tab = torch.zeros(n, 64)
-    with pytest.raises(NotImplementedError, match="resident"):
+    for n, entry in ((tdiv.SPACE_F32_MAX_N, "divided_space_attention_f32"),
+                     (tdiv.SPACE_F32_MAX_N + 128,
+                      "divided_space_attention_classes_f32"),
+                     (2048, "divided_space_attention_classes_f32")):
+        stub_launches.clear()
+        tab = torch.zeros(n, 64)
         tdiv.space_attention_cuda(torch.zeros(1, n, 3 * 2 * 64), tab, tab,
                                   2, 64, 0.125)
+        assert stub_launches == [entry]
 
 
 def test_float32_entry_points_are_in_their_own_source():
     """The C symbols the wrappers bind are defined in each kernel's bf16
     source and in a float32 source of its own (``FLOAT32_SOURCES``, built
-    with the kernels), and every source under csrc/ is a kernel's."""
+    with the kernels), the classes beyond the configurations' shapes in
+    sources of their own likewise (``CLASS_SOURCES``,
+    ``CLASS_FLOAT32_SOURCES``), and every source under csrc/ is a kernel's."""
     symbols = {"divided_attention": {"divided_space_attention",
                                      "divided_time_attention"},
                "packed_attention": {"packed_attention"},
                "flash_attention": {"fused_attention"},
-               "tiny_attention": {"tiny_attention"}}
+               "tiny_attention": {"tiny_attention"},
+               "divided_classes": {"divided_space_attention_classes",
+                                   "divided_time_attention_classes"},
+               "flash_classes": {"fused_attention_classes",
+                                 "tiny_attention_classes"},
+               "divided_backward_classes": {
+                   "divided_space_attention_backward_classes",
+                   "divided_time_attention_backward_classes"}}
     for source, names in symbols.items():
         for src, suffix in ((source, ""), (source + "_f32", "_f32")):
             text = (_build.CSRC / f"{src}.cu").read_text()
@@ -177,8 +192,16 @@ def test_float32_entry_points_are_in_their_own_source():
             assert found == {n + suffix for n in names}, src
     for name, source in tkernels.SOURCES.items():
         assert tkernels.FLOAT32_SOURCES[name] == source + "_f32"
-    built = {*tkernels.SOURCES.values(), *tkernels.FLOAT32_SOURCES.values()}
+    for name, source in tkernels.CLASS_SOURCES.items():
+        assert tkernels.CLASS_FLOAT32_SOURCES[name] == source + "_f32"
+        assert name in tkernels.SOURCES
+    assert set(tkernels.CLASS_SOURCES) == set(tkernels.SOURCES) - {
+        "packed_attention"}
+    built = {*tkernels.SOURCES.values(), *tkernels.FLOAT32_SOURCES.values(),
+             *tkernels.CLASS_SOURCES.values(),
+             *tkernels.CLASS_FLOAT32_SOURCES.values()}
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == built
+    assert tkernels.all_sources() == sorted(built)
 
 
 # ------------------------------------------- packed, one-pass, fused, tiny-L
@@ -384,3 +407,37 @@ def test_float32_at_head_dim_64_is_built_for_resident_k(stub_launches):
             tflash.fused_attention_cuda(x[:, :64].to(dtype), kv.to(dtype),
                                         kv.to(dtype), 0.125)
     assert stub_launches == ["fused_attention_f32"] * 2
+
+
+def test_route_sums_scores_as_the_tensor_cores():
+    """``mma_products`` sums each step of 16 bf16 products with the
+    accumulator as the tensor cores do: aligned to the largest addend, cut
+    to 26 bits, the sum rounded toward zero. 1 + 2^-24 + 2^-25 is kept
+    whole by the 26 bits and then rounded toward zero to 1.0, where the
+    exact sum rounded to nearest is 1 + 2^-23; a term below the 26th
+    bit of the largest is dropped; across steps the accumulator is one
+    addend of the next. On random bf16 operands the model stays within a
+    few float32 ulps of the exact sum and differs from a float32 matmul."""
+    q = torch.zeros(1, 1, 16)
+    q[0, 0, :3] = torch.tensor([1.0, 2.0**-24, 2.0**-25])
+    k = torch.zeros(1, 1, 16)
+    k[0, 0, :3] = 1.0
+    assert tflash.mma_products(q, k).item() == 1.0
+    exact = torch.matmul(q.double(), k.double().transpose(-1, -2))
+    assert exact.float().item() == 1.0 + 2.0**-23
+    q[0, 0, 1:3] = torch.tensor([2.0**-27, 0.0])
+    assert tflash.mma_products(q, k).item() == 1.0
+    # two steps: the first step's 1.0 is an addend of the second
+    q2, k2 = torch.zeros(1, 1, 32), torch.zeros(1, 1, 32)
+    q2[0, 0, 0], q2[0, 0, 16], q2[0, 0, 17] = 1.0, 2.0**-24, 2.0**-25
+    k2[0, 0, [0, 16, 17]] = 1.0
+    assert tflash.mma_products(q2, k2).item() == 1.0
+    gen = torch.Generator().manual_seed(5)
+    a = torch.randn(3, 40, 72, generator=gen).bfloat16().float()
+    b = torch.randn(3, 24, 72, generator=gen).bfloat16().float()
+    got = tflash.mma_products(a, b)
+    exact = torch.matmul(a.double(), b.double().transpose(-1, -2))
+    ulp = torch.finfo(torch.float32).eps * exact.abs().amax()
+    assert got.dtype == torch.float32 and got.shape == (3, 40, 24)
+    assert (got.double() - exact).abs().max() <= 8 * ulp
+    assert not torch.equal(got, torch.matmul(a, b.transpose(-1, -2)))

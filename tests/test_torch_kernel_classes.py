@@ -1,0 +1,323 @@
+"""Every shape the JAX kernels' gates admit runs a kernel in the port.
+
+The port's kernels are built per head-dim class (16, 32, 64, 128) and, for
+the time and tiny-L kernels, per row class (16, 32), padded where a shape is
+not its class (``CLASS_SOURCES``). Here, on the CPU:
+
+* each gate enumerated over a grid (head dims 8 to 128 in steps of 8 for the
+  one-pass, fused and tiny-L kernels, 64 and 128 for tiny-L; every head dim
+  dividing 128 for space and time; F and L in {8, 16, 24, 32}; N from 256 to
+  2048 in steps of 128 for space): with stub libraries (``torch_stubs.py``)
+  the wrapper launches exactly once wherever the gate opens, forward and
+  backward, bf16 and float32, and never raises ``NotImplementedError``;
+  the one exception, the fused gate past head dim 128, still raises;
+* the classes' launchers switch on the classes the wrappers name;
+* the UNet launches ``chip_smoke.py``'s variants phase predicts
+  (``VARIANT_UNET_PER_CALL``: clips of 32 frames, 192 channels), against
+  the JAX gates;
+* each plain version against the JAX Pallas kernel in interpret mode at
+  one new shape per family (time at 8 and 32 frames, tiny-L at 8 and 24
+  rows of head dim 128, one-pass at head dims 24 and 128, space at head
+  dims 32 and 128) and the plain backward against ``jax.vjp`` (time at 8
+  frames, space at head dim 32), within 1e-5 of the largest value (float32,
+  DESIGN.md §6's kernels' tolerance).
+
+The kernels themselves are held against these plain versions on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+"""
+
+import dataclasses
+import importlib.util
+import pathlib
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from moditalker_tpu.ops import rotary as jrot
+from moditalker_tpu.ops.pallas import divided_attention as jdiv
+from moditalker_tpu.ops.pallas import flash_attention as jflash
+from moditalker_tpu_torch import config as tcfg
+from moditalker_tpu_torch.models.mtov import TriplaneUNet
+from moditalker_tpu_torch.ops import attention
+from moditalker_tpu_torch.ops import kernels as tkernels
+from moditalker_tpu_torch.ops.kernels import _build
+from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
+from moditalker_tpu_torch.ops.kernels import divided_backward as tbwd
+from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
+
+from .test_torch_shipped_configs import (_attention_shapes, _jax_launches,
+                                         _launches)
+from .torch_stubs import stub_launches  # noqa: F401 (fixture)
+from .torch_threads import one_torch_thread  # noqa: F401 (autouse)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+EXACT = 1e-5   # float32 plain version vs the Pallas kernel / jax.vjp
+DTYPES = (torch.bfloat16, torch.float32)
+HEAD_DIVISORS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, np.float32))
+
+
+def _close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=EXACT * np.abs(want).max())
+
+
+# ------------------------------------------------------------ gate grids
+def _divided_launch(axis, f, n, dh, dtype):
+    """The forward and the backward of ``divided_attention`` at one shape
+    (qkv of 128 lanes of heads), on the stub libraries."""
+    heads = max(1, 128 // dh)
+    seq = n if axis == "space" else f
+    sin = cos = torch.zeros(seq, dh)
+    x = torch.zeros(1, f, n, 3 * heads * dh, dtype=dtype).requires_grad_()
+    out = tdiv.divided_attention(x, sin, cos, axis, heads, dh, dh**-0.5)
+    torch.autograd.grad(out, x, torch.zeros(out.shape, dtype=dtype))
+
+
+def _divided_grid(axis):
+    if axis == "time":
+        return [(f, 8, dh) for f in (8, 16, 24, 32) for dh in HEAD_DIVISORS]
+    return [(1, n, dh) for n in range(256, 2049, 128) for dh in HEAD_DIVISORS]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("axis", ["space", "time"])
+def test_divided_gate_grid_launches_everywhere_it_opens(stub_launches, axis,
+                                                        dtype):
+    """Over the grid, every shape the divided gate admits launches the
+    forward kernel once and the backward kernel once; a head dim of 1 (the
+    gate admits it, but it has no rotary pair) raises ValueError in the
+    port as the JAX package's rotary raises there, never
+    NotImplementedError."""
+    name = f"divided_{axis}_attention"
+    opened = 0
+    for f, n, dh in _divided_grid(axis):
+        heads = max(1, 128 // dh)
+        assert tdiv.divided_attention_viable(axis, f, n, heads, dh, dh) \
+            == jdiv.divided_attention_viable(axis, f, n, heads, dh, dh)
+        if not tdiv.divided_attention_viable(axis, f, n, heads, dh, dh):
+            continue
+        opened += 1
+        before = (tkernels.LAUNCHES[name],
+                  tkernels.LAUNCHES[name + "_backward"])
+        if dh == 1:
+            with pytest.raises(IndexError):
+                jrot._rot_matrix(1)   # the JAX kernel's rotary, at dh = 1
+            with pytest.raises(ValueError, match="rotary pairs"):
+                _divided_launch(axis, f, n, dh, dtype)
+            continue
+        _divided_launch(axis, f, n, dh, dtype)
+        assert (tkernels.LAUNCHES[name],
+                tkernels.LAUNCHES[name + "_backward"]) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert opened == len(_divided_grid(axis))   # the grid is inside the gate
+    f32 = dict(tkernels.FLOAT32_LAUNCHES_BY_SHAPE[name])
+    assert (sum(f32.values()) == tkernels.LAUNCHES[name]) == (
+        dtype == torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sdpa_gate_grid_launches_everywhere_it_opens(stub_launches, dtype):
+    """``sdpa`` over head dims 8 to 128 in steps of 8 at the one-pass gate's
+    lengths, and over the tiny-L gate's rows and head dims: every shape a
+    gate admits launches its kernel once (meta tensors: nothing is
+    allocated)."""
+    count = lambda: dict(tkernels.LAUNCHES)
+    for d in range(8, 129, 8):
+        for n in (1024, 1280, 2048):
+            admitted = tflash.onepass_attention_viable(n, n, d)
+            assert admitted == jflash.onepass_attention_viable(n, n, d)
+            assert admitted == (n % 256 == 0)
+            q = torch.empty(2, 1, n, d, dtype=dtype, device="meta")
+            before = count()
+            attention.sdpa(q, q, q, scale=d**-0.5)
+            want = before["onepass_attention"] + admitted
+            assert count()["onepass_attention"] == want, (n, d)
+    for l in (8, 16, 24, 32):
+        for d in (64, 128):
+            assert tflash.tiny_attention_viable(4096, l, l, d)
+            assert jflash.tiny_attention_viable(4096, l, l, d)
+            q = torch.empty(4096, l, d, dtype=dtype, device="meta")
+            before = count()
+            attention.sdpa(q, q, q, scale=d**-0.5)
+            assert count()["tiny_attention"] == before["tiny_attention"] + 1
+    assert not tflash.tiny_attention_viable(4096, 16, 16, 32)
+    assert tkernels.LAUNCHES["fused_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_gate_grid_launches_everywhere_it_opens(stub_launches, dtype):
+    """``sdpa_fused`` from 256 keys up (the fused gate: Nk a multiple of 128,
+    d % 8 == 0) and ``fused_attention`` below 128 keys (Nk % 8 == 0) over
+    head dims 8 to 128: one launch each; past 128 the gate still opens and
+    the wrapper raises NotImplementedError (no kernel is built for heads
+    that wide)."""
+    for d in range(8, 129, 8):
+        for nq, nk in ((100, 256), (64, 2048), (1000, 384)):
+            q = torch.empty(2, nq, d, dtype=dtype, device="meta")
+            k = torch.empty(2, nk, d, dtype=dtype, device="meta")
+            assert attention.sdpa_fused_route(2, nq, nk, d) == "fused"
+            before = tkernels.LAUNCHES["fused_attention"]
+            attention.sdpa_fused(q, k, k, d**-0.5)
+            assert tkernels.LAUNCHES["fused_attention"] == before + 1
+        for nk in (8, 64, 120):
+            assert tflash.fused_attention_tiles(nk, d)
+            q = torch.empty(2, 33, d, dtype=dtype, device="meta")
+            k = torch.empty(2, nk, d, dtype=dtype, device="meta")
+            before = tkernels.LAUNCHES["fused_attention"]
+            tflash.fused_attention(q, k, k, d**-0.5)
+            assert tkernels.LAUNCHES["fused_attention"] == before + 1
+    q = torch.empty(2, 64, 136, dtype=dtype, device="meta")
+    k = torch.empty(2, 256, 136, dtype=dtype, device="meta")
+    assert attention.sdpa_fused_route(2, 64, 256, 136) == "fused"
+    with pytest.raises(NotImplementedError, match="up to 128"):
+        attention.sdpa_fused(q, k, k, 136**-0.5)
+
+
+# ------------------------------------------------------------ the sources
+def _case_labels(source: str, function: str) -> tuple[int, ...]:
+    text = (_build.CSRC / source).read_text()
+    body = text[re.search(rf"(int|cudaError_t) {function}\(", text).start():]
+    body = body[:body.index("\n}\n")]
+    return tuple(int(n) for n in re.findall(r"case (\d+):", body))
+
+
+def test_class_launchers_switch_on_the_named_classes():
+    """The classes' launchers switch on the head-dim classes the wrappers
+    name; the space backward's class 64 is the configurations' library."""
+    classes = tflash.HEAD_DIM_CLASSES
+    assert classes == (16, 32, 64, 128)
+    assert _case_labels("divided_attention.cuh", "launch_time_classes") \
+        == classes
+    assert _case_labels("divided_attention.cuh", "launch_space_classes") \
+        == classes
+    assert _case_labels("divided_backward.cuh",
+                        "launch_time_backward_classes") == classes
+    assert _case_labels("divided_backward.cuh",
+                        "launch_space_backward_classes") == tuple(
+        c for c in classes if c not in tdiv.SPACE_BACKWARD_HEAD_DIMS)
+    tile = (_build.CSRC / "tiny_attention.cuh").read_text()
+    assert "launch_tiny<16, D, T, true>" in tile   # L = 8
+    assert "launch_tiny<32, D, T, true>" in tile   # L = 24
+
+
+# ------------------------------------------------------------ vs Pallas
+def _divided_inputs(axis, f, n, dh, seed=11):
+    heads = max(1, 128 // dh)
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(1, f, n, 3 * heads * dh)).astype(np.float32)
+    if axis == "space":
+        sin, cos = jrot.axial_rotary_sincos(16, n // 16, dh)
+    else:
+        sin, cos = jrot.time_rotary_sincos(f, dh)
+    return qkv, sin, cos, heads
+
+
+@pytest.mark.parametrize("axis,f,n,dh", [("time", 8, 16, 64),
+                                         ("time", 32, 8, 64),
+                                         ("space", 1, 256, 32),
+                                         ("space", 1, 256, 128)])
+def test_divided_class_plain_matches_pallas_interpret(axis, f, n, dh):
+    qkv, sin, cos, heads = _divided_inputs(axis, f, n, dh)
+    assert tdiv.divided_attention_viable(axis, f, n, heads, dh, dh)
+    want = jdiv.divided_attention(jnp.asarray(qkv), sin, cos, axis, heads,
+                                  dh, dh**-0.5, interpret=True)
+    got = tdiv.divided_attention(_t(qkv), _t(sin), _t(cos), axis, heads, dh,
+                                 dh**-0.5)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("l", [8, 24])
+def test_tiny_class_plain_matches_pallas_interpret(l):
+    """Tiny-L at 8 and 24 rows of head dim 128 (folded batch cut to 256)."""
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.normal(size=(256, l, 128)).astype(np.float32)
+               for _ in range(3))
+    want = jflash.tiny_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), 128**-0.5, interpret=True)
+    got = tflash.tiny_attention(_t(q), _t(k), _t(v), 128**-0.5)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("d", [24, 128])
+def test_onepass_class_plain_matches_pallas_interpret(d):
+    """One-pass at head dim 24 (the UNet at 192 model channels) and 128
+    (8 heads at 1024 channels, or 2 at 256)."""
+    rng = np.random.default_rng(6)
+    q, k, v = (rng.normal(size=(2, 1024, d)).astype(np.float32)
+               for _ in range(3))
+    assert tflash.onepass_attention_viable(1024, 1024, d)
+    assert d not in tflash.HEAD_DIMS
+    want = jflash.onepass_attention(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), d**-0.5, interpret=True)
+    got = tflash.onepass_attention(_t(q), _t(k), _t(v), d**-0.5)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("axis,f,n,dh", [("time", 8, 8, 64),
+                                         ("space", 1, 256, 32)])
+def test_divided_class_backward_matches_jax_vjp(axis, f, n, dh):
+    """The written-out adjoints (the plain backward the kernels are held
+    to) at a new class of each axis, against ``jax.vjp`` of the JAX
+    reference."""
+    qkv, sin, cos, heads = _divided_inputs(axis, f, n, dh, seed=12)
+    g = np.random.default_rng(13).normal(
+        size=(1, f, n, heads * dh)).astype(np.float32)
+    out, vjp = jax.vjp(lambda t: jdiv.divided_attention_reference(
+        t, sin, cos, axis, heads, dh, dh**-0.5, use_flash=False),
+        jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(g))
+    got = tbwd.divided_attention_backward_reference(
+        _t(qkv), _t(np.asarray(out)), _t(g), _t(sin), _t(cos), axis, heads,
+        dh, dh**-0.5)
+    _close(got.numpy(), want)
+
+
+# ------------------------------------------------------------ the variants
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("variant,path", [("clip32", "fused"),
+                                          ("clip32", "modular"),
+                                          ("channels192", "fused")])
+def test_variant_unet_launches_follow_the_jax_gates(stub_launches,
+                                                    monkeypatch, tmp_path,
+                                                    variant, path):
+    """The variants phase's configurations (a shipped YAML with one key
+    changed, read by ``load_config`` as ``sample`` reads it): the UNet at
+    batch 2 on the meta device launches exactly what the JAX gates send its
+    attention blocks, and what ``VARIANT_UNET_PER_CALL`` holds for the card
+    run to be checked against."""
+    smoke = _chip_smoke()
+    monkeypatch.chdir(REPO)
+    if path == "modular":
+        for name in smoke.SWITCHES:
+            monkeypatch.setenv(name, "1")
+    cfg = tcfg.load_config(smoke.variant_yaml(variant, str(tmp_path)))
+    ae = cfg.mtov_ae
+    unet_cfg = dataclasses.replace(cfg.mtov_unet, latent_res=ae.latent_res,
+                                   latent_t=ae.timesteps // ae.splits)
+    length = ae.latent_res**2 + 2 * unet_cfg.latent_t * ae.latent_res
+    with torch.device("meta"):
+        unet = TriplaneUNet(unet_cfg, torch.bfloat16)
+        shapes = _attention_shapes(unet)
+        unet(torch.empty(2, 4, length),
+             torch.empty(2, 8, length, dtype=torch.bfloat16),
+             torch.empty(2, 4, length, dtype=torch.bfloat16),
+             torch.zeros(2, dtype=torch.long))
+    want = smoke.VARIANT_UNET_PER_CALL[variant, path]
+    assert _launches() == _jax_launches(shapes, unet_cfg.num_heads) == want

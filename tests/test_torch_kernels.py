@@ -27,6 +27,8 @@ from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
 from moditalker_tpu_torch.ops.kernels import packed_attention as tpack
 
+from .torch_stubs import stub_launches  # noqa: F401 (fixture)
+
 
 def _t(a):
     return torch.from_numpy(np.asarray(a, np.float32))
@@ -130,16 +132,18 @@ def test_onepass_plain_matches_pallas_interpret(d):
 def _case_labels(source: str, function: str) -> tuple[int, ...]:
     """The ``case N:`` labels inside ``function`` of a file under csrc/."""
     text = (_build.CSRC / source).read_text()
-    body = text[text.index(f"int {function}("):]
+    body = text[re.search(rf"(int|cudaError_t) {function}\(", text).start():]
     body = body[:body.index("\n}\n")]
     return tuple(int(n) for n in re.findall(r"case (\d+):", body))
 
 
 def test_built_head_dims_match_the_sources():
-    """The head dims a wrapper lets through are the instantiations its
-    sources' ``switch`` holds, bf16 and float32 alike, no more and no
-    fewer. The one-pass wrapper launches the fused kernel at Nq = Nk, so
-    both share its list."""
+    """The head dims a wrapper sends to the configurations' library are the
+    instantiations its sources' ``switch`` holds, bf16 and float32 alike, no
+    more and no fewer; every other head dim the gates admit goes to the
+    classes' library, whose launchers switch on the head-dim classes. The
+    one-pass wrapper launches the fused kernel at Nq = Nk, so both share its
+    lists."""
     for suffix in ("", "_f32"):
         assert _case_labels(f"flash_attention{suffix}.cu",
                             f"fused_attention{suffix}") \
@@ -147,6 +151,12 @@ def test_built_head_dims_match_the_sources():
         assert _case_labels(f"packed_attention{suffix}.cu",
                             f"packed_attention{suffix}") \
             == tpack.PACKED_HEAD_DIMS == (16,)
+        assert _case_labels(f"flash_classes{suffix}.cu",
+                            f"tiny_attention_classes{suffix}") \
+            == tflash.TINY_HEAD_DIMS == (64, 128)
+    assert _case_labels("smallhead_tile.cuh", "launch_fused_classes") \
+        == tflash.HEAD_DIM_CLASSES == (16, 32, 64, 128)
+    assert max(tflash.HEAD_DIM_CLASSES) == tflash.MAX_HEAD_DIM
 
 
 @pytest.mark.parametrize("source", sorted(
@@ -292,16 +302,32 @@ def test_space_kernel_rejects_rows_that_do_not_tile(n):
         tdiv.space_attention_cuda(qkv, tab, tab, 2, 64, 0.125)
 
 
-def test_divided_kernels_reject_unbuilt_shapes():
-    """Head dims and frame counts the library is not built for raise rather
-    than run another route."""
+def test_divided_kernels_reject_unbuilt_shapes(stub_launches):
+    """What lies outside the gate has no kernel and raises before anything
+    launches: a head dim that does not divide 128 (or of 1, which has no
+    rotary pair), 40 frames, a frame count off the 8-frame tiling. Inside
+    it, head dim 32 and 8-frame clips (once refused here) launch the
+    classes' entry point (the libraries are stubs)."""
+    for dh in (48, 1):
+        tab = torch.zeros(256, dh)
+        with pytest.raises(ValueError, match="head dims dividing 128"):
+            tdiv.space_attention_cuda(
+                torch.zeros(1, 256, 3 * 4 * dh, dtype=torch.bfloat16), tab,
+                tab, 4, dh, 0.125)
+    for f in (40, 12):
+        tab = torch.zeros(f, 64)
+        with pytest.raises(ValueError, match="frames"):
+            tdiv.time_attention_cuda(
+                torch.zeros(1, f, 8, 3 * 2 * 64, dtype=torch.bfloat16), tab,
+                tab, 2, 64, 0.125)
+    assert stub_launches == []
     tab = torch.zeros(256, 32)
-    with pytest.raises(NotImplementedError, match="head dims"):
-        tdiv.space_attention_cuda(
-            torch.zeros(1, 256, 3 * 4 * 32, dtype=torch.bfloat16), tab, tab,
-            4, 32, 0.125)
+    tdiv.space_attention_cuda(
+        torch.zeros(1, 256, 3 * 4 * 32, dtype=torch.bfloat16), tab, tab, 4,
+        32, 0.125)
     tab = torch.zeros(8, 64)
-    with pytest.raises(NotImplementedError, match="frames"):
-        tdiv.time_attention_cuda(
-            torch.zeros(1, 8, 8, 3 * 2 * 64, dtype=torch.bfloat16), tab, tab,
-            2, 64, 0.125)
+    tdiv.time_attention_cuda(
+        torch.zeros(1, 8, 8, 3 * 2 * 64, dtype=torch.bfloat16), tab, tab, 2,
+        64, 0.125)
+    assert stub_launches == ["divided_space_attention_classes",
+                             "divided_time_attention_classes"]

@@ -38,10 +38,13 @@ def stub_launches(monkeypatch):
     monkeypatch.setattr(tkernels, "on_card", lambda t: True)
     monkeypatch.setattr(tkernels, "cuda_stream", lambda t: 0)
     for mod, names in ((tdiv, ("_lib", "_lib_f32", "_bwd_lib",
-                               "_bwd_lib_f32")),
+                               "_bwd_lib_f32", "_classes_lib",
+                               "_classes_lib_f32", "_bwd_classes_lib",
+                               "_bwd_classes_lib_f32")),
                        (tpack, ("_lib", "_lib_f32")),
                        (tflash, ("_lib", "_lib_f32", "_tiny_lib",
-                                 "_tiny_lib_f32"))):
+                                 "_tiny_lib_f32", "_classes_lib",
+                                 "_classes_lib_f32"))):
         for lib in names:
             monkeypatch.setattr(mod, lib, lambda: StubLib(calls))
     tkernels.reset_launch_counts()

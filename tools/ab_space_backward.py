@@ -2,11 +2,11 @@
 
 The space backward (csrc/divided_backward.cuh) runs a dq kernel and a dk/dv
 kernel whose blocks own 16 rows a warp and walk the other operand in tiles
-of kBwTile rows, each tile staged from float32 through registers with its
-loads in flight across the block barrier. This times the float32 and bf16
-backward at train-first-stage's qkv [1, 16, 1024, 1536] for the built shape
-and for variants of it, each built from a copy of the package under
-build/ab_space_backward/:
+of ``SpaceBwd<DH>::tile`` rows, each tile staged from float32 through
+registers with its loads in flight across the block barrier. This times
+the float32 and bf16 backward at train-first-stage's qkv [1, 16, 1024,
+1536] for the built shape and for variants of it, each built from a copy
+of the package under build/ab_space_backward/:
 
   w8-t128   eight warps (128 rows a block), 128-row tiles: as built;
   w8-t64    eight warps, 64-row tiles;
@@ -28,15 +28,16 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 HEADER = "moditalker_tpu_torch/csrc/divided_backward.cuh"
-WARPS = "constexpr int kBwWarps = 8;"
-TILE = "constexpr int kBwTile = 128;"
+# the shape of the head-dim class 64 (SpaceBwd<DH>)
+WARPS = "static constexpr int warps = DH == 128 ? 4 : 8;"
+TILE = "static constexpr int tile = DH == 128 ? 32 : 128;"
 VARIANTS = {
     "w8-t128": [],
-    "w8-t64": [(TILE, TILE.replace("128", "64"))],
-    "w4-t64": [(WARPS, WARPS.replace("8", "4")),
-               (TILE, TILE.replace("128", "64"))],
-    "w4-t32": [(WARPS, WARPS.replace("8", "4")),
-               (TILE, TILE.replace("128", "32"))],
+    "w8-t64": [(TILE, TILE.replace(": 128;", ": 64;"))],
+    "w4-t64": [(WARPS, WARPS.replace(": 8;", ": 4;")),
+               (TILE, TILE.replace(": 128;", ": 64;"))],
+    "w4-t32": [(WARPS, WARPS.replace(": 8;", ": 4;")),
+               (TILE, TILE.replace(": 128;", ": 32;"))],
 }
 
 TIME = """

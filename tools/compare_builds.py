@@ -1,20 +1,25 @@
-"""Compare the bf16 kernels of this checkout with another copy of the repo.
+"""Compare the kernels of this checkout with another copy of the repo.
 
 A change that adds a route to a shared tile (the float32 route of the space
-and time kernels, for one) must leave the bf16 kernels as they were. Two
-checks, on a CUDA host, against a copy unpacked from the parent commit
-(``git archive <parent> | tar -x -C build/parent``):
+and time kernels, for one) must leave the configurations' kernels as they
+were. Three checks, on a CUDA host, against a copy unpacked from the parent
+commit (``git archive <parent> | tar -x -C build/parent``):
 
 1. PTX: every kernel function of each source, bf16 and float32 (the
    ``_f32`` translation units), compiled with ``nvcc -ptx`` in both copies,
    compared after register numbers and labels are normalised;
    prints the count of differing lines per function (template arguments
    matched by the kernels' int and bool parameters).
-2. Outputs: the bf16 space (resident K, K ring, N = 256), time, packed,
+2. Outputs: the space (resident K, K ring, N = 256), time, packed,
    one-pass (D = 16, 32 and 64), fused (D = 16 and 32 across lengths, D = 64
-   with a ragged Nq over a short key tile) and tiny-L kernels on the same
-   seeded inputs in both copies, each in a process of its own; prints
-   whether each output is equal bit for bit.
+   with a ragged Nq over a short key tile) and tiny-L kernels, and the space
+   and time backward kernels, on the same seeded inputs in both copies,
+   bf16 and float32, each type in a process of its own; prints whether each
+   output is equal bit for bit (or that a copy raises at that shape).
+3. Times: the same calls timed in each process (``chip_smoke.time_ms``: a
+   CUDA graph of 20 calls, the median of 5 replays), the copies in turns
+   (other, this, this, other); prints both pairs and the ratio of the
+   faster reading of each copy.
 
     python3 tools/compare_builds.py build/parent      # from the repo root
 """
@@ -31,7 +36,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 SOURCES = tuple(f"{name}{suffix}" for suffix in ("", "_f32")
                 for name in ("divided_attention", "flash_attention",
-                             "tiny_attention", "packed_attention"))
+                             "tiny_attention", "packed_attention",
+                             "divided_backward"))
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-ptx"]
 
@@ -39,13 +45,31 @@ OUTPUTS = """
 import sys
 import torch
 sys.path.insert(0, ".")
+import chip_smoke
 from moditalker_tpu_torch.ops import rotary
 from moditalker_tpu_torch.ops.kernels import divided_attention as dv
 from moditalker_tpu_torch.ops.kernels import flash_attention as fa
 from moditalker_tpu_torch.ops.kernels import packed_attention as pk
+torch.set_grad_enabled(False)
+dtype = torch.float32 if sys.argv[2] == "float32" else torch.bfloat16
 g = torch.Generator(device="cuda").manual_seed(11)
-rnd = lambda *s: torch.randn(s, generator=g, device="cuda").bfloat16()
-out = {}
+rnd = lambda *s: torch.randn(s, generator=g, device="cuda").to(dtype)
+out, ms = {}, {}
+
+
+class Put(dict):
+    # put[name] = fn runs, keeps and times the call (None where this copy
+    # raises NotImplementedError at the shape)
+    def __setitem__(self, name, fn):
+        try:
+            out[name] = fn()
+        except NotImplementedError:
+            out[name] = None
+            return
+        ms[name] = chip_smoke.time_ms(torch, fn)
+
+
+put = Put()
 for axis, b, f, n in (("space", 2, 16, 1024), ("space", 1, 2, 2048),
                       ("space", 2, 2, 256), ("time", 2, 16, 1024),
                       ("time", 1, 16, 64)):
@@ -55,26 +79,44 @@ for axis, b, f, n in (("space", 2, 16, 1024), ("space", 1, 2, 2048),
     sin, cos = (torch.from_numpy(t).cuda() for t in tabs)
     heads = 8 if n >= 1024 else 2
     x = rnd(b, f, n, 3 * heads * 64)
-    out[f"{axis} {[b, f, n]}"] = dv.divided_attention(x, sin, cos, axis,
-                                                      heads, 64, 0.125)
-out["one-pass [256, 1024, 64]"] = fa.onepass_attention(
-    rnd(256, 1024, 64), rnd(256, 1024, 64), rnd(256, 1024, 64), 0.125)
-out["one-pass [4, 1280, 64]"] = fa.onepass_attention(
-    rnd(4, 1280, 64), rnd(4, 1280, 64), rnd(4, 1280, 64), 0.125)
-out["fused q [16, 1000, 64] k [16, 120, 64]"] = fa.fused_attention(
-    rnd(16, 1000, 64), rnd(16, 120, 64), rnd(16, 120, 64), 0.125)
-out["tiny-L [16384, 16, 64]"] = fa.tiny_attention(
-    rnd(16384, 16, 64), rnd(16384, 16, 64), rnd(16384, 16, 64), 0.125)
+    put[f"{axis} {[b, f, n]}"] = lambda x=x, sin=sin, cos=cos, axis=axis, \
+        heads=heads: dv.divided_attention(x, sin, cos, axis, heads, 64, 0.125)
+for b, n in ((256, 1024), (4, 1280)):
+    t = [rnd(b, n, 64) for _ in range(3)]
+    put[f"one-pass [{b}, {n}, 64]"] = lambda t=t: fa.onepass_attention(*t,
+                                                                      0.125)
+t = [rnd(16, 1000, 64), rnd(16, 120, 64), rnd(16, 120, 64)]
+put["fused q [16, 1000, 64] k [16, 120, 64]"] = lambda t=t: fa.fused_attention(
+    *t, 0.125)
+t = [rnd(16384, 16, 64) for _ in range(3)]
+put["tiny-L [16384, 16, 64]"] = lambda t=t: fa.tiny_attention(*t, 0.125)
 for b, l in ((2, 2048), (2, 1024), (1, 1032)):
-    out[f"packed [{b}, {l}, 384]"] = pk.packed_attention(rnd(b, l, 384), 8,
-                                                         0.25)
+    t = rnd(b, l, 384)
+    put[f"packed [{b}, {l}, 384]"] = lambda t=t: pk.packed_attention(t, 8,
+                                                                     0.25)
 for b, n, d in ((16, 2048, 32), (16, 2048, 16), (8, 1024, 16)):
-    out[f"one-pass [{b}, {n}, {d}]"] = fa.onepass_attention(
-        rnd(b, n, d), rnd(b, n, d), rnd(b, n, d), d**-0.5)
+    t = [rnd(b, n, d) for _ in range(3)]
+    put[f"one-pass [{b}, {n}, {d}]"] = lambda t=t, d=d: fa.onepass_attention(
+        *t, d**-0.5)
 for b, nq, nk, d in ((3, 300, 8, 16), (3, 200, 640, 32)):
-    out[f"fused q [{b}, {nq}, {d}] k [{b}, {nk}, {d}]"] = fa.fused_attention(
-        rnd(b, nq, d), rnd(b, nk, d), rnd(b, nk, d))
-torch.save({k: t.cpu() for k, t in out.items()}, sys.argv[1])
+    t = [rnd(b, nq, d), rnd(b, nk, d), rnd(b, nk, d)]
+    put[f"fused q [{b}, {nq}, {d}] k [{b}, {nk}, {d}]"] = \
+        lambda t=t: fa.fused_attention(*t)
+# the backward kernels at train-first-stage's qkv
+x = rnd(1, 16, 1024, 1536)
+g_ = rnd(1, 16, 1024, 512)
+ssin, scos = (torch.from_numpy(t).cuda()
+              for t in rotary.axial_rotary_sincos(32, 32, 64))
+tsin, tcos = (torch.from_numpy(t).cuda()
+              for t in rotary.time_rotary_sincos(16, 64))
+flat = lambda t: t.reshape(16, 1024, -1)
+out_s = dv.space_attention_cuda(flat(x), ssin, scos, 8, 64, 0.125)
+put["space backward [1, 16, 1024]"] = lambda: dv.space_attention_backward_cuda(
+    flat(x), out_s, flat(g_), ssin, scos, 8, 64, 0.125)
+put["time backward [1, 16, 1024]"] = lambda: dv.time_attention_backward_cuda(
+    x, g_, tsin, tcos, 8, 64, 0.125)
+torch.save({"out": {k: None if t is None else t.cpu()
+                    for k, t in out.items()}, "ms": ms}, sys.argv[1])
 """
 
 
@@ -123,17 +165,26 @@ def main() -> int:
                     theirs[key], ours, lineterm="", n=0)
                     if line[:1] in "+-" and line[:3] not in ("+++", "---")]
                 print(f"ptx {source}: {key}: {len(diff)} differing lines")
-        saved = []
-        for copy in (other, ROOT):
-            path = tmp / f"{len(saved)}.pt"
-            subprocess.run([sys.executable, "-c", OUTPUTS, str(path)],
-                           cwd=copy, check=True, timeout=600)
-            saved.append(torch.load(path))
-        for name, theirs in saved[0].items():
-            ours = saved[1][name]
-            same = torch.equal(theirs, ours)
-            print(f"bf16 {name}: " + ("equal bit for bit" if same else
-                  f"{(theirs != ours).sum().item()} elements differ"))
+        for dtype in ("bfloat16", "float32"):
+            saved = []
+            for copy in (other, ROOT, ROOT, other):
+                path = tmp / f"{dtype}-{len(saved)}.pt"
+                subprocess.run([sys.executable, "-c", OUTPUTS, str(path),
+                                dtype], cwd=copy, check=True, timeout=600)
+                saved.append(torch.load(path))
+            for name, theirs in saved[0]["out"].items():
+                ours = saved[1]["out"][name]
+                if theirs is None or ours is None:
+                    print(f"{dtype} {name}: raises in "
+                          f"{'the other copy' if theirs is None else 'this'}")
+                    continue
+                same = torch.equal(theirs, ours)
+                print(f"{dtype} {name}: " + ("equal bit for bit" if same else
+                      f"{(theirs != ours).sum().item()} elements differ"))
+                before = [saved[i]["ms"][name] for i in (0, 3)]
+                after = [saved[i]["ms"][name] for i in (1, 2)]
+                print(f"  ms other {before} this {after} this/other "
+                      f"{min(after) / min(before):.4f}")
     return 0
 
 

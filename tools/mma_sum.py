@@ -1,0 +1,129 @@
+"""How the tensor cores sum the kernels' scores, read off the kernels on one
+card.
+
+The float32 route rounds p to bf16 for P·V, so a score that differs from
+the kernel's by one fp32 ulp now and then moves a p across its rounding
+boundary and the whole output row with it: at a few thousand output rows
+one such row decides the 0.999 quantile of ``FLOAT32_ROUTE_LIMITS``. This
+runs the tiny-L and the one-pass/fused kernels (float32) on seeded inputs
+and compares each with the route's function computed from scores summed
+six ways: a float32 ``matmul`` (cuBLAS), the exact sum rounded once, and
+the tensor-core model of ``flash_attention.mma_products`` (per step of
+``block`` products plus the accumulator, aligned to the largest, cut to
+``bits`` bits, the sum rounded toward zero) at (16, 24..27) and (8, 26).
+Prints, per case and variant, the output rows that differ from the
+kernel's by more than 2e-6 of the output's peak and, of those, the rows
+that hold a p (as the exact sum gives it) within 2e-6 of a bf16 rounding
+midpoint, and the three measures of ``relative_errors``.
+
+    python3 tools/mma_sum.py [--seeds 3]     # repository root, on a card
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+L2E = 1.4426950408889634
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--seeds", type=int, default=3)
+    args = ap.parse_args()
+    import torch
+
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+    from moditalker_tpu_torch.ops.kernels import relative_errors
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    def model(q, k, block, bits):
+        q, k = q.double(), k.double()
+        acc = torch.zeros(q.shape[:-1] + (k.shape[-2],), dtype=torch.float64,
+                          device=q.device)
+        for c in range(0, q.shape[-1], block):
+            terms = torch.cat([acc[..., None], q[..., :, None, c:c + block]
+                               * k[..., None, :, c:c + block]], dim=-1)
+            _, e = torch.frexp(terms.abs().amax(dim=-1, keepdim=True))
+            ulp = torch.ldexp(torch.ones_like(terms[..., :1]), e - bits)
+            acc = fa._round_to_zero32((torch.trunc(terms / ulp) * ulp).sum(-1))
+        return acc.float()
+
+    variants = {
+        "float32 matmul": lambda q, k: torch.matmul(q, k.transpose(-1, -2)),
+        "exact": lambda q, k: torch.matmul(q.double(),
+                                           k.double().transpose(-1, -2)).float(),
+        **{f"block 16, {b} bits": (lambda q, k, b=b: model(q, k, 16, b))
+           for b in (24, 25, 26, 27)},
+        "block 8, 26 bits": lambda q, k: model(q, k, 8, 26)}
+
+    def route(s, v, ex2):
+        # attention_float32_route from the scores on: the kernels' online
+        # softmax over 128-key tiles; ex2: p = 2^(s·log2e − m·log2e), the
+        # small-head tile's form (tiny-L takes expf)
+        v = v.float().bfloat16().float()
+        m = torch.full(s.shape[:-1] + (1,), -torch.inf, device=s.device)
+        rs = torch.zeros_like(m)
+        out = torch.zeros(s.shape[:-1] + v.shape[-1:], device=s.device)
+        near = torch.zeros(s.shape[:-1], dtype=torch.bool, device=s.device)
+        for j in range(0, s.shape[-1], 128):
+            sj = s[..., j:j + 128]
+            mn = torch.maximum(m, sj.amax(-1, keepdim=True))
+            if ex2:
+                a = torch.exp2((m - mn) * L2E)
+                p = torch.exp2((sj.double() * L2E - (mn * L2E).double()).float())
+            else:
+                a, p = torch.exp(m - mn), torch.exp(sj - mn)
+            rs = rs * a + p.sum(-1, keepdim=True)
+            out = out * a + torch.matmul(p.bfloat16().float(),
+                                         v[..., j:j + 128, :])
+            m = mn
+            # p within 2e-6 of the midpoint between two bf16 neighbours
+            mid = ((p.contiguous().view(torch.int32) & ~0xFFFF) | 0x8000
+                   ).view(torch.float32)
+            near |= ((p - mid).abs() <= 2e-6 * p).any(-1)
+        return out / rs, near
+
+    def case(tag, got, q, k, v, scale, ex2):
+        qs = (q * scale).bfloat16().float()
+        kb = k.bfloat16().float()
+        print(tag, flush=True)
+        _, near = route(variants["exact"](qs, kb), v, ex2)
+        for name, scores in variants.items():
+            r, _ = route(scores(qs, kb), v, ex2)
+            off = (got - r).abs().amax(-1) > 2e-6 * r.abs().max()
+            print("   %-18s rows off %5d (near a midpoint %5d)  max %.3e "
+                  "rms %.3e quantile %.3e"
+                  % (name, off.sum().item(), (off & near).sum().item(),
+                     *relative_errors(got, r)), flush=True)
+
+    for seed in range(args.seeds):
+        for b, l, d in ((130, 32, 128), (4224, 24, 128), (4096, 32, 64),
+                        (4096, 16, 64)):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            q, k, v = (torch.randn(b, l, d, generator=g, device="cuda")
+                       for _ in range(3))
+            case(f"tiny-L {[b, l, d]} float32, seed {seed}",
+                 fa.tiny_attention(q, k, v, d**-0.5), q, k, v, d**-0.5, False)
+        for b, nq, nk, d in ((3, 64, 64, 120), (3, 64, 64, 128),
+                             (2, 200, 2048, 128), (1, 1024, 1024, 120),
+                             (3, 64, 64, 56), (3, 64, 64, 64),
+                             (2, 1024, 1024, 64), (2, 1024, 1024, 32)):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            q = torch.randn(b, nq, d, generator=g, device="cuda")
+            k, v = (torch.randn(b, nk, d, generator=g, device="cuda")
+                    for _ in range(2))
+            case(f"fused q {[b, nq, d]} k {[b, nk, d]} float32, seed {seed}",
+                 fa.fused_attention(q, k, v), q, k, v, d**-0.5, True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
