@@ -57,10 +57,18 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              variants phase gives them, bf16 and float32 each: time at
              clips of 32 and 8 frames, tiny-L at 32 rows, one-pass at head
              dims 24 and 48, the time backward at 8 frames; packed and
-             one-pass at the 3072 tokens of 32-frame clips;
+             one-pass at the 3072 tokens of 32-frame clips. The wgmma tile
+             built per head width (``csrc/flash_wide{,_f32}.cu``), bf16 and
+             float32 against the float32 plain version: one-pass at
+             [B·2, 2048, 128] (base.yaml with num_heads: 2) and
+             [16, 2048, 128], fused at [16, 1024, d] for d = 136, 256 and
+             512 (two groups of 256 columns);
    masked padding — the time kernels at clips of 8 and 24 frames (padded
              to the 16- and 32-frame tiles) with every real score large and
              negative, forward and backward against their float32 route;
+             the fused kernel at head dim 256 with ragged query rows over
+             120 and 40 keys (a short 64-key tile, zero-filled and masked)
+             likewise;
    gradients — each differentiable wrapper's input gradient (its
              ``autograd.Function``) against autograd through the plain
              version in float32, its ``grad_fn``, and the peak memory of
@@ -203,7 +211,8 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              and their backwards at [1, 8, 1024, 1536], a small-depth G and
              D cycle against the CPU within FIRST_STAGE_LIMITS); a
              small-depth window of the 192-channel UNet against the CPU
-             (one-pass at head dims 24 and 48);
+             (one-pass at head dims 24 and 48), and one of the UNet with
+             num_heads: 2 (one-pass at head dims 64 and 128);
 13. i3d    — InceptionI3d (random He-scaled weights) on [2, 16, 224, 224, 3]
              on the card against the CPU within I3D_LIMIT, and the FVD
              between two sets of 8 synthetic clips through the card's I3D
@@ -301,6 +310,9 @@ SWITCHES = ("MODITALKER_NO_DIVIDED_FUSED", "MODITALKER_NO_PACKED_ATTN")
 VARIANT_CLIP_FRAMES = 32
 VARIANT_TRAIN_FRAMES = 8
 VARIANT_CHANNELS = 192
+# two UNet heads: at 128 channels heads of 64, after the last upsample of
+# 128, both through the one-pass kernel (no head is 16 wide)
+VARIANT_UNET_HEADS = 2
 VARIANTS = {
     "clip32": ("configs/latent-diffusion/base.yaml", "mtov_ae", "timesteps",
                VARIANT_CLIP_FRAMES),
@@ -308,6 +320,8 @@ VARIANTS = {
               VARIANT_TRAIN_FRAMES),
     "channels192": ("configs/latent-diffusion/base.yaml", "mtov_unet",
                     "model_channels", VARIANT_CHANNELS),
+    "num_heads2": ("configs/latent-diffusion/base.yaml", "mtov_unet",
+                   "num_heads", VARIANT_UNET_HEADS),
 }
 # the UNet's launches per call at batch 2, by kernel and shape, on each
 # path (held on the CPU against the JAX gates:
@@ -328,6 +342,9 @@ VARIANT_UNET_PER_CALL = {
     ("channels192", "fused"): {
         "onepass_attention": {(16, 1024, 24): 5, (16, 2048, 24): 5,
                               (16, 2048, 48): 1}},
+    ("num_heads2", "fused"): {
+        "onepass_attention": {(4, 1024, 64): 5, (4, 2048, 64): 5,
+                              (4, 2048, 128): 1}},
 }
 
 # what the kernels that were replaced took at the same shape on an H100 80GB
@@ -604,7 +621,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     def tables(sin_cos):
         return [torch.from_numpy(t).to(dev) for t in sin_cos]
 
-    def head_split_rotated(qkv, sin, cos, axis):
+    def head_split_rotated(qkv, sin, cos, axis, heads=heads, dh=dh):
         """q, k (rotated), v as [seqs, H, seq, dh] for the library call."""
         b_, f_, n_, _ = qkv.shape
         q, k, v = (t.reshape(b_, f_, n_, heads, dh) for t in qkv.chunk(3, -1))
@@ -625,13 +642,17 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     gen_more = torch.Generator(device=dev).manual_seed(seed + 1)
 
     def divided_row(axis, b_, f_, n_, g=gen_more, dtype=torch.bfloat16,
-                    source="divided_attention", plain32=False):
+                    source="divided_attention", plain32=False, heads=heads,
+                    dh=dh):
+        """``heads`` heads of ``dh`` (the shipped AE's 8 of 64 unless
+        given: another head dim runs the kernel's class)."""
+        hd, scale = heads * dh, dh**-0.5
         if axis == "space":
             sin, cos = tables(rotary.axial_rotary_sincos(32, n_ // 32, dh)
                               if n_ >= 1024 else
                               rotary.axial_rotary_sincos(16, n_ // 16, dh))
         else:
-            sin, cos = ((t_sin, t_cos) if f_ == f else
+            sin, cos = ((t_sin, t_cos) if f_ == f and dh == 64 else
                         tables(rotary.time_rotary_sincos(f_, dh)))
         qkv = torch.randn((b_, f_, n_, 3 * hd), generator=g,
                           device=dev).to(dtype)
@@ -648,7 +669,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                      lambda: dv.divided_attention_float32_route(
                          qkv, sin, cos, axis, heads, dh, scale),
                      dtype=qkv.dtype if plain32 else None)
-        q, k, v = head_split_rotated(qkv, sin, cos, axis)
+        q, k, v = head_split_rotated(qkv, sin, cos, axis, heads, dh)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
         seq = n_ if axis == "space" else f_
         nseq = b_ * f_ * n_ // seq
@@ -660,7 +681,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             replaces=("moditalker_tpu/ops/pallas/divided_attention.py:121"
                       if axis == "space" else
                       "moditalker_tpu/ops/pallas/divided_attention.py:177"),
-            shape=list(qkv.shape), **err,
+            shape=list(qkv.shape), heads=[heads, dh], **err,
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             library_ms=time_ms(torch, lib), nbytes=nbytes, flops=flops,
             scores=nseq * heads * seq * seq)
@@ -715,11 +736,14 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
 
     def sdpa_row(name, replaces, source, kern, plain, q, k, v, sc,
                  plain32=False):
-        # a shape beyond the configurations' runs the kernel's class
-        if q.shape[-1] not in fa.HEAD_DIMS or (
-                name == "tiny_attention"
-                and (q.shape[1], q.shape[-1]) not in fa.TINY_SHAPES):
-            source = "flash_classes"
+        # a shape beyond the configurations' runs the kernel's class, or
+        # (one-pass and fused above 32) the wgmma tile built for its width
+        if name == "tiny_attention":
+            if (q.shape[1], q.shape[-1]) not in fa.TINY_SHAPES:
+                source = "flash_classes"
+        else:
+            source = fa.attention_source(q.shape[-1],
+                                         q.dtype == torch.float32)
         oracle = (lambda: fa.onepass_attention_reference(
             q.float(), k.float(), v.float(), sc)) if plain32 else plain
         lib = library_sdpa(q, k, v, sc)
@@ -729,8 +753,11 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             source=f"moditalker_tpu_torch/csrc/{source}.cu",
             replaces=f"moditalker_tpu/ops/pallas/flash_attention.py:{replaces}",
             shape=[list(q.shape), list(k.shape)],
+            # the wide tile's float32 rows against the route with the
+            # kernels' ex2 (``exp2``), as its card tests hold it
             **errors(name, kern, oracle,
-                     lambda: fa.attention_float32_route(q, k, v, sc),
+                     lambda: fa.attention_float32_route(
+                         q, k, v, sc, exp2=source == "flash_wide"),
                      dtype=q.dtype if plain32 else None),
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             library_ms=time_ms(torch, lib),
@@ -986,6 +1013,42 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     rows += [packed_row(batch, 3072, g=gen_cl, plain32=True),
              onepass_row(batch * heads, 3072, 32, g=gen_cl, plain32=True)]
 
+    # the wgmma tile built per width (csrc/flash_wide{,_f32}.cu), bf16 and
+    # float32, each held to the float32 plain version: the one-pass kernel
+    # at head dim 128 (base.yaml with num_heads: 2 gives the joint attention
+    # after the last upsample [B·2, 2048, 128]; at 16 sequences, the
+    # prediction's shape), and the fused kernel past 128, where it raised
+    # before: 136 (a width of its own), 256 (the 256-column tile) and 512
+    # (two groups of 256 columns, each summing S over all 512 dims)
+    wide = ("wgmma built per width: S from Q's 64-dim panels in shared "
+            "memory over K chunks streamed through a cp.async ring, P·V at "
+            "N = d from V tiles; two consumer warpgroups, each starting a "
+            "tile's S with the last tile's P·V; 128-key tiles up to 128 "
+            "columns, 64 above; groups of 256 columns past 256")
+    gen_wd = torch.Generator(device=dev).manual_seed(seed + 11)
+    for dtype in (torch.bfloat16, f32):
+        rows += [dict(onepass_row(batch * 2, 2048, 128, g=gen_wd, dtype=dtype,
+                                  plain32=True), design=wide),
+                 onepass_row(16, 2048, 128, g=gen_wd, dtype=dtype,
+                             plain32=True)]
+        for d_ in (136, 256, 512):
+            q, k, v = (randn(16, 1024, d_, g=gen_wd, dtype=dtype)
+                       for _ in range(3))
+            rows.append(sdpa_row(
+                "fused_attention", 33, "flash_attention",
+                lambda q=q, k=k, v=v, d_=d_: attention.sdpa_fused(
+                    q, k, v, d_**-0.5),
+                lambda q=q, k=k, v=v, d_=d_: fa.fused_attention_reference(
+                    q, k, v, d_**-0.5),
+                q, k, v, d_**-0.5, plain32=True))
+    # the space classes (the small-head tile with the rotary) at head dims
+    # 32 and 128 beside the library call: the AE's 512 channels in 16 heads
+    # of 32 and in 4 of 128, bf16 and float32
+    for dtype in (torch.bfloat16, f32):
+        rows += [divided_row("space", batch, f, n, g=gen_wd, dtype=dtype,
+                             source="divided_classes", plain32=True,
+                             heads=hd // dh_, dh=dh_) for dh_ in (32, 128)]
+
     # the softmax floor: one ex2 per score at the clock the SMs hold under
     # load (read while the space kernel keeps the card busy)
     qkv = torch.randn((batch, f, n, 3 * hd), generator=gen_more,
@@ -1008,6 +1071,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         before = (None if row["dtype"] == "float32"
                   else BEFORE_REDESIGN_MS.get((row["name"], tuple(first))))
         log(f"{row['name']} at {row['shape']} {row['dtype']}"
+            + (f" ({row['heads'][0]} heads of {row['heads'][1]})"
+               if "heads" in row else "")
             + (" (against the float32 plain version)"
                if row.get("oracle") == "float32 plain" else "")
             + f": max abs err "
@@ -1087,6 +1152,62 @@ def masked_padding_check(torch, seed: int) -> dict:
                                      f"collapsed")
     log(f"masked padding (time classes at 8 and 24 frames, scores about "
         f"-7, against the float32 route): {out}")
+    return out
+
+
+def fused_masked_edge_check(torch, seed: int) -> dict:
+    """The fused kernel at head dim 256 (the wide tile's 64-key tiles) over
+    a ragged query length (1000 rows: a last 64-row chunk of 40 read as
+    zeros and not stored) and keys short of a tile: Nk = 120 (a whole tile
+    and one of 56) and Nk = 40 (one short tile), zero-filled past Nk. q and
+    k are built about one direction of opposite signs (every real score
+    about -7, as in ``masked_padding_check``), so a padded key left
+    unmasked (score 0, v 0) would take over 98 % of the weight and bring
+    every output near 0. bf16 and float32 against the float32 route's
+    function with the kernels' ex2 on the same inputs (``exp2=True``; it
+    rounds where the kernel does): bf16 within BF16_LIMITS and
+    QUANTILE_LIMITS, float32 within FLOAT32_ROUTE_LIMITS and with under 1 %
+    of it equal to its bf16 rounding (scores held this close together put
+    a p at a bf16 rounding boundary in more rows than random inputs do:
+    against the route with exp the card test of the same check read 1.8e-4
+    on the quantile at Nk = 40, 5 rows of 2000 off; against the route with
+    ex2 no row differs, ``tools/mma_sum.py --wide``)."""
+    from moditalker_tpu_torch.ops.kernels import (
+        bf16_rounded_share, check_bf16, check_float32_route)
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    d, nq, out = 256, 1000, {}
+    for nk in (120, 40):
+        c = 0.66 * randn(1, 1, d)   # |c|² d^-0.5 about 7
+        q = c + 0.5 * randn(2, nq, d)
+        k = -c + 0.5 * randn(2, nk, d)
+        v = randn(2, nk, d)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = [t.to(dtype) for t in (q, k, v)]
+            route = fa.attention_float32_route(*(t.float() for t in x),
+                                               d**-0.5, exp2=True)
+            with torch.no_grad():
+                got = fa.fused_attention_cuda(*x, d**-0.5)
+            key = f"Nk = {nk}, {str(dtype).replace('torch.', '')}"
+            out[key] = {"errors": check_bf16("fused_attention", got, route),
+                        "output_peak": route.abs().max().item()}
+            if dtype == torch.float32:
+                out[key]["route_errors"] = check_float32_route(
+                    "fused_attention", got, route)
+                share = out[key]["bf16_rounded_share"] = \
+                    bf16_rounded_share(got)
+                if share >= 0.01:
+                    raise AssertionError(
+                        f"fused masked edge {key}: {share:.4f} of the "
+                        f"float32 result equals its bf16 rounding")
+            if not out[key]["output_peak"] > 0.1:
+                raise AssertionError(f"fused masked edge {key}: the output "
+                                     f"collapsed")
+    log(f"fused masked edge (head dim 256, 1000 query rows over 120 and 40 "
+        f"keys, scores about -7, against the float32 route with ex2): {out}")
     return out
 
 
@@ -2115,7 +2236,8 @@ def make_windows(cfg, n: int, batch: int, seed: int):
 
 def reference_phase(torch, seed: int, what: str, expected: set,
                     heads: int = 2, batch: int = 1,
-                    model_channels: int = 128, frames: int = 16) -> dict:
+                    model_channels: int = 128, frames: int = 16,
+                    unet_heads: int = 8) -> dict:
     """A small-depth window on the card (bf16, kernels) against the CPU in
     float32 (plain path), with the same weights and the same draws. The
     same window on the CPU in bf16 (plain path) measures what bf16 alone
@@ -2123,8 +2245,9 @@ def reference_phase(torch, seed: int, what: str, expected: set,
     that, in mean and in max. On the card exactly the ``expected`` kernels
     must launch. ``model_channels`` 256: the UNet of base_longvid.yaml at
     the same small depth (192: the variants phase's). ``frames``: clips of
-    another length (the UNet's latent_t follows). Returns the errors and
-    the card's launches by shape."""
+    another length (the UNet's latent_t follows). ``unet_heads``: the
+    UNet's num_heads. Returns the errors and the card's launches by
+    shape."""
     from moditalker_tpu_torch.config import (MtovAEConfig,
                                              MtovDiffusionConfig,
                                              MtovUNetConfig)
@@ -2139,7 +2262,8 @@ def reference_phase(torch, seed: int, what: str, expected: set,
     # the full UNet (at 256 channels every gated attention does)
     unet_cfg = MtovUNetConfig(model_channels=model_channels,
                               num_res_blocks=1, channel_mult=(1, 2),
-                              attention_resolutions=(1,), latent_t=frames)
+                              attention_resolutions=(1,), latent_t=frames,
+                              num_heads=unet_heads)
     diff_cfg = MtovDiffusionConfig(sampling_timesteps=2)
     states = random_states(torch, ae_cfg, unet_cfg, seed)
     w = make_windows(ae_cfg, 1, batch, seed)[0]
@@ -3460,8 +3584,9 @@ def variants_phase(torch, seed: int) -> dict:
     small-depth window of such clips against the CPU; train-first-stage at
     clips of 8 frames (``first_stage_frames_phase``); a small-depth window
     of the 192-channel UNet against the CPU, its one-pass launches at head
-    dims 24 and 48. The counts are zeroed before each path and read after
-    it."""
+    dims 24 and 48; a small-depth window of the UNet with two heads against
+    the CPU, its one-pass launches at head dims 64 and 128 (the wide
+    tile's). The counts are zeroed before each path and read after it."""
     from moditalker_tpu_torch.config import load_config
 
     out = {}
@@ -3489,6 +3614,19 @@ def variants_phase(torch, seed: int) -> dict:
             raise AssertionError(f"variants channels192: one-pass at head "
                                  f"dims {heads}")
         out["channels192"] = {"reference": ref}
+        torch.cuda.empty_cache()
+        unet = load_config(paths["num_heads2"]).mtov_unet
+        ref = reference_phase(torch, seed, "variants num_heads2",
+                              LONGVID_PATH,
+                              model_channels=unet.model_channels,
+                              unet_heads=unet.num_heads)
+        dims = {json.loads(key)[2] for key in
+                ref["launches_by_shape"]["onepass_attention"]}
+        if dims != {unet.model_channels // unet.num_heads,
+                    2 * unet.model_channels // unet.num_heads}:
+            raise AssertionError(f"variants num_heads2: one-pass at head "
+                                 f"dims {dims}")
+        out["num_heads2"] = {"reference": ref}
     return out
 
 
@@ -3538,6 +3676,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rows = kernel_phase(torch, batch=2, seed=args.seed)
     masked = masked_padding_check(torch, args.seed)
+    masked["fused"] = fused_masked_edge_check(torch, args.seed)
     grads = gradient_phase(torch, args.seed)
     if args.kernels_only:
         return 0
@@ -3623,7 +3762,7 @@ def main() -> int:
     for row in rows:
         if row["name"] in kernels:
             kernels[row["name"]].setdefault("other_shapes", []).append(
-                {k: row[k] for k in ("shape", "dtype", "oracle",
+                {k: row[k] for k in ("shape", "heads", "dtype", "oracle",
                                      "max_abs_err",
                                      "rel_max_err", "rel_rms_err",
                                      "rel_q_err", "route_rel_err",

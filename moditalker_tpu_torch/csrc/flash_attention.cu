@@ -20,14 +20,20 @@
 //    ragged last query chunk and a key tile short of 128 are masked in the
 //    kernel instead of padded outside it.
 //
-// At D = 16 and 32 the softmax, not the products, is the floor, and the
-// kernel is smallhead_tile.cuh (mma.sync behind a cp.async ring, as the
-// packed kernel). At D = 64 the products count: it is wgmma_tile.cuh
-// without the rotary, each [N, 64] tensor one head of width 64 (K resident
-// in shared memory up to Nk = 1152, a K ring above, chosen by Nk; the grid
-// sized by Nq). Both tiles take a query length, a key length and a
-// key/value batch stride of their own. Both kernels do 4·Nq·Nk·D FLOPs
-// against 2·(2·Nq + 2·Nk)·D bytes per sequence: bound by operations.
+// Which tile each head dim runs on: at D = 16 and 32 (here) the softmax,
+// not the products, is the floor, and the kernel is smallhead_tile.cuh
+// (mma.sync behind a cp.async ring, as the packed kernel); so are 8 and 24
+// on its classes 16 and 32 (flash_classes.cu), and in bf16 40, 48 and 56
+// on its class 64, where that ran faster than the wgmma tile. At D = 64
+// (here) the products count: it is wgmma_tile.cuh's first tile without the
+// rotary, each [N, 64] tensor one head of width 64 (K resident in shared
+// memory up to Nk = 1152, a K ring above, chosen by Nk; the grid sized by
+// Nq). Every other D % 8 == 0 above 32 runs that tile built per width
+// (wgmma_wide.cuh, flash_wide.cu: Q in shared memory, K and V streamed,
+// P·V at N = D; past 256 in groups of 256 output columns). All take a
+// query length, a key length and a key/value batch stride of their own.
+// All do 4·Nq·Nk·D FLOPs against 2·(2·Nq + 2·Nk)·D bytes per sequence:
+// bound by operations.
 #include "smallhead_tile.cuh"
 #include "wgmma_tile.cuh"
 

@@ -2,16 +2,18 @@
 // bf16 at the shapes their gates admit beyond the configurations'
 // (flash_attention.cu and tiny_attention.cu hold those: head dims 16,
 // 32 and 64, and tiny-L at 16 rows of 64), in a library of its own: the
-// one-pass and fused kernels at every other d % 8 == 0 up to 128 on the
-// small-head tile's head-dim classes (smallhead_tile.cuh), tiny-L at rows
-// 8, 24 and 32 and head dim 128 (tiny_attention.cuh).
+// one-pass and fused kernels on the small-head tile's head-dim classes
+// (smallhead_tile.cuh) at 8 and 24 and at 40, 48 and 56 (the class 64,
+// faster there than the wgmma tile; every other width above 32 is
+// flash_wide.cu's), tiny-L at rows 8, 24 and 32 and head dim 128
+// (tiny_attention.cuh).
 #include "smallhead_tile.cuh"
 #include "tiny_attention.cuh"
 
 extern "C" {
 
 // q, out: contiguous [B, Nq, D]; k, v: contiguous [B, Nk, D]; bf16;
-// D % 8 == 0, D <= 128.
+// D % 8 == 0, D <= 64.
 int fused_attention_classes(const void* q, const void* k, const void* v,
                             void* out, int B, int Nq, int Nk, int D,
                             float scale, void* stream) {

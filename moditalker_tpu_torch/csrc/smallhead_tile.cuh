@@ -6,9 +6,9 @@
 // one-pass kernel at D = 16 and 32 (flash_attention.cu: contiguous
 // [B, N, D] tensors; both with Lq = Lk) and the K-blocked fused kernel at
 // D = 16 and 32 (flash_attention.cu: q [B, Nq, D] over k, v [B, Nk, D]).
-// flash_classes.cu runs the one-pass and fused kernels on it at every other
-// head dim their gates admit (d % 8 == 0 up to 128, but 64, which is the
-// wgmma tile's), and divided_classes.cu the divided space attention at head
+// flash_classes.cu runs the one-pass and fused kernels on it at 8 and 24 and
+// in bf16 at 40-56 (other heads above 32 are wgmma_wide.cuh's, 64 the wgmma
+// tile's), and divided_classes.cu the divided space attention at head
 // dims other than 64 (and at 64 in float32 past resident K) with the
 // rotary (ROT). The tile is built per head-dim class DH (16, 32, 64, 128);
 // a head of d < DH dims (PAD) has its columns past d read as zeros and
@@ -536,25 +536,28 @@ cudaError_t launch_smallhead(const SmallHeadArgsT<T>& args, int B, int H,
 }
 
 // The one-pass and K-blocked fused kernels (q [B, Nq, D] over k, v
-// [B, Nk, D], contiguous) at every head dim their gates admit, d % 8 == 0 up
-// to 128, on this tile: the class 16, 32, 64 or 128 that holds D, as PAD
-// (columns past D zeros) also where D is its class (flash_classes.cu; D =
-// 16, 32 and 64 exactly are flash_attention.cu's).
+// [B, Nk, D], contiguous) on this tile at the head dims the wrappers send
+// it (flash_classes.cu), D padded to its class: 8 and 24 on the classes 16
+// and 32, and in bf16 40, 48 and 56 on the class 64, where it ran faster
+// than the wgmma tile built for the width (every other width above 32 is
+// flash_wide.cu's; 16, 32 and 64 exactly flash_attention.cu's).
 template <typename T>
 cudaError_t launch_fused_classes(const void* q, const void* k, const void* v,
                                  void* out, int B, int Nq, int Nk, int D,
                                  float scale, cudaStream_t stream) {
-  if (D < 8 || D > 128 || D % 8) return cudaErrorInvalidValue;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  if (D < 8 || D > (kF32 ? 32 : 64) || D % 8) return cudaErrorInvalidValue;
   const long q_seq = (long)Nq * D, kv_seq = (long)Nk * D;
   const SmallHeadArgsT<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                             static_cast<const T*>(v), static_cast<T*>(out),
                             q_seq, kv_seq, D, q_seq, D, 0, Nq, Nk, scale,
                             nullptr, D};
-  switch (D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 128) {
+  switch (D <= 16 ? 16 : D <= 32 ? 32 : 64) {
     case 16: return launch_smallhead<16, T, false, true>(a, B, 1, stream);
     case 32: return launch_smallhead<32, T, false, true>(a, B, 1, stream);
-    case 64: return launch_smallhead<64, T, false, true>(a, B, 1, stream);
-    case 128: return launch_smallhead<128, T, false, true>(a, B, 1, stream);
+    case 64:
+      if constexpr (!kF32)
+        return launch_smallhead<64, T, false, true>(a, B, 1, stream);
   }
   return cudaErrorInvalidValue;
 }

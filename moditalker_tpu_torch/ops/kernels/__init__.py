@@ -10,7 +10,9 @@ alone. ``SOURCES`` names the CUDA source of each kernel's bf16 entry points
 ones (a library of its own), both for the shapes the configurations reach;
 ``CLASS_SOURCES`` and ``CLASS_FLOAT32_SOURCES`` name the sources of the
 same kernels built per head-dim and row class for every other shape their
-gates admit (libraries of their own); ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound
+gates admit (libraries of their own), and ``WIDE_SOURCES`` and
+``WIDE_FLOAT32_SOURCES`` those of the one-pass and fused kernels built per
+head width above 32; ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound
 each kernel's error against its plain version, ``FLOAT32_ROUTE_LIMITS`` a
 kernel's float32 result against the function its float32 route computes,
 and ``bf16_rounded_share`` tells a float32 result from a bf16 one widened. The
@@ -84,13 +86,22 @@ CLASS_SOURCES = {
 }
 CLASS_FLOAT32_SOURCES = {name: source + "_f32"
                          for name, source in CLASS_SOURCES.items()}
+# the one-pass and fused kernels at the head dims above 32 but 64: the
+# wgmma tile built per width, and in groups of 256 output columns past 256
+WIDE_SOURCES = {
+    "onepass_attention": "flash_wide",
+    "fused_attention": "flash_wide",
+}
+WIDE_FLOAT32_SOURCES = {name: source + "_f32"
+                        for name, source in WIDE_SOURCES.items()}
 
 
 def all_sources() -> list[str]:
     """Every kernel source under csrc/, each built into a library of its
     own (what a build of all the kernels compiles)."""
     return sorted({*SOURCES.values(), *FLOAT32_SOURCES.values(),
-                   *CLASS_SOURCES.values(), *CLASS_FLOAT32_SOURCES.values()})
+                   *CLASS_SOURCES.values(), *CLASS_FLOAT32_SOURCES.values(),
+                   *WIDE_SOURCES.values(), *WIDE_FLOAT32_SOURCES.values()})
 
 
 # Limits of a kernel's bf16 output against its plain version on the same

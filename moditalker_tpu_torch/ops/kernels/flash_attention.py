@@ -6,16 +6,21 @@ B:
 
 * one-pass (``csrc/flash_attention.cu``) — replaces ``_onepass_kernel``:
   mask-free self-attention with an online softmax; the TPU kernel's full-row
-  softmax over a VMEM-resident K/V does not fit a Hopper block. At D = 16
-  and 32 it runs on ``csrc/smallhead_tile.cuh`` (``mma.sync`` with
-  ``ldmatrix`` fragments behind a ``cp.async`` ring, the packed kernel's
-  tile), at D = 64 on ``csrc/wgmma_tile.cuh`` without the rotary (the space
-  kernel's tile). Bound by operations. ``ops.attention.sdpa`` dispatches here
-  at the one-pass gate's shapes, as the JAX package's ``sdpa`` does on the
-  TPU: the UNet's joint attention after the last upsample, [B·8, 2048, 32],
-  and, with the fused divided and packed kernels switched off, the
-  TimeSformer space attention [B·8·16, 1024, 64] and the UNet's dh = 16
-  attentions.
+  softmax over a VMEM-resident K/V does not fit a Hopper block. Which tile
+  each head dim runs on: up to 32 ``csrc/smallhead_tile.cuh`` (``mma.sync``
+  with ``ldmatrix`` fragments behind a ``cp.async`` ring, the packed
+  kernel's tile: D = 16 and 32 in ``flash_attention.cu``, 8 and 24 on its
+  classes 16 and 32; in bf16 also 40, 48 and 56, on its class 64, where it
+  ran faster); at 64 ``csrc/wgmma_tile.cuh`` without the rotary (the space
+  kernel's tile: K resident up to 1152 keys, Q fragments in registers);
+  every other d % 8 == 0 above 32 that tile built per width
+  (``csrc/wgmma_wide.cuh``, ``csrc/flash_wide.cu``: ``wgmma`` with Q in
+  shared memory, K and V streamed, P·V at N = d). Bound by operations.
+  ``ops.attention.sdpa`` dispatches here at the one-pass gate's shapes, as
+  the JAX package's ``sdpa`` does on the TPU: the UNet's joint attention
+  after the last upsample, [B·8, 2048, 32], and, with the fused divided and
+  packed kernels switched off, the TimeSformer space attention
+  [B·8·16, 1024, 64] and the UNet's dh = 16 attentions.
 * tiny-L (``csrc/tiny_attention.cu``) — replaces ``_tiny_kernel``: one warp
   per sequence, both products as ``mma.sync`` around a full-row softmax in
   registers, 16-byte coalesced loads and stores. Bound by bytes. ``sdpa``
@@ -41,16 +46,20 @@ function out).
 Every shape a gate admits launches a kernel. The configurations' head dims
 (16, 32, 64; tiny-L at 16 rows of 64) are the instantiations of
 ``flash_attention{,_f32}.cu`` and ``tiny_attention{,_f32}.cu``; the rest of
-the gates runs the same kernels built per class in
-``flash_classes{,_f32}.cu``: the one-pass and fused kernels at every other
-d % 8 == 0 up to 128 on the small-head tile's head-dim classes (16, 32, 64,
-128; the columns past d read as zeros, never stored), tiny-L at 8, 24 and
-32 rows (the row classes 16 and 32, padded rows masked) and at head dim
-128. The fused gate has no upper bound on d; heads wider than 128 are not
-built and raise. The one-pass and tiny-L wrappers are differentiable, with
-the JAX package's ``_flash_sdpa`` adjoints on recomputed float32
-probabilities (``autograd.FlashSdpa``); the fused kernel has no gradient,
-as in the JAX package, and on the card raises where one is asked of it.
+the gates runs the same kernels built per class or per width: the one-pass
+and fused kernels at 8 and 24 on the small-head tile's classes 16 and 32
+(``flash_classes{,_f32}.cu``; the columns past d read as zeros, never
+stored; in bf16 also 40, 48 and 56 on its class 64), at every other
+d % 8 == 0 up to 256 but 64 on the wgmma tile built for that width
+(``flash_wide{,_f32}.cu``), and past 256 (the fused gate has no upper bound
+on d) on its 256-column tile in groups of output columns, each group
+summing the scores over all of d; tiny-L at 8, 24 and 32 rows (the row
+classes 16 and 32, padded rows masked) and at head dim 128
+(``flash_classes{,_f32}.cu``). The one-pass and tiny-L wrappers are
+differentiable, with the JAX package's ``_flash_sdpa`` adjoints on
+recomputed float32 probabilities (``autograd.FlashSdpa``); the fused kernel
+has no gradient, as in the JAX package, and on the card raises where one is
+asked of it.
 """
 
 from __future__ import annotations
@@ -68,19 +77,36 @@ from .autograd import FlashSdpa
 # instantiated in flash_attention{,_f32}.cu and tiny_attention{,_f32}.cu:
 # the shapes the repository's configurations reach (UNet attention at 128
 # and 256 model channels, AE dim_head 64, 16 frames); every other shape the
-# gates admit runs the classes of flash_classes{,_f32}.cu. HEAD_DIMS serves
-# the one-pass and fused kernels.
+# gates admit runs the classes of flash_classes{,_f32}.cu or the widths of
+# flash_wide{,_f32}.cu. HEAD_DIMS serves the one-pass and fused kernels.
 HEAD_DIMS = (16, 32, 64)
 TINY_SHAPES = ((16, 64),)   # (L, head dim)
-# the small-head tile's head-dim classes (flash_classes.cu)
+# the small-head tile's head-dim classes (the divided space and time
+# classes); of them the one-pass and fused kernels run on
+# FUSED_HEAD_DIM_CLASSES (flash_classes.cu's launch_fused_classes): 16 and
+# 32 for every d up to SMALLHEAD_MAX_DIM, and in bf16 64 for
+# SMALLHEAD_BF16_DIMS
 HEAD_DIM_CLASSES = (16, 32, 64, 128)
-MAX_HEAD_DIM = 128
+FUSED_HEAD_DIM_CLASSES = (16, 32, 64)
+SMALLHEAD_MAX_DIM = 32
+# the widths at which the small-head class ran faster than the wgmma tile
+# in bf16, timed in turns in one call (tools/ab_classes.py, H100 80GB HBM3,
+# 700 W): there bf16 keeps the class (float32 takes the wgmma tile at every
+# width above 32)
+SMALLHEAD_BF16_DIMS = (40, 48, 56)
+# the wgmma tile built per width (flash_wide.cu's launch_fused_wide): every
+# d % 8 == 0 from 40 to 256 but 64 in float32, the same but
+# SMALLHEAD_BF16_DIMS in bf16; wider heads run the WIDE_GROUP-column tile in
+# groups of output columns, each group summing S over all of d
+WIDE_HEAD_DIMS = tuple(d for d in range(40, 257, 8) if d != 64)
+WIDE_GROUP = 256
 TINY_ROWS = (8, 16, 24, 32)
 TINY_HEAD_DIMS = (64, 128)
 # at head dim 64, K stays resident in shared memory up to 9 tiles of 128
 # keys; above that it streams through a ring that takes whole tiles only
 RESIDENT_KEYS_D64 = 1152
 _KEY_TILE = 128             # keys per tile of the kernels' online softmax
+_LOG2E = 1.4426950408889634  # the kernels' kLog2e (held in fp32)
 # how the tensor cores sum bf16 products into an fp32 accumulator (mma.sync
 # m16n8k16 and wgmma k16 alike): per step of 16 products, those products,
 # exact, and the accumulator aligned to the largest of them and cut to
@@ -143,7 +169,14 @@ def onepass_attention_reference(q, k, v, scale: float):
     return plain_sdpa(q * scale, k, v)
 
 
-def attention_float32_route(q, k, v, scale: float):
+def key_tile(d: int) -> int:
+    """Keys per tile of the kernels' online softmax at head dim ``d``: 128,
+    and 64 on the wide tile past 128 (where S shares a thread's registers
+    with more than 64 of O)."""
+    return _KEY_TILE if d <= 128 else _KEY_TILE // 2
+
+
+def attention_float32_route(q, k, v, scale: float, exp2: bool = False):
     """What the kernels' float32 route computes, in plain PyTorch: the
     function their float32 results are held to (by the tests and
     ``chip_smoke.py``; never on the card's main path).
@@ -153,27 +186,44 @@ def attention_float32_route(q, k, v, scale: float):
     once; k and v rounded once; the scores, their max and the row sums in
     fp32; p rounded to bf16 for P·V; the result divided by the row sum in
     fp32 and kept float32. The softmax is the kernels' online one: the keys
-    are taken in tiles of ``_KEY_TILE`` in order, each tile's p is taken
+    are taken in tiles of ``key_tile(D)`` in order, each tile's p is taken
     against the running max and rounded to bf16 there, and what the earlier
     tiles summed is rescaled in fp32 (one tile up to 128 keys: tiny-L's
     full-row softmax). The scores are summed as the tensor cores sum them
     (``mma_products``). It differs from the float32 plain version by those
     roundings (bf16 operands with fp32 accumulators), and from the kernels
-    by the order of the other fp32 sums and the kernels' ``ex2``."""
+    by the order of the other fp32 sums and, unless ``exp2``, the kernels'
+    ``ex2``.
+
+    ``exp2``: p and the factor that rescales the earlier tiles as the
+    one-pass and fused kernels take them, 2^(s·log2e − m·log2e) with
+    log2e and m·log2e in fp32 and the rest rounded once (the kernels'
+    ``fmaf``), and 2^((m_old − m)·log2e); in place of exp(s − m), the form
+    tiny-L and the time kernel take. The wgmma tile built per width
+    agrees with this form row for row, to fp32 rounding, where with
+    ``exp`` a p now and then lands on the other side of a bf16 rounding
+    boundary and moves its output row (``tools/mma_sum.py --wide``)."""
     q = (q.float() * scale).bfloat16().float()
     k, v = k.float().bfloat16().float(), v.float().bfloat16().float()
     s = mma_products(q, k)
     m = torch.full(s.shape[:-1] + (1,), -torch.inf, device=s.device)
     row_sum = torch.zeros_like(m)
     out = torch.zeros(s.shape[:-1] + v.shape[-1:], device=q.device)
-    for j in range(0, s.shape[-1], _KEY_TILE):
-        s_j = s[..., j:j + _KEY_TILE]
+    tile = key_tile(q.shape[-1])
+    log2e = torch.tensor(_LOG2E, dtype=torch.float32, device=s.device)
+    for j in range(0, s.shape[-1], tile):
+        s_j = s[..., j:j + tile]
         m_new = torch.maximum(m, s_j.amax(dim=-1, keepdim=True))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s_j - m_new)
+        if exp2:
+            alpha = torch.exp2((m - m_new) * log2e)
+            p = torch.exp2((s_j.double() * log2e.double()
+                            - (m_new * log2e).double()).float())
+        else:
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s_j - m_new)
         row_sum = row_sum * alpha + p.sum(dim=-1, keepdim=True)
         out = out * alpha + torch.matmul(p.bfloat16().float(),
-                                         v[..., j:j + _KEY_TILE, :])
+                                         v[..., j:j + tile, :])
         m = m_new
     return out / row_sum
 
@@ -218,6 +268,46 @@ def _classes_lib_f32() -> ctypes.CDLL:
                  "_classes_f32", tiny=True)
 
 
+@functools.cache
+def _wide_lib() -> ctypes.CDLL:
+    """The one-pass and fused kernels above 56 but 64, bf16, on the wgmma
+    tile built per width (``csrc/flash_wide.cu``), a library of its own."""
+    return _bind(_build.load("flash_wide"), "_wide")
+
+
+@functools.cache
+def _wide_lib_f32() -> ctypes.CDLL:
+    """The same in float32 above 32 but 64 (``csrc/flash_wide_f32.cu``)."""
+    return _bind(_build.load("flash_wide_f32"), "_wide_f32")
+
+
+_SUFFIXES = {"flash_attention": "", "flash_classes": "_classes",
+             "flash_wide": "_wide"}
+
+
+def attention_source(d: int, f32: bool = False) -> str:
+    """The source (``csrc/<name>.cu``; its float32 entry point in
+    ``<name>_f32.cu``) of the kernel the one-pass and fused wrappers launch
+    at head dim ``d`` (d % 8 == 0), bf16 or float32: the configurations'
+    instantiations, the small-head classes up to 32 (and in bf16 at
+    SMALLHEAD_BF16_DIMS), the wgmma tile built per width above."""
+    if d in HEAD_DIMS:
+        return "flash_attention"
+    if d <= SMALLHEAD_MAX_DIM or (not f32 and d in SMALLHEAD_BF16_DIMS):
+        return "flash_classes"
+    return "flash_wide"
+
+
+def _library(d: int, f32: bool) -> tuple[ctypes.CDLL, str]:
+    """The library and entry point of the one-pass and fused kernels at
+    head dim ``d``."""
+    suffix = _SUFFIXES[attention_source(d, f32)] + ("_f32" if f32 else "")
+    lib = {"": _lib, "_f32": _lib_f32, "_classes": _classes_lib,
+           "_classes_f32": _classes_lib_f32, "_wide": _wide_lib,
+           "_wide_f32": _wide_lib_f32}[suffix]()
+    return lib, "fused_attention" + suffix
+
+
 def _operands(what: str, q, k, v, kv_shape):
     """q, k, v as the kernel reads them (bf16 or float32, each read in its
     own type; contiguous, 16-byte aligned) and whether they are float32."""
@@ -239,26 +329,20 @@ def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     """The one-pass and the fused wrapper's checks and launch (the one-pass
     kernel is the fused one at Nq = Nk): q [B, Nq, D] over k, v [B, nk, D]
     bf16 → [B, Nq, D] bf16, or float32 → float32 (the float32 entry point).
-    D % 8 == 0 up to 128; at 64, above 1152 keys (where K streams through a
-    ring instead of staying in shared memory) only whole 128-key tiles.
+    D % 8 == 0; at 64, above 1152 keys (where K streams through a ring
+    instead of staying in shared memory) only whole 128-key tiles.
     Returns the output and whether it is float32."""
     b, nq, d = q.shape
     q, k, v, f32 = _operands(what, q, k, v, (b, nk, d))
     if d % 8 or d < 8:
         raise ValueError(f"the {what} kernel takes head dims d % 8 == 0, not "
                          f"{d}")
-    if d > MAX_HEAD_DIM:
-        raise NotImplementedError(f"{what} kernel built for head dims up to "
-                                  f"{MAX_HEAD_DIM}, not {d}")
     if d == 64 and nk > RESIDENT_KEYS_D64 and nk % _KEY_TILE:
         raise ValueError(f"at head dim 64 the {what} kernel takes more than "
                          f"{RESIDENT_KEYS_D64} keys only in multiples of "
                          f"{_KEY_TILE}, not {nk}")
     out = torch.empty_like(q)
-    suffix = ("" if d in HEAD_DIMS else "_classes") + ("_f32" if f32 else "")
-    lib = {"": _lib, "_f32": _lib_f32, "_classes": _classes_lib,
-           "_classes_f32": _classes_lib_f32}[suffix]()
-    entry = "fused_attention" + suffix
+    lib, entry = _library(d, f32)
     status = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
         d, scale, kernels.cuda_stream(q))

@@ -681,8 +681,8 @@ FLASH_CLASSES = [(2, 1024, 8), (2, 1024, 24), (2, 1024, 40), (1, 1280, 48),
 @pytest.mark.parametrize("b,n,d", FLASH_CLASSES)
 def test_onepass_classes_match_plain(gen, b, n, d, dtype):
     """The one-pass kernel at head dims the configurations do not reach:
-    every class of the small-head tile (8 in 16, 24 in 32, 40 to 56 in 64,
-    72 to 128 in 128), bf16 and float32."""
+    the small-head tile's classes (8 in 16, 24 in 32) and the wgmma tile
+    built per width (40 to 128 but 64), bf16 and float32."""
     assert tflash.onepass_attention_viable(n, n, d)
     q, k, v = (_randn32(gen, b, n, d).to(dtype) for _ in range(3))
     got = _launched("onepass_attention",
@@ -700,8 +700,8 @@ def test_onepass_classes_match_plain(gen, b, n, d, dtype):
     (2, 300, 640, 72), (2, 200, 2048, 128), (2, 1000, 128, 96),
     (3, 64, 64, 120)])
 def test_fused_classes_match_plain(gen, b, nq, nk, d, dtype):
-    """The fused kernel at the same classes: ragged query chunks, key tiles
-    short of 128 and whole ones, Nq != Nk."""
+    """The fused kernel at the same head dims: ragged query chunks, key
+    tiles short of 128 and whole ones, Nq != Nk."""
     q = _randn32(gen, b, nq, d).to(dtype)
     k, v = (_randn32(gen, b, nk, d).to(dtype) for _ in range(2))
     got = _launched("fused_attention", lambda: tflash.fused_attention(q, k, v))
@@ -709,6 +709,79 @@ def test_fused_classes_match_plain(gen, b, nq, nk, d, dtype):
     _check_class("fused_attention", got,
                  tflash.fused_attention_reference(q, k, v, d**-0.5),
                  tflash.attention_float32_route(q, k, v, d**-0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,nq,nk,d", [
+    (2, 1024, 1024, 40), (16, 2048, 2048, 48), (2, 1024, 1024, 128),
+    (16, 2048, 2048, 128), (4, 1000, 256, 136), (4, 1000, 384, 256),
+    (8, 1000, 120, 264), (2, 130, 512, 512), (8, 1000, 512, 512),
+    (8, 1000, 256, 576), (8, 1000, 256, 1152)])
+def test_wide_tile_matches_plain(gen, b, nq, nk, d, dtype):
+    """The wgmma tile built per head width (``csrc/flash_wide{,_f32}.cu``):
+    one-pass at head dims 40, 48 and 128 (at 2 and 16 sequences: the grid
+    splits rows where 128-row blocks leave the card short), the fused kernel
+    past 128, where it raised before (136: a width of its own; 256; 264 and
+    512: groups of 256 output columns, each summing S over all of d; 576:
+    one consumer, Q resident; 1152: Q streamed per key tile), with ragged
+    query chunks and short key tiles; bf16 and float32 against the float32
+    plain version (``_check_class``), float32 also against the route's
+    function with the kernels' ``ex2`` (``exp2=True``). Against the route
+    with ``exp`` a p that lands on the other side of a bf16 rounding
+    boundary moves its whole output row (at [2, 130, 512] 5 rows of 260
+    differ, and one is more than the thousandth of the output the quantile
+    measure looks past); with the kernels' ``ex2`` no row differs
+    (``tools/mma_sum.py --wide``), so the fused cases hold a few hundred
+    rows and thousands alike."""
+    q = _randn32(gen, b, nq, d).to(dtype)
+    k, v = (_randn32(gen, b, nk, d).to(dtype) for _ in range(2))
+    if nq == nk:
+        assert tflash.onepass_attention_viable(nq, nk, d)
+        name = "onepass_attention"
+        run = lambda: tflash.onepass_attention(q, k, v, d**-0.5)
+    else:
+        name = "fused_attention"
+        run = lambda: tflash.fused_attention(q, k, v)
+    assert tflash.attention_source(d, dtype == torch.float32) == (
+        "flash_classes" if d in tflash.SMALLHEAD_BF16_DIMS
+        and dtype == torch.bfloat16 else "flash_wide")
+    got = _launched(name, run)
+    q, k, v = q.float(), k.float(), v.float()
+    _check_class(name, got, tflash.fused_attention_reference(q, k, v, d**-0.5),
+                 tflash.attention_float32_route(q, k, v, d**-0.5, exp2=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("nk", [120, 40])
+def test_wide_tile_masks_short_key_tiles(gen, nk, dtype):
+    """The fused kernel at head dim 256 (64-key tiles) over 1000 query rows
+    (a ragged last chunk) and 120 or 40 keys (a short last tile, zero-filled
+    past Nk): with q and k built about one direction of opposite signs
+    (every real score about -7, as in the time classes' test) an unmasked
+    padded key (score 0, v 0) would take over 98 % of the weight and bring
+    every output near 0. Against the float32 route's function on the same
+    inputs with the kernels' ``ex2`` (``exp2=True``; it rounds where the
+    kernel does): bf16 within ``BF16_LIMITS`` and ``QUANTILE_LIMITS``,
+    float32 within ``FLOAT32_ROUTE_LIMITS`` as well (``_check_class``); a
+    padded key left in moves the output by its own size. (Scores held this
+    close together put a p at a bf16 rounding boundary in more rows than
+    random inputs do: against the route with ``exp`` the float32 result
+    read 1.8e-4 on the quantile at Nk = 40, 5 rows of 2000 off; against the
+    route with the kernels' ``ex2`` no row differs, ``tools/mma_sum.py
+    --wide``.)"""
+    d = 256
+    c = 0.66 * _randn32(gen, 1, 1, d)   # |c|² d^-0.5 about 7
+    q = (c + 0.5 * _randn32(gen, 2, 1000, d)).to(dtype)
+    k = (-c + 0.5 * _randn32(gen, 2, nk, d)).to(dtype)
+    v = _randn32(gen, 2, nk, d).to(dtype)
+    route = tflash.attention_float32_route(q.float(), k.float(), v.float(),
+                                           d**-0.5, exp2=True)
+    got = _launched("fused_attention",
+                    lambda: tflash.fused_attention(q, k, v))
+    assert route.abs().max() > 0.1   # the output did not collapse
+    _check_class("fused_attention", got, route, route)
 
 
 @pytest.mark.cuda

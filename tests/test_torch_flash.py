@@ -24,6 +24,8 @@ from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
 from moditalker_tpu_torch.ops.kernels import packed_attention as tpack
 
+from .torch_stubs import stub_launches  # noqa: F401 (fixture)
+
 TOL = dict(rtol=2e-4, atol=2e-5)
 
 
@@ -54,7 +56,9 @@ def test_tiny_plain_matches_pallas_interpret(b, l, d):
     ((2, 64, 64), (2, 512, 64)),       # cross-length
     ((2, 100, 64), (2, 64, 64)),       # one key block short of 128
     ((4, 256, 16), (4, 256, 16)), ((2, 100, 16), (2, 384, 16)),
-    ((4, 256, 32), (4, 256, 32)), ((2, 100, 32), (2, 384, 32))])
+    ((4, 256, 32), (4, 256, 32)), ((2, 100, 32), (2, 384, 32)),
+    ((2, 100, 136), (2, 256, 136)), ((2, 64, 256), (2, 120, 256)),
+    ((2, 40, 264), (2, 128, 264))])
 def test_fused_plain_matches_pallas_interpret(q_shape, kv_shape):
     q, k, v = _qkv(q_shape, kv_shape, seed=q_shape[1])
     want = jflash.fused_attention(jnp.asarray(q), jnp.asarray(k),
@@ -68,7 +72,9 @@ def test_fused_plain_matches_pallas_interpret(q_shape, kv_shape):
 
 
 @pytest.mark.parametrize("lead,nq,nk,d", [
-    ((2, 3), 64, 512, 64), ((4,), 300, 256, 16), ((2, 2), 40, 40, 32)])
+    ((2, 3), 64, 512, 64), ((4,), 300, 256, 16), ((2, 2), 40, 40, 32),
+    # heads the wide tile builds past 128: one width, 256, and groups
+    ((2,), 100, 256, 136), ((1, 2), 64, 384, 256), ((2,), 40, 128, 264)])
 def test_sdpa_fused_matches_jax(lead, nq, nk, d):
     q, k, v = _qkv((*lead, nq, d), (*lead, nk, d), seed=nq)
     want = jattn.sdpa_fused(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
@@ -243,9 +249,11 @@ def test_modular_packed_attention_matches_fused(monkeypatch):
                                atol=1e-5)
 
 
-def test_wrappers_refuse_what_the_kernels_do_not_take():
+def test_wrappers_refuse_what_the_kernels_do_not_take(stub_launches):
     """The checks ahead of a launch need no card: dtype and shape errors
-    come before the library is built."""
+    come before the library is built (stub libraries stand in where a shape
+    passes them). Heads past 128, which the fused gate admits, are no longer
+    refused: they launch the wide tile."""
     q = torch.zeros(4096, 16, 64)
     with pytest.raises(TypeError, match="bf16 or float32"):
         tflash.tiny_attention_cuda(q.half(), q.half(), q.half(), 1.0)
@@ -262,13 +270,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
         x = qb[..., :32].contiguous()
         tflash.tiny_attention_cuda(x, x, x, 1.0)
     # fused: head dims d % 8 == 0; past 128 (which the fused gate admits)
-    # no kernel is built
+    # the wide tile
     with pytest.raises(ValueError, match="d % 8 == 0"):
         x = torch.zeros(2, 256, 44, dtype=torch.bfloat16)
         tflash.fused_attention_cuda(x, x, x, 1.0)
-    with pytest.raises(NotImplementedError, match="fused kernel built for"):
-        x = torch.zeros(2, 256, 136, dtype=torch.bfloat16)
-        tflash.fused_attention_cuda(x, x, x, 1.0)
+    stub_launches.clear()
+    x = torch.zeros(2, 256, 136, dtype=torch.bfloat16)
+    tflash.fused_attention_cuda(x, x, x, 1.0)
+    assert stub_launches == ["fused_attention_wide"]
     with pytest.raises(ValueError, match="k and v of shape"):
         x = torch.zeros(2, 256, 64, dtype=torch.bfloat16)
         tflash.fused_attention_cuda(x, x, x[:1], 1.0)
@@ -276,17 +285,19 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="head dim 64"):
         kv = torch.zeros(2, 1160, 64, dtype=torch.bfloat16)
         tflash.fused_attention_cuda(x, kv, kv, 1.0)
-    # one-pass: bf16 or float32, head dims d % 8 == 0 up to 128 (its gate),
-    # and at head dim 64 (the wgmma tile) above 1152 rows only rows that
-    # tile by 128
+    # one-pass: bf16 or float32, head dims d % 8 == 0 (its gate: up to
+    # 128; the kernel, the fused one at Nq = Nk, takes wider heads too), and
+    # at head dim 64 (the wgmma tile) above 1152 rows only rows that tile
+    # by 128
     x = torch.zeros(2, 1024, 32, dtype=torch.float16)
     with pytest.raises(TypeError, match="bf16 or float32"):
         tflash.onepass_attention_cuda(x, x, x, 1.0)
     with pytest.raises(TypeError, match="bf16 or float32"):
         tflash.onepass_attention_cuda(x.float(), x.float(), x, 1.0)
-    with pytest.raises(NotImplementedError, match="one-pass kernel built for"):
-        x = torch.zeros(2, 1024, 136, dtype=torch.bfloat16)
-        tflash.onepass_attention_cuda(x, x, x, 1.0)
+    stub_launches.clear()
+    x = torch.zeros(2, 1024, 136, dtype=torch.float32)
+    tflash.onepass_attention_cuda(x, x, x, 1.0)
+    assert stub_launches == ["fused_attention_wide_f32"]
     for n in (1160, 2000):
         with pytest.raises(ValueError, match="head dim 64"):
             x = torch.zeros(2, n, 64, dtype=torch.bfloat16)

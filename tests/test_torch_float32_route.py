@@ -171,7 +171,9 @@ def test_float32_entry_points_are_in_their_own_source():
     source and in a float32 source of its own (``FLOAT32_SOURCES``, built
     with the kernels), the classes beyond the configurations' shapes in
     sources of their own likewise (``CLASS_SOURCES``,
-    ``CLASS_FLOAT32_SOURCES``), and every source under csrc/ is a kernel's."""
+    ``CLASS_FLOAT32_SOURCES``, and the one-pass and fused kernels' widths
+    ``WIDE_SOURCES``, ``WIDE_FLOAT32_SOURCES``), and every source under
+    csrc/ is a kernel's."""
     symbols = {"divided_attention": {"divided_space_attention",
                                      "divided_time_attention"},
                "packed_attention": {"packed_attention"},
@@ -181,6 +183,7 @@ def test_float32_entry_points_are_in_their_own_source():
                                    "divided_time_attention_classes"},
                "flash_classes": {"fused_attention_classes",
                                  "tiny_attention_classes"},
+               "flash_wide": {"fused_attention_wide"},
                "divided_backward_classes": {
                    "divided_space_attention_backward_classes",
                    "divided_time_attention_backward_classes"}}
@@ -197,9 +200,15 @@ def test_float32_entry_points_are_in_their_own_source():
         assert name in tkernels.SOURCES
     assert set(tkernels.CLASS_SOURCES) == set(tkernels.SOURCES) - {
         "packed_attention"}
+    for name, source in tkernels.WIDE_SOURCES.items():
+        assert tkernels.WIDE_FLOAT32_SOURCES[name] == source + "_f32"
+    assert set(tkernels.WIDE_SOURCES) == {"onepass_attention",
+                                          "fused_attention"}
     built = {*tkernels.SOURCES.values(), *tkernels.FLOAT32_SOURCES.values(),
              *tkernels.CLASS_SOURCES.values(),
-             *tkernels.CLASS_FLOAT32_SOURCES.values()}
+             *tkernels.CLASS_FLOAT32_SOURCES.values(),
+             *tkernels.WIDE_SOURCES.values(),
+             *tkernels.WIDE_FLOAT32_SOURCES.values()}
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == built
     assert tkernels.all_sources() == sorted(built)
 
@@ -213,6 +222,11 @@ FLASH_CASES = {
     "onepass32": ("onepass_attention", (2, 1024, 32), (2, 1024, 32)),
     "onepass64": ("onepass_attention", (2, 1024, 64), (2, 1024, 64)),
     "fused": ("fused_attention", (2, 64, 64), (2, 512, 64)),
+    # the wide tile: a width of its own, past 128 (64-key softmax tiles),
+    # and the 256-column tile
+    "onepass48": ("onepass_attention", (2, 1024, 48), (2, 1024, 48)),
+    "fused136": ("fused_attention", (2, 100, 136), (2, 256, 136)),
+    "fused256": ("fused_attention", (2, 64, 256), (2, 384, 256)),
 }
 PACKED = (1, 128, 8)   # B, C, heads: dh = 16
 
@@ -250,6 +264,25 @@ def test_attention_float32_route_matches_jax_interpret(case):
     got = tflash.attention_float32_route(_t(q), _t(k), _t(v), sc)
     assert got.dtype == torch.float32 and got.shape == q.shape
     tkernels.check_bf16(name, got, _t(_jax_flash(name, q, k, v, sc)))
+
+
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_attention_float32_route_with_ex2_is_the_same_function(case):
+    """``attention_float32_route(exp2=True)`` (p as the one-pass and fused
+    kernels' ``ex2`` takes it; what the wide tile's float32 results are
+    held to) is the same function: within the bf16 limits of the Pallas
+    kernel in interpret mode, and within ``FLOAT32_ROUTE_LIMITS`` of the
+    route with ``exp`` (they differ where a p lands on the other side of a
+    bf16 rounding boundary)."""
+    name, q, k, v = _flash_inputs(case)
+    sc = q.shape[-1] ** -0.5
+    x = (_t(q), _t(k), _t(v))
+    got = tflash.attention_float32_route(*x, sc, exp2=True)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    tkernels.check_bf16(name, got, _t(_jax_flash(name, q, k, v, sc)))
+    tkernels.check_float32_route(name, got,
+                                 tflash.attention_float32_route(*x, sc))
+    assert not torch.equal(got, tflash.attention_float32_route(*x, sc))
 
 
 @pytest.mark.parametrize("l", [1024, 1032])
@@ -299,8 +332,9 @@ def test_float32_routes_at_bf16_inputs_sit_within_the_bf16_route(case):
 
 @pytest.mark.parametrize("case", ROUTE_CASES)
 def test_float32_route_limits_pass_sum_order_and_fail_bf16_results(case):
-    """The keys permuted inside each 128-key tile (k and v alike; for packed
-    the sequence, queries included) give the same function with every fp32
+    """The keys permuted inside each softmax tile of keys (128, or 64 past
+    head dim 128; k and v alike; for packed the sequence, queries included)
+    give the same function with every fp32
     sum over the keys in another order: within ``FLOAT32_ROUTE_LIMITS``.
     The route's result rounded to bf16 (a bf16 kernel between two cast
     passes) fails them, and so does the fully bf16 plain version widened to
@@ -310,9 +344,11 @@ def test_float32_route_limits_pass_sum_order_and_fail_bf16_results(case):
     want, plain = _route_and_plain(case, x)
     rng = np.random.default_rng(4)
     length = x[-1].shape[-2]
+    # within the route's softmax tiles (flash_attention.key_tile)
+    tile = 128 if case == "packed" else tflash.key_tile(x[0].shape[-1])
     perm = torch.from_numpy(np.concatenate(
-        [j + rng.permutation(min(128, length - j))
-         for j in range(0, length, 128)]))
+        [j + rng.permutation(min(tile, length - j))
+         for j in range(0, length, tile)]))
     if case == "packed":
         moved, _ = _route_and_plain(case, (x[0][:, perm],))
         back = torch.empty_like(moved).index_copy_(1, perm, moved)

@@ -5,13 +5,14 @@ the time and tiny-L kernels, per row class (16, 32), padded where a shape is
 not its class (``CLASS_SOURCES``). Here, on the CPU:
 
 * each gate enumerated over a grid (head dims 8 to 128 in steps of 8 for the
-  one-pass, fused and tiny-L kernels, 64 and 128 for tiny-L; every head dim
-  dividing 128 for space and time; F and L in {8, 16, 24, 32}; N from 256 to
-  2048 in steps of 128 for space): with stub libraries (``torch_stubs.py``)
-  the wrapper launches exactly once wherever the gate opens, forward and
-  backward, bf16 and float32, and never raises ``NotImplementedError``;
-  the one exception, the fused gate past head dim 128, still raises;
-* the classes' launchers switch on the classes the wrappers name;
+  one-pass kernel, 8 to 512 for the fused kernel, 64 and 128 for tiny-L;
+  every head dim dividing 128 for space and time; F and L in
+  {8, 16, 24, 32}; N from 256 to 2048 in steps of 128 for space): with stub
+  libraries (``torch_stubs.py``) the wrapper launches exactly once wherever
+  the gate opens, forward and backward, bf16 and float32, on the library
+  its head dim names, and never raises ``NotImplementedError``;
+* the classes' launchers switch on the classes the wrappers name, and the
+  wide tile's launcher on the widths they name;
 * the UNet launches ``chip_smoke.py``'s variants phase predicts
   (``VARIANT_UNET_PER_CALL``: clips of 32 frames, 192 channels), against
   the JAX gates;
@@ -154,21 +155,39 @@ def test_sdpa_gate_grid_launches_everywhere_it_opens(stub_launches, dtype):
     assert tkernels.LAUNCHES["fused_attention"] == 0
 
 
+def _fused_entry(d, dtype):
+    """The C entry point the fused and one-pass wrappers call at head dim
+    d: the configurations' instantiations, the small-head classes up to 32
+    (and in bf16 where they ran faster), the wgmma tile built per width
+    above."""
+    f32 = dtype == torch.float32
+    if d in tflash.HEAD_DIMS:
+        entry = "fused_attention"
+    elif d <= tflash.SMALLHEAD_MAX_DIM or (
+            not f32 and d in tflash.SMALLHEAD_BF16_DIMS):
+        entry = "fused_attention_classes"
+    else:
+        entry = "fused_attention_wide"
+    return entry + ("_f32" if dtype == torch.float32 else "")
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_gate_grid_launches_everywhere_it_opens(stub_launches, dtype):
     """``sdpa_fused`` from 256 keys up (the fused gate: Nk a multiple of 128,
     d % 8 == 0) and ``fused_attention`` below 128 keys (Nk % 8 == 0) over
-    head dims 8 to 128: one launch each; past 128 the gate still opens and
-    the wrapper raises NotImplementedError (no kernel is built for heads
-    that wide)."""
-    for d in range(8, 129, 8):
+    head dims 8 to 512 (the gate has no upper bound on d): one launch each,
+    on the entry point its head dim names, and never NotImplementedError.
+    (Until the wide tile was built, heads past 128 raised it here.)"""
+    for d in range(8, 513, 8):
         for nq, nk in ((100, 256), (64, 2048), (1000, 384)):
             q = torch.empty(2, nq, d, dtype=dtype, device="meta")
             k = torch.empty(2, nk, d, dtype=dtype, device="meta")
             assert attention.sdpa_fused_route(2, nq, nk, d) == "fused"
             before = tkernels.LAUNCHES["fused_attention"]
+            stub_launches.clear()
             attention.sdpa_fused(q, k, k, d**-0.5)
             assert tkernels.LAUNCHES["fused_attention"] == before + 1
+            assert stub_launches == [_fused_entry(d, dtype)], d
         for nk in (8, 64, 120):
             assert tflash.fused_attention_tiles(nk, d)
             q = torch.empty(2, 33, d, dtype=dtype, device="meta")
@@ -176,11 +195,6 @@ def test_fused_gate_grid_launches_everywhere_it_opens(stub_launches, dtype):
             before = tkernels.LAUNCHES["fused_attention"]
             tflash.fused_attention(q, k, k, d**-0.5)
             assert tkernels.LAUNCHES["fused_attention"] == before + 1
-    q = torch.empty(2, 64, 136, dtype=dtype, device="meta")
-    k = torch.empty(2, 256, 136, dtype=dtype, device="meta")
-    assert attention.sdpa_fused_route(2, 64, 256, 136) == "fused"
-    with pytest.raises(NotImplementedError, match="up to 128"):
-        attention.sdpa_fused(q, k, k, 136**-0.5)
 
 
 # ------------------------------------------------------------ the sources
@@ -208,7 +222,38 @@ def test_class_launchers_switch_on_the_named_classes():
     tile = (_build.CSRC / "tiny_attention.cuh").read_text()
     assert "launch_tiny<16, D, T, true>" in tile   # L = 8
     assert "launch_tiny<32, D, T, true>" in tile   # L = 24
-
+    # the one-pass and fused kernels: the small-head classes 16 and 32 up to
+    # head dim 32, and in bf16 the class 64 where it ran faster (nothing
+    # else of the small-head tile); the wgmma tile built per width from 40
+    # to 256 but 64 (a case each; in bf16 from 72), then its 256-column tile
+    # in groups, up to the widest head Q fits for
+    assert _case_labels("smallhead_tile.cuh", "launch_fused_classes") \
+        == tflash.FUSED_HEAD_DIM_CLASSES == (16, 32, 64)
+    tile = (_build.CSRC / "smallhead_tile.cuh").read_text()
+    body = tile[tile.index("cudaError_t launch_fused_classes("):]
+    body = body[:body.index("\n}\n")]
+    assert "if (D < 8 || D > (kF32 ? 32 : 64) || D % 8)" in body
+    assert re.search(r"case 64:\s+if constexpr \(!kF32\)\s+return "
+                     r"launch_smallhead<64, T", body)
+    assert tflash.SMALLHEAD_MAX_DIM == 32
+    assert _case_labels("wgmma_wide.cuh", "launch_fused_wide") \
+        == tflash.WIDE_HEAD_DIMS
+    assert tflash.WIDE_HEAD_DIMS == tuple(
+        d for d in range(tflash.SMALLHEAD_MAX_DIM + 8, tflash.WIDE_GROUP + 1, 8)
+        if d not in tflash.HEAD_DIMS)
+    # where bf16 keeps the small-head class, its class is built, and the
+    # wide tile is built there for float32 alone
+    assert all(tflash.SMALLHEAD_MAX_DIM < d <= 64
+               for d in tflash.SMALLHEAD_BF16_DIMS)
+    wide = (_build.CSRC / "wgmma_wide.cuh").read_text()
+    launcher = wide[wide.index("cudaError_t launch_fused_wide("):]
+    f32_only = launcher[launcher.index(
+        "if constexpr (std::is_same<T, float>::value) {"):]
+    f32_only = f32_only[:f32_only.index("\n  }\n")]
+    assert tuple(int(n) for n in re.findall(r"case (\d+):", f32_only)) \
+        == tflash.SMALLHEAD_BF16_DIMS
+    assert f"constexpr int kWdGroup = {tflash.WIDE_GROUP};" in wide
+    assert "if (D > kWdGroup) return launch_wide<kWdGroup, T>" in wide
 
 # ------------------------------------------------------------ vs Pallas
 def _divided_inputs(axis, f, n, dh, seed=11):
@@ -293,7 +338,8 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("variant,path", [("clip32", "fused"),
                                           ("clip32", "modular"),
-                                          ("channels192", "fused")])
+                                          ("channels192", "fused"),
+                                          ("num_heads2", "fused")])
 def test_variant_unet_launches_follow_the_jax_gates(stub_launches,
                                                     monkeypatch, tmp_path,
                                                     variant, path):

@@ -141,9 +141,10 @@ def test_built_head_dims_match_the_sources():
     """The head dims a wrapper sends to the configurations' library are the
     instantiations its sources' ``switch`` holds, bf16 and float32 alike, no
     more and no fewer; every other head dim the gates admit goes to the
-    classes' library, whose launchers switch on the head-dim classes. The
-    one-pass wrapper launches the fused kernel at Nq = Nk, so both share its
-    lists."""
+    classes' library, whose launchers switch on the head-dim classes, or
+    (the one-pass and fused kernels above 32) to the wide tile's, whose
+    launcher switches on the widths. The one-pass wrapper launches the fused
+    kernel at Nq = Nk, so both share its lists."""
     for suffix in ("", "_f32"):
         assert _case_labels(f"flash_attention{suffix}.cu",
                             f"fused_attention{suffix}") \
@@ -155,8 +156,10 @@ def test_built_head_dims_match_the_sources():
                             f"tiny_attention_classes{suffix}") \
             == tflash.TINY_HEAD_DIMS == (64, 128)
     assert _case_labels("smallhead_tile.cuh", "launch_fused_classes") \
-        == tflash.HEAD_DIM_CLASSES == (16, 32, 64, 128)
-    assert max(tflash.HEAD_DIM_CLASSES) == tflash.MAX_HEAD_DIM
+        == tflash.FUSED_HEAD_DIM_CLASSES == (16, 32, 64)
+    assert _case_labels("wgmma_wide.cuh", "launch_fused_wide") \
+        == tflash.WIDE_HEAD_DIMS
+    assert not set(tflash.WIDE_HEAD_DIMS) & set(tflash.HEAD_DIMS)
 
 
 @pytest.mark.parametrize("source", sorted(

@@ -13,12 +13,28 @@ its route). Prints one JSON line per case: both times and their ratio.
 Space in bf16 and the space backward have no class at head dim 64 (the
 configurations' wgmma tile and backward are the only kernels built there).
 
-    python3 tools/ab_classes.py       # from the repository root, on a card
+Then the one-pass kernel's two tiles above head dim 32, paired the same way
+at [16, 2048, d] for d = 40 to 128 and at [4, 2048, 128], bf16 and float32:
+the small-head tile's class 64 or 128 against the wgmma tile built for the
+width (``csrc/wgmma_wide.cuh``), each held to the limits;
+``flash_attention.SMALLHEAD_BF16_DIMS`` names the widths where the class is
+the faster. And the wgmma tile built for d = 64 against the configurations'
+instantiation at 64 (``csrc/wgmma_tile.cuh``'s tile in
+``csrc/flash_attention{,_f32}.cu``) at [16, 2048, 64] (K through a ring) and
+[128, 1024, 64] (K resident). The libraries hold only what the wrappers
+launch, so this builds the variants it compares for itself, under
+``build/ab_classes/`` (one nvcc each, started together, the libraries'
+flags): the small-head classes 64 and 128 at every width, and the wide tile
+at 40, 48, 56 and 64.
+
+    python3 tools/ab_classes.py [--wide]  # repository root, on a card;
+                                          # --wide: the second part alone
 """
 
 from __future__ import annotations
 
 import json
+import subprocess
 import sys
 from pathlib import Path
 
@@ -26,16 +42,90 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 
+# the variants compared above head dim 32, each a library of its own (the
+# float32 ones apart from the bf16 ones, as the shipped libraries are)
+VARIANTS = {
+    "class": ("smallhead_tile.cuh", """
+  if (D < 8 || D > 128 || D % 8) return cudaErrorInvalidValue;
+  const long q_seq = (long)Nq * D, kv_seq = (long)Nk * D;
+  const mdt::SmallHeadArgsT<T> a{
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), q_seq, kv_seq, D,
+      q_seq, D, 0, Nq, Nk, scale, nullptr, D};
+  return D <= 64 ? mdt::launch_smallhead<64, T, false, true>(a, B, 1, st)
+                 : mdt::launch_smallhead<128, T, false, true>(a, B, 1, st);
+"""),
+    "wide": ("wgmma_wide.cuh", """
+  const mdt::WideArgsT<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
+                            static_cast<const T*>(v), static_cast<T*>(out),
+                            (long)Nq * D, (long)Nk * D, D, Nq, Nk, scale,
+                            0, 0, 0, 0};
+  switch (D) {
+    case 40: return mdt::launch_wide<40, T>(a, B, st);
+    case 48: return mdt::launch_wide<48, T>(a, B, st);
+    case 56: return mdt::launch_wide<56, T>(a, B, st);
+    case 64: return mdt::launch_wide<64, T>(a, B, st);
+  }
+  return cudaErrorInvalidValue;
+"""),
+}
+SOURCE = """#include "{header}"
+using T = {type};
+extern "C" {{
+int fused_attention_ab(const void* q, const void* k, const void* v, void* out,
+                       int B, int Nq, int Nk, int D, float scale,
+                       void* stream) {{
+  cudaStream_t st = static_cast<cudaStream_t>(stream);{body}}}
+const char* kernel_error_string(int err) {{
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}}
+}}
+"""
+
+
+def build_variants() -> dict:
+    """Build ``VARIANTS`` in bf16 and float32 under build/ab_classes/ and
+    load them: {"class", "class_f32", "wide", "wide_f32"} -> library."""
+    import ctypes
+
+    from moditalker_tpu_torch.ops.kernels import _build
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+
+    out = ROOT / "build" / "ab_classes"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, (header, body) in VARIANTS.items():
+        for suffix, type_ in (("", "mdt::bf16"), ("_f32", "float")):
+            src = out / f"{name}{suffix}.cu"
+            src.write_text(SOURCE.format(header=header, type=type_,
+                                         body=body))
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
+                   "-o", str(src.with_suffix(".so")), str(src)]
+            procs[name + suffix] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+    libs = {}
+    for key, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        lib = ctypes.CDLL(str(out / f"{key}.so"))
+        lib.kernel_error_string.argtypes = [ctypes.c_int]
+        lib.kernel_error_string.restype = ctypes.c_char_p
+        libs[key] = fa._bind(lib, "_ab")
+    return libs
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--wide", action="store_true",
+                    help="only the comparisons above head dim 32")
+    args = ap.parse_args()
     import torch
 
     import chip_smoke
-    from moditalker_tpu_torch.ops import rotary
-    from moditalker_tpu_torch.ops.kernels import (
-        check_bf16, check_float32_route, cuda_stream)
-    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
-    from moditalker_tpu_torch.ops.kernels import divided_backward as db
-    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -63,6 +153,20 @@ def main() -> int:
     def status(lib, rc, entry):
         if rc:
             raise RuntimeError(f"{entry}: {lib.kernel_error_string(rc)}")
+
+    if not args.wide:
+        shipped_against_classes(torch, rnd, run, status)
+    wide_against_classes(torch, rnd, status)
+    return 0
+
+
+def shipped_against_classes(torch, rnd, run, status) -> None:
+    from moditalker_tpu_torch.ops import rotary
+    from moditalker_tpu_torch.ops.kernels import (
+        check_bf16, check_float32_route, cuda_stream)
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    from moditalker_tpu_torch.ops.kernels import divided_backward as db
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
 
     # time forward and backward: [B, 16, 1024, 3·8·64]
     sin, cos = (torch.from_numpy(t).cuda() for t in rotary.time_rotary_sincos(16, 64))
@@ -220,7 +324,74 @@ def main() -> int:
         run(f"one-pass [{b}, {n}, {d}] {dtype}".replace("torch.", ""),
             lambda f=onepass: f(False), lambda f=onepass: f(True),
             check_onepass)
-    return 0
+
+
+
+def wide_against_classes(torch, rnd, status) -> None:
+    import chip_smoke
+    from moditalker_tpu_torch.ops.kernels import (
+        check_bf16, check_float32_route, cuda_stream)
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+
+    # above head dim 32: the small-head class against the wgmma tile, and
+    # the wgmma tile built for 64 against the configurations' tile
+    ab = build_variants()
+    cases = [("class", "wide", 16, 2048, d)
+             for d in (40, 48, 56, 72, 80, 96, 112, 128)]
+    cases += [("class", "wide", 4, 2048, 128),
+              ("shipped", "wide", 16, 2048, 64),
+              ("shipped", "wide", 128, 1024, 64)]
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        suffix = "_f32" if f32 else ""
+        for first, second, b, n, d in cases:
+            q, k, v = (rnd(b, n, d, dtype=dtype) for _ in range(3))
+            o = torch.empty_like(q)
+            # the wide tile above 64 is the library the wrappers load
+            shipped_wide = d > 64
+            libs = {"class": ab["class" + suffix],
+                    "wide": ((fa._wide_lib_f32() if f32 else fa._wide_lib())
+                             if shipped_wide else ab["wide" + suffix]),
+                    "shipped": fa._lib_f32() if f32 else fa._lib()}
+            entries = {"class": "fused_attention_ab",
+                       "wide": ("fused_attention_wide" + suffix
+                                if shipped_wide else "fused_attention_ab"),
+                       "shipped": "fused_attention" + suffix}
+
+            def tile(which, q=q, k=k, v=v, o=o, b=b, n=n, d=d, libs=libs,
+                     entries=entries):
+                lib, entry = libs[which], entries[which]
+                status(lib, getattr(lib, entry)(
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
+                    n, n, d, d**-0.5, cuda_stream(q)), entry)
+                return o
+
+            times = {first: [], second: []}
+            for which in (first, second, second, first):
+                times[which].append(chip_smoke.time_ms(
+                    torch, lambda t=tile, w=which: t(w)))
+            x = [t.float() for t in (q, k, v)]
+            errs, outs = {}, {}
+            for which in (first, second):
+                outs[which] = got = tile(which).clone()
+                errs[which] = check_bf16("onepass_attention", got,
+                                         fa.onepass_attention_reference(
+                                             *x, d**-0.5))
+                if f32:
+                    errs[which] = check_float32_route(
+                        "onepass_attention", got,
+                        fa.attention_float32_route(*x, d**-0.5))
+            a_ms, b_ms = min(times[first]), min(times[second])
+            print(json.dumps({
+                "case": f"one-pass [{b}, {n}, {d}] {dtype}".replace(
+                    "torch.", ""),
+                f"{first}_ms": times[first], f"{second}_ms": times[second],
+                f"{second}_over_{first}": b_ms / a_ms,
+                "faster": second if b_ms < a_ms else first,
+                "equal_bit_for_bit": bool(torch.equal(outs[first],
+                                                      outs[second])),
+                "errors": {w: [float(f"{e:.4g}") for e in errs[w]]
+                           for w in errs}}), flush=True)
 
 
 if __name__ == "__main__":

@@ -5,18 +5,24 @@ The float32 route rounds p to bf16 for P·V, so a score that differs from
 the kernel's by one fp32 ulp now and then moves a p across its rounding
 boundary and the whole output row with it: at a few thousand output rows
 one such row decides the 0.999 quantile of ``FLOAT32_ROUTE_LIMITS``. This
-runs the tiny-L and the one-pass/fused kernels (float32) on seeded inputs
-and compares each with the route's function computed from scores summed
-six ways: a float32 ``matmul`` (cuBLAS), the exact sum rounded once, and
-the tensor-core model of ``flash_attention.mma_products`` (per step of
+runs the tiny-L and the one-pass/fused kernels (float32) on seeded inputs,
+and the wgmma tile built per width past head dim 128 on random inputs and
+on the masked-edge check's (``--wide``: these alone), and compares each
+with the route's function computed from scores summed six ways: a
+float32 ``matmul`` (cuBLAS), the exact sum rounded once, and the
+tensor-core model of ``flash_attention.mma_products`` (per step of
 ``block`` products plus the accumulator, aligned to the largest, cut to
 ``bits`` bits, the sum rounded toward zero) at (16, 24..27) and (8, 26).
 Prints, per case and variant, the output rows that differ from the
 kernel's by more than 2e-6 of the output's peak and, of those, the rows
 that hold a p (as the exact sum gives it) within 2e-6 of a bf16 rounding
-midpoint, and the three measures of ``relative_errors``.
+midpoint, and the three measures of ``relative_errors``, and the same for
+``attention_float32_route`` itself, with ``exp`` and with ``exp2``
+(the kernels' ex2); per case, the
+rows a thousandth of the output holds (as many rows off decide the
+quantile measure).
 
-    python3 tools/mma_sum.py [--seeds 3]     # repository root, on a card
+    python3 tools/mma_sum.py [--seeds 3] [--wide]   # repo root, on a card
 """
 
 from __future__ import annotations
@@ -33,11 +39,13 @@ L2E = 1.4426950408889634
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, default=3)
+    ap.add_argument("--wide", action="store_true",
+                    help="only the wgmma tile built per width")
     args = ap.parse_args()
     import torch
 
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
-    from moditalker_tpu_torch.ops.kernels import relative_errors
+    from moditalker_tpu_torch.ops.kernels import QUANTILE, relative_errors
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -64,17 +72,17 @@ def main() -> int:
            for b in (24, 25, 26, 27)},
         "block 8, 26 bits": lambda q, k: model(q, k, 8, 26)}
 
-    def route(s, v, ex2):
+    def route(s, v, ex2, tile):
         # attention_float32_route from the scores on: the kernels' online
-        # softmax over 128-key tiles; ex2: p = 2^(s·log2e − m·log2e), the
-        # small-head tile's form (tiny-L takes expf)
+        # softmax over `tile`-key tiles; ex2: p = 2^(s·log2e − m·log2e), the
+        # small-head and wgmma tiles' form (tiny-L takes expf)
         v = v.float().bfloat16().float()
         m = torch.full(s.shape[:-1] + (1,), -torch.inf, device=s.device)
         rs = torch.zeros_like(m)
         out = torch.zeros(s.shape[:-1] + v.shape[-1:], device=s.device)
         near = torch.zeros(s.shape[:-1], dtype=torch.bool, device=s.device)
-        for j in range(0, s.shape[-1], 128):
-            sj = s[..., j:j + 128]
+        for j in range(0, s.shape[-1], tile):
+            sj = s[..., j:j + tile]
             mn = torch.maximum(m, sj.amax(-1, keepdim=True))
             if ex2:
                 a = torch.exp2((m - mn) * L2E)
@@ -83,7 +91,7 @@ def main() -> int:
                 a, p = torch.exp(m - mn), torch.exp(sj - mn)
             rs = rs * a + p.sum(-1, keepdim=True)
             out = out * a + torch.matmul(p.bfloat16().float(),
-                                         v[..., j:j + 128, :])
+                                         v[..., j:j + tile, :])
             m = mn
             # p within 2e-6 of the midpoint between two bf16 neighbours
             mid = ((p.contiguous().view(torch.int32) & ~0xFFFF) | 0x8000
@@ -94,10 +102,23 @@ def main() -> int:
     def case(tag, got, q, k, v, scale, ex2):
         qs = (q * scale).bfloat16().float()
         kb = k.bfloat16().float()
-        print(tag, flush=True)
-        _, near = route(variants["exact"](qs, kb), v, ex2)
-        for name, scores in variants.items():
-            r, _ = route(scores(qs, kb), v, ex2)
+        tile = fa.key_tile(q.shape[-1]) if ex2 else 128
+        rows = got.numel() // got.shape[-1]
+        # the output rows a thousandth of the output holds: as many rows
+        # off (each moved as a whole) decide the quantile measure
+        print(f"{tag}: {rows} rows, {tile}-key tiles, the quantile's "
+              f"thousandth {(1 - QUANTILE) * rows:.2f} rows", flush=True)
+        _, near = route(variants["exact"](qs, kb), v, ex2, tile)
+        # the six sums, then the route function itself (its scores are
+        # mma_products'), with exp and with the kernels' ex2
+        routes = {name: (lambda s=scores: route(s(qs, kb), v, ex2, tile)[0])
+                  for name, scores in variants.items()}
+        routes["route, exp"] = lambda: fa.attention_float32_route(
+            q, k, v, scale)
+        routes["route, exp2"] = lambda: fa.attention_float32_route(
+            q, k, v, scale, exp2=True)
+        for name, r in routes.items():
+            r = r()
             off = (got - r).abs().amax(-1) > 2e-6 * r.abs().max()
             print("   %-18s rows off %5d (near a midpoint %5d)  max %.3e "
                   "rms %.3e quantile %.3e"
@@ -105,22 +126,47 @@ def main() -> int:
                      *relative_errors(got, r)), flush=True)
 
     for seed in range(args.seeds):
-        for b, l, d in ((130, 32, 128), (4224, 24, 128), (4096, 32, 64),
-                        (4096, 16, 64)):
+        if not args.wide:
+            for b, l, d in ((130, 32, 128), (4224, 24, 128), (4096, 32, 64),
+                            (4096, 16, 64)):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                q, k, v = (torch.randn(b, l, d, generator=g, device="cuda")
+                           for _ in range(3))
+                case(f"tiny-L {[b, l, d]} float32, seed {seed}",
+                     fa.tiny_attention(q, k, v, d**-0.5), q, k, v, d**-0.5,
+                     False)
+            for b, nq, nk, d in ((3, 64, 64, 120), (3, 64, 64, 128),
+                                 (2, 200, 2048, 128), (1, 1024, 1024, 120),
+                                 (3, 64, 64, 56), (3, 64, 64, 64),
+                                 (2, 1024, 1024, 64), (2, 1024, 1024, 32)):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                q = torch.randn(b, nq, d, generator=g, device="cuda")
+                k, v = (torch.randn(b, nk, d, generator=g, device="cuda")
+                        for _ in range(2))
+                case(f"fused q {[b, nq, d]} k {[b, nk, d]} float32, "
+                     f"seed {seed}", fa.fused_attention(q, k, v), q, k, v,
+                     d**-0.5, True)
+        # the wgmma tile built per width (64-key tiles past head dim 128;
+        # past 256 groups of 256 output columns): random inputs, and the
+        # masked-edge inputs of the card test and chip_smoke.py (q and k
+        # about one direction of opposite signs, scores about -7; a short
+        # last key tile)
+        for b, nq, nk, d, tight in ((2, 130, 512, 512, False),
+                                    (8, 1000, 512, 512, False),
+                                    (4, 1000, 384, 256, False),
+                                    (2, 1000, 120, 256, True),
+                                    (2, 1000, 40, 256, True)):
             g = torch.Generator(device="cuda").manual_seed(seed)
-            q, k, v = (torch.randn(b, l, d, generator=g, device="cuda")
-                       for _ in range(3))
-            case(f"tiny-L {[b, l, d]} float32, seed {seed}",
-                 fa.tiny_attention(q, k, v, d**-0.5), q, k, v, d**-0.5, False)
-        for b, nq, nk, d in ((3, 64, 64, 120), (3, 64, 64, 128),
-                             (2, 200, 2048, 128), (1, 1024, 1024, 120),
-                             (3, 64, 64, 56), (3, 64, 64, 64),
-                             (2, 1024, 1024, 64), (2, 1024, 1024, 32)):
-            g = torch.Generator(device="cuda").manual_seed(seed)
-            q = torch.randn(b, nq, d, generator=g, device="cuda")
-            k, v = (torch.randn(b, nk, d, generator=g, device="cuda")
-                    for _ in range(2))
-            case(f"fused q {[b, nq, d]} k {[b, nk, d]} float32, seed {seed}",
+            randn = lambda *shape: torch.randn(shape, generator=g,
+                                               device="cuda")
+            if tight:
+                c = 0.66 * randn(1, 1, d)
+                q, k = c + 0.5 * randn(b, nq, d), -c + 0.5 * randn(b, nk, d)
+            else:
+                q, k = randn(b, nq, d), randn(b, nk, d)
+            v = randn(b, nk, d)
+            case(f"fused q {[b, nq, d]} k {[b, nk, d]} float32"
+                 f"{', scores about -7' if tight else ''}, seed {seed}",
                  fa.fused_attention(q, k, v), q, k, v, d**-0.5, True)
     return 0
 
