@@ -62,7 +62,15 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              float32 against the float32 plain version: one-pass at
              [B·2, 2048, 128] (base.yaml with num_heads: 2) and
              [16, 2048, 128], fused at [16, 1024, d] for d = 136, 256 and
-             512 (two groups of 256 columns);
+             512 (two groups of 256 columns). The space kernel's
+             pre-rotated design (``csrc/divided_space.cuh``: a rotation
+             pre-pass, then the wgmma tile built per width or the
+             small-head tile) at qkv [2, 16, 1024, 1536] in 4 heads of 128,
+             16 of 32 and 32 of 16, bf16 and float32, and in float32 at
+             head dim 64 over 2048 tokens; the space backward's classes at
+             train-first-stage's qkv in 4 heads of 128 and 16 of 32. Every
+             float32 space row is held to the route in the kernels' ex2
+             form (``exp2=True``);
    masked padding — the time kernels at clips of 8 and 24 frames (padded
              to the 16- and 32-frame tiles) with every real score large and
              negative, forward and backward against their float32 route;
@@ -97,7 +105,8 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              the fast-mode ``sample_long`` over 3 autoregressive windows at
              B = 1 (renoise ratio 0.25 from the reference window), then
              ``sample_independent`` again on the modular-attention path,
-             each timed warm, after one untimed run of the same call. The
+             each timed warm, after one untimed run of the same call at
+             DDIM-2 (the shapes of DDIM-100 in a fiftieth of its time). The
              launch counters are zeroed just before each path and read just
              after: the fused paths must have launched the divided space and
              time, packed and one-pass kernels and no other; the modular path
@@ -212,7 +221,14 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              D cycle against the CPU within FIRST_STAGE_LIMITS); a
              small-depth window of the 192-channel UNet against the CPU
              (one-pass at head dims 24 and 48), and one of the UNet with
-             num_heads: 2 (one-pass at head dims 64 and 128);
+             num_heads: 2 (one-pass at head dims 64 and 128); base.yaml's
+             AE with its 512 attention channels in 4 heads of 128 and in
+             16 of 32 (the space kernel's pre-rotated design): a
+             full-width extract and decode at B = 2 in bf16, timed with
+             their launches, a small-depth window against the CPU within
+             REF_FACTOR and a small-depth G and D cycle of the first stage
+             against the CPU within FIRST_STAGE_LIMITS (the space
+             backward's classes at head dims 128 and 32);
 13. i3d    — InceptionI3d (random He-scaled weights) on [2, 16, 224, 224, 3]
              on the card against the CPU within I3D_LIMIT, and the FVD
              between two sets of 8 synthetic clips through the card's I3D
@@ -238,8 +254,10 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              writes a Chrome trace holding the ``annotate`` span and the
              card's kernels; ``step_timer`` logs the step.
 
-Without a CUDA device, or run outside the repository, it exits nonzero and
-prints no result.
+Each phase logs its seconds on the host clock ("phase <name>: ... s"),
+and the result line keeps them under ``phase_seconds``. Without a CUDA
+device, or run outside the repository, it exits nonzero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -303,25 +321,31 @@ LONGVID_YAML = "configs/latent-diffusion/base_longvid.yaml"
 # 512 tokens and everything at ds ≥ 2 pass no gate
 LONGVID_ONEPASS_PER_CALL = {(2048, 32): 5, (1024, 32): 5, (2048, 64): 1}
 SWITCHES = ("MODITALKER_NO_DIVIDED_FUSED", "MODITALKER_NO_PACKED_ATTN")
-# the variants phase: shipped configurations each changed by one key,
+# the variants phase: shipped configurations each changed in one section,
 # written to a temporary YAML that load_config reads (nothing is added
-# under configs/): (shipped file, section, key, value). Clips of 32 frames
-# for ``sample``, of 8 for train-first-stage, a 192-channel UNet
+# under configs/): (shipped file, section, {key: value}). Clips of 32
+# frames for ``sample``, of 8 for train-first-stage, a 192-channel UNet,
+# the UNet in 2 heads, the AE's 512 attention channels in 4 heads of 128
+# and in 16 of 32 (the space kernel's pre-rotated design)
 VARIANT_CLIP_FRAMES = 32
 VARIANT_TRAIN_FRAMES = 8
 VARIANT_CHANNELS = 192
 # two UNet heads: at 128 channels heads of 64, after the last upsample of
 # 128, both through the one-pass kernel (no head is 16 wide)
 VARIANT_UNET_HEADS = 2
+VARIANT_AE_HEADS = ((4, 128), (16, 32))   # (heads, dim_head)
 VARIANTS = {
-    "clip32": ("configs/latent-diffusion/base.yaml", "mtov_ae", "timesteps",
-               VARIANT_CLIP_FRAMES),
-    "clip8": ("configs/autoencoder/base_gan.yaml", "mtov_ae", "timesteps",
-              VARIANT_TRAIN_FRAMES),
+    "clip32": ("configs/latent-diffusion/base.yaml", "mtov_ae",
+               {"timesteps": VARIANT_CLIP_FRAMES}),
+    "clip8": ("configs/autoencoder/base_gan.yaml", "mtov_ae",
+              {"timesteps": VARIANT_TRAIN_FRAMES}),
     "channels192": ("configs/latent-diffusion/base.yaml", "mtov_unet",
-                    "model_channels", VARIANT_CHANNELS),
+                    {"model_channels": VARIANT_CHANNELS}),
     "num_heads2": ("configs/latent-diffusion/base.yaml", "mtov_unet",
-                   "num_heads", VARIANT_UNET_HEADS),
+                   {"num_heads": VARIANT_UNET_HEADS}),
+    **{f"ae_heads{h}x{d}": ("configs/autoencoder/base.yaml", "mtov_ae",
+                            {"heads": h, "dim_head": d})
+       for h, d in VARIANT_AE_HEADS},
 }
 # the UNet's launches per call at batch 2, by kernel and shape, on each
 # path (held on the CPU against the JAX gates:
@@ -456,6 +480,19 @@ H100_EX2_PER_CLOCK_PER_SM = 16
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def phase(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, one phase of the run: its seconds on the
+    host clock are logged and kept under ``name`` in PHASE_SECONDS."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    log(f"phase {name}: {PHASE_SECONDS[name]:.1f} s")
+    return out
 
 
 def card_line() -> str:
@@ -665,9 +702,11 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         oracle = (lambda: dv.divided_attention_reference(
             qkv.float(), sin, cos, axis, heads, dh, scale, use_flash=False)
         ) if plain32 else plain
+        # float32 space rows against the route in the kernels' ex2 form
         err = errors(name, kern, oracle,
                      lambda: dv.divided_attention_float32_route(
-                         qkv, sin, cos, axis, heads, dh, scale),
+                         qkv, sin, cos, axis, heads, dh, scale,
+                         exp2=axis == "space"),
                      dtype=qkv.dtype if plain32 else None)
         q, k, v = head_split_rotated(qkv, sin, cos, axis, heads, dh)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
@@ -888,9 +927,12 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     rows += [divided_row(axis, 1, f, n, g=gen_fs, dtype=f32)
              for axis in ("space", "time")]
 
-    def backward_row(axis, g, dtype, f=f, source="divided_backward"):
+    def backward_row(axis, g, dtype, f=f, source="divided_backward",
+                     heads=heads, dh=dh):
         """The backward kernel at train-first-stage's qkv [1, 16, 1024,
-        1536] (``f``: its clips of another length): dqkv against the float32
+        1536] (``f``: its clips of another length; ``heads`` of ``dh``: the
+        AE's 512 channels split another way, the classes' backward):
+        dqkv against the float32
         plain backward (the written-out adjoints) and, in float32, against
         its float32 route's function; two calls equal bit for bit. Timed
         beside the plain backward, the recompute it replaced
@@ -898,6 +940,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         and the library's attention backward alone (``torch.autograd.grad``
         through ``scaled_dot_product_attention`` on the rotated, head-split
         float32 q, k, v)."""
+        hd, scale = heads * dh, dh**-0.5
         sin, cos = (tables(rotary.axial_rotary_sincos(32, n // 32, dh))
                     if axis == "space" else
                     tables(rotary.time_rotary_sincos(f, dh)))
@@ -941,7 +984,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                                            scale, use_flash=False),
             x, cot.float())
         q, k, v = (t.requires_grad_() for t in
-                   head_split_rotated(qkv.float(), sin, cos, axis))
+                   head_split_rotated(qkv.float(), sin, cos, axis, heads, dh))
         lib_out = F.scaled_dot_product_attention(q, k, v, scale=scale)
         lib_cot = torch.randn(lib_out.shape, generator=g, device=dev)
         library = lambda: torch.autograd.grad(lib_out, (q, k, v), lib_cot,
@@ -955,7 +998,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             name=name, route="cuda",
             source=f"moditalker_tpu_torch/csrc/{source}.cu",
             replaces="moditalker_tpu/ops/pallas/divided_attention.py:317",
-            shape=list(qkv.shape), **err,
+            shape=list(qkv.shape), heads=[heads, dh], **err,
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             recompute_ms=device_ms(torch, recompute),
             library_ms=device_ms(torch, library),
@@ -1041,13 +1084,25 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                 lambda q=q, k=k, v=v, d_=d_: fa.fused_attention_reference(
                     q, k, v, d_**-0.5),
                 q, k, v, d_**-0.5, plain32=True))
-    # the space classes (the small-head tile with the rotary) at head dims
-    # 32 and 128 beside the library call: the AE's 512 channels in 16 heads
-    # of 32 and in 4 of 128, bf16 and float32
+    # the space kernel's pre-rotated design (csrc/divided_space.cuh) at
+    # the AE's 512 channels in 4 heads of 128, 16 of 32 and 32 of 16 (the
+    # variants phase's AEs), bf16 and float32, and in float32 at head dim
+    # 64 past resident K (2048 tokens); the space backward's classes at
+    # train-first-stage's qkv in 4 heads of 128 and 16 of 32
+    pre = ("a rotation pre-pass (q rotated and scaled, k rotated, bf16, "
+           "once per call), then the wgmma tile built per width (128; 64 "
+           "in float32) or the small-head tile (up to 32) on it, raw")
     for dtype in (torch.bfloat16, f32):
-        rows += [divided_row("space", batch, f, n, g=gen_wd, dtype=dtype,
-                             source="divided_classes", plain32=True,
-                             heads=hd // dh_, dh=dh_) for dh_ in (32, 128)]
+        rows += [dict(divided_row("space", batch, f, n, g=gen_wd,
+                                  dtype=dtype, source="divided_classes",
+                                  plain32=True, heads=hd // dh_, dh=dh_),
+                      design=pre) for dh_ in (128, 32, 16)]
+    rows.append(divided_row("space", batch, 1, 2048, g=gen_wd, dtype=f32,
+                            source="divided_classes", plain32=True))
+    rows += [backward_row("space", gen_wd, dtype,
+                          source="divided_backward_classes",
+                          heads=hd // dh_, dh=dh_)
+             for dtype in (f32, torch.bfloat16) for dh_ in (128, 32)]
 
     # the softmax floor: one ex2 per score at the clock the SMs hold under
     # load (read while the space kernel keeps the card busy)
@@ -1068,7 +1123,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         floor_ms = row.pop("scores") / ex2_per_ms
         first = row["shape"][0] if isinstance(row["shape"][0], list) \
             else row["shape"]
+        # (the replaced designs were timed at the configurations' heads)
         before = (None if row["dtype"] == "float32"
+                  or row.get("heads", [heads, dh]) != [heads, dh]
                   else BEFORE_REDESIGN_MS.get((row["name"], tuple(first))))
         log(f"{row['name']} at {row['shape']} {row['dtype']}"
             + (f" ({row['heads'][0]} heads of {row['heads'][1]})"
@@ -1868,7 +1925,8 @@ def backward_events(torch, fn):
 
 def first_stage_check(torch, seed: int, loss_cfg=None,
                       freeze_decoder: bool = False,
-                      frames: int | None = None) -> dict:
+                      frames: int | None = None, heads: int = 2,
+                      dim_head: int = 64) -> dict:
     """Two cycles of ``FirstStageTrainer`` at a small depth but the full
     spatial size (AE 64 wide, depth 1, 2 heads of 64, so that the space and
     time gates pass; the published discriminators and full LPIPS-VGG16;
@@ -1881,15 +1939,17 @@ def first_stage_check(torch, seed: int, loss_cfg=None,
     cycle); at a later disc_start both cycles are G cycles and the
     discriminators are not compared. ``freeze_decoder``: the landmark AE
     (its trainable parameters compared, on landmark clips). ``frames``:
-    clips of another length than the configuration's 16."""
+    clips of another length than the configuration's 16. ``heads`` of
+    ``dim_head``: the AE's attention split another way."""
     from moditalker_tpu_torch.config import (MtovAEConfig, MtovLossConfig,
                                              MtovTrainConfig)
     from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
     from moditalker_tpu_torch.ops.kernels import reset_launch_counts
     from moditalker_tpu_torch.train.mtov_first_stage import FirstStageTrainer
 
-    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=2, dim_head=64,
-                          quant_depth=1, quant_heads=2, quant_mlp_dim=64,
+    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=heads,
+                          dim_head=dim_head, quant_depth=1, quant_heads=2,
+                          quant_mlp_dim=64,
                           **({"timesteps": frames} if frames else {}))
     loss_cfg = loss_cfg or MtovLossConfig(disc_start=-1)
     tc = MtovTrainConfig(seed=seed)
@@ -2237,7 +2297,7 @@ def make_windows(cfg, n: int, batch: int, seed: int):
 def reference_phase(torch, seed: int, what: str, expected: set,
                     heads: int = 2, batch: int = 1,
                     model_channels: int = 128, frames: int = 16,
-                    unet_heads: int = 8) -> dict:
+                    unet_heads: int = 8, dim_head: int = 64) -> dict:
     """A small-depth window on the card (bf16, kernels) against the CPU in
     float32 (plain path), with the same weights and the same draws. The
     same window on the CPU in bf16 (plain path) measures what bf16 alone
@@ -2246,17 +2306,17 @@ def reference_phase(torch, seed: int, what: str, expected: set,
     must launch. ``model_channels`` 256: the UNet of base_longvid.yaml at
     the same small depth (192: the variants phase's). ``frames``: clips of
     another length (the UNet's latent_t follows). ``unet_heads``: the
-    UNet's num_heads. Returns the errors and the card's launches by
-    shape."""
+    UNet's num_heads. ``heads`` of ``dim_head``: the AE's attention.
+    Returns the errors and the card's launches by shape."""
     from moditalker_tpu_torch.config import (MtovAEConfig,
                                              MtovDiffusionConfig,
                                              MtovUNetConfig)
     from moditalker_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
     from moditalker_tpu_torch.pipelines.mtov_sample import MtovSamplePipeline
 
-    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=heads, dim_head=64,
-                          quant_depth=1, quant_heads=2, quant_mlp_dim=64,
-                          timesteps=frames)
+    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=heads,
+                          dim_head=dim_head, quant_depth=1, quant_heads=2,
+                          quant_mlp_dim=64, timesteps=frames)
     # channel_mult (1, 2): the last upsample lands 2·model_channels at
     # ds = 1, so the joint attention there takes the one-pass kernel, as in
     # the full UNet (at 256 channels every gated attention does)
@@ -2399,11 +2459,10 @@ def check_frames(video, frames: int, cfg, what: str) -> None:
 def main_path_phase(torch, seed: int, longvid: bool = False) -> dict:
     """``sample_independent`` (2 windows at batch 2, DDIM-100) and the
     fast-mode ``sample_long`` (3 windows at B = 1) at full width, each
-    timed after an untimed run of the same call, then ``sample_independent``
-    on the modular-attention path. ``longvid``: the UNet of
-    base_longvid.yaml (256 channels) and the fused path only, the untimed
-    runs at DDIM-2, each one-pass count by shape as
-    LONGVID_ONEPASS_PER_CALL predicts."""
+    timed after an untimed run of the same call at DDIM-2, then
+    ``sample_independent`` on the modular-attention path. ``longvid``: the
+    UNet of base_longvid.yaml (256 channels) and the fused path only, each
+    one-pass count by shape as LONGVID_ONEPASS_PER_CALL predicts."""
     import dataclasses
 
     from moditalker_tpu_torch.config import (MtovAEConfig,
@@ -2442,11 +2501,8 @@ def main_path_phase(torch, seed: int, longvid: bool = False) -> dict:
 
     @contextlib.contextmanager
     def warm_up():
-        """The untimed pass; the longvid paths' at DDIM-2, which meets the
-        shapes of DDIM-100 in a fiftieth of its time."""
-        if not longvid:
-            yield
-            return
+        """The untimed pass, at DDIM-2, which meets the shapes of DDIM-100
+        in a fiftieth of its time."""
         full = pipe.ddpm
         pipe.ddpm = dataclasses.replace(full, cfg=dataclasses.replace(
             full.cfg, sampling_timesteps=2))
@@ -2483,9 +2539,11 @@ def main_path_phase(torch, seed: int, longvid: bool = False) -> dict:
     with modular_attention():
         for label in ("modular sample_independent (warm-up)",
                       "modular sample_independent"):
-            fps_mod = drive(label, lambda: pipe.sample_independent(
-                make_windows(ae_cfg, 2, 1, seed), gen, batch=2), 2 * t,
-                MODULAR_PATH)
+            with (warm_up() if "warm-up" in label
+                  else contextlib.nullcontext()):
+                fps_mod = drive(label, lambda: pipe.sample_independent(
+                    make_windows(ae_cfg, 2, 1, seed), gen, batch=2), 2 * t,
+                    MODULAR_PATH)
     return {"launches": launches, "launches_by_shape": by_shape,
             "sample_independent_fps": fps_ind,
             "sample_long_fps": fps_long,
@@ -3389,14 +3447,14 @@ def profiling_phase(torch, pipe, seed: int) -> dict:
 
 # ------------------------------------------------------------------ variants
 def variant_yaml(name: str, directory: str) -> str:
-    """The shipped YAML of ``VARIANTS[name]`` with its one key changed,
+    """The shipped YAML of ``VARIANTS[name]`` with its keys changed,
     written into ``directory``; returns the file's path."""
     import yaml
 
-    src, section, key, value = VARIANTS[name]
+    src, section, changes = VARIANTS[name]
     with open(src) as fh:
         data = yaml.safe_load(fh) or {}
-    data.setdefault(section, {})[key] = value
+    data.setdefault(section, {}).update(changes)
     path = os.path.join(directory, f"{name}.yaml")
     with open(path, "w") as fh:
         yaml.safe_dump(data, fh)
@@ -3577,6 +3635,78 @@ def first_stage_frames_phase(torch, seed: int, config: str) -> dict:
             "card_vs_cpu": check}
 
 
+def ae_heads_phase(torch, seed: int, config: str) -> dict:
+    """The AE of ``config`` (base.yaml's, its 512 attention channels in
+    other heads: the divided space kernel's pre-rotated design, the time
+    kernel's head-dim class) at full width, bf16, weights from the seed: one
+    extract of a B = 2 clip and one decode of a B = 2 latent, each timed
+    warm over 3 calls on the host clock after a synchronise, with its
+    launches (the space and time kernels and no other, the space kernel's
+    every launch the pre-rotated design's); the outputs finite and of their
+    shapes. Then a small-depth window with such heads against the CPU
+    (``reference_phase``) and a small-depth G and D cycle of the first
+    stage against the CPU within FIRST_STAGE_LIMITS (``first_stage_check``:
+    the space backward's classes)."""
+    from moditalker_tpu_torch.config import load_config
+    from moditalker_tpu_torch.models.mtov import ViTAutoencoder
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+
+    ae_cfg = load_config(config).mtov_ae
+    heads, dh = ae_cfg.heads, ae_cfg.dim_head
+    what = f"variants AE in {heads} heads of {dh}"
+    n = (ae_cfg.resolution // ae_cfg.patch_size) ** 2
+    if not dv.space_prerotated(dh, n, False):
+        raise AssertionError(f"{what}: not the space kernel's pre-rotated "
+                             f"design")
+    torch.manual_seed(seed)
+    ae = ViTAutoencoder(ae_cfg, torch.bfloat16).to("cuda").eval()
+    ae.requires_grad_(False)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, reps = 2, 3
+    video = torch.randint(0, 256, (b, ae_cfg.timesteps, ae_cfg.resolution,
+                                   ae_cfg.resolution, 3), generator=g,
+                          device="cuda", dtype=torch.uint8).float() / 127.5 - 1
+    latent = torch.randn((b, ae_cfg.embed_dim, ae_cfg.latent_len),
+                         generator=g, device="cuda")
+    shapes = {"extract": (b, ae_cfg.embed_dim, ae_cfg.latent_len),
+              "decode": tuple(video.shape)}
+    result = {}
+    with torch.inference_mode():
+        for name, fn in (("extract", lambda: ae.extract(video)),
+                         ("decode", lambda: ae.decode_from_sample(latent))):
+            fn()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / reps * 1e3
+            counts = check_launches(f"{what} {name}",
+                                    {"divided_space_attention",
+                                     "divided_time_attention"})
+            by_shape = launches_by_shape()
+            if (tuple(out.shape) != shapes[name]
+                    or not torch.isfinite(out).all()
+                    or counts["divided_space_attention"] !=
+                    reps * ae_cfg.depth):
+                raise AssertionError(f"{what} {name}: {list(out.shape)}, "
+                                     f"launches {by_shape}")
+            result[name] = {"ms": ms, "launches": counts,
+                            "launches_by_shape": by_shape}
+            log(f"{what} {name} at full width, B = {b}, bf16: {ms:.2f} ms a "
+                f"call (host clock, {reps} calls); launches by shape "
+                f"{by_shape}")
+    del ae
+    torch.cuda.empty_cache()
+    result["reference"] = reference_phase(
+        torch, seed, what, FUSED_PATH, heads=heads, dim_head=dh)
+    result["first_stage"] = first_stage_check(torch, seed, heads=heads,
+                                              dim_head=dh)
+    return result
+
+
 def variants_phase(torch, seed: int) -> dict:
     """Shipped configurations changed by one key each (VARIANTS), read by
     ``load_config`` from temporary YAMLs: ``sample`` at clips of 32 frames
@@ -3586,7 +3716,8 @@ def variants_phase(torch, seed: int) -> dict:
     of the 192-channel UNet against the CPU, its one-pass launches at head
     dims 24 and 48; a small-depth window of the UNet with two heads against
     the CPU, its one-pass launches at head dims 64 and 128 (the wide
-    tile's). The counts are zeroed before each path and read after it."""
+    tile's); the AE in 4 heads of 128 and in 16 of 32 (``ae_heads_phase``).
+    The counts are zeroed before each path and read after it."""
     from moditalker_tpu_torch.config import load_config
 
     out = {}
@@ -3627,6 +3758,11 @@ def variants_phase(torch, seed: int) -> dict:
             raise AssertionError(f"variants num_heads2: one-pass at head "
                                  f"dims {dims}")
         out["num_heads2"] = {"reference": ref}
+        for h, d in VARIANT_AE_HEADS:
+            torch.cuda.empty_cache()
+            name = f"ae_heads{h}x{d}"
+            out[name] = phase(f"variants {name}", ae_heads_phase, torch,
+                              seed, paths[name])
     return out
 
 
@@ -3656,7 +3792,8 @@ def main() -> int:
 
     t_start = t0 = time.perf_counter()
     logs = _build.build(all_sources())
-    log(f"build: {time.perf_counter() - t0:.1f} s")
+    PHASE_SECONDS["build"] = time.perf_counter() - t0
+    log(f"build: {PHASE_SECONDS['build']:.1f} s")
     for name, (secs, out) in logs.items():
         for line in out.splitlines():   # per kernel: registers, spills
             if "Compiling entry" in line or "Used" in line or "spill" in line:
@@ -3674,28 +3811,34 @@ def main() -> int:
     # matmul default; cuDNN's convolutions would default to TF32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    rows = kernel_phase(torch, batch=2, seed=args.seed)
-    masked = masked_padding_check(torch, args.seed)
-    masked["fused"] = fused_masked_edge_check(torch, args.seed)
-    grads = gradient_phase(torch, args.seed)
+    rows = phase("kernels", kernel_phase, torch, batch=2, seed=args.seed)
+    masked = phase("masked padding", masked_padding_check, torch, args.seed)
+    masked["fused"] = phase("fused masked edge", fused_masked_edge_check,
+                            torch, args.seed)
+    grads = phase("gradients", gradient_phase, torch, args.seed)
     if args.kernels_only:
         return 0
-    reference_phase(torch, args.seed, "fused", FUSED_PATH)
+    phase("reference fused", reference_phase, torch, args.seed, "fused",
+          FUSED_PATH)
     with modular_attention():
         # 2·4·1024 = 8192 folded sequences: the time attention passes the
         # tiny-L gate (at B = 1 and 2 heads it would not)
-        reference_phase(torch, args.seed, "modular", MODULAR_PATH, heads=4,
-                        batch=2)
+        phase("reference modular", reference_phase, torch, args.seed,
+              "modular", MODULAR_PATH, heads=4, batch=2)
     longvid = {"reference": {
-        "fused": reference_phase(torch, args.seed, "longvid fused",
-                                 LONGVID_PATH, model_channels=256)}}
+        "fused": phase("reference longvid fused", reference_phase, torch,
+                       args.seed, "longvid fused", LONGVID_PATH,
+                       model_channels=256)}}
     with modular_attention():
-        longvid["reference"]["modular"] = reference_phase(
-            torch, args.seed, "longvid modular", MODULAR_PATH, heads=4,
-            batch=2, model_channels=256)
-    longvid["unet_ddim2"] = longvid_unet_check(torch, args.seed)
-    result = main_path_phase(torch, args.seed)
-    longvid_result = main_path_phase(torch, args.seed, longvid=True)
+        longvid["reference"]["modular"] = phase(
+            "reference longvid modular", reference_phase, torch, args.seed,
+            "longvid modular", MODULAR_PATH, heads=4, batch=2,
+            model_channels=256)
+    longvid["unet_ddim2"] = phase("longvid UNet DDIM-2", longvid_unet_check,
+                                  torch, args.seed)
+    result = phase("main path", main_path_phase, torch, args.seed)
+    longvid_result = phase("longvid main path", main_path_phase, torch,
+                           args.seed, longvid=True)
     # the AEs' launches are those of the 128-channel path
     for path in ("sample_independent", "sample_long"):
         for name in ("divided_space_attention", "divided_time_attention"):
@@ -3703,34 +3846,44 @@ def main() -> int:
                     != result["launches_by_shape"][path][name]):
                 raise AssertionError(f"longvid {path}: {name}'s launches "
                                      f"differ from the 128-channel path's")
-    longvid["profile"] = profile_phase(torch, longvid_result.pop("pipe"),
-                                       args.seed, ("unet_step",), "longvid ")
+    longvid["profile"] = phase("longvid profile", profile_phase, torch,
+                               longvid_result.pop("pipe"), args.seed,
+                               ("unet_step",), "longvid ")
     torch.cuda.empty_cache()
     # the command keeps its last pipeline: the 128-channel one stays, as
     # it stayed before the 256-channel paths, under the later phases' peaks
-    longvid_cli = cli_phase(torch, args.seed, LONGVID_YAML)
-    cli_result = cli_phase(torch, args.seed)
-    atom = atom_phase(torch, args.seed)
-    audio = audio_phase(torch, args.seed)
-    align = align_phase(torch, args.seed, audio.pop("lm68_atom"))
-    train_diff = train_diffusion_phase(torch, args.seed)
-    train_diff_modular = train_diffusion_phase(torch, args.seed, modular=True)
-    train_longvid = train_diffusion_longvid_phase(torch, args.seed)
-    train_atom = train_atom_phase(torch, args.seed)
-    first_stage = train_first_stage_phase(torch, args.seed)
+    longvid_cli = phase("longvid cli", cli_phase, torch, args.seed,
+                        LONGVID_YAML)
+    cli_result = phase("cli", cli_phase, torch, args.seed)
+    atom = phase("atom", atom_phase, torch, args.seed)
+    audio = phase("audio", audio_phase, torch, args.seed)
+    align = phase("align", align_phase, torch, args.seed,
+                  audio.pop("lm68_atom"))
+    train_diff = phase("train-diffusion", train_diffusion_phase, torch,
+                       args.seed)
+    train_diff_modular = phase("train-diffusion modular",
+                               train_diffusion_phase, torch, args.seed,
+                               modular=True)
+    train_longvid = phase("train-diffusion longvid",
+                          train_diffusion_longvid_phase, torch, args.seed)
+    train_atom = phase("train-atom", train_atom_phase, torch, args.seed)
+    first_stage = phase("train-first-stage", train_first_stage_phase, torch,
+                        args.seed)
     variants = {
-        "base.yaml": first_stage_variant_phase(
-            torch, args.seed, "configs/autoencoder/base.yaml"),
-        "base_ldmk.yaml --landmark": first_stage_variant_phase(
+        "base.yaml": phase(
+            "train-first-stage base.yaml", first_stage_variant_phase, torch,
+            args.seed, "configs/autoencoder/base.yaml"),
+        "base_ldmk.yaml --landmark": phase(
+            "train-first-stage base_ldmk.yaml", first_stage_variant_phase,
             torch, args.seed, "configs/autoencoder/base_ldmk.yaml",
             landmark=True)}
-    variant_runs = variants_phase(torch, args.seed)
-    i3d = i3d_phase(torch, args.seed)
-    gold = golden_phase(torch, args.seed)
-    distributed = distributed_phase(torch, args.seed)
+    variant_runs = phase("variants", variants_phase, torch, args.seed)
+    i3d = phase("i3d", i3d_phase, torch, args.seed)
+    gold = phase("golden", golden_phase, torch, args.seed)
+    distributed = phase("distributed", distributed_phase, torch, args.seed)
     pipe = result.pop("pipe")
-    prof = profile_phase(torch, pipe, args.seed)
-    profiling = profiling_phase(torch, pipe, args.seed)
+    prof = phase("profile", profile_phase, torch, pipe, args.seed)
+    profiling = phase("profiling", profiling_phase, torch, pipe, args.seed)
 
     timed = {path: counts for path, counts in {
         **result["launches"], **longvid_result["launches"]}.items()
@@ -3754,6 +3907,11 @@ def main() -> int:
             variant_runs["clip32"][p]["launches"]
     timed["variants clip8 train-first-stage"] = \
         variant_runs["clip8"]["launches"]
+    ae_heads = {f"variants AE {h}x{d} {part}": variant_runs[
+        f"ae_heads{h}x{d}"][part] for h, d in VARIANT_AE_HEADS
+        for part in ("extract", "decode")}
+    for what, run in ae_heads.items():
+        timed[what] = run["launches"]
     timed["head_parallel_attention"] = distributed["tp_launches"]
     timed["sample --data-parallel 1"] = distributed["sample_launches"]
     # one line entry per kernel: its first row, the shape its main path
@@ -3790,13 +3948,19 @@ def main() -> int:
                       variant_runs["clip32"][p]["launches_by_shape"]
                       for p in ("fused", "modular")},
                    "variants clip8 train-first-stage":
-                       variant_runs["clip8"]["launches_by_shape"]}
+                       variant_runs["clip8"]["launches_by_shape"],
+                   **{what: run["launches_by_shape"]
+                      for what, run in ae_heads.items()}}
         row["launches_by_shape"] = {
             p: by[row["name"]] for p, by in by_path.items()
             if "warm-up" not in p and row["name"] in by}
     kernels["fused_attention"]["note"] = (
         "op-level only: reached through ops.attention.sdpa_fused, which no "
         "model path calls; launched by the kernels phase")
+    kernels["divided_space_attention"]["note"] = (
+        "at head dims other than 64, and at 64 in float32 past 1152 tokens, "
+        "one counted launch is two kernels: the rotation pre-pass "
+        "(space_rotate_kernel) and the tile")
     seconds = time.perf_counter() - t_start
     log(f"every phase passed in {seconds:.1f} s, the build included")
     print(json.dumps({"frames_per_s": {
@@ -3849,6 +4013,7 @@ def main() -> int:
         "profiling": profiling,
         "gradients": grads, "masked_padding": masked, "card": card,
         "profile": prof,
+        "phase_seconds": PHASE_SECONDS,
         "seconds": seconds}))
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)

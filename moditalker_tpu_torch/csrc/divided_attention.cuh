@@ -45,15 +45,16 @@
 //    ring (the producer gets 56 registers, the consumers 152); the output
 //    leaves straight from the accumulator fragments as 8-byte stores (a
 //    quad writes a whole 32-byte sector). Built for resident K only (N <=
-//    1152). Time: twenty-four 16-byte loads per lane in flight, and the
-//    output staged in fp32 over the warp's q and k buffers, then 16-byte
-//    stores.
+//    1152; past it, divided_space.cuh). Time: twenty-four 16-byte loads per
+//    lane in flight, and the output staged in fp32 over the warp's q and k
+//    buffers, then 16-byte stores.
 //
 // The kernels and their launchers; the C entry points are in
-// divided_attention.cu (bf16) and divided_attention_f32.cu (float32).
+// divided_attention.cu (bf16) and divided_attention_f32.cu (float32). The
+// space kernel at the other head dims, and at 64 in float32 past resident
+// K, is divided_space.cuh's.
 #pragma once
 
-#include "smallhead_tile.cuh"
 #include "tiny_tile.cuh"
 #include "wgmma_tile.cuh"
 
@@ -317,35 +318,6 @@ int launch_space(const void* qkv, const void* rot, void* out, int BF, int N,
                      N * 3 * hd, N * 3 * hd, 3 * hd, N * hd, hd, dh, N, N,
                      scale};
   return launch_wgmma<true, T, T>(a, BF, H, stream);
-}
-
-// The space kernel at the head dims its gate admits beyond the wgmma
-// tile's 64 (dh dividing 128 from 2 up), and at 64 in float32 past resident
-// K (N > 1152: the wgmma tile's float32 route has no K ring with the
-// rotary): the small-head tile with the rotary (smallhead_tile.cuh), per
-// head-dim class, heads of 2, 4 and 8 dims padded to 16 (divided_classes.cu).
-template <typename T>
-int launch_space_classes(const void* qkv, const void* rot, void* out, int BF,
-                         int N, int H, int dh, float scale,
-                         cudaStream_t stream) {
-  if (dh < 2 || dh > 128 || 128 % dh || N < 256 || N % 128)
-    return cudaErrorInvalidValue;
-  const T* base = static_cast<const T*>(qkv);
-  const long hd = (long)H * dh;
-  const SmallHeadArgsT<T> a{base, base + hd, base + 2 * hd,
-                            static_cast<T*>(out), N * 3 * hd, N * 3 * hd,
-                            3 * hd, N * hd, hd, dh, N, N, scale,
-                            static_cast<const float*>(rot), dh};
-  switch (dh < 16 ? 16 : dh) {
-    case 16: return launch_smallhead<16, T, true, true>(a, BF, H, stream);
-    case 32: return launch_smallhead<32, T, true, true>(a, BF, H, stream);
-    case 64:
-      if constexpr (std::is_same<T, float>::value)
-        return launch_smallhead<64, T, true, true>(a, BF, H, stream);
-      break;   // bf16 at 64 is the wgmma tile's (divided_attention.cu)
-    case 128: return launch_smallhead<128, T, true, true>(a, BF, H, stream);
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace mdt

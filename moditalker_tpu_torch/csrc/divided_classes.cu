@@ -3,22 +3,27 @@
 // divided_attention.cuh). divided_attention.cu holds those (space at head
 // dim 64 on the wgmma tile, time at 16 frames of head dim 64); here, in a
 // library of their own so that the shipped kernels' translation unit holds
-// only their instantiations, are space at head dims 2 to 128 but 64 on the
-// small-head tile with the rotary, and time at every frame class (16, 32)
+// only their instantiations, are space at head dims 2 to 128 but 64, a
+// rotation pre-pass and then the small-head tile or the wgmma tile built
+// per width (divided_space.cuh), and time at every frame class (16, 32)
 // and head-dim class (16, 32, 64, 128), padded where the shape is not the
 // class.
 #include "divided_attention.cuh"
+#include "divided_space.cuh"
 
 extern "C" {
 
 // qkv [BF, N, 3·H·dh] bf16, rot [N, dh/2, 2] fp32 (cos, sin per rotated
-// pair) -> out [BF, N, H·dh] bf16; N % 128 == 0, 256 <= N, dh dividing 128,
-// dh != 64.
-int divided_space_attention_classes(const void* qkv, const void* rot,
-                                    void* out, int BF, int N, int H, int dh,
-                                    float scale, void* stream) {
-  return mdt::launch_space_classes<mdt::bf16>(
-      qkv, rot, out, BF, N, H, dh, scale, static_cast<cudaStream_t>(stream));
+// pair), scratch [BF, N, 3·H·max(dh, 8)] bf16 (the pre-pass writes it, the
+// small-head tile at dh <= 32 or the wgmma tile at 128 reads it) -> out
+// [BF, N, H·dh] bf16; N % 128 == 0, 256 <= N, dh dividing 128, dh != 64.
+int divided_space_attention_prerotated(const void* qkv, const void* rot,
+                                       void* scratch, void* out, int BF,
+                                       int N, int H, int dh, float scale,
+                                       void* stream) {
+  return mdt::launch_space_prerotated<mdt::bf16>(
+      qkv, rot, scratch, out, BF, N, H, dh, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 // qkv [B, F, N, 3·H·dh] bf16, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh]

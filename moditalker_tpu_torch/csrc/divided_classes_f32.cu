@@ -2,20 +2,26 @@
 // at the shapes their gate admits beyond the configurations' (the kernels
 // and their float32 route: divided_attention.cuh; the configurations'
 // shapes: divided_attention_f32.cu). A library of its own, as
-// divided_classes.cu is for bf16: space at head dims 2 to 128 on the
-// small-head tile with the rotary (at 64 past resident K, N > 1152), time at
-// every frame and head-dim class.
+// divided_classes.cu is for bf16: space at head dims 2 to 128 (at 64 past
+// resident K, N > 1152), a rotation pre-pass and then the small-head tile
+// or the wgmma tile built per width (divided_space.cuh), time at every
+// frame and head-dim class.
 #include "divided_attention.cuh"
+#include "divided_space.cuh"
 
 extern "C" {
 
-// qkv [BF, N, 3·H·dh] float32, rot [N, dh/2, 2] fp32 -> out [BF, N, H·dh]
-// float32; N % 128 == 0, 256 <= N, dh dividing 128.
-int divided_space_attention_classes_f32(const void* qkv, const void* rot,
-                                        void* out, int BF, int N, int H,
-                                        int dh, float scale, void* stream) {
-  return mdt::launch_space_classes<float>(
-      qkv, rot, out, BF, N, H, dh, scale, static_cast<cudaStream_t>(stream));
+// qkv [BF, N, 3·H·dh] float32, rot [N, dh/2, 2] fp32, scratch
+// [BF, N, 3·H·max(dh, 8)] bf16 (q, k and v rounded there once; the
+// small-head tile at dh <= 32, the wgmma tile at 64 and 128 reads it) ->
+// out [BF, N, H·dh] float32; N % 128 == 0, 256 <= N, dh dividing 128.
+int divided_space_attention_prerotated_f32(const void* qkv, const void* rot,
+                                       void* scratch, void* out, int BF,
+                                       int N, int H, int dh, float scale,
+                                       void* stream) {
+  return mdt::launch_space_prerotated<float>(
+      qkv, rot, scratch, out, BF, N, H, dh, scale,
+      static_cast<cudaStream_t>(stream));
 }
 
 // qkv [B, F, N, 3·H·dh] float32, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh]

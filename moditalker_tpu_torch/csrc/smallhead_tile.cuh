@@ -8,15 +8,13 @@
 // D = 16 and 32 (flash_attention.cu: q [B, Nq, D] over k, v [B, Nk, D]).
 // flash_classes.cu runs the one-pass and fused kernels on it at 8 and 24 and
 // in bf16 at 40-56 (other heads above 32 are wgmma_wide.cuh's, 64 the wgmma
-// tile's), and divided_classes.cu the divided space attention at head
-// dims other than 64 (and at 64 in float32 past resident K) with the
-// rotary (ROT). The tile is built per head-dim class DH (16, 32, 64, 128);
-// a head of d < DH dims (PAD) has its columns past d read as zeros and
-// never stored (d % 8 == 0 keeps every row's chunks whole, but for the
-// divided space attention's heads of 2 and 4 dims, which are read element
-// by element). At DH = 64 and 128 a warp's accumulators need more than the
-// 128 registers of a 512-thread block: such blocks have at most 8 warps,
-// and at DH = 128 the ring has three slots (four would not fit).
+// tile's), and divided_space.cuh the divided space attention at head dims
+// 2 to 32 on the scratch of its rotation pre-pass (PRE). The tile is built
+// per head-dim class DH (16, 32, 64); a head of d < DH dims (PAD) has its
+// columns past d read as zeros and never stored (d % 8 == 0 keeps every
+// row's chunks whole; the pre-pass pads heads of 2 and 4 dims to 8 with
+// zeros). At DH = 64 a warp's accumulators need more than the 128
+// registers of a 512-thread block: such blocks have at most 8 warps.
 // q of (sequence b, head h, row r) sits at q + b·q_batch + h·head +
 // r·in_row, k and v at ptr + b·kv_batch + h·head + r·in_row, the output at
 // out + b·out_batch + h·head + r·out_row.
@@ -80,12 +78,6 @@
 // scores, max and sum, P rounded to bf16 for P·V, the output divided by the
 // fp32 row sum.
 //
-// With the rotary (ROT: the divided space attention, whose pair table holds
-// (cos, sin) per rotated pair, [L, d/2, 2]), q is rotated in fp32 as its
-// fragment pairs are read (a fragment's pair is a rotated pair), and K
-// passes through the registers of the warp on duty, as the float32 route
-// stages it, to be rotated and rounded once on its way into its slot.
-//
 // The float32 route (T = float: the trainers' and the golden record's UNet)
 // keeps those points and the bf16 ring. cp.async copies bytes and cannot
 // round, so the warp on duty stages a float32 tile through its registers:
@@ -122,11 +114,22 @@ struct SmallHeadArgsT {
   int head;  // column offset of one head, inputs and output
   int Lq, Lk;  // query rows, keys
   float scale;
-  const float* rot;  // ROT: the pair table, [Lk, d/2, 2] (cos, sin)
-  int d;             // PAD: the head's true width (d <= DH)
+  int d;  // PAD: the head's true width (d <= DH)
 };
 
 using SmallHeadArgs = SmallHeadArgsT<bf16>;
+
+// PRE (the divided space attention's pre-rotated scratch, bf16): the
+// output's column offset of one head beside the scratch's (`head`). A type
+// of its own, so that every other instantiation keeps its arguments as
+// they were.
+struct SmallHeadPreArgs : SmallHeadArgsT<bf16> {
+  int out_head;
+};
+
+template <typename T, bool PRE>
+using SmallHeadArgsOf =
+    std::conditional_t<PRE, SmallHeadPreArgs, SmallHeadArgsT<T>>;
 
 // float32 route: chunks of K and of V a lane of the warp on duty has in
 // flight at once (two 16-byte loads each)
@@ -134,19 +137,19 @@ constexpr int kShF32Batch = 4;
 
 template <int DH>
 struct SmallHead {
-  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128,
-                "head-dim classes of 2, 4, 8 or 16 chunks a row");
+  static_assert(DH == 16 || DH == 32 || DH == 64,
+                "head-dim classes of 2, 4 or 8 chunks a row");
   static constexpr int CH = DH / 8;                    // chunks per row
   static constexpr int row_bytes = DH * 2;
   static constexpr int tile_bytes = kShTile * row_bytes;  // one K or V tile
   static constexpr int stage_bytes = 2 * tile_bytes;
-  static constexpr int stages = DH == 128 ? 3 : kShStages;
+  static constexpr int stages = kShStages;
   static constexpr int max_warps = DH <= 32 ? kShMaxWarps : 8;
   // tiles, then the mbarriers: full and empty per slot
   static constexpr int smem_bytes = stages * stage_bytes + 2 * stages * 8;
 
   // Byte offset of 16-byte chunk c of row r in a swizzled tile (rows of
-  // eight or sixteen chunks: chunk c ^ (r mod 8), the 128-byte swizzle).
+  // eight chunks: chunk c ^ (r mod 8), the 128-byte swizzle).
   static __device__ __forceinline__ uint32_t offset(int r, int c) {
     if constexpr (CH <= 4)
       return (uint32_t)(r * row_bytes +
@@ -156,46 +159,26 @@ struct SmallHead {
   }
 };
 
-// x, eight elements of a row (four rotary pairs), rotated by the pair
-// table entries at tr ((cos, sin) of each pair), of which the first n
-// elements exist (n < 8: a head of 2 or 4 dims; the rest are zeros),
-// rounded as the plain rotary rounds it (rotate_pair_rn).
-__device__ __forceinline__ void rotate8(float (&x)[8], const float* tr,
-                                        int n) {
-  float cs[4], sn[4];
-  if (n >= 8) {
-    const float4 t0 = reinterpret_cast<const float4*>(tr)[0];
-    const float4 t1 = reinterpret_cast<const float4*>(tr)[1];
-    cs[0] = t0.x; cs[1] = t0.z; cs[2] = t1.x; cs[3] = t1.z;
-    sn[0] = t0.y; sn[1] = t0.w; sn[2] = t1.y; sn[3] = t1.w;
-  } else {
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {
-      cs[p] = 2 * p < n ? tr[2 * p] : 0.f;
-      sn[p] = 2 * p < n ? tr[2 * p + 1] : 0.f;
-    }
-  }
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-    rotate_pair_rn(x[2 * p], x[2 * p + 1], cs[p], sn[p], cs[p], sn[p]);
-}
-
 // grid (ceil(Lq / (16 x warps)), H, B), block warps x 32 (4, 8 or 16 warps).
 // Dynamic shared memory SmallHead<DH>::smem_bytes. SELF: Lk = Lq and
 // kv_batch = q_batch (the packed and one-pass kernels), known when compiled:
 // with the two lengths and offsets kept apart, DH = 32 spills 8 bytes more
-// and its one-pass rows ran 3 % slower on an H100.
-template <int DH, bool SELF, typename T, bool ROT = false, bool PAD = false>
+// and its one-pass rows ran 3 % slower on an H100. PRE: the divided space
+// attention on the scratch its rotation pre-pass wrote (divided_space.cuh:
+// q and k rotated, q scaled, all bf16; heads a.head apart there, a.out_head
+// apart in the output, whose elements are TO, float32 on the float32 route).
+template <int DH, bool SELF, typename T, bool PAD = false, bool PRE = false,
+          typename TO = T>
 __global__ void __launch_bounds__(SmallHead<DH>::max_warps * 32, 1)
-smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
+smallhead_attention_kernel(const SmallHeadArgsOf<T, PRE> a) {
   using S = SmallHead<DH>;
   constexpr int CH = S::CH;
   constexpr int kStages = S::stages;
   constexpr bool kF32 = std::is_same<T, float>::value;
-  static_assert(!ROT || PAD, "the rotary runs in the classes, which pad");
-  // K and V through the registers of the warp on duty: float32 (rounded to
-  // bf16 there), or K rotated there
-  constexpr bool kReg = kF32 || ROT;
+  static_assert(PRE || std::is_same<T, TO>::value, "output in T but PRE");
+  // K and V through the registers of the warp on duty: float32, rounded to
+  // bf16 there
+  constexpr bool kReg = kF32;
   extern __shared__ __align__(128) unsigned char sh_smem[];
   const uint32_t base = smem_u32(sh_smem);
   const uint32_t bars = base + kStages * S::stage_bytes;
@@ -236,8 +219,8 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
     const uint32_t vdst = kdst + S::tile_bytes;
     const int n = part(lane % CH);   // this lane's chunk: elements in the head
     if constexpr (kReg) {
-      // through this warp's registers: float32 or bf16 in, K rotated (ROT),
-      // bf16 into the slot; keys past Lk and columns past d as zeros
+      // through this warp's registers: float32 in, bf16 into the slot; keys
+      // past Lk and columns past d as zeros
 #pragma unroll
       for (int u0 = 0; u0 < kShTile * CH / 32; u0 += kShF32Batch) {
         Chunk8<T> kc[kShF32Batch], vc[kShF32Batch];
@@ -258,12 +241,10 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
         if (u0 == 0) mbar_wait(empty(slot), ((tt / kStages) & 1) ^ 1);
 #pragma unroll
         for (int u = 0; u < kShF32Batch; ++u) {
-          const int r = (lane + 32 * (u0 + u)) / CH, key = tt * kShTile + r;
+          const int r = (lane + 32 * (u0 + u)) / CH;
           const uint32_t off = S::offset(r, lane % CH);
           float x[8];
           kc[u].to_float(x);
-          if (ROT && key < Lk && n > 0)
-            rotate8(x, a.rot + (long)key * dw + (lane % CH) * 8, n);
           st_shared16(kdst + off, pack8_bf16(x));
           vc[u].to_float(x);
           st_shared16(vdst + off, pack8_bf16(x));
@@ -300,7 +281,7 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
       for (int j = 0; j < 4; ++j) {
         const int row = q0 + g + 8 * (j & 1), col = kk * 16 + 8 * (j >> 1);
         if constexpr (PAD) {
-          // a pair of the head (col + 2 t4 < d), rotated by its table entry
+          // a pair of the head (col + 2 t4 < d)
           float2 x = make_float2(0.f, 0.f);
           if (row < Lq && col + 2 * t4 < dw) {
             const T* qp = qb + row * a.in_row + col;
@@ -310,11 +291,6 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
               const __nv_bfloat162 y =
                   *reinterpret_cast<const __nv_bfloat162*>(qp);
               x = make_float2(__low2float(y), __high2float(y));
-            }
-            if (ROT) {
-              const float2 cs = *reinterpret_cast<const float2*>(
-                  a.rot + (long)row * dw + col + 2 * t4);
-              rotate_pair_rn(x.x, x.y, cs.x, cs.y, cs.x, cs.y);
             }
           }
           qa[kk][j] = pack_bf16(x.x * a.scale, x.y * a.scale);
@@ -479,12 +455,14 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
     const int row = q0 + g + 8 * r;
     if (row < Lq) {
       const float inv = 1.f / l_run[r];
-      T* dst = a.out + b * a.out_batch + row * a.out_row + (long)h * a.head +
-               2 * t4;
+      long head_off = (long)h * a.head;
+      if constexpr (PRE) head_off = (long)h * a.out_head;
+      TO* dst = reinterpret_cast<TO*>(a.out) + b * a.out_batch +
+                row * a.out_row + head_off + 2 * t4;
 #pragma unroll
       for (int nd = 0; nd < DH / 8; ++nd) {
         if (PAD && nd * 8 + 2 * t4 >= dw) continue;  // past the head
-        if constexpr (kF32)
+        if constexpr (std::is_same<TO, float>::value)
           *reinterpret_cast<float2*>(dst + nd * 8) =
               make_float2(o[nd][2 * r] * inv, o[nd][2 * r + 1] * inv);
         else
@@ -497,10 +475,12 @@ smallhead_attention_kernel(const SmallHeadArgsT<T> a) {
 
 // B sequences of H heads. The one copy of the plan: the most query rows per
 // block (the fewest stagings of a head's K and V) whose grid still fills the
-// card, from 256 (128 at DH = 64 and 128) down to 64, counted from Lq; the
-// SELF instantiation where the query and key lengths and batch strides
-// agree. ROT and PAD as the kernel's (args.rot, args.d).
-template <int DH, typename T, bool ROT = false, bool PAD = false>
+// card, from 256 (128 at DH = 64) down to 64, counted from Lq; the SELF
+// instantiation where the query and key lengths and batch strides agree.
+// PAD, PRE and TO as the kernel's (args.d; PRE: args is the base of a
+// SmallHeadPreArgs).
+template <int DH, typename T, bool PAD = false, bool PRE = false,
+          typename TO = T>
 cudaError_t launch_smallhead(const SmallHeadArgsT<T>& args, int B, int H,
                              cudaStream_t stream) {
   if (args.Lq < 1 || args.Lk < 1 || B < 1 || H < 1)
@@ -508,12 +488,12 @@ cudaError_t launch_smallhead(const SmallHeadArgsT<T>& args, int B, int H,
   if (PAD && (args.d < 1 || args.d > DH || args.d % 2))
     return cudaErrorInvalidValue;
   const bool self = args.Lq == args.Lk && args.q_batch == args.kv_batch;
-  // the rotary's attention (divided space) is self-attention only
-  if (ROT && (!args.rot || !self)) return cudaErrorInvalidValue;
-  void (*kern)(const SmallHeadArgsT<T>) =
-      smallhead_attention_kernel<DH, true, T, ROT, PAD>;
-  if constexpr (!ROT)
-    if (!self) kern = smallhead_attention_kernel<DH, false, T, ROT, PAD>;
+  // the divided space attention (PRE) is self-attention only
+  if (PRE && !self) return cudaErrorInvalidValue;
+  void (*kern)(const SmallHeadArgsOf<T, PRE>) =
+      smallhead_attention_kernel<DH, true, T, PAD, PRE, TO>;
+  if constexpr (!PRE)
+    if (!self) kern = smallhead_attention_kernel<DH, false, T, PAD>;
   constexpr int smem = SmallHead<DH>::smem_bytes;
   // asked on every launch: a function-local static of a template is one
   // object for all the libraries of a process that instantiate it
@@ -531,7 +511,11 @@ cudaError_t launch_smallhead(const SmallHeadArgsT<T>& args, int B, int H,
   int warps = SmallHead<DH>::max_warps;
   while (warps > 4 && blocks(warps) < sms - sms / 8) warps /= 2;
   dim3 grid((args.Lq + 16 * warps - 1) / (16 * warps), H, B);
-  kern<<<grid, warps * 32, smem, stream>>>(args);
+  if constexpr (PRE)
+    kern<<<grid, warps * 32, smem, stream>>>(
+        static_cast<const SmallHeadPreArgs&>(args));
+  else
+    kern<<<grid, warps * 32, smem, stream>>>(args);
   return cudaGetLastError();
 }
 
@@ -551,13 +535,13 @@ cudaError_t launch_fused_classes(const void* q, const void* k, const void* v,
   const SmallHeadArgsT<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                             static_cast<const T*>(v), static_cast<T*>(out),
                             q_seq, kv_seq, D, q_seq, D, 0, Nq, Nk, scale,
-                            nullptr, D};
+                            D};
   switch (D <= 16 ? 16 : D <= 32 ? 32 : 64) {
-    case 16: return launch_smallhead<16, T, false, true>(a, B, 1, stream);
-    case 32: return launch_smallhead<32, T, false, true>(a, B, 1, stream);
+    case 16: return launch_smallhead<16, T, true>(a, B, 1, stream);
+    case 32: return launch_smallhead<32, T, true>(a, B, 1, stream);
     case 64:
       if constexpr (!kF32)
-        return launch_smallhead<64, T, false, true>(a, B, 1, stream);
+        return launch_smallhead<64, T, true>(a, B, 1, stream);
   }
   return cudaErrorInvalidValue;
 }

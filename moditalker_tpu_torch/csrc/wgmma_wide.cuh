@@ -1,8 +1,10 @@
 // Attention of Lq query rows over Lk keys on Hopper's warpgroup tensor
 // cores at any head width: wgmma_tile.cuh's tile built per width, for the
-// one-pass and K-blocked fused kernels (flash_wide.cu, flash_wide_f32.cu).
-// A header of its own, so that the translation units of the configurations'
-// kernels, which include wgmma_tile.cuh, compile as they did.
+// one-pass and K-blocked fused kernels (flash_wide.cu, flash_wide_f32.cu)
+// and the divided space attention at head dim 128, and at 64 in float32
+// past resident K (divided_space.cuh). A header of its own, so that the
+// translation units of the configurations' kernels, which include
+// wgmma_tile.cuh, compile as they did.
 #pragma once
 
 #include <type_traits>
@@ -18,7 +20,11 @@ namespace mdt {
 // rotary. wgmma_tile.cuh's kernel stays as it is for head dim 64, so that
 // the configurations' space, one-pass and fused kernels compile and run as
 // they did (their outputs bit for bit); this one is the same tile
-// generalised over the width:
+// generalised over the width. The rotary stays outside it: the divided
+// space attention's pre-pass writes q and k rotated (divided_space.cuh),
+// and the tile reads them raw through strides (SPACE: a frame's heads as
+// its sequences, rows of the packed [.., 3·H·d] layout, the output
+// head-merged, float32 on the float32 route):
 //
 //  * a block computes DN output columns: d itself up to 256 (DN = d, so
 //    float32 heads of 40, 48 and 56 do no padded P·V columns), and past 256 groups
@@ -131,6 +137,20 @@ struct WideArgsT {
   int active;              // consumer warpgroups a block gives rows (1, 2)
   int q_stream;            // Q streamed per key tile (one consumer, DN 256)
 };
+
+// SPACE (the divided space attention's pre-rotated scratch, bf16;
+// divided_space.cuh): B = frames x heads, q, k and v rows in_row apart with
+// a head's d columns at head x d, q_batch the elements of one frame; the
+// output [frames, Lq, heads x d] (out_batch, out_row) of the kernel's TO.
+// A type of its own, so that every other instantiation keeps its arguments
+// as they were.
+struct WideSpaceArgs : WideArgsT<bf16> {
+  long out_batch;
+  int in_row, out_row, heads;
+};
+
+template <typename T, bool SPACE>
+using WideArgsOf = std::conditional_t<SPACE, WideSpaceArgs, WideArgsT<T>>;
 
 // Shared-memory matrix descriptor, 128-byte swizzle, with a leading byte
 // offset: the stride from one 64-column panel of an MN-major operand to the
@@ -504,13 +524,16 @@ __device__ __forceinline__ void wide_pv(float (&o)[DN / 2],
 // (ceil(Lq / (64 x active)), ceil(d / DN), B), dynamic shared memory
 // wide_smem_bytes of the plan launch_wide makes. Consumer warpgroup w takes
 // the 64 query rows of chunk blockIdx.x x active + w (w < active). Q
-// streams (q_stream) only in the one-consumer 256-column tile.
-template <int DN, int NC, typename T>
+// streams (q_stream) only in the one-consumer 256-column tile. SPACE: the
+// strided layout of WideArgsT, bf16 inputs, the output of type TO.
+template <int DN, int NC, typename T, bool SPACE = false, typename TO = T>
 __global__ void __launch_bounds__((NC + 1) * 128, 1)
-wgmma_wide_kernel(const WideArgsT<T> a) {
+wgmma_wide_kernel(const WideArgsOf<T, SPACE> a) {
   using W = WideTile<DN>;
   constexpr int KN = W::KN;
   constexpr bool kF32 = std::is_same<T, float>::value;
+  static_assert(SPACE ? !kF32 : std::is_same<T, TO>::value,
+                "SPACE: bf16 inputs; otherwise the output in T");
   static_assert(NC == 1 || NC == 2, "one or two consumer warpgroups");
   // with two consumers: the producer's registers and each consumer's
   // (producer + 2 x consumer = 3 x 168, the block's pool)
@@ -564,9 +587,18 @@ wgmma_wide_kernel(const WideArgsT<T> a) {
   __syncthreads();
 
   const long seq = blockIdx.z;
-  const T* qb = a.q + seq * a.q_batch;
-  const T* kb = a.k + seq * a.kv_batch;
-  const T* vb = a.v + seq * a.kv_batch + col0;
+  // the row strides of q, k, v and of the output, and this sequence's
+  // offset in them (SPACE: of this frame's head)
+  int ld = d, ld_out = d;
+  long q_off = seq * a.q_batch, kv_off = seq * a.kv_batch;
+  if constexpr (SPACE) {
+    ld = a.in_row;
+    ld_out = a.out_row;
+    q_off = kv_off = seq / a.heads * a.q_batch + seq % a.heads * d;
+  }
+  const T* qb = a.q + q_off;
+  const T* kb = a.k + kv_off;
+  const T* vb = a.v + kv_off + col0;
 
   if (wg == NC) {
     // ------------------------------------------------------ producer
@@ -586,7 +618,7 @@ wgmma_wide_kernel(const WideArgsT<T> a) {
           const int ks = ik % KS;
           mbar_wait(empty_k(ks), ((ik / KS) & 1) ^ 1);
           round_panels<KN, 8, kF32Batch>(sm + ks * W::k_chunk_bytes,
-                              kb + (long)j * KN * d + c * 64, d, rows,
+                              kb + (long)j * KN * ld + c * 64, ld, rows,
                               dc - 8 * c, min(8, dkc - 8 * c), pt);
           fence_proxy_async();
           mbar_arrive(full_k(ks));
@@ -595,7 +627,7 @@ wgmma_wide_kernel(const WideArgsT<T> a) {
         mbar_wait(empty_v(vs), ((j / VS) & 1) ^ 1);
         round_panels<KN, DN / 8, kF32Batch>(
             sm + (v_ring - base) + vs * W::v_slot_bytes,
-                                 vb + (long)j * KN * d, d, rows, vc, vc, pt);
+                                 vb + (long)j * KN * ld, ld, rows, vc, vc, pt);
         fence_proxy_async();
         mbar_arrive(full_v(vs));
       }
@@ -610,14 +642,14 @@ wgmma_wide_kernel(const WideArgsT<T> a) {
           const int ks = ik % KS;
           mbar_wait(empty_k(ks), ((ik / KS) & 1) ^ 1);
           copy_panels<KN, 8>(k_ring + ks * W::k_chunk_bytes,
-                             kb + (long)j * KN * d + c * 64, d, rows,
+                             kb + (long)j * KN * ld + c * 64, ld, rows,
                              dc - 8 * c, min(8, dkc - 8 * c), pt);
           cp_async_arrive(full_k(ks));
         }
         const int vs = j % VS;
         mbar_wait(empty_v(vs), ((j / VS) & 1) ^ 1);
         copy_panels<KN, DN / 8>(v_ring + vs * W::v_slot_bytes,
-                                vb + (long)j * KN * d, d, rows, vc, vc, pt);
+                                vb + (long)j * KN * ld, ld, rows, vc, vc, pt);
         cp_async_arrive(full_v(vs));
       }
       cp_async_wait_all();
@@ -648,7 +680,7 @@ wgmma_wide_kernel(const WideArgsT<T> a) {
         const int i = i0 + 128 * u, r = i / cw, c = c_lo + i % cw;
         raw[u] = Chunk8<T>{};
         if (i < items && c < dc && q0 + r < a.Lq)
-          raw[u].load(qb + (long)(q0 + r) * d + c * 8);
+          raw[u].load(qb + (long)(q0 + r) * ld + c * 8);
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
@@ -784,8 +816,11 @@ wgmma_wide_kernel(const WideArgsT<T> a) {
     l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
     inv[r] = 1.f / l_run[r];
   }
-  T* ob = a.out + seq * a.q_batch + col0;
-  if constexpr (kF32) {
+  long o_off = seq * a.q_batch;
+  if constexpr (SPACE)
+    o_off = seq / a.heads * a.out_batch + seq % a.heads * d;
+  TO* ob = reinterpret_cast<TO*>(a.out) + o_off + col0;
+  if constexpr (std::is_same<TO, float>::value) {
     // float32 straight from the fragments: a quad's four 8-byte stores fill
     // one 32-byte sector of a row
 #pragma unroll
@@ -795,7 +830,8 @@ wgmma_wide_kernel(const WideArgsT<T> a) {
 #pragma unroll
         for (int nd = 0; nd < DN / 8; ++nd)
           if (nd < vc)
-            *reinterpret_cast<float2*>(ob + (long)row * d + nd * 8 + 2 * t) =
+            *reinterpret_cast<float2*>(ob + (long)row * ld_out + nd * 8 +
+                                       2 * t) =
                 make_float2(o[4 * nd + 2 * r] * inv[r],
                             o[4 * nd + 2 * r + 1] * inv[r]);
       }
@@ -818,7 +854,7 @@ wgmma_wide_kernel(const WideArgsT<T> a) {
     for (int i = ct; i < kWdRows * vc; i += 128) {
       const int r = i / vc, c = i % vc;
       if (q0 + r < a.Lq)
-        *reinterpret_cast<uint4*>(ob + (long)(q0 + r) * d + c * 8) =
+        *reinterpret_cast<uint4*>(ob + (long)(q0 + r) * ld_out + c * 8) =
             *reinterpret_cast<const uint4*>(q_p + paneled(r, c, kWdRows));
     }
   }
@@ -829,8 +865,8 @@ wgmma_wide_kernel(const WideArgsT<T> a) {
 // which at least three K chunks fit, then as many K chunks as fit (up to
 // three tiles' worth); the rows per block (64 x active) the most whose grid
 // still fills the card. Returns cudaErrorInvalidValue where no plan fits.
-template <int DN, int NC, typename T>
-cudaError_t launch_wide_plan(WideArgsT<T> a, int B, int q_panels,
+template <int DN, int NC, typename T, bool SPACE = false, typename TO = T>
+cudaError_t launch_wide_plan(WideArgsOf<T, SPACE> a, int B, int q_panels,
                              int q_stream, cudaStream_t stream) {
   using W = WideTile<DN>;
   const int panels = ((a.d + 15) / 16 * 16 + 63) / 64;
@@ -855,7 +891,7 @@ cudaError_t launch_wide_plan(WideArgsT<T> a, int B, int q_panels,
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  auto kern = wgmma_wide_kernel<DN, NC, T>;
+  auto kern = wgmma_wide_kernel<DN, NC, T, SPACE, TO>;
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kern,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -875,11 +911,13 @@ cudaError_t launch_wide_plan(WideArgsT<T> a, int B, int q_panels,
 
 // Two consumers where the rings fit beside their Q; else (a head past 512
 // dims, one group of 256 columns a block) one, with Q resident up to
-// kWdMaxResidentDim and streamed past it.
-template <int DN, typename T>
-cudaError_t launch_wide(const WideArgsT<T>& a, int B, cudaStream_t stream) {
+// kWdMaxResidentDim and streamed past it. SPACE and TO as the kernel's.
+template <int DN, typename T, bool SPACE = false, typename TO = T>
+cudaError_t launch_wide(const WideArgsOf<T, SPACE>& a, int B,
+                        cudaStream_t stream) {
   const int panels = ((a.d + 15) / 16 * 16 + 63) / 64;
-  cudaError_t err = launch_wide_plan<DN, 2, T>(a, B, panels, 0, stream);
+  cudaError_t err =
+      launch_wide_plan<DN, 2, T, SPACE, TO>(a, B, panels, 0, stream);
   if constexpr (DN == kWdGroup) {
     if (err == cudaErrorInvalidValue)
       err = launch_wide_plan<DN, 1, T>(a, B, panels, 0, stream);

@@ -42,10 +42,14 @@ the rest of the gate runs the same kernels built per class in
 ``divided_classes.cu`` and ``divided_classes_f32.cu``: time per frame class
 (16, 32) and head-dim class (16, 32, 64, 128), clips of 8 and 24 frames and
 heads narrower than their class padded with zeros (padded frames masked in
-the softmax, neither stored); space at head dims other than 64, and in
-float32 at 64 past resident K (N > 1152), on the small-head tile with the
-rotary (``csrc/smallhead_tile.cuh``). A head dim of 1 has no rotary pair:
-the JAX package's rotary raises there too.
+the softmax, neither stored). Space at head dims other than 64, and in
+float32 at 64 past resident K (N > 1152), runs the pre-rotated design
+(``csrc/divided_space.cuh``): a pre-pass writes q rotated and scaled and k
+rotated, in bf16, once per call into a scratch the wrapper allocates (v too
+where the tile cannot read it from qkv; ``space_rotate_reference`` is its
+plain version), then the small-head tile (head dims up to 32) or the wgmma
+tile built per width (128, and 64 in float32) streams it raw. A head dim of
+1 has no rotary pair: the JAX package's rotary raises there too.
 
 The gradient with respect to qkv (``autograd.DividedAttention``) runs the
 backward kernels on a CUDA tensor (``csrc/divided_backward.cuh``; bf16
@@ -79,15 +83,15 @@ _LANES = 128
 # the instantiations of csrc/divided_attention.cu (and _f32, and of the
 # backward's divided_backward.cu): the shapes the repository's
 # configurations reach (AE dim_head 64, 16 frames). Every other shape the
-# gate admits runs the classes of csrc/divided_classes.cu (and
+# gate admits runs the libraries of csrc/divided_classes.cu (and
 # divided_backward_classes.cu): time per frame class and head-dim class,
-# space per head-dim class on the small-head tile.
+# space the pre-rotated design (csrc/divided_space.cuh) per head-dim class.
 SPACE_HEAD_DIMS = (64,)
 TIME_SHAPES = ((16, 64),)   # (frames, head dim)
 # the float32 space kernel on the wgmma tile keeps K resident in shared
 # memory: 9 tiles of 128 keys (the configurations' AE reaches N = 1024);
-# above that the float32 space attention at head dim 64 is the small-head
-# tile's (divided_classes_f32.cu)
+# above that the float32 space attention at head dim 64 is the pre-rotated
+# design's (divided_classes_f32.cu)
 SPACE_F32_MAX_N = 1152
 SPACE_BACKWARD_HEAD_DIMS = (64,)
 
@@ -114,6 +118,33 @@ def rotary_pair_table(sin, cos):
         _pair_tables.clear()
     _pair_tables[key] = (table, sin, cos)   # keeps the keyed storage alive
     return table
+
+
+def space_scratch_width(dim_head: int) -> int:
+    """The head width of the space pre-pass's scratch: whole 16-byte chunks
+    of bf16 (heads of 2 and 4 padded to 8 with zeros)."""
+    return max(dim_head, 8)
+
+
+def space_rotate_reference(qkv, sin, cos, heads: int, dim_head: int,
+                           scale: float):
+    """The plain version of the space kernel's rotation pre-pass
+    (``csrc/divided_space.cuh``): qkv [BF, N, 3·H·dh] (bf16 or float32) →
+    the bf16 scratch [BF, N, 3·H·w] (w = ``space_scratch_width(dh)``, zeros
+    past dh): q rotated in fp32 (each product and the sum rounded on its
+    own), multiplied by ``scale`` and rounded to bf16 once, k rotated and
+    rounded once, v rounded once. The kernel writes the v third only where
+    the tile reads it from there (float32 qkv, heads narrower than 8)."""
+    bf, n, _ = qkv.shape
+    w = space_scratch_width(dim_head)
+    q, k, v = (t.float().reshape(bf, n, heads, dim_head)
+               for t in qkv.chunk(3, dim=-1))
+    sin, cos = sin.float()[:, None], cos.float()[:, None]
+    q = (q * cos + rotary.rotate_every_two(q) * sin) * scale
+    k = k * cos + rotary.rotate_every_two(k) * sin
+    out = torch.stack((q, k, v), dim=2)        # [BF, N, 3, H, dh]
+    out = torch.nn.functional.pad(out, (0, w - dim_head))
+    return out.bfloat16().reshape(bf, n, 3 * heads * w)
 
 
 def divided_attention_reference(qkv, sin, cos, axis: str, heads: int,
@@ -144,7 +175,8 @@ def divided_attention_reference(qkv, sin, cos, axis: str, heads: int,
 
 
 def divided_attention_float32_route(qkv, sin, cos, axis: str, heads: int,
-                                    dim_head: int, scale: float):
+                                    dim_head: int, scale: float,
+                                    exp2: bool = False):
     """What the kernels' float32 route computes, in plain PyTorch: the
     function their float32 results are held to (by the tests and
     ``chip_smoke.py``; never on the card's main path).
@@ -159,8 +191,9 @@ def divided_attention_float32_route(qkv, sin, cos, axis: str, heads: int,
     on: one tile at F = 16, the time axis, a full-row softmax; the scores
     summed as the tensor cores sum them). It differs from the float32 plain
     version by those roundings (bf16 operands with fp32 accumulators), and
-    from the kernels by the order of the other fp32 sums and the kernels'
-    ``ex2``.
+    from the kernels by the order of the other fp32 sums and, unless
+    ``exp2``, the kernels' ``ex2`` (``exp2``: p and the rescaling factor as
+    the space kernels take them, ``attention_float32_route``'s ``exp2``).
     """
     b, f, n, _ = qkv.shape
     q, k, v = qkv.float().chunk(3, dim=-1)
@@ -172,7 +205,7 @@ def divided_attention_float32_route(qkv, sin, cos, axis: str, heads: int,
     if axis == "time":
         q, k, v = (t.transpose(2, 3) for t in (q, k, v))
     q, k = rotary.apply_rot_emb(q, k, sin.float(), cos.float())
-    out = attention_float32_route(q, k, v, scale)
+    out = attention_float32_route(q, k, v, scale, exp2=exp2)
     if axis == "time":
         out = out.transpose(2, 3)
     return out.permute(0, 2, 3, 1, 4).reshape(b, f, n, heads * dim_head)
@@ -197,9 +230,17 @@ def divided_attention_viable(axis: str, f: int, n: int, heads: int,
 
 
 def _bind_forward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
+    """Binds the space and time entry points of ``lib``; in the classes'
+    libraries the space entry is the pre-rotated design's, which also takes
+    its scratch."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    space = getattr(lib, "divided_space_attention" + suffix)
-    space.argtypes = [p, p, p, i, i, i, i, fl, p]
+    if suffix.startswith("_classes"):
+        space = getattr(lib, "divided_space_attention_prerotated"
+                        + suffix[len("_classes"):])
+        space.argtypes = [p, p, p, p, i, i, i, i, fl, p]
+    else:
+        space = getattr(lib, "divided_space_attention" + suffix)
+        space.argtypes = [p, p, p, i, i, i, i, fl, p]
     space.restype = i
     time = getattr(lib, "divided_time_attention" + suffix)
     time.argtypes = [p, p, p, p, i, i, i, i, i, fl, p]
@@ -311,11 +352,21 @@ def _operands(qkv, sin, cos) -> bool:
     return qkv.dtype == torch.float32
 
 
+def space_prerotated(dim_head: int, n: int, f32: bool) -> bool:
+    """Whether the space kernel at head dim ``dim_head`` over ``n`` tokens
+    is the pre-rotated design (``divided_space_attention_prerotated``):
+    everywhere but the configurations' wgmma tile at 64 (in float32 up to
+    resident K)."""
+    return dim_head not in SPACE_HEAD_DIMS or (f32 and n > SPACE_F32_MAX_N)
+
+
 def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                          scale: float):
     """Kernel launch: qkv [BF, N, 3·H·dh] → [BF, N, H·dh] in qkv's type
     (bf16 or float32), N a multiple of 128 and at least 256, dh dividing 128
-    from 2 up."""
+    from 2 up. The pre-rotated design (``space_prerotated``) writes a bf16
+    scratch [BF, N, 3·H·w] first (``space_rotate_reference``: its plain
+    version), which this allocates; one launch in the count."""
     f32 = _operands(qkv, sin, cos)
     _check_head_dim(dim_head)
     bf, n, c3 = qkv.shape
@@ -328,13 +379,18 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     table = rotary_pair_table(sin, cos)
     out = torch.empty(bf, n, heads * dim_head, dtype=qkv.dtype,
                       device=qkv.device)
-    classes = (dim_head not in SPACE_HEAD_DIMS
-               or (f32 and n > SPACE_F32_MAX_N))
-    lib, suffix = _library(f32, classes)
+    pre = space_prerotated(dim_head, n, f32)
+    lib, suffix = _library(f32, pre)
+    pointers = [qkv.data_ptr(), table.data_ptr()]
     entry = "divided_space_attention" + suffix
+    if pre:
+        entry = "divided_space_attention_prerotated" + ("_f32" if f32 else "")
+        scratch = torch.empty(bf, n, 3 * heads * space_scratch_width(
+            dim_head), dtype=torch.bfloat16, device=qkv.device)
+        pointers.append(scratch.data_ptr())
     status = getattr(lib, entry)(
-        qkv.data_ptr(), table.data_ptr(), out.data_ptr(), bf, n, heads,
-        dim_head, scale, kernels.cuda_stream(qkv))
+        *pointers, out.data_ptr(), bf, n, heads, dim_head, scale,
+        kernels.cuda_stream(qkv))
     _build.check(lib, status, entry)
     count_launch("divided_space_attention", qkv.shape, float32=f32)
     return out

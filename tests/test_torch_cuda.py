@@ -25,7 +25,9 @@ resident-K limit, and D = 16, 32 and 64.
 Every kernel also takes float32, which it reads and writes itself (no cast
 pass exists), held to the same limits against the float32 plain version at
 the training shapes and smaller, to its float32 route's function within
-``FLOAT32_ROUTE_LIMITS``, and to a result that was never rounded to bf16
+``FLOAT32_ROUTE_LIMITS`` (the space kernels' in the form that takes p as
+their ``ex2`` does: ``exp2=True``), and to a result that was never rounded
+to bf16
 (under 1 % of it equal to its bf16 rounding); and each differentiable
 wrapper's gradient (its ``autograd.Function``) is held against autograd
 through the plain version. The divided space and time backwards are
@@ -254,7 +256,7 @@ def test_divided_kernels_take_float32(gen, axis, b, f, n, heads):
         tdiv.divided_attention_reference(x, sin, cos, axis, heads, dh,
                                          dh**-0.5, use_flash=False),
         tdiv.divided_attention_float32_route(x, sin, cos, axis, heads, dh,
-                                             dh**-0.5))
+                                             dh**-0.5, exp2=axis == "space"))
 
 
 @pytest.mark.cuda
@@ -269,7 +271,8 @@ def test_bf16_kernels_round_where_the_float32_route_does(gen, axis):
     x = _randn(gen, 2, f, n, 3 * heads * dh)
     got = tdiv.divided_attention(x, sin, cos, axis, heads, dh, dh**-0.5)
     want = tdiv.divided_attention_float32_route(
-        x.float(), sin, cos, axis, heads, dh, dh**-0.5).bfloat16().float()
+        x.float(), sin, cos, axis, heads, dh, dh**-0.5,
+        exp2=axis == "space").bfloat16().float()
     mag = want.abs().clamp_min(want.abs().max() * 2.0**-8)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     ulps = ((got.float() - want).abs() / ulp).flatten()
@@ -582,12 +585,15 @@ DIVIDED_CLASSES = [
     ("time", 1, 24, 32, 4, 32), ("time", 1, 16, 32, 8, 16),
     ("time", 1, 8, 16, 16, 8), ("time", 1, 32, 8, 32, 4),
     ("time", 1, 16, 8, 64, 2), ("time", 3, 24, 5, 3, 64),
-    # space: head dims 2 to 128 but 64, on the small-head tile with the
-    # rotary; 64 past the float32 wgmma tile's resident K in float32
+    # space: head dims 2 to 128 but 64 on the pre-rotated design (the
+    # rotation pre-pass, then the small-head tile up to 32, the wgmma tile
+    # built per width at 128); 64 past the float32 wgmma tile's resident K
+    # in float32 likewise (in bf16 the configurations' K ring)
     ("space", 1, 2, 256, 1, 128), ("space", 1, 1, 1024, 4, 32),
     ("space", 2, 1, 512, 8, 16), ("space", 1, 1, 256, 16, 8),
     ("space", 1, 1, 384, 32, 4), ("space", 1, 1, 256, 64, 2),
-    ("space", 1, 1, 2048, 1, 128)]
+    ("space", 1, 1, 2048, 1, 128), ("space", 2, 2, 1024, 4, 128),
+    ("space", 1, 1, 1280, 2, 64), ("space", 1, 2, 2048, 2, 64)]
 
 
 def _check_class(name, got, plain, route):
@@ -608,9 +614,9 @@ def _check_class(name, got, plain, route):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("axis,b,f,n,heads,dh", DIVIDED_CLASSES)
 def test_divided_classes_match_plain(gen, axis, b, f, n, heads, dh, dtype):
-    """Each frame and head-dim class of the time kernel and each head-dim
-    class of the space kernel, bf16 and float32, against the plain version
-    within the kernel's unchanged limits (``_check_class``)."""
+    """Each frame and head-dim class of the time kernel and each head dim
+    of the space kernel's pre-rotated design, bf16 and float32, against the
+    plain version within the kernel's unchanged limits (``_check_class``)."""
     x, sin, cos = _divided_class_case(gen, axis, b, f, n, heads, dh, dtype)
     name = f"divided_{axis}_attention"
     assert tdiv.divided_attention_viable(axis, f, n, heads, dh, dh) \
@@ -625,8 +631,45 @@ def test_divided_classes_match_plain(gen, axis, b, f, n, heads, dh, dtype):
                  tdiv.divided_attention_reference(x32, sin, cos, axis, heads,
                                                   dh, dh**-0.5,
                                                   use_flash=False),
-                 tdiv.divided_attention_float32_route(x32, sin, cos, axis,
-                                                      heads, dh, dh**-0.5))
+                 tdiv.divided_attention_float32_route(
+                     x32, sin, cos, axis, heads, dh, dh**-0.5,
+                     exp2=axis == "space"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,heads,dh", [(256, 64, 2), (384, 32, 4),
+                                        (256, 16, 8), (512, 8, 16),
+                                        (1024, 4, 32), (1280, 2, 64),
+                                        (1024, 4, 128)])
+def test_space_rotate_prepass_matches_plain(gen, n, heads, dh, dtype):
+    """The pre-rotated space design's first kernel (``space_rotate_kernel``)
+    writes its scratch bit for bit as ``space_rotate_reference`` does: q
+    rotated and scaled, k rotated, zeros past dh, each rounded to bf16 once.
+    The v third is written where the tile reads it from there (float32,
+    heads narrower than 8) and left alone elsewhere. Read off the scratch
+    the entry point is handed; bf16 at 64 is the configurations' tile."""
+    f32 = dtype == torch.float32
+    if dh == 64 and not f32:
+        pytest.skip("bf16 at head dim 64 is the wgmma tile's, no pre-pass")
+    sin, cos = _pair_tables(n, dh)
+    qkv = _randn32(gen, 2, n, 3 * heads * dh).to(dtype)
+    table = tdiv.rotary_pair_table(sin, cos)
+    w = tdiv.space_scratch_width(dh)
+    scratch = torch.full((2, n, 3 * heads * w), float("nan"),
+                         dtype=torch.bfloat16, device="cuda")
+    out = torch.empty(2, n, heads * dh, dtype=dtype, device="cuda")
+    lib, _ = tdiv._library(f32, True)
+    entry = "divided_space_attention_prerotated" + ("_f32" if f32 else "")
+    assert getattr(lib, entry)(
+        qkv.data_ptr(), table.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        2, n, heads, dh, dh**-0.5, torch.cuda.current_stream().cuda_stream) \
+        == 0
+    torch.cuda.synchronize()
+    plain = tdiv.space_rotate_reference(qkv, sin, cos, heads, dh, dh**-0.5)
+    written = 3 * heads * w if f32 or w != dh else 2 * heads * w
+    assert torch.equal(scratch[..., :written], plain[..., :written])
+    assert scratch[..., written:].isnan().all()
 
 
 @pytest.mark.cuda

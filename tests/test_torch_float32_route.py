@@ -81,6 +81,34 @@ def test_float32_route_matches_jax_interpret(axis):
     tkernels.check_bf16(f"divided_{axis}_attention", got, _t(want))
 
 
+@pytest.mark.parametrize("heads,dh", [(4, 128), (16, 32)])
+def test_space_float32_route_with_ex2_matches_jax_interpret(heads, dh):
+    """The space route in the kernels' ``ex2`` form
+    (``divided_attention_float32_route(exp2=True)``: what the card holds the
+    float32 space kernels to) is the TPU kernel's function, ``_space_fused``
+    in interpret mode, on float32 qkv at 4 heads of 128 and 16 of 32 (the
+    pre-rotated design's widths) but for its bf16 operands: within the bf16
+    limits; and within ``FLOAT32_ROUTE_LIMITS`` of the route's ``exp``
+    form, from which it differs where a p lands on the other side of a
+    bf16 rounding boundary."""
+    n = 256
+    qkv = np.random.default_rng(9).normal(
+        size=(1, n, 3 * heads * dh)).astype(np.float32)
+    sin, cos = jrot.axial_rotary_sincos(16, n // 16, dh)
+    assert tdiv.divided_attention_viable("space", 1, n, heads, dh, dh)
+    want = jdiv._space_fused(jnp.asarray(qkv), sin, cos, heads, dh,
+                             dh**-0.5, interpret=True)
+    x = _t(qkv)[None]
+    got = tdiv.divided_attention_float32_route(
+        x, _t(sin), _t(cos), "space", heads, dh, dh**-0.5, exp2=True)[0]
+    assert got.dtype == torch.float32
+    tkernels.check_bf16("divided_space_attention", got, _t(want))
+    exp = tdiv.divided_attention_float32_route(
+        x, _t(sin), _t(cos), "space", heads, dh, dh**-0.5)[0]
+    tkernels.check_float32_route("divided_space_attention", got, exp)
+    assert not torch.equal(got, exp)
+
+
 @pytest.mark.parametrize("axis", AXES)
 def test_float32_route_at_bf16_inputs_sits_within_the_bf16_route(axis):
     """At a qkv bf16 represents exactly, the float32 route's result rounded
@@ -150,15 +178,16 @@ def test_float32_space_kernel_is_built_for_resident_k(stub_launches):
     """The float32 space route on the wgmma tile is instantiated for
     resident K only (``kWgMaxKSlots`` tiles of 128 keys): up to that limit a
     float32 qkv launches its entry point; past it (1152 < N <= 2048, which
-    the gate admits) the wrapper launches the small-head tile's float32
-    class with the rotary (``divided_classes_f32.cu``), never raising."""
+    the gate admits) the wrapper launches the pre-rotated design's float32
+    entry point (``divided_classes_f32.cu``: the rotation pre-pass, then the
+    wgmma tile built per width at 64), never raising."""
     tile = (_build.CSRC / "wgmma_tile.cuh").read_text()
     slots = int(re.search(r"kWgMaxKSlots = (\d+);", tile).group(1))
     assert tdiv.SPACE_F32_MAX_N == 128 * slots
     for n, entry in ((tdiv.SPACE_F32_MAX_N, "divided_space_attention_f32"),
                      (tdiv.SPACE_F32_MAX_N + 128,
-                      "divided_space_attention_classes_f32"),
-                     (2048, "divided_space_attention_classes_f32")):
+                      "divided_space_attention_prerotated_f32"),
+                     (2048, "divided_space_attention_prerotated_f32")):
         stub_launches.clear()
         tab = torch.zeros(n, 64)
         tdiv.space_attention_cuda(torch.zeros(1, n, 3 * 2 * 64), tab, tab,
@@ -179,7 +208,7 @@ def test_float32_entry_points_are_in_their_own_source():
                "packed_attention": {"packed_attention"},
                "flash_attention": {"fused_attention"},
                "tiny_attention": {"tiny_attention"},
-               "divided_classes": {"divided_space_attention_classes",
+               "divided_classes": {"divided_space_attention_prerotated",
                                    "divided_time_attention_classes"},
                "flash_classes": {"fused_attention_classes",
                                  "tiny_attention_classes"},

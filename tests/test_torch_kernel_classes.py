@@ -52,6 +52,7 @@ from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
 
 from .test_torch_shipped_configs import (_attention_shapes, _jax_launches,
                                          _launches)
+from . import torch_stubs
 from .torch_stubs import stub_launches  # noqa: F401 (fixture)
 from .torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
@@ -124,6 +125,40 @@ def test_divided_gate_grid_launches_everywhere_it_opens(stub_launches, axis,
     f32 = dict(tkernels.FLOAT32_LAUNCHES_BY_SHAPE[name])
     assert (sum(f32.values()) == tkernels.LAUNCHES[name]) == (
         dtype == torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_space_head_dims_reach_their_design(stub_launches, monkeypatch,
+                                            dtype):
+    """Each head dim the space gate admits (2 to 128 dividing 128), over N
+    from 256 to 2048, reaches the entry point its design names: the
+    configurations' wgmma tile at 64 (in float32 up to resident K), the
+    pre-rotated design everywhere else, which takes a scratch beside qkv,
+    the table and the output (one pointer more)."""
+    f32 = dtype == torch.float32
+    suffix = "_f32" if f32 else ""
+    calls = []
+    stub = torch_stubs.StubLib(stub_launches, calls)
+    for lib in ("_lib", "_lib_f32", "_classes_lib", "_classes_lib_f32"):
+        monkeypatch.setattr(tdiv, lib, lambda: stub)
+    for n in range(256, 2049, 128):
+        for dh in HEAD_DIVISORS[1:]:
+            heads = 512 // dh
+            assert tdiv.divided_attention_viable("space", 1, n, heads, dh, dh)
+            tab = torch.zeros(n, dh)
+            stub_launches.clear()
+            calls.clear()
+            out = tdiv.space_attention_cuda(
+                torch.zeros(1, n, 3 * heads * dh, dtype=dtype), tab, tab,
+                heads, dh, dh**-0.5)
+            assert out.shape == (1, n, heads * dh) and out.dtype == dtype
+            shipped = dh == 64 and not (f32 and n > tdiv.SPACE_F32_MAX_N)
+            assert tdiv.space_prerotated(dh, n, f32) == (not shipped)
+            entry = ("divided_space_attention" if shipped else
+                     "divided_space_attention_prerotated") + suffix
+            assert stub_launches == [entry], (n, dh)
+            assert len(calls[0][1]) == (9 if shipped else 10)
+            assert calls[0][1][-6:-1] == (1, n, heads, dh, dh**-0.5)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -212,7 +247,9 @@ def test_class_launchers_switch_on_the_named_classes():
     assert classes == (16, 32, 64, 128)
     assert _case_labels("divided_attention.cuh", "launch_time_classes") \
         == classes
-    assert _case_labels("divided_attention.cuh", "launch_space_classes") \
+    # the space kernel beside the configurations' head dim 64: the
+    # pre-rotated design, per head-dim class (64 in float32 past resident K)
+    assert _case_labels("divided_space.cuh", "launch_space_prerotated") \
         == classes
     assert _case_labels("divided_backward.cuh",
                         "launch_time_backward_classes") == classes

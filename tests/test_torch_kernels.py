@@ -282,6 +282,46 @@ def test_rotary_pair_table_is_memoised_and_rejects_the_time_table():
         tdiv.rotary_pair_table(t_sin, t_cos)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [2, 4, 8, 32, 128])
+def test_space_rotate_reference_matches_jax_apply_rot(dh, dtype):
+    """The plain version of the space kernel's rotation pre-pass
+    (``space_rotate_reference``: the scratch the pre-rotated design's tiles
+    read) against the JAX package's ``_apply_rot`` on each 128-lane block of
+    q (scaled) and k, the tables tiled over a block's heads as
+    ``_space_fused`` tiles them, on numpy inputs from a seed: equal once
+    both are rounded to bf16; v rounded to bf16; the columns past a head of
+    2 or 4 dims zeros (the scratch's heads are whole 16-byte chunks)."""
+    heads, n, scale = 256 // dh, 256, dh**-0.5
+    rng = np.random.default_rng(21)
+    qkv = rng.normal(size=(2, n, 3 * heads * dh)).astype(np.float32)
+    qkv = np.asarray(_t(qkv).to(dtype).float())
+    if dh >= 4:
+        sin, cos = jrot.axial_rotary_sincos(16, n // 16, dh)
+    else:   # the axial table has no entry below head dim 4
+        ang = np.repeat(rng.uniform(-3, 3, size=(n, dh // 2)), 2, axis=-1)
+        sin, cos = np.sin(ang).astype(np.float32), np.cos(ang).astype(
+            np.float32)
+    got = tdiv.space_rotate_reference(_t(qkv).to(dtype), _t(sin), _t(cos),
+                                      heads, dh, scale)
+    w = tdiv.space_scratch_width(dh)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, n, 3 * heads * w)
+    got = got.float().reshape(2, n, 3, heads, w)
+    assert not got[..., dh:].any()
+    g = 128 // dh
+    sin_t, cos_t = jdiv._tile_tables(sin, cos, g)
+    r = jnp.asarray(jdiv._rot_block(g, dh))
+    for third, mul in ((0, scale), (1, 1.0)):
+        x = qkv[..., third * heads * dh:(third + 1) * heads * dh]
+        want = np.concatenate([np.asarray(jdiv._apply_rot(
+            jnp.asarray(x[..., j:j + 128]), sin_t, cos_t, r, mul))
+            for j in range(0, heads * dh, 128)], axis=-1)
+        want = _t(want).bfloat16().float().reshape(2, n, heads, dh)
+        assert torch.equal(got[:, :, third, :, :dh], want), third
+    v = _t(qkv[..., 2 * heads * dh:]).bfloat16().float()
+    assert torch.equal(got[:, :, 2, :, :dh], v.reshape(2, n, heads, dh))
+
+
 @pytest.mark.parametrize("n", range(256, 2049, 128))
 def test_space_gate_by_n(n):
     """Every multiple of 128 from 256 to 2048 passes the space gate, as in
@@ -310,7 +350,8 @@ def test_divided_kernels_reject_unbuilt_shapes(stub_launches):
     launches: a head dim that does not divide 128 (or of 1, which has no
     rotary pair), 40 frames, a frame count off the 8-frame tiling. Inside
     it, head dim 32 and 8-frame clips (once refused here) launch the
-    classes' entry point (the libraries are stubs)."""
+    classes' libraries (the libraries are stubs): space the pre-rotated
+    design's entry point, time the classes'."""
     for dh in (48, 1):
         tab = torch.zeros(256, dh)
         with pytest.raises(ValueError, match="head dims dividing 128"):
@@ -332,5 +373,5 @@ def test_divided_kernels_reject_unbuilt_shapes(stub_launches):
     tdiv.time_attention_cuda(
         torch.zeros(1, 8, 8, 3 * 2 * 64, dtype=torch.bfloat16), tab, tab, 2,
         64, 0.125)
-    assert stub_launches == ["divided_space_attention_classes",
+    assert stub_launches == ["divided_space_attention_prerotated",
                              "divided_time_attention_classes"]

@@ -27,8 +27,35 @@ launch, so this builds the variants it compares for itself, under
 flags): the small-head classes 64 and 128 at every width, and the wide tile
 at 40, 48, 56 and 64.
 
-    python3 tools/ab_classes.py [--wide]  # repository root, on a card;
-                                          # --wide: the second part alone
+Then the divided space kernel at the head dims other than 64 (``--space``):
+the small-head class with the rotary (what ``launch_space_classes`` ran
+before the pre-rotated design) against the pre-rotated design
+(``divided_space_attention_prerotated``: the rotation pre-pass, then the
+small-head tile up to head dim 32 and the wgmma tile built per width at
+128) at the AE's 512 channels, qkv [32, 1024, 1536], in 2 to 128 heads of
+each width, bf16 and float32, and in float32 at head dim 64 over 2048
+tokens (qkv [2, 2048, 1536]), paired (class, new, new, class). Beside the
+pair, each timed once: the same class without the rotary on the same packed
+layout (a diagnostic with wrong results: what the rotary costs the class),
+the pre-pass alone, the one-pass kernel at the head-split shape
+[BF·H, N, dh] (what the tile costs without the packed layout) and the
+library's attention on the head-split rotated q, k, v. At head dims 16 and
+32 the design is also paired (new, wide, wide, new) with the same pre-pass
+feeding the wgmma tile built at n = dh in place of the small-head tile. The
+class, its rotary-free twin, the pre-pass alone and that wgmma variant are
+built here as well.
+
+The replaced designs (the small-head class 128 and the class with the
+rotary) are no longer in this checkout's headers: those variants are built
+against the headers of an earlier copy of the repository (``--before``,
+default ``build/before``), unpacked as ``tools/compare_builds.py``'s is,
+from a commit whose ``smallhead_tile.cuh`` still has its ``ROT`` branch and
+class 128 (1f27cc7 or earlier):
+
+    git archive 1f27cc7 | tar -x -C build/before   # once, on the host
+    python3 tools/ab_classes.py [--wide | --space] [--before DIR]
+                                          # repository root, on a card;
+                                          # --wide, --space: that part alone
 """
 
 from __future__ import annotations
@@ -43,9 +70,10 @@ sys.path.insert(0, str(ROOT))
 
 
 # the variants compared above head dim 32, each a library of its own (the
-# float32 ones apart from the bf16 ones, as the shipped libraries are)
+# float32 ones apart from the bf16 ones, as the shipped libraries are):
+# name -> (header, built against the --before copy's headers, body)
 VARIANTS = {
-    "class": ("smallhead_tile.cuh", """
+    "class": ("smallhead_tile.cuh", True, """
   if (D < 8 || D > 128 || D % 8) return cudaErrorInvalidValue;
   const long q_seq = (long)Nq * D, kv_seq = (long)Nk * D;
   const mdt::SmallHeadArgsT<T> a{
@@ -55,7 +83,7 @@ VARIANTS = {
   return D <= 64 ? mdt::launch_smallhead<64, T, false, true>(a, B, 1, st)
                  : mdt::launch_smallhead<128, T, false, true>(a, B, 1, st);
 """),
-    "wide": ("wgmma_wide.cuh", """
+    "wide": ("wgmma_wide.cuh", False, """
   const mdt::WideArgsT<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                             static_cast<const T*>(v), static_cast<T*>(out),
                             (long)Nq * D, (long)Nk * D, D, Nq, Nk, scale,
@@ -69,6 +97,71 @@ VARIANTS = {
   return cudaErrorInvalidValue;
 """),
 }
+# the space variants (a library each, bf16 and float32): the class with the
+# rotary as it was launched (the --before copy's tile), the same tile
+# without it, the pre-pass alone
+SPACE_CLASS = """
+  if (dh < 2 || dh > 128 || 128 % dh || N < 256 || N % 128)
+    return cudaErrorInvalidValue;
+  const T* base = static_cast<const T*>(qkv);
+  const long hd = (long)H * dh;
+  const mdt::SmallHeadArgsT<T> a{{base, base + hd, base + 2 * hd,
+                                 static_cast<T*>(out), N * 3 * hd,
+                                 N * 3 * hd, 3 * hd, N * hd, hd, dh, N, N,
+                                 scale, static_cast<const float*>(rot), dh}};
+  switch (dh < 16 ? 16 : dh) {{
+    case 16: return mdt::launch_smallhead<16, T, {rot}, true>(a, BF, H, st);
+    case 32: return mdt::launch_smallhead<32, T, {rot}, true>(a, BF, H, st);
+    case 64: return mdt::launch_smallhead<64, T, {rot}, true>(a, BF, H, st);
+    case 128: return mdt::launch_smallhead<128, T, {rot}, true>(a, BF, H, st);
+  }}
+  return cudaErrorInvalidValue;
+"""
+SPACE_VARIANTS = {
+    "space_class": ("smallhead_tile.cuh", True,
+                    SPACE_CLASS.format(rot="true")),
+    "space_norot": ("smallhead_tile.cuh", True,
+                    SPACE_CLASS.format(rot="false")),
+    "space_prepass": ("divided_space.cuh", False, """
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  const int w = mdt::space_scratch_width(dh);
+  return mdt::launch_space_rotate<T>(
+      static_cast<const T*>(qkv), static_cast<const float*>(rot),
+      static_cast<mdt::bf16*>(scratch), BF, N, H, dh, kF32 || w != dh,
+      scale, st);
+"""),
+    # the pre-rotated design with wgmma at n = dh in place of the
+    # small-head tile at head dims 16 and 32
+    "space_wide": ("divided_space.cuh", False, """
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  if (dh != 16 && dh != 32) return cudaErrorInvalidValue;
+  mdt::bf16* s = static_cast<mdt::bf16*>(scratch);
+  cudaError_t err = mdt::launch_space_rotate<T>(
+      static_cast<const T*>(qkv), static_cast<const float*>(rot), s, BF, N,
+      H, dh, kF32, scale, st);
+  if (err != cudaSuccess) return err;
+  const long hw = (long)H * dh, row = 3 * hw;
+  const mdt::bf16* v =
+      kF32 ? s + 2 * hw : static_cast<const mdt::bf16*>(qkv) + 2 * hw;
+  const mdt::WideSpaceArgs a{
+      {s, s + hw, v, static_cast<mdt::bf16*>(out), N * row, N * row, dh, N,
+       N, 1.f, 0, 0, 0, 0},
+      (long)N * H * dh, (int)row, H * dh, H};
+  return dh == 16 ? mdt::launch_wide<16, mdt::bf16, true, T>(a, BF * H, st)
+                  : mdt::launch_wide<32, mdt::bf16, true, T>(a, BF * H, st);
+"""),
+}
+SPACE_SOURCE = """#include "{header}"
+using T = {type};
+extern "C" {{
+int space_ab(const void* qkv, const void* rot, void* scratch, void* out,
+             int BF, int N, int H, int dh, float scale, void* stream) {{
+  cudaStream_t st = static_cast<cudaStream_t>(stream);{body}}}
+const char* kernel_error_string(int err) {{
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}}
+}}
+"""
 SOURCE = """#include "{header}"
 using T = {type};
 extern "C" {{
@@ -83,24 +176,33 @@ const char* kernel_error_string(int err) {{
 """
 
 
-def build_variants() -> dict:
-    """Build ``VARIANTS`` in bf16 and float32 under build/ab_classes/ and
-    load them: {"class", "class_f32", "wide", "wide_f32"} -> library."""
+def build_variants(before: Path, variants=None, source=SOURCE,
+                   bind=None) -> dict:
+    """Build ``variants`` (default ``VARIANTS``) from ``source`` in bf16 and
+    float32 under build/ab_classes/ and load them, each bound by ``bind``
+    (default: the fused entry point): {"class", "class_f32", "wide",
+    "wide_f32"} -> library. A variant marked so includes the headers of the
+    copy at ``before``. Prints each kernel's registers and stack
+    (``-Xptxas -v``), one JSON line per variant."""
     import ctypes
 
     from moditalker_tpu_torch.ops.kernels import _build
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
 
+    variants = VARIANTS if variants is None else variants
+    bind = bind or (lambda lib: fa._bind(lib, "_ab"))
     out = ROOT / "build" / "ab_classes"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, (header, body) in VARIANTS.items():
+    csrc_before = before / "moditalker_tpu_torch" / "csrc"
+    for name, (header, old, body) in variants.items():
         for suffix, type_ in (("", "mdt::bf16"), ("_f32", "float")):
             src = out / f"{name}{suffix}.cu"
-            src.write_text(SOURCE.format(header=header, type=type_,
+            src.write_text(source.format(header=header, type=type_,
                                          body=body))
-            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC),
-                   "-o", str(src.with_suffix(".so")), str(src)]
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+                   str(csrc_before if old else _build.CSRC), "-o",
+                   str(src.with_suffix(".so")), str(src)]
             procs[name + suffix] = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)
@@ -109,10 +211,21 @@ def build_variants() -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        kernels, name = [], None
+        for line in log.splitlines():
+            if "Compiling entry function" in line:
+                name = line.split("'")[1]
+            elif "Used" in line and name:
+                words = line.split()
+                kernels.append({"kernel": name, "registers": int(
+                    words[words.index("registers,") - 1]), "stack_bytes": int(
+                    words[words.index("cumulative") - 2])
+                    if "cumulative" in words else 0})
+        print(json.dumps({"variant": key, "ptxas": kernels}), flush=True)
         lib = ctypes.CDLL(str(out / f"{key}.so"))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
-        libs[key] = fa._bind(lib, "_ab")
+        libs[key] = bind(lib)
     return libs
 
 
@@ -122,7 +235,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--wide", action="store_true",
                     help="only the comparisons above head dim 32")
+    ap.add_argument("--space", action="store_true",
+                    help="only the space kernel's comparisons")
+    ap.add_argument("--before", type=Path, default=ROOT / "build" / "before",
+                    help="an earlier copy of the repository, whose headers "
+                         "build the replaced designs")
     args = ap.parse_args()
+    if not (args.before / "moditalker_tpu_torch" / "csrc" /
+            "smallhead_tile.cuh").is_file():
+        print(f"{args.before}: no earlier copy of the repository (git "
+              f"archive 1f27cc7 | tar -x -C {args.before})", file=sys.stderr)
+        return 2
     import torch
 
     import chip_smoke
@@ -154,9 +277,13 @@ def main() -> int:
         if rc:
             raise RuntimeError(f"{entry}: {lib.kernel_error_string(rc)}")
 
-    if not args.wide:
+    print(json.dumps({"card": chip_smoke.card_line()}), flush=True)
+    if not (args.wide or args.space):
         shipped_against_classes(torch, rnd, run, status)
-    wide_against_classes(torch, rnd, status)
+    if not args.space:
+        wide_against_classes(torch, rnd, status, args.before)
+    if not args.wide:
+        space_against_classes(torch, rnd, status, args.before)
     return 0
 
 
@@ -327,7 +454,7 @@ def shipped_against_classes(torch, rnd, run, status) -> None:
 
 
 
-def wide_against_classes(torch, rnd, status) -> None:
+def wide_against_classes(torch, rnd, status, before: Path) -> None:
     import chip_smoke
     from moditalker_tpu_torch.ops.kernels import (
         check_bf16, check_float32_route, cuda_stream)
@@ -335,7 +462,7 @@ def wide_against_classes(torch, rnd, status) -> None:
 
     # above head dim 32: the small-head class against the wgmma tile, and
     # the wgmma tile built for 64 against the configurations' tile
-    ab = build_variants()
+    ab = build_variants(before)
     cases = [("class", "wide", 16, 2048, d)
              for d in (40, 48, 56, 72, 80, 96, 112, 128)]
     cases += [("class", "wide", 4, 2048, 128),
@@ -390,6 +517,123 @@ def wide_against_classes(torch, rnd, status) -> None:
                 "faster": second if b_ms < a_ms else first,
                 "equal_bit_for_bit": bool(torch.equal(outs[first],
                                                       outs[second])),
+                "errors": {w: [float(f"{e:.4g}") for e in errs[w]]
+                           for w in errs}}), flush=True)
+
+
+def space_against_classes(torch, rnd, status, before: Path) -> None:
+    import ctypes
+
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from moditalker_tpu_torch.ops import rotary
+    from moditalker_tpu_torch.ops.kernels import (
+        check_bf16, check_float32_route, cuda_stream)
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+
+    def bind(lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.space_ab.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p]
+        lib.space_ab.restype = i
+        return lib
+
+    ab = build_variants(before, SPACE_VARIANTS, SPACE_SOURCE, bind)
+    # (head dim, frames x batch, tokens): the AE's 512 channels
+    cases = [(dh, 32, 1024) for dh in (128, 32, 16, 8, 4, 2)]
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        suffix = "_f32" if f32 else ""
+        for dh, bf, n in cases + ([(64, 2, 2048)] if f32 else []):
+            heads, scale = 512 // dh, dh**-0.5
+            side = 32 if n == 1024 else 64
+            if dh >= 4:
+                sin, cos = (torch.from_numpy(t).cuda() for t in
+                            rotary.axial_rotary_sincos(side, n // side, dh))
+            else:   # the axial table has no entry below head dim 4
+                g = torch.Generator().manual_seed(3)
+                ang = (torch.rand(n, 1, generator=g) * 6 - 3).repeat(1, 2)
+                sin, cos = ang.sin().cuda(), ang.cos().cuda()
+            table = dv.rotary_pair_table(sin, cos)
+            qkv = rnd(bf, n, 3 * heads * dh, dtype=dtype)
+            out = torch.empty(bf, n, heads * dh, dtype=dtype, device="cuda")
+            scratch = torch.empty(bf, n, 3 * heads * dv.space_scratch_width(
+                dh), dtype=torch.bfloat16, device="cuda")
+            new_lib = dv._classes_lib_f32() if f32 else dv._classes_lib()
+            new_entry = "divided_space_attention_prerotated" + suffix
+
+            def variant(name):
+                lib = ab[name + suffix]
+                status(lib, lib.space_ab(
+                    qkv.data_ptr(), table.data_ptr(), scratch.data_ptr(),
+                    out.data_ptr(), bf, n, heads, dh, scale,
+                    cuda_stream(qkv)), name)
+                return out
+
+            def new():
+                status(new_lib, getattr(new_lib, new_entry)(
+                    qkv.data_ptr(), table.data_ptr(), scratch.data_ptr(),
+                    out.data_ptr(), bf, n, heads, dh, scale,
+                    cuda_stream(qkv)), new_entry)
+                return out
+
+            fns = {"class": lambda: variant("space_class"), "new": new}
+            if dh in (16, 32):   # wgmma at n = dh, paired with the new
+                fns["wide"] = lambda: variant("space_wide")
+            times = {which: [] for which in fns}
+            for which in ("class", "new", "new", "class"):
+                times[which].append(chip_smoke.time_ms(torch, fns[which]))
+            if "wide" in fns:
+                for which in ("new", "wide", "wide", "new"):
+                    times[which].append(chip_smoke.time_ms(torch,
+                                                           fns[which]))
+            x = qkv.float().reshape(1, bf, n, -1)
+            plain = dv.divided_attention_reference(
+                x, sin, cos, "space", heads, dh, scale, use_flash=False)
+            route = dv.divided_attention_float32_route(
+                x, sin, cos, "space", heads, dh, scale, exp2=True)
+            errs, outs = {}, {}
+            for which, fn in fns.items():
+                outs[which] = got = fn().clone().reshape(plain.shape)
+                errs[which] = check_bf16("divided_space_attention", got,
+                                         plain)
+                if f32:
+                    errs[which] = check_float32_route(
+                        "divided_space_attention", got, route)
+            del plain, route, x
+            # once each: the class without the rotary, the pre-pass alone,
+            # the one-pass kernel at the head-split shape, the library call
+            once = {}
+            if dh >= 8:
+                once["class_norot_ms"] = chip_smoke.time_ms(
+                    torch, lambda: variant("space_norot"))
+            once["prepass_ms"] = chip_smoke.time_ms(
+                torch, lambda: variant("space_prepass"))
+            q, k, v = (t.reshape(bf, n, heads, dh).transpose(1, 2)
+                       for t in qkv.chunk(3, -1))
+            q, k = rotary.apply_rot_emb(q, k, sin.to(dtype), cos.to(dtype))
+            q, k, v = (t.contiguous() for t in (q, k, v))
+            once["library_ms"] = chip_smoke.time_ms(
+                torch, lambda: F.scaled_dot_product_attention(q, k, v,
+                                                              scale=scale))
+            if fa.onepass_attention_viable(n, n, dh):
+                hs = [t.reshape(bf * heads, n, dh) for t in (q, k, v)]
+                once["onepass_head_split_ms"] = chip_smoke.time_ms(
+                    torch, lambda: fa.onepass_attention(*hs, scale))
+            a_ms, b_ms = min(times["class"]), min(times["new"][:2])
+            pair = {}
+            if "wide" in fns:   # the second pair: new, wide, wide, new
+                pair = {"wide_ms": times["wide"], "wide_over_new":
+                        min(times["wide"]) / min(times["new"][2:])}
+            print(json.dumps({
+                "case": f"space [{bf}, {n}, {3 * heads * dh}] {heads} heads "
+                        f"of {dh} {dtype}".replace("torch.", ""),
+                "class_ms": times["class"], "new_ms": times["new"],
+                "new_over_class": b_ms / a_ms,
+                "faster": "new" if b_ms < a_ms else "class", **pair, **once,
+                "new_equals_class_bit_for_bit": bool(torch.equal(
+                    outs["new"], outs["class"])),
                 "errors": {w: [float(f"{e:.4g}") for e in errs[w]]
                            for w in errs}}), flush=True)
 

@@ -12,16 +12,19 @@ commit (``git archive <parent> | tar -x -C build/parent``):
    matched by the kernels' int and bool parameters).
 2. Outputs: the space (resident K, K ring, N = 256), time, packed,
    one-pass (D = 16, 32 and 64), fused (D = 16 and 32 across lengths, D = 64
-   with a ragged Nq over a short key tile) and tiny-L kernels, and the space
-   and time backward kernels, on the same seeded inputs in both copies,
+   with a ragged Nq over a short key tile) and tiny-L kernels, the one-pass
+   and fused kernels' classes and wide tile (D = 24, 48, 128, 136, 256),
+   the time kernel's 32-frame class, and the space and time backward
+   kernels, on the same seeded inputs in both copies,
    bf16 and float32, each type in a process of its own; prints whether each
    output is equal bit for bit (or that a copy raises at that shape).
 3. Times: the same calls timed in each process (``chip_smoke.time_ms``: a
    CUDA graph of 20 calls, the median of 5 replays), the copies in turns
-   (other, this, this, other); prints both pairs and the ratio of the
-   faster reading of each copy.
+   (other, this, this, other; ``--rounds N``: that N times over); prints
+   every reading of each copy and the ratio of the faster reading of each.
 
     python3 tools/compare_builds.py build/parent      # from the repo root
+    python3 tools/compare_builds.py build/parent --rounds 2 --no-ptx
 """
 
 from __future__ import annotations
@@ -37,7 +40,8 @@ ROOT = Path(__file__).resolve().parents[1]
 SOURCES = tuple(f"{name}{suffix}" for suffix in ("", "_f32")
                 for name in ("divided_attention", "flash_attention",
                              "tiny_attention", "packed_attention",
-                             "divided_backward"))
+                             "divided_backward", "flash_classes",
+                             "flash_wide"))
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-ptx"]
 
@@ -98,7 +102,18 @@ for b, n, d in ((16, 2048, 32), (16, 2048, 16), (8, 1024, 16)):
     t = [rnd(b, n, d) for _ in range(3)]
     put[f"one-pass [{b}, {n}, {d}]"] = lambda t=t, d=d: fa.onepass_attention(
         *t, d**-0.5)
-for b, nq, nk, d in ((3, 300, 8, 16), (3, 200, 640, 32)):
+# the classes and the wgmma tile built per width
+for b, n, d in ((16, 2048, 24), (16, 2048, 48), (4, 2048, 128)):
+    t = [rnd(b, n, d) for _ in range(3)]
+    put[f"one-pass [{b}, {n}, {d}]"] = lambda t=t, d=d: fa.onepass_attention(
+        *t, d**-0.5)
+sin, cos = (torch.from_numpy(t).cuda()
+            for t in rotary.time_rotary_sincos(32, 64))
+x = rnd(2, 32, 1024, 1536)
+put["time [2, 32, 1024]"] = lambda x=x: dv.divided_attention(
+    x, sin, cos, "time", 8, 64, 0.125)
+for b, nq, nk, d in ((3, 300, 8, 16), (3, 200, 640, 32), (16, 1024, 1024, 136),
+                     (16, 1024, 1024, 256)):
     t = [rnd(b, nq, d), rnd(b, nk, d), rnd(b, nk, d)]
     put[f"fused q [{b}, {nq}, {d}] k [{b}, {nk}, {d}]"] = \
         lambda t=t: fa.fused_attention(*t)
@@ -147,15 +162,22 @@ def ptx(copy: Path, source: str, tmp: Path) -> str:
 
 
 def main() -> int:
-    if len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    other = Path(sys.argv[1]).resolve()
+    import argparse
+
+    ap = argparse.ArgumentParser(usage=__doc__)
+    ap.add_argument("other", type=Path, help="the other copy of the repo")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times the turns (other, this, this, other) run")
+    ap.add_argument("--no-ptx", action="store_true",
+                    help="skip the PTX comparison")
+    args = ap.parse_args()
+    other = args.other.resolve()
     import torch
 
+    turns = (other, ROOT, ROOT, other) * args.rounds
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        for source in SOURCES:
+        for source in () if args.no_ptx else SOURCES:
             theirs = kernels(ptx(other, source, tmp))
             for key, ours in kernels(ptx(ROOT, source, tmp)).items():
                 if key not in theirs:
@@ -167,7 +189,7 @@ def main() -> int:
                 print(f"ptx {source}: {key}: {len(diff)} differing lines")
         for dtype in ("bfloat16", "float32"):
             saved = []
-            for copy in (other, ROOT, ROOT, other):
+            for copy in turns:
                 path = tmp / f"{dtype}-{len(saved)}.pt"
                 subprocess.run([sys.executable, "-c", OUTPUTS, str(path),
                                 dtype], cwd=copy, check=True, timeout=600)
@@ -181,8 +203,10 @@ def main() -> int:
                 same = torch.equal(theirs, ours)
                 print(f"{dtype} {name}: " + ("equal bit for bit" if same else
                       f"{(theirs != ours).sum().item()} elements differ"))
-                before = [saved[i]["ms"][name] for i in (0, 3)]
-                after = [saved[i]["ms"][name] for i in (1, 2)]
+                before = [run["ms"][name] for copy, run in zip(turns, saved)
+                          if copy == other]
+                after = [run["ms"][name] for copy, run in zip(turns, saved)
+                         if copy == ROOT]
                 print(f"  ms other {before} this {after} this/other "
                       f"{min(after) / min(before):.4f}")
     return 0

@@ -20,9 +20,19 @@ midpoint, and the three measures of ``relative_errors``, and the same for
 ``attention_float32_route`` itself, with ``exp`` and with ``exp2``
 (the kernels' ex2); per case, the
 rows a thousandth of the output holds (as many rows off decide the
-quantile measure).
+quantile measure). ``--space``: the float32 divided space kernels alone,
+each at two frames of qkv [1, 2, N, 3·H·dh]: the configurations' D = 64
+tile (8 heads of 64, 1024 tokens) and the pre-rotated design (4 heads of
+128, 16 of 32 and 32 of 16 over 1024 tokens, 8 of 64 over 2048), against
+the same routes from the rotated q and k (the rotary in fp32, each product
+and sum rounded, as ``divided_attention_float32_route`` takes it); then the
+three measures ``FLOAT32_ROUTE_LIMITS`` bounds, against the route with
+``exp2`` and with ``exp``, over seeds 0–3 at the float32 space shapes of
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` (one JSON line each, and
+the largest reading per design last).
 
-    python3 tools/mma_sum.py [--seeds 3] [--wide]   # repo root, on a card
+    python3 tools/mma_sum.py [--seeds 3] [--wide | --space]   # repo root,
+                                                              # on a card
 """
 
 from __future__ import annotations
@@ -41,6 +51,8 @@ def main() -> int:
     ap.add_argument("--seeds", type=int, default=3)
     ap.add_argument("--wide", action="store_true",
                     help="only the wgmma tile built per width")
+    ap.add_argument("--space", action="store_true",
+                    help="only the divided space kernels")
     args = ap.parse_args()
     import torch
 
@@ -125,6 +137,34 @@ def main() -> int:
                   % (name, off.sum().item(), (off & near).sum().item(),
                      *relative_errors(got, r)), flush=True)
 
+    if args.space:
+        from moditalker_tpu_torch.ops import rotary
+        from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+
+        for seed in range(args.seeds):
+            for heads, dh, n in ((8, 64, 1024), (4, 128, 1024),
+                                 (16, 32, 1024), (32, 16, 1024),
+                                 (8, 64, 2048)):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                sin, cos = (torch.from_numpy(t).cuda() for t in
+                            rotary.axial_rotary_sincos(32, n // 32, dh))
+                qkv = torch.randn(1, 2, n, 3 * heads * dh, generator=g,
+                                  device="cuda")
+                got = dv.divided_attention(qkv, sin, cos, "space", heads,
+                                           dh, dh**-0.5)
+
+                def split(t):   # [1, 2, N, H·dh] -> [2, H, N, dh]
+                    return t.reshape(2, n, heads, dh).transpose(1, 2)
+
+                q, k, v = (split(t) for t in qkv.chunk(3, -1))
+                q, k = rotary.apply_rot_emb(q, k, sin, cos)
+                design = ("pre-rotated" if dv.space_prerotated(dh, n, True)
+                          else "D = 64 tile")
+                case(f"space [1, 2, {n}, {3 * heads * dh}] {heads} heads of "
+                     f"{dh} float32 ({design}), seed {seed}", split(got), q,
+                     k, v, dh**-0.5, True)
+        space_limits(torch)
+        return 0
     for seed in range(args.seeds):
         if not args.wide:
             for b, l, d in ((130, 32, 128), (4224, 24, 128), (4096, 32, 64),
@@ -169,6 +209,67 @@ def main() -> int:
                  f"{', scores about -7' if tight else ''}, seed {seed}",
                  fa.fused_attention(q, k, v), q, k, v, d**-0.5, True)
     return 0
+
+
+def space_limits(torch) -> None:
+    """The float32 space kernels' three measures against their route, with
+    ``exp2`` and with ``exp``, over seeds 0–3 at the card tests' shapes
+    (axial tables, or angles drawn per pair as the classes' tests draw
+    them) and the kernels phase's."""
+    import json
+
+    from moditalker_tpu_torch.ops import rotary
+    from moditalker_tpu_torch.ops.kernels import relative_errors
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+
+    def axial(n, dh):
+        side = 1 << (n.bit_length() - 1) // 2
+        while n % side:
+            side //= 2
+        return [torch.from_numpy(t).cuda()
+                for t in rotary.axial_rotary_sincos(side, n // side, dh)]
+
+    def pairs(n, dh, seed):
+        g = torch.Generator().manual_seed(seed)
+        ang = (torch.rand(n, dh // 2, generator=g) * 6 - 3).repeat_interleave(
+            2, dim=-1)
+        return ang.sin().cuda(), ang.cos().cuda()
+
+    # (b, f, n, heads, dh, table)
+    cases = [(2, 2, 1024, 8, 64, "axial"), (1, 1, 1152, 2, 64, "axial"),
+             (2, 16, 1024, 8, 64, "axial"), (1, 16, 1024, 8, 64, "axial"),
+             (1, 1, 256, 2, 64, "axial"), (10, 16, 1024, 8, 64, "axial"),
+             (2, 16, 1024, 4, 128, "axial"), (2, 16, 1024, 16, 32, "axial"),
+             (2, 16, 1024, 32, 16, "axial"), (2, 1, 2048, 8, 64, "axial"),
+             (1, 2, 256, 1, 128, "pairs"), (1, 1, 1024, 4, 32, "pairs"),
+             (2, 1, 512, 8, 16, "pairs"), (1, 1, 256, 16, 8, "pairs"),
+             (1, 1, 384, 32, 4, "pairs"), (1, 1, 256, 64, 2, "pairs"),
+             (1, 1, 2048, 1, 128, "pairs"), (2, 2, 1024, 4, 128, "pairs"),
+             (1, 1, 1280, 2, 64, "pairs"), (1, 2, 2048, 2, 64, "pairs")]
+    worst = {}
+    for seed in range(4):
+        for b, f, n, heads, dh, tab in cases:
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            sin, cos = axial(n, dh) if tab == "axial" else pairs(n, dh, seed)
+            x = torch.randn((b, f, n, 3 * heads * dh), generator=g,
+                            device="cuda")
+            got = dv.divided_attention(x, sin, cos, "space", heads, dh,
+                                       dh**-0.5)
+            design = ("pre-rotated" if dv.space_prerotated(dh, n, True)
+                      else "D = 64 tile")
+            errs = {}
+            for route in ("exp2", "exp"):
+                want = dv.divided_attention_float32_route(
+                    x, sin, cos, "space", heads, dh, dh**-0.5,
+                    exp2=route == "exp2")
+                errs[route] = relative_errors(got, want)
+                w = worst.setdefault(f"{design}, {route}", [0.0] * 3)
+                worst[f"{design}, {route}"] = [max(a, e) for a, e in
+                                               zip(w, errs[route])]
+            print(json.dumps({"seed": seed, "shape": [b, f, n], "heads":
+                              [heads, dh], "design": design, **errs}),
+                  flush=True)
+    print(json.dumps({"largest": worst}), flush=True)
 
 
 if __name__ == "__main__":
