@@ -141,6 +141,12 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              features [expected T, 1024]; then those features through AToM
              (``run_directory``, one identity) to a landmark file: wav →
              landmarks on one card. Masked attention: no launch;
+   audio bf16 — the same weights with the bf16 trunk
+             (``HubertEncoder(dtype=torch.bfloat16)``, the JAX package's TPU
+             eval mode): the 2 s clip on the card against the CPU's
+             float32 within REF_FACTOR times the error bf16 alone costs on
+             the CPU, then the chain timed warm beside the float32 rate,
+             with TFLOP/s and the bf16 bound. No launch;
 8. align   — the ``align-motion`` stack as ``build_detectors`` makes it from
              state_dicts (S3FD, FAN with 4 modules, ReconNet at full width,
              float32, weights from ``--seed``, S3FD's face logit a filter
@@ -151,6 +157,17 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              256² on black) and the landmarks of the audio phase, timed
              warm: frames per second, aligned landmarks [156, 68, 2],
              finite, inside the frame. No launch;
+   align bf16 — ``FusedAligner(dtype=torch.bfloat16)`` from the same
+             state_dicts, FAN's last head made a discriminant of the check's
+             crops (``fan_discriminant``) so that landmarks are determined:
+             S3FD's maps, FAN's heatmaps and ReconNet's
+             coefficients on the float32 check's inputs against the CPU's
+             float32 within REF_FACTOR times the CPU's own bf16 error, the
+             2 frames' detection flags equal to the CPU bf16 chunk's, every
+             determined landmark (``determined_points``) within 1e-2 px of
+             the CPU bf16 decode's; then ``align_sequence`` over the 156
+             frames timed warm, and device ms and TFLOP/s per net per
+             chunk, beside the float32 figures. No launch;
 9. train-diffusion — ``LatentDiffusionLoop.fit`` at full width, B = 10,
              float32 (TF32 off), synthetic videos, AE and UNet weights from
              ``--seed``: one untimed step, 5 timed (steps/s, clips/s, peak
@@ -2754,6 +2771,25 @@ def rel_err(card, cpu) -> float:
     return float(np.abs(card - cpu).max() / np.abs(cpu).max())
 
 
+def hubert_part_ms(torch, model, dtype) -> dict:
+    """Device ms of HuBERT's parts on a 20 s clip (T = 1000 frames): the
+    feature extractor on the wave, the positional conv and the 24 layers
+    (one layer's time 24 times) on a residual stream in ``dtype``."""
+    from moditalker_tpu_torch.preprocess import audio
+
+    cfg = model.cfg
+    x = torch.randn((1, 1000, cfg.hidden_size), device="cuda", dtype=dtype)
+    wave_clip = torch.randn((1, audio.CLIP_LENGTH - audio.STRIDE
+                             + audio.KERNEL), device="cuda")
+    with torch.inference_mode():
+        return {
+            "feature_extractor": device_ms(
+                torch, lambda: model.feature_extractor(wave_clip)),
+            "pos_conv": device_ms(torch, lambda: model.pos_conv(x)),
+            "24 layers": cfg.num_layers * device_ms(
+                torch, lambda: model.layer_0(x))}
+
+
 def audio_phase(torch, seed: int) -> dict:
     """HuBERT-large in float32: the card against the CPU on a 2 s clip, the
     ``process-audio`` command, the same chain timed warm, and the features
@@ -2814,21 +2850,11 @@ def audio_phase(torch, seed: int) -> dict:
                                                                  card_fn))
     log_trace("audio features", traced)
     # the operations of the chain as it runs (the tail chunk bucketed)
-    cfg = model.cfg
     flops = layer_flops(
         torch, model, lambda: audio.extract_hubert_features(speech, card_fn),
         attention=(hubert.EncoderLayerStableLN,))
     audio_bound_ms = flops / H100_FP32_FLOPS * 1e3
-    x = torch.randn((1, 1000, cfg.hidden_size), device="cuda")
-    wave_clip = torch.randn((1, audio.CLIP_LENGTH - audio.STRIDE
-                             + audio.KERNEL), device="cuda")
-    with torch.inference_mode():
-        part_ms = {
-            "feature_extractor": device_ms(
-                torch, lambda: model.feature_extractor(wave_clip)),
-            "pos_conv": device_ms(torch, lambda: model.pos_conv(x)),
-            "24 layers": cfg.num_layers * device_ms(
-                torch, lambda: model.layer_0(x))}
+    part_ms = hubert_part_ms(torch, model, torch.float32)
     log(f"audio: {flops / 1e12:.3f} TFLOP over {n / 16000:.2f} s of audio: "
         f"{flops / dt / 1e12:.2f} TFLOP/s in the timed run, bound "
         f"{audio_bound_ms:.2f} ms (operations, float32 at "
@@ -2867,7 +2893,67 @@ def audio_phase(torch, seed: int) -> dict:
     return {"launches": counts, "audio_s_per_s": rate,
             "card_vs_cpu_rel_max_err": err, "lm68_atom": lm,
             "trace": traced, "tflop": flops / 1e12,
-            "bound_ms": audio_bound_ms, "clip_device_ms": part_ms}
+            "bound_ms": audio_bound_ms, "clip_device_ms": part_ms,
+            "bf16_inputs": {"model": model, "clip": clip, "cpu": cpu,
+                            "speech": speech, "flops": flops}}
+
+
+def audio_bf16_phase(torch, seed: int, fp32: dict) -> dict:
+    """HuBERT-large with the bf16 trunk (``dtype=torch.bfloat16``) and the
+    float32 phase's weights: the 2 s clip on the card against the CPU's
+    float32 features within REF_FACTOR times the error bf16 alone costs on
+    the CPU (the port in bf16 against the port in float32, both there),
+    then the chain over the float32 phase's 23 s timed warm."""
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.preprocess import audio, hubert
+
+    inp = fp32["bf16_inputs"]
+    model = hubert.HubertEncoder(hubert.HubertConfig(), torch.bfloat16)
+    model.load_state_dict(inp["model"].state_dict())
+    model.eval()
+    clip, speech, flops = inp["clip"], inp["speech"], inp["flops"]
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu16 = model(torch.from_numpy(clip[None]))[0].float().numpy()
+    cpu_s = time.perf_counter() - t0
+    reset_launch_counts()
+    card_fn = audio.hubert_forward(model, "cuda")
+    card = card_fn(clip[None])
+    own, err = rel_err(cpu16, inp["cpu"]), rel_err(card, inp["cpu"])
+    log(f"audio bf16: HuBERT-large, bf16 trunk, on the 2 s clip against "
+        f"the CPU's float32, max abs err over max |cpu|: card {err:.3e}, "
+        f"the CPU's bf16 {own:.3e} (card within {REF_FACTOR}x; the CPU's "
+        f"bf16 forward took {cpu_s:.1f} s)")
+    if card.dtype != np.float32 or err > REF_FACTOR * own:
+        raise AssertionError("audio bf16: the card disagrees with the CPU")
+    n = speech.shape[0]
+    for label in ("audio features bf16 (warm-up)", "audio features bf16"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = audio.extract_hubert_features(speech, card_fn)
+        dt = time.perf_counter() - t0
+    rate = n / 16000 / dt
+    bound = flops / H100_BF16_FLOPS * 1e3
+    traced = trace(torch, lambda: audio.extract_hubert_features(speech,
+                                                                 card_fn))
+    log_trace("audio features bf16", traced)
+    part_ms = hubert_part_ms(torch, model, torch.bfloat16)
+    want_t = audio.expected_num_frames(n)
+    if (feats.shape != (want_t, model.cfg.hidden_size)
+            or feats.dtype != np.float32 or not np.isfinite(feats).all()):
+        raise AssertionError(f"audio bf16: features {feats.shape} "
+                             f"{feats.dtype}")
+    counts = check_launches("audio bf16", set())
+    log(f"{label}: {n / 16000:.2f} s of audio in {dt:.3f} s = {rate:.2f} s "
+        f"of audio per s (float32: {fp32['audio_s_per_s']:.2f}); "
+        f"{flops / dt / 1e12:.2f} TFLOP/s, bound {bound:.2f} ms "
+        f"(operations, bf16 at {H100_BF16_FLOPS / 1e12:.0f} TFLOP/s); "
+        f"device ms per 20 s clip by part {part_ms} (float32 "
+        f"{fp32['clip_device_ms']}); launches {counts}")
+    return {"launches": counts, "audio_s_per_s": rate,
+            "card_vs_cpu_rel_max_err": err, "cpu_bf16_rel_max_err": own,
+            "tflop_per_s": flops / dt / 1e12, "bound_ms": bound,
+            "clip_device_ms": part_ms, "trace": traced, "cpu_bf16_s": cpu_s}
 
 
 def _he_init(torch, module, gen) -> None:
@@ -2931,6 +3017,25 @@ def align_states(torch, seed: int, frame: np.ndarray, face: tuple) -> tuple:
     return s3fd, fan, recon
 
 
+def chunk_net_ms(torch, fused, frames) -> tuple:
+    """One fused chunk's device ms, whole and by net (the nets on inputs
+    of the chunk's shapes), and each net's FLOPs there."""
+    from moditalker_tpu_torch.preprocess.s3fd import preprocess_frames
+
+    chunk = frames[:fused.chunk]
+    dev = torch.from_numpy(chunk).cuda()
+    x256 = torch.rand((fused.chunk, 256, 256, 3), device="cuda")
+    x224 = torch.rand((fused.chunk, 224, 224, 3), device="cuda")
+    calls = {"s3fd": (fused.s3fd, lambda: fused.s3fd(preprocess_frames(dev))),
+             "fan": (fused.fan, lambda: fused.fan(x256)),
+             "recon": (fused.recon, lambda: fused.recon(x224))}
+    with torch.inference_mode():
+        net_ms = {"chunk": device_ms(torch, lambda: fused.chunk_rows(chunk)),
+                  **{k: device_ms(torch, fn) for k, (_, fn) in calls.items()}}
+    flops = {k: layer_flops(torch, net, fn) for k, (net, fn) in calls.items()}
+    return net_ms, flops
+
+
 def align_phase(torch, seed: int, lm68_atom: np.ndarray) -> dict:
     """The alignment stack at full width in float32: nets and the fused
     chunk on the card against the CPU, then ``align_sequence`` over 156
@@ -2971,8 +3076,8 @@ def align_phase(torch, seed: int, lm68_atom: np.ndarray) -> dict:
         want_rows = cpu.chunk_rows(two)
         maps = [m.cpu() for m in fused.s3fd(preprocess_frames(
             torch.from_numpy(two).cuda()))]
-        errs["s3fd maps"] = max(rel_err(g, w) for g, w in zip(
-            maps, cpu.s3fd(preprocess_frames(torch.from_numpy(two)))))
+        maps32 = cpu.s3fd(preprocess_frames(torch.from_numpy(two)))
+        errs["s3fd maps"] = max(rel_err(g, w) for g, w in zip(maps, maps32))
         got = fused_align.FusedAligner.unpack(got_rows.cpu().numpy())
         want = fused_align.FusedAligner.unpack(want_rows.numpy())
         crops = torch.round(fused_align._sample_bilinear(
@@ -2983,8 +3088,9 @@ def align_phase(torch, seed: int, lm68_atom: np.ndarray) -> dict:
         errs["fan heatmaps"] = rel_err(fused.fan(crops.cuda())[-1].cpu(),
                                        cpu.fan(crops)[-1])
         x224 = torch.from_numpy(rng.uniform(0, 1, (2, 224, 224, 3))).float()
+        recon_in, coeff32 = x224, cpu.recon(x224)
         errs["recon coefficients"] = rel_err(fused.recon(x224.cuda()).cpu(),
-                                             cpu.recon(x224))
+                                             coeff32)
     if not (got["detected"].all() and want["detected"].all()):
         raise AssertionError(f"align: not every frame detected: card "
                              f"{got['detected']}, cpu {want['detected']}")
@@ -3019,23 +3125,7 @@ def align_phase(torch, seed: int, lm68_atom: np.ndarray) -> dict:
     log_trace("align_sequence", traced)
     # one chunk's device time, whole and by net (the nets on inputs of the
     # chunk's shapes)
-    chunk = frames[:fused.chunk]
-    dev = torch.from_numpy(chunk).cuda()
-    x256 = torch.rand((fused.chunk, 256, 256, 3), device="cuda")
-    x224 = torch.rand((fused.chunk, 224, 224, 3), device="cuda")
-    with torch.inference_mode():
-        net_ms = {
-            "chunk": device_ms(torch, lambda: fused.chunk_rows(chunk)),
-            "s3fd": device_ms(torch, lambda: fused.s3fd(
-                preprocess_frames(dev))),
-            "fan": device_ms(torch, lambda: fused.fan(x256)),
-            "recon": device_ms(torch, lambda: fused.recon(x224))}
-        net_flops = {
-            "s3fd": layer_flops(torch, fused.s3fd, lambda: fused.s3fd(
-                preprocess_frames(dev))),
-            "fan": layer_flops(torch, fused.fan, lambda: fused.fan(x256)),
-            "recon": layer_flops(torch, fused.recon,
-                                 lambda: fused.recon(x224))}
+    net_ms, net_flops = chunk_net_ms(torch, fused, frames)
     rates = {k: round(f / (net_ms[k] * 1e9), 2) for k, f in net_flops.items()}
     chunk_bound_ms = sum(net_flops.values()) / H100_FP32_FLOPS * 1e3
     log(f"align: device ms per chunk of {fused.chunk} frames: {net_ms}; "
@@ -3053,7 +3143,197 @@ def align_phase(torch, seed: int, lm68_atom: np.ndarray) -> dict:
     return {"launches": counts, "frames_per_s": fps,
             "card_vs_cpu_rel_max_err": errs, "trace": traced,
             "chunk_device_ms": net_ms, "chunk_tflop_per_s": rates,
-            "chunk_bound_ms": chunk_bound_ms}
+            "chunk_bound_ms": chunk_bound_ms,
+            "bf16_inputs": {
+                "states": states, "lm3d_std": lm3d_std, "frames": frames,
+                "landmark_fn": landmark_fn, "coeff_fn": coeff_fn,
+                "lm68_atom": lm68_atom, "two": two, "crops": crops,
+                "scale": want["scale"], "x224": recon_in, "maps32": maps32,
+                "coeff32": coeff32}}
+
+
+def determined_points(hm32, *hms):
+    """[B, 68] mask of the heatmap points whose decode no bf16 result in
+    ``hms`` can move: with e the largest |bf16 − float32| of that heatmap
+    over ``hms``, the float32 map's top value beats its runner-up, and its
+    neighbours |right − left| and |below − above| differ where the ±0.25
+    shift applies, each by more than 2e (two values may each move by e).
+    Heatmaps [B, H, W, 68], numpy."""
+    b, hh, ww, n = hm32.shape
+    e = np.max([np.abs(h - hm32).max(axis=(1, 2)) for h in hms], axis=0)
+    flat = hm32.transpose(0, 3, 1, 2).reshape(b, n, hh * ww)
+    top2 = np.sort(flat, axis=-1)[..., -2:]
+    ok = top2[..., 1] - top2[..., 0] > 2 * e
+    idx = flat.argmax(axis=-1)
+    yi, xi = idx // ww, idx % ww
+
+    def at(y, x):
+        return np.take_along_axis(flat, (y * ww + x)[..., None], -1)[..., 0]
+
+    for inside, a, c in (
+            ((xi > 0) & (xi < ww - 1), at(yi, np.minimum(xi + 1, ww - 1)),
+             at(yi, np.maximum(xi - 1, 0))),
+            ((yi > 0) & (yi < hh - 1), at(np.minimum(yi + 1, hh - 1), xi),
+             at(np.maximum(yi - 1, 0), xi))):
+        ok &= ~inside | (np.abs(a - c) > 2 * e)
+    return ok
+
+
+def fan_discriminant(feats: np.ndarray, crops01: np.ndarray, r: int = 2,
+                     ridge: float = 0.01) -> tuple:
+    """FAN's last heatmap head (a 1 × 1 conv, C → 68) peaked on given
+    crops, so that the landmark checks have determined points to compare:
+    random heads give flat heatmaps (2 % of the points determined on the
+    align phase's crops). ``feats`` [B, C, 64, 64], the head's input in
+    float32 on crops01 [B, 256, 256, 3] in 0..1. Per crop b, p_jb is the
+    j-th brightest local maximum of its 4 × 4-pixel cell means (at least
+    r + 1 cells apart, r from the border; cyclic where fewer), Σ_b the
+    features' covariance over the map plus ``ridge`` of its mean variance,
+    and kernel column j = Σ_b unit(Σ_b⁻¹ (f_b(p_jb) − the mean of f_b over
+    the (2r + 1)² cells around it)), a linear discriminant of that cell
+    against its map; the bias centres crop 0's map. Returns (kernel [C,
+    68], bias [68]), float32."""
+    c = feats.shape[1]
+    kernel = np.zeros((c, 68))
+    for f, crop in zip(feats, crops01):
+        cells = crop.mean(-1).reshape(64, 4, 64, 4).mean((1, 3))
+        cells[:r], cells[-r:], cells[:, :r], cells[:, -r:] = 0, 0, 0, 0
+        pts = []
+        for i in np.argsort(cells, axis=None)[::-1]:
+            y, x = divmod(int(i), 64)
+            if cells[y, x] <= 0 or len(pts) == 68:
+                break
+            if all(max(abs(y - a), abs(x - b)) > r for a, b in pts):
+                pts.append((y, x))
+        pts = np.array([pts[j % len(pts)] for j in range(68)])
+        cov = np.cov(f.reshape(c, -1))
+        cov += ridge * np.trace(cov) / c * np.eye(c)
+        near = np.stack([f[:, y - r:y + r + 1, x - r:x + r + 1].mean((1, 2))
+                         for y, x in pts], axis=1)          # [C, 68]
+        u = np.linalg.solve(cov, f[:, pts[:, 0], pts[:, 1]] - near)
+        kernel += u / np.linalg.norm(u, axis=0, keepdims=True)
+    bias = -(feats[0].mean(axis=(1, 2)) @ kernel)
+    return kernel.astype(np.float32), bias.astype(np.float32)
+
+
+def align_bf16_phase(torch, seed: int, fp32: dict) -> dict:
+    """The alignment stack with its three trunks in bf16
+    (``FusedAligner(dtype=torch.bfloat16)``) from the float32 phase's
+    state_dicts: S3FD's maps, FAN's heatmaps and ReconNet's coefficients on
+    the float32 check's inputs, on the card against the CPU's float32
+    within REF_FACTOR times the CPU's own bf16 error; the 2 frames'
+    detection flags equal to the CPU bf16 chunk's; every determined
+    landmark within 1e-2 px of the CPU bf16 decode's on the same crops
+    (FAN's last head made a discriminant of the crops' bright cells,
+    ``fan_discriminant``, in every copy here, so that points are
+    determined); then ``align_sequence`` over the 156 frames timed warm,
+    and device ms and TFLOP/s per net per chunk."""
+    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.preprocess import fused_align
+    from moditalker_tpu_torch.preprocess.fan import FAN, decode_heatmaps
+    from moditalker_tpu_torch.preprocess.motion_align import (HORIZON,
+                                                              MotionAligner)
+    from moditalker_tpu_torch.preprocess.s3fd import preprocess_frames
+
+    inp = fp32["bf16_inputs"]
+    bf16, unpack = torch.bfloat16, fused_align.FusedAligner.unpack
+    two, crops, x224 = inp["two"], inp["crops"], inp["x224"]
+    s3fd_state, fan_state, recon_state = inp["states"]
+    fan32 = FAN(num_modules=4).eval()
+    fan32.load_state_dict(fan_state)
+    head = f"l{fan32.num_modules - 1}"
+    seen = []
+    hook = getattr(fan32, head).register_forward_hook(
+        lambda m, a, out: seen.append(a[0]))
+    with torch.inference_mode():
+        fan32(crops)
+    hook.remove()
+    kernel, bias = fan_discriminant(seen[0].numpy(), crops.numpy())
+    fan_state = dict(fan_state)
+    fan_state[f"{head}.weight"] = torch.from_numpy(kernel.T.copy())[
+        :, :, None, None]
+    fan_state[f"{head}.bias"] = torch.from_numpy(bias)
+    fan32.load_state_dict(fan_state)
+    with torch.inference_mode():
+        hm32 = fan32(crops)[-1].numpy()
+    states = (s3fd_state, fan_state, recon_state)
+    reset_launch_counts()
+    fused = fused_align.FusedAligner(*states, inp["lm3d_std"],
+                                     device="cuda", dtype=bf16)
+    cpu = fused_align.FusedAligner(*states, inp["lm3d_std"], device="cpu",
+                                   dtype=bf16)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = unpack(cpu.chunk_rows(two).numpy())
+        maps16 = cpu.s3fd(preprocess_frames(torch.from_numpy(two)))
+        hm16 = cpu.fan(crops)[-1].float()
+        coeff16 = cpu.recon(x224)
+    cpu_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        got = unpack(fused.chunk_rows(two).cpu().numpy())
+        maps = [m.cpu() for m in fused.s3fd(preprocess_frames(
+            torch.from_numpy(two).cuda()))]
+        hm = fused.fan(crops.cuda())[-1].float().cpu()
+        coeff = fused.recon(x224.cuda()).cpu()
+    card = {"s3fd maps": max(rel_err(g, w)
+                             for g, w in zip(maps, inp["maps32"])),
+            "fan heatmaps": rel_err(hm, hm32),
+            "recon coefficients": rel_err(coeff, inp["coeff32"])}
+    own = {"s3fd maps": max(rel_err(g, w)
+                            for g, w in zip(maps16, inp["maps32"])),
+           "fan heatmaps": rel_err(hm16, hm32),
+           "recon coefficients": rel_err(coeff16, inp["coeff32"])}
+    ok = determined_points(hm32, hm16.numpy(), hm.numpy())
+    # heatmap px to image px: the crop's side 200·scale over 64 cells
+    px = (200.0 * inp["scale"] / 64.0)[:, None]
+    off = (np.abs(decode_heatmaps(hm).numpy() - decode_heatmaps(hm16).numpy())
+           .max(axis=-1) * px)
+    log(f"align bf16: card vs cpu float32, max abs err over max |cpu|: "
+        f"{card}; the CPU's bf16: {own} (card within {REF_FACTOR}x; the "
+        f"CPU's bf16 chunk and nets took {cpu_s:.1f} s); detected card "
+        f"{got['detected']} cpu bf16 {want['detected']}; determined points "
+        f"{int(ok.sum())} of {ok.size} ({ok.mean():.1%}), the largest "
+        f"determined offset from the CPU's bf16 decode "
+        f"{off[ok].max(initial=0):.3e} px (limit 1e-2)")
+    if (any(card[k] > REF_FACTOR * own[k] for k in card)
+            or not np.array_equal(got["detected"], want["detected"])
+            or not got["detected"].all() or not ok.any()
+            or off[ok].max() > 1e-2):
+        raise AssertionError("align bf16: the card disagrees with the CPU")
+
+    frames, lm68_atom = inp["frames"], inp["lm68_atom"]
+    aligner = MotionAligner(inp["landmark_fn"], inp["coeff_fn"],
+                            inp["lm3d_std"], fused=fused)
+    if not fused.process(frames)["detected"].all():
+        raise AssertionError("align bf16: a frame missed its detection")
+    for label in ("align_sequence bf16 (warm-up)", "align_sequence bf16"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aligned = aligner.align_sequence(lm68_atom, frames)
+        dt = time.perf_counter() - t0
+    fps = HORIZON / dt
+    traced = trace(torch, lambda: aligner.align_sequence(lm68_atom, frames))
+    log_trace("align_sequence bf16", traced)
+    side = frames.shape[1]
+    if (aligned.shape != (HORIZON, 68, 2) or not np.isfinite(aligned).all()
+            or aligned.min() < 0 or aligned.max() > side - 1):
+        raise AssertionError(f"align bf16: aligned landmarks "
+                             f"{aligned.shape} outside the frame")
+    net_ms, flops = chunk_net_ms(torch, fused, frames)
+    rates = {k: round(f / (net_ms[k] * 1e9), 2) for k, f in flops.items()}
+    bound = sum(flops.values()) / H100_BF16_FLOPS * 1e3
+    counts = check_launches("align bf16", set())
+    log(f"{label}: {HORIZON} frames of {side}×{side} in {dt:.3f} s = "
+        f"{fps:.2f} frames/s (float32: {fp32['frames_per_s']:.2f}); device "
+        f"ms per chunk of {fused.chunk} frames {net_ms} (float32 "
+        f"{fp32['chunk_device_ms']}), TFLOP/s {rates} (float32 "
+        f"{fp32['chunk_tflop_per_s']}); the nets' bound {bound:.1f} ms "
+        f"(operations, bf16); launches {counts}")
+    return {"launches": counts, "frames_per_s": fps,
+            "card_vs_cpu_rel_max_err": card, "cpu_bf16_rel_max_err": own,
+            "determined_share": float(ok.mean()), "trace": traced,
+            "chunk_device_ms": net_ms, "chunk_tflop_per_s": rates,
+            "chunk_bound_ms": bound, "cpu_bf16_s": cpu_s}
 
 
 def profile_phase(torch, pipe, seed: int,
@@ -3857,8 +4137,12 @@ def main() -> int:
     cli_result = phase("cli", cli_phase, torch, args.seed)
     atom = phase("atom", atom_phase, torch, args.seed)
     audio = phase("audio", audio_phase, torch, args.seed)
+    audio16 = phase("audio bf16", audio_bf16_phase, torch, args.seed, audio)
     align = phase("align", align_phase, torch, args.seed,
                   audio.pop("lm68_atom"))
+    align16 = phase("align bf16", align_bf16_phase, torch, args.seed, align)
+    audio.pop("bf16_inputs")
+    align.pop("bf16_inputs")
     train_diff = phase("train-diffusion", train_diffusion_phase, torch,
                        args.seed)
     train_diff_modular = phase("train-diffusion modular",
@@ -3892,7 +4176,9 @@ def main() -> int:
     timed["longvid cli sample"] = longvid_cli["launches"]
     timed["atom run_directory"] = atom["launches"]
     timed["audio"] = audio["launches"]
+    timed["audio bf16"] = audio16["launches"]
     timed["align"] = align["launches"]
+    timed["align bf16"] = align16["launches"]
     timed["train-diffusion"] = train_diff["launches"]
     timed["train-diffusion modular"] = train_diff_modular["launches"]
     for what, run in train_longvid["runs"].items():
@@ -3981,6 +4267,7 @@ def main() -> int:
         "audio_tflop": audio["tflop"], "audio_bound_ms": audio["bound_ms"],
         "audio_clip_device_ms": audio["clip_device_ms"],
         "audio_trace": audio["trace"], "align_trace": align["trace"],
+        "audio_bf16": audio16, "align_bf16": align16,
         "train_diffusion": {k: train_diff[k] for k in (
             "steps_per_s", "clips_per_s", "peak_gib", "losses",
             "card_vs_cpu", "trace")},

@@ -93,10 +93,10 @@ __device__ __forceinline__ uint4 pack8_bf16(const float (&x)[8]) {
 // The rotary's rotate-every-two on one pair, (a, b) -> (a·c0 − b·s0,
 // b·c1 + a·s1), each product and the sum rounded on its own: what the plain
 // PyTorch rotary (x∘cos + rotate_every_two(x)∘sin: two multiplies and an
-// add) computes, where the compiler would fuse a product into the add. The
-// classes' kernels rotate so, which keeps their float32 results as close to
-// the route's function at wider heads as the configurations' kernels (which
-// keep the fused form they were measured with) are at theirs.
+// add) computes, where the compiler would fuse a product into the add. Every
+// float32 rotation rotates so (the space pre-pass, the D = 64 tile's float32
+// route), which keeps the float32 results on the route's function; the bf16
+// tiles keep the fused form they were measured with.
 __device__ __forceinline__ void rotate_pair_rn(float& a, float& b, float c0,
                                                float s0, float c1, float s1) {
   const float x0 = __fadd_rn(__fmul_rn(a, c0), -__fmul_rn(b, s0));

@@ -225,7 +225,12 @@ __device__ __forceinline__ void wgmma_m64n64k16_bt(float (&d)[32],
 // ---------------------------------------------------------------- rows
 // Eight elements of one row (bf16 or float32; four rotary pairs, one
 // 16-byte chunk of the bf16 tile), rotated by the chunk's (cos, sin) pairs
-// when ROT, times `mul`, rounded to bf16 once.
+// when ROT, times `mul`, rounded to bf16 once. The float32 route rounds
+// each product and sum of the rotation on its own (rotate_pair_rn), as the
+// plain rotary and the space pre-pass do: the contracted form (one product
+// fused into the sum) moved 20–304 rows of a float32 result off its route
+// and one seed past the route's quantile limit. The bf16 instantiation
+// keeps the contracted form it was measured with.
 template <bool ROT, typename T>
 __device__ __forceinline__ uint4 rotate_chunk(const Chunk8<T>& in, float4 t0,
                                               float4 t1, float mul) {
@@ -236,9 +241,13 @@ __device__ __forceinline__ uint4 rotate_chunk(const Chunk8<T>& in, float4 t0,
     const float s[4] = {t0.y, t0.w, t1.y, t1.w};
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
-      float a = x[2 * p], b = x[2 * p + 1];
-      x[2 * p] = a * c[p] - b * s[p];
-      x[2 * p + 1] = b * c[p] + a * s[p];
+      if constexpr (std::is_same<T, float>::value) {
+        rotate_pair_rn(x[2 * p], x[2 * p + 1], c[p], s[p], c[p], s[p]);
+      } else {
+        float a = x[2 * p], b = x[2 * p + 1];
+        x[2 * p] = a * c[p] - b * s[p];
+        x[2 * p + 1] = b * c[p] + a * s[p];
+      }
     }
   }
   uint4 v;

@@ -84,7 +84,7 @@ def conv_out_frames(n: int, cfg=None) -> int:
 def hubert_forward(model, device=None, bucket_samples: int = 32000):
     """``model_fn`` for ``extract_hubert_features``: ``model`` (a
     ``HubertEncoder``, moved there) in eval mode on ``device`` (default:
-    the card), float32.
+    the card), in the model's ``dtype``; the features come back float32.
 
     A wave shorter than a whole clip (the utterance's tail) is zero-padded
     up to the next ``bucket_samples`` multiple (2 s) and run with its frame
@@ -107,7 +107,7 @@ def hubert_forward(model, device=None, bucket_samples: int = 32000):
         x[:, :n] = torch.from_numpy(wave)
         with torch.inference_mode():
             out = model(x.to(device), n_frames=torch.tensor([t_true]))
-        return out[0, :t_true].cpu().numpy()
+        return out[0, :t_true].float().cpu().numpy()
 
     return fn
 

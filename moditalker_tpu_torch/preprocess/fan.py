@@ -12,6 +12,15 @@ mode (eps 1e-5).
 
 Layout: crops and heatmaps are channels-last, [B, H, W, C], as in the JAX
 package; the convolutions run on a [B, C, H, W] view.
+
+``dtype`` (default float32), as the JAX package's: with bf16 every conv
+computes in bf16, and the conv outputs and the block sums (``out + res``,
+``up1 + up2``, ``previous + ll + tmp``) stay bf16. The BatchNorms have no
+dtype in the JAX package, so flax promotes their bf16 input against their
+float32 parameters: they write float32, ``relu(bn(x))`` is float32, and the
+next conv casts it back. The heatmaps come out in ``dtype``; the decode
+reads them as float32. The parameters stay float32, so one state_dict
+serves both.
 """
 
 from __future__ import annotations
@@ -22,28 +31,35 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..models.layers import BatchNorm2d, CastConv2d
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5)
+def _bn(ch: int) -> BatchNorm2d:
+    """Eval mode, eps 1e-5, float32 out in either dtype (no flax dtype)."""
+    return BatchNorm2d(ch, eps=1e-5)
 
 
 class ConvBlock(nn.Module):
     """Pre-activation 3-way split block (FAN models.py ConvBlock)."""
 
-    def __init__(self, in_planes: int, out_planes: int):
+    def __init__(self, in_planes: int, out_planes: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         o = out_planes
         self.bn1 = _bn(in_planes)
-        self.conv1 = nn.Conv2d(in_planes, o // 2, 3, padding=1, bias=False)
+        self.conv1 = CastConv2d(in_planes, o // 2, 3, padding=1, bias=False,
+                                dtype=dtype)
         self.bn2 = _bn(o // 2)
-        self.conv2 = nn.Conv2d(o // 2, o // 4, 3, padding=1, bias=False)
+        self.conv2 = CastConv2d(o // 2, o // 4, 3, padding=1, bias=False,
+                                dtype=dtype)
         self.bn3 = _bn(o // 4)
-        self.conv3 = nn.Conv2d(o // 4, o // 4, 3, padding=1, bias=False)
+        self.conv3 = CastConv2d(o // 4, o // 4, 3, padding=1, bias=False,
+                                dtype=dtype)
         self.has_ds = in_planes != out_planes
         if self.has_ds:
             self.ds_bn = _bn(in_planes)
-            self.ds_conv = nn.Conv2d(in_planes, o, 1, bias=False)
+            self.ds_conv = CastConv2d(in_planes, o, 1, bias=False,
+                                      dtype=dtype)
 
     def forward(self, x):
         h1 = self.conv1(F.relu(self.bn1(x)))
@@ -58,13 +74,14 @@ class HourGlass(nn.Module):
     """Recursive hourglass (FAN models.py HourGlass): 2×2 average pooling
     down, a nearest ×2 repeat up."""
 
-    def __init__(self, depth: int = 4, features: int = 256):
+    def __init__(self, depth: int = 4, features: int = 256,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.depth = depth
         f = features
         for lv in range(depth, 0, -1):
             for blk in ["b1", "b2", "b3"] + (["b2_plus"] if lv == 1 else []):
-                self.add_module(f"{blk}_{lv}", ConvBlock(f, f))
+                self.add_module(f"{blk}_{lv}", ConvBlock(f, f, dtype))
 
     def _level(self, x, lv: int):
         up1 = getattr(self, f"b1_{lv}")(x)
@@ -83,25 +100,27 @@ class HourGlass(nn.Module):
 
 class FAN(nn.Module):
     """input [B, 256, 256, 3] (0..1 RGB) → list of [B, 64, 64, 68]
-    heatmaps, one per stacked module (use the last)."""
+    heatmaps in ``dtype``, one per stacked module (use the last)."""
 
-    def __init__(self, num_modules: int = 4):
+    def __init__(self, num_modules: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_modules = num_modules
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3)
+        d = dtype
+        self.conv1 = CastConv2d(3, 64, 7, stride=2, padding=3, dtype=d)
         self.bn1 = _bn(64)
-        self.conv2 = ConvBlock(64, 128)
-        self.conv3 = ConvBlock(128, 128)
-        self.conv4 = ConvBlock(128, 256)
+        self.conv2 = ConvBlock(64, 128, d)
+        self.conv3 = ConvBlock(128, 128, d)
+        self.conv4 = ConvBlock(128, 256, d)
         for i in range(num_modules):
-            self.add_module(f"m{i}", HourGlass(4, 256))
-            self.add_module(f"top_m_{i}", ConvBlock(256, 256))
-            self.add_module(f"conv_last{i}", nn.Conv2d(256, 256, 1))
+            self.add_module(f"m{i}", HourGlass(4, 256, d))
+            self.add_module(f"top_m_{i}", ConvBlock(256, 256, d))
+            self.add_module(f"conv_last{i}", CastConv2d(256, 256, 1, dtype=d))
             self.add_module(f"bn_end{i}", _bn(256))
-            self.add_module(f"l{i}", nn.Conv2d(256, 68, 1))
+            self.add_module(f"l{i}", CastConv2d(256, 68, 1, dtype=d))
             if i < num_modules - 1:
-                self.add_module(f"bl{i}", nn.Conv2d(256, 256, 1))
-                self.add_module(f"al{i}", nn.Conv2d(68, 256, 1))
+                self.add_module(f"bl{i}", CastConv2d(256, 256, 1, dtype=d))
+                self.add_module(f"al{i}", CastConv2d(68, 256, 1, dtype=d))
 
     def forward(self, x):
         h = F.relu(self.bn1(self.conv1(x.permute(0, 3, 1, 2))))
@@ -287,14 +306,16 @@ class FanLandmarker:
     its own box and all frames run in fixed-size chunks; otherwise each
     frame's crop comes from the previous frame's landmarks, the first from
     ``initial_box`` ([x0, y0, x1, y1]), ``detector_fn(frame)`` or a
-    whole-frame prior. ``state`` is the port's ``FAN`` state_dict; float32
-    on ``device``.
+    whole-frame prior. ``state`` is the port's ``FAN`` state_dict, run on
+    ``device`` with a trunk in ``dtype`` (None: float32; bf16: the JAX
+    package's TPU eval mode; the decode reads float32 heatmaps).
     """
 
     def __init__(self, state: dict, num_modules: int = 4, initial_box=None,
-                 detector_fn=None, chunk: int = 64, device=None):
+                 detector_fn=None, chunk: int = 64, device=None, dtype=None):
         self.device = resolve_device(device)
-        self.model = FAN(num_modules=num_modules).to(self.device).eval()
+        self.model = FAN(num_modules, dtype or torch.float32).to(
+            self.device).eval()
         self.model.load_state_dict(state)
         self.initial_box = initial_box
         self.detector_fn = detector_fn

@@ -166,17 +166,20 @@ class FusedAligner:
     misses ``threshold`` is still computed from its argmax box; ``detected``
     says so, and ``MotionAligner`` falls back to the modular path (which
     fills detection gaps from the neighbours) for such a chunk. The states
-    are the port's ``S3FD``, ``FAN`` and ``ReconNet`` state_dicts; float32
-    on ``device``."""
+    are the port's ``S3FD``, ``FAN`` and ``ReconNet`` state_dicts, run on
+    ``device`` with the three trunks in ``dtype`` (None: float32; bf16: the
+    JAX package's TPU eval mode). The frames, the crops, the POS solve and
+    the packed row stay float32 in either dtype."""
 
     def __init__(self, s3fd_state, fan_state, recon_state,
                  lm3d_std: np.ndarray, threshold: float = 0.5,
                  chunk: int = 64, num_modules: int = 4,
-                 rescale_factor: float = 102.0, device=None):
+                 rescale_factor: float = 102.0, device=None, dtype=None):
         self.device = resolve_device(device)
+        dtype = dtype or torch.float32
         self.s3fd, self.fan, self.recon = (
             net.to(self.device).eval() for net in
-            (S3FD(), FAN(num_modules=num_modules), ReconNet()))
+            (S3FD(dtype), FAN(num_modules, dtype), ReconNet(dtype)))
         for net, state in ((self.s3fd, s3fd_state), (self.fan, fan_state),
                            (self.recon, recon_state)):
             net.load_state_dict(state)

@@ -16,6 +16,14 @@ to [B, C, T] only around each ``Conv1d``.
 Attention: with ``n_frames`` the frame mask sends every attention to the
 plain math (``ops/attention.py::sdpa_route``), as the JAX package's masked
 attention takes XLA's einsum; no hand-written kernel is reached.
+
+``dtype`` (default float32) is the compute dtype of the whole trunk, as the
+JAX package's ``dtype`` field: with bf16 every conv and dense layer computes
+in bf16, every layer norm takes its statistics in float32 and writes bf16,
+and the residual stream, the exact GELU and the attention (scores rounded to
+bf16, softmax in float32, ``plain_sdpa``) are bf16 from the feature
+extractor on; the output is bf16. The parameters stay float32 in either
+dtype, so ``convert_hubert_params``'s state_dict serves both.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.layers import Conv1d, Dense, LayerNorm
 from ..ops.attention import multi_head_sdpa
 
 
@@ -46,32 +55,28 @@ class HubertConfig:
     layer_norm_eps: float = 1e-5
 
 
-def _conv1d(conv: nn.Conv1d, x: torch.Tensor) -> torch.Tensor:
-    """A Conv1d on channels-last [B, T, C]."""
-    return conv(x.transpose(1, 2)).transpose(1, 2)
-
-
 class FeatureExtractor(nn.Module):
     """Strided Conv1D stack, layer-norm variant (HF HubertFeatureEncoder):
     each VALID conv is followed by a layer norm over channels and the exact
     GELU."""
 
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         c_in = 1
         for i, (dim, k, s) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel,
                                             cfg.conv_stride)):
-            self.add_module(f"conv_{i}", nn.Conv1d(c_in, dim, k, stride=s,
-                                                   bias=cfg.conv_bias))
-            self.add_module(f"ln_{i}", nn.LayerNorm(dim,
-                                                    eps=cfg.layer_norm_eps))
+            self.add_module(f"conv_{i}", Conv1d(c_in, dim, k, stride=s,
+                                                bias=cfg.conv_bias,
+                                                dtype=dtype))
+            self.add_module(f"ln_{i}", LayerNorm(dim, dtype,
+                                                 cfg.layer_norm_eps))
             c_in = dim
 
     def forward(self, x):  # x: [B, N] raw waveform → [B, T, conv_dim[-1]]
         h = x[:, :, None]
         for i in range(len(self.cfg.conv_dim)):
-            h = _conv1d(getattr(self, f"conv_{i}"), h)
+            h = getattr(self, f"conv_{i}")(h)
             h = F.gelu(getattr(self, f"ln_{i}")(h))
         return h
 
@@ -80,34 +85,35 @@ class PositionalConvEmbedding(nn.Module):
     """Grouped conv positional embedding; with an even kernel the extra
     right sample is dropped (HF ``HubertSamePadLayer``)."""
 
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         k = cfg.num_conv_pos_embeddings
         self.drop_last = k % 2 == 0
-        self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k,
-                              padding=k // 2,
-                              groups=cfg.num_conv_pos_embedding_groups)
+        self.conv = Conv1d(cfg.hidden_size, cfg.hidden_size, k,
+                           padding=k // 2,
+                           groups=cfg.num_conv_pos_embedding_groups,
+                           dtype=dtype)
 
     def forward(self, x):  # [B, T, D]
-        h = _conv1d(self.conv, x)
+        h = self.conv(x)
         if self.drop_last:
             h = h[:, :-1]
         return F.gelu(h)
 
 
 class EncoderLayerStableLN(nn.Module):
-    def __init__(self, cfg: HubertConfig):
+    def __init__(self, cfg: HubertConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.num_heads = cfg.num_heads
-        self.attn_ln = nn.LayerNorm(d, eps=eps)
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
-        self.final_ln = nn.LayerNorm(d, eps=eps)
-        self.ff1 = nn.Linear(d, cfg.intermediate_size)
-        self.ff2 = nn.Linear(cfg.intermediate_size, d)
+        self.attn_ln = LayerNorm(d, dtype, eps)
+        self.q_proj = Dense(d, d, dtype=dtype)
+        self.k_proj = Dense(d, d, dtype=dtype)
+        self.v_proj = Dense(d, d, dtype=dtype)
+        self.out_proj = Dense(d, d, dtype=dtype)
+        self.final_ln = LayerNorm(d, dtype, eps)
+        self.ff1 = Dense(d, cfg.intermediate_size, dtype=dtype)
+        self.ff2 = Dense(cfg.intermediate_size, d, dtype=dtype)
 
     def forward(self, x, mask=None):
         h = self.attn_ln(x)
@@ -119,19 +125,20 @@ class EncoderLayerStableLN(nn.Module):
 
 
 class HubertEncoder(nn.Module):
-    """Full model: waveform [B, N] → features [B, T, hidden]."""
+    """Full model: waveform [B, N] → features [B, T, hidden] in ``dtype``."""
 
-    def __init__(self, cfg: HubertConfig = HubertConfig()):
+    def __init__(self, cfg: HubertConfig = HubertConfig(),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         eps = cfg.layer_norm_eps
-        self.feature_extractor = FeatureExtractor(cfg)
-        self.fp_ln = nn.LayerNorm(cfg.conv_dim[-1], eps=eps)
-        self.fp_proj = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
-        self.pos_conv = PositionalConvEmbedding(cfg)
+        self.feature_extractor = FeatureExtractor(cfg, dtype)
+        self.fp_ln = LayerNorm(cfg.conv_dim[-1], dtype, eps)
+        self.fp_proj = Dense(cfg.conv_dim[-1], cfg.hidden_size, dtype=dtype)
+        self.pos_conv = PositionalConvEmbedding(cfg, dtype)
         for i in range(cfg.num_layers):
-            self.add_module(f"layer_{i}", EncoderLayerStableLN(cfg))
-        self.encoder_ln = nn.LayerNorm(cfg.hidden_size, eps=eps)
+            self.add_module(f"layer_{i}", EncoderLayerStableLN(cfg, dtype))
+        self.encoder_ln = LayerNorm(cfg.hidden_size, dtype, eps)
 
     def forward(self, wave, n_frames=None):
         """``n_frames`` [B] (optional): the number of valid output frames

@@ -9,6 +9,13 @@ concatenated to 257. Input: channels-last [B, 224, 224, 3] RGB in 0..1 (the
 BFM-aligned crop). Module names follow the flax tree, BatchNorm statistics
 included (``utils/convert.py::convert_recon_params``); ``convert_recon_net``
 takes the reference's ``epoch_20.pth`` to that tree. Eval mode only.
+
+``dtype`` (default float32), as the JAX package's: with bf16 the trunk
+computes in bf16 and its BatchNorms (built with ``dtype`` in the JAX
+package) write bf16 from float32 statistics; the max-pool pads with −inf in
+bf16; the global mean reduces in float32 and writes bf16, as ``jnp.mean``
+on bf16 does; the trunk's output is cast to float32 before the seven
+float32 heads. The parameters stay float32, so one state_dict serves both.
 """
 
 from __future__ import annotations
@@ -18,11 +25,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..models.layers import BatchNorm2d, CastConv2d
+
 COEFF_SPLITS = (80, 64, 80, 3, 27, 2, 1)
 
 
-def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=1e-5)
+def _bn(ch: int, dtype: torch.dtype) -> BatchNorm2d:
+    """Eval mode, eps 1e-5, written in the trunk's dtype."""
+    return BatchNorm2d(ch, eps=1e-5, dtype=dtype)
 
 
 class Bottleneck(nn.Module):
@@ -30,20 +40,22 @@ class Bottleneck(nn.Module):
     projection on the first block of a stage."""
 
     def __init__(self, in_planes: int, features: int, strides: int = 1,
-                 downsample: bool = False):
+                 downsample: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_planes, features, 1, bias=False)
-        self.bn1 = _bn(features)
-        self.conv2 = nn.Conv2d(features, features, 3, stride=strides,
-                               padding=1, bias=False)
-        self.bn2 = _bn(features)
-        self.conv3 = nn.Conv2d(features, features * 4, 1, bias=False)
-        self.bn3 = _bn(features * 4)
+        d = dtype
+        self.conv1 = CastConv2d(in_planes, features, 1, bias=False, dtype=d)
+        self.bn1 = _bn(features, d)
+        self.conv2 = CastConv2d(features, features, 3, stride=strides,
+                                padding=1, bias=False, dtype=d)
+        self.bn2 = _bn(features, d)
+        self.conv3 = CastConv2d(features, features * 4, 1, bias=False,
+                                dtype=d)
+        self.bn3 = _bn(features * 4, d)
         self.downsample = downsample
         if downsample:
-            self.ds_conv = nn.Conv2d(in_planes, features * 4, 1,
-                                     stride=strides, bias=False)
-            self.ds_bn = _bn(features * 4)
+            self.ds_conv = CastConv2d(in_planes, features * 4, 1,
+                                      stride=strides, bias=False, dtype=d)
+            self.ds_bn = _bn(features * 4, d)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))
@@ -57,18 +69,20 @@ _STAGES = [(3, 64, 1), (4, 128, 2), (6, 256, 2), (3, 512, 2)]
 
 
 class ResNet50Trunk(nn.Module):
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
-        self.bn1 = _bn(64)
+        self.conv1 = CastConv2d(3, 64, 7, stride=2, padding=3, bias=False,
+                                dtype=dtype)
+        self.bn1 = _bn(64, dtype)
         in_planes = 64
         for li, (blocks, feats, stride) in enumerate(_STAGES):
             for bi in range(blocks):
                 self.add_module(f"layer{li + 1}_{bi}", Bottleneck(
-                    in_planes, feats, stride if bi == 0 else 1, bi == 0))
+                    in_planes, feats, stride if bi == 0 else 1, bi == 0,
+                    dtype))
                 in_planes = feats * 4
 
-    def forward(self, x):  # [B, 3, H, W] → [B, 2048]
+    def forward(self, x):  # [B, 3, H, W] → [B, 2048] in the trunk's dtype
         x = F.relu(self.bn1(self.conv1(x)))
         # the JAX package pads with −inf and max-pools VALID: the same as
         # torch's implicit −inf padding of MaxPool2d(3, 2, padding=1)
@@ -76,15 +90,15 @@ class ResNet50Trunk(nn.Module):
         for li, (blocks, _, _) in enumerate(_STAGES):
             for bi in range(blocks):
                 x = getattr(self, f"layer{li + 1}_{bi}")(x)
-        return x.mean(dim=(2, 3))
+        return x.float().mean(dim=(2, 3)).to(x.dtype)
 
 
 class ReconNet(nn.Module):
-    """ResNet-50 + seven coefficient heads → [B, 257]."""
+    """ResNet-50 + seven coefficient heads → [B, 257] float32."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.backbone = ResNet50Trunk()
+        self.backbone = ResNet50Trunk(dtype)
         for i, dim in enumerate(COEFF_SPLITS):
             head = nn.Linear(2048, dim)   # zero-initialised, as the ref's
             nn.init.zeros_(head.weight)

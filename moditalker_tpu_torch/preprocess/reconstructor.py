@@ -20,12 +20,13 @@ from .recon_net import ReconNet
 
 
 class Reconstructor:
-    """``state`` is the port's ``ReconNet`` state_dict; float32 on
-    ``device``."""
+    """``state`` is the port's ``ReconNet`` state_dict, run on ``device``
+    with a trunk in ``dtype`` (None: float32; bf16: the JAX package's TPU
+    eval mode; the heads and the coefficients stay float32)."""
 
     def __init__(self, state: dict, lm3d_std: np.ndarray | None = None,
                  rescale_factor: float = 102.0, bfm_dir: str | None = None,
-                 chunk: int = 64, device=None):
+                 chunk: int = 64, device=None, dtype=None):
         if lm3d_std is None:
             # the BFM standard template (similarity_Lm3D_all.mat via
             # load_mats.load_lm3d, ref reconstructor.py:36)
@@ -34,7 +35,7 @@ class Reconstructor:
             lm3d_std = (load_lm3d(bfm_dir) if bfm_dir
                         else synthetic_lm3d_std())
         self.device = resolve_device(device)
-        self.model = ReconNet().to(self.device).eval()
+        self.model = ReconNet(dtype or torch.float32).to(self.device).eval()
         self.model.load_state_dict(state)
         self.lm3d_std = np.asarray(lm3d_std, np.float64)
         self.rescale_factor = rescale_factor

@@ -11,6 +11,11 @@ Layout: frames and maps are channels-last, [B, H, W, C], as in the JAX
 package; the convolutions run on a [B, C, H, W] view. Module names follow the
 flax tree (``utils/convert.py::convert_s3fd_params``); ``convert_s3fd`` takes
 face_alignment's ``s3fd-619a316812.pth`` to that tree.
+
+``dtype`` (default float32), as the JAX package's: with bf16 every conv of
+the trunk and the heads computes in bf16 and ``L2Norm`` takes its norm in
+float32; the conf softmax and the loc maps are float32 in either dtype. The
+parameters stay float32, so one state_dict serves both.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..models.layers import CastConv2d
 
 _TRUNK = [  # (name, in, out, kernel, stride, padding)
     ("conv1_1", 3, 64, 3, 1, 1), ("conv1_2", 64, 64, 3, 1, 1), "pool",
@@ -47,7 +53,8 @@ _BGR_MEANS = np.array([104.0, 117.0, 123.0], np.float32)
 
 class L2Norm(nn.Module):
     """Channel-wise L2 normalisation with a learned scale (S3FD's way of
-    mixing shallow feature maps into detection heads). x: [B, C, H, W]."""
+    mixing shallow feature maps into detection heads). x: [B, C, H, W]; the
+    norm in float32, cast to x's dtype, as the JAX package's."""
 
     def __init__(self, channels: int, init_scale: float = 1.0):
         super().__init__()
@@ -64,17 +71,20 @@ class S3FD(nn.Module):
     [conf_s4, loc_s4, conf_s8, loc_s8, ...] at strides 4, 8, 16, 32, 64,
     128, channels-last, float32, the conf maps softmaxed."""
 
-    def __init__(self):
+    def __init__(self, dtype: torch.dtype = torch.float32):
         super().__init__()
         for spec in _TRUNK:
             if isinstance(spec, tuple):
                 name, cin, cout, k, s, p = spec
-                self.add_module(name, nn.Conv2d(cin, cout, k, s, p))
+                self.add_module(name, CastConv2d(cin, cout, k, s, p,
+                                                 dtype=dtype))
         for _, name, ch, n_conf in _HEADS:
             if name in _L2NORM:
                 self.add_module(name, L2Norm(ch, _L2NORM[name]))
-            self.add_module(f"{name}_mbox_conf", nn.Conv2d(ch, n_conf, 3, 1, 1))
-            self.add_module(f"{name}_mbox_loc", nn.Conv2d(ch, 4, 3, 1, 1))
+            self.add_module(f"{name}_mbox_conf",
+                            CastConv2d(ch, n_conf, 3, 1, 1, dtype=dtype))
+            self.add_module(f"{name}_mbox_loc",
+                            CastConv2d(ch, 4, 3, 1, 1, dtype=dtype))
 
     def features(self, x) -> dict:
         """The six maps the heads read, [B, C, h, w] by name (f3: stride 4,
@@ -277,12 +287,14 @@ def fill_box_gaps(all_dets: list[np.ndarray]):
 class S3FDDetector:
     """``detector_fn`` for ``FanLandmarker``: frame [H, W, 3] uint8 RGB →
     [x0, y0, x1, y1] of the highest-scoring face (None without one).
-    ``state`` is the port's ``S3FD`` state_dict; float32 on ``device``."""
+    ``state`` is the port's ``S3FD`` state_dict, run on ``device`` with a
+    trunk in ``dtype`` (None: float32; bf16: the JAX package's TPU eval
+    mode)."""
 
     def __init__(self, state: dict, threshold: float = 0.5, chunk: int = 64,
-                 topk: int = 128, device=None):
+                 topk: int = 128, device=None, dtype=None):
         self.device = resolve_device(device)
-        self.model = S3FD().to(self.device).eval()
+        self.model = S3FD(dtype or torch.float32).to(self.device).eval()
         self.model.load_state_dict(state)
         self.threshold = threshold
         self.chunk = chunk

@@ -260,6 +260,28 @@ def test_divided_kernels_take_float32(gen, axis, b, f, n, heads):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_space_tile_float32_rotates_as_the_route(gen, seed):
+    """The float32 space kernel's D = 64 tile (resident K) at qkv
+    [1, 1, 1152, 384], seeds 0–3 (``tools/mma_sum.py --space``'s inputs),
+    within ``FLOAT32_ROUTE_LIMITS`` of the ``exp2`` route. With the tile's
+    rotary contracted into FMAs, seed 1 read a 0.999 quantile of 1.309e-4
+    against the limit of 1.1e-4; the tile now rounds each product and sum
+    of the rotation as the route's rotary does."""
+    heads, dh, n = 2, 64, 1152
+    assert not tdiv.space_prerotated(dh, n, True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, 1, n, 3 * heads * dh), generator=g, device="cuda")
+    sin, cos = _divided_tables("space", 1, n, dh)
+    got = _launched("divided_space_attention", lambda: tdiv.divided_attention(
+        x, sin, cos, "space", heads, dh, dh**-0.5))
+    check_float32_route("divided_space_attention", got,
+                        tdiv.divided_attention_float32_route(
+                            x, sin, cos, "space", heads, dh, dh**-0.5,
+                            exp2=True))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("axis", ["space", "time"])
 def test_bf16_kernels_round_where_the_float32_route_does(gen, axis):
     """At a bf16 qkv the bf16 kernel and the float32 route round q, k, v and

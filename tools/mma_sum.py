@@ -29,10 +29,16 @@ and sum rounded, as ``divided_attention_float32_route`` takes it); then the
 three measures ``FLOAT32_ROUTE_LIMITS`` bounds, against the route with
 ``exp2`` and with ``exp``, over seeds 0–3 at the float32 space shapes of
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` (one JSON line each, and
-the largest reading per design last).
+the largest reading per design last). ``--space --fma``: also against the
+``exp2`` route with the rotary contracted into FMAs, both ways nvcc may
+contract ``a·c − b·s`` (and ``b·c + a·s``): the first product or the second
+kept exact and the other rounded before the one rounding of the sum (the
+exact product in float64, rounded once: a true FMA but for rare double
+roundings). The tile that rounds as the plain rotary does should sit on
+the plain route and off these.
 
-    python3 tools/mma_sum.py [--seeds 3] [--wide | --space]   # repo root,
-                                                              # on a card
+    python3 tools/mma_sum.py [--seeds 3] [--wide | --space [--fma]]
+                                                   # repo root, on a card
 """
 
 from __future__ import annotations
@@ -53,6 +59,8 @@ def main() -> int:
                     help="only the wgmma tile built per width")
     ap.add_argument("--space", action="store_true",
                     help="only the divided space kernels")
+    ap.add_argument("--fma", action="store_true",
+                    help="with --space: also the routes with an FMA rotary")
     args = ap.parse_args()
     import torch
 
@@ -163,7 +171,7 @@ def main() -> int:
                 case(f"space [1, 2, {n}, {3 * heads * dh}] {heads} heads of "
                      f"{dh} float32 ({design}), seed {seed}", split(got), q,
                      k, v, dh**-0.5, True)
-        space_limits(torch)
+        space_limits(torch, args.fma)
         return 0
     for seed in range(args.seeds):
         if not args.wide:
@@ -211,16 +219,46 @@ def main() -> int:
     return 0
 
 
-def space_limits(torch) -> None:
+def fma_rotary(x, sin, cos, first: bool):
+    """The rotary on [..., N, dh] with each pair's two sums contracted into
+    an FMA: ``first``, fma(a, c, −fl(b·s)) and fma(b, c, fl(a·s)); else
+    fma(−b, s, fl(a·c)) and fma(a, s, fl(b·c)). The fused product is exact
+    in float64; the sum is rounded to float32 once."""
+    import torch
+
+    a, b = x[..., 0::2], x[..., 1::2]
+    c, s = cos[..., 0::2], sin[..., 0::2]
+
+    def fma(u, w, rest):
+        return (u.double() * w.double() + rest.double()).float()
+
+    if first:
+        x0, x1 = fma(a, c, -(b * s)), fma(b, c, a * s)
+    else:
+        x0, x1 = fma(-b, s, a * c), fma(a, s, b * c)
+    return torch.stack((x0, x1), dim=-1).flatten(-2)
+
+
+def space_limits(torch, fma: bool = False) -> None:
     """The float32 space kernels' three measures against their route, with
-    ``exp2`` and with ``exp``, over seeds 0–3 at the card tests' shapes
-    (axial tables, or angles drawn per pair as the classes' tests draw
-    them) and the kernels phase's."""
+    ``exp2`` and with ``exp`` (``fma``: also ``exp2`` with each FMA form of
+    the rotary), over seeds 0–3 at the card tests' shapes (axial tables, or
+    angles drawn per pair as the classes' tests draw them) and the kernels
+    phase's."""
     import json
 
     from moditalker_tpu_torch.ops import rotary
     from moditalker_tpu_torch.ops.kernels import relative_errors
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+
+    def fma_route(x, sin, cos, heads, dh, first):
+        b, f, n, _ = x.shape
+        q, k, v = (t.reshape(b, f, n, heads, dh).permute(0, 3, 1, 2, 4)
+                   for t in x.chunk(3, dim=-1))
+        q, k = (fma_rotary(t, sin, cos, first) for t in (q, k))
+        out = fa.attention_float32_route(q, k, v, dh**-0.5, exp2=True)
+        return out.permute(0, 2, 3, 1, 4).reshape(b, f, n, heads * dh)
 
     def axial(n, dh):
         side = 1 << (n.bit_length() - 1) // 2
@@ -258,10 +296,16 @@ def space_limits(torch) -> None:
             design = ("pre-rotated" if dv.space_prerotated(dh, n, True)
                       else "D = 64 tile")
             errs = {}
-            for route in ("exp2", "exp"):
-                want = dv.divided_attention_float32_route(
-                    x, sin, cos, "space", heads, dh, dh**-0.5,
-                    exp2=route == "exp2")
+            for route in ("exp2", "exp") + (("exp2, fma first",
+                                              "exp2, fma second")
+                                             if fma else ()):
+                if route.startswith("exp2, fma"):
+                    want = fma_route(x, sin, cos, heads, dh,
+                                     route.endswith("first"))
+                else:
+                    want = dv.divided_attention_float32_route(
+                        x, sin, cos, "space", heads, dh, dh**-0.5,
+                        exp2=route == "exp2")
                 errs[route] = relative_errors(got, want)
                 w = worst.setdefault(f"{design}, {route}", [0.0] * 3)
                 worst[f"{design}, {route}"] = [max(a, e) for a, e in
