@@ -459,6 +459,11 @@ FIRST_STAGE_PATH = {"divided_space_attention", "divided_time_attention",
                     "divided_time_attention_backward"}
 FIRST_STAGE_BACKWARDS = ("divided_space_attention_backward",
                          "divided_time_attention_backward")
+SPACE_BACKWARD_DESIGN = (
+    "a bf16 pre-pass (q~, k~, v, g; D), then a dq kernel (row statistics, "
+    "then dq) and a dk/dv kernel on wgmma: two consumer warpgroups of 64 "
+    "rows with their operands resident, 64-row tiles streamed through a "
+    "four-slot ring by a producer warpgroup")
 
 # one first-stage G cycle and D cycle at a small depth (float32, TF32 off)
 # on the card against the CPU: relative errors of the loss terms (largest
@@ -995,6 +1000,32 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                 raise AssertionError(f"{name}: a float32 dqkv rounded to "
                                      f"bf16")
         del got, again, want
+        if axis == "space":
+            # the pre-pass alone (its entry point, uncounted) against its
+            # plain version, bit for bit: every element of the scratch, gs
+            # and dsum (the buffers start as NaN)
+            bufs = dv.space_backward_scratch(f, n, heads, dh, dev)[:3]
+            for t in bufs:
+                t.fill_(float("nan"))
+            lib, suffix = dv._library(
+                dtype == f32, dh not in dv.SPACE_BACKWARD_HEAD_DIMS,
+                backward=True)
+            entry = "divided_space_backward_prepass" + suffix
+            pointers = (qkv.reshape(flat), dv.rotary_pair_table(sin, cos),
+                        out.reshape(flat), cot.reshape(flat), *bufs)
+            status = getattr(lib, entry)(
+                *(t.data_ptr() for t in pointers), f, n, heads, dh, scale,
+                torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise AssertionError(f"{entry}: CUDA error {status}")
+            plain_pre = db.space_backward_prepass_reference(
+                qkv.reshape(flat), out.reshape(flat), cot.reshape(flat), sin,
+                cos, heads, dh, scale)
+            if not all(torch.equal(a, b) for a, b in zip(bufs, plain_pre)):
+                raise AssertionError(f"{entry}: the scratch differs from "
+                                     f"space_backward_prepass_reference")
+            err["prepass_bit_for_bit"] = True
+            del bufs, plain_pre
         x = qkv.detach().float().requires_grad_()
         recompute = lambda: torch.autograd.grad(
             dv.divided_attention_reference(x, sin, cos, axis, heads, dh,
@@ -1031,9 +1062,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # rows of the kernels line; then bf16 at the same shape
     gen_bw = torch.Generator(device=dev).manual_seed(seed + 8)
     rows.append(dict(backward_row("space", gen_bw, f32),
-                     design="mma.sync; a dq kernel (row statistics, then "
-                            "dq) and a dk/dv kernel, 128-row blocks over "
-                            "128-row tiles, the next tile's loads in flight"))
+                     design=SPACE_BACKWARD_DESIGN))
     rows.append(dict(backward_row("time", gen_bw, f32),
                      design="one warp per (b, n, head), mma.sync"))
     rows += [backward_row(axis, gen_bw, torch.bfloat16)
@@ -1116,9 +1145,10 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                       design=pre) for dh_ in (128, 32, 16)]
     rows.append(divided_row("space", batch, 1, 2048, g=gen_wd, dtype=f32,
                             source="divided_classes", plain32=True))
-    rows += [backward_row("space", gen_wd, dtype,
-                          source="divided_backward_classes",
-                          heads=hd // dh_, dh=dh_)
+    rows += [dict(backward_row("space", gen_wd, dtype,
+                               source="divided_backward_classes",
+                               heads=hd // dh_, dh=dh_),
+                  design=SPACE_BACKWARD_DESIGN)
              for dtype in (f32, torch.bfloat16) for dh_ in (128, 32)]
 
     # the softmax floor: one ex2 per score at the clock the SMs hold under

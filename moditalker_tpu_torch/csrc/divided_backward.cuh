@@ -13,9 +13,9 @@
 //
 // rotᵀ being the transpose of the rotate-every-two rotary:
 // dx[2i] = y[2i]·c[2i] + y[2i+1]·s[2i+1], dx[2i+1] = y[2i+1]·c[2i+1] −
-// y[2i]·s[2i]. A C fragment of mma.sync m16n8k16 holds columns 2t and
-// 2t + 1 of a row, one rotated pair, so rotᵀ runs in registers before the
-// store.
+// y[2i]·s[2i]. A C fragment (mma.sync's and wgmma's alike) holds columns 2t
+// and 2t + 1 of a row, one rotated pair, so rotᵀ runs in registers before
+// the store.
 //
 // Rounding points are the forward's float32 route's and then some: q
 // rotated and scaled in fp32 and rounded to bf16 once, k rotated and
@@ -26,37 +26,39 @@
 // element is summed by one thread in one order, so two calls agree bit for
 // bit.
 //
-//  * space (per frame, attention over N patches, N % 128 == 0, N <= 2048 as
-//    the gate admits): two kernels, built per head-dim class DH (16, 32, 64,
-//    128; a head of 2, 4 or 8 dims runs on the 16-wide class with its
-//    columns past dh read as zeros and never stored; at 2 and 4 dims the
-//    scores' operands are split into bf16 hi + lo in those columns, SPLIT
-//    below). At the AE's shape (qkv [16, 1024, 1536] float32) five
-//    products of 2·N²·dh per (frame, head) make 8.6e10 FLOPs against 268 MB
-//    moved: bound by operations. All products are mma.sync m16n8k16 on
-//    ldmatrix fragments from padded shared tiles (a 144-byte row stride
-//    puts the eight rows of each 8 x 8 matrix on 32 distinct banks).
-//    - dq: a block of eight warps owns 128 query rows of one (frame, head),
-//      holds its rows of q~ and g as A fragments, and walks the keys in
-//      128-row tiles twice: once for each row's max and exp2 sum (each lane
-//      keeps its own partial pair, merged across the quad once at the end),
-//      once for dP, dS and dq += dS·k~ (S recomputed). D = rowsum(g ∘ out)
-//      comes from the forward's output (fp32 g and out), so no third sweep
-//      is needed. It writes each row's log2-sum-exp and D to a scratch
-//      buffer [BF, H, N, 2] for the second kernel.
-//    - dk, dv: a block of eight warps owns 128 keys, holds its rows of k~
-//      and v as A fragments, and walks the queries in 128-row tiles
-//      computing Sᵀ = k~·q~ᵀ and dPᵀ = v·gᵀ, so that Pᵀ and dSᵀ leave their
-//      accumulators as the A fragments of dv += Pᵀ·g and dk += dSᵀ·q~.
-//    Each walked tile passes through registers (float32 or bf16 read,
-//    rotated and scaled in fp32, rounded once, 16-byte shared stores); its
-//    loads are issued before the block computes on the tile before, one
-//    tile buffer between two block barriers. Eight warps and 128-row tiles
-//    stage each operand half as often as four warps and 64-row tiles, at
-//    255 registers a thread and one block an SM: the faster of the shapes
-//    tools/ab_space_backward.py times (PERF.md). At DH = 128 a warp's dk and
-//    dv accumulators alone take 128 registers, so a block has four warps
-//    over 32-row tiles. The K ring, wgmma and TMA are later work.
+//  * space (per frame, attention over N patches, N % 128 == 0, 256 <= N <=
+//    2048 as the gate admits): bound by operations (five products of
+//    2·N²·dh per (frame, head): 8.6e10 FLOPs against 268 MB at the AE's qkv
+//    [16, 1024, 1536] float32) and by ex2, since S is worked out three
+//    times (row statistics, dq, dk and dv). At head dims 32, 64 and 128
+//    three steps, the forward's pre-rotated design (divided_space.cuh)
+//    carried over:
+//    - a pre-pass, once per call: q~, k~ and v in bf16 into a scratch
+//      [BF, N, 3·H·dh] (the forward's space_rotate_kernel), and g in bf16
+//      into gs [BF, N, H·dh] with D = rowsum(g ∘ out) from g and out in
+//      their own type into dsum [BF, H, N] (space_bwd_prep_kernel). The
+//      scratch is the wrapper's (torch.empty); the kernels allocate
+//      nothing.
+//    - dq: a block owns 128 query rows of one (frame, head), 64 for each of
+//      two consumer warpgroups, with q~ and g resident in 128-byte-swizzled
+//      shared memory as the wgmma A operands. A producer warpgroup streams
+//      tiles of k~ (then of k~ and v) raw through a ring of four slots with
+//      cp.async arriving on the slot's mbarrier. Sweep 1 takes each row's
+//      max and ex2 sum of log2e·S (S = q~·k~ᵀ on wgmma) and writes
+//      (log2-sum-exp, D) to stats [BF, H, N, 2]; sweep 2 runs S and
+//      dP = g·vᵀ on wgmma, P and dS in fp32 registers, and dq += dS·k~ with
+//      dS rounded to bf16 as the register A operand and the k~ tile read as
+//      the MN-major B operand (never transposed by hand).
+//    - dk, dv: a block owns 128 keys, k~ and v resident; q~ and g tiles
+//      stream with their rows' (lse, D): Sᵀ = k~·q~ᵀ and dPᵀ = v·gᵀ, then
+//      Pᵀ and dSᵀ leave their accumulators as the register operands of
+//      dv += Pᵀ·g and dk += dSᵀ·q~.
+//    Built per head-dim class: 64 (64, and 32 padded: columns past dh zeros
+//    in shared memory and never stored, the scores over the head's k16
+//    steps alone) with 128-row tiles, and 128 (two 64-column panels a row)
+//    with 64-row tiles, where dk and dv alone take 128 registers a thread.
+//    Heads of 2 to 16 dims keep the earlier mma.sync class ("space,
+//    narrow" below), which ran faster there.
 //  * time (per patch, attention over F frames): one warp per (b, n, head),
 //    as the forward, built per frame class (16 or 32) and head-dim class as
 //    the forward (tiny_tile.cuh), frames past F and columns past dh read as
@@ -70,34 +72,18 @@
 //    bytes: 235 MB at qkv [1, 16, 1024, 1536] float32.
 //
 // The C entry points: divided_backward.cu (bf16) and divided_backward_f32.cu
-// (float32), libraries of their own beside the forward's.
+// (float32), libraries of their own beside the forward's; the classes in
+// divided_backward_classes{,_f32}.cu.
 #pragma once
 
 #include <type_traits>
 
+#include "divided_space.cuh"
 #include "tiny_tile.cuh"
 
 namespace mdt {
 
 constexpr float kLog2e = 1.4426950408889634f;
-
-// A space block's shape per head-dim class: its warps (16 rows each), the
-// rows it owns, the rows of the walked operand per tile, and the padded
-// shared row stride (bf16). DH = 64 is the configurations' (eight warps over
-// 128-row tiles); at DH = 128 the accumulators leave room for four warps
-// and the loads in flight for 32-row tiles.
-template <int DH>
-struct SpaceBwd {
-  static_assert(DH == 16 || DH == 32 || DH == 64 || DH == 128,
-                "head-dim classes");
-  static constexpr int warps = DH == 128 ? 4 : 8;
-  static constexpr int rows = 16 * warps;
-  static constexpr int tile = DH == 128 ? 32 : 128;
-  static constexpr int RS = DH + 8;
-  // two bf16 tiles of max(rows, tile) rows: first the block's own rows (two
-  // operands), then the walked operands' tiles
-  static constexpr int buf = (rows > tile ? rows : tile) * RS;
-};
 
 // ------------------------------------------------------------ fragments
 // All on bf16 tiles in shared memory with a row stride of `rs` elements
@@ -157,15 +143,564 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 }
 
 // ------------------------------------------------------------ space
+// The pre-pass's second kernel (grid ceil(rows x H x dh / 8 / 256), block
+// 256): g rounded to bf16 into gs [rows, H·dh], and D = rowsum(g ∘ out) in
+// fp32 into dsum [BF, H, N], from g and out in their own type. One thread
+// per 16-byte chunk of gs; a head's dh / 8 chunks are neighbouring lanes of
+// one warp. Each lane sums its eight products in
+// order, each product and sum rounded on its own, then the lanes add their
+// sums pairwise (chunks 2i and 2i + 1, then pairs of pairs): the order
+// space_backward_prepass_reference writes out.
+template <typename TI>
+__global__ void __launch_bounds__(256)
+space_bwd_prep_kernel(const TI* __restrict__ g, const TI* __restrict__ out,
+                      bf16* __restrict__ gs, float* __restrict__ dsum,
+                      int rows, int N, int H, int dh) {
+  const int cw = dh / 8, per_row = H * cw;
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  // every lane runs the shuffles; a head's lanes are all in or all out
+  const bool in = i < (long)rows * per_row;
+  const long r = in ? i / per_row : 0;
+  const int j = in ? (int)(i - r * per_row) : 0;
+  const int h = j / cw, c = j % cw;
+  float d = 0.f;
+  if (in) {
+    const long off = r * H * dh + h * dh + 8 * c;
+    Chunk8<TI> gc, oc;
+    gc.load(g + off);
+    oc.load(out + off);
+    float x[8], y[8];
+    gc.to_float(x);
+    oc.to_float(y);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) d = __fadd_rn(d, __fmul_rn(x[e], y[e]));
+    *reinterpret_cast<uint4*>(gs + off) = pack8_bf16(x);
+  }
+  for (int m = 1; m < cw; m <<= 1)
+    d = __fadd_rn(d, __shfl_xor_sync(0xffffffffu, d, m));
+  if (in && c == 0) dsum[(r / N * H + h) * N + r % N] = d;
+}
+
+// The pre-pass: the scratch [BF, N, 3·H·dh] (q~, k~, v in bf16; the
+// forward's space_rotate_kernel), gs [BF, N, H·dh] and dsum [BF, H, N] from
+// qkv, the forward's output and its cotangent g (TI: bf16 or float32); heads
+// of 32 to 128 dims. Two launches; returns the first error.
+template <typename TI>
+int launch_space_backward_prepass(const void* qkv, const void* rot,
+                                  const void* out, const void* g,
+                                  void* scratch, void* gs, void* dsum, int BF,
+                                  int N, int H, int dh, float scale,
+                                  cudaStream_t stream) {
+  if (dh < 32 || dh > 128 || 128 % dh || N < 1 || BF < 1 || H < 1)
+    return cudaErrorInvalidValue;
+  cudaError_t err = launch_space_rotate<TI>(
+      static_cast<const TI*>(qkv), static_cast<const float*>(rot),
+      static_cast<bf16*>(scratch), BF, N, H, dh, true, scale, stream);
+  if (err != cudaSuccess) return err;
+  const long chunks = (long)BF * N * H * (dh / 8);
+  space_bwd_prep_kernel<TI><<<(unsigned)((chunks + 255) / 256), 256, 0,
+                              stream>>>(
+      static_cast<const TI*>(g), static_cast<const TI*>(out),
+      static_cast<bf16*>(gs), static_cast<float*>(dsum), BF * N, N, H, dh);
+  return cudaGetLastError();
+}
+
+// A block of either kernel: two consumer warpgroups, each owning 64 rows
+// (queries for dq, keys for dk and dv) of one (frame, head), and a producer
+// warpgroup that streams tiles of KN rows of the other operands. Per
+// head-dim class DH (64, and 32 padded; 128), in bytes:
+// a resident operand's 64 rows of one warpgroup (`operand`: DH / 64 panels
+// of 64 rows x 128 bytes, 128-byte swizzled, wgmma_wide.cuh's layout), a
+// streamed tile (`tile`: KN rows, the same panels), the ring of kSbSlots
+// slots of two tiles each, the dk/dv kernel's row statistics of each
+// slot's queries, then the barriers.
+constexpr int kSbRows = 64;
+constexpr int kSbSlots = 4;
+
+template <int DH>
+struct SpaceBwdTile {
+  static_assert(DH == 64 || DH == 128, "head-dim classes");
+  // 128-row tiles (m64n128 scores) where the registers hold them; at 128
+  // dims dk and dv alone take 128 registers a thread
+  static constexpr int KN = DH == 64 ? 128 : 64;
+  static constexpr int operand = DH / 64 * kSbRows * 128;
+  static constexpr int tile = DH / 64 * KN * 128;
+  static constexpr int own = 2 * 2 * operand;     // two operands, two groups
+  static constexpr int slot = 2 * tile;           // two streamed tiles
+  static constexpr int stats = KN * 8;            // (lse, D) of a tile's rows
+  static constexpr int smem =
+      1024 + own + kSbSlots * (slot + stats) + (2 * kSbSlots + 1) * 8;
+  static_assert(smem <= kWgSmemLimit, "the block's shared memory");
+};
+
+struct SpaceBwdArgs {
+  const bf16* x;      // the scratch [BF, N, 3·H·dh]: q~ | k~ | v
+  const bf16* gs;     // [BF, N, H·dh]
+  const float* dsum;  // [BF, H, N]
+  const float* rot;   // [N, dh/2, 2]: (cos, sin) of each rotated pair
+  void* dqkv;         // [BF, N, 3·H·dh] of the kernel's TO
+  float* stats;       // [BF, H, N, 2]: (log2-sum-exp of log2e·S, D)
+  int N, H, dh;
+  float scale;
+};
+
+// 128 rows (row stride ld) of one operand into the resident area at `dst`,
+// rows 64 w .. of warpgroup w at dst + w·operand; chunks past `real` of a
+// row as zeros. By every thread of the block; the caller waits for the
+// copies.
+template <int DH>
+__device__ __forceinline__ void sb_copy_own(uint32_t dst, const bf16* src,
+                                            long ld, int real) {
+  constexpr int CH = DH / 8;
+  for (int i = threadIdx.x; i < 2 * kSbRows * CH; i += blockDim.x) {
+    const int r = i / CH, c = i % CH;
+    const bool valid = c < real;
+    cp_async16_or_zeros(dst + (r / kSbRows) * SpaceBwdTile<DH>::operand +
+                            paneled(r % kSbRows, c, kSbRows),
+                        src + (valid ? r * ld + c * 8 : 0), valid);
+  }
+}
+
+// acc = A·Bᵀ over STEPS k16 steps (the head's dims rounded up to 16): A a
+// warpgroup's 64 rows at `a`, B a tile's KN rows at `b`, both K-major in
+// shared memory; started, in the caller's commit group.
+template <int STEPS, int KN>
+__device__ __forceinline__ void sb_ss(float (&acc)[KN / 2], uint32_t a,
+                                      uint32_t b) {
+#pragma unroll
+  for (int st = 0; st < STEPS; ++st)
+    wgmma_ss<KN>(acc,
+                 wgmma_desc(a + (st / 4) * kSbRows * 128 + (st % 4) * 32),
+                 wgmma_desc(b + (st / 4) * KN * 128 + (st % 4) * 32),
+                 st > 0);
+}
+
+// acc += A·B: A the KN columns of a bf16 accumulator re-packed as register
+// fragments, B a tile (KN rows of DH) as the MN-major operand; started, in
+// the caller's commit group.
+template <int DH, int KN>
+__device__ __forceinline__ void sb_rs(float (&acc)[DH / 2],
+                                      const uint32_t (&a)[KN / 16][4],
+                                      uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < KN / 16; ++kk)
+    wgmma_rs_bt<DH>(acc, a[kk], wgmma_desc_lbo(b + kk * 16 * 128, KN * 128));
+}
+
+// A consumer's accumulator rows row0 and row0 + 8 (rows g and g + 8 of its
+// warp's 16) into dst (row stride ld): columns below dh, times `mul`, through
+// rotᵀ with the pair table (ROT), rounded as the plain backward rounds it.
+template <bool ROT, typename TO, int DH>
+__device__ __forceinline__ void sb_store(TO* dst, long ld, const float* tab,
+                                         const float (&acc)[DH / 2],
+                                         float mul, int row0, int t, int dh) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+#pragma unroll
+    for (int nd = 0; nd < DH / 8; ++nd) {
+      const int col = nd * 8 + 2 * t;
+      if (col >= dh) continue;
+      float y0 = acc[4 * nd + 2 * r] * mul, y1 = acc[4 * nd + 2 * r + 1] * mul;
+      if (ROT) {
+        const float2 cs =
+            *reinterpret_cast<const float2*>(tab + (long)row * dh + col);
+        rotate_pair_t_rn(y0, y1, cs.x, cs.y, cs.x, cs.y);
+      }
+      store2(dst + row * ld + col, y0, y1);
+    }
+  }
+}
+
+// What both kernels share: the barriers (a slot's `full`, then its
+// `empty`, then the resident operands'), the block's 128 rows of its two
+// resident operands (x, y) copied in by every thread, which the consumers
+// wait for (`resident_ready`) while the producer goes on to stream, and the
+// consumers' side of the ring.
+template <int DH>
+struct SbBlock {
+  using S = SpaceBwdTile<DH>;
+  uint32_t base, own, ring, stats_ring, bars;
+  int lane;
+
+  __device__ __forceinline__ SbBlock(unsigned char* smem) {
+    const uint32_t raw = smem_u32(smem);
+    base = (raw + 1023u) & ~1023u;
+    own = base;
+    ring = base + S::own;
+    stats_ring = ring + kSbSlots * S::slot;
+    bars = stats_ring + kSbSlots * S::stats;
+    lane = threadIdx.x & 31;
+  }
+  __device__ __forceinline__ void setup(const bf16* x, long ldx,
+                                        const bf16* y, long ldy, int real) {
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kSbSlots; ++i) {
+        mbar_init(full(i), 128);    // producer threads
+        mbar_init(empty(i), 2 * 4); // consumer warps
+      }
+      mbar_init(resident_bar(), blockDim.x);
+      mbar_init_fence();
+    }
+    __syncthreads();
+    sb_copy_own<DH>(own, x, ldx, real);
+    sb_copy_own<DH>(own + 2 * S::operand, y, ldy, real);
+    cp_async_arrive(resident_bar());
+  }
+  __device__ __forceinline__ uint32_t resident_bar() const {
+    return bars + 8 * 2 * kSbSlots;
+  }
+  // a consumer: every thread's resident copies have landed
+  __device__ __forceinline__ void resident_ready() const {
+    mbar_wait(resident_bar(), 0);
+    fence_proxy_async();
+  }
+  __device__ __forceinline__ uint32_t full(int j) const {
+    return bars + 8 * (j % kSbSlots);
+  }
+  __device__ __forceinline__ uint32_t empty(int j) const {
+    return bars + 8 * (kSbSlots + j % kSbSlots);
+  }
+  __device__ __forceinline__ uint32_t slot(int j) const {
+    return ring + (j % kSbSlots) * S::slot;
+  }
+  // resident operand o (0: x, 1: y) of warpgroup wg
+  __device__ __forceinline__ uint32_t resident(int o, int wg) const {
+    return own + (2 * o + wg) * S::operand;
+  }
+  // the producer: slot of tile j free again
+  __device__ __forceinline__ void claim(int j) const {
+    mbar_wait(empty(j), ((j / kSbSlots) & 1) ^ 1);
+  }
+  // a consumer: tile j has landed (then visible to wgmma), and handed back
+  __device__ __forceinline__ void arrived(int j) const {
+    mbar_wait(full(j), (j / kSbSlots) & 1);
+    fence_proxy_async();
+  }
+  __device__ __forceinline__ void release(int j) const {
+    if (lane == 0) mbar_arrive(empty(j));
+  }
+};
+
+// The dq kernel: grid (N / 128, H, BF), block 384, dynamic shared memory
+// SpaceBwdTile<DH>::smem. Resident: q~ and g of the block's 128 query rows.
+// The producer streams the key tiles twice: k~ alone (sweep 1: each row's
+// max and ex2 sum of log2e·S; the row's (lse, D) to stats), then k~ and v
+// (sweep 2: S and dP = g·vᵀ, P, dS = P ∘ (dP − D), dq += dS·k~ with dS
+// rounded to bf16 as the register operand and k~ as the MN-major one).
+// dq leaves through rotᵀ, times the scale, into dqkv's q third.
+template <int DH, int STEPS, typename TO>
+__global__ void __launch_bounds__(384, 1)
+space_bwd_dq_kernel(const SpaceBwdArgs a) {
+  using S = SpaceBwdTile<DH>;
+  constexpr int KN = S::KN;
+  extern __shared__ unsigned char sb_smem[];
+  SbBlock<DH> blk(sb_smem);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int h = blockIdx.y, bf = blockIdx.z, q0 = blockIdx.x * 2 * kSbRows;
+  const int N = a.N, H = a.H, dh = a.dh, real = dh / 8;
+  const long ld = 3L * H * dh, ldg = (long)H * dh;
+  const bf16* qb = a.x + (long)bf * N * ld + h * dh;
+  const bf16* kb = qb + (long)H * dh;
+  const bf16* vb = qb + 2L * H * dh;
+  const bf16* gb = a.gs + (long)bf * N * ldg + h * dh;
+  const int nkt = N / KN;
+  blk.setup(qb + (long)q0 * ld, ld, gb + (long)q0 * ldg, ldg, real);
+
+  if (wg == 2) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int pt = tid - 256;
+    for (int j = 0; j < 2 * nkt; ++j) {
+      blk.claim(j);
+      const long k0 = (long)(j < nkt ? j : j - nkt) * KN;
+      copy_panels<KN, DH / 8>(blk.slot(j), kb + k0 * ld, ld, KN, real,
+                              DH / 8, pt);
+      if (j >= nkt)
+        copy_panels<KN, DH / 8>(blk.slot(j) + S::tile, vb + k0 * ld, ld, KN,
+                                real, DH / 8, pt);
+      cp_async_arrive(blk.full(j));
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  // ------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t qa = blk.resident(0, wg), ga = blk.resident(1, wg);
+  const int row0 = q0 + wg * kSbRows + warp * 16 + g;   // and row0 + 8
+  const float* dsum = a.dsum + ((long)bf * H + h) * N;
+  const float D[2] = {dsum[row0], dsum[row0 + 8]};
+  blk.resident_ready();
+
+  // sweep 1: each lane's max and ex2 sum over its columns
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float s[KN / 2], dp[KN / 2];
+  for (int j = 0; j < nkt; ++j) {
+    blk.arrived(j);
+    wgmma_fence();
+    sb_ss<STEPS, KN>(s, qa, blk.slot(j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    blk.release(j);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = m[r];
+#pragma unroll
+      for (int nt = 0; nt < KN / 8; ++nt)
+        mx = fmaxf(mx, fmaxf(s[4 * nt + 2 * r], s[4 * nt + 2 * r + 1]) *
+                           kLog2e);
+      float sum = l[r] * exp2_approx(m[r] - mx);
+#pragma unroll
+      for (int nt = 0; nt < KN / 8; ++nt)
+        sum += exp2_approx(s[4 * nt + 2 * r] * kLog2e - mx) +
+               exp2_approx(s[4 * nt + 2 * r + 1] * kLog2e - mx);
+      m[r] = mx;
+      l[r] = sum;
+    }
+  }
+  float lse[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // merge the quad's partial pairs
+    float mx = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    float sum = l[r] * exp2_approx(m[r] - mx);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    lse[r] = mx + __log2f(sum);
+  }
+  if (t == 0) {
+    float* st = a.stats + (((long)bf * H + h) * N + row0) * 2;
+    *reinterpret_cast<float2*>(st) = make_float2(lse[0], D[0]);
+    *reinterpret_cast<float2*>(st + 16) = make_float2(lse[1], D[1]);
+  }
+
+  // sweep 2: P, dP, dS and dq += dS·k~, one tile at a time
+  float dq[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dq[i] = 0.f;
+  uint32_t da[KN / 16][4];
+  for (int j = nkt; j < 2 * nkt; ++j) {
+    blk.arrived(j);
+    wgmma_fence();
+    sb_ss<STEPS, KN>(s, qa, blk.slot(j));
+    sb_ss<STEPS, KN>(dp, ga, blk.slot(j) + S::tile);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < KN / 2; ++i) {   // s becomes dS
+      const int r = (i >> 1) & 1;
+      const float p = exp2_approx(s[i] * kLog2e - lse[r]);
+      s[i] = p * (dp[i] - D[r]);
+    }
+    wide_pack<KN>(s, da);
+    fence_regs(dq);
+    wgmma_fence();
+    sb_rs<DH, KN>(dq, da, blk.slot(j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq);
+    blk.release(j);
+  }
+  sb_store<true, TO, DH>(static_cast<TO*>(a.dqkv) + (long)bf * N * 3 * H * dh +
+                             h * dh,
+                         3L * H * dh, a.rot, dq, a.scale, row0, t, dh);
+}
+
+// The dk/dv kernel (after the dq kernel: its stats), grid (N / 128, H, BF),
+// block 384. Resident: k~ and v of the block's 128 keys. The producer
+// streams q~ and g tiles with their rows' (lse, D): Sᵀ = k~·q~ᵀ and dPᵀ =
+// v·gᵀ, Pᵀ and dSᵀ re-packed as the register operands of dv += Pᵀ·g and
+// dk += dSᵀ·q~. dk leaves through rotᵀ, dv as it is, into dqkv's k and v
+// thirds.
+template <int DH, int STEPS, typename TO>
+__global__ void __launch_bounds__(384, 1)
+space_bwd_dkdv_kernel(const SpaceBwdArgs a) {
+  using S = SpaceBwdTile<DH>;
+  constexpr int KN = S::KN;
+  extern __shared__ unsigned char sb_smem[];
+  SbBlock<DH> blk(sb_smem);
+  const int tid = threadIdx.x, wg = tid >> 7;
+  const int h = blockIdx.y, bf = blockIdx.z, k0 = blockIdx.x * 2 * kSbRows;
+  const int N = a.N, H = a.H, dh = a.dh, real = dh / 8;
+  const long ld = 3L * H * dh, ldg = (long)H * dh;
+  const bf16* qb = a.x + (long)bf * N * ld + h * dh;
+  const bf16* kb = qb + (long)H * dh;
+  const bf16* vb = qb + 2L * H * dh;
+  const bf16* gb = a.gs + (long)bf * N * ldg + h * dh;
+  const float* stats = a.stats + ((long)bf * H + h) * N * 2;
+  const int nqt = N / KN;
+  blk.setup(kb + (long)k0 * ld, ld, vb + (long)k0 * ld, ld, real);
+
+  if (wg == 2) {
+    // ------------------------------------------------------ producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    const int pt = tid - 256;
+    for (int j = 0; j < nqt; ++j) {
+      blk.claim(j);
+      const long i0 = (long)j * KN;
+      copy_panels<KN, DH / 8>(blk.slot(j), qb + i0 * ld, ld, KN, real,
+                              DH / 8, pt);
+      copy_panels<KN, DH / 8>(blk.slot(j) + S::tile, gb + i0 * ldg, ldg, KN,
+                              real, DH / 8, pt);
+      if (pt < KN / 2)   // 16 bytes: the (lse, D) of two rows
+        cp_async16(blk.stats_ring + (j % kSbSlots) * S::stats + pt * 16,
+                   stats + (i0 + 2 * pt) * 2);
+      cp_async_arrive(blk.full(j));
+    }
+    cp_async_wait_all();
+    return;
+  }
+
+  // ------------------------------------------------------ consumers
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int lane = tid & 31, warp = (tid >> 5) & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const uint32_t ka = blk.resident(0, wg), va = blk.resident(1, wg);
+  const int row0 = k0 + wg * kSbRows + warp * 16 + g;   // and row0 + 8
+  const unsigned char* sm = sb_smem + (blk.base - smem_u32(sb_smem));
+  blk.resident_ready();
+  float s[KN / 2], dp[KN / 2];
+  float dk[DH / 2], dv[DH / 2];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dk[i] = dv[i] = 0.f;
+  uint32_t pa[KN / 16][4], da[KN / 16][4];
+  for (int j = 0; j < nqt; ++j) {
+    blk.arrived(j);
+    wgmma_fence();
+    sb_ss<STEPS, KN>(s, ka, blk.slot(j));    // Sᵀ: keys x the tile's queries
+    sb_ss<STEPS, KN>(dp, va, blk.slot(j) + S::tile);   // dPᵀ
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    const float2* st = reinterpret_cast<const float2*>(
+        sm + (blk.stats_ring - blk.base) + (j % kSbSlots) * S::stats);
+#pragma unroll
+    for (int nt = 0; nt < KN / 8; ++nt)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float2 q = st[nt * 8 + 2 * t + c];   // this column's query
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {   // s becomes Pᵀ and dp dSᵀ
+          const int i = 4 * nt + 2 * r + c;
+          const float p = exp2_approx(s[i] * kLog2e - q.x);
+          s[i] = p;
+          dp[i] = p * (dp[i] - q.y);
+        }
+      }
+    wide_pack<KN>(s, pa);
+    wide_pack<KN>(dp, da);
+    fence_regs(dv);
+    fence_regs(dk);
+    wgmma_fence();
+    sb_rs<DH, KN>(dv, pa, blk.slot(j) + S::tile);
+    sb_rs<DH, KN>(dk, da, blk.slot(j));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    blk.release(j);
+  }
+  TO* dst = static_cast<TO*>(a.dqkv) + (long)bf * N * 3 * H * dh + h * dh;
+  sb_store<true, TO, DH>(dst + H * dh, 3L * H * dh, a.rot, dk, 1.f, row0, t,
+                         dh);
+  sb_store<false, TO, DH>(dst + 2 * H * dh, 3L * H * dh, nullptr, dv, 1.f,
+                          row0, t, dh);
+}
+
+// One of the two kernels (DKDV: the dk/dv kernel) at the head-dim class DH
+// and STEPS k16 steps of the scores, on the pre-pass's scratch, into dqkv
+// [BF, N, 3·H·dh] of type TO; stats a float32 scratch [BF, H, N, 2];
+// N % 128 == 0.
+template <int DH, int STEPS, typename TO, bool DKDV>
+int launch_space_backward_sweep(const void* scratch, const void* gs,
+                                const void* dsum, const void* rot,
+                                void* dqkv, void* stats, int BF, int N,
+                                int H, int dh, float scale,
+                                cudaStream_t stream) {
+  if (N < 2 * kSbRows || N % (2 * kSbRows) || N % SpaceBwdTile<DH>::KN ||
+      BF < 1 || H < 1 || dh > DH || (dh + 15) / 16 != STEPS)
+    return cudaErrorInvalidValue;
+  const SpaceBwdArgs a{static_cast<const bf16*>(scratch),
+                       static_cast<const bf16*>(gs),
+                       static_cast<const float*>(dsum),
+                       static_cast<const float*>(rot),
+                       dqkv,
+                       static_cast<float*>(stats),
+                       N, H, dh, scale};
+  void (*kern)(const SpaceBwdArgs) = space_bwd_dq_kernel<DH, STEPS, TO>;
+  if constexpr (DKDV) kern = space_bwd_dkdv_kernel<DH, STEPS, TO>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SpaceBwdTile<DH>::smem);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(N / (2 * kSbRows), H, BF), 384, SpaceBwdTile<DH>::smem,
+         stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The same at the head dims beyond the configurations' 64 that this design
+// runs (divided_backward_classes{,_f32}.cu): 32 on the class 64 (padded:
+// its two k16 steps of the scores) and 128 on its own.
+template <typename TO, bool DKDV>
+int launch_space_backward_classes(const void* scratch, const void* gs,
+                                  const void* dsum, const void* rot,
+                                  void* dqkv, void* stats, int BF, int N,
+                                  int H, int dh, float scale,
+                                  cudaStream_t stream) {
+  switch (dh) {
+    case 32:
+      return launch_space_backward_sweep<64, 2, TO, DKDV>(
+          scratch, gs, dsum, rot, dqkv, stats, BF, N, H, dh, scale, stream);
+    case 128:
+      return launch_space_backward_sweep<128, 8, TO, DKDV>(
+          scratch, gs, dsum, rot, dqkv, stats, BF, N, H, dh, scale, stream);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ------------------------------------------------------------ space, narrow
+// Heads of 2 to 16 dims keep the earlier design on mma.sync, the class 16
+// (tools/ab_space_backward.py pairs it with the wgmma design above, which
+// ran 1.5–1.7 times slower there: its dq, dk and dv products padded to 64
+// columns, four times the work of a 16-dim head): a dq kernel and a dk/dv
+// kernel of eight warps, each owning 128 rows and walking the other
+// operand in 128-row tiles that pass through registers (read in qkv's type,
+// rotated and scaled in fp32, rounded once, 16-byte shared stores), the
+// next tile's loads in flight while the block computes on the one before.
+// ldmatrix fragments from padded tiles (a 48-byte row stride); a head
+// narrower than 16 dims has its columns past dh read as zeros and never
+// stored.
+//
+// A block's shape: its warps (16 rows each), the rows it owns, the rows of
+// the walked operand per tile, and the padded shared row stride (bf16).
+template <int DH>
+struct SpaceBwd {
+  static_assert(DH == 16, "the class of heads of 2 to 16 dims");
+  static constexpr int warps = 8;
+  static constexpr int rows = 16 * warps;
+  static constexpr int tile = 128;
+  static constexpr int RS = DH + 8;
+  // two bf16 tiles of max(rows, tile) rows: first the block's own rows (two
+  // operands), then the walked operands' tiles
+  static constexpr int buf = (rows > tile ? rows : tile) * RS;
+};
+
 // ROWS rows of one head (row stride `ld` elements of T) into a padded bf16
 // tile, by the whole block, in two steps so that a tile's loads are in
 // flight while the block computes on the one before: load() brings the
 // thread's chunks into registers; store() rotates them by the pair table
 // rows at `tab` ([rows, dh/2] (cos, sin), the forward's rotary_pair_table;
 // small and L2-resident, read here rather than held) when ROT, multiplies
-// by `mul`, in fp32, and writes them rounded once. PAD (the classes): a
-// head of dh <= DH dims, its chunks past dh read as zeros (its table entries
-// not read), the rotation rounded as the plain rotary rounds it.
+// by `mul`, in fp32, and writes them rounded once: a head of dh <= DH
+// dims, its chunks past dh read as zeros (its table entries not read), the
+// rotation rounded as the plain rotary rounds it.
 //
 // SPLIT (heads of 2 and 4 dims, whose scores would otherwise sum two or
 // four bf16-rounded products and miss the plain backward's limits): x is
@@ -176,7 +711,7 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 // never stored, so dq = dS·k~ and dk = dSᵀ·q~ still take hi alone.
 constexpr int kSplitQ = 1, kSplitK = 2;
 
-template <bool ROT, int ROWS, typename T, int DH, bool PAD>
+template <bool ROT, int ROWS, typename T, int DH>
 struct TileLoad {
   static constexpr int CH = DH / 8;
   static constexpr int THREADS = 32 * SpaceBwd<DH>::warps;
@@ -188,11 +723,8 @@ struct TileLoad {
 #pragma unroll
     for (int u = 0; u < PER; ++u) {
       const int i = threadIdx.x + THREADS * u;
-      const T* p = src + (i / CH) * ld + (i % CH) * 8;
-      if (PAD)
-        load_chunk(raw[u], p, dh - (i % CH) * 8);
-      else
-        raw[u].load(p);
+      load_chunk(raw[u], src + (i / CH) * ld + (i % CH) * 8,
+                 dh - (i % CH) * 8);
     }
   }
 
@@ -200,17 +732,17 @@ struct TileLoad {
                                         float mul, int split = 0) const {
     // (a head of at most 4 dims lies in chunk 0, whose thread writes both
     // chunks of its row)
-    const bool two = PAD && DH == 16 && split && dh <= 4;
+    const bool two = split && dh <= 4;
 #pragma unroll
     for (int u = 0; u < PER; ++u) {
       const int i = threadIdx.x + THREADS * u, r = i / CH, c = i % CH;
       if (two && c) continue;
       float x[8];
       raw[u].to_float(x);
-      if (ROT && (!PAD || c * 8 < dh)) {
+      if (ROT && c * 8 < dh) {
         const float* tr = tab + r * dh + c * 8;   // (cos, sin) of 4 pairs
         float cs[4], sn[4];
-        if (!PAD || c * 8 + 8 <= dh) {
+        if (c * 8 + 8 <= dh) {
           const float4 t0 = reinterpret_cast<const float4*>(tr)[0];
           const float4 t1 = reinterpret_cast<const float4*>(tr)[1];
           cs[0] = t0.x; cs[1] = t0.z; cs[2] = t1.x; cs[3] = t1.z;
@@ -224,16 +756,8 @@ struct TileLoad {
           }
         }
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (PAD) {   // the classes' rounding (rotate_pair_rn)
-            rotate_pair_rn(x[2 * q], x[2 * q + 1], cs[q], sn[q], cs[q],
-                           sn[q]);
-          } else {
-            const float a = x[2 * q], b = x[2 * q + 1];
-            x[2 * q] = a * cs[q] - b * sn[q];
-            x[2 * q + 1] = b * cs[q] + a * sn[q];
-          }
-        }
+        for (int q = 0; q < 4; ++q)
+          rotate_pair_rn(x[2 * q], x[2 * q + 1], cs[q], sn[q], cs[q], sn[q]);
       }
 #pragma unroll
       for (int e = 0; e < 8; ++e) x[e] *= mul;
@@ -264,20 +788,20 @@ struct TileLoad {
   }
 };
 
-template <bool ROT, int ROWS, typename T, int DH, bool PAD>
+template <bool ROT, int ROWS, typename T, int DH>
 __device__ __forceinline__ void stage_tile(bf16* dst, const T* src, long ld,
                                            const float* tab, int dh,
                                            float mul, int split = 0) {
-  TileLoad<ROT, ROWS, T, DH, PAD> t;
+  TileLoad<ROT, ROWS, T, DH> t;
   t.load(src, ld, dh);
   t.store(dst, tab, dh, mul, split);
 }
 
 // An accumulator tile row pair (row g and g + 8 of 16 rows, DH columns)
 // through rotᵀ with the pair table rows at `tab` (ROT) and into `dst` (row
-// stride ld), times `mul`; columns past dh (PAD) are not stored, and rotᵀ
-// is rounded as the plain backward rounds it (the classes).
-template <bool ROT, typename T, int DH, bool PAD>
+// stride ld), times `mul`; columns past dh are not stored, and rotᵀ is
+// rounded as the plain backward rounds it.
+template <bool ROT, typename T, int DH>
 __device__ __forceinline__ void store_rows(T* dst, long ld, const float* tab,
                                            const float (&acc)[DH / 8][4],
                                            float mul, int lane, int dh) {
@@ -288,18 +812,12 @@ __device__ __forceinline__ void store_rows(T* dst, long ld, const float* tab,
 #pragma unroll
     for (int nt = 0; nt < DH / 8; ++nt) {
       const int col = nt * 8 + 2 * t;
-      if (PAD && col >= dh) continue;
+      if (col >= dh) continue;
       float y0 = acc[nt][2 * r] * mul, y1 = acc[nt][2 * r + 1] * mul;
       if (ROT) {
         const float2 cs = *reinterpret_cast<const float2*>(
             tab + row * dh + col);   // (cos, sin) of the pair
-        if (PAD) {
-          rotate_pair_t_rn(y0, y1, cs.x, cs.y, cs.x, cs.y);
-        } else {
-          const float x0 = y0 * cs.x + y1 * cs.y;
-          y1 = y1 * cs.x - y0 * cs.y;
-          y0 = x0;
-        }
+        rotate_pair_t_rn(y0, y1, cs.x, cs.y, cs.x, cs.y);
       }
       store2(dst + row * ld + col, y0, y1);
     }
@@ -307,7 +825,7 @@ __device__ __forceinline__ void store_rows(T* dst, long ld, const float* tab,
 }
 
 template <typename T>
-struct SpaceBwdArgs {
+struct SpaceClassArgs {
   const T* qkv;      // [BF, N, 3·H·dh]
   const float* rot;  // [N, dh/2, 2]
   const T* out;      // [BF, N, H·dh]
@@ -316,13 +834,13 @@ struct SpaceBwdArgs {
   float* stats;      // [BF, H, N, 2]: log2-sum-exp of the scaled scores, D
   int N, H;
   float scale;
-  int dh;            // the head dim (its class DH where not padded)
+  int dh;            // the head dim, up to its class DH
 };
 
 // grid (N / rows, H, BF), block 32·warps (SpaceBwd<DH>).
-template <typename T, int DH, bool PAD = false>
+template <typename T, int DH>
 __global__ void __launch_bounds__(32 * SpaceBwd<DH>::warps)
-space_bwd_dq_kernel(const SpaceBwdArgs<T> a) {
+space_class_dq_kernel(const SpaceClassArgs<T> a) {
   using Sh = SpaceBwd<DH>;
   constexpr int RS = Sh::RS, ROWS = Sh::rows, TILE = Sh::tile, KS = DH / 16;
   __shared__ __align__(16) bf16 buf[2 * Sh::buf];
@@ -332,7 +850,7 @@ space_bwd_dq_kernel(const SpaceBwdArgs<T> a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int h = blockIdx.y, bf = blockIdx.z, q0 = blockIdx.x * ROWS;
-  const int dh = PAD ? a.dh : DH;
+  const int dh = a.dh;
   const int N = a.N, HD = a.H * dh;
   const long ld = 3L * HD;
   const T* qb = a.qkv + (long)bf * N * ld + h * dh;
@@ -340,9 +858,9 @@ space_bwd_dq_kernel(const SpaceBwdArgs<T> a) {
   const T* vb = qb + 2 * HD;
   const long io = (long)bf * N * HD + h * dh;   // out, g: row stride HD
 
-  stage_tile<true, ROWS, T, DH, PAD>(x_s, qb + q0 * ld, ld, a.rot + q0 * dh,
+  stage_tile<true, ROWS, T, DH>(x_s, qb + q0 * ld, ld, a.rot + q0 * dh,
                                      dh, a.scale, kSplitQ);
-  stage_tile<false, ROWS, T, DH, PAD>(y_s, a.g + io + (long)q0 * HD, HD,
+  stage_tile<false, ROWS, T, DH>(y_s, a.g + io + (long)q0 * HD, HD,
                                       nullptr, dh, 1.f);
   {  // D = rowsum(g ∘ out) in fp32: two lanes a row, DH / 2 columns each
     const int row = warp * 16 + (lane >> 1), c0 = (lane & 1) * (DH / 2);
@@ -351,13 +869,8 @@ space_bwd_dq_kernel(const SpaceBwdArgs<T> a) {
 #pragma unroll
     for (int c = 0; c < DH / 2; c += 8) {
       Chunk8<T> gc, oc;
-      if (PAD) {
-        load_chunk(gc, a.g + off + c, dh - c0 - c);
-        load_chunk(oc, a.out + off + c, dh - c0 - c);
-      } else {
-        gc.load(a.g + off + c);
-        oc.load(a.out + off + c);
-      }
+      load_chunk(gc, a.g + off + c, dh - c0 - c);
+      load_chunk(oc, a.out + off + c, dh - c0 - c);
       float x[8], y[8];
       gc.to_float(x);
       oc.to_float(y);
@@ -367,7 +880,7 @@ space_bwd_dq_kernel(const SpaceBwdArgs<T> a) {
     d += __shfl_xor_sync(0xffffffffu, d, 1);
     if (!(lane & 1)) d_s[row] = d;
   }
-  TileLoad<true, TILE, T, DH, PAD> kl;   // the next k~ tile, in flight
+  TileLoad<true, TILE, T, DH> kl;   // the next k~ tile, in flight
   kl.load(kb, ld, dh);
   __syncthreads();
   const uint32_t xt = smem_u32(x_s), yt = smem_u32(y_s);
@@ -383,7 +896,7 @@ space_bwd_dq_kernel(const SpaceBwdArgs<T> a) {
   // sweep 1: each lane's max and exp2 sum of log2e·S over its columns; the
   // last iteration brings in the first k~ and v tiles of sweep 2
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  TileLoad<false, TILE, T, DH, PAD> vl;
+  TileLoad<false, TILE, T, DH> vl;
   for (int k0 = 0; k0 < N; k0 += TILE) {
     __syncthreads();   // every warp is done with the last tile
     kl.store(x_s, a.rot + k0 * dh, dh, 1.f, kSplitK);
@@ -478,16 +991,16 @@ space_bwd_dq_kernel(const SpaceBwdArgs<T> a) {
       }
     }
   }
-  store_rows<true, T, DH, PAD>(
+  store_rows<true, T, DH>(
       a.dqkv + (long)bf * N * ld + h * dh + (q0 + warp * 16) * ld, ld,
       a.rot + (q0 + warp * 16) * dh, dq, a.scale, lane, dh);
 }
 
-// grid (N / rows, H, BF), block 32·warps; after space_bwd_dq_kernel (its
-// stats).
-template <typename T, int DH, bool PAD = false>
+// grid (N / rows, H, BF), block 32·warps; after space_class_dq_kernel
+// (its stats).
+template <typename T, int DH>
 __global__ void __launch_bounds__(32 * SpaceBwd<DH>::warps)
-space_bwd_dkdv_kernel(const SpaceBwdArgs<T> a) {
+space_class_dkdv_kernel(const SpaceClassArgs<T> a) {
   using Sh = SpaceBwd<DH>;
   constexpr int RS = Sh::RS, ROWS = Sh::rows, TILE = Sh::tile, KS = DH / 16;
   __shared__ __align__(16) bf16 buf[2 * Sh::buf];
@@ -497,7 +1010,7 @@ space_bwd_dkdv_kernel(const SpaceBwdArgs<T> a) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int t = lane & 3;
   const int h = blockIdx.y, bf = blockIdx.z, k0 = blockIdx.x * ROWS;
-  const int dh = PAD ? a.dh : DH;
+  const int dh = a.dh;
   const int N = a.N, HD = a.H * dh;
   const long ld = 3L * HD;
   const T* qb = a.qkv + (long)bf * N * ld + h * dh;
@@ -507,12 +1020,12 @@ space_bwd_dkdv_kernel(const SpaceBwdArgs<T> a) {
   const uint32_t xt = smem_u32(x_s), yt = smem_u32(y_s);
 
   // this warp's 16 keys: k~ and v as A fragments
-  stage_tile<true, ROWS, T, DH, PAD>(x_s, qb + HD + k0 * ld, ld,
+  stage_tile<true, ROWS, T, DH>(x_s, qb + HD + k0 * ld, ld,
                                      a.rot + k0 * dh, dh, 1.f, kSplitK);
-  stage_tile<false, ROWS, T, DH, PAD>(y_s, qb + 2 * HD + k0 * ld, ld,
+  stage_tile<false, ROWS, T, DH>(y_s, qb + 2 * HD + k0 * ld, ld,
                                       nullptr, dh, 1.f);
-  TileLoad<true, TILE, T, DH, PAD> ql;    // the next q~ and g tiles, in flight
-  TileLoad<false, TILE, T, DH, PAD> gl;
+  TileLoad<true, TILE, T, DH> ql;    // the next q~ and g tiles, in flight
+  TileLoad<false, TILE, T, DH> gl;
   ql.load(qb, ld, dh);
   gl.load(gb, HD, dh);
   __syncthreads();
@@ -573,56 +1086,37 @@ space_bwd_dkdv_kernel(const SpaceBwdArgs<T> a) {
   }
   const int kr = k0 + warp * 16;
   T* dst = a.dqkv + (long)bf * N * ld + h * dh + kr * ld;
-  store_rows<true, T, DH, PAD>(dst + HD, ld, a.rot + kr * dh, dk, 1.f, lane,
+  store_rows<true, T, DH>(dst + HD, ld, a.rot + kr * dh, dk, 1.f, lane,
                                dh);
-  store_rows<false, T, DH, PAD>(dst + 2 * HD, ld, nullptr, dv, 1.f, lane, dh);
+  store_rows<false, T, DH>(dst + 2 * HD, ld, nullptr, dv, 1.f, lane, dh);
 }
 
 // dqkv [BF, N, 3·H·dh] of element type T from qkv, out and g; stats is a
-// float32 scratch [BF, H, N, 2]. Head dim dh of class DH (PAD where they
-// differ), N a multiple of the class's rows and tile.
-template <typename T, int DH = 64, bool PAD = false>
-int launch_space_backward(const void* qkv, const void* rot, const void* out,
-                          const void* g, void* dqkv, void* stats, int BF,
-                          int N, int H, int dh, float scale,
-                          cudaStream_t stream) {
-  using Sh = SpaceBwd<DH>;
-  if (N <= 0 || N % Sh::rows || N % Sh::tile || (!PAD && dh != DH) ||
-      dh > DH)
-    return cudaErrorInvalidValue;
-  SpaceBwdArgs<T> a{static_cast<const T*>(qkv), static_cast<const float*>(rot),
-                    static_cast<const T*>(out),   static_cast<const T*>(g),
-                    static_cast<T*>(dqkv),        static_cast<float*>(stats),
-                    N, H, scale, dh};
-  const dim3 grid(N / Sh::rows, H, BF);
-  space_bwd_dq_kernel<T, DH, PAD><<<grid, 32 * Sh::warps, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  space_bwd_dkdv_kernel<T, DH, PAD><<<grid, 32 * Sh::warps, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// The space backward at a head dim dh dividing 128 from 2 up (what the gate
-// admits) other than the configurations' 64 (divided_backward{,_f32}.cu):
-// the class 16 (2, 4 and 8 padded), 32 or 128, with the classes' padding
-// and rounding (PAD).
+// float32 scratch [BF, H, N, 2]. Heads of 2 to 16 dims (dh dividing 128),
+// N a multiple of 128 (divided_backward_classes{,_f32}.cu).
 template <typename T>
-int launch_space_backward_classes(const void* qkv, const void* rot,
-                                  const void* out, const void* g, void* dqkv,
-                                  void* stats, int BF, int N, int H, int dh,
-                                  float scale, cudaStream_t stream) {
-  if (dh < 2 || dh > 128 || 128 % dh) return cudaErrorInvalidValue;
-  switch (dh < 16 ? 16 : dh) {
-    case 16:
-      return launch_space_backward<T, 16, true>(qkv, rot, out, g, dqkv, stats,
-                                                BF, N, H, dh, scale, stream);
-    case 32:
-      return launch_space_backward<T, 32, true>(qkv, rot, out, g, dqkv, stats,
-                                                BF, N, H, dh, scale, stream);
-    case 128:
-      return launch_space_backward<T, 128, true>(qkv, rot, out, g, dqkv,
-                                                 stats, BF, N, H, dh, scale,
-                                                 stream);
+int launch_space_backward_narrow(const void* qkv, const void* rot,
+                                 const void* out, const void* g, void* dqkv,
+                                 void* stats, int BF, int N, int H, int dh,
+                                 float scale, cudaStream_t stream) {
+  if (dh < 2 || 128 % dh) return cudaErrorInvalidValue;
+  switch (dh <= 16 ? 16 : dh) {
+    case 16: {
+      using Sh = SpaceBwd<16>;
+      if (N <= 0 || N % Sh::rows || N % Sh::tile)
+        return cudaErrorInvalidValue;
+      const SpaceClassArgs<T> a{
+          static_cast<const T*>(qkv), static_cast<const float*>(rot),
+          static_cast<const T*>(out), static_cast<const T*>(g),
+          static_cast<T*>(dqkv),      static_cast<float*>(stats),
+          N, H, scale, dh};
+      const dim3 grid(N / Sh::rows, H, BF);
+      space_class_dq_kernel<T, 16><<<grid, 32 * Sh::warps, 0, stream>>>(a);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return err;
+      space_class_dkdv_kernel<T, 16><<<grid, 32 * Sh::warps, 0, stream>>>(a);
+      return cudaGetLastError();
+    }
   }
   return cudaErrorInvalidValue;
 }

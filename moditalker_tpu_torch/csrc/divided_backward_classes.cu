@@ -2,20 +2,53 @@
 // bf16 qkv at the shapes the forward's gate admits beyond the
 // configurations' (divided_backward.cu holds those: space at head dim
 // 64, time at 16 frames of head dim 64), in a library of their own: space at
-// head dims 2 to 128 but 64, time at every frame and head-dim class (the
-// kernels: divided_backward.cuh).
+// head dims 32 and 128 (the pre-pass, dq and dk/dv of the wgmma design) and
+// 2 to 16 (the class 16 on mma.sync), time at every frame and head-dim class
+// (the kernels: divided_backward.cuh).
 #include "divided_backward.cuh"
 
 extern "C" {
 
 // qkv [BF, N, 3·H·dh] bf16, rot [N, dh/2, 2] fp32, out and g
+// [BF, N, H·dh] bf16 -> the pre-pass's scratch [BF, N, 3·H·dh] bf16,
+// gs [BF, N, H·dh] bf16 and dsum [BF, H, N] fp32; dh 32 or 128.
+int divided_space_backward_prepass_classes(
+    const void* qkv, const void* rot, const void* out, const void* g,
+    void* scratch, void* gs, void* dsum, int BF, int N, int H, int dh,
+    float scale, void* stream) {
+  return mdt::launch_space_backward_prepass<mdt::bf16>(
+      qkv, rot, out, g, scratch, gs, dsum, BF, N, H, dh, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The pre-pass's scratch, gs and dsum, rot -> dqkv [BF, N, 3·H·dh] bf16;
+// stats a float32 scratch [BF, H, N, 2] (dq writes it, dk/dv reads it).
+int divided_space_backward_dq_classes(
+    const void* scratch, const void* gs, const void* dsum, const void* rot,
+    void* dqkv, void* stats, int BF, int N, int H, int dh, float scale,
+    void* stream) {
+  return mdt::launch_space_backward_classes<mdt::bf16, false>(
+      scratch, gs, dsum, rot, dqkv, stats, BF, N, H, dh, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+int divided_space_backward_dkdv_classes(
+    const void* scratch, const void* gs, const void* dsum, const void* rot,
+    void* dqkv, void* stats, int BF, int N, int H, int dh, float scale,
+    void* stream) {
+  return mdt::launch_space_backward_classes<mdt::bf16, true>(
+      scratch, gs, dsum, rot, dqkv, stats, BF, N, H, dh, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+// qkv [BF, N, 3·H·dh] bf16, rot [N, dh/2, 2] fp32, out and g
 // [BF, N, H·dh] bf16 -> dqkv [BF, N, 3·H·dh] bf16; stats a float32
-// scratch [BF, H, N, 2]; dh dividing 128, dh != 64.
+// scratch [BF, H, N, 2]; dh 2, 4, 8 or 16. Two kernels (dq, then dk and dv).
 int divided_space_attention_backward_classes(
     const void* qkv, const void* rot, const void* out, const void* g,
     void* dqkv, void* stats, int BF, int N, int H, int dh, float scale,
     void* stream) {
-  return mdt::launch_space_backward_classes<mdt::bf16>(
+  return mdt::launch_space_backward_narrow<mdt::bf16>(
       qkv, rot, out, g, dqkv, stats, BF, N, H, dh, scale,
       static_cast<cudaStream_t>(stream));
 }

@@ -6,19 +6,51 @@
 
 extern "C" {
 
-// qkv [BF, N, 3·H·dh] float32, rot [N, dh/2, 2] fp32, out and g
-// [BF, N, H·dh] float32 -> dqkv [BF, N, 3·H·dh] float32; stats a float32
-// scratch [BF, H, N, 2].
-int divided_space_attention_backward_f32(const void* qkv, const void* rot,
-                                         const void* out, const void* g,
-                                         void* dqkv, void* stats, int BF,
-                                         int N, int H, int dh, float scale,
-                                         void* stream) {
+// qkv [BF, N, 3·H·dh] float32, rot [N, dh/2, 2] fp32 (cos, sin per rotated
+// pair), out and g [BF, N, H·dh] float32 -> the pre-pass's scratch
+// [BF, N, 3·H·dh] bf16 (q~, k~, v), gs [BF, N, H·dh] bf16 and dsum
+// [BF, H, N] fp32. The space backward is three launches: this, then dq,
+// then dk/dv.
+int divided_space_backward_prepass_f32(
+    const void* qkv, const void* rot, const void* out, const void* g,
+    void* scratch, void* gs, void* dsum, int BF, int N, int H, int dh,
+    float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // built for the head dim the repository's configurations reach; keep in
+  // step with SPACE_BACKWARD_HEAD_DIMS in divided_attention.py
+  switch (dh) {
+    case 64:
+      return mdt::launch_space_backward_prepass<float>(
+          qkv, rot, out, g, scratch, gs, dsum, BF, N, H, dh, scale, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The pre-pass's scratch, gs and dsum, rot -> dqkv [BF, N, 3·H·dh] float32
+// (its q third; dk/dv: its k and v thirds); stats a float32 scratch
+// [BF, H, N, 2] that dq writes and dk/dv reads.
+int divided_space_backward_dq_f32(
+    const void* scratch, const void* gs, const void* dsum, const void* rot,
+    void* dqkv, void* stats, int BF, int N, int H, int dh, float scale,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 64:
-      return mdt::launch_space_backward<float>(qkv, rot, out, g, dqkv, stats,
-                                               BF, N, H, dh, scale, st);
+      return mdt::launch_space_backward_sweep<64, 4, float, false>(
+          scratch, gs, dsum, rot, dqkv, stats, BF, N, H, dh, scale, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+int divided_space_backward_dkdv_f32(
+    const void* scratch, const void* gs, const void* dsum, const void* rot,
+    void* dqkv, void* stats, int BF, int N, int H, int dh, float scale,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 64:
+      return mdt::launch_space_backward_sweep<64, 4, float, true>(
+          scratch, gs, dsum, rot, dqkv, stats, BF, N, H, dh, scale, st);
   }
   return cudaErrorInvalidValue;
 }

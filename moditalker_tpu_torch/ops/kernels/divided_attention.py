@@ -54,12 +54,17 @@ tile built per width (128, and 64 in float32) streams it raw. A head dim of
 The gradient with respect to qkv (``autograd.DividedAttention``) runs the
 backward kernels on a CUDA tensor (``csrc/divided_backward.cuh``; bf16
 entry points in ``divided_backward.cu``, float32 ones in
-``divided_backward_f32.cu``, the classes beyond the configurations' in
-``divided_backward_classes{,_f32}.cu``), which read qkv, the forward's
-output and its cotangent and write the packed dqkv: space as a dq kernel
-and a dk/dv kernel (N a multiple of 128 from 256), time as one warp per
-(b, n, head), at every shape the forward's gate admits. Nothing falls back
-to the plain version on the card. On a CPU tensor the backward is
+``divided_backward_f32.cu``, the head dims and clip lengths beyond the
+configurations' in ``divided_backward_classes{,_f32}.cu``), which read qkv,
+the forward's output and its cotangent and write the packed dqkv. Space at
+head dims 32 to 128 is the forward's pre-rotated design carried over: a
+pre-pass writes q~, k~ and v, and g, in bf16 into scratch the wrapper
+allocates, with D = rowsum(g ∘ out) (``space_backward_prepass_reference``
+is its plain version), then a dq kernel and a dk/dv kernel on ``wgmma``
+stream it (N a multiple of 128 from 256); at 2 to 16 it is the earlier class on
+``mma.sync``, which ran faster there. Time is one warp per (b, n, head). Every shape
+the forward's gate admits has its backward; nothing falls back to the plain
+version on the card. On a CPU tensor the backward is
 ``divided_backward.divided_attention_backward_reference``, the written-out
 adjoints of the JAX package's ``jax.vjp`` of its reference.
 """
@@ -94,6 +99,15 @@ TIME_SHAPES = ((16, 64),)   # (frames, head dim)
 # design's (divided_classes_f32.cu)
 SPACE_F32_MAX_N = 1152
 SPACE_BACKWARD_HEAD_DIMS = (64,)
+# the space backward's launches in order, each an entry point of its
+# library with its count of pointer arguments: the pre-pass (qkv, the pair
+# table, out, g -> scratch, gs, dsum), then dq and dk/dv (scratch, gs,
+# dsum, the pair table -> dqkv, stats)
+SPACE_BACKWARD_STEPS = (("prepass", 7), ("dq", 6), ("dkdv", 6))
+# head dims up to which the space backward is the earlier mma.sync class (one
+# launch of ``divided_space_attention_backward_classes``; heads of 2 to 16
+# dims, where it ran faster than the wgmma design)
+SPACE_BACKWARD_NARROW_MAX = 16
 
 _pair_tables: dict = {}
 
@@ -303,9 +317,14 @@ def _bwd_classes_lib_f32() -> ctypes.CDLL:
 
 def _bind_backward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    space = getattr(lib, "divided_space_attention_backward" + suffix)
-    space.argtypes = [p, p, p, p, p, p, i, i, i, i, fl, p]
-    space.restype = i
+    if suffix.startswith("_classes"):
+        narrow = getattr(lib, "divided_space_attention_backward" + suffix)
+        narrow.argtypes = [p] * 6 + [i, i, i, i, fl, p]
+        narrow.restype = i
+    for step, pointers in SPACE_BACKWARD_STEPS:
+        entry = getattr(lib, f"divided_space_backward_{step}{suffix}")
+        entry.argtypes = [p] * pointers + [i, i, i, i, fl, p]
+        entry.restype = i
     time = getattr(lib, "divided_time_attention_backward" + suffix)
     time.argtypes = [p, p, p, p, p, i, i, i, i, i, fl, p]
     time.restype = i
@@ -440,13 +459,34 @@ def _cotangents(qkv, *ts) -> None:
                              "16-byte aligned")
 
 
+def space_backward_scratch(bf: int, n: int, heads: int, dim_head: int,
+                           device):
+    """What the space backward's kernels share, allocated (``torch.empty``)
+    for one call: the pre-pass's bf16 scratch [BF, N, 3·H·dh] (q~, k~, v)
+    and gs [BF, N, H·dh], dsum [BF, H, N] (D = rowsum(g ∘ out)) and the dq
+    kernel's stats [BF, H, N, 2] (each row's log2-sum-exp and D), both
+    float32. At head dims up to ``SPACE_BACKWARD_NARROW_MAX`` the stats
+    alone (the class reads qkv where it lies)."""
+    stats = torch.empty(bf, heads, n, 2, dtype=torch.float32, device=device)
+    if dim_head <= SPACE_BACKWARD_NARROW_MAX:
+        return (stats,)
+    return (torch.empty(bf, n, 3 * heads * dim_head, dtype=torch.bfloat16,
+                        device=device),
+            torch.empty(bf, n, heads * dim_head, dtype=torch.bfloat16,
+                        device=device),
+            torch.empty(bf, heads, n, dtype=torch.float32, device=device),
+            stats)
+
+
 def space_attention_backward_cuda(qkv, out, g, sin, cos, heads: int,
                                   dim_head: int, scale: float):
     """Kernel launch: dqkv [BF, N, 3·H·dh] in qkv's type (bf16 or float32)
     from qkv [BF, N, 3·H·dh], the forward's output and its cotangent g
     [BF, N, H·dh]; N a multiple of 128 from 256, dh dividing 128 from 2 up.
-    Two kernels (dq, then dk and dv through a float32 scratch of row
-    statistics), one launch of the backward in the count."""
+    Three launches (``SPACE_BACKWARD_STEPS``: the pre-pass, dq, dk/dv)
+    through the scratch of ``space_backward_scratch``, or at head dims up to
+    ``SPACE_BACKWARD_NARROW_MAX`` the class's one (its dq and dk/dv kernels
+    through the stats alone); one launch of the backward in the count."""
     f32 = _operands(qkv, sin, cos)
     _cotangents(qkv, out, g)
     _check_head_dim(dim_head)
@@ -459,16 +499,25 @@ def space_attention_backward_cuda(qkv, out, g, sin, cos, heads: int,
                          f"not {n}")
     table = rotary_pair_table(sin, cos)
     dqkv = torch.empty_like(qkv)
-    stats = torch.empty(bf, heads, n, 2, dtype=torch.float32,
-                        device=qkv.device)
+    bufs = space_backward_scratch(bf, n, heads, dim_head, qkv.device)
     lib, suffix = _library(f32, dim_head not in SPACE_BACKWARD_HEAD_DIMS,
                            backward=True)
-    entry = "divided_space_attention_backward" + suffix
-    status = getattr(lib, entry)(
-        qkv.data_ptr(), table.data_ptr(), out.data_ptr(), g.data_ptr(),
-        dqkv.data_ptr(), stats.data_ptr(), bf, n, heads, dim_head, scale,
-        kernels.cuda_stream(qkv))
-    _build.check(lib, status, entry)
+    if dim_head <= SPACE_BACKWARD_NARROW_MAX:
+        launches = [("divided_space_attention_backward",
+                     (qkv, table, out, g, dqkv, *bufs))]
+    else:
+        scratch, gs, dsum, stats = bufs
+        pointers = {"prepass": (qkv, table, out, g, scratch, gs, dsum),
+                    "dq": (scratch, gs, dsum, table, dqkv, stats),
+                    "dkdv": (scratch, gs, dsum, table, dqkv, stats)}
+        launches = [(f"divided_space_backward_{step}", pointers[step])
+                    for step, _ in SPACE_BACKWARD_STEPS]
+    stream = kernels.cuda_stream(qkv)
+    for entry, tensors in launches:
+        status = getattr(lib, entry + suffix)(
+            *(t.data_ptr() for t in tensors), bf, n, heads, dim_head, scale,
+            stream)
+        _build.check(lib, status, entry + suffix)
     count_launch("divided_space_attention_backward", qkv.shape, float32=f32)
     return dqkv
 

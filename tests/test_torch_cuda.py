@@ -432,8 +432,11 @@ def test_divided_gradient_on_the_card(gen, axis):
     ("space", 1, 16, 1024, 8, torch.float32),
     ("space", 2, 2, 256, 2, torch.float32),
     ("space", 1, 1, 1152, 2, torch.float32),
+    ("space", 1, 1, 2048, 2, torch.float32),
     ("space", 1, 2, 512, 4, torch.bfloat16),
     ("space", 1, 16, 1024, 8, torch.bfloat16),
+    ("space", 2, 2, 256, 2, torch.bfloat16),
+    ("space", 1, 1, 2048, 2, torch.bfloat16),
     ("time", 1, 16, 1024, 8, torch.float32),
     ("time", 2, 16, 64, 4, torch.float32),
     ("time", 1, 16, 5, 3, torch.float32),
@@ -443,8 +446,9 @@ def test_divided_backward_kernels_match_plain(gen, axis, b, f, n, heads,
     """Each backward kernel's dqkv (qkv's type) against the float32 plain
     backward within its row's limits, a float32 one also against its
     float32 route; two calls equal bit for bit. Space at the gate's edges
-    of the float32 forward (N = 256 and 1152), time with a last block of
-    warps that is not full (5 × 3 sequences)."""
+    (N = 256 and 2048, both types) and the float32 forward's resident-K
+    edge (N = 1152), time with a last block of warps that is not full
+    (5 × 3 sequences)."""
     dh = 64
     sin, cos = _divided_tables(axis, f, n)
     qkv = _randn32(gen, b, f, n, 3 * heads * dh).to(dtype)
@@ -696,6 +700,60 @@ def test_space_rotate_prepass_matches_plain(gen, n, heads, dh, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,heads,dh", [(1024, 8, 64), (256, 1, 128),
+                                        (512, 4, 32), (2048, 2, 64),
+                                        (384, 4, 32)])
+def test_space_backward_prepass_matches_plain(gen, n, heads, dh, dtype):
+    """The space backward's pre-pass writes its scratch (q~, k~ and v), gs
+    and dsum bit for bit as ``space_backward_prepass_reference`` does,
+    every element of each (the buffers start as NaN), at each head dim it
+    serves. Read off the buffers the entry point is handed."""
+    f32 = dtype == torch.float32
+    sin, cos = _pair_tables(n, dh)
+    qkv = _randn32(gen, 2, n, 3 * heads * dh).to(dtype)
+    out, g = (_randn32(gen, 2, n, heads * dh).to(dtype) for _ in range(2))
+    table = tdiv.rotary_pair_table(sin, cos)
+    bufs = tdiv.space_backward_scratch(2, n, heads, dh, "cuda")[:3]
+    for t in bufs:
+        t.fill_(float("nan"))
+    lib, suffix = tdiv._library(f32, dh not in tdiv.SPACE_BACKWARD_HEAD_DIMS,
+                                backward=True)
+    entry = "divided_space_backward_prepass" + suffix
+    assert getattr(lib, entry)(
+        *(t.data_ptr() for t in (qkv, table, out, g, *bufs)), 2, n, heads,
+        dh, dh**-0.5, torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    plain = tbwd.space_backward_prepass_reference(qkv, out, g, sin, cos,
+                                                  heads, dh, dh**-0.5)
+    for got, want in zip(bufs, plain):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("heads,dh", [(8, 64), (4, 128), (16, 32)])
+def test_space_backward_is_deterministic(gen, heads, dh, dtype):
+    """At train-first-stage's qkv [16, 1024, 3·512] (the AE's 512 channels
+    in 8 heads of 64, 4 of 128 and 16 of 32) three calls of the space
+    backward give dqkv equal bit for bit: no float atomics, each output
+    element summed by one thread in one order, whatever the blocks'
+    schedule."""
+    n = 1024
+    sin, cos = (torch.from_numpy(t).cuda()
+                for t in rotary.axial_rotary_sincos(32, 32, dh))
+    qkv = _randn32(gen, 16, n, 3 * heads * dh).to(dtype)
+    g = _randn32(gen, 16, n, heads * dh).to(dtype)
+    out = tdiv.space_attention_cuda(qkv, sin, cos, heads, dh, dh**-0.5)
+    run = lambda: tdiv.space_attention_backward_cuda(qkv, out, g, sin, cos,
+                                                     heads, dh, dh**-0.5)
+    first = _launched("divided_space_attention_backward", run)
+    assert first.dtype == dtype and first.isfinite().all()
+    for _ in range(2):
+        assert torch.equal(first, run())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("f", [8, 24])
 def test_time_classes_mask_padded_frames(gen, f, dtype):
     """Clips of 8 and 24 frames run on the 16- and 32-frame tiles with the
@@ -878,16 +936,19 @@ def test_tiny_classes_match_plain(gen, b, l, d, dtype):
     ("space", 1, 1, 256, 1, 128), ("space", 1, 1, 512, 4, 32),
     ("space", 1, 1, 256, 8, 16), ("space", 1, 1, 256, 16, 8),
     ("space", 1, 1, 384, 32, 4), ("space", 1, 1, 256, 64, 2),
+    ("space", 1, 1, 2048, 1, 128), ("space", 1, 1, 2048, 4, 32),
+    ("space", 1, 1, 256, 4, 32), ("space", 1, 1, 2048, 16, 8),
     ("space", 1, 1, 2048, 2, 64),
     ("space", 1, 1, 1280, 2, 64)])
 def test_divided_backward_classes_match_plain(gen, axis, b, f, n, heads, dh,
                                               dtype):
     """The backward kernels at every class the forward has: time at clips
     of 8, 24 and 32 frames and head dims 2 to 128, space at head dims 2 to
-    128 but 64 (2 and 4 with the scores' operands split into hi + lo) and,
-    at 64, past the float32 forward's resident K (N = 1280, 2048); against
-    the float32 plain backward, float32 also against its route, two calls
-    equal bit for bit."""
+    128 but 64 (2 and 4 with the scores' operands split into hi + lo), at
+    the gate's edges N = 256 and 2048, and, at 64, past the float32
+    forward's resident K (N = 1280, 2048); against the float32 plain
+    backward, float32 also against its route, two calls equal bit for
+    bit."""
     x, sin, cos = _divided_class_case(gen, axis, b, f, n, heads, dh, dtype)
     g = _randn32(gen, b, f, n, heads * dh).to(dtype)
     out = tdiv.divided_attention_reference(x, sin, cos, axis, heads, dh,

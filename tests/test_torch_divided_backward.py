@@ -10,9 +10,14 @@ adjoints against the JAX package, and the wiring of its backward kernels.
   the same within ``ROUTE_VS_EXACT``, and not equal to it.
 * The gradient of ``divided_attention`` on the CPU (the plain path) against
   ``jax.vjp`` of the JAX wrapper (its Pallas kernels in interpret mode).
+* The space backward's pre-pass: its plain version
+  (``space_backward_prepass_reference``) against the JAX package's rotary
+  and forward output, the route computed from its scratch against
+  ``jax.vjp`` and, bit for bit, against the route computed from qkv.
 * ``DividedAttention``'s wiring with stub libraries (``torch_stubs.py``): a
-  CUDA-like call reaches the backward entry points with the tensors'
-  pointers and shapes, is counted, and shapes the kernels are not built for
+  CUDA-like call reaches the backward entry points in order (space: the
+  pre-pass, dq, dk/dv) with the tensors' pointers, the scratch's shapes and
+  the problem's shape, is counted, and shapes the kernels are not built for
   raise rather than fall back to the plain backward.
 * The ``case`` labels and C symbols of ``csrc/divided_backward{,_f32}.cu``
   against the wrappers' shape lists.
@@ -135,6 +140,82 @@ def test_float32_route_matches_jax_vjp_within_its_rounding(case):
     assert errs[1] > 1e-4, errs
 
 
+# ------------------------------------------------------------ the pre-pass
+def _space_case(dh, dtype, seed):
+    """qkv [2, 256, 3·H·dh] (heads of 128 lanes), g, the JAX package's
+    forward output and a table of random angles repeated over each pair."""
+    n, heads = 256, max(1, 128 // dh)
+    rng = np.random.default_rng(seed)
+    qkv = rng.normal(size=(1, 2, n, 3 * heads * dh)).astype(np.float32)
+    g = rng.normal(size=(1, 2, n, heads * dh)).astype(np.float32)
+    ang = np.repeat(rng.uniform(-3, 3, (n, dh // 2)), 2, -1).astype(np.float32)
+    sin, cos = np.sin(ang), np.cos(ang)
+    if dtype == torch.bfloat16:   # bf16 inputs: the JAX package sees them too
+        qkv, g = (_t(a).bfloat16().float().numpy() for a in (qkv, g))
+    out, vjp = jax.vjp(lambda t: jdiv.divided_attention_reference(
+        t, sin, cos, "space", heads, dh, dh**-0.5, use_flash=False),
+        jnp.asarray(qkv))
+    (want,) = vjp(jnp.asarray(g))
+    flat = lambda a: _t(a).reshape(2, n, -1)
+    return (heads, flat(qkv).to(dtype), flat(np.asarray(out)).to(dtype),
+            flat(g).to(dtype), _t(sin), _t(cos), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [128, 64, 32])
+def test_space_prepass_matches_jax(dh, dtype):
+    """The pre-pass's plain version against the JAX package: q~ and k~ are
+    its kernel's ``_apply_rot`` of q (times the scale) and k, rounded to
+    bf16, v and g rounded once, and D = rowsum(g ∘ out) of its forward
+    output within fp32 rounding. The route computed from the scratch is
+    within ``ROUTE_VS_EXACT`` of ``jax.vjp``."""
+    heads, qkv, out, g, sin, cos, exact = _space_case(dh, dtype, seed=4)
+    scale = dh**-0.5
+    scratch, gs, dsum = tbwd.space_backward_prepass_reference(
+        qkv, out, g, sin, cos, heads, dh, scale)
+    assert scratch.dtype == gs.dtype == torch.bfloat16
+    assert scratch.shape == (2, 256, 3 * heads * dh)
+    assert gs.shape == (2, 256, heads * dh) and dsum.shape == (2, heads, 256)
+    x = scratch.float().reshape(2, 256, 3, heads, dh)
+    # the JAX kernel's rotary on the one 128-lane block of q and of k
+    sin_t, cos_t = jdiv._tile_tables(sin.numpy(), cos.numpy(), heads)
+    r = jnp.asarray(jdiv._rot_block(heads, dh))
+    q, k, v = (t.float() for t in qkv.chunk(3, dim=-1))
+    for third, t, mul in ((0, q, scale), (1, k, 1.0)):
+        want = jdiv._apply_rot(jnp.asarray(t.numpy()), sin_t, cos_t, r, mul)
+        want = _t(want).bfloat16().float().reshape(2, 256, heads, dh)
+        assert torch.equal(x[:, :, third, :, :dh], want), third
+    assert torch.equal(x[:, :, 2], v.bfloat16().float().reshape(
+        2, 256, heads, dh))
+    gh = g.float().reshape(2, 256, heads, dh)
+    assert torch.equal(gs.float().reshape(2, 256, heads, dh),
+                       gh.bfloat16().float())
+    d = (gh.double() * out.double().reshape(2, 256, heads, dh)).sum(-1)
+    _assert_close(dsum.transpose(1, 2), d.numpy(), 1e-6)
+    got = tbwd.space_backward_route_from_prepass(scratch, gs, dsum, sin, cos,
+                                                 heads, dh, scale)
+    errs = tkernels.relative_errors(got, _t(exact).reshape(got.shape))
+    assert all(e <= lim for e, lim in zip(errs, ROUTE_VS_EXACT)), errs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [128, 64, 32])
+def test_space_route_from_prepass_is_the_route(dh, dtype):
+    """The float32 route computed from the pre-pass's scratch, gs and dsum
+    equals ``divided_attention_backward_float32_route`` computed from qkv
+    bit for bit, at every head dim the pre-pass serves: the scratch holds
+    the route's rounding points (q~, k~ and v rounded once, g rounded, D in
+    the pre-pass's order)."""
+    heads, qkv, out, g, sin, cos, _ = _space_case(dh, dtype, seed=5)
+    args = (sin, cos, heads, dh, dh**-0.5)
+    prepass = tbwd.space_backward_prepass_reference(qkv, out, g, *args)
+    got = tbwd.space_backward_route_from_prepass(*prepass, *args)
+    want = tbwd.divided_attention_backward_float32_route(
+        qkv[None], out[None], g[None], sin, cos, "space", heads, dh,
+        dh**-0.5)[0]
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("case", ["space", "time"])
 def test_divided_gradient_on_cpu_matches_jax_vjp(case):
     """``divided_attention`` on CPU tensors: the plain forward, the
@@ -166,13 +247,19 @@ def test_divided_gradient_on_cpu_matches_jax_vjp(case):
 def test_backward_reaches_its_entry_point(stub_launches, monkeypatch, axis,
                                           dtype):
     """A CUDA-like qkv (stub libraries) launches the forward kernel, then
-    the backward kernel once, through the entry point of qkv's type, with
-    the pointers of qkv, the saved output, the cotangent and the returned
-    gradient, and the problem's shape; nothing else is launched."""
-    args = []
+    the backward once, through the entry points of qkv's type, with the
+    pointers of qkv, the saved output, the cotangent and the returned
+    gradient, and the problem's shape; nothing else is launched. Space runs
+    its three steps in order: the pre-pass (qkv, the pair table, out and g
+    into the scratch, gs and dsum of ``space_backward_scratch``, with their
+    shapes), dq and dk/dv (those, the table, dqkv and the row statistics)."""
+    args, scratch = [], []
     for lib in ("_bwd_lib", "_bwd_lib_f32"):
         monkeypatch.setattr(tdiv, lib,
                             lambda: StubLib(stub_launches, args))
+    allocate = tdiv.space_backward_scratch
+    monkeypatch.setattr(tdiv, "space_backward_scratch", lambda *a: (
+        scratch.extend(allocate(*a)) or tuple(scratch)))
     f, n = (2, 256) if axis == "space" else (16, 8)
     sin, cos = (_t(a) for a in _tables(axis, f, n))
     x = torch.randn(1, f, n, 3 * HEADS * DH).to(dtype).requires_grad_()
@@ -182,24 +269,38 @@ def test_backward_reaches_its_entry_point(stub_launches, monkeypatch, axis,
     (dx,) = torch.autograd.grad(out, x, g)
     suffix = "_f32" if dtype == torch.float32 else ""
     fwd, bwd = f"divided_{axis}_attention", f"divided_{axis}_attention_backward"
-    assert stub_launches == [fwd + suffix, bwd + suffix]
-    ((name, a),) = args
-    assert name == bwd + suffix
     assert dx.dtype == dtype and dx.shape == x.shape
+    ptr = lambda *ts: tuple(t.data_ptr() for t in ts)
     if axis == "space":
-        qkv_p, rot_p, out_p, g_p, dqkv_p, stats_p, *ints, scale, _ = a
-        assert (out_p, stats_p) != (0, 0) and rot_p
-        assert out_p == out.data_ptr()
-        assert ints == [f, n, HEADS, DH]
+        steps = [f"divided_space_backward_{step}{suffix}"
+                 for step in ("prepass", "dq", "dkdv")]
+        assert stub_launches == [fwd + suffix, *steps]
+        assert [name for name, _ in args] == steps
+        pre, dq, dkdv = (a for _, a in args)
+        sc, gs, dsum, stats = scratch
+        assert [(t.dtype, tuple(t.shape)) for t in scratch] == [
+            (torch.bfloat16, (f, n, 3 * HEADS * DH)),
+            (torch.bfloat16, (f, n, HEADS * DH)),
+            (torch.float32, (f, HEADS, n)),
+            (torch.float32, (f, HEADS, n, 2))]
+        table = pre[1]
+        assert table and table not in ptr(sin, cos)
+        assert pre[:7] == (x.data_ptr(), table, *ptr(out, g, sc, gs, dsum))
+        assert dq[:6] == dkdv[:6] == (*ptr(sc, gs, dsum), table,
+                                      dx.data_ptr(), stats.data_ptr())
+        for a in (pre, dq, dkdv):
+            assert list(a[-6:-2]) == [f, n, HEADS, DH]
+            assert a[-2] == 0.125
         shape = (f, n, 3 * HEADS * DH)
     else:
+        assert stub_launches == [fwd + suffix, bwd + suffix]
+        ((name, a),) = args
+        assert name == bwd + suffix
         qkv_p, sin_p, cos_p, g_p, dqkv_p, *ints, scale, _ = a
-        assert (sin_p, cos_p) == (sin.data_ptr(), cos.data_ptr())
-        assert ints == [1, f, n, HEADS, DH]
+        assert (sin_p, cos_p) == ptr(sin, cos)
+        assert (qkv_p, g_p, dqkv_p) == ptr(x, g, dx)
+        assert ints == [1, f, n, HEADS, DH] and scale == 0.125
         shape = tuple(x.shape)
-    assert (qkv_p, g_p, dqkv_p) == (x.data_ptr(), g.data_ptr(),
-                                    dx.data_ptr())
-    assert scale == 0.125
     assert tkernels.LAUNCHES[bwd] == 1
     assert dict(tkernels.LAUNCHES_BY_SHAPE[bwd]) == {shape: 1}
     f32 = dict(tkernels.FLOAT32_LAUNCHES_BY_SHAPE[bwd])
@@ -237,12 +338,12 @@ def test_backward_refuses_unbuilt_shapes(stub_launches, axis, f, n, dh,
 
 
 @pytest.mark.parametrize("axis,f,n,dh,dtype,entry", [
-    ("space", 1, 1280, 64, torch.bfloat16,
-     "divided_space_attention_backward"),
-    ("space", 1, 2048, 64, torch.float32,
-     "divided_space_attention_backward_f32"),
-    ("space", 1, 256, 32, torch.float32,
-     "divided_space_attention_backward_classes_f32"),
+    ("space", 1, 1280, 64, torch.bfloat16, ""),
+    ("space", 1, 2048, 64, torch.float32, "_f32"),
+    ("space", 1, 256, 32, torch.float32, "_classes_f32"),
+    ("space", 1, 256, 128, torch.bfloat16, "_classes"),
+    ("space", 1, 384, 2, torch.float32, "_classes_f32"),
+    ("space", 1, 256, 16, torch.bfloat16, "_classes"),
     ("time", 8, 8, 64, torch.float32,
      "divided_time_attention_backward_classes_f32"),
     ("time", 32, 8, 128, torch.bfloat16,
@@ -252,13 +353,18 @@ def test_backward_reaches_the_classes_entry_points(stub_launches, axis, f,
     """Through the autograd function: the forward launches, then the
     backward once, at shapes the configurations do not reach: space at
     head dim 64 past 1152 keys (the configurations' library, which takes
-    any N % 128 == 0), space at head dim 32 and time at 8 and 32 frames
-    (the classes' library)."""
+    any N % 128 == 0), space at head dims 32 and 128 (the classes'
+    library: its pre-pass, dq and dk/dv) and 2 and 16 (the classes'
+    library's mma.sync class, one entry point), and time at 8 and 32
+    frames."""
     heads = 256 // dh if axis == "space" else HEADS
     if axis == "space":
         side = 32 if n % 32 == 0 and n >= 1024 else 16
-        sin, cos = (_t(a) for a in rotary.axial_rotary_sincos(side, n // side,
-                                                              dh))
+        if dh >= 4:
+            sin, cos = (_t(a) for a in rotary.axial_rotary_sincos(
+                side, n // side, dh))
+        else:   # the axial table has no entry below head dim 4
+            sin = cos = torch.ones(n, dh)
     else:
         sin, cos = (_t(a) for a in rotary.time_rotary_sincos(f, dh))
     assert tdiv.divided_attention_viable(axis, f, n, heads, dh, dh)
@@ -266,7 +372,14 @@ def test_backward_reaches_the_classes_entry_points(stub_launches, axis, f,
     out = tdiv.divided_attention(x, sin, cos, axis, heads, dh, 0.125)
     (dx,) = torch.autograd.grad(out, x, torch.randn(out.shape).to(dtype))
     assert dx.shape == x.shape and dx.dtype == dtype
-    assert stub_launches[-1] == entry and len(stub_launches) == 2
+    if axis == "space" and dh <= tdiv.SPACE_BACKWARD_NARROW_MAX:
+        assert stub_launches[1:] == [
+            "divided_space_attention_backward" + entry]
+    elif axis == "space":
+        assert stub_launches[1:] == [f"divided_space_backward_{step}{entry}"
+                                     for step in ("prepass", "dq", "dkdv")]
+    else:
+        assert stub_launches[-1] == entry and len(stub_launches) == 2
     assert tkernels.LAUNCHES[f"divided_{axis}_attention_backward"] == 1
 
 
@@ -338,23 +451,27 @@ def _entry_body(source: str, function: str) -> str:
 
 @pytest.mark.parametrize("suffix", ["", "_f32"])
 def test_backward_sources_match_the_wrappers(suffix):
-    """Each backward source defines exactly its two entry points, and their
-    ``case`` labels are the shapes the wrappers let through: head dims for
-    the space backward, (frames, head dim) for the time backward."""
+    """Each backward source defines exactly its entry points (space: the
+    pre-pass, dq and dk/dv of ``SPACE_BACKWARD_STEPS``; time: one), and
+    their ``case`` labels are the shapes the wrappers let through: head dims
+    for the space backward, (frames, head dim) for the time backward."""
     src = f"divided_backward{suffix}.cu"
     text = (_build.CSRC / src).read_text()
     c_api = text[text.index('extern "C" {'):]
-    names = {"divided_space_attention_backward",
-             "divided_time_attention_backward"}
+    space = [f"divided_space_backward_{step}"
+             for step, _ in tdiv.SPACE_BACKWARD_STEPS]
+    assert space == [f"divided_space_backward_{step}"
+                     for step in ("prepass", "dq", "dkdv")]
     assert set(re.findall(r"\bint (\w+)\(", c_api)) == {
-        n + suffix for n in names}
+        n + suffix for n in (*space, "divided_time_attention_backward")}
     labels = lambda fn: tuple(int(x) for x in re.findall(
         r"case (\d+):", _entry_body(src, fn + suffix)))
-    assert labels("divided_space_attention_backward") \
-        == tdiv.SPACE_BACKWARD_HEAD_DIMS == (64,)
+    for name in space:
+        assert labels(name) == tdiv.SPACE_BACKWARD_HEAD_DIMS == (64,)
     assert labels("divided_time_attention_backward") == tuple(
         x for shape in tdiv.TIME_SHAPES for x in shape) == (16, 64)
-    for name in names:
+    for name in ("divided_space_attention_backward",
+                 "divided_time_attention_backward"):
         assert tkernels.SOURCES[name] == "divided_backward"
         assert tkernels.FLOAT32_SOURCES[name] == "divided_backward_f32"
         assert name in tkernels.LAUNCHES

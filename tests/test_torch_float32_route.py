@@ -215,6 +215,9 @@ def test_float32_entry_points_are_in_their_own_source():
                "flash_wide": {"fused_attention_wide"},
                "divided_backward_classes": {
                    "divided_space_attention_backward_classes",
+                   "divided_space_backward_prepass_classes",
+                   "divided_space_backward_dq_classes",
+                   "divided_space_backward_dkdv_classes",
                    "divided_time_attention_backward_classes"}}
     for source, names in symbols.items():
         for src, suffix in ((source, ""), (source + "_f32", "_f32")):

@@ -242,7 +242,9 @@ def _case_labels(source: str, function: str) -> tuple[int, ...]:
 
 def test_class_launchers_switch_on_the_named_classes():
     """The classes' launchers switch on the head-dim classes the wrappers
-    name; the space backward's class 64 is the configurations' library."""
+    name; the space backward's class 64 is the configurations' library,
+    and its heads up to ``SPACE_BACKWARD_NARROW_MAX`` dims the class 16 on
+    mma.sync."""
     classes = tflash.HEAD_DIM_CLASSES
     assert classes == (16, 32, 64, 128)
     assert _case_labels("divided_attention.cuh", "launch_time_classes") \
@@ -255,7 +257,11 @@ def test_class_launchers_switch_on_the_named_classes():
                         "launch_time_backward_classes") == classes
     assert _case_labels("divided_backward.cuh",
                         "launch_space_backward_classes") == tuple(
-        c for c in classes if c not in tdiv.SPACE_BACKWARD_HEAD_DIMS)
+        c for c in classes if c not in tdiv.SPACE_BACKWARD_HEAD_DIMS
+        and c > tdiv.SPACE_BACKWARD_NARROW_MAX) == (32, 128)
+    assert _case_labels("divided_backward.cuh",
+                        "launch_space_backward_narrow") == (
+        tdiv.SPACE_BACKWARD_NARROW_MAX,)
     tile = (_build.CSRC / "tiny_attention.cuh").read_text()
     assert "launch_tiny<16, D, T, true>" in tile   # L = 8
     assert "launch_tiny<32, D, T, true>" in tile   # L = 24

@@ -1,44 +1,35 @@
-"""A/B of the space backward kernels' block shape on one card.
+"""Paired timing of the space backward against an earlier copy of the repo.
 
-The space backward (csrc/divided_backward.cuh) runs a dq kernel and a dk/dv
-kernel whose blocks own 16 rows a warp and walk the other operand in tiles
-of ``SpaceBwd<DH>::tile`` rows, each tile staged from float32 through
-registers with its loads in flight across the block barrier. This times
-the float32 and bf16 backward at train-first-stage's qkv [1, 16, 1024,
-1536] for the built shape and for variants of it, each built from a copy
-of the package under build/ab_space_backward/:
+The space backward (csrc/divided_backward.cuh) runs a bf16 pre-pass, then a
+dq kernel and a dk/dv kernel on wgmma. This times it against the design of
+another copy of the repository (``--before``: by default build/before,
+unpacked from an earlier commit, e.g. ``git archive 640bd46 | tar -x -C
+build/before``, whose space backward is the mma.sync dq and dk/dv kernels
+this design replaced), each copy in a process of its own that builds its
+own kernels, in turns (before, this, this, before), ``--reps`` times over.
+The shapes: train-first-stage's qkv [1, 16, 1024, 1536] (the AE's 512
+channels in 8 heads of 64) and its channels split into heads of the other
+widths (``--dims``: by default 128 and 32, the variants phase's AEs),
+float32 (the trainers') and bf16. Each reading is ``chip_smoke.time_ms``: a CUDA graph of
+20 calls, the median of five replays.
 
-  w8-t128   eight warps (128 rows a block), 128-row tiles: as built;
-  w8-t64    eight warps, 64-row tiles;
-  w4-t64    four warps (64 rows a block), 64-row tiles;
-  w4-t32    four warps, 32-row tiles.
+``--split`` times this copy's launches apart instead (heads of 32 and more:
+the pre-pass, the dq kernel and the dk/dv kernel, each entry point called
+directly) beside the whole backward.
 
-Each variant runs in a process of its own, in turns, ``--reps`` times.
-
-    python3 tools/ab_space_backward.py       # from the repository root
+    python3 tools/ab_space_backward.py                  # from the repo root
+    python3 tools/ab_space_backward.py --dims 64,128,32,16,8,4,2 --reps 1
+    python3 tools/ab_space_backward.py --split
 """
 
 from __future__ import annotations
 
 import argparse
-import shutil
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-HEADER = "moditalker_tpu_torch/csrc/divided_backward.cuh"
-# the shape of the head-dim class 64 (SpaceBwd<DH>)
-WARPS = "static constexpr int warps = DH == 128 ? 4 : 8;"
-TILE = "static constexpr int tile = DH == 128 ? 32 : 128;"
-VARIANTS = {
-    "w8-t128": [],
-    "w8-t64": [(TILE, TILE.replace(": 128;", ": 64;"))],
-    "w4-t64": [(WARPS, WARPS.replace(": 8;", ": 4;")),
-               (TILE, TILE.replace(": 128;", ": 64;"))],
-    "w4-t32": [(WARPS, WARPS.replace(": 8;", ": 4;")),
-               (TILE, TILE.replace(": 128;", ": 32;"))],
-}
 
 TIME = """
 import sys
@@ -47,59 +38,123 @@ sys.path.insert(0, ".")
 import chip_smoke
 from moditalker_tpu_torch.ops import rotary
 from moditalker_tpu_torch.ops.kernels import divided_attention as dv
-sin, cos = (torch.from_numpy(t).cuda()
-            for t in rotary.axial_rotary_sincos(32, 32, 64))
 gen = torch.Generator(device="cuda").manual_seed(0)
-for dtype in (torch.float32, torch.bfloat16):
-    qkv = torch.randn((16, 1024, 1536), generator=gen, device="cuda").to(dtype)
-    g = torch.randn((16, 1024, 512), generator=gen, device="cuda").to(dtype)
-    out = dv.space_attention_cuda(qkv, sin, cos, 8, 64, 0.125)
-    ms = chip_smoke.time_ms(torch, lambda: dv.space_attention_backward_cuda(
-        qkv, out, g, sin, cos, 8, 64, 0.125))
-    print(str(dtype).replace("torch.", ""), ms)
+for dh in map(int, sys.argv[1].split(",")):
+    heads = 512 // dh
+    if dh >= 4:
+        sin, cos = (torch.from_numpy(t).cuda()
+                    for t in rotary.axial_rotary_sincos(32, 32, dh))
+    else:   # the axial table has no entry below head dim 4
+        ang = torch.rand(1024, dh // 2, generator=gen, device="cuda")
+        ang = (ang * 6 - 3).repeat_interleave(2, dim=-1)
+        sin, cos = ang.sin(), ang.cos()
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn((16, 1024, 3 * heads * dh), generator=gen,
+                          device="cuda").to(dtype)
+        g = torch.randn((16, 1024, heads * dh), generator=gen,
+                        device="cuda").to(dtype)
+        out = dv.space_attention_cuda(qkv, sin, cos, heads, dh, dh**-0.5)
+        ms = chip_smoke.time_ms(torch, lambda: dv.space_attention_backward_cuda(
+            qkv, out, g, sin, cos, heads, dh, dh**-0.5))
+        print(dh, str(dtype).replace("torch.", ""), ms, flush=True)
 """
 
+SPLIT = """
+import sys
+import torch
+sys.path.insert(0, ".")
+import chip_smoke
+from moditalker_tpu_torch.ops import rotary
+from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+gen = torch.Generator(device="cuda").manual_seed(0)
+for dh in map(int, sys.argv[1].split(",")):
+    heads = 512 // dh
+    sin, cos = (torch.from_numpy(t).cuda()
+                for t in rotary.axial_rotary_sincos(32, 32, dh))
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn((16, 1024, 3 * heads * dh), generator=gen,
+                          device="cuda").to(dtype)
+        g = torch.randn((16, 1024, heads * dh), generator=gen,
+                        device="cuda").to(dtype)
+        out = dv.space_attention_cuda(qkv, sin, cos, heads, dh, dh**-0.5)
+        table = dv.rotary_pair_table(sin, cos)
+        dqkv = torch.empty_like(qkv)
+        sc, gs, dsum, stats = dv.space_backward_scratch(16, 1024, heads, dh,
+                                                        "cuda")
+        lib, suffix = dv._library(dtype == torch.float32,
+                                  dh not in dv.SPACE_BACKWARD_HEAD_DIMS,
+                                  backward=True)
+        tensors = {"prepass": (qkv, table, out, g, sc, gs, dsum),
+                   "dq": (sc, gs, dsum, table, dqkv, stats),
+                   "dkdv": (sc, gs, dsum, table, dqkv, stats)}
 
-def variant_dir(name: str, edits) -> Path:
-    d = ROOT / "build" / "ab_space_backward" / name
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    shutil.copy(ROOT / "chip_smoke.py", d)
-    shutil.copytree(ROOT / "moditalker_tpu_torch", d / "moditalker_tpu_torch",
-                    ignore=shutil.ignore_patterns("__pycache__"))
-    header = d / HEADER
-    text = header.read_text()
-    for old, new in edits:
-        if text.count(old) != 1:
-            raise SystemExit(f"{name}: {old!r} is not in {HEADER} once")
-        text = text.replace(old, new)
-    header.write_text(text)
-    return d
+        def launch(step):
+            entry = getattr(lib, f"divided_space_backward_{step}{suffix}")
+            ptrs = [t.data_ptr() for t in tensors[step]]
+            return lambda: entry(*ptrs, 16, 1024, heads, dh, dh**-0.5,
+                                 torch.cuda.current_stream().cuda_stream)
+
+        ms = {step: chip_smoke.time_ms(torch, launch(step))
+              for step, _ in dv.SPACE_BACKWARD_STEPS}
+        ms["whole"] = chip_smoke.time_ms(
+            torch, lambda: dv.space_attention_backward_cuda(
+                qkv, out, g, sin, cos, heads, dh, dh**-0.5))
+        print(dh, str(dtype).replace("torch.", ""),
+              " ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+"""
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--before", type=Path, default=ROOT / "build" / "before",
+                    help="the earlier copy of the repository")
+    ap.add_argument("--dims", default="64,128,32",
+                    help="head dims, comma-separated (512 channels each)")
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--split", action="store_true",
+                    help="time this copy's three launches apart")
     args = ap.parse_args()
-    dirs = {name: variant_dir(name, edits) for name, edits in VARIANTS.items()}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"card: {card}")
+    if args.split:
+        out = subprocess.run([sys.executable, "-c", SPLIT, args.dims],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+        for line in out.stdout.split("\n"):
+            if line.strip():
+                dh, dtype, *ms = line.split()
+                print(f"{dtype} space backward, 512 channels in heads of "
+                      f"{dh}, qkv [1, 16, 1024, 1536], ms: {' '.join(ms)}")
+        if out.returncode != 0:
+            print(out.stderr[-3000:], file=sys.stderr)
+        return out.returncode
+    copies = {"before": args.before.resolve(), "this": ROOT}
+    readings: dict = {}
     for rep in range(args.reps):
-        for name, d in dirs.items():
-            out = subprocess.run([sys.executable, "-c", TIME], cwd=d,
-                                 capture_output=True, text=True, timeout=300)
+        for name in ("before", "this", "this", "before"):
+            out = subprocess.run([sys.executable, "-c", TIME, args.dims],
+                                 cwd=copies[name], capture_output=True,
+                                 text=True, timeout=900)
             if out.returncode != 0:
-                print(out.stderr[-2000:], file=sys.stderr)
+                print(out.stderr[-3000:], file=sys.stderr)
                 return 1
             for line in out.stdout.split("\n"):
                 if line.strip():
-                    dtype, ms = line.split()
-                    print(f"rep {rep} {name}: {dtype} space backward at qkv "
-                          f"[1, 16, 1024, 1536] {float(ms):.4f} ms",
-                          flush=True)
+                    dh, dtype, ms = line.split()
+                    readings.setdefault((int(dh), dtype, name), []).append(
+                        float(ms))
+                    print(f"rep {rep} {name}: {dtype} space backward, 512 "
+                          f"channels in heads of {dh}, qkv [1, 16, 1024, "
+                          f"{3 * 512}]: {float(ms):.4f} ms", flush=True)
+    for dh in map(int, args.dims.split(",")):
+        for dtype in ("float32", "bfloat16"):
+            before = readings[(dh, dtype, "before")]
+            this = readings[(dh, dtype, "this")]
+            print(f"head dim {dh} {dtype}: before {before} this {this} "
+                  f"this/before {min(this) / min(before):.4f}")
     return 0
 
 

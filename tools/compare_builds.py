@@ -14,8 +14,9 @@ commit (``git archive <parent> | tar -x -C build/parent``):
    one-pass (D = 16, 32 and 64), fused (D = 16 and 32 across lengths, D = 64
    with a ragged Nq over a short key tile) and tiny-L kernels, the one-pass
    and fused kernels' classes and wide tile (D = 24, 48, 128, 136, 256),
-   the time kernel's 32-frame class, and the space and time backward
-   kernels, on the same seeded inputs in both copies,
+   the time kernel's 32-frame class, the space kernel's pre-rotated design
+   at 4 x 128 and 16 x 32, and the space and time backward kernels (space
+   also at those splits), on the same seeded inputs in both copies,
    bf16 and float32, each type in a process of its own; prints whether each
    output is equal bit for bit (or that a copy raises at that shape).
 3. Times: the same calls timed in each process (``chip_smoke.time_ms``: a
@@ -41,7 +42,8 @@ SOURCES = tuple(f"{name}{suffix}" for suffix in ("", "_f32")
                 for name in ("divided_attention", "flash_attention",
                              "tiny_attention", "packed_attention",
                              "divided_backward", "flash_classes",
-                             "flash_wide"))
+                             "flash_wide", "divided_classes",
+                             "divided_backward_classes"))
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-ptx"]
 
@@ -130,6 +132,19 @@ put["space backward [1, 16, 1024]"] = lambda: dv.space_attention_backward_cuda(
     flat(x), out_s, flat(g_), ssin, scos, 8, 64, 0.125)
 put["time backward [1, 16, 1024]"] = lambda: dv.time_attention_backward_cuda(
     x, g_, tsin, tcos, 8, 64, 0.125)
+# the AE's 512 channels in 4 heads of 128 and 16 of 32: the space forward's
+# pre-rotated design and the space backward's classes
+for heads, d in ((4, 128), (16, 32)):
+    psin, pcos = (torch.from_numpy(t).cuda()
+                  for t in rotary.axial_rotary_sincos(32, 32, d))
+    o = dv.space_attention_cuda(flat(x), psin, pcos, heads, d, d**-0.5)
+    put[f"space [16, 1024] {heads} x {d}"] = \
+        lambda psin=psin, pcos=pcos, heads=heads, d=d: dv.space_attention_cuda(
+            flat(x), psin, pcos, heads, d, d**-0.5)
+    put[f"space backward [16, 1024] {heads} x {d}"] = \
+        lambda o=o, psin=psin, pcos=pcos, heads=heads, d=d: \
+        dv.space_attention_backward_cuda(flat(x), o, flat(g_), psin, pcos,
+                                         heads, d, d**-0.5)
 torch.save({"out": {k: None if t is None else t.cpu()
                     for k, t in out.items()}, "ms": ms}, sys.argv[1])
 """
