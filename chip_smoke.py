@@ -62,7 +62,12 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              float32 against the float32 plain version: one-pass at
              [B·2, 2048, 128] (base.yaml with num_heads: 2) and
              [16, 2048, 128], fused at [16, 1024, d] for d = 136, 256 and
-             512 (two groups of 256 columns). The space kernel's
+             512 (two groups of 256 columns). The float32 space kernel
+             at head dim 64 (``csrc/space_f32_tile.cuh``) at
+             train-diffusion's and train-first-stage's qkv, and the wgmma
+             tile's float32 route, which it takes at 8-frame clips' qkv
+             [1, 8, 1024, 1536], each also two calls bit for bit. The
+             space kernel's
              pre-rotated design (``csrc/divided_space.cuh``: a rotation
              pre-pass, then the wgmma tile built per width or the
              small-head tile) at qkv [2, 16, 1024, 1536] in 4 heads of 128,
@@ -465,6 +470,24 @@ SPACE_BACKWARD_DESIGN = (
     "rows with their operands resident, 64-row tiles streamed through a "
     "four-slot ring by a producer warpgroup")
 
+# the float32 space kernel at head dim 64 (csrc/space_f32_tile.cuh)
+SPACE_F32_DESIGN = (
+    "at 1024 tokens from 72 (frame, head) pairs and at 1152 from 1280 "
+    "(space_f32_own_kernel): one block per (frame, head) with K resident; "
+    "before the roles split every thread rotates K and rounds V to bf16 "
+    "into the block's scratch slot, from which a producer warpgroup copies "
+    "V in every round; two consumer warpgroups "
+    "of 64 rows at 232 registers (rounds of 128 rows: none sits one out), "
+    "the wgmma tile's products and 128-key softmax (elsewhere the tile's "
+    "float32 route)")
+# the wgmma tile's float32 route, which the float32 space attention at head
+# dim 64 runs where the kernel above does not (space_f32_own_kernel)
+SPACE_F32_ROUTE_DESIGN = (
+    "the wgmma tile instantiated for float32: one block per (frame, head) "
+    "with K rotated and rounded into shared memory, three consumer "
+    "warpgroups of 64 rows, V rounded to bf16 in the producer's registers "
+    "in every round")
+
 # one first-stage G cycle and D cycle at a small depth (float32, TF32 off)
 # on the card against the CPU: relative errors of the loss terms (largest
 # over the micro-steps), and of the AE's and the discriminators' mean
@@ -702,9 +725,10 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
 
     def divided_row(axis, b_, f_, n_, g=gen_more, dtype=torch.bfloat16,
                     source="divided_attention", plain32=False, heads=heads,
-                    dh=dh):
+                    dh=dh, twice=False):
         """``heads`` heads of ``dh`` (the shipped AE's 8 of 64 unless
-        given: another head dim runs the kernel's class)."""
+        given: another head dim runs the kernel's class). ``twice``: two
+        more calls must equal each other bit for bit."""
         hd, scale = heads * dh, dh**-0.5
         if axis == "space":
             sin, cos = tables(rotary.axial_rotary_sincos(32, n_ // 32, dh)
@@ -730,6 +754,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                          qkv, sin, cos, axis, heads, dh, scale,
                          exp2=axis == "space"),
                      dtype=qkv.dtype if plain32 else None)
+        if twice and not torch.equal(kern(), kern()):
+            raise AssertionError(f"{name} {list(qkv.shape)}: two calls differ")
         q, k, v = head_split_rotated(qkv, sin, cos, axis, heads, dh)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
         seq = n_ if axis == "space" else f_
@@ -906,7 +932,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     f32 = torch.float32
     gen_f32 = torch.Generator(device=dev).manual_seed(seed + 3)
     tb = TRAIN_BATCH
-    rows += [divided_row("space", tb, f, n, g=gen_f32, dtype=f32),
+    rows += [dict(divided_row("space", tb, f, n, g=gen_f32, dtype=f32,
+                              source="divided_attention_f32", twice=True),
+                  design=SPACE_F32_DESIGN),
              divided_row("time", tb, f, n, g=gen_f32, dtype=f32),
              packed_row(tb, l, g=gen_f32, dtype=f32),
              packed_row(tb, 1024, g=gen_f32, dtype=f32),
@@ -946,8 +974,16 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # float32 at B = 1, the shape train-first-stage gives them: its AE
     # trains through them
     gen_fs = torch.Generator(device=dev).manual_seed(seed + 5)
-    rows += [divided_row(axis, 1, f, n, g=gen_fs, dtype=f32)
-             for axis in ("space", "time")]
+    rows += [dict(divided_row("space", 1, f, n, g=gen_fs, dtype=f32,
+                              source="divided_attention_f32", twice=True),
+                  design=SPACE_F32_DESIGN),
+             divided_row("time", 1, f, n, g=gen_fs, dtype=f32)]
+    # 8-frame clips (first_stage_frames_phase): 64 (frame, head) pairs, which
+    # the wgmma tile's float32 route takes
+    assert not dv.space_f32_own_kernel(f // 2, n, heads)
+    rows.append(dict(divided_row("space", 1, f // 2, n, g=gen_fs, dtype=f32,
+                                 source="divided_attention_f32", twice=True),
+                     design=SPACE_F32_ROUTE_DESIGN))
 
     def backward_row(axis, g, dtype, f=f, source="divided_backward",
                      heads=heads, dh=dh):
@@ -4236,7 +4272,8 @@ def main() -> int:
     for row in rows:
         if row["name"] in kernels:
             kernels[row["name"]].setdefault("other_shapes", []).append(
-                {k: row[k] for k in ("shape", "heads", "dtype", "oracle",
+                {k: row[k] for k in ("shape", "heads", "dtype", "source",
+                                     "design", "oracle",
                                      "max_abs_err",
                                      "rel_max_err", "rel_rms_err",
                                      "rel_q_err", "route_rel_err",

@@ -38,16 +38,19 @@
 //    JAX's default precision on a TPU), p is rounded to bf16 for P·V, and
 //    the output, divided by the fp32 row sum, is stored as float32, never
 //    rounded to bf16. At float32 both kernels are bound by bytes (qkv read
-//    once, the output written once: 1.34 GB at B = 10). Space: the loaders
-//    that rotate q and k read two float32 chunks where they read one bf16
-//    chunk; V, which the bf16 route copies raw with cp.async, passes
-//    through the producer's registers and is rounded on its way into the
-//    ring (the producer gets 56 registers, the consumers 152); the output
-//    leaves straight from the accumulator fragments as 8-byte stores (a
-//    quad writes a whole 32-byte sector). Built for resident K only (N <=
-//    1152; past it, divided_space.cuh). Time: twenty-four 16-byte loads per
-//    lane in flight, and the output staged in fp32 over the warp's q and k
-//    buffers, then 16-byte stores.
+//    once, the output written once: 1.34 GB at B = 10). Space: where it
+//    read faster (the wrapper's space_f32_own_kernel) a kernel of its own
+//    (space_f32_tile.cuh: K rotated and V rounded once per (frame, head)
+//    before the roles split, two consumer warpgroups); elsewhere the wgmma
+//    tile's float32 route: the
+//    loaders that rotate q and k read two float32 chunks where they read
+//    one bf16 chunk; V passes through the producer's registers and is
+//    rounded on its way into the ring (the producer gets 56 registers, the
+//    consumers 152); the output leaves straight from the accumulator
+//    fragments as 8-byte stores (a quad writes a whole 32-byte sector).
+//    Both for resident K only (N <= 1152; past it, divided_space.cuh).
+//    Time: twenty-four 16-byte loads per lane in flight, and the output
+//    staged in fp32 over the warp's q and k buffers, then 16-byte stores.
 //
 // The kernels and their launchers; the C entry points are in
 // divided_attention.cu (bf16) and divided_attention_f32.cu (float32). The
@@ -304,7 +307,9 @@ int launch_time_classes(const void* qkv, const void* sin_t, const void* cos_t,
   return cudaErrorInvalidValue;
 }
 
-// qkv [BF, N, 3·H·dh] -> out [BF, N, H·dh], both of element type T.
+// qkv [BF, N, 3·H·dh] -> out [BF, N, H·dh], both of element type T (in
+// float32 where the wrapper passes a V scratch, space_f32_tile.cuh's
+// kernel instead).
 template <typename T>
 int launch_space(const void* qkv, const void* rot, void* out, int BF, int N,
                  int H, int dh, float scale, cudaStream_t stream) {

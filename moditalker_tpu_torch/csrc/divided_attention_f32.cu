@@ -1,19 +1,27 @@
 // The C entry points of the divided space and time kernels for float32 qkv
-// (the kernels and their float32 route: divided_attention.cuh). A library
+// (the kernels and their float32 route: divided_attention.cuh, and the
+// space kernel of its own at head dim 64: space_f32_tile.cuh). A library
 // of their own, so that the bf16 kernels' translation unit
 // (divided_attention.cu) holds no float32 instantiation.
 #include "divided_attention.cuh"
+#include "space_f32_tile.cuh"
 
 extern "C" {
 
-// qkv [BF, N, 3·H·dh] float32, rot [N, dh/2, 2] fp32 -> out [BF, N, H·dh]
-// float32; built for resident K only (N <= 1152:
-// the repository's configurations reach N = 1024), larger N is refused.
-int divided_space_attention_f32(const void* qkv, const void* rot, void* out,
-                                int BF, int N, int H, int dh, float scale,
-                                void* stream) {
-  return mdt::launch_space<float>(qkv, rot, out, BF, N, H, dh, scale,
-                                  static_cast<cudaStream_t>(stream));
+// qkv [BF, N, 3·H·dh] float32, rot [N, dh/2, 2] fp32, the V scratch
+// vs [BF·H, N, dh] bf16 or null -> out [BF, N, H·dh] float32; built for
+// head dim 64 with K resident only (N <= 1152: the repository's
+// configurations reach N = 1024), larger N is refused. With a scratch,
+// space_f32_tile.cuh's kernel; without one, the wgmma tile's float32 route
+// (the wrapper chooses: space_f32_own_kernel in
+// ops/kernels/divided_attention.py).
+int divided_space_attention_f32(const void* qkv, const void* rot, void* vs,
+                                void* out, int BF, int N, int H, int dh,
+                                float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vs != nullptr)
+    return mdt::launch_space_f32(qkv, rot, vs, out, BF, N, H, dh, scale, st);
+  return mdt::launch_space<float>(qkv, rot, out, BF, N, H, dh, scale, st);
 }
 
 // qkv [B, F, N, 3·H·dh] float32, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh]

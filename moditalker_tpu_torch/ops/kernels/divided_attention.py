@@ -15,6 +15,14 @@ Kernels (``csrc/divided_attention.cuh``, sm_90a; the bf16 entry points in
   consumer warpgroups) where K fits in shared memory (N <= 1152) and runs a
   K ring (two consumers, the producer rotating) above that;
   ``rotary_pair_table`` packs the table to the half width the kernel reads.
+  Float32 qkv at head dim 64 with K resident has a kernel of its own
+  (``csrc/space_f32_tile.cuh``), the same tile's products and softmax:
+  every thread of a block rotates K and rounds V to bf16 once before the
+  roles split, V into a scratch slot the wrapper allocates
+  (``space_f32_scratch``) from which every round copies it, and two
+  consumer warpgroups of 64 rows walk the rounds. It runs where it read
+  faster than the tile's float32 route (``space_f32_own_kernel``), which
+  runs elsewhere.
 * time — replaces ``_time_kernel`` (``_time_fused``): per patch, attention
   over the F frames with the time rotary. Bound by bytes: one warp per
   (b, n, head), 16-byte coalesced loads and stores through a per-warp
@@ -93,11 +101,19 @@ _LANES = 128
 # space the pre-rotated design (csrc/divided_space.cuh) per head-dim class.
 SPACE_HEAD_DIMS = (64,)
 TIME_SHAPES = ((16, 64),)   # (frames, head dim)
-# the float32 space kernel on the wgmma tile keeps K resident in shared
-# memory: 9 tiles of 128 keys (the configurations' AE reaches N = 1024);
-# above that the float32 space attention at head dim 64 is the pre-rotated
-# design's (divided_classes_f32.cu)
+# the float32 space kernel at head dim 64 (csrc/space_f32_tile.cuh) keeps K
+# resident in shared memory: 9 tiles of 128 keys (the configurations' AE
+# reaches N = 1024); above that the float32 space attention at head dim 64
+# is the pre-rotated design's (divided_classes_f32.cu)
 SPACE_F32_MAX_N = 1152
+# the (frame, head) pairs from which the float32 space attention at head
+# dim 64 runs that kernel rather than the wgmma tile's float32 route
+# (``space_f32_own_kernel``), by length: where it read faster on an H100
+# (tools/ab_space_f32.py --gate; PERF.md). At the configurations' 1024
+# tokens from 72 pairs (64 read 1.6x the route), at 1152 from 1280 (1024
+# read 1.005x); at 256 to 896 tokens no reading up to 1280 pairs was
+# faster, so the route takes every length not listed
+SPACE_F32_MIN_PAIRS = {1024: 72, 1152: 1280}
 SPACE_BACKWARD_HEAD_DIMS = (64,)
 # the space backward's launches in order, each an entry point of its
 # library with its count of pointer arguments: the pre-pass (qkv, the pair
@@ -245,16 +261,16 @@ def divided_attention_viable(axis: str, f: int, n: int, heads: int,
 
 def _bind_forward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
     """Binds the space and time entry points of ``lib``; in the classes'
-    libraries the space entry is the pre-rotated design's, which also takes
-    its scratch."""
+    libraries the space entry is the pre-rotated design's. Every space
+    entry but the bf16 one also takes a scratch (the pre-rotated design's,
+    or the float32 kernel's V scratch)."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if suffix.startswith("_classes"):
         space = getattr(lib, "divided_space_attention_prerotated"
                         + suffix[len("_classes"):])
-        space.argtypes = [p, p, p, p, i, i, i, i, fl, p]
     else:
         space = getattr(lib, "divided_space_attention" + suffix)
-        space.argtypes = [p, p, p, i, i, i, i, fl, p]
+    space.argtypes = [p] * (4 if suffix else 3) + [i, i, i, i, fl, p]
     space.restype = i
     time = getattr(lib, "divided_time_attention" + suffix)
     time.argtypes = [p, p, p, p, i, i, i, i, i, fl, p]
@@ -379,13 +395,34 @@ def space_prerotated(dim_head: int, n: int, f32: bool) -> bool:
     return dim_head not in SPACE_HEAD_DIMS or (f32 and n > SPACE_F32_MAX_N)
 
 
+def space_f32_own_kernel(bf: int, n: int, heads: int) -> bool:
+    """Whether float32 qkv [BF, N, 3·H·64] with K resident runs the space
+    kernel of its own (``csrc/space_f32_tile.cuh``, which takes the V
+    scratch) rather than the wgmma tile's float32 route (which takes none):
+    the one place that chooses, by passing the scratch or not."""
+    least = SPACE_F32_MIN_PAIRS.get(n)
+    return least is not None and bf * heads >= least
+
+
+def space_f32_scratch(bf: int, n: int, heads: int, device):
+    """The float32 space kernel's V scratch (``csrc/space_f32_tile.cuh``),
+    allocated (``torch.empty``) for one call: bf16 [BF·H, N, 64], a slot per
+    (frame, head), into which its block rounds V once and from which it
+    copies V in every round."""
+    return torch.empty(bf * heads, n, SPACE_HEAD_DIMS[0],
+                       dtype=torch.bfloat16, device=device)
+
+
 def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                          scale: float):
     """Kernel launch: qkv [BF, N, 3·H·dh] → [BF, N, H·dh] in qkv's type
     (bf16 or float32), N a multiple of 128 and at least 256, dh dividing 128
     from 2 up. The pre-rotated design (``space_prerotated``) writes a bf16
     scratch [BF, N, 3·H·w] first (``space_rotate_reference``: its plain
-    version), which this allocates; one launch in the count."""
+    version), and the float32 kernel at head dim 64 writes its V scratch
+    (``space_f32_scratch``) where ``space_f32_own_kernel`` takes it (a null
+    pointer runs the wgmma tile's float32 route); this allocates either.
+    One launch in the count."""
     f32 = _operands(qkv, sin, cos)
     _check_head_dim(dim_head)
     bf, n, c3 = qkv.shape
@@ -407,6 +444,11 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
         scratch = torch.empty(bf, n, 3 * heads * space_scratch_width(
             dim_head), dtype=torch.bfloat16, device=qkv.device)
         pointers.append(scratch.data_ptr())
+    elif f32 and space_f32_own_kernel(bf, n, heads):
+        scratch = space_f32_scratch(bf, n, heads, qkv.device)
+        pointers.append(scratch.data_ptr())
+    elif f32:
+        pointers.append(None)
     status = getattr(lib, entry)(
         *pointers, out.data_ptr(), bf, n, heads, dim_head, scale,
         kernels.cuda_stream(qkv))

@@ -238,7 +238,8 @@ def _check_float32(name, got, plain, route):
 @pytest.mark.parametrize("axis,b,f,n,heads", [
     ("space", 2, 2, 1024, 8), ("space", 1, 1, 1152, 2),
     ("space", 2, 16, 1024, 8), ("space", 1, 16, 1024, 8),
-    ("space", 1, 1, 256, 2),
+    ("space", 1, 1, 256, 2), ("space", 2, 1, 1152, 8),
+    ("space", 2, 1, 256, 8),
     ("time", 2, 16, 128, 2), ("time", 1, 16, 1024, 8),
     ("time", 10, 16, 1024, 8)])
 def test_divided_kernels_take_float32(gen, axis, b, f, n, heads):
@@ -257,6 +258,39 @@ def test_divided_kernels_take_float32(gen, axis, b, f, n, heads):
                                          dh**-0.5, use_flash=False),
         tdiv.divided_attention_float32_route(x, sin, cos, axis, heads, dh,
                                              dh**-0.5, exp2=axis == "space"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own", [True, False], ids=["kernel", "route"])
+@pytest.mark.parametrize("b,f,n", [(1, 16, 1024), (1, 12, 1024),
+                                   (2, 1, 1152), (2, 1, 256), (1, 8, 1024)])
+def test_space_f32_kernel_is_the_wgmma_tile_bit_for_bit(gen, monkeypatch,
+                                                         own, b, f, n):
+    """The float32 space entry point at head dim 64 computes what the wgmma
+    tile's float32 route computes, through ``csrc/space_f32_tile.cuh``'s
+    kernel (V rounded into its scratch, two consumer warpgroups) and
+    through that route itself, each forced at every shape whichever the
+    wrapper's choice (``space_f32_own_kernel``) would take: its output
+    equals the fused kernel's at head dim 64 (the same tile, resident K,
+    without the rotary) on q and k rotated as the kernel rotates them, bit
+    for bit, and two calls give the same output. The shapes:
+    train-first-stage's qkv, 96 pairs, the resident-K limit, the gate's
+    shortest sequence and 8-frame clips' 64 pairs."""
+    monkeypatch.setattr(tdiv, "space_f32_own_kernel", lambda *a: own)
+    heads, dh = 8, 64
+    sin, cos = _divided_tables("space", f, n)
+    x = _randn32(gen, b, f, n, 3 * heads * dh)
+    got = tdiv.divided_attention(x, sin, cos, "space", heads, dh, dh**-0.5)
+    assert torch.equal(got, tdiv.divided_attention(x, sin, cos, "space",
+                                                   heads, dh, dh**-0.5))
+    q, k, v = (t.reshape(b * f, n, heads, dh).transpose(1, 2)
+               for t in x.chunk(3, -1))
+    q, k = rotary.apply_rot_emb(q, k, sin, cos)
+    q, k, v = (t.reshape(b * f * heads, n, dh).contiguous() for t in (q, k, v))
+    with torch.no_grad():
+        tile = tflash.fused_attention_cuda(q, k, v, dh**-0.5)
+    tile = tile.reshape(b * f, heads, n, dh).transpose(1, 2)
+    assert torch.equal(got, tile.reshape(got.shape))
 
 
 @pytest.mark.cuda

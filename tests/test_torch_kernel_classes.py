@@ -132,8 +132,9 @@ def test_space_head_dims_reach_their_design(stub_launches, monkeypatch,
                                             dtype):
     """Each head dim the space gate admits (2 to 128 dividing 128), over N
     from 256 to 2048, reaches the entry point its design names: the
-    configurations' wgmma tile at 64 (in float32 up to resident K), the
-    pre-rotated design everywhere else, which takes a scratch beside qkv,
+    configurations' kernel at 64 (in float32 up to resident K: the float32
+    kernel of its own), the pre-rotated design everywhere else. The
+    pre-rotated design and the float32 kernel take a scratch beside qkv,
     the table and the output (one pointer more)."""
     f32 = dtype == torch.float32
     suffix = "_f32" if f32 else ""
@@ -157,7 +158,7 @@ def test_space_head_dims_reach_their_design(stub_launches, monkeypatch,
             entry = ("divided_space_attention" if shipped else
                      "divided_space_attention_prerotated") + suffix
             assert stub_launches == [entry], (n, dh)
-            assert len(calls[0][1]) == (9 if shipped else 10)
+            assert len(calls[0][1]) == (9 if shipped and not f32 else 10)
             assert calls[0][1][-6:-1] == (1, n, heads, dh, dh**-0.5)
 
 

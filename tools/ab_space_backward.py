@@ -17,9 +17,18 @@ float32 (the trainers') and bf16. Each reading is ``chip_smoke.time_ms``: a CUDA
 the pre-pass, the dq kernel and the dk/dv kernel, each entry point called
 directly) beside the whole backward.
 
+``--library`` times this copy's backward beside the library's
+(``torch.autograd.grad`` through ``F.scaled_dot_product_attention`` on the
+rotated, head-split float32 q, k, v, as ``chip_smoke.py``'s backward rows
+take it) and prints each shape's bound, counted as ``chip_smoke.py`` counts
+it (qkv, the output and g read, dqkv written, the pair table; five products
+of 2·N²·dh), and its ``ex2`` floor (three sweeps of one ex2 per score over
+132 SMs x 16 a clock at 1980 MHz).
+
     python3 tools/ab_space_backward.py                  # from the repo root
     python3 tools/ab_space_backward.py --dims 64,128,32,16,8,4,2 --reps 1
     python3 tools/ab_space_backward.py --split
+    python3 tools/ab_space_backward.py --library --dims 16,8,4,2
 """
 
 from __future__ import annotations
@@ -103,6 +112,42 @@ for dh in map(int, sys.argv[1].split(",")):
               " ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
 """
 
+LIBRARY = TIME.split("for dh in")[0] + """
+import torch.nn.functional as F
+for dh in map(int, sys.argv[1].split(",")):
+    heads = 512 // dh
+    if dh >= 4:
+        sin, cos = (torch.from_numpy(t).cuda()
+                    for t in rotary.axial_rotary_sincos(32, 32, dh))
+    else:
+        ang = torch.rand(1024, dh // 2, generator=gen, device="cuda")
+        ang = (ang * 6 - 3).repeat_interleave(2, dim=-1)
+        sin, cos = ang.sin(), ang.cos()
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = torch.randn((16, 1024, 3 * heads * dh), generator=gen,
+                          device="cuda").to(dtype)
+        g = torch.randn((16, 1024, heads * dh), generator=gen,
+                        device="cuda").to(dtype)
+        out = dv.space_attention_cuda(qkv, sin, cos, heads, dh, dh**-0.5)
+        ms = chip_smoke.time_ms(torch, lambda: dv.space_attention_backward_cuda(
+            qkv, out, g, sin, cos, heads, dh, dh**-0.5))
+        q, k, v = (t.float().reshape(16, 1024, heads, dh).transpose(1, 2)
+                   for t in qkv.chunk(3, -1))
+        q, k = rotary.apply_rot_emb(q, k, sin, cos)
+        q, k, v = (t.contiguous().requires_grad_() for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(q, k, v, scale=dh**-0.5)
+        lg = torch.randn(lo.shape, generator=gen, device="cuda")
+        lib = chip_smoke.device_ms(torch, lambda: torch.autograd.grad(
+            lo, (q, k, v), lg, retain_graph=True))
+        nbytes = (2 * qkv.numel() + g.numel() + out.numel()) * \\
+            qkv.element_size() + sin.numel() * 4
+        bound, by = chip_smoke.bound_ms(nbytes,
+                                        10.0 * 16 * heads * 1024**2 * dh)
+        floor = 3 * 16 * heads * 1024**2 / (132 * 16 * 1.98e9) * 1e3
+        print(dh, str(dtype).replace("torch.", ""), ms, lib, bound, by,
+              floor, flush=True)
+"""
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -113,12 +158,28 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--split", action="store_true",
                     help="time this copy's three launches apart")
+    ap.add_argument("--library", action="store_true",
+                    help="time this copy beside the library's backward")
     args = ap.parse_args()
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"card: {card}")
+    if args.library:
+        out = subprocess.run([sys.executable, "-c", LIBRARY, args.dims],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=900)
+        for line in out.stdout.split("\n"):
+            if line.strip():
+                dh, dtype, ms, lib, bound, by, floor = line.split()
+                print(f"{dtype} space backward, 512 channels in heads of "
+                      f"{dh}, qkv [1, 16, 1024, 1536]: {float(ms):.4f} ms, "
+                      f"library {float(lib):.4f}, bound {float(bound):.4f} "
+                      f"({by}), ex2 floor {float(floor):.4f}")
+        if out.returncode != 0:
+            print(out.stderr[-3000:], file=sys.stderr)
+        return out.returncode
     if args.split:
         out = subprocess.run([sys.executable, "-c", SPLIT, args.dims],
                              cwd=ROOT, capture_output=True, text=True,

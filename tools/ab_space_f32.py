@@ -1,21 +1,44 @@
-"""A/B of the float32 space kernel's producer on one card.
+"""Paired timing of the float32 space kernel at head dim 64 on one card.
 
-The float32 route of the divided space kernel (csrc/wgmma_tile.cuh) rounds
-V to bf16 in the producer warpgroup's registers on its way into the ring,
-with a register split of 56 (producer) and 152 (each of three consumers).
-This times the float32 rows at train-diffusion's and train-first-stage's
-shapes (qkv [10 | 1, 16, 1024, 1536]) for that design and for variants of
-it, each built from a copy of the package under build/ab_space_f32/:
+The float32 divided space kernel (csrc/space_f32_tile.cuh, the entry point
+``divided_space_attention_f32``) is timed at train-diffusion's and
+train-first-stage's shapes, qkv [10 | 1, 16, 1024, 1536] float32 (8 heads
+of 64; ``--shapes`` for others), each copy of the kernel in a process of
+its own that builds it, in turns. Each reading is ``chip_smoke.time_ms``: a
+CUDA graph of 20 calls, the median of five replays. Each process also
+checks the output against the float32 route (``exp2``) at its shapes of 16
+frames or fewer, and prints the kernel's ``-Xptxas -v`` line. Modes:
 
-  as-built   the kernel as it is;
-  no-V       the producer loads no V (a diagnostic: wrong results; what the
-             float32 V stream costs);
-  p80-c144   8 chunks in flight a producer thread, 80 / 144 registers;
-  p32-c160   2 chunks in flight, 32 / 160 registers (the bf16 split).
+* by default, this checkout against an earlier copy of the repository
+  (``--before``: build/before, unpacked from an earlier commit, e.g.
+  ``git archive 78a7fb9 | tar -x -C build/before``, whose float32 space
+  kernel is the wgmma tile's bf16 design instantiated for float32), in the
+  turns before, this, this, before, ``--reps`` times over;
+* ``--variants``: design alternatives of this checkout's kernel, each a copy
+  under build/ab_space_f32/ with the header edited (``VARIANTS``): V
+  rounded in the first round by the producer in place of the prologue, the
+  prologue's batches doubled, Q read by S from shared memory, three
+  consumer warpgroups at 160 registers, four at 112 (Q in registers or in
+  shared memory);
+* ``--split``: this checkout's kernel cut short at run time, the rounds a
+  block walks capped at none (the prologue alone), one and all: the
+  differences time the prologue, the first round and the rest, each cut
+  run on its own (so its phases meet no other blocks' phases);
+* ``--clock``: a ``clock64`` account of a block in the full run: the
+  prologue, the first round and the other rounds, the mean over blocks,
+  written over each block's scratch slot once nothing reads it (this
+  checkout and its "V in the first round" variant);
+* ``--gate``: both sides of the wrapper's choice (``space_f32_own_kernel``)
+  in this checkout, each forced at every shape, in turns route, kernel,
+  kernel, route: the kernel of its own against the wgmma tile's float32
+  route, by default over 128 to 1280 (frame, head) pairs and N = 256 to
+  1152 (``GATE_SHAPES``), with the side the wrapper takes at each.
 
-Each variant runs in a process of its own, in turns, ``--reps`` times.
-
-    python3 tools/ab_space_f32.py            # from the repository root
+    python3 tools/ab_space_f32.py             # from the repository root
+    python3 tools/ab_space_f32.py --variants --reps 1
+    python3 tools/ab_space_f32.py --split --reps 1
+    python3 tools/ab_space_f32.py --clock
+    python3 tools/ab_space_f32.py --gate --reps 1
 """
 
 from __future__ import annotations
@@ -27,22 +50,243 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-TILE = "moditalker_tpu_torch/csrc/wgmma_tile.cuh"
-BATCH = "      constexpr int kVBatch = 4;"
-PRODUCER = 'asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\\n");'
-CONSUMER = 'asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\\n");'
-LOAD = "                c[u].load(vsrc + (u0 + u) * 16 * a.in_row);"
-VARIANTS = {
-    "as-built": [],
-    "no-V": [(LOAD, "                c[u].lo = c[u].hi = make_float4("
-                    "0.f, 0.f, 0.f, (float)u0);")],
-    "p80-c144": [(BATCH, BATCH.replace("4", "8")),
-                 (PRODUCER, PRODUCER.replace("56", "80")),
-                 (CONSUMER, CONSUMER.replace("152", "144"))],
-    "p32-c160": [(BATCH, BATCH.replace("4", "2")),
-                 (PRODUCER, PRODUCER.replace("56", "32")),
-                 (CONSUMER, CONSUMER.replace("152", "160"))],
+HEADER = "moditalker_tpu_torch/csrc/space_f32_tile.cuh"
+ROUNDS = "  const int rounds = (N + kSfRoundRows - 1) / kSfRoundRows;"
+CUT = ("  const int rounds = min((N + kSfRoundRows - 1) / kSfRoundRows, "
+       "a.cut);")
+FIELD = "  float scale;\n};"
+PLAN = "  const int smem = space_f32_smem_bytes(nkt);\n"
+NC = "constexpr int kSfConsumers = 2;"
+DEC = 'asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\\n");'
+INC = 'asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\\n");'
+# V rounded in the first round, in the producer's registers, into the ring
+# and the block's slot, in place of the prologue's rounding
+VBATCHES = "  const int v_chunks = N * 8;"
+VROW = "    const bf16* vrow = vsc + (pt >> 3) * kWgD + (pt & 7) * 8;"
+PRODUCER = """    // the bf16 tiles from the scratch slot (L2), the copies one step ahead
+    // of their arrival
+    int it = 0;
+    for (int round = 0; round < rounds; ++round) {
+      for (int j = 0; j < nkt; ++j, ++it) {
+        const int vs = it % kWgVStages;
+        mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
+        const bf16* src = vrow + (long)j * kWgTile * kWgD;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          cp_async16(v_sw + vs * kWgTileBytes + u * 16 * 128,
+                     src + u * 16 * kWgD);
+        cp_async_commit();
+        if (it > 0) {  // the tile started one step ago has landed
+          cp_async_wait<1>();
+          fence_proxy_async();
+          mbar_arrive(full_v((it - 1) % kWgVStages));
+        }
+      }
+    }
+    cp_async_wait<0>();
+    fence_proxy_async();
+    mbar_arrive(full_v((it - 1) % kWgVStages));
+"""
+FIRST_ROUND = """    int it = 0, round = 0;
+    {
+      // (V not rounded up front) float32 V rounded once on its way into
+      // the ring in the first round, and into the slot where later rounds
+      // copy it
+      const float* vsrc = v + (long)(pt >> 3) * in_row + (pt & 7) * 8;
+      for (; round < 1; ++round) {
+        for (int j = 0; j < nkt; ++j, ++it) {
+          const int vs = it % kWgVStages;
+          const float* src = vsrc + (long)j * kWgTile * in_row;
+#pragma unroll
+          for (int u0 = 0; u0 < 8; u0 += 2) {
+            Chunk8<float> c[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u)
+              c[u].load(src + (u0 + u) * 16 * in_row);
+            if (u0 == 0) mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              float x[8];
+              c[u].to_float(x);
+              const uint4 r = pack8_bf16(x);
+              st_shared16(v_sw + vs * kWgTileBytes + (u0 + u) * 16 * 128, r);
+              if (rounds > 1)
+                *reinterpret_cast<uint4*>(
+                    vrow + ((long)j * kWgTile + (u0 + u) * 16) * kWgD) = r;
+            }
+          }
+          fence_proxy_async();
+          mbar_arrive(full_v(vs));
+        }
+      }
+    }
+    // the bf16 tiles from the scratch slot (L2), the copies one step ahead
+    // of their arrival
+    const int it0 = it;
+    for (; round < rounds; ++round) {
+      for (int j = 0; j < nkt; ++j, ++it) {
+        const int vs = it % kWgVStages;
+        mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
+        const bf16* src = vrow + (long)j * kWgTile * kWgD;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          cp_async16(v_sw + vs * kWgTileBytes + u * 16 * 128,
+                     src + u * 16 * kWgD);
+        cp_async_commit();
+        if (it > it0) {  // the tile started one step ago has landed
+          cp_async_wait<1>();
+          fence_proxy_async();
+          mbar_arrive(full_v((it - 1) % kWgVStages));
+        }
+      }
+    }
+    if (it > it0) {
+      cp_async_wait<0>();
+      fence_proxy_async();
+      mbar_arrive(full_v((it - 1) % kWgVStages));
+    }
+"""
+V_FIRST = [(VBATCHES, "  const int v_chunks = 0;"),
+           (VROW, VROW.replace("const bf16*", "bf16*")),
+           (PRODUCER, FIRST_ROUND)]
+KB = "constexpr int kSfKBatch = 4; "
+VB = "constexpr int kSfVBatch = 8; "
+SPLIT = ("  __syncthreads();  // also makes the scratch's V visible to the "
+         "producer\n")
+
+
+def cut(rounds: int):
+    return [(ROUNDS, CUT), (FIELD, "  float scale;\n  int cut;\n};"),
+            (PLAN, f"  a.cut = {rounds};\n" + PLAN),
+            (SPLIT, SPLIT + "  if (rounds == 0) return;\n")]
+
+
+Q0 = "      const int q0 = (round * NC + wg) * kWgRows;\n"
+IDLE = """      if (q0 >= N) {
+        // no rows left for this warpgroup: it only hands the tiles back
+        for (int j = 0; j < nkt; ++j, ++it) {
+          const int vs = it % kWgVStages;
+          mbar_wait(full_v(vs), (it / kWgVStages) & 1);
+          if (lane == 0) mbar_arrive(empty_v(vs));
+        }
+        continue;
+      }
+"""
+
+
+def consumers(n: int, regs: int, batches: tuple[int, int]):
+    """n consumer warpgroups at regs registers (the producer at 32), the
+    prologue's batches cut to fit the registers of n + 1 warpgroups; a
+    warpgroup past the last row of a round hands the tiles back."""
+    return [(NC, NC.replace("2", str(n))),
+            (DEC, DEC.replace("u32 40", "u32 32")),
+            (Q0, Q0 + IDLE),
+            (INC, INC.replace("232", str(regs))),
+            (KB, KB.replace("4", str(batches[0]))),
+            (VB, VB.replace("8", str(batches[1])))]
+
+
+# S = Q·Kᵀ with Q as the shared-memory A operand (its swizzled tile), where
+# the kernel takes Q's register fragments
+SS_PTX = """// d[64] (+)= A (shared, K-major, 64 x 16) · Bᵀ (shared, K-major, 128 x 16).
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
+                                                    uint64_t desc_a,
+                                                    uint64_t desc_b,
+                                                    int accum) {
+  asm volatile(
+      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %66, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\\n}\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accum)
+      : "memory");
 }
+
+"""
+GRID = "// grid (1, H, BF), block 384"
+S_RS = ("          wgmma_m64n128k16(s, qa[kk], wgmma_desc(kt + kk * 32), "
+        "kk > 0);")
+S_SS = [(GRID, SS_PTX + GRID),
+        (S_RS, "          wgmma_m64n128k16_ss(s, wgmma_desc(q_tile + kk * 32), "
+               "wgmma_desc(kt + kk * 32), kk > 0);")]
+
+SPLITS = {"prologue": cut(0), "first round": cut(1), "all": []}
+VARIANTS = {
+    "as built": [],
+    "V in the first round": V_FIRST,
+    "prologue batches 8, 16": [(KB, KB.replace("4", "8")),
+                               (VB, VB.replace("8", "16"))],
+    "3 consumers at 160": consumers(3, 160, (4, 8)),
+    "4 consumers at 112": consumers(4, 112, (4, 8)),
+    "4 consumers at 112, Q from shared memory":
+        consumers(4, 112, (4, 8)) + S_SS,
+    "Q from shared memory": S_SS,
+}
+
+# --clock: clock64 at the kernel's start, after the prologue, after the
+# first round and at the end, by thread 0 (consumer warpgroup 0), written
+# over the first 32 bytes of the block's scratch slot once nothing reads it
+CLOCK = [
+    ("  const int tid = threadIdx.x, wg = tid >> 7;\n",
+     "  const int tid = threadIdx.x, wg = tid >> 7;\n"
+     "  const long long clk0 = clock64();\n"),
+    ("  __syncthreads();  // also makes the scratch's V visible to the "
+     "producer\n",
+     "  __syncthreads();  // also makes the scratch's V visible to the "
+     "producer\n  const long long clk1 = clock64();\n"),
+    ("    constexpr float kLog2e = 1.4426950408889634f;\n    int it = 0;\n",
+     "    constexpr float kLog2e = 1.4426950408889634f;\n    int it = 0;\n"
+     "    long long clk2 = 0;\n"),
+    ("      // finish the row sums across the quad",
+     "      if (round == 0) clk2 = clock64();\n"
+     "      // finish the row sums across the quad"),
+    ("              o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);\n"
+     "      }\n    }\n  }\n}\n",
+     "              o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);\n"
+     "      }\n    }\n    if (tid == 0) {\n"
+     "      long long* rec = reinterpret_cast<long long*>(vsc);\n"
+     "      rec[0] = clk1 - clk0;\n      rec[1] = clk2 - clk1;\n"
+     "      rec[2] = clock64() - clk2;\n      rec[3] = rounds;\n    }\n"
+     "  }\n}\n"),
+]
+
+CLOCK_RUN = """
+import sys
+import torch
+sys.path.insert(0, ".")
+from moditalker_tpu_torch.ops import rotary
+from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+sin, cos = (torch.from_numpy(t).cuda()
+            for t in rotary.axial_rotary_sincos(32, 32, 64))
+gen = torch.Generator(device="cuda").manual_seed(0)
+kept, allocate = [], dv.space_f32_scratch
+dv.space_f32_scratch = lambda *a: kept.append(allocate(*a)) or kept[-1]
+for b in (10, 1):
+    qkv = torch.randn((b, 16, 1024, 1536), generator=gen, device="cuda")
+    for _ in range(3):
+        kept.clear()
+        dv.divided_attention(qkv, sin, cos, "space", 8, 64, 0.125)
+    torch.cuda.synchronize()
+    rec = kept[0].view(kept[0].shape[0], -1).view(torch.int64)[:, :4].double()
+    print(b, *rec[:, :3].mean(0).tolist(), rec[:, 3].mean().item(), flush=True)
+"""
 
 TIME = """
 import sys
@@ -50,58 +294,169 @@ import torch
 sys.path.insert(0, ".")
 import chip_smoke
 from moditalker_tpu_torch.ops import rotary
+from moditalker_tpu_torch.ops.kernels import _build, check_float32_route
 from moditalker_tpu_torch.ops.kernels import divided_attention as dv
-sin, cos = (torch.from_numpy(t).cuda()
-            for t in rotary.axial_rotary_sincos(32, 32, 64))
+for name, (secs, log) in _build.build(["divided_attention_f32"]).items():
+    lines = log.splitlines()
+    for i, line in enumerate(lines):   # the space kernel's registers, spills
+        if "Compiling entry" in line and "space_f32_kernel" in line:
+            print("#", lines[i + 1].strip(), lines[i + 2].strip())
+        if "serialized" in line:
+            print("#", line.strip())
+if sys.argv[3]:   # --gate: one side of the wrapper's choice at every shape
+    dv.space_f32_own_kernel = lambda *a: sys.argv[3] == "kernel"
 gen = torch.Generator(device="cuda").manual_seed(0)
-for b in (10, 1):
-    qkv = torch.randn((b, 16, 1024, 1536), generator=gen, device="cuda")
-    ms = chip_smoke.time_ms(torch, lambda: dv.divided_attention(
-        qkv, sin, cos, "space", 8, 64, 0.125))
-    print(b, ms)
+for shape in sys.argv[2].split(","):
+    b, f, n = map(int, shape.split("x"))
+    side = 32 if n % 32 == 0 and n >= 1024 else 16
+    sin, cos = (torch.from_numpy(t).cuda()
+                for t in rotary.axial_rotary_sincos(side, n // side, 64))
+    qkv = torch.randn((b, f, n, 1536), generator=gen, device="cuda")
+    call = lambda: dv.divided_attention(qkv, sin, cos, "space", 8, 64, 0.125)
+    if sys.argv[1] == "1" and b * f <= 16:
+        check_float32_route("divided_space_attention", call(),
+                            dv.divided_attention_float32_route(
+                                qkv, sin, cos, "space", 8, 64, 0.125,
+                                exp2=True))
+    print(shape, chip_smoke.time_ms(torch, call), flush=True)
 """
 
 
-def variant_dir(name: str, edits) -> Path:
-    d = ROOT / "build" / "ab_space_f32" / name
+# --gate: 128, 256 and 1280 (frame, head) pairs over every length the kernel
+# takes, and 64 to 96 pairs at the configurations' 1024 tokens
+GATE_SHAPES = ",".join(
+    [f"{b}x16x{n}" for b in (1, 2, 10) for n in range(256, 1153, 128)]
+    + [f"1x{f}x1024" for f in (8, 10, 12)])
+
+
+def own_kernel(bf: int, n: int, heads: int) -> bool:
+    """The wrapper's choice (``space_f32_own_kernel``) at a shape."""
+    sys.path.insert(0, str(ROOT))
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    return dv.space_f32_own_kernel(bf, n, heads)
+
+
+def copy_with(name: str, edits, group: str) -> Path:
+    slug = name.replace(" ", "_").replace("/", "-").replace(",", "")
+    d = ROOT / "build" / "ab_space_f32" / group / slug
     shutil.rmtree(d, ignore_errors=True)
     d.mkdir(parents=True)
     shutil.copy(ROOT / "chip_smoke.py", d)
     shutil.copytree(ROOT / "moditalker_tpu_torch", d / "moditalker_tpu_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    tile = d / TILE
-    text = tile.read_text()
+    header = d / HEADER
+    text = header.read_text()
     for old, new in edits:
         if text.count(old) != 1:
-            raise SystemExit(f"{name}: {old!r} is not in {TILE} once")
+            raise SystemExit(f"{name}: {old!r} is not in {HEADER} once")
         text = text.replace(old, new)
-    tile.write_text(text)
+    header.write_text(text)
     return d
+
+
+def run(copy: Path, check: bool, shapes: str,
+        side: str = "") -> dict[str, float]:
+    """One process: this copy's build line of the kernel (printed), its
+    output checked against the route at each shape of 16 frames or fewer
+    (where ``check``), and its readings by shape; ``side`` (``kernel`` or
+    ``route``) forces that side of the wrapper's choice."""
+    out = subprocess.run([sys.executable, "-c", TIME, str(int(check)),
+                          shapes, side],
+                         cwd=copy, capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        print(out.stderr[-3000:], file=sys.stderr)
+        raise SystemExit(f"{copy}: rc {out.returncode}")
+    lines = [line for line in out.stdout.split("\n") if line.strip()]
+    for line in lines:
+        if line.startswith("#"):
+            print(f"  {copy.name} {line[1:].strip()}")
+    return {shape: float(ms) for shape, ms in
+            (line.split() for line in lines if not line.startswith("#"))}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--before", type=Path, default=ROOT / "build" / "before")
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--shapes", default=None,
+                    help="qkv shapes BxFxN (8 heads of 64), comma-separated "
+                         "(default 10x16x1024,1x16x1024; with --gate "
+                         "GATE_SHAPES)")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--split", action="store_true")
+    mode.add_argument("--variants", action="store_true")
+    mode.add_argument("--clock", action="store_true")
+    mode.add_argument("--gate", action="store_true")
     args = ap.parse_args()
-    dirs = {name: variant_dir(name, edits) for name, edits in VARIANTS.items()}
+    if args.shapes is None:
+        args.shapes = GATE_SHAPES if args.gate else "10x16x1024,1x16x1024"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"card: {card}")
-    for rep in range(args.reps):
-        for name, d in dirs.items():
-            out = subprocess.run([sys.executable, "-c", TIME], cwd=d,
-                                 capture_output=True, text=True, timeout=300)
+    if args.clock:
+        clocks = {"as built": CLOCK,
+                  "V in the first round": VARIANTS["V in the first round"]
+                  + CLOCK}
+        for name, edits in clocks.items():
+            copy = copy_with(name, edits, "clock")
+            out = subprocess.run([sys.executable, "-c", CLOCK_RUN], cwd=copy,
+                                 capture_output=True, text=True, timeout=600)
             if out.returncode != 0:
-                print(out.stderr[-2000:], file=sys.stderr)
+                print(out.stderr[-3000:], file=sys.stderr)
                 return 1
             for line in out.stdout.split("\n"):
                 if line.strip():
-                    b, ms = line.split()
-                    print(f"rep {rep} {name}: float32 space at qkv "
-                          f"[{b}, 16, 1024, 1536] {float(ms):.4f} ms",
-                          flush=True)
+                    b, pro, first, rest, rounds = line.split()
+                    print(f"{name}: B = {b}, clocks a block (mean): prologue "
+                          f"{float(pro):.0f}, first round {float(first):.0f},"
+                          f" the other {float(rounds) - 1:.0f} rounds "
+                          f"{float(rest):.0f}", flush=True)
+        return 0
+    if args.split or args.variants:
+        table = SPLITS if args.split else VARIANTS
+        group = "split" if args.split else "variants"
+        copies = {name: copy_with(name, edits, group)
+                  for name, edits in table.items()}
+        turns = list(copies.items())
+    elif args.gate:
+        turns = [("route", ROOT), ("kernel", ROOT), ("kernel", ROOT),
+                 ("route", ROOT)]
+    else:
+        if not (args.before / HEADER.replace("space_f32_tile",
+                                             "wgmma_tile")).exists():
+            print(f"{args.before}: no earlier copy of the repository",
+                  file=sys.stderr)
+            return 2
+        turns = [("before", args.before), ("this", ROOT), ("this", ROOT),
+                 ("before", args.before)]
+    readings: dict[tuple[str, str], list[float]] = {}
+    for rep in range(args.reps):
+        for name, copy in turns:
+            for shape, ms in run(copy, not args.split, args.shapes,
+                                 name if args.gate else "").items():
+                readings.setdefault((name, shape), []).append(ms)
+                print(f"rep {rep} {name}: float32 space at qkv "
+                      f"[{shape.replace('x', ', ')}, 1536] {ms:.4f} ms",
+                      flush=True)
+    for shape in args.shapes.split(","):
+        best = {name: min(readings[(name, shape)]) for name, _ in turns}
+        line = ", ".join(f"{name} {ms:.4f}" for name, ms in best.items())
+        print(f"{shape}, fastest reading: {line}")
+        if args.split:
+            print(f"{shape}: prologue {best['prologue']:.4f} ms, first round "
+                  f"{best['first round'] - best['prologue']:.4f}, the rest "
+                  f"{best['all'] - best['first round']:.4f}")
+        elif args.gate:
+            b, f, n = map(int, shape.split("x"))
+            print(f"{shape} ({b * f * 8} pairs): kernel / route "
+                  f"{best['kernel'] / best['route']:.4f}, the wrapper takes "
+                  + ("the kernel" if own_kernel(b * f, n, 8) else
+                     "the route"))
+        elif not args.variants:
+            print(f"{shape}: this / before "
+                  f"{best['this'] / best['before']:.4f}")
     return 0
 
 
