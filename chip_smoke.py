@@ -480,6 +480,26 @@ SPACE_F32_DESIGN = (
     "of 64 rows at 232 registers (rounds of 128 rows: none sits one out), "
     "the wgmma tile's products and 128-key softmax (elsewhere the tile's "
     "float32 route)")
+# the same kernel (csrc/resident_f32_tile.cuh) on the one-pass attention's
+# float32 q, k, v at head dim 64, Nq = Nk with K resident: the modular
+# path's AE space attention, head-split in PyTorch
+ONEPASS_F32_DESIGN = (
+    "at 1024 tokens from 192 sequences (onepass_f32_own_kernel): the float32 "
+    "space kernel without its rotary, one block per sequence with K "
+    "resident; before the roles split every thread rounds K, then a "
+    "producer warpgroup at 104 registers rounds V to bf16 in the first "
+    "round, on its way into the ring and into the block's scratch slot, "
+    "from which it copies V in every later round; two consumer warpgroups "
+    "of 64 rows at 200 registers, the wgmma tile's products and 128-key "
+    "softmax (elsewhere the tile's float32 route)")
+# the wgmma tile's float32 route without the rotary, which the float32
+# one-pass attention at head dim 64 runs where the kernel above does not:
+# train-first-stage's B = 1 on the modular path, [128, 1024, 64]
+ONEPASS_F32_ROUTE_DESIGN = (
+    "the wgmma tile instantiated for float32 without the rotary: one block "
+    "per sequence with K rounded into shared memory, three consumer "
+    "warpgroups of 64 rows, V rounded to bf16 in the producer's registers "
+    "in every round")
 # the wgmma tile's float32 route, which the float32 space attention at head
 # dim 64 runs where the kernel above does not (space_f32_own_kernel)
 SPACE_F32_ROUTE_DESIGN = (
@@ -859,13 +879,38 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # (C = 256, 8 heads → [B·8, 2048, 32]); then the modular path's shapes:
     # TimeSformer space attention, the UNet's dh = 16 joint and xy-plane
     # attentions; then sample_long's B = 1
-    def onepass_row(b_, n_, d_, g=gen, dtype=torch.bfloat16, plain32=False):
+    def onepass_row(b_, n_, d_, g=gen, dtype=torch.bfloat16, plain32=False,
+                    twice=False):
+        """``twice`` (float32 at head dim 64, K resident): two more calls
+        must equal each other bit for bit, and the other side of the
+        wrapper's choice (``onepass_f32_own_kernel``: the float32
+        resident-K kernel or the wgmma tile's float32 route), forced, must
+        equal this side bit for bit; that side is timed too (``forced``)."""
         q, k, v = (randn(b_, n_, d_, g=g, dtype=dtype) for _ in range(3))
-        return sdpa_row(
-            "onepass_attention", 104, "flash_attention",
-            lambda: fa.onepass_attention(q, k, v, d_**-0.5),
+        kern = lambda: fa.onepass_attention(q, k, v, d_**-0.5)
+        row = sdpa_row(
+            "onepass_attention", 104, "flash_attention", kern,
             lambda: fa.onepass_attention_reference(q, k, v, d_**-0.5),
             q, k, v, d_**-0.5, plain32)
+        if twice:
+            name = f"onepass_attention {list(q.shape)}"
+            out = kern()
+            if not torch.equal(out, kern()):
+                raise AssertionError(f"{name}: two calls differ")
+            own = fa.onepass_f32_own_kernel(b_, n_, n_)
+            chooser = fa.onepass_f32_own_kernel
+            fa.onepass_f32_own_kernel = lambda *a: not own
+            try:
+                if not torch.equal(out, kern()):
+                    raise AssertionError(
+                        f"{name}: the float32 resident-K kernel and the "
+                        f"wgmma tile's float32 route differ")
+                row["forced"] = dict(side="route" if own else "kernel",
+                                     ms=time_ms(torch, kern),
+                                     bit_for_bit=True)
+            finally:
+                fa.onepass_f32_own_kernel = chooser
+        return row
 
     rows.append(dict(onepass_row(batch * heads, l, 32),
                      design=small_head + "; at D = 64 the wgmma tile without "
@@ -956,12 +1001,16 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # one-pass; B = 10, then B = 1 (the golden record's and
     # train-first-stage's batch)
     gen_mod = torch.Generator(device=dev).manual_seed(seed + 6)
+    assert fa.onepass_f32_own_kernel(tb * heads * f, n, n)
+    assert not fa.onepass_f32_own_kernel(heads * f, n, n)
     rows += [tiny_row(tb * heads * n, g=gen_mod, dtype=f32),
              tiny_row(heads * n, g=gen_mod, dtype=f32),
              onepass_row(tb * heads, l, 16, g=gen_mod, dtype=f32),
              onepass_row(tb * heads, 1024, 16, g=gen_mod, dtype=f32),
-             onepass_row(tb * heads * f, n, dh, g=gen_mod, dtype=f32),
-             onepass_row(heads * f, n, dh, g=gen_mod, dtype=f32)]
+             dict(onepass_row(tb * heads * f, n, dh, g=gen_mod, dtype=f32,
+                              twice=True), design=ONEPASS_F32_DESIGN),
+             dict(onepass_row(heads * f, n, dh, g=gen_mod, dtype=f32,
+                              twice=True), design=ONEPASS_F32_ROUTE_DESIGN)]
     # the fused kernel in float32 at the kernels phase's cross-length shape
     q, k, v = (randn(2, 64, dh, g=gen_mod, dtype=f32),
                randn(2, 512, dh, g=gen_mod, dtype=f32),
@@ -1644,7 +1693,10 @@ def train_diffusion_phase(torch, seed: int, modular: bool = False) -> dict:
     ``modular``: the same with both gate switches set for the phase and put
     back after it, 3 timed steps: the tiny-L and one-pass kernels and no
     other, every launch on float32 operands, tiny-L and one-pass at head
-    dims 16, 32 and 64 among them."""
+    dims 16, 32 and 64 among them, the AE's space attention at head dim 64
+    through the float32 resident-K kernel (its entry point given the V
+    scratch) at every launch. Both report the launches by entry point
+    (``LAUNCHES_BY_ENTRY``)."""
     with modular_attention() if modular else contextlib.nullcontext():
         return _train_diffusion(torch, seed, modular)
 
@@ -1658,6 +1710,7 @@ def _train_diffusion(torch, seed: int, modular: bool) -> dict:
     from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
     from moditalker_tpu_torch.models.mtov import ViTAutoencoder
     from moditalker_tpu_torch.ops.kernels import (FLOAT32_LAUNCHES_BY_SHAPE,
+                                                  LAUNCHES_BY_ENTRY,
                                                   reset_launch_counts)
     from moditalker_tpu_torch.train.mtov import (LatentDiffusionLoop,
                                                  MtovDiffusionTrainer)
@@ -1691,14 +1744,21 @@ def _train_diffusion(torch, seed: int, modular: bool) -> dict:
     dt = time.perf_counter() - t0
     counts = check_launches(what, expected)
     by_shape = launches_by_shape()
+    by_entry = dict(sorted(LAUNCHES_BY_ENTRY.items()))
     check_float32_launches(what, by_shape)
     if modular:
-        dims = {sh[-1] for sh in FLOAT32_LAUNCHES_BY_SHAPE["onepass_attention"]}
+        f32_by_shape = FLOAT32_LAUNCHES_BY_SHAPE["onepass_attention"]
+        dims = {sh[-1] for sh in f32_by_shape}
         if not ({16, 32, 64} <= dims
                 and FLOAT32_LAUNCHES_BY_SHAPE["tiny_attention"]):
             raise AssertionError(f"{what}: float32 launches of tiny-L and of "
                                  f"one-pass at head dims 16, 32 and 64 "
-                                 f"expected, got {f32_by_shape}")
+                                 f"expected, got {dict(f32_by_shape)}")
+        space = sum(c for sh, c in f32_by_shape.items() if sh[-1] == 64)
+        if by_entry.get("fused_attention_f32 + V scratch") != space:
+            raise AssertionError(f"{what}: {space} launches of the AE's space "
+                                 f"attention at head dim 64, by entry point "
+                                 f"{by_entry}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if not (len(losses.seen) == steps + 1
             and all(np.isfinite(losses.seen))):
@@ -1708,7 +1768,7 @@ def _train_diffusion(torch, seed: int, modular: bool) -> dict:
         f"{dt:.3f} s = {steps / dt:.4f} steps/s = {steps * b / dt:.3f} clips/s"
         f"; peak memory {peak:.2f} GiB; losses {losses.seen}; launches per "
         f"step {per_step}, by shape over the {steps} steps (all on float32 "
-        f"operands) {by_shape}")
+        f"operands) {by_shape}, by entry point {by_entry}")
     dev = loop.to_device(batch)
     traced = trace(torch, lambda: loop.train_step(dev))
     log_trace(f"{what} step (batch on the card)", traced)
@@ -1716,6 +1776,7 @@ def _train_diffusion(torch, seed: int, modular: bool) -> dict:
     torch.cuda.empty_cache()
     check = train_step_check(torch, seed, modular)
     return {"launches": counts, "launches_by_shape": by_shape,
+            "launches_by_entry": by_entry,
             "steps_per_s": steps / dt, "clips_per_s": steps * b / dt,
             "peak_gib": peak, "losses": losses.seen, "card_vs_cpu": check,
             "trace": traced}
@@ -4280,7 +4341,7 @@ def main() -> int:
                                      "bf16_rounded_share", "ms",
                                      "plain_ms", "recompute_ms",
                                      "library_ms", "bound_ms",
-                                     "bound_by") if k in row})
+                                     "bound_by", "forced") if k in row})
             continue
         kernels[row["name"]] = row
         row["launches_by_path"] = {p: c[row["name"]] for p, c in timed.items()}
@@ -4337,10 +4398,10 @@ def main() -> int:
         "audio_bf16": audio16, "align_bf16": align16,
         "train_diffusion": {k: train_diff[k] for k in (
             "steps_per_s", "clips_per_s", "peak_gib", "losses",
-            "card_vs_cpu", "trace")},
+            "launches_by_entry", "card_vs_cpu", "trace")},
         "train_diffusion_modular": {k: train_diff_modular[k] for k in (
             "steps_per_s", "clips_per_s", "peak_gib", "losses",
-            "card_vs_cpu", "trace")},
+            "launches_by_entry", "card_vs_cpu", "trace")},
         "train_atom": {k: train_atom[k] for k in (
             "sequences_per_s", "card_vs_cpu_loss_rel_err", "adan_aligned",
             "parameters", "trace")},

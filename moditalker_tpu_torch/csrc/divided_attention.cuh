@@ -40,7 +40,7 @@
 //    rounded to bf16. At float32 both kernels are bound by bytes (qkv read
 //    once, the output written once: 1.34 GB at B = 10). Space: where it
 //    read faster (the wrapper's space_f32_own_kernel) a kernel of its own
-//    (space_f32_tile.cuh: K rotated and V rounded once per (frame, head)
+//    (resident_f32_tile.cuh: K rotated and V rounded once per (frame, head)
 //    before the roles split, two consumer warpgroups); elsewhere the wgmma
 //    tile's float32 route: the
 //    loaders that rotate q and k read two float32 chunks where they read
@@ -308,7 +308,7 @@ int launch_time_classes(const void* qkv, const void* sin_t, const void* cos_t,
 }
 
 // qkv [BF, N, 3·H·dh] -> out [BF, N, H·dh], both of element type T (in
-// float32 where the wrapper passes a V scratch, space_f32_tile.cuh's
+// float32 where the wrapper passes a V scratch, resident_f32_tile.cuh's
 // kernel instead).
 template <typename T>
 int launch_space(const void* qkv, const void* rot, void* out, int BF, int N,

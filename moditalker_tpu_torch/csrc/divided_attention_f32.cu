@@ -1,10 +1,27 @@
 // The C entry points of the divided space and time kernels for float32 qkv
 // (the kernels and their float32 route: divided_attention.cuh, and the
-// space kernel of its own at head dim 64: space_f32_tile.cuh). A library
+// space kernel of its own at head dim 64: resident_f32_tile.cuh). A library
 // of their own, so that the bf16 kernels' translation unit
 // (divided_attention.cu) holds no float32 instantiation.
 #include "divided_attention.cuh"
-#include "space_f32_tile.cuh"
+#include "resident_f32_tile.cuh"
+
+namespace mdt {
+
+// qkv [BF, N, 3·H·64] float32, N a multiple of 128 up to 1152 -> out
+// [BF, N, H·64] float32, through the V scratch [BF·H, N, 64] bf16.
+inline int launch_space_f32(const void* qkv, const void* rot, void* vs,
+                            void* out, int BF, int N, int H, int dh,
+                            float scale, cudaStream_t stream) {
+  if (dh != kWgD) return cudaErrorInvalidValue;
+  return launch_resident_f32(
+      SpaceF32Args{static_cast<const float*>(qkv),
+                   static_cast<const float*>(rot), static_cast<bf16*>(vs),
+                   static_cast<float*>(out), N, H, scale},
+      H, BF, stream);
+}
+
+}  // namespace mdt
 
 extern "C" {
 
@@ -12,7 +29,7 @@ extern "C" {
 // vs [BF·H, N, dh] bf16 or null -> out [BF, N, H·dh] float32; built for
 // head dim 64 with K resident only (N <= 1152: the repository's
 // configurations reach N = 1024), larger N is refused. With a scratch,
-// space_f32_tile.cuh's kernel; without one, the wgmma tile's float32 route
+// resident_f32_tile.cuh's kernel; without one, the wgmma tile's float32 route
 // (the wrapper chooses: space_f32_own_kernel in
 // ops/kernels/divided_attention.py).
 int divided_space_attention_f32(const void* qkv, const void* rot, void* vs,

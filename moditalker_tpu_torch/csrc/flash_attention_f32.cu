@@ -13,18 +13,48 @@
 // to 1152 keys, or in the producer's on its way into the K ring above that;
 // V in the producer's). Both round q·scale, k and v to bf16 once, accumulate
 // in fp32, round p to bf16 for P·V and store the output, divided by the fp32
-// row sum, as float32.
+// row sum, as float32. At D = 64, Nq = Nk with K resident, where the
+// wrapper passes a V scratch, the float32 resident-K kernel of the space
+// attention without its rotary (resident_f32_tile.cuh: K rounded once per
+// sequence before the roles split, V by the producer in the first round,
+// two consumer warpgroups) computes the same at the same rounding points.
+#include "resident_f32_tile.cuh"
 #include "smallhead_tile.cuh"
 #include "wgmma_tile.cuh"
 
+namespace mdt {
+
+// q, k, v [B, N, 64] float32, N a multiple of 128 up to 1152 -> out
+// [B, N, 64] float32, through the V scratch [B, N, 64] bf16.
+inline int launch_onepass_f32(const void* q, const void* k, const void* v,
+                              void* vs, void* out, int B, int N, float scale,
+                              cudaStream_t stream) {
+  return launch_resident_f32(
+      OnepassF32Args{static_cast<const float*>(q),
+                     static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<bf16*>(vs),
+                     static_cast<float*>(out), N, scale},
+      1, B, stream);
+}
+
+}  // namespace mdt
+
 extern "C" {
 
-// q, out: contiguous [B, Nq, D]; k, v: contiguous [B, Nk, D]; float32. At
-// D = 64, Nk above 1152 must be a multiple of 128, as for bf16.
+// q, out: contiguous [B, Nq, D]; k, v: contiguous [B, Nk, D]; float32; the
+// V scratch vs [B, Nk, D] bf16 or null. At D = 64, Nk above 1152 must be a
+// multiple of 128, as for bf16. With a scratch (D = 64, Nq = Nk a multiple
+// of 128 up to 1152, else refused), resident_f32_tile.cuh's kernel; without
+// one, the tiles above (the wrapper chooses: onepass_f32_own_kernel in
+// ops/kernels/flash_attention.py).
 int fused_attention_f32(const void* q, const void* k, const void* v,
-                        void* out, int B, int Nq, int Nk, int D, float scale,
-                        void* stream) {
+                        void* vs, void* out, int B, int Nq, int Nk, int D,
+                        float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (vs != nullptr) {
+    if (D != mdt::kWgD || Nq != Nk) return cudaErrorInvalidValue;
+    return mdt::launch_onepass_f32(q, k, v, vs, out, B, Nq, scale, st);
+  }
   const float* qp = static_cast<const float*>(q);
   const float* kp = static_cast<const float*>(k);
   const float* vp = static_cast<const float*>(v);

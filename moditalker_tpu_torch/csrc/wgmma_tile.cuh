@@ -61,9 +61,10 @@
 // sum, P rounded to bf16 for P·V, the output divided by the fp32 row sum.
 //
 // The float32 route (TI = TO = float: the divided space kernel's with the
-// rotary, resident K only, Lk <= 1152, where space_f32_tile.cuh's kernel
+// rotary, resident K only, Lk <= 1152, where resident_f32_tile.cuh's kernel
 // read slower; the one-pass and fused kernels'
-// at head dim 64 without it, resident K or the K ring) keeps those points
+// at head dim 64 without it, the K ring, and resident K where that kernel
+// read slower or the shape is not its own) keeps those points
 // and the bf16 tiles: q and k are read as two 16-byte float32 chunks per bf16
 // chunk and rounded once (after the rotary, where there is one; without it
 // K passes through the same registers that would rotate it, since cp.async

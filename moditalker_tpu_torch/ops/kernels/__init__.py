@@ -4,9 +4,12 @@
 calls ``count_launch`` where it launches its kernel and nowhere else, so a
 run can show that the main path went through the kernels;
 ``LAUNCHES_BY_SHAPE`` splits each count by the shape the kernel was given,
-and ``FLOAT32_LAUNCHES_BY_SHAPE`` counts the launches on float32 operands
-alone. ``SOURCES`` names the CUDA source of each kernel's bf16 entry points
-(``csrc/<source>.cu``) and ``FLOAT32_SOURCES`` the source of its float32
+``FLOAT32_LAUNCHES_BY_SHAPE`` counts the launches on float32 operands
+alone, and ``LAUNCHES_BY_ENTRY`` by the library entry point launched (with
+"+ V scratch" where a float32 entry point was given the scratch that runs
+the float32 resident-K kernel). ``SOURCES`` names the CUDA source of each
+kernel's bf16 entry points (``csrc/<source>.cu``) and ``FLOAT32_SOURCES``
+the source of its float32
 ones (a library of its own), both for the shapes the configurations reach;
 ``CLASS_SOURCES`` and ``CLASS_FLOAT32_SOURCES`` name the sources of the
 same kernels built per head-dim and row class for every other shape their
@@ -43,6 +46,7 @@ LAUNCHES: dict[str, int] = {
 LAUNCHES_BY_SHAPE: dict[str, Counter] = {name: Counter() for name in LAUNCHES}
 FLOAT32_LAUNCHES_BY_SHAPE: dict[str, Counter] = {
     name: Counter() for name in LAUNCHES}
+LAUNCHES_BY_ENTRY: Counter = Counter()
 
 SOURCES = {
     "divided_space_attention": "divided_attention",
@@ -260,15 +264,18 @@ def cuda_stream(t) -> int:
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(name: str, shape, float32: bool = False) -> None:
+def count_launch(name: str, shape, float32: bool = False,
+                 entry: str | None = None) -> None:
     """One launch of kernel ``name`` on an operand of ``shape``, float32 or
-    not (from any thread: data-parallel inference drives each card from its
-    own)."""
+    not, through the library entry point ``entry`` (``name`` where not
+    given), from any thread: data-parallel inference drives each card from
+    its own."""
     with _COUNT_LOCK:
         LAUNCHES[name] += 1
         LAUNCHES_BY_SHAPE[name][tuple(shape)] += 1
         if float32:
             FLOAT32_LAUNCHES_BY_SHAPE[name][tuple(shape)] += 1
+        LAUNCHES_BY_ENTRY[entry or name] += 1
 
 
 def reset_launch_counts() -> None:
@@ -276,3 +283,4 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
         LAUNCHES_BY_SHAPE[name].clear()
         FLOAT32_LAUNCHES_BY_SHAPE[name].clear()
+    LAUNCHES_BY_ENTRY.clear()

@@ -16,7 +16,7 @@ Kernels (``csrc/divided_attention.cuh``, sm_90a; the bf16 entry points in
   K ring (two consumers, the producer rotating) above that;
   ``rotary_pair_table`` packs the table to the half width the kernel reads.
   Float32 qkv at head dim 64 with K resident has a kernel of its own
-  (``csrc/space_f32_tile.cuh``), the same tile's products and softmax:
+  (``csrc/resident_f32_tile.cuh``), the same tile's products and softmax:
   every thread of a block rotates K and rounds V to bf16 once before the
   roles split, V into a scratch slot the wrapper allocates
   (``space_f32_scratch``) from which every round copies it, and two
@@ -101,7 +101,7 @@ _LANES = 128
 # space the pre-rotated design (csrc/divided_space.cuh) per head-dim class.
 SPACE_HEAD_DIMS = (64,)
 TIME_SHAPES = ((16, 64),)   # (frames, head dim)
-# the float32 space kernel at head dim 64 (csrc/space_f32_tile.cuh) keeps K
+# the float32 space kernel at head dim 64 (csrc/resident_f32_tile.cuh) keeps K
 # resident in shared memory: 9 tiles of 128 keys (the configurations' AE
 # reaches N = 1024); above that the float32 space attention at head dim 64
 # is the pre-rotated design's (divided_classes_f32.cu)
@@ -397,7 +397,7 @@ def space_prerotated(dim_head: int, n: int, f32: bool) -> bool:
 
 def space_f32_own_kernel(bf: int, n: int, heads: int) -> bool:
     """Whether float32 qkv [BF, N, 3·H·64] with K resident runs the space
-    kernel of its own (``csrc/space_f32_tile.cuh``, which takes the V
+    kernel of its own (``csrc/resident_f32_tile.cuh``, which takes the V
     scratch) rather than the wgmma tile's float32 route (which takes none):
     the one place that chooses, by passing the scratch or not."""
     least = SPACE_F32_MIN_PAIRS.get(n)
@@ -405,7 +405,7 @@ def space_f32_own_kernel(bf: int, n: int, heads: int) -> bool:
 
 
 def space_f32_scratch(bf: int, n: int, heads: int, device):
-    """The float32 space kernel's V scratch (``csrc/space_f32_tile.cuh``),
+    """The float32 space kernel's V scratch (``csrc/resident_f32_tile.cuh``),
     allocated (``torch.empty``) for one call: bf16 [BF·H, N, 64], a slot per
     (frame, head), into which its block rounds V once and from which it
     copies V in every round."""
@@ -436,6 +436,7 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     out = torch.empty(bf, n, heads * dim_head, dtype=qkv.dtype,
                       device=qkv.device)
     pre = space_prerotated(dim_head, n, f32)
+    own = f32 and not pre and space_f32_own_kernel(bf, n, heads)
     lib, suffix = _library(f32, pre)
     pointers = [qkv.data_ptr(), table.data_ptr()]
     entry = "divided_space_attention" + suffix
@@ -444,7 +445,7 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
         scratch = torch.empty(bf, n, 3 * heads * space_scratch_width(
             dim_head), dtype=torch.bfloat16, device=qkv.device)
         pointers.append(scratch.data_ptr())
-    elif f32 and space_f32_own_kernel(bf, n, heads):
+    elif own:
         scratch = space_f32_scratch(bf, n, heads, qkv.device)
         pointers.append(scratch.data_ptr())
     elif f32:
@@ -453,7 +454,8 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
         *pointers, out.data_ptr(), bf, n, heads, dim_head, scale,
         kernels.cuda_stream(qkv))
     _build.check(lib, status, entry)
-    count_launch("divided_space_attention", qkv.shape, float32=f32)
+    count_launch("divided_space_attention", qkv.shape, float32=f32,
+                 entry=entry + (" + V scratch" if own else ""))
     return out
 
 
@@ -482,7 +484,8 @@ def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
         qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(), out.data_ptr(), b, f,
         n, heads, dim_head, scale, kernels.cuda_stream(qkv))
     _build.check(lib, status, entry)
-    count_launch("divided_time_attention", qkv.shape, float32=f32)
+    count_launch("divided_time_attention", qkv.shape, float32=f32,
+                 entry=entry)
     return out
 
 
@@ -560,7 +563,8 @@ def space_attention_backward_cuda(qkv, out, g, sin, cos, heads: int,
             *(t.data_ptr() for t in tensors), bf, n, heads, dim_head, scale,
             stream)
         _build.check(lib, status, entry + suffix)
-    count_launch("divided_space_attention_backward", qkv.shape, float32=f32)
+    count_launch("divided_space_attention_backward", qkv.shape, float32=f32,
+                 entry=" + ".join(entry + suffix for entry, _ in launches))
     return dqkv
 
 
@@ -586,7 +590,8 @@ def time_attention_backward_cuda(qkv, g, sin, cos, heads: int,
         dqkv.data_ptr(), b, f, n, heads, dim_head, scale,
         kernels.cuda_stream(qkv))
     _build.check(lib, status, entry)
-    count_launch("divided_time_attention_backward", qkv.shape, float32=f32)
+    count_launch("divided_time_attention_backward", qkv.shape, float32=f32,
+                 entry=entry)
     return dqkv
 
 

@@ -12,7 +12,11 @@ B:
   kernel's tile: D = 16 and 32 in ``flash_attention.cu``, 8 and 24 on its
   classes 16 and 32; in bf16 also 40, 48 and 56, on its class 64, where it
   ran faster); at 64 ``csrc/wgmma_tile.cuh`` without the rotary (the space
-  kernel's tile: K resident up to 1152 keys, Q fragments in registers);
+  kernel's tile: K resident up to 1152 keys, Q fragments in registers), in
+  float32 at Nq = Nk with K resident from ``ONEPASS_F32_MIN_SEQS``
+  sequences the float32 space kernel's ``csrc/resident_f32_tile.cuh``
+  without its rotary (K and V rounded once per sequence, V into a scratch
+  the wrapper allocates, two consumer warpgroups);
   every other d % 8 == 0 above 32 that tile built per width
   (``csrc/wgmma_wide.cuh``, ``csrc/flash_wide.cu``: ``wgmma`` with Q in
   shared memory, K and V streamed, P·V at N = d). Bound by operations.
@@ -105,6 +109,15 @@ TINY_HEAD_DIMS = (64, 128)
 # at head dim 64, K stays resident in shared memory up to 9 tiles of 128
 # keys; above that it streams through a ring that takes whole tiles only
 RESIDENT_KEYS_D64 = 1152
+# the sequences from which float32 q, k, v at head dim 64 with Nq = Nk and
+# K resident run the float32 resident-K kernel (csrc/resident_f32_tile.cuh,
+# which takes a V scratch) rather than the wgmma tile's float32 route
+# (``onepass_f32_own_kernel``), by length: where it read faster on an H100
+# (tools/ab_space_f32.py --onepass --gate; PERF.md). At the one-pass gate's
+# only resident-K length, 1024, from 192 sequences (72 to 128 read 0.98x to
+# 1.02x the route in two calls: no faster); no other length was measured,
+# so the route takes every length not listed
+ONEPASS_F32_MIN_SEQS = {1024: 192}
 _KEY_TILE = 128             # keys per tile of the kernels' online softmax
 _LOG2E = 1.4426950408889634  # the kernels' kLog2e (held in fp32)
 # how the tensor cores sum bf16 products into an fp32 accumulator (mma.sync
@@ -229,13 +242,16 @@ def attention_float32_route(q, k, v, scale: float, exp2: bool = False):
 
 
 def _bind(lib: ctypes.CDLL, suffix: str, tiny: bool = False) -> ctypes.CDLL:
+    """Binds the entry point of ``lib``; the float32 one of
+    ``flash_attention_f32.cu`` also takes the V scratch (or null)."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if tiny:
         entry = getattr(lib, "tiny_attention" + suffix)
         entry.argtypes = [p, p, p, p, ctypes.c_long, i, i, fl, p]
     else:
         entry = getattr(lib, "fused_attention" + suffix)
-        entry.argtypes = [p, p, p, p, i, i, i, i, fl, p]
+        entry.argtypes = [p] * (5 if suffix == "_f32" else 4) + [i, i, i, i,
+                                                                 fl, p]
     entry.restype = i
     return lib
 
@@ -325,13 +341,35 @@ def _operands(what: str, q, k, v, kv_shape):
     return q, k, v, q.dtype == torch.float32
 
 
+def onepass_f32_own_kernel(b: int, nq: int, nk: int) -> bool:
+    """Whether float32 q, k, v at head dim 64, [B, Nq, 64] over [B, Nk, 64],
+    run the float32 resident-K kernel (``csrc/resident_f32_tile.cuh``, which
+    takes the V scratch) rather than the wgmma tile's float32 route (which
+    takes none): the one place that chooses, by passing the scratch or not.
+    Nq = Nk at a length of ``ONEPASS_F32_MIN_SEQS``, from its sequences."""
+    least = ONEPASS_F32_MIN_SEQS.get(nq)
+    return nq == nk and least is not None and b >= least
+
+
+def onepass_f32_scratch(b: int, n: int, device):
+    """The float32 resident-K kernel's V scratch, allocated
+    (``torch.empty``) for one call: bf16 [B, N, 64], a slot per sequence,
+    into which its block rounds V once and from which it copies V in every
+    round."""
+    return torch.empty(b, n, 64, dtype=torch.bfloat16, device=device)
+
+
 def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     """The one-pass and the fused wrapper's checks and launch (the one-pass
     kernel is the fused one at Nq = Nk): q [B, Nq, D] over k, v [B, nk, D]
     bf16 → [B, Nq, D] bf16, or float32 → float32 (the float32 entry point).
     D % 8 == 0; at 64, above 1152 keys (where K streams through a ring
-    instead of staying in shared memory) only whole 128-key tiles.
-    Returns the output and whether it is float32."""
+    instead of staying in shared memory) only whole 128-key tiles. The
+    float32 entry point at 64 takes the V scratch (``onepass_f32_scratch``)
+    where ``onepass_f32_own_kernel`` takes its own kernel, a null pointer
+    (the wgmma tile's float32 route) elsewhere; this allocates it.
+    Returns the output, whether it is float32 and the entry point launched
+    ("+ V scratch" where it was given one)."""
     b, nq, d = q.shape
     q, k, v, f32 = _operands(what, q, k, v, (b, nk, d))
     if d % 8 or d < 8:
@@ -343,18 +381,23 @@ def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
                          f"{_KEY_TILE}, not {nk}")
     out = torch.empty_like(q)
     lib, entry = _library(d, f32)
+    pointers = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
+    own = False
+    if entry == "fused_attention_f32":
+        own = d == 64 and onepass_f32_own_kernel(b, nq, nk)
+        scratch = onepass_f32_scratch(b, nk, q.device) if own else None
+        pointers.append(scratch.data_ptr() if own else None)
     status = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, nq, nk,
-        d, scale, kernels.cuda_stream(q))
+        *pointers, out.data_ptr(), b, nq, nk, d, scale, kernels.cuda_stream(q))
     _build.check(lib, status, f"{what} attention ({entry})")
-    return out, f32
+    return out, f32, entry + (" + V scratch" if own else "")
 
 
 def onepass_attention_cuda(q, k, v, scale: float):
     """Kernel launch: q, k, v [B, N, D] bf16 or float32 → [B, N, D] of the
     same dtype."""
-    out, f32 = _attention_cuda("one-pass", q, k, v, scale, q.shape[1])
-    count_launch("onepass_attention", q.shape, float32=f32)
+    out, f32, entry = _attention_cuda("one-pass", q, k, v, scale, q.shape[1])
+    count_launch("onepass_attention", q.shape, float32=f32, entry=entry)
     return out
 
 
@@ -410,7 +453,7 @@ def tiny_attention_cuda(q, k, v, scale: float):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, l, d,
         scale, kernels.cuda_stream(q))
     _build.check(lib, status, entry)
-    count_launch("tiny_attention", q.shape, float32=f32)
+    count_launch("tiny_attention", q.shape, float32=f32, entry=entry)
     return out
 
 
@@ -446,8 +489,8 @@ def fused_attention_cuda(q, k, v, scale: float):
                            "under torch.no_grad(), or use sdpa")
     b, nq, d = q.shape
     nk = k.shape[1]
-    out, f32 = _attention_cuda("fused", q, k, v, scale, nk)
-    count_launch("fused_attention", (b, nq, nk, d), float32=f32)
+    out, f32, entry = _attention_cuda("fused", q, k, v, scale, nk)
+    count_launch("fused_attention", (b, nq, nk, d), float32=f32, entry=entry)
     return out
 
 

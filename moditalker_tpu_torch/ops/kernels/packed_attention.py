@@ -140,7 +140,7 @@ def packed_attention_cuda(qkv, heads: int, scale: float):
         qkv.data_ptr(), out.data_ptr(), b, l, heads, c // heads, scale,
         kernels.cuda_stream(qkv))
     _build.check(lib, status, entry)
-    count_launch("packed_attention", qkv.shape, float32=f32)
+    count_launch("packed_attention", qkv.shape, float32=f32, entry=entry)
     return out
 
 

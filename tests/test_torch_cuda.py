@@ -267,7 +267,7 @@ def test_divided_kernels_take_float32(gen, axis, b, f, n, heads):
 def test_space_f32_kernel_is_the_wgmma_tile_bit_for_bit(gen, monkeypatch,
                                                          own, b, f, n):
     """The float32 space entry point at head dim 64 computes what the wgmma
-    tile's float32 route computes, through ``csrc/space_f32_tile.cuh``'s
+    tile's float32 route computes, through ``csrc/resident_f32_tile.cuh``'s
     kernel (V rounded into its scratch, two consumer warpgroups) and
     through that route itself, each forced at every shape whichever the
     wrapper's choice (``space_f32_own_kernel``) would take: its output
@@ -291,6 +291,52 @@ def test_space_f32_kernel_is_the_wgmma_tile_bit_for_bit(gen, monkeypatch,
         tile = tflash.fused_attention_cuda(q, k, v, dh**-0.5)
     tile = tile.reshape(b * f, heads, n, dh).transpose(1, 2)
     assert torch.equal(got, tile.reshape(got.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("own", [True, False], ids=["kernel", "route"])
+@pytest.mark.parametrize("b", [128, 8])
+def test_onepass_f32_kernel_is_the_wgmma_tile_bit_for_bit(gen, monkeypatch,
+                                                           own, b):
+    """The float32 one-pass entry point at head dim 64, Nq = Nk = 1024 with
+    K resident, through ``csrc/resident_f32_tile.cuh``'s kernel without the
+    rotary (V rounded into the wrapper's scratch, two consumer warpgroups)
+    and through the wgmma tile's float32 route, each forced whichever the
+    wrapper's choice (``onepass_f32_own_kernel``) would take: within the
+    limits of the float32 plain version and of the float32 route's
+    function, two calls equal bit for bit, and equal bit for bit to the
+    other side forced. The shapes: train-first-stage's modular space
+    attention, 128 sequences, and 8, both below the chooser's threshold
+    (each side forced)."""
+    monkeypatch.setattr(tflash, "onepass_f32_own_kernel", lambda *a: own)
+    n, d = 1024, 64
+    q, k, v = (_randn32(gen, b, n, d) for _ in range(3))
+    got = _launched("onepass_attention",
+                    lambda: tflash.onepass_attention(q, k, v, d**-0.5))
+    _check_float32("onepass_attention", got,
+                   tflash.onepass_attention_reference(q, k, v, d**-0.5),
+                   tflash.attention_float32_route(q, k, v, d**-0.5))
+    assert torch.equal(got, tflash.onepass_attention(q, k, v, d**-0.5))
+    monkeypatch.setattr(tflash, "onepass_f32_own_kernel", lambda *a: not own)
+    assert torch.equal(got, tflash.onepass_attention(q, k, v, d**-0.5))
+
+
+@pytest.mark.cuda
+def test_onepass_f32_kernel_refuses_other_shapes(gen):
+    """Given the V scratch, the float32 entry point takes head dim 64 at
+    Nq = Nk, a multiple of 128 up to 1152 keys, and refuses anything else
+    with an error: it never gives way to another kernel."""
+    lib = tflash._lib_f32()
+    for b, nq, nk, d in ((2, 1024, 1024, 32), (2, 512, 1024, 64),
+                         (2, 1000, 1000, 64), (2, 1280, 1280, 64)):
+        q = _randn32(gen, b, nq, d)
+        k = _randn32(gen, b, nk, d)
+        scratch = tflash.onepass_f32_scratch(b, nk, q.device)
+        status = lib.fused_attention_f32(
+            q.data_ptr(), k.data_ptr(), k.data_ptr(), scratch.data_ptr(),
+            torch.empty_like(q).data_ptr(), b, nq, nk, d, d**-0.5,
+            torch.cuda.current_stream().cuda_stream)
+        assert status != 0, (b, nq, nk, d)
 
 
 @pytest.mark.cuda

@@ -175,7 +175,7 @@ def test_float32_qkv_launches_the_float32_entry_point(stub_launches, axis):
 
 
 def test_float32_space_kernel_is_built_for_resident_k(stub_launches):
-    """The float32 space kernel (``space_f32_tile.cuh``) is built for
+    """The float32 space kernel (``resident_f32_tile.cuh``) is built for
     resident K only: its launcher refuses more than ``kWgMaxKSlots`` tiles
     of 128 keys. Up to that limit a float32 qkv launches its entry point;
     past it (1152 < N <= 2048, which the gate admits) the wrapper launches
@@ -184,7 +184,7 @@ def test_float32_space_kernel_is_built_for_resident_k(stub_launches):
     built per width at 64), never raising."""
     tile = (_build.CSRC / "wgmma_tile.cuh").read_text()
     slots = int(re.search(r"kWgMaxKSlots = (\d+);", tile).group(1))
-    kernel = (_build.CSRC / "space_f32_tile.cuh").read_text()
+    kernel = (_build.CSRC / "resident_f32_tile.cuh").read_text()
     assert "nkt > kWgMaxKSlots" in kernel
     assert tdiv.SPACE_F32_MAX_N == 128 * slots
     for n, entry in ((tdiv.SPACE_F32_MAX_N, "divided_space_attention_f32"),

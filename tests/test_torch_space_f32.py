@@ -1,5 +1,5 @@
-"""The float32 divided space kernel at head dim 64 (``csrc/space_f32_tile.cuh``)
-on the CPU.
+"""The float32 divided space kernel at head dim 64
+(``csrc/resident_f32_tile.cuh``) on the CPU.
 
 The kernel runs only on the card (``tests/test_torch_cuda.py``,
 ``chip_smoke.py``). Here: its function, the ``exp2`` float32 route, against
@@ -32,7 +32,7 @@ from . import torch_stubs
 from .torch_stubs import stub_launches  # noqa: F401 (fixture)
 from .torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
-HEADER = _build.CSRC / "space_f32_tile.cuh"
+HEADER = _build.CSRC / "resident_f32_tile.cuh"
 
 
 def _constant(text: str, name: str) -> int:
@@ -179,15 +179,21 @@ def test_space_f32_header_states_a_plan_that_fits():
     ring and the two Q tiles in a Hopper block's shared memory."""
     text = HEADER.read_text()
     tile = (_build.CSRC / "wgmma_tile.cuh").read_text()
-    consumers = _constant(text, "kSfConsumers")
+    consumers = _constant(text, "kRfConsumers")
     rows = _constant(tile, "kWgRows")
     assert consumers * rows == 128
     threads = (consumers + 1) * 128
     at_launch = 65536 // threads // 8 * 8
-    dec = re.findall(r"setmaxnreg\.dec\.sync\.aligned\.u32 (\d+);", text)
-    inc = re.findall(r"setmaxnreg\.inc\.sync\.aligned\.u32 (\d+);", text)
-    assert len(dec) == len(inc) == 1
-    assert int(dec[0]) + consumers * int(inc[0]) == (consumers + 1) * at_launch
+    # the space instantiation's split: V rounded in the prologue, the
+    # producer at 40 (it only copies), each consumer at 232
+    space = text[text.index("struct SpaceF32Args {"):]
+    dec, inc = map(int, re.search(
+        r"kVFirst = false;\n  static constexpr int kProducerRegs = (\d+), "
+        r"kConsumerRegs = (\d+);", space[:space.index("};")]).groups())
+    assert (dec, inc) == (40, 232)
+    assert dec + consumers * inc == (consumers + 1) * at_launch
+    assert len(re.findall(r"setmaxnreg\.(dec|inc)\.sync\.aligned\.u32 %0;",
+                          text)) == 2
     slots = _constant(tile, "kWgMaxKSlots")
     assert tdiv.SPACE_F32_MAX_N == 128 * slots
     assert "nkt > kWgMaxKSlots" in text
@@ -196,7 +202,7 @@ def test_space_f32_header_states_a_plan_that_fits():
     entry = (_build.CSRC / "divided_attention_f32.cu").read_text()
     entry = entry[entry.index("int divided_space_attention_f32("):]
     entry = entry[:entry.index("\n}\n")]
-    assert "kSf" not in entry
+    assert "kRf" not in entry
     assert ("  if (vs != nullptr)\n    return mdt::launch_space_f32("
             in entry)
     assert "  return mdt::launch_space<float>(" in entry

@@ -432,9 +432,11 @@ def shipped_against_classes(torch, rnd, run, status) -> None:
                    "_classes": fa._classes_lib,
                    "_classes_f32": fa._classes_lib_f32}[suffix]()
             entry = "fused_attention" + suffix
+            # the shipped float32 entry point's V scratch: none, its route
+            scratch = [None] if entry == "fused_attention_f32" else []
             status(lib, getattr(lib, entry)(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, n,
-                n, d, d**-0.5, cuda_stream(q)), entry)
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), *scratch,
+                o.data_ptr(), b, n, n, d, d**-0.5, cuda_stream(q)), entry)
             return o
 
         def check_onepass(q=q, k=k, v=v, onepass=onepass, f32=f32, d=d):
@@ -488,9 +490,12 @@ def wide_against_classes(torch, rnd, status, before: Path) -> None:
             def tile(which, q=q, k=k, v=v, o=o, b=b, n=n, d=d, libs=libs,
                      entries=entries):
                 lib, entry = libs[which], entries[which]
+                # the shipped float32 entry point's V scratch: none, the
+                # wgmma tile's route
+                scratch = [None] if entry == "fused_attention_f32" else []
                 status(lib, getattr(lib, entry)(
-                    q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b,
-                    n, n, d, d**-0.5, cuda_stream(q)), entry)
+                    q.data_ptr(), k.data_ptr(), v.data_ptr(), *scratch,
+                    o.data_ptr(), b, n, n, d, d**-0.5, cuda_stream(q)), entry)
                 return o
 
             times = {first: [], second: []}

@@ -1,44 +1,59 @@
-"""Paired timing of the float32 space kernel at head dim 64 on one card.
+"""Paired timing of the float32 resident-K kernel at head dim 64 on one card.
 
-The float32 divided space kernel (csrc/space_f32_tile.cuh, the entry point
-``divided_space_attention_f32``) is timed at train-diffusion's and
+The float32 resident-K kernel (csrc/resident_f32_tile.cuh) is timed where
+its two callers run it: the divided space attention (the entry point
+``divided_space_attention_f32``) at train-diffusion's and
 train-first-stage's shapes, qkv [10 | 1, 16, 1024, 1536] float32 (8 heads
-of 64; ``--shapes`` for others), each copy of the kernel in a process of
-its own that builds it, in turns. Each reading is ``chip_smoke.time_ms``: a
-CUDA graph of 20 calls, the median of five replays. Each process also
-checks the output against the float32 route (``exp2``) at its shapes of 16
-frames or fewer, and prints the kernel's ``-Xptxas -v`` line. Modes:
+of 64), or with ``--onepass`` the one-pass attention (``fused_attention_f32``
+through ``onepass_attention``) at the modular path's head-split shapes of
+the same, q, k, v [1280 | 128, 1024, 64] float32 (``--shapes`` for others).
+Each copy of the kernel runs in a process of its own that builds it, in
+turns. Each reading is ``chip_smoke.time_ms``: a CUDA graph of 20 calls, the
+median of five replays. Each process also checks the output against the
+float32 route (space: ``exp2``; one-pass: the form ``chip_smoke.py`` holds
+it to) at its shapes of 16 frames (128 sequences) or fewer, and prints the
+kernel's ``-Xptxas -v`` line. Modes:
 
 * by default, this checkout against an earlier copy of the repository
   (``--before``: build/before, unpacked from an earlier commit, e.g.
   ``git archive 78a7fb9 | tar -x -C build/before``, whose float32 space
-  kernel is the wgmma tile's bf16 design instantiated for float32), in the
-  turns before, this, this, before, ``--reps`` times over;
+  kernel is the wgmma tile's bf16 design instantiated for float32, or
+  ``git archive 1be23a7`` for the one-pass kernel's), in the turns before,
+  this, this, before, ``--reps`` times over;
 * ``--variants``: design alternatives of this checkout's kernel, each a copy
-  under build/ab_space_f32/ with the header edited (``VARIANTS``): V
-  rounded in the first round by the producer in place of the prologue, the
-  prologue's batches doubled, Q read by S from shared memory, three
-  consumer warpgroups at 160 registers, four at 112 (Q in registers or in
-  shared memory);
-* ``--split``: this checkout's kernel cut short at run time, the rounds a
-  block walks capped at none (the prologue alone), one and all: the
-  differences time the prologue, the first round and the rest, each cut
-  run on its own (so its phases meet no other blocks' phases);
+  under build/ab_space_f32/ with the header edited (``VARIANTS``; ``--pick``
+  names some): each caller's plan set to either caller's (V rounded in the
+  prologue, or by the producer in the first round with 2, 4 or 8 chunks a
+  thread in flight, at 40 / 232 or 104 / 200 registers), the prologue's
+  batches doubled, Q read by S from shared memory, three consumer
+  warpgroups at 160 registers, four at 112 (Q in registers or in shared
+  memory);
+* ``--split``: this checkout's kernel with the rounds a block walks capped,
+  built in: at none (the prologue alone), one and all; the differences time
+  the prologue, the first round and the rest, each cut run on its own (so
+  its phases meet no other blocks' phases);
 * ``--clock``: a ``clock64`` account of a block in the full run: the
   prologue, the first round and the other rounds, the mean over blocks,
   written over each block's scratch slot once nothing reads it (this
-  checkout and its "V in the first round" variant);
-* ``--gate``: both sides of the wrapper's choice (``space_f32_own_kernel``)
-  in this checkout, each forced at every shape, in turns route, kernel,
-  kernel, route: the kernel of its own against the wgmma tile's float32
-  route, by default over 128 to 1280 (frame, head) pairs and N = 256 to
-  1152 (``GATE_SHAPES``), with the side the wrapper takes at each.
+  checkout, and the other caller's plan in its place);
+* ``--gate``: both sides of the wrapper's choice (``space_f32_own_kernel``;
+  with ``--onepass`` ``onepass_f32_own_kernel``) in this checkout, each
+  forced at every shape, in turns route, kernel, kernel, route: the kernel
+  of its own against the wgmma tile's float32 route, by default over 128 to
+  1280 (frame, head) pairs and N = 256 to 1152 (``GATE_SHAPES``; one-pass:
+  64 to 1280 sequences at N = 1024, ``ONEPASS_GATE_SHAPES``), with the side
+  the wrapper takes at each.
+
+The header edits of ``--variants``, ``--split`` and ``--clock`` change the
+kernel of both callers; ``--onepass`` times the one-pass caller's.
 
     python3 tools/ab_space_f32.py             # from the repository root
     python3 tools/ab_space_f32.py --variants --reps 1
     python3 tools/ab_space_f32.py --split --reps 1
     python3 tools/ab_space_f32.py --clock
     python3 tools/ab_space_f32.py --gate --reps 1
+    python3 tools/ab_space_f32.py --onepass --before build/before
+    python3 tools/ab_space_f32.py --onepass --gate --reps 1
 """
 
 from __future__ import annotations
@@ -50,114 +65,45 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-HEADER = "moditalker_tpu_torch/csrc/space_f32_tile.cuh"
-ROUNDS = "  const int rounds = (N + kSfRoundRows - 1) / kSfRoundRows;"
-CUT = ("  const int rounds = min((N + kSfRoundRows - 1) / kSfRoundRows, "
-       "a.cut);")
-FIELD = "  float scale;\n};"
-PLAN = "  const int smem = space_f32_smem_bytes(nkt);\n"
-NC = "constexpr int kSfConsumers = 2;"
-DEC = 'asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\\n");'
-INC = 'asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\\n");'
-# V rounded in the first round, in the producer's registers, into the ring
-# and the block's slot, in place of the prologue's rounding
-VBATCHES = "  const int v_chunks = N * 8;"
-VROW = "    const bf16* vrow = vsc + (pt >> 3) * kWgD + (pt & 7) * 8;"
-PRODUCER = """    // the bf16 tiles from the scratch slot (L2), the copies one step ahead
-    // of their arrival
-    int it = 0;
-    for (int round = 0; round < rounds; ++round) {
-      for (int j = 0; j < nkt; ++j, ++it) {
-        const int vs = it % kWgVStages;
-        mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
-        const bf16* src = vrow + (long)j * kWgTile * kWgD;
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          cp_async16(v_sw + vs * kWgTileBytes + u * 16 * 128,
-                     src + u * 16 * kWgD);
-        cp_async_commit();
-        if (it > 0) {  // the tile started one step ago has landed
-          cp_async_wait<1>();
-          fence_proxy_async();
-          mbar_arrive(full_v((it - 1) % kWgVStages));
-        }
-      }
-    }
-    cp_async_wait<0>();
-    fence_proxy_async();
-    mbar_arrive(full_v((it - 1) % kWgVStages));
-"""
-FIRST_ROUND = """    int it = 0, round = 0;
-    {
-      // (V not rounded up front) float32 V rounded once on its way into
-      // the ring in the first round, and into the slot where later rounds
-      // copy it
-      const float* vsrc = v + (long)(pt >> 3) * in_row + (pt & 7) * 8;
-      for (; round < 1; ++round) {
-        for (int j = 0; j < nkt; ++j, ++it) {
-          const int vs = it % kWgVStages;
-          const float* src = vsrc + (long)j * kWgTile * in_row;
-#pragma unroll
-          for (int u0 = 0; u0 < 8; u0 += 2) {
-            Chunk8<float> c[2];
-#pragma unroll
-            for (int u = 0; u < 2; ++u)
-              c[u].load(src + (u0 + u) * 16 * in_row);
-            if (u0 == 0) mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              float x[8];
-              c[u].to_float(x);
-              const uint4 r = pack8_bf16(x);
-              st_shared16(v_sw + vs * kWgTileBytes + (u0 + u) * 16 * 128, r);
-              if (rounds > 1)
-                *reinterpret_cast<uint4*>(
-                    vrow + ((long)j * kWgTile + (u0 + u) * 16) * kWgD) = r;
-            }
-          }
-          fence_proxy_async();
-          mbar_arrive(full_v(vs));
-        }
-      }
-    }
-    // the bf16 tiles from the scratch slot (L2), the copies one step ahead
-    // of their arrival
-    const int it0 = it;
-    for (; round < rounds; ++round) {
-      for (int j = 0; j < nkt; ++j, ++it) {
-        const int vs = it % kWgVStages;
-        mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
-        const bf16* src = vrow + (long)j * kWgTile * kWgD;
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          cp_async16(v_sw + vs * kWgTileBytes + u * 16 * 128,
-                     src + u * 16 * kWgD);
-        cp_async_commit();
-        if (it > it0) {  // the tile started one step ago has landed
-          cp_async_wait<1>();
-          fence_proxy_async();
-          mbar_arrive(full_v((it - 1) % kWgVStages));
-        }
-      }
-    }
-    if (it > it0) {
-      cp_async_wait<0>();
-      fence_proxy_async();
-      mbar_arrive(full_v((it - 1) % kWgVStages));
-    }
-"""
-V_FIRST = [(VBATCHES, "  const int v_chunks = 0;"),
-           (VROW, VROW.replace("const bf16*", "bf16*")),
-           (PRODUCER, FIRST_ROUND)]
-KB = "constexpr int kSfKBatch = 4; "
-VB = "constexpr int kSfVBatch = 8; "
+HEADER = "moditalker_tpu_torch/csrc/resident_f32_tile.cuh"
+ROUNDS = "  const int rounds = (N + kRfRoundRows - 1) / kRfRoundRows;"
+NC = "constexpr int kRfConsumers = 2;"
+# each caller's plan: where V is rounded (kVFirst: by the producer in the
+# first round; else in the prologue) and the producer's and each
+# consumer's registers
+PLANS = ("  static constexpr bool kRot = true, kVFirst = false;\n"
+         "  static constexpr int kProducerRegs = 40, kConsumerRegs = 232;\n",
+         "  static constexpr bool kRot = false, kVFirst = true;\n"
+         "  static constexpr int kProducerRegs = 104, kConsumerRegs = 200;\n")
+VFIRST_BATCH = "constexpr int kRfVFirstBatch = 8; "
+
+
+def plan(v_first: bool, producer: int, consumer: int, batch: int = 8):
+    """Both callers' plan set alike: V rounded in the first round (with
+    ``batch`` of a thread's eight chunks of a tile in flight together) or in
+    the prologue, the producer at ``producer`` registers and each consumer
+    at ``consumer``."""
+    edits = [(VFIRST_BATCH, VFIRST_BATCH.replace("8", str(batch)))]
+    for old in PLANS:
+        rot = "true" if "kRot = true" in old else "false"
+        edits.append((old, (
+            f"  static constexpr bool kRot = {rot}, kVFirst = "
+            f"{'true' if v_first else 'false'};\n"
+            f"  static constexpr int kProducerRegs = {producer}, "
+            f"kConsumerRegs = {consumer};\n")))
+    return edits
+
+
+KB = "constexpr int kRfKBatch = 4; "
+VB = "constexpr int kRfVBatch = 8; "
 SPLIT = ("  __syncthreads();  // also makes the scratch's V visible to the "
          "producer\n")
 
 
 def cut(rounds: int):
-    return [(ROUNDS, CUT), (FIELD, "  float scale;\n  int cut;\n};"),
-            (PLAN, f"  a.cut = {rounds};\n" + PLAN),
+    """The rounds a block walks capped at ``rounds``, built in."""
+    return [(ROUNDS, ROUNDS.replace("=", "= min(", 1).replace(
+                ";", f", {rounds});")),
             (SPLIT, SPLIT + "  if (rounds == 0) return;\n")]
 
 
@@ -175,15 +121,13 @@ IDLE = """      if (q0 >= N) {
 
 
 def consumers(n: int, regs: int, batches: tuple[int, int]):
-    """n consumer warpgroups at regs registers (the producer at 32), the
-    prologue's batches cut to fit the registers of n + 1 warpgroups; a
-    warpgroup past the last row of a round hands the tiles back."""
-    return [(NC, NC.replace("2", str(n))),
-            (DEC, DEC.replace("u32 40", "u32 32")),
-            (Q0, Q0 + IDLE),
-            (INC, INC.replace("232", str(regs))),
+    """n consumer warpgroups at regs registers (the producer at 32, V
+    rounded in the prologue), the prologue's batches cut to fit the
+    registers of n + 1 warpgroups; a warpgroup past the last row of a round
+    hands the tiles back."""
+    return [(NC, NC.replace("2", str(n))), (Q0, Q0 + IDLE),
             (KB, KB.replace("4", str(batches[0]))),
-            (VB, VB.replace("8", str(batches[1])))]
+            (VB, VB.replace("8", str(batches[1])))] + plan(False, 32, regs)
 
 
 # S = Q·Kᵀ with Q as the shared-memory A operand (its swizzled tile), where
@@ -220,7 +164,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
 }
 
 """
-GRID = "// grid (1, H, BF), block 384"
+GRID = "// block 384, dynamic shared memory"
 S_RS = ("          wgmma_m64n128k16(s, qa[kk], wgmma_desc(kt + kk * 32), "
         "kk > 0);")
 S_SS = [(GRID, SS_PTX + GRID),
@@ -230,7 +174,13 @@ S_SS = [(GRID, SS_PTX + GRID),
 SPLITS = {"prologue": cut(0), "first round": cut(1), "all": []}
 VARIANTS = {
     "as built": [],
-    "V in the first round": V_FIRST,
+    # the space kernel's plan, and PR 19's "V in the first round"
+    "V in the prologue, 40 / 232": plan(False, 40, 232),
+    "V in the first round, 2 chunks, 40 / 232": plan(True, 40, 232, 2),
+    # the one-pass kernel's plan, and the steps to it
+    "V in the first round, 8 chunks, 104 / 200": plan(True, 104, 200, 8),
+    "V in the first round, 4 chunks, 104 / 200": plan(True, 104, 200, 4),
+    "V in the prologue, 104 / 200": plan(False, 104, 200),
     "prologue batches 8, 16": [(KB, KB.replace("4", "8")),
                                (VB, VB.replace("8", "16"))],
     "3 consumers at 160": consumers(3, 160, (4, 8)),
@@ -273,16 +223,24 @@ import torch
 sys.path.insert(0, ".")
 from moditalker_tpu_torch.ops import rotary
 from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+onepass = sys.argv[1] == "onepass"
+mod, name = (fa, "onepass_f32_scratch") if onepass else (dv, "space_f32_scratch")
 sin, cos = (torch.from_numpy(t).cuda()
             for t in rotary.axial_rotary_sincos(32, 32, 64))
 gen = torch.Generator(device="cuda").manual_seed(0)
-kept, allocate = [], dv.space_f32_scratch
-dv.space_f32_scratch = lambda *a: kept.append(allocate(*a)) or kept[-1]
+kept, allocate = [], getattr(mod, name)
+setattr(mod, name, lambda *a: kept.append(allocate(*a)) or kept[-1])
 for b in (10, 1):
     qkv = torch.randn((b, 16, 1024, 1536), generator=gen, device="cuda")
+    q, k, v = (t.reshape(b * 16, 1024, 8, 64).transpose(1, 2)
+               .reshape(b * 128, 1024, 64).contiguous() for t in qkv.chunk(3, -1))
     for _ in range(3):
         kept.clear()
-        dv.divided_attention(qkv, sin, cos, "space", 8, 64, 0.125)
+        if onepass:
+            fa.onepass_attention(q, k, v, 0.125)
+        else:
+            dv.divided_attention(qkv, sin, cos, "space", 8, 64, 0.125)
     torch.cuda.synchronize()
     rec = kept[0].view(kept[0].shape[0], -1).view(torch.int64)[:, :4].double()
     print(b, *rec[:, :3].mean(0).tolist(), rec[:, 3].mean().item(), flush=True)
@@ -296,17 +254,39 @@ import chip_smoke
 from moditalker_tpu_torch.ops import rotary
 from moditalker_tpu_torch.ops.kernels import _build, check_float32_route
 from moditalker_tpu_torch.ops.kernels import divided_attention as dv
-for name, (secs, log) in _build.build(["divided_attention_f32"]).items():
+from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+onepass = sys.argv[4] == "onepass"
+source = "flash_attention_f32" if onepass else "divided_attention_f32"
+# the kernel's registers and spills: the resident-K kernel of the caller
+# timed (an earlier copy's: the space kernel of its own, or the wgmma tile's
+# float32 instantiation without the rotary and resident K)
+kernel = (("OnepassF32Args", "wgmma_attention_kernelILb0ELi3EffE")
+          if onepass else ("SpaceF32Args", "space_f32_kernel"))
+for name, (secs, log) in _build.build([source]).items():
     lines = log.splitlines()
-    for i, line in enumerate(lines):   # the space kernel's registers, spills
-        if "Compiling entry" in line and "space_f32_kernel" in line:
+    for i, line in enumerate(lines):
+        if "Compiling entry" in line and any(k in line for k in kernel):
             print("#", lines[i + 1].strip(), lines[i + 2].strip())
         if "serialized" in line:
             print("#", line.strip())
 if sys.argv[3]:   # --gate: one side of the wrapper's choice at every shape
-    dv.space_f32_own_kernel = lambda *a: sys.argv[3] == "kernel"
+    own = lambda *a: sys.argv[3] == "kernel"
+    if onepass:
+        fa.onepass_f32_own_kernel = own
+    else:
+        dv.space_f32_own_kernel = own
 gen = torch.Generator(device="cuda").manual_seed(0)
 for shape in sys.argv[2].split(","):
+    if onepass:
+        b, n = map(int, shape.split("x"))
+        q, k, v = (torch.randn((b, n, 64), generator=gen, device="cuda")
+                   for _ in range(3))
+        call = lambda: fa.onepass_attention(q, k, v, 0.125)
+        if sys.argv[1] == "1" and b <= 128:
+            check_float32_route("onepass_attention", call(),
+                                fa.attention_float32_route(q, k, v, 0.125))
+        print(shape, chip_smoke.time_ms(torch, call), flush=True)
+        continue
     b, f, n = map(int, shape.split("x"))
     side = 32 if n % 32 == 0 and n >= 1024 else 16
     sin, cos = (torch.from_numpy(t).cuda()
@@ -327,13 +307,23 @@ for shape in sys.argv[2].split(","):
 GATE_SHAPES = ",".join(
     [f"{b}x16x{n}" for b in (1, 2, 10) for n in range(256, 1153, 128)]
     + [f"1x{f}x1024" for f in (8, 10, 12)])
+# --onepass --gate: 64 to 1280 sequences at the one-pass gate's resident-K
+# length (B x N)
+ONEPASS_GATE_SHAPES = ",".join(
+    f"{b}x1024" for b in (64, 72, 96, 128, 256, 1280))
 
 
-def own_kernel(bf: int, n: int, heads: int) -> bool:
-    """The wrapper's choice (``space_f32_own_kernel``) at a shape."""
+def own_kernel(shape: str, onepass: bool) -> bool:
+    """The wrapper's choice (``space_f32_own_kernel``, or
+    ``onepass_f32_own_kernel``) at a shape, and a line naming it."""
     sys.path.insert(0, str(ROOT))
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
-    return dv.space_f32_own_kernel(bf, n, heads)
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+    if onepass:
+        b, n = map(int, shape.split("x"))
+        return fa.onepass_f32_own_kernel(b, n, n)
+    b, f, n = map(int, shape.split("x"))
+    return dv.space_f32_own_kernel(b * f, n, 8)
 
 
 def copy_with(name: str, edits, group: str) -> Path:
@@ -354,14 +344,15 @@ def copy_with(name: str, edits, group: str) -> Path:
     return d
 
 
-def run(copy: Path, check: bool, shapes: str,
-        side: str = "") -> dict[str, float]:
+def run(copy: Path, check: bool, shapes: str, side: str = "",
+        onepass: bool = False) -> dict[str, float]:
     """One process: this copy's build line of the kernel (printed), its
-    output checked against the route at each shape of 16 frames or fewer
-    (where ``check``), and its readings by shape; ``side`` (``kernel`` or
-    ``route``) forces that side of the wrapper's choice."""
+    output checked against the route at each shape of 16 frames (128
+    sequences) or fewer (where ``check``), and its readings by shape;
+    ``side`` (``kernel`` or ``route``) forces that side of the wrapper's
+    choice; ``onepass``: the one-pass caller's kernel at [B, N, 64]."""
     out = subprocess.run([sys.executable, "-c", TIME, str(int(check)),
-                          shapes, side],
+                          shapes, side, "onepass" if onepass else "space"],
                          cwd=copy, capture_output=True, text=True, timeout=600)
     if out.returncode != 0:
         print(out.stderr[-3000:], file=sys.stderr)
@@ -381,7 +372,14 @@ def main() -> int:
     ap.add_argument("--shapes", default=None,
                     help="qkv shapes BxFxN (8 heads of 64), comma-separated "
                          "(default 10x16x1024,1x16x1024; with --gate "
-                         "GATE_SHAPES)")
+                         "GATE_SHAPES); with --onepass q shapes BxN of 64 "
+                         "(default 1280x1024,128x1024; with --gate "
+                         "ONEPASS_GATE_SHAPES)")
+    ap.add_argument("--onepass", action="store_true",
+                    help="the one-pass caller's kernel")
+    ap.add_argument("--pick", default=None,
+                    help="with --variants: the names to run, separated by "
+                         "'|' (default all)")
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--split", action="store_true")
     mode.add_argument("--variants", action="store_true")
@@ -389,20 +387,28 @@ def main() -> int:
     mode.add_argument("--gate", action="store_true")
     args = ap.parse_args()
     if args.shapes is None:
-        args.shapes = GATE_SHAPES if args.gate else "10x16x1024,1x16x1024"
+        args.shapes = (
+            (ONEPASS_GATE_SHAPES if args.gate else "1280x1024,128x1024")
+            if args.onepass else
+            (GATE_SHAPES if args.gate else "10x16x1024,1x16x1024"))
+    what = ("float32 one-pass at [{}, 64]" if args.onepass else
+            "float32 space at qkv [{}, 1536]")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"card: {card}")
     if args.clock:
-        clocks = {"as built": CLOCK,
-                  "V in the first round": VARIANTS["V in the first round"]
-                  + CLOCK}
+        # the other caller's plan beside this one's
+        other = ("V in the prologue, 40 / 232" if args.onepass else
+                 "V in the first round, 8 chunks, 104 / 200")
+        clocks = {"as built": CLOCK, other: VARIANTS[other] + CLOCK}
         for name, edits in clocks.items():
             copy = copy_with(name, edits, "clock")
-            out = subprocess.run([sys.executable, "-c", CLOCK_RUN], cwd=copy,
-                                 capture_output=True, text=True, timeout=600)
+            out = subprocess.run(
+                [sys.executable, "-c", CLOCK_RUN,
+                 "onepass" if args.onepass else "space"], cwd=copy,
+                capture_output=True, text=True, timeout=600)
             if out.returncode != 0:
                 print(out.stderr[-3000:], file=sys.stderr)
                 return 1
@@ -416,6 +422,8 @@ def main() -> int:
         return 0
     if args.split or args.variants:
         table = SPLITS if args.split else VARIANTS
+        if args.variants and args.pick:
+            table = {name: table[name] for name in args.pick.split("|")}
         group = "split" if args.split else "variants"
         copies = {name: copy_with(name, edits, group)
                   for name, edits in table.items()}
@@ -424,7 +432,7 @@ def main() -> int:
         turns = [("route", ROOT), ("kernel", ROOT), ("kernel", ROOT),
                  ("route", ROOT)]
     else:
-        if not (args.before / HEADER.replace("space_f32_tile",
+        if not (args.before / HEADER.replace("resident_f32_tile",
                                              "wgmma_tile")).exists():
             print(f"{args.before}: no earlier copy of the repository",
                   file=sys.stderr)
@@ -435,11 +443,12 @@ def main() -> int:
     for rep in range(args.reps):
         for name, copy in turns:
             for shape, ms in run(copy, not args.split, args.shapes,
-                                 name if args.gate else "").items():
+                                 name if args.gate else "",
+                                 args.onepass).items():
                 readings.setdefault((name, shape), []).append(ms)
-                print(f"rep {rep} {name}: float32 space at qkv "
-                      f"[{shape.replace('x', ', ')}, 1536] {ms:.4f} ms",
-                      flush=True)
+                print(f"rep {rep} {name}: "
+                      + what.format(shape.replace("x", ", "))
+                      + f" {ms:.4f} ms", flush=True)
     for shape in args.shapes.split(","):
         best = {name: min(readings[(name, shape)]) for name, _ in turns}
         line = ", ".join(f"{name} {ms:.4f}" for name, ms in best.items())
@@ -449,10 +458,12 @@ def main() -> int:
                   f"{best['first round'] - best['prologue']:.4f}, the rest "
                   f"{best['all'] - best['first round']:.4f}")
         elif args.gate:
-            b, f, n = map(int, shape.split("x"))
-            print(f"{shape} ({b * f * 8} pairs): kernel / route "
+            dims = list(map(int, shape.split("x")))
+            count = (f"{dims[0]} sequences" if args.onepass else
+                     f"{dims[0] * dims[1] * 8} pairs")
+            print(f"{shape} ({count}): kernel / route "
                   f"{best['kernel'] / best['route']:.4f}, the wrapper takes "
-                  + ("the kernel" if own_kernel(b * f, n, 8) else
+                  + ("the kernel" if own_kernel(shape, args.onepass) else
                      "the route"))
         elif not args.variants:
             print(f"{shape}: this / before "

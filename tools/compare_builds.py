@@ -7,11 +7,15 @@ commit (``git archive <parent> | tar -x -C build/parent``):
 
 1. PTX: every kernel function of each source, bf16 and float32 (the
    ``_f32`` translation units), compiled with ``nvcc -ptx`` in both copies,
-   compared after register numbers and labels are normalised;
-   prints the count of differing lines per function (template arguments
-   matched by the kernels' int and bool parameters).
+   compared after register numbers, labels and the repository's symbols
+   are normalised; prints the count of differing lines per function
+   (template arguments matched by the kernels' int and bool parameters; a
+   kernel of this copy that the other lacks is also held against the
+   closest of the other's kernels that this copy lacks, as a renamed or
+   re-templated kernel is).
 2. Outputs: the space (resident K, K ring, N = 256), time, packed,
-   one-pass (D = 16, 32 and 64), fused (D = 16 and 32 across lengths, D = 64
+   one-pass (D = 16, 32 and 64; at 64 also the modular path's [1280 | 128,
+   1024, 64]), fused (D = 16 and 32 across lengths, D = 64
    with a ragged Nq over a short key tile) and tiny-L kernels, the one-pass
    and fused kernels' classes and wide tile (D = 24, 48, 128, 136, 256),
    the time kernel's 32-frame class, the space kernel's pre-rotated design
@@ -87,7 +91,7 @@ for axis, b, f, n in (("space", 2, 16, 1024), ("space", 1, 2, 2048),
     x = rnd(b, f, n, 3 * heads * 64)
     put[f"{axis} {[b, f, n]}"] = lambda x=x, sin=sin, cos=cos, axis=axis, \
         heads=heads: dv.divided_attention(x, sin, cos, axis, heads, 64, 0.125)
-for b, n in ((256, 1024), (4, 1280)):
+for b, n in ((256, 1024), (4, 1280), (1280, 1024), (128, 1024)):
     t = [rnd(b, n, 64) for _ in range(3)]
     put[f"one-pass [{b}, {n}, 64]"] = lambda t=t: fa.onepass_attention(*t,
                                                                       0.125)
@@ -159,13 +163,20 @@ def kernels(ptx: str) -> dict[str, list[str]]:
         body = ptx[a:b]
         name = re.match(r"\.entry (\w+)", body).group(1)
         key = re.match(r"(_ZN3mdt\d+\w+?I(?:L[bi]\d+E)+)", name)
-        body = re.sub(r"_ZN3mdt\w+", "SYM", body)
+        body = re.sub(r"_ZZ?N3mdt\w+", "SYM", body)
         body = re.sub(r"%(r|rd|f|p|fd|rs)\d+", r"%\1", body)
         body = re.sub(r"\$L__BB\d+_\d+", "L", body)
         out[key.group(1) if key else name] = [
             line.strip() for line in body.splitlines()
             if line.strip() and not line.strip().startswith("//")]
     return out
+
+
+def differing(theirs: list[str], ours: list[str]) -> int:
+    """Lines of a unified diff of two normalised bodies."""
+    return sum(1 for line in difflib.unified_diff(theirs, ours, lineterm="",
+                                                  n=0)
+               if line[:1] in "+-" and line[:3] not in ("+++", "---"))
 
 
 def ptx(copy: Path, source: str, tmp: Path) -> str:
@@ -194,14 +205,18 @@ def main() -> int:
         tmp = Path(tmp)
         for source in () if args.no_ptx else SOURCES:
             theirs = kernels(ptx(other, source, tmp))
-            for key, ours in kernels(ptx(ROOT, source, tmp)).items():
-                if key not in theirs:
-                    print(f"ptx {source}: {key} is new")
+            mine = kernels(ptx(ROOT, source, tmp))
+            gone = [key for key in theirs if key not in mine]
+            for key, ours in mine.items():
+                if key in theirs:
+                    print(f"ptx {source}: {key}: "
+                          f"{differing(theirs[key], ours)} differing lines")
                     continue
-                diff = [line for line in difflib.unified_diff(
-                    theirs[key], ours, lineterm="", n=0)
-                    if line[:1] in "+-" and line[:3] not in ("+++", "---")]
-                print(f"ptx {source}: {key}: {len(diff)} differing lines")
+                print(f"ptx {source}: {key} is new")
+                if gone:
+                    near = min(gone, key=lambda k: differing(theirs[k], ours))
+                    print(f"  against the other copy's {near}: "
+                          f"{differing(theirs[near], ours)} differing lines")
         for dtype in ("bfloat16", "float32"):
             saved = []
             for copy in turns:
