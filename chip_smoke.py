@@ -16,9 +16,11 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              UNet's one-pass shapes) and in float32 at the shapes the
              float32 paths give them (train-diffusion's at B = 10, on both
              attention paths, and the 256-channel UNet's joint attention,
-             2048 keys at head dim 64, through the wgmma tile's K ring;
-             train-first-stage's and the golden record's at B = 1; the
-             fused kernel at one cross-length shape; the 256-channel
+             2048 keys at head dim 64, through a K and V pre-pass and
+             the wgmma tile's bf16 K ring beside the tile's float32 K ring
+             forced, bit for bit; train-first-stage's and the golden
+             record's at B = 1; the fused kernel at one cross-length shape
+             and at query rows over 2048 keys; the 256-channel
              train-diffusion's xy-plane attention, [80, 1024, 32]). Every
              kernel reads and writes float32 itself, with no cast pass, and
              each float32 row is also held to its float32 route's function
@@ -507,6 +509,22 @@ SPACE_F32_ROUTE_DESIGN = (
     "with K rotated and rounded into shared memory, three consumer "
     "warpgroups of 64 rows, V rounded to bf16 in the producer's registers "
     "in every round")
+# the float32 one-pass and fused attention at head dim 64 past resident K
+# (fused_attention_f32_prerounded): the 256-channel UNet's joint attention
+# [B·8, 2048, 64] in train-diffusion
+PREROUNDED_DESIGN = (
+    "past 1152 keys (onepass_f32_prerounded): a pre-pass rounds K and V to "
+    "bf16 once per sequence into a scratch, then the wgmma tile's bf16 K "
+    "ring on it: two consumer warpgroups of 64 query rows (q read as "
+    "float32, scaled and rounded once; the output stored as float32), a "
+    "producer at 104 registers copying K and V tiles with cp.async "
+    "(elsewhere the tile's float32 route, whose producer rounds every K and "
+    "V tile in each block)")
+# its entry point's source (the float32 library of the one-pass kernel)
+PREROUNDED_SOURCE = "moditalker_tpu_torch/csrc/flash_attention_f32.cu"
+# the fused kernel's float32 row past resident K: (B, Nq, Nk) at head dim
+# 64, query rows over the 256-channel UNet's 2048 keys
+FUSED_PREROUNDED = (16, 1280, 2048)
 
 # one first-stage G cycle and D cycle at a small depth (float32, TF32 off)
 # on the card against the CPU: relative errors of the loss terms (largest
@@ -686,10 +704,11 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     hd = heads * dh
     scale = dh**-0.5
 
-    def errors(name, kern, plain, route, dtype=None):
+    def errors(name, kern, plain, route, dtype=None, limits=None):
         """The row's errors against its plain version; a float32 result is
-        also held to ``route()``, its float32 route's function, and to a
-        bf16-rounded share under 1 %. ``dtype``: the inputs' type where
+        also held to ``route()``, its float32 route's function (within
+        ``FLOAT32_ROUTE_LIMITS[limits or name]``), and to a bf16-rounded
+        share under 1 %. ``dtype``: the inputs' type where
         ``plain`` computes in float32 on them widened (the oracle of the
         rows added with the classes: at their lengths and head dims the bf16
         plain version's own roundings, its rotary in bf16 and its bf16
@@ -705,7 +724,8 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                    oracle="float32 plain" if dtype else "plain")
         del want
         if out.dtype == torch.float32:
-            err["route_rel_err"] = check_float32_route(name, out, route())
+            err["route_rel_err"] = check_float32_route(limits or name, out,
+                                                       route())
             err["bf16_rounded_share"] = bf16_rounded_share(out)
             if err["bf16_rounded_share"] >= 0.01:
                 raise AssertionError(
@@ -842,7 +862,11 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
              packed_row(1, l), packed_row(1, 1024)]
 
     def sdpa_row(name, replaces, source, kern, plain, q, k, v, sc,
-                 plain32=False):
+                 plain32=False, prerounded=False):
+        """``prerounded``: float32 at head dim 64 past resident K (the
+        pre-pass and the bf16 K ring): held to the route's ``exp2`` form
+        within the limits of its entry point
+        (``FLOAT32_ROUTE_LIMITS[fa.PREROUNDED_ENTRY]``)."""
         # a shape beyond the configurations' runs the kernel's class, or
         # (one-pass and fused above 32) the wgmma tile built for its width
         if name == "tiny_attention":
@@ -861,11 +885,14 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             replaces=f"moditalker_tpu/ops/pallas/flash_attention.py:{replaces}",
             shape=[list(q.shape), list(k.shape)],
             # the wide tile's float32 rows against the route with the
-            # kernels' ex2 (``exp2``), as its card tests hold it
+            # kernels' ex2 (``exp2``), as its card tests hold it, and the
+            # float32 rows past resident K at D = 64
             **errors(name, kern, oracle,
                      lambda: fa.attention_float32_route(
-                         q, k, v, sc, exp2=source == "flash_wide"),
-                     dtype=q.dtype if plain32 else None),
+                         q, k, v, sc,
+                         exp2=source == "flash_wide" or prerounded),
+                     dtype=q.dtype if plain32 else None,
+                     limits=fa.PREROUNDED_ENTRY if prerounded else None),
             ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
             library_ms=time_ms(torch, lib),
             nbytes=q.element_size() * (2 * q.numel() + 2 * k.numel()),
@@ -879,38 +906,46 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # (C = 256, 8 heads → [B·8, 2048, 32]); then the modular path's shapes:
     # TimeSformer space attention, the UNet's dh = 16 joint and xy-plane
     # attentions; then sample_long's B = 1
+    def forced(row, kern, b_, nq_, nk_):
+        """Float32 at head dim 64: two more calls must equal each other bit
+        for bit, and the other side of the wrapper's choice, forced, must
+        equal this side bit for bit; that side is timed too (``forced``).
+        The choice: with K resident ``onepass_f32_own_kernel`` (the float32
+        resident-K kernel or the wgmma tile's float32 route), past it
+        ``onepass_f32_prerounded`` (the pre-pass and the bf16 K ring, or
+        that route)."""
+        name = f"{row['name']} {row['shape']}"
+        out = kern()
+        if not torch.equal(out, kern()):
+            raise AssertionError(f"{name}: two calls differ")
+        which = ("onepass_f32_prerounded" if nk_ > fa.RESIDENT_KEYS_D64
+                 else "onepass_f32_own_kernel")
+        chooser = getattr(fa, which)
+        own = chooser(b_, nq_, nk_)
+        setattr(fa, which, lambda *a: not own)
+        try:
+            if not torch.equal(out, kern()):
+                raise AssertionError(
+                    f"{name}: the kernel ({which}) and the wgmma tile's "
+                    f"float32 route differ")
+            row["forced"] = dict(side="route" if own else "kernel",
+                                 ms=time_ms(torch, kern), bit_for_bit=True)
+        finally:
+            setattr(fa, which, chooser)
+        return row
+
     def onepass_row(b_, n_, d_, g=gen, dtype=torch.bfloat16, plain32=False,
                     twice=False):
-        """``twice`` (float32 at head dim 64, K resident): two more calls
-        must equal each other bit for bit, and the other side of the
-        wrapper's choice (``onepass_f32_own_kernel``: the float32
-        resident-K kernel or the wgmma tile's float32 route), forced, must
-        equal this side bit for bit; that side is timed too (``forced``)."""
+        """``twice`` (float32 at head dim 64): ``forced``."""
         q, k, v = (randn(b_, n_, d_, g=g, dtype=dtype) for _ in range(3))
         kern = lambda: fa.onepass_attention(q, k, v, d_**-0.5)
         row = sdpa_row(
             "onepass_attention", 104, "flash_attention", kern,
             lambda: fa.onepass_attention_reference(q, k, v, d_**-0.5),
-            q, k, v, d_**-0.5, plain32)
-        if twice:
-            name = f"onepass_attention {list(q.shape)}"
-            out = kern()
-            if not torch.equal(out, kern()):
-                raise AssertionError(f"{name}: two calls differ")
-            own = fa.onepass_f32_own_kernel(b_, n_, n_)
-            chooser = fa.onepass_f32_own_kernel
-            fa.onepass_f32_own_kernel = lambda *a: not own
-            try:
-                if not torch.equal(out, kern()):
-                    raise AssertionError(
-                        f"{name}: the float32 resident-K kernel and the "
-                        f"wgmma tile's float32 route differ")
-                row["forced"] = dict(side="route" if own else "kernel",
-                                     ms=time_ms(torch, kern),
-                                     bit_for_bit=True)
-            finally:
-                fa.onepass_f32_own_kernel = chooser
-        return row
+            q, k, v, d_**-0.5, plain32,
+            prerounded=(dtype == torch.float32 and d_ == 64
+                        and fa.onepass_f32_prerounded(b_, n_, n_)))
+        return forced(row, kern, b_, n_, n_) if twice else row
 
     rows.append(dict(onepass_row(batch * heads, l, 32),
                      design=small_head + "; at D = 64 the wgmma tile without "
@@ -986,10 +1021,14 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
              onepass_row(tb * heads, l, 32, g=gen_f32, dtype=f32)]
     # the 256-channel UNet's joint attention after the last upsample
     # (configs/latent-diffusion/base_longvid.yaml), which train-diffusion
-    # runs in float32: 2048 keys at D = 64, the wgmma tile's float32 K ring
-    rows.append(dict(onepass_row(tb * heads, l, dh, g=gen_f32, dtype=f32),
-                     design="the wgmma tile's K ring, K and V rounded to "
-                            "bf16 in the producer's registers"))
+    # runs in float32: 2048 keys at D = 64, past resident K, the pre-pass
+    # and the bf16 K ring (its entry point's row of the kernels line),
+    # beside the wgmma tile's float32 route forced
+    assert fa.onepass_f32_prerounded(tb * heads, l, l)
+    rows.append(dict(onepass_row(tb * heads, l, dh, g=gen_f32, dtype=f32,
+                                 twice=True),
+                     design=PREROUNDED_DESIGN, entry=fa.PREROUNDED_ENTRY,
+                     source=PREROUNDED_SOURCE))
     # the 256-channel UNet's xy-plane attention at ds = 1 (C = 256, 1024
     # tokens, dh = 32), which train-diffusion runs in float32 at B = 10
     # (configs/latent-diffusion/base_longvid.yaml): the small-head tile
@@ -1020,6 +1059,20 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         lambda: attention.sdpa_fused(q, k, v, scale),
         lambda: fa.fused_attention_reference(q, k, v, scale),
         q, k, v, scale))
+    # and past resident K: query rows over 2048 keys (FUSED_PREROUNDED),
+    # the pre-pass and the bf16 K ring beside the route forced
+    gen_pr = torch.Generator(device=dev).manual_seed(seed + 13)
+    b_, nq_, nk_ = FUSED_PREROUNDED
+    assert fa.onepass_f32_prerounded(b_, nq_, nk_)
+    q = randn(b_, nq_, dh, g=gen_pr, dtype=f32)
+    k, v = (randn(b_, nk_, dh, g=gen_pr, dtype=f32) for _ in range(2))
+    kern = lambda: attention.sdpa_fused(q, k, v, scale)
+    rows.append(dict(forced(sdpa_row(
+        "fused_attention", 33, "flash_attention", kern,
+        lambda: fa.fused_attention_reference(q, k, v, scale),
+        q, k, v, scale, prerounded=True), kern, b_, nq_, nk_),
+        design=PREROUNDED_DESIGN, entry=fa.PREROUNDED_ENTRY,
+        source=PREROUNDED_SOURCE))
     # float32 at B = 1, the shape train-first-stage gives them: its AE
     # trains through them
     gen_fs = torch.Generator(device=dev).manual_seed(seed + 5)
@@ -1275,9 +1328,12 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             + (f", {row['design']}" if "design" in row else "")
             + (f"; against its float32 route's function max / rms / "
                f"quantile {'/'.join(f'{e:.3e}' for e in row['route_rel_err'])}"
-               f" (limits {FLOAT32_ROUTE_LIMITS[row['name']]}), "
-               f"bf16-rounded share {row['bf16_rounded_share']:.2e}"
+               f" (limits {FLOAT32_ROUTE_LIMITS[row.get('entry', row['name'])]}"
+               f"), bf16-rounded share {row['bf16_rounded_share']:.2e}"
                if "route_rel_err" in row else "")
+            + ("; the other side of the wrapper's choice ({side}) forced: "
+               "bit for bit, {ms:.4f} ms".format(**row["forced"])
+               if "forced" in row else "")
             + (f"; two calls equal bit for bit, the plain forward "
                f"recomputed and its vjp (what ran before) "
                f"{row['recompute_ms']:.4f} ms" if "recompute_ms" in row
@@ -1792,9 +1848,11 @@ def train_diffusion_longvid_phase(torch, seed: int) -> dict:
     operands, exactly as predicted: a step's four frozen extracts launch
     space and time 32 times each, its UNet the one-pass kernel at
     LONGVID_ONEPASS_PER_CALL, and with ``remat`` the recompute launches
-    each of those again), every loss finite; one step traced; then
-    ``remat_check`` and a small-depth 256-channel step against the CPU
-    (``train_step_check``)."""
+    each of those again; by entry point, the joint attention after the last
+    upsample, [B·8, 2048, 64], through the pre-pass and the bf16 K ring,
+    the others through the float32 entry point), every loss finite; one
+    step traced; then ``remat_check`` and a small-depth 256-channel step
+    against the CPU (``train_step_check``)."""
     import dataclasses
     import itertools
 
@@ -1802,7 +1860,9 @@ def train_diffusion_longvid_phase(torch, seed: int) -> dict:
     from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
     from moditalker_tpu_torch.models.mtov import ViTAutoencoder
     from moditalker_tpu_torch.ops.kernels import (FLOAT32_LAUNCHES_BY_SHAPE,
+                                                  LAUNCHES_BY_ENTRY,
                                                   reset_launch_counts)
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
     from moditalker_tpu_torch.train.mtov import (LatentDiffusionLoop,
                                                  MtovDiffusionTrainer)
 
@@ -1855,15 +1915,28 @@ def train_diffusion_longvid_phase(torch, seed: int) -> dict:
             raise AssertionError(f"{what}: launches {by_shape}, on float32 "
                                  f"operands {f32_by_shape}, predicted "
                                  f"{predicted}")
+        calls = steps * (2 if remat else 1)
+        assert fa.onepass_f32_prerounded(b * 8, 2048, 2048)
+        by_entry = {e: c for e, c in sorted(LAUNCHES_BY_ENTRY.items())
+                    if e.startswith("fused_attention")}
+        per_call = LONGVID_ONEPASS_PER_CALL
+        predicted = {"fused_attention_f32": calls * sum(
+                         k for (_, d), k in per_call.items() if d != 64),
+                     fa.PREROUNDED_ENTRY: calls * per_call[(2048, 64)]}
+        if by_entry != predicted:
+            raise AssertionError(f"{what}: one-pass launches by entry point "
+                                 f"{by_entry}, predicted {predicted}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         runs[what] = {"steps_per_s": steps / dt, "clips_per_s": steps * b / dt,
                       "peak_gib": peak, "launches": counts,
-                      "launches_by_shape": by_shape}
+                      "launches_by_shape": by_shape,
+                      "launches_by_entry": by_entry}
         log(f"{what} (full width, {n_params / 1e6:.2f} M parameters, B = "
             f"{b}, float32): {steps} steps in {dt:.3f} s = {steps / dt:.4f} "
             f"steps/s = {steps * b / dt:.3f} clips/s; peak memory "
             f"{peak:.2f} GiB; launches by shape over the {steps} steps, all "
-            f"on float32 operands, as predicted {by_shape}"
+            f"on float32 operands, as predicted {by_shape}; the one-pass "
+            f"kernel's by entry point, as predicted {by_entry}"
             + ("; with remat each UNet launch is counted twice, once in the "
                "forward and once in the recompute" if remat else ""))
     if not (len(losses.seen) == 2 * steps + 1
@@ -4328,9 +4401,20 @@ def main() -> int:
     timed["head_parallel_attention"] = distributed["tp_launches"]
     timed["sample --data-parallel 1"] = distributed["sample_launches"]
     # one line entry per kernel: its first row, the shape its main path
-    # gives it; the rows at its other shapes go under "other_shapes"
+    # gives it; the rows at its other shapes go under "other_shapes". A row
+    # with an "entry" (the float32 pre-pass and bf16 K ring at head dim 64
+    # past resident K, fused_attention_f32_prerounded) is an entry of its
+    # own, named by that entry point, its launches those of its entry point
+    # on the paths that count by entry point (the train-diffusion phases)
+    by_entry_paths = {
+        "train-diffusion": train_diff["launches_by_entry"],
+        "train-diffusion modular": train_diff_modular["launches_by_entry"],
+        **{what: run["launches_by_entry"]
+           for what, run in train_longvid["runs"].items()}}
     kernels = {}
     for row in rows:
+        if "entry" in row:
+            row = dict(row, name=row["entry"], wrapper=row["name"])
         if row["name"] in kernels:
             kernels[row["name"]].setdefault("other_shapes", []).append(
                 {k: row[k] for k in ("shape", "heads", "dtype", "source",
@@ -4344,6 +4428,14 @@ def main() -> int:
                                      "bound_by", "forced") if k in row})
             continue
         kernels[row["name"]] = row
+        if "entry" in row:
+            row["launches_by_path"] = {p: c.get(row["entry"], 0)
+                                       for p, c in by_entry_paths.items()}
+            row["launches"] = sum(row["launches_by_path"].values())
+            if not row["launches"]:
+                raise AssertionError(f"{row['entry']}: launched no time on "
+                                     f"the paths {by_entry_paths}")
+            continue
         row["launches_by_path"] = {p: c[row["name"]] for p, c in timed.items()}
         row["launches"] = sum(row["launches_by_path"].values())
         by_path = {**result["launches_by_shape"],

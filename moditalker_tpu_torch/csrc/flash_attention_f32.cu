@@ -18,6 +18,12 @@
 // attention without its rotary (resident_f32_tile.cuh: K rounded once per
 // sequence before the roles split, V by the producer in the first round,
 // two consumer warpgroups) computes the same at the same rounding points.
+// At D = 64 past resident K (Nk > 1152: the 256-channel UNet's joint
+// attention [B·8, 2048, 64]), where the wrapper chooses it,
+// fused_attention_f32_prerounded rounds K and V to bf16 once per sequence,
+// into a scratch the wrapper passes, and runs the wgmma tile's bf16 K ring
+// on it with float32 q and output (launch_prerounded): the same rounding
+// points again.
 #include "resident_f32_tile.cuh"
 #include "smallhead_tile.cuh"
 #include "wgmma_tile.cuh"
@@ -35,6 +41,47 @@ inline int launch_onepass_f32(const void* q, const void* k, const void* v,
                      static_cast<const float*>(v), static_cast<bf16*>(vs),
                      static_cast<float*>(out), N, scale},
       1, B, stream);
+}
+
+// The pre-pass: k and v [B, Nk, 64] float32 rounded to bf16 once, into the
+// scratch kv [2, B, Nk, 64] (k, then v). Block 256, grid ceil(2 x chunks /
+// 256): thread i takes 16-byte chunk i of the scratch (32 bytes in), so a
+// warp reads 1 KB and writes 512 bytes of neighbouring addresses.
+__global__ void __launch_bounds__(256)
+round_kv_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                bf16* __restrict__ kv, long chunks) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= 2 * chunks) return;
+  Chunk8<float> c;
+  c.load(i < chunks ? k + 8 * i : v + 8 * (i - chunks));
+  float x[8];
+  c.to_float(x);
+  *reinterpret_cast<uint4*>(kv + 8 * i) = pack8_bf16(x);
+}
+
+// q [B, Nq, 64], k, v [B, Nk, 64] float32, Nk a multiple of 128 past
+// resident K -> out [B, Nq, 64] float32, through the scratch kv [2, B, Nk,
+// 64] bf16. Two launches: the pre-pass, then the bf16 K ring over the
+// scratch (two consumer warpgroups of 64 query rows, a producer copying
+// each K and V tile with cp.async).
+inline int launch_prerounded(const void* q, const void* k, const void* v,
+                             void* kv, void* out, int B, int Nq, int Nk,
+                             float scale, cudaStream_t stream) {
+  if (B < 1 || Nq < 1 || Nk <= kWgMaxKSlots * kWgTile || Nk % kWgTile)
+    return cudaErrorInvalidValue;
+  const long chunks = (long)B * Nk * kWgD / 8;  // of k, and of v
+  bf16* ks = static_cast<bf16*>(kv);
+  round_kv_kernel<<<(unsigned)((2 * chunks + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), ks, chunks);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long q_seq = (long)Nq * kWgD, kv_seq = (long)Nk * kWgD;
+  return launch_wgmma_ring<false>(
+      WgmmaArgsT<bf16, float>{static_cast<const float*>(q), ks,
+                              ks + B * kv_seq, nullptr,
+                              static_cast<float*>(out), q_seq, kv_seq, kWgD,
+                              q_seq, kWgD, 0, Nq, Nk, scale},
+      B, 1, stream);
 }
 
 }  // namespace mdt
@@ -74,6 +121,19 @@ int fused_attention_f32(const void* q, const void* k, const void* v,
           B, 1, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// q, out: contiguous [B, Nq, D]; k, v: contiguous [B, Nk, D]; float32; the
+// scratch kv [2, B, Nk, D] bf16. D = 64 and Nk past 1152 keys, a multiple
+// of 128 (else refused): launch_prerounded (the wrapper chooses it:
+// onepass_f32_prerounded in ops/kernels/flash_attention.py).
+int fused_attention_f32_prerounded(const void* q, const void* k,
+                                   const void* v, void* kv, void* out, int B,
+                                   int Nq, int Nk, int D, float scale,
+                                   void* stream) {
+  if (D != mdt::kWgD || kv == nullptr) return cudaErrorInvalidValue;
+  return mdt::launch_prerounded(q, k, v, kv, out, B, Nq, Nk, scale,
+                                static_cast<cudaStream_t>(stream));
 }
 
 const char* kernel_error_string(int err) {

@@ -60,11 +60,12 @@
 // rounded to bf16 once, k rotated and rounded once, fp32 scores, max and
 // sum, P rounded to bf16 for P·V, the output divided by the fp32 row sum.
 //
-// The float32 route (TI = TO = float: the divided space kernel's with the
+// The float32 route (TK = TQ = float: the divided space kernel's with the
 // rotary, resident K only, Lk <= 1152, where resident_f32_tile.cuh's kernel
 // read slower; the one-pass and fused kernels'
-// at head dim 64 without it, the K ring, and resident K where that kernel
-// read slower or the shape is not its own) keeps those points
+// at head dim 64 without it, the K ring where the pre-pass below read
+// slower, and resident K where that kernel read slower or the shape is not
+// its own) keeps those points
 // and the bf16 tiles: q and k are read as two 16-byte float32 chunks per bf16
 // chunk and rounded once (after the rotary, where there is one; without it
 // K passes through the same registers that would rotate it, since cp.async
@@ -76,6 +77,18 @@
 // accumulators. With resident K the producer gets 56 registers for it and
 // the consumers 152 (56 + 3 x 152 = 4 x 128: the block's registers, as
 // 32 + 3 x 160 for bf16); with the ring the bf16 ring's 104 and 200.
+//
+// The float32 one-pass and fused kernels past resident K (TK = bf16,
+// TQ = float: flash_attention_f32.cu's launch_prerounded) run the bf16 K
+// ring on a scratch into which a pre-pass rounded K and V to bf16 once per
+// sequence, where the float32 route's producer rounds every tile again in
+// each of a sequence's Lq / 128 blocks: K and V go into their slots by
+// cp.async, untouched, at the bf16 ring's registers, and only q (float32,
+// scaled and rounded once) and the float32 output are the float32 route's.
+// The rounding points are the same, so the output is the route's bit for
+// bit. The pre-pass reads K and V once more and writes them, so the
+// route's ring keeps one to three blocks of query rows a sequence over many
+// sequences' keys, where it rounds each tile hardly more often.
 //
 // With the rotary, Lq = Lk and both are multiples of 128 (the space gate
 // admits only such), so no tile is ragged. Without it, two edges are
@@ -122,15 +135,17 @@ static_assert(wgmma_smem_bytes(kWgMaxKSlots, 3) <= kWgSmemLimit &&
                   wgmma_smem_bytes(kWgMaxKSlots + 1, 3) > kWgSmemLimit,
               "resident K exactly where it fits beside the V ring");
 
-// TI: the element type of q, k and v in memory; TO: the output's. bf16 and
-// bf16, or (the divided space kernel's float32 route) float32 and float32.
-template <typename TI, typename TO>
+// TK: the element type of k and v in memory; TQ: that of q and the
+// output. bf16 and bf16; float32 and float32 (the float32 route); or bf16
+// and float32 (the float32 one-pass and fused kernels past resident K, on
+// the bf16 K and V their pre-pass rounded, flash_attention_f32.cu).
+template <typename TK, typename TQ>
 struct WgmmaArgsT {
-  const TI* q;
-  const TI* k;
-  const TI* v;
+  const TQ* q;
+  const TK* k;
+  const TK* v;
   const float* rot;  // [L, 32, 2] (cos, sin) per pair; read only when ROT
-  TO* out;
+  TQ* out;
   long q_batch, kv_batch, in_row, out_batch, out_row;  // element strides
   int head;          // column offset of one head, inputs and output
   int Lq, Lk;        // query rows, keys
@@ -368,12 +383,15 @@ __device__ __forceinline__ void stage_rows(const TI* src, long in_row,
 // and cannot rotate (56 for a float32 V, which it rounds to bf16 on its way
 // into the ring). The float32 route takes the K ring (NC = 2) only without
 // the rotary.
-template <bool ROT, int NC, typename TI, typename TO>
+template <bool ROT, int NC, typename TK, typename TQ>
 __global__ void __launch_bounds__((NC + 1) * 128, 1)
-wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
+wgmma_attention_kernel(const WgmmaArgsT<TK, TQ> a) {
   static_assert(NC == 2 || NC == 3, "two or three consumer warpgroups");
-  constexpr bool kF32 = std::is_same<TI, float>::value;
-  static_assert(std::is_same<TI, TO>::value, "output in the inputs' type");
+  // float32 K and V, rounded to bf16 on their way into shared memory
+  constexpr bool kF32 = std::is_same<TK, float>::value;
+  // float32 q and output
+  constexpr bool kF32Q = std::is_same<TQ, float>::value;
+  static_assert(kF32Q || !kF32, "float32 k and v with float32 q");
   static_assert(!kF32 || NC == 3 || !ROT,
                 "float32 route with the rotary: resident K");
   extern __shared__ unsigned char wg_smem[];
@@ -424,7 +442,7 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
     // four chunks in flight per thread, the first pass over K waited on it
     // for a third of the block's time.)
     for (int j = wg; j < nkt; j += NC + 1) {
-      const TI* ksrc = a.k + kv_in + (long)j * kWgTile * a.in_row;
+      const TK* ksrc = a.k + kv_in + (long)j * kWgTile * a.in_row;
       if constexpr (ROT) {
         unsigned char* kdst = sm + j * kWgTileBytes;
         // float32: half the chunks per batch, the same bytes in flight
@@ -469,7 +487,7 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
         asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n");
       constexpr int kVBatch = 4;  // of the thread's eight chunks a tile
       const int pt = tid - NC * 128;
-      const TI* vb = a.v + kv_in + (pt >> 3) * a.in_row + (pt & 7) * 8;
+      const TK* vb = a.v + kv_in + (pt >> 3) * a.in_row + (pt & 7) * 8;
       unsigned char* vsm = sm + KS * kWgTileBytes + swizzled(pt >> 3, pt & 7);
       int it = 0;
       for (int round = 0; round < a.rounds; ++round) {
@@ -489,11 +507,11 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
             }
           }
           const int vs = it % kWgVStages;
-          const TI* vsrc = vb + (long)j * kWgTile * a.in_row;
+          const TK* vsrc = vb + (long)j * kWgTile * a.in_row;
           unsigned char* vdst = vsm + vs * kWgTileBytes;
 #pragma unroll
           for (int u0 = 0; u0 < 8; u0 += kVBatch) {
-            Chunk8<TI> c[kVBatch];
+            Chunk8<TK> c[kVBatch];
             if (ROT || j < nkt - 1 || last_rows == kWgTile) {
 #pragma unroll
               for (int u = 0; u < kVBatch; ++u)
@@ -502,7 +520,7 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
 #pragma unroll
               for (int u = 0; u < kVBatch; ++u) {
                 const int du = (u0 + u) * 16;  // rows past this thread's first
-                c[u] = Chunk8<TI>{};
+                c[u] = Chunk8<TK>{};
                 if ((pt >> 3) + du < last_rows) c[u].load(vsrc + du * a.in_row);
               }
             }
@@ -529,7 +547,7 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
       // this thread's eight chunks of a tile: row pt / 8 + 16 u, whose
       // swizzle is that of row pt / 8
       const uint32_t v_sw = swizzled(pt >> 3, pt & 7);
-      const TI* vb = a.v + kv_in + (pt >> 3) * a.in_row + (pt & 7) * 8;
+      const TK* vb = a.v + kv_in + (pt >> 3) * a.in_row + (pt & 7) * 8;
       // Without a rotary a K ring's tiles travel with the V tiles, in the same
       // cp.async group; with one they pass through this warpgroup's registers.
       constexpr bool kCopyK = NC == 2 && !ROT;
@@ -539,7 +557,7 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
           const int vs = it % kWgVStages;
           mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
           const uint32_t vdst = v_tiles + vs * kWgTileBytes + v_sw;
-          const TI* vsrc = vb + (long)j * kWgTile * a.in_row;
+          const TK* vsrc = vb + (long)j * kWgTile * a.in_row;
           if (j == nkt - 1 && last_rows < kWgTile) {  // resident K only
             copy_tile_rows(v_tiles + vs * kWgTileBytes,
                            a.v + kv_in + (long)j * kWgTile * a.in_row, a.in_row,
@@ -627,7 +645,7 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int i = ct + 128 * u, r = i >> 3, c = i & 7;
-          Chunk8<TI> raw{};
+          Chunk8<TQ> raw{};
           if (q0 + r < a.Lq) raw.load(a.q + q_in + (q0 + r) * a.in_row + c * 8);
           *reinterpret_cast<uint4*>(q_s + r * kWgQStride + c * 8) =
               rotate_chunk<false>(raw, none, none, a.scale);
@@ -732,18 +750,18 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
       }
 
       // finish the row sums across the quad
-      if constexpr (kF32) {
+      if constexpr (kF32Q) {
         // float32 straight from the fragments: a quad's four 8-byte stores
         // fill one 32-byte sector of a row (with the rotary rows are whole,
         // Lq % 128 == 0; without it rows past Lq are not stored)
-        TO* ob = a.out + b * a.out_batch + (long)h * a.head;
+        TQ* ob = a.out + b * a.out_batch + (long)h * a.head;
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
           l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
           const float inv = 1.f / l_run[r];
           const int row = q0 + warp * 16 + g + 8 * r;
-          TO* dst = ob + (long)row * a.out_row + 2 * t;
+          TQ* dst = ob + (long)row * a.out_row + 2 * t;
           if (ROT || row < a.Lq) {
 #pragma unroll
             for (int nd = 0; nd < 8; ++nd)
@@ -767,7 +785,7 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
                 o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);
         }
         bar_sync(1 + wg, 128);
-        TO* ob = a.out + b * a.out_batch + (long)h * a.head;
+        TQ* ob = a.out + b * a.out_batch + (long)h * a.head;
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           const int i = ct + 128 * u, r = i >> 3, c = i & 7;
@@ -781,11 +799,11 @@ wgmma_attention_kernel(const WgmmaArgsT<TI, TO> a) {
   }
 }
 
-template <bool ROT, int NC, typename TI, typename TO>
-cudaError_t launch_wgmma_plan(const WgmmaArgsT<TI, TO>& args, int B, int H,
+template <bool ROT, int NC, typename TK, typename TQ>
+cudaError_t launch_wgmma_plan(const WgmmaArgsT<TK, TQ>& args, int B, int H,
                               cudaStream_t stream) {
   const int smem = wgmma_smem_bytes(args.k_slots, NC);
-  auto kern = wgmma_attention_kernel<ROT, NC, TI, TO>;
+  auto kern = wgmma_attention_kernel<ROT, NC, TK, TQ>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -795,20 +813,31 @@ cudaError_t launch_wgmma_plan(const WgmmaArgsT<TI, TO>& args, int B, int H,
   return cudaGetLastError();
 }
 
+// The K ring alone: two consumers, 128 query rows per block, whole K tiles.
+template <bool ROT, typename TK, typename TQ>
+cudaError_t launch_wgmma_ring(WgmmaArgsT<TK, TQ> args, int B, int H,
+                              cudaStream_t stream) {
+  if (args.Lq < 1 || args.Lk < 1 || args.Lk % kWgTile != 0)
+    return cudaErrorInvalidValue;
+  args.k_slots = kWgRingKSlots;
+  args.rounds = 1;
+  return launch_wgmma_plan<ROT, 2>(args, B, H, stream);
+}
+
 // B sequences of H heads. Resident K (three consumers) wherever every K
-// tile has a slot, the K ring (two consumers, 128 query rows per block)
-// above that: chosen by Lk. With resident K one block per (sequence, head)
-// walks all Lq rows in steps of 192, so that K is copied once per head;
-// where that leaves the card short of blocks (few sequences, Lq > 192), the
-// steps are split over more blocks: the most steps per block whose grid
-// still fills the card, as launch_smallhead counts rows. With the rotary,
-// Lq = Lk, a multiple of 128; the ring takes whole K tiles only. The float32
-// route (TI = float) has the ring only without the rotary: with it, above
-// resident K it is refused.
-template <bool ROT, typename TI = bf16, typename TO = bf16>
-cudaError_t launch_wgmma(WgmmaArgsT<TI, TO> args, int B, int H,
+// tile has a slot, the K ring (launch_wgmma_ring) above that: chosen by Lk.
+// With resident K one block per (sequence, head) walks all Lq rows in steps
+// of 192, so that K is copied once per head; where that leaves the card
+// short of blocks (few sequences, Lq > 192), the steps are split over more
+// blocks: the most steps per block whose grid still fills the card, as
+// launch_smallhead counts rows. With the rotary, Lq = Lk, a multiple of
+// 128; the ring takes whole K tiles only. The float32 route (TK = float)
+// has the ring only without the rotary: with it, above resident K it is
+// refused.
+template <bool ROT, typename TK = bf16, typename TQ = TK>
+cudaError_t launch_wgmma(WgmmaArgsT<TK, TQ> args, int B, int H,
                          cudaStream_t stream) {
-  constexpr bool kF32 = std::is_same<TI, float>::value;
+  constexpr bool kF32 = std::is_same<TK, float>::value;
   const int nkt = (args.Lk + kWgTile - 1) / kWgTile;
   if (args.Lq < 1 || args.Lk < 1) return cudaErrorInvalidValue;
   if (ROT && (args.Lq != args.Lk || args.Lk % kWgTile != 0))
@@ -828,14 +857,10 @@ cudaError_t launch_wgmma(WgmmaArgsT<TI, TO> args, int B, int H,
       args.rounds = (args.rounds + 1) / 2;
     return launch_wgmma_plan<ROT, 3>(args, B, H, stream);
   }
-  if constexpr (kF32 && ROT) {
+  if constexpr (kF32 && ROT)
     return cudaErrorInvalidValue;
-  } else {
-    if (args.Lk % kWgTile != 0) return cudaErrorInvalidValue;
-    args.k_slots = kWgRingKSlots;
-    args.rounds = 1;
-    return launch_wgmma_plan<ROT, 2>(args, B, H, stream);
-  }
+  else
+    return launch_wgmma_ring<ROT>(args, B, H, stream);
 }
 
 }  // namespace mdt

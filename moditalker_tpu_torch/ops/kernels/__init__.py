@@ -214,6 +214,14 @@ FLOAT32_ROUTE_LIMITS: dict[str, tuple[float, float, float]] = {
     "onepass_attention": (2e-3, 6.8e-5, 1.55e-4),
     # the one-pass row: the fused kernel is the one-pass kernel at Nq != Nk
     "fused_attention": (2e-3, 6.8e-5, 1.55e-4),
+    # the one-pass and fused kernels in float32 at head dim 64 past resident
+    # K (the entry point fused_attention_f32_prerounded), held to the
+    # route's exp2 form (``attention_float32_route(..., exp2=True)``): about
+    # twice the largest of tools/mma_sum.py --prerounded over seeds 0..3 at
+    # the card tests' and chip_smoke.py's shapes, 9.80e-5 / 3.11e-6 /
+    # 1.37e-6 (against the exp route the same kernel reads up to 4.78e-4 /
+    # 2.48e-5 / 7.92e-5)
+    "fused_attention_f32_prerounded": (2e-4, 6.5e-6, 2.8e-6),
     "tiny_attention": (2.3e-3, 3.9e-5, 2.4e-7),
     # divided_backward.divided_attention_backward_float32_route: P and dS
     # against their bf16 rounding boundaries as above; readings (the

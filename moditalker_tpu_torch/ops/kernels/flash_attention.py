@@ -16,7 +16,10 @@ B:
   float32 at Nq = Nk with K resident from ``ONEPASS_F32_MIN_SEQS``
   sequences the float32 space kernel's ``csrc/resident_f32_tile.cuh``
   without its rotary (K and V rounded once per sequence, V into a scratch
-  the wrapper allocates, two consumer warpgroups);
+  the wrapper allocates, two consumer warpgroups), and in float32 past
+  resident K a pre-pass that rounds K and V to bf16 once per sequence into
+  a scratch the wrapper allocates, then the tile's bf16 K ring on it
+  (``onepass_f32_prerounded``);
   every other d % 8 == 0 above 32 that tile built per width
   (``csrc/wgmma_wide.cuh``, ``csrc/flash_wide.cu``: ``wgmma`` with Q in
   shared memory, K and V streamed, P·V at N = d). Bound by operations.
@@ -118,6 +121,23 @@ RESIDENT_KEYS_D64 = 1152
 # 1.02x the route in two calls: no faster); no other length was measured,
 # so the route takes every length not listed
 ONEPASS_F32_MIN_SEQS = {1024: 192}
+# float32 q, k, v at head dim 64 past resident K: where the pre-pass that
+# rounds K and V to bf16 once per sequence, then the bf16 K ring
+# (PREROUNDED_ENTRY), read faster than the wgmma tile's float32 route, whose
+# producer rounds K and V once per block of 128 query rows
+# (``onepass_f32_prerounded``; tools/ab_space_f32.py --onepass --gate on an
+# H100, PERF.md). The pre-pass reads K and V once and writes half as much;
+# the route reads them once per query block. So the kernel from
+# PREROUNDED_MIN_BLOCKS query blocks a sequence (Nq > 384: 0.85x the route
+# at [128, 512] over 2048 keys, every one-pass length 0.66-0.93x), and at
+# fewer where B·Nk is at most PREROUNDED_MAX_KEYS, so that the pre-pass is
+# short and each block's time rules (0.90x at [2, 300] over 1280 keys, 0.97x
+# at [16, 128] over 2048); the route with fewer blocks over more keys
+# (1.11-1.60x at [128 | 512 | 1280, 64 | 128 | 256] over 2048 keys)
+PREROUNDED_ENTRY = "fused_attention_f32_prerounded"
+PREROUNDED_MIN_BLOCKS = 4
+PREROUNDED_MAX_KEYS = 16 * 2048
+_RING_ROWS = 128            # query rows per block of the K ring
 _KEY_TILE = 128             # keys per tile of the kernels' online softmax
 _LOG2E = 1.4426950408889634  # the kernels' kLog2e (held in fp32)
 # how the tensor cores sum bf16 products into an fp32 accumulator (mma.sync
@@ -243,16 +263,19 @@ def attention_float32_route(q, k, v, scale: float, exp2: bool = False):
 
 def _bind(lib: ctypes.CDLL, suffix: str, tiny: bool = False) -> ctypes.CDLL:
     """Binds the entry point of ``lib``; the float32 one of
-    ``flash_attention_f32.cu`` also takes the V scratch (or null)."""
+    ``flash_attention_f32.cu`` also takes the V scratch (or null), and that
+    library's ``fused_attention_f32_prerounded`` the K and V scratch."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if tiny:
-        entry = getattr(lib, "tiny_attention" + suffix)
-        entry.argtypes = [p, p, p, p, ctypes.c_long, i, i, fl, p]
+        names = ["tiny_attention" + suffix]
+        argtypes = [p, p, p, p, ctypes.c_long, i, i, fl, p]
     else:
-        entry = getattr(lib, "fused_attention" + suffix)
-        entry.argtypes = [p] * (5 if suffix == "_f32" else 4) + [i, i, i, i,
-                                                                 fl, p]
-    entry.restype = i
+        names = ["fused_attention" + suffix] + (
+            [PREROUNDED_ENTRY] if suffix == "_f32" else [])
+        argtypes = [p] * (5 if suffix == "_f32" else 4) + [i, i, i, i, fl, p]
+    for name in names:
+        entry = getattr(lib, name)
+        entry.argtypes, entry.restype = argtypes, i
     return lib
 
 
@@ -359,6 +382,41 @@ def onepass_f32_scratch(b: int, n: int, device):
     return torch.empty(b, n, 64, dtype=torch.bfloat16, device=device)
 
 
+def onepass_f32_prerounded(b: int, nq: int, nk: int) -> bool:
+    """Whether float32 q, k, v at head dim 64, [B, Nq, 64] over [B, Nk, 64],
+    run the pre-pass that rounds K and V to bf16 once per sequence and the
+    wgmma tile's bf16 K ring on its scratch (the entry point
+    ``fused_attention_f32_prerounded``) rather than the wgmma tile's
+    float32 route, whose producer rounds every K and V tile again in each
+    of a sequence's blocks: the one place that chooses. Past resident K
+    (``RESIDENT_KEYS_D64``), from ``PREROUNDED_MIN_BLOCKS`` blocks of 128
+    query rows a sequence (every one-pass length there), or over at most
+    ``PREROUNDED_MAX_KEYS`` keys in all."""
+    blocks = -(-nq // _RING_ROWS)
+    return nk > RESIDENT_KEYS_D64 and (blocks >= PREROUNDED_MIN_BLOCKS
+                                       or b * nk <= PREROUNDED_MAX_KEYS)
+
+
+def onepass_f32_kv_scratch(b: int, nk: int, device):
+    """The pre-pass's scratch, allocated (``torch.empty``) for one call:
+    bf16 [2, B, Nk, 64], K then V rounded once."""
+    return torch.empty(2, b, nk, 64, dtype=torch.bfloat16, device=device)
+
+
+def prerounded_kv_reference(k, v):
+    """The plain version of the pre-pass: k, v [B, Nk, 64] float32 rounded
+    to bf16 once (to nearest) → the scratch [2, B, Nk, 64] bf16."""
+    return torch.stack([k.bfloat16(), v.bfloat16()])
+
+
+def attention_float32_route_from_scratch(q, kv, scale: float,
+                                         exp2: bool = False):
+    """``attention_float32_route`` on float32 q and the pre-pass's scratch
+    kv [2, B, Nk, 64] bf16: what the K-ring kernel computes from it."""
+    return attention_float32_route(q, kv[0].float(), kv[1].float(), scale,
+                                   exp2)
+
+
 def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     """The one-pass and the fused wrapper's checks and launch (the one-pass
     kernel is the fused one at Nq = Nk): q [B, Nq, D] over k, v [B, nk, D]
@@ -367,9 +425,11 @@ def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     instead of staying in shared memory) only whole 128-key tiles. The
     float32 entry point at 64 takes the V scratch (``onepass_f32_scratch``)
     where ``onepass_f32_own_kernel`` takes its own kernel, a null pointer
-    (the wgmma tile's float32 route) elsewhere; this allocates it.
-    Returns the output, whether it is float32 and the entry point launched
-    ("+ V scratch" where it was given one)."""
+    (the wgmma tile's float32 route) elsewhere; past resident K, where
+    ``onepass_f32_prerounded`` takes it, ``fused_attention_f32_prerounded``
+    takes the K and V scratch (``onepass_f32_kv_scratch``) instead; this
+    allocates each. Returns the output, whether it is float32 and the entry
+    point launched ("+ V scratch" where it was given one)."""
     b, nq, d = q.shape
     q, k, v, f32 = _operands(what, q, k, v, (b, nk, d))
     if d % 8 or d < 8:
@@ -382,11 +442,14 @@ def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     out = torch.empty_like(q)
     lib, entry = _library(d, f32)
     pointers = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
-    own = False
+    own, scratch = False, None
     if entry == "fused_attention_f32":
-        own = d == 64 and onepass_f32_own_kernel(b, nq, nk)
-        scratch = onepass_f32_scratch(b, nk, q.device) if own else None
-        pointers.append(scratch.data_ptr() if own else None)
+        if d == 64 and onepass_f32_prerounded(b, nq, nk):
+            entry = PREROUNDED_ENTRY
+            scratch = onepass_f32_kv_scratch(b, nk, q.device)
+        elif d == 64 and onepass_f32_own_kernel(b, nq, nk):
+            own, scratch = True, onepass_f32_scratch(b, nk, q.device)
+        pointers.append(None if scratch is None else scratch.data_ptr())
     status = getattr(lib, entry)(
         *pointers, out.data_ptr(), b, nq, nk, d, scale, kernels.cuda_stream(q))
     _build.check(lib, status, f"{what} attention ({entry})")

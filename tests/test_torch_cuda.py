@@ -42,7 +42,8 @@ import torch
 
 from moditalker_tpu_torch.ops import attention, rotary
 from moditalker_tpu_torch.ops.kernels import (FLOAT32_LAUNCHES_BY_SHAPE,
-                                              LAUNCHES, bf16_rounded_share,
+                                              LAUNCHES, LAUNCHES_BY_ENTRY,
+                                              bf16_rounded_share,
                                               check_bf16, check_float32_route)
 from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import divided_backward as tbwd
@@ -221,17 +222,17 @@ def _randn32(gen, *shape):
     return torch.randn(shape, generator=gen, device="cuda")
 
 
-def _check_float32(name, got, plain, route):
+def _check_float32(name, got, plain, route, limits=None):
     """A kernel's float32 result: float32, under 1 % of it equal to its bf16
     rounding, within the limits of the float32 plain version and of its
-    float32 route's function; the route's result rounded to bf16 fails the
-    route's limits."""
+    float32 route's function (``FLOAT32_ROUTE_LIMITS[limits or name]``);
+    the route's result rounded to bf16 fails the route's limits."""
     assert got.dtype == torch.float32
     assert bf16_rounded_share(got) < 0.01
     check_bf16(name, got, plain)
-    check_float32_route(name, got, route)
+    check_float32_route(limits or name, got, route)
     with pytest.raises(AssertionError, match="float32 route"):
-        check_float32_route(name, route.bfloat16().float(), route)
+        check_float32_route(limits or name, route.bfloat16().float(), route)
 
 
 @pytest.mark.cuda
@@ -337,6 +338,84 @@ def test_onepass_f32_kernel_refuses_other_shapes(gen):
             torch.empty_like(q).data_ptr(), b, nq, nk, d, d**-0.5,
             torch.cuda.current_stream().cuda_stream)
         assert status != 0, (b, nq, nk, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,nk", [(80, 2048, 2048), (2, 1280, 1280),
+                                     (8, 1536, 1536), (16, 1000, 2048),
+                                     (2, 300, 1280)])
+def test_onepass_f32_prerounded_is_the_route_bit_for_bit(gen, monkeypatch, b,
+                                                         nq, nk):
+    """Past resident K the float32 one-pass and fused wrappers at head dim
+    64 launch the pre-pass that rounds K and V to bf16 once per sequence and
+    the wgmma tile's bf16 K ring on its scratch
+    (``fused_attention_f32_prerounded``): within the limits of the float32
+    plain version and of the route's ``exp2`` form (the entry point's own
+    ``FLOAT32_ROUTE_LIMITS``), two calls equal bit for bit, and equal bit
+    for bit to the wgmma tile's float32 route, forced.
+    The shapes: the 256-channel UNet's joint attention at train-diffusion's
+    B = 10, a few sequences at 1280 and 1536 keys, fused query rows over
+    2048 and 1280 keys (ragged and short of a block)."""
+    d, name = 64, "onepass_attention" if nq == nk else "fused_attention"
+    q = _randn32(gen, b, nq, d)
+    k, v = (_randn32(gen, b, nk, d) for _ in range(2))
+    call = ((lambda: tflash.onepass_attention(q, k, v, d**-0.5)) if nq == nk
+            else (lambda: tflash.fused_attention(q, k, v)))
+    entry = "fused_attention_f32_prerounded"
+    before = LAUNCHES_BY_ENTRY[entry]
+    got = _launched(name, call)
+    assert LAUNCHES_BY_ENTRY[entry] == before + 1
+    _check_float32(name, got,
+                   tflash.onepass_attention_reference(q, k, v, d**-0.5),
+                   tflash.attention_float32_route(q, k, v, d**-0.5,
+                                                  exp2=True), limits=entry)
+    assert torch.equal(got, call())
+    monkeypatch.setattr(tflash, "onepass_f32_prerounded", lambda *a: False)
+    assert torch.equal(got, call())
+    assert LAUNCHES_BY_ENTRY[entry] == before + 2
+
+
+@pytest.mark.cuda
+def test_onepass_f32_prepass_matches_plain(gen):
+    """Called on its own, ``fused_attention_f32_prerounded`` leaves in the
+    scratch it is given (NaN before the call) k and v rounded to bf16 once,
+    bit for bit ``prerounded_kv_reference``, and its output equals the
+    wrapper's."""
+    b, nq, nk, d = 3, 1000, 1536, 64
+    q = _randn32(gen, b, nq, d)
+    k, v = (_randn32(gen, b, nk, d) for _ in range(2))
+    kv = torch.full((2, b, nk, d), float("nan"), dtype=torch.bfloat16,
+                    device="cuda")
+    out = torch.empty_like(q)
+    lib = tflash._lib_f32()
+    status = lib.fused_attention_f32_prerounded(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), kv.data_ptr(),
+        out.data_ptr(), b, nq, nk, d, d**-0.5,
+        torch.cuda.current_stream().cuda_stream)
+    assert status == 0
+    assert torch.equal(kv, tflash.prerounded_kv_reference(k, v))
+    assert torch.equal(out, tflash.fused_attention(q, k, v))
+
+
+@pytest.mark.cuda
+def test_onepass_f32_prerounded_refuses_other_shapes(gen):
+    """``fused_attention_f32_prerounded`` takes head dim 64 past resident K
+    (1152 keys) in whole 128-key tiles, with a scratch, and refuses anything
+    else with an error: it never gives way to another kernel."""
+    lib = tflash._lib_f32()
+    for b, nq, nk, d, with_scratch in (
+            (2, 1024, 1024, 64, True), (2, 1152, 1152, 64, True),
+            (2, 1280, 1280, 32, True), (2, 1280, 1300, 64, True),
+            (2, 1280, 1280, 64, False)):
+        q = _randn32(gen, b, nq, d)
+        k = _randn32(gen, b, nk, d)
+        kv = tflash.onepass_f32_kv_scratch(b, nk, q.device)
+        status = lib.fused_attention_f32_prerounded(
+            q.data_ptr(), k.data_ptr(), k.data_ptr(),
+            kv.data_ptr() if with_scratch else None,
+            torch.empty_like(q).data_ptr(), b, nq, nk, d, d**-0.5,
+            torch.cuda.current_stream().cuda_stream)
+        assert status != 0, (b, nq, nk, d, with_scratch)
 
 
 @pytest.mark.cuda

@@ -222,12 +222,16 @@ def test_float32_entry_points_are_in_their_own_source():
                    "divided_space_backward_dq_classes",
                    "divided_space_backward_dkdv_classes",
                    "divided_time_attention_backward_classes"}}
+    # float32 alone: the one-pass and fused kernels at head dim 64 past
+    # resident K (the pre-pass and the bf16 K ring)
+    float32_only = {"flash_attention_f32": {tflash.PREROUNDED_ENTRY}}
     for source, names in symbols.items():
         for src, suffix in ((source, ""), (source + "_f32", "_f32")):
             text = (_build.CSRC / f"{src}.cu").read_text()
             c_api = text[text.index('extern "C" {'):]
             found = set(re.findall(r"\bint (\w+)\(", c_api))
-            assert found == {n + suffix for n in names}, src
+            assert found == {n + suffix for n in names} | float32_only.get(
+                src, set()), src
     for name, source in tkernels.SOURCES.items():
         assert tkernels.FLOAT32_SOURCES[name] == source + "_f32"
     for name, source in tkernels.CLASS_SOURCES.items():
@@ -460,9 +464,11 @@ def test_float32_at_head_dim_64_is_built_for_resident_k(stub_launches):
     """At head dim 64 the float32 route keeps K resident in shared memory up
     to the tile's ``kWgMaxKSlots`` tiles of 128 keys, and above that takes
     the K ring as bf16 does: the UNet's joint attention at 256 model
-    channels, [B·8, 2048, 64], launches the float32 entry point (one-pass,
-    and fused at a cross length); past resident K only whole 128-key tiles,
-    in either type, refused before anything is built or launched."""
+    channels, [B·8, 2048, 64], launches the float32 K ring's entry point
+    past resident K, here the pre-pass and the bf16 K ring (one-pass, and
+    fused at a cross length; ``onepass_f32_prerounded``); past resident K
+    only whole 128-key tiles, in either type, refused before anything is
+    built or launched."""
     tile = (_build.CSRC / "wgmma_tile.cuh").read_text()
     slots = int(re.search(r"kWgMaxKSlots = (\d+);", tile).group(1))
     assert tflash.RESIDENT_KEYS_D64 == 128 * slots
@@ -471,13 +477,15 @@ def test_float32_at_head_dim_64_is_built_for_resident_k(stub_launches):
     assert out.dtype == torch.float32 and out.shape == x.shape
     out = tflash.fused_attention(x[:, :300], x, x)
     assert out.dtype == torch.float32 and out.shape == (2, 300, 64)
-    assert stub_launches == ["fused_attention_f32"] * 2
+    assert tflash.onepass_f32_prerounded(2, 2048, 2048)
+    assert tflash.onepass_f32_prerounded(2, 300, 2048)
+    assert stub_launches == [tflash.PREROUNDED_ENTRY] * 2
     kv = torch.zeros(2, tflash.RESIDENT_KEYS_D64 + 8, 64)
     for dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="only in multiples of 128"):
             tflash.fused_attention_cuda(x[:, :64].to(dtype), kv.to(dtype),
                                         kv.to(dtype), 0.125)
-    assert stub_launches == ["fused_attention_f32"] * 2
+    assert stub_launches == [tflash.PREROUNDED_ENTRY] * 2
 
 
 def test_route_sums_scores_as_the_tensor_cores():

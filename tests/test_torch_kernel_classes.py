@@ -191,12 +191,15 @@ def test_sdpa_gate_grid_launches_everywhere_it_opens(stub_launches, dtype):
     assert tkernels.LAUNCHES["fused_attention"] == 0
 
 
-def _fused_entry(d, dtype):
+def _fused_entry(d, dtype, b=2, nq=1, nk=1):
     """The C entry point the fused and one-pass wrappers call at head dim
     d: the configurations' instantiations, the small-head classes up to 32
     (and in bf16 where they ran faster), the wgmma tile built per width
-    above."""
+    above; in float32 at 64, q [b, nq] over k [b, nk] past resident K where
+    ``onepass_f32_prerounded`` takes it, the pre-pass and the bf16 K ring."""
     f32 = dtype == torch.float32
+    if f32 and d == 64 and tflash.onepass_f32_prerounded(b, nq, nk):
+        return tflash.PREROUNDED_ENTRY
     if d in tflash.HEAD_DIMS:
         entry = "fused_attention"
     elif d <= tflash.SMALLHEAD_MAX_DIM or (
@@ -223,7 +226,7 @@ def test_fused_gate_grid_launches_everywhere_it_opens(stub_launches, dtype):
             stub_launches.clear()
             attention.sdpa_fused(q, k, k, d**-0.5)
             assert tkernels.LAUNCHES["fused_attention"] == before + 1
-            assert stub_launches == [_fused_entry(d, dtype)], d
+            assert stub_launches == [_fused_entry(d, dtype, 2, nq, nk)], d
         for nk in (8, 64, 120):
             assert tflash.fused_attention_tiles(nk, d)
             q = torch.empty(2, 33, d, dtype=dtype, device="meta")

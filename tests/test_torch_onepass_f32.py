@@ -9,7 +9,8 @@ interpret mode by ``tests/test_torch_float32_route.py``. Here: the wrapper
 driven with stub libraries (float32 q, k, v [B, 1024, 64] from
 ``ONEPASS_F32_MIN_SEQS`` sequences launch ``fused_attention_f32`` once with
 the V scratch the wrapper allocates, fewer with a null pointer, the wgmma
-tile's float32 route, and every other shape on that route), the chooser
+tile's float32 route, and every other shape on that route, but those past
+resident K that ``tests/test_torch_prerounded_f32.py`` holds), the chooser
 against the paired readings that set its table, and the plan and the
 entry point's dispatch as the sources state them.
 """
@@ -115,7 +116,7 @@ def test_fused_at_equal_lengths_takes_the_kernel(recorded):
 
 @pytest.mark.parametrize("q_shape,kv_shape", [
     ((2, 64, 64), (2, 512, 64)),        # the fused cross-length shape
-    ((80, 2048, 64), (80, 2048, 64)),   # the 256-channel UNet: the K ring
+    ((128, 128, 64), (128, 2048, 64)),  # past resident K: the route's ring
     ((128, 1152, 64), (128, 1152, 64)),     # a length the table lacks
     ((128, 1000, 64), (128, 1024, 64)),     # ragged query rows
     ((128, 1024, 32), (128, 1024, 32)),     # the small-head tile
@@ -125,10 +126,12 @@ def test_other_float32_shapes_stay_on_their_route(stub_launches, recorded,
                                                   q_shape, kv_shape):
     """Every other float32 shape keeps the kernel it ran before, with no
     scratch: the cross-length and ragged fused shapes, the K ring past 1152
-    keys and lengths the table does not list at head dim 64 on the wgmma
-    tile's float32 route, head dim 32 on the small-head tile (a null
-    pointer: the same entry point), head dim 128 on the wide tile (another
-    library's entry point, which takes none)."""
+    keys where ``onepass_f32_prerounded`` keeps the route (one block of
+    query rows a sequence over many keys) and lengths the table does not
+    list at head dim 64 on the wgmma tile's float32 route, head dim 32 on
+    the small-head tile (a null pointer: the same entry point), head dim
+    128 on the wide tile (another library's entry point, which takes
+    none)."""
     calls, made = recorded
     q, k, v = (torch.empty(q_shape), torch.empty(kv_shape),
                torch.empty(kv_shape))

@@ -1,4 +1,4 @@
-"""Paired timing of the float32 resident-K kernel at head dim 64 on one card.
+"""Paired timing of the float32 attention kernels at head dim 64 on one card.
 
 The float32 resident-K kernel (csrc/resident_f32_tile.cuh) is timed where
 its two callers run it: the divided space attention (the entry point
@@ -6,7 +6,9 @@ its two callers run it: the divided space attention (the entry point
 train-first-stage's shapes, qkv [10 | 1, 16, 1024, 1536] float32 (8 heads
 of 64), or with ``--onepass`` the one-pass attention (``fused_attention_f32``
 through ``onepass_attention``) at the modular path's head-split shapes of
-the same, q, k, v [1280 | 128, 1024, 64] float32 (``--shapes`` for others).
+the same, q, k, v [1280 | 128, 1024, 64] float32 (``--shapes`` for others;
+past 1152 keys the one-pass and fused kernels' pre-pass and bf16 K ring,
+``fused_attention_f32_prerounded``).
 Each copy of the kernel runs in a process of its own that builds it, in
 turns. Each reading is ``chip_smoke.time_ms``: a CUDA graph of 20 calls, the
 median of five replays. Each process also checks the output against the
@@ -37,12 +39,16 @@ kernel's ``-Xptxas -v`` line. Modes:
   written over each block's scratch slot once nothing reads it (this
   checkout, and the other caller's plan in its place);
 * ``--gate``: both sides of the wrapper's choice (``space_f32_own_kernel``;
-  with ``--onepass`` ``onepass_f32_own_kernel``) in this checkout, each
-  forced at every shape, in turns route, kernel, kernel, route: the kernel
-  of its own against the wgmma tile's float32 route, by default over 128 to
-  1280 (frame, head) pairs and N = 256 to 1152 (``GATE_SHAPES``; one-pass:
-  64 to 1280 sequences at N = 1024, ``ONEPASS_GATE_SHAPES``), with the side
-  the wrapper takes at each.
+  with ``--onepass`` ``onepass_f32_own_kernel`` with K resident and
+  ``onepass_f32_prerounded`` past it) in this checkout, each forced at
+  every shape, in turns route, kernel, kernel, route: the kernel of its own
+  against the wgmma tile's float32 route, by default over 128 to 1280
+  (frame, head) pairs and N = 256 to 1152 (``GATE_SHAPES``; one-pass: 64
+  to 1280 sequences at N = 1024, ``ONEPASS_GATE_SHAPES``, and past
+  resident K the one-pass and fused shapes of ``PREROUNDED_GATE_SHAPES``,
+  B x Nq x Nk for the fused kernel), with the side the wrapper takes at
+  each; ``--bf16`` also times the bf16 tile at each one-pass shape first,
+  the yardstick.
 
 The header edits of ``--variants``, ``--split`` and ``--clock`` change the
 kernel of both callers; ``--onepass`` times the one-pass caller's.
@@ -54,6 +60,7 @@ kernel of both callers; ``--onepass`` times the one-pass caller's.
     python3 tools/ab_space_f32.py --gate --reps 1
     python3 tools/ab_space_f32.py --onepass --before build/before
     python3 tools/ab_space_f32.py --onepass --gate --reps 1
+    python3 tools/ab_space_f32.py --onepass --gate --bf16 --shapes 80x2048
 """
 
 from __future__ import annotations
@@ -259,8 +266,10 @@ onepass = sys.argv[4] == "onepass"
 source = "flash_attention_f32" if onepass else "divided_attention_f32"
 # the kernel's registers and spills: the resident-K kernel of the caller
 # timed (an earlier copy's: the space kernel of its own, or the wgmma tile's
-# float32 instantiation without the rotary and resident K)
-kernel = (("OnepassF32Args", "wgmma_attention_kernelILb0ELi3EffE")
+# float32 instantiation without the rotary and resident K), and past
+# resident K the bf16 K ring on float32 q and output
+kernel = (("OnepassF32Args", "wgmma_attention_kernelILb0ELi3EffE",
+           "wgmma_attention_kernelILb0ELi2E13__nv_bfloat16fE")
           if onepass else ("SpaceF32Args", "space_f32_kernel"))
 for name, (secs, log) in _build.build([source]).items():
     lines = log.splitlines()
@@ -269,22 +278,37 @@ for name, (secs, log) in _build.build([source]).items():
             print("#", lines[i + 1].strip(), lines[i + 2].strip())
         if "serialized" in line:
             print("#", line.strip())
-if sys.argv[3]:   # --gate: one side of the wrapper's choice at every shape
-    own = lambda *a: sys.argv[3] == "kernel"
+side = sys.argv[3]
+if side in ("kernel", "route"):  # --gate: one side of the wrapper's choice
+    own = lambda *a: side == "kernel"
     if onepass:
-        fa.onepass_f32_own_kernel = own
+        # with resident K the float32 resident-K kernel; past it the
+        # pre-pass and the bf16 K ring (each against the wgmma tile's
+        # float32 route)
+        resident = fa.RESIDENT_KEYS_D64
+        fa.onepass_f32_own_kernel = lambda b, nq, nk: own() and nk <= resident
+        fa.onepass_f32_prerounded = lambda b, nq, nk: own() and nk > resident
     else:
         dv.space_f32_own_kernel = own
 gen = torch.Generator(device="cuda").manual_seed(0)
+torch.set_grad_enabled(False)
 for shape in sys.argv[2].split(","):
     if onepass:
-        b, n = map(int, shape.split("x"))
-        q, k, v = (torch.randn((b, n, 64), generator=gen, device="cuda")
-                   for _ in range(3))
-        call = lambda: fa.onepass_attention(q, k, v, 0.125)
-        if sys.argv[1] == "1" and b <= 128:
-            check_float32_route("onepass_attention", call(),
-                                fa.attention_float32_route(q, k, v, 0.125))
+        # B x N (one-pass) or B x Nq x Nk (fused); side "bf16": the bf16
+        # tile at the shape, the yardstick
+        dims = list(map(int, shape.split("x")))
+        b, nq, nk = dims if len(dims) == 3 else (dims[0], dims[1], dims[1])
+        dtype = torch.bfloat16 if side == "bf16" else torch.float32
+        q = torch.randn((b, nq, 64), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((b, nk, 64), generator=gen, device="cuda")
+                .to(dtype) for _ in range(2))
+        call = ((lambda: fa.onepass_attention(q, k, v, 0.125)) if nq == nk
+                else (lambda: fa.fused_attention(q, k, v, 0.125)))
+        if sys.argv[1] == "1" and side != "bf16" and b * nq * nk <= 2**27:
+            exp2 = nk > fa.RESIDENT_KEYS_D64
+            check_float32_route(
+                "onepass_attention" if nq == nk else "fused_attention",
+                call(), fa.attention_float32_route(q, k, v, 0.125, exp2=exp2))
         print(shape, chip_smoke.time_ms(torch, call), flush=True)
         continue
     b, f, n = map(int, shape.split("x"))
@@ -308,9 +332,18 @@ GATE_SHAPES = ",".join(
     [f"{b}x16x{n}" for b in (1, 2, 10) for n in range(256, 1153, 128)]
     + [f"1x{f}x1024" for f in (8, 10, 12)])
 # --onepass --gate: 64 to 1280 sequences at the one-pass gate's resident-K
-# length (B x N)
+# length (B x N); past resident K 2 to 80 sequences of 2048 (the 256-channel
+# UNet's joint attention at B = 10, 2 and 1, and fewer), 1280 and 1536 keys,
+# and fused shapes, Nq query rows over Nk keys (B x Nq x Nk), on both sides
+# of onepass_f32_prerounded's query blocks and keys
 ONEPASS_GATE_SHAPES = ",".join(
-    f"{b}x1024" for b in (64, 72, 96, 128, 256, 1280))
+    [f"{b}x1024" for b in (64, 72, 96, 128, 256, 1280)])
+PREROUNDED_GATE_SHAPES = ",".join(
+    [f"{b}x2048" for b in (80, 16, 8, 2)]
+    + [f"{b}x{n}" for n in (1280, 1536) for b in (80, 8)]
+    + [f"{b}x{nq}x2048" for b, nq in ((16, 1000), (16, 128), (128, 128),
+                                      (128, 256), (128, 512), (80, 1000))]
+    + ["2x300x1280"])
 
 
 def own_kernel(shape: str, onepass: bool) -> bool:
@@ -320,8 +353,11 @@ def own_kernel(shape: str, onepass: bool) -> bool:
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
     if onepass:
-        b, n = map(int, shape.split("x"))
-        return fa.onepass_f32_own_kernel(b, n, n)
+        dims = list(map(int, shape.split("x")))
+        b, nq, nk = dims if len(dims) == 3 else (dims[0], dims[1], dims[1])
+        if nk > fa.RESIDENT_KEYS_D64:
+            return fa.onepass_f32_prerounded(b, nq, nk)
+        return fa.onepass_f32_own_kernel(b, nq, nk)
     b, f, n = map(int, shape.split("x"))
     return dv.space_f32_own_kernel(b * f, n, 8)
 
@@ -350,7 +386,9 @@ def run(copy: Path, check: bool, shapes: str, side: str = "",
     output checked against the route at each shape of 16 frames (128
     sequences) or fewer (where ``check``), and its readings by shape;
     ``side`` (``kernel`` or ``route``) forces that side of the wrapper's
-    choice; ``onepass``: the one-pass caller's kernel at [B, N, 64]."""
+    choice (``bf16``: the bf16 tile at the one-pass shapes);
+    ``onepass``: the one-pass caller's kernel at [B, N, 64] (and the fused
+    one at [B, Nq, 64] over [B, Nk, 64])."""
     out = subprocess.run([sys.executable, "-c", TIME, str(int(check)),
                           shapes, side, "onepass" if onepass else "space"],
                          cwd=copy, capture_output=True, text=True, timeout=600)
@@ -372,11 +410,15 @@ def main() -> int:
     ap.add_argument("--shapes", default=None,
                     help="qkv shapes BxFxN (8 heads of 64), comma-separated "
                          "(default 10x16x1024,1x16x1024; with --gate "
-                         "GATE_SHAPES); with --onepass q shapes BxN of 64 "
-                         "(default 1280x1024,128x1024; with --gate "
-                         "ONEPASS_GATE_SHAPES)")
+                         "GATE_SHAPES); with --onepass q shapes BxN of 64, "
+                         "or BxNqxNk for the fused kernel (default "
+                         "1280x1024,128x1024; with --gate "
+                         "ONEPASS_GATE_SHAPES and PREROUNDED_GATE_SHAPES)")
     ap.add_argument("--onepass", action="store_true",
                     help="the one-pass caller's kernel")
+    ap.add_argument("--bf16", action="store_true",
+                    help="with --onepass --gate: the bf16 tile at each "
+                         "shape too, the yardstick, first in each rep")
     ap.add_argument("--pick", default=None,
                     help="with --variants: the names to run, separated by "
                          "'|' (default all)")
@@ -388,7 +430,8 @@ def main() -> int:
     args = ap.parse_args()
     if args.shapes is None:
         args.shapes = (
-            (ONEPASS_GATE_SHAPES if args.gate else "1280x1024,128x1024")
+            (ONEPASS_GATE_SHAPES + "," + PREROUNDED_GATE_SHAPES if args.gate
+             else "1280x1024,128x1024")
             if args.onepass else
             (GATE_SHAPES if args.gate else "10x16x1024,1x16x1024"))
     what = ("float32 one-pass at [{}, 64]" if args.onepass else
@@ -429,8 +472,9 @@ def main() -> int:
                   for name, edits in table.items()}
         turns = list(copies.items())
     elif args.gate:
-        turns = [("route", ROOT), ("kernel", ROOT), ("kernel", ROOT),
-                 ("route", ROOT)]
+        turns = ([("bf16", ROOT)] if args.bf16 else []) + [
+            ("route", ROOT), ("kernel", ROOT), ("kernel", ROOT),
+            ("route", ROOT)]
     else:
         if not (args.before / HEADER.replace("resident_f32_tile",
                                              "wgmma_tile")).exists():
@@ -464,7 +508,9 @@ def main() -> int:
             print(f"{shape} ({count}): kernel / route "
                   f"{best['kernel'] / best['route']:.4f}, the wrapper takes "
                   + ("the kernel" if own_kernel(shape, args.onepass) else
-                     "the route"))
+                     "the route")
+                  + (f"; kernel / bf16 tile {best['kernel'] / best['bf16']:.4f}"
+                     if "bf16" in best else ""))
         elif not args.variants:
             print(f"{shape}: this / before "
                   f"{best['this'] / best['before']:.4f}")

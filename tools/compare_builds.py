@@ -9,14 +9,17 @@ commit (``git archive <parent> | tar -x -C build/parent``):
    ``_f32`` translation units), compiled with ``nvcc -ptx`` in both copies,
    compared after register numbers, labels and the repository's symbols
    are normalised; prints the count of differing lines per function
-   (template arguments matched by the kernels' int and bool parameters; a
+   (template arguments matched by the kernels' int, bool and element-type
+   parameters, float or bf16; a
    kernel of this copy that the other lacks is also held against the
    closest of the other's kernels that this copy lacks, as a renamed or
    re-templated kernel is).
 2. Outputs: the space (resident K, K ring, N = 256), time, packed,
    one-pass (D = 16, 32 and 64; at 64 also the modular path's [1280 | 128,
    1024, 64]), fused (D = 16 and 32 across lengths, D = 64
-   with a ragged Nq over a short key tile) and tiny-L kernels, the one-pass
+   with a ragged Nq over a short key tile, and past resident K: [80, 2048]
+   and [16 | 128, 1280 | 128] over 2048 keys, on both sides of the float32
+   chooser) and tiny-L kernels, the one-pass
    and fused kernels' classes and wide tile (D = 24, 48, 128, 136, 256),
    the time kernel's 32-frame class, the space kernel's pre-rotated design
    at 4 x 128 and 16 x 32, and the space and time backward kernels (space
@@ -149,6 +152,13 @@ for heads, d in ((4, 128), (16, 32)):
         lambda o=o, psin=psin, pcos=pcos, heads=heads, d=d: \
         dv.space_attention_backward_cuda(flat(x), o, flat(g_), psin, pcos,
                                          heads, d, d**-0.5)
+# float32 at head dim 64 past resident K: the 256-channel UNet's joint
+# attention and query rows over its 2048 keys (the pre-pass and the bf16 K
+# ring where this copy's chooser takes it), and a shape the route keeps
+for b, nq, nk in ((80, 2048, 2048), (16, 1280, 2048), (128, 128, 2048)):
+    t = [rnd(b, nq, 64), rnd(b, nk, 64), rnd(b, nk, 64)]
+    put[f"fused q [{b}, {nq}, 64] k [{b}, {nk}, 64]"] = \
+        lambda t=t: fa.fused_attention(*t)
 torch.save({"out": {k: None if t is None else t.cpu()
                     for k, t in out.items()}, "ms": ms}, sys.argv[1])
 """
@@ -162,7 +172,8 @@ def kernels(ptx: str) -> dict[str, list[str]]:
     for a, b in zip(starts, starts[1:]):
         body = ptx[a:b]
         name = re.match(r"\.entry (\w+)", body).group(1)
-        key = re.match(r"(_ZN3mdt\d+\w+?I(?:L[bi]\d+E)+)", name)
+        key = re.match(r"(_ZN3mdt\d+\w+?I(?:L[bi]\d+E|f|13__nv_bfloat16)+)",
+                       name)
         body = re.sub(r"_ZZ?N3mdt\w+", "SYM", body)
         body = re.sub(r"%(r|rd|f|p|fd|rs)\d+", r"%\1", body)
         body = re.sub(r"\$L__BB\d+_\d+", "L", body)

@@ -35,10 +35,15 @@ contract ``a·c − b·s`` (and ``b·c + a·s``): the first product or the secon
 kept exact and the other rounded before the one rounding of the sum (the
 exact product in float64, rounded once: a true FMA but for rare double
 roundings). The tile that rounds as the plain rotary does should sit on
-the plain route and off these.
+the plain route and off these. ``--prerounded``: the float32 one-pass and
+fused kernels at head dim 64 past resident K (the pre-pass and the bf16 K
+ring, ``fused_attention_f32_prerounded``, forced at every shape), the three
+measures against ``attention_float32_route`` with ``exp2`` and with
+``exp`` over seeds 0–3 at the shapes of ``tests/test_torch_cuda.py`` and
+``chip_smoke.py`` (one JSON line each, the largest reading last).
 
-    python3 tools/mma_sum.py [--seeds 3] [--wide | --space [--fma]]
-                                                   # repo root, on a card
+    python3 tools/mma_sum.py [--seeds 3] [--wide | --space [--fma] |
+                             --prerounded]          # repo root, on a card
 """
 
 from __future__ import annotations
@@ -61,6 +66,9 @@ def main() -> int:
                     help="only the divided space kernels")
     ap.add_argument("--fma", action="store_true",
                     help="with --space: also the routes with an FMA rotary")
+    ap.add_argument("--prerounded", action="store_true",
+                    help="only the float32 one-pass and fused kernels past "
+                         "resident K")
     args = ap.parse_args()
     import torch
 
@@ -145,6 +153,9 @@ def main() -> int:
                   % (name, off.sum().item(), (off & near).sum().item(),
                      *relative_errors(got, r)), flush=True)
 
+    if args.prerounded:
+        prerounded_limits(torch)
+        return 0
     if args.space:
         from moditalker_tpu_torch.ops import rotary
         from moditalker_tpu_torch.ops.kernels import divided_attention as dv
@@ -312,6 +323,39 @@ def space_limits(torch, fma: bool = False) -> None:
                                                zip(w, errs[route])]
             print(json.dumps({"seed": seed, "shape": [b, f, n], "heads":
                               [heads, dh], "design": design, **errs}),
+                  flush=True)
+    print(json.dumps({"largest": worst}), flush=True)
+
+
+def prerounded_limits(torch) -> None:
+    """The float32 one-pass and fused kernels past resident K, forced at
+    every shape here, against ``attention_float32_route`` with ``exp2`` and
+    with ``exp``: the three measures of ``relative_errors`` over seeds 0–3
+    at (B, Nq, Nk) of the card tests and the kernels phase."""
+    import json
+
+    from moditalker_tpu_torch.ops.kernels import relative_errors
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+
+    fa.onepass_f32_prerounded = lambda *a: True
+    cases = [(80, 2048, 2048), (2, 1280, 1280), (8, 1536, 1536),
+             (16, 2048, 2048), (16, 1280, 2048), (16, 1000, 2048),
+             (2, 300, 1280)]
+    worst = {}
+    for seed in range(4):
+        for b, nq, nk in cases:
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            q = torch.randn(b, nq, 64, generator=g, device="cuda")
+            k, v = (torch.randn(b, nk, 64, generator=g, device="cuda")
+                    for _ in range(2))
+            got = fa.fused_attention(q, k, v, 0.125)
+            errs = {}
+            for route in ("exp2", "exp"):
+                errs[route] = relative_errors(got, fa.attention_float32_route(
+                    q, k, v, 0.125, exp2=route == "exp2"))
+                worst[route] = [max(a, e) for a, e in
+                                zip(worst.get(route, [0.0] * 3), errs[route])]
+            print(json.dumps({"seed": seed, "shape": [b, nq, nk], **errs}),
                   flush=True)
     print(json.dumps({"largest": worst}), flush=True)
 
