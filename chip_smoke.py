@@ -57,9 +57,14 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              alone. The classes beyond the configurations' shapes (every
              shape the JAX gates admit runs a kernel) at the shapes the
              variants phase gives them, bf16 and float32 each: time at
-             clips of 32 and 8 frames, tiny-L at 32 rows, one-pass at head
-             dims 24 and 48, the time backward at 8 frames; packed and
-             one-pass at the 3072 tokens of 32-frame clips. The wgmma tile
+             clips of 32 and 8 frames (32: the staged kernel, its own entry
+             in the kernels line, two calls bit for bit; 24 frames too),
+             tiny-L at 32 rows, one-pass at head dims 24 and 48 (bf16 48:
+             the narrow tile, its own entry; 40 and 56 beside it, and the
+             fused kernel at 48 with ragged query rows over a whole and a
+             short key tile, over resident K and past it), the time
+             backward at 8 frames; packed and one-pass at the 3072 tokens
+             of 32-frame clips. The wgmma tile
              built per head width (``csrc/flash_wide{,_f32}.cu``), bf16 and
              float32 against the float32 plain version: one-pass at
              [B·2, 2048, 128] (base.yaml with num_heads: 2) and
@@ -79,7 +84,8 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              float32 space row is held to the route in the kernels' ex2
              form (``exp2=True``);
    masked padding — the time kernels at clips of 8 and 24 frames (padded
-             to the 16- and 32-frame tiles) with every real score large and
+             to the 16- and 32-frame tiles; 24: the staged kernel's) with
+             every real score large and
              negative, forward and backward against their float32 route;
              the fused kernel at head dim 256 with ragged query rows over
              120 and 40 keys (a short 64-key tile, zero-filled and masked)
@@ -92,7 +98,9 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              backward kernels once a gradient, within their rows' limits
              and those of their float32 route, two gradients equal bit for
              bit;
-3. reference — one DDIM-2 window at a small depth but full spatial size (so
+3. reference — (the 256-channel DDIM-2 below runs first, the windows after
+             the cli phase) one DDIM-2 window at a small depth but full
+             spatial size (so
              every kernel gate passes) on the card in bf16 against the same
              weights and draws on the CPU in float32 through the plain path,
              within REF_FACTOR times the error of a bf16 CPU run. Once on
@@ -235,7 +243,8 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              temporary YAMLs by ``load_config`` (VARIANTS): the ``sample``
              command at clips of 32 frames on the fused and the modular path
              (2 windows at batch 2, DDIM-2 warm-up, DDIM-25 timed; the time
-             kernel on its 32-frame tile, tiny-L at 32 rows, the UNet's
+             kernel's every launch through the staged kernel's entry point,
+             tiny-L at 32 rows, the UNet's
              launches by shape as VARIANT_UNET_PER_CALL predicts, every
              launch at a shape its gate admits) and a small-depth window of
              such clips on each path against the CPU within REF_FACTOR;
@@ -244,7 +253,8 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              and their backwards at [1, 8, 1024, 1536], a small-depth G and
              D cycle against the CPU within FIRST_STAGE_LIMITS); a
              small-depth window of the 192-channel UNet against the CPU
-             (one-pass at head dims 24 and 48), and one of the UNet with
+             (one-pass at head dims 24 and 48, 48 through the narrow tile's
+             entry point), and one of the UNet with
              num_heads: 2 (one-pass at head dims 64 and 128); base.yaml's
              AE with its 512 attention channels in 4 heads of 128 and in
              16 of 32 (the space kernel's pre-rotated design): a
@@ -279,7 +289,14 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              card's kernels; ``step_timer`` logs the step.
 
 Each phase logs its seconds on the host clock ("phase <name>: ... s"),
-and the result line keeps them under ``phase_seconds``. Without a CUDA
+and the result line keeps them under ``phase_seconds``. After the kernels
+and gradient phases (whose device times a busy host could stretch), the
+CPU halves of the small-depth checks (the reference windows, the
+train-diffusion steps, the first-stage cycles) run in one spawned worker
+process while the card's phases run (``CpuReferences``; the worker and this
+process on disjoint halves of the host's cores); each check takes
+its result when it gets there. The reference windows run after the
+sampling paths and the ``cli`` phase, so that the worker has them ready. Without a CUDA
 device, or run outside the repository, it exits nonzero and prints no
 result.
 """
@@ -412,6 +429,21 @@ BEFORE_REDESIGN_MS = {
     ("onepass_attention", (256, 1024, 64)): 0.6035,
     ("onepass_attention", (16, 2048, 16)): 0.0538,
     ("onepass_attention", (16, 1024, 16)): 0.0224,
+    # the small-head class 64 and the classes' time kernel at 24 and 32
+    # frames, which the narrow tile and the staged time kernel replaced
+    # (bf16 and float32; the rows added beside them as tools/ab_classes.py
+    # --narrow --time32 timed the class, a fused row keyed by its q and k)
+    ("onepass_attention", (16, 2048, 48)): 0.0619,
+    ("onepass_attention", (16, 2048, 40)): 0.0635,
+    ("onepass_attention", (16, 2048, 56)): 0.0637,
+    ("fused_attention", ((16, 1000, 48), (16, 128, 48))): 0.0051,
+    ("fused_attention", ((16, 1000, 48), (16, 120, 48))): 0.0052,
+    ("fused_attention", ((16, 300, 48), (16, 1024, 48))): 0.0144,
+    ("fused_attention", ((16, 1280, 48), (16, 2048, 48))): 0.0619,
+    ("divided_time_attention", (2, 32, 1024, 1536)): 0.2129,
+    ("divided_time_attention", (2, 32, 1024, 1536), "float32"): 0.2666,
+    ("divided_time_attention", (2, 24, 1024, 1536)): 0.1798,
+    ("divided_time_attention", (2, 24, 1024, 1536), "float32"): 0.2179,
 }
 
 # train-diffusion's batch (MtovTrainConfig.diffusion_batch_size): the float32
@@ -522,6 +554,25 @@ PREROUNDED_DESIGN = (
     "V tile in each block)")
 # its entry point's source (the float32 library of the one-pass kernel)
 PREROUNDED_SOURCE = "moditalker_tpu_torch/csrc/flash_attention_f32.cu"
+# the bf16 one-pass and fused kernel at head dims 40, 48 and 56
+# (flash_attention.NARROW_ENTRY) and the time kernel at clips of 24 and 32
+# frames (divided_attention.STAGED_TIME_ENTRY), each an entry of its own in
+# the kernels line
+NARROW_DESIGN = (
+    "the D = 64 tile's plan at the head's own width (csrc/wgmma_narrow.cuh): "
+    "Q in registers, S = Q·Kᵀ in ceil(d / 16) wgmma k16 steps over K's "
+    "128-byte swizzled tiles (the chunk past d zeros in shared memory "
+    "only), P·V at n = d; K resident up to 1152 keys, a K ring above; two "
+    "consumer warpgroups at 232 registers on both plans; a tile's S started "
+    "with the last tile's P·V")
+NARROW_SOURCE = "moditalker_tpu_torch/csrc/flash_narrow.cu"
+STAGED_TIME_DESIGN = (
+    "the frame class 32 staged by cp.async (csrc/time_staged.cuh): a warp "
+    "copies its (b, n, head)'s raw q, k, v rows into shared memory, every "
+    "copy in flight at once, rotates q and k there (the class's "
+    "arithmetic), mma.sync products; resident blocks, warps walk items "
+    "grid-stride")
+STAGED_TIME_SOURCE = "moditalker_tpu_torch/csrc/divided_classes.cu"
 # the fused kernel's float32 row past resident K: (B, Nq, Nk) at head dim
 # 64, query rows over the 256-channel UNet's 2048 keys
 FUSED_PREROUNDED = (16, 1280, 2048)
@@ -644,6 +695,189 @@ def modular_attention():
                 del os.environ[name]
             else:
                 os.environ[name] = value
+
+
+def active_switches() -> tuple:
+    """The gate switches set now (``modular_attention`` sets both)."""
+    return tuple(name for name in SWITCHES if os.environ.get(name))
+
+
+# The small-depth checks hold a run on the card to the same run on the CPU.
+# The CPU halves need no card, so main() hands them to one worker process at
+# the start (``CpuReferences``), in the order the phases will ask for them
+# (``cpu_reference_jobs``), and each check takes its result when it gets
+# there: the CPU work runs while the card's phases do. A check whose CPU
+# half was not handed over computes it where it stands.
+CPU_REFS = None
+
+
+def _worker_init(cpus: list) -> None:
+    import torch
+
+    os.sched_setaffinity(0, cpus)
+    torch.set_num_threads(len(cpus))
+
+
+def _pin_threads(cpus) -> None:
+    """Every thread of this process (torch's pool and the CUDA driver's
+    included) onto ``cpus``; threads started later inherit the calling
+    thread's set."""
+    for tid in os.listdir("/proc/self/task"):
+        with contextlib.suppress(ProcessLookupError):
+            os.sched_setaffinity(int(tid), cpus)
+
+
+class _Array:
+    """A tensor's values on their way out of the worker."""
+
+    def __init__(self, values):
+        self.values = values
+
+
+def _tree(x, leaf):
+    """``x`` with ``leaf`` applied to every value that is not a dict, list
+    or tuple."""
+    if isinstance(x, dict):
+        return {k: _tree(v, leaf) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_tree(v, leaf) for v in x)
+    return leaf(x)
+
+
+def _cpu_job(fn, kwargs: dict):
+    """In the worker: ``fn(**kwargs)``, its tensors as numpy arrays (sent
+    through the pipe by value, not through shared memory)."""
+    import torch
+
+    out = fn(**kwargs)
+    return _tree(out, lambda v: _Array(v.numpy())
+                 if isinstance(v, torch.Tensor) else v)
+
+
+def _job_key(fn, kwargs: dict) -> str:
+    """``fn`` and its arguments with the defaults filled in."""
+    import inspect
+
+    bound = inspect.signature(fn).bind(**kwargs)
+    bound.apply_defaults()
+    return f"{fn.__name__}{sorted(bound.arguments.items())!r}"
+
+
+class CpuReferences:
+    """One worker process (spawned: it never touches the card) computing
+    ``jobs``, a list of (function, kwargs), in order. The worker and this
+    process run on disjoint halves of the cores this process may use, so
+    that the worker takes no core from the timed phases' host side; this
+    process gets its cores and torch threads back once the last job is
+    taken."""
+
+    def __init__(self, jobs: list):
+        import concurrent.futures
+        import multiprocessing
+
+        import torch
+
+        self.cpus = sorted(os.sched_getaffinity(0))
+        self.threads = torch.get_num_threads()
+        half = max(1, len(self.cpus) // 2)
+        mine = self.cpus[:half]
+        theirs = self.cpus[half:] or mine
+        self.pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_worker_init, initargs=(theirs,))
+        self.futures = {_job_key(fn, kw): self.pool.submit(_cpu_job, fn, kw)
+                        for fn, kw in jobs}
+        self.pinned = theirs is not mine
+        if self.pinned:
+            _pin_threads(mine)
+            torch.set_num_threads(len(mine))
+        log(f"CPU references: the worker on cores {theirs}, this process "
+            f"on {mine}")
+
+    def _unpin(self) -> None:
+        import torch
+
+        if self.pinned:
+            _pin_threads(self.cpus)
+            torch.set_num_threads(self.threads)
+            self.pinned = False
+
+    def take(self, fn, **kwargs):
+        import torch
+
+        fut = self.futures.pop(_job_key(fn, kwargs), None)
+        if fut is None:
+            log(f"{fn.__name__}: not handed to the worker, computed here")
+            return fn(**kwargs)
+        t0 = time.perf_counter()
+        out = fut.result()
+        log(f"{fn.__name__}: the worker's result (waited "
+            f"{time.perf_counter() - t0:.1f} s for it)")
+        if not self.futures:
+            self._unpin()
+        return _tree(out, lambda v: torch.from_numpy(v.values)
+                     if isinstance(v, _Array) else v)
+
+    def close(self) -> None:
+        for fut in self.futures.values():
+            fut.cancel()
+        self.pool.shutdown(wait=True, cancel_futures=True)
+        self._unpin()
+
+
+def cpu_reference(fn, **kwargs):
+    """``fn(**kwargs)``: the worker's result where main() handed it over."""
+    if CPU_REFS is None:
+        return fn(**kwargs)
+    return CPU_REFS.take(fn, **kwargs)
+
+
+def cpu_reference_jobs(seed: int) -> list:
+    """The CPU halves of the small-depth checks (``reference_windows_cpu``,
+    ``train_step_once``, ``first_stage_cycles``), with the arguments their
+    phases give them, in the order main() runs those phases: the reference
+    windows fused and modular at 128 and 256 channels, the train-diffusion
+    steps (fused, modular, 256 channels), the three train-first-stage
+    checks, then the variants phase's windows and checks."""
+    from moditalker_tpu_torch.config import load_config
+
+    win, fs, step = reference_windows_cpu, first_stage_cycles, train_step_once
+    modular = dict(switches=SWITCHES, heads=4, batch=2)
+    jobs = [(win, dict(seed=seed)), (win, dict(seed=seed, **modular)),
+            (win, dict(seed=seed, model_channels=256)),
+            (win, dict(seed=seed, model_channels=256, **modular)),
+            (step, dict(device="cpu", seed=seed)),
+            (step, dict(device="cpu", seed=seed, modular=True)),
+            (step, dict(device="cpu", seed=seed, model_channels=256))]
+    # base_gan.yaml's check (the default loss), base.yaml's, base_ldmk.yaml's
+    for loss, landmark in (
+            (first_stage_loss(), False),
+            (load_config("configs/autoencoder/base.yaml").mtov_loss, False),
+            (load_config("configs/autoencoder/base_ldmk.yaml").mtov_loss,
+             True)):
+        jobs.append((fs, dict(device="cpu", seed=seed, loss_cfg=loss,
+                              freeze_decoder=landmark)))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = {name: load_config(variant_yaml(name, tmp))
+               for name in VARIANTS}
+    frames = cfg["clip32"].mtov_ae.timesteps
+    unet192 = cfg["channels192"].mtov_unet
+    unet_h2 = cfg["num_heads2"].mtov_unet
+    jobs += [(win, dict(seed=seed, frames=frames)),
+             (win, dict(seed=seed, frames=frames, **modular)),
+             (fs, dict(device="cpu", seed=seed,
+                       loss_cfg=cfg["clip8"].mtov_loss,
+                       frames=cfg["clip8"].mtov_ae.timesteps)),
+             (win, dict(seed=seed, model_channels=unet192.model_channels)),
+             (win, dict(seed=seed, model_channels=unet_h2.model_channels,
+                        unet_heads=unet_h2.num_heads))]
+    for h, d in VARIANT_AE_HEADS:
+        ae = cfg[f"ae_heads{h}x{d}"].mtov_ae
+        jobs += [(win, dict(seed=seed, heads=ae.heads, dim_head=ae.dim_head)),
+                 (fs, dict(device="cpu", seed=seed,
+                           loss_cfg=first_stage_loss(), heads=ae.heads,
+                           dim_head=ae.dim_head))]
+    return jobs
 
 
 def check_launches(what: str, expected: set) -> dict:
@@ -1221,10 +1455,16 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # (``errors``' dtype): at 3072 keys the bf16 plain version's bf16
     # scores alone put the packed kernel's max measure at its limit
     gen_cl = torch.Generator(device=dev).manual_seed(seed + 9)
+    staged = dict(entry=dv.STAGED_TIME_ENTRY, design=STAGED_TIME_DESIGN,
+                  source=STAGED_TIME_SOURCE)
+    narrow = dict(entry=fa.NARROW_ENTRY, design=NARROW_DESIGN,
+                  source=NARROW_SOURCE)
     for dtype in (torch.bfloat16, f32):
+        assert dv.time_staged(VARIANT_CLIP_FRAMES)
         rows += [
-            divided_row("time", batch, VARIANT_CLIP_FRAMES, n, g=gen_cl,
-                        dtype=dtype, source="divided_classes", plain32=True),
+            dict(divided_row("time", batch, VARIANT_CLIP_FRAMES, n, g=gen_cl,
+                             dtype=dtype, plain32=True, twice=True),
+                 **staged),
             divided_row("time", 1, VARIANT_TRAIN_FRAMES, n, g=gen_cl,
                         dtype=dtype, source="divided_classes", plain32=True),
             tiny_row(batch * heads * n, g=gen_cl, dtype=dtype,
@@ -1233,10 +1473,35 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                         plain32=True),
             onepass_row(batch * heads, 1024, 24, g=gen_cl, dtype=dtype,
                         plain32=True),
-            onepass_row(batch * heads, 2048, 48, g=gen_cl, dtype=dtype,
-                        plain32=True),
+            dict(onepass_row(batch * heads, 2048, 48, g=gen_cl, dtype=dtype,
+                             plain32=True),
+                 **(narrow if dtype == torch.bfloat16 else {})),
             backward_row("time", gen_cl, dtype, f=VARIANT_TRAIN_FRAMES,
                          source="divided_backward_classes")]
+    # the narrow tile's other widths, and its fused masked shapes at 48:
+    # ragged query chunks over one whole 128-key tile and one short of it
+    # (zero-filled and masked), query rows over resident K and past it;
+    # the staged time kernel at 24 frames
+    gen_nw = torch.Generator(device=dev).manual_seed(seed + 14)
+    for d_ in (40, 56):
+        rows.append(dict(onepass_row(batch * heads, 2048, d_, g=gen_nw,
+                                     plain32=True), **narrow))
+    for b_, nq_, nk_ in ((batch * heads, 1000, 128),
+                         (batch * heads, 1000, 120),
+                         (batch * heads, 300, 1024),
+                         (batch * heads, 1280, 2048)):
+        q = randn(b_, nq_, 48, g=gen_nw)
+        k, v = (randn(b_, nk_, 48, g=gen_nw) for _ in range(2))
+        rows.append(dict(sdpa_row(
+            "fused_attention", 33, "flash_attention",
+            lambda q=q, k=k, v=v: fa.fused_attention(q, k, v, 48**-0.5),
+            lambda q=q, k=k, v=v: fa.fused_attention_reference(
+                q, k, v, 48**-0.5),
+            q, k, v, 48**-0.5, plain32=True), **narrow))
+    for dtype in (torch.bfloat16, f32):
+        rows.append(dict(divided_row("time", batch, 24, n, g=gen_nw,
+                                     dtype=dtype, plain32=True, twice=True),
+                         **staged))
     rows += [packed_row(batch, 3072, g=gen_cl, plain32=True),
              onepass_row(batch * heads, 3072, 32, g=gen_cl, plain32=True)]
 
@@ -1300,6 +1565,12 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                   * H100_EX2_PER_CLOCK_PER_SM * mhz * 1e3)
     log(f"SM clock under load: {mhz:.0f} MHz")
 
+    def route_limits(row):
+        # an entry point's own limits where it has them (the float32
+        # pre-pass and K ring), else its wrapper's
+        return FLOAT32_ROUTE_LIMITS.get(row.get("entry"),
+                                        FLOAT32_ROUTE_LIMITS[row["name"]])
+
     for row in rows:
         row["bound_ms"], row["bound_by"] = bound_ms(row.pop("nbytes"),
                                                     row.pop("flops"))
@@ -1309,9 +1580,13 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         first = row["shape"][0] if isinstance(row["shape"][0], list) \
             else row["shape"]
         # (the replaced designs were timed at the configurations' heads)
-        before = (None if row["dtype"] == "float32"
-                  or row.get("heads", [heads, dh]) != [heads, dh]
-                  else BEFORE_REDESIGN_MS.get((row["name"], tuple(first))))
+        f32_key = ("float32",) if row["dtype"] == "float32" else ()
+        both = tuple(tuple(x) for x in row["shape"]) \
+            if isinstance(row["shape"][0], list) else None
+        before = (None if row.get("heads", [heads, dh]) != [heads, dh]
+                  else BEFORE_REDESIGN_MS.get((row["name"], both) + f32_key)
+                  or BEFORE_REDESIGN_MS.get((row["name"], tuple(first))
+                                            + f32_key))
         log(f"{row['name']} at {row['shape']} {row['dtype']}"
             + (f" ({row['heads'][0]} heads of {row['heads'][1]})"
                if "heads" in row else "")
@@ -1328,7 +1603,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             + (f", {row['design']}" if "design" in row else "")
             + (f"; against its float32 route's function max / rms / "
                f"quantile {'/'.join(f'{e:.3e}' for e in row['route_rel_err'])}"
-               f" (limits {FLOAT32_ROUTE_LIMITS[row.get('entry', row['name'])]}"
+               f" (limits {route_limits(row)}"
                f"), bf16-rounded share {row['bf16_rounded_share']:.2e}"
                if "route_rel_err" in row else "")
             + ("; the other side of the wrapper's choice ({side}) forced: "
@@ -1641,17 +1916,15 @@ def seeded_state(torch, build, seed: int) -> dict:
         return build().state_dict()
 
 
-def train_step_check(torch, seed: int, modular: bool = False,
-                     model_channels: int = 128) -> dict:
-    """One train-diffusion step at a small depth but the full spatial size
-    (so that every kernel gate passes; B = 2) on the card and on the CPU
-    from the same AE and UNet weights, batch and draws, float32: the loss,
-    the UNet's gradient and its update within TRAIN_LIMITS, and the same
-    step with the gradient cut at the attentions (``gradient_cut``) outside
-    them. ``modular``: with both gate switches set around the card's steps
-    (the AEs' 2 heads × B = 2 × 1024 patches pass the tiny-L gate).
-    ``model_channels`` 256: base_longvid.yaml's UNet at the same small
-    depth (head dims 32 and 64, no packed launch)."""
+def train_step_once(device: str, seed: int, modular: bool = False,
+                    model_channels: int = 128, cut: bool = False) -> dict:
+    """The step ``train_step_check`` compares, on ``device``: AE and UNet
+    weights, batch and draws from ``seed``, the gate switches set around it
+    where ``modular``, the gradient cut at the attentions where ``cut``; the
+    loss, the launches by shape and the UNet's gradient and update on the
+    CPU."""
+    import torch
+
     from moditalker_tpu_torch.config import (MtovAEConfig,
                                              MtovDiffusionConfig,
                                              MtovTrainConfig, MtovUNetConfig)
@@ -1678,42 +1951,52 @@ def train_step_check(torch, seed: int, modular: bool = False,
     g = torch.Generator().manual_seed(seed)
     t = torch.randint(0, diff_cfg.timesteps, (2,), generator=g)
     noise = torch.randn((2, 4, ae_cfg.latent_len), generator=g)
+    trainer = MtovDiffusionTrainer(unet_cfg, diff_cfg, tc, device=device,
+                                   state_dict=unet)
+    models = []
+    for state in aes:
+        m = ViTAutoencoder(ae_cfg)
+        m.load_state_dict(state)
+        models.append(m)
+    loop = LatentDiffusionLoop(trainer, *models)
+    reset_launch_counts()
+    with (gradient_cut() if cut else contextlib.nullcontext(),
+          modular_attention() if modular else contextlib.nullcontext()):
+        m = loop.train_step(batch, draws=(t.to(device), noise.to(device)))
+    out = {"loss": m["loss"].item(), "launches": launches_by_shape()}
+    for name, p in trainer.model.named_parameters():
+        grad = torch.zeros_like(p) if p.grad is None else p.grad
+        out.setdefault("grad", {})[name] = grad.detach().cpu()
+        out.setdefault("update", {})[name] = p.detach().cpu() - unet[name]
+    return out
 
-    def step(device, cut=False):
-        trainer = MtovDiffusionTrainer(unet_cfg, diff_cfg, tc, device=device,
-                                       state_dict=unet)
-        models = []
-        for state in aes:
-            m = ViTAutoencoder(ae_cfg)
-            m.load_state_dict(state)
-            models.append(m)
-        loop = LatentDiffusionLoop(trainer, *models)
-        reset_launch_counts()
-        with (gradient_cut() if cut else contextlib.nullcontext(),
-              modular_attention() if modular else contextlib.nullcontext()):
-            m = loop.train_step(batch, draws=(t.to(device),
-                                              noise.to(device)))
-        out = {"loss": m["loss"].item(), "launches": launches_by_shape()}
-        for name, p in trainer.model.named_parameters():
-            grad = torch.zeros_like(p) if p.grad is None else p.grad
-            out.setdefault("grad", {})[name] = grad.detach().cpu()
-            out.setdefault("update", {})[name] = (p.detach().cpu()
-                                                  - unet[name])
-        return out
 
+def train_step_check(torch, seed: int, modular: bool = False,
+                     model_channels: int = 128) -> dict:
+    """One train-diffusion step at a small depth but the full spatial size
+    (so that every kernel gate passes; B = 2) on the card and on the CPU
+    from the same AE and UNet weights, batch and draws, float32
+    (``train_step_once``; the CPU's from the worker where main() handed it
+    over): the loss, the UNet's gradient and its update within
+    TRAIN_LIMITS, and the same step with the gradient cut at the attentions
+    (``gradient_cut``) outside them. ``modular``: with both gate switches
+    set around the steps (the AEs' 2 heads × B = 2 × 1024 patches pass the
+    tiny-L gate). ``model_channels`` 256: base_longvid.yaml's UNet at the
+    same small depth (head dims 32 and 64, no packed launch)."""
     def rel(a, b):
         num = sum(float((a[k] - b[k]).square().sum()) for k in b)
         den = sum(float(b[k].square().sum()) for k in b)
         return (num / den) ** 0.5
 
-    cpu = step("cpu")
+    kwargs = dict(seed=seed, modular=modular, model_channels=model_channels)
+    cpu = cpu_reference(train_step_once, device="cpu", **kwargs)
     result = {}
     path = "modular" if modular else "fused"
     if model_channels != 128:
         path += f", {model_channels} channels"
     for label, cut in ((f"card, {path} path", False),
                        (f"card, {path} path, gradient cut", True)):
-        card = step("cuda", cut)
+        card = train_step_once("cuda", cut=cut, **kwargs)
         errs = {"loss": abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]),
                 "grad": rel(card["grad"], cpu["grad"]),
                 "update": rel(card["update"], cpu["update"])}
@@ -2140,26 +2423,18 @@ def backward_events(torch, fn):
         fn.backward = kept
 
 
-def first_stage_check(torch, seed: int, loss_cfg=None,
-                      freeze_decoder: bool = False,
-                      frames: int | None = None, heads: int = 2,
-                      dim_head: int = 64) -> dict:
-    """Two cycles of ``FirstStageTrainer`` at a small depth but the full
-    spatial size (AE 64 wide, depth 1, 2 heads of 64, so that the space and
-    time gates pass; the published discriminators and full LPIPS-VGG16;
-    B = 1, accumulation 3) on the card and on the CPU from the same
-    weights, clips and frame draws, float32: every loss term, the mean
-    gradients and the updates within FIRST_STAGE_LIMITS; the first G cycle
-    with the gradient cut at the attentions (``gradient_cut``) outside
-    them. The card launches the space and time kernels and no other.
-    ``loss_cfg`` defaults to disc_start −1 (base_gan.yaml: a G and a D
-    cycle); at a later disc_start both cycles are G cycles and the
-    discriminators are not compared. ``freeze_decoder``: the landmark AE
-    (its trainable parameters compared, on landmark clips). ``frames``:
-    clips of another length than the configuration's 16. ``heads`` of
-    ``dim_head``: the AE's attention split another way."""
-    from moditalker_tpu_torch.config import (MtovAEConfig, MtovLossConfig,
-                                             MtovTrainConfig)
+def first_stage_cycles(device: str, seed: int, loss_cfg=None,
+                       freeze_decoder: bool = False,
+                       frames: int | None = None, heads: int = 2,
+                       dim_head: int = 64, cut: bool = False) -> dict:
+    """The cycles ``first_stage_check`` compares, on ``device``: a fresh
+    ``FirstStageTrainer`` at the small depth from ``seed``, two cycles (one
+    with the gradient cut at the attentions, ``cut``) on the same clips and
+    frame draws; every loss, the launches by shape, and the compared
+    parameters' gradients and updates on the CPU."""
+    import torch
+
+    from moditalker_tpu_torch.config import MtovAEConfig, MtovTrainConfig
     from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
     from moditalker_tpu_torch.ops.kernels import reset_launch_counts
     from moditalker_tpu_torch.train.mtov_first_stage import FirstStageTrainer
@@ -2168,11 +2443,9 @@ def first_stage_check(torch, seed: int, loss_cfg=None,
                           dim_head=dim_head, quant_depth=1, quant_heads=2,
                           quant_mlp_dim=64,
                           **({"timesteps": frames} if frames else {}))
-    loss_cfg = loss_cfg or MtovLossConfig(disc_start=-1)
+    loss_cfg = first_stage_loss(loss_cfg)
     tc = MtovTrainConfig(seed=seed)
     k = tc.accum_iter
-    # the phase flips after the first cycle where disc_start allows it
-    compared = ("ae", "disc") if loss_cfg.disc_start <= 0 else ("ae",)
     key = "x_l" if freeze_decoder else "x"
     videos = [synthetic_mtov_batch(1, ae_cfg.timesteps, ae_cfg.resolution,
                                    seed + i)[key] for i in range(k)]
@@ -2185,35 +2458,74 @@ def first_stage_check(torch, seed: int, loss_cfg=None,
         return {f"{i}.{n}": p for i, m in enumerate(nets)
                 for n, p in m.named_parameters() if p.requires_grad}
 
-    def cycles(device, cut=False):
-        tr = FirstStageTrainer(ae_cfg, loss_cfg, tc, device=device,
-                               freeze_decoder=freeze_decoder)
-        before = {w: {n: p.detach().cpu().clone()
-                      for n, p in params(tr, w).items()}
-                  for w in ("ae", "disc")}
-        out = {"losses": []}
-        reset_launch_counts()
-        with gradient_cut() if cut else contextlib.nullcontext():
-            for i in range(k if cut else 2 * k):
-                m = tr.step(videos[i % k], draws[i])
-                out["losses"].append({n: v.item() for n, v in m.items()})
-        out["launches"] = launches_by_shape()
-        for w in ("ae",) if cut else compared:
-            now = params(tr, w)
-            out[f"{w}_grad"] = {n: p.grad.cpu() for n, p in now.items()}
-            out[f"{w}_update"] = {n: p.detach().cpu() - before[w][n]
-                                  for n, p in now.items()}
-        return out
+    tr = FirstStageTrainer(ae_cfg, loss_cfg, tc, device=device,
+                           freeze_decoder=freeze_decoder)
+    before = {w: {n: p.detach().cpu().clone()
+                  for n, p in params(tr, w).items()}
+              for w in ("ae", "disc")}
+    out = {"losses": []}
+    reset_launch_counts()
+    with gradient_cut() if cut else contextlib.nullcontext():
+        for i in range(k if cut else 2 * k):
+            m = tr.step(videos[i % k], draws[i])
+            out["losses"].append({n: v.item() for n, v in m.items()})
+    out["launches"] = launches_by_shape()
+    for w in ("ae",) if cut else first_stage_compared(loss_cfg):
+        now = params(tr, w)
+        out[f"{w}_grad"] = {n: p.grad.cpu() for n, p in now.items()}
+        out[f"{w}_update"] = {n: p.detach().cpu() - before[w][n]
+                              for n, p in now.items()}
+    return out
+
+
+def first_stage_loss(loss_cfg=None):
+    """``first_stage_check``'s loss configuration: disc_start −1 (base_gan
+    .yaml: a G and a D cycle) unless given."""
+    from moditalker_tpu_torch.config import MtovLossConfig
+
+    return loss_cfg or MtovLossConfig(disc_start=-1)
+
+
+def first_stage_compared(loss_cfg) -> tuple:
+    """The nets whose gradients and updates are compared: the
+    discriminators too where the phase flips after the first cycle."""
+    return ("ae", "disc") if loss_cfg.disc_start <= 0 else ("ae",)
+
+
+def first_stage_check(torch, seed: int, loss_cfg=None,
+                      freeze_decoder: bool = False,
+                      frames: int | None = None, heads: int = 2,
+                      dim_head: int = 64) -> dict:
+    """Two cycles of ``FirstStageTrainer`` at a small depth but the full
+    spatial size (AE 64 wide, depth 1, 2 heads of 64, so that the space and
+    time gates pass; the published discriminators and full LPIPS-VGG16;
+    B = 1, accumulation 3) on the card and on the CPU from the same
+    weights, clips and frame draws, float32 (``first_stage_cycles``; the
+    CPU's from the worker where main() handed them over): every loss term,
+    the mean gradients and the updates within FIRST_STAGE_LIMITS; the first
+    G cycle with the gradient cut at the attentions (``gradient_cut``)
+    outside them. The card launches the space and time kernels and no
+    other. ``loss_cfg`` defaults to disc_start −1 (base_gan.yaml: a G and a
+    D cycle); at a later disc_start both cycles are G cycles and the
+    discriminators are not compared. ``freeze_decoder``: the landmark AE
+    (its trainable parameters compared, on landmark clips). ``frames``:
+    clips of another length than the configuration's 16. ``heads`` of
+    ``dim_head``: the AE's attention split another way."""
+    loss_cfg = first_stage_loss(loss_cfg)
+    compared = first_stage_compared(loss_cfg)
+    kwargs = dict(seed=seed, loss_cfg=loss_cfg,
+                  freeze_decoder=freeze_decoder, frames=frames, heads=heads,
+                  dim_head=dim_head)
 
     def rel(a, b):
         num = sum(float((a[n] - b[n]).square().sum()) for n in b)
         den = sum(float(b[n].square().sum()) for n in b)
         return (num / den) ** 0.5
 
-    cpu = cycles("cpu")
+    cpu = cpu_reference(first_stage_cycles, device="cpu", **kwargs)
     result = {}
     for label, cut in (("card", False), ("card, gradient cut", True)):
-        card = cycles("cuda", cut)
+        card = first_stage_cycles("cuda", cut=cut, **kwargs)
         # a term the discriminators' factor holds at 0 reads 0 on both
         errs = {"loss": max(abs(a[n] - b[n]) / abs(b[n]) if b[n] else
                             abs(a[n])
@@ -2511,6 +2823,79 @@ def make_windows(cfg, n: int, batch: int, seed: int):
              for k in ("x_l", "masked_x", "x_ref")} for _ in range(n)]
 
 
+def reference_configs(heads: int = 2, model_channels: int = 128,
+                      frames: int = 16, unet_heads: int = 8,
+                      dim_head: int = 64):
+    """The small-depth AE, UNet and DDIM-2 configurations of a reference
+    window (``reference_phase``)."""
+    from moditalker_tpu_torch.config import (MtovAEConfig,
+                                             MtovDiffusionConfig,
+                                             MtovUNetConfig)
+
+    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=heads,
+                          dim_head=dim_head, quant_depth=1, quant_heads=2,
+                          quant_mlp_dim=64, timesteps=frames)
+    # channel_mult (1, 2): the last upsample lands 2·model_channels at
+    # ds = 1, so the joint attention there takes the one-pass kernel, as in
+    # the full UNet (at 256 channels every gated attention does)
+    unet_cfg = MtovUNetConfig(model_channels=model_channels,
+                              num_res_blocks=1, channel_mult=(1, 2),
+                              attention_resolutions=(1,), latent_t=frames,
+                              num_heads=unet_heads)
+    return ae_cfg, unet_cfg, MtovDiffusionConfig(sampling_timesteps=2)
+
+
+def reference_window(device: str, dtype: str, seed: int, heads: int = 2,
+                     batch: int = 1, model_channels: int = 128,
+                     frames: int = 16, unet_heads: int = 8,
+                     dim_head: int = 64):
+    """One small-depth window (``reference_configs``) on ``device`` in
+    ``dtype`` ("bfloat16" or "float32"), weights, window and draws from
+    ``seed``: the decoded video, float32 on the CPU."""
+    import torch
+
+    from moditalker_tpu_torch.pipelines.mtov_sample import MtovSamplePipeline
+
+    ae_cfg, unet_cfg, diff_cfg = reference_configs(
+        heads, model_channels, frames, unet_heads, dim_head)
+    states = random_states(torch, ae_cfg, unet_cfg, seed)
+    w = make_windows(ae_cfg, 1, batch, seed)[0]
+    pipe = MtovSamplePipeline(*states, ae_cfg, unet_cfg, diff_cfg,
+                              dtype=getattr(torch, dtype), device=device)
+    g = torch.Generator().manual_seed(seed)
+    draws = lambda shape, dt, g=g: torch.randn(shape, generator=g)
+    out = pipe.window_step(w["x_l"], w["masked_x"], w["x_ref"], draws)
+    return out.float().cpu()
+
+
+def reference_windows_cpu(seed: int, switches: tuple = (), heads: int = 2,
+                          batch: int = 1, model_channels: int = 128,
+                          frames: int = 16, unet_heads: int = 8,
+                          dim_head: int = 64) -> dict:
+    """The CPU half of ``reference_phase``: the window on the plain path in
+    float32 and in bf16, with the gate switches ``switches`` set (the
+    modular path's), each with its seconds."""
+    window = dict(heads=heads, batch=batch, model_channels=model_channels,
+                  frames=frames, unet_heads=unet_heads, dim_head=dim_head)
+    outs, seconds = {}, {}
+    old = {name: os.environ.get(name) for name in SWITCHES}
+    for name in SWITCHES:
+        os.environ.pop(name, None)
+    os.environ.update({name: "1" for name in switches})
+    try:
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            outs[dtype] = reference_window("cpu", dtype, seed, **window)
+            seconds[dtype] = time.perf_counter() - t0
+    finally:
+        for name, value in old.items():
+            if value is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = value
+    return {"outs": outs, "seconds": seconds}
+
+
 def reference_phase(torch, seed: int, what: str, expected: set,
                     heads: int = 2, batch: int = 1,
                     model_channels: int = 128, frames: int = 16,
@@ -2523,61 +2908,45 @@ def reference_phase(torch, seed: int, what: str, expected: set,
     must launch. ``model_channels`` 256: the UNet of base_longvid.yaml at
     the same small depth (192: the variants phase's). ``frames``: clips of
     another length (the UNet's latent_t follows). ``unet_heads``: the
-    UNet's num_heads. ``heads`` of ``dim_head``: the AE's attention.
-    Returns the errors and the card's launches by shape."""
-    from moditalker_tpu_torch.config import (MtovAEConfig,
-                                             MtovDiffusionConfig,
-                                             MtovUNetConfig)
-    from moditalker_tpu_torch.ops.kernels import LAUNCHES, reset_launch_counts
-    from moditalker_tpu_torch.pipelines.mtov_sample import MtovSamplePipeline
+    UNet's num_heads. ``heads`` of ``dim_head``: the AE's attention. The
+    CPU half (``reference_windows_cpu``) comes from the worker where main()
+    handed it over (``cpu_reference``). Returns the errors and the card's
+    launches by shape and by entry point."""
+    from moditalker_tpu_torch.ops.kernels import (LAUNCHES, LAUNCHES_BY_ENTRY,
+                                                  reset_launch_counts)
 
-    ae_cfg = MtovAEConfig(channels=64, depth=1, heads=heads,
-                          dim_head=dim_head, quant_depth=1, quant_heads=2,
-                          quant_mlp_dim=64, timesteps=frames)
-    # channel_mult (1, 2): the last upsample lands 2·model_channels at
-    # ds = 1, so the joint attention there takes the one-pass kernel, as in
-    # the full UNet (at 256 channels every gated attention does)
-    unet_cfg = MtovUNetConfig(model_channels=model_channels,
-                              num_res_blocks=1, channel_mult=(1, 2),
-                              attention_resolutions=(1,), latent_t=frames,
-                              num_heads=unet_heads)
-    diff_cfg = MtovDiffusionConfig(sampling_timesteps=2)
-    states = random_states(torch, ae_cfg, unet_cfg, seed)
-    w = make_windows(ae_cfg, 1, batch, seed)[0]
-    outs = {}
-    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32),
-                          ("cpu", torch.bfloat16)):
-        pipe = MtovSamplePipeline(*states, ae_cfg, unet_cfg, diff_cfg,
-                                  dtype=dtype, device=device)
-        g = torch.Generator().manual_seed(seed)
-        draws = lambda shape, dt, g=g: torch.randn(shape, generator=g)
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        out = pipe.window_step(w["x_l"], w["masked_x"], w["x_ref"], draws)
-        outs[device, dtype] = out.float().cpu()
-        log(f"{what} reference window on {device} ({dtype}): "
-            f"{time.perf_counter() - t0:.2f} s, launches {dict(LAUNCHES)}")
-        if device == "cuda":
-            check_launches(f"{what} reference window", expected)
-            by_shape = launches_by_shape()
-            log(f"{what} reference window on the card: launches by shape "
-                f"{by_shape}")
-    fp32 = outs["cpu", torch.float32]
-    card = (outs["cuda", torch.bfloat16] - fp32).abs()
-    bf16 = (outs["cpu", torch.bfloat16] - fp32).abs()
+    window = dict(heads=heads, batch=batch, model_channels=model_channels,
+                  frames=frames, unet_heads=unet_heads, dim_head=dim_head)
+    cpu = cpu_reference(reference_windows_cpu, seed=seed,
+                        switches=active_switches(), **window)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    card = reference_window("cuda", "bfloat16", seed, **window)
+    log(f"{what} reference window on cuda (torch.bfloat16): "
+        f"{time.perf_counter() - t0:.2f} s, launches {dict(LAUNCHES)}")
+    check_launches(f"{what} reference window", expected)
+    by_shape = launches_by_shape()
+    by_entry = dict(sorted(LAUNCHES_BY_ENTRY.items()))
+    log(f"{what} reference window on the card: launches by shape "
+        f"{by_shape}, by entry point {by_entry}")
+    for dtype, sec in cpu["seconds"].items():
+        log(f"{what} reference window on cpu (torch.{dtype}): {sec:.2f} s")
+    fp32 = cpu["outs"]["float32"]
+    err_card = (card - fp32).abs()
+    bf16 = (cpu["outs"]["bfloat16"] - fp32).abs()
     log(f"{what} reference vs cpu fp32, decoded video: card bf16 mean abs "
-        f"{card.mean().item():.3e} max {card.max().item():.3e}; cpu bf16 "
-        f"mean abs {bf16.mean().item():.3e} max {bf16.max().item():.3e} "
-        f"(card within {REF_FACTOR}x)")
-    if not (torch.isfinite(outs["cuda", torch.bfloat16]).all()
-            and card.mean() <= REF_FACTOR * bf16.mean()
-            and card.max() <= REF_FACTOR * bf16.max()):
+        f"{err_card.mean().item():.3e} max {err_card.max().item():.3e}; cpu "
+        f"bf16 mean abs {bf16.mean().item():.3e} max "
+        f"{bf16.max().item():.3e} (card within {REF_FACTOR}x)")
+    if not (torch.isfinite(card).all()
+            and err_card.mean() <= REF_FACTOR * bf16.mean()
+            and err_card.max() <= REF_FACTOR * bf16.max()):
         raise AssertionError(f"{what}: the card's window disagrees with the "
                              "CPU reference")
-    return {"card_mean_abs": card.mean().item(), "card_max_abs":
-            card.max().item(), "cpu_bf16_mean_abs": bf16.mean().item(),
+    return {"card_mean_abs": err_card.mean().item(), "card_max_abs":
+            err_card.max().item(), "cpu_bf16_mean_abs": bf16.mean().item(),
             "cpu_bf16_max_abs": bf16.max().item(),
-            "launches_by_shape": by_shape}
+            "launches_by_shape": by_shape, "launches_by_entry": by_entry}
 
 
 def longvid_unet_config():
@@ -3997,7 +4366,9 @@ def variant_sample(torch, seed: int, config: str, path: str) -> dict:
     (modular), the UNet's launches by shape as VARIANT_UNET_PER_CALL
     predicts for 25 calls, the frames written."""
     from moditalker_tpu_torch import cli
-    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.ops.kernels import (LAUNCHES_BY_ENTRY,
+                                                  reset_launch_counts)
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
 
     windows, steps = 2, 25
     what = f"variants clip32 sample ({path})"
@@ -4024,6 +4395,7 @@ def variant_sample(torch, seed: int, config: str, path: str) -> dict:
         counts = check_launches(what, MODULAR_PATH if path == "modular"
                                 else FUSED_PATH)
         by_shape = launches_by_shape()
+        by_entry = dict(sorted(LAUNCHES_BY_ENTRY.items()))
         frames = windows * f_
         if out.endswith(".npz"):
             with np.load(out) as dump:
@@ -4040,12 +4412,17 @@ def variant_sample(torch, seed: int, config: str, path: str) -> dict:
     check_unet_launches(what, by_shape, VARIANT_UNET_PER_CALL[
         "clip32", path], steps,
         other_onepass=lambda s: s[1:] == [1024, 64])
+    # every time launch at these clips through the staged kernel's entry
+    if by_entry.get(dv.STAGED_TIME_ENTRY, 0) != counts.get(
+            "divided_time_attention", 0):
+        raise AssertionError(f"{what}: time launches {counts}, by entry "
+                             f"point {by_entry}")
     log(f"{what} (DDIM-{steps}, {windows} windows at batch 2, built from "
         f"the seed): {frames} frames of {f_}-frame clips in {dt:.2f} s incl. "
         f"the build = {frames / dt:.3f} frames/s; launches {counts}, by "
-        f"shape {by_shape}")
+        f"shape {by_shape}, by entry point {by_entry}")
     return {"frames_per_s_with_build": frames / dt, "launches": counts,
-            "launches_by_shape": by_shape}
+            "launches_by_shape": by_shape, "launches_by_entry": by_entry}
 
 
 def first_stage_frames_phase(torch, seed: int, config: str) -> dict:
@@ -4199,6 +4576,7 @@ def variants_phase(torch, seed: int) -> dict:
     tile's); the AE in 4 heads of 128 and in 16 of 32 (``ae_heads_phase``).
     The counts are zeroed before each path and read after it."""
     from moditalker_tpu_torch.config import load_config
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -4224,6 +4602,14 @@ def variants_phase(torch, seed: int) -> dict:
         if heads != {channels // 8, 2 * channels // 8}:
             raise AssertionError(f"variants channels192: one-pass at head "
                                  f"dims {heads}")
+        # its bf16 head dim 48 through the narrow tile's entry point
+        narrow = sum(c for key, c in
+                     ref["launches_by_shape"]["onepass_attention"].items()
+                     if json.loads(key)[2] in fa.NARROW_HEAD_DIMS)
+        if not narrow or ref["launches_by_entry"].get(fa.NARROW_ENTRY) \
+                != narrow:
+            raise AssertionError(f"variants channels192: by entry point "
+                                 f"{ref['launches_by_entry']}")
         out["channels192"] = {"reference": ref}
         torch.cuda.empty_cache()
         unet = load_config(paths["num_heads2"]).mtov_unet
@@ -4267,6 +4653,20 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    try:
+        return run(torch, args)
+    finally:
+        if CPU_REFS is not None:
+            CPU_REFS.close()
+
+
+def run(torch, args) -> int:
+    """Every phase in turn (``main``); the CPU halves of the small-depth
+    checks in a worker process (``CpuReferences``) from the end of the
+    kernels and gradient phases on."""
+    global CPU_REFS
+    from moditalker_tpu_torch.ops.kernels import _build, all_sources
+
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -4298,24 +4698,14 @@ def main() -> int:
     grads = phase("gradients", gradient_phase, torch, args.seed)
     if args.kernels_only:
         return 0
-    phase("reference fused", reference_phase, torch, args.seed, "fused",
-          FUSED_PATH)
-    with modular_attention():
-        # 2·4·1024 = 8192 folded sequences: the time attention passes the
-        # tiny-L gate (at B = 1 and 2 heads it would not)
-        phase("reference modular", reference_phase, torch, args.seed,
-              "modular", MODULAR_PATH, heads=4, batch=2)
-    longvid = {"reference": {
-        "fused": phase("reference longvid fused", reference_phase, torch,
-                       args.seed, "longvid fused", LONGVID_PATH,
-                       model_channels=256)}}
-    with modular_attention():
-        longvid["reference"]["modular"] = phase(
-            "reference longvid modular", reference_phase, torch, args.seed,
-            "longvid modular", MODULAR_PATH, heads=4, batch=2,
-            model_channels=256)
-    longvid["unet_ddim2"] = phase("longvid UNet DDIM-2", longvid_unet_check,
-                                  torch, args.seed)
+    # from here on the CPU halves of the small-depth checks run in a worker
+    # on half the host's cores, this process on the other half (not under
+    # the kernels phase: a busy host can stretch a device time taken between
+    # two events), and the reference windows, its first jobs, come after the
+    # sampling paths
+    CPU_REFS = CpuReferences(cpu_reference_jobs(args.seed))
+    longvid = {"unet_ddim2": phase("longvid UNet DDIM-2", longvid_unet_check,
+                                   torch, args.seed)}
     result = phase("main path", main_path_phase, torch, args.seed)
     longvid_result = phase("longvid main path", main_path_phase, torch,
                            args.seed, longvid=True)
@@ -4335,6 +4725,22 @@ def main() -> int:
     longvid_cli = phase("longvid cli", cli_phase, torch, args.seed,
                         LONGVID_YAML)
     cli_result = phase("cli", cli_phase, torch, args.seed)
+    phase("reference fused", reference_phase, torch, args.seed, "fused",
+          FUSED_PATH)
+    with modular_attention():
+        # 2·4·1024 = 8192 folded sequences: the time attention passes the
+        # tiny-L gate (at B = 1 and 2 heads it would not)
+        phase("reference modular", reference_phase, torch, args.seed,
+              "modular", MODULAR_PATH, heads=4, batch=2)
+    longvid["reference"] = {
+        "fused": phase("reference longvid fused", reference_phase, torch,
+                       args.seed, "longvid fused", LONGVID_PATH,
+                       model_channels=256)}
+    with modular_attention():
+        longvid["reference"]["modular"] = phase(
+            "reference longvid modular", reference_phase, torch, args.seed,
+            "longvid modular", MODULAR_PATH, heads=4, batch=2,
+            model_channels=256)
     atom = phase("atom", atom_phase, torch, args.seed)
     audio = phase("audio", audio_phase, torch, args.seed)
     audio16 = phase("audio bf16", audio_bf16_phase, torch, args.seed, audio)
@@ -4403,14 +4809,24 @@ def main() -> int:
     # one line entry per kernel: its first row, the shape its main path
     # gives it; the rows at its other shapes go under "other_shapes". A row
     # with an "entry" (the float32 pre-pass and bf16 K ring at head dim 64
-    # past resident K, fused_attention_f32_prerounded) is an entry of its
+    # past resident K, fused_attention_f32_prerounded; the bf16 narrow tile
+    # at head dims 40 to 56, fused_attention_narrow; the time kernel staged
+    # at 24 and 32 frames, divided_time_attention_staged) is an entry of its
     # own, named by that entry point, its launches those of its entry point
-    # on the paths that count by entry point (the train-diffusion phases)
+    # on the paths that count by entry point (the train-diffusion phases,
+    # the variants' 32-frame sampling and reference windows)
     by_entry_paths = {
         "train-diffusion": train_diff["launches_by_entry"],
         "train-diffusion modular": train_diff_modular["launches_by_entry"],
         **{what: run["launches_by_entry"]
-           for what, run in train_longvid["runs"].items()}}
+           for what, run in train_longvid["runs"].items()},
+        **{f"variants clip32 sample {p}":
+           variant_runs["clip32"][p]["launches_by_entry"]
+           for p in ("fused", "modular")},
+        "variants clip32 reference":
+            variant_runs["clip32"]["reference"]["launches_by_entry"],
+        "variants channels192 reference":
+            variant_runs["channels192"]["reference"]["launches_by_entry"]}
     kernels = {}
     for row in rows:
         if "entry" in row:
@@ -4425,7 +4841,8 @@ def main() -> int:
                                      "bf16_rounded_share", "ms",
                                      "plain_ms", "recompute_ms",
                                      "library_ms", "bound_ms",
-                                     "bound_by", "forced") if k in row})
+                                     "bound_by", "forced")
+                 if k in row})
             continue
         kernels[row["name"]] = row
         if "entry" in row:

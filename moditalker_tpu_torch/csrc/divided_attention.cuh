@@ -68,8 +68,8 @@ struct TimeShape {
   static constexpr int table_floats = 2 * FT * DH;  // sin, cos
   static constexpr int warp_bytes =
       TinyTile<FT, DH>::warp_elems * (int)sizeof(bf16);
-  // blocks of eight warps unless four keep more warps on an SM (32 frames:
-  // one block of eight fits an SM's shared memory, three of four do)
+  // blocks of eight warps unless four keep more warps on an SM (head dim
+  // 128: one block of eight fits an SM's shared memory, three of four do)
   static constexpr int warps =
       resident_warps(4, table_floats * 4, warp_bytes) >
               resident_warps(8, table_floats * 4, warp_bytes)
@@ -281,22 +281,20 @@ cudaError_t launch_time(const void* qkv, const void* sin_t, const void* cos_t,
   return cudaGetLastError();
 }
 
-// Frames F % 8 == 0 up to 32, head dims dh dividing 128 from 2 up (what the
-// gate admits): the frame class 16 or 32 and the head-dim class 16, 32, 64
-// or 128 that hold them, with the classes' padding, masking and rounding
-// (PAD), also where the shape is its class.
+// Frames 8 and 16 (F % 8 == 0 up to 16), head dims dh dividing 128 from 2
+// up: the frame class 16 and the head-dim class 16, 32, 64 or 128 that hold
+// them, with the classes' padding, masking and rounding (PAD), also where
+// the shape is its class. The frame class 32 (24 and 32 frames) is the
+// staged kernel's (time_staged.cuh).
 template <typename TI>
 int launch_time_classes(const void* qkv, const void* sin_t, const void* cos_t,
                         void* out, int B, int F, int N, int H, int dh,
                         float scale, cudaStream_t stream) {
-  if (F < 8 || F > 32 || F % 8 || dh < 2 || dh > 128 || 128 % dh)
+  if (F < 8 || F > 16 || F % 8 || dh < 2 || dh > 128 || 128 % dh)
     return cudaErrorInvalidValue;
-  const bool tall = F > 16;
 #define MDT_TIME(DH)                                                      \
-  return tall ? launch_time<32, DH, TI, true>(qkv, sin_t, cos_t, out, B, F, \
-                                              N, H, dh, scale, stream)    \
-              : launch_time<16, DH, TI, true>(qkv, sin_t, cos_t, out, B, F, \
-                                              N, H, dh, scale, stream)
+  return launch_time<16, DH, TI, true>(qkv, sin_t, cos_t, out, B, F, N, H, \
+                                       dh, scale, stream)
   switch (dh < 16 ? 16 : dh) {
     case 16: MDT_TIME(16);
     case 32: MDT_TIME(32);

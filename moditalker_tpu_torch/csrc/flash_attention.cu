@@ -23,8 +23,9 @@
 // Which tile each head dim runs on: at D = 16 and 32 (here) the softmax,
 // not the products, is the floor, and the kernel is smallhead_tile.cuh
 // (mma.sync behind a cp.async ring, as the packed kernel); so are 8 and 24
-// on its classes 16 and 32 (flash_classes.cu), and in bf16 40, 48 and 56
-// on its class 64, where that ran faster than the wgmma tile. At D = 64
+// on its classes 16 and 32 (flash_classes.cu); in bf16 40, 48 and 56 run
+// the D = 64 tile's plan below at their own width (wgmma_narrow.cuh,
+// flash_narrow.cu). At D = 64
 // (here) the products count: it is wgmma_tile.cuh's first tile without the
 // rotary, each [N, 64] tensor one head of width 64 (K resident in shared
 // memory up to Nk = 1152, a K ring above, chosen by Nk; the grid sized by

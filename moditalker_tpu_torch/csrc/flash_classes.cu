@@ -3,10 +3,9 @@
 // (flash_attention.cu and tiny_attention.cu hold those: head dims 16,
 // 32 and 64, and tiny-L at 16 rows of 64), in a library of its own: the
 // one-pass and fused kernels on the small-head tile's head-dim classes
-// (smallhead_tile.cuh) at 8 and 24 and at 40, 48 and 56 (the class 64,
-// faster there than the wgmma tile; every other width above 32 is
-// flash_wide.cu's), tiny-L at rows 8, 24 and 32 and head dim 128
-// (tiny_attention.cuh).
+// (smallhead_tile.cuh) at 8 and 24 (above 32: flash_narrow.cu's in bf16 at
+// 40, 48 and 56, flash_wide.cu's otherwise), tiny-L at rows 8, 24 and 32
+// and head dim 128 (tiny_attention.cuh).
 #include "smallhead_tile.cuh"
 #include "tiny_attention.cuh"
 

@@ -2,8 +2,8 @@
 // 32 their gates admit beyond the configurations' (flash_attention.cu holds
 // 16, 32 and 64), in a library of their own: the wgmma tile built per width
 // (wgmma_wide.cuh, launch_fused_wide), each d % 8 == 0 from 72 to 256 a
-// tile of its own (40, 48 and 56 run on the small-head class 64,
-// flash_classes.cu, faster there), and heads past 256 (the fused gate has
+// tile of its own (40, 48 and 56 run on the narrow tile, flash_narrow.cu,
+// faster there), and heads past 256 (the fused gate has
 // no bound) the 256-column tile in groups of output columns.
 #include "wgmma_wide.cuh"
 

@@ -6,15 +6,14 @@
 // one-pass kernel at D = 16 and 32 (flash_attention.cu: contiguous
 // [B, N, D] tensors; both with Lq = Lk) and the K-blocked fused kernel at
 // D = 16 and 32 (flash_attention.cu: q [B, Nq, D] over k, v [B, Nk, D]).
-// flash_classes.cu runs the one-pass and fused kernels on it at 8 and 24 and
-// in bf16 at 40-56 (other heads above 32 are wgmma_wide.cuh's, 64 the wgmma
-// tile's), and divided_space.cuh the divided space attention at head dims
-// 2 to 32 on the scratch of its rotation pre-pass (PRE). The tile is built
-// per head-dim class DH (16, 32, 64); a head of d < DH dims (PAD) has its
-// columns past d read as zeros and never stored (d % 8 == 0 keeps every
-// row's chunks whole; the pre-pass pads heads of 2 and 4 dims to 8 with
-// zeros). At DH = 64 a warp's accumulators need more than the 128
-// registers of a 512-thread block: such blocks have at most 8 warps.
+// flash_classes.cu runs the one-pass and fused kernels on it at 8 and 24
+// (heads above 32 are wgmma_narrow.cuh's in bf16 at 40-56, wgmma_wide.cuh's
+// otherwise, 64 the wgmma tile's), and divided_space.cuh the divided space
+// attention at head dims 2 to 32 on the scratch of its rotation pre-pass
+// (PRE). The tile is built per head-dim class DH (16, 32); a head of
+// d < DH dims (PAD) has its columns past d read as zeros and never stored
+// (d % 8 == 0 keeps every row's chunks whole; the pre-pass pads heads of 2
+// and 4 dims to 8 with zeros).
 // q of (sequence b, head h, row r) sits at q + b·q_batch + h·head +
 // r·in_row, k and v at ptr + b·kv_batch + h·head + r·in_row, the output at
 // out + b·out_batch + h·head + r·out_row.
@@ -137,25 +136,19 @@ constexpr int kShF32Batch = 4;
 
 template <int DH>
 struct SmallHead {
-  static_assert(DH == 16 || DH == 32 || DH == 64,
-                "head-dim classes of 2, 4 or 8 chunks a row");
+  static_assert(DH == 16 || DH == 32, "head-dim classes of 2 or 4 chunks a row");
   static constexpr int CH = DH / 8;                    // chunks per row
   static constexpr int row_bytes = DH * 2;
   static constexpr int tile_bytes = kShTile * row_bytes;  // one K or V tile
   static constexpr int stage_bytes = 2 * tile_bytes;
   static constexpr int stages = kShStages;
-  static constexpr int max_warps = DH <= 32 ? kShMaxWarps : 8;
+  static constexpr int max_warps = kShMaxWarps;
   // tiles, then the mbarriers: full and empty per slot
   static constexpr int smem_bytes = stages * stage_bytes + 2 * stages * 8;
 
-  // Byte offset of 16-byte chunk c of row r in a swizzled tile (rows of
-  // eight chunks: chunk c ^ (r mod 8), the 128-byte swizzle).
+  // Byte offset of 16-byte chunk c of row r in a swizzled tile.
   static __device__ __forceinline__ uint32_t offset(int r, int c) {
-    if constexpr (CH <= 4)
-      return (uint32_t)(r * row_bytes +
-                        ((c ^ ((r / (8 / CH)) & (CH - 1))) << 4));
-    else
-      return (uint32_t)(r * row_bytes + ((c ^ (r & 7)) << 4));
+    return (uint32_t)(r * row_bytes + ((c ^ ((r / (8 / CH)) & (CH - 1))) << 4));
   }
 };
 
@@ -314,11 +307,9 @@ smallhead_attention_kernel(const SmallHeadArgsOf<T, PRE> a) {
   // per-lane row addresses of the ldmatrix loads inside a tile: lane 8i + r
   // gives row r of matrix i
   const int mi = lane >> 3, mr = lane & 7;
-  // K: at CH <= 4, 4 / CH score tiles of 8 keys per load, all CH chunks of
-  // each; at CH >= 8, one load per 8 keys and 4 chunks (two k16 steps)
-  constexpr int KPL = CH <= 4 ? 8 * (4 / CH) : 8;
-  const uint32_t k_lane = CH <= 4 ? S::offset((mi / CH) * 8 + mr, mi % CH)
-                                  : S::offset(mr, mi);
+  // K: 4 / CH score tiles of 8 keys per load, all CH chunks of each
+  constexpr int KPL = 8 * (4 / CH);
+  const uint32_t k_lane = S::offset((mi / CH) * 8 + mr, mi % CH);
   // V (transposed on the way): 16 keys x 16 dims per load
   uint32_t v_lane[CH / 2];
 #pragma unroll
@@ -345,36 +336,18 @@ smallhead_attention_kernel(const SmallHeadArgsOf<T, PRE> a) {
 
     // S = Q·Kᵀ: this warp's 16 rows x 128 keys, 16 score tiles of 8 keys
     float s[kShTile / 8][4];
-    if constexpr (CH <= 4) {
 #pragma unroll
-      for (int u = 0; u < kShTile / KPL; ++u) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kt + u * KPL * S::row_bytes + k_lane);
+    for (int u = 0; u < kShTile / KPL; ++u) {
+      uint32_t kf[4];
+      ldmatrix_x4(kf, kt + u * KPL * S::row_bytes + k_lane);
 #pragma unroll
-        for (int n = 0; n < 4 / CH; ++n) {
-          float(&acc)[4] = s[u * (4 / CH) + n];
-          acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < DH / 16; ++kk)
-            mma_16816(acc, qa[kk], kf[n * CH + 2 * kk],
-                      kf[n * CH + 2 * kk + 1]);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < kShTile / 8; ++nt) {
-        float(&acc)[4] = s[nt];
+      for (int n = 0; n < 4 / CH; ++n) {
+        float(&acc)[4] = s[u * (4 / CH) + n];
         acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
 #pragma unroll
-        for (int cg = 0; cg < CH / 4; ++cg) {
-          // chunks 4 cg .. 4 cg + 3 of keys 8 nt ..: row mr's swizzle flips
-          // the low three bits of the chunk, so the group stays together
-          uint32_t kf[4];
-          ldmatrix_x4(kf, kt + nt * 8 * S::row_bytes +
-                              (k_lane ^ ((uint32_t)(cg * 4) << 4)));
-          mma_16816(acc, qa[2 * cg], kf[0], kf[1]);
-          mma_16816(acc, qa[2 * cg + 1], kf[2], kf[3]);
-        }
+        for (int kk = 0; kk < DH / 16; ++kk)
+          mma_16816(acc, qa[kk], kf[n * CH + 2 * kk],
+                    kf[n * CH + 2 * kk + 1]);
       }
     }
     if ((t + 1) * kShTile > Lk) {  // ragged last tile: keys past Lk weigh nothing
@@ -475,7 +448,7 @@ smallhead_attention_kernel(const SmallHeadArgsOf<T, PRE> a) {
 
 // B sequences of H heads. The one copy of the plan: the most query rows per
 // block (the fewest stagings of a head's K and V) whose grid still fills the
-// card, from 256 (128 at DH = 64) down to 64, counted from Lq; the SELF
+// card, from 256 down to 64, counted from Lq; the SELF
 // instantiation where the query and key lengths and batch strides agree.
 // PAD, PRE and TO as the kernel's (args.d; PRE: args is the base of a
 // SmallHeadPreArgs).
@@ -522,26 +495,21 @@ cudaError_t launch_smallhead(const SmallHeadArgsT<T>& args, int B, int H,
 // The one-pass and K-blocked fused kernels (q [B, Nq, D] over k, v
 // [B, Nk, D], contiguous) on this tile at the head dims the wrappers send
 // it (flash_classes.cu), D padded to its class: 8 and 24 on the classes 16
-// and 32, and in bf16 40, 48 and 56 on the class 64, where it ran faster
-// than the wgmma tile built for the width (every other width above 32 is
-// flash_wide.cu's; 16, 32 and 64 exactly flash_attention.cu's).
+// and 32 (above 32: flash_narrow.cu's in bf16 at 40-56, flash_wide.cu's
+// otherwise; 16, 32 and 64 exactly flash_attention.cu's).
 template <typename T>
 cudaError_t launch_fused_classes(const void* q, const void* k, const void* v,
                                  void* out, int B, int Nq, int Nk, int D,
                                  float scale, cudaStream_t stream) {
-  constexpr bool kF32 = std::is_same<T, float>::value;
-  if (D < 8 || D > (kF32 ? 32 : 64) || D % 8) return cudaErrorInvalidValue;
+  if (D < 8 || D > 32 || D % 8) return cudaErrorInvalidValue;
   const long q_seq = (long)Nq * D, kv_seq = (long)Nk * D;
   const SmallHeadArgsT<T> a{static_cast<const T*>(q), static_cast<const T*>(k),
                             static_cast<const T*>(v), static_cast<T*>(out),
                             q_seq, kv_seq, D, q_seq, D, 0, Nq, Nk, scale,
                             D};
-  switch (D <= 16 ? 16 : D <= 32 ? 32 : 64) {
+  switch (D <= 16 ? 16 : 32) {
     case 16: return launch_smallhead<16, T, true>(a, B, 1, stream);
     case 32: return launch_smallhead<32, T, true>(a, B, 1, stream);
-    case 64:
-      if constexpr (!kF32)
-        return launch_smallhead<64, T, true>(a, B, 1, stream);
   }
   return cudaErrorInvalidValue;
 }

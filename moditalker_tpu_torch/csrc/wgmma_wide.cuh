@@ -15,8 +15,8 @@ namespace mdt {
 
 // The tile built per head width: the one-pass and K-blocked fused kernels
 // at every head dim d % 8 == 0 above 32 but 64 (flash_wide.cu; 16, 32 and 64
-// are flash_attention.cu's, and the rest below 32 the small-head tile's
-// classes, and in bf16 40 to 56, where those ran faster), without the
+// are flash_attention.cu's, the rest below 32 the small-head tile's
+// classes, and in bf16 40 to 56 the narrow tile's), without the
 // rotary. wgmma_tile.cuh's kernel stays as it is for head dim 64, so that
 // the configurations' space, one-pass and fused kernels compile and run as
 // they did (their outputs bit for bit); this one is the same tile
@@ -942,8 +942,8 @@ cudaError_t launch_fused_wide(const void* q, const void* k, const void* v,
                        (long)Nq * D, (long)Nk * D, D, Nq, Nk, scale,
                        0, 0, 0, 0};
   if (D > kWdGroup) return launch_wide<kWdGroup, T>(a, B, stream);
-  // bf16 runs 40, 48 and 56 on the small-head class 64
-  // (launch_fused_classes), which was faster there: float32 only
+  // bf16 runs 40, 48 and 56 on the narrow tile (wgmma_narrow.cuh), which
+  // was faster there: float32 only
   if constexpr (std::is_same<T, float>::value) {
     switch (D) {
       case 40: return launch_wide<40, T>(a, B, stream);

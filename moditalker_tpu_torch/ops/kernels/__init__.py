@@ -13,9 +13,10 @@ the source of its float32
 ones (a library of its own), both for the shapes the configurations reach;
 ``CLASS_SOURCES`` and ``CLASS_FLOAT32_SOURCES`` name the sources of the
 same kernels built per head-dim and row class for every other shape their
-gates admit (libraries of their own), and ``WIDE_SOURCES`` and
+gates admit (libraries of their own), ``WIDE_SOURCES`` and
 ``WIDE_FLOAT32_SOURCES`` those of the one-pass and fused kernels built per
-head width above 32; ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound
+head width above 32, and ``NARROW_SOURCES`` that of their bf16 tile at
+head dims 40, 48 and 56; ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` bound
 each kernel's error against its plain version, ``FLOAT32_ROUTE_LIMITS`` a
 kernel's float32 result against the function its float32 route computes,
 and ``bf16_rounded_share`` tells a float32 result from a bf16 one widened. The
@@ -98,6 +99,13 @@ WIDE_SOURCES = {
 }
 WIDE_FLOAT32_SOURCES = {name: source + "_f32"
                         for name, source in WIDE_SOURCES.items()}
+# the one-pass and fused kernels in bf16 at head dims 40, 48 and 56: the
+# D = 64 tile's plan at the head's own width (float32 there is the wide
+# tile's)
+NARROW_SOURCES = {
+    "onepass_attention": "flash_narrow",
+    "fused_attention": "flash_narrow",
+}
 
 
 def all_sources() -> list[str]:
@@ -105,7 +113,8 @@ def all_sources() -> list[str]:
     own (what a build of all the kernels compiles)."""
     return sorted({*SOURCES.values(), *FLOAT32_SOURCES.values(),
                    *CLASS_SOURCES.values(), *CLASS_FLOAT32_SOURCES.values(),
-                   *WIDE_SOURCES.values(), *WIDE_FLOAT32_SOURCES.values()})
+                   *WIDE_SOURCES.values(), *WIDE_FLOAT32_SOURCES.values(),
+                   *NARROW_SOURCES.values()})
 
 
 # Limits of a kernel's bf16 output against its plain version on the same

@@ -47,11 +47,17 @@ Every shape the gate admits launches a kernel. The configurations' shapes
 (space at head dim 64, time at 16 frames of head dim 64) are the
 instantiations of ``divided_attention.cu`` and ``divided_attention_f32.cu``;
 the rest of the gate runs the same kernels built per class in
-``divided_classes.cu`` and ``divided_classes_f32.cu``: time per frame class
-(16, 32) and head-dim class (16, 32, 64, 128), clips of 8 and 24 frames and
-heads narrower than their class padded with zeros (padded frames masked in
-the softmax, neither stored). Space at head dims other than 64, and in
-float32 at 64 past resident K (N > 1152), runs the pre-rotated design
+``divided_classes.cu`` and ``divided_classes_f32.cu``: time at 8 and 16
+frames per head-dim class (16, 32, 64, 128), clips of 8 frames and heads
+narrower than their class padded with zeros (padded frames masked in the
+softmax, neither stored); at clips of 24 and 32 frames (the frame class 32)
+a kernel of its own (``csrc/time_staged.cuh``, entry point
+``STAGED_TIME_ENTRY``): each warp copies its item's raw rows into shared
+memory with ``cp.async`` and rotates them there, and warps walk items
+grid-stride so that device memory stays busy while others compute (the
+classes' arithmetic, so their output bit for bit). Space at head dims other
+than 64, and in float32 at 64 past resident K (N > 1152), runs the
+pre-rotated design
 (``csrc/divided_space.cuh``): a pre-pass writes q rotated and scaled and k
 rotated, in bf16, once per call into a scratch the wrapper allocates (v too
 where the tile cannot read it from qkv; ``space_rotate_reference`` is its
@@ -101,6 +107,11 @@ _LANES = 128
 # space the pre-rotated design (csrc/divided_space.cuh) per head-dim class.
 SPACE_HEAD_DIMS = (64,)
 TIME_SHAPES = ((16, 64),)   # (frames, head dim)
+# clips of 24 and 32 frames (the frame class 32): the time kernel staged by
+# cp.async (csrc/time_staged.cuh, in the classes' libraries under its own
+# entry point), bf16 and float32
+STAGED_TIME_FRAMES = (24, 32)
+STAGED_TIME_ENTRY = "divided_time_attention_staged"
 # the float32 space kernel at head dim 64 (csrc/resident_f32_tile.cuh) keeps K
 # resident in shared memory: 9 tiles of 128 keys (the configurations' AE
 # reaches N = 1024); above that the float32 space attention at head dim 64
@@ -272,9 +283,13 @@ def _bind_forward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
         space = getattr(lib, "divided_space_attention" + suffix)
     space.argtypes = [p] * (4 if suffix else 3) + [i, i, i, i, fl, p]
     space.restype = i
-    time = getattr(lib, "divided_time_attention" + suffix)
-    time.argtypes = [p, p, p, p, i, i, i, i, i, fl, p]
-    time.restype = i
+    names = ["divided_time_attention" + suffix]
+    if suffix.startswith("_classes"):
+        names.append(STAGED_TIME_ENTRY + suffix[len("_classes"):])
+    for name in names:
+        time = getattr(lib, name)
+        time.argtypes = [p, p, p, p, i, i, i, i, i, fl, p]
+        time.restype = i
     return lib
 
 
@@ -459,6 +474,15 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     return out
 
 
+def time_staged(f: int) -> bool:
+    """Whether the time attention at ``f`` frames runs the kernel staged by
+    cp.async (``csrc/time_staged.cuh``, the entry point
+    ``STAGED_TIME_ENTRY``): the frame class 32 (``STAGED_TIME_FRAMES``) at
+    every head dim; the configurations' kernel and the classes' at 8 and 16
+    frames."""
+    return f in STAGED_TIME_FRAMES
+
+
 def _check_frames(f: int) -> None:
     if f % 8 or not 8 <= f <= 32:
         raise ValueError(f"the time kernels take F % 8 == 0, 8 <= F <= 32 "
@@ -480,6 +504,8 @@ def time_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
                       device=qkv.device)
     lib, suffix = _library(f32, (f, dim_head) not in TIME_SHAPES)
     entry = "divided_time_attention" + suffix
+    if time_staged(f):
+        entry = STAGED_TIME_ENTRY + ("_f32" if f32 else "")
     status = getattr(lib, entry)(
         qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(), out.data_ptr(), b, f,
         n, heads, dim_head, scale, kernels.cuda_stream(qkv))

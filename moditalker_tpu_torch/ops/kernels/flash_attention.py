@@ -10,9 +10,12 @@ B:
   each head dim runs on: up to 32 ``csrc/smallhead_tile.cuh`` (``mma.sync``
   with ``ldmatrix`` fragments behind a ``cp.async`` ring, the packed
   kernel's tile: D = 16 and 32 in ``flash_attention.cu``, 8 and 24 on its
-  classes 16 and 32; in bf16 also 40, 48 and 56, on its class 64, where it
-  ran faster); at 64 ``csrc/wgmma_tile.cuh`` without the rotary (the space
-  kernel's tile: K resident up to 1152 keys, Q fragments in registers), in
+  classes 16 and 32); in bf16 at 40, 48 and 56 ``csrc/wgmma_narrow.cuh``
+  (``csrc/flash_narrow.cu``: the D = 64 tile's plan at the head's own
+  width, S in ceil(d / 16) k16 steps and P·V at n = d, the columns past d
+  zeros in shared memory only); at 64 ``csrc/wgmma_tile.cuh`` without the
+  rotary (the space kernel's tile: K resident up to 1152 keys, Q fragments
+  in registers), in
   float32 at Nq = Nk with K resident from ``ONEPASS_F32_MIN_SEQS``
   sequences the float32 space kernel's ``csrc/resident_f32_tile.cuh``
   without its rotary (K and V rounded once per sequence, V into a scratch
@@ -56,11 +59,11 @@ Every shape a gate admits launches a kernel. The configurations' head dims
 the gates runs the same kernels built per class or per width: the one-pass
 and fused kernels at 8 and 24 on the small-head tile's classes 16 and 32
 (``flash_classes{,_f32}.cu``; the columns past d read as zeros, never
-stored; in bf16 also 40, 48 and 56 on its class 64), at every other
-d % 8 == 0 up to 256 but 64 on the wgmma tile built for that width
-(``flash_wide{,_f32}.cu``), and past 256 (the fused gate has no upper bound
-on d) on its 256-column tile in groups of output columns, each group
-summing the scores over all of d; tiny-L at 8, 24 and 32 rows (the row
+stored), in bf16 at 40, 48 and 56 on the narrow tile (``flash_narrow.cu``),
+at every other d % 8 == 0 up to 256 but 64 on the wgmma tile built for
+that width (``flash_wide{,_f32}.cu``), and past 256 (the fused gate has no
+upper bound on d) on its 256-column tile in groups of output columns, each
+group summing the scores over all of d; tiny-L at 8, 24 and 32 rows (the row
 classes 16 and 32, padded rows masked) and at head dim 128
 (``flash_classes{,_f32}.cu``). The one-pass and tiny-L wrappers are
 differentiable, with the JAX package's ``_flash_sdpa`` adjoints on
@@ -90,20 +93,21 @@ HEAD_DIMS = (16, 32, 64)
 TINY_SHAPES = ((16, 64),)   # (L, head dim)
 # the small-head tile's head-dim classes (the divided space and time
 # classes); of them the one-pass and fused kernels run on
-# FUSED_HEAD_DIM_CLASSES (flash_classes.cu's launch_fused_classes): 16 and
-# 32 for every d up to SMALLHEAD_MAX_DIM, and in bf16 64 for
-# SMALLHEAD_BF16_DIMS
+# FUSED_HEAD_DIM_CLASSES (flash_classes.cu's launch_fused_classes) for
+# every d up to SMALLHEAD_MAX_DIM
 HEAD_DIM_CLASSES = (16, 32, 64, 128)
-FUSED_HEAD_DIM_CLASSES = (16, 32, 64)
+FUSED_HEAD_DIM_CLASSES = (16, 32)
 SMALLHEAD_MAX_DIM = 32
-# the widths at which the small-head class ran faster than the wgmma tile
-# in bf16, timed in turns in one call (tools/ab_classes.py, H100 80GB HBM3,
-# 700 W): there bf16 keeps the class (float32 takes the wgmma tile at every
-# width above 32)
-SMALLHEAD_BF16_DIMS = (40, 48, 56)
+# bf16 at these widths runs the narrow tile (csrc/wgmma_narrow.cuh, the
+# entry point NARROW_ENTRY in flash_narrow.cu), at each width where paired
+# runs (class, narrow, narrow, class in one call, tools/ab_classes.py
+# --narrow, H100 80GB HBM3, 700 W) read it faster than the small-head
+# class 64 it replaced; float32 takes the wgmma tile built per width
+NARROW_HEAD_DIMS = (40, 48, 56)
+NARROW_ENTRY = "fused_attention_narrow"
 # the wgmma tile built per width (flash_wide.cu's launch_fused_wide): every
 # d % 8 == 0 from 40 to 256 but 64 in float32, the same but
-# SMALLHEAD_BF16_DIMS in bf16; wider heads run the WIDE_GROUP-column tile in
+# NARROW_HEAD_DIMS in bf16; wider heads run the WIDE_GROUP-column tile in
 # groups of output columns, each group summing S over all of d
 WIDE_HEAD_DIMS = tuple(d for d in range(40, 257, 8) if d != 64)
 WIDE_GROUP = 256
@@ -320,20 +324,29 @@ def _wide_lib_f32() -> ctypes.CDLL:
     return _bind(_build.load("flash_wide_f32"), "_wide_f32")
 
 
+@functools.cache
+def _narrow_lib() -> ctypes.CDLL:
+    """The one-pass and fused kernels at 40, 48 and 56, bf16, on the
+    narrow tile (``csrc/flash_narrow.cu``), a library of its own."""
+    return _bind(_build.load("flash_narrow"), "_narrow")
+
+
 _SUFFIXES = {"flash_attention": "", "flash_classes": "_classes",
-             "flash_wide": "_wide"}
+             "flash_wide": "_wide", "flash_narrow": "_narrow"}
 
 
 def attention_source(d: int, f32: bool = False) -> str:
     """The source (``csrc/<name>.cu``; its float32 entry point in
     ``<name>_f32.cu``) of the kernel the one-pass and fused wrappers launch
     at head dim ``d`` (d % 8 == 0), bf16 or float32: the configurations'
-    instantiations, the small-head classes up to 32 (and in bf16 at
-    SMALLHEAD_BF16_DIMS), the wgmma tile built per width above."""
+    instantiations, the small-head classes up to 32, in bf16 the narrow
+    tile at NARROW_HEAD_DIMS, the wgmma tile built per width above."""
     if d in HEAD_DIMS:
         return "flash_attention"
-    if d <= SMALLHEAD_MAX_DIM or (not f32 and d in SMALLHEAD_BF16_DIMS):
+    if d <= SMALLHEAD_MAX_DIM:
         return "flash_classes"
+    if not f32 and d in NARROW_HEAD_DIMS:
+        return "flash_narrow"
     return "flash_wide"
 
 
@@ -343,6 +356,7 @@ def _library(d: int, f32: bool) -> tuple[ctypes.CDLL, str]:
     suffix = _SUFFIXES[attention_source(d, f32)] + ("_f32" if f32 else "")
     lib = {"": _lib, "_f32": _lib_f32, "_classes": _classes_lib,
            "_classes_f32": _classes_lib_f32, "_wide": _wide_lib,
+           "_narrow": _narrow_lib,
            "_wide_f32": _wide_lib_f32}[suffix]()
     return lib, "fused_attention" + suffix
 
@@ -421,8 +435,9 @@ def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     """The one-pass and the fused wrapper's checks and launch (the one-pass
     kernel is the fused one at Nq = Nk): q [B, Nq, D] over k, v [B, nk, D]
     bf16 → [B, Nq, D] bf16, or float32 → float32 (the float32 entry point).
-    D % 8 == 0; at 64, above 1152 keys (where K streams through a ring
-    instead of staying in shared memory) only whole 128-key tiles. The
+    D % 8 == 0; at 64 (and on the narrow tile, bf16 at 40, 48 and 56),
+    above 1152 keys (where K streams through a ring instead of staying in
+    shared memory) only whole 128-key tiles. The
     float32 entry point at 64 takes the V scratch (``onepass_f32_scratch``)
     where ``onepass_f32_own_kernel`` takes its own kernel, a null pointer
     (the wgmma tile's float32 route) elsewhere; past resident K, where
@@ -435,12 +450,13 @@ def _attention_cuda(what: str, q, k, v, scale: float, nk: int):
     if d % 8 or d < 8:
         raise ValueError(f"the {what} kernel takes head dims d % 8 == 0, not "
                          f"{d}")
-    if d == 64 and nk > RESIDENT_KEYS_D64 and nk % _KEY_TILE:
-        raise ValueError(f"at head dim 64 the {what} kernel takes more than "
+    lib, entry = _library(d, f32)
+    if ((d == 64 or entry == NARROW_ENTRY) and nk > RESIDENT_KEYS_D64
+            and nk % _KEY_TILE):
+        raise ValueError(f"at head dim {d} the {what} kernel takes more than "
                          f"{RESIDENT_KEYS_D64} keys only in multiples of "
                          f"{_KEY_TILE}, not {nk}")
     out = torch.empty_like(q)
-    lib, entry = _library(d, f32)
     pointers = [q.data_ptr(), k.data_ptr(), v.data_ptr()]
     own, scratch = False, None
     if entry == "fused_attention_f32":

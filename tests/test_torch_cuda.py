@@ -770,6 +770,9 @@ DIVIDED_CLASSES = [
     ("time", 1, 24, 32, 4, 32), ("time", 1, 16, 32, 8, 16),
     ("time", 1, 8, 16, 16, 8), ("time", 1, 32, 8, 32, 4),
     ("time", 1, 16, 8, 64, 2), ("time", 3, 24, 5, 3, 64),
+    # the frame class 32's heads of 4 and 2 with warps walking many items
+    # (the staged kernel's buffer zeroed once, reused past dh)
+    ("time", 1, 32, 256, 128, 4), ("time", 1, 24, 128, 256, 2),
     # space: head dims 2 to 128 but 64 on the pre-rotated design (the
     # rotation pre-pass, then the small-head tile up to 32, the wgmma tile
     # built per width at 128); 64 past the float32 wgmma tile's resident K
@@ -1026,7 +1029,7 @@ def test_wide_tile_matches_plain(gen, b, nq, nk, d, dtype):
         name = "fused_attention"
         run = lambda: tflash.fused_attention(q, k, v)
     assert tflash.attention_source(d, dtype == torch.float32) == (
-        "flash_classes" if d in tflash.SMALLHEAD_BF16_DIMS
+        "flash_narrow" if d in tflash.NARROW_HEAD_DIMS
         and dtype == torch.bfloat16 else "flash_wide")
     got = _launched(name, run)
     q, k, v = q.float(), k.float(), v.float()
@@ -1130,3 +1133,119 @@ def test_divided_backward_classes_match_plain(gen, axis, b, f, n, heads, dh,
                        tbwd.divided_attention_backward_float32_route(*args))
     else:
         check_bf16(name, got, plain)
+
+
+# (B, Nq, Nk, d): one-pass with K resident and past it at each width, at 8
+# and 16 sequences; fused with ragged query chunks over one whole and one
+# short key tile, a single query row over 8 keys, over resident K and past it
+NARROW_CASES = [(2, 1024, 1024, 40), (16, 2048, 2048, 48), (2, 2048, 2048, 56),
+                (8, 1024, 1024, 48), (8, 2048, 2048, 40), (2, 1280, 1280, 56),
+                (3, 1000, 128, 48), (3, 1000, 120, 48), (3, 1, 8, 40),
+                (2, 70, 120, 56), (2, 300, 1024, 48), (2, 1280, 2048, 48),
+                (2, 1100, 384, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,nq,nk,d", NARROW_CASES)
+def test_narrow_tile_matches_plain(gen, b, nq, nk, d):
+    """The bf16 one-pass and fused kernel at head dims 40, 48 and 56 (the
+    narrow tile, ``NARROW_ENTRY``): launched through its entry point,
+    within ``BF16_LIMITS`` and ``QUANTILE_LIMITS`` of the float32 plain
+    version on its inputs, masked shapes included; a second call equal bit
+    for bit."""
+    q = _randn(gen, b, nq, d)
+    k, v = _randn(gen, b, nk, d), _randn(gen, b, nk, d)
+    if nq == nk:
+        name = "onepass_attention"
+        run = lambda: tflash.onepass_attention(q, k, v, d**-0.5)
+    else:
+        name = "fused_attention"
+        run = lambda: tflash.fused_attention(q, k, v)
+    before = LAUNCHES_BY_ENTRY[tflash.NARROW_ENTRY]
+    got = _launched(name, run)
+    assert LAUNCHES_BY_ENTRY[tflash.NARROW_ENTRY] == before + 1
+    assert got.dtype == torch.bfloat16 and torch.equal(got, run())
+    check_bf16(name, got, tflash.fused_attention_reference(
+        q.float(), k.float(), v.float(), d**-0.5))
+
+
+@pytest.fixture(scope="module")
+def time_class_lib():
+    """The classes' time kernel the staged kernel replaced at 24 and 32
+    frames, built by ``tools/ab_classes.py`` (``TIME_VARIANTS``) from the
+    headers of an earlier copy of the repository under ``build/before``
+    (``git archive 252b342 | tar -x -C build/before``, the last commit
+    before the staged kernel, unpacked here from the local history where
+    the directory is missing): {"": bf16 library, "_f32": float32
+    library}."""
+    import pathlib
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    root = pathlib.Path(__file__).resolve().parents[1]
+    before = root / "build" / "before"
+    header = before / "moditalker_tpu_torch" / "csrc" / "divided_attention.cuh"
+    if not header.is_file():
+        before.mkdir(parents=True, exist_ok=True)
+        subprocess.run(f"git -C {root} archive 252b342 | tar -x -C {before}",
+                       shell=True, capture_output=True)
+    if not header.is_file():
+        pytest.skip("needs an earlier copy of the repository under "
+                    "build/before, whose time classes it builds, and no "
+                    "git history here to unpack it from")
+    sys.path.insert(0, str(root / "tools"))
+    import ab_classes
+    import ctypes
+
+    def bind(lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.time_ab.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+        lib.time_ab.restype = i
+        return lib
+
+    libs = ab_classes.build_variants(before, ab_classes.TIME_VARIANTS,
+                                     ab_classes.TIME_SOURCE, bind)
+    return {"": libs["time_class"], "_f32": libs["time_class_f32"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,f,n,heads,dh", [
+    (2, 32, 1024, 8, 64), (2, 24, 1024, 8, 64), (1, 32, 100, 2, 64),
+    (1, 24, 256, 16, 32), (1, 32, 256, 32, 16), (1, 32, 256, 64, 8),
+    (1, 32, 256, 4, 128), (1, 24, 64, 4, 128), (1, 32, 256, 128, 4),
+    (1, 24, 128, 256, 2)])
+def test_time_staged_is_the_class_bit_for_bit(gen, time_class_lib, b, f, n,
+                                             heads, dh, dtype):
+    """The time kernel staged by cp.async (``STAGED_TIME_ENTRY``) at clips
+    of 24 and 32 frames, at every head-dim class and with a last block of
+    warps short of items: its output equal bit for bit to the classes'
+    kernel it replaced on the same inputs (the same arithmetic: the
+    rotary in fp32 rounded once, masked frames, ``expf``), within the time
+    kernel's limits of the float32 plain version and, in float32, of its
+    route; two calls equal."""
+    f32 = dtype == torch.float32
+    sin, cos = _divided_tables("time", f, n, dh)
+    x = _randn32(gen, b, f, n, 3 * heads * dh).to(dtype)
+    entry = tdiv.STAGED_TIME_ENTRY + ("_f32" if f32 else "")
+    before = LAUNCHES_BY_ENTRY[entry]
+    run = lambda: tdiv.time_attention_cuda(x, sin, cos, heads, dh, dh**-0.5)
+    got = _launched("divided_time_attention", run)
+    assert LAUNCHES_BY_ENTRY[entry] == before + 1
+    assert torch.equal(got, run())
+    want = torch.empty_like(got)
+    lib = time_class_lib["_f32" if f32 else ""]
+    assert lib.time_ab(x.data_ptr(), sin.data_ptr(), cos.data_ptr(),
+                       want.data_ptr(), b, f, n, heads, dh, dh**-0.5,
+                       torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    x32 = x.float()
+    _check_class("divided_time_attention", got,
+                 tdiv.divided_attention_reference(x32, sin, cos, "time",
+                                                  heads, dh, dh**-0.5,
+                                                  use_flash=False),
+                 tdiv.divided_attention_float32_route(x32, sin, cos, "time",
+                                                      heads, dh, dh**-0.5))

@@ -204,15 +204,17 @@ def test_float32_entry_points_are_in_their_own_source():
     with the kernels), the classes beyond the configurations' shapes in
     sources of their own likewise (``CLASS_SOURCES``,
     ``CLASS_FLOAT32_SOURCES``, and the one-pass and fused kernels' widths
-    ``WIDE_SOURCES``, ``WIDE_FLOAT32_SOURCES``), and every source under
-    csrc/ is a kernel's."""
+    ``WIDE_SOURCES``, ``WIDE_FLOAT32_SOURCES``; their bf16 narrow tile
+    ``NARROW_SOURCES`` alone, without a float32 twin), and every source
+    under csrc/ is a kernel's."""
     symbols = {"divided_attention": {"divided_space_attention",
                                      "divided_time_attention"},
                "packed_attention": {"packed_attention"},
                "flash_attention": {"fused_attention"},
                "tiny_attention": {"tiny_attention"},
                "divided_classes": {"divided_space_attention_prerotated",
-                                   "divided_time_attention_classes"},
+                                   "divided_time_attention_classes",
+                                   "divided_time_attention_staged"},
                "flash_classes": {"fused_attention_classes",
                                  "tiny_attention_classes"},
                "flash_wide": {"fused_attention_wide"},
@@ -225,6 +227,14 @@ def test_float32_entry_points_are_in_their_own_source():
     # float32 alone: the one-pass and fused kernels at head dim 64 past
     # resident K (the pre-pass and the bf16 K ring)
     float32_only = {"flash_attention_f32": {tflash.PREROUNDED_ENTRY}}
+    # bf16 alone: the narrow tile at head dims 40 to 56 (float32 there is
+    # the wide tile's), a source without a float32 twin
+    for source, names in {"flash_narrow": {tflash.NARROW_ENTRY}}.items():
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        c_api = text[text.index('extern "C" {'):]
+        assert set(re.findall(r"\bint (\w+)\(", c_api)) == names
+        assert not (_build.CSRC / f"{source}_f32.cu").exists()
+    assert set(tkernels.NARROW_SOURCES.values()) == {"flash_narrow"}
     for source, names in symbols.items():
         for src, suffix in ((source, ""), (source + "_f32", "_f32")):
             text = (_build.CSRC / f"{src}.cu").read_text()
@@ -247,7 +257,8 @@ def test_float32_entry_points_are_in_their_own_source():
              *tkernels.CLASS_SOURCES.values(),
              *tkernels.CLASS_FLOAT32_SOURCES.values(),
              *tkernels.WIDE_SOURCES.values(),
-             *tkernels.WIDE_FLOAT32_SOURCES.values()}
+             *tkernels.WIDE_FLOAT32_SOURCES.values(),
+             *tkernels.NARROW_SOURCES.values()}
     assert {p.stem for p in _build.CSRC.glob("*.cu")} == built
     assert tkernels.all_sources() == sorted(built)
 

@@ -193,17 +193,18 @@ def test_sdpa_gate_grid_launches_everywhere_it_opens(stub_launches, dtype):
 
 def _fused_entry(d, dtype, b=2, nq=1, nk=1):
     """The C entry point the fused and one-pass wrappers call at head dim
-    d: the configurations' instantiations, the small-head classes up to 32
-    (and in bf16 where they ran faster), the wgmma tile built per width
+    d: the configurations' instantiations, the small-head classes up to 32,
+    in bf16 the narrow tile at 40, 48 and 56, the wgmma tile built per width
     above; in float32 at 64, q [b, nq] over k [b, nk] past resident K where
     ``onepass_f32_prerounded`` takes it, the pre-pass and the bf16 K ring."""
     f32 = dtype == torch.float32
     if f32 and d == 64 and tflash.onepass_f32_prerounded(b, nq, nk):
         return tflash.PREROUNDED_ENTRY
+    if not f32 and d in tflash.NARROW_HEAD_DIMS:
+        return tflash.NARROW_ENTRY
     if d in tflash.HEAD_DIMS:
         entry = "fused_attention"
-    elif d <= tflash.SMALLHEAD_MAX_DIM or (
-            not f32 and d in tflash.SMALLHEAD_BF16_DIMS):
+    elif d <= tflash.SMALLHEAD_MAX_DIM:
         entry = "fused_attention_classes"
     else:
         entry = "fused_attention_wide"
@@ -234,6 +235,65 @@ def test_fused_gate_grid_launches_everywhere_it_opens(stub_launches, dtype):
             before = tkernels.LAUNCHES["fused_attention"]
             tflash.fused_attention(q, k, k, d**-0.5)
             assert tkernels.LAUNCHES["fused_attention"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_narrow_head_dims_reach_the_narrow_tile(stub_launches, dtype):
+    """bf16 one-pass and fused attention at head dims 40, 48 and 56 launch
+    the narrow tile's entry point (``NARROW_ENTRY``, csrc/flash_narrow.cu):
+    one-pass with K resident (1024) and past it (2048), fused over one
+    whole and one short key tile with ragged query chunks, over resident K
+    and past it; float32 there launches the wgmma tile built per width
+    (``fused_attention_wide_f32``). Counted under the wrappers' names and
+    by entry point."""
+    f32 = dtype == torch.float32
+    want = "fused_attention_wide_f32" if f32 else tflash.NARROW_ENTRY
+    assert tflash.NARROW_HEAD_DIMS == (40, 48, 56)
+    for d in tflash.NARROW_HEAD_DIMS:
+        assert tflash.attention_source(d, f32) == (
+            "flash_wide" if f32 else "flash_narrow")
+        for nq, nk in ((2048, 2048), (1024, 1024), (1000, 128), (1000, 120),
+                       (300, 1024), (1280, 2048)):
+            q = torch.empty(2, nq, d, dtype=dtype, device="meta")
+            k = torch.empty(2, nk, d, dtype=dtype, device="meta")
+            name = "onepass_attention" if nq == nk else "fused_attention"
+            stub_launches.clear()
+            before = tkernels.LAUNCHES_BY_ENTRY[want]
+            if nq == nk:
+                tflash.onepass_attention(q, k, k, d**-0.5)
+            else:
+                tflash.fused_attention(q, k, k, d**-0.5)
+            assert stub_launches == [want], (d, nq, nk)
+            assert tkernels.LAUNCHES_BY_ENTRY[want] == before + 1
+            assert tkernels.LAUNCHES_BY_SHAPE[name][
+                (2, nq, d) if nq == nk else (2, nq, nk, d)] >= 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_time_at_32_frame_clips_reaches_the_staged_kernel(stub_launches,
+                                                          dtype):
+    """The time attention at clips of 24 and 32 frames (the frame class 32)
+    launches the staged kernel's entry point (``STAGED_TIME_ENTRY``,
+    csrc/time_staged.cuh) at every head dim, bf16 and float32; at 8 and 16
+    frames the classes' kernel, the configurations' 16 frames of 64 their
+    own. The backward is the classes' at every clip length."""
+    suffix = "_f32" if dtype == torch.float32 else ""
+    staged = tdiv.STAGED_TIME_ENTRY + suffix
+    assert tdiv.STAGED_TIME_FRAMES == (24, 32)
+    for f in (8, 16, 24, 32):
+        for dh in HEAD_DIVISORS[1:]:
+            stub_launches.clear()
+            _divided_launch("time", f, 8, dh, dtype)
+            if f > 16:
+                forward = staged
+            elif (f, dh) in tdiv.TIME_SHAPES:
+                forward = "divided_time_attention" + suffix
+            else:
+                forward = "divided_time_attention_classes" + suffix
+            assert tdiv.time_staged(f) == (forward == staged)
+            assert stub_launches[0] == forward, (f, dh)
+            assert stub_launches[1].startswith(
+                "divided_time_attention_backward"), (f, dh)
 
 
 # ------------------------------------------------------------ the sources
@@ -270,35 +330,39 @@ def test_class_launchers_switch_on_the_named_classes():
     assert "launch_tiny<16, D, T, true>" in tile   # L = 8
     assert "launch_tiny<32, D, T, true>" in tile   # L = 24
     # the one-pass and fused kernels: the small-head classes 16 and 32 up to
-    # head dim 32, and in bf16 the class 64 where it ran faster (nothing
-    # else of the small-head tile); the wgmma tile built per width from 40
+    # head dim 32 (nothing else of the small-head tile: its class 64 went
+    # with bf16 40-56's move to the narrow tile); in bf16 at 40, 48 and 56
+    # the narrow tile, a case each; the wgmma tile built per width from 40
     # to 256 but 64 (a case each; in bf16 from 72), then its 256-column tile
     # in groups, up to the widest head Q fits for
     assert _case_labels("smallhead_tile.cuh", "launch_fused_classes") \
-        == tflash.FUSED_HEAD_DIM_CLASSES == (16, 32, 64)
+        == tflash.FUSED_HEAD_DIM_CLASSES == (16, 32)
     tile = (_build.CSRC / "smallhead_tile.cuh").read_text()
     body = tile[tile.index("cudaError_t launch_fused_classes("):]
     body = body[:body.index("\n}\n")]
-    assert "if (D < 8 || D > (kF32 ? 32 : 64) || D % 8)" in body
-    assert re.search(r"case 64:\s+if constexpr \(!kF32\)\s+return "
-                     r"launch_smallhead<64, T", body)
+    assert "if (D < 8 || D > 32 || D % 8)" in body
+    assert "static_assert(DH == 16 || DH == 32," in tile
     assert tflash.SMALLHEAD_MAX_DIM == 32
+    assert _case_labels("flash_narrow.cu", "fused_attention_narrow") \
+        == tflash.NARROW_HEAD_DIMS
+    assert _case_labels("time_staged.cuh", "launch_time_staged_classes") \
+        == classes
     assert _case_labels("wgmma_wide.cuh", "launch_fused_wide") \
         == tflash.WIDE_HEAD_DIMS
     assert tflash.WIDE_HEAD_DIMS == tuple(
         d for d in range(tflash.SMALLHEAD_MAX_DIM + 8, tflash.WIDE_GROUP + 1, 8)
         if d not in tflash.HEAD_DIMS)
-    # where bf16 keeps the small-head class, its class is built, and the
-    # wide tile is built there for float32 alone
-    assert all(tflash.SMALLHEAD_MAX_DIM < d <= 64
-               for d in tflash.SMALLHEAD_BF16_DIMS)
+    # where bf16 runs the narrow tile, the wide tile is built for float32
+    # alone
+    assert all(tflash.SMALLHEAD_MAX_DIM < d < 64
+               for d in tflash.NARROW_HEAD_DIMS)
     wide = (_build.CSRC / "wgmma_wide.cuh").read_text()
     launcher = wide[wide.index("cudaError_t launch_fused_wide("):]
     f32_only = launcher[launcher.index(
         "if constexpr (std::is_same<T, float>::value) {"):]
     f32_only = f32_only[:f32_only.index("\n  }\n")]
     assert tuple(int(n) for n in re.findall(r"case (\d+):", f32_only)) \
-        == tflash.SMALLHEAD_BF16_DIMS
+        == tflash.NARROW_HEAD_DIMS
     assert f"constexpr int kWdGroup = {tflash.WIDE_GROUP};" in wide
     assert "if (D > kWdGroup) return launch_wide<kWdGroup, T>" in wide
 
@@ -316,6 +380,8 @@ def _divided_inputs(axis, f, n, dh, seed=11):
 
 @pytest.mark.parametrize("axis,f,n,dh", [("time", 8, 16, 64),
                                          ("time", 32, 8, 64),
+                                         ("time", 24, 8, 64),
+                                         ("time", 32, 8, 8),
                                          ("space", 1, 256, 32),
                                          ("space", 1, 256, 128)])
 def test_divided_class_plain_matches_pallas_interpret(axis, f, n, dh):
@@ -340,10 +406,11 @@ def test_tiny_class_plain_matches_pallas_interpret(l):
     _close(got.numpy(), want)
 
 
-@pytest.mark.parametrize("d", [24, 128])
+@pytest.mark.parametrize("d", [24, 40, 48, 56, 128])
 def test_onepass_class_plain_matches_pallas_interpret(d):
-    """One-pass at head dim 24 (the UNet at 192 model channels) and 128
-    (8 heads at 1024 channels, or 2 at 256)."""
+    """One-pass at head dim 24 (the UNet at 192 model channels), 40, 48
+    (192 channels at ds = 1) and 56 (the narrow tile's widths) and 128 (8
+    heads at 1024 channels, or 2 at 256)."""
     rng = np.random.default_rng(6)
     q, k, v = (rng.normal(size=(2, 1024, d)).astype(np.float32)
                for _ in range(3))
@@ -352,6 +419,23 @@ def test_onepass_class_plain_matches_pallas_interpret(d):
     want = jflash.onepass_attention(jnp.asarray(q), jnp.asarray(k),
                                     jnp.asarray(v), d**-0.5, interpret=True)
     got = tflash.onepass_attention(_t(q), _t(k), _t(v), d**-0.5)
+    _close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("nq,nk", [(100, 128), (100, 120), (300, 256)])
+def test_fused_narrow_plain_matches_pallas_interpret(nq, nk):
+    """The fused kernel's plain version at head dim 48 (the narrow tile's
+    fused shapes: ragged query rows over one whole 128-key tile, one short
+    of it and two tiles) against the JAX package's K-blocked Pallas kernel
+    (``_attn_kernel``) in interpret mode."""
+    rng = np.random.default_rng(8)
+    q = rng.normal(size=(2, nq, 48)).astype(np.float32)
+    k, v = (rng.normal(size=(2, nk, 48)).astype(np.float32)
+            for _ in range(2))
+    assert tflash.fused_attention_tiles(nk, 48)
+    want = jflash.fused_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), 48**-0.5, interpret=True)
+    got = tflash.fused_attention(_t(q), _t(k), _t(v), 48**-0.5)
     _close(got.numpy(), want)
 
 

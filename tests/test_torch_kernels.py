@@ -156,10 +156,14 @@ def test_built_head_dims_match_the_sources():
                             f"tiny_attention_classes{suffix}") \
             == tflash.TINY_HEAD_DIMS == (64, 128)
     assert _case_labels("smallhead_tile.cuh", "launch_fused_classes") \
-        == tflash.FUSED_HEAD_DIM_CLASSES == (16, 32, 64)
+        == tflash.FUSED_HEAD_DIM_CLASSES == (16, 32)
     assert _case_labels("wgmma_wide.cuh", "launch_fused_wide") \
         == tflash.WIDE_HEAD_DIMS
     assert not set(tflash.WIDE_HEAD_DIMS) & set(tflash.HEAD_DIMS)
+    # bf16 at 40, 48 and 56: the narrow tile, a case each
+    assert _case_labels("flash_narrow.cu", "fused_attention_narrow") \
+        == tflash.NARROW_HEAD_DIMS == (40, 48, 56)
+    assert tflash.NARROW_ENTRY == "fused_attention_narrow"
 
 
 @pytest.mark.parametrize("source", sorted(

@@ -45,7 +45,7 @@ def stub_launches(monkeypatch):
                        (tflash, ("_lib", "_lib_f32", "_tiny_lib",
                                  "_tiny_lib_f32", "_classes_lib",
                                  "_classes_lib_f32", "_wide_lib",
-                                 "_wide_lib_f32"))):
+                                 "_wide_lib_f32", "_narrow_lib"))):
         for lib in names:
             monkeypatch.setattr(mod, lib, lambda: StubLib(calls))
     tkernels.reset_launch_counts()

@@ -16,9 +16,9 @@ configurations' wgmma tile and backward are the only kernels built there).
 Then the one-pass kernel's two tiles above head dim 32, paired the same way
 at [16, 2048, d] for d = 40 to 128 and at [4, 2048, 128], bf16 and float32:
 the small-head tile's class 64 or 128 against the wgmma tile built for the
-width (``csrc/wgmma_wide.cuh``), each held to the limits;
-``flash_attention.SMALLHEAD_BF16_DIMS`` names the widths where the class is
-the faster. And the wgmma tile built for d = 64 against the configurations'
+width (``csrc/wgmma_wide.cuh``), each held to the limits (the class
+kept bf16 40-56 until the narrow tile, ``--narrow``). And the wgmma tile
+built for d = 64 against the configurations'
 instantiation at 64 (``csrc/wgmma_tile.cuh``'s tile in
 ``csrc/flash_attention{,_f32}.cu``) at [16, 2048, 64] (K through a ring) and
 [128, 1024, 64] (K resident). The libraries hold only what the wrappers
@@ -45,6 +45,18 @@ feeding the wgmma tile built at n = dh in place of the small-head tile. The
 class, its rotary-free twin, the pre-pass alone and that wgmma variant are
 built here as well.
 
+Then the bf16 one-pass and fused kernel at head dims 40, 48 and 56
+(``--narrow``): the small-head class 64 it replaced against the narrow tile
+(``csrc/wgmma_narrow.cuh``, ``flash_attention.NARROW_ENTRY``), paired
+(class, new, new, class) at [16, 2048 | 1024, d] and [8, 2048, d] and at
+fused shapes of 48 (ragged query rows over a whole and a short key tile,
+over resident K and past it), with the library call and the bound. And the time
+kernel at clips of 32 and 24 frames (``--time32``): the classes' kernel it
+replaced against the staged kernel (``csrc/time_staged.cuh``,
+``divided_attention.STAGED_TIME_ENTRY``), bit for bit at every head-dim
+class, paired at qkv [2, 32 | 24, 1024, 1536], bf16 and float32, with the
+library call and the bound.
+
 The replaced designs (the small-head class 128 and the class with the
 rotary) are no longer in this checkout's headers: those variants are built
 against the headers of an earlier copy of the repository (``--before``,
@@ -53,9 +65,14 @@ from a commit whose ``smallhead_tile.cuh`` still has its ``ROT`` branch and
 class 128 (1f27cc7 or earlier):
 
     git archive 1f27cc7 | tar -x -C build/before   # once, on the host
-    python3 tools/ab_classes.py [--wide | --space] [--before DIR]
+    python3 tools/ab_classes.py [--wide | --space | --narrow | --time32]
+                                [--before DIR]
                                           # repository root, on a card;
-                                          # --wide, --space: that part alone
+                                          # a mode: that part alone
+
+(``--narrow`` and ``--time32`` build the class 64 and the time classes at
+32 frames from the --before copy too: any commit before they were replaced,
+252b342 or earlier.)
 """
 
 from __future__ import annotations
@@ -162,6 +179,49 @@ const char* kernel_error_string(int err) {{
 }}
 }}
 """
+# the bf16 one-pass and fused kernel at head dims 40, 48 and 56 (--narrow):
+# the small-head class 64 it replaced (the --before copy's
+# launch_fused_classes, bf16 branch), a bf16 library of its own
+NARROW_VARIANTS = {
+    "class64": ("smallhead_tile.cuh", True, """
+  if (D < 8 || D > 64 || D % 8) return cudaErrorInvalidValue;
+  const long q_seq = (long)Nq * D, kv_seq = (long)Nk * D;
+  const mdt::SmallHeadArgsT<T> a{static_cast<const T*>(q),
+                                 static_cast<const T*>(k),
+                                 static_cast<const T*>(v),
+                                 static_cast<T*>(out), q_seq, kv_seq, D, q_seq,
+                                 D, 0, Nq, Nk, scale, D};
+  return mdt::launch_smallhead<64, T, true>(a, B, 1, st);
+"""),
+    # the narrow tile built at 64 (never shipped), against the D = 64 tile
+    "narrow64": ("wgmma_narrow.cuh", False, """
+  const mdt::NarrowArgs a{static_cast<const T*>(q), static_cast<const T*>(k),
+                          static_cast<const T*>(v), static_cast<T*>(out), Nq,
+                          Nk, scale, 0, 0};
+  return D == 64 ? mdt::launch_narrow<64>(a, B, st) : cudaErrorInvalidValue;
+"""),
+}
+BF16_ONLY = (("", "mdt::bf16"),)
+# the time kernel at clips of 24 and 32 frames (--time32): the classes'
+# kernel it replaced there (the --before copy's launch_time_classes), bf16
+# and float32
+TIME_VARIANTS = {
+    "time_class": ("divided_attention.cuh", True, """
+  return mdt::launch_time_classes<T>(qkv, sin_t, cos_t, out, B, F, N, H, dh,
+                                     scale, st);
+"""),
+}
+TIME_SOURCE = """#include "{header}"
+using T = {type};
+extern "C" {{
+int time_ab(const void* qkv, const void* sin_t, const void* cos_t, void* out,
+            int B, int F, int N, int H, int dh, float scale, void* stream) {{
+  cudaStream_t st = static_cast<cudaStream_t>(stream);{body}}}
+const char* kernel_error_string(int err) {{
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}}
+}}
+"""
 SOURCE = """#include "{header}"
 using T = {type};
 extern "C" {{
@@ -177,11 +237,13 @@ const char* kernel_error_string(int err) {{
 
 
 def build_variants(before: Path, variants=None, source=SOURCE,
-                   bind=None) -> dict:
+                   bind=None, types=(("", "mdt::bf16"),
+                                     ("_f32", "float"))) -> dict:
     """Build ``variants`` (default ``VARIANTS``) from ``source`` in bf16 and
     float32 under build/ab_classes/ and load them, each bound by ``bind``
     (default: the fused entry point): {"class", "class_f32", "wide",
-    "wide_f32"} -> library. A variant marked so includes the headers of the
+    "wide_f32"} -> library, each in the element ``types`` (suffix, C++
+    type). A variant marked so includes the headers of the
     copy at ``before``. Prints each kernel's registers and stack
     (``-Xptxas -v``), one JSON line per variant."""
     import ctypes
@@ -196,7 +258,7 @@ def build_variants(before: Path, variants=None, source=SOURCE,
     procs = {}
     csrc_before = before / "moditalker_tpu_torch" / "csrc"
     for name, (header, old, body) in variants.items():
-        for suffix, type_ in (("", "mdt::bf16"), ("_f32", "float")):
+        for suffix, type_ in types:
             src = out / f"{name}{suffix}.cu"
             src.write_text(source.format(header=header, type=type_,
                                          body=body))
@@ -237,6 +299,14 @@ def main() -> int:
                     help="only the comparisons above head dim 32")
     ap.add_argument("--space", action="store_true",
                     help="only the space kernel's comparisons")
+    ap.add_argument("--narrow", action="store_true",
+                    help="only the bf16 one-pass and fused kernel at head "
+                         "dims 40 to 56: the narrow tile against the "
+                         "small-head class 64 it replaced")
+    ap.add_argument("--time32", action="store_true",
+                    help="only the time kernel at clips of 24 and 32 "
+                         "frames: the staged kernel against the classes' "
+                         "kernel it replaced")
     ap.add_argument("--before", type=Path, default=ROOT / "build" / "before",
                     help="an earlier copy of the repository, whose headers "
                          "build the replaced designs")
@@ -278,12 +348,17 @@ def main() -> int:
             raise RuntimeError(f"{entry}: {lib.kernel_error_string(rc)}")
 
     print(json.dumps({"card": chip_smoke.card_line()}), flush=True)
-    if not (args.wide or args.space):
+    only = args.wide or args.space or args.narrow or args.time32
+    if not only:
         shipped_against_classes(torch, rnd, run, status)
-    if not args.space:
+    if args.wide or not only:
         wide_against_classes(torch, rnd, status, args.before)
-    if not args.wide:
+    if args.space or not only:
         space_against_classes(torch, rnd, status, args.before)
+    if args.narrow or not only:
+        narrow_against_class(torch, rnd, status, args.before)
+    if args.time32 or not only:
+        time32_against_class(torch, rnd, status, args.before)
     return 0
 
 
@@ -641,6 +716,201 @@ def space_against_classes(torch, rnd, status, before: Path) -> None:
                     outs["new"], outs["class"])),
                 "errors": {w: [float(f"{e:.4g}") for e in errs[w]]
                            for w in errs}}), flush=True)
+
+
+def paired(torch, fns, first, second, times=None):
+    """``fns[first]`` and ``fns[second]`` timed in turns (first, second,
+    second, first; ``chip_smoke.time_ms`` each), added to ``times``."""
+    import chip_smoke
+
+    times = times if times is not None else {}
+    for which in (first, second, second, first):
+        times.setdefault(which, []).append(chip_smoke.time_ms(torch,
+                                                              fns[which]))
+    return times
+
+
+def narrow_against_class(torch, rnd, status, before: Path) -> None:
+    """The bf16 one-pass kernel at [16, 2048 | 1024, d] and [8, 2048, d]
+    for d = 40, 48, 56, and the fused kernel at 48 over a whole and a short
+    key tile (ragged query chunks), past resident K and with K resident:
+    the small-head class 64 against the narrow tile (``fa.NARROW_ENTRY``),
+    paired (class, new, new, class); the library call once. Each result
+    held to the float32 plain version on its inputs (``check_bf16``). The
+    class at
+    d = 64 is timed once beside each [16, 2048, d] pair: what the class pays
+    for a head of 64 columns (its padding). Last, the narrow tile built at
+    64 (``narrow64``, never shipped) against the D = 64 tile at
+    [16, 2048 | 1024, 64], in the rows' "class" place (ROADMAP G1)."""
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from moditalker_tpu_torch.ops.kernels import check_bf16, cuda_stream
+    from moditalker_tpu_torch.ops.kernels import flash_attention as fa
+
+    ab = build_variants(before, NARROW_VARIANTS, types=BF16_ONLY)
+    new_lib = fa._narrow_lib()
+    cases = [(b, n, n, d) for d in fa.NARROW_HEAD_DIMS
+             for b, n in ((16, 2048), (16, 1024), (8, 2048))]
+    cases += [(16, 1000, 128, 48), (16, 1000, 120, 48), (16, 1280, 2048, 48),
+              (16, 300, 1024, 48)]
+    # the narrow tile built at 64 against the D = 64 tile (ROADMAP G1): "class"
+    # is the D = 64 tile in these rows
+    cases += [(16, 2048, 2048, 64), (16, 1024, 1024, 64)]
+    bf16 = torch.bfloat16
+    for b, nq, nk, d in cases:
+        q = rnd(b, nq, d, dtype=bf16)
+        k, v = rnd(b, nk, d, dtype=bf16), rnd(b, nk, d, dtype=bf16)
+        o = torch.empty_like(q)
+        sc = d**-0.5
+
+        def call(lib, entry, q=q, k=k, v=v, o=o, b=b, nq=nq, nk=nk, d=d,
+                 sc=sc):
+            status(lib, getattr(lib, entry)(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, nq,
+                nk, d, sc, cuda_stream(q)), entry)
+            return o
+
+        fns = {"class": lambda: call(ab["class64"], "fused_attention_ab"),
+               "new": lambda: call(new_lib, fa.NARROW_ENTRY)}
+        if d == 64:   # the D = 64 tile (the shipped library) is "class"
+            fns["class"] = lambda: call(fa._lib(), "fused_attention")
+            fns["new"] = lambda: call(ab["narrow64"], "fused_attention_ab")
+        times = paired(torch, fns, "class", "new")
+        q4, k4, v4 = q[:, None], k[:, None], v[:, None]
+        library_ms = chip_smoke.time_ms(
+            torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                          scale=sc))
+        once = {}
+        if nq == nk == 2048 and b == 16 and d != 64:
+            q64, k64, v64 = (rnd(b, nq, 64, dtype=bf16) for _ in range(3))
+            o64 = torch.empty_like(q64)
+            lib64 = ab["class64"]
+            once["class_at_64_ms"] = chip_smoke.time_ms(
+                torch, lambda: status(lib64, lib64.fused_attention_ab(
+                    q64.data_ptr(), k64.data_ptr(), v64.data_ptr(),
+                    o64.data_ptr(), b, nq, nk, 64, 0.125, cuda_stream(q64)),
+                    "class at 64"))
+        plain = fa.onepass_attention_reference(q.float(), k.float(),
+                                               v.float(), sc)
+        name = "onepass_attention" if nq == nk else "fused_attention"
+        errs = {which: check_bf16(name, fn().clone(), plain)
+                for which, fn in fns.items()}
+        keys = min(nk, 128) if nk < 128 else nk
+        bound, by = chip_smoke.bound_ms(2 * (2 * b * nq * d + 2 * b * nk * d),
+                                        4.0 * b * nq * keys * d)
+        a_ms, b_ms = min(times["class"]), min(times["new"][:2])
+        print(json.dumps({
+            "case": f"{name} q [{b}, {nq}, {d}] k/v [{b}, {nk}, {d}] bf16",
+            "class_ms": times["class"], "new_ms": times["new"],
+            "new_over_class": b_ms / a_ms,
+            "faster": "new" if b_ms < a_ms else "class",
+            "library_ms": library_ms, "bound_ms": bound, "bound_by": by,
+            "scores": b * nq * nk, **once,
+            "errors": {w: [float(f"{e:.4g}") for e in errs[w]]
+                       for w in errs}}), flush=True)
+
+
+def time32_against_class(torch, rnd, status, before: Path) -> None:
+    """The time kernel at clips of 32 and 24 frames, bf16 and float32: the
+    classes' kernel (the --before copy's ``launch_time_classes``) against
+    the staged kernel (``dv.STAGED_TIME_ENTRY``), bit for bit at every
+    head-dim class; at qkv [2, 32 | 24, 1024, 1536] (8 heads of 64) paired
+    (class, new, new, class), with the library call, the bound and each held
+    to the float32 plain version (and in float32 to its route)."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from moditalker_tpu_torch.ops import rotary
+    from moditalker_tpu_torch.ops.kernels import (
+        bf16_rounded_share, check_bf16, check_float32_route, cuda_stream)
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+
+    def bind(lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.time_ab.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+        lib.time_ab.restype = i
+        return lib
+
+    ab = build_variants(before, TIME_VARIANTS, TIME_SOURCE, bind)
+    # (b, frames, tokens, heads, head dim); the first two timed
+    cases = [(2, 32, 1024, 8, 64), (2, 24, 1024, 8, 64),
+             (1, 32, 256, 16, 32), (1, 24, 256, 32, 16),
+             (1, 32, 256, 64, 8), (1, 32, 256, 4, 128), (1, 24, 256, 4, 128),
+             (1, 32, 256, 128, 4), (1, 24, 256, 256, 2)]
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        suffix = "_f32" if f32 else ""
+        new_lib = dv._classes_lib_f32() if f32 else dv._classes_lib()
+        entry = dv.STAGED_TIME_ENTRY + suffix
+        for b, f, n, heads, dh in cases:
+            sin, cos = (torch.from_numpy(t).cuda()
+                        for t in rotary.time_rotary_sincos(f, dh))
+            qkv = rnd(b, f, n, 3 * heads * dh, dtype=dtype)
+            out = torch.empty(b, f, n, heads * dh, dtype=dtype,
+                              device="cuda")
+            sc = dh**-0.5
+
+            def args(qkv=qkv, sin=sin, cos=cos, out=out, b=b, f=f, n=n,
+                     heads=heads, dh=dh, sc=sc):
+                # the stream read at each call: time_ms captures on its own
+                return (qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(),
+                        out.data_ptr(), b, f, n, heads, dh, sc,
+                        cuda_stream(qkv))
+
+            lib = ab["time_class" + suffix]
+            fns = {"class": lambda lib=lib, args=args, out=out: (status(
+                       lib, lib.time_ab(*args()), "time class"), out)[1],
+                   "new": lambda args=args, out=out: (status(
+                       new_lib, getattr(new_lib, entry)(*args()), entry),
+                       out)[1]}
+            outs = {w: fn().clone() for w, fn in fns.items()}
+            row = {"case": f"time [{b}, {f}, {n}, {3 * heads * dh}] {heads} "
+                           f"heads of {dh} {dtype}".replace("torch.", ""),
+                   "new_equals_class_bit_for_bit": bool(torch.equal(
+                       outs["new"], outs["class"]))}
+            if n == 1024:
+                times = paired(torch, fns, "class", "new")
+                x = qkv.float()
+                plain = dv.divided_attention_reference(
+                    x, sin, cos, "time", heads, dh, sc, use_flash=False)
+                errs = check_bf16("divided_time_attention", outs["new"],
+                                  plain)
+                del plain
+                if f32:
+                    errs = check_float32_route(
+                        "divided_time_attention", outs["new"],
+                        dv.divided_attention_float32_route(
+                            x, sin, cos, "time", heads, dh, sc))
+                    row["bf16_rounded_share"] = bf16_rounded_share(
+                        outs["new"])
+                del x
+                qh, kh, vh = (t.reshape(b, f, n, heads, dh).permute(
+                    0, 2, 3, 1, 4).reshape(b * n, heads, f, dh)
+                    for t in qkv.chunk(3, -1))
+                qh, kh = rotary.apply_rot_emb(qh, kh, sin.to(dtype),
+                                              cos.to(dtype))
+                qh, kh, vh = (t.contiguous() for t in (qh, kh, vh))
+                bound, by = chip_smoke.bound_ms(
+                    (qkv.numel() + out.numel()) * qkv.element_size()
+                    + 2 * sin.numel() * 4,
+                    4.0 * b * n * heads * f * f * dh)
+                a_ms, b_ms = min(times["class"]), min(times["new"])
+                row.update({
+                    "class_ms": times["class"], "new_ms": times["new"],
+                    "new_over_class": b_ms / a_ms,
+                    "faster": "new" if b_ms < a_ms else "class",
+                    "library_ms": chip_smoke.time_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, scale=sc)),
+                    "bound_ms": bound, "bound_by": by,
+                    "errors": [float(f"{e:.4g}") for e in errs]})
+            print(json.dumps(row), flush=True)
+            if not row["new_equals_class_bit_for_bit"]:
+                raise AssertionError(f"{row['case']}: the staged kernel "
+                                     f"differs from the class")
 
 
 if __name__ == "__main__":

@@ -16,12 +16,15 @@ commit (``git archive <parent> | tar -x -C build/parent``):
    re-templated kernel is).
 2. Outputs: the space (resident K, K ring, N = 256), time, packed,
    one-pass (D = 16, 32 and 64; at 64 also the modular path's [1280 | 128,
-   1024, 64]), fused (D = 16 and 32 across lengths, D = 64
+   1024, 64]; at 40, 48 and 56, the narrow tile's in bf16), fused (D = 16
+   and 32 across lengths, D = 48 over a short key tile and past resident
+   K, D = 64
    with a ragged Nq over a short key tile, and past resident K: [80, 2048]
    and [16 | 128, 1280 | 128] over 2048 keys, on both sides of the float32
    chooser) and tiny-L kernels, the one-pass
    and fused kernels' classes and wide tile (D = 24, 48, 128, 136, 256),
-   the time kernel's 32-frame class, the space kernel's pre-rotated design
+   the time kernel at 32 and 24 frames (the staged kernel where a copy
+   has it, the classes' kernel before), the space kernel's pre-rotated design
    at 4 x 128 and 16 x 32, and the space and time backward kernels (space
    also at those splits), on the same seeded inputs in both copies,
    bf16 and float32, each type in a process of its own; prints whether each
@@ -50,7 +53,8 @@ SOURCES = tuple(f"{name}{suffix}" for suffix in ("", "_f32")
                              "tiny_attention", "packed_attention",
                              "divided_backward", "flash_classes",
                              "flash_wide", "divided_classes",
-                             "divided_backward_classes"))
+                             "divided_backward_classes")) + (
+    "flash_narrow",)   # bf16 alone
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
         "-std=c++17", "-O3", "-ptx"]
 
@@ -121,6 +125,22 @@ sin, cos = (torch.from_numpy(t).cuda()
 x = rnd(2, 32, 1024, 1536)
 put["time [2, 32, 1024]"] = lambda x=x: dv.divided_attention(
     x, sin, cos, "time", 8, 64, 0.125)
+# 24 frames (the staged kernel's too where this copy has it) and the bf16
+# one-pass and fused kernel at head dims 40 to 56 (the narrow tile where
+# this copy has it, float32 the wide tile's)
+sin24, cos24 = (torch.from_numpy(t).cuda()
+                for t in rotary.time_rotary_sincos(24, 64))
+x = rnd(2, 24, 1024, 1536)
+put["time [2, 24, 1024]"] = lambda x=x: dv.divided_attention(
+    x, sin24, cos24, "time", 8, 64, 0.125)
+for b, n, d in ((16, 2048, 40), (16, 2048, 56), (16, 1024, 48)):
+    t = [rnd(b, n, d) for _ in range(3)]
+    put[f"one-pass [{b}, {n}, {d}]"] = lambda t=t, d=d: fa.onepass_attention(
+        *t, d**-0.5)
+for b, nq, nk in ((16, 1000, 120), (16, 1280, 2048)):
+    t = [rnd(b, nq, 48), rnd(b, nk, 48), rnd(b, nk, 48)]
+    put[f"fused q [{b}, {nq}, 48] k [{b}, {nk}, 48]"] = \
+        lambda t=t: fa.fused_attention(*t)
 for b, nq, nk, d in ((3, 300, 8, 16), (3, 200, 640, 32), (16, 1024, 1024, 136),
                      (16, 1024, 1024, 256)):
     t = [rnd(b, nq, d), rnd(b, nk, d), rnd(b, nk, d)]
@@ -215,8 +235,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         for source in () if args.no_ptx else SOURCES:
-            theirs = kernels(ptx(other, source, tmp))
             mine = kernels(ptx(ROOT, source, tmp))
+            if not (other / "moditalker_tpu_torch" / "csrc" /
+                    f"{source}.cu").is_file():
+                print(f"ptx {source}: a source the other copy lacks: "
+                      f"{', '.join(mine)} new")
+                continue
+            theirs = kernels(ptx(other, source, tmp))
             gone = [key for key in theirs if key not in mine]
             for key, ours in mine.items():
                 if key in theirs:
