@@ -57,8 +57,10 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              alone. The classes beyond the configurations' shapes (every
              shape the JAX gates admit runs a kernel) at the shapes the
              variants phase gives them, bf16 and float32 each: time at
-             clips of 32 and 8 frames (32: the staged kernel, its own entry
-             in the kernels line, two calls bit for bit; 24 frames too),
+             clips of 32 and 8 frames (the staged kernel, its own entry
+             in the kernels line, two calls bit for bit; 24 frames too; at
+             8 frames bit for bit the classes' kernel it replaced there,
+             timed beside it for the log line),
              tiny-L at 32 rows, one-pass at head dims 24 and 48 (bf16 48:
              the narrow tile, its own entry; 40 and 56 beside it, and the
              fused kernel at 48 with ragged query rows over a whole and a
@@ -70,10 +72,12 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              [B·2, 2048, 128] (base.yaml with num_heads: 2) and
              [16, 2048, 128], fused at [16, 1024, d] for d = 136, 256 and
              512 (two groups of 256 columns). The float32 space kernel
-             at head dim 64 (``csrc/space_f32_tile.cuh``) at
-             train-diffusion's and train-first-stage's qkv, and the wgmma
-             tile's float32 route, which it takes at 8-frame clips' qkv
-             [1, 8, 1024, 1536], each also two calls bit for bit. The
+             at head dim 64 (``csrc/resident_f32_tile.cuh``) on its cluster
+             plan (an entry of its own) at train-diffusion's,
+             train-first-stage's and 8-frame clips' qkv, each bit for bit
+             the design it replaced there (the one-block plan; at 8-frame
+             clips the wgmma tile's float32 route), timed beside it for the
+             log line; each also two calls bit for bit. The
              space kernel's
              pre-rotated design (``csrc/divided_space.cuh``: a rotation
              pre-pass, then the wgmma tile built per width or the
@@ -250,7 +254,9 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              such clips on each path against the CPU within REF_FACTOR;
              train-first-stage at clips of 8 frames (base_gan.yaml's
              operating point: one G and one D cycle timed, the time kernels
-             and their backwards at [1, 8, 1024, 1536], a small-depth G and
+             and their backwards at [1, 8, 1024, 1536], every space launch
+             the float32 space kernel's cluster plan and every time launch
+             the staged kernel, by entry point, a small-depth G and
              D cycle against the CPU within FIRST_STAGE_LIMITS); a
              small-depth window of the 192-channel UNet against the CPU
              (one-pass at head dims 24 and 48, 48 through the narrow tile's
@@ -504,16 +510,17 @@ SPACE_BACKWARD_DESIGN = (
     "rows with their operands resident, 64-row tiles streamed through a "
     "four-slot ring by a producer warpgroup")
 
-# the float32 space kernel at head dim 64 (csrc/space_f32_tile.cuh)
+# the float32 space kernel at head dim 64 (csrc/resident_f32_tile.cuh): its
+# one-block plan, which the cluster plan below replaced at 1024 tokens,
+# timed beside it for the log line
 SPACE_F32_DESIGN = (
-    "at 1024 tokens from 72 (frame, head) pairs and at 1152 from 1280 "
-    "(space_f32_own_kernel): one block per (frame, head) with K resident; "
-    "before the roles split every thread rotates K and rounds V to bf16 "
-    "into the block's scratch slot, from which a producer warpgroup copies "
-    "V in every round; two consumer warpgroups "
-    "of 64 rows at 232 registers (rounds of 128 rows: none sits one out), "
-    "the wgmma tile's products and 128-key softmax (elsewhere the tile's "
-    "float32 route)")
+    "the one-block plan (space_f32_own_kernel names it at 1152 tokens from "
+    "1280 (frame, head) pairs): one block per (frame, head) with K "
+    "resident; before the roles split every thread rotates K and rounds V "
+    "to bf16 into the block's scratch slot, from which a producer warpgroup "
+    "copies V in every round; two consumer warpgroups of 64 rows at 232 "
+    "registers (rounds of 128 rows: none sits one out), the wgmma tile's "
+    "products and 128-key softmax")
 # the same kernel (csrc/resident_f32_tile.cuh) on the one-pass attention's
 # float32 q, k, v at head dim 64, Nq = Nk with K resident: the modular
 # path's AE space attention, head-split in PyTorch
@@ -535,12 +542,29 @@ ONEPASS_F32_ROUTE_DESIGN = (
     "warpgroups of 64 rows, V rounded to bf16 in the producer's registers "
     "in every round")
 # the wgmma tile's float32 route, which the float32 space attention at head
-# dim 64 runs where the kernel above does not (space_f32_own_kernel)
+# dim 64 runs where the kernel above does not (space_f32_own_kernel): the
+# design the cluster plan below replaced at 8-frame clips, timed beside it
+# for the log line
 SPACE_F32_ROUTE_DESIGN = (
-    "the wgmma tile instantiated for float32: one block per (frame, head) "
-    "with K rotated and rounded into shared memory, three consumer "
-    "warpgroups of 64 rows, V rounded to bf16 in the producer's registers "
-    "in every round")
+    "the wgmma tile instantiated for float32: one block per 192 query rows "
+    "of a (frame, head) with K rotated and rounded into shared memory, "
+    "three consumer warpgroups of 64 rows, V rounded to bf16 in the "
+    "producer's registers in every round")
+# the same kernel's cluster plan (divided_attention.SPACE_F32_CLUSTER_ENTRY):
+# at 1024 tokens from 64 (frame, head) pairs (8-frame clips' 64, too few
+# for a block each to fill the card, train-first-stage's 128,
+# train-diffusion's 1280)
+SPACE_F32_CLUSTER_DESIGN = (
+    "where space_f32_own_kernel names the cluster plan (at 1024 tokens from "
+    "64 (frame, head) pairs): a thread-block cluster of two blocks per "
+    "(frame, head), each "
+    "rotating half of K into its own and its peer's shared memory (mapa + "
+    "st.shared::cluster) before a cluster barrier, then walking every other "
+    "round of 128 query rows; each producer rounds V on its way into the "
+    "ring in its first round and half of V into the pair's scratch slot, "
+    "which both copy from in their later rounds once the peer has arrived "
+    "on a cluster-scope mbarrier; two consumer warpgroups at 200 registers")
+SPACE_F32_CLUSTER_SOURCE = "moditalker_tpu_torch/csrc/divided_attention_f32.cu"
 # the float32 one-pass and fused attention at head dim 64 past resident K
 # (fused_attention_f32_prerounded): the 256-channel UNet's joint attention
 # [B·8, 2048, 64] in train-diffusion
@@ -571,7 +595,14 @@ STAGED_TIME_DESIGN = (
     "copies its (b, n, head)'s raw q, k, v rows into shared memory, every "
     "copy in flight at once, rotates q and k there (the class's "
     "arithmetic), mma.sync products; resident blocks, warps walk items "
-    "grid-stride")
+    "grid-stride; at 8 frames two items in a warp's 16-row tile, each "
+    "item's keys in their own n8 tile of S, the other's scoring -inf")
+# the classes' time kernel at 8 frames (the frame class 16, padded and
+# masked), which the staged kernel replaced there, timed beside it for the
+# log line
+TIME_CLASS_DESIGN = (
+    "the classes' time kernel: one warp per (b, n, head), its 8 frames "
+    "padded to a 16-row tile and masked, loaded through registers")
 STAGED_TIME_SOURCE = "moditalker_tpu_torch/csrc/divided_classes.cu"
 # the fused kernel's float32 row past resident K: (B, Nq, Nk) at head dim
 # 64, query rows over the 256-channel UNet's 2048 keys
@@ -999,10 +1030,14 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
 
     def divided_row(axis, b_, f_, n_, g=gen_more, dtype=torch.bfloat16,
                     source="divided_attention", plain32=False, heads=heads,
-                    dh=dh, twice=False):
+                    dh=dh, twice=False, replaced=None):
         """``heads`` heads of ``dh`` (the shipped AE's 8 of 64 unless
         given: another head dim runs the kernel's class). ``twice``: two
-        more calls must equal each other bit for bit."""
+        more calls must equal each other bit for bit. ``replaced``: the
+        design the kernel replaced at this shape, ``(qkv, sin, cos, heads,
+        dh, scale) -> (call, design)``: its output must equal the kernel's
+        bit for bit, and its time, taken in this call, goes to the log line
+        alone (``replaced_ms``, popped before the kernels line)."""
         hd, scale = heads * dh, dh**-0.5
         if axis == "space":
             sin, cos = tables(rotary.axial_rotary_sincos(32, n_ // 32, dh)
@@ -1030,6 +1065,12 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                      dtype=qkv.dtype if plain32 else None)
         if twice and not torch.equal(kern(), kern()):
             raise AssertionError(f"{name} {list(qkv.shape)}: two calls differ")
+        if replaced is not None:
+            other, design = replaced(qkv, sin, cos, heads, dh, scale)
+            if not torch.equal(kern(), other()):
+                raise AssertionError(f"{name} {list(qkv.shape)}: differs "
+                                     f"from the design it replaced, {design}")
+            err["replaced"] = dict(design=design, ms=time_ms(torch, other))
         q, k, v = head_split_rotated(qkv, sin, cos, axis, heads, dh)
         lib = lambda: F.scaled_dot_product_attention(q, k, v, scale=scale)
         seq = n_ if axis == "space" else f_
@@ -1246,9 +1287,34 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     f32 = torch.float32
     gen_f32 = torch.Generator(device=dev).manual_seed(seed + 3)
     tb = TRAIN_BATCH
+
+    def space_forced(plan, design):
+        """The float32 space attention with ``space_f32_own_kernel`` forced
+        to ``plan`` (None: the wgmma tile's float32 route): a design the
+        chooser's table replaced at a shape (``divided_row``'s
+        ``replaced``)."""
+        def replaced(qkv, sin, cos, heads_, dh_, scale_):
+            def run():
+                chooser = dv.space_f32_own_kernel
+                dv.space_f32_own_kernel = lambda *a: plan
+                try:
+                    return dv.divided_attention(qkv, sin, cos, "space",
+                                                heads_, dh_, scale_)
+                finally:
+                    dv.space_f32_own_kernel = chooser
+            return run, design
+        return replaced
+
+    # the float32 space kernel's cluster plan at 1024 tokens (its entry
+    # point's row of the kernels line), beside the one-block plan it
+    # replaced there
+    cluster = dict(design=SPACE_F32_CLUSTER_DESIGN,
+                   entry=dv.SPACE_F32_CLUSTER_ENTRY,
+                   source=SPACE_F32_CLUSTER_SOURCE)
+    assert dv.space_f32_own_kernel(tb * f, n, heads) == "cluster"
     rows += [dict(divided_row("space", tb, f, n, g=gen_f32, dtype=f32,
-                              source="divided_attention_f32", twice=True),
-                  design=SPACE_F32_DESIGN),
+                              twice=True, replaced=space_forced(
+                                  "block", SPACE_F32_DESIGN)), **cluster),
              divided_row("time", tb, f, n, g=gen_f32, dtype=f32),
              packed_row(tb, l, g=gen_f32, dtype=f32),
              packed_row(tb, 1024, g=gen_f32, dtype=f32),
@@ -1311,15 +1377,16 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     # trains through them
     gen_fs = torch.Generator(device=dev).manual_seed(seed + 5)
     rows += [dict(divided_row("space", 1, f, n, g=gen_fs, dtype=f32,
-                              source="divided_attention_f32", twice=True),
-                  design=SPACE_F32_DESIGN),
+                              twice=True, replaced=space_forced(
+                                  "block", SPACE_F32_DESIGN)), **cluster),
              divided_row("time", 1, f, n, g=gen_fs, dtype=f32)]
-    # 8-frame clips (first_stage_frames_phase): 64 (frame, head) pairs, which
-    # the wgmma tile's float32 route takes
-    assert not dv.space_f32_own_kernel(f // 2, n, heads)
+    # 8-frame clips (first_stage_frames_phase): 64 (frame, head) pairs,
+    # beside the wgmma tile's float32 route the cluster plan replaced there
+    assert dv.space_f32_own_kernel(f // 2, n, heads) == "cluster"
     rows.append(dict(divided_row("space", 1, f // 2, n, g=gen_fs, dtype=f32,
-                                 source="divided_attention_f32", twice=True),
-                     design=SPACE_F32_ROUTE_DESIGN))
+                                 twice=True, replaced=space_forced(
+                                     None, SPACE_F32_ROUTE_DESIGN)),
+                     **cluster))
 
     def backward_row(axis, g, dtype, f=f, source="divided_backward",
                      heads=heads, dh=dh):
@@ -1457,6 +1524,25 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     gen_cl = torch.Generator(device=dev).manual_seed(seed + 9)
     staged = dict(entry=dv.STAGED_TIME_ENTRY, design=STAGED_TIME_DESIGN,
                   source=STAGED_TIME_SOURCE)
+
+    def time_class(qkv, sin, cos, heads_, dh_, scale_):
+        """The classes' time kernel (which still takes 8 frames) through its
+        entry point, on the wrapper's operands."""
+        b_, f_, n_, _ = qkv.shape
+        lib, suffix = dv._library(qkv.dtype == f32, True)
+        entry = "divided_time_attention" + suffix
+        out = torch.empty(b_, f_, n_, heads_ * dh_, dtype=qkv.dtype,
+                          device=dev)
+
+        def run():
+            status = getattr(lib, entry)(
+                qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(),
+                out.data_ptr(), b_, f_, n_, heads_, dh_, scale_,
+                torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise AssertionError(f"{entry}: CUDA error {status}")
+            return out
+        return run, TIME_CLASS_DESIGN
     narrow = dict(entry=fa.NARROW_ENTRY, design=NARROW_DESIGN,
                   source=NARROW_SOURCE)
     for dtype in (torch.bfloat16, f32):
@@ -1465,8 +1551,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             dict(divided_row("time", batch, VARIANT_CLIP_FRAMES, n, g=gen_cl,
                              dtype=dtype, plain32=True, twice=True),
                  **staged),
-            divided_row("time", 1, VARIANT_TRAIN_FRAMES, n, g=gen_cl,
-                        dtype=dtype, source="divided_classes", plain32=True),
+            dict(divided_row("time", 1, VARIANT_TRAIN_FRAMES, n, g=gen_cl,
+                             dtype=dtype, plain32=True, twice=True,
+                             replaced=time_class), **staged),
             tiny_row(batch * heads * n, g=gen_cl, dtype=dtype,
                      l_=VARIANT_CLIP_FRAMES, plain32=True),
             onepass_row(batch * heads, 2048, 24, g=gen_cl, dtype=dtype,
@@ -1613,7 +1700,10 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                f"recomputed and its vjp (what ran before) "
                f"{row['recompute_ms']:.4f} ms" if "recompute_ms" in row
                else "")
-            + (f", before the redesign {before:.4f} ms" if before else ""))
+            + (f", before the redesign {before:.4f} ms" if before else "")
+            + ("; the design it replaced ({design}) in this call: bit for "
+               "bit, {ms:.4f} ms".format(**row.pop("replaced"))
+               if "replaced" in row else ""))
     return rows
 
 
@@ -4432,7 +4522,9 @@ def first_stage_frames_phase(torch, seed: int, config: str) -> dict:
     peak memory), every loss finite; launches by shape: the space and time
     kernels 2·depth a micro-step, their backward kernels 2·depth a G
     micro-step, all on float32 operands, the time kernels at [1, 8, 1024,
-    1536] (the 16-frame tile, padded and masked), and no other kernel; then
+    1536], and no other kernel; by entry point: every space launch the
+    float32 space kernel's cluster plan (``SPACE_F32_CLUSTER_ENTRY``), every
+    time launch the staged kernel's float32 entry point; then
     a G and a D cycle at small depth on 8-frame clips against the CPU
     within FIRST_STAGE_LIMITS (``first_stage_check``)."""
     import dataclasses
@@ -4440,7 +4532,9 @@ def first_stage_frames_phase(torch, seed: int, config: str) -> dict:
 
     from moditalker_tpu_torch.config import load_config
     from moditalker_tpu_torch.data.mtov_dataset import synthetic_mtov_batch
-    from moditalker_tpu_torch.ops.kernels import reset_launch_counts
+    from moditalker_tpu_torch.ops.kernels import (LAUNCHES_BY_ENTRY,
+                                                  reset_launch_counts)
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
     from moditalker_tpu_torch.train.mtov_first_stage import FirstStageTrainer
 
     cfg = load_config(config)
@@ -4463,6 +4557,7 @@ def first_stage_frames_phase(torch, seed: int, config: str) -> dict:
     dt = time.perf_counter() - t0
     counts = check_launches(what, FIRST_STAGE_PATH)
     by_shape = launches_by_shape()
+    by_entry = dict(sorted(LAUNCHES_BY_ENTRY.items()))
     check_float32_launches(what, by_shape)
     check_gated(what, by_shape, ae_cfg.timesteps)
     per_step = 2 * ae_cfg.depth
@@ -4478,18 +4573,27 @@ def first_stage_frames_phase(torch, seed: int, config: str) -> dict:
             or len(losses.seen) != 4 * k or not np.isfinite(values).all()):
         raise AssertionError(f"{what}: launches {by_shape} (want {want}), "
                              f"losses {losses.seen}")
+    # every space launch on the float32 space kernel's cluster plan, every
+    # time launch on the staged kernel (its float32 entry point)
+    if (by_entry.get(dv.SPACE_F32_CLUSTER_ENTRY, 0)
+            != want["divided_space_attention"]
+            or by_entry.get(dv.STAGED_TIME_ENTRY + "_f32", 0)
+            != want["divided_time_attention"]):
+        raise AssertionError(f"{what}: launches by entry point {by_entry} "
+                             f"(want the cluster plan's and the staged "
+                             f"kernel's {want})")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{what} (full width, B = {b}, accumulation {k}, float32): one G and "
         f"one D cycle in {dt:.3f} s = {2 * k / dt:.4f} iterations/s; peak "
-        f"memory {peak:.2f} GiB; launches by shape {by_shape}; last losses "
-        f"{losses.seen[-2:]}")
+        f"memory {peak:.2f} GiB; launches by shape {by_shape}, by entry "
+        f"point {by_entry}; last losses {losses.seen[-2:]}")
     del trainer
     torch.cuda.empty_cache()
     check = first_stage_check(torch, seed, loss_cfg,
                               frames=ae_cfg.timesteps)
     return {"iterations_per_s": 2 * k / dt, "peak_gib": peak,
             "launches": counts, "launches_by_shape": by_shape,
-            "card_vs_cpu": check}
+            "launches_by_entry": by_entry, "card_vs_cpu": check}
 
 
 def ae_heads_phase(torch, seed: int, config: str) -> dict:
@@ -4813,8 +4917,11 @@ def run(torch, args) -> int:
     # at head dims 40 to 56, fused_attention_narrow; the time kernel staged
     # at 24 and 32 frames, divided_time_attention_staged) is an entry of its
     # own, named by that entry point, its launches those of its entry point
-    # on the paths that count by entry point (the train-diffusion phases,
-    # the variants' 32-frame sampling and reference windows)
+    # (and of its float32 twin, ``<entry>_f32``, where the float32 library
+    # has one) on the paths that count by entry point (the train-diffusion
+    # phases, the variants' 32-frame sampling and reference windows, their
+    # 8-frame train-first-stage: the float32 space kernel's cluster plan,
+    # SPACE_F32_CLUSTER_ENTRY, and the staged time kernel at 8 frames)
     by_entry_paths = {
         "train-diffusion": train_diff["launches_by_entry"],
         "train-diffusion modular": train_diff_modular["launches_by_entry"],
@@ -4826,7 +4933,9 @@ def run(torch, args) -> int:
         "variants clip32 reference":
             variant_runs["clip32"]["reference"]["launches_by_entry"],
         "variants channels192 reference":
-            variant_runs["channels192"]["reference"]["launches_by_entry"]}
+            variant_runs["channels192"]["reference"]["launches_by_entry"],
+        "variants clip8 train-first-stage":
+            variant_runs["clip8"]["launches_by_entry"]}
     kernels = {}
     for row in rows:
         if "entry" in row:
@@ -4846,8 +4955,9 @@ def run(torch, args) -> int:
             continue
         kernels[row["name"]] = row
         if "entry" in row:
-            row["launches_by_path"] = {p: c.get(row["entry"], 0)
-                                       for p, c in by_entry_paths.items()}
+            row["launches_by_path"] = {
+                p: c.get(row["entry"], 0) + c.get(row["entry"] + "_f32", 0)
+                for p, c in by_entry_paths.items()}
             row["launches"] = sum(row["launches_by_path"].values())
             if not row["launches"]:
                 raise AssertionError(f"{row['entry']}: launched no time on "

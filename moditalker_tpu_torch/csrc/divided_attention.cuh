@@ -284,8 +284,10 @@ cudaError_t launch_time(const void* qkv, const void* sin_t, const void* cos_t,
 // Frames 8 and 16 (F % 8 == 0 up to 16), head dims dh dividing 128 from 2
 // up: the frame class 16 and the head-dim class 16, 32, 64 or 128 that hold
 // them, with the classes' padding, masking and rounding (PAD), also where
-// the shape is its class. The frame class 32 (24 and 32 frames) is the
-// staged kernel's (time_staged.cuh).
+// the shape is its class. The wrappers send it 16 frames: 8 frames and the
+// frame class 32 (24 and 32 frames) are the staged kernel's
+// (time_staged.cuh), whose output at 8 frames is this kernel's bit for bit
+// (the card tests and tools/ab_classes.py --time8 call this one there).
 template <typename TI>
 int launch_time_classes(const void* qkv, const void* sin_t, const void* cos_t,
                         void* out, int B, int F, int N, int H, int dh,

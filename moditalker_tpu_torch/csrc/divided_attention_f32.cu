@@ -1,6 +1,7 @@
 // The C entry points of the divided space and time kernels for float32 qkv
 // (the kernels and their float32 route: divided_attention.cuh, and the
-// space kernel of its own at head dim 64: resident_f32_tile.cuh). A library
+// space kernel of its own at head dim 64, one block or a cluster of two per
+// (frame, head): resident_f32_tile.cuh). A library
 // of their own, so that the bf16 kernels' translation unit
 // (divided_attention.cu) holds no float32 instantiation.
 #include "divided_attention.cuh"
@@ -9,12 +10,14 @@
 namespace mdt {
 
 // qkv [BF, N, 3·H·64] float32, N a multiple of 128 up to 1152 -> out
-// [BF, N, H·64] float32, through the V scratch [BF·H, N, 64] bf16.
+// [BF, N, H·64] float32, through the V scratch [BF·H, N, 64] bf16; CL
+// blocks a (frame, head): one, or a cluster of two (N from 256).
+template <int CL = 1>
 inline int launch_space_f32(const void* qkv, const void* rot, void* vs,
                             void* out, int BF, int N, int H, int dh,
                             float scale, cudaStream_t stream) {
   if (dh != kWgD) return cudaErrorInvalidValue;
-  return launch_resident_f32(
+  return launch_resident_f32<SpaceF32Args, CL>(
       SpaceF32Args{static_cast<const float*>(qkv),
                    static_cast<const float*>(rot), static_cast<bf16*>(vs),
                    static_cast<float*>(out), N, H, scale},
@@ -39,6 +42,18 @@ int divided_space_attention_f32(const void* qkv, const void* rot, void* vs,
   if (vs != nullptr)
     return mdt::launch_space_f32(qkv, rot, vs, out, BF, N, H, dh, scale, st);
   return mdt::launch_space<float>(qkv, rot, out, BF, N, H, dh, scale, st);
+}
+
+// The same with a cluster of two blocks per (frame, head), each walking
+// every other round (resident_f32_tile.cuh's cluster plan; the wrapper's
+// space_f32_own_kernel chooses it): the V scratch is required, N from 256.
+int divided_space_attention_f32_cluster(const void* qkv, const void* rot,
+                                        void* vs, void* out, int BF, int N,
+                                        int H, int dh, float scale,
+                                        void* stream) {
+  if (vs == nullptr) return cudaErrorInvalidValue;
+  return mdt::launch_space_f32<2>(qkv, rot, vs, out, BF, N, H, dh, scale,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // qkv [B, F, N, 3·H·dh] float32, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh]

@@ -5,9 +5,9 @@
 // library of their own so that the shipped kernels' translation unit holds
 // only their instantiations, are space at head dims 2 to 128 but 64, a
 // rotation pre-pass and then the small-head tile or the wgmma tile built
-// per width (divided_space.cuh), and time at the frame class 16 (8 and 16
+// per width (divided_space.cuh), and time at the frame class 16 (16
 // frames) and every head-dim class (16, 32, 64, 128), padded where the
-// shape is not the class, and at 24 and 32 frames the staged kernel
+// shape is not the class, and at 8, 24 and 32 frames the staged kernel
 // (time_staged.cuh).
 #include "divided_attention.cuh"
 #include "divided_space.cuh"
@@ -29,8 +29,8 @@ int divided_space_attention_prerotated(const void* qkv, const void* rot,
 }
 
 // qkv [B, F, N, 3·H·dh] bf16, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh]
-// bf16; F 8 or 16, dh dividing 128 from 2 up (24 and 32 frames: the
-// staged kernel below).
+// bf16; F 16, dh dividing 128 from 2 up (8, 24 and 32 frames: the
+// staged kernel below; 8 is taken here too, the staged kernel's yardstick).
 int divided_time_attention_classes(const void* qkv, const void* sin_t,
                                    const void* cos_t, void* out, int B, int F,
                                    int N, int H, int dh, float scale,
@@ -41,8 +41,9 @@ int divided_time_attention_classes(const void* qkv, const void* sin_t,
 }
 
 // qkv [B, F, N, 3·H·dh] bf16, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh]
-// bf16; 16 < F <= 32, F % 8 == 0, dh dividing 128 from 2 up: the time
-// kernel staged by cp.async (time_staged.cuh), the frame class 32's.
+// bf16; F = 8 or 16 < F <= 32, F % 8 == 0, dh dividing 128 from 2 up:
+// the time kernel staged by cp.async (time_staged.cuh), the frame classes
+// 16 and 32.
 int divided_time_attention_staged(const void* qkv, const void* sin_t,
                                   const void* cos_t, void* out, int B,
                                   int F, int N, int H, int dh,

@@ -4,9 +4,9 @@
 // shapes: divided_attention_f32.cu). A library of its own, as
 // divided_classes.cu is for bf16: space at head dims 2 to 128 (at 64 past
 // resident K, N > 1152), a rotation pre-pass and then the small-head tile
-// or the wgmma tile built per width (divided_space.cuh), time at 8 and 16
-// frames of every head-dim class and at 24 and 32 frames the staged kernel
-// (time_staged.cuh).
+// or the wgmma tile built per width (divided_space.cuh), time at 16
+// frames of every head-dim class and at 8, 24 and 32 frames the staged
+// kernel (time_staged.cuh).
 #include "divided_attention.cuh"
 #include "divided_space.cuh"
 #include "time_staged.cuh"
@@ -27,8 +27,8 @@ int divided_space_attention_prerotated_f32(const void* qkv, const void* rot,
 }
 
 // qkv [B, F, N, 3·H·dh] float32, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh]
-// float32; F 8 or 16, dh dividing 128 from 2 up (24 and 32 frames: the
-// staged kernel below).
+// float32; F 16, dh dividing 128 from 2 up (8, 24 and 32 frames: the
+// staged kernel below; 8 is taken here too, the staged kernel's yardstick).
 int divided_time_attention_classes_f32(const void* qkv, const void* sin_t,
                                        const void* cos_t, void* out, int B,
                                        int F, int N, int H, int dh,
@@ -39,8 +39,9 @@ int divided_time_attention_classes_f32(const void* qkv, const void* sin_t,
 }
 
 // qkv [B, F, N, 3·H·dh] float32, sin/cos [F, dh] fp32 -> out [B, F, N, H·dh]
-// float32; 16 < F <= 32, F % 8 == 0, dh dividing 128 from 2 up: the time
-// kernel staged by cp.async (time_staged.cuh), the frame class 32's.
+// float32; F = 8 or 16 < F <= 32, F % 8 == 0, dh dividing 128 from 2 up:
+// the time kernel staged by cp.async (time_staged.cuh), the frame classes
+// 16 and 32.
 int divided_time_attention_staged_f32(const void* qkv, const void* sin_t,
                                       const void* cos_t, void* out, int B,
                                       int F, int N, int H, int dh,

@@ -1,6 +1,7 @@
 // Thin wrappers over the PTX the port's kernels are built from: bf16
 // packing, row chunks of bf16 or float32, mma.sync and ldmatrix, shared
-// stores, cp.async, mbarriers, the proxy fence and ex2. Shared by every tile
+// stores, cp.async, mbarriers, the proxy fence, ex2, and a cluster's rank,
+// barrier and stores into its blocks' shared memory. Shared by every tile
 // header; nothing here launches or allocates.
 #pragma once
 
@@ -241,6 +242,79 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+// This block's rank in its thread-block cluster.
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address of the same shared-memory byte in the cluster's block `rank`
+// (a shared::cluster address, for st_cluster16).
+__device__ __forceinline__ uint32_t mapa_shared(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// One 16-byte store into another block's shared memory of the cluster.
+__device__ __forceinline__ void st_cluster16(uint32_t dst, uint4 v) {
+  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   dst),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// The cluster barrier in two halves, every thread of every block of the
+// cluster: arrive (release: this thread's writes before it, shared and
+// global, are seen by the threads that wait) and wait (acquire). The relaxed
+// arrive orders nothing: it only says that the block has started, so that
+// its shared memory may be written by its peers after the wait.
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait_acquire() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// One arrival on an mbarrier of another block of the cluster (an address
+// from mapa_shared), releasing this thread's writes before it at cluster
+// scope.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t remote_bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          remote_bar)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: the writes the other blocks'
+// arrivals released are seen after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Generic-proxy writes to the cluster's shared memory (st_cluster16 among
+// them) before the async-proxy reads (wgmma) of the blocks they land in.
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
 }
 
 }  // namespace mdt

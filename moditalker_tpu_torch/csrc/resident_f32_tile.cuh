@@ -81,6 +81,31 @@
 // wgmma tile's float32 route on an H100 (tools/ab_space_f32.py --gate,
 // --onepass --gate); elsewhere its entry point runs that route, which
 // streams V during its rounds.
+//
+// The cluster plan (space only, CL = 2; the entry point
+// divided_space_attention_f32_cluster): a thread-block cluster of two
+// blocks per (frame, head), launched with cudaLaunchKernelEx, each walking
+// every other round (4 of 8 at N = 1024), so that 64 pairs (8-frame clips)
+// fill 128 of the 132 SMs in one wave, and each block's prologue is half
+// of K. space_f32_own_kernel names it where it read faster than both the
+// one-block plan and the route (at 1024 tokens from 64 pairs: 0.93x the
+// route at 64 pairs, 0.97x / 0.99x the one-block plan at 128 / 1280). Each block rotates half of K's chunks and stores each into its own
+// swizzled slot and at the same offset of its peer's shared memory (mapa +
+// st.shared::cluster); a cluster barrier (release / acquire, after a proxy
+// fence for the peer's wgmma) then hands both blocks a whole K. The peer
+// must have started before the first store into its shared memory: every
+// block arrives on the cluster barrier at entry and waits with its first
+// batch's loads in flight. V is the one-pass plan's: each producer rounds
+// every V tile on its way into its ring in its first round (at the one-pass
+// plan's 104 / 200 registers), and every other tile into the pair's scratch
+// slot; it arrives on its peer's mbarrier (release at cluster scope, after
+// a GPU-scope fence) once its tiles are there, and waits on its own for the
+// peer's before its second round copies the slot. (V rounded into the slot
+// in the prologue instead, half by each block, took a block 34.6 k clocks
+// of prologue and 22.0 k of first round against this plan's 18.2 k and
+// 27.0 k at qkv [1, 8, 1024, 1536] on an H100: tools/ab_space_f32.py
+// --clock, two calls.) Splitting the queries keeps every sum where it was:
+// the output is the one-block plan's, and so the route's, bit for bit.
 #pragma once
 
 #include "wgmma_tile.cuh"
@@ -90,7 +115,7 @@ namespace mdt {
 constexpr int kRfConsumers = 2;
 constexpr int kRfRoundRows = kRfConsumers * kWgRows;  // query rows a round
 constexpr int kRfQBytes = kWgRows * kWgD * 2;         // one swizzled Q tile
-constexpr int kRfBarBytes = 8 * 2 * kWgVStages;
+constexpr int kRfBarBytes = 8 * (2 * kWgVStages + 1);  // + the cluster's
 constexpr int kRfKBatch = 4;         // prologue chunks in flight a thread: K
 constexpr int kRfVBatch = 8;         // (with its table entries), and V
 constexpr int kRfVFirstBatch = 8;    // V in the first round (of a tile's 8)
@@ -141,12 +166,21 @@ __device__ __forceinline__ const float* rot_table(const OnepassF32Args&) {
   return nullptr;
 }
 
-// block 384, dynamic shared memory resident_f32_smem_bytes(N / 128).
-template <typename Args>
+// block 384, dynamic shared memory resident_f32_smem_bytes(N / 128); CL
+// blocks a (sequence, head) in a cluster of CL along x (the cluster plan,
+// space only: CL = 2), each walking every CL-th round.
+template <typename Args, int CL = 1>
 __global__ void __launch_bounds__((kRfConsumers + 1) * 128, 1)
 resident_f32_kernel(const Args a) {
   constexpr int NC = kRfConsumers;
   constexpr bool ROT = Args::kRot;
+  static_assert(CL == 1 || CL == 2, "one block or a cluster of two");
+  // where V is rounded, and the register split that goes with it: the
+  // cluster plan's (in the producer's first round, at the one-pass plan's
+  // 104 / 200 registers) or the Args'
+  constexpr bool VFIRST = CL > 1 || Args::kVFirst;
+  constexpr int kProducerRegs = CL > 1 ? 104 : Args::kProducerRegs;
+  constexpr int kConsumerRegs = CL > 1 ? 200 : Args::kConsumerRegs;
   extern __shared__ unsigned char rf_smem[];
   const uint32_t raw_base = smem_u32(rf_smem);
   const uint32_t base = (raw_base + 1023u) & ~1023u;
@@ -159,6 +193,9 @@ resident_f32_kernel(const Args a) {
   const uint32_t bars = q_tiles + NC * kRfQBytes;
   auto full_v = [&](int i) { return bars + 8 * i; };
   auto empty_v = [&](int i) { return bars + 8 * (kWgVStages + i); };
+  // the cluster plan: the peer's half of the V slot written (every peer
+  // producer thread arrives once its first round has written its tiles)
+  const uint32_t v_peer = bars + 8 * 2 * kWgVStages;
 
   const int tid = threadIdx.x, wg = tid >> 7;
   if (tid == 0) {
@@ -166,7 +203,16 @@ resident_f32_kernel(const Args a) {
       mbar_init(full_v(i), 128);         // every producer thread arrives
       mbar_init(empty_v(i), 4 * NC);     // lane 0 of every consumer warp
     }
+    if (CL > 1) mbar_init(v_peer, 128 * (CL - 1));
     mbar_init_fence();
+  }
+  // the cluster plan: this block's rank; every block of the cluster has
+  // started (its shared memory may take its peer's stores) once the wait
+  // before the first store below returns
+  int rank = 0;
+  if constexpr (CL > 1) {
+    rank = (int)cluster_ctarank();
+    cluster_arrive_relaxed();
   }
 
   const int h = blockIdx.y, b = blockIdx.z;
@@ -201,16 +247,19 @@ resident_f32_kernel(const Args a) {
   // into the block's scratch slot, each thread taking chunk i = tid + 384 u
   // of the N x 8 16-byte chunks (of bf16) in batches whose loads are in
   // flight together (K's with its table entries: half the chunks of V's).
+  // In a cluster each block takes its 1/CL of K's chunks, stored into its
+  // own slots and at the same offset of its peer's.
   constexpr int kThreads = (NC + 1) * 128;
   constexpr int kKBatch = ROT ? kRfKBatch : kRfVBatch;
   const int chunks = N * 8;
-  for (int i0 = tid; i0 < chunks; i0 += kThreads * kKBatch) {
+  const int c_lo = rank * (chunks / CL), c_hi = c_lo + chunks / CL;
+  for (int i0 = c_lo + tid; i0 < c_hi; i0 += kThreads * kKBatch) {
     Chunk8<float> raw[kKBatch];
     float4 t0[kKBatch], t1[kKBatch];
 #pragma unroll
     for (int u = 0; u < kKBatch; ++u) {
       const int i = i0 + kThreads * u, r = i >> 3, c = i & 7;
-      if (i < chunks) {
+      if (i < c_hi) {
         raw[u].load(k + (long)r * in_row + c * 8);
         if constexpr (ROT) {
           const float4* tp =
@@ -223,15 +272,27 @@ resident_f32_kernel(const Args a) {
         }
       }
     }
+    if constexpr (CL > 1) {
+      // every thread's first batch (N >= 256: more chunks a block than
+      // threads), its loads in flight: the peer has started
+      if (i0 == c_lo + tid) cluster_wait_acquire();
+    }
 #pragma unroll
     for (int u = 0; u < kKBatch; ++u) {
       const int i = i0 + kThreads * u, r = i >> 3, c = i & 7;
-      if (i < chunks)  // rows of consecutive tiles: one swizzled run
-        *reinterpret_cast<uint4*>(sm + swizzled(r, c)) =
-            rotate_chunk<ROT>(raw[u], t0[u], t1[u], 1.f);
+      if (i < c_hi) {  // rows of consecutive tiles: one swizzled run
+        const uint4 kc = rotate_chunk<ROT>(raw[u], t0[u], t1[u], 1.f);
+        *reinterpret_cast<uint4*>(sm + swizzled(r, c)) = kc;
+        if constexpr (CL > 1) {
+#pragma unroll
+          for (int p = 1; p < CL; ++p)
+            st_cluster16(mapa_shared(base + swizzled(r, c), (rank + p) % CL),
+                         kc);
+        }
+      }
     }
   }
-  for (int i0 = tid; !Args::kVFirst && i0 < v_chunks;
+  for (int i0 = tid; !VFIRST && i0 < v_chunks;
        i0 += kThreads * kRfVBatch) {
     Chunk8<float> raw[kRfVBatch];
 #pragma unroll
@@ -250,23 +311,33 @@ resident_f32_kernel(const Args a) {
     }
   }
   fence_proxy_async();
+  if constexpr (CL > 1) {
+    // the peers' K stores before their wgmma reads
+    fence_proxy_async_cluster();
+    cluster_arrive_release();
+    cluster_wait_acquire();
+    fence_proxy_async();
+  }
   __syncthreads();  // also makes the scratch's V visible to the producer
 
   if (wg == NC) {
     // ------------------------------------------------------------ producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        Args::kProducerRegs));
+        kProducerRegs));
     const int pt = tid - NC * 128;
     // this thread's eight chunks of a tile: row pt / 8 + 16 u, chunk pt % 8
     const uint32_t v_sw = v_tiles + swizzled(pt >> 3, pt & 7);
     bf16* const vrow = vsc + (pt >> 3) * kWgD + (pt & 7) * 8;
-    int it = 0, round = 0;
-    if constexpr (Args::kVFirst) {
+    int it = 0, round = rank;
+    if constexpr (VFIRST) {
       // the first round: float32 V rounded once on its way into the ring,
-      // and into the scratch slot that the later rounds copy it from; the
-      // loads of kRfVFirstBatch chunks in flight together, the first batch
-      // issued before the wait for the tile's slot
+      // and into the scratch slot that the later rounds copy it from (a
+      // cluster's blocks: every tile into the ring, every CL-th into the
+      // slot they share, where either walks a later round); the loads of
+      // kRfVFirstBatch chunks in flight together, the first batch issued
+      // before the wait for the tile's slot
       const float* vsrc = v + (long)(pt >> 3) * in_row + (pt & 7) * 8;
+      const bool keep = CL > 1 ? rounds > CL : rounds > 1;
       for (int j = 0; j < nkt; ++j, ++it) {
         const int vs = it % kWgVStages;
         const float* src = vsrc + (long)j * kWgTile * in_row;
@@ -283,7 +354,7 @@ resident_f32_kernel(const Args a) {
             c[u].to_float(x);
             const uint4 r = pack8_bf16(x);
             st_shared16(v_sw + vs * kWgTileBytes + (u0 + u) * 16 * 128, r);
-            if (rounds > 1)
+            if (keep && j % CL == rank)
               *reinterpret_cast<uint4*>(
                   vrow + ((long)j * kWgTile + (u0 + u) * 16) * kWgD) = r;
           }
@@ -291,12 +362,25 @@ resident_f32_kernel(const Args a) {
         fence_proxy_async();
         mbar_arrive(full_v(vs));
       }
-      round = 1;
+      round = rank + CL;
+      if constexpr (CL > 1) {
+        // this thread's chunks of its tiles written: the peer copies them
+        // from its second round on (it waits for this arrival, so it is
+        // still there; one that walks one round never waits, and is given
+        // none)
+        const int mine = (rounds - rank + CL - 1) / CL;
+        const int peers = (rounds - (rank + 1) % CL + CL - 1) / CL;
+        if (peers > 1) {
+          __threadfence();
+          mbar_arrive_cluster(mapa_shared(v_peer, (rank + 1) % CL));
+        }
+        if (mine > 1) mbar_wait_cluster(v_peer, 0);
+      }
     }
     // the bf16 tiles from the scratch slot (L2), the copies one step ahead
     // of their arrival
     const int it0 = it;
-    for (; round < rounds; ++round) {
+    for (; round < rounds; round += CL) {
       for (int j = 0; j < nkt; ++j, ++it) {
         const int vs = it % kWgVStages;
         mbar_wait(empty_v(vs), ((it / kWgVStages) & 1) ^ 1);
@@ -313,7 +397,7 @@ resident_f32_kernel(const Args a) {
         }
       }
     }
-    if (!Args::kVFirst || it > it0) {
+    if (!VFIRST || it > it0) {
       cp_async_wait<0>();
       fence_proxy_async();
       mbar_arrive(full_v((it - 1) % kWgVStages));
@@ -321,7 +405,7 @@ resident_f32_kernel(const Args a) {
   } else {
     // ----------------------------------------------------------- consumers
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
-        Args::kConsumerRegs));
+        kConsumerRegs));
     const int ct = tid & 127, warp = ct >> 5, lane = ct & 31;
     const int g = lane >> 2, t = lane & 3;
     const uint32_t q_tile = q_tiles + wg * kRfQBytes;
@@ -329,7 +413,7 @@ resident_f32_kernel(const Args a) {
     constexpr float kLog2e = 1.4426950408889634f;
     int it = 0;
 
-    for (int round = 0; round < rounds; ++round) {
+    for (int round = rank; round < rounds; round += CL) {
       const int q0 = (round * NC + wg) * kWgRows;
       // Q: rotary (where there is one) + scale, rounded to bf16 once, into
       // the swizzled tile (after every warp of the group is past the last
@@ -454,26 +538,62 @@ resident_f32_kernel(const Args a) {
   }
 }
 
-// Checks the shape (N a multiple of 128 up to 1152) and launches one block
-// per (sequence, head). The callers' launchers sit in their entry points'
-// sources (launch_space_f32 in divided_attention_f32.cu,
+// Checks the shape (N a multiple of 128 up to 1152; with a cluster, from
+// 256, a round for each block at least) and launches CL blocks per
+// (sequence, head): one, or (CL = 2) a cluster of two, launched with its
+// cluster dimension as a launch attribute, after asking once whether such
+// a cluster fits the card at all (cudaOccupancyMaxActiveClusters; none is
+// an error, never a fallback). The callers' launchers sit in their entry
+// points' sources (launch_space_f32 in divided_attention_f32.cu,
 // launch_onepass_f32 in flash_attention_f32.cu), so that each library
 // holds its own instantiation alone.
-template <typename Args>
+template <typename Args, int CL = 1>
 inline int launch_resident_f32(const Args& a, int heads, int seqs,
                                cudaStream_t stream) {
   const int nkt = a.N / kWgTile;
-  if (a.N < kWgTile || a.N % kWgTile || nkt > kWgMaxKSlots || seqs < 1 ||
-      heads < 1)
+  if (a.N < (CL > 1 ? 256 : kWgTile) || a.N % kWgTile ||
+      nkt > kWgMaxKSlots || seqs < 1 || heads < 1)
     return cudaErrorInvalidValue;
   const int smem = resident_f32_smem_bytes(nkt);
-  cudaError_t err = cudaFuncSetAttribute(
-      resident_f32_kernel<Args>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid(1, heads, seqs);
-  resident_f32_kernel<Args><<<grid, (kRfConsumers + 1) * 128, smem, stream>>>(
-      a);
+  auto kern = resident_f32_kernel<Args, CL>;
+  dim3 grid(CL, heads, seqs);
+  if constexpr (CL == 1) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, (kRfConsumers + 1) * 128, smem, stream>>>(a);
+  } else {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = grid;
+    config.blockDim = dim3((kRfConsumers + 1) * 128);
+    config.dynamicSmemBytes = resident_f32_smem_bytes(kWgMaxKSlots);
+    config.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    // the clusters the card holds at once at the largest N (asked once);
+    // none is an error (invalid configuration), never a fallback
+    static int fits = -1;
+    if (fits < 0) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)config.dynamicSmemBytes);
+      if (err == cudaSuccess)
+        err = cudaOccupancyMaxActiveClusters(&fits, kern, &config);
+      if (err != cudaSuccess) {
+        fits = -1;
+        return err;
+      }
+    }
+    if (fits == 0) return cudaErrorInvalidConfiguration;
+    config.dynamicSmemBytes = smem;
+    cudaError_t err = cudaLaunchKernelEx(&config, kern, a);
+    if (err != cudaSuccess) return err;
+  }
   return cudaGetLastError();
 }
 

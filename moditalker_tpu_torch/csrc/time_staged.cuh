@@ -1,6 +1,6 @@
-// The divided time attention at clips of 24 and 32 frames (the frame class
-// 32), bf16 and float32: replaces _time_kernel of
-// moditalker_tpu/ops/pallas/divided_attention.py at those lengths.
+// The divided time attention at clips of 8 frames (the frame class 16) and
+// of 24 and 32 (the frame class 32), bf16 and float32: replaces _time_kernel
+// of moditalker_tpu/ops/pallas/divided_attention.py at those lengths.
 //
 // Per patch it is self-attention over the F frames with the 1D time rotary,
 // [B, F, N, 3·H·dh] -> [B, F, N, H·dh]. At qkv [2, 32, 1024, 1536] it moves
@@ -27,8 +27,20 @@
 //  * blocks stay resident (grid: as many as the SMs hold) and each warp
 //    walks items grid-stride; the rotary tables are staged once per block,
 //    and the block holds as many warps as fit the SM's shared memory (15
-//    of 13.8 KB in bf16 at head dim 64, 8 of 24 KB in float32), so while
-//    some warps compute the others' copies keep device memory busy.
+//    of 13.8 KB in bf16 at head dim 64, 8 of 24 KB in float32, at 32
+//    frames), so while some warps compute the others' copies keep device
+//    memory busy.
+//  * at 8 frames (the frame class 16) a warp's 16-row tile holds two items,
+//    rows 0-7 and 8-15 (PAIR), each item's keys in their own n8 tile of S
+//    and the other item's scoring -inf before the max (tiny_attend's
+//    PAIRS): no copy is a zero fill, the table is 8 frames, and a warp
+//    carries two items in the class's 6.8 KB (bf16) or 12 KB (float32)
+//    buffer at head dim 64, twice the items in flight of a padded tile
+//    (tools/ab_classes.py --time8 times both). The output is the class's
+//    bit for bit: a row's scores, max, sum and products are those of its
+//    item padded to 16 rows (a zero weight on the other item's v adds 0);
+//    but a non-finite v of one item reaches its partner's output through
+//    that zero weight (0 x inf), where the class keeps items apart.
 //  * the products, the masked softmax with the plain version's expf and
 //    the output through the buffer are the class's (tiny_tile.cuh's
 //    tiny_attend with MASK).
@@ -52,10 +64,13 @@ constexpr int staged_block_warps(int fixed, int warp_bytes) {
   return best;
 }
 
-template <int FT, int DH, typename TI>
+// PAIR (8 frames, FT = 16): two items a warp's tile, the table 8 frames.
+template <int FT, int DH, typename TI, bool PAIR = false>
 struct StagedTime {
+  static_assert(!PAIR || FT == 16, "two items of 8 frames in an m16 tile");
   static constexpr bool kF32 = std::is_same<TI, float>::value;
-  static constexpr int table_floats = 2 * FT * DH;  // sin, cos
+  static constexpr int TR = PAIR ? 8 : FT;          // table rows
+  static constexpr int table_floats = 2 * TR * DH;  // sin, cos
   // a warp's buffer: bf16, the tile tiny_attend reads; float32, the raw rows
   // [3][FT][DH], the bf16 tile written over its start
   static constexpr int tile_bytes = TinyTile<FT, DH>::warp_elems * 2;
@@ -75,23 +90,28 @@ __device__ __forceinline__ void cp_async_bytes(uint32_t dst, const void* src) {
 }
 
 // grid: at most the blocks the SMs hold, block 32·warps; F frames (FT / 2 <
-// F <= FT, F % 8 == 0) of head dim dh (2 <= dh <= DH, dh dividing 128).
-template <int FT, int DH, typename TI>
-__global__ void __launch_bounds__(32 * StagedTime<FT, DH, TI>::warps)
+// F <= FT, or F = 8 in the class 16; F % 8 == 0) of head dim dh (2 <= dh
+// <= DH, dh dividing 128). PAIR (F = 8, FT = 16): a warp's tile holds two
+// items, (b, n, h) = wid 2 i and 2 i + 1, in rows 0-7 and 8-15, each
+// item's keys in their own n8 tile of S (the other item's score -inf
+// before the max: tiny_attend's PAIRS), so a warp's copies and products
+// carry two items where the padded tile carries one.
+template <int FT, int DH, typename TI, bool PAIR = false>
+__global__ void __launch_bounds__(32 * StagedTime<FT, DH, TI, PAIR>::warps)
 time_attention_staged_kernel(const TI* __restrict__ qkv,
                              const float* __restrict__ sin_t,
                              const float* __restrict__ cos_t,
                              TI* __restrict__ out, int B, int N, int H,
                              float scale, int F, int dh) {
-  using S = StagedTime<FT, DH, TI>;
+  using S = StagedTime<FT, DH, TI, PAIR>;
   using T = TinyTile<FT, DH>;
-  constexpr int RS = T::RS, CH = T::CH;
+  constexpr int RS = T::RS, CH = T::CH, TR = S::TR;
   constexpr bool kF32 = S::kF32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sin_s = reinterpret_cast<float*>(smem_raw);  // [FT][DH]
-  float* cos_s = sin_s + FT * DH;
-  stage_table<FT, DH>(sin_s, sin_t, F, dh, 32 * S::warps);
-  stage_table<FT, DH>(cos_s, cos_t, F, dh, 32 * S::warps);
+  float* sin_s = reinterpret_cast<float*>(smem_raw);  // [TR][DH]
+  float* cos_s = sin_s + TR * DH;
+  stage_table<TR, DH>(sin_s, sin_t, F, dh, 32 * S::warps);
+  stage_table<TR, DH>(cos_s, cos_t, F, dh, 32 * S::warps);
   __syncthreads();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -103,6 +123,10 @@ time_attention_staged_kernel(const TI* __restrict__ qkv,
   const int HD = H * dh;
   const long in_frame = (long)N * 3 * HD, out_frame = (long)N * HD;
   const long items = (long)B * N * H;
+  // a tile's items (PAIR: two) and, for tile row r, its item and frame
+  constexpr int IT = PAIR ? 2 : 1;
+  auto item_of = [](int r) { return PAIR ? r >> 3 : 0; };
+  auto frame_of = [](int r) { return PAIR ? r & 7 : r; };
   if (dh < 8) {
     // a row's dh elements are copied alone: the rest of the buffer stays the
     // zeros written here (q and k are rewritten whole by the rotation, v's
@@ -112,12 +136,29 @@ time_attention_staged_kernel(const TI* __restrict__ qkv,
     __syncwarp();
   }
 
-  for (long wid = (long)blockIdx.x * S::warps + warp; wid < items;
+  const long tasks = (items + IT - 1) / IT;
+  for (long wid = (long)blockIdx.x * S::warps + warp; wid < tasks;
        wid += (long)gridDim.x * S::warps) {
-    const int h = (int)(wid % H);
-    const int n = (int)((wid / H) % N);
-    const int b = (int)(wid / ((long)H * N));
-    const TI* src = qkv + ((long)b * F * N + n) * 3L * HD + h * dh;
+    // each item's rows in qkv and the output, and whether it is one (the
+    // last tile of an odd count holds one)
+    const TI* src[IT];
+    TI* dst[IT];
+    bool live[IT];
+#pragma unroll
+    for (int t = 0; t < IT; ++t) {
+      const long it = wid * IT + t;
+      live[t] = it < items;
+      const long idx = live[t] ? it : 0;
+      const int h = (int)(idx % H);
+      const int n = (int)((idx / H) % N);
+      const int b = (int)(idx / ((long)H * N));
+      src[t] = qkv + ((long)b * F * N + n) * 3L * HD + h * dh;
+      dst[t] = out + ((long)b * F * N + n) * HD + h * dh;
+    }
+    // the rows of the tile inside an item's sequence
+    auto in_seq = [&](int r) {
+      return PAIR ? live[item_of(r)] : r < F;
+    };
 
     // q, k, v rows into the buffer; rows past F and columns past dh zeros
     auto at = [&](int m, int r, int c) {  // the buffer's element (m, r, c)
@@ -128,8 +169,9 @@ time_attention_staged_kernel(const TI* __restrict__ qkv,
 #pragma unroll
       for (int i = lane; i < FT * CH; i += 32) {
         const int r = i / CH, c = (i % CH) * 8;
-        const bool valid = r < F && c < dh;
-        const TI* row = src + (valid ? r * in_frame + c : 0);
+        const bool valid = in_seq(r) && c < dh;
+        const TI* row =
+            src[item_of(r)] + (valid ? frame_of(r) * in_frame + c : 0);
 #pragma unroll
         for (int m = 0; m < 3; ++m) {
           cp_async16_or_zeros(at(m, r, c), row + m * HD, valid);
@@ -138,10 +180,11 @@ time_attention_staged_kernel(const TI* __restrict__ qkv,
         }
       }
     } else {
-      for (int r = lane; r < F; r += 32)
+      for (int r = lane; r < F * IT; r += 32)
 #pragma unroll
         for (int m = 0; m < 3; ++m) {
-          const TI* row = src + r * in_frame + m * HD;
+          if (!in_seq(r)) continue;  // PAIR: the other item's rows stay
+          const TI* row = src[item_of(r)] + frame_of(r) * in_frame + m * HD;
           if (dh == 2)
             cp_async_bytes<2 * sizeof(TI)>(at(m, r, 0), row);
           else
@@ -167,11 +210,13 @@ time_attention_staged_kernel(const TI* __restrict__ qkv,
 #pragma unroll
           for (int u = 0; u < kPer; ++u) {
             const int i = u0 + lane + 32 * u, r = i / CH, c = (i % CH) * 8;
-            const int part = r < F ? dh - c : 0;
+            const int part = in_seq(r) ? dh - c : 0;
+            const int tr = frame_of(r);  // the table row
             const float* p = raw + (m * FT + r) * DH + c;
             if (m < 2)
-              load8_part<true>(p, part, sin_s + r * DH + c, cos_s + r * DH + c,
-                               m == 0 ? scale : 1.f, x[u]);
+              load8_part<true>(p, part, sin_s + tr * DH + c,
+                               cos_s + tr * DH + c, m == 0 ? scale : 1.f,
+                               x[u]);
             else
               load8_part<false>(p, part, nullptr, nullptr, 1.f, x[u]);
           }
@@ -189,9 +234,9 @@ time_attention_staged_kernel(const TI* __restrict__ qkv,
 #pragma unroll
       for (int i = lane; i < FT * CH; i += 32) {
         const int r = i / CH, c = (i % CH) * 8;
-        const int part = r < F ? dh - c : 0;
-        const float* sn = sin_s + r * DH + c;
-        const float* cs = cos_s + r * DH + c;
+        const int part = in_seq(r) ? dh - c : 0;
+        const float* sn = sin_s + frame_of(r) * DH + c;
+        const float* cs = cos_s + frame_of(r) * DH + c;
         float x[8];
         load8_part<true>(q_s + r * RS + c, part, sn, cs, scale, x);
         store8(q_s + r * RS + c, x);
@@ -200,29 +245,29 @@ time_attention_staged_kernel(const TI* __restrict__ qkv,
       }
       __syncwarp();
     }
-    tiny_attend<FT, DH, TI, true>(q_s, k_s, v_s, lane, F);
+    tiny_attend<FT, DH, TI, true, PAIR>(q_s, k_s, v_s, lane, F);
     __syncwarp();
-    TI* dst = out + ((long)b * F * N + n) * HD + h * dh;
     if constexpr (kF32) {  // fp32 [FT, DH] at stride OS over q_s and k_s
       const float* o_s = reinterpret_cast<const float*>(q_s);
       for (int i = lane; i < FT * DH / 4; i += 32) {
         const int r = i / (DH / 4), c = (i % (DH / 4)) * 4;
         const float* o = o_s + r * T::OS + c;
-        if (r < F && c + 4 <= dh) {
-          *reinterpret_cast<float4*>(dst + r * out_frame + c) =
-              *reinterpret_cast<const float4*>(o);
-        } else if (r < F) {  // head dim 2: half a chunk
-          for (int e = 0; c + e < dh; ++e) dst[r * out_frame + c + e] = o[e];
+        TI* d = dst[item_of(r)] + frame_of(r) * out_frame + c;
+        if (in_seq(r) && c + 4 <= dh) {
+          *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(o);
+        } else if (in_seq(r)) {  // head dim 2: half a chunk
+          for (int e = 0; c + e < dh; ++e) d[e] = o[e];
         }
       }
     } else {
       for (int i = lane; i < FT * CH; i += 32) {
         const int r = i / CH, c = (i % CH) * 8;
-        if (r < F && c + 8 <= dh) {
-          *reinterpret_cast<uint4*>(dst + r * out_frame + c) =
+        TI* d = dst[item_of(r)] + frame_of(r) * out_frame + c;
+        if (in_seq(r) && c + 8 <= dh) {
+          *reinterpret_cast<uint4*>(d) =
               *reinterpret_cast<const uint4*>(q_s + r * RS + c);
-        } else if (r < F && c < dh) {  // head dims 2 and 4
-          store_part(dst + r * out_frame + c, q_s + r * RS + c, dh - c);
+        } else if (in_seq(r) && c < dh) {  // head dims 2 and 4
+          store_part(d, q_s + r * RS + c, dh - c);
         }
       }
     }
@@ -230,13 +275,13 @@ time_attention_staged_kernel(const TI* __restrict__ qkv,
   }
 }
 
-template <int DH, typename TI>
+template <int FT, int DH, typename TI, bool PAIR = false>
 cudaError_t launch_time_staged(const void* qkv, const void* sin_t,
                                const void* cos_t, void* out, int B, int F,
                                int N, int H, int dh, float scale,
                                cudaStream_t stream) {
-  using S = StagedTime<32, DH, TI>;
-  auto kern = time_attention_staged_kernel<32, DH, TI>;
+  using S = StagedTime<FT, DH, TI, PAIR>;
+  auto kern = time_attention_staged_kernel<FT, DH, TI, PAIR>;
   cudaError_t err = cudaSuccess;
   if (S::smem_bytes > 48 * 1024)
     err = cudaFuncSetAttribute(
@@ -250,8 +295,8 @@ cudaError_t launch_time_staged(const void* qkv, const void* sin_t,
         &per_sm, kern, 32 * S::warps, S::smem_bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long items = (long)B * N * H;
-  const long need = (items + S::warps - 1) / S::warps;
+  const long tasks = ((long)B * N * H + PAIR) / (PAIR ? 2 : 1);
+  const long need = (tasks + S::warps - 1) / S::warps;
   const long blocks = need < (long)per_sm * sms ? need : (long)per_sm * sms;
   kern<<<(unsigned)blocks, 32 * S::warps, S::smem_bytes, stream>>>(
       static_cast<const TI*>(qkv), static_cast<const float*>(sin_t),
@@ -260,25 +305,31 @@ cudaError_t launch_time_staged(const void* qkv, const void* sin_t,
   return cudaGetLastError();
 }
 
-// Frames 16 < F <= 32, F % 8 == 0, head dims dh dividing 128 from 2 up: the
-// head-dim class 16, 32, 64 or 128 that holds dh.
+// Frames F = 8 (the frame class 16) or 16 < F <= 32 (the class 32), F % 8
+// == 0, head dims dh dividing 128 from 2 up: the head-dim class 16, 32, 64
+// or 128 that holds dh.
 template <typename TI>
 int launch_time_staged_classes(const void* qkv, const void* sin_t,
                                const void* cos_t, void* out, int B, int F,
                                int N, int H, int dh, float scale,
                                cudaStream_t stream) {
-  if (F <= 16 || F > 32 || F % 8 || dh < 2 || dh > 128 || 128 % dh)
+  if ((F != 8 && (F <= 16 || F > 32)) || F % 8 || dh < 2 || dh > 128 ||
+      128 % dh)
     return cudaErrorInvalidValue;
+#define MDT_STAGED(DH)                                                    \
+  return F == 8 ? launch_time_staged<16, DH, TI, true>(qkv, sin_t, cos_t, \
+                                                       out, B, F, N, H, dh, \
+                                                       scale, stream)       \
+                : launch_time_staged<32, DH, TI>(qkv, sin_t, cos_t, out,  \
+                                                 B, F, N, H, dh, scale,   \
+                                                 stream)
   switch (dh < 16 ? 16 : dh) {
-    case 16: return launch_time_staged<16, TI>(qkv, sin_t, cos_t, out, B, F,
-                                               N, H, dh, scale, stream);
-    case 32: return launch_time_staged<32, TI>(qkv, sin_t, cos_t, out, B, F,
-                                               N, H, dh, scale, stream);
-    case 64: return launch_time_staged<64, TI>(qkv, sin_t, cos_t, out, B, F,
-                                               N, H, dh, scale, stream);
-    case 128: return launch_time_staged<128, TI>(qkv, sin_t, cos_t, out, B,
-                                                 F, N, H, dh, scale, stream);
+    case 16: MDT_STAGED(16);
+    case 32: MDT_STAGED(32);
+    case 64: MDT_STAGED(64);
+    case 128: MDT_STAGED(128);
   }
+#undef MDT_STAGED
   return cudaErrorInvalidValue;
 }
 

@@ -167,11 +167,17 @@ struct TinyTile {
 
 // MASK (the classes' tiles): keys at or past `lr` (the true sequence
 // length) weigh nothing, and p = expf(s − max), the exp the plain softmax
-// takes, where the configurations' tile takes the faster __expf.
-template <int L, int D, typename O = bf16, bool MASK = false>
+// takes, where the configurations' tile takes the faster __expf. PAIRS (L =
+// 16, with MASK): two sequences of 8 in one tile, rows and keys 0-7 and
+// 8-15; a row's keys of the other sequence (the other n8 tile of S) weigh
+// nothing instead, so each row's scores, max, sum and P·V are those of its
+// sequence alone padded to 16 (a zero weight times the other's v adds 0).
+template <int L, int D, typename O = bf16, bool MASK = false,
+          bool PAIRS = false>
 __device__ __forceinline__ void tiny_attend(bf16* q_s, const bf16* k_s,
                                             const bf16* v_s, int lane,
                                             int lr = L) {
+  static_assert(!PAIRS || (MASK && L == 16), "two sequences of 8, masked");
   constexpr int RS = TinyTile<L, D>::RS;
   constexpr int OS = TinyTile<L, D>::OS;
   constexpr int MT = L / 16;                  // m16 tiles of query rows
@@ -215,8 +221,9 @@ __device__ __forceinline__ void tiny_attend(bf16* q_s, const bf16* k_s,
 #pragma unroll
         for (int nt = 0; nt < L / 8; ++nt) {
           const int key = nt * 8 + 2 * t;
-          if (key >= lr) s[mt][nt][2 * r] = -INFINITY;
-          if (key + 1 >= lr) s[mt][nt][2 * r + 1] = -INFINITY;
+          if (PAIRS ? nt != r : key >= lr) s[mt][nt][2 * r] = -INFINITY;
+          if (PAIRS ? nt != r : key + 1 >= lr)
+            s[mt][nt][2 * r + 1] = -INFINITY;
         }
       }
       float mx = -INFINITY;

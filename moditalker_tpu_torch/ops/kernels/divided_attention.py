@@ -20,9 +20,13 @@ Kernels (``csrc/divided_attention.cuh``, sm_90a; the bf16 entry points in
   every thread of a block rotates K and rounds V to bf16 once before the
   roles split, V into a scratch slot the wrapper allocates
   (``space_f32_scratch``) from which every round copies it, and two
-  consumer warpgroups of 64 rows walk the rounds. It runs where it read
-  faster than the tile's float32 route (``space_f32_own_kernel``), which
-  runs elsewhere.
+  consumer warpgroups of 64 rows walk the rounds; or a cluster of two
+  blocks per pair (``SPACE_F32_CLUSTER_ENTRY``), each rotating half of K
+  into both blocks' shared memory and walking every other round, so that
+  64 pairs (8-frame clips) fill the card in one wave. Each plan runs where
+  it read faster than the other and than the tile's float32 route
+  (``space_f32_own_kernel``; at the configurations' 1024 tokens the
+  cluster from 64 pairs), which runs elsewhere.
 * time — replaces ``_time_kernel`` (``_time_fused``): per patch, attention
   over the F frames with the time rotary. Bound by bytes: one warp per
   (b, n, head), 16-byte coalesced loads and stores through a per-warp
@@ -47,10 +51,10 @@ Every shape the gate admits launches a kernel. The configurations' shapes
 (space at head dim 64, time at 16 frames of head dim 64) are the
 instantiations of ``divided_attention.cu`` and ``divided_attention_f32.cu``;
 the rest of the gate runs the same kernels built per class in
-``divided_classes.cu`` and ``divided_classes_f32.cu``: time at 8 and 16
-frames per head-dim class (16, 32, 64, 128), clips of 8 frames and heads
-narrower than their class padded with zeros (padded frames masked in the
-softmax, neither stored); at clips of 24 and 32 frames (the frame class 32)
+``divided_classes.cu`` and ``divided_classes_f32.cu``: time at 16 frames
+per head-dim class (16, 32, 64, 128), heads narrower than their class
+padded with zeros; at clips of 8 frames (the frame class 16, padded frames
+masked in the softmax, never stored) and of 24 and 32 (the frame class 32)
 a kernel of its own (``csrc/time_staged.cuh``, entry point
 ``STAGED_TIME_ENTRY``): each warp copies its item's raw rows into shared
 memory with ``cp.async`` and rotates them there, and warps walk items
@@ -107,24 +111,32 @@ _LANES = 128
 # space the pre-rotated design (csrc/divided_space.cuh) per head-dim class.
 SPACE_HEAD_DIMS = (64,)
 TIME_SHAPES = ((16, 64),)   # (frames, head dim)
-# clips of 24 and 32 frames (the frame class 32): the time kernel staged by
-# cp.async (csrc/time_staged.cuh, in the classes' libraries under its own
-# entry point), bf16 and float32
-STAGED_TIME_FRAMES = (24, 32)
+# clips of 8 frames (the frame class 16) and of 24 and 32 (the frame class
+# 32): the time kernel staged by cp.async (csrc/time_staged.cuh, in the
+# classes' libraries under its own entry point), bf16 and float32
+STAGED_TIME_FRAMES = (8, 24, 32)
 STAGED_TIME_ENTRY = "divided_time_attention_staged"
 # the float32 space kernel at head dim 64 (csrc/resident_f32_tile.cuh) keeps K
 # resident in shared memory: 9 tiles of 128 keys (the configurations' AE
 # reaches N = 1024); above that the float32 space attention at head dim 64
 # is the pre-rotated design's (divided_classes_f32.cu)
 SPACE_F32_MAX_N = 1152
-# the (frame, head) pairs from which the float32 space attention at head
-# dim 64 runs that kernel rather than the wgmma tile's float32 route
-# (``space_f32_own_kernel``), by length: where it read faster on an H100
-# (tools/ab_space_f32.py --gate; PERF.md). At the configurations' 1024
-# tokens from 72 pairs (64 read 1.6x the route), at 1152 from 1280 (1024
-# read 1.005x); at 256 to 896 tokens no reading up to 1280 pairs was
-# faster, so the route takes every length not listed
-SPACE_F32_MIN_PAIRS = {1024: 72, 1152: 1280}
+# that kernel's cluster plan (two blocks per (frame, head)), an entry point
+# of its own beside ``divided_space_attention_f32``
+SPACE_F32_CLUSTER_ENTRY = "divided_space_attention_f32_cluster"
+# the plan the float32 space attention at head dim 64 runs
+# (``space_f32_own_kernel``), by length: (least (frame, head) pairs, plan)
+# in rising order, the last one the pairs reach taking it ("cluster": the
+# cluster plan, "block": one block per pair, None: the wgmma tile's float32
+# route), the route below the first; where each read faster than the
+# others on an H100 (tools/ab_space_f32.py --gate at 32 to 1280 pairs;
+# PERF.md). At the configurations' 1024 tokens the cluster from 64 pairs
+# (32 read 1.09x the route); a length not listed takes the route
+SPACE_F32_PLANS = {256: ((64, "cluster"), (128, None)),
+                   512: ((64, "cluster"), (128, None)),
+                   896: ((1280, "cluster"),),
+                   1024: ((64, "cluster"),),
+                   1152: ((1280, "block"),)}
 SPACE_BACKWARD_HEAD_DIMS = (64,)
 # the space backward's launches in order, each an entry point of its
 # library with its count of pointer arguments: the pre-pass (qkv, the pair
@@ -272,9 +284,11 @@ def divided_attention_viable(axis: str, f: int, n: int, heads: int,
 
 def _bind_forward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
     """Binds the space and time entry points of ``lib``; in the classes'
-    libraries the space entry is the pre-rotated design's. Every space
-    entry but the bf16 one also takes a scratch (the pre-rotated design's,
-    or the float32 kernel's V scratch)."""
+    libraries the space entry is the pre-rotated design's, in the float32
+    library there is also the space kernel's cluster plan
+    (``SPACE_F32_CLUSTER_ENTRY``). Every space entry but the bf16 one also
+    takes a scratch (the pre-rotated design's, or the float32 kernel's V
+    scratch)."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if suffix.startswith("_classes"):
         space = getattr(lib, "divided_space_attention_prerotated"
@@ -283,6 +297,9 @@ def _bind_forward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
         space = getattr(lib, "divided_space_attention" + suffix)
     space.argtypes = [p] * (4 if suffix else 3) + [i, i, i, i, fl, p]
     space.restype = i
+    if suffix == "_f32":
+        cluster = getattr(lib, SPACE_F32_CLUSTER_ENTRY)
+        cluster.argtypes, cluster.restype = space.argtypes, i
     names = ["divided_time_attention" + suffix]
     if suffix.startswith("_classes"):
         names.append(STAGED_TIME_ENTRY + suffix[len("_classes"):])
@@ -410,13 +427,19 @@ def space_prerotated(dim_head: int, n: int, f32: bool) -> bool:
     return dim_head not in SPACE_HEAD_DIMS or (f32 and n > SPACE_F32_MAX_N)
 
 
-def space_f32_own_kernel(bf: int, n: int, heads: int) -> bool:
-    """Whether float32 qkv [BF, N, 3·H·64] with K resident runs the space
-    kernel of its own (``csrc/resident_f32_tile.cuh``, which takes the V
-    scratch) rather than the wgmma tile's float32 route (which takes none):
-    the one place that chooses, by passing the scratch or not."""
-    least = SPACE_F32_MIN_PAIRS.get(n)
-    return least is not None and bf * heads >= least
+def space_f32_own_kernel(bf: int, n: int, heads: int) -> str | None:
+    """The plan of the space kernel of its own
+    (``csrc/resident_f32_tile.cuh``, which takes the V scratch) that
+    float32 qkv [BF, N, 3·H·64] with K resident runs: "block" (one block per
+    (frame, head), ``divided_space_attention_f32`` with the scratch) or
+    "cluster" (two, ``SPACE_F32_CLUSTER_ENTRY``); None for the wgmma tile's
+    float32 route (``divided_space_attention_f32`` without a scratch). The
+    one place that chooses, from ``SPACE_F32_PLANS``."""
+    plan = None
+    for least, name in SPACE_F32_PLANS.get(n, ()):
+        if bf * heads >= least:
+            plan = name
+    return plan
 
 
 def space_f32_scratch(bf: int, n: int, heads: int, device):
@@ -435,9 +458,10 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     from 2 up. The pre-rotated design (``space_prerotated``) writes a bf16
     scratch [BF, N, 3·H·w] first (``space_rotate_reference``: its plain
     version), and the float32 kernel at head dim 64 writes its V scratch
-    (``space_f32_scratch``) where ``space_f32_own_kernel`` takes it (a null
-    pointer runs the wgmma tile's float32 route); this allocates either.
-    One launch in the count."""
+    (``space_f32_scratch``) where ``space_f32_own_kernel`` takes it, one
+    block or a cluster of two per (frame, head) (a null pointer runs the
+    wgmma tile's float32 route); this allocates either. One launch in the
+    count."""
     f32 = _operands(qkv, sin, cos)
     _check_head_dim(dim_head)
     bf, n, c3 = qkv.shape
@@ -455,6 +479,8 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
     lib, suffix = _library(f32, pre)
     pointers = [qkv.data_ptr(), table.data_ptr()]
     entry = "divided_space_attention" + suffix
+    if own == "cluster":
+        entry = SPACE_F32_CLUSTER_ENTRY
     if pre:
         entry = "divided_space_attention_prerotated" + ("_f32" if f32 else "")
         scratch = torch.empty(bf, n, 3 * heads * space_scratch_width(
@@ -470,16 +496,16 @@ def space_attention_cuda(qkv, sin, cos, heads: int, dim_head: int,
         kernels.cuda_stream(qkv))
     _build.check(lib, status, entry)
     count_launch("divided_space_attention", qkv.shape, float32=f32,
-                 entry=entry + (" + V scratch" if own else ""))
+                 entry=entry + (" + V scratch" if own == "block" else ""))
     return out
 
 
 def time_staged(f: int) -> bool:
     """Whether the time attention at ``f`` frames runs the kernel staged by
     cp.async (``csrc/time_staged.cuh``, the entry point
-    ``STAGED_TIME_ENTRY``): the frame class 32 (``STAGED_TIME_FRAMES``) at
-    every head dim; the configurations' kernel and the classes' at 8 and 16
-    frames."""
+    ``STAGED_TIME_ENTRY``): clips of 8, 24 and 32 frames
+    (``STAGED_TIME_FRAMES``) at every head dim; the configurations' kernel
+    and the classes' at 16 frames."""
     return f in STAGED_TIME_FRAMES
 
 

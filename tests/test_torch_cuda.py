@@ -45,6 +45,7 @@ from moditalker_tpu_torch.ops.kernels import (FLOAT32_LAUNCHES_BY_SHAPE,
                                               LAUNCHES, LAUNCHES_BY_ENTRY,
                                               bf16_rounded_share,
                                               check_bf16, check_float32_route)
+from moditalker_tpu_torch.ops.kernels import _build
 from moditalker_tpu_torch.ops.kernels import divided_attention as tdiv
 from moditalker_tpu_torch.ops.kernels import divided_backward as tbwd
 from moditalker_tpu_torch.ops.kernels import flash_attention as tflash
@@ -262,7 +263,7 @@ def test_divided_kernels_take_float32(gen, axis, b, f, n, heads):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("own", [True, False], ids=["kernel", "route"])
+@pytest.mark.parametrize("own", ["block", None], ids=["kernel", "route"])
 @pytest.mark.parametrize("b,f,n", [(1, 16, 1024), (1, 12, 1024),
                                    (2, 1, 1152), (2, 1, 256), (1, 8, 1024)])
 def test_space_f32_kernel_is_the_wgmma_tile_bit_for_bit(gen, monkeypatch,
@@ -292,6 +293,65 @@ def test_space_f32_kernel_is_the_wgmma_tile_bit_for_bit(gen, monkeypatch,
         tile = tflash.fused_attention_cuda(q, k, v, dh**-0.5)
     tile = tile.reshape(b * f, heads, n, dh).transpose(1, 2)
     assert torch.equal(got, tile.reshape(got.shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 640, 1024, 1152])
+@pytest.mark.parametrize("pairs", [64, 80, 96, 128])
+def test_space_f32_cluster_is_the_route_bit_for_bit(gen, monkeypatch, pairs,
+                                                    n):
+    """The float32 space kernel's cluster plan (two blocks per (frame,
+    head), ``SPACE_F32_CLUSTER_ENTRY``), forced at 64 to 128 pairs over 256
+    to 1152 tokens whichever plan the wrapper's choice would take: launched
+    through its entry point, its output equal bit for bit to the wgmma
+    tile's float32 route's (forced) and to the one-block plan's, two calls
+    equal, within the limits of the float32 plain version and of the
+    ``exp2`` route (``_check_float32``)."""
+    heads, dh = 8, 64
+    sin, cos = _divided_tables("space", 1, n)
+    x = _randn32(gen, 1, pairs // heads, n, 3 * heads * dh)
+    run = lambda: tdiv.divided_attention(x, sin, cos, "space", heads, dh,
+                                         dh**-0.5)
+    outs = {}
+    for plan in ("cluster", None, "block"):
+        monkeypatch.setattr(tdiv, "space_f32_own_kernel",
+                            lambda *a, plan=plan: plan)
+        before = LAUNCHES_BY_ENTRY[tdiv.SPACE_F32_CLUSTER_ENTRY]
+        outs[plan] = run()
+        assert LAUNCHES_BY_ENTRY[tdiv.SPACE_F32_CLUSTER_ENTRY] == before + (
+            plan == "cluster")
+    monkeypatch.setattr(tdiv, "space_f32_own_kernel", lambda *a: "cluster")
+    got = outs["cluster"]
+    assert torch.equal(got, run())
+    assert torch.equal(got, outs[None]) and torch.equal(got, outs["block"])
+    _check_float32(
+        "divided_space_attention", got,
+        tdiv.divided_attention_reference(x, sin, cos, "space", heads, dh,
+                                         dh**-0.5, use_flash=False),
+        tdiv.divided_attention_float32_route(x, sin, cos, "space", heads, dh,
+                                             dh**-0.5, exp2=True))
+
+
+@pytest.mark.cuda
+def test_space_f32_cluster_refuses_what_it_is_not_built_for(gen):
+    """The cluster plan's entry point takes head dim 64 with the V scratch
+    from 256 tokens (a round for each block): without a scratch, at 128
+    tokens or at head dim 32 it raises through the wrapper's check."""
+    lib = tdiv._lib_f32()
+    entry = getattr(lib, tdiv.SPACE_F32_CLUSTER_ENTRY)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n, dh, scratch in ((1024, 64, False), (128, 64, True),
+                           (256, 32, True)):
+        heads = 512 // dh
+        x = _randn32(gen, 1, n, 3 * heads * dh)
+        table = torch.zeros(n, dh // 2, 2, device="cuda")
+        vs = tdiv.space_f32_scratch(1, n, heads, x.device)
+        out = torch.empty(1, n, heads * dh, device="cuda")
+        status = entry(x.data_ptr(), table.data_ptr(),
+                       vs.data_ptr() if scratch else None, out.data_ptr(),
+                       1, n, heads, dh, 0.125, stream)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            _build.check(lib, status, tdiv.SPACE_F32_CLUSTER_ENTRY)
 
 
 @pytest.mark.cuda
@@ -1167,6 +1227,48 @@ def test_narrow_tile_matches_plain(gen, b, nq, nk, d):
     assert got.dtype == torch.bfloat16 and torch.equal(got, run())
     check_bf16(name, got, tflash.fused_attention_reference(
         q.float(), k.float(), v.float(), d**-0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,heads,dh", [
+    (1, 1024, 8, 64), (1, 256, 16, 32), (1, 256, 32, 16), (1, 256, 64, 8),
+    (1, 256, 4, 128), (1, 64, 4, 128), (1, 256, 128, 4), (1, 128, 256, 2),
+    (2, 100, 2, 64), (1, 5, 3, 128)])
+def test_time_staged_at_8_frames_is_the_class_bit_for_bit(gen, b, n, heads,
+                                                          dh, dtype):
+    """The time kernel staged by cp.async at clips of 8 frames (two items a
+    warp's tile, ``STAGED_TIME_ENTRY``), at every head-dim class, with
+    warps that walk many items (heads of 4 and 2) and a last tile holding
+    one item (15 items): its output equal bit for bit to the classes'
+    kernel (the frame class 16, padded and masked) on the same inputs,
+    called through its entry point in this checkout's library, which still
+    takes 8 frames; within the time kernel's limits of the float32 plain
+    version and, in float32, of its route; two calls equal."""
+    f, f32 = 8, dtype == torch.float32
+    sin, cos = _divided_tables("time", f, n, dh)
+    x = _randn32(gen, b, f, n, 3 * heads * dh).to(dtype)
+    entry = tdiv.STAGED_TIME_ENTRY + ("_f32" if f32 else "")
+    before = LAUNCHES_BY_ENTRY[entry]
+    run = lambda: tdiv.time_attention_cuda(x, sin, cos, heads, dh, dh**-0.5)
+    got = _launched("divided_time_attention", run)
+    assert LAUNCHES_BY_ENTRY[entry] == before + 1
+    assert torch.equal(got, run())
+    lib, suffix = tdiv._library(f32, True)
+    want = torch.full_like(got, float("nan"))
+    status = getattr(lib, "divided_time_attention" + suffix)(
+        x.data_ptr(), sin.data_ptr(), cos.data_ptr(), want.data_ptr(), b, f,
+        n, heads, dh, dh**-0.5, torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, status, "divided_time_attention" + suffix)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    x32 = x.float()
+    _check_class("divided_time_attention", got,
+                 tdiv.divided_attention_reference(x32, sin, cos, "time",
+                                                  heads, dh, dh**-0.5,
+                                                  use_flash=False),
+                 tdiv.divided_attention_float32_route(x32, sin, cos, "time",
+                                                      heads, dh, dh**-0.5))
 
 
 @pytest.fixture(scope="module")

@@ -225,8 +225,10 @@ def test_float32_entry_points_are_in_their_own_source():
                    "divided_space_backward_dkdv_classes",
                    "divided_time_attention_backward_classes"}}
     # float32 alone: the one-pass and fused kernels at head dim 64 past
-    # resident K (the pre-pass and the bf16 K ring)
-    float32_only = {"flash_attention_f32": {tflash.PREROUNDED_ENTRY}}
+    # resident K (the pre-pass and the bf16 K ring), the space kernel's
+    # cluster plan
+    float32_only = {"flash_attention_f32": {tflash.PREROUNDED_ENTRY},
+                    "divided_attention_f32": {tdiv.SPACE_F32_CLUSTER_ENTRY}}
     # bf16 alone: the narrow tile at head dims 40 to 56 (float32 there is
     # the wide tile's), a source without a float32 twin
     for source, names in {"flash_narrow": {tflash.NARROW_ENTRY}}.items():

@@ -272,19 +272,20 @@ def test_narrow_head_dims_reach_the_narrow_tile(stub_launches, dtype):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_time_at_32_frame_clips_reaches_the_staged_kernel(stub_launches,
                                                           dtype):
-    """The time attention at clips of 24 and 32 frames (the frame class 32)
-    launches the staged kernel's entry point (``STAGED_TIME_ENTRY``,
-    csrc/time_staged.cuh) at every head dim, bf16 and float32; at 8 and 16
-    frames the classes' kernel, the configurations' 16 frames of 64 their
-    own. The backward is the classes' at every clip length."""
+    """The time attention at clips of 8 frames (the frame class 16) and of
+    24 and 32 (the frame class 32) launches the staged kernel's entry point
+    (``STAGED_TIME_ENTRY``, csrc/time_staged.cuh) at every head dim, bf16
+    and float32; at 16 frames the classes' kernel, the configurations' 16
+    frames of 64 their own. The backward is the classes' at every clip
+    length."""
     suffix = "_f32" if dtype == torch.float32 else ""
     staged = tdiv.STAGED_TIME_ENTRY + suffix
-    assert tdiv.STAGED_TIME_FRAMES == (24, 32)
+    assert tdiv.STAGED_TIME_FRAMES == (8, 24, 32)
     for f in (8, 16, 24, 32):
         for dh in HEAD_DIVISORS[1:]:
             stub_launches.clear()
             _divided_launch("time", f, 8, dh, dtype)
-            if f > 16:
+            if f != 16:
                 forward = staged
             elif (f, dh) in tdiv.TIME_SHAPES:
                 forward = "divided_time_attention" + suffix
@@ -365,6 +366,23 @@ def test_class_launchers_switch_on_the_named_classes():
         == tflash.NARROW_HEAD_DIMS
     assert f"constexpr int kWdGroup = {tflash.WIDE_GROUP};" in wide
     assert "if (D > kWdGroup) return launch_wide<kWdGroup, T>" in wide
+
+def test_staged_launcher_takes_8_frames_on_the_paired_tile():
+    """The staged time kernel's launcher switches on the head-dim classes
+    the wrappers name, and in each class launches 8 frames on the 16-row
+    tile with two items a tile (``PAIR``) and 24 or 32 on the 32-row tile;
+    it refuses 16 frames (the classes' kernel's), as the wrapper never sends
+    them (``STAGED_TIME_FRAMES``)."""
+    assert _case_labels("time_staged.cuh", "launch_time_staged_classes") \
+        == tflash.HEAD_DIM_CLASSES
+    text = (_build.CSRC / "time_staged.cuh").read_text()
+    body = text[text.index("int launch_time_staged_classes("):]
+    body = body[:body.index("\n}\n")]
+    assert "if ((F != 8 && (F <= 16 || F > 32)) || F % 8" in body
+    assert "F == 8 ? launch_time_staged<16, DH, TI, true>(" in body
+    assert ": launch_time_staged<32, DH, TI>(" in body
+    assert 16 not in tdiv.STAGED_TIME_FRAMES
+
 
 # ------------------------------------------------------------ vs Pallas
 def _divided_inputs(axis, f, n, dh, seed=11):

@@ -355,7 +355,7 @@ def test_divided_kernels_reject_unbuilt_shapes(stub_launches):
     rotary pair), 40 frames, a frame count off the 8-frame tiling. Inside
     it, head dim 32 and 8-frame clips (once refused here) launch the
     classes' libraries (the libraries are stubs): space the pre-rotated
-    design's entry point, time the classes'."""
+    design's entry point, time at 8 frames the staged kernel's."""
     for dh in (48, 1):
         tab = torch.zeros(256, dh)
         with pytest.raises(ValueError, match="head dims dividing 128"):
@@ -378,4 +378,4 @@ def test_divided_kernels_reject_unbuilt_shapes(stub_launches):
         torch.zeros(1, 8, 8, 3 * 2 * 64, dtype=torch.bfloat16), tab, tab, 2,
         64, 0.125)
     assert stub_launches == ["divided_space_attention_prerotated",
-                             "divided_time_attention_classes"]
+                             tdiv.STAGED_TIME_ENTRY]

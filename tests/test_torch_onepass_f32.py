@@ -220,7 +220,7 @@ def test_one_kernel_two_instantiations_and_a_plan_that_fits():
     text = HEADER.read_text()
     tile = (_build.CSRC / "wgmma_tile.cuh").read_text()
     assert text.count("__global__") == 1
-    assert "template <typename Args>\n__global__" in text
+    assert "template <typename Args, int CL = 1>\n__global__" in text
     assert "struct SpaceF32Args {\n  static constexpr bool kRot = true," in text
     # the one-pass plan: V rounded by the producer in the first round, at
     # 104 registers, the consumers at 200: the registers of 384 threads
@@ -241,9 +241,13 @@ def test_one_kernel_two_instantiations_and_a_plan_that_fits():
         body = (_build.CSRC / source).read_text()
         body = body[body.index(f"inline int {launcher}("):]
         body = body[:body.index("\n}\n")]
-        assert "return launch_resident_f32(" in body and grid in body
+        assert "return launch_resident_f32" in body and grid in body
         assert f"{launcher}(" not in text
-    assert text.count("resident_f32_kernel<Args><<<") == 1
+    # one launcher: a block per (sequence, head) launched as it was, the
+    # space caller's cluster plan through cudaLaunchKernelEx
+    assert text.count("auto kern = resident_f32_kernel<Args, CL>;") == 1
+    assert text.count("kern<<<") == 1
+    assert text.count("cudaLaunchKernelEx(&config, kern, a)") == 1
     slots = _constant(tile, "kWgMaxKSlots")
     assert tflash.RESIDENT_KEYS_D64 == 128 * slots
     assert "nkt > kWgMaxKSlots" in text

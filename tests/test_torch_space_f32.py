@@ -69,13 +69,15 @@ def test_space_f32_route_matches_jax_interpret(n):
 def test_float32_space_launches_its_kernel_with_the_v_scratch(
         stub_launches, monkeypatch, bf, n, heads):
     """A float32 qkv at head dim 64 with K resident (N up to
-    ``SPACE_F32_MAX_N``) launches ``divided_space_attention_f32`` once.
-    Where ``space_f32_own_kernel`` takes the kernel of its own (the
-    trainers' 128 pairs at 1024 tokens, and 72), the pointer after qkv and
+    ``SPACE_F32_MAX_N``) launches ``divided_space_attention_f32`` once, or
+    where ``space_f32_own_kernel`` takes the cluster plan (at 1024 tokens
+    from 64 pairs: 8-frame clips', the trainers' 128, 72)
+    ``SPACE_F32_CLUSTER_ENTRY``. Where it takes the kernel of its own, one
+    block or a cluster of two per pair, the pointer after qkv and
     the table is the V scratch the wrapper allocated: bf16 [BF·H, N, 64] on
     qkv's device (``space_f32_scratch``), a slot per (frame, head);
-    elsewhere (8-frame clips' 64 pairs, other lengths) it is null, which
-    runs the wgmma tile's float32 route, and nothing is allocated."""
+    elsewhere (other lengths) it is null, which runs the wgmma tile's
+    float32 route, and nothing is allocated."""
     calls, made = [], []
     stub = torch_stubs.StubLib(stub_launches, calls)
     monkeypatch.setattr(tdiv, "_lib_f32", lambda: stub)
@@ -90,9 +92,11 @@ def test_float32_space_launches_its_kernel_with_the_v_scratch(
     tab = torch.zeros(n, 64)
     out = tdiv.space_attention_cuda(qkv, tab, tab, heads, 64, 0.125)
     assert out.dtype == torch.float32 and out.shape == (bf, n, heads * 64)
-    assert stub_launches == ["divided_space_attention_f32"]
+    entry = ("divided_space_attention_f32" if tdiv.space_f32_own_kernel(
+        bf, n, heads) != "cluster" else tdiv.SPACE_F32_CLUSTER_ENTRY)
+    assert stub_launches == [entry]
     name, args = calls[0]
-    assert name == "divided_space_attention_f32"
+    assert name == entry
     if tdiv.space_f32_own_kernel(bf, n, heads):
         (scratch,) = made
         assert scratch.dtype == torch.bfloat16
@@ -106,6 +110,52 @@ def test_float32_space_launches_its_kernel_with_the_v_scratch(
     assert args[4:9] == (bf, n, heads, 64, 0.125)
     assert tkernels.FLOAT32_LAUNCHES_BY_SHAPE["divided_space_attention"] == {
         (bf, n, 3 * heads * 64): 1}
+
+
+# the plan the chooser's table names at each length and count of (frame,
+# head) pairs, and the entry point each plan launches with what it counts
+PLAN_ENTRIES = {
+    "cluster": ("divided_space_attention_f32_cluster",
+                "divided_space_attention_f32_cluster"),
+    "block": ("divided_space_attention_f32",
+              "divided_space_attention_f32 + V scratch"),
+    None: ("divided_space_attention_f32", "divided_space_attention_f32")}
+
+
+def _table_plan(n, pairs):
+    """The plan of ``SPACE_F32_PLANS`` read from the table itself: the last
+    (least pairs, plan) the pairs reach, the route below the first."""
+    reached = [plan for least, plan in tdiv.SPACE_F32_PLANS.get(n, ())
+               if pairs >= least]
+    return reached[-1] if reached else None
+
+
+@pytest.mark.parametrize("n", [256, 1024, 1152])
+@pytest.mark.parametrize("pairs", [64, 72, 128, 1280])
+def test_float32_space_launches_the_plan_its_table_names(
+        stub_launches, monkeypatch, n, pairs):
+    """At 64, 72, 128 and 1280 (frame, head) pairs over 256, 1024 and 1152
+    tokens, the float32 space attention at head dim 64 launches exactly the
+    plan its table (``SPACE_F32_PLANS``) names there: the cluster plan's
+    entry point (``SPACE_F32_CLUSTER_ENTRY``) or the one-block plan's, each
+    with the V scratch, or the wgmma tile's float32 route (a null scratch),
+    once, and counts it under its own entry (``LAUNCHES_BY_ENTRY``); the
+    table's rows rise, each plan a name the chooser knows."""
+    for rows in tdiv.SPACE_F32_PLANS.values():
+        assert [least for least, _ in rows] == sorted({l for l, _ in rows})
+        assert {plan for _, plan in rows} <= {"cluster", "block", None}
+    calls = []
+    stub = torch_stubs.StubLib(stub_launches, calls)
+    monkeypatch.setattr(tdiv, "_lib_f32", lambda: stub)
+    plan = _table_plan(n, pairs)
+    assert tdiv.space_f32_own_kernel(pairs // 8, n, 8) == plan
+    qkv = torch.zeros(pairs // 8, n, 3 * 8 * 64)
+    tab = torch.zeros(n, 64)
+    tdiv.space_attention_cuda(qkv, tab, tab, 8, 64, 0.125)
+    entry, counted = PLAN_ENTRIES[plan]
+    assert stub_launches == [entry]
+    assert (calls[0][1][2] is None) == (plan is None)
+    assert dict(tkernels.LAUNCHES_BY_ENTRY) == {counted: 1}
 
 
 def test_bf16_space_launches_without_a_scratch(stub_launches, monkeypatch):
@@ -133,31 +183,32 @@ def test_float32_space_past_resident_k_is_prerotated(stub_launches, n):
     assert stub_launches == ["divided_space_attention_prerotated_f32"]
 
 
-# (frame, head) pairs read by tools/ab_space_f32.py --gate on an H100
-# (PERF.md), by length: those where the kernel of its own read faster than
-# the wgmma tile's float32 route, and those where it did not
-READ_FASTER = {1024: (72, 80, 96, 128, 256, 1280), 1152: (1280, 2560)}
-READ_SLOWER = {256: (128, 256, 1280), 384: (128, 256, 1280),
-               512: (128, 256, 1280), 640: (128, 256, 1280),
-               768: (128, 256, 1280), 896: (128, 256, 1280),
-               1024: (64,), 1152: (128, 256, 512, 768, 1024)}
+# the plan tools/ab_space_f32.py --gate read fastest on an H100 (PERF.md), by
+# length and (frame, head) pairs: "cluster" (two blocks a pair), "block" (one)
+# or None (the wgmma tile's float32 route)
+GATE_FASTEST = {
+    256: {64: "cluster", 128: None, 256: None, 1280: None},
+    384: {64: None, 128: None, 256: None, 1280: None},
+    512: {64: "cluster", 128: None, 256: None, 1280: None},
+    640: {64: None, 128: None, 256: None, 1280: None},
+    768: {64: None, 128: None, 256: None, 1280: None},
+    896: {64: None, 128: None, 256: None, 1280: "cluster"},
+    1024: {32: None, 64: "cluster", 80: "cluster", 96: "cluster",
+           128: "cluster", 256: "cluster", 1280: "cluster"},
+    1152: {64: None, 128: None, 256: None, 1280: "block"}}
 
 
-@pytest.mark.parametrize("n", sorted(READ_SLOWER))
+@pytest.mark.parametrize("n", sorted(GATE_FASTEST))
 def test_space_f32_own_kernel_where_it_read_faster(n):
-    """The wrapper's choice takes the kernel of its own at every
-    measured (length, pairs) where it read faster than the route, and the
-    route at every one where it did not; the length's threshold lies
-    between the two."""
-    for pairs in READ_FASTER.get(n, ()):
-        assert tdiv.space_f32_own_kernel(pairs // 8, n, 8), (n, pairs)
-    for pairs in READ_SLOWER[n]:
-        assert not tdiv.space_f32_own_kernel(pairs // 8, n, 8), (n, pairs)
-        assert not tdiv.space_f32_own_kernel(pairs, n, 1), (n, pairs)
-    assert set(tdiv.SPACE_F32_MIN_PAIRS) == set(READ_FASTER)
-    assert n not in tdiv.SPACE_F32_MIN_PAIRS or (
-        max(READ_SLOWER[n]) < tdiv.SPACE_F32_MIN_PAIRS[n]
-        <= min(READ_FASTER[n]))
+    """The wrapper's choice names, at every measured (length, pairs), the
+    plan that read fastest there (however the pairs split into frames and
+    heads), and its table lists exactly the lengths where a plan of the
+    kernel of its own read faster than the route."""
+    for pairs, plan in GATE_FASTEST[n].items():
+        assert tdiv.space_f32_own_kernel(pairs // 8, n, 8) == plan, (n, pairs)
+        assert tdiv.space_f32_own_kernel(pairs, n, 1) == plan, (n, pairs)
+    assert set(tdiv.SPACE_F32_PLANS) == {
+        length for length, read in GATE_FASTEST.items() if any(read.values())}
 
 
 def test_space_f32_scratch_size():

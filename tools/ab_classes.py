@@ -55,6 +55,15 @@ kernel at clips of 32 and 24 frames (``--time32``): the classes' kernel it
 replaced against the staged kernel (``csrc/time_staged.cuh``,
 ``divided_attention.STAGED_TIME_ENTRY``), bit for bit at every head-dim
 class, paired at qkv [2, 32 | 24, 1024, 1536], bf16 and float32, with the
+library call and the bound. And the time kernel at clips of 8 frames
+(``--time8``): the classes' kernel (the frame class 16, padded and masked;
+this checkout's ``divided_time_attention_classes``, which still takes 8
+frames) against the staged kernel's two ways in, the frame class 16 padded
+(``time_staged.cuh``'s kernel without ``PAIR``, built here from this
+checkout's headers) and two items of 8 frames a tile (``PAIR``, what
+``STAGED_TIME_ENTRY`` runs at 8 frames), each bit for bit against the
+class at every head-dim class, in turns (class, padded, pair, pair,
+padded, class) at qkv [1, 8, 1024, 1536], bf16 and float32, with the
 library call and the bound.
 
 The replaced designs (the small-head class 128 and the class with the
@@ -65,14 +74,14 @@ from a commit whose ``smallhead_tile.cuh`` still has its ``ROT`` branch and
 class 128 (1f27cc7 or earlier):
 
     git archive 1f27cc7 | tar -x -C build/before   # once, on the host
-    python3 tools/ab_classes.py [--wide | --space | --narrow | --time32]
-                                [--before DIR]
+    python3 tools/ab_classes.py [--wide | --space | --narrow | --time32 |
+                                 --time8] [--before DIR]
                                           # repository root, on a card;
                                           # a mode: that part alone
 
 (``--narrow`` and ``--time32`` build the class 64 and the time classes at
 32 frames from the --before copy too: any commit before they were replaced,
-252b342 or earlier.)
+252b342 or earlier; ``--time8`` alone needs no --before copy.)
 """
 
 from __future__ import annotations
@@ -211,6 +220,24 @@ TIME_VARIANTS = {
                                      scale, st);
 """),
 }
+# the staged kernel at 8 frames padded to the frame class 16 (--time8), one
+# instantiation per head-dim class from this checkout's header
+TIME8_VARIANTS = {
+    "time_padded": ("time_staged.cuh", False, """
+  if (F != 8) return cudaErrorInvalidValue;
+  switch (dh < 16 ? 16 : dh) {
+    case 16: return mdt::launch_time_staged<16, 16, T>(
+        qkv, sin_t, cos_t, out, B, F, N, H, dh, scale, st);
+    case 32: return mdt::launch_time_staged<16, 32, T>(
+        qkv, sin_t, cos_t, out, B, F, N, H, dh, scale, st);
+    case 64: return mdt::launch_time_staged<16, 64, T>(
+        qkv, sin_t, cos_t, out, B, F, N, H, dh, scale, st);
+    case 128: return mdt::launch_time_staged<16, 128, T>(
+        qkv, sin_t, cos_t, out, B, F, N, H, dh, scale, st);
+  }
+  return cudaErrorInvalidValue;
+"""),
+}
 TIME_SOURCE = """#include "{header}"
 using T = {type};
 extern "C" {{
@@ -307,11 +334,19 @@ def main() -> int:
                     help="only the time kernel at clips of 24 and 32 "
                          "frames: the staged kernel against the classes' "
                          "kernel it replaced")
+    ap.add_argument("--time8", action="store_true",
+                    help="only the time kernel at clips of 8 frames: the "
+                         "staged kernel's two ways in against the classes' "
+                         "kernel")
     ap.add_argument("--before", type=Path, default=ROOT / "build" / "before",
                     help="an earlier copy of the repository, whose headers "
                          "build the replaced designs")
     args = ap.parse_args()
-    if not (args.before / "moditalker_tpu_torch" / "csrc" /
+    only = (args.wide or args.space or args.narrow or args.time32
+            or args.time8)
+    before = not only or args.wide or args.space or args.narrow or args.time32
+    if before and not (
+            args.before / "moditalker_tpu_torch" / "csrc" /
             "smallhead_tile.cuh").is_file():
         print(f"{args.before}: no earlier copy of the repository (git "
               f"archive 1f27cc7 | tar -x -C {args.before})", file=sys.stderr)
@@ -348,7 +383,6 @@ def main() -> int:
             raise RuntimeError(f"{entry}: {lib.kernel_error_string(rc)}")
 
     print(json.dumps({"card": chip_smoke.card_line()}), flush=True)
-    only = args.wide or args.space or args.narrow or args.time32
     if not only:
         shipped_against_classes(torch, rnd, run, status)
     if args.wide or not only:
@@ -359,6 +393,8 @@ def main() -> int:
         narrow_against_class(torch, rnd, status, args.before)
     if args.time32 or not only:
         time32_against_class(torch, rnd, status, args.before)
+    if args.time8 or not only:
+        time8_against_class(torch, rnd, status)
     return 0
 
 
@@ -911,6 +947,113 @@ def time32_against_class(torch, rnd, status, before: Path) -> None:
             if not row["new_equals_class_bit_for_bit"]:
                 raise AssertionError(f"{row['case']}: the staged kernel "
                                      f"differs from the class")
+
+
+
+def time8_against_class(torch, rnd, status) -> None:
+    """The time kernel at clips of 8 frames, bf16 and float32: the classes'
+    kernel (``divided_time_attention_classes``, the frame class 16 padded)
+    against the staged kernel padded the same way (``TIME8_VARIANTS``) and
+    the staged kernel's two items a tile (``dv.STAGED_TIME_ENTRY``), each
+    bit for bit against the class at every head-dim class, a last tile
+    holding one item among them; at qkv [1, 8, 1024, 1536] (8 heads of 64)
+    in turns (class, padded, pair, pair, padded, class), with the library
+    call, the bound and each held to the float32 plain version (and in
+    float32 to its route)."""
+    import ctypes
+
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from moditalker_tpu_torch.ops import rotary
+    from moditalker_tpu_torch.ops.kernels import (
+        bf16_rounded_share, check_bf16, check_float32_route, cuda_stream)
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+
+    def bind(lib):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.time_ab.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+        lib.time_ab.restype = i
+        return lib
+
+    ab = build_variants(ROOT, TIME8_VARIANTS, TIME_SOURCE, bind)
+    # (b, tokens, heads, head dim): every head-dim class, warps that walk
+    # many items (heads of 4 and 2), an odd count of items
+    cases = [(1, 1024, 8, 64), (1, 256, 16, 32), (1, 256, 32, 16),
+             (1, 256, 64, 8), (1, 256, 4, 128), (1, 256, 128, 4),
+             (1, 128, 256, 2), (2, 64, 2, 64), (1, 5, 3, 128)]
+    f = 8
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        suffix = "_f32" if f32 else ""
+        lib = dv._classes_lib_f32() if f32 else dv._classes_lib()
+        entries = {"class": (lib, "divided_time_attention_classes" + suffix),
+                   "padded": (ab["time_padded" + suffix], "time_ab"),
+                   "pair": (lib, dv.STAGED_TIME_ENTRY + suffix)}
+        for b, n, heads, dh in cases:
+            sin, cos = (torch.from_numpy(t).cuda()
+                        for t in rotary.time_rotary_sincos(f, dh))
+            qkv = rnd(b, f, n, 3 * heads * dh, dtype=dtype)
+            sc = dh**-0.5
+            outs, fns = {}, {}
+            for which, (lb, entry) in entries.items():
+                out = torch.full((b, f, n, heads * dh), float("nan"),
+                                 dtype=dtype, device="cuda")
+
+                def call(lb=lb, entry=entry, out=out, qkv=qkv, sin=sin,
+                         cos=cos, b=b, n=n, heads=heads, dh=dh, sc=sc):
+                    status(lb, getattr(lb, entry)(
+                        qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(),
+                        out.data_ptr(), b, f, n, heads, dh, sc,
+                        cuda_stream(qkv)), entry)
+                    return out
+
+                fns[which] = call
+                outs[which] = call().clone()
+            row = {"case": f"time [{b}, {f}, {n}, {3 * heads * dh}] {heads} "
+                           f"heads of {dh} {dtype}".replace("torch.", ""),
+                   **{f"{w}_equals_class_bit_for_bit": bool(torch.equal(
+                       outs[w], outs["class"])) for w in ("padded", "pair")}}
+            if n == 1024:
+                times = {}
+                for which in ("class", "padded", "pair", "pair", "padded",
+                              "class"):
+                    times.setdefault(which, []).append(
+                        chip_smoke.time_ms(torch, fns[which]))
+                x = qkv.float()
+                errs = check_bf16("divided_time_attention", outs["pair"],
+                                  dv.divided_attention_reference(
+                                      x, sin, cos, "time", heads, dh, sc,
+                                      use_flash=False))
+                if f32:
+                    errs = check_float32_route(
+                        "divided_time_attention", outs["pair"],
+                        dv.divided_attention_float32_route(
+                            x, sin, cos, "time", heads, dh, sc))
+                    row["bf16_rounded_share"] = bf16_rounded_share(
+                        outs["pair"])
+                qh, kh, vh = (t.reshape(b, f, n, heads, dh).permute(
+                    0, 2, 3, 1, 4).reshape(b * n, heads, f, dh)
+                    for t in qkv.chunk(3, -1))
+                qh, kh = rotary.apply_rot_emb(qh, kh, sin.to(dtype),
+                                              cos.to(dtype))
+                qh, kh, vh = (t.contiguous() for t in (qh, kh, vh))
+                bound, by = chip_smoke.bound_ms(
+                    (qkv.numel() + outs["pair"].numel()) * qkv.element_size()
+                    + 2 * sin.numel() * 4,
+                    4.0 * b * n * heads * f * f * dh)
+                best = {w: min(t) for w, t in times.items()}
+                row.update({
+                    **{f"{w}_ms": times[w] for w in times},
+                    "pair_over_class": best["pair"] / best["class"],
+                    "padded_over_class": best["padded"] / best["class"],
+                    "faster": min(best, key=best.get),
+                    "library_ms": chip_smoke.time_ms(
+                        torch, lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, scale=sc)),
+                    "bound_ms": bound, "bound_by": by,
+                    "errors": [float(f"{e:.4g}") for e in errs]})
+            print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":

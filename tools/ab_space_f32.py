@@ -38,12 +38,14 @@ kernel's ``-Xptxas -v`` line. Modes:
   prologue, the first round and the other rounds, the mean over blocks,
   written over each block's scratch slot once nothing reads it (this
   checkout, and the other caller's plan in its place);
-* ``--gate``: both sides of the wrapper's choice (``space_f32_own_kernel``;
-  with ``--onepass`` ``onepass_f32_own_kernel`` with K resident and
-  ``onepass_f32_prerounded`` past it) in this checkout, each forced at
-  every shape, in turns route, kernel, kernel, route: the kernel of its own
-  against the wgmma tile's float32 route, by default over 128 to 1280
-  (frame, head) pairs and N = 256 to 1152 (``GATE_SHAPES``; one-pass: 64
+* ``--gate``: every side of the wrapper's choice (``space_f32_own_kernel``'s
+  three plans, in turns route, block, cluster, cluster, block, route: the
+  wgmma tile's float32 route, the kernel of its own at one block and at a
+  cluster of two per (frame, head); with ``--onepass``
+  ``onepass_f32_own_kernel`` with K resident and
+  ``onepass_f32_prerounded`` past it, in turns route, kernel, kernel,
+  route) in this checkout, each forced at every shape, by default over 64
+  to 1280 (frame, head) pairs and N = 256 to 1152 (``GATE_SHAPES``; one-pass: 64
   to 1280 sequences at N = 1024, ``ONEPASS_GATE_SHAPES``, and past
   resident K the one-pass and fused shapes of ``PREROUNDED_GATE_SHAPES``,
   B x Nq x Nk for the fused kernel), with the side the wrapper takes at
@@ -198,8 +200,9 @@ VARIANTS = {
 }
 
 # --clock: clock64 at the kernel's start, after the prologue, after the
-# first round and at the end, by thread 0 (consumer warpgroup 0), written
-# over the first 32 bytes of the block's scratch slot once nothing reads it
+# block's first round and at the end, by thread 0 (consumer warpgroup 0),
+# written over 32 bytes of the block's scratch slot once this block reads
+# it no more (a cluster's blocks: rank 0's first 32 bytes, rank 1's next)
 CLOCK = [
     ("  const int tid = threadIdx.x, wg = tid >> 7;\n",
      "  const int tid = threadIdx.x, wg = tid >> 7;\n"
@@ -212,15 +215,16 @@ CLOCK = [
      "    constexpr float kLog2e = 1.4426950408889634f;\n    int it = 0;\n"
      "    long long clk2 = 0;\n"),
     ("      // finish the row sums across the quad",
-     "      if (round == 0) clk2 = clock64();\n"
+     "      if (round == rank) clk2 = clock64();\n"
      "      // finish the row sums across the quad"),
     ("              o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);\n"
      "      }\n    }\n  }\n}\n",
      "              o[4 * nd + 2 * r] * inv, o[4 * nd + 2 * r + 1] * inv);\n"
      "      }\n    }\n    if (tid == 0) {\n"
-     "      long long* rec = reinterpret_cast<long long*>(vsc);\n"
+     "      long long* rec = reinterpret_cast<long long*>(vsc) + 4 * rank;\n"
      "      rec[0] = clk1 - clk0;\n      rec[1] = clk2 - clk1;\n"
-     "      rec[2] = clock64() - clk2;\n      rec[3] = rounds;\n    }\n"
+     "      rec[2] = clock64() - clk2;\n"
+     "      rec[3] = (rounds - rank + CL - 1) / CL;\n    }\n"
      "  }\n}\n"),
 ]
 
@@ -238,10 +242,16 @@ sin, cos = (torch.from_numpy(t).cuda()
 gen = torch.Generator(device="cuda").manual_seed(0)
 kept, allocate = [], getattr(mod, name)
 setattr(mod, name, lambda *a: kept.append(allocate(*a)) or kept[-1])
-for b in (10, 1):
-    qkv = torch.randn((b, 16, 1024, 1536), generator=gen, device="cuda")
-    q, k, v = (t.reshape(b * 16, 1024, 8, 64).transpose(1, 2)
-               .reshape(b * 128, 1024, 64).contiguous() for t in qkv.chunk(3, -1))
+# space: each plan of the kernel forced at train-diffusion's, train-first-
+# stage's and 8-frame clips' qkv (a cluster's blocks recorded apart)
+runs = ([(b, 16, None) for b in (10, 1)] if onepass else
+        [(b, f, plan) for plan in ("block", "cluster")
+         for b, f in ((10, 16), (1, 16), (1, 8))])
+for b, f, plan in runs:
+    dv.space_f32_own_kernel = lambda *a: plan
+    qkv = torch.randn((b, f, 1024, 1536), generator=gen, device="cuda")
+    q, k, v = (t.reshape(b * f, 1024, 8, 64).transpose(1, 2)
+               .reshape(b * f * 8, 1024, 64).contiguous() for t in qkv.chunk(3, -1))
     for _ in range(3):
         kept.clear()
         if onepass:
@@ -249,8 +259,11 @@ for b in (10, 1):
         else:
             dv.divided_attention(qkv, sin, cos, "space", 8, 64, 0.125)
     torch.cuda.synchronize()
-    rec = kept[0].view(kept[0].shape[0], -1).view(torch.int64)[:, :4].double()
-    print(b, *rec[:, :3].mean(0).tolist(), rec[:, 3].mean().item(), flush=True)
+    slot = kept[0].view(kept[0].shape[0], -1).view(torch.int64)
+    for rank in range(2 if plan == "cluster" else 1):
+        rec = slot[:, 4 * rank:4 * rank + 4].double()
+        print(f"{b}x{f}", plan or "", rank, *rec[:, :3].mean(0).tolist(),
+              rec[:, 3].mean().item(), flush=True)
 """
 
 TIME = """
@@ -279,8 +292,9 @@ for name, (secs, log) in _build.build([source]).items():
         if "serialized" in line:
             print("#", line.strip())
 side = sys.argv[3]
-if side in ("kernel", "route"):  # --gate: one side of the wrapper's choice
-    own = lambda *a: side == "kernel"
+if side in ("kernel", "route", "block", "cluster"):
+    # --gate: one side of the wrapper's choice
+    own = lambda *a: side != "route"
     if onepass:
         # with resident K the float32 resident-K kernel; past it the
         # pre-pass and the bf16 K ring (each against the wgmma tile's
@@ -289,7 +303,9 @@ if side in ("kernel", "route"):  # --gate: one side of the wrapper's choice
         fa.onepass_f32_own_kernel = lambda b, nq, nk: own() and nk <= resident
         fa.onepass_f32_prerounded = lambda b, nq, nk: own() and nk > resident
     else:
-        dv.space_f32_own_kernel = own
+        # the space kernel's plans: one block or a cluster of two per
+        # (frame, head), or the route
+        dv.space_f32_own_kernel = lambda *a: None if side == "route" else side
 gen = torch.Generator(device="cuda").manual_seed(0)
 torch.set_grad_enabled(False)
 for shape in sys.argv[2].split(","):
@@ -312,9 +328,9 @@ for shape in sys.argv[2].split(","):
         print(shape, chip_smoke.time_ms(torch, call), flush=True)
         continue
     b, f, n = map(int, shape.split("x"))
-    side = 32 if n % 32 == 0 and n >= 1024 else 16
+    rows = 32 if n % 32 == 0 and n >= 1024 else 16  # the axial grid's
     sin, cos = (torch.from_numpy(t).cuda()
-                for t in rotary.axial_rotary_sincos(side, n // side, 64))
+                for t in rotary.axial_rotary_sincos(rows, n // rows, 64))
     qkv = torch.randn((b, f, n, 1536), generator=gen, device="cuda")
     call = lambda: dv.divided_attention(qkv, sin, cos, "space", 8, 64, 0.125)
     if sys.argv[1] == "1" and b * f <= 16:
@@ -326,11 +342,13 @@ for shape in sys.argv[2].split(","):
 """
 
 
-# --gate: 128, 256 and 1280 (frame, head) pairs over every length the kernel
-# takes, and 64 to 96 pairs at the configurations' 1024 tokens
+# --gate: 64 (8-frame clips), 128, 256 and 1280 (frame, head) pairs over
+# every length the kernel takes, and 32, 80 and 96 pairs at the
+# configurations' 1024 tokens
 GATE_SHAPES = ",".join(
-    [f"{b}x16x{n}" for b in (1, 2, 10) for n in range(256, 1153, 128)]
-    + [f"1x{f}x1024" for f in (8, 10, 12)])
+    [f"{b}x{f}x{n}" for b, f in ((1, 8), (1, 16), (2, 16), (10, 16))
+     for n in range(256, 1153, 128)]
+    + [f"1x{f}x1024" for f in (4, 10, 12)])
 # --onepass --gate: 64 to 1280 sequences at the one-pass gate's resident-K
 # length (B x N); past resident K 2 to 80 sequences of 2048 (the 256-channel
 # UNet's joint attention at B = 10, 2 and 1, and fewer), 1280 and 1536 keys,
@@ -346,9 +364,10 @@ PREROUNDED_GATE_SHAPES = ",".join(
     + ["2x300x1280"])
 
 
-def own_kernel(shape: str, onepass: bool) -> bool:
-    """The wrapper's choice (``space_f32_own_kernel``, or
-    ``onepass_f32_own_kernel``) at a shape, and a line naming it."""
+def own_kernel(shape: str, onepass: bool):
+    """The wrapper's choice at a shape: ``space_f32_own_kernel``'s plan
+    (None: the route), or whether ``onepass_f32_own_kernel`` (past resident
+    K ``onepass_f32_prerounded``) takes the kernel."""
     sys.path.insert(0, str(ROOT))
     from moditalker_tpu_torch.ops.kernels import divided_attention as dv
     from moditalker_tpu_torch.ops.kernels import flash_attention as fa
@@ -457,11 +476,16 @@ def main() -> int:
                 return 1
             for line in out.stdout.split("\n"):
                 if line.strip():
-                    b, pro, first, rest, rounds = line.split()
-                    print(f"{name}: B = {b}, clocks a block (mean): prologue "
-                          f"{float(pro):.0f}, first round {float(first):.0f},"
-                          f" the other {float(rounds) - 1:.0f} rounds "
-                          f"{float(rest):.0f}", flush=True)
+                    words = line.split()
+                    shape, rank, (pro, first, rest, rounds) = (
+                        words[0], words[-5], map(float, words[-4:]))
+                    plan = f" {words[1]} plan," if len(words) == 7 else ""
+                    rank = f" rank {rank}" if words[1:2] == ["cluster"] else ""
+                    print(f"{name}:{plan} qkv [{shape.replace('x', ', ')}, "
+                          f"1024, 1536]{rank}, clocks a block (mean): "
+                          f"prologue {pro:.0f}, first round {first:.0f}, the "
+                          f"other {rounds - 1:.0f} rounds {rest:.0f}",
+                          flush=True)
         return 0
     if args.split or args.variants:
         table = SPLITS if args.split else VARIANTS
@@ -471,6 +495,9 @@ def main() -> int:
         copies = {name: copy_with(name, edits, group)
                   for name, edits in table.items()}
         turns = list(copies.items())
+    elif args.gate and not args.onepass:
+        turns = [(side, ROOT) for side in ("route", "block", "cluster",
+                                           "cluster", "block", "route")]
     elif args.gate:
         turns = ([("bf16", ROOT)] if args.bf16 else []) + [
             ("route", ROOT), ("kernel", ROOT), ("kernel", ROOT),
@@ -494,13 +521,22 @@ def main() -> int:
                       + what.format(shape.replace("x", ", "))
                       + f" {ms:.4f} ms", flush=True)
     for shape in args.shapes.split(","):
-        best = {name: min(readings[(name, shape)]) for name, _ in turns}
+        best = {name: min(readings[(name, shape)]) for name, _ in turns
+                if (name, shape) in readings}
         line = ", ".join(f"{name} {ms:.4f}" for name, ms in best.items())
         print(f"{shape}, fastest reading: {line}")
         if args.split:
             print(f"{shape}: prologue {best['prologue']:.4f} ms, first round "
                   f"{best['first round'] - best['prologue']:.4f}, the rest "
                   f"{best['all'] - best['first round']:.4f}")
+        elif args.gate and not args.onepass:
+            b, f, n = map(int, shape.split("x"))
+            ranked = sorted(best, key=best.get)
+            print(f"{shape} ({b * f * 8} pairs): block / route "
+                  f"{best['block'] / best['route']:.4f}, cluster / route "
+                  f"{best['cluster'] / best['route']:.4f}; fastest "
+                  f"{ranked[0]}, the wrapper takes "
+                  f"{own_kernel(shape, False) or 'route'}")
         elif args.gate:
             dims = list(map(int, shape.split("x")))
             count = (f"{dims[0]} sequences" if args.onepass else

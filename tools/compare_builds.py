@@ -24,7 +24,12 @@ commit (``git archive <parent> | tar -x -C build/parent``):
    chooser) and tiny-L kernels, the one-pass
    and fused kernels' classes and wide tile (D = 24, 48, 128, 136, 256),
    the time kernel at 32 and 24 frames (the staged kernel where a copy
-   has it, the classes' kernel before), the space kernel's pre-rotated design
+   has it, the classes' kernel before) and at 8 frames in heads of 64 and
+   of 8 (the staged kernel's two items a tile where a copy has it, the
+   classes' kernel before), the space kernel at 8-frame clips' and
+   train-first-stage's qkv [1, 8 | 16, 1024] (the float32 kernel's cluster
+   plan and one-block plan, or the wgmma tile's float32 route, as each
+   copy's chooser takes them), the space kernel's pre-rotated design
    at 4 x 128 and 16 x 32, and the space and time backward kernels (space
    also at those splits), on the same seeded inputs in both copies,
    bf16 and float32, each type in a process of its own; prints whether each
@@ -89,7 +94,8 @@ class Put(dict):
 put = Put()
 for axis, b, f, n in (("space", 2, 16, 1024), ("space", 1, 2, 2048),
                       ("space", 2, 2, 256), ("time", 2, 16, 1024),
-                      ("time", 1, 16, 64)):
+                      ("time", 1, 16, 64), ("space", 1, 8, 1024),
+                      ("space", 1, 16, 1024), ("time", 1, 8, 1024)):
     side = 32 if n >= 1024 else 16
     tabs = (rotary.axial_rotary_sincos(side, n // side, 64)
             if axis == "space" else rotary.time_rotary_sincos(f, 64))
@@ -125,6 +131,12 @@ sin, cos = (torch.from_numpy(t).cuda()
 x = rnd(2, 32, 1024, 1536)
 put["time [2, 32, 1024]"] = lambda x=x: dv.divided_attention(
     x, sin, cos, "time", 8, 64, 0.125)
+# 8 frames in 64 heads of 8 (the staged kernel's where this copy has it)
+sin8, cos8 = (torch.from_numpy(t).cuda()
+              for t in rotary.time_rotary_sincos(8, 8))
+x = rnd(1, 8, 256, 1536)
+put["time [1, 8, 256] 64 x 8"] = lambda x=x: dv.divided_attention(
+    x, sin8, cos8, "time", 64, 8, 8**-0.5)
 # 24 frames (the staged kernel's too where this copy has it) and the bf16
 # one-pass and fused kernel at head dims 40 to 56 (the narrow tile where
 # this copy has it, float32 the wide tile's)
