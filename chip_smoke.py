@@ -65,7 +65,9 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              the narrow tile, its own entry; 40 and 56 beside it, and the
              fused kernel at 48 with ragged query rows over a whole and a
              short key tile, over resident K and past it), the time
-             backward at 8 frames; packed and one-pass at the 3072 tokens
+             backward at 8 frames (the staged backward, its own entry,
+             bit for bit the classes' backward it replaced there, timed
+             beside it for the log line); packed and one-pass at the 3072 tokens
              of 32-frame clips. The wgmma tile
              built per head width (``csrc/flash_wide{,_f32}.cu``), bf16 and
              float32 against the float32 plain version: one-pass at
@@ -84,7 +86,10 @@ Phases, each of which must pass (any failure exits nonzero, and the final
              small-head tile) at qkv [2, 16, 1024, 1536] in 4 heads of 128,
              16 of 32 and 32 of 16, bf16 and float32, and in float32 at
              head dim 64 over 2048 tokens; the space backward's classes at
-             train-first-stage's qkv in 4 heads of 128 and 16 of 32. Every
+             train-first-stage's qkv in 4 heads of 128 and 16 of 32, and in
+             heads of 16, 8, 4 and 2 (the resident plan, timed there beside
+             the class and the library, held to the plain backward and its
+             route at one frame). Every
              float32 space row is held to the route in the kernels' ex2
              form (``exp2=True``);
    masked padding — the time kernels at clips of 8 and 24 frames (padded
@@ -604,6 +609,37 @@ TIME_CLASS_DESIGN = (
     "the classes' time kernel: one warp per (b, n, head), its 8 frames "
     "padded to a 16-row tile and masked, loaded through registers")
 STAGED_TIME_SOURCE = "moditalker_tpu_torch/csrc/divided_classes.cu"
+# the time backward at 8 frames (divided_attention.STAGED_TIME_BACKWARD_ENTRY),
+# an entry of its own in the kernels line, and the classes' time backward it
+# replaced there, timed beside it for the log line
+STAGED_TIME_BACKWARD_DESIGN = (
+    "the forward's staged design carried over (csrc/time_staged_backward.cuh):"
+    " two items a warp's 16-row tile, each item's keys in their own n8 tile "
+    "of S and dP, the other's scoring -inf; a pair's raw rows copied by "
+    "cp.async into one of two stages while the warp computes on the other, "
+    "rotated there with the class's arithmetic; bf16 dqkv rows through "
+    "shared memory, 16 bytes a lane; resident blocks, warps walk pairs "
+    "grid-stride, dealt warp-major")
+TIME_BACKWARD_CLASS_DESIGN = (
+    "the classes' time backward: one warp per (b, n, head), its 8 frames "
+    "padded to a 16-row tile and masked, loaded through registers")
+STAGED_TIME_BACKWARD_SOURCE = (
+    "moditalker_tpu_torch/csrc/divided_backward_classes.cu")
+# the space backward at heads of 2 to 16 dims: the resident plan (one block
+# per (frame, head)), and the class it replaced at 1024 tokens
+SPACE_BACKWARD_RESIDENT_DESIGN = (
+    "heads of 2 to 16 dims up to 1024 tokens (space_backward_narrow_plan): "
+    "one block of 16 warps per (frame, head), q~, k~, v and g read, rotated "
+    "and rounded once and resident in bf16; the row statistics, then one "
+    "sweep works S, P, dP and dS out once per (query tile, key tile): dk and "
+    "dv in the registers of the warp that owns the keys (two 16-key tiles a "
+    "pass), dq = dS·k~ from the same dSᵀ transposed in registers "
+    "(movmatrix), summed across the warps through shared memory in one "
+    "fixed order; two ex2 per score")
+SPACE_BACKWARD_CLASS_DESIGN = (
+    "the mma.sync class: a dq kernel (row statistics, then dq) and a dk/dv "
+    "kernel over 128-row blocks, each block reading, rotating and rounding "
+    "the walked operand again; three ex2 per score")
 # the fused kernel's float32 row past resident K: (B, Nq, Nk) at head dim
 # 64, query rows over the 256-channel UNet's 2048 keys
 FUSED_PREROUNDED = (16, 1280, 2048)
@@ -954,6 +990,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
     from moditalker_tpu_torch.ops import attention, rotary
     from moditalker_tpu_torch.ops.kernels import (BF16_LIMITS, QUANTILE,
                                                   QUANTILE_LIMITS,
+                                                  LAUNCHES_BY_ENTRY,
                                                   bf16_rounded_share,
                                                   check_bf16,
                                                   FLOAT32_ROUTE_LIMITS,
@@ -1389,7 +1426,7 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                      **cluster))
 
     def backward_row(axis, g, dtype, f=f, source="divided_backward",
-                     heads=heads, dh=dh):
+                     heads=heads, dh=dh, replaced=None, check_f=None):
         """The backward kernel at train-first-stage's qkv [1, 16, 1024,
         1536] (``f``: its clips of another length; ``heads`` of ``dh``: the
         AE's 512 channels split another way, the classes' backward):
@@ -1400,46 +1437,118 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         (``RecomputeThroughPlain``: the plain forward again, then its vjp)
         and the library's attention backward alone (``torch.autograd.grad``
         through ``scaled_dot_product_attention`` on the rotated, head-split
-        float32 q, k, v)."""
+        float32 q, k, v). ``replaced``: the design the kernel replaced at
+        this shape, ``(qkv, out, cot, sin, cos, heads, dh, scale) -> (call,
+        design, exact)``, timed in this call for the log line alone
+        (``replaced_ms``); where ``exact`` its dqkv must equal the kernel's
+        bit for bit. ``check_f``: the errors (and the plain backward's time,
+        ``plain_shape``) at clips of ``check_f`` frames, where the plain
+        backward's score-sized tensors fit the card (at 16 frames in heads
+        of 2 one is 17 GB); the other times at ``f``. At heads of up to
+        ``SPACE_BACKWARD_NARROW_MAX`` dims both clips must take one plan
+        (``space_backward_narrow_plan``), and the check must launch that
+        plan's entry point, so the errors are the timed kernel's."""
         hd, scale = heads * dh, dh**-0.5
-        sin, cos = (tables(rotary.axial_rotary_sincos(32, n // 32, dh))
-                    if axis == "space" else
-                    tables(rotary.time_rotary_sincos(f, dh)))
-        qkv = torch.randn((1, f, n, 3 * hd), generator=g,
-                          device=dev).to(dtype)
-        cot = torch.randn((1, f, n, hd), generator=g, device=dev).to(dtype)
-        out = dv.divided_attention(qkv, sin, cos, axis, heads, dh, scale)
-        flat = (f, n, -1)
-        if axis == "space":
-            kern = lambda: dv.space_attention_backward_cuda(
-                qkv.reshape(flat), out.reshape(flat), cot.reshape(flat), sin,
-                cos, heads, dh, scale).reshape(qkv.shape)
+        if axis == "space" and dh < 4:
+            # the axial table has no entry below head dim 4: angles drawn per
+            # rotated pair and repeated over it, as the axial table repeats
+            ang = (torch.rand(n, dh // 2, generator=g, device=dev) * 6 - 3
+                   ).repeat_interleave(2, dim=-1)
+            sin, cos = ang.sin(), ang.cos()
+        elif axis == "space":
+            sin, cos = tables(rotary.axial_rotary_sincos(32, n // 32, dh))
         else:
-            kern = lambda: dv.time_attention_backward_cuda(
-                qkv, cot, sin, cos, heads, dh, scale)
+            sin, cos = tables(rotary.time_rotary_sincos(f, dh))
+        name = f"divided_{axis}_attention_backward"
+
+        def inputs(f_):
+            qkv = torch.randn((1, f_, n, 3 * hd), generator=g,
+                              device=dev).to(dtype)
+            cot = torch.randn((1, f_, n, hd), generator=g,
+                              device=dev).to(dtype)
+            out = dv.divided_attention(qkv, sin, cos, axis, heads, dh, scale)
+            flat = (f_, n, -1)
+            if axis == "space":
+                kern = lambda: dv.space_attention_backward_cuda(
+                    qkv.reshape(flat), out.reshape(flat), cot.reshape(flat),
+                    sin, cos, heads, dh, scale).reshape(qkv.shape)
+            else:
+                kern = lambda: dv.time_attention_backward_cuda(
+                    qkv, cot, sin, cos, heads, dh, scale)
+            return qkv, out, cot, kern
+
+        def check(qkv, out, cot, kern):
+            args = (qkv, out, cot, sin, cos, axis, heads, dh, scale)
+            got, again = kern(), kern()
+            want = db.divided_attention_backward_reference(*args)
+            if got.dtype != dtype or got.shape != qkv.shape:
+                raise AssertionError(f"{name}: {got.dtype} "
+                                     f"{list(got.shape)}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name}: two calls on the same inputs "
+                                     f"differ")
+            rel_max, rel_rms, rel_q = check_bf16(name, got, want)
+            err = dict(max_abs_err=(got.float() - want).abs().max().item(),
+                       rel_max_err=rel_max, rel_rms_err=rel_rms,
+                       rel_q_err=rel_q,
+                       dtype=str(dtype).replace("torch.", ""),
+                       deterministic=True)
+            del want
+            if dtype == f32:
+                err["route_rel_err"] = check_float32_route(
+                    name, got,
+                    db.divided_attention_backward_float32_route(*args))
+                err["bf16_rounded_share"] = bf16_rounded_share(got)
+                if err["bf16_rounded_share"] >= 0.01:
+                    raise AssertionError(f"{name}: a float32 dqkv rounded to "
+                                         f"bf16")
+            return err, lambda: db.divided_attention_backward_reference(*args)
+
+        if check_f is not None:
+            small = inputs(check_f)
+            entry = None
+            if axis == "space" and dh <= dv.SPACE_BACKWARD_NARROW_MAX:
+                plan = dv.space_backward_narrow_plan(f, n, heads)
+                if dv.space_backward_narrow_plan(check_f, n, heads) != plan:
+                    raise AssertionError(
+                        f"{name}: clips of {check_f} frames take another "
+                        f"plan than the {f} timed ({plan})")
+                entry = (dv.SPACE_BACKWARD_RESIDENT_ENTRY if plan ==
+                         "resident" else "divided_space_attention_backward"
+                         "_classes") + ("_f32" if dtype == f32 else "")
+                before = LAUNCHES_BY_ENTRY[entry]
+            err, small_plain = check(*small)
+            if entry is not None:
+                if LAUNCHES_BY_ENTRY[entry] != before + 2:
+                    raise AssertionError(f"{name}: the check at {check_f} "
+                                         f"frames did not launch {entry}")
+                err["entry_checked"] = entry
+            err["plain_shape"] = list(small[0].shape)
+            plain_ms = device_ms(torch, small_plain)
+            del small, small_plain
+            torch.cuda.empty_cache()
+        qkv, out, cot, kern = inputs(f)
+        flat = (f, n, -1)
         args = (qkv, out, cot, sin, cos, axis, heads, dh, scale)
         plain = lambda: db.divided_attention_backward_reference(*args)
-        name = f"divided_{axis}_attention_backward"
-        got, again, want = kern(), kern(), plain()
-        if got.dtype != dtype or got.shape != qkv.shape:
-            raise AssertionError(f"{name}: {got.dtype} {list(got.shape)}")
-        if not torch.equal(got, again):
-            raise AssertionError(f"{name}: two calls on the same inputs "
-                                 f"differ")
-        rel_max, rel_rms, rel_q = check_bf16(name, got, want)
-        err = dict(max_abs_err=(got.float() - want).abs().max().item(),
-                   rel_max_err=rel_max, rel_rms_err=rel_rms, rel_q_err=rel_q,
-                   dtype=str(dtype).replace("torch.", ""),
-                   deterministic=True)
-        if dtype == f32:
-            err["route_rel_err"] = check_float32_route(
-                name, got, db.divided_attention_backward_float32_route(*args))
-            err["bf16_rounded_share"] = bf16_rounded_share(got)
-            if err["bf16_rounded_share"] >= 0.01:
-                raise AssertionError(f"{name}: a float32 dqkv rounded to "
-                                     f"bf16")
-        del got, again, want
-        if axis == "space":
+        if check_f is None:
+            err, _ = check(qkv, out, cot, kern)
+            plain_ms = time_ms(torch, plain)
+        else:
+            got = kern()
+            if not (torch.equal(got, kern()) and got.isfinite().all()):
+                raise AssertionError(f"{name} {list(qkv.shape)}: two calls "
+                                     f"differ or not finite")
+            del got
+        if replaced is not None:
+            other, design, exact = replaced(qkv, out, cot, sin, cos, heads,
+                                            dh, scale)
+            if exact and not torch.equal(kern(), other()):
+                raise AssertionError(f"{name} {list(qkv.shape)}: differs "
+                                     f"from the design it replaced, {design}")
+            err["replaced"] = dict(design=design, ms=time_ms(torch, other),
+                                   bit_for_bit=exact)
+        if axis == "space" and dh > dv.SPACE_BACKWARD_NARROW_MAX:
             # the pre-pass alone (its entry point, uncounted) against its
             # plain version, bit for bit: every element of the scratch, gs
             # and dsum (the buffers start as NaN)
@@ -1465,11 +1574,13 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                                      f"space_backward_prepass_reference")
             err["prepass_bit_for_bit"] = True
             del bufs, plain_pre
-        x = qkv.detach().float().requires_grad_()
-        recompute = lambda: torch.autograd.grad(
-            dv.divided_attention_reference(x, sin, cos, axis, heads, dh,
-                                           scale, use_flash=False),
-            x, cot.float())
+        if check_f is None:   # (where the plain backward fits the card)
+            x = qkv.detach().float().requires_grad_()
+            err["recompute_ms"] = device_ms(torch, lambda: torch.autograd.grad(
+                dv.divided_attention_reference(x, sin, cos, axis, heads, dh,
+                                               scale, use_flash=False),
+                x, cot.float()))
+            del x
         q, k, v = (t.requires_grad_() for t in
                    head_split_rotated(qkv.float(), sin, cos, axis, heads, dh))
         lib_out = F.scaled_dot_product_attention(q, k, v, scale=scale)
@@ -1481,21 +1592,26 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
         size = qkv.element_size()
         nbytes = (2 * qkv.numel() + cot.numel()
                   + (out.numel() if axis == "space" else 0)) * size
+        # one ex2 per score in each sweep: space recomputes S three times
+        # (row statistics, dq, dk and dv), twice on the narrow heads'
+        # resident plan (row statistics, then dq, dk and dv from one S);
+        # time once
+        sweeps = 1 if axis == "time" else 2 if (
+            dh <= dv.SPACE_BACKWARD_NARROW_MAX
+            and dv.space_backward_narrow_plan(f, n, heads) == "resident"
+        ) else 3
         return dict(
             name=name, route="cuda",
             source=f"moditalker_tpu_torch/csrc/{source}.cu",
             replaces="moditalker_tpu/ops/pallas/divided_attention.py:317",
             shape=list(qkv.shape), heads=[heads, dh], **err,
-            ms=time_ms(torch, kern), plain_ms=time_ms(torch, plain),
-            recompute_ms=device_ms(torch, recompute),
+            ms=time_ms(torch, kern), plain_ms=plain_ms,
             library_ms=device_ms(torch, library),
             # the space kernels read the pair table, half of sin and cos
             nbytes=nbytes + (1 if axis == "space" else 2) * sin.numel() * 4,
             # dV, dP, S, dQ, dK: five products of 2·seq²·dh
             flops=10.0 * nseq * heads * seq * seq * dh,
-            # one ex2 per score in each sweep: space recomputes S three
-            # times (row statistics, dq, dk and dv), time once
-            scores=(3 if axis == "space" else 1) * nseq * heads * seq * seq)
+            scores=sweeps * nseq * heads * seq * seq)
 
     # the backward kernels: float32 (the trainers') first, the main path's
     # rows of the kernels line; then bf16 at the same shape
@@ -1543,8 +1659,31 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                 raise AssertionError(f"{entry}: CUDA error {status}")
             return out
         return run, TIME_CLASS_DESIGN
+    staged_backward = dict(entry=dv.STAGED_TIME_BACKWARD_ENTRY,
+                           design=STAGED_TIME_BACKWARD_DESIGN,
+                           source=STAGED_TIME_BACKWARD_SOURCE)
+
+    def time_backward_class(qkv, out, cot, sin, cos, heads_, dh_, scale_):
+        """The classes' time backward (which still takes 8 frames) through
+        its entry point, on the wrapper's operands: what the staged
+        backward replaced there, bit for bit."""
+        b_, f_, n_, _ = qkv.shape
+        lib, suffix = dv._library(qkv.dtype == f32, True, backward=True)
+        entry = "divided_time_attention_backward" + suffix
+        dqkv = torch.empty_like(qkv)
+
+        def run():
+            status = getattr(lib, entry)(
+                qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(),
+                cot.data_ptr(), dqkv.data_ptr(), b_, f_, n_, heads_, dh_,
+                scale_, torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise AssertionError(f"{entry}: CUDA error {status}")
+            return dqkv
+        return run, TIME_BACKWARD_CLASS_DESIGN, True
     narrow = dict(entry=fa.NARROW_ENTRY, design=NARROW_DESIGN,
                   source=NARROW_SOURCE)
+    assert dv.time_backward_staged(VARIANT_TRAIN_FRAMES)
     for dtype in (torch.bfloat16, f32):
         assert dv.time_staged(VARIANT_CLIP_FRAMES)
         rows += [
@@ -1563,8 +1702,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
             dict(onepass_row(batch * heads, 2048, 48, g=gen_cl, dtype=dtype,
                              plain32=True),
                  **(narrow if dtype == torch.bfloat16 else {})),
-            backward_row("time", gen_cl, dtype, f=VARIANT_TRAIN_FRAMES,
-                         source="divided_backward_classes")]
+            dict(backward_row("time", gen_cl, dtype, f=VARIANT_TRAIN_FRAMES,
+                              replaced=time_backward_class),
+                 **staged_backward)]
     # the narrow tile's other widths, and its fused masked shapes at 48:
     # ragged query chunks over one whole 128-key tile and one short of it
     # (zero-filled and masked), query rows over resident K and past it;
@@ -1640,6 +1780,46 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                                heads=hd // dh_, dh=dh_),
                   design=SPACE_BACKWARD_DESIGN)
              for dtype in (f32, torch.bfloat16) for dh_ in (128, 32)]
+    # the space backward at heads of 16, 8, 4 and 2 dims, float32 and bf16:
+    # the resident plan, which space_backward_narrow_plan names at
+    # train-first-stage's qkv [1, 16, 1024, 1536], timed there beside the
+    # class it replaced (not bit for bit: dq sums in another order) and the
+    # library; held to the plain backward and the route at the fewest
+    # frames at which the plan is still the resident one (4 at heads of 16,
+    # 2 at 8, 1 at 4 and 2)
+    gen_nb = torch.Generator(device=dev).manual_seed(seed + 15)
+
+    def space_backward_class(qkv, out, cot, sin, cos, heads_, dh_, scale_):
+        """The narrow space backward's class through its entry point, on
+        the wrapper's operands."""
+        bf_, n_ = qkv.shape[1], qkv.shape[2]
+        lib, suffix = dv._library(qkv.dtype == f32, True, backward=True)
+        entry = "divided_space_attention_backward" + suffix
+        pointers = (qkv, dv.rotary_pair_table(sin, cos), out, cot,
+                    torch.empty_like(qkv),
+                    torch.empty(bf_, heads_, n_, 2, device=dev))
+
+        def run():
+            status = getattr(lib, entry)(
+                *(t.data_ptr() for t in pointers), bf_, n_, heads_, dh_,
+                scale_, torch.cuda.current_stream().cuda_stream)
+            if status != 0:
+                raise AssertionError(f"{entry}: CUDA error {status}")
+            return pointers[4]
+        return run, SPACE_BACKWARD_CLASS_DESIGN, False
+    check_f = {}
+    for dh_ in (16, 8, 4, 2):
+        assert dv.space_backward_narrow_plan(f, n, hd // dh_) == "resident"
+        check_f[dh_] = next(c for c in range(1, f + 1) if
+                            dv.space_backward_narrow_plan(c, n, hd // dh_)
+                            == "resident")
+    rows += [dict(backward_row("space", gen_nb, dtype,
+                               source="divided_backward_classes",
+                               heads=hd // dh_, dh=dh_,
+                               replaced=space_backward_class,
+                               check_f=check_f[dh_]),
+                  design=SPACE_BACKWARD_RESIDENT_DESIGN)
+             for dtype in (f32, torch.bfloat16) for dh_ in (16, 8, 4, 2)]
 
     # the softmax floor: one ex2 per score at the clock the SMs hold under
     # load (read while the space kernel keeps the card busy)
@@ -1679,6 +1859,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                if "heads" in row else "")
             + (" (against the float32 plain version)"
                if row.get("oracle") == "float32 plain" else "")
+            + (f" (errors and plain at {row['plain_shape']}"
+               + (f", {row['entry_checked']}" if "entry_checked" in row
+                  else "") + ")" if "plain_shape" in row else "")
             + f": max abs err "
             f"{row['max_abs_err']:.3e}, relative max {row['rel_max_err']:.3e}"
             f", rms {row['rel_rms_err']:.3e} and {QUANTILE} quantile "
@@ -1701,8 +1884,9 @@ def kernel_phase(torch, batch: int, seed: int) -> list[dict]:
                f"{row['recompute_ms']:.4f} ms" if "recompute_ms" in row
                else "")
             + (f", before the redesign {before:.4f} ms" if before else "")
-            + ("; the design it replaced ({design}) in this call: bit for "
-               "bit, {ms:.4f} ms".format(**row.pop("replaced"))
+            + ("; the design it replaced ({design}) in this call: {same}"
+               "{ms:.4f} ms".format(same="bit for bit, " if row["replaced"].get(
+                   "bit_for_bit", True) else "", **row.pop("replaced"))
                if "replaced" in row else ""))
     return rows
 
@@ -4524,7 +4708,8 @@ def first_stage_frames_phase(torch, seed: int, config: str) -> dict:
     micro-step, all on float32 operands, the time kernels at [1, 8, 1024,
     1536], and no other kernel; by entry point: every space launch the
     float32 space kernel's cluster plan (``SPACE_F32_CLUSTER_ENTRY``), every
-    time launch the staged kernel's float32 entry point; then
+    time launch the staged kernel's float32 entry point, every time backward
+    the staged backward's (``STAGED_TIME_BACKWARD_ENTRY``); then
     a G and a D cycle at small depth on 8-frame clips against the CPU
     within FIRST_STAGE_LIMITS (``first_stage_check``)."""
     import dataclasses
@@ -4574,14 +4759,17 @@ def first_stage_frames_phase(torch, seed: int, config: str) -> dict:
         raise AssertionError(f"{what}: launches {by_shape} (want {want}), "
                              f"losses {losses.seen}")
     # every space launch on the float32 space kernel's cluster plan, every
-    # time launch on the staged kernel (its float32 entry point)
+    # time launch on the staged kernel and every time backward on the
+    # staged backward (their float32 entry points)
     if (by_entry.get(dv.SPACE_F32_CLUSTER_ENTRY, 0)
             != want["divided_space_attention"]
             or by_entry.get(dv.STAGED_TIME_ENTRY + "_f32", 0)
-            != want["divided_time_attention"]):
+            != want["divided_time_attention"]
+            or by_entry.get(dv.STAGED_TIME_BACKWARD_ENTRY + "_f32", 0)
+            != want["divided_time_attention_backward"]):
         raise AssertionError(f"{what}: launches by entry point {by_entry} "
                              f"(want the cluster plan's and the staged "
-                             f"kernel's {want})")
+                             f"kernels' {want})")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{what} (full width, B = {b}, accumulation {k}, float32): one G and "
         f"one D cycle in {dt:.3f} s = {2 * k / dt:.4f} iterations/s; peak "
@@ -4915,13 +5103,16 @@ def run(torch, args) -> int:
     # with an "entry" (the float32 pre-pass and bf16 K ring at head dim 64
     # past resident K, fused_attention_f32_prerounded; the bf16 narrow tile
     # at head dims 40 to 56, fused_attention_narrow; the time kernel staged
-    # at 24 and 32 frames, divided_time_attention_staged) is an entry of its
+    # at 24 and 32 frames, divided_time_attention_staged; the time backward
+    # staged at 8 frames, divided_time_attention_backward_staged) is an
+    # entry of its
     # own, named by that entry point, its launches those of its entry point
     # (and of its float32 twin, ``<entry>_f32``, where the float32 library
     # has one) on the paths that count by entry point (the train-diffusion
     # phases, the variants' 32-frame sampling and reference windows, their
     # 8-frame train-first-stage: the float32 space kernel's cluster plan,
-    # SPACE_F32_CLUSTER_ENTRY, and the staged time kernel at 8 frames)
+    # SPACE_F32_CLUSTER_ENTRY, and the staged time kernel and backward at 8
+    # frames, STAGED_TIME_BACKWARD_ENTRY)
     by_entry_paths = {
         "train-diffusion": train_diff["launches_by_entry"],
         "train-diffusion modular": train_diff_modular["launches_by_entry"],

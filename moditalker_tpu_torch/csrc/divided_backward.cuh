@@ -1121,6 +1121,489 @@ int launch_space_backward_narrow(const void* qkv, const void* rot,
   return cudaErrorInvalidValue;
 }
 
+// ------------------------------------------------------------ space, resident
+// Heads of 2 to 16 dims at N <= 1024 where the plan table names it
+// (divided_attention.SPACE_BACKWARD_NARROW_PLANS): one block of 16 warps
+// owns a whole (frame, head). The class above works S out three times per
+// score (row statistics, dq, dk and dv: three ex2), and each of its N / 128
+// blocks of a (frame, head) reads, rotates and rounds the whole walked
+// operand again. Here:
+//
+//  * q~, k~, v and g are read once, rotated, scaled and rounded as the
+//    class rounds them (the SPLIT scores at heads of 2 and 4), and kept
+//    resident in bf16, [N][16] each (128 KB at N = 1024), rows of 32 bytes
+//    whose two chunks swap on rows 4-7 of every 8, so ldmatrix's eight rows
+//    fall on 32 distinct banks; D = rowsum(g ∘ out) beside them.
+//  * sweep 1: the row statistics, each warp over its query tiles and every
+//    key: the class's dq kernel's sweep, so each row's log2-sum-exp is the
+//    class's bit for bit.
+//  * sweep 2 works S, P, dP and dS out once per (query tile, key tile) and
+//    feeds dq and dk, dv from them: two ex2 per score where the class takes
+//    three. A warp owns two 16-key tiles a pass (512 keys a pass, two passes
+//    at N = 1024), k~ and v as register A fragments, dk and dv in its
+//    registers over every query tile in order (the class's order: dk and dv
+//    are the class's where its P and dS are); the same dSᵀ fragment,
+//    transposed in registers (movmatrix), is the A operand of dq = dS·k~.
+//    Each query tile's dq is summed across the warps through shared memory
+//    in one fixed order (warps 0-3, 4-7, 8-11 and 12-15 each in turn, then
+//    the four sums pairwise), every warp summing one row while it computes
+//    the next tile, one barrier a query tile (two buffers of partials, the
+//    second over the key rows the first pass already holds in registers);
+//    past one pass the sums wait in shared memory for the next. No float
+//    atomics: two calls agree bit for bit.
+//
+// Bound by the SM's issue and its shared-memory and special-function
+// pipes, not by bytes: at qkv [1, 16, 1024, 1536] in heads of 16 a block
+// took about 59 k cycles to load its operands, 77 k for sweep 1 (its `ex2`
+// floor 65.5 k) and 200 k for sweep 2, whose loop issues about 240
+// instructions a warp a query tile (H100, tools/ab_space_backward.py
+// --clock). A block of 8 warps owning 4 key tiles each read about the
+// same.
+constexpr int kSbrWarps = 16;
+constexpr int kSbrKT = 2;                          // key tiles a warp holds
+constexpr int kSbrPassTiles = kSbrWarps * kSbrKT;  // 32 tiles: 512 keys
+constexpr int kSbrMaxN = 1024;
+
+// The block's shared memory at N tokens: the four operands [N][16] bf16,
+// (lse, D) [N] float2, the warps' dq partials [16][16][16] fp32 (two
+// buffers; past one pass the second over k~'s first rows) and, past one
+// pass, the dq sums [N][16] fp32.
+__host__ __device__ constexpr int sbr_passes(int N) {
+  return (N / 16 + kSbrPassTiles - 1) / kSbrPassTiles;
+}
+__host__ __device__ constexpr int sbr_smem(int N) {
+  return 4 * N * 32 + N * 8 + kSbrWarps * 1024 +
+         (sbr_passes(N) > 1 ? N * 64 : kSbrWarps * 1024);
+}
+static_assert(sbr_smem(kSbrMaxN) <= 232448, "the block's shared memory");
+
+// Row r's 16-byte chunk c of a [rows][16] bf16 tile: the chunks of rows 4-7
+// of every 8 swapped.
+__device__ __forceinline__ uint32_t sbr_at(uint32_t tile, int r, int c) {
+  return tile + r * 32 + ((c ^ ((r >> 2) & 1)) << 4);
+}
+
+// A fragment (16 x 16) of rows m0.. of a tile stored [m][k].
+__device__ __forceinline__ void sbr_frag_a(uint32_t (&a)[4], uint32_t tile,
+                                           int m0, int lane) {
+  const int i = lane >> 3, r = lane & 7;
+  ldmatrix_x4(a, sbr_at(tile, m0 + r + (i & 1) * 8, i >> 1));
+}
+
+// B fragments of rows k0.. of a tile stored [k][n]: its 16 columns as two
+// n8 tiles.
+__device__ __forceinline__ void sbr_frag_b_t(uint32_t (&b)[4], uint32_t tile,
+                                             int k0, int lane) {
+  const int i = lane >> 3, r = lane & 7;
+  ldmatrix_x4_trans(b, sbr_at(tile, k0 + r + (i & 1) * 8, i >> 1));
+}
+
+// The (cos, sin) of the four rotated pairs of chunk c of row r from the
+// pair table: TileLoad::store's reads (a head of 2 or 4 dims its pairs one
+// by one, zeros past dh).
+__device__ __forceinline__ void sbr_pairs(const float* tab, int r, int c,
+                                          int dh, float (&cs)[4],
+                                          float (&sn)[4]) {
+  const float* tr = tab + r * dh + c * 8;
+  if (c * 8 + 8 <= dh) {
+    const float4 t0 = reinterpret_cast<const float4*>(tr)[0];
+    const float4 t1 = reinterpret_cast<const float4*>(tr)[1];
+    cs[0] = t0.x; cs[1] = t0.z; cs[2] = t1.x; cs[3] = t1.z;
+    sn[0] = t0.y; sn[1] = t0.w; sn[2] = t1.y; sn[3] = t1.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const bool in_head = c * 8 + 2 * q < dh;
+      cs[q] = in_head ? tr[2 * q] : 0.f;
+      sn[q] = in_head ? tr[2 * q + 1] : 0.f;
+    }
+  }
+}
+
+// Chunk c of row r, read as `in`, into a resident tile: TileLoad::store's
+// arithmetic (rotated by its pairs' (cos, sin) when ROT, times mul, rounded
+// once; SPLIT hi | lo columns at heads of 2 and 4, by chunk 0's thread).
+template <bool ROT, typename T>
+__device__ __forceinline__ void sbr_store(uint32_t tile, const Chunk8<T>& in,
+                                          const float (&cs)[4],
+                                          const float (&sn)[4], int r, int c,
+                                          int dh, float mul, int split) {
+  const bool two = split && dh <= 4;
+  if (two && c) return;
+  float x[8];
+  in.to_float(x);
+  if (ROT && c * 8 < dh) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      rotate_pair_rn(x[2 * q], x[2 * q + 1], cs[q], sn[q], cs[q], sn[q]);
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) x[e] *= mul;
+  if (two) {   // columns 0-7 in y0, 8-15 in y1
+    float y0[8] = {}, y1[8] = {};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float hi = __bfloat162float(__float2bfloat16_rn(x[e]));
+      const float lo = x[e] - hi;
+      const float second = split == kSplitQ ? lo : hi;
+      const float third = split == kSplitQ ? hi : lo;
+      if (dh == 4) {
+        y0[e] = hi;
+        y0[4 + e] = second;
+        y1[e] = third;
+      } else if (e < 2) {
+        y0[e] = hi;
+        y0[2 + e] = second;
+        y0[4 + e] = third;
+      }
+    }
+    st_shared16(sbr_at(tile, r, 0), pack8_bf16(y0));
+    st_shared16(sbr_at(tile, r, 1), pack8_bf16(y1));
+    return;
+  }
+  st_shared16(sbr_at(tile, r, c), pack8_bf16(x));
+}
+
+// grid (H, BF), block 32·kSbrWarps, sbr_smem(N) bytes of dynamic shared
+// memory; 256 <= N <= kSbrMaxN, N % 128 == 0, heads of 2 to 16 dims (the
+// class 16). a.stats is not read.
+template <typename T>
+__global__ void __launch_bounds__(32 * kSbrWarps, 1)
+space_resident_bwd_kernel(const SpaceClassArgs<T> a) {
+  constexpr int KT = kSbrKT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int N = a.N, NT = N / 16, dh = a.dh, HD = a.H * dh;
+  const int passes = sbr_passes(N);
+  const uint32_t base = smem_u32(smem_raw);
+  const uint32_t q_t = base, k_t = base + N * 32, v_t = base + 2 * N * 32,
+                 g_t = base + 3 * N * 32;
+  float2* const st_s = reinterpret_cast<float2*>(smem_raw + 4 * N * 32);
+  float* const part0 = reinterpret_cast<float*>(smem_raw + 4 * N * 32 + N * 8);
+  float* const part1 =
+      passes > 1 ? reinterpret_cast<float*>(smem_raw + N * 32)
+                 : part0 + kSbrWarps * 256;
+  float2* const acc_s = reinterpret_cast<float2*>(part0 + kSbrWarps * 256);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, bf = blockIdx.y;
+  const long ld = 3L * HD;
+  const T* qb = a.qkv + (long)bf * N * ld + h * dh;
+  // a lane's ldmatrix row in a group of 16 rows (512 bytes; the swizzle
+  // repeats every 8 rows), hoisted out of the sweeps: off_b for B
+  // fragments of a tile stored [n][k] (two n8 tiles of rows), off_at those
+  // of sbr_frag_a and sbr_frag_b_t
+  const uint32_t off_b = sbr_at(0, (lane & 7) + (lane >> 4) * 8,
+                                (lane >> 3) & 1);
+  const uint32_t off_at = sbr_at(0, (lane & 7) + ((lane >> 3) & 1) * 8,
+                                 lane >> 4);
+  const long io = (long)bf * N * HD + h * dh;   // out, g: row stride HD
+
+  // q~ (rotated, scaled), k~ (rotated), v and g, resident; D = rowsum(g ∘
+  // out) in fp32 beside them, two lanes a row (the class's order). Two rows
+  // of chunks a thread at a time, all their loads (the pair table's too) in
+  // flight together before the first shared store
+  for (int i0 = threadIdx.x; i0 < 2 * N; i0 += 2 * 32 * kSbrWarps) {
+    Chunk8<T> x[2][5];
+    float cs[2][4], sn[2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = i0 + u * 32 * kSbrWarps, r = i >> 1, c = i & 1;
+      const bool in = i < 2 * N;
+      const int part = in ? dh - c * 8 : 0;
+#pragma unroll
+      for (int m = 0; m < 3; ++m)
+        load_chunk(x[u][m], qb + (long)r * ld + m * HD + c * 8, part);
+      load_chunk(x[u][3], a.g + io + (long)r * HD + c * 8, part);
+      load_chunk(x[u][4], a.out + io + (long)r * HD + c * 8, part);
+      sbr_pairs(a.rot, in ? r : 0, c, part > 0 ? dh : 0, cs[u], sn[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int i = i0 + u * 32 * kSbrWarps, r = i >> 1, c = i & 1;
+      if (i >= 2 * N) break;   // whole warps: 2N is a multiple of 256
+      sbr_store<true>(q_t, x[u][0], cs[u], sn[u], r, c, dh, a.scale,
+                      kSplitQ);
+      sbr_store<true>(k_t, x[u][1], cs[u], sn[u], r, c, dh, 1.f, kSplitK);
+      sbr_store<false>(v_t, x[u][2], cs[u], sn[u], r, c, dh, 1.f, 0);
+      sbr_store<false>(g_t, x[u][3], cs[u], sn[u], r, c, dh, 1.f, 0);
+      float gx[8], ox[8];
+      x[u][3].to_float(gx);
+      x[u][4].to_float(ox);
+      float d = 0.f;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) d += gx[e] * ox[e];
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      if (!c) st_s[r].y = d;
+    }
+  }
+  __syncthreads();
+
+  // sweep 1: each row's log2-sum-exp of log2e·S, the warps' query tiles in
+  // turn over every key (the class's dq kernel's sweep)
+  for (int qt = warp; qt < NT; qt += kSbrWarps) {
+    uint32_t qa[4];
+    sbr_frag_a(qa, q_t, qt * 16, lane);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    for (int k0 = 0; k0 < N; k0 += 128) {
+      float s[16][4] = {};
+#pragma unroll
+      for (int np = 0; np < 8; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4(b, k_t + (k0 + np * 16) * 32 + off_b);
+        mma_16816(s[2 * np], qa, b[0], b[1]);
+        mma_16816(s[2 * np + 1], qa, b[2], b[3]);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m[r];
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt)
+          mx = fmaxf(mx, fmaxf(s[nt][2 * r], s[nt][2 * r + 1]) * kLog2e);
+        float sum = l[r] * exp2_approx(m[r] - mx);
+#pragma unroll
+        for (int nt = 0; nt < 16; ++nt)
+          sum += exp2_approx(s[nt][2 * r] * kLog2e - mx) +
+                 exp2_approx(s[nt][2 * r + 1] * kLog2e - mx);
+        m[r] = mx;
+        l[r] = sum;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // merge the quad's partial pairs
+      float mx = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      float sum = l[r] * exp2_approx(m[r] - mx);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      if (t == 0) st_s[qt * 16 + g + 8 * r].x = mx + __log2f(sum);
+    }
+  }
+  __syncthreads();
+
+  // sweep 2: per query tile, S, dP, P and dS once for each key tile a warp
+  // owns; dv += Pᵀ·g and dk += dSᵀ·q~ in its registers, dq += dS·k~ into
+  // its partial, the partials summed across the warps
+  T* const dqb = a.dqkv + (long)bf * N * ld + h * dh;
+  // a warp's partial of a query tile in its slot of a buffer ([16][16]
+  // floats a warp): row r at position r ^ b (b = bit 2 of the warp: the
+  // sums' two halves of a warp read two rows of one 128-byte line), the
+  // column halves of positions 2-3 of every 4 swapped (the stores on
+  // distinct banks). This lane's rows g and g + 8 start at wbase and
+  // wbase + 128, its columns nt·8 + 2t at (nt·8) ^ wsw past them
+  const int wpos = g ^ ((warp >> 2) & 1);
+  const int wbase = warp * 256 + wpos * 16 + 2 * t;
+  const int wsw = ((wpos >> 1) & 1) << 3;
+  for (int pass = 0; pass < passes; ++pass) {
+    uint32_t ka[KT][4], va[KT][4], kb[KT][4];
+    // the key tiles this warp owns in the pass: the first `mine` of KT
+    const int first = pass * kSbrPassTiles + warp;
+    int mine = 0;
+#pragma unroll
+    for (int j = 0; j < KT; ++j)
+      if (first + j * kSbrWarps < NT) mine = j + 1;
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (j < mine) {
+        const int kt = first + j * kSbrWarps;
+        sbr_frag_a(ka[j], k_t, kt * 16, lane);
+        sbr_frag_a(va[j], v_t, kt * 16, lane);
+        sbr_frag_b_t(kb[j], k_t, kt * 16, lane);
+      }
+    }
+    // the first pass's keys in registers: past one pass their rows of k~
+    // take the second buffer of partials
+    if (pass == 0) __syncthreads();
+    float dk[KT][2][4] = {}, dv[KT][2][4] = {};
+    const float2* const st_t = st_s + 2 * t;
+    // one query tile over the warp's KA key tiles, with no branch between
+    // them (a count the whole warp shares)
+    auto tile = [&](auto ka_count, int qt, float (&dq)[2][4]) {
+      constexpr int KA = decltype(ka_count)::value;
+      uint32_t qfb[4], gfb[4], qft[4], gft[4];
+      const uint32_t row = qt * 16 * 32;
+      ldmatrix_x4(qfb, q_t + row + off_b);          // q~ᵀ for Sᵀ = k~·q~ᵀ
+      ldmatrix_x4(gfb, g_t + row + off_b);          // gᵀ for dPᵀ = v·gᵀ
+      ldmatrix_x4_trans(qft, q_t + row + off_at);   // q~ for dk
+      ldmatrix_x4_trans(gft, g_t + row + off_at);   // g for dv
+      float2 st[2][2];   // (lse, D) of the queries nt·8 + 2t + e
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          st[nt][e] = st_t[qt * 16 + nt * 8 + e];
+#pragma unroll
+      for (int j = 0; j < KA; ++j) {
+        float s[2][4] = {}, dp[2][4] = {};   // Sᵀ, dPᵀ: keys x 16 queries
+        mma_16816(s[0], ka[j], qfb[0], qfb[1]);
+        mma_16816(s[1], ka[j], qfb[2], qfb[3]);
+        mma_16816(dp[0], va[j], gfb[0], gfb[1]);
+        mma_16816(dp[1], va[j], gfb[2], gfb[3]);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 sq = st[nt][e & 1];
+            const float p = exp2_approx(s[nt][e] * kLog2e - sq.x);
+            s[nt][e] = p;
+            dp[nt][e] = p * (dp[nt][e] - sq.y);   // dSᵀ
+          }
+        uint32_t pa[4], da[4];
+        pack_a(pa, s);
+        pack_a(da, dp);
+        mma_16816(dv[j][0], pa, gft[0], gft[1]);
+        mma_16816(dv[j][1], pa, gft[2], gft[3]);
+        mma_16816(dk[j][0], da, qft[0], qft[1]);
+        mma_16816(dk[j][1], da, qft[2], qft[3]);
+        // dS (queries x keys) as the A operand: dSᵀ's 8 x 8 quarters
+        // transposed, the off-diagonal two swapped
+        const uint32_t dsa[4] = {movmatrix_trans(da[0]),
+                                 movmatrix_trans(da[2]),
+                                 movmatrix_trans(da[1]),
+                                 movmatrix_trans(da[3])};
+        mma_16816(dq[0], dsa, kb[j][0], kb[j][1]);
+        mma_16816(dq[1], dsa, kb[j][2], kb[j][3]);
+      }
+    };
+    // warp w sums row w of each tile: its column pair i over the warps in
+    // four chains of four, lane 8c + i; the (cos, sin) of the pair a lane
+    // stores, loaded a tile ahead
+    static_assert(kSbrWarps == 16, "a row of each tile a warp");
+    const int c = lane >> 3, col = (lane & 7) * 2, srow = warp;
+    const bool stores = pass + 1 == passes && c == 0 && col < dh;
+    // this lane's row of tile 0: its pair's table entry, its dq, its sum
+    const float* const rot_row = a.rot + srow * dh + col;
+    T* const dq_row = dqb + srow * ld + col;
+    float2* const acc_row = acc_s + srow * 8 + (col >> 1);
+    auto pair_cs = [&](int qt) {
+      return stores ? *reinterpret_cast<const float2*>(rot_row +
+                                                       qt * 16 * dh)
+                    : make_float2(0.f, 0.f);
+    };
+    auto write_part = [&](int qt, const float (&dq)[2][4]) {
+      float* const buf = (qt & 1 ? part1 : part0) + wbase;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          *reinterpret_cast<float2*>(buf + r * 128 + ((nt * 8) ^ wsw)) =
+              make_float2(dq[nt][2 * r], dq[nt][2 * r + 1]);
+    };
+    // this lane's four partials of tile qt's row `srow`, those of warps
+    // 4c .. 4c + 3 (slots 256 floats apart, at the row's position in them)
+    const int rpos = srow ^ (c & 1);
+    const int rbase =
+        4 * c * 256 + rpos * 16 + (col ^ (((rpos >> 1) & 1) << 3));
+    auto load_part = [&](int qt, float2 (&x)[4]) {
+      const float* const buf = (qt & 1 ? part1 : part0) + rbase;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        x[i] = *reinterpret_cast<const float2*>(buf + i * 256);
+    };
+    auto sum_tile = [&](int qt, const float2 (&x)[4], float2 cs) {
+      // warps 4c .. 4c + 3 in order, then the chains as (0 + 1) + (2 + 3)
+      float2 sum = x[0];
+#pragma unroll
+      for (int i = 1; i < 4; ++i) {
+        sum.x += x[i].x;
+        sum.y += x[i].y;
+      }
+#pragma unroll
+      for (int off = 8; off <= 16; off <<= 1) {
+        sum.x += __shfl_down_sync(0xffffffffu, sum.x, off);
+        sum.y += __shfl_down_sync(0xffffffffu, sum.y, off);
+      }
+      if (c == 0) {
+        if (passes > 1) {   // the earlier passes' sums first
+          float2* const acc = acc_row + qt * 16 * 8;
+          if (pass > 0) sum = make_float2(acc->x + sum.x, acc->y + sum.y);
+          if (pass + 1 < passes) *acc = sum;
+        }
+        if (stores) {
+          float y0 = sum.x * a.scale, y1 = sum.y * a.scale;
+          rotate_pair_t_rn(y0, y1, cs.x, cs.y, cs.x, cs.y);
+          store2(dq_row + qt * 16 * ld, y0, y1);
+        }
+      }
+    };
+    // the query tiles in turn, software-pipelined: tile qt computes while
+    // the partials of tile qt - 1 (written before the last barrier) are
+    // loaded and summed, one barrier a tile (a buffer is written again two
+    // tiles later, after every warp has summed it). One loop per count of
+    // key tiles a warp owns, so that no branch parts a tile's products and
+    // the last tile's sums; every count passes the same barriers
+    auto tiles = [&](auto ka_count) {
+      constexpr int KA = decltype(ka_count)::value;
+      float2 cs = pair_cs(0);
+      {
+        float dq[2][4] = {};
+        if constexpr (KA > 0) tile(ka_count, 0, dq);
+        write_part(0, dq);
+        bar_sync(1, 32 * kSbrWarps);
+      }
+      for (int qt = 1; qt < NT; ++qt) {
+        float2 x[4];
+        load_part(qt - 1, x);
+        const float2 cs_next = pair_cs(qt);
+        float dq[2][4] = {};
+        if constexpr (KA > 0) tile(ka_count, qt, dq);
+        sum_tile(qt - 1, x, cs);
+        cs = cs_next;
+        write_part(qt, dq);
+        bar_sync(1, 32 * kSbrWarps);
+      }
+      float2 x[4];
+      load_part(NT - 1, x);
+      sum_tile(NT - 1, x, cs);
+    };
+    static_assert(KT == 2, "a warp owns two key tiles, one or none a pass");
+    if (mine == 2)
+      tiles(std::integral_constant<int, 2>{});
+    else if (mine == 1)
+      tiles(std::integral_constant<int, 1>{});
+    else
+      tiles(std::integral_constant<int, 0>{});
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (j >= mine) continue;
+      const int kr = (first + j * kSbrWarps) * 16;
+      T* const dst = dqb + kr * ld;
+      store_rows<true, T, 16>(dst + HD, ld, a.rot + kr * dh, dk[j], 1.f,
+                              lane, dh);
+      store_rows<false, T, 16>(dst + 2 * HD, ld, nullptr, dv[j], 1.f, lane,
+                               dh);
+    }
+  }
+}
+
+// dqkv [BF, N, 3·H·dh] of element type T from qkv, out and g: heads of 2
+// to 16 dims (dh dividing 128), 256 <= N <= kSbrMaxN, N % 128 == 0
+// (divided_backward_classes{,_f32}.cu). One launch, no scratch.
+template <typename T>
+int launch_space_backward_resident(const void* qkv, const void* rot,
+                                   const void* out, const void* g, void* dqkv,
+                                   int BF, int N, int H, int dh, float scale,
+                                   cudaStream_t stream) {
+  if (dh < 2 || 128 % dh || N < 256 || N > kSbrMaxN || N % 128)
+    return cudaErrorInvalidValue;
+  switch (dh <= 16 ? 16 : dh) {
+    case 16: {
+      auto kern = space_resident_bwd_kernel<T>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          sbr_smem(kSbrMaxN));
+      if (err != cudaSuccess) return err;
+      const SpaceClassArgs<T> a{
+          static_cast<const T*>(qkv), static_cast<const float*>(rot),
+          static_cast<const T*>(out), static_cast<const T*>(g),
+          static_cast<T*>(dqkv),      nullptr,
+          N, H, scale, dh};
+      kern<<<dim3(H, BF), 32 * kSbrWarps, sbr_smem(N), stream>>>(a);
+      return cudaGetLastError();
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
 // ------------------------------------------------------------ time
 template <int FT, int DH>
 struct TimeBwdShape {

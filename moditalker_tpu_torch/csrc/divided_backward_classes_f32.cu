@@ -3,9 +3,12 @@
 // configurations' (divided_backward_f32.cu holds those: space at head dim
 // 64, time at 16 frames of head dim 64), in a library of their own: space at
 // head dims 32 and 128 (the pre-pass, dq and dk/dv of the wgmma design) and
-// 2 to 16 (the class 16 on mma.sync), time at every frame and head-dim class
-// (the kernels: divided_backward.cuh).
+// 2 to 16 (the class 16 on mma.sync, and one block per (frame, head) up to
+// 1024 tokens where the plan table names it), time at every frame and
+// head-dim class and at 8 frames the staged kernel (the kernels:
+// divided_backward.cuh, time_staged_backward.cuh).
 #include "divided_backward.cuh"
+#include "time_staged_backward.cuh"
 
 extern "C" {
 
@@ -53,6 +56,18 @@ int divided_space_attention_backward_classes_f32(
       static_cast<cudaStream_t>(stream));
 }
 
+// qkv [BF, N, 3·H·dh] float32, rot [N, dh/2, 2] fp32, out and g
+// [BF, N, H·dh] float32 -> dqkv [BF, N, 3·H·dh] float32; dh 2, 4, 8 or 16,
+// 256 <= N <= 1024, N % 128 == 0: one block per (frame, head), q~, k~, v
+// and g resident, S worked out twice per score (one launch, no scratch).
+int divided_space_attention_backward_resident_f32(
+    const void* qkv, const void* rot, const void* out, const void* g,
+    void* dqkv, int BF, int N, int H, int dh, float scale, void* stream) {
+  return mdt::launch_space_backward_resident<float>(
+      qkv, rot, out, g, dqkv, BF, N, H, dh, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
 // qkv [B, F, N, 3·H·dh] float32, sin/cos [F, dh] fp32, g [B, F, N, H·dh]
 // float32 -> dqkv [B, F, N, 3·H·dh] float32; F % 8 == 0, F <= 32, dh
 // dividing 128.
@@ -61,6 +76,19 @@ int divided_time_attention_backward_classes_f32(
     void* dqkv, int B, int F, int N, int H, int dh, float scale,
     void* stream) {
   return mdt::launch_time_backward_classes<float>(
+      qkv, sin_t, cos_t, g, dqkv, B, F, N, H, dh, scale,
+      static_cast<cudaStream_t>(stream));
+}
+
+// qkv [B, 8, N, 3·H·dh] float32, sin/cos [8, dh] fp32, g [B, 8, N, H·dh]
+// float32 -> dqkv [B, 8, N, 3·H·dh] float32; dh dividing 128 from 2 up: the
+// time backward staged by cp.async, two items a 16-row tile
+// (time_staged_backward.cuh).
+int divided_time_attention_backward_staged_f32(
+    const void* qkv, const void* sin_t, const void* cos_t, const void* g,
+    void* dqkv, int B, int F, int N, int H, int dh, float scale,
+    void* stream) {
+  return mdt::launch_time_backward_staged_classes<float>(
       qkv, sin_t, cos_t, g, dqkv, B, F, N, H, dh, scale,
       static_cast<cudaStream_t>(stream));
 }

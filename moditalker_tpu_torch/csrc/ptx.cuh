@@ -155,6 +155,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "memory");
 }
 
+// An 8 x 8 bf16 matrix held as ldmatrix leaves it (register of lane (g, t):
+// elements 2t, 2t + 1 of row g) transposed across the warp, in registers.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n"
+               : "=r"(y)
+               : "r"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------- shared
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));

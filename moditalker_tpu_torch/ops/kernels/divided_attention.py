@@ -79,8 +79,14 @@ head dims 32 to 128 is the forward's pre-rotated design carried over: a
 pre-pass writes q~, k~ and v, and g, in bf16 into scratch the wrapper
 allocates, with D = rowsum(g ∘ out) (``space_backward_prepass_reference``
 is its plain version), then a dq kernel and a dk/dv kernel on ``wgmma``
-stream it (N a multiple of 128 from 256); at 2 to 16 it is the earlier class on
-``mma.sync``, which ran faster there. Time is one warp per (b, n, head). Every shape
+stream it (N a multiple of 128 from 256); at 2 to 16 it runs on
+``mma.sync``, which ran faster there: up to 1024 tokens one block per
+(frame, head) with its operands resident, which works S out twice per score
+(``SPACE_BACKWARD_RESIDENT_ENTRY``), where
+``SPACE_BACKWARD_RESIDENT_MIN_PAIRS`` names it, else the earlier class
+(three times). Time is one warp per (b, n, head); at clips of 8 frames two
+items a warp's tile, staged by ``cp.async``
+(``STAGED_TIME_BACKWARD_ENTRY``: the class's dqkv bit for bit). Every shape
 the forward's gate admits has its backward; nothing falls back to the plain
 version on the card. On a CPU tensor the backward is
 ``divided_backward.divided_attention_backward_reference``, the written-out
@@ -143,10 +149,29 @@ SPACE_BACKWARD_HEAD_DIMS = (64,)
 # table, out, g -> scratch, gs, dsum), then dq and dk/dv (scratch, gs,
 # dsum, the pair table -> dqkv, stats)
 SPACE_BACKWARD_STEPS = (("prepass", 7), ("dq", 6), ("dkdv", 6))
-# head dims up to which the space backward is the earlier mma.sync class (one
-# launch of ``divided_space_attention_backward_classes``; heads of 2 to 16
-# dims, where it ran faster than the wgmma design)
+# head dims up to which the space backward runs on mma.sync (heads of 2 to
+# 16 dims, where it ran faster than the wgmma design): one block per (frame,
+# head) with q~, k~, v and g resident, S worked out twice per score
+# (``SPACE_BACKWARD_RESIDENT_ENTRY``, csrc/divided_backward.cuh, up to 1024
+# tokens), or the earlier class of a dq and a dk/dv kernel over 128-row
+# blocks, S three times (``divided_space_attention_backward_classes``)
 SPACE_BACKWARD_NARROW_MAX = 16
+SPACE_BACKWARD_RESIDENT_ENTRY = "divided_space_attention_backward_resident"
+# where the space backward at those head dims runs its resident plan
+# (``space_backward_narrow_plan``): by length, the least (frame, head) pairs
+# from which it read faster than the class at that count and every larger
+# one, on an H100 in float32 and bf16 at 16 dims, the table
+# tools/ab_space_backward.py --gate prints (N = 256 to 1024, 32 to 2048
+# pairs; PERF.md). Fewer pairs, and a length not listed (past 1024 tokens
+# the resident operands do not fit a block), take the class
+SPACE_BACKWARD_RESIDENT_MIN_PAIRS = {384: 128, 512: 128, 640: 128, 768: 128,
+                                     896: 128, 1024: 128}
+# clips of 8 frames: the time backward staged by cp.async, two items a
+# 16-row tile (csrc/time_staged_backward.cuh), an entry point of its own in
+# the backward's classes' libraries; 16 frames keep the configurations' and
+# the classes' kernel, 24 and 32 the class
+STAGED_TIME_BACKWARD_FRAMES = (8,)
+STAGED_TIME_BACKWARD_ENTRY = "divided_time_attention_backward_staged"
 
 _pair_tables: dict = {}
 
@@ -364,18 +389,27 @@ def _bwd_classes_lib_f32() -> ctypes.CDLL:
 
 
 def _bind_backward(lib: ctypes.CDLL, suffix: str) -> ctypes.CDLL:
+    """Binds the backward's entry points of ``lib``; the classes'
+    libraries also hold the narrow space backward's two plans and the
+    staged time backward at 8 frames."""
     p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    time_args = [p, p, p, p, p, i, i, i, i, i, fl, p]
     if suffix.startswith("_classes"):
         narrow = getattr(lib, "divided_space_attention_backward" + suffix)
         narrow.argtypes = [p] * 6 + [i, i, i, i, fl, p]
         narrow.restype = i
+        f32 = suffix[len("_classes"):]
+        resident = getattr(lib, SPACE_BACKWARD_RESIDENT_ENTRY + f32)
+        resident.argtypes = [p] * 5 + [i, i, i, i, fl, p]
+        resident.restype = i
+        staged = getattr(lib, STAGED_TIME_BACKWARD_ENTRY + f32)
+        staged.argtypes, staged.restype = time_args, i
     for step, pointers in SPACE_BACKWARD_STEPS:
         entry = getattr(lib, f"divided_space_backward_{step}{suffix}")
         entry.argtypes = [p] * pointers + [i, i, i, i, fl, p]
         entry.restype = i
     time = getattr(lib, "divided_time_attention_backward" + suffix)
-    time.argtypes = [p, p, p, p, p, i, i, i, i, i, fl, p]
-    time.restype = i
+    time.argtypes, time.restype = time_args, i
     return lib
 
 
@@ -556,6 +590,17 @@ def _cotangents(qkv, *ts) -> None:
                              "16-byte aligned")
 
 
+def space_backward_narrow_plan(bf: int, n: int, heads: int) -> str:
+    """The plan the space backward at heads of up to
+    ``SPACE_BACKWARD_NARROW_MAX`` dims runs on [BF, N, ...]: "resident" (one
+    block per (frame, head), ``SPACE_BACKWARD_RESIDENT_ENTRY``) or "class"
+    (``divided_space_attention_backward_classes``). The one place that
+    chooses, from ``SPACE_BACKWARD_RESIDENT_MIN_PAIRS``."""
+    least = SPACE_BACKWARD_RESIDENT_MIN_PAIRS.get(n)
+    return "resident" if least is not None and bf * heads >= least \
+        else "class"
+
+
 def space_backward_scratch(bf: int, n: int, heads: int, dim_head: int,
                            device):
     """What the space backward's kernels share, allocated (``torch.empty``)
@@ -563,7 +608,11 @@ def space_backward_scratch(bf: int, n: int, heads: int, dim_head: int,
     and gs [BF, N, H·dh], dsum [BF, H, N] (D = rowsum(g ∘ out)) and the dq
     kernel's stats [BF, H, N, 2] (each row's log2-sum-exp and D), both
     float32. At head dims up to ``SPACE_BACKWARD_NARROW_MAX`` the stats
-    alone (the class reads qkv where it lies)."""
+    alone where the class runs (it reads qkv where it lies), and nothing
+    where the resident plan runs (its block keeps them in shared memory)."""
+    if (dim_head <= SPACE_BACKWARD_NARROW_MAX
+            and space_backward_narrow_plan(bf, n, heads) == "resident"):
+        return ()
     stats = torch.empty(bf, heads, n, 2, dtype=torch.float32, device=device)
     if dim_head <= SPACE_BACKWARD_NARROW_MAX:
         return (stats,)
@@ -582,8 +631,10 @@ def space_attention_backward_cuda(qkv, out, g, sin, cos, heads: int,
     [BF, N, H·dh]; N a multiple of 128 from 256, dh dividing 128 from 2 up.
     Three launches (``SPACE_BACKWARD_STEPS``: the pre-pass, dq, dk/dv)
     through the scratch of ``space_backward_scratch``, or at head dims up to
-    ``SPACE_BACKWARD_NARROW_MAX`` the class's one (its dq and dk/dv kernels
-    through the stats alone); one launch of the backward in the count."""
+    ``SPACE_BACKWARD_NARROW_MAX`` one: the plan
+    ``space_backward_narrow_plan`` names, the resident block per (frame,
+    head) or the class (its dq and dk/dv kernels through the stats alone);
+    one launch of the backward in the count."""
     f32 = _operands(qkv, sin, cos)
     _cotangents(qkv, out, g)
     _check_head_dim(dim_head)
@@ -599,32 +650,45 @@ def space_attention_backward_cuda(qkv, out, g, sin, cos, heads: int,
     bufs = space_backward_scratch(bf, n, heads, dim_head, qkv.device)
     lib, suffix = _library(f32, dim_head not in SPACE_BACKWARD_HEAD_DIMS,
                            backward=True)
-    if dim_head <= SPACE_BACKWARD_NARROW_MAX:
-        launches = [("divided_space_attention_backward",
-                     (qkv, table, out, g, dqkv, *bufs))]
-    else:
+    if dim_head > SPACE_BACKWARD_NARROW_MAX:
         scratch, gs, dsum, stats = bufs
         pointers = {"prepass": (qkv, table, out, g, scratch, gs, dsum),
                     "dq": (scratch, gs, dsum, table, dqkv, stats),
                     "dkdv": (scratch, gs, dsum, table, dqkv, stats)}
-        launches = [(f"divided_space_backward_{step}", pointers[step])
+        launches = [(f"divided_space_backward_{step}{suffix}", pointers[step])
                     for step, _ in SPACE_BACKWARD_STEPS]
+    elif not bufs:   # the resident plan: no scratch
+        launches = [(SPACE_BACKWARD_RESIDENT_ENTRY + ("_f32" if f32 else ""),
+                     (qkv, table, out, g, dqkv))]
+    else:
+        launches = [("divided_space_attention_backward" + suffix,
+                     (qkv, table, out, g, dqkv, *bufs))]
     stream = kernels.cuda_stream(qkv)
     for entry, tensors in launches:
-        status = getattr(lib, entry + suffix)(
+        status = getattr(lib, entry)(
             *(t.data_ptr() for t in tensors), bf, n, heads, dim_head, scale,
             stream)
-        _build.check(lib, status, entry + suffix)
+        _build.check(lib, status, entry)
     count_launch("divided_space_attention_backward", qkv.shape, float32=f32,
-                 entry=" + ".join(entry + suffix for entry, _ in launches))
+                 entry=" + ".join(entry for entry, _ in launches))
     return dqkv
+
+
+def time_backward_staged(f: int) -> bool:
+    """Whether the time backward at ``f`` frames runs the kernel staged by
+    cp.async (``csrc/time_staged_backward.cuh``, the entry point
+    ``STAGED_TIME_BACKWARD_ENTRY``): clips of 8 frames
+    (``STAGED_TIME_BACKWARD_FRAMES``) at every head dim; the configurations'
+    kernel and the classes' elsewhere."""
+    return f in STAGED_TIME_BACKWARD_FRAMES
 
 
 def time_attention_backward_cuda(qkv, g, sin, cos, heads: int,
                                  dim_head: int, scale: float):
     """Kernel launch: dqkv [B, F, N, 3·H·dh] in qkv's type (bf16 or float32)
     from qkv and the output's cotangent g [B, F, N, H·dh] (the softmax's D
-    comes from P and dP: no output read); F and dh as the forward's."""
+    comes from P and dP: no output read); F and dh as the forward's. At
+    clips of 8 frames the staged kernel (``time_backward_staged``)."""
     f32 = _operands(qkv, sin, cos)
     _cotangents(qkv, g)
     b, f, n, c3 = qkv.shape
@@ -637,6 +701,8 @@ def time_attention_backward_cuda(qkv, g, sin, cos, heads: int,
     lib, suffix = _library(f32, (f, dim_head) not in TIME_SHAPES,
                            backward=True)
     entry = "divided_time_attention_backward" + suffix
+    if time_backward_staged(f):
+        entry = STAGED_TIME_BACKWARD_ENTRY + ("_f32" if f32 else "")
     status = getattr(lib, entry)(
         qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(), g.data_ptr(),
         dqkv.data_ptr(), b, f, n, heads, dim_head, scale,

@@ -1275,11 +1275,12 @@ def test_time_staged_at_8_frames_is_the_class_bit_for_bit(gen, b, n, heads,
 def time_class_lib():
     """The classes' time kernel the staged kernel replaced at 24 and 32
     frames, built by ``tools/ab_classes.py`` (``TIME_VARIANTS``) from the
-    headers of an earlier copy of the repository under ``build/before``
-    (``git archive 252b342 | tar -x -C build/before``, the last commit
-    before the staged kernel, unpacked here from the local history where
-    the directory is missing): {"": bf16 library, "_f32": float32
-    library}."""
+    headers of an earlier copy of the repository under
+    ``build/before-252b342`` (``git archive 252b342 | tar -x -C
+    build/before-252b342``, the last commit before the staged kernel,
+    unpacked here from the local history where the directory is missing;
+    named after its commit, as other tools' earlier copies are): {"": bf16
+    library, "_f32": float32 library}."""
     import pathlib
     import subprocess
     import sys
@@ -1287,7 +1288,7 @@ def time_class_lib():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     root = pathlib.Path(__file__).resolve().parents[1]
-    before = root / "build" / "before"
+    before = root / "build" / "before-252b342"
     header = before / "moditalker_tpu_torch" / "csrc" / "divided_attention.cuh"
     if not header.is_file():
         before.mkdir(parents=True, exist_ok=True)
@@ -1295,8 +1296,8 @@ def time_class_lib():
                        shell=True, capture_output=True)
     if not header.is_file():
         pytest.skip("needs an earlier copy of the repository under "
-                    "build/before, whose time classes it builds, and no "
-                    "git history here to unpack it from")
+                    "build/before-252b342, whose time classes it builds, "
+                    "and no git history here to unpack it from")
     sys.path.insert(0, str(root / "tools"))
     import ab_classes
     import ctypes
@@ -1351,3 +1352,99 @@ def test_time_staged_is_the_class_bit_for_bit(gen, time_class_lib, b, f, n,
                                                   use_flash=False),
                  tdiv.divided_attention_float32_route(x32, sin, cos, "time",
                                                       heads, dh, dh**-0.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,heads,dh", [
+    (1, 1024, 8, 64), (1, 256, 16, 32), (1, 256, 32, 16), (1, 256, 64, 8),
+    (1, 256, 4, 128), (1, 64, 4, 128), (1, 256, 128, 4), (1, 128, 256, 2),
+    (2, 100, 2, 64), (1, 5, 3, 128)])
+def test_time_backward_staged_at_8_frames_is_the_class_bit_for_bit(
+        gen, b, n, heads, dh, dtype):
+    """The time backward staged by cp.async at clips of 8 frames (two items
+    a warp's tile, ``STAGED_TIME_BACKWARD_ENTRY``), at every head-dim
+    class, with warps that walk many items (heads of 4 and 2) and a last
+    tile holding one item (15 items): its dqkv equal bit for bit to the
+    classes' time backward (the frame class 16, padded and masked) on the
+    same inputs, called through its entry point in this checkout's library,
+    which still takes 8 frames; within the time backward's limits of the
+    float32 plain backward and, in float32, of its route; two calls
+    equal."""
+    f, f32 = 8, dtype == torch.float32
+    sin, cos = _divided_tables("time", f, n, dh)
+    x = _randn32(gen, b, f, n, 3 * heads * dh).to(dtype)
+    g = _randn32(gen, b, f, n, heads * dh).to(dtype)
+    entry = tdiv.STAGED_TIME_BACKWARD_ENTRY + ("_f32" if f32 else "")
+    before = LAUNCHES_BY_ENTRY[entry]
+    run = lambda: tdiv.time_attention_backward_cuda(x, g, sin, cos, heads,
+                                                    dh, dh**-0.5)
+    got = _launched("divided_time_attention_backward", run)
+    assert LAUNCHES_BY_ENTRY[entry] == before + 1
+    assert got.dtype == dtype and torch.equal(got, run())
+    lib, suffix = tdiv._library(f32, True, backward=True)
+    want = torch.full_like(got, float("nan"))
+    cls = "divided_time_attention_backward" + suffix
+    status = getattr(lib, cls)(
+        x.data_ptr(), sin.data_ptr(), cos.data_ptr(), g.data_ptr(),
+        want.data_ptr(), b, f, n, heads, dh, dh**-0.5,
+        torch.cuda.current_stream().cuda_stream)
+    _build.check(lib, status, cls)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    x32 = x.float()
+    out = tdiv.divided_attention_reference(x32, sin, cos, "time", heads, dh,
+                                           dh**-0.5, use_flash=False)
+    args = (x32, out, g.float(), sin, cos, "time", heads, dh, dh**-0.5)
+    _check_class("divided_time_attention_backward", got,
+                 tbwd.divided_attention_backward_reference(*args),
+                 tbwd.divided_attention_backward_float32_route(*args))
+
+
+# (frames, N, heads, head dim, plan): the narrow space backward's two plans
+# at heads of 2 to 16 dims over the gate's lengths, the resident one up to
+# the 1024 tokens it holds, at a pass and at two (with a last pass short of
+# its keys at 768), and frames that fill the card and leave it idle
+NARROW_SPACE_BACKWARD = [
+    (1, 256, 64, 2, "resident"), (1, 1024, 32, 4, "resident"),
+    (1, 1024, 16, 8, "resident"), (2, 1024, 8, 16, "resident"),
+    (1, 384, 32, 4, "resident"), (1, 768, 16, 16, "resident"),
+    (3, 512, 4, 8, "resident"), (16, 1024, 32, 16, "resident"),
+    (1, 256, 64, 2, "class"), (2, 1024, 8, 16, "class"),
+    (1, 2048, 16, 2, "class"), (1, 2048, 8, 16, "class")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bf,n,heads,dh,plan", NARROW_SPACE_BACKWARD)
+def test_space_backward_narrow_plans_match_plain(gen, monkeypatch, bf, n,
+                                                 heads, dh, plan, dtype):
+    """The space backward at heads of 2 to 16 dims on each of its plans
+    (``space_backward_narrow_plan`` forced: the resident block per (frame,
+    head), ``SPACE_BACKWARD_RESIDENT_ENTRY``, and the class), launched
+    through its entry point, at N = 256 to 2048: within the backward's
+    limits of the float32 plain backward and, in float32, of its route
+    (heads of 2 and 4 with the scores' operands split into hi + lo); two
+    calls equal bit for bit."""
+    f32 = "_f32" if dtype == torch.float32 else ""
+    sin, cos = _pair_tables(n, dh)
+    x = _randn32(gen, 1, bf, n, 3 * heads * dh).to(dtype)
+    g = _randn32(gen, 1, bf, n, heads * dh).to(dtype)
+    out = tdiv.divided_attention_reference(x, sin, cos, "space", heads, dh,
+                                           dh**-0.5, use_flash=False)
+    monkeypatch.setattr(tdiv, "space_backward_narrow_plan",
+                        lambda *a: plan)
+    entry = (tdiv.SPACE_BACKWARD_RESIDENT_ENTRY + f32 if plan == "resident"
+             else "divided_space_attention_backward_classes" + f32)
+    before = LAUNCHES_BY_ENTRY[entry]
+    flat = (bf, n, -1)
+    run = lambda: tdiv.space_attention_backward_cuda(
+        x.reshape(flat), out.reshape(flat), g.reshape(flat), sin, cos, heads,
+        dh, dh**-0.5).reshape(x.shape)
+    name = "divided_space_attention_backward"
+    got = _launched(name, run)
+    assert LAUNCHES_BY_ENTRY[entry] == before + 1
+    assert got.dtype == dtype and torch.equal(got, run())
+    args = (x, out, g, sin, cos, "space", heads, dh, dh**-0.5)
+    _check_class(name, got, tbwd.divided_attention_backward_reference(*args),
+                 tbwd.divided_attention_backward_float32_route(*args))

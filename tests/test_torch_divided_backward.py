@@ -355,8 +355,11 @@ def test_backward_reaches_the_classes_entry_points(stub_launches, axis, f,
     head dim 64 past 1152 keys (the configurations' library, which takes
     any N % 128 == 0), space at head dims 32 and 128 (the classes'
     library: its pre-pass, dq and dk/dv) and 2 and 16 (the classes'
-    library's mma.sync class, one entry point), and time at 8 and 32
-    frames."""
+    library, one entry point: the resident plan's where
+    ``space_backward_narrow_plan`` names it, else the mma.sync class's),
+    and time at 8 (the staged kernel's entry point in that library) and 32
+    frames (``entry``: the classes' entry point each shape reached before
+    the resident plan and the staged kernel)."""
     heads = 256 // dh if axis == "space" else HEADS
     if axis == "space":
         side = 32 if n % 32 == 0 and n >= 1024 else 16
@@ -372,15 +375,140 @@ def test_backward_reaches_the_classes_entry_points(stub_launches, axis, f,
     out = tdiv.divided_attention(x, sin, cos, axis, heads, dh, 0.125)
     (dx,) = torch.autograd.grad(out, x, torch.randn(out.shape).to(dtype))
     assert dx.shape == x.shape and dx.dtype == dtype
+    f32 = "_f32" if dtype == torch.float32 else ""
     if axis == "space" and dh <= tdiv.SPACE_BACKWARD_NARROW_MAX:
-        assert stub_launches[1:] == [
-            "divided_space_attention_backward" + entry]
+        if tdiv.space_backward_narrow_plan(f, n, heads) == "resident":
+            entry = tdiv.SPACE_BACKWARD_RESIDENT_ENTRY + f32
+        else:
+            entry = "divided_space_attention_backward" + entry
+        assert stub_launches[1:] == [entry]
     elif axis == "space":
         assert stub_launches[1:] == [f"divided_space_backward_{step}{entry}"
                                      for step in ("prepass", "dq", "dkdv")]
     else:
+        if tdiv.time_backward_staged(f):
+            entry = tdiv.STAGED_TIME_BACKWARD_ENTRY + f32
         assert stub_launches[-1] == entry and len(stub_launches) == 2
     assert tkernels.LAUNCHES[f"divided_{axis}_attention_backward"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_time_backward_at_8_frames_reaches_the_staged_kernel(stub_launches,
+                                                             monkeypatch,
+                                                             dtype):
+    """The time backward at clips of 8 frames launches the staged kernel's
+    entry point (``STAGED_TIME_BACKWARD_ENTRY``, csrc/time_staged_backward.cuh)
+    at every head-dim class, 2 to 128, bf16 and float32, with the pointers
+    of qkv, the tables, the cotangent and dqkv and the problem's shape; 16
+    frames keep the configurations' kernel (at head dim 64) and the
+    classes', 24 and 32 the classes'."""
+    f32 = "_f32" if dtype == torch.float32 else ""
+    args = []
+    for lib in ("_bwd_lib", "_bwd_lib_f32", "_bwd_classes_lib",
+                "_bwd_classes_lib_f32"):
+        monkeypatch.setattr(tdiv, lib, lambda: StubLib(stub_launches, args))
+    assert tdiv.STAGED_TIME_BACKWARD_FRAMES == (8,)
+    for f in (8, 16, 24, 32):
+        for dh in (2, 4, 8, 16, 32, 64, 128):
+            heads, n = max(1, 128 // dh), 8
+            sin, cos = (_t(a) for a in rotary.time_rotary_sincos(f, dh))
+            qkv = torch.zeros(1, f, n, 3 * heads * dh, dtype=dtype)
+            g = torch.zeros(1, f, n, heads * dh, dtype=dtype)
+            stub_launches.clear()
+            args.clear()
+            dqkv = tdiv.time_attention_backward_cuda(qkv, g, sin, cos, heads,
+                                                     dh, dh**-0.5)
+            if f == 8:
+                want = tdiv.STAGED_TIME_BACKWARD_ENTRY + f32
+            elif (f, dh) in tdiv.TIME_SHAPES:
+                want = "divided_time_attention_backward" + f32
+            else:
+                want = "divided_time_attention_backward_classes" + f32
+            assert tdiv.time_backward_staged(f) == (f == 8)
+            assert stub_launches == [want], (f, dh)
+            ((name, a),) = args
+            assert a[:5] == tuple(t.data_ptr()
+                                  for t in (qkv, sin, cos, g, dqkv))
+            assert list(a[5:10]) == [1, f, n, heads, dh]
+            assert a[10] == dh**-0.5
+    by_entry = tkernels.LAUNCHES_BY_ENTRY
+    assert by_entry[tdiv.STAGED_TIME_BACKWARD_ENTRY + f32] == 7
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_space_backward_narrow_heads_reach_their_plan(stub_launches,
+                                                      monkeypatch, dtype):
+    """The space backward at heads of 2, 4, 8 and 16 dims over N = 256 to
+    2048 and 16 to 4096 (frame, head) pairs launches the one entry point of
+    the plan ``space_backward_narrow_plan`` names: the resident block per
+    (frame, head) (``SPACE_BACKWARD_RESIDENT_ENTRY``: qkv, the pair table,
+    out, g and dqkv, no scratch) or the class
+    (``divided_space_attention_backward_classes``: those and the stats
+    scratch), in the classes' library of qkv's type; never the resident one
+    past the 1024 tokens it holds."""
+    f32 = "_f32" if dtype == torch.float32 else ""
+    args, scratch = [], []
+    for lib in ("_bwd_classes_lib", "_bwd_classes_lib_f32"):
+        monkeypatch.setattr(tdiv, lib, lambda: StubLib(stub_launches, args))
+    allocate = tdiv.space_backward_scratch
+    monkeypatch.setattr(tdiv, "space_backward_scratch", lambda *a: (
+        scratch.clear() or scratch.extend(allocate(*a)) or tuple(scratch)))
+    plans = set()
+    for n in range(256, 2049, 128):
+        for dh in (2, 4, 8, 16):
+            heads = 128 // dh
+            sin = cos = torch.ones(n, dh)
+            for bf in (1, 8, 64):
+                qkv = torch.zeros(bf, n, 3 * heads * dh, dtype=dtype)
+                out = torch.zeros(bf, n, heads * dh, dtype=dtype)
+                stub_launches.clear()
+                args.clear()
+                dqkv = tdiv.space_attention_backward_cuda(
+                    qkv, out, out, sin, cos, heads, dh, dh**-0.5)
+                plan = tdiv.space_backward_narrow_plan(bf, n, heads)
+                plans.add(plan)
+                ((name, a),) = args
+                ptrs = (qkv.data_ptr(), a[1], out.data_ptr(),
+                        out.data_ptr(), dqkv.data_ptr())
+                if plan == "resident":
+                    assert n <= 1024
+                    assert stub_launches == [
+                        tdiv.SPACE_BACKWARD_RESIDENT_ENTRY + f32]
+                    assert scratch == [] and a[:5] == ptrs
+                else:
+                    assert plan == "class"
+                    assert stub_launches == [
+                        "divided_space_attention_backward_classes" + f32]
+                    (stats,) = scratch
+                    assert tuple(stats.shape) == (bf, heads, n, 2)
+                    assert a[:6] == (*ptrs, stats.data_ptr())
+                assert a[-6:-1] == (bf, n, heads, dh, dh**-0.5)
+    assert plans == {"resident", "class"}
+
+
+def test_narrow_plan_table_names_one_plan_everywhere_it_was_measured():
+    """``SPACE_BACKWARD_RESIDENT_MIN_PAIRS`` (tools/ab_space_backward.py
+    --gate over N = 256 to 1024 and 32 to 2048 (frame, head) pairs): lengths
+    the resident kernel holds (up to ``kSbrMaxN`` in
+    csrc/divided_backward.cuh), each with a least pair count the gate
+    measured; at every measured (N, pairs) the chooser names exactly one
+    plan, the resident one from that count on, and past the table the
+    class."""
+    header = (_build.CSRC / "divided_backward.cuh").read_text()
+    (max_n,) = re.findall(r"constexpr int kSbrMaxN = (\d+);", header)
+    measured = (32, 64, 128, 256, 512, 1024, 2048)
+    table = tdiv.SPACE_BACKWARD_RESIDENT_MIN_PAIRS
+    assert max(table) <= int(max_n) == 1024
+    for n, least in table.items():
+        assert n % 128 == 0 and 256 <= n and least in measured
+    for n in range(256, 1025, 128):
+        for pairs in measured:
+            want = ("resident" if n in table and pairs >= table[n]
+                    else "class")
+            assert tdiv.space_backward_narrow_plan(1, n, pairs) == want
+            assert tdiv.space_backward_narrow_plan(pairs, n, 1) == want
+    for n in range(1152, 2049, 128):
+        assert tdiv.space_backward_narrow_plan(64, n, 64) == "class"
 
 
 def test_backward_refuses_a_cotangent_of_another_type(stub_launches):
@@ -475,6 +603,35 @@ def test_backward_sources_match_the_wrappers(suffix):
         assert tkernels.SOURCES[name] == "divided_backward"
         assert tkernels.FLOAT32_SOURCES[name] == "divided_backward_f32"
         assert name in tkernels.LAUNCHES
+    # the classes' sources: the wgmma design's three steps beyond head dim
+    # 64, the narrow heads' two plans and the time backward's class and its
+    # staged kernel at 8 frames, each launcher switching on its classes
+    classes = f"divided_backward_classes{suffix}.cu"
+    text = (_build.CSRC / classes).read_text()
+    c_api = text[text.index('extern "C" {'):]
+    assert set(re.findall(r"\bint (\w+)\(", c_api)) == {
+        *(f"{n}_classes{suffix}" for n in space),
+        f"divided_space_attention_backward_classes{suffix}",
+        tdiv.SPACE_BACKWARD_RESIDENT_ENTRY + suffix,
+        f"divided_time_attention_backward_classes{suffix}",
+        tdiv.STAGED_TIME_BACKWARD_ENTRY + suffix}
+    assert '#include "time_staged_backward.cuh"' in text
+    body = _entry_body(classes, tdiv.SPACE_BACKWARD_RESIDENT_ENTRY + suffix)
+    assert "launch_space_backward_resident<" in body
+    body = _entry_body(classes, tdiv.STAGED_TIME_BACKWARD_ENTRY + suffix)
+    assert "launch_time_backward_staged_classes<" in body
+    header = (_build.CSRC / "divided_backward.cuh").read_text()
+    launcher = header[header.index("int launch_space_backward_resident("):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert tuple(int(x) for x in re.findall(r"case (\d+):", launcher)) == (
+        tdiv.SPACE_BACKWARD_NARROW_MAX,)
+    staged = (_build.CSRC / "time_staged_backward.cuh").read_text()
+    launcher = staged[staged.index(
+        "int launch_time_backward_staged_classes("):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert tuple(int(x) for x in re.findall(r"case (\d+):", launcher)) == (
+        16, 32, 64, 128)
+    assert "if (F != 8 ||" in launcher
 
 
 @pytest.mark.parametrize("name", ["divided_space_attention_backward",

@@ -223,7 +223,9 @@ def test_float32_entry_points_are_in_their_own_source():
                    "divided_space_backward_prepass_classes",
                    "divided_space_backward_dq_classes",
                    "divided_space_backward_dkdv_classes",
-                   "divided_time_attention_backward_classes"}}
+                   "divided_time_attention_backward_classes",
+                   tdiv.SPACE_BACKWARD_RESIDENT_ENTRY,
+                   tdiv.STAGED_TIME_BACKWARD_ENTRY}}
     # float32 alone: the one-pass and fused kernels at head dim 64 past
     # resident K (the pre-pass and the bf16 K ring), the space kernel's
     # cluster plan

@@ -64,7 +64,11 @@ checkout's headers) and two items of 8 frames a tile (``PAIR``, what
 ``STAGED_TIME_ENTRY`` runs at 8 frames), each bit for bit against the
 class at every head-dim class, in turns (class, padded, pair, pair,
 padded, class) at qkv [1, 8, 1024, 1536], bf16 and float32, with the
-library call and the bound.
+library call and the bound; then its backward likewise: the classes'
+backward (``divided_time_attention_backward_classes``) against the staged
+backward (``divided_attention.STAGED_TIME_BACKWARD_ENTRY``), bit for bit at
+every head-dim class, in turns (class, staged, staged, class) with the
+library's backward and the bound.
 
 The replaced designs (the small-head class 128 and the class with the
 rotary) are no longer in this checkout's headers: those variants are built
@@ -395,6 +399,7 @@ def main() -> int:
         time32_against_class(torch, rnd, status, args.before)
     if args.time8 or not only:
         time8_against_class(torch, rnd, status)
+        time8_backward_against_class(torch, rnd, status)
     return 0
 
 
@@ -1051,6 +1056,108 @@ def time8_against_class(torch, rnd, status) -> None:
                     "library_ms": chip_smoke.time_ms(
                         torch, lambda: F.scaled_dot_product_attention(
                             qh, kh, vh, scale=sc)),
+                    "bound_ms": bound, "bound_by": by,
+                    "errors": [float(f"{e:.4g}") for e in errs]})
+            print(json.dumps(row), flush=True)
+
+
+
+def time8_backward_against_class(torch, rnd, status) -> None:
+    """The time backward at clips of 8 frames, bf16 and float32: the classes'
+    kernel (``divided_time_attention_backward_classes``, the frame class 16
+    padded and masked) against the staged kernel's two items a tile
+    (``dv.STAGED_TIME_BACKWARD_ENTRY``), bit for bit at every head-dim
+    class, a last tile holding one item among them; at qkv [1, 8, 1024,
+    1536] (8 heads of 64) in turns (class, staged, staged, class), with the
+    library's
+    backward (``torch.autograd.grad`` through
+    ``F.scaled_dot_product_attention`` on the rotated, head-split q, k, v),
+    the bound (qkv and g read, dqkv written, the tables) and each held to
+    the float32 plain backward (and in float32 to its route)."""
+    import torch.nn.functional as F
+
+    import chip_smoke
+    from moditalker_tpu_torch.ops import rotary
+    from moditalker_tpu_torch.ops.kernels import (
+        bf16_rounded_share, check_bf16, check_float32_route, cuda_stream)
+    from moditalker_tpu_torch.ops.kernels import divided_attention as dv
+    from moditalker_tpu_torch.ops.kernels import divided_backward as db
+
+    cases = [(1, 1024, 8, 64), (1, 256, 16, 32), (1, 256, 32, 16),
+             (1, 256, 64, 8), (1, 256, 4, 128), (1, 256, 128, 4),
+             (1, 128, 256, 2), (2, 64, 2, 64), (1, 5, 3, 128)]
+    f = 8
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        suffix = "_f32" if f32 else ""
+        lib = dv._bwd_classes_lib_f32() if f32 else dv._bwd_classes_lib()
+        entries = {"class": (lib, "divided_time_attention_backward_classes"
+                             + suffix),
+                   "staged": (lib, dv.STAGED_TIME_BACKWARD_ENTRY + suffix)}
+        for b, n, heads, dh in cases:
+            sin, cos = (torch.from_numpy(t).cuda()
+                        for t in rotary.time_rotary_sincos(f, dh))
+            qkv = rnd(b, f, n, 3 * heads * dh, dtype=dtype)
+            cot = rnd(b, f, n, heads * dh, dtype=dtype)
+            sc = dh**-0.5
+            outs, fns = {}, {}
+            for which, (lb, entry) in entries.items():
+                dqkv = torch.full_like(qkv, float("nan"))
+
+                def call(lb=lb, entry=entry, dqkv=dqkv, qkv=qkv, cot=cot,
+                         sin=sin, cos=cos, b=b, n=n, heads=heads, dh=dh,
+                         sc=sc):
+                    status(lb, getattr(lb, entry)(
+                        qkv.data_ptr(), sin.data_ptr(), cos.data_ptr(),
+                        cot.data_ptr(), dqkv.data_ptr(), b, f, n, heads, dh,
+                        sc, cuda_stream(qkv)), entry)
+                    return dqkv
+
+                fns[which] = call
+                outs[which] = call().clone()
+            row = {"case": f"time backward [{b}, {f}, {n}, "
+                           f"{3 * heads * dh}] {heads} heads of {dh} "
+                           f"{dtype}".replace("torch.", ""),
+                   **{f"{w}_equals_class_bit_for_bit": bool(torch.equal(
+                       outs[w], outs["class"])) for w in outs if w != "class"}}
+            if n == 1024:
+                times = {}
+                for which in ("class", "staged", "staged", "class"):
+                    times.setdefault(which, []).append(
+                        chip_smoke.time_ms(torch, fns[which]))
+                x = qkv.float()
+                out = dv.divided_attention_reference(
+                    x, sin, cos, "time", heads, dh, sc, use_flash=False)
+                args = (x, out, cot.float(), sin, cos, "time", heads, dh, sc)
+                name = "divided_time_attention_backward"
+                errs = check_bf16(name, outs["staged"],
+                                  db.divided_attention_backward_reference(
+                                      *args))
+                if f32:
+                    errs = check_float32_route(
+                        name, outs["staged"],
+                        db.divided_attention_backward_float32_route(*args))
+                    row["bf16_rounded_share"] = bf16_rounded_share(
+                        outs["staged"])
+                qh, kh, vh = (t.float().reshape(b, f, n, heads, dh).permute(
+                    0, 2, 3, 1, 4).reshape(b * n, heads, f, dh)
+                    for t in qkv.chunk(3, -1))
+                qh, kh = rotary.apply_rot_emb(qh, kh, sin, cos)
+                qh, kh, vh = (t.contiguous().requires_grad_()
+                              for t in (qh, kh, vh))
+                lo = F.scaled_dot_product_attention(qh, kh, vh, scale=sc)
+                lg = torch.randn(lo.shape, device="cuda")
+                bound, by = chip_smoke.bound_ms(
+                    (2 * qkv.numel() + cot.numel()) * qkv.element_size()
+                    + 2 * sin.numel() * 4,
+                    10.0 * b * n * heads * f * f * dh)
+                best = {w: min(t) for w, t in times.items()}
+                row.update({
+                    **{f"{w}_ms": times[w] for w in times},
+                    "staged_over_class": best["staged"] / best["class"],
+                    "library_ms": chip_smoke.device_ms(
+                        torch, lambda: torch.autograd.grad(
+                            lo, (qh, kh, vh), lg, retain_graph=True)),
                     "bound_ms": bound, "bound_by": by,
                     "errors": [float(f"{e:.4g}") for e in errs]})
             print(json.dumps(row), flush=True)
